@@ -1,0 +1,65 @@
+"""The port stands alone: no module of ``twtml_tpu_torch`` imports ``jax`` or
+anything of the JAX package ``twtml_tpu``, and importing the port's app
+leaves ``jax`` out of ``sys.modules``."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted(
+    p for p in (REPO / "twtml_tpu_torch").rglob("*.py") if "__pycache__" not in p.parts
+) + [REPO / "chip_smoke.py"]
+
+
+def forbidden(module: str) -> bool:
+    head = module.split(".")[0]
+    return head in ("jax", "jaxlib", "twtml_tpu")
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_reference_imports(path):
+    tree = ast.parse(path.read_text(encoding="utf-8"))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        elif isinstance(node, ast.Call) and getattr(node.func, "id", "") == "__import__":
+            names = [a.value for a in node.args[:1] if isinstance(a, ast.Constant)]
+        else:
+            continue
+        bad = [n for n in names if forbidden(n)]
+        assert not bad, f"{path.name}:{node.lineno} imports {bad}"
+    # no dotted "twtml_tpu." name anywhere (importlib strings, resources):
+    # the port names its counterparts by file path only
+    text = path.read_text(encoding="utf-8").replace("twtml_tpu_torch", "")
+    assert "twtml_tpu." not in text, f"{path.name} names a twtml_tpu.* module"
+
+
+def test_port_files_are_found():
+    names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
+    assert "twtml_tpu_torch/ops/fused_sgd.py" in names
+    assert "twtml_tpu_torch/apps/linear_regression.py" in names
+
+
+def test_importing_the_app_leaves_jax_unloaded():
+    code = (
+        "import sys\n"
+        "assert 'jax' not in sys.modules, 'jax pre-imported by the interpreter'\n"
+        "import twtml_tpu_torch.apps.linear_regression\n"
+        "import twtml_tpu_torch.convert\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'twtml_tpu'))\n"
+        "print(bad)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
