@@ -8,16 +8,24 @@ Run from the root of a checkout, on a machine with one CUDA card and nvcc:
 Phases, in order; any failure ends the run with a non-zero exit:
   1. device  — the card's name and power limit (nvidia-smi), torch and CUDA;
   2. build   — compile every kernel of the port from ``twtml_tpu_torch/csrc``;
-  3. kernel  — the fused dense-SGD kernel against its plain PyTorch twin on
-               the card, case by case, at rtol 1e-4 / atol 1e-5 (only the
-               summation order differs);
+  3. kernel  — the fused dense-SGD kernel (one cooperative launch a call)
+               against its plain PyTorch twin on the card, case by case, at
+               rtol 1e-4 / atol 1e-5 (only the summation order differs), each
+               rerun bitwise equal: 7 cases of mixed sizes, then B = 1 and
+               B = 16 (smaller than one CTA's rows), B = 16381 (a ragged last
+               CTA, rows spilled), B = 4096 x F = 8196 (the tiled wide-F and
+               spill path) with NaN/Inf in masked rows bitwise ignored, and
+               the operating point (spill path);
   4. main    — the flagship app (``apps/linear_regression.run``) on cuda for 4
                full-width synthetic batches (16384 tweets, 1000 + 4 dims, 50
                iterations, --modelWatch on), with the kernel's launch counter
                showing the loop went through it and the stats held against
                the same app's model on the CPU;
   5. replay  — the replay fixture on cuda, lines equal to the CPU run's;
-  6. times   — kernel, twin and bound at the operating point.
+  6. times   — at the operating point: the launch plan (grid, rows resident
+               and spilled, shared memory, registers from ptxas), kernel,
+               prologue and per-iteration times, the twin, the bound, and
+               where a main-path step's time goes.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -150,17 +158,33 @@ def kernel_phase():
     to = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     cases = []
 
-    def case(name, x, y, mask, w0, **kw):
+    def case(name, x, y, mask, w0, dirty=False, **kw):
+        """Kernel vs twin at rtol/atol, a bitwise rerun, and with ``dirty``
+        NaN/Inf garbage in the masked rows, bitwise the same result."""
         kw.setdefault("num_iterations", OP_ITERS)
         kw.setdefault("step_size", 0.005)
         w, p = fused_sgd.fused_dense_sgd(x, y, mask, w0, **kw)
         w_ref, p_ref = fused_sgd.fused_dense_sgd_reference(x, y, mask, w0, **kw)
+        w_again, p_again = fused_sgd.fused_dense_sgd(x, y, mask, w0, **kw)
         torch.cuda.synchronize()
         ew, rw = compare(f"{name} weights", w, w_ref)
         ep, rp = compare(f"{name} preds", p, p_ref)
-        phase("kernel", f"{name}: B={x.shape[0]} F={x.shape[1]} "
+        if not (torch.equal(w, w_again) and torch.equal(p, p_again)):
+            raise AssertionError(f"{name}: reruns are not bitwise equal")
+        note = "rerun bitwise equal"
+        if dirty:
+            keep = mask > 0
+            x_d = torch.where(keep[:, None], x, float("nan"))
+            y_d = torch.where(keep, y, float("inf"))
+            w_d, p_d = fused_sgd.fused_dense_sgd(x_d, y_d, mask, w0, **kw)
+            if not (torch.equal(w, w_d) and torch.equal(p, p_d)):
+                raise AssertionError(f"{name}: NaN/Inf in masked rows reached the result")
+            note += f"; NaN/Inf in {int((~keep).sum())} masked rows: bitwise equal"
+        plan = fused_sgd.launch_plan(x.shape[0], x.shape[1], **sm_limits())
+        phase("kernel", f"{name}: B={x.shape[0]} F={x.shape[1]} grid {plan.grid}, "
+              f"{plan.resident_rows} rows resident, {plan.spill_rows} spilled; "
               f"max abs err w {ew:.3e} preds {ep:.3e}; max rel w {rw:.3e} "
-              f"preds {rp:.3e}")
+              f"preds {rp:.3e}; {note}")
         cases.append((name, max(ew, ep)))
         return w, p
 
@@ -192,16 +216,30 @@ def kernel_phase():
          convergence_tol=0.5)
     case("l2Reg 0.1", to(x), to(y), to(m), to(np.zeros(1004, "float32")), l2_reg=0.1)
 
+    # smaller than one CTA's rows, a ragged last CTA, the wide-F tiled path
+    small_w0 = lambda f: to(rng.normal(size=f).astype("float32") * 1e-3)  # noqa: E731
+    x, y, m = design(rng, 1, 1004, 1)
+    case("B=1", to(x), to(y), to(m), small_w0(1004))
+    x, y, m = design(rng, 16, 1004, 12)
+    case("B=16", to(x), to(y), to(m), small_w0(1004), dirty=True)
+    x, y, m = design(rng, 16381, 1004, 16000)
+    case("ragged last CTA (spill path)", to(x), to(y), to(m), small_w0(1004), dirty=True)
+    x, y, m = design(rng, 4096, 8196, 4000)
+    case("wide F (tiled + spill path)", to(x), to(y), to(m), small_w0(8196), dirty=True)
+    del x, y, m
+
     x, y, m, w0 = op_point_inputs(dev)
-    w_op, p_op = case("operating point", x, y, m, w0)
-    w_again, p_again = fused_sgd.fused_dense_sgd(
-        x, y, m, w0, num_iterations=OP_ITERS, step_size=0.005
-    )
-    if not (torch.equal(w_op, w_again) and torch.equal(p_op, p_again)):
-        raise AssertionError("operating point: reruns are not bitwise equal")
-    phase("kernel", "operating point: rerun bitwise equal")
+    case("operating point (spill path)", x, y, m, w0)
     torch.cuda.synchronize()
     return max(e for _, e in cases)
+
+
+def sm_limits():
+    """The launch plan's card arguments for device 0."""
+    from twtml_tpu_torch.ops import fused_sgd
+
+    sm_count, shared_limit = fused_sgd.device_limits(0)
+    return {"sm_count": sm_count, "shared_limit": shared_limit}
 
 
 # ---- phase 4/5: the main path ----------------------------------------------
@@ -223,13 +261,27 @@ def main_path_phase():
 
     from twtml_tpu_torch.ops import fused_sgd
 
+    from twtml_tpu_torch.models import sgd as sgd_module
+
+    # the iterations each batch's launch ran, as device scalars (no sync)
+    iterations = []
+
+    def recorded(*args, **kw):
+        out = fused_sgd.fused_dense_sgd(*args, **kw)
+        iterations.append(fused_sgd.fused_dense_sgd.last_iterations)
+        return out
+
     argv = ["--source", "synthetic", "--batchBucket", str(OP_ROWS)]
-    fused_sgd.fused_dense_sgd.launches = 0
-    t0 = time.perf_counter()
-    totals, lines = app_run(["--backend", "cuda", *argv], max_batches=4)
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    launches = fused_sgd.fused_dense_sgd.launches
+    sgd_module.fused_dense_sgd = recorded
+    try:
+        fused_sgd.fused_dense_sgd.launches = 0
+        t0 = time.perf_counter()
+        totals, lines = app_run(["--backend", "cuda", *argv], max_batches=4)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = fused_sgd.fused_dense_sgd.launches
+    finally:
+        sgd_module.fused_dense_sgd = fused_sgd.fused_dense_sgd
     for line, step in zip(lines, totals["steps"]):
         phase("main", f"{line} | featurize {step['featurize_ms']:.1f} ms, "
               f"step {step['step_ms']:.2f} ms (CUDA events)")
@@ -251,6 +303,8 @@ def main_path_phase():
     per_call = fused_sgd.launches_per_call(OP_ITERS)
     phase("main", f"fused_dense_sgd launches: {launches} calls = "
           f"{launches * per_call} device kernel launches ({per_call} per call)")
+    phase("main", "iterations run before the converged freeze, batches 1-4: "
+          f"{[int(t.item()) for t in iterations]} of {OP_ITERS}")
     for i, step in enumerate(totals["steps"]):
         values = [step[k] for k in ("count", "mse", "real_stdev", "pred_stdev")]
         values += step["quality"]
@@ -306,30 +360,26 @@ def timed(fn, runs):
     return statistics.median(times), times
 
 
-def profile_kernel(kernel_only, reset, runs=5):
-    """Device time per CUDA kernel of the loop, from torch.profiler."""
+KERNEL = "fused_sgd_kernel"
+
+
+def profile_kernel(kernel_only, runs=5):
+    """Device time of the kernel's launches, from torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(runs):
-            reset()
             kernel_only()
         torch.cuda.synchronize()
-    rows = []
-    for ev in prof.key_averages():
-        us = ev.device_time_total
-        if us and any(k in ev.key for k in ("matvec", "xtr_partial", "update_kernel")):
-            rows.append((us / runs, ev.count // runs, ev.key))
+    rows = [ev for ev in prof.key_averages() if ev.device_time_total and KERNEL in ev.key]
     if not rows:
         phase("times", "profiler: no device time recorded; breakdown not measured")
         return
-    total = sum(r[0] for r in rows)
-    for us, n, key in sorted(rows, reverse=True):
-        name = next(k for k in ("matvec", "xtr_partial", "update") if k in key)
-        phase("times", f"profile {name}: {us / 1e3:.4f} ms per call in {n} "
-              f"launches ({us / n:.2f} us each, {100 * us / total:.1f}% of kernel time)")
+    us = sum(ev.device_time_total for ev in rows) / runs
+    n = sum(ev.count for ev in rows) / runs
+    phase("times", f"profile {KERNEL}: {us / 1e3:.4f} ms per call in {n:g} launch(es)")
 
 
 def profile_step():
@@ -339,8 +389,8 @@ def profile_step():
     launches, the stats fetch that ends each) is timed without the profiler;
     a second model on the same batches gives the device time by CUDA kernel
     from torch.profiler. The per-step figures divide by the steps whose
-    kernels the profiler recorded, counted by the matvec launches (1 + N a
-    step, early-frozen iterations included)."""
+    kernels the profiler recorded, counted by the fused kernel's launches
+    (one a step)."""
     from torch.profiler import ProfilerActivity, profile
 
     from twtml_tpu_torch.features.featurizer import Featurizer
@@ -371,8 +421,7 @@ def profile_step():
         for batch in batches[1:]:
             float(model.step(batch).mse)
     kernels = [ev for ev in prof.key_averages() if ev.device_time_total]
-    matvecs = sum(ev.count for ev in kernels if "matvec_kernel" in ev.key)
-    steps = matvecs / (1 + OP_ITERS)
+    steps = sum(ev.count for ev in kernels if KERNEL in ev.key)
     if not steps:
         phase("times", f"step: {wall_ms:.3f} ms host wall; profiler recorded "
               "no kernel of the step, breakdown not measured")
@@ -381,7 +430,7 @@ def profile_step():
     busy = sum(ms for ms, _ in rows)
     phase("times", f"steps of batches 2-4: {wall_ms:.3f} ms host wall a step "
           f"(no profiler), {busy:.3f} ms device busy a step (profiler, "
-          f"{steps:.2f} of 3 steps recorded): {100 * (1 - busy / wall_ms):.1f}% "
+          f"{steps} of 3 steps recorded): {100 * (1 - busy / wall_ms):.1f}% "
           "device idle")
     for ms, key in sorted(rows, reverse=True)[:10]:
         phase("times", f"  step device {ms:.4f} ms ({100 * ms / busy:.1f}%) {key[:90]}")
@@ -391,15 +440,84 @@ def profile_step():
         for batch in batches[1:]:
             float(model.step(batch).mse)
     host = sorted(
-        ((ev.self_cpu_time_total / 3 / 1e3, ev.count // 3, ev.key)
+        ((ev.self_cpu_time_total / 3 / 1e3, ev.count / 3, ev.key)
          for ev in prof.key_averages() if ev.self_cpu_time_total),
         reverse=True,
     )
     total = sum(ms for ms, _, _ in host)
+    launches = {key: n for _, n, key in host if key.startswith("cudaLaunch")}
     phase("times", f"host self time a step (profiler on, so inflated): "
-          f"{total:.3f} ms over {sum(n for _, n, _ in host)} recorded ops")
+          f"{total:.3f} ms over {sum(n for _, n, _ in host):g} recorded ops; "
+          f"launches a step: {sum(launches.values()):g} "
+          f"({', '.join(f'{k} {n:g}' for k, n in sorted(launches.items()))})")
     for ms, n, key in host[:8]:
-        phase("times", f"  step host {ms:.4f} ms in {n} calls ({100 * ms / total:.1f}%) {key[:60]}")
+        phase("times", f"  step host {ms:.4f} ms in {n:g} calls ({100 * ms / total:.1f}%) {key[:60]}")
+
+
+def ptxas_report():
+    """Registers, spills and barriers of the kernel, from the ptxas report
+    that the build leaves beside the library."""
+    import re
+
+    from twtml_tpu_torch.ops import _build
+
+    path = _build.library_path("fused_sgd")
+    log = path.with_name(path.name + ".log")
+    text = log.read_text() if log.exists() else ""
+    block = text[text.find(KERNEL):] if KERNEL in text else ""
+    regs = re.search(r"Used (\d+) registers", block)
+    spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+    return (
+        int(regs.group(1)) if regs else None,
+        (int(spills.group(1)), int(spills.group(2))) if spills else None,
+    )
+
+
+def timeline(x, y, m, w0, plan, kernel_ms, iters):
+    """Where one call's time goes: the timeline build of the kernel records
+    clock64() on CTA 0 at each phase boundary (csrc/fused_sgd.cu,
+    TWTML_SGD_TIMELINE); cycles become us through the clock rate that the
+    whole call implies (its cycles over the kernel's median event time)."""
+    import ctypes
+
+    import torch
+
+    from twtml_tpu_torch.ops import _build, fused_sgd
+
+    fn = fused_sgd._library("fused_sgd_timeline")
+    slots = torch.zeros(512, dtype=torch.int64, device="cuda")
+    set_timeline = _build.load("fused_sgd_timeline").twtml_fused_sgd_set_timeline
+    if set_timeline(ctypes.c_void_p(slots.data_ptr()), 512):
+        raise RuntimeError("timeline buffer not set")
+    b, f = x.shape
+    w = torch.empty(f, device="cuda")
+    preds = torch.empty(b, device="cuda")
+    spill = torch.empty(plan.spill_elements, dtype=torch.bfloat16, device="cuda")
+    scratch = torch.empty(plan.scratch_floats, device="cuda")
+    for _ in range(3):
+        err = fn(x.data_ptr(), y.data_ptr(), m.data_ptr(), w0.data_ptr(), w.data_ptr(),
+                 preds.data_ptr(), spill.data_ptr(), scratch.data_ptr(), b, f,
+                 plan.fpad, plan.grid, plan.rows_cap, plan.resident,
+                 plan.spill_per_cta, plan.shared_bytes, OP_ITERS, 0.005, 0.0, 0.001,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"CUDA error {err}")
+    t = slots.cpu().tolist()
+    ghz = (t[3] - t[0]) / (kernel_ms * 1e6)
+    us = lambda cycles: cycles / ghz / 1e3  # noqa: E731
+    phase("times", f"timeline (CTA 0, clock64 at ~{ghz:.3f} GHz): call {us(t[3] - t[0]):.1f} us, "
+          f"prologue {us(t[1] - t[0]):.1f} us, first barrier {us(t[2] - t[1]):.2f} us")
+    names = ("row pass + CTA reduction", "barrier 1", "column update", "barrier 2",
+             "new w + converged decision")
+    steps = []
+    for it in range(2, iters + 1):  # iteration 1 also writes preds
+        marks = [t[8 * (it - 1) + 4]] + [t[8 * it + k] for k in range(5)]
+        steps.append([marks[k + 1] - marks[k] for k in range(5)])
+    if steps:
+        per = [statistics.median(s[k] for s in steps) for k in range(5)]
+        phase("times", f"timeline per iteration (median of iterations 2-{iters}): "
+              f"{us(sum(per)):.2f} us = " + ", ".join(
+                  f"{name} {us(c):.2f}" for name, c in zip(names, per)))
 
 
 def times_phase(smi, max_err, launches):
@@ -412,88 +530,89 @@ def times_phase(smi, max_err, launches):
     b, f = x.shape
     kw = dict(num_iterations=OP_ITERS, step_size=0.005)
 
-    # iterations this data runs before the converged freeze: reruns are
-    # bitwise equal, so w(k) == w(N) exactly from the freeze on
+    # iterations this data runs before the converged freeze, as the kernel
+    # counts them, checked by bisection: reruns are bitwise equal, so
+    # w(k) == w(N) exactly from the freeze on
     w_full, _ = fused_sgd.fused_dense_sgd(x, y, m, w0, **kw)
+    iters = int(fused_sgd.fused_dense_sgd.last_iterations.item())
     lo, hi = 1, OP_ITERS
     while lo < hi:
         mid = (lo + hi) // 2
         w_mid, _ = fused_sgd.fused_dense_sgd(x, y, m, w0, **dict(kw, num_iterations=mid))
         lo, hi = (lo, mid) if torch.equal(w_mid, w_full) else (mid + 1, hi)
-    iters = lo
+    if lo != iters:
+        raise AssertionError(f"kernel counts {iters} iterations, bisection {lo}")
 
-    # the kernel alone: the C entry on prepared buffers, as the wrapper
-    # calls it (setup outside the timed region)
-    fpad = fused_sgd.padded_columns(f)
-    xb = torch.zeros((b, fpad), dtype=torch.bfloat16, device=dev)
-    xb[:, :f] = torch.where(m[:, None] > 0, x, 0.0)
-    yb = torch.where(m > 0, y, 0.0)
-    count = m.sum().reshape(1)
-    w = torch.zeros(fpad, device=dev)
+    # the kernel alone: the C entry on buffers allocated once, as the
+    # wrapper calls it (it writes only its outputs: no reset between runs)
+    plan = fused_sgd.launch_plan(b, f, **sm_limits())
+    w = torch.empty(f, device=dev)
     preds = torch.empty(b, device=dev)
-    resid = torch.empty(b, device=dev)
-    parts = torch.empty((-(-b // fused_sgd.ROWS_PER_CHUNK), fpad), device=dev)
-    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    spill = torch.empty(plan.spill_elements, dtype=torch.bfloat16, device=dev)
+    scratch = torch.empty(plan.scratch_floats, device=dev)
     fn = fused_sgd._library()
 
-    def kernel_only():
-        err = fn(xb.data_ptr(), yb.data_ptr(), count.data_ptr(), w.data_ptr(),
-                 preds.data_ptr(), resid.data_ptr(), parts.data_ptr(),
-                 flag.data_ptr(), b, f, fpad, fused_sgd.ROWS_PER_CHUNK, OP_ITERS,
-                 0.005, 0.0, 0.001, torch.cuda.current_stream().cuda_stream)
+    def kernel_only(iterations=OP_ITERS):
+        err = fn(x.data_ptr(), y.data_ptr(), m.data_ptr(), w0.data_ptr(), w.data_ptr(),
+                 preds.data_ptr(), spill.data_ptr(), scratch.data_ptr(), b, f,
+                 plan.fpad, plan.grid, plan.rows_cap, plan.resident,
+                 plan.spill_per_cta, plan.shared_bytes, iterations, 0.005, 0.0, 0.001,
+                 torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"CUDA error {err}")
 
-    def reset():
-        w.zero_()
-        w[:f] = w0
-        flag.zero_()
+    def kernel_times(iterations, runs=25):
+        for _ in range(3):  # warm-up
+            kernel_only(iterations)
+        times = [timed(lambda: kernel_only(iterations), 1)[0] for _ in range(runs)]
+        return statistics.median(times), times
 
-    kernel_times = []
-    for _ in range(3):  # warm-up
-        reset()
-        kernel_only()
-    for _ in range(25):
-        reset()
-        kernel_times.append(timed(kernel_only, 1)[0])
-    kernel_ms = statistics.median(kernel_times)
+    kernel_ms, times = kernel_times(OP_ITERS)
+    prologue_ms, _ = kernel_times(0)
     enqueue = []
-    for _ in range(10):  # host time to enqueue one call's launches
-        reset()
+    for _ in range(10):  # host time to enqueue one call
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         kernel_only()
         enqueue.append((time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
     wrapper_ms, _ = timed(lambda: fused_sgd.fused_dense_sgd(x, y, m, w0, **kw), 25)
-    profile_kernel(kernel_only, reset)
+    timeline(x, y, m, w0, plan, kernel_ms, iters)
+    profile_kernel(kernel_only)
     profile_step()
     twin_ms, _ = timed(lambda: fused_sgd.fused_dense_sgd_reference(x, y, m, w0, **kw), 10)
 
-    x_bytes = b * f * 2  # bf16 X, read once
-    io_bytes = x_bytes + 4 * b * 2 + 4 * f * 2  # + y, mask / preds, w0 / w
-    flops = 2 * b * f + iters * (4 * b * f + 6 * f)
+    # each input read once, each output written once: f32 X, y, mask,
+    # w0 / preds, w; X·w0 is the first iteration's product too
+    io_bytes = b * f * 4 + 4 * b * 2 + 4 * b + 4 * f * 2
+    flops = iters * (4 * b * f + 6 * f) if iters else 2 * b * f
     bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / F32_FLOPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    restream_ms = (1 + 2 * iters) * x_bytes / HBM_BYTES_PER_S * 1e3
+    regs, spills = ptxas_report()
     phase("times", f"card: {smi}")
     phase("times", f"operating point B={b} F={f}, {OP_ITERS} iterations "
-          f"({iters} run before the converged freeze)")
+          f"({iters} run before the converged freeze, kernel count = bisection)")
+    phase("times", f"launch plan: grid {plan.grid} CTAs x {fused_sgd.THREADS} threads, "
+          f"{plan.rows_cap} rows a CTA at most, {plan.resident} resident / "
+          f"{plan.spill_per_cta} spilled a CTA ({plan.resident_rows} / "
+          f"{plan.spill_rows} rows), {plan.shared_bytes} B shared memory a CTA, "
+          f"{regs} registers a thread, spill stores/loads {spills} B (ptxas)")
     phase("times", f"kernel alone: median {kernel_ms:.4f} ms over 25 runs "
-          f"(min {min(kernel_times):.4f}, max {max(kernel_times):.4f})")
+          f"(min {min(times):.4f}, max {max(times):.4f}); prologue alone "
+          f"(num_iterations=0): {prologue_ms:.4f} ms; per iteration "
+          f"{(kernel_ms - prologue_ms) / max(iters, 1) * 1e3:.2f} us "
+          f"((t{OP_ITERS} - t0) / {iters} iterations run)")
     phase("times", f"host enqueue of the kernel's {fused_sgd.launches_per_call(OP_ITERS)} "
-          f"launches: median {statistics.median(enqueue):.4f} ms over 10 calls")
-    phase("times", f"wrapper call (mask, bf16 pad, then the kernel): median "
+          f"launch: median {statistics.median(enqueue):.4f} ms over 10 calls")
+    phase("times", f"wrapper call (allocations and the kernel): median "
           f"{wrapper_ms:.4f} ms over 25 runs")
     phase("times", f"plain twin on the card: median {twin_ms:.4f} ms over 10 runs")
     phase("times", f"bound: bytes {io_bytes} B / 3.35e12 B/s = {bytes_ms:.5f} ms; "
           f"operations {flops} f32 flops / 67e12 flop/s = {ops_ms:.5f} ms; "
-          f"bound_ms = {bound_ms:.5f} ({bound_by})")
-    phase("times", f"design floor if X streamed from device memory for each of "
-          f"its {1 + 2 * iters} passes: {(1 + 2 * iters)} x {x_bytes} B / 3.35e12 "
-          f"= {restream_ms:.4f} ms; the kernel is held to bound_ms")
+          f"bound_ms = {bound_ms:.5f} ({bound_by}); kernel at "
+          f"{kernel_ms / bound_ms:.1f}x its bound")
     phase("times", "library_ms: none; no single PyTorch call computes the "
           "50-iteration SGD loop")
     return {
@@ -505,12 +624,17 @@ def times_phase(smi, max_err, launches):
         "launches": launches,
         "max_abs_err": max_err,
         "ms": kernel_ms,
+        "earlier_ms": 1.929,
+        "prologue_ms": prologue_ms,
         "wrapper_ms": wrapper_ms,
         "plain_ms": twin_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
         "iterations_run": iters,
+        "grid": plan.grid,
+        "shared_bytes": plan.shared_bytes,
+        "registers": regs,
     }
 
 

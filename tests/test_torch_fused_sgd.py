@@ -133,13 +133,69 @@ def test_cpu_tensors_never_launch_the_kernel():
 
 def test_kernel_gate():
     assert fused_sgd.padded_columns(1004) == 1008
-    assert fused_sgd.launches_per_call(50) == 151
+    assert fused_sgd.launches_per_call(50) == 1
     assert fused_sgd.supports(batch_rows=16384, num_features=1004)
     assert fused_sgd.supports(batch_rows=1, num_features=8196)
     assert not fused_sgd.supports(batch_rows=16, num_features=8197)
     assert not fused_sgd.supports(batch_rows=0, num_features=64)
     assert not fused_sgd.supports(batch_rows=16, num_features=64,
                                   dtype=torch.float64)
+
+
+# ---- the kernel's launch plan (pure arithmetic, checked on the CPU) ---------
+
+H100_SMS, H100_SHARED = 132, 232_448
+
+
+@pytest.mark.parametrize("features", [64, 1004, 8196])
+@pytest.mark.parametrize("rows", [1, 16, 16381, 16384])
+def test_launch_plan_covers_every_row_once(rows, features):
+    plan = fused_sgd.launch_plan(rows, features, sm_count=H100_SMS,
+                                 shared_limit=H100_SHARED)
+    assert 1 <= plan.grid <= H100_SMS
+    owned = [r for c in range(plan.grid) for r in plan.cta_rows(c)]
+    assert owned == list(range(rows))  # each row by exactly one CTA, in order
+    assert max(len(plan.cta_rows(c)) for c in range(plan.grid)) == plan.rows_cap
+    # one CTA an SM at most, and no more CTAs than give a warp a row each
+    assert plan.grid == min(H100_SMS, -(-rows // fused_sgd.WARPS))
+    assert plan.resident + plan.spill_per_cta == plan.rows_cap
+    assert plan.resident_rows + plan.spill_rows == rows
+    assert plan.resident_rows == sum(
+        min(len(plan.cta_rows(c)), plan.resident) for c in range(plan.grid))
+    assert plan.shared_bytes <= H100_SHARED
+    # one more resident row would not fit (or every row already is)
+    assert (plan.resident == plan.rows_cap
+            or plan.shared_bytes + 2 * plan.row_columns > H100_SHARED)
+    assert plan.row_columns >= plan.fpad and plan.row_columns % 8 == 0
+    assert plan.spill_elements == plan.grid * plan.spill_per_cta * plan.row_columns
+
+
+def test_launch_plan_operating_point():
+    """B = 16384, F = 1004 on an H100: 132 CTAs of 124-125 rows, 103 of
+    them resident (rows stored 1024 columns wide), the rest spilled."""
+    plan = fused_sgd.launch_plan(16384, 1004, sm_count=H100_SMS,
+                                 shared_limit=H100_SHARED)
+    assert (plan.grid, plan.rows_cap, plan.resident, plan.row_columns) == (132, 125, 103, 1024)
+    assert (plan.resident_rows, plan.spill_rows) == (13596, 2788)
+    assert plan.shared_bytes == 232_400
+
+
+def test_launch_plan_refuses_what_cannot_fit():
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_sgd.launch_plan(16384, 8196, sm_count=1, shared_limit=48 * 1024)
+
+
+def test_zero_weights_default_to_the_card():
+    """An entry point runs on the card unless the caller asks for the CPU:
+    without a card the default raises rather than falling back."""
+    from twtml_tpu_torch.models.sgd import zero_weights
+
+    assert zero_weights(4, device="cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert zero_weights(4).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            zero_weights(4)
 
 
 # ---- hand-computed MLlib literals (tests/test_sgd_literals.py) -------------

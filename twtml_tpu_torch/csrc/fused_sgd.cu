@@ -7,219 +7,623 @@
 //     w ← w·(1 − η·λ) − η·g   (skipped when count == 0);
 //     frozen from the next iteration once ‖Δw‖ < tol·max(‖w‖, 1).
 //
-// What bounds it on an H100: bytes. Each iteration reads X twice (X·w, then
-// Xᵀr) and does 2 flops per element read; X is stored in bf16 (the bigram
-// counts are small integers, exact in bf16), so at the operating point
-// (16384 × 1004) X is 32.9 MB and fits the 50 MB L2. Every sum, w, r and g
-// stay in f32: no per-product rounding of w or r as on the TPU.
+// What bounds it on an H100: operations, once X is on chip. Each iteration
+// does 4 flops per element of X (X·w, then Xᵀr) and, if X stays in shared
+// memory, moves no bytes of X off chip; f32 X is read from device memory
+// once. X is stored in bf16 (the bigram counts are small integers, exact in
+// bf16); every product, sum, w, r and g stays in f32.
 //
-// Design (the first, simple one): three launches per iteration on the
-// caller's stream, with all state (w, count, the converged flag) on the
-// device, so a batch needs no host sync.
-//   1. matvec_kernel: one warp per row, 16-byte loads of 8 bf16 along the
-//      row, warp-shuffle sum in a fixed order: r = X·w − y (preds = X·w0 in
-//      the one launch before the loop).
-//   2. xtr_partial_kernel: Xᵀr straight from row-major X (no Xᵀ copy).
-//      A block owns a chunk of rows and every column; a thread owns 8
-//      adjacent columns, so a warp's loads along a row stay coalesced. Two
-//      row groups per block combine in shared memory; the block writes one
-//      row of per-chunk partial sums.
-//   3. update_kernel: one block reduces the partials in chunk order, updates
-//      w, reduces ‖Δw‖² and ‖w‖² in a fixed tree and sets the flag. Later
-//      launches read the flag and return at once.
-// No float atomics anywhere: reruns are bitwise equal. Launches per call:
-// 1 + 3·N. Row-major X, padded to a multiple of 8 columns by the caller, is
-// the only layout taken.
+// Design: one persistent cooperative launch a call (the TPU kernel's own
+// idea: load X once and keep it on chip for the whole loop).
+//   - Grid: at most one CTA an SM (cudaLaunchCooperativeKernel, so all CTAs
+//     are co-resident); the launch plan (ops/fused_sgd.py::launch_plan)
+//     sizes it. CTA c owns rows [c·B/grid, (c+1)·B/grid).
+//   - Prologue: each CTA reads its rows of the caller's f32 X, labels and
+//     mask once, applies where(mask > 0, ·, 0) (NaN/Inf in masked rows stays
+//     out), converts X to bf16 and keeps it in dynamic shared memory. Rows
+//     that do not fit go to a bf16 spill buffer written once here and read
+//     from L2 (ld.global.cg) each iteration. At the operating point
+//     (B = 16384, F = 1004, fpad 1008, 132 SMs) a CTA owns 124-125 rows,
+//     stored 1024 columns wide; 103 stay resident (210,944 B of X + 21,456 B
+//     of w, reduction slots, y, r and scratch = 232,400 B of the 232,448 B a
+//     block may use) and 21-22 spill: 13,596 rows resident, 2,788 spilled
+//     (5.7 MB, in L2). Registers cannot hold the rest: w, the Xᵀr
+//     accumulator and two row buffers take ~166 of the 168 a thread may
+//     have at 384 threads a CTA (at 512 threads the cap is 128 and ptxas
+//     spills in the row loop). A warp's spill rows are its last; loading
+//     the next row into the other register buffer hides their L2 latency.
+//   - One pass over X an iteration: a warp takes a row, lanes own 16-byte
+//     groups of 8 columns; r = x·w − y by warp shuffle, then acc += r·x
+//     from the same registers (w and acc in registers). The CTA reduces
+//     its warps' accumulators in a fixed order into one [fpad] partial.
+//     Wider than 1024 columns, w stays in shared memory and the columns go
+//     in tiles of 1024: r for every row first, then Xᵀr tile by tile (two
+//     shared-memory passes a row).
+//   - Grid barrier. CTA j reduces its slice of columns across the CTA
+//     partials in a fixed order, applies the update with the same
+//     non-contracting intrinsics as the JAX loop's f32 arithmetic, writes
+//     its slice of w and its partials of ‖Δw‖² and ‖w‖².
+//   - Grid barrier. Every CTA reads the new w and reduces the norm partials
+//     in the same fixed order, so every CTA takes the same converged
+//     decision and the grid leaves the loop together: after the freeze no
+//     work is done. A batch with count == 0 runs no iteration at all.
+// No float atomics anywhere: reruns are bitwise equal (on one card; the
+// order of the sums depends on the grid). One launch a call.
+//
+// What Hopper offers and this design leaves out: tensor cores. Both
+// products are matrix × vector (N = 1, while wgmma takes N >= 8), and bf16
+// operands would round w and r at each product, which the f32 twin does
+// not; so the kernel stays on the f32 FMA units, and so does its bound.
+// TMA and clusters buy nothing for a one-time, row-contiguous prologue.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kMatvecThreads = 256;  // 8 warps, one row each
-constexpr int kGradThreads = 256;    // kGradGroups row groups of kGradLanes
-constexpr int kGradLanes = 128;
-constexpr int kGradGroups = kGradThreads / kGradLanes;
-constexpr int kUpdateThreads = 1024;
+// Built with -DTWTML_SGD_TIMELINE (a second library, for chip_smoke.py's
+// breakdown), thread 0 of CTA 0 records clock64() at the phase boundaries
+// into a device buffer: slot 0 start, 1 prologue done, 2 after the first
+// barrier, 3 end; then for iteration it (1-based) 8·it + {0 row pass and CTA
+// reduction done, 1 after barrier 1, 2 update done, 3 after barrier 2,
+// 4 new w and the converged decision done}. Without it the marks compile
+// to nothing.
+#ifdef TWTML_SGD_TIMELINE
+__device__ long long* g_timeline = nullptr;
+__device__ int g_timeline_slots = 0;
+#define TIMELINE(slot)                                                      \
+  do {                                                                      \
+    if (blockIdx.x == 0 && threadIdx.x == 0 && (slot) < g_timeline_slots)   \
+      g_timeline[slot] = clock64();                                         \
+  } while (0)
+#else
+#define TIMELINE(slot) \
+  do {                 \
+  } while (0)
+#endif
 
-__device__ __forceinline__ void unpack_bf16x8(const uint4 packed, float* out) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&packed);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float2 f = __bfloat1622float2(h[k]);
-    out[2 * k] = f.x;
-    out[2 * k + 1] = f.y;
-  }
+// ops/fused_sgd.py holds the same constants for its launch plan
+constexpr int kThreads = 384;  // 12 warps: up to 168 registers a thread
+constexpr int kWarps = kThreads / 32;
+constexpr int kVpl = 4;                     // 8-column groups a lane holds
+constexpr int kTileGroups = 32 * kVpl;      // 128 groups = 1024 columns
+constexpr int kTileCols = kTileGroups * 8;
+constexpr int kReduceSlots = 4;             // warps summed per slot in rounds
+constexpr int kScratchFloats = 4;  // CTA-wide broadcast slots
+constexpr int kConvergedSlot = 0;
+constexpr int kCountSlot = 1;
+
+struct Params {
+  const float* x;       // [rows, features] f32, row stride features
+  const float* labels;  // [rows] f32
+  const float* mask;    // [rows] f32
+  const float* w0;      // [features] f32
+  float* w_out;         // [features] f32
+  float* preds;         // [rows] f32
+  __nv_bfloat16* spill; // [grid, spill_per_cta, fpad] bf16
+  float* partials;      // [grid, fpad] f32: each CTA's Xᵀr
+  float* wbuf;          // [fpad] f32: w after each update
+  float* count_part;    // [grid] f32
+  float* norm_part;     // [grid, 2] f32: ‖Δw‖², ‖w‖² of a CTA's columns
+  float* iterations;    // [1] f32: iterations run (for the caller's log)
+  int rows, features, fpad, nvec, rows_cap, resident, spill_per_cta;
+  int stride;  // 16-byte groups a stored row takes: kTileGroups when narrow
+  int num_iterations;
+  float step_size, l2_reg, tol;
+};
+
+// Byte offsets of the dynamic shared memory, each 16-byte aligned. The
+// launch plan in ops/fused_sgd.py computes the same sizes.
+struct Layout {
+  size_t w, red, y, r, scratch, x;
+};
+
+__host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
+
+// Bytes a stored bf16 row takes: rows up to kTileCols wide are padded to
+// kTileCols so that the narrow pass needs no bounds checks.
+__host__ __device__ inline size_t row_bytes(int fpad) {
+  return 2 * (size_t)(fpad <= kTileCols ? kTileCols : fpad);
 }
 
-// out[row] = X[row]·w − y[row], or X[row]·w when y is null.
-__global__ void __launch_bounds__(kMatvecThreads)
-matvec_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ w,
-              const float* __restrict__ y, float* __restrict__ out,
-              const int* __restrict__ converged, int rows, int nvec) {
-  if (converged != nullptr && *converged) return;
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (kMatvecThreads / 32) + (threadIdx.x >> 5);
-  if (row >= rows) return;  // warp-uniform
-  const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * nvec * 8);
-  const float4* w4 = reinterpret_cast<const float4*>(w);
-  float acc = 0.f;
-#pragma unroll 4
-  for (int v = lane; v < nvec; v += 32) {
-    float xf[8];
-    unpack_bf16x8(__ldg(xr + v), xf);
-    const float4 wa = __ldg(w4 + 2 * v);
-    const float4 wb = __ldg(w4 + 2 * v + 1);
-    acc = fmaf(xf[0], wa.x, acc);
-    acc = fmaf(xf[1], wa.y, acc);
-    acc = fmaf(xf[2], wa.z, acc);
-    acc = fmaf(xf[3], wa.w, acc);
-    acc = fmaf(xf[4], wb.x, acc);
-    acc = fmaf(xf[5], wb.y, acc);
-    acc = fmaf(xf[6], wb.z, acc);
-    acc = fmaf(xf[7], wb.w, acc);
-  }
-#pragma unroll
-  for (int offset = 16; offset > 0; offset >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, offset);
-  if (lane == 0) out[row] = (y != nullptr) ? acc - y[row] : acc;
+__host__ __device__ inline Layout layout(int fpad, int rows_cap) {
+  Layout l;
+  l.w = 0;
+  l.red = l.w + align16((size_t)fpad * 4);
+  l.y = l.red + (size_t)kReduceSlots * kTileCols * 4;
+  l.r = l.y + align16((size_t)rows_cap * 4);
+  l.scratch = l.r + align16((size_t)rows_cap * 4);
+  l.x = l.scratch + kScratchFloats * 4;
+  return l;
 }
 
-// partials[chunk][f] = Σ_{row in chunk} r[row]·X[row][f]
-__global__ void __launch_bounds__(kGradThreads)
-xtr_partial_kernel(const __nv_bfloat16* __restrict__ x,
-                   const float* __restrict__ r, float* __restrict__ partials,
-                   const int* __restrict__ converged, int rows, int nvec,
-                   int rows_per_chunk) {
-  if (*converged) return;
-  __shared__ float stage[kGradGroups - 1][8][kGradLanes];
-  const int lane = threadIdx.x % kGradLanes;
-  const int group = threadIdx.x / kGradLanes;
-  const int chunk = blockIdx.x;
-  const int row0 = chunk * rows_per_chunk;
-  const int row1 = min(row0 + rows_per_chunk, rows);
-  const size_t fpad = (size_t)nvec * 8;
-  for (int v0 = 0; v0 < nvec; v0 += kGradLanes) {  // block-uniform loop
-    const int v = v0 + lane;
-    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (v < nvec) {
-#pragma unroll 4
-      for (int row = row0 + group; row < row1; row += kGradGroups) {
-        const float rv = __ldg(r + row);
-        float xf[8];
-        unpack_bf16x8(__ldg(reinterpret_cast<const uint4*>(x + row * fpad) + v), xf);
-#pragma unroll
-        for (int k = 0; k < 8; ++k) acc[k] = fmaf(rv, xf[k], acc[k]);
-      }
-    }
-    if (group > 0) {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) stage[group - 1][k][lane] = acc[k];
-    }
-    __syncthreads();
-    if (group == 0 && v < nvec) {
-      for (int g = 0; g < kGradGroups - 1; ++g) {
-#pragma unroll
-        for (int k = 0; k < 8; ++k) acc[k] += stage[g][k][lane];
-      }
-      float4* dst = reinterpret_cast<float4*>(partials + chunk * fpad + (size_t)v * 8);
-      dst[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-      dst[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
-    }
-    __syncthreads();
-  }
-}
-
-__device__ __forceinline__ float block_sum(float v, float* scratch) {
+__device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int offset = 16; offset > 0; offset >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, offset);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  v = (lane < (int)(blockDim.x >> 5)) ? scratch[lane] : 0.f;
-  if (warp == 0) {
-#pragma unroll
-    for (int offset = 16; offset > 0; offset >>= 1)
-      v += __shfl_xor_sync(0xffffffffu, v, offset);
-  }
-  return v;  // valid in warp 0
+  return v;  // the same bits in every lane
 }
 
-// One block: g = Σ_chunk partials, w update, convergence test.
-__global__ void __launch_bounds__(kUpdateThreads)
-update_kernel(const float* __restrict__ partials, int num_chunks,
-              const float* __restrict__ count_ptr, float* __restrict__ w,
-              int* __restrict__ converged, int features, int fpad, int it,
-              float step_size, float l2_reg, float tol) {
-  __shared__ float scratch_d[32];
-  __shared__ float scratch_n[32];
-  if (*converged) return;  // block-uniform: read before any write below
-  const float count = *count_ptr;
-  const float denom = fmaxf(count, 1.f);
-  // the JAX loop's f32 arithmetic, operation for operation (no FMA
-  // contraction): η = step/√it, w·(1 − η·λ) − (η·g)/denom
-  const float eta = __fdiv_rn(step_size, __fsqrt_rn((float)it));
-  const float scale = __fsub_rn(1.f, __fmul_rn(eta, l2_reg));
-  float d = 0.f, n = 0.f;
-  for (int f = threadIdx.x; f < features; f += blockDim.x) {
-    float g = 0.f;
-    for (int c = 0; c < num_chunks; ++c) g += partials[(size_t)c * fpad + f];
-    const float wo = w[f];
-    float wn = __fsub_rn(__fmul_rn(wo, scale), __fdiv_rn(__fmul_rn(eta, g), denom));
-    if (!(count > 0.f)) wn = wo;  // zero-sample iteration: no update
-    const float dw = wn - wo;
-    d = fmaf(dw, dw, d);
-    n = fmaf(wn, wn, n);
-    w[f] = wn;
+// bf16 → f32 is exact: the bf16 bits are the f32's high half
+__device__ __forceinline__ float lo_bf16(uint32_t u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float hi_bf16(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
+
+__device__ __forceinline__ float dot8(const uint4 x, const float* w, float acc) {
+  acc = fmaf(lo_bf16(x.x), w[0], acc);
+  acc = fmaf(hi_bf16(x.x), w[1], acc);
+  acc = fmaf(lo_bf16(x.y), w[2], acc);
+  acc = fmaf(hi_bf16(x.y), w[3], acc);
+  acc = fmaf(lo_bf16(x.z), w[4], acc);
+  acc = fmaf(hi_bf16(x.z), w[5], acc);
+  acc = fmaf(lo_bf16(x.w), w[6], acc);
+  acc = fmaf(hi_bf16(x.w), w[7], acc);
+  return acc;
+}
+
+__device__ __forceinline__ void axpy8(float r, const uint4 x, float* acc) {
+  acc[0] = fmaf(r, lo_bf16(x.x), acc[0]);
+  acc[1] = fmaf(r, hi_bf16(x.x), acc[1]);
+  acc[2] = fmaf(r, lo_bf16(x.y), acc[2]);
+  acc[3] = fmaf(r, hi_bf16(x.y), acc[3]);
+  acc[4] = fmaf(r, lo_bf16(x.z), acc[4]);
+  acc[5] = fmaf(r, hi_bf16(x.z), acc[5]);
+  acc[6] = fmaf(r, lo_bf16(x.w), acc[6]);
+  acc[7] = fmaf(r, hi_bf16(x.w), acc[7]);
+}
+
+// w[8v .. 8v+7] from shared memory as two 16-byte loads (scalar loads at a
+// lane stride of 32 bytes would conflict 8 ways on the banks).
+__device__ __forceinline__ void load_w8(const float* w_s, int v, float (&out)[8]) {
+  const float4* w4 = reinterpret_cast<const float4*>(w_s) + 2 * v;
+  const float4 a = w4[0], b = w4[1];
+  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);  // round to nearest even
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Where local row l is stored: shared memory for a resident row, the spill
+// buffer (read through L2) otherwise.
+__device__ __forceinline__ const uint4* spill_row(const Params& p, int cta, int l) {
+  return reinterpret_cast<const uint4*>(p.spill) +
+         ((size_t)cta * p.spill_per_cta + (l - p.resident)) * p.stride;
+}
+
+// Narrow path: rows are stored kTileGroups groups wide, zero past fpad, so
+// lane + 32k is always in the row and no lane needs a bounds check.
+__device__ __forceinline__ void load_row_narrow(const Params& p, const uint4* x_s, int cta,
+                                                int l, int lane, uint4 (&out)[kVpl]) {
+  if (l < p.resident) {
+    const uint4* src = x_s + (size_t)l * kTileGroups + lane;
+#pragma unroll
+    for (int k = 0; k < kVpl; ++k) out[k] = src[32 * k];
+  } else {
+    const uint4* src = spill_row(p, cta, l) + lane;
+#pragma unroll
+    for (int k = 0; k < kVpl; ++k) out[k] = __ldcg(src + 32 * k);
   }
-  d = block_sum(d, scratch_d);
-  n = block_sum(n, scratch_n);
-  if (threadIdx.x == 0 && tol > 0.f && count > 0.f &&
-      sqrtf(d) < tol * fmaxf(sqrtf(n), 1.f))
-    *converged = 1;
+}
+
+// Wide path: the groups g0 + lane + 32k (k < kVpl) of local row l, zero
+// past the row's end.
+__device__ __forceinline__ void load_row(const Params& p, const uint4* x_s, int cta,
+                                         int l, int g0, int lane, uint4 (&out)[kVpl]) {
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  const int nvec = p.nvec;
+  if (l < p.resident) {
+    const uint4* src = x_s + (size_t)l * p.stride;
+#pragma unroll
+    for (int k = 0; k < kVpl; ++k) {
+      const int v = g0 + lane + 32 * k;
+      out[k] = v < nvec ? src[v] : zero;
+    }
+  } else {
+    const uint4* src = spill_row(p, cta, l);
+#pragma unroll
+    for (int k = 0; k < kVpl; ++k) {
+      const int v = g0 + lane + 32 * k;
+      out[k] = v < nvec ? __ldcg(src + v) : zero;
+    }
+  }
+}
+
+// The CTA's Xᵀr over columns [col0, col0 + kTileCols) into dst: warp w adds
+// its accumulator into slot w % kReduceSlots in round w / kReduceSlots, then
+// the slots are summed in slot order. A fixed order: no atomics. In a slot,
+// float4 number (2k + h)·32 + lane holds columns 8(lane + 32k) + 4h + 0..3,
+// so a warp's float4 accesses are contiguous (no bank conflicts).
+__device__ void cta_reduce_tile(const float (&acc)[kVpl][8], float* red, float* dst,
+                                int col0, int fpad) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* slot = red + (warp % kReduceSlots) * kTileCols;
+#pragma unroll 1
+  for (int round = 0; round < kWarps / kReduceSlots; ++round) {
+    if (warp / kReduceSlots == round) {
+#pragma unroll
+      for (int k = 0; k < kVpl; ++k) {
+        float4* d0 = reinterpret_cast<float4*>(slot) + (2 * k) * 32 + lane;
+        float4* d1 = d0 + 32;
+        if (round == 0) {
+          *d0 = make_float4(acc[k][0], acc[k][1], acc[k][2], acc[k][3]);
+          *d1 = make_float4(acc[k][4], acc[k][5], acc[k][6], acc[k][7]);
+        } else {
+          float4 a = *d0, b = *d1;
+          a.x += acc[k][0]; a.y += acc[k][1]; a.z += acc[k][2]; a.w += acc[k][3];
+          b.x += acc[k][4]; b.y += acc[k][5]; b.z += acc[k][6]; b.w += acc[k][7];
+          *d0 = a;
+          *d1 = b;
+        }
+      }
+    }
+    __syncthreads();
+  }
+  for (int c = threadIdx.x; c < kTileCols && col0 + c < fpad; c += kThreads) {
+    const int g = c >> 3;  // column c sits in group g of lane g % 32, k = g / 32
+    const int at = ((2 * (g >> 5) + ((c >> 2) & 1)) * 32 + (g & 31)) * 4 + (c & 3);
+    float v = red[at];
+#pragma unroll
+    for (int s = 1; s < kReduceSlots; ++s) v += red[s * kTileCols + at];
+    dst[col0 + c] = v;
+  }
+  __syncthreads();
+}
+
+// One row of the narrow pass: dot = x·w by warp shuffle (preds on the first
+// pass), then acc += (dot − y)·x from the same registers.
+__device__ __forceinline__ void narrow_row(const Params& p, const float (&wr)[kVpl][8],
+                                           float (&acc)[kVpl][8], const uint4 (&x)[kVpl],
+                                           const float* y_s, int row0, int l, int lane,
+                                           bool first, bool train) {
+  float dot = dot8(x[0], wr[0], 0.f);
+#pragma unroll
+  for (int k = 1; k < kVpl; ++k) dot += dot8(x[k], wr[k], 0.f);
+  dot = warp_sum(dot);
+  if (first && lane == 0) p.preds[row0 + l] = dot;
+  if (train) {
+    const float r = dot - y_s[l];
+#pragma unroll
+    for (int k = 0; k < kVpl; ++k) axpy8(r, x[k], acc[k]);
+  }
+}
+
+// One pass over the CTA's rows, fpad <= kTileCols: w and the Xᵀr
+// accumulator in registers, each row read once; the next row of the warp
+// is loaded into the other register buffer while this one computes.
+__device__ void row_pass_narrow(const Params& p, const float* w_s, const float* y_s,
+                                const uint4* x_s, float* red, int cta, int row0,
+                                int my_rows, bool first, bool train) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float wr[kVpl][8], acc[kVpl][8];
+#pragma unroll
+  for (int k = 0; k < kVpl; ++k) {
+    const int v = lane + 32 * k;
+    if (v < p.nvec) {
+      load_w8(w_s, v, wr[k]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) wr[k][e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[k][e] = 0.f;
+  }
+  uint4 xa[kVpl], xb[kVpl];
+  int l = warp;
+  if (l < my_rows) load_row_narrow(p, x_s, cta, l, lane, xa);
+  while (l < my_rows) {
+    if (l + kWarps < my_rows) load_row_narrow(p, x_s, cta, l + kWarps, lane, xb);
+    narrow_row(p, wr, acc, xa, y_s, row0, l, lane, first, train);
+    l += kWarps;
+    if (l >= my_rows) break;
+    if (l + kWarps < my_rows) load_row_narrow(p, x_s, cta, l + kWarps, lane, xa);
+    narrow_row(p, wr, acc, xb, y_s, row0, l, lane, first, train);
+    l += kWarps;
+  }
+  if (train) cta_reduce_tile(acc, red, p.partials + (size_t)cta * p.fpad, 0, p.fpad);
+}
+
+// fpad > kTileCols: w stays in shared memory; r for every row first, then
+// Xᵀr one tile of columns at a time (two passes over each row).
+__device__ void row_pass_wide(const Params& p, const float* w_s, const float* y_s,
+                              float* r_s, const uint4* x_s, float* red, int cta,
+                              int row0, int my_rows, bool first, bool train) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int l = warp; l < my_rows; l += kWarps) {
+    float dot = 0.f;
+    for (int g0 = 0; g0 < p.nvec; g0 += kTileGroups) {
+      uint4 xc[kVpl];
+      load_row(p, x_s, cta, l, g0, lane, xc);
+#pragma unroll
+      for (int k = 0; k < kVpl; ++k) {
+        const int v = g0 + lane + 32 * k;
+        if (v < p.nvec) {
+          float w8[8];
+          load_w8(w_s, v, w8);
+          dot = dot8(xc[k], w8, dot);
+        }
+      }
+    }
+    dot = warp_sum(dot);
+    if (lane == 0) {
+      if (first) p.preds[row0 + l] = dot;
+      r_s[l] = dot - y_s[l];
+    }
+  }
+  if (!train) return;
+  __syncthreads();
+  for (int g0 = 0; g0 < p.nvec; g0 += kTileGroups) {
+    float acc[kVpl][8];
+#pragma unroll
+    for (int k = 0; k < kVpl; ++k)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[k][e] = 0.f;
+    for (int l = warp; l < my_rows; l += kWarps) {
+      uint4 xc[kVpl];
+      load_row(p, x_s, cta, l, g0, lane, xc);
+      const float r = r_s[l];
+#pragma unroll
+      for (int k = 0; k < kVpl; ++k) axpy8(r, xc[k], acc[k]);
+    }
+    cta_reduce_tile(acc, red, p.partials + (size_t)cta * p.fpad, g0 * 8, p.fpad);
+  }
+}
+
+// Prologue for local row l: the caller's f32 row, where(mask > 0, ·, 0),
+// rounded to bf16 and stored p.stride groups wide (zero past the features)
+// in shared memory or the spill buffer; y likewise. All of a lane's loads
+// are issued before its stores.
+__device__ __forceinline__ void stage_row(const Params& p, uint4* x_s, float* y_s, int cta,
+                                          int row0, int l, int lane, bool vec4) {
+  const int row = row0 + l, features = p.features;
+  const bool keep = __ldg(p.mask + row) > 0.f;
+  const float* xr = p.x + (size_t)row * features;
+  uint4* dst = l < p.resident ? x_s + (size_t)l * p.stride
+                              : const_cast<uint4*>(spill_row(p, cta, l));
+  for (int v0 = 0; v0 < p.stride; v0 += kTileGroups) {
+    float4 a[kVpl], b[kVpl];
+#pragma unroll
+    for (int k = 0; k < kVpl; ++k) {
+      const int c0 = (v0 + lane + 32 * k) * 8;
+      if (keep && vec4 && c0 + 8 <= features) {
+        a[k] = __ldg(reinterpret_cast<const float4*>(xr + c0));
+        b[k] = __ldg(reinterpret_cast<const float4*>(xr + c0 + 4));
+      } else {  // masked row, ragged edge or zero padding
+        float f8[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          f8[e] = keep && c0 + e < features ? __ldg(xr + c0 + e) : 0.f;
+        a[k] = make_float4(f8[0], f8[1], f8[2], f8[3]);
+        b[k] = make_float4(f8[4], f8[5], f8[6], f8[7]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kVpl; ++k) {
+      const int v = v0 + lane + 32 * k;
+      if (v < p.stride)
+        dst[v] = make_uint4(pack_bf16x2(a[k].x, a[k].y), pack_bf16x2(a[k].z, a[k].w),
+                            pack_bf16x2(b[k].x, b[k].y), pack_bf16x2(b[k].z, b[k].w));
+    }
+  }
+  if (lane == 0) y_s[l] = keep ? __ldg(p.labels + row) : 0.f;
+}
+
+__global__ void __launch_bounds__(kThreads, 1) fused_sgd_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout lay = layout(p.fpad, p.rows_cap);
+  float* w_s = reinterpret_cast<float*>(smem + lay.w);
+  float* red = reinterpret_cast<float*>(smem + lay.red);
+  float* y_s = reinterpret_cast<float*>(smem + lay.y);
+  float* r_s = reinterpret_cast<float*>(smem + lay.r);
+  float* scratch = reinterpret_cast<float*>(smem + lay.scratch);
+  uint4* x_s = reinterpret_cast<uint4*>(smem + lay.x);
+
+  cg::grid_group grid = cg::this_grid();
+  TIMELINE(0);
+  const int cta = blockIdx.x, ncta = gridDim.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = (int)((long long)cta * p.rows / ncta);
+  const int my_rows = (int)((long long)(cta + 1) * p.rows / ncta) - row0;
+  const int fpad = p.fpad, nvec = p.nvec, features = p.features;
+  const int cols_per_cta = (fpad + ncta - 1) / ncta;
+  const int col0 = min(cta * cols_per_cta, fpad);
+  const int col1 = min(col0 + cols_per_cta, fpad);
+
+  // ---- prologue: w0, then the CTA's rows of X from device memory, once
+  for (int f = threadIdx.x; f < fpad; f += kThreads)
+    w_s[f] = f < features ? __ldg(p.w0 + f) : 0.f;
+  for (int f = col0 + threadIdx.x; f < min(col1, features); f += kThreads)
+    p.w_out[f] = __ldg(p.w0 + f);  // the result when no update runs
+  const bool vec4 = features % 4 == 0 && (reinterpret_cast<uintptr_t>(p.x) & 15) == 0;
+  for (int l = warp; l < my_rows; l += kWarps) stage_row(p, x_s, y_s, cta, row0, l, lane, vec4);
+  if (warp == 0) {  // count = Σ mask, this CTA's share, in a fixed order
+    float s = 0.f;
+    for (int i = lane; i < my_rows; i += 32) s += __ldg(p.mask + row0 + i);
+    s = warp_sum(s);
+    if (lane == 0) p.count_part[cta] = s;
+  }
+  TIMELINE(1);
+  grid.sync();
+  TIMELINE(2);
+  if (warp == 0) {
+    float s = 0.f;
+    for (int c = lane; c < ncta; c += 32) s += __ldcg(p.count_part + c);
+    s = warp_sum(s);
+    if (lane == 0) scratch[kCountSlot] = s;
+  }
+  __syncthreads();
+  const float count = scratch[kCountSlot];
+  const float denom = fmaxf(count, 1.f);
+  const bool train = p.num_iterations > 0 && count > 0.f;  // else w0 stands
+  const bool narrow = nvec <= kTileGroups;
+
+  int it = 1;
+  for (;; ++it) {
+    // ---- one pass over X: r = X·w − y (preds on the first), CTA's Xᵀr
+    if (narrow)
+      row_pass_narrow(p, w_s, y_s, x_s, red, cta, row0, my_rows, it == 1, train);
+    else
+      row_pass_wide(p, w_s, y_s, r_s, x_s, red, cta, row0, my_rows, it == 1, train);
+    if (!train) break;
+    // the JAX loop's f32 arithmetic operation for operation (no FMA
+    // contraction): η = step/√it, w·(1 − η·λ) − (η·g)/max(count, 1)
+    const float eta = __fdiv_rn(p.step_size, __fsqrt_rn((float)it));
+    const float scale = __fsub_rn(1.f, __fmul_rn(eta, p.l2_reg));
+    TIMELINE(8 * it);
+    grid.sync();
+    TIMELINE(8 * it + 1);
+
+    // ---- update of this CTA's columns, 8 at a time: lane & 7 takes column
+    // f0 + (lane & 7), and the warps read partial rows 4·warp + (lane >> 3)
+    // + 48j, so a load instruction covers 4 partial rows × 8 adjacent
+    // columns (whole 32-byte sectors); sums in a fixed order
+    float d = 0.f, n = 0.f;  // in lanes 0-7 of warp 0
+    for (int f0 = col0; f0 < col1; f0 += 8) {
+      const int f = f0 + (lane & 7);
+      float g = 0.f;
+      if (f < col1) {
+#pragma unroll 4
+        for (int c = 4 * warp + (lane >> 3); c < ncta; c += 4 * kWarps)
+          g += __ldcg(p.partials + (size_t)c * fpad + f);
+      }
+      g += __shfl_xor_sync(0xffffffffu, g, 8);
+      g += __shfl_xor_sync(0xffffffffu, g, 16);
+      if (lane < 8) red[warp * 8 + lane] = g;
+      __syncthreads();
+      if (warp == 0 && lane < 8 && f < col1) {
+        float gs = red[lane];
+        for (int w = 1; w < kWarps; ++w) gs += red[w * 8 + lane];
+        const float wo = w_s[f];
+        const float wn = __fsub_rn(__fmul_rn(wo, scale), __fdiv_rn(__fmul_rn(eta, gs), denom));
+        const float dw = __fsub_rn(wn, wo);
+        d = fmaf(dw, dw, d);
+        n = fmaf(wn, wn, n);
+        p.wbuf[f] = wn;
+        if (f < features) p.w_out[f] = wn;
+      }
+      __syncthreads();
+    }
+    if (warp == 0) {
+      d = warp_sum(d);
+      n = warp_sum(n);
+      if (lane == 0) {
+        p.norm_part[2 * cta] = d;
+        p.norm_part[2 * cta + 1] = n;
+      }
+    }
+    TIMELINE(8 * it + 2);
+    grid.sync();
+    TIMELINE(8 * it + 3);
+
+    // ---- every CTA: the new w, and the same converged decision
+    for (int f = threadIdx.x - 32; warp > 0 && f < fpad; f += kThreads - 32)
+      w_s[f] = __ldcg(p.wbuf + f);
+    if (warp == 0) {
+      float ds = 0.f, ns = 0.f;
+      for (int c = lane; c < ncta; c += 32) {
+        ds += __ldcg(p.norm_part + 2 * c);
+        ns += __ldcg(p.norm_part + 2 * c + 1);
+      }
+      ds = warp_sum(ds);
+      ns = warp_sum(ns);
+      if (lane == 0)
+        scratch[kConvergedSlot] =
+            (p.tol > 0.f && sqrtf(ds) < p.tol * fmaxf(sqrtf(ns), 1.f)) ? 1.f : 0.f;
+    }
+    __syncthreads();
+    TIMELINE(8 * it + 4);
+    if (scratch[kConvergedSlot] != 0.f || it >= p.num_iterations) break;
+  }
+  TIMELINE(3);
+  if (cta == 0 && threadIdx.x == 0) *p.iterations = train ? (float)it : 0.f;
 }
 
 }  // namespace
 
-// The whole loop for one batch. Pointers are device pointers on `stream`:
-//   x [rows, fpad] bf16 (masked rows zeroed), y [rows] f32 (masked to 0),
-//   count [1] f32, w [fpad] f32 (w0 in, new weights out), preds [rows] f32,
-//   residual [rows] f32 and partials [ceil(rows/rows_per_chunk), fpad] f32
-//   scratch, converged [1] int32 set to 0 by the caller.
-// Returns the first CUDA error of a launch, 0 when all launches were taken.
-extern "C" int twtml_fused_dense_sgd(
-    const void* x, const void* y, const void* count, void* w, void* preds,
-    void* residual, void* partials, void* converged, int rows, int features,
-    int fpad, int rows_per_chunk, int num_iterations, float step_size,
-    float l2_reg, float tol, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-  float* wf = static_cast<float*>(w);
-  int* flag = static_cast<int*>(converged);
-  const int nvec = fpad / 8;
-  const int num_chunks = (rows + rows_per_chunk - 1) / rows_per_chunk;
-  const int mv_blocks = (rows + kMatvecThreads / 32 - 1) / (kMatvecThreads / 32);
-  cudaError_t err;
+#ifdef TWTML_SGD_TIMELINE
+// Points the timeline marks at `slots` int64 of device memory (null: off).
+extern "C" int twtml_fused_sgd_set_timeline(void* buffer, int slots) {
+  long long* ptr = static_cast<long long*>(buffer);
+  cudaError_t err = cudaMemcpyToSymbol(g_timeline, &ptr, sizeof(ptr));
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_timeline_slots, &slots, sizeof(slots));
+  return (int)err;
+}
+#endif
 
-  matvec_kernel<<<mv_blocks, kMatvecThreads, 0, s>>>(
-      xb, wf, nullptr, static_cast<float*>(preds), nullptr, rows, nvec);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  for (int it = 1; it <= num_iterations; ++it) {
-    matvec_kernel<<<mv_blocks, kMatvecThreads, 0, s>>>(
-        xb, wf, static_cast<const float*>(y), static_cast<float*>(residual),
-        flag, rows, nvec);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    xtr_partial_kernel<<<num_chunks, kGradThreads, 0, s>>>(
-        xb, static_cast<const float*>(residual), static_cast<float*>(partials),
-        flag, rows, nvec, rows_per_chunk);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    update_kernel<<<1, kUpdateThreads, 0, s>>>(
-        static_cast<const float*>(partials), num_chunks,
-        static_cast<const float*>(count), wf, flag, features, fpad, it,
-        step_size, l2_reg, tol);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
-  return 0;
+// The SM count and the opt-in shared memory a block may use on `device`,
+// for the launch plan. Returns a CUDA error code, 0 on success.
+extern "C" int twtml_fused_sgd_limits(int device, int* sm_count, int* shared_optin) {
+  cudaError_t err = cudaDeviceGetAttribute(sm_count, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(shared_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  return (int)err;
+}
+
+// The whole loop for one batch, one cooperative launch on `stream` (the
+// current device's). Pointers are device pointers:
+//   x [rows, features] f32 contiguous, labels/mask [rows] f32, w0 [features]
+//   f32 (inputs, unchanged); w_out [features], preds [rows] f32 (outputs);
+//   spill [grid·spill_per_cta·fpad] bf16 and scratch [grid·fpad + fpad +
+//   3·grid + 1] f32 (its last float receives the iterations run).
+// grid, rows_cap (most rows a CTA owns), resident (rows a CTA keeps in
+// shared memory), spill_per_cta and shared_bytes come from the launch plan.
+// Returns the CUDA error of the launch (a refused cooperative launch
+// included), 0 when it was taken.
+extern "C" int twtml_fused_dense_sgd(
+    const void* x, const void* labels, const void* mask, const void* w0, void* w_out,
+    void* preds, void* spill, void* scratch, int rows, int features, int fpad, int grid,
+    int rows_cap, int resident, int spill_per_cta, int shared_bytes, int num_iterations,
+    float step_size, float l2_reg, float tol, void* stream) {
+  const Layout lay = layout(fpad, rows_cap);
+  if (rows < 1 || features < 1 || fpad % 8 != 0 || features > fpad || grid < 1 ||
+      (long long)rows_cap * grid < rows || resident < 0 || resident > rows_cap ||
+      spill_per_cta != rows_cap - resident || num_iterations < 0 ||
+      (size_t)shared_bytes < lay.x + (size_t)resident * row_bytes(fpad))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_sgd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
+  if (err != cudaSuccess) return (int)err;
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, fused_sgd_kernel, kThreads, shared_bytes)) != cudaSuccess)
+    return (int)err;
+  if (grid > per_sm * sms) return (int)cudaErrorCooperativeLaunchTooLarge;
+
+  Params p;
+  p.x = static_cast<const float*>(x);
+  p.labels = static_cast<const float*>(labels);
+  p.mask = static_cast<const float*>(mask);
+  p.w0 = static_cast<const float*>(w0);
+  p.w_out = static_cast<float*>(w_out);
+  p.preds = static_cast<float*>(preds);
+  p.spill = static_cast<__nv_bfloat16*>(spill);
+  p.partials = static_cast<float*>(scratch);
+  p.wbuf = p.partials + (size_t)grid * fpad;
+  p.count_part = p.wbuf + fpad;
+  p.norm_part = p.count_part + grid;
+  p.iterations = p.norm_part + 2 * grid;
+  p.rows = rows;
+  p.features = features;
+  p.fpad = fpad;
+  p.nvec = fpad / 8;
+  p.stride = (int)(row_bytes(fpad) / 16);
+  p.rows_cap = rows_cap;
+  p.resident = resident;
+  p.spill_per_cta = spill_per_cta;
+  p.num_iterations = num_iterations;
+  p.step_size = step_size;
+  p.l2_reg = l2_reg;
+  p.tol = tol;
+  void* args[] = {&p};
+  return (int)cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fused_sgd_kernel),
+                                          dim3(grid), dim3(kThreads), args,
+                                          (size_t)shared_bytes, static_cast<cudaStream_t>(stream));
 }

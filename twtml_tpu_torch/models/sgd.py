@@ -142,10 +142,12 @@ def make_sgd_train_step(
     return train_step
 
 
-def zero_weights(num_text_features: int, dtype=torch.float32, device="cpu"):
-    """MLlib initial weights: zeros(numFeatures) (LinearRegression.scala:32)."""
+def zero_weights(num_text_features: int, dtype=torch.float32, device="cuda"):
+    """MLlib initial weights: zeros(numFeatures) (LinearRegression.scala:32),
+    on the card unless the caller asks for the CPU."""
     return torch.zeros(
-        (num_text_features + NUM_NUMBER_FEATURES,), dtype=dtype, device=device
+        (num_text_features + NUM_NUMBER_FEATURES,), dtype=dtype,
+        device=resolve_device(device),
     )
 
 

@@ -20,7 +20,12 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "twtml_tpu_torch"
-SOURCES = {"fused_sgd": "fused_sgd.cu"}
+# library name -> (source, extra nvcc flags); the timeline variant records
+# per-phase clocks for chip_smoke.py's breakdown and is used nowhere else
+SOURCES = {
+    "fused_sgd": ("fused_sgd.cu", ()),
+    "fused_sgd_timeline": ("fused_sgd.cu", ("-DTWTML_SGD_TIMELINE",)),
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -41,8 +46,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    source, flags = SOURCES[name]
+    src = (CSRC / source).read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS + flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -61,7 +67,8 @@ def build(names=None) -> dict[str, Path]:
     procs = {}
     for name, path in todo.items():
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        source, flags = SOURCES[name]
+        cmd = [nvcc, *NVCC_FLAGS, *flags, "-o", str(tmp), str(CSRC / source)]
         procs[name] = (
             tmp,
             subprocess.Popen(
@@ -72,7 +79,7 @@ def build(names=None) -> dict[str, Path]:
     for name, (tmp, proc) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"{SOURCES[name]} (exit {proc.returncode}):\n{out}")
+            failed.append(f"{name} (exit {proc.returncode}):\n{out}")
             continue
         Path(str(paths[name]) + ".log").write_text(out)
         os.replace(tmp, paths[name])  # atomic: a reader never sees a partial .so

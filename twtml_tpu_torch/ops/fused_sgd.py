@@ -7,31 +7,39 @@ predict with the pre-update weights, then run MLlib's GradientDescent loop
 freeze) on a dense [B, F] batch. X is stored in bf16 (the bigram counts are
 small integers, exact in bf16); w, r, g and every sum stay in f32.
 
-On an H100 the loop is bound by bytes: every iteration reads X twice and
-does 2 flops per element read. At the operating point (16384 x 1004) bf16 X
-is 32.9 MB and fits the 50 MB L2, so the kernel (``csrc/fused_sgd.cu``,
-whose header gives the design) re-reads it from L2 rather than from device
-memory. The design is three launches per iteration with the loop state on
-the device and no float atomics: 1 + 3*N launches per call, no host sync,
-bitwise-equal reruns.
+The kernel (``csrc/fused_sgd.cu``, whose header gives the design) is one
+persistent cooperative launch a call: it reads the caller's f32 X from
+device memory once, keeps it in shared memory as bf16 (rows that do not fit
+spill once to an L2-resident buffer) and runs every iteration on chip, with
+grid barriers in place of kernel boundaries. No float atomics: reruns are
+bitwise equal. ``launch_plan`` sizes the grid and the shared memory; the
+wrapper only allocates outputs and scratch and launches.
 
 Routing: a CPU tensor goes to the twin ``fused_dense_sgd_reference``; a CUDA
 tensor launches the kernel or raises. ``fused_dense_sgd.launches`` counts
-the calls that launched the kernel.
+the calls that launched the kernel; ``fused_dense_sgd.last_iterations`` is
+a device scalar holding the iterations the last launch ran (read it only
+when a sync is acceptable).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
-# rows of X each block of the Xᵀr pass reduces into one row of partials
-ROWS_PER_CHUNK = 128
 # the kernel reads 8 bf16 (16 bytes) at a time along a row
 COLUMN_MULTIPLE = 8
 # the dense regime's widest design matrix: 8192 text + 4 numeric columns
 MAX_FEATURES = 8192 + 4
+# constants of csrc/fused_sgd.cu that size its shared memory
+THREADS = 384
+WARPS = THREADS // 32
+TILE_COLUMNS = 1024  # columns whose w and Xᵀr a warp holds in registers
+REDUCE_SLOTS = 4
+SCRATCH_FLOATS = 4
 
 
 def padded_columns(num_features: int) -> int:
@@ -39,8 +47,8 @@ def padded_columns(num_features: int) -> int:
 
 
 def launches_per_call(num_iterations: int) -> int:
-    """Device kernel launches one call makes: preds, then 3 per iteration."""
-    return 1 + 3 * num_iterations
+    """Device kernel launches one call makes: one, whatever the iterations."""
+    return 1
 
 
 def supports(*, batch_rows: int, num_features: int, dtype=torch.float32) -> bool:
@@ -52,6 +60,73 @@ def supports(*, batch_rows: int, num_features: int, dtype=torch.float32) -> bool
         and 1 <= num_features <= MAX_FEATURES
         and batch_rows * padded_columns(num_features) < 2**31
         and dtype == torch.float32
+    )
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+class LaunchPlan(NamedTuple):
+    """How one call lays the batch over the card. CTA c owns rows
+    [c*B // grid, (c+1)*B // grid); its first ``resident`` local rows stay
+    in shared memory, the rest go to the spill buffer."""
+
+    rows: int
+    fpad: int
+    row_columns: int  # columns a stored bf16 row takes (narrow rows padded)
+    grid: int
+    rows_cap: int  # the most rows a CTA owns
+    resident: int  # rows a CTA keeps in shared memory
+    spill_per_cta: int
+    shared_bytes: int
+
+    def cta_rows(self, cta: int) -> range:
+        return range(cta * self.rows // self.grid, (cta + 1) * self.rows // self.grid)
+
+    @property
+    def resident_rows(self) -> int:
+        return sum(min(len(self.cta_rows(c)), self.resident) for c in range(self.grid))
+
+    @property
+    def spill_rows(self) -> int:
+        return self.rows - self.resident_rows
+
+    @property
+    def scratch_floats(self) -> int:
+        """partials [grid, fpad], w [fpad], count [grid], norms [grid, 2],
+        iterations run [1]."""
+        return self.grid * self.fpad + self.fpad + 3 * self.grid + 1
+
+    @property
+    def spill_elements(self) -> int:
+        return self.grid * self.spill_per_cta * self.row_columns
+
+
+def launch_plan(batch_rows: int, num_features: int, *, sm_count: int,
+                shared_limit: int) -> LaunchPlan:
+    """The grid, rows a CTA, resident/spill split and shared-memory bytes of
+    one call. At most one CTA an SM, and no more CTAs than give each warp a
+    row. Shared memory holds w [fpad] f32, the reduction slots, y and r a
+    row, a small scratch, then as many bf16 rows of X as fit in
+    ``shared_limit`` (the card's opt-in limit a block: 232,448 B on an
+    H100); a row up to TILE_COLUMNS wide is stored TILE_COLUMNS wide.
+    Mirrors ``layout`` and ``row_bytes`` in csrc/fused_sgd.cu."""
+    fpad = padded_columns(num_features)
+    row_columns = max(fpad, TILE_COLUMNS)
+    grid = max(1, min(sm_count, -(-batch_rows // WARPS)))
+    rows_cap = -(-batch_rows // grid)
+    fixed = (_align16(fpad * 4) + REDUCE_SLOTS * TILE_COLUMNS * 4
+             + 2 * _align16(rows_cap * 4) + SCRATCH_FLOATS * 4)
+    if fixed > shared_limit:
+        raise ValueError(f"{batch_rows} rows x {num_features} columns need {fixed} B "
+                         f"of shared memory before any row of X; the limit is "
+                         f"{shared_limit} B")
+    resident = min(rows_cap, (shared_limit - fixed) // (2 * row_columns))
+    return LaunchPlan(
+        rows=batch_rows, fpad=fpad, row_columns=row_columns, grid=grid,
+        rows_cap=rows_cap, resident=resident, spill_per_cta=rows_cap - resident,
+        shared_bytes=fixed + resident * 2 * row_columns,
     )
 
 
@@ -86,18 +161,38 @@ def fused_dense_sgd_reference(
     return w, preds
 
 
-def _library():
+# arguments of the C entry twtml_fused_dense_sgd (csrc/fused_sgd.cu)
+KERNEL_ARGTYPES = (
+    [ctypes.c_void_p] * 8  # x, labels, mask, w0, w_out, preds, spill, scratch
+    + [ctypes.c_int] * 9  # rows, features, fpad, grid, rows_cap, resident,
+    # spill_per_cta, shared_bytes, iterations
+    + [ctypes.c_float] * 3  # step_size, l2_reg, tol
+    + [ctypes.c_void_p]  # stream
+)
+
+
+def _library(name: str = "fused_sgd"):
+    """The C entry of the named build of csrc/fused_sgd.cu."""
     from ._build import load
 
-    fn = load("fused_sgd").twtml_fused_dense_sgd
+    fn = load(name).twtml_fused_dense_sgd
     fn.restype = ctypes.c_int
-    fn.argtypes = (
-        [ctypes.c_void_p] * 8  # x, y, count, w, preds, residual, partials, flag
-        + [ctypes.c_int] * 5  # rows, features, fpad, rows_per_chunk, iterations
-        + [ctypes.c_float] * 3  # step_size, l2_reg, tol
-        + [ctypes.c_void_p]  # stream
-    )
+    fn.argtypes = KERNEL_ARGTYPES
     return fn
+
+
+@functools.cache
+def device_limits(index: int) -> tuple[int, int]:
+    """(SM count, opt-in shared memory a block) of CUDA device ``index``."""
+    from ._build import load
+
+    fn = load("fused_sgd").twtml_fused_sgd_limits
+    fn.restype = ctypes.c_int
+    sms, shared = ctypes.c_int(0), ctypes.c_int(0)
+    err = fn(index, ctypes.byref(sms), ctypes.byref(shared))
+    if err != 0:
+        raise RuntimeError(f"fused_dense_sgd: device query failed: CUDA error {err}")
+    return sms.value, shared.value
 
 
 def fused_dense_sgd(
@@ -106,7 +201,8 @@ def fused_dense_sgd(
 ):
     """Run the fused loop on a dense [B, F] batch; ``weights`` is the flat
     [F] vector. Returns (new_weights [F], raw_predictions [B]), where the
-    predictions use the pre-update weights."""
+    predictions use the pre-update weights. On CUDA every tensor must be
+    contiguous float32 on one device."""
     dev = x_dense.device
     if dev.type == "cpu":
         return fused_dense_sgd_reference(
@@ -115,6 +211,8 @@ def fused_dense_sgd(
         )
     if dev.type != "cuda":
         raise ValueError(f"fused_dense_sgd takes cpu or cuda tensors, got {dev}")
+    if x_dense.dim() != 2:
+        raise ValueError(f"x_dense must be [B, F], got {tuple(x_dense.shape)}")
     b, f = x_dense.shape
     if not supports(batch_rows=b, num_features=f, dtype=weights.dtype):
         raise ValueError(
@@ -122,41 +220,37 @@ def fused_dense_sgd(
             f"with {weights.dtype} weights (see supports())"
         )
     for name, t, shape in (
-        ("labels", labels, (b,)), ("mask", mask, (b,)), ("weights", weights, (f,)),
+        ("x_dense", x_dense, (b, f)), ("labels", labels, (b,)), ("mask", mask, (b,)),
+        ("weights", weights, (f,)),
     ):
-        if t.device != dev or tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be {shape} on {dev}, got "
-                             f"{tuple(t.shape)} on {t.device}")
+        if (t.device != dev or tuple(t.shape) != shape or t.dtype != torch.float32
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous float32 {shape} on {dev}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
     if num_iterations < 0:
         raise ValueError("num_iterations must be >= 0")
 
-    fpad = padded_columns(f)
-    keep = mask > 0
-    x = torch.zeros((b, fpad), dtype=torch.bfloat16, device=dev)
-    x[:, :f] = torch.where(keep[:, None], x_dense, 0.0)
-    y = torch.where(keep, labels.float(), 0.0).contiguous()
-    count = mask.float().sum().reshape(1)
-    w = torch.zeros((fpad,), dtype=torch.float32, device=dev)
-    w[:f] = weights
-    preds = torch.empty((b,), dtype=torch.float32, device=dev)
-    residual = torch.empty((b,), dtype=torch.float32, device=dev)
-    chunks = -(-b // ROWS_PER_CHUNK)
-    partials = torch.empty((chunks, fpad), dtype=torch.float32, device=dev)
-    converged = torch.zeros((1,), dtype=torch.int32, device=dev)
-
-    fn = _library()
     with torch.cuda.device(dev):
-        err = fn(
-            x.data_ptr(), y.data_ptr(), count.data_ptr(), w.data_ptr(),
-            preds.data_ptr(), residual.data_ptr(), partials.data_ptr(),
-            converged.data_ptr(), b, f, fpad, ROWS_PER_CHUNK,
-            int(num_iterations), float(step_size), float(l2_reg),
-            float(convergence_tol), torch.cuda.current_stream(dev).cuda_stream,
+        sm_count, shared_limit = device_limits(torch.cuda.current_device())
+        plan = launch_plan(b, f, sm_count=sm_count, shared_limit=shared_limit)
+        w = torch.empty((f,), dtype=torch.float32, device=dev)
+        preds = torch.empty((b,), dtype=torch.float32, device=dev)
+        spill = torch.empty((plan.spill_elements,), dtype=torch.bfloat16, device=dev)
+        scratch = torch.empty((plan.scratch_floats,), dtype=torch.float32, device=dev)
+        err = _library()(
+            x_dense.data_ptr(), labels.data_ptr(), mask.data_ptr(), weights.data_ptr(),
+            w.data_ptr(), preds.data_ptr(), spill.data_ptr(), scratch.data_ptr(),
+            b, f, plan.fpad, plan.grid, plan.rows_cap, plan.resident,
+            plan.spill_per_cta, plan.shared_bytes, int(num_iterations),
+            float(step_size), float(l2_reg), float(convergence_tol),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
-        fused_dense_sgd.launches += 1
     if err != 0:
         raise RuntimeError(f"fused_dense_sgd kernel launch failed: CUDA error {err}")
-    return w[:f], preds
+    fused_dense_sgd.launches += 1
+    fused_dense_sgd.last_iterations = scratch[-1]
+    return w, preds
 
 
 fused_dense_sgd.launches = 0
+fused_dense_sgd.last_iterations = None
