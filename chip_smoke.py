@@ -346,12 +346,22 @@ def replay_phase():
 
 # ---- phase 6: times ---------------------------------------------------------
 
-def timed(fn, runs):
+# ~0.1 ms of device work queued ahead of a timed call, so that its start
+# event fires only after the host has enqueued the call's launch
+QUEUE_AHEAD_CYCLES = 200_000
+
+
+def timed(fn, runs, queue_ahead=False):
+    """Median and all of ``runs`` CUDA-event times of ``fn``. With
+    ``queue_ahead`` the device is kept busy while the host enqueues, so the
+    time is the device's alone; without it the host's enqueue gap counts."""
     import torch
 
     times = []
     for _ in range(runs):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        if queue_ahead:
+            torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
         start.record()
         fn()
         end.record()
@@ -445,11 +455,12 @@ def profile_step():
         reverse=True,
     )
     total = sum(ms for ms, _, _ in host)
-    launches = {key: n for _, n, key in host if key.startswith("cudaLaunch")}
+    launches = {key: (n, ms) for ms, n, key in host if key.startswith("cudaLaunch")}
     phase("times", f"host self time a step (profiler on, so inflated): "
           f"{total:.3f} ms over {sum(n for _, n, _ in host):g} recorded ops; "
-          f"launches a step: {sum(launches.values()):g} "
-          f"({', '.join(f'{k} {n:g}' for k, n in sorted(launches.items()))})")
+          f"launches a step: {sum(n for n, _ in launches.values()):g} ("
+          + ", ".join(f"{k} {n:g} in {ms:.4f} ms" for k, (n, ms) in sorted(launches.items()))
+          + ")")
     for ms, n, key in host[:8]:
         phase("times", f"  step host {ms:.4f} ms in {n:g} calls ({100 * ms / total:.1f}%) {key[:60]}")
 
@@ -471,53 +482,6 @@ def ptxas_report():
         int(regs.group(1)) if regs else None,
         (int(spills.group(1)), int(spills.group(2))) if spills else None,
     )
-
-
-def timeline(x, y, m, w0, plan, kernel_ms, iters):
-    """Where one call's time goes: the timeline build of the kernel records
-    clock64() on CTA 0 at each phase boundary (csrc/fused_sgd.cu,
-    TWTML_SGD_TIMELINE); cycles become us through the clock rate that the
-    whole call implies (its cycles over the kernel's median event time)."""
-    import ctypes
-
-    import torch
-
-    from twtml_tpu_torch.ops import _build, fused_sgd
-
-    fn = fused_sgd._library("fused_sgd_timeline")
-    slots = torch.zeros(512, dtype=torch.int64, device="cuda")
-    set_timeline = _build.load("fused_sgd_timeline").twtml_fused_sgd_set_timeline
-    if set_timeline(ctypes.c_void_p(slots.data_ptr()), 512):
-        raise RuntimeError("timeline buffer not set")
-    b, f = x.shape
-    w = torch.empty(f, device="cuda")
-    preds = torch.empty(b, device="cuda")
-    spill = torch.empty(plan.spill_elements, dtype=torch.bfloat16, device="cuda")
-    scratch = torch.empty(plan.scratch_floats, device="cuda")
-    for _ in range(3):
-        err = fn(x.data_ptr(), y.data_ptr(), m.data_ptr(), w0.data_ptr(), w.data_ptr(),
-                 preds.data_ptr(), spill.data_ptr(), scratch.data_ptr(), b, f,
-                 plan.fpad, plan.grid, plan.rows_cap, plan.resident,
-                 plan.spill_per_cta, plan.shared_bytes, OP_ITERS, 0.005, 0.0, 0.001,
-                 torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"CUDA error {err}")
-    t = slots.cpu().tolist()
-    ghz = (t[3] - t[0]) / (kernel_ms * 1e6)
-    us = lambda cycles: cycles / ghz / 1e3  # noqa: E731
-    phase("times", f"timeline (CTA 0, clock64 at ~{ghz:.3f} GHz): call {us(t[3] - t[0]):.1f} us, "
-          f"prologue {us(t[1] - t[0]):.1f} us, first barrier {us(t[2] - t[1]):.2f} us")
-    names = ("row pass + CTA reduction", "barrier 1", "column update", "barrier 2",
-             "new w + converged decision")
-    steps = []
-    for it in range(2, iters + 1):  # iteration 1 also writes preds
-        marks = [t[8 * (it - 1) + 4]] + [t[8 * it + k] for k in range(5)]
-        steps.append([marks[k + 1] - marks[k] for k in range(5)])
-    if steps:
-        per = [statistics.median(s[k] for s in steps) for k in range(5)]
-        phase("times", f"timeline per iteration (median of iterations 2-{iters}): "
-              f"{us(sum(per)):.2f} us = " + ", ".join(
-                  f"{name} {us(c):.2f}" for name, c in zip(names, per)))
 
 
 def times_phase(smi, max_err, launches):
@@ -550,34 +514,36 @@ def times_phase(smi, max_err, launches):
     preds = torch.empty(b, device=dev)
     spill = torch.empty(plan.spill_elements, dtype=torch.bfloat16, device=dev)
     scratch = torch.empty(plan.scratch_floats, device=dev)
-    fn = fused_sgd._library()
+
+    def args(iterations=OP_ITERS):
+        return fused_sgd.kernel_args(plan, x, y, m, w0, w, preds, spill, scratch,
+                                     num_iterations=iterations, step_size=0.005,
+                                     l2_reg=0.0, convergence_tol=0.001)
 
     def kernel_only(iterations=OP_ITERS):
-        err = fn(x.data_ptr(), y.data_ptr(), m.data_ptr(), w0.data_ptr(), w.data_ptr(),
-                 preds.data_ptr(), spill.data_ptr(), scratch.data_ptr(), b, f,
-                 plan.fpad, plan.grid, plan.rows_cap, plan.resident,
-                 plan.spill_per_cta, plan.shared_bytes, iterations, 0.005, 0.0, 0.001,
-                 torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"CUDA error {err}")
+        fused_sgd.call_kernel(plan, args(iterations))
 
     def kernel_times(iterations, runs=25):
         for _ in range(3):  # warm-up
             kernel_only(iterations)
-        times = [timed(lambda: kernel_only(iterations), 1)[0] for _ in range(runs)]
-        return statistics.median(times), times
+        return timed(lambda: kernel_only(iterations), runs, queue_ahead=True)
 
     kernel_ms, times = kernel_times(OP_ITERS)
     prologue_ms, _ = kernel_times(0)
-    enqueue = []
-    for _ in range(10):  # host time to enqueue one call
+    # the same call with the host's set-up and enqueue inside the events
+    with_host_ms, _ = timed(kernel_only, 25)
+    enqueue, prepare = [], []
+    for _ in range(50):  # host time to enqueue one call, and to prepare its arguments
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        kernel_only()
+        call = args()
+        t1 = time.perf_counter()
+        fused_sgd.call_kernel(plan, call)
         enqueue.append((time.perf_counter() - t0) * 1e3)
+        prepare.append((t1 - t0) * 1e3)
         torch.cuda.synchronize()
+    # the wrapper with its host work counted: allocations, plan, launch
     wrapper_ms, _ = timed(lambda: fused_sgd.fused_dense_sgd(x, y, m, w0, **kw), 25)
-    timeline(x, y, m, w0, plan, kernel_ms, iters)
     profile_kernel(kernel_only)
     profile_step()
     twin_ms, _ = timed(lambda: fused_sgd.fused_dense_sgd_reference(x, y, m, w0, **kw), 10)
@@ -599,15 +565,23 @@ def times_phase(smi, max_err, launches):
           f"{plan.spill_per_cta} spilled a CTA ({plan.resident_rows} / "
           f"{plan.spill_rows} rows), {plan.shared_bytes} B shared memory a CTA, "
           f"{regs} registers a thread, spill stores/loads {spills} B (ptxas)")
-    phase("times", f"kernel alone: median {kernel_ms:.4f} ms over 25 runs "
-          f"(min {min(times):.4f}, max {max(times):.4f}); prologue alone "
-          f"(num_iterations=0): {prologue_ms:.4f} ms; per iteration "
+    phase("times", f"kernel alone (device time: CUDA events with work queued "
+          f"ahead, host enqueue excluded): median {kernel_ms:.4f} ms over 25 "
+          f"runs (min {min(times):.4f}, max {max(times):.4f}); prologue alone "
+          f"(num_iterations=0: X staged, preds, count, one grid barrier): "
+          f"{prologue_ms:.4f} ms; per iteration "
           f"{(kernel_ms - prologue_ms) / max(iters, 1) * 1e3:.2f} us "
           f"((t{OP_ITERS} - t0) / {iters} iterations run)")
+    phase("times", "earlier kernel (PR 1, three launches an iteration), quoted "
+          "from PERF.md, not measured in this run: 1.929 ms")
     phase("times", f"host enqueue of the kernel's {fused_sgd.launches_per_call(OP_ITERS)} "
-          f"launch: median {statistics.median(enqueue):.4f} ms over 10 calls")
-    phase("times", f"wrapper call (allocations and the kernel): median "
-          f"{wrapper_ms:.4f} ms over 25 runs")
+          f"launch: median {statistics.median(enqueue):.4f} ms over 50 calls (min "
+          f"{min(enqueue):.4f}), of which the Python arguments median "
+          f"{statistics.median(prepare):.4f} ms; the "
+          f"kernel alone with that enqueue inside the events: median "
+          f"{with_host_ms:.4f} ms over 25 runs")
+    phase("times", f"wrapper call (host work counted: plan, allocations, launch): "
+          f"median {wrapper_ms:.4f} ms over 25 runs")
     phase("times", f"plain twin on the card: median {twin_ms:.4f} ms over 10 runs")
     phase("times", f"bound: bytes {io_bytes} B / 3.35e12 B/s = {bytes_ms:.5f} ms; "
           f"operations {flops} f32 flops / 67e12 flop/s = {ops_ms:.5f} ms; "
@@ -624,7 +598,6 @@ def times_phase(smi, max_err, launches):
         "launches": launches,
         "max_abs_err": max_err,
         "ms": kernel_ms,
-        "earlier_ms": 1.929,
         "prologue_ms": prologue_ms,
         "wrapper_ms": wrapper_ms,
         "plain_ms": twin_ms,

@@ -8,6 +8,9 @@ of X (it also rounds w and r to bf16 per product; the port keeps them f32).
 The CUDA kernel itself is held against this twin on the card by
 chip_smoke.py."""
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -170,6 +173,25 @@ def test_launch_plan_covers_every_row_once(rows, features):
     assert plan.spill_elements == plan.grid * plan.spill_per_cta * plan.row_columns
 
 
+@pytest.mark.parametrize("features", [64, 1004, 8196])
+@pytest.mark.parametrize("rows", [1, 16, 16381, 16384])
+def test_launch_plan_layout_holds_what_the_kernel_touches(rows, features):
+    """The plan's shared-memory layout, which the C entry holds equal to
+    the kernel's: w [fpad] f32 at 0, reduction slots, y and r [rows_cap]
+    f32, scratch, then the resident bf16 rows, each region 16-byte aligned
+    and large enough, ending at shared_bytes."""
+    plan = fused_sgd.launch_plan(rows, features, sm_count=H100_SMS,
+                                 shared_limit=H100_SHARED)
+    red, y, r, scratch, x_rows, stride = plan.smem_layout
+    assert all(off % 16 == 0 for off in (red, y, r, scratch, x_rows))
+    assert red >= 4 * plan.fpad
+    assert y - red >= 4 * fused_sgd.REDUCE_SLOTS * fused_sgd.TILE_COLUMNS
+    assert r - y >= 4 * plan.rows_cap and scratch - r >= 4 * plan.rows_cap
+    assert x_rows - scratch >= 4 * fused_sgd.SCRATCH_FLOATS
+    assert stride * fused_sgd.COLUMN_MULTIPLE == plan.row_columns
+    assert plan.shared_bytes == x_rows + 16 * stride * plan.resident
+
+
 def test_launch_plan_operating_point():
     """B = 16384, F = 1004 on an H100: 132 CTAs of 124-125 rows, 103 of
     them resident (rows stored 1024 columns wide), the rest spilled."""
@@ -178,6 +200,31 @@ def test_launch_plan_operating_point():
     assert (plan.grid, plan.rows_cap, plan.resident, plan.row_columns) == (132, 125, 103, 1024)
     assert (plan.resident_rows, plan.spill_rows) == (13596, 2788)
     assert plan.shared_bytes == 232_400
+    assert plan.smem_layout == (4032, 20416, 20928, 21440, 21456, 128)
+
+
+KERNEL_SOURCE = Path(fused_sgd.__file__).resolve().parents[1] / "csrc" / "fused_sgd.cu"
+
+
+def test_kernel_build_passes_the_plan_constants():
+    """The launch plan's constants reach nvcc, and the source checks its
+    own against each of them at compile time."""
+    from twtml_tpu_torch.ops import _build
+
+    assert _build.SOURCES["fused_sgd"] == ("fused_sgd.cu", fused_sgd.NVCC_DEFINES)
+    source = KERNEL_SOURCE.read_text()
+    for define in fused_sgd.NVCC_DEFINES:
+        name, value = define[len("-D"):].split("=")
+        assert value == str(getattr(fused_sgd, name[len("TWTML_SGD_"):]))
+        assert re.search(rf"static_assert\(\w+ == {name},", source), name
+
+
+def test_kernel_entry_takes_the_wrapper_arguments():
+    """The ctypes argument list has as many entries as the C entry's
+    parameter list."""
+    source = KERNEL_SOURCE.read_text()
+    params = re.search(r'extern "C" int twtml_fused_dense_sgd\(([^)]*)\)', source).group(1)
+    assert len(params.split(",")) == len(fused_sgd.KERNEL_ARGTYPES)
 
 
 def test_launch_plan_refuses_what_cannot_fit():

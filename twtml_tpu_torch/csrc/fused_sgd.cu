@@ -65,28 +65,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-// Built with -DTWTML_SGD_TIMELINE (a second library, for chip_smoke.py's
-// breakdown), thread 0 of CTA 0 records clock64() at the phase boundaries
-// into a device buffer: slot 0 start, 1 prologue done, 2 after the first
-// barrier, 3 end; then for iteration it (1-based) 8·it + {0 row pass and CTA
-// reduction done, 1 after barrier 1, 2 update done, 3 after barrier 2,
-// 4 new w and the converged decision done}. Without it the marks compile
-// to nothing.
-#ifdef TWTML_SGD_TIMELINE
-__device__ long long* g_timeline = nullptr;
-__device__ int g_timeline_slots = 0;
-#define TIMELINE(slot)                                                      \
-  do {                                                                      \
-    if (blockIdx.x == 0 && threadIdx.x == 0 && (slot) < g_timeline_slots)   \
-      g_timeline[slot] = clock64();                                         \
-  } while (0)
-#else
-#define TIMELINE(slot) \
-  do {                 \
-  } while (0)
-#endif
-
-// ops/fused_sgd.py holds the same constants for its launch plan
 constexpr int kThreads = 384;  // 12 warps: up to 168 registers a thread
 constexpr int kWarps = kThreads / 32;
 constexpr int kVpl = 4;                     // 8-column groups a lane holds
@@ -97,6 +75,19 @@ constexpr int kScratchFloats = 4;  // CTA-wide broadcast slots
 constexpr int kConvergedSlot = 0;
 constexpr int kCountSlot = 1;
 
+// The launch plan (ops/fused_sgd.py) sizes the shared memory from its own
+// copy of these constants; ops/_build.py passes that copy as -D flags, so
+// the two cannot drift apart without the build failing here.
+#if !defined(TWTML_SGD_THREADS) || !defined(TWTML_SGD_TILE_COLUMNS) || \
+    !defined(TWTML_SGD_REDUCE_SLOTS) || !defined(TWTML_SGD_SCRATCH_FLOATS)
+#error "build through twtml_tpu_torch/ops/_build.py, which passes the launch plan's constants"
+#endif
+static_assert(kThreads == TWTML_SGD_THREADS, "THREADS differs from ops/fused_sgd.py");
+static_assert(kTileCols == TWTML_SGD_TILE_COLUMNS, "TILE_COLUMNS differs from ops/fused_sgd.py");
+static_assert(kReduceSlots == TWTML_SGD_REDUCE_SLOTS, "REDUCE_SLOTS differs from ops/fused_sgd.py");
+static_assert(kScratchFloats == TWTML_SGD_SCRATCH_FLOATS,
+              "SCRATCH_FLOATS differs from ops/fused_sgd.py");
+
 struct Params {
   const float* x;       // [rows, features] f32, row stride features
   const float* labels;  // [rows] f32
@@ -104,7 +95,7 @@ struct Params {
   const float* w0;      // [features] f32
   float* w_out;         // [features] f32
   float* preds;         // [rows] f32
-  __nv_bfloat16* spill; // [grid, spill_per_cta, fpad] bf16
+  __nv_bfloat16* spill; // [grid, spill_per_cta, 8·stride] bf16
   float* partials;      // [grid, fpad] f32: each CTA's Xᵀr
   float* wbuf;          // [fpad] f32: w after each update
   float* count_part;    // [grid] f32
@@ -116,24 +107,28 @@ struct Params {
   float step_size, l2_reg, tol;
 };
 
-// Byte offsets of the dynamic shared memory, each 16-byte aligned. The
-// launch plan in ops/fused_sgd.py computes the same sizes.
+// Byte offsets of the dynamic shared memory, each 16-byte aligned: w
+// [fpad] f32 at 0, the reduction slots, y and r [rows_cap] f32, the
+// broadcast scratch, then the resident bf16 rows of X. The launch plan
+// (ops/fused_sgd.py) computes the same and passes it to the C entry, which
+// refuses a plan that differs. (Offsets passed in as kernel parameters
+// instead cost 5 registers and ~1.5 % of the kernel's time on an H100:
+// the compiler no longer sees how the regions relate.)
 struct Layout {
-  size_t w, red, y, r, scratch, x;
+  size_t red, y, r, scratch, x;
 };
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
-// Bytes a stored bf16 row takes: rows up to kTileCols wide are padded to
-// kTileCols so that the narrow pass needs no bounds checks.
-__host__ __device__ inline size_t row_bytes(int fpad) {
-  return 2 * (size_t)(fpad <= kTileCols ? kTileCols : fpad);
+// 16-byte groups a stored bf16 row takes: rows up to kTileCols wide are
+// padded to kTileCols so that the narrow pass needs no bounds checks.
+__host__ __device__ inline int row_groups(int fpad) {
+  return (fpad <= kTileCols ? kTileCols : fpad) / 8;
 }
 
 __host__ __device__ inline Layout layout(int fpad, int rows_cap) {
   Layout l;
-  l.w = 0;
-  l.red = l.w + align16((size_t)fpad * 4);
+  l.red = align16((size_t)fpad * 4);
   l.y = l.red + (size_t)kReduceSlots * kTileCols * 4;
   l.r = l.y + align16((size_t)rows_cap * 4);
   l.scratch = l.r + align16((size_t)rows_cap * 4);
@@ -416,7 +411,7 @@ __device__ __forceinline__ void stage_row(const Params& p, uint4* x_s, float* y_
 __global__ void __launch_bounds__(kThreads, 1) fused_sgd_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout lay = layout(p.fpad, p.rows_cap);
-  float* w_s = reinterpret_cast<float*>(smem + lay.w);
+  float* w_s = reinterpret_cast<float*>(smem);
   float* red = reinterpret_cast<float*>(smem + lay.red);
   float* y_s = reinterpret_cast<float*>(smem + lay.y);
   float* r_s = reinterpret_cast<float*>(smem + lay.r);
@@ -424,7 +419,6 @@ __global__ void __launch_bounds__(kThreads, 1) fused_sgd_kernel(const Params p) 
   uint4* x_s = reinterpret_cast<uint4*>(smem + lay.x);
 
   cg::grid_group grid = cg::this_grid();
-  TIMELINE(0);
   const int cta = blockIdx.x, ncta = gridDim.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row0 = (int)((long long)cta * p.rows / ncta);
@@ -447,9 +441,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_sgd_kernel(const Params p) 
     s = warp_sum(s);
     if (lane == 0) p.count_part[cta] = s;
   }
-  TIMELINE(1);
   grid.sync();
-  TIMELINE(2);
   if (warp == 0) {
     float s = 0.f;
     for (int c = lane; c < ncta; c += 32) s += __ldcg(p.count_part + c);
@@ -474,9 +466,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_sgd_kernel(const Params p) 
     // contraction): η = step/√it, w·(1 − η·λ) − (η·g)/max(count, 1)
     const float eta = __fdiv_rn(p.step_size, __fsqrt_rn((float)it));
     const float scale = __fsub_rn(1.f, __fmul_rn(eta, p.l2_reg));
-    TIMELINE(8 * it);
     grid.sync();
-    TIMELINE(8 * it + 1);
 
     // ---- update of this CTA's columns, 8 at a time: lane & 7 takes column
     // f0 + (lane & 7), and the warps read partial rows 4·warp + (lane >> 3)
@@ -516,9 +506,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_sgd_kernel(const Params p) 
         p.norm_part[2 * cta + 1] = n;
       }
     }
-    TIMELINE(8 * it + 2);
     grid.sync();
-    TIMELINE(8 * it + 3);
 
     // ---- every CTA: the new w, and the same converged decision
     for (int f = threadIdx.x - 32; warp > 0 && f < fpad; f += kThreads - 32)
@@ -536,66 +524,62 @@ __global__ void __launch_bounds__(kThreads, 1) fused_sgd_kernel(const Params p) 
             (p.tol > 0.f && sqrtf(ds) < p.tol * fmaxf(sqrtf(ns), 1.f)) ? 1.f : 0.f;
     }
     __syncthreads();
-    TIMELINE(8 * it + 4);
     if (scratch[kConvergedSlot] != 0.f || it >= p.num_iterations) break;
   }
-  TIMELINE(3);
   if (cta == 0 && threadIdx.x == 0) *p.iterations = train ? (float)it : 0.f;
 }
 
 }  // namespace
 
-#ifdef TWTML_SGD_TIMELINE
-// Points the timeline marks at `slots` int64 of device memory (null: off).
-extern "C" int twtml_fused_sgd_set_timeline(void* buffer, int slots) {
-  long long* ptr = static_cast<long long*>(buffer);
-  cudaError_t err = cudaMemcpyToSymbol(g_timeline, &ptr, sizeof(ptr));
-  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_timeline_slots, &slots, sizeof(slots));
-  return (int)err;
-}
-#endif
-
-// The SM count and the opt-in shared memory a block may use on `device`,
-// for the launch plan. Returns a CUDA error code, 0 on success.
-extern "C" int twtml_fused_sgd_limits(int device, int* sm_count, int* shared_optin) {
-  cudaError_t err = cudaDeviceGetAttribute(sm_count, cudaDevAttrMultiProcessorCount, device);
+// Once a device, before its first launch: the SM count and the opt-in
+// shared memory a block may use on `device` (for the launch plan), and the
+// kernel's dynamic shared-memory limit raised to that opt-in there, so that
+// a launch makes no set-up call of its own. Returns a CUDA error code, 0 on
+// success.
+extern "C" int twtml_fused_sgd_setup(int device, int* sm_count, int* shared_optin) {
+  int current = 0;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(sm_count, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(shared_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  return (int)err;
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fused_sgd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               *shared_optin);
+  const cudaError_t restored = cudaSetDevice(current);
+  return (int)(err != cudaSuccess ? err : restored);
 }
 
 // The whole loop for one batch, one cooperative launch on `stream` (the
-// current device's). Pointers are device pointers:
+// current device's, set up by twtml_fused_sgd_setup). Pointers are device
+// pointers:
 //   x [rows, features] f32 contiguous, labels/mask [rows] f32, w0 [features]
 //   f32 (inputs, unchanged); w_out [features], preds [rows] f32 (outputs);
-//   spill [grid·spill_per_cta·fpad] bf16 and scratch [grid·fpad + fpad +
-//   3·grid + 1] f32 (its last float receives the iterations run).
+//   spill [grid·spill_per_cta·8·plan_layout[5]] bf16 and scratch [grid·fpad
+//   + fpad + 3·grid + 1] f32 (its last float receives the iterations run).
 // grid, rows_cap (most rows a CTA owns), resident (rows a CTA keeps in
-// shared memory), spill_per_cta and shared_bytes come from the launch plan.
-// Returns the CUDA error of the launch (a refused cooperative launch
-// included), 0 when it was taken.
+// shared memory), spill_per_cta, shared_bytes and `plan_layout` (host
+// memory: the plan's byte offsets of the reduction slots, y, r, scratch and
+// the resident rows, then the 16-byte groups a stored row takes) come from
+// the launch plan; a plan whose layout differs from layout() and
+// row_groups() here is refused. Returns the CUDA error of the launch (a
+// refused cooperative launch included), 0 when it was taken.
 extern "C" int twtml_fused_dense_sgd(
     const void* x, const void* labels, const void* mask, const void* w0, void* w_out,
     void* preds, void* spill, void* scratch, int rows, int features, int fpad, int grid,
-    int rows_cap, int resident, int spill_per_cta, int shared_bytes, int num_iterations,
-    float step_size, float l2_reg, float tol, void* stream) {
+    int rows_cap, int resident, int spill_per_cta, int shared_bytes, const int* plan_layout,
+    int num_iterations, float step_size, float l2_reg, float tol, void* stream) {
   const Layout lay = layout(fpad, rows_cap);
+  const int stride = row_groups(fpad);
   if (rows < 1 || features < 1 || fpad % 8 != 0 || features > fpad || grid < 1 ||
       (long long)rows_cap * grid < rows || resident < 0 || resident > rows_cap ||
       spill_per_cta != rows_cap - resident || num_iterations < 0 ||
-      (size_t)shared_bytes < lay.x + (size_t)resident * row_bytes(fpad))
+      (size_t)plan_layout[0] != lay.red || (size_t)plan_layout[1] != lay.y ||
+      (size_t)plan_layout[2] != lay.r || (size_t)plan_layout[3] != lay.scratch ||
+      (size_t)plan_layout[4] != lay.x || plan_layout[5] != stride ||
+      (size_t)shared_bytes < lay.x + (size_t)resident * stride * 16)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_sgd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
-  if (err != cudaSuccess) return (int)err;
-  int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, fused_sgd_kernel, kThreads, shared_bytes)) != cudaSuccess)
-    return (int)err;
-  if (grid > per_sm * sms) return (int)cudaErrorCooperativeLaunchTooLarge;
 
   Params p;
   p.x = static_cast<const float*>(x);
@@ -614,7 +598,7 @@ extern "C" int twtml_fused_dense_sgd(
   p.features = features;
   p.fpad = fpad;
   p.nvec = fpad / 8;
-  p.stride = (int)(row_bytes(fpad) / 16);
+  p.stride = stride;
   p.rows_cap = rows_cap;
   p.resident = resident;
   p.spill_per_cta = spill_per_cta;

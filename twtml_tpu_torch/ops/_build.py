@@ -18,13 +18,13 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from . import fused_sgd
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "twtml_tpu_torch"
-# library name -> (source, extra nvcc flags); the timeline variant records
-# per-phase clocks for chip_smoke.py's breakdown and is used nowhere else
+# library name -> (source, extra nvcc flags)
 SOURCES = {
-    "fused_sgd": ("fused_sgd.cu", ()),
-    "fused_sgd_timeline": ("fused_sgd.cu", ("-DTWTML_SGD_TIMELINE",)),
+    "fused_sgd": ("fused_sgd.cu", fused_sgd.NVCC_DEFINES),
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -34,12 +34,19 @@ import torch
 COLUMN_MULTIPLE = 8
 # the dense regime's widest design matrix: 8192 text + 4 numeric columns
 MAX_FEATURES = 8192 + 4
-# constants of csrc/fused_sgd.cu that size its shared memory
+# constants of csrc/fused_sgd.cu that size its shared memory; the build
+# passes them to nvcc, and the source static_asserts its own against them
 THREADS = 384
 WARPS = THREADS // 32
 TILE_COLUMNS = 1024  # columns whose w and Xᵀr a warp holds in registers
 REDUCE_SLOTS = 4
 SCRATCH_FLOATS = 4
+NVCC_DEFINES = tuple(
+    f"-DTWTML_SGD_{name}={value}" for name, value in (
+        ("THREADS", THREADS), ("TILE_COLUMNS", TILE_COLUMNS),
+        ("REDUCE_SLOTS", REDUCE_SLOTS), ("SCRATCH_FLOATS", SCRATCH_FLOATS),
+    )
+)
 
 
 def padded_columns(num_features: int) -> int:
@@ -80,6 +87,11 @@ class LaunchPlan(NamedTuple):
     resident: int  # rows a CTA keeps in shared memory
     spill_per_cta: int
     shared_bytes: int
+    # byte offsets of the reduction slots, y, r, scratch and the resident
+    # rows in shared memory (w at 0), then the 16-byte groups a stored row
+    # takes; the C entry refuses a plan whose layout differs from the
+    # kernel's own layout() and row_groups()
+    smem_layout: tuple[int, int, int, int, int, int]
 
     def cta_rows(self, cta: int) -> range:
         return range(cta * self.rows // self.grid, (cta + 1) * self.rows // self.grid)
@@ -105,28 +117,32 @@ class LaunchPlan(NamedTuple):
 
 def launch_plan(batch_rows: int, num_features: int, *, sm_count: int,
                 shared_limit: int) -> LaunchPlan:
-    """The grid, rows a CTA, resident/spill split and shared-memory bytes of
-    one call. At most one CTA an SM, and no more CTAs than give each warp a
-    row. Shared memory holds w [fpad] f32, the reduction slots, y and r a
+    """The grid, rows a CTA, resident/spill split and shared-memory layout
+    of one call. At most one CTA an SM, and no more CTAs than give each warp
+    a row. Shared memory holds w [fpad] f32, the reduction slots, y and r a
     row, a small scratch, then as many bf16 rows of X as fit in
     ``shared_limit`` (the card's opt-in limit a block: 232,448 B on an
-    H100); a row up to TILE_COLUMNS wide is stored TILE_COLUMNS wide.
-    Mirrors ``layout`` and ``row_bytes`` in csrc/fused_sgd.cu."""
+    H100); a row up to TILE_COLUMNS wide is stored TILE_COLUMNS wide, so
+    the narrow pass needs no bounds checks."""
     fpad = padded_columns(num_features)
     row_columns = max(fpad, TILE_COLUMNS)
     grid = max(1, min(sm_count, -(-batch_rows // WARPS)))
     rows_cap = -(-batch_rows // grid)
-    fixed = (_align16(fpad * 4) + REDUCE_SLOTS * TILE_COLUMNS * 4
-             + 2 * _align16(rows_cap * 4) + SCRATCH_FLOATS * 4)
-    if fixed > shared_limit:
-        raise ValueError(f"{batch_rows} rows x {num_features} columns need {fixed} B "
+    red = _align16(fpad * 4)
+    y = red + REDUCE_SLOTS * TILE_COLUMNS * 4
+    r = y + _align16(rows_cap * 4)
+    scratch = r + _align16(rows_cap * 4)
+    x_rows = scratch + SCRATCH_FLOATS * 4
+    if x_rows > shared_limit:
+        raise ValueError(f"{batch_rows} rows x {num_features} columns need {x_rows} B "
                          f"of shared memory before any row of X; the limit is "
                          f"{shared_limit} B")
-    resident = min(rows_cap, (shared_limit - fixed) // (2 * row_columns))
+    resident = min(rows_cap, (shared_limit - x_rows) // (2 * row_columns))
     return LaunchPlan(
         rows=batch_rows, fpad=fpad, row_columns=row_columns, grid=grid,
         rows_cap=rows_cap, resident=resident, spill_per_cta=rows_cap - resident,
-        shared_bytes=fixed + resident * 2 * row_columns,
+        shared_bytes=x_rows + resident * 2 * row_columns,
+        smem_layout=(red, y, r, scratch, x_rows, row_columns // COLUMN_MULTIPLE),
     )
 
 
@@ -164,18 +180,21 @@ def fused_dense_sgd_reference(
 # arguments of the C entry twtml_fused_dense_sgd (csrc/fused_sgd.cu)
 KERNEL_ARGTYPES = (
     [ctypes.c_void_p] * 8  # x, labels, mask, w0, w_out, preds, spill, scratch
-    + [ctypes.c_int] * 9  # rows, features, fpad, grid, rows_cap, resident,
-    # spill_per_cta, shared_bytes, iterations
+    + [ctypes.c_int] * 8  # rows, features, fpad, grid, rows_cap, resident,
+    # spill_per_cta, shared_bytes
+    + [ctypes.POINTER(ctypes.c_int)]  # the plan's smem_layout
+    + [ctypes.c_int]  # iterations
     + [ctypes.c_float] * 3  # step_size, l2_reg, tol
     + [ctypes.c_void_p]  # stream
 )
 
 
-def _library(name: str = "fused_sgd"):
-    """The C entry of the named build of csrc/fused_sgd.cu."""
+@functools.cache
+def _entry():
+    """The C entry of csrc/fused_sgd.cu, built at first use."""
     from ._build import load
 
-    fn = load(name).twtml_fused_dense_sgd
+    fn = load("fused_sgd").twtml_fused_dense_sgd
     fn.restype = ctypes.c_int
     fn.argtypes = KERNEL_ARGTYPES
     return fn
@@ -183,16 +202,52 @@ def _library(name: str = "fused_sgd"):
 
 @functools.cache
 def device_limits(index: int) -> tuple[int, int]:
-    """(SM count, opt-in shared memory a block) of CUDA device ``index``."""
+    """(SM count, opt-in shared memory a block) of CUDA device ``index``.
+    The first call for a device also raises the kernel's dynamic
+    shared-memory limit there, which every launch on it needs."""
     from ._build import load
 
-    fn = load("fused_sgd").twtml_fused_sgd_limits
+    fn = load("fused_sgd").twtml_fused_sgd_setup
     fn.restype = ctypes.c_int
     sms, shared = ctypes.c_int(0), ctypes.c_int(0)
     err = fn(index, ctypes.byref(sms), ctypes.byref(shared))
     if err != 0:
-        raise RuntimeError(f"fused_dense_sgd: device query failed: CUDA error {err}")
+        raise RuntimeError(f"fused_dense_sgd: device set-up failed: CUDA error {err}")
     return sms.value, shared.value
+
+
+@functools.lru_cache(maxsize=64)
+def _layout_arg(smem_layout: tuple[int, ...]):
+    return (ctypes.c_int * len(smem_layout))(*smem_layout)
+
+
+def kernel_args(plan: LaunchPlan, x_dense, labels, mask, weights, w_out, preds,
+                spill, scratch, *, num_iterations: int, step_size: float,
+                l2_reg: float, convergence_tol: float) -> tuple:
+    """The C entry's arguments for one launch on the current stream, with
+    the buffers ``plan`` asks for (``spill_elements`` bf16,
+    ``scratch_floats`` f32) on the current device."""
+    return (
+        x_dense.data_ptr(), labels.data_ptr(), mask.data_ptr(), weights.data_ptr(),
+        w_out.data_ptr(), preds.data_ptr(), spill.data_ptr(), scratch.data_ptr(),
+        plan.rows, x_dense.shape[1], plan.fpad, plan.grid, plan.rows_cap, plan.resident,
+        plan.spill_per_cta, plan.shared_bytes, _layout_arg(plan.smem_layout),
+        int(num_iterations), float(step_size), float(l2_reg), float(convergence_tol),
+        torch.cuda.current_stream().cuda_stream,
+    )
+
+
+def call_kernel(plan: LaunchPlan, args: tuple) -> None:
+    """One cooperative launch with ``kernel_args``' arguments, after
+    ``device_limits`` has run for the device. Raises when the launch is
+    refused. Counts nothing: the wrapper does."""
+    err = _entry()(*args)
+    if err == 1:  # cudaErrorInvalidValue: the entry's own checks
+        raise RuntimeError("fused_dense_sgd: the kernel refused the launch plan "
+                           f"{plan} (sizes, or a layout that differs from "
+                           "csrc/fused_sgd.cu's layout())")
+    if err != 0:
+        raise RuntimeError(f"fused_dense_sgd kernel launch failed: CUDA error {err}")
 
 
 def fused_dense_sgd(
@@ -237,16 +292,11 @@ def fused_dense_sgd(
         preds = torch.empty((b,), dtype=torch.float32, device=dev)
         spill = torch.empty((plan.spill_elements,), dtype=torch.bfloat16, device=dev)
         scratch = torch.empty((plan.scratch_floats,), dtype=torch.float32, device=dev)
-        err = _library()(
-            x_dense.data_ptr(), labels.data_ptr(), mask.data_ptr(), weights.data_ptr(),
-            w.data_ptr(), preds.data_ptr(), spill.data_ptr(), scratch.data_ptr(),
-            b, f, plan.fpad, plan.grid, plan.rows_cap, plan.resident,
-            plan.spill_per_cta, plan.shared_bytes, int(num_iterations),
-            float(step_size), float(l2_reg), float(convergence_tol),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"fused_dense_sgd kernel launch failed: CUDA error {err}")
+        call_kernel(plan, kernel_args(
+            plan, x_dense, labels, mask, weights, w, preds, spill, scratch,
+            num_iterations=num_iterations, step_size=step_size, l2_reg=l2_reg,
+            convergence_tol=convergence_tol,
+        ))
     fused_dense_sgd.launches += 1
     fused_dense_sgd.last_iterations = scratch[-1]
     return w, preds
