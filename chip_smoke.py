@@ -7,7 +7,8 @@ Run from the root of a checkout, on a machine with one CUDA card and nvcc:
 
 Phases, in order; any failure ends the run with a non-zero exit:
   1. device  — the card's name and power limit (nvidia-smi), torch and CUDA;
-  2. build   — compile every kernel of the port from ``twtml_tpu_torch/csrc``;
+  2. build   — compile every kernel of the port from ``twtml_tpu_torch/csrc``,
+               and the host library of the wire path from ``native/*.cpp``;
   3. kernel  — the fused dense-SGD kernel (one cooperative launch a call)
                against its plain PyTorch twin on the card, case by case, at
                rtol 1e-4 / atol 1e-5 (only the summation order differs), each
@@ -18,14 +19,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
                the operating point (spill path);
   4. main    — the flagship app (``apps/linear_regression.run``) on cuda for 4
                full-width synthetic batches (16384 tweets, 1000 + 4 dims, 50
-               iterations, --modelWatch on), with the kernel's launch counter
-               showing the loop went through it and the stats held against
-               the same app's model on the CPU;
-  5. replay  — the replay fixture on cuda, lines equal to the CPU run's;
-  6. times   — at the operating point: the launch plan (grid, rows resident
+               iterations, --modelWatch on) on its default wire: one native
+               fill and one native pack a batch into ONE uint8 buffer, one
+               H2D copy, decoded on the card. The kernel's launch counter and
+               the native counters show the path went through them; the stats
+               are held against the same app on the CPU;
+  5. padded  — the same 4 batches on cuda through ``--wire padded``: weights,
+               predictions, stats and quality bitwise equal to phase 4's;
+  6. replay  — the replay fixture on cuda on both wires, lines equal to the
+               CPU runs';
+  7. times   — at the operating point: the launch plan (grid, rows resident
                and spilled, shared memory, registers from ptxas), kernel,
-               prologue and per-iteration times, the twin, the bound, and
-               where a main-path step's time goes.
+               prologue and per-iteration times, the twin, the bound; each
+               wire's featurize by sub-stage, bytes and H2D copy; and where
+               a step's time goes on each wire.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -83,6 +90,14 @@ def build_phase():
         log = path.with_name(path.name + ".log")
         report = log.read_text().strip() if log.exists() else "(built earlier)"
         phase("build", f"{name}: {path.name}\n{report}")
+    from twtml_tpu_torch.features import native
+
+    t0 = time.perf_counter()
+    lib = native.NativeLibrary(native.build())
+    if lib.featurize_wire is None or lib.wire_assemble is None:
+        raise AssertionError(f"{lib.path.name} lacks a native entry of the wire path")
+    phase("build", f"native host library {lib.path.name} (g++, "
+          f"{' '.join(native.FLAGS)}) in {time.perf_counter() - t0:.1f} s")
 
 
 # ---- phase 3: kernel against twin ------------------------------------------
@@ -242,7 +257,7 @@ def sm_limits():
     return {"sm_count": sm_count, "shared_limit": shared_limit}
 
 
-# ---- phase 4/5: the main path ----------------------------------------------
+# ---- phase 4/5/6: the main path on each wire --------------------------------
 
 def app_run(argv, max_batches=0):
     from twtml_tpu_torch.apps.linear_regression import run
@@ -254,47 +269,84 @@ def app_run(argv, max_batches=0):
     return totals, out.getvalue().splitlines()
 
 
+def recorded_app_run(argv, max_batches):
+    """One app run with the kernel's launch counter and the native counters
+    set to 0 just before it and read just after, recording what the run's
+    model returned: each step's StepOutput (device tensors), the iterations
+    each fused call ran (device scalars, no sync) and the final weights."""
+    import torch
+
+    from twtml_tpu_torch.apps import linear_regression as app
+    from twtml_tpu_torch.features import native
+    from twtml_tpu_torch.models import sgd as sgd_module
+    from twtml_tpu_torch.ops import fused_sgd
+
+    rec = {"outputs": [], "iterations": []}
+    base = app.StreamingLinearRegressionWithSGD
+
+    class Recorded(base):
+        def step(self, batch):
+            out = super().step(batch)
+            rec["outputs"].append(out)
+            rec["model"] = self
+            return out
+
+    def fused(*args, **kw):
+        out = fused_sgd.fused_dense_sgd(*args, **kw)
+        rec["iterations"].append(fused_sgd.fused_dense_sgd.last_iterations)
+        return out
+
+    app.StreamingLinearRegressionWithSGD = Recorded
+    sgd_module.fused_dense_sgd = fused
+    try:
+        fused_sgd.fused_dense_sgd.launches = 0
+        native.reset_counters()
+        t0 = time.perf_counter()
+        totals, lines = app_run(argv, max_batches=max_batches)
+        torch.cuda.synchronize()
+        rec["wall_s"] = time.perf_counter() - t0
+        rec["launches"] = fused_sgd.fused_dense_sgd.launches
+        rec["native"] = dict(native.COUNTERS)
+    finally:
+        app.StreamingLinearRegressionWithSGD = base
+        sgd_module.fused_dense_sgd = fused_sgd.fused_dense_sgd
+    rec["weights"] = rec["model"].latest_weights
+    return totals, lines, rec
+
+
+MAIN_ARGV = ["--source", "synthetic", "--batchBucket", str(OP_ROWS)]
+
+
 def main_path_phase():
     import math
 
-    import torch
-
     from twtml_tpu_torch.ops import fused_sgd
 
-    from twtml_tpu_torch.models import sgd as sgd_module
-
-    # the iterations each batch's launch ran, as device scalars (no sync)
-    iterations = []
-
-    def recorded(*args, **kw):
-        out = fused_sgd.fused_dense_sgd(*args, **kw)
-        iterations.append(fused_sgd.fused_dense_sgd.last_iterations)
-        return out
-
-    argv = ["--source", "synthetic", "--batchBucket", str(OP_ROWS)]
-    sgd_module.fused_dense_sgd = recorded
-    try:
-        fused_sgd.fused_dense_sgd.launches = 0
-        t0 = time.perf_counter()
-        totals, lines = app_run(["--backend", "cuda", *argv], max_batches=4)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-        launches = fused_sgd.fused_dense_sgd.launches
-    finally:
-        sgd_module.fused_dense_sgd = fused_sgd.fused_dense_sgd
+    totals, lines, rec = recorded_app_run(["--backend", "cuda", *MAIN_ARGV], 4)
+    launches = rec["launches"]
     for line, step in zip(lines, totals["steps"]):
-        phase("main", f"{line} | featurize {step['featurize_ms']:.1f} ms, "
+        subs = ", ".join(f"{k} {v:.1f}" for k, v in step["featurize_substages_ms"].items())
+        phase("main", f"{line} | {step['wire']} wire {step['wire_bytes']} B "
+              f"(native fill {step['native_fill']}, pack {step['native_pack']}) | "
+              f"featurize {step['featurize_ms']:.1f} ms ({subs}), "
               f"step {step['step_ms']:.2f} ms (CUDA events)")
     if totals["batches"] != 4 or totals["count"] != 4 * OP_ROWS:
         raise AssertionError(f"main path ran {totals['batches']} batches, "
                              f"{totals['count']} rows")
     if launches != 4:
         raise AssertionError(f"fused_dense_sgd launched {launches} times in 4 batches")
+    want = {"fills_native": 4, "fills_degraded": 0, "packs_native": 4, "packs_degraded": 0}
+    if rec["native"] != want:
+        raise AssertionError(f"native counters after 4 batches: {rec['native']}, want {want}")
+    if not all(st["wire"] == "ragged" and st["native_fill"] and st["native_pack"]
+               for st in totals["steps"]):
+        raise AssertionError("a main-path batch did not take the ragged native wire")
+    phase("main", f"native counters: {rec['native']}")
     steady = totals["steps"][1:]  # batch 1 pays first-use set-up
     host_ms = sum(st["featurize_ms"] for st in steady)
     dev_ms = sum(st["step_ms"] for st in steady)
-    phase("main", f"app wall {wall_s:.3f} s for {totals['count']} tweets = "
-          f"{totals['count'] / wall_s:.0f} tweets/s (synthetic source "
+    phase("main", f"app wall {rec['wall_s']:.3f} s for {totals['count']} tweets = "
+          f"{totals['count'] / rec['wall_s']:.0f} tweets/s (synthetic source "
           f"generation, first-use set-up and the stats fetches included)")
     phase("main", f"batches 2-4: featurize {host_ms:.1f} ms + step {dev_ms:.2f} ms"
           f" for {len(steady) * OP_ROWS} tweets = "
@@ -304,7 +356,7 @@ def main_path_phase():
     phase("main", f"fused_dense_sgd launches: {launches} calls = "
           f"{launches * per_call} device kernel launches ({per_call} per call)")
     phase("main", "iterations run before the converged freeze, batches 1-4: "
-          f"{[int(t.item()) for t in iterations]} of {OP_ITERS}")
+          f"{[int(t.item()) for t in rec['iterations']]} of {OP_ITERS}")
     for i, step in enumerate(totals["steps"]):
         values = [step[k] for k in ("count", "mse", "real_stdev", "pred_stdev")]
         values += step["quality"]
@@ -316,7 +368,7 @@ def main_path_phase():
     # every unrounded stat agrees within the kernel's 1e-4
     from twtml_tpu_torch.utils.rounding import round_half_up
 
-    cpu_totals, cpu_lines = app_run(["--backend", "cpu", *argv], max_batches=4)
+    cpu_totals, cpu_lines = app_run(["--backend", "cpu", *MAIN_ARGV], max_batches=4)
     if lines[0] != cpu_lines[0]:
         raise AssertionError(f"batch 1: cuda {lines[0]!r} != cpu {cpu_lines[0]!r}")
     for i, (g, c) in enumerate(zip(totals["steps"], cpu_totals["steps"])):
@@ -328,23 +380,61 @@ def main_path_phase():
             raise AssertionError("batch 1 reported stats differ from the CPU run")
     phase("main", "stats of 4 batches equal the CPU twin's within rtol 1e-4; "
           "batch 1's reported line is identical")
-    return launches
+    return launches, rec
+
+
+def padded_phase(ragged_rec):
+    """The same 4 batches on the card through ``--wire padded``: the design
+    matrix is the same, so everything must be bitwise equal."""
+    import numpy as np
+    import torch
+
+    totals, lines, rec = recorded_app_run(
+        ["--backend", "cuda", "--wire", "padded", *MAIN_ARGV], 4)
+    for line, step in zip(lines, totals["steps"]):
+        subs = ", ".join(f"{k} {v:.1f}" for k, v in step["featurize_substages_ms"].items())
+        phase("padded", f"{line} | {step['wire']} wire {step['wire_bytes']} B | "
+              f"featurize {step['featurize_ms']:.1f} ms ({subs}), "
+              f"step {step['step_ms']:.2f} ms (CUDA events)")
+    steady = totals["steps"][1:]
+    host_ms = sum(st["featurize_ms"] for st in steady)
+    dev_ms = sum(st["step_ms"] for st in steady)
+    phase("padded", f"batches 2-4: featurize {host_ms:.1f} ms + step {dev_ms:.2f} ms"
+          f" for {len(steady) * OP_ROWS} tweets = "
+          f"{len(steady) * OP_ROWS / (host_ms + dev_ms) * 1e3:.0f} tweets/s "
+          f"featurized and trained (bench.py's window: source excluded)")
+    if totals["batches"] != 4 or len(rec["outputs"]) != len(ragged_rec["outputs"]):
+        raise AssertionError(f"padded: ran {totals['batches']} batches")
+    if rec["launches"] != 4:
+        raise AssertionError(f"padded: fused_dense_sgd launched {rec['launches']} times")
+    if any(rec["native"].values()):
+        raise AssertionError(f"padded: native counters moved: {rec['native']}")
+    for i, (a, b) in enumerate(zip(ragged_rec["outputs"], rec["outputs"])):
+        for k in ("predictions", "quality", "count", "mse", "real_stdev", "pred_stdev"):
+            if not torch.equal(getattr(a, k), getattr(b, k)):
+                raise AssertionError(f"batch {i + 1}: {k} differs between the wires")
+    if not np.array_equal(ragged_rec["weights"], rec["weights"]):
+        raise AssertionError("final weights differ between the ragged and padded wires")
+    phase("padded", "4 batches: weights, predictions, stats and quality bitwise "
+          "equal to the ragged packed run; kernel launches 4, native counters 0")
 
 
 def replay_phase():
-    os.environ["TWTML_NOW_MS"] = str(NOW_MS)
     argv = ["--source", "replay", "--replayFile",
             os.path.join(HERE, "tests", "data", "tweets.jsonl"), "--batchBucket", "4"]
-    _, gpu = app_run(["--backend", "cuda", *argv])
-    _, cpu = app_run(["--backend", "cpu", *argv])
-    for line in gpu:
+    runs = {
+        (backend, wire): app_run(["--backend", backend, "--wire", wire, *argv])[1]
+        for backend in ("cuda", "cpu") for wire in ("ragged", "padded")
+    }
+    for line in runs["cuda", "ragged"]:
         phase("replay", line)
-    if gpu != cpu or len(gpu) != 3:
-        raise AssertionError(f"replay lines differ: cuda {gpu} cpu {cpu}")
-    phase("replay", "3 batches, lines identical to the CPU run")
+    if len(runs["cuda", "ragged"]) != 3 or any(
+            lines != runs["cuda", "ragged"] for lines in runs.values()):
+        raise AssertionError(f"replay lines differ: {runs}")
+    phase("replay", "3 batches, lines identical on cuda and cpu, ragged and padded")
 
 
-# ---- phase 6: times ---------------------------------------------------------
+# ---- phase 7: times ---------------------------------------------------------
 
 # ~0.1 ms of device work queued ahead of a timed call, so that its start
 # event fires only after the host has enqueued the call's launch
@@ -392,39 +482,86 @@ def profile_kernel(kernel_only, runs=5):
     phase("times", f"profile {KERNEL}: {us / 1e3:.4f} ms per call in {n:g} launch(es)")
 
 
-def profile_step():
-    """Where a main-path step's time goes: batches 2-4 of the app's stream at
-    the operating point (SyntheticSource(seed=3), fresh batches, so each
-    step's loop runs as the app's does). The host wall of those steps (H2D,
-    launches, the stats fetch that ends each) is timed without the profiler;
-    a second model on the same batches gives the device time by CUDA kernel
-    from torch.profiler. The per-step figures divide by the steps whose
-    kernels the profiler recorded, counted by the fused kernel's launches
-    (one a step)."""
-    from torch.profiler import ProfilerActivity, profile
-
+def wire_batches():
+    """The operating point's 4 batches (SyntheticSource(seed=3)) on each
+    wire, featurized chunk by chunk in turns (ragged packed, then padded),
+    with each call's featurize ms and its sub-stages."""
     from twtml_tpu_torch.features.featurizer import Featurizer
-    from twtml_tpu_torch.models.linear import StreamingLinearRegressionWithSGD
     from twtml_tpu_torch.streaming.sources import SyntheticSource
 
     tweets = list(SyntheticSource(total=4 * OP_ROWS, seed=3, base_ms=NOW_MS))
     featurizer = Featurizer(now_ms=NOW_MS)
-    batches = [
-        featurizer.featurize_batch_units(tweets[i:i + OP_ROWS], row_bucket=OP_ROWS)
-        for i in range(0, 4 * OP_ROWS, OP_ROWS)
-    ]
+    wires = {"ragged": ([], []), "padded": ([], [])}
+    for i in range(0, 4 * OP_ROWS, OP_ROWS):
+        chunk = tweets[i:i + OP_ROWS]
+        for wire, (batches, times) in wires.items():
+            t0 = time.perf_counter()
+            if wire == "ragged":
+                batch = featurizer.featurize_batch_ragged(chunk, row_bucket=OP_ROWS, pack=True)
+            else:
+                batch = featurizer.featurize_batch_units(chunk, row_bucket=OP_ROWS)
+            times.append(((time.perf_counter() - t0) * 1e3, {
+                name: seconds * 1e3 for name, _, seconds in featurizer.last_substages}))
+            batches.append(batch)
+    return wires
 
-    def model_after_batch_1():
-        model = StreamingLinearRegressionWithSGD(device="cuda", quality=True)
-        float(model.step(batches[0]).mse)  # also pays first-use set-up
-        return model
 
-    model = model_after_batch_1()
-    t0 = time.perf_counter()
-    for batch in batches[1:]:
-        float(model.step(batch).mse)
-    wall_ms = (time.perf_counter() - t0) * 1e3 / 3
-    model = model_after_batch_1()
+def h2d_ms(batch, runs=20):
+    """Host wall of ``batch_to_device`` on the card, synchronised: median
+    and min of ``runs``."""
+    import torch
+
+    from twtml_tpu_torch.models.sgd import batch_to_device
+
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch_to_device(batch, "cuda")
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), min(times)
+
+
+def model_after_batch_1(batches):
+    """A fresh model on the card that has stepped ``batches[0]`` (which also
+    pays first-use set-up)."""
+    from twtml_tpu_torch.models.linear import StreamingLinearRegressionWithSGD
+
+    model = StreamingLinearRegressionWithSGD(device="cuda", quality=True)
+    float(model.step(batches[0]).mse)
+    return model
+
+
+def step_walls(wires, rounds=5):
+    """Host wall a step on each wire: batches 2-4 of the operating point's
+    stream (fresh batches, so each step's loop runs as the app's does),
+    the H2D copy, launches and the stats fetch that ends each step
+    included, no profiler. The wires take turns, ``rounds`` times."""
+    walls = {wire: [] for wire in wires}
+    for _ in range(rounds):
+        for wire, (batches, _) in wires.items():
+            model = model_after_batch_1(batches)
+            t0 = time.perf_counter()
+            for batch in batches[1:]:
+                float(model.step(batch).mse)
+            walls[wire].append((time.perf_counter() - t0) * 1e3 / 3)
+    for wire, times in walls.items():
+        phase("times", f"{wire}: host wall a step, batches 2-4, {rounds} rounds in "
+              f"turns: median {statistics.median(times):.3f} ms (all "
+              f"{', '.join(f'{t:.3f}' for t in times)})")
+    return {wire: statistics.median(times) for wire, times in walls.items()}
+
+
+def profile_step(wire, batches, wall_ms):
+    """Where a step's time goes on ``wire``, batches 2-4: device time by
+    CUDA kernel from torch.profiler on one model, the host's launches on a
+    second, against the host wall ``wall_ms`` from ``step_walls``. The
+    per-step figures divide by the steps whose kernels the profiler
+    recorded, counted by the fused kernel's launches (one a step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model = model_after_batch_1(batches)
     # device activity only: with CPU activity on, the aten ops' events
     # repeat their kernels' device time and the sum counts it twice
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -433,19 +570,21 @@ def profile_step():
     kernels = [ev for ev in prof.key_averages() if ev.device_time_total]
     steps = sum(ev.count for ev in kernels if KERNEL in ev.key)
     if not steps:
-        phase("times", f"step: {wall_ms:.3f} ms host wall; profiler recorded "
-              "no kernel of the step, breakdown not measured")
+        phase("times", f"{wire} step: profiler recorded no kernel of the step, "
+              "breakdown not measured")
         return
-    rows = [(ev.device_time_total / steps / 1e3, ev.key) for ev in kernels]
-    busy = sum(ms for ms, _ in rows)
-    phase("times", f"steps of batches 2-4: {wall_ms:.3f} ms host wall a step "
-          f"(no profiler), {busy:.3f} ms device busy a step (profiler, "
-          f"{steps} of 3 steps recorded): {100 * (1 - busy / wall_ms):.1f}% "
-          "device idle")
-    for ms, key in sorted(rows, reverse=True)[:10]:
-        phase("times", f"  step device {ms:.4f} ms ({100 * ms / busy:.1f}%) {key[:90]}")
+    rows = [(ev.device_time_total / steps / 1e3, ev.count / steps, ev.key) for ev in kernels]
+    busy = sum(ms for ms, _, _ in rows)
+    copies = sum(n for _, n, key in rows if "HtoD" in key)
+    phase("times", f"{wire} steps of batches 2-4: {busy:.3f} ms device busy a step "
+          f"(profiler, {steps} of 3 steps recorded) against {wall_ms:.3f} ms host "
+          f"wall: {100 * (1 - busy / wall_ms):.1f}% device idle; {copies:g} H2D "
+          "copies a step")
+    for ms, n, key in sorted(rows, reverse=True)[:10]:
+        phase("times", f"  {wire} step device {ms:.4f} ms ({100 * ms / busy:.1f}%) "
+              f"x{n:g} {key[:80]}")
 
-    model = model_after_batch_1()  # the host side of the same steps
+    model = model_after_batch_1(batches)  # the host side of the same steps
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         for batch in batches[1:]:
             float(model.step(batch).mse)
@@ -456,13 +595,36 @@ def profile_step():
     )
     total = sum(ms for ms, _, _ in host)
     launches = {key: (n, ms) for ms, n, key in host if key.startswith("cudaLaunch")}
-    phase("times", f"host self time a step (profiler on, so inflated): "
+    phase("times", f"{wire} host self time a step (profiler on, so inflated): "
           f"{total:.3f} ms over {sum(n for _, n, _ in host):g} recorded ops; "
           f"launches a step: {sum(n for n, _ in launches.values()):g} ("
           + ", ".join(f"{k} {n:g} in {ms:.4f} ms" for k, (n, ms) in sorted(launches.items()))
           + ")")
     for ms, n, key in host[:8]:
-        phase("times", f"  step host {ms:.4f} ms in {n:g} calls ({100 * ms / total:.1f}%) {key[:60]}")
+        phase("times", f"  {wire} step host {ms:.4f} ms in {n:g} calls "
+              f"({100 * ms / total:.1f}%) {key[:60]}")
+
+
+def wire_times():
+    """Each wire at the operating point: featurize by sub-stage, bytes, the
+    H2D copy, the host wall a step, and where its step's time goes."""
+    from twtml_tpu_torch.features.batch import wire_nbytes
+
+    wires = wire_batches()
+    for wire, (batches, times) in wires.items():
+        steady = times[1:]  # batch 1 pays first-use set-up
+        subs = {k: statistics.median(s[k] for _, s in steady) for k in steady[0][1]}
+        phase("times", f"{wire}: featurize batches 2-4 median "
+              f"{statistics.median(ms for ms, _ in steady):.2f} ms (all "
+              f"{', '.join(f'{ms:.2f}' for ms, _ in times)}); by sub-stage, medians: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in subs.items()))
+        med, low = h2d_ms(batches[1])
+        phase("times", f"{wire}: wire {wire_nbytes(batches[1])} B a batch; H2D "
+              f"(batch_to_device, synchronised) median {med:.3f} ms, min {low:.3f} "
+              "ms over 20 runs")
+    walls = step_walls(wires)
+    for wire, (batches, _) in wires.items():
+        profile_step(wire, batches, walls[wire])
 
 
 def ptxas_report():
@@ -545,7 +707,7 @@ def times_phase(smi, max_err, launches):
     # the wrapper with its host work counted: allocations, plan, launch
     wrapper_ms, _ = timed(lambda: fused_sgd.fused_dense_sgd(x, y, m, w0, **kw), 25)
     profile_kernel(kernel_only)
-    profile_step()
+    wire_times()
     twin_ms, _ = timed(lambda: fused_sgd.fused_dense_sgd_reference(x, y, m, w0, **kw), 10)
 
     # each input read once, each output written once: f32 X, y, mask,
@@ -615,7 +777,11 @@ def main() -> None:
     smi = device_phase()
     build_phase()
     max_err = kernel_phase()
-    launches = main_path_phase()
+    # pins the featurizer's clock and the synthetic tweets' creation times:
+    # the wires and backends compared below featurize identical tweets
+    os.environ["TWTML_NOW_MS"] = str(NOW_MS)
+    launches, ragged_rec = main_path_phase()
+    padded_phase(ragged_rec)
     replay_phase()
     record = times_phase(smi, max_err, launches)
     import torch

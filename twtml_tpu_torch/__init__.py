@@ -5,12 +5,17 @@ module names so each piece can be held against its counterpart. It imports
 ``torch`` and numpy, never ``jax`` and nothing of ``twtml_tpu``: what it needs
 from there it keeps as its own copy.
 
-Ported so far (the flagship trainer on the padded units wire):
+Ported so far (the flagship trainer on the JAX package's default wire, the
+ragged units packed into one buffer, and on the padded units wire):
 
 - ``config``           — the flags the linear-regression app takes
-- ``features``         — hashing ground truth, batch containers, featurizer
+- ``features``         — hashing ground truth, batch containers and the
+                         packed wire, featurizer, the native host library
+                         (``native/*.cpp`` built with g++) with its one-pass
+                         fill and pack, and the buffer arena
 - ``streaming.sources`` — replay-file and synthetic tweet generators
-- ``ops``              — device hashing, densify, stats, quality vector, and
+- ``ops``              — wire decode (delta cumsum, re-pad), device hashing,
+                         densify, stats, quality vector, and
                          the fused dense-SGD loop (``ops/fused_sgd.py``, a
                          hand-written CUDA kernel in ``csrc/fused_sgd.cu``)
 - ``models``           — the dense streaming SGD step and the linear learner

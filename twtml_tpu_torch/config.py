@@ -3,7 +3,9 @@ of a subset of ``twtml_tpu/config.py``).
 
 Defaults come from the port's own ``resources/reference.conf``; flag names
 and short aliases are the JAX package's. ``--backend`` takes ``cuda|cpu``
-(default ``cuda``).
+(default ``cuda``). The port's stream is back to back (each batch is the
+next ``--batchBucket`` tweets, no ``--seconds``), so ``--wire auto``
+resolves to ``ragged`` by the JAX package's own rule.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from importlib import resources as _importlib_resources
 
 BACKENDS = ("cuda", "cpu")
 SOURCES = ("replay", "synthetic")
+WIRES = ("auto", "ragged", "padded")
+MODES = ("auto", "on", "off")
 
 
 def parse_conf_text(text: str) -> dict[str, str]:
@@ -66,6 +70,9 @@ class ConfArguments:
         self.l2Reg: float = float(conf["l2Reg"])
         self.convergenceTol: float = float(conf["convergenceTol"])
         self.modelWatch: str = conf["modelWatch"]
+        self.wire: str = conf["wire"]
+        self.featurizeNative: str = conf["featurizeNative"]
+        self.wireAssemble: str = conf["wireAssemble"]
 
     def setAppName(self, name: str) -> "ConfArguments":
         self.appName = name
@@ -86,6 +93,19 @@ class ConfArguments:
   --l2Reg <float>                              Default: {self.l2Reg}
   --convergenceTol <float>                     Default: {self.convergenceTol}
   --modelWatch <on|off>                        In-step quality vector. Default: {self.modelWatch}
+  --wire <auto|ragged|padded>                  Units wire: ragged ships the rows' units concatenated
+                                               with uint16 length deltas in ONE packed buffer (one
+                                               H2D copy; the step re-pads on the device), padded
+                                               ships a [B, L] buffer and four more arrays. auto =
+                                               ragged (the stream is back to back). Default: {self.wire}
+  --featurizeNative <auto|on|off>              One-pass native featurize of the ragged wire's arrays
+                                               (native/featurize.cpp, built with g++ at first use);
+                                               auto/on = whenever it loads, off = numpy. Byte-equal
+                                               either way. Default: {self.featurizeNative}
+  --wireAssemble <auto|on|off>                 One-pass native pack of the ragged wire
+                                               (native/wireassemble.cpp); auto/on = whenever it
+                                               loads, off = numpy. Byte-equal either way.
+                                               Default: {self.wireAssemble}
   -h, --help
 """
 
@@ -116,6 +136,9 @@ class ConfArguments:
             "--l2Reg": ("l2Reg", float),
             "--convergenceTol": ("convergenceTol", float),
             "--modelWatch": ("modelWatch", str),
+            "--wire": ("wire", str),
+            "--featurizeNative": ("featurizeNative", str),
+            "--wireAssemble": ("wireAssemble", str),
         }
         i = 0
         while i < len(args):
@@ -135,6 +158,15 @@ class ConfArguments:
             or self.source not in SOURCES
             or self.modelWatch not in ("on", "off")
             or self.batchBucket <= 0
+            or self.wire not in WIRES
+            or self.featurizeNative not in MODES
+            or self.wireAssemble not in MODES
         ):
             self.printUsage(1)
         return self
+
+    def effective_wire(self) -> str:
+        """Resolve ``--wire auto``: ragged, as the JAX package resolves it
+        for a back-to-back stream hashed on the device
+        (``twtml_tpu/config.py`` ``effective_wire``)."""
+        return "ragged" if self.wire == "auto" else self.wire

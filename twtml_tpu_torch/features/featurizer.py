@@ -10,8 +10,10 @@ Semantics kept from the JAX package:
   age in milliseconds scaled by 1e-14;
 - label: the original tweet's retweetCount.
 
-This slice has no native C path: every step is numpy or Python, and the
-batches are byte-equal to the JAX package's ``featurize_batch_units``.
+Two units wires, byte-equal to the JAX package's builders of the same name:
+``featurize_batch_units`` (padded, numpy) and ``featurize_batch_ragged``
+(ragged, filled by one native C pass when it loads, else by numpy, and
+optionally packed into one buffer).
 """
 
 from __future__ import annotations
@@ -27,7 +29,17 @@ from typing import Any
 
 import numpy as np
 
-from .batch import NUM_NUMBER_FEATURES, UnitBatch, _bucket, pad_row_count
+from . import featurize_native
+from .batch import (
+    NUM_NUMBER_FEATURES,
+    PackedBatch,
+    RaggedUnitBatch,
+    UnitBatch,
+    _bucket,
+    pack_batch,
+    pad_row_count,
+    ragged_wire_arrays,
+)
 
 _NUMERIC_COLS = operator.attrgetter(
     "followers_count", "favourites_count", "friends_count",
@@ -150,13 +162,17 @@ class Status:
 
 @dataclass
 class Featurizer:
-    """Configured featurizer for the padded units wire."""
+    """Configured featurizer for the padded and ragged units wires.
+    ``last_substages`` holds the last batch's (name, start, seconds) spans."""
 
     num_text_features: int = 1000  # MllibHelper.scala:17
     num_retweet_begin: int = 100  # MllibHelper.scala:15
     num_retweet_end: int = 1000  # MllibHelper.scala:16
     now_ms: int | None = None  # fixed clock for deterministic replay; None=wall
     num_number_features: int = field(default=NUM_NUMBER_FEATURES, init=False)
+    last_substages: list = field(
+        default_factory=list, init=False, repr=False, compare=False
+    )
 
     @classmethod
     def from_conf(cls, conf) -> "Featurizer":
@@ -251,20 +267,23 @@ class Featurizer:
             units = np.zeros(1, dtype=np.uint16)
         return originals, cols, units, offsets, True
 
+    def _sub(self, name: str, t0: float) -> float:
+        """Record one featurize sub-stage span in ``last_substages`` as
+        (name, start, seconds); returns the stage's end (the next t0)."""
+        t1 = time.perf_counter()
+        self.last_substages.append((name, t0, t1 - t0))
+        return t1
+
     @staticmethod
-    def _unit_batch_shape(
-        n: int, lengths, row_bucket: int, unit_bucket: int, row_multiple: int = 1
-    ) -> tuple[int, int]:
-        """(padded rows, padded row length). L >= 2 so the device's bigram
-        windows are non-empty."""
-        max_len = int(lengths.max()) if n else 0
-        b = pad_row_count(n, row_bucket, row_multiple)
-        lu = (
+    def _row_len_bucket(max_len: int, unit_bucket: int) -> int:
+        """The padded row length L for a batch's longest row: the ONE
+        policy both units wires and the native fill share. L >= 2 so the
+        device's bigram windows are non-empty."""
+        return (
             unit_bucket
             if unit_bucket >= max(max_len, 2) and unit_bucket > 0
             else _bucket(max(max_len, 2))
         )
-        return b, lu
 
     def featurize_batch_units(
         self, statuses: list[Status], row_bucket: int = 0, unit_bucket: int = 0
@@ -272,14 +291,74 @@ class Featurizer:
         """Filter + encode + pad a micro-batch for on-device featurization:
         the text ships as lowercased UTF-16 code units and the learner
         hashes bigrams on its device."""
+        self.last_substages = []
+        t0 = time.perf_counter()
         originals, cols, units, offsets, all_ascii = self._encode_batch_texts(
             statuses
         )
+        t0 = self._sub("encode", t0)
         n = len(originals)
         lengths = np.diff(offsets).astype(np.int32)
-        b, lu = self._unit_batch_shape(n, lengths, row_bucket, unit_bucket)
+        b = pad_row_count(n, row_bucket)
+        lu = self._row_len_bucket(int(lengths.max()) if n else 0, unit_bucket)
         buf, length = _pad_ragged_units(
             units, offsets, lengths, n, b, lu, narrow=all_ascii
         )
+        t0 = self._sub("wire_build", t0)
         numeric, label, mask = self._numeric_label_mask(originals, b, cols=cols)
+        self._sub("numeric", t0)
         return UnitBatch(buf, length, numeric, label, mask)
+
+    def featurize_batch_ragged(
+        self,
+        statuses: list[Status],
+        row_bucket: int = 0,
+        unit_bucket: int = 0,
+        pack: bool = False,
+    ) -> RaggedUnitBatch | PackedBatch:
+        """Filter + encode a micro-batch for the RAGGED wire: the units ship
+        concatenated (the total rounded up to RAGGED_UNIT_MULTIPLE) with row
+        offsets, and the step re-pads them to [B, L] and folds ASCII case on
+        its device, giving the padded wire's features bit for bit.
+        ``unit_bucket`` pins the rebuilt row length L as on the padded wire.
+        The arrays come from one native C pass when it loads
+        (features/featurize_native.py), else from numpy, byte-equal.
+
+        ``pack=True`` returns the batch packed into one buffer
+        (``pack_batch``); the fill's lease then goes straight back to the
+        arena, since the packed buffer holds copies of its bytes."""
+        self.last_substages = []
+        t0 = time.perf_counter()
+        originals, cols, units, offsets, all_ascii = self._encode_batch_texts(
+            statuses
+        )
+        t0 = self._sub("encode", t0)
+        n = len(originals)
+        b = pad_row_count(n, row_bucket)
+        fast = featurize_native.try_fill(
+            units, offsets, cols, featurize_native.object_col_order(), n, b,
+            narrow=all_ascii, now_ms=self._now(),
+        )
+        if fast is not None:
+            flat, offs, numeric, label, mask, max_len, lease = fast
+            batch = RaggedUnitBatch(
+                flat, offs, numeric, label, mask,
+                row_len=self._row_len_bucket(max_len, unit_bucket),
+            )
+            featurize_native.attach_lease(batch, lease)
+            t0 = self._sub("wire_build", t0)
+        else:
+            lengths = np.diff(offsets)
+            lu = self._row_len_bucket(int(lengths.max()) if n else 0, unit_bucket)
+            flat, offs = ragged_wire_arrays(units, offsets, n, b, narrow=all_ascii)
+            t0 = self._sub("wire_build", t0)
+            numeric, label, mask = self._numeric_label_mask(originals, b, cols=cols)
+            t0 = self._sub("numeric", t0)
+            batch = RaggedUnitBatch(flat, offs, numeric, label, mask, row_len=lu)
+        if not pack:
+            return batch
+        packed = pack_batch(batch)
+        if batch.lease is not None:
+            batch.lease.retire()
+        self._sub("pack", t0)
+        return packed

@@ -1,7 +1,8 @@
 """Fused streaming-SGD step, dense regime (counterpart of a subset of
 ``twtml_tpu/models/sgd.py``).
 
-Per micro-batch: hash the bigrams on the device, densify to [B, F_text] and
+Per micro-batch: unpack the packed wire buffer and re-pad the ragged units
+(the default wire), hash the bigrams on the device, densify to [B, F_text] and
 append the 4 numeric features, predict with the pre-update weights and
 round HALF_UP, compute the batch stats (and the quality vector under
 ``--modelWatch``), then run ``numIterations`` of MLlib's GradientDescent.
@@ -28,9 +29,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..features.batch import NUM_NUMBER_FEATURES, FeatureBatch, UnitBatch
+from ..features.batch import (
+    NUM_NUMBER_FEATURES,
+    FeatureBatch,
+    PackedBatch,
+    RaggedUnitBatch,
+    UnitBatch,
+    unpack_batch,
+)
 from ..ops.fused_sgd import fused_dense_sgd
 from ..ops.quality import quality_vector
+from ..ops.ragged import ragged_repad
 from ..ops.sparse import densify_text
 from ..ops.stats import batch_stats
 from ..ops.text_hash import hash_bigrams_device
@@ -104,12 +113,22 @@ def make_sgd_train_step(
     dtype=torch.float32,
 ):
     """Build the (weights, batch) -> (new_weights, StepOutput) step of the
-    least-squares learner. ``batch`` is a FeatureBatch or UnitBatch of
-    tensors on the weights' device."""
+    least-squares learner. ``batch`` is a PackedBatch (a uint8 buffer
+    tensor), RaggedUnitBatch, UnitBatch or FeatureBatch of tensors on the
+    weights' device."""
     _check_slice(num_text_features, mini_batch_fraction, dtype)
     f_text = num_text_features
 
     def train_step(weights, batch):
+        if isinstance(batch, PackedBatch):
+            # one-buffer wire: reinterpret its bytes on the device (the
+            # offsets' delta decode is the only arithmetic)
+            batch = unpack_batch(batch.buffer, batch.layout)
+        if isinstance(batch, RaggedUnitBatch):
+            # ragged wire: re-pad + ASCII fold on the device, giving the
+            # padded wire's units bit for bit
+            units, length = ragged_repad(batch.units, batch.offsets, batch.row_len)
+            batch = UnitBatch(units, length, batch.numeric, batch.label, batch.mask)
         if isinstance(batch, UnitBatch):
             token_idx, token_val = hash_bigrams_device(
                 batch.units, batch.length, f_text, dtype
@@ -151,16 +170,27 @@ def zero_weights(num_text_features: int, dtype=torch.float32, device="cuda"):
     )
 
 
-def batch_to_device(batch: FeatureBatch | UnitBatch, device):
-    """Host numpy batch -> the same NamedTuple of tensors on ``device``.
-    uint16 code units travel as int16 (same bits; the device hash masks
-    them back), since torch's uint16 has few kernels."""
+def batch_to_device(batch, device):
+    """Host numpy batch -> the same batch type of tensors on ``device``. A
+    PackedBatch is ONE copy of its uint8 buffer (synchronous, from pageable
+    memory: the host buffer is free again when this returns on ``cuda``;
+    on the CPU the tensor shares it). uint16 code units travel as int16
+    (same bits; the device ops mask them back), since torch's uint16 has
+    few kernels."""
 
     def move(a: np.ndarray) -> torch.Tensor:
         if a.dtype == np.uint16:
             a = a.view(np.int16)
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
+    if isinstance(batch, PackedBatch):
+        return PackedBatch(move(batch.buffer), batch.layout)
+    if isinstance(batch, RaggedUnitBatch):
+        return RaggedUnitBatch(
+            *(move(a) for a in (batch.units, batch.offsets, batch.numeric,
+                                batch.label, batch.mask)),
+            row_len=batch.row_len,
+        )
     return type(batch)(*(move(a) for a in batch))
 
 
@@ -234,7 +264,7 @@ class StreamingSGDModel:
     def latest_weights(self) -> np.ndarray:
         return self._weights.detach().cpu().numpy().copy()
 
-    def step(self, batch: FeatureBatch | UnitBatch) -> StepOutput:
+    def step(self, batch) -> StepOutput:
         """Fused predict-then-train on one host micro-batch; advances the
         model and returns the device-side StepOutput."""
         self._weights, out = self._train_step(
