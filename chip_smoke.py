@@ -17,24 +17,44 @@ Phases, in order; any failure ends the run with a non-zero exit:
                CTA, rows spilled), B = 4096 x F = 8196 (the tiled wide-F and
                spill path) with NaN/Inf in masked rows bitwise ignored, and
                the operating point (spill path);
-  4. main    — the flagship app (``apps/linear_regression.run``) on cuda for 4
-               full-width synthetic batches (16384 tweets, 1000 + 4 dims, 50
-               iterations, --modelWatch on) on its default wire: one native
-               fill and one native pack a batch into ONE uint8 buffer, one
-               H2D copy, decoded on the card. The kernel's launch counter and
-               the native counters show the path went through them; the stats
-               are held against the same app on the CPU;
+  4. main    — the flagship app (``apps/linear_regression.run``, its
+               streaming context and fetch pipeline, ``--seconds 0
+               --batchBucket 16384``) on cuda for 4 full-width synthetic
+               batches (16384 tweets, 1000 + 4 dims, 50 iterations,
+               --modelWatch on) on its back-to-back wire: one native fill and
+               one native pack a batch into ONE page-locked buffer, one H2D
+               copy, decoded on the card. The kernel's launch counter (the 4
+               batches and the pre-stream warm-up) and the native counters
+               show the path went through them; the stats are held against
+               the same app on the CPU;
   5. padded  — the same 4 batches on cuda through ``--wire padded``: weights,
                predictions, stats and quality bitwise equal to phase 4's;
   6. replay  — the replay fixture on cuda on both wires, lines equal to the
                CPU runs';
-  7. times   — at the operating point: the launch plan (grid, rows resident
+  7. stream  — 8 full-width batches of pinned synthetic tweets from a
+               pre-filled queue source, publishing to a loopback recorder
+               (this script's ``http.server``): 1 config post, 8 stats posts
+               equal to the 8 printed lines, 8 series posts of at most
+               SERIES_MAX_POINTS points, a Lightning session and 8 appends;
+               every dispatch under ``torch.cuda.set_sync_debug_mode
+               ("error")``; the run at fetch depth 8 bitwise equal to a run
+               at depth 1 with synchronous copies (weights, predictions,
+               stats, quality); per-batch dispatch, fetch wait, depth and
+               publish times; tweets/s over batches 2-8; the device's idle
+               share and the H2D copies against the kernels from a profiled
+               run; the live synthetic source's own rate;
+  8. clock   — ``--seconds 1`` on the default wire (padded), the synthetic
+               source paced at 20000 tweets/s, 5 intervals: every interval's
+               batch trains, the warm-up ends before the stream starts, the
+               stats posts arrive; each tick's lateness and rows;
+  9. times   — at the operating point: the launch plan (grid, rows resident
                and spilled, shared memory, registers from ptxas), kernel,
                prologue and per-iteration times, the twin, the bound; each
                wire's featurize by sub-stage, bytes and H2D copy; and where
                a step's time goes on each wire.
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.
+No app run publishes anywhere but the loopback recorder. The line before
+the last is the kernels' JSON record; the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -42,11 +62,14 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import logging
 import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OP_ROWS = 16384  # bench.py's operating point: tweets per batch
@@ -59,6 +82,56 @@ NOW_MS = 1_700_000_000_000
 
 def phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
+
+
+class Recorder:
+    """A loopback HTTP server (127.0.0.1, a free port) standing in for the
+    twtml web dashboard and a Lightning server: it records every POST (path,
+    JSON body) and answers Lightning's session and visualization requests
+    with ids ``s1`` and ``v1``."""
+
+    def __init__(self):
+        self.posts: list = []
+        self._lock = threading.Lock()
+        recorder = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):
+                body = self.rfile.read(int(self.headers.get("content-length", 0)))
+                with recorder._lock:
+                    recorder.posts.append((self.path, body))
+                reply = {"/sessions/": {"id": "s1"},
+                         "/sessions/s1/visualizations/": {"id": "v1"}}.get(self.path, {})
+                data = json.dumps(reply).encode()
+                self.send_response(200)
+                self.send_header("content-type", "application/json")
+                self.send_header("content-length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def log_message(self, *args):
+                pass
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+
+    def take(self) -> list:
+        """The posts recorded since the last call, their bodies parsed (here,
+        not while the server takes them: a run's timed window should not
+        carry the recorder's JSON parse)."""
+        with self._lock:
+            posts, self.posts = self.posts, []
+        return [(path, json.loads(body or b"{}")) for path, body in posts]
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=10)
+
+
+RECORDER: Recorder | None = None
 
 
 def device_phase():
@@ -139,7 +212,7 @@ def op_point_batch():
     from twtml_tpu_torch.features.featurizer import Featurizer
     from twtml_tpu_torch.streaming.sources import SyntheticSource
 
-    tweets = list(SyntheticSource(total=OP_ROWS, seed=3, base_ms=NOW_MS))
+    tweets = list(SyntheticSource(total=OP_ROWS, seed=3, base_ms=NOW_MS).produce())
     return Featurizer(now_ms=NOW_MS).featurize_batch_units(tweets, row_bucket=OP_ROWS)
 
 
@@ -259,32 +332,58 @@ def sm_limits():
 
 # ---- phase 4/5/6: the main path on each wire --------------------------------
 
-def app_run(argv, max_batches=0):
+def app_run(argv, max_batches=0, **kw):
+    """One run of the app with ``argv``, publishing to the loopback
+    recorder only; returns its totals and printed lines."""
     from twtml_tpu_torch.apps.linear_regression import run
     from twtml_tpu_torch.config import ConfArguments
 
     out = io.StringIO()
+    conf = ConfArguments().parse(
+        ["--lightning", RECORDER.url, "--twtweb", RECORDER.url, *argv])
     with contextlib.redirect_stdout(out):
-        totals = run(ConfArguments().parse(argv), max_batches=max_batches)
+        totals = run(conf, max_batches=max_batches, **kw)
     return totals, out.getvalue().splitlines()
 
 
-def recorded_app_run(argv, max_batches):
+class ErrorLog(logging.Handler):
+    """The port's ERROR records of a run: a batch whose dispatch raised (a
+    sync under the sync-debug mode, a kernel that did not launch) is logged
+    and skipped by the streaming context, never silently."""
+
+    def __init__(self):
+        super().__init__(logging.ERROR)
+        self.records: list = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+
+def recorded_app_run(argv, max_batches, source=None, blocking_copies=False, **kw):
     """One app run with the kernel's launch counter and the native counters
     set to 0 just before it and read just after, recording what the run's
-    model returned: each step's StepOutput (device tensors), the iterations
-    each fused call ran (device scalars, no sync) and the final weights."""
+    model returned: the warm-up's output, each batch's StepOutput (device
+    tensors), the iterations each fused call ran (device scalars, no sync)
+    and the final weights. ``source`` replaces the configured source;
+    ``blocking_copies`` makes every H2D copy synchronous. A run that logged
+    an error fails."""
     import torch
 
+    from twtml_tpu_torch.apps import common
     from twtml_tpu_torch.apps import linear_regression as app
     from twtml_tpu_torch.features import native
     from twtml_tpu_torch.models import sgd as sgd_module
+    from twtml_tpu_torch.models.linear import StreamingLinearRegressionWithSGD
     from twtml_tpu_torch.ops import fused_sgd
 
     rec = {"outputs": [], "iterations": []}
-    base = app.StreamingLinearRegressionWithSGD
+    base_build, base_source = app.build_model, app.build_source
 
-    class Recorded(base):
+    class Recorded(StreamingLinearRegressionWithSGD):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.non_blocking = not blocking_copies
+
         def step(self, batch):
             out = super().step(batch)
             rec["outputs"].append(out)
@@ -296,25 +395,55 @@ def recorded_app_run(argv, max_batches):
         rec["iterations"].append(fused_sgd.fused_dense_sgd.last_iterations)
         return out
 
-    app.StreamingLinearRegressionWithSGD = Recorded
+    app.build_model = lambda conf: common.build_model(conf, model_cls=Recorded)
     sgd_module.fused_dense_sgd = fused
+    if source is not None:
+        app.build_source = lambda conf: source
+    errors = ErrorLog()
+    logging.getLogger("twtml_tpu_torch").addHandler(errors)
     try:
         fused_sgd.fused_dense_sgd.launches = 0
         native.reset_counters()
         t0 = time.perf_counter()
-        totals, lines = app_run(argv, max_batches=max_batches)
+        totals, lines = app_run(argv, max_batches=max_batches, **kw)
         torch.cuda.synchronize()
         rec["wall_s"] = time.perf_counter() - t0
         rec["launches"] = fused_sgd.fused_dense_sgd.launches
         rec["native"] = dict(native.COUNTERS)
     finally:
-        app.StreamingLinearRegressionWithSGD = base
+        logging.getLogger("twtml_tpu_torch").removeHandler(errors)
+        app.build_model, app.build_source = base_build, base_source
         sgd_module.fused_dense_sgd = fused_sgd.fused_dense_sgd
+    if errors.records:
+        raise AssertionError("the run logged errors: " + "; ".join(
+            f"{r.getMessage()} {r.exc_text or ''}" for r in errors.records))
+    # the first step is the pre-stream warm-up's all-padding batch
+    rec["warmup"], rec["outputs"] = rec["outputs"][0], rec["outputs"][1:]
+    rec["iterations"] = rec["iterations"][1:]
     rec["weights"] = rec["model"].latest_weights
+    if float(rec["warmup"].count) != 0:
+        raise AssertionError("the warm-up step trained rows")
     return totals, lines, rec
 
 
-MAIN_ARGV = ["--source", "synthetic", "--batchBucket", str(OP_ROWS)]
+def check_counters(name, rec, batches, wire):
+    """The kernel launched once a batch and once for the warm-up; on the
+    ragged wire the native fill and pack built every batch (the fill also
+    the batch featurized when a cap stopped the stream), never degraded."""
+    if rec["launches"] != batches + 1:
+        raise AssertionError(f"{name}: fused_dense_sgd launched {rec['launches']} times "
+                             f"for {batches} batches and the warm-up")
+    nat = rec["native"]
+    if wire == "ragged":
+        ok = (nat["packs_native"] == batches + 1 and nat["fills_native"] - batches - 1 in (0, 1)
+              and nat["fills_degraded"] == nat["packs_degraded"] == 0)
+    else:
+        ok = not any(nat.values())
+    if not ok:
+        raise AssertionError(f"{name}: native counters {nat} for {batches} batches on {wire}")
+
+
+MAIN_ARGV = ["--source", "synthetic", "--seconds", "0", "--batchBucket", str(OP_ROWS)]
 
 
 def main_path_phase():
@@ -333,28 +462,25 @@ def main_path_phase():
     if totals["batches"] != 4 or totals["count"] != 4 * OP_ROWS:
         raise AssertionError(f"main path ran {totals['batches']} batches, "
                              f"{totals['count']} rows")
-    if launches != 4:
-        raise AssertionError(f"fused_dense_sgd launched {launches} times in 4 batches")
-    want = {"fills_native": 4, "fills_degraded": 0, "packs_native": 4, "packs_degraded": 0}
-    if rec["native"] != want:
-        raise AssertionError(f"native counters after 4 batches: {rec['native']}, want {want}")
+    check_counters("main", rec, 4, "ragged")
     if not all(st["wire"] == "ragged" and st["native_fill"] and st["native_pack"]
                for st in totals["steps"]):
         raise AssertionError("a main-path batch did not take the ragged native wire")
-    phase("main", f"native counters: {rec['native']}")
+    phase("main", f"native counters: {rec['native']} (4 batches, the warm-up's "
+          "all-padding batch, and a batch featurized as the cap stopped the stream)")
     steady = totals["steps"][1:]  # batch 1 pays first-use set-up
     host_ms = sum(st["featurize_ms"] for st in steady)
     dev_ms = sum(st["step_ms"] for st in steady)
     phase("main", f"app wall {rec['wall_s']:.3f} s for {totals['count']} tweets = "
           f"{totals['count'] / rec['wall_s']:.0f} tweets/s (synthetic source "
-          f"generation, first-use set-up and the stats fetches included)")
+          f"generation, session set-up, the warm-up and the stats fetches included)")
     phase("main", f"batches 2-4: featurize {host_ms:.1f} ms + step {dev_ms:.2f} ms"
           f" for {len(steady) * OP_ROWS} tweets = "
           f"{len(steady) * OP_ROWS / (host_ms + dev_ms) * 1e3:.0f} tweets/s "
           f"featurized and trained (bench.py's window: source excluded)")
     per_call = fused_sgd.launches_per_call(OP_ITERS)
-    phase("main", f"fused_dense_sgd launches: {launches} calls = "
-          f"{launches * per_call} device kernel launches ({per_call} per call)")
+    phase("main", f"fused_dense_sgd launches: {launches} calls (4 batches and the "
+          f"warm-up) = {launches * per_call} device kernel launches ({per_call} per call)")
     phase("main", "iterations run before the converged freeze, batches 1-4: "
           f"{[int(t.item()) for t in rec['iterations']]} of {OP_ITERS}")
     for i, step in enumerate(totals["steps"]):
@@ -405,10 +531,7 @@ def padded_phase(ragged_rec):
           f"featurized and trained (bench.py's window: source excluded)")
     if totals["batches"] != 4 or len(rec["outputs"]) != len(ragged_rec["outputs"]):
         raise AssertionError(f"padded: ran {totals['batches']} batches")
-    if rec["launches"] != 4:
-        raise AssertionError(f"padded: fused_dense_sgd launched {rec['launches']} times")
-    if any(rec["native"].values()):
-        raise AssertionError(f"padded: native counters moved: {rec['native']}")
+    check_counters("padded", rec, 4, "padded")
     for i, (a, b) in enumerate(zip(ragged_rec["outputs"], rec["outputs"])):
         for k in ("predictions", "quality", "count", "mse", "real_stdev", "pred_stdev"):
             if not torch.equal(getattr(a, k), getattr(b, k)):
@@ -416,12 +539,14 @@ def padded_phase(ragged_rec):
     if not np.array_equal(ragged_rec["weights"], rec["weights"]):
         raise AssertionError("final weights differ between the ragged and padded wires")
     phase("padded", "4 batches: weights, predictions, stats and quality bitwise "
-          "equal to the ragged packed run; kernel launches 4, native counters 0")
+          "equal to the ragged packed run; kernel launches 4 + the warm-up's, "
+          "native counters 0")
 
 
 def replay_phase():
     argv = ["--source", "replay", "--replayFile",
-            os.path.join(HERE, "tests", "data", "tweets.jsonl"), "--batchBucket", "4"]
+            os.path.join(HERE, "tests", "data", "tweets.jsonl"), "--seconds", "0",
+            "--batchBucket", "4"]
     runs = {
         (backend, wire): app_run(["--backend", backend, "--wire", wire, *argv])[1]
         for backend in ("cuda", "cpu") for wire in ("ragged", "padded")
@@ -434,7 +559,244 @@ def replay_phase():
     phase("replay", "3 batches, lines identical on cuda and cpu, ragged and padded")
 
 
-# ---- phase 7: times ---------------------------------------------------------
+# ---- phase 7: the streaming runtime at full width --------------------------
+
+STREAM_BATCHES = 8
+STREAM_ARGV = ["--backend", "cuda", "--source", "synthetic", "--seconds", "0",
+               "--batchBucket", str(OP_ROWS), "--maxQueueRows", "-1"]
+
+
+def prefilled_source(statuses):
+    """A queue source holding ``statuses``, closed: the stream ends when
+    they are batched, and no tweet is generated inside the timed window."""
+    from twtml_tpu_torch.streaming.sources import QueueSource
+
+    src = QueueSource()
+    for st in statuses:
+        src.push(st)
+    src.close()
+    return src
+
+
+def check_posts(name, posts, lines):
+    """The dashboard and Lightning posts of one run against its printed
+    lines: 1 config, a stats post per line equal to it, a series post per
+    line of at most SERIES_MAX_POINTS points, a Lightning session, its
+    visualization and an append per line."""
+    from twtml_tpu_torch.telemetry.session_stats import SERIES_MAX_POINTS
+
+    api = [b for p, b in posts if p == "/api"]
+    kinds = [b["jsonClass"] for b in api]
+    stats = [b for b in api if b["jsonClass"] == "Stats"]
+    series = [b for b in api if b["jsonClass"] == "Series"]
+    lgn = [p for p, _ in posts if p != "/api"]
+    printed = [
+        f"count: {b['count']}  batch: {b['batch']}  mse: {float(b['mse'])}  "
+        f"stdev (real, pred): ({b['realStddev']}, {b['predStddev']})" for b in stats
+    ]
+    if kinds.count("Config") != 1 or printed != lines:
+        raise AssertionError(f"{name}: posts {kinds} / stats {printed} against lines {lines}")
+    if len(series) != len(lines) or any(
+            not 0 < len(b["real"]) == len(b["pred"]) <= SERIES_MAX_POINTS for b in series):
+        raise AssertionError(f"{name}: {len(series)} series posts for {len(lines)} batches")
+    want = ["/sessions/", "/sessions/s1/visualizations/"] + ["/visualizations/v1/data/"] * len(lines)
+    if lgn != want:
+        raise AssertionError(f"{name}: Lightning posts {lgn}")
+    phase(name, f"posts: {kinds.count('Config')} config, {len(stats)} stats equal to the "
+          f"printed lines, {len(series)} series of <= {SERIES_MAX_POINTS} points, "
+          f"{kinds.count('Metrics')} metrics; Lightning: session, visualization, "
+          f"{len(lgn) - 2} appends")
+
+
+def device_timeline(prof):
+    """(start us, end us, name) of every device event of a profile."""
+    out = []
+    for ev in prof.events():
+        if getattr(ev, "device_type", None) is not None and ev.device_type.name == "CUDA":
+            out.append((ev.time_range.start, ev.time_range.end, ev.name))
+    return sorted(out)
+
+
+def timeline_report(events):
+    """Idle share of the device over batches 2-8 (from batch 2's H2D copy
+    to the last event), the H2D copies in that window, from which memory,
+    and how many overlap a kernel."""
+    kernels = [e for e in events if KERNEL in e[2]]
+    if len(kernels) != STREAM_BATCHES + 1:
+        phase("stream", f"profiler: {len(kernels)} fused kernels recorded, want "
+              f"{STREAM_BATCHES + 1}; timeline not measured")
+        return None
+    h2d_all = [e for e in events if "HtoD" in e[2]]
+    h2d = [e for e in h2d_all if e[0] >= kernels[1][1]]  # after batch 1's kernel
+    if not h2d:
+        phase("stream", "profiler: no H2D copy recorded; timeline not measured")
+        return None
+    lo, hi = h2d[0][0], max(e[1] for e in events)
+    busy, cursor = 0.0, lo
+    for start, end, _ in events:
+        start, end = max(start, cursor), min(end, hi)
+        if end > start:
+            busy += end - start
+            cursor = end
+    copies = [e for e in events if "Memcpy" in e[2] or "memcpy" in e[2].lower()]
+    compute = [e for e in events if e not in copies]
+    overlap = sum(any(c[0] < k[1] and k[0] < c[1] for k in compute) for c in h2d)
+    pinned = sum("Pinned" in c[2] for c in h2d)
+    idle = 1 - busy / (hi - lo)
+    phase("stream", f"device over batches 2-8 (profiler): {(hi - lo) / 1e3:.3f} ms window, "
+          f"{busy / 1e3:.3f} ms busy, {100 * idle:.1f}% idle; {len(h2d)} H2D copies "
+          f"({pinned} from pinned memory: {sorted({c[2] for c in h2d})}), {overlap} "
+          "overlapping a kernel (one stream: copies and kernels run in order)")
+    return {"idle": idle, "h2d": len(h2d), "overlap": overlap}
+
+
+def stream_phase():
+    """The streaming runtime at full width: a pre-filled source, the fetch
+    pipeline at depth 8 with every dispatch under the sync-debug mode, its
+    posts, the same run at depth 1 with synchronous copies (bitwise), a
+    profiled run, and the live synthetic source's own rate."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from twtml_tpu_torch.apps.common import SYNC_DEBUG_ENV
+    from twtml_tpu_torch.streaming.sources import SyntheticSource
+
+    t0 = time.perf_counter()
+    statuses = list(SyntheticSource(total=STREAM_BATCHES * OP_ROWS, seed=5,
+                                    base_ms=NOW_MS).produce())
+    phase("stream", f"{len(statuses)} tweets generated in {time.perf_counter() - t0:.2f} s "
+          "(before the runs, not timed in them)")
+    RECORDER.take()
+    os.environ[SYNC_DEBUG_ENV] = "error"
+    try:
+        totals, lines, rec = recorded_app_run(STREAM_ARGV, 0, source=prefilled_source(statuses))
+    finally:
+        del os.environ[SYNC_DEBUG_ENV]
+    posts = RECORDER.take()
+    steps = totals["steps"]
+    if (totals["batches"], totals["count"], len(steps), len(lines)) != (
+            STREAM_BATCHES, STREAM_BATCHES * OP_ROWS, STREAM_BATCHES, STREAM_BATCHES):
+        raise AssertionError(f"stream: {totals['batches']} batches, {totals['count']} rows, "
+                             f"{len(steps)} records for {STREAM_BATCHES} batches fed")
+    check_counters("stream", rec, STREAM_BATCHES, "ragged")
+    phase("stream", f"{STREAM_BATCHES} batches of {OP_ROWS} trained, every dispatch under "
+          "torch.cuda.set_sync_debug_mode('error'): no sync raised, no error logged; "
+          f"kernel launches {rec['launches']} (batches + warm-up), native {rec['native']}")
+    for i, (line, st) in enumerate(zip(lines, steps)):
+        phase("stream", f"batch {i + 1}: {line} | featurize {st['featurize_ms']:.2f} ms, "
+              f"dispatch {st['dispatch_ms']:.3f} ms, depth in flight at dispatch "
+              f"{st['depth']}, fetch wait {st['fetch_wait_ms']:.3f} ms, step "
+              f"{st['step_ms']:.3f} ms (CUDA events), publish {st['publish_ms']:.3f} ms")
+    check_posts("stream", posts, lines)
+    span = steps[-1]["delivered_s"] - steps[0]["delivered_s"]
+    rate = (STREAM_BATCHES - 1) * OP_ROWS / span
+    later = steps[1:]
+    means = {k: statistics.mean(st[k] for st in later)
+             for k in ("featurize_ms", "dispatch_ms", "fetch_wait_ms", "publish_ms")}
+    phase("stream", f"batches 2-{STREAM_BATCHES}: {(STREAM_BATCHES - 1) * OP_ROWS} tweets "
+          f"delivered in {span:.4f} s = {rate:.0f} tweets/s; whole stream "
+          f"{totals['count']} tweets in stream_seconds {totals['stream_seconds']:.4f} s = "
+          f"{totals['count'] / totals['stream_seconds']:.0f} tweets/s; means a batch: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in means.items()))
+
+    totals1, lines1, rec1 = recorded_app_run(
+        STREAM_ARGV, 0, source=prefilled_source(statuses), fetch_depth=1,
+        blocking_copies=True)
+    RECORDER.take()
+    if lines1 != lines or max(st["depth"] for st in totals1["steps"]) != 0:
+        raise AssertionError("stream: the depth-1 run's lines differ")
+    for i, (a, b) in enumerate(zip(rec["outputs"], rec1["outputs"], strict=True)):
+        for k in ("predictions", "quality", "count", "mse", "real_stdev", "pred_stdev"):
+            if not torch.equal(getattr(a, k), getattr(b, k)):
+                raise AssertionError(f"stream batch {i + 1}: {k} differs between depth 8 and 1")
+    if not np.array_equal(rec["weights"], rec1["weights"]):
+        raise AssertionError("stream: final weights differ between depth 8 and depth 1")
+    phase("stream", f"depth 8 (non-blocking copies from pinned memory) bitwise equal to "
+          f"depth 1 (synchronous copies) over {STREAM_BATCHES} batches: weights, "
+          f"predictions, stats, quality; depth-1 stream {totals1['stream_seconds']:.4f} s")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        totals_p, _, rec_p = recorded_app_run(STREAM_ARGV, 0, source=prefilled_source(statuses))
+        torch.cuda.synchronize()
+    RECORDER.take()
+    timeline = timeline_report(device_timeline(prof))
+    phase("stream", f"profiled run: stream_seconds {totals_p['stream_seconds']:.4f} s "
+          f"(profiler on), kernel launches {rec_p['launches']}")
+
+    src = SyntheticSource(seed=6, base_ms=NOW_MS, total=OP_ROWS)
+    got = []
+    t0 = time.perf_counter()
+    src.start(got.append)
+    while not src.exhausted and time.perf_counter() - t0 < 60:
+        time.sleep(0.005)
+    live_s = time.perf_counter() - t0
+    src.stop()
+    if len(got) != OP_ROWS:
+        raise AssertionError(f"live synthetic source gave {len(got)} tweets")
+    phase("stream", f"live SyntheticSource alone: {OP_ROWS} tweets in {live_s:.3f} s = "
+          f"{OP_ROWS / live_s:.0f} tweets/s (its producer thread, nothing else running)")
+    return {"launches": rec["launches"], "rate": rate, "timeline": timeline}
+
+
+WALL_BATCHES = 5
+WALL_ARGV = ["--backend", "cuda", "--source", "synthetic", "--seconds", "1",
+             "--replaySpeed", "20000"]
+
+
+def clock_phase():
+    """``--seconds 1`` on the default wire: each interval's tweets, one
+    synchronous fetch a batch, the warm-up before the first tick."""
+    from twtml_tpu_torch.apps import linear_regression as app
+    from twtml_tpu_torch.config import ConfArguments
+    from twtml_tpu_torch.streaming.context import StreamingContext
+
+    if ConfArguments().parse(WALL_ARGV).effective_wire() != "padded":
+        raise AssertionError("--seconds 1 must resolve the default wire to padded")
+    marks = {}
+    base_warm, base_start = app.warmup_compile, StreamingContext.start
+
+    def warm(*a, **k):
+        base_warm(*a, **k)
+        marks["warm_end"] = time.perf_counter()
+
+    def start(self):
+        marks["start"] = time.perf_counter()
+        base_start(self)
+
+    app.warmup_compile, StreamingContext.start = warm, start
+    try:
+        RECORDER.take()
+        os.environ["TWTML_SYNC_DEBUG"] = "error"
+        totals, lines, rec = recorded_app_run(WALL_ARGV, WALL_BATCHES)
+    finally:
+        os.environ.pop("TWTML_SYNC_DEBUG", None)
+        app.warmup_compile, StreamingContext.start = base_warm, base_start
+    posts = RECORDER.take()
+    steps = totals["steps"]
+    if (totals["batches"], len(steps)) != (WALL_BATCHES, WALL_BATCHES) or any(
+            st["count"] <= 0 or st["wire"] != "padded" for st in steps):
+        raise AssertionError(f"clock: {totals['batches']} batches: {steps}")
+    if totals["count"] != sum(st["count"] for st in steps):
+        raise AssertionError("clock: the count does not add up")
+    check_counters("clock", rec, WALL_BATCHES, "padded")
+    if not marks["warm_end"] <= totals["stream_started_s"] <= marks["start"]:
+        raise AssertionError(f"clock: the warm-up did not end before the stream: {marks}")
+    check_posts("clock", posts, lines)
+    for i, (line, st) in enumerate(zip(lines, steps)):
+        late = st["featurize_started_s"] - (totals["stream_started_s"] + (i + 1) * 1.0)
+        phase("clock", f"tick {i + 1}: {line} | {int(st['count'])} rows, lateness "
+              f"{late * 1e3:.2f} ms, featurize {st['featurize_ms']:.2f} ms, dispatch "
+              f"{st['dispatch_ms']:.3f} ms, fetch wait {st['fetch_wait_ms']:.3f} ms, "
+              f"publish {st['publish_ms']:.3f} ms")
+    phase("clock", f"{WALL_BATCHES} intervals trained on the padded wire, warm-up "
+          f"ended {(marks['start'] - marks['warm_end']) * 1e3:.1f} ms before the stream "
+          f"started; kernel launches {rec['launches']} (intervals + warm-up)")
+    return rec["launches"]
+
+
+# ---- phase 9: times ---------------------------------------------------------
 
 # ~0.1 ms of device work queued ahead of a timed call, so that its start
 # event fires only after the host has enqueued the call's launch
@@ -489,7 +851,7 @@ def wire_batches():
     from twtml_tpu_torch.features.featurizer import Featurizer
     from twtml_tpu_torch.streaming.sources import SyntheticSource
 
-    tweets = list(SyntheticSource(total=4 * OP_ROWS, seed=3, base_ms=NOW_MS))
+    tweets = list(SyntheticSource(total=4 * OP_ROWS, seed=3, base_ms=NOW_MS).produce())
     featurizer = Featurizer(now_ms=NOW_MS)
     wires = {"ragged": ([], []), "padded": ([], [])}
     for i in range(0, 4 * OP_ROWS, OP_ROWS):
@@ -607,9 +969,14 @@ def profile_step(wire, batches, wall_ms):
 
 def wire_times():
     """Each wire at the operating point: featurize by sub-stage, bytes, the
-    H2D copy, the host wall a step, and where its step's time goes."""
+    H2D copy, the host wall a step, and where its step's time goes. The
+    arena serves page-locked buffers, as it does a cuda model's stream, so
+    the ragged wire's packed buffer is pinned; the padded wire's arrays are
+    pageable."""
+    from twtml_tpu_torch.features.arena import get_arena
     from twtml_tpu_torch.features.batch import wire_nbytes
 
+    get_arena().use_device("cuda")
     wires = wire_batches()
     for wire, (batches, times) in wires.items():
         steady = times[1:]  # batch 1 pays first-use set-up
@@ -619,9 +986,10 @@ def wire_times():
               f"{', '.join(f'{ms:.2f}' for ms, _ in times)}); by sub-stage, medians: "
               + ", ".join(f"{k} {v:.2f}" for k, v in subs.items()))
         med, low = h2d_ms(batches[1])
-        phase("times", f"{wire}: wire {wire_nbytes(batches[1])} B a batch; H2D "
-              f"(batch_to_device, synchronised) median {med:.3f} ms, min {low:.3f} "
-              "ms over 20 runs")
+        memory = "pinned" if wire == "ragged" else "pageable"
+        phase("times", f"{wire}: wire {wire_nbytes(batches[1])} B a batch ({memory}); "
+              f"H2D (batch_to_device, non-blocking, then synchronised) median "
+              f"{med:.3f} ms, min {low:.3f} ms over 20 runs")
     walls = step_walls(wires)
     for wire, (batches, _) in wires.items():
         profile_step(wire, batches, walls[wire])
@@ -774,18 +1142,30 @@ def times_phase(smi, max_err, launches):
 
 
 def main() -> None:
+    global RECORDER
+    t_start = time.perf_counter()
     smi = device_phase()
     build_phase()
     max_err = kernel_phase()
     # pins the featurizer's clock and the synthetic tweets' creation times:
     # the wires and backends compared below featurize identical tweets
     os.environ["TWTML_NOW_MS"] = str(NOW_MS)
-    launches, ragged_rec = main_path_phase()
-    padded_phase(ragged_rec)
-    replay_phase()
+    RECORDER = Recorder()
+    try:
+        launches, ragged_rec = main_path_phase()
+        padded_phase(ragged_rec)
+        replay_phase()
+        stream = stream_phase()
+        clock_launches = clock_phase()
+    finally:
+        RECORDER.close()
     record = times_phase(smi, max_err, launches)
+    record.update(launches_stream=stream["launches"], launches_clock=clock_launches,
+                  stream_tweets_per_s=stream["rate"],
+                  stream_device_idle=(stream["timeline"] or {}).get("idle"))
     import torch
 
+    phase("done", f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [record]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -19,7 +19,10 @@ from twtml_tpu.utils import round_half_up
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = "tests/data/tweets.jsonl"
 NOW_MS = "1700000000000"
-ARGS = ["--source", "replay", "--replayFile", FIXTURE, "--batchBucket", "4"]
+CLOSED = "http://127.0.0.1:9"  # a closed loopback port: publishing fails fast
+ARGS = ["--source", "replay", "--replayFile", FIXTURE, "--seconds", "0",
+        "--batchBucket", "4", "--lightning", CLOSED, "--twtweb", CLOSED,
+        "--webTimeout", "0.2"]
 
 
 def run_app(*extra):

@@ -33,7 +33,7 @@ def both_featurizers(**kw):
 @pytest.mark.parametrize("row_bucket", [0, 4, 16])
 def test_replay_fixture_units_batches_equal(row_bucket):
     ours, ref = both_featurizers()
-    statuses = list(ReplayFileSource(FIXTURE))
+    statuses = list(ReplayFileSource(FIXTURE).produce())
     ref_statuses = list(JaxReplay(FIXTURE).produce())
     assert statuses == [Status(**vars_of(s)) for s in ref_statuses]
     for lo in range(0, len(statuses), 4):
@@ -54,7 +54,7 @@ def vars_of(status):
 @pytest.mark.parametrize("seed,n", [(3, 256), (7, 100)])
 def test_synthetic_batches_equal(seed, n):
     ours, ref = both_featurizers()
-    statuses = list(SyntheticSource(total=n, seed=seed, base_ms=NOW_MS))
+    statuses = list(SyntheticSource(total=n, seed=seed, base_ms=NOW_MS).produce())
     ref_statuses = list(JaxSynthetic(total=n, seed=seed, base_ms=NOW_MS).produce())
     assert statuses == [Status(**vars_of(s)) for s in ref_statuses]
     assert_batches_equal(
@@ -96,7 +96,7 @@ def test_non_ascii_batch_equal():
 
 def test_filter_matches():
     ours, ref = both_featurizers(num_retweet_begin=200, num_retweet_end=600)
-    statuses = list(ReplayFileSource(FIXTURE))
+    statuses = list(ReplayFileSource(FIXTURE).produce())
     ref_statuses = list(JaxReplay(FIXTURE).produce())
     assert [ours.filtrate(s) for s in statuses] == [
         ref.filtrate(s) for s in ref_statuses

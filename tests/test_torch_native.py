@@ -39,7 +39,7 @@ def port_native(gxx):
 
 
 def statuses(n=48, seed=3):
-    return list(SyntheticSource(total=n, seed=seed, base_ms=NOW_MS))
+    return list(SyntheticSource(total=n, seed=seed, base_ms=NOW_MS).produce())
 
 
 def numpy_batch(sts, **kw):
@@ -69,7 +69,7 @@ BUILD_AND_FILL = textwrap.dedent("""
     from twtml_tpu_torch.features.featurizer import Featurizer
     from twtml_tpu_torch.streaming.sources import SyntheticSource
     native.BUILD_DIR = Path(sys.argv[1])
-    sts = list(SyntheticSource(total=300, seed=5, base_ms=1_700_000_000_000))
+    sts = list(SyntheticSource(total=300, seed=5, base_ms=1_700_000_000_000).produce())
     packed = Featurizer(now_ms=1_700_000_000_000).featurize_batch_ragged(
         sts, row_bucket=301, pack=True)
     print(json.dumps({"lib": str(native.get_lib().path), "counters": native.COUNTERS,

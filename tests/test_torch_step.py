@@ -50,11 +50,11 @@ def batches(source_name, size):
     """(port batches, JAX batches) of 4 consecutive chunks of ``size``
     source tweets; the two featurizers are held equal elsewhere."""
     if source_name == "synthetic":
-        ours = list(SyntheticSource(total=4 * size, seed=3, base_ms=NOW_MS))
+        ours = list(SyntheticSource(total=4 * size, seed=3, base_ms=NOW_MS).produce())
         ref = list(JaxSynthetic(total=4 * size, seed=3, base_ms=NOW_MS).produce())
     else:
         ours = list(itertools.islice(
-            ReplayFileSource("tests/data/tweets.jsonl", loop=True), 40
+            ReplayFileSource("tests/data/tweets.jsonl", loop=True).produce(), 40
         ))
         ref = list(itertools.islice(
             JaxReplay("tests/data/tweets.jsonl", loop=True).produce(), 40

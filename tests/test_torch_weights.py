@@ -21,7 +21,7 @@ B = 128
 
 
 def five_batches():
-    ours = list(SyntheticSource(total=5 * B, seed=9, base_ms=NOW_MS))
+    ours = list(SyntheticSource(total=5 * B, seed=9, base_ms=NOW_MS).produce())
     ref = list(JaxSynthetic(total=5 * B, seed=9, base_ms=NOW_MS).produce())
     f, jf = Featurizer(now_ms=NOW_MS), JaxFeaturizer(now_ms=NOW_MS)
     return (

@@ -111,13 +111,13 @@ def unicode_corpus():
 
 def synthetic(n, seed):
     return (
-        list(SyntheticSource(total=n, seed=seed, base_ms=NOW_MS)),
+        list(SyntheticSource(total=n, seed=seed, base_ms=NOW_MS).produce()),
         list(JaxSynthetic(total=n, seed=seed, base_ms=NOW_MS).produce()),
     )
 
 
 def replay():
-    return list(ReplayFileSource(FIXTURE)), list(JaxReplay(FIXTURE).produce())
+    return list(ReplayFileSource(FIXTURE).produce()), list(JaxReplay(FIXTURE).produce())
 
 
 def long_row():
@@ -375,7 +375,7 @@ def packed_chunks(source_name, size):
     if source_name == "synthetic":
         ours, ref = synthetic(4 * size, 3)
     else:
-        ours = list(itertools.islice(ReplayFileSource(FIXTURE, loop=True), 40))
+        ours = list(itertools.islice(ReplayFileSource(FIXTURE, loop=True).produce(), 40))
         ref = list(itertools.islice(JaxReplay(FIXTURE, loop=True).produce(), 40))
     f, jf = Featurizer(now_ms=NOW_MS), JaxFeaturizer(now_ms=NOW_MS)
     with modes("on", "on"):
@@ -416,7 +416,7 @@ def test_packed_run_bitwise_equals_padded_run(port_native, source_name, size):
     if source_name == "synthetic":
         statuses = synthetic(4 * size, 3)[0]
     else:
-        statuses = list(itertools.islice(ReplayFileSource(FIXTURE, loop=True), 40))
+        statuses = list(itertools.islice(ReplayFileSource(FIXTURE, loop=True).produce(), 40))
     f = Featurizer(now_ms=NOW_MS)
     padded = [f.featurize_batch_units(statuses[i:i + size], row_bucket=size)
               for i in range(0, 4 * size, size)]
@@ -435,8 +435,14 @@ def test_packed_run_bitwise_equals_padded_run(port_native, source_name, size):
 
 # ---- the app and its flags --------------------------------------------------
 
+CLOSED = "http://127.0.0.1:9"  # a closed loopback port: publishing fails fast
+
+
 def app(*argv, batches=0):
-    conf = ConfArguments().parse(["--backend", "cpu", *argv])
+    conf = ConfArguments().parse([
+        "--backend", "cpu", "--seconds", "0", "--lightning", CLOSED,
+        "--twtweb", CLOSED, "--webTimeout", "0.2", *argv,
+    ])
     return run(conf, max_batches=batches)
 
 
@@ -445,8 +451,11 @@ def test_app_default_wire_is_ragged_packed_native(port_native, monkeypatch, caps
     args = ["--source", "synthetic", "--batchBucket", "64"]
     native.reset_counters()
     ragged = app(*args, batches=3)
-    assert native.COUNTERS == {"fills_native": 3, "fills_degraded": 0,
-                               "packs_native": 3, "packs_degraded": 0}
+    # fills: the warm-up's all-padding batch, 3 trained batches and the 4th,
+    # featurized before the pipeline's cap check refused it; packs happen
+    # at dispatch: the warm-up and the 3 trained batches
+    assert native.COUNTERS == {"fills_native": 5, "fills_degraded": 0,
+                               "packs_native": 4, "packs_degraded": 0}
     ragged_lines = capsys.readouterr().out
     padded = app(*args, "--wire", "padded", batches=3)
     assert capsys.readouterr().out == ragged_lines
@@ -485,7 +494,7 @@ def test_app_numpy_paths_print_the_same_lines(port_native, monkeypatch, capsys, 
 @pytest.mark.parametrize("wire,effective", [("auto", "ragged"), ("ragged", "ragged"),
                                             ("padded", "padded")])
 def test_wire_flag_resolves(wire, effective):
-    conf = ConfArguments().parse(["--wire", wire])
+    conf = ConfArguments().parse(["--seconds", "0", "--wire", wire])
     assert conf.effective_wire() == effective
 
 

@@ -1,121 +1,146 @@
 """Streaming linear-regression entry point, the flagship application
-(counterpart of ``twtml_tpu/apps/linear_regression.py``).
+(counterpart of ``twtml_tpu/apps/linear_regression.py``), single host.
 
-config -> featurizer -> model -> source -> per micro-batch: featurize on the
-host, one fused predict-then-train step on the device, print the batch's
-stats line. The default wire is the JAX package's back-to-back default:
-one native C pass fills the ragged wire's arrays, a second packs them into
-ONE uint8 buffer, and the step copies that buffer to the device once and
-decodes it there (``--wire padded`` keeps the padded units wire). Each
-micro-batch is the next ``--batchBucket`` tweets of the source; there is no
-time-interval streaming context, dashboard publishing, checkpoint or
-runtime guard in this port yet.
+config -> model -> session stats (the twtml-web dashboard and Lightning) ->
+featurizer -> streaming context -> source -> per micro-batch: featurize on
+the host, pack, one fused predict-then-train step on the device, fetch the
+stats, print the batch's line and publish it. ``--seconds 0`` runs back to
+back: each batch is the next ``--batchBucket`` tweets, on the ragged packed
+wire by default, with up to 8 batches in flight (apps/common.py
+``FetchPipeline``). ``--seconds N > 0`` batches whatever arrived in each
+N-second interval, on the padded wire by default, one synchronous fetch a
+batch. The step is built and warmed before the stream starts. Checkpoints,
+runtime guards, the journal, the historian and multi-host are not ported
+(ROADMAP A5, A10).
 
-Run: ``python -m twtml_tpu_torch.apps.linear_regression --source replay \
-      --replayFile tests/data/tweets.jsonl --batchBucket 4 --backend cpu``
+Run: ``python -m twtml_tpu_torch.apps.linear_regression --backend cpu \
+      --source replay --replayFile tests/data/tweets.jsonl --seconds 0 \
+      --batchBucket 4 --twtweb http://localhost:8899 \
+      --lightning http://localhost:3000``
 """
 
 from __future__ import annotations
 
-import itertools
-import os
 import sys
 import time
 
-import torch
+import numpy as np
 
 from ..config import ConfArguments
-from ..features import assemble, featurize_native, native
-from ..features.batch import PackedBatch, wire_nbytes
 from ..features.featurizer import Featurizer
-from ..models.linear import StreamingLinearRegressionWithSGD
-from ..streaming.sources import ReplayFileSource, SyntheticSource
-from ..utils.rounding import round_half_up
+from ..streaming.context import StreamingContext
+from ..telemetry.session_stats import SessionStats
+from ..utils import get_logger, round_half_up
+from .common import (
+    FETCH_DEPTH,
+    attach_super_batcher,
+    build_model,
+    build_source,
+    warmup_compile,
+)
+
+log = get_logger("apps.linear")
 
 
-def build_source(conf):
-    """The configured source. ``TWTML_NOW_MS`` (env), which pins the
-    featurizer's clock, also pins the synthetic tweets' creation times, so a
-    pinned synthetic run gives the same batches every time."""
-    if conf.source == "replay":
-        if not conf.replayFile:
-            raise SystemExit("--source replay requires --replayFile <path.jsonl>")
-        return ReplayFileSource(conf.replayFile)
-    now_env = os.environ.get("TWTML_NOW_MS", "")
-    return SyntheticSource(base_ms=int(now_env) if now_env else None)
-
-
-def run(conf: ConfArguments, max_batches: int = 0) -> dict:
+def run(conf: ConfArguments, max_batches: int = 0, fetch_depth: int = FETCH_DEPTH) -> dict:
     """Train on the configured source until it ends or ``max_batches``
-    micro-batches ran (0 = no cap). Returns the totals, with one entry per
-    batch in ``totals["steps"]``: the unrounded stats, the quality vector
-    (or None), the host featurize time with its sub-stages, the step time
-    (CUDA events on ``cuda``, the host clock on ``cpu``), all in ms, and
-    the batch's wire: its name, its bytes, and whether the native fill and
-    the native pack built it."""
-    featurize_native.configure(conf.featurizeNative)
-    assemble.configure(conf.wireAssemble)
-    wire = conf.effective_wire()
+    micro-batches trained (0 = no cap). Returns the totals: ``count``,
+    ``batches``, ``stream_seconds`` (from the stream's start to its last
+    delivery) and ``stream_started_s`` (``time.perf_counter()`` at the
+    start), and one record a batch in ``totals["steps"]``: the unrounded
+    stats and quality vector (or None), the host featurize ms (the pack
+    included) with its sub-stages, the step's ms (CUDA events on ``cuda``,
+    the host clock on ``cpu``), the dispatch ms (pack excluded), the host's
+    wait on the batch's fetch, the batches in flight at its dispatch, the
+    publish ms, when its featurize started and when it was delivered
+    (``time.perf_counter()``), and its wire: name, bytes, native fill and
+    pack.
+    ``fetch_depth`` sets the back-to-back stream's batches in flight."""
+    # the model first: without a card the default --backend cuda fails here,
+    # before anything is published
+    model = build_model(conf)
+    log.info("Initializing session stats...")
+    session = SessionStats(conf).open()
     featurizer = Featurizer.from_conf(conf)
-    model = StreamingLinearRegressionWithSGD.from_conf(conf)
-    on_cuda = model.device.type == "cuda"
-    source = iter(build_source(conf))
+    wire = conf.effective_wire()
+
+    log.info("Initializing streaming context... %s sec/batch", conf.seconds)
+    ssc = StreamingContext(
+        batch_interval=conf.seconds,
+        max_queue_rows=conf.effective_max_queue_rows(),
+        shed_policy=conf.shedPolicy,
+        thread_init=model.bind_thread,
+    )
+    stream = ssc.source_stream(
+        build_source(conf), featurizer, row_bucket=conf.batchBucket,
+        token_bucket=conf.tokenBucket, ragged=wire == "ragged",
+    )
     totals = {"count": 0, "batches": 0, "steps": []}
 
-    while not max_batches or totals["batches"] < max_batches:
-        chunk = list(itertools.islice(source, conf.batchBucket))
-        if not chunk:
-            break
-        fills, packs = native.COUNTERS["fills_native"], native.COUNTERS["packs_native"]
-        t0 = time.perf_counter()
-        if wire == "ragged":
-            batch = featurizer.featurize_batch_ragged(
-                chunk, row_bucket=conf.batchBucket, pack=True
-            )
-        else:
-            batch = featurizer.featurize_batch_units(chunk, row_bucket=conf.batchBucket)
-        featurize_ms = (time.perf_counter() - t0) * 1e3
-        if on_cuda:
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record()
-        t0 = time.perf_counter()
-        out = model.step(batch)
-        if on_cuda:
-            end.record()
-        if isinstance(batch, PackedBatch) and batch.lease is not None:
-            # the step's copy of the buffer has completed (a synchronous
-            # copy from pageable memory; on the CPU the step has run)
-            batch.lease.retire()
-        # reading the stats waits for the step
-        stats = {k: float(getattr(out, k)) for k in
-                 ("count", "mse", "real_stdev", "pred_stdev")}
-        step_ms = (
-            start.elapsed_time(end) if on_cuda else (time.perf_counter() - t0) * 1e3
-        )
-        b = int(stats["count"])
+    def handle(out, batch, _batch_time, at_boundary=True, stamp=None) -> None:
+        delivered_s = time.perf_counter()
+        b = int(out.count)
         totals["count"] += b
         totals["batches"] += 1
-        mse = round_half_up(stats["mse"])
-        real_stdev = round_half_up(stats["real_stdev"])
-        pred_stdev = round_half_up(stats["pred_stdev"])
+        mse = round_half_up(float(out.mse))
+        real_stdev = round_half_up(float(out.real_stdev))
+        pred_stdev = round_half_up(float(out.pred_stdev))
+        valid = batch.mask.astype(bool)
+        real = batch.label[valid].astype(np.float64)
+        pred = np.asarray(out.predictions)[valid].astype(np.float64)
         print(
             f"count: {totals['count']}  batch: {b}  mse: {mse}  "
             f"stdev (real, pred): ({int(real_stdev)}, {int(pred_stdev)})",
             flush=True,
         )
+        t0 = time.perf_counter()
+        session.update(totals["count"], b, mse, real_stdev, pred_stdev, real, pred)
+        stamp = dict(stamp or {})
+        subs = dict(stamp.pop("featurize_substages_ms", {}))
+        if "pack_ms" in stamp and stream.ragged:
+            subs["pack"] = stamp["pack_ms"]
         totals["steps"].append(dict(
-            stats,
-            quality=None if out.quality is None else out.quality.tolist(),
-            featurize_ms=featurize_ms,
-            featurize_substages_ms={
-                name: seconds * 1e3 for name, _, seconds in featurizer.last_substages
-            },
-            step_ms=step_ms,
+            stamp,
+            count=float(out.count), mse=float(out.mse),
+            real_stdev=float(out.real_stdev), pred_stdev=float(out.pred_stdev),
+            quality=None if out.quality is None else [float(v) for v in out.quality],
+            featurize_ms=stamp.get("featurize_ms", 0.0) + stamp.get("pack_ms", 0.0),
+            featurize_substages_ms=subs,
+            publish_ms=(time.perf_counter() - t0) * 1e3,
+            delivered_s=delivered_s,
             wire=wire,
-            wire_bytes=wire_nbytes(batch),
-            native_fill=native.COUNTERS["fills_native"] > fills,
-            native_pack=native.COUNTERS["packs_native"] > packs,
         ))
+        if max_batches and totals["batches"] >= max_batches:
+            ssc.request_stop()
+
+    flush = attach_super_batcher(
+        conf, stream, model, handle,
+        stop_requested=lambda: ssc.stop_requested,
+        max_dispatch=max_batches,
+        abort=ssc.request_abort,  # fetch-watchdog aborts fail the run loudly
+        fetch_depth=fetch_depth,
+        stamp=lambda: stream.last_featurize,
+    )
+
+    warmup_compile(stream, model)
+
+    log.info("Starting the streaming computation...")
+    t_stream = totals["stream_started_s"] = time.perf_counter()
+    ssc.start()
+    try:
+        ssc.await_termination()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        ssc.stop()
+        flush()  # deliver what is still in flight
+        totals["stream_seconds"] = time.perf_counter() - t_stream
+        session.publish_metrics()  # the dashboard's panel ends current
+    if ssc.failed:
+        raise RuntimeError(
+            "run aborted: a fetch watchdog abort or a scheduler failure "
+            "(see the critical log above)"
+        )
     return totals
 
 

@@ -1,11 +1,11 @@
 """Configuration + CLI flags of the port's linear-regression app (counterpart
 of a subset of ``twtml_tpu/config.py``).
 
-Defaults come from the port's own ``resources/reference.conf``; flag names
-and short aliases are the JAX package's. ``--backend`` takes ``cuda|cpu``
-(default ``cuda``). The port's stream is back to back (each batch is the
-next ``--batchBucket`` tweets, no ``--seconds``), so ``--wire auto``
-resolves to ``ragged`` by the JAX package's own rule.
+Defaults come from the port's own ``resources/reference.conf`` and equal the
+JAX package's; flag names and short aliases are the JAX package's.
+``--backend`` takes ``cuda|cpu`` (default ``cuda``). ``--wire auto``
+resolves by the JAX package's rule: ragged for a back-to-back stream
+(``--seconds 0``), padded under a wall clock.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ BACKENDS = ("cuda", "cpu")
 SOURCES = ("replay", "synthetic")
 WIRES = ("auto", "ragged", "padded")
 MODES = ("auto", "on", "off")
+SHED_POLICIES = ("block", "shed-oldest")
 
 
 def parse_conf_text(text: str) -> dict[str, str]:
@@ -57,6 +58,9 @@ class ConfArguments:
     def __init__(self) -> None:
         conf = _load_defaults()
         self.appName = "twitter-stream-ml"
+        self.lightning: str = conf["lightning"]
+        self.twtweb: str = conf["twtweb"]
+        self.seconds: int = int(conf["seconds"])
         self.stepSize: float = float(conf["stepSize"])
         self.numIterations: int = int(conf["numIterations"])
         self.miniBatchFraction: float = float(conf["miniBatchFraction"])
@@ -66,13 +70,18 @@ class ConfArguments:
         self.backend: str = conf["backend"]
         self.source: str = conf["source"]
         self.replayFile: str = conf["replayFile"]
+        self.replaySpeed: float = float(conf["replaySpeed"])
         self.batchBucket: int = int(conf["batchBucket"])
+        self.tokenBucket: int = int(conf["tokenBucket"])
         self.l2Reg: float = float(conf["l2Reg"])
         self.convergenceTol: float = float(conf["convergenceTol"])
         self.modelWatch: str = conf["modelWatch"]
         self.wire: str = conf["wire"]
         self.featurizeNative: str = conf["featurizeNative"]
         self.wireAssemble: str = conf["wireAssemble"]
+        self.webTimeout: float = float(conf["webTimeout"])
+        self.maxQueueRows: int = int(conf["maxQueueRows"])
+        self.shedPolicy: str = conf["shedPolicy"]
 
     def setAppName(self, name: str) -> "ConfArguments":
         self.appName = name
@@ -80,10 +89,19 @@ class ConfArguments:
 
     def usage(self) -> str:
         return f"""Usage: {self.appName} [options]
+  -l, --lightning <lightning_url>              Default: {self.lightning}
+  -w, --twtweb <twtweb_url>                    Default: {self.twtweb}
+  -s, --seconds <integer number>               Micro-batch interval; 0 = back to back (one
+                                               --batchBucket of tweets a batch). Default: {self.seconds}
   --source <replay|synthetic>                  Default: {self.source}
   --replayFile <path.jsonl>                    Tweets to replay with --source replay
+  --replaySpeed <float>                        0 = as fast as possible, else x realtime
+                                               (replay) or tweets/s (synthetic). Default: {self.replaySpeed}
   --backend <cuda|cpu>                         Device of the model. Default: {self.backend}
-  --batchBucket <int>                          Source tweets per micro-batch (> 0). Default: {self.batchBucket}
+  --batchBucket <int>                          Pad batches up to this many rows (0 = power-of-two
+                                               buckets); back to back, the tweets a batch. Default: {self.batchBucket}
+  --tokenBucket <int>                          Pad each tweet's units to this length (0 = auto).
+                                               Default: {self.tokenBucket}
   -p, --stepSize <float>                       Default: {self.stepSize}
   -i, --numIterations <int>                    Default: {self.numIterations}
   -b, --miniBatchFraction <float>              Default: {self.miniBatchFraction}
@@ -97,7 +115,8 @@ class ConfArguments:
                                                with uint16 length deltas in ONE packed buffer (one
                                                H2D copy; the step re-pads on the device), padded
                                                ships a [B, L] buffer and four more arrays. auto =
-                                               ragged (the stream is back to back). Default: {self.wire}
+                                               ragged back to back (--seconds 0), padded under a
+                                               wall clock. Default: {self.wire}
   --featurizeNative <auto|on|off>              One-pass native featurize of the ragged wire's arrays
                                                (native/featurize.cpp, built with g++ at first use);
                                                auto/on = whenever it loads, off = numpy. Byte-equal
@@ -106,6 +125,13 @@ class ConfArguments:
                                                (native/wireassemble.cpp); auto/on = whenever it
                                                loads, off = numpy. Byte-equal either way.
                                                Default: {self.wireAssemble}
+  --webTimeout <float seconds>                 Dashboard/Lightning request timeout (per publish).
+                                               Default: {self.webTimeout}
+  --maxQueueRows <int rows>                    Bound of the source->batcher intake queue: 0 = auto
+                                               (8 x --batchBucket when pinned, else unbounded),
+                                               -1 = unbounded. Default: {self.maxQueueRows}
+  --shedPolicy <block|shed-oldest>             When the intake queue is full: block the source,
+                                               or drop the oldest queued rows. Default: {self.shedPolicy}
   -h, --help
 """
 
@@ -117,10 +143,18 @@ class ConfArguments:
         """Apply ``args`` (flag value pairs); an unknown flag, a missing or
         malformed value prints the usage and exits 1."""
         setters = {
+            "--lightning": ("lightning", str),
+            "-l": ("lightning", str),
+            "--twtweb": ("twtweb", str),
+            "-w": ("twtweb", str),
+            "--seconds": ("seconds", int),
+            "-s": ("seconds", int),
             "--source": ("source", str),
             "--replayFile": ("replayFile", str),
+            "--replaySpeed": ("replaySpeed", float),
             "--backend": ("backend", str),
             "--batchBucket": ("batchBucket", int),
+            "--tokenBucket": ("tokenBucket", int),
             "--stepSize": ("stepSize", float),
             "-p": ("stepSize", float),
             "--numIterations": ("numIterations", int),
@@ -139,6 +173,9 @@ class ConfArguments:
             "--wire": ("wire", str),
             "--featurizeNative": ("featurizeNative", str),
             "--wireAssemble": ("wireAssemble", str),
+            "--webTimeout": ("webTimeout", float),
+            "--maxQueueRows": ("maxQueueRows", int),
+            "--shedPolicy": ("shedPolicy", str),
         }
         i = 0
         while i < len(args):
@@ -157,16 +194,33 @@ class ConfArguments:
             self.backend not in BACKENDS
             or self.source not in SOURCES
             or self.modelWatch not in ("on", "off")
-            or self.batchBucket <= 0
+            or self.seconds < 0
+            or self.batchBucket < 0
+            or self.tokenBucket < 0
             or self.wire not in WIRES
             or self.featurizeNative not in MODES
             or self.wireAssemble not in MODES
+            or self.shedPolicy not in SHED_POLICIES
         ):
             self.printUsage(1)
         return self
 
     def effective_wire(self) -> str:
-        """Resolve ``--wire auto``: ragged, as the JAX package resolves it
-        for a back-to-back stream hashed on the device
-        (``twtml_tpu/config.py`` ``effective_wire``)."""
-        return "ragged" if self.wire == "auto" else self.wire
+        """Resolve ``--wire auto`` by the JAX package's rule
+        (``twtml_tpu/config.py`` ``effective_wire``): ragged for a
+        back-to-back stream; padded under a wall clock (``--seconds > 0``),
+        where intervals are latency-bound and wire bytes do not bind.
+        Explicit ``ragged``/``padded`` wins."""
+        if self.wire != "auto":
+            return self.wire
+        return "padded" if self.seconds > 0 else "ragged"
+
+    def effective_max_queue_rows(self) -> int:
+        """Resolve ``--maxQueueRows``: explicit > 0 wins; 0 sizes the bound
+        at 8 pinned row buckets (unbounded without a pinned bucket); -1 is
+        explicitly unbounded."""
+        if self.maxQueueRows > 0:
+            return self.maxQueueRows
+        if self.maxQueueRows < 0:
+            return 0
+        return 8 * self.batchBucket if self.batchBucket > 0 else 0

@@ -170,18 +170,25 @@ def zero_weights(num_text_features: int, dtype=torch.float32, device="cuda"):
     )
 
 
-def batch_to_device(batch, device):
+def batch_to_device(batch, device, non_blocking: bool = True):
     """Host numpy batch -> the same batch type of tensors on ``device``. A
-    PackedBatch is ONE copy of its uint8 buffer (synchronous, from pageable
-    memory: the host buffer is free again when this returns on ``cuda``;
-    on the CPU the tensor shares it). uint16 code units travel as int16
-    (same bits; the device ops mask them back), since torch's uint16 has
-    few kernels."""
+    PackedBatch is ONE copy of its uint8 buffer. On ``cuda`` with
+    ``non_blocking`` the copy is queued on the current stream and returns at
+    once when the buffer is page-locked (the arena's buffers are, for a cuda
+    model): the host buffer must then stay untouched until the stream has
+    run the copy, which the fetch pipeline's lease rule guarantees (the
+    lease retires after the batch's results were delivered). A pageable
+    array is staged by the driver before the call returns. On the CPU the
+    tensors share the host arrays. uint16 code units travel as int16 (same
+    bits; the device ops mask them back), since torch's uint16 has few
+    kernels."""
 
     def move(a: np.ndarray) -> torch.Tensor:
         if a.dtype == np.uint16:
             a = a.view(np.int16)
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            device, non_blocking=non_blocking
+        )
 
     if isinstance(batch, PackedBatch):
         return PackedBatch(move(batch.buffer), batch.layout)
@@ -192,6 +199,58 @@ def batch_to_device(batch, device):
             row_len=batch.row_len,
         )
     return type(batch)(*(move(a) for a in batch))
+
+
+class HostOutput:
+    """A StepOutput on its way to the host: ONE device-to-host copy of the
+    predictions [B], the 4 stats and the quality vector, packed into one
+    f32 vector, into page-locked memory, with one CUDA event recorded after
+    it. ``done()`` asks the event without blocking; ``wait()`` blocks on it;
+    ``result()`` (after ``done()``) is the StepOutput of numpy arrays, bit
+    for bit the device values. On the CPU the result is ready at once."""
+
+    __slots__ = ("_host", "_event", "_rows", "_has_quality")
+
+    def __init__(self, host: torch.Tensor, event, rows: int, has_quality: bool):
+        self._host = host
+        self._event = event
+        self._rows = rows
+        self._has_quality = has_quality
+
+    def done(self) -> bool:
+        return self._event is None or self._event.query()
+
+    def wait(self) -> None:
+        if self._event is not None:
+            self._event.synchronize()
+
+    def result(self) -> StepOutput:
+        v = self._host.numpy()
+        b = self._rows
+        return StepOutput(
+            predictions=v[:b], count=v[b], mse=v[b + 1], real_stdev=v[b + 2],
+            pred_stdev=v[b + 3], quality=v[b + 4:] if self._has_quality else None,
+        )
+
+
+def fetch_output(out: StepOutput) -> HostOutput:
+    """Start the host fetch of a device StepOutput: one device-side
+    concatenation, one non-blocking D2H copy into pinned memory and one
+    event on the current stream, no host sync. Calling it again on the
+    same output issues a fresh copy of the still-resident tensors."""
+    parts = [out.predictions.reshape(-1),
+             torch.stack([out.count, out.mse, out.real_stdev, out.pred_stdev])]
+    if out.quality is not None:
+        parts.append(out.quality.reshape(-1))
+    vec = torch.cat([p.to(torch.float32) for p in parts])
+    rows = out.predictions.numel()
+    if vec.device.type != "cuda":
+        return HostOutput(vec, None, rows, out.quality is not None)
+    host = torch.empty(vec.shape, dtype=torch.float32, pin_memory=True)
+    host.copy_(vec, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return HostOutput(host, event, rows, out.quality is not None)
 
 
 class StreamingSGDModel:
@@ -229,6 +288,14 @@ class StreamingSGDModel:
             dtype=dtype,
         )
         self._weights = zero_weights(num_text_features, dtype, self.device)
+        # H2D copies queue without waiting (batch_to_device); False makes
+        # each copy synchronous, the reference order for a pipelined run
+        self.non_blocking = True
+        # the stream the model runs on: the constructing thread's current
+        # stream, which bind_thread makes current on another thread
+        self.stream = (
+            torch.cuda.current_stream(self.device) if self.device.type == "cuda" else None
+        )
 
     @classmethod
     def from_conf(cls, conf, **overrides):
@@ -264,10 +331,24 @@ class StreamingSGDModel:
     def latest_weights(self) -> np.ndarray:
         return self._weights.detach().cpu().numpy().copy()
 
+    def bind_thread(self) -> None:
+        """Make the model's CUDA device and stream current on the calling
+        thread (both are per thread in PyTorch): the streaming scheduler
+        calls it where its thread starts. No-op on the CPU."""
+        if self.stream is not None:
+            torch.cuda.set_device(self.stream.device)
+            torch.cuda.set_stream(self.stream)
+
     def step(self, batch) -> StepOutput:
         """Fused predict-then-train on one host micro-batch; advances the
-        model and returns the device-side StepOutput."""
+        model and returns the device-side StepOutput, with nothing waited
+        for on ``cuda``."""
         self._weights, out = self._train_step(
-            self._weights, batch_to_device(batch, self.device)
+            self._weights, batch_to_device(batch, self.device, self.non_blocking)
         )
         return out
+
+    @staticmethod
+    def fetch_output(out: StepOutput) -> HostOutput:
+        """Start the host fetch of ``step``'s output (``fetch_output``)."""
+        return fetch_output(out)

@@ -85,12 +85,17 @@ def quality_vector(
     # folded hash-bucket histogram; padding tokens carry zero value and
     # padded rows are masked, so only real token mass lands in the bins.
     # The values are integer counts, so the order of the adds is exact.
-    # bincount, not index_add_: on CUDA it privatizes the 32 bins in shared
-    # memory, where index_add_'s global atomics on 32 addresses cost ~1 ms
-    # a step at B = 16384 (chip_smoke.py's step profile)
-    folded = torch.bitwise_and(token_idx.reshape(-1).to(torch.int64), QUALITY_NBINS - 1)
-    tv = (token_val.to(f32) * m[:, None]).reshape(-1)
-    bins = torch.bincount(folded, weights=tv, minlength=QUALITY_NBINS).to(f32)
+    # Each row's mass goes into its own 32 bins first (a [B, 32] scatter
+    # with few collisions), then the rows are summed: not index_add_, whose
+    # global atomics on 32 addresses cost ~1 ms a step at B = 16384
+    # (chip_smoke.py's step profile), and not bincount, which reads the
+    # input's max back to the host on CUDA (a sync inside the dispatch).
+    # Every partial sum is an integer below 2**24, so the bins are exact.
+    folded = torch.bitwise_and(token_idx.to(torch.int64), QUALITY_NBINS - 1)
+    folded = folded.reshape(folded.shape[0], -1)
+    tv = (token_val.to(f32) * m[:, None]).reshape(folded.shape)
+    row_bins = torch.zeros((folded.shape[0], QUALITY_NBINS), dtype=f32, device=tv.device)
+    bins = row_bins.scatter_add_(1, folded, tv).sum(dim=0)
     total = torch.sum(bins)
     occupancy = torch.mean((bins > 0).to(f32))
     top_share = torch.max(bins) / torch.clamp(total, min=1.0)
