@@ -16,7 +16,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
                B = 16 (smaller than one CTA's rows), B = 16381 (a ragged last
                CTA, rows spilled), B = 4096 x F = 8196 (the tiled wide-F and
                spill path) with NaN/Inf in masked rows bitwise ignored, and
-               the operating point (spill path);
+               the operating point (spill path); and a valid row holding a
+               NaN label, then an Inf feature: the twin's non-finite
+               pattern in w and preds, every iteration run;
   4. main    — the flagship app (``apps/linear_regression.run``, its
                streaming context and fetch pipeline, ``--seconds 0
                --batchBucket 16384``) on cuda for 4 full-width synthetic
@@ -43,11 +45,26 @@ Phases, in order; any failure ends the run with a non-zero exit:
                publish times; tweets/s over batches 2-8; the device's idle
                share and the H2D copies against the kernels from a profiled
                run; the live synthetic source's own rate;
-  8. clock   — ``--seconds 1`` on the default wire (padded), the synthetic
+  8. guards  — the runtime guards at the stream's width and depth, from a
+               pre-filled source, every dispatch under the sync-debug mode
+               "error": a poisoned batch (``--chaos source.nan@5``) with a
+               checkpoint every batch rolls back once, replays its rows from
+               the journal, loses none, fetches once a dispatch, and ends
+               bitwise equal to the clean run; the same at batch 7 with a
+               checkpoint every 4 and batch 7 held in flight on the card
+               (``torch.cuda._sleep``), so later batches drain as tainted
+               skips; without a checkpoint the weights go back to zeros;
+               4 + 4 resumed batches equal 8; a rollback storm aborts and
+               leaves a flight-recorder bundle naming the last checkpoint;
+               ``--recycleAfterMb 1`` in a subprocess re-execs and resumes
+               exactly; the guards on against off: the same device work a
+               step (profiler), both rates, and the save, journal append,
+               rollback and dump times;
+  9. clock   — ``--seconds 1`` on the default wire (padded), the synthetic
                source paced at 20000 tweets/s, 5 intervals: every interval's
                batch trains, the warm-up ends before the stream starts, the
                stats posts arrive; each tick's lateness and rows;
-  9. times   — at the operating point: the launch plan (grid, rows resident
+ 10. times   — at the operating point: the launch plan (grid, rows resident
                and spilled, shared memory, registers from ptxas), kernel,
                prologue and per-iteration times, the twin, the bound; each
                wire's featurize by sub-stage, bytes and H2D copy; and where
@@ -63,6 +80,7 @@ import contextlib
 import io
 import json
 import logging
+import math
 import os
 import statistics
 import subprocess
@@ -316,10 +334,63 @@ def kernel_phase():
     case("wide F (tiled + spill path)", to(x), to(y), to(m), small_w0(8196), dirty=True)
     del x, y, m
 
+    # non-finite data in a VALID row must propagate as in the twin (the
+    # divergence sentinel sees it in the stats): a NaN label, and an Inf
+    # numeric feature; the converged freeze must not hold on NaN
+    x, y, m = design(rng, 256, 1004, 200)
+    valid = np.flatnonzero(m > 0)
+    w0 = small_w0(1004)
+    y_nan = y.copy()
+    y_nan[valid[3]] = np.nan
+    nonfinite_case("NaN label in a valid row", to(x), to(y_nan), to(m), w0)
+    x_inf = x.copy()
+    x_inf[valid[5], -2] = np.inf
+    nonfinite_case("Inf feature in a valid row", to(x_inf), to(y), to(m), w0)
+
     x, y, m, w0 = op_point_inputs(dev)
     case("operating point (spill path)", x, y, m, w0)
     torch.cuda.synchronize()
-    return max(e for _, e in cases)
+    return max(e for _, e in cases), [name for name, _ in cases] + NONFINITE_CASES
+
+
+NONFINITE_CASES: list = []
+
+
+def nonfinite_case(name, x, y, mask, w0, **kw):
+    """A valid row holding NaN or Inf: the kernel's w and preds have the
+    twin's non-finite pattern (NaN, +Inf and -Inf at the same elements),
+    agree with it on the finite ones, rerun bitwise equal, and run every
+    iteration (no freeze on NaN)."""
+    import torch
+
+    from twtml_tpu_torch.ops import fused_sgd
+
+    kw.setdefault("num_iterations", OP_ITERS)
+    kw.setdefault("step_size", 0.005)
+    w, p = fused_sgd.fused_dense_sgd(x, y, mask, w0, **kw)
+    iters = int(fused_sgd.fused_dense_sgd.last_iterations.item())
+    w_ref, p_ref = fused_sgd.fused_dense_sgd_reference(x, y, mask, w0, **kw)
+    w_again, p_again = fused_sgd.fused_dense_sgd(x, y, mask, w0, **kw)
+    torch.cuda.synchronize()
+    for what, got, want in (("weights", w, w_ref), ("preds", p, p_ref)):
+        for test in (torch.isnan, torch.isposinf, torch.isneginf):
+            if not torch.equal(test(got), test(want)):
+                raise AssertionError(f"{name} {what}: {test.__name__} pattern differs: "
+                                     f"kernel {int(test(got).sum())}, twin "
+                                     f"{int(test(want).sum())}")
+        fin = torch.isfinite(want)
+        if fin.any():
+            compare(f"{name} {what} (finite)", got[fin], want[fin])
+    bits = lambda t: t.view(torch.int32)  # noqa: E731
+    if not (torch.equal(bits(w), bits(w_again)) and torch.equal(bits(p), bits(p_again))):
+        raise AssertionError(f"{name}: reruns are not bitwise equal")
+    if iters != kw["num_iterations"]:
+        raise AssertionError(f"{name}: the kernel froze after {iters} iterations")
+    phase("kernel", f"{name}: weights {int(torch.isnan(w).sum())}/{w.numel()} NaN, preds "
+          f"{int((~torch.isfinite(p)).sum())}/{p.numel()} non-finite, as the twin's; "
+          f"finite elements within rtol {RTOL} atol {ATOL}; rerun bitwise equal; "
+          f"{iters} iterations run (no freeze on NaN)")
+    NONFINITE_CASES.append(name)
 
 
 def sm_limits():
@@ -359,14 +430,23 @@ class ErrorLog(logging.Handler):
         self.records.append(record)
 
 
-def recorded_app_run(argv, max_batches, source=None, blocking_copies=False, **kw):
+def recorded_app_run(argv, max_batches, source=None, blocking_copies=False,
+                     sleep_before=None, expected_errors=(), expect_abort=False, **kw):
     """One app run with the kernel's launch counter and the native counters
     set to 0 just before it and read just after, recording what the run's
     model returned: the warm-up's output, each batch's StepOutput (device
-    tensors), the iterations each fused call ran (device scalars, no sync)
-    and the final weights. ``source`` replaces the configured source;
-    ``blocking_copies`` makes every H2D copy synchronous. A run that logged
-    an error fails."""
+    tensors), the iterations each fused call ran (device scalars, no sync),
+    the host fetches started (``fetch_output`` calls, the warm-up's
+    excluded), the weights each ``set_initial_weights`` installed and the
+    final weights. ``source`` replaces the configured source;
+    ``blocking_copies`` makes every H2D copy synchronous; ``sleep_before``
+    {step: cycles} queues ``torch.cuda._sleep`` on the model's stream ahead
+    of that step (step 1 is the first batch after the warm-up), so that
+    later batches dispatch while it is still in flight. A run that logged an
+    error fails, unless the message starts with one of ``expected_errors``
+    (a guard's own report of what it caught). With ``expect_abort`` the
+    run must raise its guard abort: totals and lines are then None and []
+    and ``rec["aborted"]`` holds the message."""
     import torch
 
     from twtml_tpu_torch.apps import common
@@ -376,7 +456,7 @@ def recorded_app_run(argv, max_batches, source=None, blocking_copies=False, **kw
     from twtml_tpu_torch.models.linear import StreamingLinearRegressionWithSGD
     from twtml_tpu_torch.ops import fused_sgd
 
-    rec = {"outputs": [], "iterations": []}
+    rec = {"outputs": [], "iterations": [], "fetches": 0, "restored": []}
     base_build, base_source = app.build_model, app.build_source
 
     class Recorded(StreamingLinearRegressionWithSGD):
@@ -385,10 +465,22 @@ def recorded_app_run(argv, max_batches, source=None, blocking_copies=False, **kw
             self.non_blocking = not blocking_copies
 
         def step(self, batch):
+            cycles = (sleep_before or {}).get(len(rec["outputs"]))
+            if cycles:
+                torch.cuda._sleep(cycles)
             out = super().step(batch)
             rec["outputs"].append(out)
             rec["model"] = self
             return out
+
+        def fetch_output(self, out):
+            rec["fetches"] += 1
+            return StreamingLinearRegressionWithSGD.fetch_output(out)
+
+        def set_initial_weights(self, weights):
+            super().set_initial_weights(weights)
+            rec["restored"].append(self._weights)
+            return self
 
     def fused(*args, **kw):
         out = fused_sgd.fused_dense_sgd(*args, **kw)
@@ -405,7 +497,15 @@ def recorded_app_run(argv, max_batches, source=None, blocking_copies=False, **kw
         fused_sgd.fused_dense_sgd.launches = 0
         native.reset_counters()
         t0 = time.perf_counter()
-        totals, lines = app_run(argv, max_batches=max_batches, **kw)
+        try:
+            totals, lines = app_run(argv, max_batches=max_batches, **kw)
+        except RuntimeError as exc:
+            if not expect_abort or "runtime guard" not in str(exc):
+                raise
+            totals, lines, rec["aborted"] = None, [], str(exc)
+        else:
+            if expect_abort:
+                raise AssertionError("the run did not abort")
         torch.cuda.synchronize()
         rec["wall_s"] = time.perf_counter() - t0
         rec["launches"] = fused_sgd.fused_dense_sgd.launches
@@ -414,12 +514,15 @@ def recorded_app_run(argv, max_batches, source=None, blocking_copies=False, **kw
         logging.getLogger("twtml_tpu_torch").removeHandler(errors)
         app.build_model, app.build_source = base_build, base_source
         sgd_module.fused_dense_sgd = fused_sgd.fused_dense_sgd
-    if errors.records:
+    unexpected = [r for r in errors.records
+                  if not r.getMessage().startswith(tuple(expected_errors) or ("\0",))]
+    if unexpected:
         raise AssertionError("the run logged errors: " + "; ".join(
-            f"{r.getMessage()} {r.exc_text or ''}" for r in errors.records))
+            f"{r.getMessage()} {r.exc_text or ''}" for r in unexpected))
     # the first step is the pre-stream warm-up's all-padding batch
     rec["warmup"], rec["outputs"] = rec["outputs"][0], rec["outputs"][1:]
     rec["iterations"] = rec["iterations"][1:]
+    rec["fetches"] -= 1  # the warm-up's
     rec["weights"] = rec["model"].latest_weights
     if float(rec["warmup"].count) != 0:
         raise AssertionError("the warm-up step trained rows")
@@ -740,6 +843,381 @@ def stream_phase():
     return {"launches": rec["launches"], "rate": rate, "timeline": timeline}
 
 
+# ---- phase 8: the runtime guards at full width -----------------------------
+
+GUARD_BATCHES = 8
+GUARD_ARGV = ["--backend", "cuda", "--source", "synthetic", "--seconds", "0",
+              "--batchBucket", str(OP_ROWS), "--maxQueueRows", "-1", "--history", "off"]
+GUARD_COUNTERS = ("model.rollbacks", "model.nonfinite_batches", "model.rows_lost",
+                  "model.sentinel_aborts", "journal.replayed_rows", "fetch.aborts",
+                  "checkpoint.quarantined")
+# what a guard reports at ERROR or above about the fault it caught
+GUARD_ERRORS = ("divergence sentinel", "run aborting", "post-mortem bundle written")
+# ~0.3 s of device work queued ahead of a step, so the next batch dispatches
+# while it is still in flight
+INFLIGHT_SLEEP_CYCLES = 500_000_000
+# the card's nvidia-smi name and power limit, on every [guards] line
+GUARD_CARD = ""
+
+
+def guard_line(msg: str) -> None:
+    phase("guards", f"{msg} | card: {GUARD_CARD}")
+
+
+class Timings:
+    """Wall ms of each call of the named methods while the context is
+    open (``{label: (owner, attribute)}``), for the guards' costs."""
+
+    def __init__(self, targets):
+        self.targets = targets
+        self.ms = {label: [] for label in targets}
+
+    def __enter__(self):
+        self._saved = {}
+        for label, (owner, attr) in self.targets.items():
+            base = getattr(owner, attr)
+            self._saved[label] = base
+
+            def timed_call(*a, _base=base, _label=label, **k):
+                t0 = time.perf_counter()
+                try:
+                    return _base(*a, **k)
+                finally:
+                    self.ms[_label].append((time.perf_counter() - t0) * 1e3)
+
+            setattr(owner, attr, timed_call)
+        return self
+
+    def __exit__(self, *exc):
+        for label, (owner, attr) in self.targets.items():
+            setattr(owner, attr, self._saved[label])
+        return False
+
+    def mean(self, label):
+        v = self.ms[label]
+        return f"{statistics.mean(v):.3f} ms (n={len(v)}, max {max(v):.3f})" if v else "no call"
+
+
+def guard_run(name, statuses, extra, max_batches=0, **kw):
+    """One app run of the guards phase from a pre-filled source of
+    ``statuses``: the registry's guard counters as deltas over the run,
+    every dispatch under the sync-debug mode "error"."""
+    from twtml_tpu_torch.apps.common import SYNC_DEBUG_ENV
+    from twtml_tpu_torch.telemetry import metrics
+
+    reg = metrics.get_registry()
+    before = {k: reg.counter(k).snapshot() for k in GUARD_COUNTERS}
+    os.environ[SYNC_DEBUG_ENV] = "error"
+    try:
+        totals, lines, rec = recorded_app_run(
+            GUARD_ARGV + extra, max_batches, source=prefilled_source(statuses),
+            expected_errors=GUARD_ERRORS, **kw)
+    finally:
+        del os.environ[SYNC_DEBUG_ENV]
+    rec["counters"] = {k: int(reg.counter(k).snapshot() - before[k]) for k in GUARD_COUNTERS}
+    guard_line(f"{name}: " + ("aborted: " + rec["aborted"] if totals is None else
+                                    f"{totals['batches']} batches, {totals['count']} rows")
+          + f"; kernel launches {rec['launches']}, fetches {rec['fetches']}, counters "
+          + json.dumps(rec["counters"]))
+    return totals, lines, rec
+
+
+def expect(name, got: dict, want: dict):
+    bad = {k: (got.get(k), v) for k, v in want.items() if got.get(k) != v}
+    if bad:
+        raise AssertionError(f"guards {name}: (got, want) {bad}")
+
+
+def archive(directory):
+    """(weights, meta) of the directory's newest verified archive."""
+    from twtml_tpu_torch.checkpoint import Checkpointer
+
+    restored = Checkpointer(directory).restore()
+    if restored is None:
+        raise AssertionError(f"no verified archive in {directory}")
+    return restored
+
+
+def write_replay(path, statuses):
+    """The tweets as the JSON lines ``ReplayFileSource`` reads back into
+    the same Status objects."""
+    def obj(s):
+        d = {"text": s.text, "retweet_count": s.retweet_count,
+             "user": {"followers_count": s.followers_count,
+                      "favourites_count": s.favourites_count,
+                      "friends_count": s.friends_count},
+             "timestamp_ms": str(s.created_at_ms), "lang": s.lang, "id": s.id}
+        if s.retweeted_status is not None:
+            d["retweeted_status"] = obj(s.retweeted_status)
+        return d
+
+    with open(path, "w") as fh:
+        for s in statuses:
+            fh.write(json.dumps(obj(s)) + "\n")
+
+
+def recycle_run(replay, ckdir, recycle: bool):
+    """The app as a user starts it, in a subprocess on the card; returns
+    its stderr and printed lines."""
+    env = dict(os.environ, TWTML_RECYCLE_MAX="1", TWTML_RECYCLE_SAMPLE_EVERY="1")
+    env.pop("TWTML_RECYCLES", None)
+    argv = [sys.executable, "-m", "twtml_tpu_torch.apps.linear_regression",
+            "--backend", "cuda", "--source", "replay", "--replayFile", replay,
+            "--seconds", "0", "--batchBucket", str(OP_ROWS), "--checkpointDir", ckdir,
+            "--checkpointEvery", "2", "--history", "off",
+            "--lightning", RECORDER.url, "--twtweb", RECORDER.url]
+    if recycle:
+        argv += ["--recycleAfterMb", "1"]
+    proc = subprocess.run(argv, cwd=HERE, env=env, capture_output=True, text=True,
+                          timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"recycle run (recycle={recycle}) exited "
+                             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    return proc.stderr, [ln for ln in proc.stdout.splitlines() if ln.startswith("count:")]
+
+
+def step_work(events):
+    """Device work between the end of batch 1's fused kernel and the end of
+    the last batch's (the warm-up's and batch 1's work, where the profiler
+    may drop a session's first events, and the reads after the run fall
+    outside): batches 2-8's H2D copies and the step ops before their fused
+    kernel, batches 1-7's ops after it and their D2H fetch, so 7 steps'
+    worth of every kind."""
+    fused = [e for e in events if KERNEL in e[2]]
+    if len(fused) != GUARD_BATCHES + 1:
+        raise AssertionError(f"guards cost: profiler recorded {len(fused)} fused kernels, "
+                             f"want {GUARD_BATCHES + 1}")
+    lo, hi = fused[1][1], fused[-1][1]
+    inside = [e for e in events if lo <= e[0] and e[1] <= hi]
+    return {
+        "kernels": sum("Memcpy" not in e[2] and "Memset" not in e[2] for e in inside),
+        "fused": sum(KERNEL in e[2] for e in inside),
+        "h2d": sum("HtoD (Pinned -> Device)" in e[2] for e in inside),
+        "d2h": sum("DtoH (Device -> Pinned)" in e[2] for e in inside),
+        "other_copies": sum(("Memcpy" in e[2] and "Pinned" not in e[2]) for e in inside),
+    }
+
+
+def guards_phase(smi):
+    """The runtime guards at full width (B = 16384, 1004 dims, 50
+    iterations, ragged, depth 8), from a pre-filled source: a poisoned run
+    against a clean one at --checkpointEvery 1 and 4 (with batches in
+    flight at the rollback), no checkpoint, resume, a rollback storm, a
+    recycle in a subprocess, and the guards' cost."""
+    global GUARD_CARD
+    import re
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from twtml_tpu_torch.apps.common import AppCheckpoint
+    from twtml_tpu_torch.checkpoint import Checkpointer
+    from twtml_tpu_torch.streaming.journal import IntakeJournal
+    from twtml_tpu_torch.streaming.sources import SyntheticSource
+    from twtml_tpu_torch.telemetry.blackbox import FlightRecorder
+
+    GUARD_CARD = smi
+    statuses = list(SyntheticSource(total=GUARD_BATCHES * OP_ROWS, seed=7,
+                                    base_ms=NOW_MS).produce())
+    tmp = tempfile.mkdtemp(prefix="twtml-guards-")
+    full = {"batches": GUARD_BATCHES, "count": GUARD_BATCHES * OP_ROWS}
+    timings = Timings({"save": (AppCheckpoint, "_save"),
+                       "npz": (Checkpointer, "save"),
+                       "append": (IntakeJournal, "append"),
+                       "rollback": (AppCheckpoint, "rollback_to_verified"),
+                       "dump": (FlightRecorder, "dump")})
+    RECORDER.take()
+    with timings:
+        # -- poison at batch 5, a checkpoint every batch: crash equals clean
+        clean1, clean1_lines, clean1_rec = guard_run(
+            "clean, --checkpointEvery 1", statuses,
+            ["--checkpointDir", f"{tmp}/clean1", "--checkpointEvery", "1"])
+        saves_clean = list(timings.ms["save"])
+        got, lines, rec = guard_run(
+            "poison source.nan@5, --checkpointEvery 1", statuses,
+            ["--checkpointDir", f"{tmp}/poison1", "--checkpointEvery", "1",
+             "--chaos", "source.nan@5"])
+        expect("poison@5", {**rec["counters"], "batches": got["batches"],
+                            "count": got["count"], "fetches": rec["fetches"]},
+               {"model.rollbacks": 1, "model.nonfinite_batches": 1, "model.rows_lost": 0,
+                "journal.replayed_rows": OP_ROWS, "fetch.aborts": 0,
+                "checkpoint.quarantined": 0, "fetches": GUARD_BATCHES + 1, **full})
+        if lines != clean1_lines:
+            raise AssertionError("guards poison@5: printed lines differ from the clean run's")
+        w_p, meta_p = archive(f"{tmp}/poison1")
+        w_c, meta_c = archive(f"{tmp}/clean1")
+        if not (np.array_equal(w_p, w_c) and meta_p["count"] == meta_c["count"]):
+            raise AssertionError("guards poison@5: final archive differs from the clean run's")
+        guard_line(f"poison@5: 1 rollback, 1 non-finite batch, 0 rows lost, "
+              f"{OP_ROWS} rows replayed, {rec['fetches']} fetches for "
+              f"{len(rec['outputs'])} dispatches; lines equal the clean run's; the final "
+              f"archive (step {meta_p['step']}) bitwise equal to the clean run's")
+        drain_ms = statistics.mean(st["fetch_wait_ms"] for st in clean1["steps"][1:])
+        guard_line(f"checkpoint every batch, clean run: save (.cpu() + npz + "
+              f"rename) {statistics.mean(saves_clean):.3f} ms a batch (n={len(saves_clean)}), "
+              f"of which npz + rename {timings.mean('npz')}; the drain before it "
+              f"(fetch wait a batch) {drain_ms:.3f} ms; journal append of "
+              f"{OP_ROWS} rows {timings.mean('append')}; rollback (restore + H2D) "
+              f"{timings.mean('rollback')}")
+
+        # -- poison at batch 7 with batches in flight, a checkpoint every 4
+        sleep = {7: INFLIGHT_SLEEP_CYCLES}
+        clean4, clean4_lines, _ = guard_run(
+            "clean, --checkpointEvery 4", statuses,
+            ["--checkpointDir", f"{tmp}/clean4", "--checkpointEvery", "4"],
+            sleep_before=sleep)
+        got, lines, rec = guard_run(
+            "poison source.nan@7, --checkpointEvery 4, batch 7 delayed", statuses,
+            ["--checkpointDir", f"{tmp}/poison4", "--checkpointEvery", "4",
+             "--chaos", "source.nan@7"], sleep_before=sleep)
+        tainted = rec["counters"]["model.nonfinite_batches"] - 1
+        if tainted < 1:
+            raise AssertionError("guards poison@7: no batch was in flight at the rollback")
+        # dispatched: batches 1-7, the tainted ones after 7, the 4 replayed
+        expect("poison@7", {**rec["counters"], "batches": got["batches"],
+                            "count": got["count"], "fetches": rec["fetches"],
+                            "dispatches": len(rec["outputs"])},
+               {"model.rollbacks": 1, "model.rows_lost": 0,
+                "journal.replayed_rows": 4 * OP_ROWS, "fetch.aborts": 0,
+                "fetches": 7 + tainted + 4, "dispatches": 7 + tainted + 4, **full})
+        w_p, _ = archive(f"{tmp}/poison4")
+        w_c, _ = archive(f"{tmp}/clean4")
+        # batches 5 and 6 trained and printed before the rollback to step 4,
+        # and print again (the same counts) as the replay retrains them
+        if lines != clean4_lines[:6] + clean4_lines[4:] or not np.array_equal(w_p, w_c):
+            raise AssertionError("guards poison@7: lines or final archive differ from the "
+                                 "clean run's")
+        guard_line(f"poison@7: {tainted} batch(es) in flight at the rollback drained "
+              f"as tainted skips; 1 rollback, 0 rows lost, {4 * OP_ROWS} rows of batches "
+              f"5-8 replayed, {rec['fetches']} fetches for {len(rec['outputs'])} "
+              "dispatches; no sync raised under set_sync_debug_mode('error'); the "
+              "lines of batches 1-6 then, replayed, 5-8 equal the clean run's, and the "
+              "final archive is bitwise equal to it")
+
+        # -- poison without a checkpoint: back to zeros, rows counted lost
+        got, lines, rec = guard_run("poison source.nan@5, no checkpoint", statuses,
+                                    ["--chaos", "source.nan@5"])
+        lost = rec["counters"]["model.rows_lost"]
+        last = got["steps"][-1]
+        if not (rec["counters"]["model.rollbacks"] == 1 and lost >= OP_ROWS
+                and lost % OP_ROWS == 0 and got["count"] == full["count"] - lost
+                and len(rec["restored"]) == 1 and not rec["restored"][0].any()
+                and all(math.isfinite(last[k]) for k in ("mse", "real_stdev", "pred_stdev"))):
+            raise AssertionError(f"guards no-checkpoint: {rec['counters']}, {got['count']} rows")
+        guard_line(f"no checkpoint: weights reset to zeros, {lost} rows lost "
+              f"({lost // OP_ROWS} batch(es): the poisoned one"
+              f"{' and tainted in-flight ones' if lost > OP_ROWS else ''}), "
+              f"{got['batches']} batches trained after it, last stats finite")
+
+        # -- resume: 4 batches, then a new run from the same directory
+        _, lines_a, _ = guard_run("resume, first run", statuses,
+                                  ["--checkpointDir", f"{tmp}/resume",
+                                   "--checkpointEvery", "1"], max_batches=4)
+        w_saved, _ = archive(f"{tmp}/resume")
+        got, lines_b, rec = guard_run("resume, second run", statuses,
+                                      ["--checkpointDir", f"{tmp}/resume",
+                                       "--checkpointEvery", "1"], max_batches=8)
+        restored = rec["restored"][0].cpu().numpy()
+        w_final, _ = archive(f"{tmp}/resume")
+        if not (np.array_equal(restored, w_saved) and lines_a + lines_b == clean1_lines
+                and np.array_equal(w_final, archive(f"{tmp}/clean1")[0])):
+            raise AssertionError("guards resume: not equal to one 8-batch run")
+        guard_line("resume: restored weights bitwise equal to the archive; 4 + 4 "
+              "batches' lines and final weights equal one 8-batch run's")
+
+        # -- a rollback storm aborts the run, leaving a bundle
+        got, _, rec = guard_run(
+            "storm source.nan@2, --sentinelRollbacks 2", statuses,
+            ["--checkpointDir", f"{tmp}/storm/ck", "--checkpointEvery", "1",
+             "--chaos", "source.nan@2", "--sentinelRollbacks", "2",
+             "--sentinelWindow", "100"], expect_abort=True)
+        expect("storm", rec["counters"], {"model.rollbacks": 2, "model.sentinel_aborts": 1})
+        w_s, meta_s = archive(f"{tmp}/storm/ck")
+        bundle_path = os.path.join(f"{tmp}/storm", f"postmortem.p0.{os.getpid()}.json")
+        with open(bundle_path) as fh:
+            bundle = json.load(fh)
+        note = bundle["notes"].get("last_checkpoint", {})
+        if not (np.isfinite(w_s).all() and note.get("step") == meta_s["step"]
+                and any(e["kind"] == "sentinel_abort" for e in bundle["events"])):
+            raise AssertionError(f"guards storm: archive step {meta_s['step']}, bundle "
+                                 f"notes {bundle['notes']}")
+        guard_line(f"storm: aborted through request_abort after 2 rollbacks; the "
+              f"newest archive (step {meta_s['step']}) is finite; bundle "
+              f"{os.path.basename(bundle_path)} names it ({len(bundle['events'])} events); "
+              f"dump {timings.mean('dump')}")
+    RECORDER.take()
+
+    # -- recycle: a subprocess re-execs itself after a checkpoint
+    replay = f"{tmp}/recycle.jsonl"
+    write_replay(replay, statuses[: 4 * OP_ROWS])
+    err_r, lines_r = recycle_run(replay, f"{tmp}/recycled", True)
+    _, lines_u = recycle_run(replay, f"{tmp}/unrecycled", False)
+    saved = re.findall(r"state crc ([0-9a-f]+)\) and re-exec'ing", err_r)
+    resumed = re.findall(r"resumed from checkpoint step \d+ \(count=\d+, state crc "
+                         r"([0-9a-f]+)\)", err_r)
+    w_r, meta_r = archive(f"{tmp}/recycled")
+    w_u, meta_u = archive(f"{tmp}/unrecycled")
+    if not (len(saved) == 1 and resumed == saved and meta_r["count"] == meta_u["count"]
+            == 4 * OP_ROWS and np.array_equal(w_r, w_u)
+            and lines_r[-1] == lines_u[-1]):
+        raise AssertionError(f"guards recycle: crc {saved} / {resumed}, counts "
+                             f"{meta_r['count']} / {meta_u['count']}")
+    guard_line(f"recycle (subprocess on the card, --recycleAfterMb 1): state crc "
+          f"{saved[0]} at the re-exec and at the restore; {meta_r['count']} rows, final "
+          "weights bitwise equal to an unrecycled run's")
+    RECORDER.take()
+
+    # -- the guards' cost on the healthy path
+    off = ["--sentinel", "off", "--modelWatch", "off", "--freshness", "off",
+           "--blackbox", "off"]
+    rates = {}
+    for label, extra in (("guards on", []), ("guards off", off),
+                         ("guards on (again)", []), ("guards off (again)", off)):
+        got, _, _ = guard_run(label, statuses, extra)
+        span = got["steps"][-1]["delivered_s"] - got["steps"][0]["delivered_s"]
+        rates.setdefault(label.split(" (")[0], []).append(
+            (GUARD_BATCHES - 1) * OP_ROWS / span)
+        posts = RECORDER.take()
+        kinds = [b.get("jsonClass") for p, b in posts if p == "/api"]
+        if label.startswith("guards on") and not (kinds.count("ModelHealth") >= 1
+                                                  and kinds.count("Freshness") >= 1):
+            raise AssertionError(f"guards cost: posts {sorted(set(kinds))}")
+        # (the model watcher's view outlives a run in its process, as in the
+        # JAX package; the freshness plane is rebuilt or turned off each run)
+        if label.startswith("guards off") and "Freshness" in kinds:
+            raise AssertionError("guards cost: the guards-off run posted a freshness view")
+    # device work, profiled: the host guards off keep the step as it is;
+    # --modelWatch off also drops the in-step quality vector (its launches)
+    host_off = ["--sentinel", "off", "--freshness", "off", "--blackbox", "off"]
+    copies = {}
+    for label, extra in (("guards on", []), ("host guards off", host_off),
+                         ("all off", off)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            guard_run(f"{label}, profiled", statuses, extra)
+            torch.cuda.synchronize()
+        RECORDER.take()
+        copies[label] = step_work(device_timeline(prof))
+    on = copies["guards on"]
+    if not (on == copies["host guards off"] and on["h2d"] == on["d2h"] == GUARD_BATCHES - 1
+            and on["fused"] == GUARD_BATCHES - 1
+            and all(copies["all off"][k] == on[k] for k in ("fused", "h2d", "d2h"))):
+        raise AssertionError(f"guards cost: device work {copies}")
+    per = lambda c: c["kernels"] / (GUARD_BATCHES - 1)  # noqa: E731
+    guard_line(f"device work over {GUARD_BATCHES - 1} steps (profiler, from batch 1's fused "
+               f"kernel to batch {GUARD_BATCHES}'s): guards on {on}, sentinel/freshness/"
+               f"blackbox off {copies['host guards off']}, all off {copies['all off']}: 1 H2D "
+               f"(pinned) and 1 D2H (to pinned) copy a step either way, {per(on):g} launches "
+               f"a step with the guards on as with the host guards off; --modelWatch off "
+               f"drops the step's quality vector: {per(copies['all off']):g} launches a step")
+    guard_line("tweets/s over batches 2-8, guards on: "
+          + ", ".join(f"{r:.0f}" for r in rates["guards on"]) + "; off: "
+          + ", ".join(f"{r:.0f}" for r in rates["guards off"]))
+    return {"rates": rates, "copies": copies}
+
+
 WALL_BATCHES = 5
 WALL_ARGV = ["--backend", "cuda", "--source", "synthetic", "--seconds", "1",
              "--replaySpeed", "20000"]
@@ -796,7 +1274,7 @@ def clock_phase():
     return rec["launches"]
 
 
-# ---- phase 9: times ---------------------------------------------------------
+# ---- phase 10: times --------------------------------------------------------
 
 # ~0.1 ms of device work queued ahead of a timed call, so that its start
 # event fires only after the host has enqueued the call's launch
@@ -1146,7 +1624,7 @@ def main() -> None:
     t_start = time.perf_counter()
     smi = device_phase()
     build_phase()
-    max_err = kernel_phase()
+    max_err, kernel_cases = kernel_phase()
     # pins the featurizer's clock and the synthetic tweets' creation times:
     # the wires and backends compared below featurize identical tweets
     os.environ["TWTML_NOW_MS"] = str(NOW_MS)
@@ -1156,12 +1634,15 @@ def main() -> None:
         padded_phase(ragged_rec)
         replay_phase()
         stream = stream_phase()
+        guards = guards_phase(smi)
         clock_launches = clock_phase()
     finally:
         RECORDER.close()
     record = times_phase(smi, max_err, launches)
+    record["cases"] = kernel_cases
     record.update(launches_stream=stream["launches"], launches_clock=clock_launches,
                   stream_tweets_per_s=stream["rate"],
+                  guards_tweets_per_s=guards["rates"],
                   stream_device_idle=(stream["timeline"] or {}).get("idle"))
     import torch
 

@@ -117,6 +117,32 @@ def test_masked_rows_zeroed_defensively():
     np.testing.assert_allclose(w_dirty, w_ref, rtol=2e-3, atol=2e-3)
 
 
+@pytest.mark.parametrize("poison", ["nan_label", "inf_feature"])
+def test_nonfinite_valid_row_propagates_as_in_the_pallas_kernel(poison):
+    """A NaN label or an Inf numeric feature in a VALID row must reach the
+    weights (and an Inf feature its row's prediction) as in the JAX
+    package's kernel: the same NaN/+Inf/-Inf pattern, the finite values
+    within 2e-3 (the divergence sentinel relies on the stats turning
+    non-finite)."""
+    batch = make_batch()
+    x = dense_design(batch)
+    label = batch.label.copy()
+    if poison == "nan_label":
+        label[3] = np.nan
+    else:
+        x[5, -2] = np.inf
+    kw = dict(num_iterations=10, step_size=0.005)
+    w, preds = twin(x, label, batch.mask, **kw)
+    w_ref, preds_ref = pallas(x, label, batch.mask, **kw)
+    valid = batch.mask.astype(bool)
+    for got, want in ((w, w_ref), (preds[valid], preds_ref[valid])):
+        for test in (np.isnan, np.isposinf, np.isneginf):
+            np.testing.assert_array_equal(test(got), test(want))
+        fin = np.isfinite(want)
+        np.testing.assert_allclose(got[fin], want[fin], rtol=2e-3, atol=2e-3)
+    assert np.isnan(w).all()
+
+
 def test_empty_batch_no_update():
     batch = make_batch(n=0)
     w0 = RNG.normal(size=(F_TEXT + 4,)).astype(np.float32)

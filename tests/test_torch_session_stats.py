@@ -337,6 +337,15 @@ OBJECTS = [
     ("Metrics", dict(counters={"fetch.count": 3}, gauges={"ingest.queue_rows": 0},
                      health={"phase": "healthy", "rtt_ms": 1.5},
                      histograms={"fetch.latency_s": {"count": 3, "p50": 0.001}})),
+    ("ModelHealth", dict(level="warn", driftScore=4.25, lossTrend=0.31, weightNorm=12.5,
+                         updateNorm=0.0625, gradNorm=3.0, mse=[1.5, 2.0], episodes=2)),
+    ("ModelHealth", dict()),
+    ("Freshness", dict(batches=3, rows=6, eventLagMs=1200.5, eventLagP50Ms=1000.0,
+                       eventLagP95Ms=1500.0, eventLagP99Ms=1600.0, publishLagP95Ms=1700.0,
+                       watermarkLagMs=2000.0, watermark=[1.0, 2.0], critical="featurize",
+                       criticalTicks={"featurize": 3}, sloMs=250.0, breachRun=1,
+                       breaches=0)),
+    ("Freshness", dict()),
 ]
 
 
@@ -373,19 +382,54 @@ def test_open_registers_the_chart_with_the_dashboard():
 
 def compared(post):
     path, body = post
-    return path != "/api" or body.get("jsonClass") in ("Config", "Stats", "Series")
+    return path != "/api" or body.get("jsonClass") in (
+        "Config", "Stats", "Series", "ModelHealth", "Freshness")
+
+
+# ModelHealth's floats come from the unrounded stats and norms, which differ
+# from XLA's in the last bits (ROADMAP C): held within this tolerance
+HEALTH_RTOL = 1e-5
+HEALTH_FLOATS = ("driftScore", "lossTrend", "weightNorm", "updateNorm", "gradNorm")
+# Freshness fields read from the host's stage clock (wall time), not from
+# the pinned TWTML_NOW_MS clock
+FRESHNESS_CLOCK_FIELDS = ("critical", "criticalTicks")
+
+
+def assert_same_post(ours, theirs):
+    (path, body), (t_path, t_body) = ours, theirs
+    assert path == t_path and body.get("jsonClass") == t_body.get("jsonClass")
+    kind = body.get("jsonClass")
+    if kind == "ModelHealth":
+        assert body.keys() == t_body.keys()
+        assert (body["level"], body["episodes"], body["tenants"]) == (
+            t_body["level"], t_body["episodes"], t_body["tenants"])
+        for k in HEALTH_FLOATS:
+            np.testing.assert_allclose(body[k], t_body[k], rtol=HEALTH_RTOL, err_msg=k)
+        np.testing.assert_allclose(body["mse"], t_body["mse"], rtol=HEALTH_RTOL)
+    elif kind == "Freshness":
+        assert body.keys() == t_body.keys()
+        strip = lambda b: {k: v for k, v in b.items()  # noqa: E731
+                           if k not in FRESHNESS_CLOCK_FIELDS}
+        assert strip(body) == strip(t_body)
+    else:
+        assert body == t_body
 
 
 def test_app_posts_what_the_jax_app_posts(monkeypatch, capsys):
     """The port's app and the JAX app on the replay fixture, each pointed at
     one loopback recorder, post identical config, stats, series and
-    Lightning payloads. The metrics snapshots differ by design (each
-    package counts its own pipeline), and the JAX package's additive views
-    (model health, freshness, ...) belong to planes the port has not
-    ported."""
+    Lightning payloads, and the same model-health and freshness views:
+    ModelHealth's level, episodes and tenants equal and its floats within
+    ``HEALTH_RTOL``; Freshness equal but for its wall-clock fields. The
+    metrics snapshots differ by design (each package counts its own
+    pipeline)."""
     from twtml_tpu.apps import linear_regression as jax_app
+    from twtml_tpu.telemetry import modelwatch as jax_modelwatch
+    from twtml_tpu_torch.telemetry import modelwatch
 
     monkeypatch.setenv("TWTML_NOW_MS", "1700000000000")
+    modelwatch.reset_for_tests()
+    jax_modelwatch.reset_for_tests()
     with Recorder() as rec:
         argv = ["--source", "replay", "--replayFile", DATA, "--seconds", "0",
                 "--batchBucket", "4", "--backend", "cpu", "--lightning", rec.url,
@@ -398,8 +442,11 @@ def test_app_posts_what_the_jax_app_posts(monkeypatch, capsys):
         jax_app.run(JaxConf().parse([*argv, "--master", "local[1]"]))
         theirs = [p for p in rec.posts if compared(p)]
     capsys.readouterr()
-    assert ours == theirs
+    assert len(ours) == len(theirs)
+    for a, b in zip(ours, theirs):
+        assert_same_post(a, b)
     kinds = [body.get("jsonClass", path) for path, body in ours]
     assert kinds.count("Config") == 1
     assert kinds.count("Stats") == kinds.count("Series") == 3
+    assert kinds.count("ModelHealth") == kinds.count("Freshness") == 1
     assert kinds.count("/visualizations/v1/data/") == 3

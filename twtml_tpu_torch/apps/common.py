@@ -1,8 +1,11 @@
 """Shared app runtime, single host (counterpart of the single-host parts of
-``twtml_tpu/apps/common.py``): source and model construction, the fetch
-watchdog, the depth-D fetch pipeline of back-to-back streams, the
-synchronous per-batch path of wall-clock streams, and the pre-stream
-warm-up.
+``twtml_tpu/apps/common.py``): source and model construction, the
+``--trace``/``--chaos``/``--blackbox``/``--journal`` installers, the
+checkpoint (``AppCheckpoint``) and journal recovery, the runtime guards
+(``DivergenceSentinel``, ``ModelWatchGuard``, ``FreshnessGuard``,
+``ProcessRecycler``), the fetch watchdog, the depth-D fetch pipeline of
+back-to-back streams, the synchronous per-batch path of wall-clock streams,
+and the pre-stream warm-up.
 
 A batch's life on ``cuda``: the stream featurizes it on the host (the
 unpacked batch, whose arrays the handler reads); the pipeline packs it into
@@ -14,26 +17,50 @@ call in that dispatch waits for the card. The handler runs once the event
 has fired, on the host copies, in dispatch order; then the batch's leases
 retire (the H2D copy ran before the step on the same stream, so it is done).
 
-Checkpoints, runtime guards, the superbatch, multi-host, chaos, lineage,
-journal and trace hooks of the JAX package's runtime are not ported
-(ROADMAP A4, A5, A10).
+The guards read only what the host already holds: the sentinel the 3
+fetched stat scalars, the model watch the quality slice of the same D2H
+vector, freshness the host's clock stamps. Each delivery passes through
+wrappers in the JAX package's order, outermost first: the journal's token
+pop, freshness, model watch, the sentinel, then the journal commit and the
+app's handler. A checkpoint reads the weights (a blocking copy) only at a
+drained boundary, outside the sync-debug window of a dispatch. The
+superbatch and multi-host parts of the JAX package's runtime are not ported
+(ROADMAP A4, A10).
 """
 
 from __future__ import annotations
 
 import contextlib
+import logging
+import math
 import os
+import sys
+import tempfile
 import time
+import zlib
 
+import numpy as np
+
+from ..checkpoint import Checkpointer
 from ..features import assemble, featurize_native, native
 from ..features.arena import chain_leases, get_arena
 from ..features.batch import (
-    FeatureBatch, PackedBatch, RaggedUnitBatch, UnitBatch, pack_batch, wire_nbytes,
+    NUM_NUMBER_FEATURES, FeatureBatch, PackedBatch, RaggedUnitBatch, UnitBatch,
+    pack_batch, wire_nbytes,
 )
 from ..models.linear import StreamingLinearRegressionWithSGD
-from ..streaming.sources import ReplayFileSource, Source, SyntheticSource
+from ..streaming import faults as _faults
+from ..streaming import journal as _journal
+from ..streaming.sources import ReplayFileSource, SkipRowsSource, Source, SyntheticSource
+from ..telemetry import blackbox as _blackbox
+from ..telemetry import freshness as _freshness
+from ..telemetry import lineage as _lineage
 from ..telemetry import metrics as _metrics
+from ..telemetry import modelwatch as _modelwatch
+from ..telemetry import sideband as _sideband
+from ..telemetry import trace as _trace
 from ..utils import get_logger
+from ..utils.rss import RssWatchdog, rss_mb
 
 log = get_logger("apps.common")
 
@@ -65,11 +92,19 @@ def build_source(conf) -> Source:
     if conf.source == "replay":
         if not conf.replayFile:
             raise SystemExit("--source replay requires --replayFile <path.jsonl>")
-        return ReplayFileSource(conf.replayFile, speed=conf.replaySpeed)
-    now_env = os.environ.get("TWTML_NOW_MS", "")
-    return SyntheticSource(
-        rate=conf.replaySpeed or 0.0, base_ms=int(now_env) if now_env else None
-    )
+        source: Source = ReplayFileSource(conf.replayFile, speed=conf.replaySpeed)
+    else:
+        now_env = os.environ.get("TWTML_NOW_MS", "")
+        source = SyntheticSource(
+            rate=conf.replaySpeed or 0.0, base_ms=int(now_env) if now_env else None
+        )
+    if conf.faultEvery > 0:
+        # a crash cap keeps a finite replay from re-reading itself forever
+        source = _faults.FaultInjectingSource(
+            source, crash_every=conf.faultEvery,
+            max_crashes=3 if conf.source == "replay" else 0,
+        )
+    return source
 
 
 def build_model(conf, model_cls=StreamingLinearRegressionWithSGD):
@@ -81,6 +116,558 @@ def build_model(conf, model_cls=StreamingLinearRegressionWithSGD):
     model = model_cls.from_conf(conf)
     get_arena().use_device(model.device)
     return model
+
+
+# ---- installers of the process-wide planes ---------------------------------
+
+def install_trace(conf) -> None:
+    """``--trace PATH`` (rotated at ``--traceMaxMb``): the pipeline tracer
+    (telemetry/trace.py)."""
+    if conf.trace:
+        _trace.install(conf.trace, max_bytes=int(conf.traceMaxMb or 0) * 1024 * 1024)
+
+
+def install_chaos(conf) -> None:
+    """``--chaos SPEC``: the seeded fault injector (streaming/faults.py). A
+    run without the flag uninstalls an injector an earlier run in the same
+    process left."""
+    if not conf.chaos:
+        _faults.uninstall_chaos()
+        return
+    try:
+        _faults.install_chaos(conf.chaos)
+    except ValueError as exc:
+        raise SystemExit(f"bad --chaos spec: {exc}")
+
+
+def install_blackbox(conf) -> None:
+    """``--blackbox`` (on by default): the crash flight recorder
+    (telemetry/blackbox.py). The bundle lands next to the checkpoint
+    directory, or in the temporary directory without one; a SIGTERM dumps
+    too, where the handler can be installed (the main thread)."""
+    if conf.blackbox != "on":
+        _blackbox.uninstall()
+        return
+    ckpt_dir = conf.checkpointDir
+    out_dir = (os.path.dirname(os.path.abspath(ckpt_dir)) if ckpt_dir
+               else tempfile.gettempdir())
+    cfg = {k: v for k, v in vars(conf).items() if isinstance(v, (str, int, float, bool))}
+    _blackbox.install(config=cfg, out_dir=out_dir, process_index=0)
+    _blackbox.install_signal_handler()
+
+
+def install_journal(conf) -> None:
+    """``--journal`` (auto: on with ``--checkpointDir``): open the intake
+    journal under ``<checkpointDir>/journal``, so the seam in
+    streaming/context.py appends. Off uninstalls a journal an earlier run
+    in the same process left."""
+    if not conf.effective_journal():
+        _journal.uninstall()
+        return
+    if not conf.checkpointDir:
+        raise SystemExit("--journal on requires --checkpointDir: the replay cursor "
+                         "lives in verified checkpoint meta (use --journal auto to "
+                         "follow the checkpoint flag)")
+    _journal.install(os.path.join(conf.checkpointDir, "journal"),
+                     max_mb=int(conf.journalMaxMb or 512))
+
+
+def check_history(conf) -> None:
+    """The telemetry historian (``--history``) is not ported: when it
+    resolves on (``--checkpointDir`` with ``--history auto|on``) the run
+    stops here rather than run without it unannounced."""
+    if conf.effective_history():
+        raise NotImplementedError(
+            "--history resolves on (--checkpointDir with --history auto|on), but "
+            "the telemetry historian is not ported (ROADMAP A3, historian): pass "
+            "--history off"
+        )
+
+
+# ---- checkpoint and journal recovery ---------------------------------------
+
+def state_checksum(state) -> str:
+    """CRC of a checkpointable state (one array or a flat dict), logged at a
+    recycle's save and at restore, so the two log lines prove the restart's
+    weights bit-identical to the save."""
+    arrs = state if isinstance(state, dict) else {"state": state}
+    crc = 0
+    for key in sorted(arrs):
+        a = np.ascontiguousarray(np.asarray(arrs[key]))
+        crc = zlib.crc32(a.tobytes(), zlib.crc32(f"{key}:{a.dtype}:{a.shape}".encode(), crc))
+    return f"{crc:08x}"
+
+
+def _multi_host(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} belongs to the multi-host and elastic runtime, which is not "
+        "ported (ROADMAP A10)"
+    )
+
+
+class AppCheckpoint:
+    """``--checkpointDir``/``--checkpointEvery``, single host: restores the
+    state and the counters at start, saves on a cadence at drained
+    boundaries (``at_boundary``: the weights are current and nothing is in
+    flight, so reading them costs no hidden sync), and saves the final
+    state at shutdown. ``get_state()`` returns the checkpointable arrays,
+    ``set_state(state)`` restores them into the model.
+
+    Each save stamps into the verified archive's meta the model-watch and
+    freshness pictures and the journal's committed cursor, then retires the
+    journal segments every retained archive covers. The lead-authoritative
+    broadcast, the elastic standby archives and ``promote``/
+    ``resync_from_verified`` are multi-host (ROADMAP A10): a follower
+    (``lead=False``) and those two calls raise."""
+
+    def __init__(self, conf, get_state, set_state, totals: dict, lead: bool = True):
+        if not lead:
+            raise _multi_host("a follower host's checkpoint (lead=False)")
+        self._ckpt: "Checkpointer | None" = None
+        self._get_state = get_state
+        self._set_state = set_state
+        self.every = int(conf.checkpointEvery or 0)
+        self.restored_meta = None
+        self._last = 0
+        if not conf.checkpointDir:
+            return
+        self._ckpt = Checkpointer(conf.checkpointDir)
+        restored = self._ckpt.restore()
+        self.restored_meta = restored[1] if restored is not None else None
+        if restored is not None:
+            state, meta = restored
+            set_state(state)
+            totals["count"] = int(meta.get("count", 0))
+            totals["batches"] = int(meta.get("batches", 0))
+            log.info("resumed from checkpoint step %s (count=%s, state crc %s)",
+                     meta.get("step"), totals["count"], state_checksum(state))
+        self._last = totals["batches"]
+
+    @property
+    def directory(self) -> str:
+        return self._ckpt.directory if self._ckpt is not None else ""
+
+    def _save(self, totals: dict) -> None:
+        j = _journal.get()
+        if j is not None and not j.save_allowed:
+            # a replay is still draining: the weights hold rows past the
+            # rollback cursor the journal cannot commit yet, so a save now
+            # would double-train them on restore. _last stays: the cadence
+            # retries at the next boundary
+            log.info("checkpoint save deferred at batch %s: journal replay still "
+                     "draining (retries next boundary)", totals["batches"])
+            return
+        meta = {"count": totals["count"], "batches": totals["batches"]}
+        quality = _modelwatch.snapshot_for_checkpoint()
+        if quality is not None:
+            meta["quality"] = quality
+        fresh = _freshness.snapshot_for_checkpoint()
+        if fresh is not None:
+            meta["freshness"] = fresh
+        jstamp = _journal.snapshot_for_checkpoint()
+        if jstamp is not None:
+            meta["journal"] = jstamp
+        self._ckpt.save(totals["batches"], self._get_state(), meta)
+        self._last = totals["batches"]
+        if jstamp is not None:
+            # segments retire once EVERY retained archive covers them (a
+            # fallback restore may land on the oldest)
+            covered = ((self._ckpt.oldest_meta() or {}).get("journal") or {}).get("cursor")
+            if covered is not None:
+                j.retire_covered(int(covered))
+        _blackbox.note("last_checkpoint",
+                       {"step": totals["batches"], "count": totals["count"]})
+
+    def maybe_save(self, totals: dict, at_boundary: bool = True) -> None:
+        """The cadence save; the app's handler calls it every batch."""
+        if (self._ckpt is not None and at_boundary and self.every > 0
+                and totals["batches"] - self._last >= self.every):
+            self._save(totals)
+
+    def final_save(self, totals: dict) -> None:
+        """The shutdown save, when anything advanced past the last one."""
+        if self._ckpt is not None and totals["batches"] != self._last:
+            self._save(totals)
+
+    def save_now(self, totals: dict) -> bool:
+        """An unconditional save (a recycle, a guard's forced save); False
+        without a checkpoint directory."""
+        if self._ckpt is None:
+            return False
+        self._save(totals)
+        return True
+
+    def adopt_replay_totals(self, totals: dict, count, batches) -> None:
+        """Reset the run's counters to the rollback point whose rows a
+        journal replay re-ingests: they count again through the unchanged
+        handler, so the final ledger equals an unfailed run's."""
+        totals["count"] = int(count)
+        totals["batches"] = int(batches)
+        self._last = totals["batches"]
+
+    def rollback_to_verified(self) -> "dict | None":
+        """Restore the newest VERIFIED (checksummed, finite) archive into the
+        model: the sentinel's recovery. Returns its meta, or None when there
+        is none (no directory, or every archive corrupt or non-finite)."""
+        restored = self._ckpt.restore() if self._ckpt is not None else None
+        if restored is None:
+            return None
+        state, meta = restored
+        _blackbox.note("last_verified_rollback", {"step": meta.get("step")})
+        self._set_state(state)
+        return meta
+
+    def promote(self) -> None:
+        raise _multi_host("AppCheckpoint.promote (elastic lead election)")
+
+    def resync_from_verified(self, totals: dict) -> bool:
+        raise _multi_host("AppCheckpoint.resync_from_verified (elastic epochs)")
+
+
+def journal_replay_rollback(ssc, ckpt: AppCheckpoint, totals: dict, meta,
+                            where: str) -> "int | None":
+    """Re-ingest every journaled row after the rollback point ``meta``
+    names (None: no verified archive, the model went back to zeros, and the
+    whole journal replays from cursor 0): the rows go back to the queue
+    FRONT and the counters to the rollback point. Returns the rows
+    replayed, or None when replay is impossible (no journal, or an archive
+    without a cursor); the caller then counts the rows lost. Host only:
+    disk reads and queue putbacks."""
+    j = _journal.get()
+    if j is None:
+        return None
+    if meta is None:
+        count = batches = 0
+        stamp = {"cursor": 0, "rows": 0}
+    else:
+        count = int(meta.get("count", 0))
+        batches = int(meta.get("batches", 0))
+        stamp = meta.get("journal")
+    if stamp is None:
+        log.warning("journal: the rollback point (batches=%d) carries no journal "
+                    "cursor after %s; rows stay counted as lost, not replayed",
+                    batches, where)
+        return None
+    cursor = int(stamp["cursor"])
+    # an earlier replay still draining is superseded: its rows, parked at
+    # the queue front, are re-covered by this one and must not train twice
+    stale = j.cancel_pending_replay()
+    if stale:
+        queued = ssc._drain(0)
+        ssc._putback(queued[stale:])
+        log.warning("journal: superseded an in-progress replay: dropped %d stale "
+                    "queued row(s) the new replay from cursor %d re-covers",
+                    min(stale, len(queued)), cursor)
+    items, rows = j.replay_from(cursor)
+    ssc._putback(items)
+    ckpt.adopt_replay_totals(totals, count, batches)
+    _blackbox.record("journal_replay", where=where, rows=rows, cursor=cursor,
+                     count=count, batches=batches)
+    log.warning("journal: replayed %d row(s) from cursor %d after %s; counters "
+                "reset to (count=%d, batches=%d); recovery is replay-exact, zero "
+                "rows lost", rows, cursor, where, count, batches)
+    return rows
+
+
+def journal_boot_replay(conf, ssc, ckpt: AppCheckpoint, totals: dict) -> int:
+    """The boot half of journal recovery (a restart after a kill, an abort or
+    a recycle): every row the journal holds is either inside the restored
+    checkpoint (id < cursor) or put back here from the journal, and the
+    source fast-forwards past ALL of them (``SkipRowsSource``). Call after
+    ``AppCheckpoint`` restored and before the stream starts."""
+    j = _journal.get()
+    if j is None:
+        return 0
+    meta = ckpt.restored_meta
+    stamp = (meta or {}).get("journal")
+    if meta is not None and stamp is None:
+        log.warning("journal: the restored checkpoint carries no journal cursor; "
+                    "boot replay skipped, the source re-produces from its top")
+        return 0
+    cursor = int(stamp["cursor"]) if stamp is not None else 0
+    skip_rows = j.rows_total
+    items, rows = j.replay_from(cursor)
+    ssc._putback(items)
+    if skip_rows:
+        ssc._source = SkipRowsSource(ssc._source, skip_rows)
+    _blackbox.record("journal_replay", where="boot", rows=rows, cursor=cursor,
+                     count=int(totals.get("count", 0)),
+                     batches=int(totals.get("batches", 0)))
+    if skip_rows or rows:
+        log.warning("journal: boot resume — %d journaled row(s), %d fast-forwarded "
+                    "at the source (%d inside the restored checkpoint, %d replayed "
+                    "from cursor %d); zero rows lost, zero rows double-trained",
+                    skip_rows, skip_rows, skip_rows - rows, rows, cursor)
+    return rows
+
+
+# ---- the runtime guards ----------------------------------------------------
+
+class DivergenceSentinel:
+    """Non-finite-state guard at the model boundary (``--sentinel``, on by
+    default). A poisoned batch (a NaN label in a valid row) drives the
+    weights non-finite in one step; the sentinel sees it in the fetched
+    mse and stdevs (NaN labels reach mse and real_stdev, NaN weights the
+    predictions), three ``math.isfinite`` calls on host scalars a batch.
+
+    A non-finite delivery is skipped (its cap slot refunded), the model rolls
+    back to the last verified checkpoint (zeros without one), and the
+    journal re-ingests the rows after it; ``model.rollbacks`` counts it.
+    Batches dispatched against the poisoned weights before the rollback drain
+    as tainted skips of the SAME episode; the first finite delivery closes
+    it. ``--sentinelRollbacks`` rollbacks within ``--sentinelWindow``
+    batches abort the run through ``ssc.request_abort``."""
+
+    def __init__(self, conf, model, ckpt: AppCheckpoint, ssc, totals: "dict | None" = None):
+        self.enabled = conf.sentinel == "on"
+        self.max_rollbacks = int(conf.sentinelRollbacks or 0)
+        self.window = max(1, int(conf.sentinelWindow or 1))
+        self._model = model
+        self._ckpt = ckpt
+        self._ssc = ssc
+        # the run's counters, which a replayed rollback resets; None keeps
+        # the counted-loss path
+        self._totals = totals
+        self._replaying = False
+        self._num_features = int(conf.numTextFeatures)
+        self._tainted = False
+        self._delivered = 0
+        self._rollback_points: "list[int]" = []
+        self._pipeline = None
+        reg = _metrics.get_registry()
+        self._nonfinite_count = reg.counter("model.nonfinite_batches")
+        self._rollback_count = reg.counter("model.rollbacks")
+        self._rows_lost = reg.counter("model.rows_lost")
+        if self.enabled:
+            ssc.rollback_count_fn = lambda: len(self._rollback_points)
+
+    def bind(self, pipeline) -> None:
+        """The fetch pipeline whose ``refund_dispatch`` keeps a max-batches
+        cap exact when a batch is skipped."""
+        self._pipeline = pipeline
+
+    @property
+    def rollbacks(self) -> int:
+        return len(self._rollback_points)
+
+    @staticmethod
+    def _finite(out) -> bool:
+        return (math.isfinite(float(out.mse)) and math.isfinite(float(out.real_stdev))
+                and math.isfinite(float(out.pred_stdev)))
+
+    def admit(self, out, batch) -> bool:
+        """True: hand the batch to the app's handler; False: skipped (the
+        rollback or abort is handled here)."""
+        self._delivered += 1
+        if self._finite(out):
+            if self._tainted:
+                log.warning("divergence sentinel: finite stats resumed at delivered "
+                            "batch %d; the rollback recovered the model", self._delivered)
+                self._tainted = False
+            return True
+        self._nonfinite_count.inc()
+        rows = int(out.count)
+        if self._pipeline is not None:
+            self._pipeline.refund_dispatch()
+        if self._tainted:
+            if not self._replaying:
+                self._rows_lost.inc(rows)
+            log.warning("divergence sentinel: skipping tainted in-flight batch "
+                        "(delivered %d, %d rows)%s", self._delivered, rows,
+                        " — rows re-ingest via journal replay" if self._replaying else "")
+            return False
+        self._tainted = True
+        self._rollback()
+        if not self._replaying:
+            self._rows_lost.inc(rows)
+        return False
+
+    def _rollback(self) -> None:
+        self._rollback_count.inc()
+        self._rollback_points.append(self._delivered)
+        episode = len(self._rollback_points)
+        _trace.get().instant("sentinel_rollback", delivered=self._delivered, episode=episode)
+        _blackbox.record("sentinel_rollback", delivered=self._delivered, episode=episode)
+        meta = self._ckpt.rollback_to_verified()
+        replayed = None
+        trained = self._totals["batches"] if self._totals is not None else 0
+        if self._totals is not None:
+            replayed = journal_replay_rollback(self._ssc, self._ckpt, self._totals, meta,
+                                               where="sentinel rollback")
+        self._replaying = replayed is not None
+        if self._replaying and self._pipeline is not None:
+            # a batch already featurized but not yet dispatched is replayed,
+            # and so are the batches trained since the rollback point
+            self._pipeline.note_replay(trained - self._totals["batches"])
+        if meta is not None:
+            log.error("divergence sentinel: NON-FINITE model state at delivered batch "
+                      "%d — rolled back to verified checkpoint step %s and skipping "
+                      "the poisoning batch (rollback #%d)", self._delivered,
+                      meta.get("step", "?"), episode)
+        else:
+            # nothing to roll back to: the reference's initial zeros; progress
+            # is lost, the stream keeps training
+            self._model.set_initial_weights(
+                np.zeros((self._num_features + NUM_NUMBER_FEATURES,), np.float32))
+            log.error("divergence sentinel: NON-FINITE model state at delivered batch "
+                      "%d and no verified checkpoint — model RESET to initial zeros "
+                      "(rollback #%d); add --checkpointDir to preserve progress across "
+                      "rollbacks", self._delivered, episode)
+        in_window = [p for p in self._rollback_points if self._delivered - p < self.window]
+        if self.max_rollbacks and len(in_window) >= self.max_rollbacks:
+            _metrics.get_registry().counter("model.sentinel_aborts").inc()
+            _blackbox.record("sentinel_abort", rollbacks=len(in_window), window=self.window)
+            log.critical("divergence sentinel: %d rollbacks within %d batches — the "
+                         "stream keeps poisoning the model; aborting the run cleanly "
+                         "(the shutdown saves a final checkpoint and the run fails)",
+                         len(in_window), self.window)
+            self._ssc.request_abort("divergence sentinel rollback budget")
+
+
+class ModelWatchGuard:
+    """``--modelWatch`` delivery adapter: feeds the model watcher
+    (telemetry/modelwatch.py) from the quality vector the fetch already
+    brought, and, when the watcher holds ``alert`` for
+    ``--modelWatchWindow`` delivered batches, records a flight-recorder
+    event and forces ONE verified checkpoint an episode (warn-only)."""
+
+    def __init__(self, conf, ckpt: "AppCheckpoint | None", totals: dict):
+        self.enabled = conf.modelWatch == "on"
+        self.window = max(1, int(conf.modelWatchWindow or 1))
+        self._ckpt = ckpt
+        self._totals = totals
+        self._saved_episode = False
+        self._alert_saves = _metrics.get_registry().counter("model.alert_checkpoints")
+
+    def observe(self, out, at_boundary: bool = True) -> None:
+        if not self.enabled or getattr(out, "quality", None) is None:
+            return
+        counts = np.atleast_1d(np.asarray(out.count, np.float64))
+        if float(counts.sum()) <= 0:
+            return  # an all-padding batch carries no data
+        verdict = _modelwatch.record_tick(np.asarray(out.quality, np.float64), counts,
+                                          np.asarray(out.mse, np.float64))
+        if verdict["level"] != "alert":
+            self._saved_episode = False
+            return
+        if verdict["alert_run"] >= self.window and not self._saved_episode and at_boundary:
+            self._saved_episode = True
+            self._alert_saves.inc()
+            _blackbox.record("modelwatch_alert_checkpoint",
+                             batches=self._totals.get("batches", 0),
+                             drift=round(verdict["drift_score"], 3),
+                             trend=round(verdict["loss_trend"], 4))
+            saved = self._ckpt.save_now(self._totals) if self._ckpt is not None else False
+            log.warning("model watch: ALERT held for %d batches (drift z=%.2f, loss trend "
+                        "%+.1f%%) — %s (early warning only; training continues, the "
+                        "sentinel still owns rollback)", verdict["alert_run"],
+                        verdict["drift_score"], verdict["loss_trend"] * 100.0,
+                        "forced a verified-checkpoint save" if saved else
+                        "no checkpoint dir configured, evidence recorded to the flight "
+                        "recorder only")
+
+
+class FreshnessGuard:
+    """``--freshness`` delivery adapter: pops the batch's lineage record
+    (telemetry/freshness.py) and, on a sustained ``--freshnessSloMs``
+    breach, forces ONE verified checkpoint an episode (warn-only). Wired
+    outside the sentinel, so every delivery (a skipped one too) pops its
+    record and the dispatch-ordered FIFO stays aligned."""
+
+    def __init__(self, conf, ckpt: "AppCheckpoint | None" = None,
+                 totals: "dict | None" = None):
+        self.enabled = conf.freshness == "on"
+        self._ckpt = ckpt
+        self._totals = totals if totals is not None else {}
+        self._saved_episode = False
+        self._slo_saves = _metrics.get_registry().counter("freshness.slo_checkpoints")
+
+    def observe(self, out, at_boundary: bool = True) -> None:
+        if not self.enabled:
+            return
+        verdict = _freshness.record_delivery()
+        if verdict is None:
+            return
+        if not verdict["breach"]:
+            self._saved_episode = False
+            return
+        if verdict["in_episode"] and not self._saved_episode and at_boundary:
+            self._saved_episode = True
+            self._slo_saves.inc()
+            saved = self._ckpt.save_now(self._totals) if self._ckpt is not None else False
+            log.warning("freshness guard: event lag %.0f ms over SLO for %d batches "
+                        "(critical edge: %s) — %s (warn-only; training continues, the "
+                        "sentinel still owns rollback)", verdict["event_lag_ms"],
+                        verdict["breach_run"], verdict["critical"] or "?",
+                        "forced a verified-checkpoint save" if saved else
+                        "no checkpoint dir configured, evidence recorded to the flight "
+                        "recorder only")
+
+
+class ProcessRecycler:
+    """``--recycleAfterMb``: bounded process lifetime. Once RSS crosses the
+    ceiling, the next drained boundary checkpoints and re-execs the process
+    in place (``os.execv``: same interpreter, argv and environment); the
+    restart restores the archive and the journal's boot replay resumes the
+    stream exactly. Needs ``--checkpointDir``. ``TWTML_RECYCLE_MAX`` caps
+    the recycles of a process lineage (counted in ``TWTML_RECYCLES`` across
+    execs); ``TWTML_RECYCLE_SAMPLE_EVERY`` samples every Nth boundary."""
+
+    def __init__(self, conf, ckpt: AppCheckpoint, totals: dict, sample_every: int = 1):
+        self.threshold = float(conf.recycleAfterMb or 0)
+        self._ticks = 0
+        self._sample_every = max(1, int(os.environ.get("TWTML_RECYCLE_SAMPLE_EVERY",
+                                                       sample_every)))
+        if self.threshold <= 0:
+            return
+        if not conf.checkpointDir:
+            raise SystemExit("--recycleAfterMb needs --checkpointDir (a recycle is "
+                             "checkpoint + re-exec; without a checkpoint the restart "
+                             "would train from zeros)")
+        self._ckpt = ckpt
+        self._totals = totals
+        self._lineage = int(os.environ.get("TWTML_RECYCLES", "0") or 0)
+        self._max = int(os.environ.get("TWTML_RECYCLE_MAX", "0") or 0)
+        self._capped_warned = False
+
+    def check(self, at_boundary: bool = True) -> None:
+        """Every batch, after the cadence save; only a drained boundary may
+        recycle (the snapshot must hold this batch)."""
+        if self.threshold <= 0 or not at_boundary:
+            return
+        self._ticks += 1
+        if self._ticks % self._sample_every:
+            return
+        cur = rss_mb()
+        if cur < self.threshold:
+            return
+        if self._max and self._lineage >= self._max:
+            if not self._capped_warned:
+                self._capped_warned = True
+                log.warning("RSS %.0f MB over the --recycleAfterMb ceiling but "
+                            "TWTML_RECYCLE_MAX=%d reached; running on", cur, self._max)
+            return
+        self._recycle(cur)
+
+    def _recycle(self, cur_mb: float) -> None:
+        self._ckpt.save_now(self._totals)
+        main = sys.modules.get("__main__")
+        spec = getattr(main, "__spec__", None)
+        if spec is not None and spec.name:
+            argv = [sys.executable, "-m", spec.name] + sys.argv[1:]
+        else:
+            argv = [sys.executable] + sys.argv
+        log.warning("process RSS %.0f MB crossed --recycleAfterMb %.0f: checkpointed at "
+                    "batch %d (count=%d, state crc %s) and re-exec'ing (recycle #%d of "
+                    "this lineage). Resume is exact.", cur_mb, self.threshold,
+                    self._totals["batches"], self._totals["count"],
+                    state_checksum(self._ckpt._get_state()), self._lineage + 1)
+        os.environ["TWTML_RECYCLES"] = str(self._lineage + 1)
+        for handler in logging.getLogger().handlers:
+            handler.flush()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os.execv(sys.executable, argv)
 
 
 class FetchWatchdog:
@@ -146,6 +733,7 @@ class FetchWatchdog:
         while True:
             deadline = self.deadline()
             try:
+                _faults.perturb("fetch")  # --chaos: inside the watched wait
                 if self._ready_within(pending, deadline):
                     return pending.result()
                 why = f"made no progress within its {deadline:.3g}s deadline"
@@ -155,6 +743,8 @@ class FetchWatchdog:
             if attempts > self.retries:
                 self.aborted = True
                 self._abort_count.inc()
+                _trace.get().instant("fetch_abort", attempts=attempts)
+                _blackbox.record("fetch_abort", attempts=attempts, why=why)
                 log.critical(
                     "stats fetch %s after %d attempt(s); aborting the run "
                     "(FetchWatchdog)", why, attempts,
@@ -163,6 +753,7 @@ class FetchWatchdog:
                     self._abort()
                 raise FetchAbort(f"fetch {why} after {attempts} attempts")
             self._retry_count.inc()
+            _blackbox.record("fetch_retry", attempt=attempts, why=why)
             log.warning(
                 "stats fetch %s; re-issuing (retry %d/%d: the device output "
                 "is still resident, a fresh copy reads the same bytes)",
@@ -218,16 +809,26 @@ _WIRE_TYPES = (PackedBatch, RaggedUnitBatch, UnitBatch, FeatureBatch)
 
 def _dispatch(model, batch, pack: bool, fetch, sync_debug: str, stamp: dict):
     """Pack (the ragged wire), step and start the fetch of one host batch,
-    timing each part into ``stamp``; returns (pending fetch, device output,
-    the batch's leases). On cuda the step's device time is bracketed by two
-    events, read at delivery (``_finish_stamp``)."""
+    timing each part into ``stamp``, the stage clock (``wire_pack``,
+    ``dispatch``) and the trace; the batch's lineage record goes in flight.
+    Returns (pending fetch, device output, the batch's leases). On cuda the
+    step's device time is bracketed by two events, read at delivery
+    (``_finish_stamp``)."""
     device = getattr(model, "device", None)
     events = None
+    tr = _trace.get()
     with _sync_debug(model, sync_debug):
         packs = native.COUNTERS["packs_native"]
         t0 = time.perf_counter()
-        wire = pack_batch(batch) if pack else batch
+        if pack:
+            with tr.span("wire_pack", mode="single") as sp:
+                wire = pack_batch(batch)
+                if tr.enabled:
+                    sp.add(wire_bytes=wire_nbytes(wire))
+        else:
+            wire = batch
         t1 = time.perf_counter()
+        _faults.perturb("step")  # --chaos: inside the dispatch window
         if device is not None and device.type == "cuda":
             import torch
 
@@ -239,6 +840,12 @@ def _dispatch(model, batch, pack: bool, fetch, sync_debug: str, stamp: dict):
         t2 = time.perf_counter()
         pending = fetch(out)
         t3 = time.perf_counter()
+    if pack:
+        _sideband.record_stage("wire_pack", t1 - t0)
+    _sideband.record_stage("dispatch", t3 - t1)
+    _lineage.mark_dispatch()
+    if tr.enabled:
+        tr.complete("dispatch", t1, t3 - t1, depth=stamp.get("depth", 0))
     stamp.update(
         pack_ms=(t1 - t0) * 1e3, step_host_ms=(t2 - t1) * 1e3,
         dispatch_ms=(t3 - t1) * 1e3, step_events=events,
@@ -249,10 +856,40 @@ def _dispatch(model, batch, pack: bool, fetch, sync_debug: str, stamp: dict):
                                        getattr(batch, "lease", None))
 
 
-def _finish_stamp(stamp: dict, fetch_wait_s: float) -> None:
-    """Delivery-time fields: the fetch wait and the step's time (CUDA
-    events on cuda, both complete once the fetch is; the host clock of the
+def _drop_undispatched(batch, why: str) -> None:
+    """A batch that crossed the intake seam will not dispatch: its lineage
+    record and journal token (the newest of each: the scheduler is one
+    thread) go with it, so later deliveries pair with their own, and its
+    leases are closed."""
+    log.info("batch of %d rows not dispatched: %s", batch.num_valid, why)
+    _lineage.drop_newest()
+    j = _journal.get()
+    if j is not None:
+        j.drop_newest()
+    lease = getattr(batch, "lease", None)
+    if lease is not None:
+        lease.discard()
+
+
+def _guarded_dispatch(model, batch, pack, fetch, sync_debug, stamp):
+    """``_dispatch``; a dispatch that raises (the context logs and skips
+    the batch) first drops the batch's lineage record and journal token."""
+    try:
+        return _dispatch(model, batch, pack, fetch, sync_debug, stamp)
+    except Exception:
+        _drop_undispatched(batch, "its dispatch raised")
+        raise
+
+
+def _finish_stamp(stamp: dict, t0: float, fetch_wait_s: float, depth: int) -> None:
+    """Delivery-time fields: the fetch wait (also the ``fetch`` stage of
+    the stage clock and the trace) and the step's time (CUDA events on
+    cuda, both complete once the fetch is; the host clock of the
     synchronous step on the CPU)."""
+    _sideband.record_stage("fetch", fetch_wait_s)
+    tr = _trace.get()
+    if tr.enabled:
+        tr.complete("fetch", t0, fetch_wait_s, depth=depth)
     stamp["fetch_wait_ms"] = fetch_wait_s * 1e3
     events = stamp.pop("step_events", None)
     stamp["step_ms"] = (
@@ -311,6 +948,8 @@ class FetchPipeline:
         # make it pass a point twice or skip one
         self._cadence = 0
         self._last_boundary = 0
+        # journal replays a delivery started (note_replay)
+        self._replays = 0
 
     def _emit_one(self) -> None:
         pending, out, batch, t, lease, stamp = self._pending.pop(0)
@@ -327,7 +966,7 @@ class FetchPipeline:
         self._fetch_count.inc()
         self._fetch_hist.observe(dt)
         self._health.observe(dt)
-        _finish_stamp(stamp, dt)
+        _finish_stamp(stamp, t0, dt, self.depth)
         self.handle(host, batch, t, at_boundary=not self._pending, stamp=stamp)
         if lease is not None:
             lease.retire()
@@ -347,15 +986,21 @@ class FetchPipeline:
             # delivered now, or the handler-side stop never fires
             self._drain()
             return
+        replays = self._replays
         while len(self._pending) >= self.depth or (
             self._pending and self._pending[0][0].done()
         ):
             self._emit_one()
             if stop is not None and stop():
                 return  # the cap landed on an emitted batch: no dispatch
+        if self._replays != replays:
+            # the batch crossed the journal's seam before a rollback one of
+            # these emits made: its rows are among the replayed ones
+            _drop_undispatched(batch, "it re-ingests with the journal's replay")
+            return
         stamp = dict(self._stamp()) if self._stamp is not None else {}
         stamp["depth"] = len(self._pending)
-        pending, out, lease = _dispatch(
+        pending, out, lease = _guarded_dispatch(
             self.model, batch, self.pack, self._fetch, self.sync_debug, stamp
         )
         self._pending.append((pending, out, batch, t, lease, stamp))
@@ -367,6 +1012,15 @@ class FetchPipeline:
         ):
             self._drain()
             self._last_boundary = self._cadence
+
+    def note_replay(self, rolled_back: int = 0) -> None:
+        """A delivery rolled the model back and the journal put every row
+        from the rollback point back at the queue front (the sentinel calls
+        this). The ``rolled_back`` batches that had trained since the
+        rollback point train again from the replay: their ``max_dispatch``
+        slots are given back, so a capped run still trains its cap."""
+        self._replays += 1
+        self._dispatched -= rolled_back
 
     def refund_dispatch(self) -> None:
         """Give back one ``max_dispatch`` slot (a handler that skips a
@@ -390,34 +1044,98 @@ class FetchPipeline:
 
 def attach_super_batcher(conf, stream, model, handle, stop_requested=None,
                          max_dispatch: int = 0, abort=None,
-                         fetch_depth: int = FETCH_DEPTH, stamp=None):
+                         fetch_depth: int = FETCH_DEPTH, stamp=None, sentinel=None,
+                         modelwatch=None, freshness=None):
     """Wire the app's ``handle(host, batch, t, at_boundary, stamp)`` to the
     stream (the K = 1 part of the JAX package's function: no superbatch) and
     return the ``flush`` the app calls after the stream terminated.
 
-    Back to back (``--seconds 0``): a ``FetchPipeline`` of ``fetch_depth``.
-    Under a wall clock: one synchronous fetch a batch, so each interval's
-    stats reach the dashboard in that interval. Either way the ragged wire
-    is packed at dispatch, and a batch with no valid row is skipped before
-    the step (its host mask is read, never a device tensor)."""
+    Each delivery passes the JAX package's wrappers, outermost first: the
+    journal's dispatch-token pop (every delivery pops, a skipped one too),
+    ``freshness`` (every delivery pops its lineage record), ``modelwatch``,
+    the ``sentinel``'s gate (a non-finite batch stops here), then the RSS
+    watchdog's tick and the journal's commit of the popped token (only
+    admitted batches), then ``handle``.
+
+    Back to back (``--seconds 0``): a ``FetchPipeline`` of ``fetch_depth``,
+    which drains every ``--checkpointEvery`` dispatches when a checkpoint
+    directory is set (a save reads current weights), or every 64 under
+    ``--recycleAfterMb`` alone. Under a wall clock: one synchronous fetch a
+    batch, so each interval's stats reach the dashboard in that interval.
+    Either way the ragged wire is packed at dispatch, and a batch with no
+    valid row is skipped before the step (its host mask is read, never a
+    device tensor), its lineage record and journal token dropped with it."""
     pack = bool(getattr(stream, "ragged", False))
     sync_debug = os.environ.get(SYNC_DEBUG_ENV, "")
+    watchdog = RssWatchdog()
+    app_handle = handle
+
+    def handle(host, batch, t, at_boundary=True, stamp=None):  # noqa: F811
+        watchdog.tick()
+        j = _journal.get()
+        if j is not None:
+            # innermost: only admitted batches commit their token, before
+            # the app's handler, whose save must stamp a cursor covering
+            # this batch
+            j.note_delivered()
+        app_handle(host, batch, t, at_boundary=at_boundary, stamp=stamp)
+
+    if sentinel is not None and sentinel.enabled:
+        sentinel_inner = handle
+
+        def handle(host, batch, t, at_boundary=True, stamp=None):  # noqa: F811
+            if sentinel.admit(host, batch):
+                sentinel_inner(host, batch, t, at_boundary=at_boundary, stamp=stamp)
+
+    if modelwatch is not None and modelwatch.enabled:
+        watch_inner = handle
+
+        def handle(host, batch, t, at_boundary=True, stamp=None):  # noqa: F811
+            modelwatch.observe(host, at_boundary=at_boundary)
+            watch_inner(host, batch, t, at_boundary=at_boundary, stamp=stamp)
+
+    if freshness is not None and freshness.enabled:
+        fresh_inner = handle
+
+        def handle(host, batch, t, at_boundary=True, stamp=None):  # noqa: F811
+            freshness.observe(host, at_boundary=at_boundary)
+            fresh_inner(host, batch, t, at_boundary=at_boundary, stamp=stamp)
+
+    if _journal.get() is not None:
+        pop_inner = handle
+
+        def handle(host, batch, t, at_boundary=True, stamp=None):  # noqa: F811
+            j = _journal.get()
+            if j is not None:
+                j.pop_dispatch()
+            pop_inner(host, batch, t, at_boundary=at_boundary, stamp=stamp)
 
     def skip_empty(fn):
         def cb(batch, t):
             if batch.num_valid == 0:
                 log.debug("batch: 0")
+                _lineage.drop_newest()  # the shed batch never dispatches
+                j = _journal.get()
+                if j is not None:
+                    j.drop_newest()
                 return
             fn(batch, t)
 
         return cb
 
+    # drains exist for checkpoint saves (and the recycler's check) only
+    boundary_every = int(conf.checkpointEvery or 0) if conf.checkpointDir else 0
+    if int(conf.recycleAfterMb or 0) > 0 and not boundary_every:
+        boundary_every = 64
+
     if conf.seconds <= 0:
         pipe = FetchPipeline(
             model, handle, depth=fetch_depth, stop_requested=stop_requested,
-            max_dispatch=max_dispatch, pack=pack, abort=abort, stamp=stamp,
-            sync_debug=sync_debug,
+            boundary_every=boundary_every, max_dispatch=max_dispatch, pack=pack,
+            abort=abort, stamp=stamp, sync_debug=sync_debug,
         )
+        if sentinel is not None:
+            sentinel.bind(pipe)  # a skipped batch refunds its cap slot
         stream.foreach_batch(skip_empty(pipe.on_batch))
         return pipe.flush
 
@@ -428,15 +1146,16 @@ def attach_super_batcher(conf, stream, model, handle, stop_requested=None,
         # wall clock: ONE synchronous host fetch of the whole StepOutput
         st = dict(stamp()) if stamp is not None else {}
         st["depth"] = 0
-        pending, _out, lease = _dispatch(model, batch, pack, fetch, sync_debug, st)
+        pending, _out, lease = _guarded_dispatch(model, batch, pack, fetch, sync_debug, st)
         t0 = time.perf_counter()
+        _faults.perturb("fetch")
         pending.wait()
         host = pending.result()
         dt = time.perf_counter() - t0
         reg.counter("fetch.count").inc()
         reg.histogram("fetch.latency_s").observe(dt)
         _metrics.get_health_monitor().observe(dt)
-        _finish_stamp(st, dt)
+        _finish_stamp(st, t0, dt, 1)
         handle(host, batch, t, at_boundary=True, stamp=st)
         if lease is not None:
             lease.retire()  # after the handler, which reads the host arrays

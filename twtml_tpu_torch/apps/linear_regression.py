@@ -9,9 +9,15 @@ back: each batch is the next ``--batchBucket`` tweets, on the ragged packed
 wire by default, with up to 8 batches in flight (apps/common.py
 ``FetchPipeline``). ``--seconds N > 0`` batches whatever arrived in each
 N-second interval, on the padded wire by default, one synchronous fetch a
-batch. The step is built and warmed before the stream starts. Checkpoints,
-runtime guards, the journal, the historian and multi-host are not ported
-(ROADMAP A5, A10).
+batch. The step is built and warmed before the stream starts.
+
+The runtime guards are wired as in the JAX app: the tracer (``--trace``),
+the fault injector (``--chaos``), the flight recorder (``--blackbox``, on
+by default) and, with ``--checkpointDir``, the intake journal; the
+checkpoint restores, the journal's boot replay resumes, the recycler
+(``--recycleAfterMb``) watches RSS; every delivery passes the divergence
+sentinel, the model watch and the freshness plane (all on by default). The
+telemetry historian and multi-host are not ported (ROADMAP A3, A10).
 
 Run: ``python -m twtml_tpu_torch.apps.linear_regression --backend cpu \
       --source replay --replayFile tests/data/tweets.jsonl --seconds 0 \
@@ -28,14 +34,28 @@ import numpy as np
 
 from ..config import ConfArguments
 from ..features.featurizer import Featurizer
+from ..streaming import journal as _journal
 from ..streaming.context import StreamingContext
+from ..telemetry import freshness as _freshness
+from ..telemetry import trace as _trace
 from ..telemetry.session_stats import SessionStats
 from ..utils import get_logger, round_half_up
 from .common import (
     FETCH_DEPTH,
+    AppCheckpoint,
+    DivergenceSentinel,
+    FreshnessGuard,
+    ModelWatchGuard,
+    ProcessRecycler,
     attach_super_batcher,
     build_model,
     build_source,
+    check_history,
+    install_blackbox,
+    install_chaos,
+    install_journal,
+    install_trace,
+    journal_boot_replay,
     warmup_compile,
 )
 
@@ -55,7 +75,10 @@ def run(conf: ConfArguments, max_batches: int = 0, fetch_depth: int = FETCH_DEPT
     publish ms, when its featurize started and when it was delivered
     (``time.perf_counter()``), and its wire: name, bytes, native fill and
     pack.
-    ``fetch_depth`` sets the back-to-back stream's batches in flight."""
+    ``fetch_depth`` sets the back-to-back stream's batches in flight.
+    A run a runtime guard aborted (the fetch watchdog, the sentinel's
+    rollback budget) raises after its shutdown saved the final checkpoint."""
+    check_history(conf)
     # the model first: without a card the default --backend cuda fails here,
     # before anything is published
     model = build_model(conf)
@@ -63,6 +86,10 @@ def run(conf: ConfArguments, max_batches: int = 0, fetch_depth: int = FETCH_DEPT
     session = SessionStats(conf).open()
     featurizer = Featurizer.from_conf(conf)
     wire = conf.effective_wire()
+    install_trace(conf)
+    install_chaos(conf)
+    install_blackbox(conf)
+    install_journal(conf)
 
     log.info("Initializing streaming context... %s sec/batch", conf.seconds)
     ssc = StreamingContext(
@@ -76,6 +103,15 @@ def run(conf: ConfArguments, max_batches: int = 0, fetch_depth: int = FETCH_DEPT
         token_bucket=conf.tokenBucket, ragged=wire == "ragged",
     )
     totals = {"count": 0, "batches": 0, "steps": []}
+    # the checkpoint's state is the one f32 weight vector (key "w")
+    ckpt = AppCheckpoint(conf, get_state=lambda: model.latest_weights,
+                         set_state=model.set_initial_weights, totals=totals)
+    journal_boot_replay(conf, ssc, ckpt, totals)
+    recycler = ProcessRecycler(conf, ckpt, totals)
+    sentinel = DivergenceSentinel(conf, model, ckpt, ssc, totals=totals)
+    modelwatch = ModelWatchGuard(conf, ckpt, totals)
+    _freshness.configure(conf)
+    freshness = FreshnessGuard(conf, ckpt, totals)
 
     def handle(out, batch, _batch_time, at_boundary=True, stamp=None) -> None:
         delivered_s = time.perf_counter()
@@ -110,16 +146,22 @@ def run(conf: ConfArguments, max_batches: int = 0, fetch_depth: int = FETCH_DEPT
             delivered_s=delivered_s,
             wire=wire,
         ))
+        ckpt.maybe_save(totals, at_boundary)
+        recycler.check(at_boundary)
         if max_batches and totals["batches"] >= max_batches:
             ssc.request_stop()
 
     flush = attach_super_batcher(
         conf, stream, model, handle,
         stop_requested=lambda: ssc.stop_requested,
-        max_dispatch=max_batches,
+        # a resumed run trains up to the cap, counting the restored batches
+        max_dispatch=max(1, max_batches - totals["batches"]) if max_batches else 0,
         abort=ssc.request_abort,  # fetch-watchdog aborts fail the run loudly
         fetch_depth=fetch_depth,
         stamp=lambda: stream.last_featurize,
+        sentinel=sentinel,
+        modelwatch=modelwatch,
+        freshness=freshness,
     )
 
     warmup_compile(stream, model)
@@ -136,10 +178,17 @@ def run(conf: ConfArguments, max_batches: int = 0, fetch_depth: int = FETCH_DEPT
         flush()  # deliver what is still in flight
         totals["stream_seconds"] = time.perf_counter() - t_stream
         session.publish_metrics()  # the dashboard's panel ends current
+        _trace.uninstall()
+        ckpt.final_save(totals)
+        # after the final save, which stamps the journal's cursor; a later
+        # run() in this process starts without it
+        _journal.uninstall()
     if ssc.failed:
         raise RuntimeError(
-            "run aborted: a fetch watchdog abort or a scheduler failure "
-            "(see the critical log above)"
+            "run aborted by a runtime guard: a fetch watchdog abort, the "
+            "divergence sentinel's rollback budget or a scheduler failure "
+            "(see the critical log above); progress up to the failure is "
+            "checkpointed"
         )
     return totals
 

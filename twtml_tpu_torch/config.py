@@ -82,6 +82,23 @@ class ConfArguments:
         self.webTimeout: float = float(conf["webTimeout"])
         self.maxQueueRows: int = int(conf["maxQueueRows"])
         self.shedPolicy: str = conf["shedPolicy"]
+        self.checkpointDir: str = conf["checkpointDir"]
+        self.checkpointEvery: int = int(conf["checkpointEvery"])
+        self.journal: str = conf["journal"]
+        self.journalMaxMb: int = int(conf["journalMaxMb"])
+        self.history: str = conf["history"]
+        self.trace: str = conf["trace"]
+        self.traceMaxMb: int = int(conf["traceMaxMb"])
+        self.blackbox: str = conf["blackbox"]
+        self.faultEvery: int = int(conf["faultEvery"])
+        self.chaos: str = conf["chaos"]
+        self.recycleAfterMb: int = int(conf["recycleAfterMb"])
+        self.sentinel: str = conf["sentinel"]
+        self.sentinelRollbacks: int = int(conf["sentinelRollbacks"])
+        self.sentinelWindow: int = int(conf["sentinelWindow"])
+        self.modelWatchWindow: int = int(conf["modelWatchWindow"])
+        self.freshness: str = conf["freshness"]
+        self.freshnessSloMs: float = float(conf["freshnessSloMs"])
 
     def setAppName(self, name: str) -> "ConfArguments":
         self.appName = name
@@ -132,6 +149,45 @@ class ConfArguments:
                                                -1 = unbounded. Default: {self.maxQueueRows}
   --shedPolicy <block|shed-oldest>             When the intake queue is full: block the source,
                                                or drop the oldest queued rows. Default: {self.shedPolicy}
+  --checkpointDir <path>                       Checkpoint/resume: verified .npz archives (CRC, finite
+                                               check, quarantine), restored at start, the sentinel's
+                                               rollback target; the JAX package's archive format.
+  --checkpointEvery <int batches>              Checkpoint cadence (each save drains the fetch
+                                               pipeline). Default: {self.checkpointEvery}
+  --journal <auto|on|off>                      Durable intake journal: CRC-framed raw rows at the
+                                               intake seam, replayed after a rollback or a restart
+                                               instead of lost; auto = on iff --checkpointDir.
+                                               Default: {self.journal}
+  --journalMaxMb <int MB>                      Journal disk ceiling. Default: {self.journalMaxMb}
+  --history <auto|on|off>                      Telemetry historian: not ported; auto resolves on
+                                               with --checkpointDir and then stops the run, so
+                                               pass --history off. Default: {self.history}
+  --trace <path.trace>                         Chrome-trace-event pipeline trace (Perfetto).
+  --traceMaxMb <int MB>                        Rotate the --trace file at this size; 0 = never.
+                                               Default: {self.traceMaxMb}
+  --blackbox <on|off>                          Crash flight recorder: a ring of recent events,
+                                               dumped as one post-mortem bundle on an abort or
+                                               SIGTERM. Default: {self.blackbox}
+  --faultEvery <int tweets>                    Inject a source crash every N tweets. Default: {self.faultEvery}
+  --chaos <spec>                               Seeded fault injection: TARGET[:ACTION][@TRIGGER]
+                                               clauses over fetch|step|web (delay=S, stall=S,
+                                               error) and source.nan|source.burst[:rows=N]|
+                                               source.garbage; TRIGGER N, pP or fromN; seed=N.
+  --recycleAfterMb <int MB>                    Checkpoint and re-exec in place once RSS crosses
+                                               this (needs --checkpointDir); 0 = off.
+                                               Default: {self.recycleAfterMb}
+  --sentinel <on|off>                          Divergence sentinel: a non-finite batch is skipped
+                                               and the model rolls back to the last verified
+                                               checkpoint (zeros without one). Default: {self.sentinel}
+  --sentinelRollbacks <int>                    Abort after this many rollbacks within
+                                               --sentinelWindow batches; 0 = never. Default: {self.sentinelRollbacks}
+  --sentinelWindow <int batches>               Default: {self.sentinelWindow}
+  --modelWatchWindow <int batches>             Force one verified checkpoint after the model watch
+                                               holds 'alert' this long. Default: {self.modelWatchWindow}
+  --freshness <on|off>                         Event-time lag, watermark and critical edge of every
+                                               batch from its lineage. Default: {self.freshness}
+  --freshnessSloMs <float ms>                  Warn-only freshness SLO (forces one checkpoint an
+                                               episode); 0 = none. Default: {self.freshnessSloMs}
   -h, --help
 """
 
@@ -176,6 +232,23 @@ class ConfArguments:
             "--webTimeout": ("webTimeout", float),
             "--maxQueueRows": ("maxQueueRows", int),
             "--shedPolicy": ("shedPolicy", str),
+            "--checkpointDir": ("checkpointDir", str),
+            "--checkpointEvery": ("checkpointEvery", int),
+            "--journal": ("journal", str),
+            "--journalMaxMb": ("journalMaxMb", int),
+            "--history": ("history", str),
+            "--trace": ("trace", str),
+            "--traceMaxMb": ("traceMaxMb", int),
+            "--blackbox": ("blackbox", str),
+            "--faultEvery": ("faultEvery", int),
+            "--chaos": ("chaos", str),
+            "--recycleAfterMb": ("recycleAfterMb", int),
+            "--sentinel": ("sentinel", str),
+            "--sentinelRollbacks": ("sentinelRollbacks", int),
+            "--sentinelWindow": ("sentinelWindow", int),
+            "--modelWatchWindow": ("modelWatchWindow", int),
+            "--freshness": ("freshness", str),
+            "--freshnessSloMs": ("freshnessSloMs", float),
         }
         i = 0
         while i < len(args):
@@ -201,6 +274,13 @@ class ConfArguments:
             or self.featurizeNative not in MODES
             or self.wireAssemble not in MODES
             or self.shedPolicy not in SHED_POLICIES
+            or self.journal not in MODES
+            or self.journalMaxMb <= 0
+            or self.history not in MODES
+            or self.blackbox not in ("on", "off")
+            or self.sentinel not in ("on", "off")
+            or self.freshness not in ("on", "off")
+            or self.freshnessSloMs < 0
         ):
             self.printUsage(1)
         return self
@@ -214,6 +294,22 @@ class ConfArguments:
         if self.wire != "auto":
             return self.wire
         return "padded" if self.seconds > 0 else "ragged"
+
+    def effective_journal(self) -> bool:
+        """Resolve ``--journal auto`` by the JAX package's rule: on exactly
+        when ``--checkpointDir`` is set (the replay cursor lives in verified
+        checkpoint meta). Explicit ``on``/``off`` wins; ``on`` without a
+        checkpoint directory is refused where the journal is installed."""
+        if self.journal != "auto":
+            return self.journal == "on"
+        return bool(self.checkpointDir)
+
+    def effective_history(self) -> bool:
+        """Resolve ``--history auto`` by the same rule. The historian is not
+        ported: the app raises when this resolves on."""
+        if self.history != "auto":
+            return self.history == "on"
+        return bool(self.checkpointDir)
 
     def effective_max_queue_rows(self) -> int:
         """Resolve ``--maxQueueRows``: explicit > 0 wins; 0 sizes the bound

@@ -313,13 +313,23 @@ class StreamingSGDModel:
         return cls(**kwargs)
 
     def set_initial_weights(self, weights) -> "StreamingSGDModel":
-        w = torch.as_tensor(weights, dtype=self.dtype).to(self.device).clone()
+        """Replace the weights with a FRESH tensor made on the model's
+        stream: steps still queued there (a rollback while batches are in
+        flight) run before the copy and keep writing their own outputs,
+        never this tensor, and the next dispatch reads it after the copy.
+        The copy from host memory waits for the stream, so the caller's
+        array may be reused at once."""
+        w = torch.as_tensor(weights, dtype=self.dtype)
         if tuple(w.shape) != tuple(self._weights.shape):
             raise ValueError(
                 f"weights must have shape {tuple(self._weights.shape)}, "
                 f"got {tuple(w.shape)}"
             )
-        self._weights = w
+        if self.stream is None:
+            self._weights = w.to(self.device, copy=True)
+            return self
+        with torch.cuda.stream(self.stream):
+            self._weights = w.to(self.device, copy=True)
         return self
 
     def reset(self) -> "StreamingSGDModel":
@@ -329,6 +339,9 @@ class StreamingSGDModel:
 
     @property
     def latest_weights(self) -> np.ndarray:
+        """The weights on the host: a blocking copy that waits for every
+        step queued before it. Read it only where nothing is in flight (the
+        fetch pipeline's drained boundary), never inside a dispatch."""
         return self._weights.detach().cpu().numpy().copy()
 
     def bind_thread(self) -> None:

@@ -17,9 +17,17 @@ invokes every registered output in registration order.
 The scheduler runs the outputs, and so the model's dispatch, on its own
 thread: ``thread_init`` (the model's ``bind_thread``) sets that thread's
 CUDA device and stream where it starts. A batch whose outputs raise is
-logged and skipped, as in the JAX package. The lockstep (multi-host)
-scheduler, elastic membership, block ingest, the intake journal, lineage and
-chaos hooks are not ported (ROADMAP A5, A10, A12).
+logged and skipped, as in the JAX package.
+
+The batch seams of the runtime guards sit here, where the JAX package has
+them: a batch entering featurize opens its freshness lineage record and is
+appended to the intake journal (``FeatureStream._process``, the one journal
+seam); ``--chaos source.nan`` poisons a featurized batch; a recovery puts
+journaled rows back at the queue FRONT (``StreamingContext._putback``); and
+``request_abort`` dumps the flight recorder's bundle. The drain and the
+featurize are the ``source_read`` and ``featurize`` stages of the stage
+clock and of ``--trace``. The lockstep (multi-host) scheduler, elastic
+membership and block ingest are not ported (ROADMAP A10, A12).
 """
 
 from __future__ import annotations
@@ -32,9 +40,15 @@ from typing import Callable
 from ..config import SHED_POLICIES
 from ..features.batch import RaggedUnitBatch, pad_row_count
 from ..features.featurizer import Featurizer, Status
+from ..telemetry import blackbox as _blackbox
+from ..telemetry import lineage as _lineage
 from ..telemetry import metrics as _metrics
+from ..telemetry import sideband as _sideband
+from ..telemetry import trace as _trace
 from ..utils import get_logger
 from ..utils.clock import now_s
+from . import faults as _faults
+from . import journal as _journal
 from .sources import Source
 
 log = get_logger("streaming.context")
@@ -56,7 +70,13 @@ class _RowCountQueue(queue.Queue):
 
     Shed rows are counted (``ingest.rows_shed``); an item bigger than the
     whole bound is admitted alone; ``close()`` releases a blocked producer
-    at shutdown. ``max_rows=0`` is unbounded."""
+    at shutdown. ``max_rows=0`` is unbounded.
+
+    Items put back at the front (``putback``: a drain's remainder, or rows
+    a journal replay re-ingests) count in ``rows_queued`` and are never
+    shed: they were admitted once, and replayed rows must re-cross the
+    journal's seam in order, or its replay suppression would swallow fresh
+    rows instead."""
 
     max_rows = 0
     policy = "block"
@@ -66,6 +86,7 @@ class _RowCountQueue(queue.Queue):
         self.rows_queued = 0
         self.rows_shed_total = 0
         self._closed = False
+        self._protected = 0  # items at the front that were put back
 
     def configure_bound(self, max_rows: int, policy: str = "block") -> None:
         if policy not in SHED_POLICIES:
@@ -97,8 +118,10 @@ class _RowCountQueue(queue.Queue):
                     self.not_full.wait(0.1)
             else:  # shed-oldest
                 shed = 0
-                while self.queue and self.rows_queued + rows > self.max_rows:
-                    old = self.queue.popleft()
+                while (len(self.queue) > self._protected
+                       and self.rows_queued + rows > self.max_rows):
+                    old = self.queue[self._protected]
+                    del self.queue[self._protected]
                     r = getattr(old, "rows", 1)
                     self.rows_queued -= r
                     shed += r
@@ -121,6 +144,7 @@ class _RowCountQueue(queue.Queue):
         (its rows were admitted once already)."""
         with self.mutex:
             self.queue.appendleft(item)
+            self._protected += 1
             self.rows_queued += getattr(item, "rows", 1)
             self.not_empty.notify()
 
@@ -144,6 +168,7 @@ class _RowCountQueue(queue.Queue):
                     rows = limit
                     break
                 self.queue.popleft()
+                self._protected = max(0, self._protected - 1)
                 taken = take if take is not None else 1
                 self.rows_queued -= taken
                 rows += taken
@@ -157,6 +182,7 @@ class _RowCountQueue(queue.Queue):
 
     def _get(self):
         item = super()._get()
+        self._protected = max(0, self._protected - 1)
         self.rows_queued -= getattr(item, "rows", 1)
         return item
 
@@ -230,23 +256,37 @@ class FeatureStream(RawStream):
     def _featurize(self, statuses: list):
         """The ONE featurize dispatch of this stream's configuration,
         shared by the per-batch path and ``featurize_empty``, timed into
-        ``last_featurize`` and the ``featurize.<name>_ms`` gauges."""
+        ``last_featurize``, the ``featurize.<name>_ms`` gauges and the
+        stage clock (a span, and one a sub-stage, under ``--trace``). A real
+        batch (statuses not empty) is the ``--chaos source.nan`` injection
+        point: the warm-up's empty batch never counts a call."""
         from ..features import native
 
+        tr = _trace.get()
         fills = native.COUNTERS["fills_native"]
         t0 = time.perf_counter()
-        if self.ragged:
-            batch = self.featurizer.featurize_batch_ragged(
-                statuses, row_bucket=self.row_bucket, unit_bucket=self.token_bucket,
-            )
-        else:
-            batch = self.featurizer.featurize_batch_units(
-                statuses, row_bucket=self.row_bucket, unit_bucket=self.token_bucket,
-            )
-        featurize_ms = (time.perf_counter() - t0) * 1e3
+        with tr.span("featurize", items=len(statuses)) as sp:
+            if self.ragged:
+                batch = self.featurizer.featurize_batch_ragged(
+                    statuses, row_bucket=self.row_bucket, unit_bucket=self.token_bucket,
+                )
+            else:
+                batch = self.featurizer.featurize_batch_units(
+                    statuses, row_bucket=self.row_bucket, unit_bucket=self.token_bucket,
+                )
+            if tr.enabled:
+                from ..features.batch import wire_nbytes
+
+                sp.add(rows=int(batch.mask.shape[0]), valid=batch.num_valid,
+                       wire_bytes=wire_nbytes(batch))
+        t1 = time.perf_counter()
+        _sideband.record_stage("featurize", t1 - t0)
+        featurize_ms = (t1 - t0) * 1e3
         subs: dict[str, float] = {}
-        for name, _t0, seconds in self.featurizer.last_substages:
+        for name, sub_t0, seconds in self.featurizer.last_substages:
             subs[name] = subs.get(name, 0.0) + seconds * 1e3
+            if tr.enabled:
+                tr.complete("featurize." + name, sub_t0, seconds)
         reg = _metrics.get_registry()
         for name, ms in subs.items():
             reg.gauge(f"featurize.{name}_ms").set(round(ms, 4))
@@ -256,6 +296,8 @@ class FeatureStream(RawStream):
             "featurize_substages_ms": subs,
             "native_fill": native.COUNTERS["fills_native"] > fills,
         }
+        if statuses and _faults.get_chaos() is not None:
+            batch = _faults.maybe_poison_labels(batch)
         return batch
 
     @staticmethod
@@ -273,6 +315,11 @@ class FeatureStream(RawStream):
         return self._featurize([])
 
     def _process(self, statuses: list[Status], batch_time: float):
+        # the batch's freshness lineage record, and THE intake journal
+        # seam: raw rows become a replay record before featurize, so a
+        # recovery re-ingests what the unchanged featurize path reads
+        _lineage.open_batch(statuses)
+        _journal.record_intake(statuses)
         batch = self._featurize(statuses)
         self._check_buckets(batch)
         self._record_metrics(batch)
@@ -300,6 +347,10 @@ class StreamingContext:
         self.batches_processed = 0
         # set by request_abort: the app raises instead of reporting success
         self.failed = False
+        # the sentinel's cumulative rollback count (DivergenceSentinel sets
+        # it); the multi-host lockstep scheduler would carry it on its
+        # cadence allgather, nothing reads it on a single host
+        self.rollback_count_fn: "Callable[[], int] | None" = None
 
     def source_stream(self, source: Source, featurizer: Featurizer,
                       row_bucket: int = 0, token_bucket: int = 0,
@@ -313,10 +364,21 @@ class StreamingContext:
 
     def _drain(self, limit: int = 0) -> list[Status]:
         """Drain queued items, at most ``limit`` rows (0 = all), and set the
-        ``ingest.queue_rows`` gauge (once a drain, never a tweet)."""
-        out = self._queue.drain_rows(limit)
+        ``ingest.queue_rows`` gauge (once a drain, never a tweet); the
+        ``source_read`` stage."""
+        t0 = time.perf_counter()
+        with _trace.get().span("source_read") as sp:
+            out = self._queue.drain_rows(limit)
+            sp.add(items=len(out))
+        _sideband.record_stage("source_read", time.perf_counter() - t0)
         _metrics.get_registry().gauge("ingest.queue_rows").set(self._queue.rows_queued)
         return out
+
+    def _putback(self, items: list) -> None:
+        """Return ``items`` to the queue FRONT in their order (a journal
+        replay's rows train next, before anything queued after them)."""
+        for item in reversed(items):
+            self._queue.putback(item)
 
     def _run_batch(self, statuses: list[Status], batch_time: float) -> None:
         try:
@@ -360,10 +422,14 @@ class StreamingContext:
         self._stop.set()
 
     def request_abort(self, reason: str = "runtime guard abort") -> None:
-        """Mark the run failed and stop after the current batch (the fetch
-        watchdog's abort hook)."""
+        """Mark the run failed and stop after the current batch: the hook
+        of every runtime guard that aborts (the fetch watchdog, the
+        sentinel's rollback budget), so the app's shutdown still saves its
+        final checkpoint. Every abort comes through here, so this dumps the
+        flight recorder's bundle (once; a no-op without ``--blackbox``)."""
         log.critical("run aborting: %s", reason)
         self.failed = True
+        _blackbox.abort_dump(reason)
         self.request_stop()
 
     @property

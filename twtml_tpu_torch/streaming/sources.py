@@ -9,13 +9,16 @@ objects into the streaming context's intake queue:
 - ``SyntheticSource`` generates tweets whose retweet counts follow a known
   linear function of the features, with the same numpy draws in the same
   order as the JAX package's, so one seed gives the same tweets in both;
-- ``QueueSource`` is pushed to by its caller (tests, pre-filled streams).
+- ``QueueSource`` is pushed to by its caller (tests, pre-filled streams);
+- ``SkipRowsSource`` fast-forwards past the rows a restarted run's intake
+  journal already holds (apps/common.py ``journal_boot_replay``).
 
 Supervision: a crashed producer restarts with jittered exponential backoff,
 up to ``max_restarts`` consecutive failures (counted in ``source.restarts``).
-``produce()`` is also the plain generator of a source's tweets. Block
-ingest, sharded and live Twitter sources, chaos injection and the trace
-spans are not ported.
+``produce()`` is also the plain generator of a source's tweets. The
+``--chaos`` ``source.burst`` rule re-emits a tweet from the supervised loop
+(streaming/faults.py). Block ingest, sharded and live Twitter sources are
+not ported.
 """
 
 from __future__ import annotations
@@ -33,6 +36,20 @@ from ..utils import get_logger
 from ..utils.clock import now_ms
 
 log = get_logger("streaming.sources")
+
+# streaming/faults.py imports this module, so it is bound at first use
+_faults_mod = None
+
+
+def _burst_extra() -> int:
+    """Extra re-emits of the current tweet under ``--chaos source.burst``
+    (one global read and a None check when chaos is off)."""
+    global _faults_mod
+    if _faults_mod is None:
+        from . import faults
+
+        _faults_mod = faults
+    return _faults_mod.burst_extra()
 
 
 class Source:
@@ -75,6 +92,8 @@ class Source:
                         return
                     self._emit(status)
                     emitted_any = True
+                    for _ in range(_burst_extra()):  # --chaos source.burst
+                        self._emit(status)
                 self._exhausted.set()
                 return  # clean end of stream
             except Exception as exc:
@@ -243,3 +262,34 @@ class QueueSource(Source):
             if item is None:
                 return
             yield item
+
+
+class SkipRowsSource(Source):
+    """Drop the first ``skip_rows`` tweets of an inner source: the boot half
+    of journal recovery. On a restart every row the journal holds is either
+    inside the restored checkpoint or replayed from the journal, so a source
+    that re-produces the same stream (a replay file, a pinned synthetic or
+    pre-filled source) must skip all of them."""
+
+    name = "skiprows"
+
+    def __init__(self, inner: Source, skip_rows: int, **kw):
+        kw.setdefault("max_restarts", inner.max_restarts)
+        kw.setdefault("restart_backoff", inner.restart_backoff)
+        super().__init__(**kw)
+        self.inner = inner
+        self.skip_rows = int(skip_rows)
+
+    def produce(self) -> Iterator[Status]:
+        # a supervised restart re-enters produce() and the inner source
+        # re-produces from its top, so the skip applies from the top too
+        remaining = self.skip_rows
+        for item in self.inner.produce():
+            if remaining > 0:
+                remaining -= 1
+                continue
+            yield item
+
+    def stop(self) -> None:
+        self.inner.stop()
+        super().stop()

@@ -9,10 +9,11 @@ interchangeable:
   {"jsonClass": "Config", "id": "...", "host": "...", "viz": ["..."]}
   {"jsonClass": "Stats", "count": 0, "batch": 0, "mse": 0, "realStddev": 0, "predStddev": 0}
 
-``Series`` and ``Metrics`` are the JAX package's additive types (the live
-chart and the observability panel); legacy dashboards ignore them. The
-other additive types (hosts, tenants, model health, serving, fleet,
-freshness, history) belong to planes the port has not ported.
+``Series``, ``Metrics``, ``ModelHealth`` and ``Freshness`` are the JAX
+package's additive types (the live chart, the observability panel, the
+model-health and freshness tiles); legacy dashboards ignore them. The other
+additive types (hosts, tenants, serving, fleet, history) belong to planes
+the port has not ported.
 """
 
 from __future__ import annotations
@@ -67,7 +68,51 @@ class Metrics:
     json_class = "Metrics"
 
 
-TYPES = {"Config": Config, "Stats": Stats, "Series": Series, "Metrics": Metrics}
+@dataclass
+class ModelHealth:
+    """The model-health view (telemetry/modelwatch.py): level, drift score,
+    loss trend, the weight/update/gradient norms, the rolling mse window and
+    the drift episodes."""
+
+    level: str = "ok"
+    driftScore: float = 0.0
+    lossTrend: float = 0.0
+    weightNorm: float = 0.0
+    updateNorm: float = 0.0
+    gradNorm: float = 0.0
+    mse: list = field(default_factory=list)
+    tenants: list = field(default_factory=list)
+    episodes: int = 0
+
+    json_class = "ModelHealth"
+
+
+@dataclass
+class Freshness:
+    """The end-to-end freshness view (telemetry/freshness.py): event-time
+    lag percentiles to delivery and to publish, the low-watermark
+    sparkline, the critical edge with its tick counts, and the SLO state."""
+
+    batches: int = 0
+    rows: int = 0
+    eventLagMs: float = -1.0
+    eventLagP50Ms: float = -1.0
+    eventLagP95Ms: float = -1.0
+    eventLagP99Ms: float = -1.0
+    publishLagP95Ms: float = -1.0
+    watermarkLagMs: float = -1.0
+    watermark: list = field(default_factory=list)
+    critical: str = ""
+    criticalTicks: dict = field(default_factory=dict)
+    sloMs: float = 0.0
+    breachRun: int = 0
+    breaches: int = 0
+
+    json_class = "Freshness"
+
+
+TYPES = {"Config": Config, "Stats": Stats, "Series": Series, "Metrics": Metrics,
+         "ModelHealth": ModelHealth, "Freshness": Freshness}
 
 
 def encode(obj) -> str:

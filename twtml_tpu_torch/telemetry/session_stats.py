@@ -12,17 +12,29 @@ As in the JAX package: each endpoint sits behind a circuit breaker
 ``--webTimeout``; the per-batch series frame is cut to ``SERIES_MAX_POINTS``
 points, and while the health monitor reports a DEGRADED transport only
 every ``SERIES_SHED_EVERY``-th series frame ships (the scalar stats keep
-full resolution); a metrics snapshot ships every ``METRICS_EVERY`` updates.
-The host-process gauges, historian, freshness, tenant, model-health and
-per-host views of the JAX package's publisher are not ported.
+full resolution); a metrics snapshot ships every ``METRICS_EVERY`` updates,
+with the host-process gauges (``host.rss_mb``, ``host.uptime_s``,
+``host.rss_slope_mb_per_min``), followed by the model-health and freshness
+views once they hold a delivery. Each update is the ``stats_publish``
+stage (the stage clock, and a span under ``--trace``) and stamps the
+freshness plane's event-to-publish lag. The historian, tenant and per-host
+views of the JAX package's publisher are not ported.
 """
 
 from __future__ import annotations
 
+import collections
+import time
+
 import numpy as np
 
 from ..utils import get_logger
+from ..utils.rss import rss_mb, slope_mb_per_min
+from . import freshness as _freshness
 from . import metrics as _metrics
+from . import modelwatch as _modelwatch
+from . import sideband as _sideband
+from . import trace as _trace
 from .breaker import CircuitBreaker
 from .lightning import CHART_MAX_POINTS, Lightning, Visualization
 from .web_client import WebClient
@@ -44,6 +56,10 @@ REAL_COLOR = [30.0, 144.0, 255.0]  # blue
 PRED_COLOR_DET = [238.0, 232.0, 170.0]  # pale yellow
 PRED_COLOR = [255.0, 215.0, 0.0]  # gold
 
+# the process's start, for the host.uptime_s gauge (this module is imported
+# at the app's start)
+_PROCESS_START_S = time.monotonic()
+
 
 class SessionStats:
     def __init__(self, conf):
@@ -55,6 +71,8 @@ class SessionStats:
         # one breaker per endpoint: the dashboard and Lightning fail apart
         self._web_breaker = CircuitBreaker("web")
         self._lgn_breaker = CircuitBreaker("lightning")
+        # (monotonic s, rss MB) a metrics publish, for the leak-rate gauge
+        self._rss_samples: collections.deque = collections.deque(maxlen=256)
 
     def open(self) -> "SessionStats":
         log.info("Initializing plot on lightning server: %s", self.conf.lightning)
@@ -95,7 +113,17 @@ class SessionStats:
     ) -> None:
         """Push one batch of stats, as SessionStats.update: mse and stdevs
         arrive HALF_UP-rounded and are truncated to int for the dashboard
-        like ``.toLong``."""
+        like ``.toLong``. Timed as the ``stats_publish`` stage."""
+        tr = _trace.get()
+        t0 = time.perf_counter()
+        if tr.enabled:
+            with tr.span("stats_publish", batch=int(batch)):
+                self._update(count, batch, mse, real_stdev, pred_stdev, real, pred)
+        else:
+            self._update(count, batch, mse, real_stdev, pred_stdev, real, pred)
+        _sideband.record_stage("stats_publish", time.perf_counter() - t0)
+
+    def _update(self, count, batch, mse, real_stdev, pred_stdev, real, pred) -> None:
         stats_ok = False
         if self._web_breaker.allow():
             try:
@@ -126,6 +154,9 @@ class SessionStats:
             except Exception:  # lawcheck: disable=TW005 -- Try-parity: counted by the breaker, logged
                 self._lgn_breaker.record_failure()
                 log.debug("lightning append failed", exc_info=True)
+        # the event-to-publish lag of the batches delivered since the last
+        # update: host clock reads, inside the timed publish
+        _freshness.record_publish()
         self._updates += 1
         if self._updates % METRICS_EVERY == 0:
             self.publish_metrics()
@@ -144,7 +175,17 @@ class SessionStats:
 
     def publish_metrics(self) -> None:
         """Best-effort push of the metrics registry and the health summary,
-        with per-histogram count/mean/p50/p95/p99 (not the raw buckets)."""
+        with per-histogram count/mean/p50/p95/p99 (not the raw buckets),
+        then the model-health and freshness views. The host gauges are
+        sampled first (statm reads)."""
+        reg = _metrics.get_registry()
+        cur_mb = rss_mb()
+        now = time.monotonic()
+        reg.gauge("host.rss_mb").set(round(cur_mb, 1))
+        reg.gauge("host.uptime_s").set(round(now - _PROCESS_START_S, 1))
+        self._rss_samples.append((now, cur_mb))
+        reg.gauge("host.rss_slope_mb_per_min").set(
+            round(slope_mb_per_min(self._rss_samples), 3))
         if not self._web_breaker.allow():
             return
         try:
@@ -161,3 +202,25 @@ class SessionStats:
         except Exception:  # lawcheck: disable=TW005 -- Try-parity: counted by the breaker, logged
             self._web_breaker.record_failure()
             log.debug("web.metrics failed", exc_info=True)
+        mview = _modelwatch.last_model()
+        if mview is not None and self._web_breaker.allow():
+            try:
+                self.web.model_health(
+                    level=mview["level"], drift_score=mview["drift_score"],
+                    loss_trend=mview["loss_trend"], weight_norm=mview["weight_norm"],
+                    update_norm=mview["update_norm"], grad_norm=mview["grad_norm"],
+                    mse=mview["mse"], tenants=mview["tenants"],
+                    episodes=mview["episodes"],
+                )
+                self._web_breaker.record_success()
+            except Exception:  # lawcheck: disable=TW005 -- Try-parity: counted by the breaker, logged
+                self._web_breaker.record_failure()
+                log.debug("web.model_health failed", exc_info=True)
+        fview = _freshness.last_freshness()
+        if fview is not None and self._web_breaker.allow():
+            try:
+                self.web.freshness(fview)
+                self._web_breaker.record_success()
+            except Exception:  # lawcheck: disable=TW005 -- Try-parity: counted by the breaker, logged
+                self._web_breaker.record_failure()
+                log.debug("web.freshness failed", exc_info=True)

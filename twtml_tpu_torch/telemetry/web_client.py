@@ -1,13 +1,15 @@
 """Minimal JSON/HTTP client of the twtml web API (counterpart of
-``twtml_tpu/telemetry/web_client.py``): POST Config/Stats/Series/Metrics to
-``{server}/api`` with stdlib urllib. Callers wrap every call best-effort, as
-the reference wraps them in ``Try`` (telemetry/session_stats.py)."""
+``twtml_tpu/telemetry/web_client.py``): POST Config/Stats/Series/Metrics/
+ModelHealth/Freshness to ``{server}/api`` with stdlib urllib. Callers wrap
+every call best-effort, as the reference wraps them in ``Try``
+(telemetry/session_stats.py). Each request is a ``--chaos`` ``web``
+injection point."""
 
 from __future__ import annotations
 
 import urllib.request
 
-from .api_types import Config, Metrics, Series, Stats, encode
+from .api_types import Config, Freshness, Metrics, ModelHealth, Series, Stats, encode
 
 DEFAULT_SERVER = "http://localhost:8888"
 
@@ -18,6 +20,9 @@ class WebClient:
         self.timeout = timeout
 
     def _post(self, obj) -> None:
+        from ..streaming import faults as _faults
+
+        _faults.perturb("web")
         req = urllib.request.Request(
             self.server + "/api",
             data=encode(obj).encode("utf-8"),
@@ -50,3 +55,21 @@ class WebClient:
         """A pipeline-metrics snapshot for the observability panel."""
         self._post(Metrics(counters=dict(counters), gauges=dict(gauges),
                            health=dict(health), histograms=dict(histograms or {})))
+
+    def model_health(self, level: str = "ok", drift_score: float = 0.0,
+                     loss_trend: float = 0.0, weight_norm: float = 0.0,
+                     update_norm: float = 0.0, grad_norm: float = 0.0,
+                     mse=None, tenants=None, episodes: int = 0) -> None:
+        """The model-health view (telemetry/modelwatch.py)."""
+        self._post(ModelHealth(
+            level=str(level), driftScore=float(drift_score),
+            lossTrend=float(loss_trend), weightNorm=float(weight_norm),
+            updateNorm=float(update_norm), gradNorm=float(grad_norm),
+            mse=[float(v) for v in (mse or [])],
+            tenants=list(tenants or []), episodes=int(episodes),
+        ))
+
+    def freshness(self, view: dict) -> None:
+        """The freshness view (telemetry/freshness.py ``last_freshness``)."""
+        known = Freshness.__dataclass_fields__
+        self._post(Freshness(**{k: v for k, v in view.items() if k in known}))
