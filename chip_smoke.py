@@ -59,12 +59,27 @@ Phases, in order; any failure ends the run with a non-zero exit:
                ``--recycleAfterMb 1`` in a subprocess re-execs and resumes
                exactly; the guards on against off: the same device work a
                step (profiler), both rates, and the save, journal append,
-               rollback and dump times;
-  9. clock   — ``--seconds 1`` on the default wire (padded), the synthetic
+               rollback and dump times. Every checkpointed run has the
+               telemetry historian on (``--history auto``, the JAX
+               defaults): a ``--history off`` arm prints the same lines and
+               ends with bitwise-equal weights, the profiled history-on run
+               makes the same D2H copies and launches a step as the off run;
+               the ms a ``sample()`` takes and the segment bytes a batch;
+  9. sampled — ``-b 0.5``: the [50, 16384] Bernoulli masks made on the card
+               bitwise equal to the CPU's (float32 and float64 draws); 4
+               full-width batches on the torch loop under the sync-debug
+               mode "error", against the ``--backend cpu`` twin (weights
+               and stats within 1e-4), the fused kernel launched 0 times;
+               the mask draw's and a step's device ms and launches;
+ 10. dtype   — ``--dtype bfloat16``: 4 full-width batches on the card, MSE
+               falling, finite, within 2**-5 of the CPU twin, a step's
+               device ms and launches; ``--dtype float64 --backend cuda``
+               exits (CPU only, as in the JAX package) before building;
+ 11. clock   — ``--seconds 1`` on the default wire (padded), the synthetic
                source paced at 20000 tweets/s, 5 intervals: every interval's
                batch trains, the warm-up ends before the stream starts, the
                stats posts arrive; each tick's lateness and rows;
- 10. times   — at the operating point: the launch plan (grid, rows resident
+ 12. times   — at the operating point: the launch plan (grid, rows resident
                and spilled, shared memory, registers from ptxas), kernel,
                prologue and per-iteration times, the twin, the bound; each
                wire's featurize by sub-stage, bytes and H2D copy; and where
@@ -847,7 +862,7 @@ def stream_phase():
 
 GUARD_BATCHES = 8
 GUARD_ARGV = ["--backend", "cuda", "--source", "synthetic", "--seconds", "0",
-              "--batchBucket", str(OP_ROWS), "--maxQueueRows", "-1", "--history", "off"]
+              "--batchBucket", str(OP_ROWS), "--maxQueueRows", "-1"]
 GUARD_COUNTERS = ("model.rollbacks", "model.nonfinite_batches", "model.rows_lost",
                   "model.sentinel_aborts", "journal.replayed_rows", "fetch.aborts",
                   "checkpoint.quarantined")
@@ -964,7 +979,7 @@ def recycle_run(replay, ckdir, recycle: bool):
     argv = [sys.executable, "-m", "twtml_tpu_torch.apps.linear_regression",
             "--backend", "cuda", "--source", "replay", "--replayFile", replay,
             "--seconds", "0", "--batchBucket", str(OP_ROWS), "--checkpointDir", ckdir,
-            "--checkpointEvery", "2", "--history", "off",
+            "--checkpointEvery", "2",
             "--lightning", RECORDER.url, "--twtweb", RECORDER.url]
     if recycle:
         argv += ["--recycleAfterMb", "1"]
@@ -1016,6 +1031,7 @@ def guards_phase(smi):
     from twtml_tpu_torch.checkpoint import Checkpointer
     from twtml_tpu_torch.streaming.journal import IntakeJournal
     from twtml_tpu_torch.streaming.sources import SyntheticSource
+    from twtml_tpu_torch.telemetry import historian
     from twtml_tpu_torch.telemetry.blackbox import FlightRecorder
 
     GUARD_CARD = smi
@@ -1027,7 +1043,8 @@ def guards_phase(smi):
                        "npz": (Checkpointer, "save"),
                        "append": (IntakeJournal, "append"),
                        "rollback": (AppCheckpoint, "rollback_to_verified"),
-                       "dump": (FlightRecorder, "dump")})
+                       "dump": (FlightRecorder, "dump"),
+                       "sample": (historian.Historian, "sample")})
     RECORDER.take()
     with timings:
         # -- poison at batch 5, a checkpoint every batch: crash equals clean
@@ -1035,6 +1052,31 @@ def guards_phase(smi):
             "clean, --checkpointEvery 1", statuses,
             ["--checkpointDir", f"{tmp}/clean1", "--checkpointEvery", "1"])
         saves_clean = list(timings.ms["save"])
+        # the historian (on at the JAX defaults with --checkpointDir) against
+        # --history off: the same lines and bitwise-equal weights
+        samples_clean = list(timings.ms["sample"])
+        _, off_lines, off_rec = guard_run(
+            "clean, --checkpointEvery 1, --history off", statuses,
+            ["--checkpointDir", f"{tmp}/clean1off", "--checkpointEvery", "1",
+             "--history", "off"])
+        hist = f"{tmp}/clean1/history"
+        records = historian.read_series(hist)
+        seg_bytes = sum(os.path.getsize(os.path.join(hist, n)) for n in os.listdir(hist)
+                        if n.endswith(".twh"))
+        n_samples = sum(r["k"] == "s" for r in records)
+        if not (off_lines == clean1_lines and np.array_equal(off_rec["weights"],
+                                                             clean1_rec["weights"])
+                and n_samples >= 1 and samples_clean
+                and not os.path.exists(f"{tmp}/clean1off/history")):
+            raise AssertionError(f"guards history: on/off differ, or {n_samples} samples "
+                                 f"in {hist}")
+        guard_line(f"historian (--history auto, on with --checkpointDir): {n_samples} "
+                   f"samples and {len(records) - n_samples} other records in "
+                   f"{seg_bytes} segment bytes over {GUARD_BATCHES} batches = "
+                   f"{seg_bytes / GUARD_BATCHES:.1f} B a batch; sample() "
+                   f"{statistics.mean(samples_clean):.3f} ms (n={len(samples_clean)}, "
+                   f"max {max(samples_clean):.3f}); --history off: the same lines, final "
+                   "weights bitwise equal, no history directory")
         got, lines, rec = guard_run(
             "poison source.nan@5, --checkpointEvery 1", statuses,
             ["--checkpointDir", f"{tmp}/poison1", "--checkpointEvery", "1",
@@ -1193,7 +1235,10 @@ def guards_phase(smi):
     host_off = ["--sentinel", "off", "--freshness", "off", "--blackbox", "off"]
     copies = {}
     for label, extra in (("guards on", []), ("host guards off", host_off),
-                         ("all off", off)):
+                         ("all off", off),
+                         ("history on", ["--checkpointDir", f"{tmp}/prof_on"]),
+                         ("history off", ["--checkpointDir", f"{tmp}/prof_off",
+                                          "--history", "off"])):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             guard_run(f"{label}, profiled", statuses, extra)
@@ -1205,6 +1250,9 @@ def guards_phase(smi):
             and on["fused"] == GUARD_BATCHES - 1
             and all(copies["all off"][k] == on[k] for k in ("fused", "h2d", "d2h"))):
         raise AssertionError(f"guards cost: device work {copies}")
+    if copies["history on"] != copies["history off"]:
+        raise AssertionError(f"guards history: device work on {copies['history on']} "
+                             f"against off {copies['history off']}")
     per = lambda c: c["kernels"] / (GUARD_BATCHES - 1)  # noqa: E731
     guard_line(f"device work over {GUARD_BATCHES - 1} steps (profiler, from batch 1's fused "
                f"kernel to batch {GUARD_BATCHES}'s): guards on {on}, sentinel/freshness/"
@@ -1212,10 +1260,215 @@ def guards_phase(smi):
                f"(pinned) and 1 D2H (to pinned) copy a step either way, {per(on):g} launches "
                f"a step with the guards on as with the host guards off; --modelWatch off "
                f"drops the step's quality vector: {per(copies['all off']):g} launches a step")
+    guard_line(f"historian on (--checkpointDir, --history auto) against --history off, "
+               f"profiled: {copies['history on']} / {copies['history off']}: the same D2H "
+               f"copies ({copies['history on']['d2h'] / (GUARD_BATCHES - 1):g}) and launches "
+               f"({per(copies['history on']):g}) a step")
     guard_line("tweets/s over batches 2-8, guards on: "
           + ", ".join(f"{r:.0f}" for r in rates["guards on"]) + "; off: "
           + ", ".join(f"{r:.0f}" for r in rates["guards off"]))
     return {"rates": rates, "copies": copies}
+
+
+# ---- phases 9 and 10: Bernoulli mini-batches and --dtype at full width ---------
+
+SAMPLED_ARGV = ["--source", "synthetic", "--seconds", "0", "--batchBucket", str(OP_ROWS)]
+SAMPLED_BATCHES = 4
+# the CPU tests' tolerances (tests/test_torch_sampling.py): float32 weights
+# within 1e-4 of the largest, stats within 1e-4; bfloat16 here within 2**-5
+# (4 units of its 8-bit mantissa: each of the 200 updates rounds, and the
+# card's and the CPU's matrix products sum in other orders)
+SAMPLED_RTOL = 1e-4
+BF16_CARD_RTOL = 2.0**-5
+
+
+# ~50 ms of device sleep: long enough for the host to enqueue a whole step
+# of the torch loop (~1,500 launches) before the device starts it
+STEP_AHEAD_CYCLES = 100_000_000
+
+
+def device_costs(fn, runs):
+    """What the card spends on ``fn`` a run: (CUDA-event ms with the whole
+    run queued ahead, so the device's time and not the host's enqueue; the
+    profiler's summed device time of its kernels and copies; kernel
+    launches from the profiler's host-side cudaLaunch* calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # first use outside the windows
+    torch.cuda.synchronize()
+    event_ms, _ = timed(fn, runs, queue_ahead=True, ahead_cycles=STEP_AHEAD_CYCLES)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(ev.device_time_total for ev in prof.key_averages()
+               if ev.device_time_total) / runs / 1e3
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(ev.count for ev in prof.key_averages() if ev.key.startswith("cudaLaunch")) / runs
+    return event_ms, busy, n
+
+
+def route_run(name, extra, statuses):
+    """``SAMPLED_BATCHES`` full-width batches of ``statuses`` (a pre-filled
+    source, so no producer thread competes with the dispatch for the
+    interpreter lock) on the card with ``extra`` under the sync-debug mode
+    "error", and the same on ``--backend cpu``: (totals, lines, record) of
+    each."""
+    from twtml_tpu_torch.apps.common import SYNC_DEBUG_ENV
+
+    os.environ[SYNC_DEBUG_ENV] = "error"
+    try:
+        totals, lines, rec = recorded_app_run(
+            ["--backend", "cuda", *SAMPLED_ARGV, *extra], SAMPLED_BATCHES,
+            source=prefilled_source(statuses))
+    finally:
+        del os.environ[SYNC_DEBUG_ENV]
+    if totals["batches"] != SAMPLED_BATCHES or rec["launches"] != 0:
+        raise AssertionError(f"{name}: {totals['batches']} batches, fused_dense_sgd "
+                             f"launched {rec['launches']} times (the torch loop's route "
+                             "must not launch it)")
+    if rec["model"].route != "torch_loop":
+        raise AssertionError(f"{name}: route {rec['model'].route}")
+    twin = recorded_app_run(["--backend", "cpu", *SAMPLED_ARGV, *extra], SAMPLED_BATCHES,
+                            source=prefilled_source(statuses))
+    return (totals, lines, rec), twin
+
+
+def compare_twin(name, card, twin, rtol):
+    """Weights within ``rtol`` of the CPU twin's largest weight, each
+    batch's 4 stats within ``rtol``: the largest differences seen."""
+    (totals, _, rec), (ctotals, _, crec) = card, twin
+    w, cw = rec["weights"].astype("float64"), crec["weights"].astype("float64")
+    w_err = float(abs(w - cw).max() / abs(cw).max())
+    s_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                for a, b in zip(totals["steps"], ctotals["steps"])
+                for k in ("count", "mse", "real_stdev", "pred_stdev"))
+    if not (w_err <= rtol and s_err <= rtol):
+        raise AssertionError(f"{name}: card against the CPU twin: weights {w_err:.3g}, "
+                             f"stats {s_err:.3g} (tolerance {rtol:g})")
+    return w_err, s_err
+
+
+def sampled_phase(smi):
+    """``-b 0.5`` at full width: the [N, B] masks made on the card bitwise
+    equal to the same function on the CPU (in each float type the draw
+    takes), 4 batches on the card against the CPU twin, no launch of the
+    fused kernel, no host sync; the mask build's and the step's device ms
+    and launches."""
+    import torch
+
+    from twtml_tpu_torch.models import sgd
+
+    for dtype in (torch.float32, torch.float64):
+        gpu = sgd.sampling_masks(OP_ROWS, OP_ITERS, 0.5, dtype, "cuda")
+        cpu = sgd.sampling_masks(OP_ROWS, OP_ITERS, 0.5, dtype, "cpu")
+        if not torch.equal(gpu.cpu(), cpu):
+            raise AssertionError(f"sampled: {dtype} masks on the card differ from the CPU's")
+    mask_ms, mask_busy, mask_n = device_costs(
+        lambda: sgd.sampling_masks(OP_ROWS, OP_ITERS, 0.5, torch.float32, "cuda"), 10)
+    phase("sampled", f"masks [{OP_ITERS}, {OP_ROWS}] on the card bitwise equal to the "
+          f"CPU's (float32 and float64 draws), {int(cpu.sum())} of {cpu.numel()} rows "
+          f"selected; the batched draw (made once a row count): {mask_ms:.4f} ms "
+          f"(CUDA events, queued ahead), {mask_busy:.4f} ms device busy (profiler), "
+          f"{mask_n:g} launches | card: {smi}")
+    from twtml_tpu_torch.streaming.sources import SyntheticSource
+
+    statuses = list(SyntheticSource(total=SAMPLED_BATCHES * OP_ROWS, seed=7,
+                                    base_ms=NOW_MS).produce())
+    card, twin = route_run("sampled", ["-b", "0.5"], statuses)
+    totals, lines, rec = card
+    w_err, s_err = compare_twin("sampled", card, twin, SAMPLED_RTOL)
+    for line, st in zip(lines, totals["steps"]):
+        phase("sampled", f"{line} | step {st['step_ms']:.3f} ms (CUDA events), "
+              f"dispatch {st['dispatch_ms']:.3f} ms, fetch wait {st['fetch_wait_ms']:.3f} ms")
+    phase("sampled", f"{SAMPLED_BATCHES} batches of {OP_ROWS} on the torch loop (route "
+          f"named: {rec['model'].route}), fused_dense_sgd launched {rec['launches']} times, "
+          f"every dispatch under set_sync_debug_mode('error'); against the --backend cpu "
+          f"twin: weights {w_err:.3g} of the largest, stats {s_err:.3g} "
+          f"(tolerance {SAMPLED_RTOL:g})")
+    dev_ms, busy, n = step_costs(["-b", "0.5"])
+    fused_ms, fused_busy, fused_n = step_costs([])
+    phase("sampled", f"one step of batch 2 (padded wire, on the card), median of 5: "
+          f"{dev_ms:.3f} ms (CUDA events, queued ahead), {busy:.3f} ms device busy "
+          f"(profiler), {n:g} kernel launches; the default route (fused kernel) by the "
+          f"same measures: {fused_ms:.3f} ms, {fused_busy:.3f} ms, {fused_n:g} launches "
+          f"| card: {smi}")
+    return {"step_ms": dev_ms, "step_busy_ms": busy, "launches": n, "mask_ms": mask_ms,
+            "mask_busy_ms": mask_busy, "weights_err": w_err, "stats_err": s_err,
+            "fused_step_ms": fused_ms, "fused_step_busy_ms": fused_busy,
+            "fused_launches": fused_n}
+
+
+def step_costs(extra):
+    """``device_costs`` of one step of a fresh cuda model configured by
+    ``extra``, on batch 2 of the operating point's stream (padded wire)
+    copied to the card, from the weights batch 1 left."""
+    from twtml_tpu_torch.apps.common import build_model
+    from twtml_tpu_torch.config import ConfArguments
+    from twtml_tpu_torch.features.featurizer import Featurizer
+    from twtml_tpu_torch.models.sgd import batch_to_device
+    from twtml_tpu_torch.streaming.sources import SyntheticSource
+
+    tweets = list(SyntheticSource(total=2 * OP_ROWS, seed=3, base_ms=NOW_MS).produce())
+    featurizer = Featurizer(now_ms=NOW_MS)
+    batches = [featurizer.featurize_batch_units(tweets[i:i + OP_ROWS], row_bucket=OP_ROWS)
+               for i in (0, OP_ROWS)]
+    model = build_model(ConfArguments().parse(["--backend", "cuda", *extra]))
+    float(model.step(batches[0]).mse)
+    w, dev = model._weights, batch_to_device(batches[1], "cuda", non_blocking=False)
+    return device_costs(lambda: model._train_step(w, dev), 5)
+
+
+def dtype_phase(smi):
+    """``--dtype bfloat16``: 4 full-width batches on the card, the MSE falls,
+    everything finite, within BF16_CARD_RTOL of the CPU twin; ``--dtype
+    float64 --backend cuda`` exits before anything is built, as the JAX
+    package's does."""
+    import numpy as np
+
+    from twtml_tpu_torch.streaming.sources import SyntheticSource
+
+    statuses = list(SyntheticSource(total=SAMPLED_BATCHES * OP_ROWS, seed=7,
+                                    base_ms=NOW_MS).produce())
+    card, twin = route_run("dtype bfloat16", ["--dtype", "bfloat16"], statuses)
+    totals, lines, rec = card
+    mses = [st["mse"] for st in totals["steps"]]
+    finite = all(np.isfinite(st[k]) for st in totals["steps"]
+                 for k in ("mse", "real_stdev", "pred_stdev")) and np.isfinite(rec["weights"]).all()
+    if not (finite and mses[-1] < mses[0]):
+        raise AssertionError(f"dtype bfloat16: MSE {mses}, finite {finite}")
+    w_err, s_err = compare_twin("dtype bfloat16", card, twin, BF16_CARD_RTOL)
+    for line, st in zip(lines, totals["steps"]):
+        phase("dtype", f"bfloat16: {line} | step {st['step_ms']:.3f} ms (CUDA events)")
+    phase("dtype", f"bfloat16: MSE falls {mses[0]:.1f} -> {mses[-1]:.1f}, all finite, "
+          f"route {rec['model'].route}, fused_dense_sgd launched {rec['launches']} times, "
+          f"no host sync; against the --backend cpu twin: weights {w_err:.3g} of the "
+          f"largest, stats {s_err:.3g} (tolerance {BF16_CARD_RTOL:g})")
+    dev_ms, busy, n = step_costs(["--dtype", "bfloat16"])
+    phase("dtype", f"bfloat16: one step of batch 2 (padded wire, on the card), median of "
+          f"5: {dev_ms:.3f} ms (CUDA events, queued ahead), {busy:.3f} ms device busy "
+          f"(profiler), {n:g} kernel launches | card: {smi}")
+    built = []
+    from twtml_tpu_torch.apps import linear_regression as app
+
+    base = app.build_model
+    app.build_model = lambda conf: built.append(conf) or base(conf)
+    try:
+        app_run(["--backend", "cuda", "--dtype", "float64", *SAMPLED_ARGV], 1)
+        raise AssertionError("dtype float64: --backend cuda was not refused")
+    except SystemExit as exc:
+        if "add --backend cpu" not in str(exc) or built:
+            raise AssertionError(f"dtype float64: refused with {exc!r} after building "
+                                 f"{len(built)} model(s)")
+        phase("dtype", f"float64 --backend cuda: exits before building a model: {exc}")
+    finally:
+        app.build_model = base
+    return {"step_ms": dev_ms, "step_busy_ms": busy, "launches": n,
+            "weights_err": w_err, "stats_err": s_err}
 
 
 WALL_BATCHES = 5
@@ -1281,17 +1534,18 @@ def clock_phase():
 QUEUE_AHEAD_CYCLES = 200_000
 
 
-def timed(fn, runs, queue_ahead=False):
+def timed(fn, runs, queue_ahead=False, ahead_cycles=QUEUE_AHEAD_CYCLES):
     """Median and all of ``runs`` CUDA-event times of ``fn``. With
-    ``queue_ahead`` the device is kept busy while the host enqueues, so the
-    time is the device's alone; without it the host's enqueue gap counts."""
+    ``queue_ahead`` the device is kept busy (``ahead_cycles`` of
+    ``torch.cuda._sleep``) while the host enqueues, so the time is the
+    device's alone; without it the host's enqueue gap counts."""
     import torch
 
     times = []
     for _ in range(runs):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         if queue_ahead:
-            torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
+            torch.cuda._sleep(ahead_cycles)
         start.record()
         fn()
         end.record()
@@ -1635,6 +1889,8 @@ def main() -> None:
         replay_phase()
         stream = stream_phase()
         guards = guards_phase(smi)
+        sampled = sampled_phase(smi)
+        dtypes = dtype_phase(smi)
         clock_launches = clock_phase()
     finally:
         RECORDER.close()
@@ -1643,6 +1899,7 @@ def main() -> None:
     record.update(launches_stream=stream["launches"], launches_clock=clock_launches,
                   stream_tweets_per_s=stream["rate"],
                   guards_tweets_per_s=guards["rates"],
+                  sampled_route=sampled, bfloat16_route=dtypes,
                   stream_device_idle=(stream["timeline"] or {}).get("idle"))
     import torch
 

@@ -1,0 +1,270 @@
+"""The port's parser against the JAX package's (``twtml_tpu/config.py``).
+
+- Every flag and short alias of the JAX parser parses in the port at the
+  JAX package's default value, sets what the JAX parser sets, and selects
+  the single-host path (``validate_master`` and ``check_ported`` pass).
+  ``--backend`` is the one deliberate difference (cuda|cpu).
+- The README's command lines of the JAX app, with the module renamed,
+  parse; the line that runs one host on the fixture runs on ``--backend
+  cpu`` and prints the JAX app's lines.
+- A value that needs a feature the port has not ported raises
+  ``NotImplementedError`` naming its ROADMAP item; ``spark://`` is refused
+  as the JAX package refuses it; ``local[N]`` is a no-op on the card and
+  needs A10 above 1 on the CPU.
+- ``--seconds`` below 0 and negative buckets parse as in the JAX package,
+  and values the JAX parser refuses exit in both.
+"""
+
+import ast
+import contextlib
+import io
+import os
+import re
+
+import jax
+import pytest
+
+from twtml_tpu import config as jax_config
+from twtml_tpu.config import ConfArguments as JaxConf
+from twtml_tpu_torch import config as port_config
+from twtml_tpu_torch.apps import common
+from twtml_tpu_torch.apps import linear_regression as app
+from twtml_tpu_torch.config import SERVE_FLAGS, ConfArguments
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DATA = os.path.join(REPO, "tests", "data", "tweets.jsonl")
+CLOSED = "http://127.0.0.1:9"
+QUIET = ["--lightning", CLOSED, "--twtweb", CLOSED, "--webTimeout", "0.2"]
+NOW_MS = "1700000000000"
+
+
+def _jax_parser_flags() -> list[str]:
+    """Every flag string the JAX parser's ``parse`` matches, from its AST."""
+    tree = ast.parse(open(jax_config.__file__, encoding="utf-8").read())
+    (parse,) = [n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)
+                and n.name == "parse"]
+    flags = {n.value for n in ast.walk(parse) if isinstance(n, ast.Constant)
+             and isinstance(n.value, str) and re.fullmatch(r"--?[A-Za-z][A-Za-z0-9]*", n.value)}
+    return sorted(flags - {"-h", "--help"})
+
+
+JAX_FLAGS = _jax_parser_flags()
+SHORT = {"-m": "--master", "-n": "--name", "-C": "--consumerKey", "-S": "--consumerSecret",
+         "-A": "--accessToken", "-T": "--accessTokenSecret", "-l": "--lightning",
+         "-w": "--twtweb", "-s": "--seconds", "-p": "--stepSize", "-i": "--numIterations",
+         "-b": "--miniBatchFraction", "-B": "--numRetweetBegin", "-E": "--numRetweetEnd",
+         "-f": "--numTextFeatures"}
+OAUTH = ("--consumerKey", "--consumerSecret", "--accessToken", "--accessTokenSecret")
+
+
+def test_the_jax_parser_flags_are_all_found():
+    assert len(JAX_FLAGS) == 92
+    assert {"--master", "-m", "--dtype", "--superBatch", "--servePort", "-T"} <= set(JAX_FLAGS)
+
+
+def default_value(long_flag: str) -> str:
+    """The JAX package's default of a flag, as its command line spells it."""
+    if long_flag == "--name":
+        return "a-run"
+    if long_flag in OAUTH:
+        return "key-" + long_flag[2:]
+    return str(getattr(JaxConf(), long_flag[2:]))
+
+
+@pytest.mark.parametrize("flag", [f for f in JAX_FLAGS if f != "--backend"])
+def test_every_jax_flag_parses_at_its_jax_default(flag):
+    long_flag = SHORT.get(flag, flag)
+    argv = [flag, default_value(long_flag)]
+    ours, theirs = ConfArguments().parse(argv), JaxConf().parse(argv)
+    if long_flag == "--name":
+        assert ours.appName == theirs.appName() == "a-run"
+    elif long_flag in OAUTH:
+        key = "twitter4j.oauth." + long_flag[2:]
+        assert port_config.get_property(key) == jax_config.get_property(key) == argv[1]
+    for attr in vars(ours):
+        if attr not in ("appName", "backend"):
+            assert getattr(ours, attr) == getattr(theirs, attr), attr
+    ours.validate_master()
+    ours.check_ported()
+    assert ours.effective_wire() == theirs.effective_wire()
+
+
+def test_the_backend_stays_the_one_deliberate_difference():
+    assert ConfArguments().parse(["--backend", "cpu"]).backend == "cpu"
+    with pytest.raises(SystemExit) as exc:
+        ConfArguments().parse(["--backend", "tpu"])
+    assert exc.value.code == 1
+
+
+def test_the_usage_names_every_jax_flag():
+    text = ConfArguments().usage()
+    missing = [f for f in JAX_FLAGS if not re.search(re.escape(f) + r"\b", text)]
+    assert not missing
+
+
+# ---- the README's JAX command lines, module renamed ---------------------------
+
+def _readme_lines() -> list[list[str]]:
+    text = open(os.path.join(REPO, "README.md"), encoding="utf-8").read().replace("\\\n", " ")
+    out = []
+    for line in text.splitlines():
+        if line.strip().startswith("python -m twtml_tpu.apps.linear_regression"):
+            argv = line.split("#")[0].split()[3:]
+            # the one deliberate difference: the port's card is cuda
+            out.append(["cuda" if a == "tpu" else a for a in argv])
+    return out
+
+
+README_LINES = _readme_lines()
+# the ROADMAP item a README line needs, by the flag that needs it
+NEEDS = {"--ingest": "A12", "--superBatch": "A4", "--wireCodec": "A11", "--tenants": "A9",
+         "twtml://host0:9999": "A10"}
+
+
+def test_the_readme_has_its_jax_command_lines():
+    assert len(README_LINES) >= 10
+    assert ["--seconds", "0", "--wire", "ragged", "--master", "local[1]"] == README_LINES[2][4:]
+
+
+@pytest.mark.parametrize("argv", README_LINES, ids=lambda a: " ".join(a[4:])[:60])
+def test_readme_command_lines_parse_in_the_port(argv):
+    conf = ConfArguments().parse(argv)
+    JaxConf().parse([("tpu" if a == "cuda" else a) for a in argv])
+    items = [item for key, item in NEEDS.items() if key in argv]
+    conf.validate_master()
+    if items:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {items[0]}"):
+            conf.check_ported()
+    else:
+        conf.check_ported()
+
+
+def test_readme_local_1_line_runs_on_the_cpu_with_the_jax_apps_lines(monkeypatch, capsys):
+    """README.md's ``--seconds 0 --wire ragged --master local[1]`` line, with
+    the module renamed and ``--backend cpu``, prints the JAX app's lines."""
+    from twtml_tpu.apps import linear_regression as jax_app
+
+    monkeypatch.setenv("TWTML_NOW_MS", NOW_MS)
+    argv = README_LINES[2] + ["--backend", "cpu", *QUIET]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        totals = app.run(ConfArguments().parse(argv))
+    lines = [ln for ln in out.getvalue().splitlines() if ln.startswith("count:")]
+    jax.devices()
+    jax_app.run(JaxConf().parse(argv))
+    jax_lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("count:")]
+    assert lines == jax_lines and totals["count"] == 6
+
+
+# ---- values that need an unported feature -------------------------------------------
+
+UNPORTED = [
+    (["--superBatch", "4"], "A4"), (["--wireCodec", "dict"], "A11"),
+    (["--ingest", "block"], "A12"), (["--tenants", "2"], "A9"),
+    (["--hashOn", "host"], "A3d"), (["--source", "twitter"], "A3d"),
+    (["--profileDir", "/tmp/prof"], "A3d"), (["--numProcesses", "2"], "A10"),
+    (["--processId", "0"], "A10"), (["--coordinator", "host:9"], "A10"),
+    (["--elastic", "on"], "A10"), (["--master", "twtml://host:9"], "A10"),
+    (["--servePort", "9000"], "A8"), (["--serveBatchRows", "64"], "A8"),
+    (["--serveMaxWaitMs", "1.5"], "A8"), (["--serveDepth", "2"], "A8"),
+    (["--servePromoteEvery", "1.0"], "A8"), (["--routerPort", "9001"], "A8"),
+    (["--replicas", "http://a:1"], "A8"), (["--routePolicy", "hash"], "A8"),
+    (["--abtest", "on"], "A8"), (["--servingStaleSloS", "5"], "A8"),
+]
+
+
+@pytest.mark.parametrize("argv,item", UNPORTED, ids=lambda v: " ".join(v) if isinstance(v, list) else v)
+def test_unported_values_raise_naming_their_item(argv, item):
+    conf = ConfArguments().parse(argv)
+    JaxConf().parse(argv)  # the JAX parser takes the same value
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        common.select_backend(conf)
+
+
+def test_every_serve_flag_is_held():
+    assert {a[0][2:] for a, item in UNPORTED if item == "A8"} == set(SERVE_FLAGS)
+
+
+def test_the_app_refuses_an_unported_value_before_it_builds_anything(monkeypatch):
+    monkeypatch.setattr(common, "build_model",
+                        lambda conf: pytest.fail("built a model for an unported value"))
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+        app.run(ConfArguments().parse(["--backend", "cpu", "--superBatch", "4", *QUIET]))
+
+
+def test_values_the_jax_package_ignores_on_this_path_pass():
+    ConfArguments().parse(["--wirePack", "group", "--blockWire", "off", "--tenantKey", "lang",
+                           "--elasticRejoin", "off", "--elasticEvictTicks", "3",
+                           "--elasticEvictSkewMs", "10"]).check_ported()
+
+
+@pytest.mark.parametrize("master,backend,outcome", [
+    ("local", "cpu", None), ("local[1]", "cpu", None), ("local[*]", "cpu", None),
+    ("local[4]", "cuda", None), ("local[2]", "cpu", "A10"),
+])
+def test_local_master_follows_the_jax_rule(master, backend, outcome):
+    """``local[N]`` sets the CPU platform's shards in the JAX package: a no-op
+    on the card; on the CPU, N > 1 needs data parallelism (A10)."""
+    conf = ConfArguments().parse(["--master", master, "--backend", backend])
+    assert conf.local_shards() == JaxConf().parse(["--master", master]).local_shards()
+    if outcome is None:
+        common.select_backend(conf)
+    else:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {outcome}"):
+            common.select_backend(conf)
+
+
+@pytest.mark.parametrize("master", ["spark://host:7077", "mesos://m:5050", "yarn"])
+def test_cluster_masters_are_refused_as_in_the_jax_package(master):
+    with pytest.raises(SystemExit, match="unsupported --master"):
+        ConfArguments().parse(["--master", master]).validate_master()
+    with pytest.raises(SystemExit, match="unsupported --master"):
+        JaxConf().parse(["--master", master]).validate_master()
+
+
+# ---- values the JAX parser takes or refuses ---------------------------------------------
+
+@pytest.mark.parametrize("argv", [["--seconds", "-1"], ["--batchBucket", "-4"],
+                                  ["--tokenBucket", "-2"], ["-s", "-3", "--batchBucket", "-1"]])
+def test_negative_seconds_and_buckets_parse_as_in_the_jax_package(argv):
+    ours, theirs = ConfArguments().parse(argv), JaxConf().parse(argv)
+    for attr in ("seconds", "batchBucket", "tokenBucket"):
+        assert getattr(ours, attr) == getattr(theirs, attr)
+    assert ours.effective_wire() == theirs.effective_wire()
+    assert ours.effective_max_queue_rows() == theirs.effective_max_queue_rows()
+
+
+def test_negative_seconds_run_as_in_the_jax_app(monkeypatch, capsys):
+    """``--seconds -1`` runs back to back on the fetch pipeline, draining
+    the queue without a row cap, as the JAX app does: its lines."""
+    from twtml_tpu.apps import linear_regression as jax_app
+
+    monkeypatch.setenv("TWTML_NOW_MS", NOW_MS)
+    argv = ["--source", "replay", "--replayFile", DATA, "--seconds", "-1",
+            "--batchBucket", "4", "--backend", "cpu", "--master", "local[1]", *QUIET]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        totals = app.run(ConfArguments().parse(argv))
+    lines = [ln for ln in out.getvalue().splitlines() if ln.startswith("count:")]
+    jax.devices()
+    jax_app.run(JaxConf().parse(argv))
+    jax_lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("count:")]
+    assert lines == jax_lines and totals["count"] == 6
+    assert all(st["wire"] == "ragged" for st in totals["steps"])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--hashOn", "gpu"], ["--ingest", "lines"], ["--wire", "x"], ["--blockWire", "1"],
+    ["--wirePack", "x"], ["--wireCodec", "lz4"], ["--elastic", "maybe"],
+    ["--elasticRejoin", "x"], ["--tenants", "0"], ["--tenantKey", "x"],
+    ["--serveBatchRows", "0"], ["--serveDepth", "0"], ["--abtest", "x"],
+    ["--routePolicy", "rr"], ["--servingStaleSloS", "-1"], ["--perfGuard", "x"],
+    ["--historyMaxMb", "-1"], ["--superBatch", "x"], ["--numProcesses", "two"],
+    ["--master"], ["--unknownFlag", "1"],
+])
+def test_values_the_jax_parser_refuses_exit_in_both(argv):
+    with pytest.raises(SystemExit) as exc:
+        ConfArguments().parse(argv)
+    assert exc.value.code == 1
+    with pytest.raises((SystemExit, ValueError)):
+        JaxConf().parse(argv)

@@ -490,9 +490,14 @@ def test_put_back_rows_are_counted_and_never_shed():
 # ---- settings outside this slice -------------------------------------------------
 
 def test_history_resolving_on_raises_naming_the_historian(tmp_path):
-    conf = ConfArguments().parse(["--backend", "cpu", "--checkpointDir", str(tmp_path)])
+    """The historian is ported (tests/test_torch_history.py runs it): what
+    still raises is ``--history on`` without a checkpoint directory, as the
+    JAX package's ``install_historian`` refuses it."""
+    conf = ConfArguments().parse(["--backend", "cpu", "--history", "on",
+                                  "--lightning", "http://127.0.0.1:9",
+                                  "--twtweb", "http://127.0.0.1:9"])
     assert conf.effective_history()
-    with pytest.raises(NotImplementedError, match="historian.*--history off"):
+    with pytest.raises(SystemExit, match="--checkpointDir: the historian"):
         app.run(conf)
 
 

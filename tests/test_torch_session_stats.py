@@ -424,12 +424,18 @@ def test_app_posts_what_the_jax_app_posts(monkeypatch, capsys):
     metrics snapshots differ by design (each package counts its own
     pipeline)."""
     from twtml_tpu.apps import linear_regression as jax_app
+    from twtml_tpu.telemetry import lineage as jax_lineage
     from twtml_tpu.telemetry import modelwatch as jax_modelwatch
-    from twtml_tpu_torch.telemetry import modelwatch
+    from twtml_tpu_torch.telemetry import lineage, modelwatch
 
     monkeypatch.setenv("TWTML_NOW_MS", "1700000000000")
     modelwatch.reset_for_tests()
     jax_modelwatch.reset_for_tests()
+    # each package's lineage FIFOs are process-wide and outlive a run: a
+    # batch another test in this worker opened and never dispatched would
+    # hand its record to these runs' freshness views
+    lineage.reset_for_tests()
+    jax_lineage.reset_for_tests()
     with Recorder() as rec:
         argv = ["--source", "replay", "--replayFile", DATA, "--seconds", "0",
                 "--batchBucket", "4", "--backend", "cpu", "--lightning", rec.url,

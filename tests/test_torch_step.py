@@ -121,8 +121,6 @@ def test_set_initial_weights_and_reset():
 
 @pytest.mark.parametrize("kw,item", [
     ({"num_text_features": 2**18}, "A6"),
-    ({"mini_batch_fraction": 0.5}, "A2"),
-    ({"dtype": torch.float64}, "float32"),
 ])
 def test_out_of_slice_configurations_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):

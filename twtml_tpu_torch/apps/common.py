@@ -1,6 +1,7 @@
 """Shared app runtime, single host (counterpart of the single-host parts of
 ``twtml_tpu/apps/common.py``): source and model construction, the
-``--trace``/``--chaos``/``--blackbox``/``--journal`` installers, the
+``--trace``/``--chaos``/``--blackbox``/``--journal``/``--history``
+installers, the backend checks (``select_backend``), the
 checkpoint (``AppCheckpoint``) and journal recovery, the runtime guards
 (``DivergenceSentinel``, ``ModelWatchGuard``, ``FreshnessGuard``,
 ``ProcessRecycler``), the fetch watchdog, the depth-D fetch pipeline of
@@ -49,11 +50,13 @@ from ..features.batch import (
     pack_batch, wire_nbytes,
 )
 from ..models.linear import StreamingLinearRegressionWithSGD
+from ..models.sgd import DTYPES
 from ..streaming import faults as _faults
 from ..streaming import journal as _journal
 from ..streaming.sources import ReplayFileSource, SkipRowsSource, Source, SyntheticSource
 from ..telemetry import blackbox as _blackbox
 from ..telemetry import freshness as _freshness
+from ..telemetry import historian as _historian
 from ..telemetry import lineage as _lineage
 from ..telemetry import metrics as _metrics
 from ..telemetry import modelwatch as _modelwatch
@@ -61,6 +64,7 @@ from ..telemetry import sideband as _sideband
 from ..telemetry import trace as _trace
 from ..utils import get_logger
 from ..utils.rss import RssWatchdog, rss_mb
+from ..utils.runid import config_fingerprint, next_run_id
 
 log = get_logger("apps.common")
 
@@ -172,16 +176,50 @@ def install_journal(conf) -> None:
                      max_mb=int(conf.journalMaxMb or 512))
 
 
-def check_history(conf) -> None:
-    """The telemetry historian (``--history``) is not ported: when it
-    resolves on (``--checkpointDir`` with ``--history auto|on``) the run
-    stops here rather than run without it unannounced."""
-    if conf.effective_history():
+def install_historian(conf) -> None:
+    """``--history`` (auto: on with ``--checkpointDir``): open the telemetry
+    historian under ``<checkpointDir>/history``, so SessionStats' publish
+    seam samples into it, with a run id from the counter the JAX package
+    shares and the config's fingerprint. Off uninstalls a historian an
+    earlier run in the same process left."""
+    if not conf.effective_history():
+        _historian.uninstall()
+        return
+    if not conf.checkpointDir:
+        raise SystemExit("--history on requires --checkpointDir: the historian "
+                         "segments and the --perfGuard baseline live under it (use "
+                         "--history auto to follow the checkpoint flag)")
+    _historian.configure(
+        os.path.join(conf.checkpointDir, "history"),
+        max_mb=int(conf.historyMaxMb or 256),
+        perf_guard=conf.perfGuard == "warn",
+        guard_ratio=float(conf.perfGuardRatio or 1.5),
+        run_id=next_run_id(),
+        fingerprint=config_fingerprint(conf),
+    )
+
+
+def select_backend(conf) -> None:
+    """The JAX package's ``select_backend`` checks for the port, before
+    anything is built: ``--master`` (``validate_master``), the values that
+    need an unported feature (``check_ported``), ``--dtype`` (float64 on
+    ``--backend cpu`` only: the JAX package runs it on its CPU backend
+    alone) and ``local[N]``, which sets the CPU's data-parallel shards in
+    the JAX package: a no-op on the card, and N > 1 on the CPU needs the
+    data-parallel runtime (ROADMAP A10)."""
+    conf.validate_master()
+    conf.check_ported()
+    if conf.dtype not in DTYPES:
+        raise SystemExit(f"--dtype {conf.dtype!r}: the port trains {'|'.join(DTYPES)}")
+    if conf.dtype == "float64" and conf.backend != "cpu":
+        raise SystemExit("--dtype float64 runs on the CPU backend only (as in the "
+                         "JAX package); add --backend cpu")
+    shards = conf.local_shards()
+    if conf.backend == "cpu" and shards and shards > 1:
         raise NotImplementedError(
-            "--history resolves on (--checkpointDir with --history auto|on), but "
-            "the telemetry historian is not ported (ROADMAP A3, historian): pass "
-            "--history off"
-        )
+            f"--master {conf.master} shards the batch over {shards} CPU devices, "
+            "which needs the data-parallel runtime the port has not ported "
+            "(ROADMAP A10); use local[1] or local[*]")
 
 
 # ---- checkpoint and journal recovery ---------------------------------------

@@ -13,11 +13,14 @@ batch. The step is built and warmed before the stream starts.
 
 The runtime guards are wired as in the JAX app: the tracer (``--trace``),
 the fault injector (``--chaos``), the flight recorder (``--blackbox``, on
-by default) and, with ``--checkpointDir``, the intake journal; the
-checkpoint restores, the journal's boot replay resumes, the recycler
-(``--recycleAfterMb``) watches RSS; every delivery passes the divergence
-sentinel, the model watch and the freshness plane (all on by default). The
-telemetry historian and multi-host are not ported (ROADMAP A3, A10).
+by default) and, with ``--checkpointDir``, the intake journal and the
+telemetry historian; the checkpoint restores, the journal's boot replay
+resumes, the recycler (``--recycleAfterMb``) watches RSS; every delivery
+passes the divergence sentinel, the model watch and the freshness plane
+(all on by default). A clean shutdown stamps the historian's perfGuard
+baseline. Values of the JAX package's flags that need an unported feature
+(multi-host among them, ROADMAP A10) stop the run before anything is built
+(``select_backend``).
 
 Run: ``python -m twtml_tpu_torch.apps.linear_regression --backend cpu \
       --source replay --replayFile tests/data/tweets.jsonl --seconds 0 \
@@ -37,6 +40,7 @@ from ..features.featurizer import Featurizer
 from ..streaming import journal as _journal
 from ..streaming.context import StreamingContext
 from ..telemetry import freshness as _freshness
+from ..telemetry import historian as _historian
 from ..telemetry import trace as _trace
 from ..telemetry.session_stats import SessionStats
 from ..utils import get_logger, round_half_up
@@ -50,12 +54,13 @@ from .common import (
     attach_super_batcher,
     build_model,
     build_source,
-    check_history,
     install_blackbox,
     install_chaos,
+    install_historian,
     install_journal,
     install_trace,
     journal_boot_replay,
+    select_backend,
     warmup_compile,
 )
 
@@ -78,7 +83,7 @@ def run(conf: ConfArguments, max_batches: int = 0, fetch_depth: int = FETCH_DEPT
     ``fetch_depth`` sets the back-to-back stream's batches in flight.
     A run a runtime guard aborted (the fetch watchdog, the sentinel's
     rollback budget) raises after its shutdown saved the final checkpoint."""
-    check_history(conf)
+    select_backend(conf)
     # the model first: without a card the default --backend cuda fails here,
     # before anything is published
     model = build_model(conf)
@@ -90,6 +95,7 @@ def run(conf: ConfArguments, max_batches: int = 0, fetch_depth: int = FETCH_DEPT
     install_chaos(conf)
     install_blackbox(conf)
     install_journal(conf)
+    install_historian(conf)
 
     log.info("Initializing streaming context... %s sec/batch", conf.seconds)
     ssc = StreamingContext(
@@ -183,6 +189,11 @@ def run(conf: ConfArguments, max_batches: int = 0, fetch_depth: int = FETCH_DEPT
         # after the final save, which stamps the journal's cursor; a later
         # run() in this process starts without it
         _journal.uninstall()
+        # the perfGuard baseline stamps on a clean shutdown only: an aborted
+        # run's stage costs must not become the next run's healthy baseline
+        if not ssc.failed:
+            _historian.stamp_baseline()
+        _historian.uninstall()
     if ssc.failed:
         raise RuntimeError(
             "run aborted by a runtime guard: a fetch watchdog abort, the "

@@ -1,11 +1,15 @@
 """Configuration + CLI flags of the port's linear-regression app (counterpart
-of a subset of ``twtml_tpu/config.py``).
+of ``twtml_tpu/config.py``).
 
 Defaults come from the port's own ``resources/reference.conf`` and equal the
-JAX package's; flag names and short aliases are the JAX package's.
-``--backend`` takes ``cuda|cpu`` (default ``cuda``). ``--wire auto``
-resolves by the JAX package's rule: ragged for a back-to-back stream
-(``--seconds 0``), padded under a wall clock.
+JAX package's. The parser takes every flag and short alias of the JAX
+package's parser; ``--backend`` is the one deliberate difference (``cuda|cpu``,
+default ``cuda``). A value that selects a feature the port has not ported
+(a superbatch, the digram codec, block ingest, tenants, host hashing, the
+live Twitter source, ``--profileDir``, serving, multi-host) parses, and
+``check_ported`` then raises ``NotImplementedError`` naming its ROADMAP
+item. ``--wire auto`` resolves by the JAX package's rule: ragged for a
+back-to-back stream (``--seconds 0`` or below), padded under a wall clock.
 """
 
 from __future__ import annotations
@@ -14,10 +18,24 @@ import sys
 from importlib import resources as _importlib_resources
 
 BACKENDS = ("cuda", "cpu")
-SOURCES = ("replay", "synthetic")
-WIRES = ("auto", "ragged", "padded")
+SOURCES = ("replay", "synthetic", "twitter")
 MODES = ("auto", "on", "off")
+ON_OFF = ("on", "off")
 SHED_POLICIES = ("block", "shed-oldest")
+
+# process-wide property table: the OAuth keys land here under
+# ``twitter4j.oauth.*``, as in the JAX package (the reference's JVM
+# system properties)
+_SYSTEM_PROPERTIES: dict[str, str] = {}
+_OAUTH_KEYS = ("consumerKey", "consumerSecret", "accessToken", "accessTokenSecret")
+
+
+def set_property(key: str, value: str) -> None:
+    _SYSTEM_PROPERTIES[key] = value
+
+
+def get_property(key: str, default: str | None = None) -> str | None:
+    return _SYSTEM_PROPERTIES.get(key, default)
 
 
 def parse_conf_text(text: str) -> dict[str, str]:
@@ -51,6 +69,64 @@ def _load_defaults() -> dict[str, str]:
     return parse_conf_text(ref.read_text())
 
 
+# attribute -> type, for every key of reference.conf but the OAuth keys
+_TYPES: dict[str, type] = {
+    "lightning": str, "twtweb": str, "seconds": int, "stepSize": float,
+    "numIterations": int, "miniBatchFraction": float, "numRetweetBegin": int,
+    "numRetweetEnd": int, "numTextFeatures": int, "backend": str, "source": str,
+    "replayFile": str, "replaySpeed": float, "batchBucket": int, "tokenBucket": int,
+    "l2Reg": float, "convergenceTol": float, "modelWatch": str, "wire": str,
+    "featurizeNative": str, "wireAssemble": str, "webTimeout": float,
+    "maxQueueRows": int, "shedPolicy": str, "checkpointDir": str,
+    "checkpointEvery": int, "journal": str, "journalMaxMb": int, "history": str,
+    "trace": str, "traceMaxMb": int, "blackbox": str, "faultEvery": int,
+    "chaos": str, "recycleAfterMb": int, "sentinel": str, "sentinelRollbacks": int,
+    "sentinelWindow": int, "modelWatchWindow": int, "freshness": str,
+    "freshnessSloMs": float, "dtype": str, "hashOn": str, "ingest": str,
+    "blockWire": str, "historyMaxMb": int, "perfGuard": str,
+    "perfGuardRatio": float, "profileDir": str, "superBatch": int,
+    "wirePack": str, "wireCodec": str, "elastic": str, "elasticEvictTicks": int,
+    "elasticEvictSkewMs": float, "elasticRejoin": str, "tenants": int,
+    "tenantKey": str, "servePort": int, "serveBatchRows": int,
+    "serveMaxWaitMs": float, "serveDepth": int, "servePromoteEvery": float,
+    "routerPort": int, "replicas": str, "routePolicy": str, "abtest": str,
+    "servingStaleSloS": float, "coordinator": str, "numProcesses": int,
+    "processId": int,
+}
+
+# short aliases of the JAX parser (the reference's own flags)
+_SHORT = {
+    "-l": "lightning", "-w": "twtweb", "-s": "seconds", "-p": "stepSize",
+    "-i": "numIterations", "-b": "miniBatchFraction", "-B": "numRetweetBegin",
+    "-E": "numRetweetEnd", "-f": "numTextFeatures",
+}
+
+# values the JAX parser validates, and how: a tuple is the allowed set, a
+# callable the check on the parsed number
+_VALID = {
+    "backend": BACKENDS, "source": SOURCES, "modelWatch": ON_OFF,
+    "wire": ("auto", "ragged", "padded"), "featurizeNative": MODES,
+    "wireAssemble": MODES, "shedPolicy": SHED_POLICIES,
+    "journal": MODES, "journalMaxMb": lambda v: v > 0, "history": MODES,
+    "historyMaxMb": lambda v: v > 0, "perfGuard": ("warn", "off"),
+    "perfGuardRatio": lambda v: v > 1.0, "blackbox": ON_OFF, "sentinel": ON_OFF,
+    "freshness": ON_OFF, "freshnessSloMs": lambda v: v >= 0,
+    "hashOn": ("device", "host"), "ingest": ("object", "block"),
+    "blockWire": MODES, "wirePack": ("auto", "stacked", "group"),
+    "wireCodec": ("auto", "off", "dict"), "elastic": ON_OFF,
+    "elasticRejoin": ON_OFF, "tenants": lambda v: v >= 1,
+    "tenantKey": ("hash", "lang"), "serveBatchRows": lambda v: v >= 1,
+    "serveDepth": lambda v: v >= 1, "abtest": ON_OFF,
+    "routePolicy": ("p99", "hash"), "servingStaleSloS": lambda v: v >= 0,
+}
+
+# the serving and router flags (apps/serve.py, apps/router.py of the JAX
+# package): any value but the default needs ROADMAP A8
+SERVE_FLAGS = ("servePort", "serveBatchRows", "serveMaxWaitMs", "serveDepth",
+               "servePromoteEvery", "routerPort", "replicas", "routePolicy",
+               "abtest", "servingStaleSloS")
+
+
 class ConfArguments:
     """The knobs of the port's linear-regression app; attribute names are
     the flags' camelCase names, as in the JAX package."""
@@ -58,47 +134,14 @@ class ConfArguments:
     def __init__(self) -> None:
         conf = _load_defaults()
         self.appName = "twitter-stream-ml"
-        self.lightning: str = conf["lightning"]
-        self.twtweb: str = conf["twtweb"]
-        self.seconds: int = int(conf["seconds"])
-        self.stepSize: float = float(conf["stepSize"])
-        self.numIterations: int = int(conf["numIterations"])
-        self.miniBatchFraction: float = float(conf["miniBatchFraction"])
-        self.numRetweetBegin: int = int(conf["numRetweetBegin"])
-        self.numRetweetEnd: int = int(conf["numRetweetEnd"])
-        self.numTextFeatures: int = int(conf["numTextFeatures"])
-        self.backend: str = conf["backend"]
-        self.source: str = conf["source"]
-        self.replayFile: str = conf["replayFile"]
-        self.replaySpeed: float = float(conf["replaySpeed"])
-        self.batchBucket: int = int(conf["batchBucket"])
-        self.tokenBucket: int = int(conf["tokenBucket"])
-        self.l2Reg: float = float(conf["l2Reg"])
-        self.convergenceTol: float = float(conf["convergenceTol"])
-        self.modelWatch: str = conf["modelWatch"]
-        self.wire: str = conf["wire"]
-        self.featurizeNative: str = conf["featurizeNative"]
-        self.wireAssemble: str = conf["wireAssemble"]
-        self.webTimeout: float = float(conf["webTimeout"])
-        self.maxQueueRows: int = int(conf["maxQueueRows"])
-        self.shedPolicy: str = conf["shedPolicy"]
-        self.checkpointDir: str = conf["checkpointDir"]
-        self.checkpointEvery: int = int(conf["checkpointEvery"])
-        self.journal: str = conf["journal"]
-        self.journalMaxMb: int = int(conf["journalMaxMb"])
-        self.history: str = conf["history"]
-        self.trace: str = conf["trace"]
-        self.traceMaxMb: int = int(conf["traceMaxMb"])
-        self.blackbox: str = conf["blackbox"]
-        self.faultEvery: int = int(conf["faultEvery"])
-        self.chaos: str = conf["chaos"]
-        self.recycleAfterMb: int = int(conf["recycleAfterMb"])
-        self.sentinel: str = conf["sentinel"]
-        self.sentinelRollbacks: int = int(conf["sentinelRollbacks"])
-        self.sentinelWindow: int = int(conf["sentinelWindow"])
-        self.modelWatchWindow: int = int(conf["modelWatchWindow"])
-        self.freshness: str = conf["freshness"]
-        self.freshnessSloMs: float = float(conf["freshnessSloMs"])
+        for attr, kind in _TYPES.items():
+            setattr(self, attr, kind(conf[attr]))
+        # --master: local, local[N] or local[*] run on one host (the JAX
+        # package's default); twtml://host:port names a multi-host group
+        self.master: str = "local[*]"
+        for key in _OAUTH_KEYS:
+            if conf.get(key, ""):
+                set_property("twitter4j.oauth." + key, conf[key])
 
     def setAppName(self, name: str) -> "ConfArguments":
         self.appName = name
@@ -106,11 +149,20 @@ class ConfArguments:
 
     def usage(self) -> str:
         return f"""Usage: {self.appName} [options]
+  -m, --master <master_url>                    local, local[N] or local[*]: one host (local[N] > 1
+                                               on --backend cpu needs data parallelism, not
+                                               ported); twtml://host:port: multi-host, not
+                                               ported; other schemes are refused. Default: {self.master}
+  -n, --name <name>                            A name of your application.
+  -C, --consumerKey <consumerKey>              Twitter's consumer key
+  -S, --consumerSecret <consumerSecret>        Twitter's consumer secret
+  -A, --accessToken <accessToken>              Twitter's access token
+  -T, --accessTokenSecret <accessTokenSecret>  Twitter's access token secret
   -l, --lightning <lightning_url>              Default: {self.lightning}
   -w, --twtweb <twtweb_url>                    Default: {self.twtweb}
-  -s, --seconds <integer number>               Micro-batch interval; 0 = back to back (one
-                                               --batchBucket of tweets a batch). Default: {self.seconds}
-  --source <replay|synthetic>                  Default: {self.source}
+  -s, --seconds <integer number>               Micro-batch interval; 0 or below = back to back
+                                               (one --batchBucket of tweets a batch). Default: {self.seconds}
+  --source <replay|synthetic|twitter>          twitter is not ported. Default: {self.source}
   --replayFile <path.jsonl>                    Tweets to replay with --source replay
   --replaySpeed <float>                        0 = as fast as possible, else x realtime
                                                (replay) or tweets/s (synthetic). Default: {self.replaySpeed}
@@ -121,12 +173,17 @@ class ConfArguments:
                                                Default: {self.tokenBucket}
   -p, --stepSize <float>                       Default: {self.stepSize}
   -i, --numIterations <int>                    Default: {self.numIterations}
-  -b, --miniBatchFraction <float>              Default: {self.miniBatchFraction}
+  -b, --miniBatchFraction <float>              Bernoulli mini-batch of each iteration (the JAX
+                                               package's threefry masks, bit for bit); below 1 the
+                                               step runs as torch ops. Default: {self.miniBatchFraction}
   -f, --numTextFeatures <int>                  Default: {self.numTextFeatures}
   -B, --numRetweetBegin <int>                  Default: {self.numRetweetBegin}
   -E, --numRetweetEnd <int>                    Default: {self.numRetweetEnd}
   --l2Reg <float>                              Default: {self.l2Reg}
   --convergenceTol <float>                     Default: {self.convergenceTol}
+  --dtype <float32|bfloat16|float64>           Weight and step dtype: float32 runs the fused
+                                               kernel, bfloat16 the torch step; float64 runs
+                                               on --backend cpu only. Default: {self.dtype}
   --modelWatch <on|off>                        In-step quality vector. Default: {self.modelWatch}
   --wire <auto|ragged|padded>                  Units wire: ragged ships the rows' units concatenated
                                                with uint16 length deltas in ONE packed buffer (one
@@ -159,9 +216,17 @@ class ConfArguments:
                                                instead of lost; auto = on iff --checkpointDir.
                                                Default: {self.journal}
   --journalMaxMb <int MB>                      Journal disk ceiling. Default: {self.journalMaxMb}
-  --history <auto|on|off>                      Telemetry historian: not ported; auto resolves on
-                                               with --checkpointDir and then stops the run, so
-                                               pass --history off. Default: {self.history}
+  --history <auto|on|off>                      Telemetry historian: CRC-framed time-series segments
+                                               under <checkpointDir>/history, sampled at the stats
+                                               publish (host views only); auto = on iff
+                                               --checkpointDir. Default: {self.history}
+  --historyMaxMb <int MB>                      Historian disk ceiling; the oldest segments are
+                                               dropped past it. Default: {self.historyMaxMb}
+  --perfGuard <warn|off>                       Cross-run stage regression sentinel against the
+                                               baseline.json a clean shutdown stamps; warn-only.
+                                               Default: {self.perfGuard}
+  --perfGuardRatio <float>                     Sustained-regression threshold. Default: {self.perfGuardRatio}
+  --profileDir <path>                          Profiler traces: not ported (ROADMAP A3d).
   --trace <path.trace>                         Chrome-trace-event pipeline trace (Perfetto).
   --traceMaxMb <int MB>                        Rotate the --trace file at this size; 0 = never.
                                                Default: {self.traceMaxMb}
@@ -188,6 +253,15 @@ class ConfArguments:
                                                batch from its lineage. Default: {self.freshness}
   --freshnessSloMs <float ms>                  Warn-only freshness SLO (forces one checkpoint an
                                                episode); 0 = none. Default: {self.freshnessSloMs}
+
+  The JAX package's other flags parse with its defaults; a value other than
+  the single-host default stops the run naming the ROADMAP item it needs:
+  --hashOn host (A3d), --ingest block and --blockWire (A12), --superBatch > 1
+  and --wirePack (A4), --wireCodec dict (A11), --tenants > 1 and --tenantKey
+  (A9), --servePort, --serveBatchRows, --serveMaxWaitMs, --serveDepth,
+  --servePromoteEvery, --routerPort, --replicas, --routePolicy, --abtest and
+  --servingStaleSloS (A8), --coordinator, --numProcesses, --processId,
+  --elastic, --elasticEvictTicks, --elasticEvictSkewMs and --elasticRejoin (A10).
   -h, --help
 """
 
@@ -197,93 +271,76 @@ class ConfArguments:
 
     def parse(self, args: list[str]) -> "ConfArguments":
         """Apply ``args`` (flag value pairs); an unknown flag, a missing or
-        malformed value prints the usage and exits 1."""
-        setters = {
-            "--lightning": ("lightning", str),
-            "-l": ("lightning", str),
-            "--twtweb": ("twtweb", str),
-            "-w": ("twtweb", str),
-            "--seconds": ("seconds", int),
-            "-s": ("seconds", int),
-            "--source": ("source", str),
-            "--replayFile": ("replayFile", str),
-            "--replaySpeed": ("replaySpeed", float),
-            "--backend": ("backend", str),
-            "--batchBucket": ("batchBucket", int),
-            "--tokenBucket": ("tokenBucket", int),
-            "--stepSize": ("stepSize", float),
-            "-p": ("stepSize", float),
-            "--numIterations": ("numIterations", int),
-            "-i": ("numIterations", int),
-            "--miniBatchFraction": ("miniBatchFraction", float),
-            "-b": ("miniBatchFraction", float),
-            "--numTextFeatures": ("numTextFeatures", int),
-            "-f": ("numTextFeatures", int),
-            "--numRetweetBegin": ("numRetweetBegin", int),
-            "-B": ("numRetweetBegin", int),
-            "--numRetweetEnd": ("numRetweetEnd", int),
-            "-E": ("numRetweetEnd", int),
-            "--l2Reg": ("l2Reg", float),
-            "--convergenceTol": ("convergenceTol", float),
-            "--modelWatch": ("modelWatch", str),
-            "--wire": ("wire", str),
-            "--featurizeNative": ("featurizeNative", str),
-            "--wireAssemble": ("wireAssemble", str),
-            "--webTimeout": ("webTimeout", float),
-            "--maxQueueRows": ("maxQueueRows", int),
-            "--shedPolicy": ("shedPolicy", str),
-            "--checkpointDir": ("checkpointDir", str),
-            "--checkpointEvery": ("checkpointEvery", int),
-            "--journal": ("journal", str),
-            "--journalMaxMb": ("journalMaxMb", int),
-            "--history": ("history", str),
-            "--trace": ("trace", str),
-            "--traceMaxMb": ("traceMaxMb", int),
-            "--blackbox": ("blackbox", str),
-            "--faultEvery": ("faultEvery", int),
-            "--chaos": ("chaos", str),
-            "--recycleAfterMb": ("recycleAfterMb", int),
-            "--sentinel": ("sentinel", str),
-            "--sentinelRollbacks": ("sentinelRollbacks", int),
-            "--sentinelWindow": ("sentinelWindow", int),
-            "--modelWatchWindow": ("modelWatchWindow", int),
-            "--freshness": ("freshness", str),
-            "--freshnessSloMs": ("freshnessSloMs", float),
-        }
+        malformed value, or one the JAX parser refuses prints the usage and
+        exits 1."""
         i = 0
         while i < len(args):
             flag = args[i]
             if flag in ("-h", "--help"):
                 self.printUsage(0)
-            if flag not in setters or i + 1 >= len(args):
+            if i + 1 >= len(args):
                 self.printUsage(1)
-            attr, kind = setters[flag]
-            try:
-                setattr(self, attr, kind(args[i + 1]))
-            except ValueError:
-                self.printUsage(1)
+            value = args[i + 1]
             i += 2
-        if (
-            self.backend not in BACKENDS
-            or self.source not in SOURCES
-            or self.modelWatch not in ("on", "off")
-            or self.seconds < 0
-            or self.batchBucket < 0
-            or self.tokenBucket < 0
-            or self.wire not in WIRES
-            or self.featurizeNative not in MODES
-            or self.wireAssemble not in MODES
-            or self.shedPolicy not in SHED_POLICIES
-            or self.journal not in MODES
-            or self.journalMaxMb <= 0
-            or self.history not in MODES
-            or self.blackbox not in ("on", "off")
-            or self.sentinel not in ("on", "off")
-            or self.freshness not in ("on", "off")
-            or self.freshnessSloMs < 0
-        ):
-            self.printUsage(1)
+            if flag in ("--master", "-m"):
+                self.master = value
+            elif flag in ("--name", "-n"):
+                self.setAppName(value)
+            elif flag in ("--consumerKey", "-C"):
+                set_property("twitter4j.oauth.consumerKey", value)
+            elif flag in ("--consumerSecret", "-S"):
+                set_property("twitter4j.oauth.consumerSecret", value)
+            elif flag in ("--accessToken", "-A"):
+                set_property("twitter4j.oauth.accessToken", value)
+            elif flag in ("--accessTokenSecret", "-T"):
+                set_property("twitter4j.oauth.accessTokenSecret", value)
+            else:
+                attr = _SHORT.get(flag) or (flag[2:] if flag.startswith("--") else "")
+                if attr not in _TYPES:
+                    self.printUsage(1)
+                try:
+                    setattr(self, attr, _TYPES[attr](value))
+                except ValueError:
+                    self.printUsage(1)
+        for attr, rule in _VALID.items():
+            value = getattr(self, attr)
+            if not (rule(value) if callable(rule) else value in rule):
+                self.printUsage(1)
         return self
+
+    def check_ported(self) -> None:
+        """Raise ``NotImplementedError`` naming the ROADMAP item of the
+        first value that selects a feature the port has not ported. Values
+        the JAX package ignores on this path (``--wirePack`` without a
+        superbatch, ``--blockWire`` without block ingest, ``--tenantKey``
+        with one tenant, the elastic knobs with ``--elastic off``) pass."""
+        defaults = ConfArguments()
+
+        def refuse(flag, what, item):
+            raise NotImplementedError(
+                f"{flag} needs {what}, which the port has not ported (ROADMAP {item})")
+
+        if self.superBatch > 1:
+            refuse(f"--superBatch {self.superBatch}", "the superbatch", "A4")
+        if self.wireCodec == "dict":
+            refuse("--wireCodec dict", "the digram wire codec", "A11")
+        if self.ingest == "block":
+            refuse("--ingest block", "block ingest", "A12")
+        if self.tenants > 1:
+            refuse(f"--tenants {self.tenants}", "the tenant plane", "A9")
+        if self.hashOn == "host":
+            refuse("--hashOn host", "host hashing", "A3d")
+        if self.source == "twitter":
+            refuse("--source twitter", "the live Twitter source", "A3d")
+        if self.profileDir:
+            refuse("--profileDir", "the profiler tracer", "A3d")
+        for attr in SERVE_FLAGS:
+            if getattr(self, attr) != getattr(defaults, attr):
+                refuse(f"--{attr} {getattr(self, attr)}", "serving", "A8")
+        if (self.coordinator or self.numProcesses != 0 or self.processId != -1
+                or self.master.startswith("twtml://") or self.elastic == "on"):
+            refuse("--coordinator/--numProcesses/--processId/--elastic or a "
+                   "twtml:// master", "the multi-host runtime", "A10")
 
     def effective_wire(self) -> str:
         """Resolve ``--wire auto`` by the JAX package's rule
@@ -305,8 +362,9 @@ class ConfArguments:
         return bool(self.checkpointDir)
 
     def effective_history(self) -> bool:
-        """Resolve ``--history auto`` by the same rule. The historian is not
-        ported: the app raises when this resolves on."""
+        """Resolve ``--history auto`` by the same rule: the historian's
+        segments and the perfGuard baseline live under ``--checkpointDir``.
+        ``on`` without one is refused where the historian is installed."""
         if self.history != "auto":
             return self.history == "on"
         return bool(self.checkpointDir)
@@ -320,3 +378,39 @@ class ConfArguments:
         if self.maxQueueRows < 0:
             return 0
         return 8 * self.batchBucket if self.batchBucket > 0 else 0
+
+    def local_shards(self) -> int | None:
+        """The N of a ``local[N]`` master; None for ``local`` and
+        ``local[*]`` (the JAX package's ``local_shards``)."""
+        m = self.master
+        if m.startswith("local[") and m.endswith("]"):
+            inner = m[len("local["):-1]
+            if inner != "*":
+                try:
+                    return max(1, int(inner))
+                except ValueError:
+                    return None
+        return None
+
+    def validate_master(self) -> None:
+        """The JAX package's ``validate_master``: ``local``/``local[N]`` stay
+        single-host; ``twtml://host:port`` fills ``--coordinator`` (a
+        multi-host group, which ``check_ported`` then refuses); any other
+        scheme, the reference's ``spark://`` among them, exits."""
+        m = self.master
+        if m == "local" or (m.startswith("local[") and m.endswith("]")):
+            return
+        if m.startswith("twtml://"):
+            addr = m[len("twtml://"):].rstrip("/")
+            if not addr:
+                raise SystemExit("--master twtml:// needs host:port")
+            if self.coordinator and self.coordinator != addr:
+                raise SystemExit(f"--master {m} conflicts with --coordinator "
+                                 f"{self.coordinator}")
+            self.coordinator = addr
+            return
+        raise SystemExit(
+            f"unsupported --master {m!r}: use local[N] for single-host, or "
+            "twtml://host:port (equivalently --coordinator host:port "
+            "--numProcesses N --processId I) for a multi-host group"
+        )

@@ -8,20 +8,24 @@ round HALF_UP, compute the batch stats (and the quality vector under
 ``--modelWatch``), then run ``numIterations`` of MLlib's GradientDescent.
 
 MLlib semantics kept (``sgd_inner_loop``): 1-indexed stepSize/sqrt(i); L2
-pre-scale w <- w(1 - eta*lambda); an iteration with zero samples leaves w
-unchanged; converged once ||w_i - w_{i-1}|| < tol * max(||w_i||, 1), then
-frozen.
+pre-scale w <- w(1 - eta*lambda); Bernoulli mini-batch sampling per
+iteration with the JAX package's threefry keys (PRNGKey(42) folded with i,
+``ops/prng.py``); an iteration with zero samples leaves w unchanged;
+converged once ||w_i - w_{i-1}|| < tol * max(||w_i||, 1), then frozen.
 
-The loop runs in ``ops/fused_sgd.fused_dense_sgd``: the hand-written kernel
-when the model is on ``cuda``, its plain twin on the CPU. The predictions
-are that call's ``raw_predictions`` output (X in bf16 times the pre-update
-weights, summed in f32): the text counts are exact in bf16 and the numeric
-features are of order 1e-6, so this differs from the JAX package's f32
-``x @ w`` only in summation order and in the last bits of the numeric terms.
-
-Outside this slice, configurations raise ``NotImplementedError``: the
-sparse regime (numTextFeatures > 8192), Bernoulli mini-batch sampling
-(miniBatchFraction < 1) and weight types other than float32.
+The loop's route is chosen by configuration (``dense_route``), never on a
+failure. At miniBatchFraction 1 with float32 weights (the default) it runs
+in ``ops/fused_sgd.fused_dense_sgd``: the hand-written kernel when the model
+is on ``cuda``, its plain twin on the CPU. Its predictions are that call's
+``raw_predictions`` (X in bf16 times the pre-update weights, summed in
+f32): the text counts are exact in bf16 and the numeric features are of
+order 1e-6, so this differs from the JAX package's f32 ``x @ w`` only in
+summation order and in the last bits of the numeric terms. A Bernoulli
+mini-batch (fraction < 1) or bfloat16/float64 weights, which the kernel
+does not compute, run the JAX package's loop as torch ops in the weights'
+type (``dense_sgd_loop``), with every iteration's mask drawn in one batched
+pass before the loop. The sparse regime (numTextFeatures > 8192) raises
+``NotImplementedError`` (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -37,19 +41,47 @@ from ..features.batch import (
     UnitBatch,
     unpack_batch,
 )
+from ..ops import prng
 from ..ops.fused_sgd import fused_dense_sgd
 from ..ops.quality import quality_vector
 from ..ops.ragged import ragged_repad
 from ..ops.sparse import densify_text
 from ..ops.stats import batch_stats
 from ..ops.text_hash import hash_bigrams_device
+from ..utils import get_logger
 from ..utils.device import resolve_device
 from ..utils.rounding import torch_round_half_up
 from .base import StepOutput
 
+log = get_logger("models.sgd")
+
 # above this text-feature count the JAX package switches to its sparse
 # (gather/scatter, Gram) regime
 DENSE_TEXT_FEATURE_LIMIT = 8192
+
+# GradientDescent samples with seed 42 (the JAX package's MLLIB_SAMPLING_SEED)
+MLLIB_SAMPLING_SEED = 42
+
+# --dtype names and their torch types
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float64": torch.float64}
+
+# sampling-mask sets kept a step (one per batch row count)
+_MASK_CACHE_SIZE = 8
+
+
+def _step_scalars(step_size: float, l2_reg: float, it: int, dtype) -> tuple[float, float]:
+    """(eta, 1 - eta*lambda) of iteration ``it`` in the weights' float type,
+    as the JAX loop computes them: eta = stepSize / sqrt(dtype(i)), each op
+    rounded to ``dtype`` (host scalars, exactly representable in it)."""
+    if dtype == torch.float32:
+        eta = np.float32(step_size) / np.sqrt(np.float32(it))
+        return float(eta), float(np.float32(1.0) - eta * np.float32(l2_reg))
+    if dtype == torch.float64:
+        eta = np.float64(step_size) / np.sqrt(np.float64(it))
+        return float(eta), float(1.0 - eta * np.float64(l2_reg))
+    one = torch.tensor(1.0, dtype=dtype)
+    eta = torch.tensor(step_size, dtype=dtype) / torch.sqrt(torch.tensor(float(it), dtype=dtype))
+    return float(eta), float(one - eta * torch.tensor(l2_reg, dtype=dtype))
 
 
 def sgd_inner_loop(
@@ -58,17 +90,18 @@ def sgd_inner_loop(
 ):
     """MLlib's GradientDescent loop over a weight tensor, with no host sync.
 
-    ``grad_and_count(w)`` returns (gradient sum, selected count) as tensors.
-    The arithmetic is the JAX loop's in f32: eta = f32(step)/sqrt(f32(i)),
-    w * (1 - eta*lambda) - (eta * g) / max(count, 1)."""
+    ``grad_and_count(w, it)`` returns (gradient sum, selected count) of
+    1-indexed iteration ``it`` as tensors. The arithmetic is the JAX loop's
+    in the weights' float type: w * (1 - eta*lambda) - (eta * g) / max(count, 1),
+    with eta = stepSize/sqrt(i); an iteration that selects no row makes no
+    update and is not convergence."""
     w = weights
     converged = torch.zeros((), dtype=torch.bool, device=w.device)
     for it in range(1, num_iterations + 1):
-        grad_sum, count = grad_and_count(w)
+        grad_sum, count = grad_and_count(w, it)
         denom = torch.clamp(count, min=1.0)
-        eta = np.float32(step_size) / np.sqrt(np.float32(it))
-        scale = np.float32(1.0) - eta * np.float32(l2_reg)
-        w_new = w * float(scale) - float(eta) * grad_sum / denom
+        eta, scale = _step_scalars(step_size, l2_reg, it, w.dtype)
+        w_new = w * scale - eta * grad_sum / denom
         w_new = torch.where(count > 0, w_new, w)  # zero samples: no update
         if convergence_tol > 0:
             delta = torch.sqrt(torch.sum((w_new - w) ** 2))
@@ -83,21 +116,63 @@ def sgd_inner_loop(
     return w
 
 
-def _check_slice(num_text_features: int, mini_batch_fraction: float, dtype) -> None:
+def sampling_masks(rows: int, num_iterations: int, fraction: float, dtype, device):
+    """The JAX loop's Bernoulli mini-batch draws of every iteration at once,
+    as an [N, rows] 0/1 tensor of ``dtype``: row i is
+    ``jax.random.bernoulli(fold_in(PRNGKey(42), i + 1), fraction, (rows,))``.
+    The draw's float type follows ``fraction``: float32, or float64 in the
+    JAX package's x64 mode (its ``--dtype float64``), which draws other
+    masks. One batched pass of integer ops on ``device``, no host sync."""
+    key = prng.prng_key(MLLIB_SAMPLING_SEED)
+    its = torch.arange(1, num_iterations + 1, dtype=torch.int64, device=device)
+    draw = torch.float64 if dtype == torch.float64 else torch.float32
+    keys = prng.fold_in(key, its)
+    return prng.bernoulli(keys, fraction, (rows,), draw, device).to(dtype)
+
+
+def dense_sgd_loop(x_dense, labels, mask, weights, *, num_iterations: int,
+                   step_size: float, l2_reg: float = 0.0,
+                   convergence_tol: float = 0.001, masks=None):
+    """The JAX package's dense step as torch ops in the weights' float type
+    (``twtml_tpu/models/sgd.py`` ``sgd_inner_loop`` over ``x_dense @ w``):
+    predictions with the pre-update weights, then each iteration's gradient
+    over the rows ``mask * masks[i - 1]`` selects (all valid rows when
+    ``masks`` is None), divided by the selected count. Returns
+    (new_weights [F], raw_predictions [B])."""
+    raw = x_dense @ weights
+
+    def grad_and_count(w, it):
+        sel = mask if masks is None else mask * masks[it - 1]
+        residual = (x_dense @ w - labels) * sel
+        return x_dense.T @ residual, torch.sum(sel)
+
+    w = sgd_inner_loop(
+        weights, num_iterations=num_iterations, step_size=step_size,
+        l2_reg=l2_reg, convergence_tol=convergence_tol,
+        grad_and_count=grad_and_count,
+    )
+    return w, raw
+
+
+def dense_route(mini_batch_fraction: float, dtype) -> str:
+    """Which loop a configuration's step runs, by configuration alone:
+    ``fused_dense_sgd`` (the hand kernel on the card, its twin on the CPU)
+    at fraction 1 in float32; ``torch_loop`` (``dense_sgd_loop``) for a
+    Bernoulli mini-batch or another dtype, which the kernel does not
+    compute."""
+    if mini_batch_fraction >= 1.0 and dtype == torch.float32:
+        return "fused_dense_sgd"
+    return "torch_loop"
+
+
+def _check_slice(num_text_features: int, dtype) -> None:
     if num_text_features > DENSE_TEXT_FEATURE_LIMIT:
         raise NotImplementedError(
             f"numTextFeatures {num_text_features} > {DENSE_TEXT_FEATURE_LIMIT} "
             "needs the sparse/Gram regime (ROADMAP A6), not ported yet"
         )
-    if mini_batch_fraction < 1.0:
-        raise NotImplementedError(
-            "miniBatchFraction < 1 needs the threefry Bernoulli sampling port "
-            "(ROADMAP A2), not ported yet"
-        )
-    if dtype != torch.float32:
-        raise NotImplementedError(
-            f"dtype {dtype} is not ported; the port trains float32 weights"
-        )
+    if dtype not in DTYPES.values():
+        raise ValueError(f"dtype must be one of {sorted(DTYPES)}, got {dtype}")
 
 
 def make_sgd_train_step(
@@ -116,8 +191,22 @@ def make_sgd_train_step(
     least-squares learner. ``batch`` is a PackedBatch (a uint8 buffer
     tensor), RaggedUnitBatch, UnitBatch or FeatureBatch of tensors on the
     weights' device."""
-    _check_slice(num_text_features, mini_batch_fraction, dtype)
+    _check_slice(num_text_features, dtype)
     f_text = num_text_features
+    route = dense_route(mini_batch_fraction, dtype)
+    sampled = mini_batch_fraction < 1.0
+    # every batch draws the same masks (the key is PRNGKey(42) each batch),
+    # so a row count's [N, B] set is made once, on the step's device
+    masks_by_rows: dict = {}
+
+    def masks_for(rows: int, device):
+        key = (rows, str(device))
+        if key not in masks_by_rows:
+            if len(masks_by_rows) >= _MASK_CACHE_SIZE:
+                masks_by_rows.clear()
+            masks_by_rows[key] = sampling_masks(
+                rows, num_iterations, mini_batch_fraction, dtype, device)
+        return masks_by_rows[key]
 
     def train_step(weights, batch):
         if isinstance(batch, PackedBatch):
@@ -142,11 +231,13 @@ def make_sgd_train_step(
         x_dense = torch.cat(
             [densify_text(token_idx, token_val, f_text), numeric], dim=1
         )
-        w_new, raw = fused_dense_sgd(
-            x_dense, labels, mask, weights,
-            num_iterations=num_iterations, step_size=step_size,
-            l2_reg=l2_reg, convergence_tol=convergence_tol,
-        )
+        kw = dict(num_iterations=num_iterations, step_size=step_size,
+                  l2_reg=l2_reg, convergence_tol=convergence_tol)
+        if route == "fused_dense_sgd":
+            w_new, raw = fused_dense_sgd(x_dense, labels, mask, weights, **kw)
+        else:
+            masks = masks_for(mask.shape[0], mask.device) if sampled else None
+            w_new, raw = dense_sgd_loop(x_dense, labels, mask, weights, masks=masks, **kw)
         preds = torch_round_half_up(raw) if round_predictions else raw
         stats = batch_stats(labels, preds, mask)
         q = None
@@ -158,6 +249,7 @@ def make_sgd_train_step(
             )
         return w_new, StepOutput(predictions=preds, quality=q, **stats)
 
+    train_step.route = route
     return train_step
 
 
@@ -204,7 +296,7 @@ def batch_to_device(batch, device, non_blocking: bool = True):
 class HostOutput:
     """A StepOutput on its way to the host: ONE device-to-host copy of the
     predictions [B], the 4 stats and the quality vector, packed into one
-    f32 vector, into page-locked memory, with one CUDA event recorded after
+    f32 vector (f64 for a float64 step), into page-locked memory, with one CUDA event recorded after
     it. ``done()`` asks the event without blocking; ``wait()`` blocks on it;
     ``result()`` (after ``done()``) is the StepOutput of numpy arrays, bit
     for bit the device values. On the CPU the result is ready at once."""
@@ -229,7 +321,8 @@ class HostOutput:
         b = self._rows
         return StepOutput(
             predictions=v[:b], count=v[b], mse=v[b + 1], real_stdev=v[b + 2],
-            pred_stdev=v[b + 3], quality=v[b + 4:] if self._has_quality else None,
+            pred_stdev=v[b + 3],
+            quality=v[b + 4:].astype(np.float32) if self._has_quality else None,
         )
 
 
@@ -242,11 +335,14 @@ def fetch_output(out: StepOutput) -> HostOutput:
              torch.stack([out.count, out.mse, out.real_stdev, out.pred_stdev])]
     if out.quality is not None:
         parts.append(out.quality.reshape(-1))
-    vec = torch.cat([p.to(torch.float32) for p in parts])
+    # float64 steps keep their stats in float64, as the JAX package's x64
+    # step returns them; every other type fits float32 exactly
+    kind = torch.float64 if out.predictions.dtype == torch.float64 else torch.float32
+    vec = torch.cat([p.to(kind) for p in parts])
     rows = out.predictions.numel()
     if vec.device.type != "cuda":
         return HostOutput(vec, None, rows, out.quality is not None)
-    host = torch.empty(vec.shape, dtype=torch.float32, pin_memory=True)
+    host = torch.empty(vec.shape, dtype=kind, pin_memory=True)
     host.copy_(vec, non_blocking=True)
     event = torch.cuda.Event()
     event.record()
@@ -287,6 +383,10 @@ class StreamingSGDModel:
             quality=quality,
             dtype=dtype,
         )
+        self.route = self._train_step.route
+        log.info("dense step route: %s (miniBatchFraction %s, %s weights, %s)",
+                 self.route, mini_batch_fraction, str(dtype).replace("torch.", ""),
+                 self.device)
         self._weights = zero_weights(num_text_features, dtype, self.device)
         # H2D copies queue without waiting (batch_to_device); False makes
         # each copy synchronous, the reference order for a pipelined run
@@ -307,6 +407,7 @@ class StreamingSGDModel:
             l2_reg=conf.l2Reg,
             convergence_tol=conf.convergenceTol,
             quality=conf.modelWatch == "on",
+            dtype=DTYPES[conf.dtype],
             device=conf.backend,
         )
         kwargs.update(overrides)
@@ -341,8 +442,13 @@ class StreamingSGDModel:
     def latest_weights(self) -> np.ndarray:
         """The weights on the host: a blocking copy that waits for every
         step queued before it. Read it only where nothing is in flight (the
-        fetch pipeline's drained boundary), never inside a dispatch."""
-        return self._weights.detach().cpu().numpy().copy()
+        fetch pipeline's drained boundary), never inside a dispatch.
+        bfloat16 weights come back as float32, which holds them exactly
+        (numpy has no bfloat16; the checkpoint stores them so)."""
+        w = self._weights.detach()
+        if w.dtype == torch.bfloat16:
+            w = w.float()
+        return w.cpu().numpy().copy()
 
     def bind_thread(self) -> None:
         """Make the model's CUDA device and stream current on the calling

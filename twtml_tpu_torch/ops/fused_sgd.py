@@ -163,7 +163,7 @@ def fused_dense_sgd_reference(
     w0 = weights.float()
     preds = x @ w0
 
-    def grad_and_count(w):
+    def grad_and_count(w, _it):
         return x.T @ (x @ w - y), count
 
     w = sgd_inner_loop(

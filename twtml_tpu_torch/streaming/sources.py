@@ -11,14 +11,16 @@ objects into the streaming context's intake queue:
   order as the JAX package's, so one seed gives the same tweets in both;
 - ``QueueSource`` is pushed to by its caller (tests, pre-filled streams);
 - ``SkipRowsSource`` fast-forwards past the rows a restarted run's intake
-  journal already holds (apps/common.py ``journal_boot_replay``).
+  journal already holds (apps/common.py ``journal_boot_replay``);
+- ``MultiSource`` runs N inner sources concurrently into one stream (the
+  single-host fan-in of sharded receivers).
 
 Supervision: a crashed producer restarts with jittered exponential backoff,
 up to ``max_restarts`` consecutive failures (counted in ``source.restarts``).
 ``produce()`` is also the plain generator of a source's tweets. The
 ``--chaos`` ``source.burst`` rule re-emits a tweet from the supervised loop
-(streaming/faults.py). Block ingest, sharded and live Twitter sources are
-not ported.
+(streaming/faults.py). Block ingest, the multi-host sharded sources and the
+live Twitter source are not ported.
 """
 
 from __future__ import annotations
@@ -293,3 +295,47 @@ class SkipRowsSource(Source):
     def stop(self) -> None:
         self.inner.stop()
         super().stop()
+
+
+class MultiSource(Source):
+    """Sharded receiver fan-in on one host: N inner sources run concurrently,
+    each on its own supervised thread, into one ``emit``; a watcher thread
+    marks the stream exhausted once every shard is."""
+
+    name = "multi"
+    # how often the watcher looks at the shards
+    WATCH_S = 0.05
+
+    def __init__(self, sources: list[Source], **kw):
+        super().__init__(**kw)
+        self.sources = sources
+
+    def start(self, emit: Callable[[Status], None]) -> None:
+        self._emit = emit
+        self._stop.clear()
+        self._exhausted.clear()
+        for src in self.sources:
+            src.start(emit)
+        self._thread = threading.Thread(
+            target=self._watch, name="twtml-source-multi", daemon=True
+        )
+        self._thread.start()
+
+    def _watch(self) -> None:
+        while not self._stop.is_set():
+            if all(s.exhausted for s in self.sources):
+                self._exhausted.set()
+                return
+            if self._stop.wait(self.WATCH_S):
+                return
+
+    def stop(self) -> None:
+        for src in self.sources:
+            src.stop()
+        super().stop()
+
+    def produce(self) -> Iterator[Status]:
+        """The shards' tweets one shard after another (the threads of
+        ``start`` interleave them instead)."""
+        for src in self.sources:
+            yield from src.produce()

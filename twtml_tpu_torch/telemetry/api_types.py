@@ -9,11 +9,11 @@ interchangeable:
   {"jsonClass": "Config", "id": "...", "host": "...", "viz": ["..."]}
   {"jsonClass": "Stats", "count": 0, "batch": 0, "mse": 0, "realStddev": 0, "predStddev": 0}
 
-``Series``, ``Metrics``, ``ModelHealth`` and ``Freshness`` are the JAX
-package's additive types (the live chart, the observability panel, the
-model-health and freshness tiles); legacy dashboards ignore them. The other
-additive types (hosts, tenants, serving, fleet, history) belong to planes
-the port has not ported.
+``Series``, ``Metrics``, ``ModelHealth``, ``Freshness`` and ``History`` are
+the JAX package's additive types (the live chart, the observability panel,
+the model-health, freshness and historian tiles); legacy dashboards ignore
+them. The other additive types (hosts, tenants, serving, fleet) belong to
+planes the port has not ported.
 """
 
 from __future__ import annotations
@@ -111,8 +111,30 @@ class Freshness:
     json_class = "Freshness"
 
 
+@dataclass
+class History:
+    """The telemetry historian's view (telemetry/historian.py ``view``):
+    the tail's RSS, fetch-RTT and per-sample stage-cost series, the RSS
+    slope, the health phase, the historian's disk use and the perfGuard
+    regression count."""
+
+    samples: int = 0
+    runId: int = 0
+    phase: str = ""
+    rssMb: float = 0.0
+    rssSlopeMbPerMin: float = 0.0
+    rttMs: float = 0.0
+    diskMb: float = 0.0
+    regressions: int = 0
+    rss: list = field(default_factory=list)
+    rtt: list = field(default_factory=list)
+    stageMs: list = field(default_factory=list)
+
+    json_class = "History"
+
+
 TYPES = {"Config": Config, "Stats": Stats, "Series": Series, "Metrics": Metrics,
-         "ModelHealth": ModelHealth, "Freshness": Freshness}
+         "ModelHealth": ModelHealth, "Freshness": Freshness, "History": History}
 
 
 def encode(obj) -> str:

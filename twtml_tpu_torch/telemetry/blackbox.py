@@ -8,9 +8,9 @@ a SIGTERM dumps too. The bundle lands next to the checkpoint directory: the
 config, sticky notes (the last checkpoint, the last rollback), the event ring
 (trace spans under ``--trace``, guard events, chaos firings), a metrics
 snapshot and the health summary. Its keys are the JAX package's, so that
-package's ``tools/postmortem_report.py`` renders it; ``hosts`` and
-``history`` are None (the per-host sideband and the historian are not
-ported).
+package's ``tools/postmortem_report.py`` renders it; ``history`` is the
+telemetry historian's in-memory tail (None with ``--history off``) and
+``hosts`` is None (the per-host sideband is not ported).
 
 Recording is one lock and one deque append on the host; the dump runs once,
 on the way down. Nothing here touches the device.
@@ -75,6 +75,7 @@ class FlightRecorder:
             self.record("instant", name=ev.get("name"), **(ev.get("args") or {}))
 
     def bundle(self, reason: str) -> dict:
+        from . import historian as _historian
         from . import metrics as _metrics
 
         with self._lock:
@@ -94,7 +95,9 @@ class FlightRecorder:
             "metrics": _metrics.get_registry().snapshot(),
             "health": _metrics.get_health_monitor().summary(),
             "hosts": None,
-            "history": None,
+            # the minutes before the dump: the historian's in-memory tail
+            # (samples and phase transitions), None with --history off
+            "history": _historian.bundle_tail(),
         }
 
     def dump(self, reason: str, out_dir: "str | None" = None,

@@ -15,10 +15,13 @@ every ``SERIES_SHED_EVERY``-th series frame ships (the scalar stats keep
 full resolution); a metrics snapshot ships every ``METRICS_EVERY`` updates,
 with the host-process gauges (``host.rss_mb``, ``host.uptime_s``,
 ``host.rss_slope_mb_per_min``), followed by the model-health and freshness
-views once they hold a delivery. Each update is the ``stats_publish``
+views once they hold a delivery, and the historian's view. Each metrics
+publish samples the telemetry historian (``historian.sample``, host views
+only, before the breaker gate: the historian writes to local disk, so a
+dead dashboard does not stop it). Each update is the ``stats_publish``
 stage (the stage clock, and a span under ``--trace``) and stamps the
-freshness plane's event-to-publish lag. The historian, tenant and per-host
-views of the JAX package's publisher are not ported.
+freshness plane's event-to-publish lag. The tenant and per-host views of
+the JAX package's publisher are not ported.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import numpy as np
 from ..utils import get_logger
 from ..utils.rss import rss_mb, slope_mb_per_min
 from . import freshness as _freshness
+from . import historian as _historian
 from . import metrics as _metrics
 from . import modelwatch as _modelwatch
 from . import sideband as _sideband
@@ -176,8 +180,8 @@ class SessionStats:
     def publish_metrics(self) -> None:
         """Best-effort push of the metrics registry and the health summary,
         with per-histogram count/mean/p50/p95/p99 (not the raw buckets),
-        then the model-health and freshness views. The host gauges are
-        sampled first (statm reads)."""
+        then the model-health, freshness and historian views. The host
+        gauges are sampled first (statm reads), then the historian."""
         reg = _metrics.get_registry()
         cur_mb = rss_mb()
         now = time.monotonic()
@@ -186,6 +190,8 @@ class SessionStats:
         self._rss_samples.append((now, cur_mb))
         reg.gauge("host.rss_slope_mb_per_min").set(
             round(slope_mb_per_min(self._rss_samples), 3))
+        # the historian's one sampling seam; a no-op with --history off
+        _historian.sample()
         if not self._web_breaker.allow():
             return
         try:
@@ -224,3 +230,11 @@ class SessionStats:
             except Exception:  # lawcheck: disable=TW005 -- Try-parity: counted by the breaker, logged
                 self._web_breaker.record_failure()
                 log.debug("web.freshness failed", exc_info=True)
+        hview = _historian.last_history()
+        if hview is not None and self._web_breaker.allow():
+            try:
+                self.web.history(hview)
+                self._web_breaker.record_success()
+            except Exception:  # lawcheck: disable=TW005 -- Try-parity: counted by the breaker, logged
+                self._web_breaker.record_failure()
+                log.debug("web.history failed", exc_info=True)

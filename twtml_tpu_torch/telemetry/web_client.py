@@ -9,7 +9,9 @@ from __future__ import annotations
 
 import urllib.request
 
-from .api_types import Config, Freshness, Metrics, ModelHealth, Series, Stats, encode
+from .api_types import (
+    Config, Freshness, History, Metrics, ModelHealth, Series, Stats, encode,
+)
 
 DEFAULT_SERVER = "http://localhost:8888"
 
@@ -73,3 +75,8 @@ class WebClient:
         """The freshness view (telemetry/freshness.py ``last_freshness``)."""
         known = Freshness.__dataclass_fields__
         self._post(Freshness(**{k: v for k, v in view.items() if k in known}))
+
+    def history(self, view: dict) -> None:
+        """The historian's view (telemetry/historian.py ``last_history``)."""
+        known = History.__dataclass_fields__
+        self._post(History(**{k: v for k, v in view.items() if k in known}))
