@@ -79,12 +79,37 @@ Phases, in order; any failure ends the run with a non-zero exit:
                source paced at 20000 tweets/s, 5 intervals: every interval's
                batch trains, the warm-up ends before the stream starts, the
                stats posts arrive; each tick's lateness and rows;
- 12. times   — at the operating point: the launch plan (grid, rows resident
+ 12. web     — the port's dashboard server as a process of its own
+               (``python -m twtml_tpu_torch.web.main -nocache``, a loopback
+               PORT, a temporary TMPDIR): a websocket client (web/websocket.py)
+               gets the Config push; 8 full-width batches of the stream
+               phase's tweets on the card publish to it (Lightning stays at
+               the recorder): each batch's Stats frame equals its printed
+               line, GET /api/stats equals the last, GET / serves the port's
+               index.html; publish ms a batch against the stream phase's,
+               the POST latency (p50, p99) and the largest frame; SIGTERM
+               stops it;
+ 13. live    — ``--source twitter`` with the OAuth credentials from an
+               ``application.conf`` named by TWTML_CONFIG and
+               ``twitter4j.streamBaseURL`` at a loopback chunked stream that
+               checks every request's signature and serves the main phase's
+               synthetic tweets: 4 full-width batches back to back, each line
+               equal to the same tweets' from a pre-filled source on the
+               card; the app's and the source's own tweets/s;
+ 14. hosthash — ``--hashOn host --wire padded --profileDir``: the main
+               phase's 4 batches hashed on the host (native/fasthash.cpp),
+               weights, predictions, stats and quality bitwise equal to the
+               padded phase's, the fused kernel launched as there; the
+               Chrome trace names the kernel and the app's annotated
+               regions; host-hash featurize against the device-hash wire's,
+               the profiled run's wall against an unprofiled run's;
+ 15. times   — at the operating point: the launch plan (grid, rows resident
                and spilled, shared memory, registers from ptxas), kernel,
                prologue and per-iteration times, the twin, the bound; each
                wire's featurize by sub-stage, bytes and H2D copy; and where
                a step's time goes on each wire.
-No app run publishes anywhere but the loopback recorder. The line before
+No app run publishes anywhere but the loopback recorder and, in the web
+phase, the port's own server on a loopback port. The line before
 the last is the kernels' JSON record; the last line is ``{"ok": true,
 "device": {...}}``.
 """
@@ -659,6 +684,8 @@ def padded_phase(ragged_rec):
     phase("padded", "4 batches: weights, predictions, stats and quality bitwise "
           "equal to the ragged packed run; kernel launches 4 + the warm-up's, "
           "native counters 0")
+    rec["totals"] = totals
+    return rec
 
 
 def replay_phase():
@@ -855,7 +882,8 @@ def stream_phase():
         raise AssertionError(f"live synthetic source gave {len(got)} tweets")
     phase("stream", f"live SyntheticSource alone: {OP_ROWS} tweets in {live_s:.3f} s = "
           f"{OP_ROWS / live_s:.0f} tweets/s (its producer thread, nothing else running)")
-    return {"launches": rec["launches"], "rate": rate, "timeline": timeline}
+    return {"launches": rec["launches"], "rate": rate, "timeline": timeline,
+            "statuses": statuses, "publish_ms": means["publish_ms"]}
 
 
 # ---- phase 8: the runtime guards at full width -----------------------------
@@ -1527,6 +1555,385 @@ def clock_phase():
     return rec["launches"]
 
 
+# ---- phases 12-14: the dashboard server, the live source, host hashing -----
+
+WEB_BATCHES = 8
+LIVE_BATCHES = 4
+POST_SAMPLES = 200
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def stats_line(b) -> str:
+    """The app's printed line of a Stats message."""
+    return (f"count: {b['count']}  batch: {b['batch']}  mse: {float(b['mse'])}  "
+            f"stdev (real, pred): ({b['realStddev']}, {b['predStddev']})")
+
+
+def http_get(url):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=10) as resp:
+        return resp.status, resp.read()
+
+
+def web_phase(statuses, stream_publish_ms):
+    """The port's dashboard server as its own process (``python -m
+    twtml_tpu_torch.web.main -nocache``) on a loopback port: a websocket
+    client gets the Config push, the app trains 8 full-width batches on the
+    card publishing to it (Lightning stays at the recorder), each batch's
+    Stats frame equals its printed line, the views and the dashboard are
+    served; then the server's POST latency and the largest frame."""
+    import tempfile
+    import urllib.request
+
+    from twtml_tpu_torch.web.websocket import WebSocketClient
+
+    t_phase = time.perf_counter()
+    port = free_port()
+    url = f"http://127.0.0.1:{port}"
+    tmp = tempfile.mkdtemp(prefix="twtml-web-")
+    env = dict(os.environ, PORT=str(port), TMPDIR=tmp, PYTHONPATH=HERE)
+    proc = subprocess.Popen([sys.executable, "-m", "twtml_tpu_torch.web.main", "-nocache"],
+                            cwd=HERE, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT)
+    frames, reader = [], None
+    try:
+        t0 = time.perf_counter()
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"web: the server exited {proc.returncode}: "
+                                     f"{proc.stdout.read().decode()[-2000:]}")
+            try:
+                client = WebSocketClient(url.replace("http", "ws") + "/api", timeout=10)
+                break
+            except OSError:
+                if time.perf_counter() - t0 > 60:
+                    raise
+                time.sleep(0.1)
+        up_s = time.perf_counter() - t0
+        push = json.loads(client.recv_text())
+        if push != {"jsonClass": "Config", "id": "", "host": "", "viz": []}:
+            raise AssertionError(f"web: connect push {push}")
+        client.sock.settimeout(None)
+
+        def read():
+            try:
+                while (text := client.recv_text()) is not None:
+                    frames.append(text)
+            except OSError:
+                pass
+
+        reader = threading.Thread(target=read, daemon=True)
+        reader.start()
+        RECORDER.take()
+        totals, lines, rec = recorded_app_run(
+            [*STREAM_ARGV, "--twtweb", url], 0, source=prefilled_source(statuses))
+        check_counters("web", rec, WEB_BATCHES, "ragged")
+        t0 = time.perf_counter()
+        while sum('"Stats"' in f for f in frames) < WEB_BATCHES and time.perf_counter() - t0 < 20:
+            time.sleep(0.01)
+        seen = list(frames)
+        stats = [json.loads(f) for f in seen if json.loads(f)["jsonClass"] == "Stats"]
+        if [stats_line(b) for b in stats] != lines or len(lines) != WEB_BATCHES:
+            raise AssertionError(f"web: Stats frames {stats} against lines {lines}")
+        kinds = [json.loads(f)["jsonClass"] for f in seen]
+        _, body = http_get(url + "/api/stats")
+        if json.loads(body) != stats[-1]:
+            raise AssertionError(f"web: GET /api/stats {body!r} != the last frame")
+        _, index = http_get(url + "/")
+        with open(os.path.join(HERE, "twtml_tpu_torch", "web", "assets", "index.html"), "rb") as fh:
+            if index != fh.read():
+                raise AssertionError("web: GET / is not the port's index.html")
+        views = {v: json.loads(http_get(url + "/api/" + v)[1])["jsonClass"] if v != "series"
+                 else len(json.loads(http_get(url + "/api/series")[1]))
+                 for v in ("config", "series", "metrics", "model", "freshness")}
+        largest = max(len(f.encode()) for f in seen)
+        publish = [st["publish_ms"] for st in totals["steps"]]
+        phase("web", f"server up in {up_s:.2f} s (a process of its own); connect push "
+              f"{push}; {len(seen)} frames during the run: "
+              + ", ".join(f"{k} {kinds.count(k)}" for k in sorted(set(kinds))))
+        phase("web", f"{WEB_BATCHES} batches of {OP_ROWS} on the card: every Stats frame equals "
+              "its printed line, GET /api/stats equals the last, GET / serves the port's "
+              f"index.html ({len(index)} B); views {views}; kernel launches {rec['launches']}")
+        for i, (line, st) in enumerate(zip(lines, totals["steps"])):
+            phase("web", f"batch {i + 1}: {line} | publish {st['publish_ms']:.3f} ms")
+        phase("web", f"publish a batch, batches 2-{WEB_BATCHES}: mean "
+              f"{statistics.mean(publish[1:]):.3f} ms to the port's server against "
+              f"{stream_publish_ms:.3f} ms to the stream phase's recorder (Lightning at the "
+              f"recorder in both)")
+        body = json.dumps(stats[-1]).encode()
+        lat = []
+        for _ in range(POST_SAMPLES):
+            req = urllib.request.Request(url + "/api", data=body, method="POST",
+                                         headers={"content-type": "application/json"})
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=10) as resp:
+                resp.read()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        lat.sort()
+        p50, p99 = lat[len(lat) // 2], lat[int(len(lat) * 0.99) - 1]
+        phase("web", f"POST /api latency, {POST_SAMPLES} posts of a Stats body ({len(body)} B) "
+              f"as the app posts them (urllib, a connection each, one websocket live): "
+              f"p50 {p50:.3f} ms, p99 {p99:.3f} ms, max {lat[-1]:.3f} ms")
+        phase("web", f"largest websocket frame of the run: {largest} B")
+    finally:
+        proc.terminate()
+        try:
+            code = proc.wait(timeout=15)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            code = proc.wait()
+        if reader is not None:
+            reader.join(timeout=10)
+    if code != 0 or (reader is not None and reader.is_alive()):
+        raise AssertionError(f"web: the server exited {code} on SIGTERM")
+    phase("web", f"server stopped by SIGTERM (exit 0), websocket closed by it; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"publish_ms": statistics.mean(publish[1:]), "post_p50_ms": p50,
+            "post_p99_ms": p99, "largest_frame": largest}
+
+
+def tweet_json(s) -> dict:
+    """A Status as the v1.1 stream's JSON (what ``Status.from_json`` reads)."""
+    obj = {"text": s.text, "retweet_count": s.retweet_count, "id": s.id,
+           "user": {"followers_count": s.followers_count,
+                    "favourites_count": s.favourites_count,
+                    "friends_count": s.friends_count}}
+    if s.created_at_ms:
+        obj["timestamp_ms"] = str(s.created_at_ms)
+    if s.lang:
+        obj["lang"] = s.lang
+    if s.retweeted_status is not None:
+        obj["retweeted_status"] = tweet_json(s.retweeted_status)
+    return obj
+
+
+class FakeStream:
+    """A loopback v1.1 streaming endpoint: every request's OAuth signature
+    is checked against the credentials; the first request of a round gets
+    ``body`` as a chunked stream of JSON lines with keep-alive lines among
+    them, later ones an empty stream (the source reconnects)."""
+
+    CREDS = {"consumerKey": "ck-smoke", "consumerSecret": "cs-smoke",
+             "accessToken": "at-smoke", "accessTokenSecret": "ts-smoke"}
+
+    def __init__(self, body: bytes):
+        from twtml_tpu_torch.streaming import oauth1
+
+        self.body = body
+        self.requests = self.bad = 0
+        self.served = False
+        fake = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def do_GET(self):
+                from urllib.parse import unquote
+
+                fake.requests += 1
+                auth = self.headers.get("Authorization", "")
+                params = dict((k, unquote(v.strip('"'))) for k, _, v in (
+                    p.strip().partition("=") for p in auth[len("OAuth "):].split(",")))
+                want = oauth1.sign(
+                    "GET", fake.url, [(k, v) for k, v in params.items() if k != "oauth_signature"],
+                    fake.CREDS["consumerSecret"], fake.CREDS["accessTokenSecret"])
+                if (params.get("oauth_signature") != want
+                        or params.get("oauth_consumer_key") != fake.CREDS["consumerKey"]
+                        or params.get("oauth_token") != fake.CREDS["accessToken"]):
+                    fake.bad += 1
+                    self.send_response(401, "Unauthorized")
+                    self.send_header("Content-Length", "0")
+                    self.end_headers()
+                    return
+                self.send_response(200)
+                self.send_header("Transfer-Encoding", "chunked")
+                self.send_header("Content-Type", "application/json")
+                self.end_headers()
+                body, fake.served = (b"" if fake.served else fake.body), True
+                for i in range(0, len(body), 1 << 16):  # chunks cut lines anywhere
+                    piece = body[i:i + (1 << 16)]
+                    self.wfile.write(f"{len(piece):x}\r\n".encode() + piece + b"\r\n")
+                self.wfile.write(b"0\r\n\r\n")
+                self.close_connection = True
+
+            def log_message(self, *args):
+                pass
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}/1.1/statuses/sample.json"
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=10)
+
+
+def live_phase():
+    """``--source twitter`` at full width: credentials from an
+    ``application.conf`` named by ``TWTML_CONFIG``, ``twitter4j.streamBaseURL``
+    at a loopback stream that checks each request's OAuth signature and
+    serves the main phase's synthetic tweets; 4 batches back to back, each
+    line equal to the same tweets' from a pre-filled source on the card;
+    the source's own rate."""
+    import tempfile
+
+    from twtml_tpu_torch import config
+    from twtml_tpu_torch.features.featurizer import Status
+    from twtml_tpu_torch.streaming.sources import SyntheticSource
+    from twtml_tpu_torch.streaming.twitter import TwitterSource
+
+    t_phase = time.perf_counter()
+    # one batch more than the run trains: a live stream never ends, and the
+    # depth-8 pipeline delivers a batch's stats when the next batch fills
+    n = (LIVE_BATCHES + 1) * OP_ROWS
+    statuses = list(SyntheticSource(total=n, base_ms=NOW_MS).produce())
+    objs = [tweet_json(s) for s in statuses]
+    if [Status.from_json(o) for o in objs] != statuses:
+        raise AssertionError("live: a tweet does not survive its JSON round trip")
+    # a blank keep-alive line after every 4096 tweets, as the stream sends them
+    body = "".join(json.dumps(o) + ("\r\n\r\n" if i % 4096 == 4095 else "\r\n")
+                   for i, o in enumerate(objs)).encode()
+    fake = FakeStream(body)
+    conf_dir = tempfile.mkdtemp(prefix="twtml-conf-")
+    conf_path = os.path.join(conf_dir, "application.conf")
+    with open(conf_path, "w") as fh:
+        fh.write("".join(f'{k}="{v}"\n' for k, v in FakeStream.CREDS.items()))
+    argv = ["--backend", "cuda", "--seconds", "0", "--batchBucket", str(OP_ROWS)]
+    try:
+        os.environ["TWTML_CONFIG"] = conf_path
+        config.set_property("twitter4j.streamBaseURL", fake.url)
+        t0 = time.perf_counter()
+        # the stream's end is a disconnect: the source logs it and reconnects
+        totals, lines, rec = recorded_app_run([*argv, "--source", "twitter"], LIVE_BATCHES,
+                                              expected_errors=("source twitter crashed",))
+        wall = time.perf_counter() - t0
+        requests, bad = fake.requests, fake.bad
+        # the source alone, a fresh round of the same stream
+        fake.served, got = False, []
+        src = TwitterSource.from_properties()
+        t0 = time.perf_counter()
+        src.start(got.append)
+        while len(got) < n and time.perf_counter() - t0 < 120:
+            time.sleep(0.005)
+        alone_s = time.perf_counter() - t0
+        src.stop()
+    finally:
+        os.environ.pop("TWTML_CONFIG", None)
+        config.set_property("twitter4j.streamBaseURL", "")
+        fake.close()
+    RECORDER.take()
+    check_counters("live", rec, LIVE_BATCHES, "ragged")
+    if bad or not requests:
+        raise AssertionError(f"live: {bad} of {requests} requests failed the OAuth check")
+    if len(got) != n or got != statuses:
+        raise AssertionError(f"live: the source alone gave {len(got)} tweets, not the stream's")
+    _, want, _ = recorded_app_run([*argv, "--source", "synthetic"], LIVE_BATCHES,
+                                  source=prefilled_source(statuses[:LIVE_BATCHES * OP_ROWS]))
+    RECORDER.take()
+    if lines != want or len(lines) != LIVE_BATCHES or totals["count"] != LIVE_BATCHES * OP_ROWS:
+        raise AssertionError(f"live: lines {lines} against the pre-filled source's {want}")
+    for line in lines:
+        phase("live", line)
+    rate = totals["count"] / totals["stream_seconds"]
+    phase("live", f"{LIVE_BATCHES} batches of {OP_ROWS} from --source twitter (OAuth from "
+          f"TWTML_CONFIG's application.conf, {requests} signed request(s), all verified by the "
+          "stream) equal the pre-filled source's lines on the card")
+    phase("live", f"the app: {totals['count']} tweets in stream_seconds "
+          f"{totals['stream_seconds']:.3f} s = {rate:.0f} tweets/s (app wall {wall:.2f} s); "
+          f"the source alone: {n} tweets in {alone_s:.3f} s = {n / alone_s:.0f} tweets/s "
+          f"(socket, chunked decode, json.loads, Status); {len(body)} B of stream; phase "
+          f"wall {time.perf_counter() - t_phase:.1f} s")
+    return {"app_tweets_per_s": rate, "source_tweets_per_s": n / alone_s}
+
+
+def hosthash_phase(padded_rec):
+    """``--hashOn host --wire padded --profileDir``: the main phase's 4
+    batches hashed on the host (native/fasthash.cpp) and trained by the
+    same fused kernel, bitwise equal to the padded phase; the Chrome trace
+    names the kernel and the app's annotated regions. Then the same batches
+    unprofiled, with host and with device hashing, from one pre-filled
+    source each (no source thread in the timed runs): featurize and wall."""
+    import glob
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from twtml_tpu_torch.features import native
+    from twtml_tpu_torch.streaming.sources import SyntheticSource
+
+    t_phase = time.perf_counter()
+    prof_dir = tempfile.mkdtemp(prefix="twtml-prof-")
+    statuses = list(SyntheticSource(total=4 * OP_ROWS, base_ms=NOW_MS).produce())
+    argv = ["--backend", "cuda", "--wire", "padded", *MAIN_ARGV]
+    host = [*argv, "--hashOn", "host"]
+    totals, lines, rec = recorded_app_run([*host, "--profileDir", prof_dir], 4,
+                                          source=prefilled_source(statuses))
+    hashes = dict(native.HASH_COUNTERS)
+    totals_u, lines_u, rec_u = recorded_app_run(host, 4, source=prefilled_source(statuses))
+    totals_d, lines_d, rec_d = recorded_app_run([*argv, "--hashOn", "device"], 4,
+                                                source=prefilled_source(statuses))
+    RECORDER.take()
+    check_counters("hosthash", rec, 4, "padded")
+    if hashes != {"hashes_native": 5, "hashes_degraded": 0}:
+        raise AssertionError(f"hosthash: host hashing counters {hashes}")
+    for name, r in (("profiled", rec), ("unprofiled", rec_u), ("device-hash", rec_d)):
+        for i, (a, b) in enumerate(zip(padded_rec["outputs"], r["outputs"], strict=True)):
+            for k in ("predictions", "quality", "count", "mse", "real_stdev", "pred_stdev"):
+                if not torch.equal(getattr(a, k), getattr(b, k)):
+                    raise AssertionError(f"hosthash {name} batch {i + 1}: {k} differs "
+                                         "from the padded phase")
+        if not np.array_equal(padded_rec["weights"], r["weights"]):
+            raise AssertionError(f"hosthash {name}: weights differ from the padded phase")
+    if not lines_u == lines == lines_d:
+        raise AssertionError("hosthash: the runs' lines differ")
+    traces = glob.glob(os.path.join(prof_dir, "*.pt.trace.json"))
+    if len(traces) != 1 or traces[0] != totals["profile"]:
+        raise AssertionError(f"hosthash: traces {traces}, the app wrote {totals['profile']}")
+    with open(traces[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    kernels = [e for e in events if KERNEL in e.get("name", "") and e.get("cat") == "kernel"]
+    regions = {r: sum(e.get("name") == r for e in events)
+               for r in ("twtml.featurize", "twtml.dispatch", "twtml.publish")}
+    if len(kernels) != 4 or not all(regions.values()):
+        raise AssertionError(f"hosthash: trace holds {len(kernels)} {KERNEL} kernels, "
+                             f"regions {regions}; {len(names)} names")
+    for line, st, st_d in zip(lines, totals_u["steps"], totals_d["steps"]):
+        subs = ", ".join(f"{k} {v:.1f}" for k, v in st["featurize_substages_ms"].items())
+        phase("hosthash", f"{line} | {st['wire']} wire {st['wire_bytes']} B (device hash "
+              f"{st_d['wire_bytes']} B) | featurize {st['featurize_ms']:.1f} ms ({subs}; "
+              f"device hash {st_d['featurize_ms']:.1f}), step {st['step_ms']:.2f} ms (device "
+              f"hash {st_d['step_ms']:.2f}; CUDA events)")
+    host_ms = statistics.median(st["featurize_ms"] for st in totals_u["steps"][1:])
+    dev_ms = statistics.median(st["featurize_ms"] for st in totals_d["steps"][1:])
+    host_step = statistics.median(st["step_ms"] for st in totals_u["steps"][1:])
+    dev_step = statistics.median(st["step_ms"] for st in totals_d["steps"][1:])
+    phase("hosthash", "4 batches, host hashing profiled and unprofiled and device hashing: "
+          "weights, predictions, stats and quality bitwise equal to the padded phase; "
+          f"kernel launches {rec['launches']} (batches + warm-up), host hashing {hashes}")
+    phase("hosthash", f"batches 2-4 median, pre-filled source: featurize {host_ms:.2f} ms "
+          f"with host hashing against {dev_ms:.2f} ms on the device-hash padded wire (whose "
+          f"hash runs in the step); step {host_step:.3f} against {dev_step:.3f} ms")
+    phase("hosthash", f"--profileDir: {os.path.basename(traces[0])} "
+          f"({os.path.getsize(traces[0])} B, {len(events)} events), {len(kernels)} "
+          f"{KERNEL} kernels, regions {regions} (a CUDA region is also a GPU annotation); "
+          f"profiled app wall {rec['wall_s']:.3f} s (stream {totals['stream_seconds']:.3f} s) "
+          f"against unprofiled {rec_u['wall_s']:.3f} s (stream "
+          f"{totals_u['stream_seconds']:.3f} s); phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {"host_featurize_ms": host_ms, "device_featurize_ms": dev_ms,
+            "launches": rec["launches"]}
+
 # ---- phase 10: times --------------------------------------------------------
 
 # ~0.1 ms of device work queued ahead of a timed call, so that its start
@@ -1885,13 +2292,16 @@ def main() -> None:
     RECORDER = Recorder()
     try:
         launches, ragged_rec = main_path_phase()
-        padded_phase(ragged_rec)
+        padded_rec = padded_phase(ragged_rec)
         replay_phase()
         stream = stream_phase()
         guards = guards_phase(smi)
         sampled = sampled_phase(smi)
         dtypes = dtype_phase(smi)
         clock_launches = clock_phase()
+        web = web_phase(stream.pop("statuses"), stream["publish_ms"])
+        live = live_phase()
+        hosthash = hosthash_phase(padded_rec)
     finally:
         RECORDER.close()
     record = times_phase(smi, max_err, launches)
@@ -1900,7 +2310,9 @@ def main() -> None:
                   stream_tweets_per_s=stream["rate"],
                   guards_tweets_per_s=guards["rates"],
                   sampled_route=sampled, bfloat16_route=dtypes,
-                  stream_device_idle=(stream["timeline"] or {}).get("idle"))
+                  stream_device_idle=(stream["timeline"] or {}).get("idle"),
+                  launches_hosthash=hosthash["launches"], web=web, live=live,
+                  hosthash_featurize_ms=hosthash["host_featurize_ms"])
     import torch
 
     phase("done", f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")

@@ -161,8 +161,7 @@ def test_readme_local_1_line_runs_on_the_cpu_with_the_jax_apps_lines(monkeypatch
 UNPORTED = [
     (["--superBatch", "4"], "A4"), (["--wireCodec", "dict"], "A11"),
     (["--ingest", "block"], "A12"), (["--tenants", "2"], "A9"),
-    (["--hashOn", "host"], "A3d"), (["--source", "twitter"], "A3d"),
-    (["--profileDir", "/tmp/prof"], "A3d"), (["--numProcesses", "2"], "A10"),
+    (["--numProcesses", "2"], "A10"),
     (["--processId", "0"], "A10"), (["--coordinator", "host:9"], "A10"),
     (["--elastic", "on"], "A10"), (["--master", "twtml://host:9"], "A10"),
     (["--servePort", "9000"], "A8"), (["--serveBatchRows", "64"], "A8"),
@@ -179,6 +178,17 @@ def test_unported_values_raise_naming_their_item(argv, item):
     JaxConf().parse(argv)  # the JAX parser takes the same value
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         common.select_backend(conf)
+
+
+# the host paths ported since: the live source, host hashing, the profiler
+NOW_PORTED = [["--hashOn", "host"], ["--source", "twitter"], ["--profileDir", "/tmp/prof"]]
+
+
+@pytest.mark.parametrize("argv", NOW_PORTED, ids=" ".join)
+def test_ported_host_paths_pass_check_ported(argv):
+    conf = ConfArguments().parse(argv)
+    JaxConf().parse(argv)
+    conf.check_ported()
 
 
 def test_every_serve_flag_is_held():

@@ -1,6 +1,8 @@
-"""The port stands alone: no module of ``twtml_tpu_torch`` imports ``jax`` or
-anything of the JAX package ``twtml_tpu``, and importing the port's app
-leaves ``jax`` out of ``sys.modules``."""
+"""The port stands alone: no module of ``twtml_tpu_torch`` imports ``jax``,
+anything of the JAX package ``twtml_tpu``, or ``aiohttp`` (the JAX
+package's web server; the port's runs on the standard library), and
+importing the port's app, web server, live source and tracer leaves them
+out of ``sys.modules``."""
 
 import ast
 import os
@@ -16,9 +18,11 @@ PORT_FILES = sorted(
 ) + [REPO / "chip_smoke.py"]
 
 
+FORBIDDEN = ("jax", "jaxlib", "twtml_tpu", "aiohttp")
+
+
 def forbidden(module: str) -> bool:
-    head = module.split(".")[0]
-    return head in ("jax", "jaxlib", "twtml_tpu")
+    return module.split(".")[0] in FORBIDDEN
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -45,6 +49,8 @@ def test_port_files_are_found():
     names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
     assert "twtml_tpu_torch/ops/fused_sgd.py" in names
     assert "twtml_tpu_torch/apps/linear_regression.py" in names
+    assert {"twtml_tpu_torch/web/server.py", "twtml_tpu_torch/web/websocket.py",
+            "twtml_tpu_torch/streaming/twitter.py", "twtml_tpu_torch/utils/tracing.py"} <= names
 
 
 def test_importing_the_app_leaves_jax_unloaded():
@@ -54,6 +60,26 @@ def test_importing_the_app_leaves_jax_unloaded():
         "import twtml_tpu_torch.apps.linear_regression\n"
         "import twtml_tpu_torch.convert\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'twtml_tpu'))\n"
+        "print(bad)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("module", [
+    "twtml_tpu_torch.web.main", "twtml_tpu_torch.streaming.twitter",
+    "twtml_tpu_torch.utils.tracing",
+])
+def test_importing_the_host_modules_leaves_jax_and_aiohttp_unloaded(module):
+    code = (
+        "import sys\n"
+        f"import {module}\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}

@@ -329,6 +329,15 @@ def test_web_timeout_flag_threads_through():
 # ---- the wire: byte-equal JSON ---------------------------------------------------
 
 OBJECTS = [
+    ("Hosts", dict(hosts=[{"host": 0, "rtt_ms": 1.5}], straggler=0, stage="fetch",
+                   skewMs=2.5, epoch=3, liveHosts=2, departed=1, rejoined=1, leadUid=0)),
+    ("Hosts", dict()),
+    ("Tenants", dict(tenants=[{"tenant": 1, "rows": 9}], gating=1, active=2)),
+    ("Serving", dict(qps=12.5, p99Ms=3.25, snapshotAgeS=1.5, snapshotStep=7, level="ok",
+                     requests=4, rows=40, tenants=[1], champion=0, shadows=[1])),
+    ("Fleet", dict(policy="p99", replicas=[{"url": "http://a:1"}], requests=3, retries=1,
+                   ejections=0, champion=0)),
+    ("Fleet", dict()),
     ("Config", dict(id="s1", host="http://lgn", viz=["v1", "v2"])),
     ("Config", dict()),
     ("Stats", dict(count=12, batch=4, mse=156250, realStddev=125, predStddev=0)),
@@ -358,7 +367,9 @@ def test_encode_is_byte_equal_to_the_jax_packages(kind, fields):
 
 def test_decode_rejects_unknown_types():
     with pytest.raises(ValueError):
-        api_types.decode('{"jsonClass": "Hosts", "hosts": []}')
+        api_types.decode('{"jsonClass": "Nope", "hosts": []}')
+    # Hosts, Tenants, Serving and Fleet are known (the web server caches them)
+    assert api_types.decode('{"jsonClass": "Hosts", "hosts": []}') == api_types.Hosts()
 
 
 def test_lightning_creates_a_session_and_appends():
@@ -456,3 +467,61 @@ def test_app_posts_what_the_jax_app_posts(monkeypatch, capsys):
     assert kinds.count("Stats") == kinds.count("Series") == 3
     assert kinds.count("ModelHealth") == kinds.count("Freshness") == 1
     assert kinds.count("/visualizations/v1/data/") == 3
+
+
+def test_the_apps_leave_their_servers_with_the_same_views(monkeypatch, capsys, tmp_path):
+    """The port's app posts to the port's own server, the JAX app to the
+    JAX package's aiohttp server (Lightning at one recorder for both): at
+    the end every ``/api/*`` view of the two servers is equal, ModelHealth
+    within ``HEALTH_RTOL`` and Freshness but for its wall-clock fields;
+    Metrics differ by design (each package counts its own pipeline)."""
+    import urllib.request
+
+    from twtml_tpu.apps import linear_regression as jax_app
+    from twtml_tpu.telemetry import lineage as jax_lineage
+    from twtml_tpu.telemetry import modelwatch as jax_modelwatch
+    from twtml_tpu.web.cache import ApiCache as JaxCache
+    from twtml_tpu.web.server import Server as JaxServer
+    from twtml_tpu_torch.telemetry import lineage, modelwatch
+    from twtml_tpu_torch.web.cache import ApiCache
+    from twtml_tpu_torch.web.server import VIEWS, Server
+
+    monkeypatch.setenv("TWTML_NOW_MS", "1700000000000")
+    for reset in (modelwatch.reset_for_tests, jax_modelwatch.reset_for_tests,
+                  lineage.reset_for_tests, jax_lineage.reset_for_tests):
+        reset()
+    ours = Server(port=0, host="127.0.0.1", cache=ApiCache(str(tmp_path / "a.json")))
+    theirs = JaxServer(port=0, host="127.0.0.1", cache=JaxCache(str(tmp_path / "b.json")))
+    ours.start_background()
+    theirs.start_background()
+    urls = {"port": f"http://127.0.0.1:{ours.port}",
+            "jax": f"http://127.0.0.1:{theirs._runner.addresses[0][1]}"}
+    try:
+        with Recorder() as rec:
+            argv = ["--source", "replay", "--replayFile", DATA, "--seconds", "0",
+                    "--batchBucket", "4", "--lightning", rec.url]
+            with contextlib.redirect_stdout(io.StringIO()):
+                app.run(ConfArguments().parse([*argv, "--backend", "cpu", "--twtweb",
+                                               urls["port"]]))
+            jax.devices()
+            jax_app.run(JaxConf().parse([*argv, "--master", "local[1]", "--twtweb",
+                                         urls["jax"]]))
+        views = {}
+        for kind, url in urls.items():
+            views[kind] = {}
+            for view in VIEWS:
+                with urllib.request.urlopen(f"{url}/api/{view}", timeout=5) as resp:
+                    views[kind][view] = json.loads(resp.read())
+    finally:
+        ours.stop()
+        theirs.stop()
+    capsys.readouterr()
+    got, want = views["port"], views["jax"]
+    assert got["stats"]["count"] == 6 and len(got["series"]) == 3
+    for view in VIEWS:
+        if view == "metrics":
+            assert got[view]["jsonClass"] == want[view]["jsonClass"] == "Metrics"
+        elif view == "series":
+            assert got[view] == want[view]
+        else:
+            assert_same_post(("/api", got[view]), ("/api", want[view]))

@@ -13,11 +13,14 @@ back to back, the padded units under a wall clock):
 - ``features``         — hashing ground truth, batch containers and the
                          packed wire, featurizer, the native host library
                          (``native/*.cpp`` built with g++) with its one-pass
-                         fill and pack, and the buffer arena
-- ``streaming``        — supervised sources (replay, synthetic, queue) and
-                         the StreamingContext with its bounded intake queue
+                         fill and pack, host hashing, and the buffer arena
+- ``streaming``        — supervised sources (replay, synthetic, queue, the
+                         live Twitter stream with OAuth1 signing) and the
+                         StreamingContext with its bounded intake queue
 - ``telemetry``        — metrics registry, publish breaker, the dashboard's
                          JSON types, web and Lightning clients, SessionStats
+- ``web``              — the twtml-web dashboard server on the standard
+                         library (HTTP routes, RFC 6455 websockets, assets)
 - ``ops``              — wire decode (delta cumsum, re-pad), device hashing,
                          densify, stats, quality vector, and
                          the fused dense-SGD loop (``ops/fused_sgd.py``, a
@@ -26,7 +29,8 @@ back to back, the padded units under a wall clock):
 - ``convert``          — weights to and from the JAX package's models
 - ``apps``             — the fetch pipeline and watchdog, the warm-up
                          (``apps/common.py``) and the flagship app
-- ``utils``            — rounding, device selection, the clock seam, logging
+- ``utils``            — rounding, device selection, the clock seam, logging,
+                         the ``--profileDir`` tracer (torch.profiler)
 
 Entry points run on ``cuda`` unless the caller asks for ``cpu``; without a
 GPU they raise instead of running quietly on the CPU.

@@ -65,6 +65,7 @@ from ..telemetry import trace as _trace
 from ..utils import get_logger
 from ..utils.rss import RssWatchdog, rss_mb
 from ..utils.runid import config_fingerprint, next_run_id
+from ..utils.tracing import annotate
 
 log = get_logger("apps.common")
 
@@ -92,11 +93,22 @@ def build_source(conf) -> Source:
     """The configured source. ``--replaySpeed`` paces a replay (x realtime)
     or a synthetic stream (tweets/s). ``TWTML_NOW_MS`` (env), which pins the
     featurizer's clock, also pins the synthetic tweets' creation times, so
-    a pinned synthetic run gives the same batches every time."""
-    if conf.source == "replay":
+    a pinned synthetic run gives the same batches every time. ``--source
+    twitter`` opens the live stream with the ``twitter4j.oauth.*``
+    credentials (flags or ``application.conf``). ``--wire ragged`` with
+    ``--hashOn host`` exits, as in the JAX package: the ragged wire ships
+    code units for the device to hash."""
+    if conf.effective_wire() == "ragged" and conf.hashOn != "device":
+        raise SystemExit("--wire ragged is a device-hash wire format; "
+                         "it requires --hashOn device")
+    if conf.source == "twitter":
+        from ..streaming.twitter import TwitterSource
+
+        source: Source = TwitterSource.from_properties()
+    elif conf.source == "replay":
         if not conf.replayFile:
             raise SystemExit("--source replay requires --replayFile <path.jsonl>")
-        source: Source = ReplayFileSource(conf.replayFile, speed=conf.replaySpeed)
+        source = ReplayFileSource(conf.replayFile, speed=conf.replaySpeed)
     else:
         now_env = os.environ.get("TWTML_NOW_MS", "")
         source = SyntheticSource(
@@ -855,7 +867,7 @@ def _dispatch(model, batch, pack: bool, fetch, sync_debug: str, stamp: dict):
     device = getattr(model, "device", None)
     events = None
     tr = _trace.get()
-    with _sync_debug(model, sync_debug):
+    with _sync_debug(model, sync_debug), annotate("twtml.dispatch"):
         packs = native.COUNTERS["packs_native"]
         t0 = time.perf_counter()
         if pack:

@@ -11,6 +11,12 @@ wire by default, with up to 8 batches in flight (apps/common.py
 N-second interval, on the padded wire by default, one synchronous fetch a
 batch. The step is built and warmed before the stream starts.
 
+``--hashOn host`` hashes the bigrams on the host (native/fasthash.cpp) and
+ships the padded tokens; the step densifies them and trains through the
+same fused kernel. ``--profileDir`` writes a ``torch.profiler`` Chrome
+trace of the stream (utils/tracing.py), started after the warm-up and
+stopped after the last delivery, as the JAX app runs its profiler.
+
 The runtime guards are wired as in the JAX app: the tracer (``--trace``),
 the fault injector (``--chaos``), the flight recorder (``--blackbox``, on
 by default) and, with ``--checkpointDir``, the intake journal and the
@@ -44,6 +50,7 @@ from ..telemetry import historian as _historian
 from ..telemetry import trace as _trace
 from ..telemetry.session_stats import SessionStats
 from ..utils import get_logger, round_half_up
+from ..utils.tracing import Tracer, annotate
 from .common import (
     FETCH_DEPTH,
     AppCheckpoint,
@@ -107,6 +114,7 @@ def run(conf: ConfArguments, max_batches: int = 0, fetch_depth: int = FETCH_DEPT
     stream = ssc.source_stream(
         build_source(conf), featurizer, row_bucket=conf.batchBucket,
         token_bucket=conf.tokenBucket, ragged=wire == "ragged",
+        device_hash=conf.hashOn == "device",
     )
     totals = {"count": 0, "batches": 0, "steps": []}
     # the checkpoint's state is the one f32 weight vector (key "w")
@@ -118,6 +126,7 @@ def run(conf: ConfArguments, max_batches: int = 0, fetch_depth: int = FETCH_DEPT
     modelwatch = ModelWatchGuard(conf, ckpt, totals)
     _freshness.configure(conf)
     freshness = FreshnessGuard(conf, ckpt, totals)
+    tracer = Tracer(conf.profileDir, model.device)
 
     def handle(out, batch, _batch_time, at_boundary=True, stamp=None) -> None:
         delivered_s = time.perf_counter()
@@ -136,7 +145,8 @@ def run(conf: ConfArguments, max_batches: int = 0, fetch_depth: int = FETCH_DEPT
             flush=True,
         )
         t0 = time.perf_counter()
-        session.update(totals["count"], b, mse, real_stdev, pred_stdev, real, pred)
+        with annotate("twtml.publish"):
+            session.update(totals["count"], b, mse, real_stdev, pred_stdev, real, pred)
         stamp = dict(stamp or {})
         subs = dict(stamp.pop("featurize_substages_ms", {}))
         if "pack_ms" in stamp and stream.ragged:
@@ -173,6 +183,7 @@ def run(conf: ConfArguments, max_batches: int = 0, fetch_depth: int = FETCH_DEPT
     warmup_compile(stream, model)
 
     log.info("Starting the streaming computation...")
+    tracer.start()
     t_stream = totals["stream_started_s"] = time.perf_counter()
     ssc.start()
     try:
@@ -183,17 +194,21 @@ def run(conf: ConfArguments, max_batches: int = 0, fetch_depth: int = FETCH_DEPT
         ssc.stop()
         flush()  # deliver what is still in flight
         totals["stream_seconds"] = time.perf_counter() - t_stream
-        session.publish_metrics()  # the dashboard's panel ends current
-        _trace.uninstall()
-        ckpt.final_save(totals)
-        # after the final save, which stamps the journal's cursor; a later
-        # run() in this process starts without it
-        _journal.uninstall()
-        # the perfGuard baseline stamps on a clean shutdown only: an aborted
-        # run's stage costs must not become the next run's healthy baseline
-        if not ssc.failed:
-            _historian.stamp_baseline()
-        _historian.uninstall()
+        try:
+            totals["profile"] = tracer.stop()
+        finally:
+            session.publish_metrics()  # the dashboard's panel ends current
+            _trace.uninstall()
+            ckpt.final_save(totals)
+            # after the final save, which stamps the journal's cursor; a
+            # later run() in this process starts without it
+            _journal.uninstall()
+            # the perfGuard baseline stamps on a clean shutdown only: an
+            # aborted run's stage costs must not become the next run's
+            # healthy baseline
+            if not ssc.failed:
+                _historian.stamp_baseline()
+            _historian.uninstall()
     if ssc.failed:
         raise RuntimeError(
             "run aborted by a runtime guard: a fetch watchdog abort, the "

@@ -2,18 +2,23 @@
 of ``twtml_tpu/config.py``).
 
 Defaults come from the port's own ``resources/reference.conf`` and equal the
-JAX package's. The parser takes every flag and short alias of the JAX
-package's parser; ``--backend`` is the one deliberate difference (``cuda|cpu``,
-default ``cuda``). A value that selects a feature the port has not ported
-(a superbatch, the digram codec, block ingest, tenants, host hashing, the
-live Twitter source, ``--profileDir``, serving, multi-host) parses, and
-``check_ported`` then raises ``NotImplementedError`` naming its ROADMAP
-item. ``--wire auto`` resolves by the JAX package's rule: ragged for a
-back-to-back stream (``--seconds 0`` or below), padded under a wall clock.
+JAX package's. An ``application.conf`` overrides them as in the JAX package:
+the file ``$TWTML_CONFIG`` names, else ``./application.conf`` (the first that
+exists; its ``consumerKey``/``consumerSecret``/``accessToken``/
+``accessTokenSecret`` land in the ``twitter4j.oauth.*`` property table). The
+parser takes every flag and short alias of the JAX package's parser;
+``--backend`` is the one deliberate difference (``cuda|cpu``, default
+``cuda``). A value that selects a feature the port has not ported (a
+superbatch, the digram codec, block ingest, tenants, serving, multi-host)
+parses, and ``check_ported`` then raises ``NotImplementedError`` naming its
+ROADMAP item. ``--wire auto`` resolves by the JAX package's rule: ragged for
+a back-to-back stream (``--seconds 0`` or below) that hashes on the device,
+padded under a wall clock or with ``--hashOn host``.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 from importlib import resources as _importlib_resources
 
@@ -67,6 +72,22 @@ def _load_defaults() -> dict[str, str]:
         "reference.conf"
     )
     return parse_conf_text(ref.read_text())
+
+
+def _load_application_conf() -> dict[str, str]:
+    """The optional override file, as the JAX package finds it:
+    ``$TWTML_CONFIG``, then ``./application.conf``; the first that exists
+    wins, and none gives no overrides."""
+    candidates = []
+    env_path = os.environ.get("TWTML_CONFIG", "")
+    if env_path:
+        candidates.append(env_path)
+    candidates.append(os.path.join(os.getcwd(), "application.conf"))
+    for path in candidates:
+        if os.path.isfile(path):
+            with open(path, encoding="utf-8") as fh:
+                return parse_conf_text(fh.read())
+    return {}
 
 
 # attribute -> type, for every key of reference.conf but the OAuth keys
@@ -133,6 +154,7 @@ class ConfArguments:
 
     def __init__(self) -> None:
         conf = _load_defaults()
+        conf.update(_load_application_conf())
         self.appName = "twitter-stream-ml"
         for attr, kind in _TYPES.items():
             setattr(self, attr, kind(conf[attr]))
@@ -162,7 +184,8 @@ class ConfArguments:
   -w, --twtweb <twtweb_url>                    Default: {self.twtweb}
   -s, --seconds <integer number>               Micro-batch interval; 0 or below = back to back
                                                (one --batchBucket of tweets a batch). Default: {self.seconds}
-  --source <replay|synthetic|twitter>          twitter is not ported. Default: {self.source}
+  --source <replay|synthetic|twitter>          twitter: the live stream, OAuth from -C/-S/-A/-T or
+                                               application.conf. Default: {self.source}
   --replayFile <path.jsonl>                    Tweets to replay with --source replay
   --replaySpeed <float>                        0 = as fast as possible, else x realtime
                                                (replay) or tweets/s (synthetic). Default: {self.replaySpeed}
@@ -226,7 +249,11 @@ class ConfArguments:
                                                baseline.json a clean shutdown stamps; warn-only.
                                                Default: {self.perfGuard}
   --perfGuardRatio <float>                     Sustained-regression threshold. Default: {self.perfGuardRatio}
-  --profileDir <path>                          Profiler traces: not ported (ROADMAP A3d).
+  --hashOn <device|host>                       Bigram hashing in the device step, or on the host
+                                               (native/fasthash.cpp; padded wire only); the same
+                                               features either way. Default: {self.hashOn}
+  --profileDir <path>                          torch.profiler trace (Chrome-trace JSON; CUDA
+                                               activity on --backend cuda) of the stream.
   --trace <path.trace>                         Chrome-trace-event pipeline trace (Perfetto).
   --traceMaxMb <int MB>                        Rotate the --trace file at this size; 0 = never.
                                                Default: {self.traceMaxMb}
@@ -256,7 +283,7 @@ class ConfArguments:
 
   The JAX package's other flags parse with its defaults; a value other than
   the single-host default stops the run naming the ROADMAP item it needs:
-  --hashOn host (A3d), --ingest block and --blockWire (A12), --superBatch > 1
+  --ingest block and --blockWire (A12), --superBatch > 1
   and --wirePack (A4), --wireCodec dict (A11), --tenants > 1 and --tenantKey
   (A9), --servePort, --serveBatchRows, --serveMaxWaitMs, --serveDepth,
   --servePromoteEvery, --routerPort, --replicas, --routePolicy, --abtest and
@@ -314,7 +341,7 @@ class ConfArguments:
         the JAX package ignores on this path (``--wirePack`` without a
         superbatch, ``--blockWire`` without block ingest, ``--tenantKey``
         with one tenant, the elastic knobs with ``--elastic off``) pass."""
-        defaults = ConfArguments()
+        defaults = _load_defaults()
 
         def refuse(flag, what, item):
             raise NotImplementedError(
@@ -328,14 +355,8 @@ class ConfArguments:
             refuse("--ingest block", "block ingest", "A12")
         if self.tenants > 1:
             refuse(f"--tenants {self.tenants}", "the tenant plane", "A9")
-        if self.hashOn == "host":
-            refuse("--hashOn host", "host hashing", "A3d")
-        if self.source == "twitter":
-            refuse("--source twitter", "the live Twitter source", "A3d")
-        if self.profileDir:
-            refuse("--profileDir", "the profiler tracer", "A3d")
         for attr in SERVE_FLAGS:
-            if getattr(self, attr) != getattr(defaults, attr):
+            if getattr(self, attr) != _TYPES[attr](defaults[attr]):
                 refuse(f"--{attr} {getattr(self, attr)}", "serving", "A8")
         if (self.coordinator or self.numProcesses != 0 or self.processId != -1
                 or self.master.startswith("twtml://") or self.elastic == "on"):
@@ -347,10 +368,12 @@ class ConfArguments:
         (``twtml_tpu/config.py`` ``effective_wire``): ragged for a
         back-to-back stream; padded under a wall clock (``--seconds > 0``),
         where intervals are latency-bound and wire bytes do not bind.
-        Explicit ``ragged``/``padded`` wins."""
+        Host hashing ships hashed tokens, which only the padded wire
+        carries. Explicit ``ragged``/``padded`` wins (ragged with ``--hashOn
+        host`` is refused where the source is built)."""
         if self.wire != "auto":
             return self.wire
-        return "padded" if self.seconds > 0 else "ragged"
+        return "padded" if self.hashOn != "device" or self.seconds > 0 else "ragged"
 
     def effective_journal(self) -> bool:
         """Resolve ``--journal auto`` by the JAX package's rule: on exactly

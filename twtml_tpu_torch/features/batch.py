@@ -73,6 +73,30 @@ class UnitBatch(NamedTuple):
         return int(self.mask.sum())
 
 
+def compact_tokens(token_idx: np.ndarray, token_val: np.ndarray, num_features: int,
+                   counts: bool = False, validate: bool = True):
+    """The token arrays in the narrowest lossless wire dtype (the JAX
+    package's ``compact_tokens``): indices to int16 when ``num_features``
+    <= 2**15, values to uint16 when the caller declares them term counts
+    (a property of the schema, never sniffed from the data, so a stream
+    keeps one dtype). Out-of-range indices, or counts that do not survive
+    uint16, raise; ``validate=False`` skips those passes for arrays that
+    are in range by construction (the C hasher's)."""
+    if 0 < num_features <= np.iinfo(np.int16).max + 1:
+        if validate and token_idx.size and (
+                token_idx.min() < 0 or token_idx.max() >= num_features):
+            raise ValueError("token indices outside the declared feature space "
+                             f"[0, {num_features})")
+        token_idx = token_idx.astype(np.int16)
+    if counts:
+        compacted = token_val.astype(np.uint16)
+        if validate and not np.array_equal(compacted, token_val):
+            raise ValueError("counts=True but token values are not uint16-exact "
+                             "(fractional, negative, or >= 2**16)")
+        token_val = compacted
+    return token_idx, token_val
+
+
 def _bucket(n: int, minimum: int = 8) -> int:
     """Next power-of-two bucket >= n (>= minimum)."""
     b = minimum
@@ -88,6 +112,31 @@ def pad_row_count(n: int, row_bucket: int, row_multiple: int = 1) -> int:
     if row_multiple > 1:
         b += (-b) % row_multiple
     return b
+
+
+def pad_feature_batch(rows, row_bucket: int = 0, token_bucket: int = 0,
+                      num_features: int = 0, counts: bool = False) -> FeatureBatch:
+    """Per-tweet (text counts {index: count}, numeric[4], label) rows as one
+    padded FeatureBatch (the JAX package's ``pad_feature_batch``): padding
+    rows carry mask 0."""
+    n = len(rows)
+    max_tok = max((len(r[0]) for r in rows), default=1)
+    b = pad_row_count(n, row_bucket)
+    lt = token_bucket if token_bucket >= max_tok and token_bucket > 0 else _bucket(max(max_tok, 1))
+    token_idx = np.zeros((b, lt), dtype=np.int32)
+    token_val = np.zeros((b, lt), dtype=np.float32)
+    numeric = np.zeros((b, NUM_NUMBER_FEATURES), dtype=np.float32)
+    label = np.zeros((b,), dtype=np.float32)
+    mask = np.zeros((b,), dtype=np.float32)
+    for i, (text_counts, nums, lab) in enumerate(rows):
+        for j, (idx, val) in enumerate(text_counts.items()):
+            token_idx[i, j] = idx
+            token_val[i, j] = val
+        numeric[i] = nums
+        label[i] = lab
+        mask[i] = 1.0
+    token_idx, token_val = compact_tokens(token_idx, token_val, num_features, counts=counts)
+    return FeatureBatch(token_idx, token_val, numeric, label, mask)
 
 
 class RaggedUnitBatch:

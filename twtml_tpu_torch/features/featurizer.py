@@ -10,10 +10,15 @@ Semantics kept from the JAX package:
   age in milliseconds scaled by 1e-14;
 - label: the original tweet's retweetCount.
 
-Two units wires, byte-equal to the JAX package's builders of the same name:
-``featurize_batch_units`` (padded, numpy) and ``featurize_batch_ragged``
-(ragged, filled by one native C pass when it loads, else by numpy, and
-optionally packed into one buffer).
+Three batch assemblers, byte-equal to the JAX package's of the same name: the
+units wires ``featurize_batch_units`` (padded, numpy) and
+``featurize_batch_ragged`` (ragged, filled by one native C pass when it
+loads, else by numpy, and optionally packed into one buffer), and the host
+hashing of ``--hashOn host``, ``featurize_batch`` (a padded ``FeatureBatch``
+of hashed bigram counts from ``native/fasthash.cpp``; the Python per-tweet
+hasher of ``features/hashing.py`` is its fallback, byte-equal to the JAX
+package's Python path: the same features, with the token bucket sized by
+the rows' distinct terms where the native path sizes it by their units).
 """
 
 from __future__ import annotations
@@ -32,14 +37,18 @@ import numpy as np
 from . import featurize_native
 from .batch import (
     NUM_NUMBER_FEATURES,
+    FeatureBatch,
     PackedBatch,
     RaggedUnitBatch,
     UnitBatch,
     _bucket,
+    compact_tokens,
     pack_batch,
+    pad_feature_batch,
     pad_row_count,
     ragged_wire_arrays,
 )
+from .hashing import char_bigrams, hashing_tf_counts
 
 _NUMERIC_COLS = operator.attrgetter(
     "followers_count", "favourites_count", "friends_count",
@@ -214,6 +223,70 @@ class Featurizer:
             ],
             dtype=np.float32,
         )
+
+    def featurize_text(self, status: Status) -> dict[int, float]:
+        """The original's lowercased text as hashed bigram counts."""
+        text = status.retweeted_status.text.lower()
+        return hashing_tf_counts(char_bigrams(text), self.num_text_features)
+
+    def featurize(self, status: Status) -> tuple[dict[int, float], np.ndarray, float]:
+        """One tweet's text counts, numeric features and label."""
+        return (self.featurize_text(status), self.featurize_numbers(status),
+                float(status.retweeted_status.retweet_count))
+
+    def featurize_batch(self, statuses: list[Status], row_bucket: int = 0,
+                        token_bucket: int = 0) -> FeatureBatch:
+        """Filter + hash + pad a micro-batch on the host (``--hashOn
+        host``): the bigram counts are hashed by ``native/fasthash.cpp``
+        into the padded buffers, the numeric and label columns assembled
+        vectorized; the Python per-tweet path is the fallback (the same
+        features; its token bucket follows the distinct terms). Sub-stages:
+        ``encode``, ``hash`` and ``numeric`` (native), or ``python``."""
+        from . import native
+
+        self.last_substages = []
+        t0 = time.perf_counter()
+        keep = [s for s in statuses if self.filtrate(s)]
+        fast = self._featurize_batch_native(keep, row_bucket, token_bucket, t0)
+        if fast is not None:
+            native.HASH_COUNTERS["hashes_native"] += 1
+            return fast
+        native.HASH_COUNTERS["hashes_degraded"] += 1
+        self.last_substages = []
+        batch = pad_feature_batch(
+            [self.featurize(s) for s in keep], row_bucket=row_bucket,
+            token_bucket=token_bucket, num_features=self.num_text_features, counts=True,
+        )
+        self._sub("python", t0)
+        return batch
+
+    def _featurize_batch_native(self, keep: list[Status], row_bucket: int,
+                                token_bucket: int, t0: float) -> FeatureBatch | None:
+        from . import native
+
+        if not native.hash_available():
+            return None
+        n = len(keep)
+        originals = [s.retweeted_status for s in keep]
+        texts = [o.text.lower() for o in originals]
+        units, offsets = encode_texts(texts)
+        t0 = self._sub("encode", t0)
+        # distinct bigrams of a text never exceed its UTF-16 units - 1, so
+        # this token bucket overflows only past the C table's 1024 terms
+        max_tok = int(np.maximum(np.diff(offsets) - 1, 1).max()) if n else 1
+        b = pad_row_count(n, row_bucket)
+        lt = token_bucket if token_bucket >= max_tok and token_bucket > 0 else _bucket(max_tok)
+        token_idx = np.zeros((b, lt), dtype=np.int32)
+        token_val = np.zeros((b, lt), dtype=np.float32)
+        if native.hash_texts(units, offsets, n, self.num_text_features,
+                             token_idx, token_val) is None:
+            return None
+        token_idx, token_val = compact_tokens(
+            token_idx, token_val, self.num_text_features, counts=True, validate=False)
+        t0 = self._sub("hash", t0)
+        numeric, label, mask = self._numeric_label_mask(originals, b)
+        self._sub("numeric", t0)
+        return FeatureBatch(token_idx, token_val, numeric, label, mask)
 
     def _numeric_label_mask(self, originals, b: int, cols=None):
         """Padded numeric/label/mask columns. ``cols``: the float64 [n, 5]

@@ -2,11 +2,12 @@
 (counterpart of the loader half of ``twtml_tpu/features/native.py``).
 
 ``native/featurize.cpp`` (the one-pass featurize fill), ``native/
-wireassemble.cpp`` (the packed-wire assembler) and ``native/wirecodec.cpp``
-(the digram encoder the assembler links against) are compiled with g++ at
-first use into ``build/twtml_tpu_torch/`` at the repository root. The
-library is named by a hash of its sources and flags, so an edited source
-builds a new library beside the old one.
+wireassemble.cpp`` (the packed-wire assembler), ``native/wirecodec.cpp``
+(the digram encoder the assembler links against) and ``native/
+fasthash.cpp`` (the host bigram hasher of ``--hashOn host``) are compiled
+with g++ at first use into ``build/twtml_tpu_torch/`` at the repository
+root. The library is named by a hash of its sources and flags, so an
+edited source builds a new library beside the old one.
 
 Concurrent builds (pytest workers, two apps) are safe: a process takes an
 ``fcntl`` lock on the library's lock file, builds to a temporary name of its
@@ -17,7 +18,8 @@ Degrade seam, as in the JAX package: no compiler, a failed build, a library
 that will not load, or one that lacks an entry gives one warning, and the
 caller runs the byte-identical numpy path. ``COUNTERS`` counts, per
 process, the fills and packs that ran natively and those that degraded
-(the native entry was wanted but unavailable).
+(the native entry was wanted but unavailable); ``HASH_COUNTERS`` the same
+for host hashing, whose degraded path is the Python per-tweet hasher.
 """
 
 from __future__ import annotations
@@ -32,23 +34,27 @@ import subprocess
 import warnings
 from pathlib import Path
 
+import numpy as np
+
 REPO = Path(__file__).resolve().parents[2]
 SOURCES = tuple(
     REPO / "native" / name
-    for name in ("featurize.cpp", "wireassemble.cpp", "wirecodec.cpp")
+    for name in ("featurize.cpp", "wireassemble.cpp", "wirecodec.cpp", "fasthash.cpp")
 )
 BUILD_DIR = REPO / "build" / "twtml_tpu_torch"
-FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-Wall", "-Wextra")
+FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-pthread", "-Wall", "-Wextra")
 
 COUNTERS = {
     "fills_native": 0, "fills_degraded": 0,
     "packs_native": 0, "packs_degraded": 0,
 }
+HASH_COUNTERS = {"hashes_native": 0, "hashes_degraded": 0}
 
 
 def reset_counters() -> None:
-    for key in COUNTERS:
-        COUNTERS[key] = 0
+    for counters in (COUNTERS, HASH_COUNTERS):
+        for key in counters:
+            counters[key] = 0
 
 
 def library_path(build_dir=None) -> Path:
@@ -113,13 +119,31 @@ _ENTRIES = {
 }
 
 
+# (units u16, offsets [n+1] i64, n, num_features, l_max, out_idx [b, l_max]
+#  i32, out_val [b, l_max] f32, out_ntok [b] i32, n_threads) -> max distinct
+# terms a row; bound without a load-time warning (the wire path's stale
+# libraries predate it): a library without it warns at first use
+_HASH_ENTRY = ("fasthash_batch", [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32,
+    ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int32,
+])
+
+
 class NativeLibrary:
-    """A loaded native library with its entries bound. An entry the
-    library lacks (a stale build) is None, with one warning."""
+    """A loaded native library with its entries bound. An entry of the
+    wire path the library lacks (a stale build) is None, with one warning;
+    a missing ``fasthash_batch`` is None, and warns where it is wanted."""
 
     def __init__(self, path) -> None:
         self.path = Path(path)
         cdll = ctypes.CDLL(str(self.path))
+        name, argtypes = _HASH_ENTRY
+        fn = getattr(cdll, name, None)
+        if fn is not None:
+            fn.restype = ctypes.c_int32
+            fn.argtypes = argtypes
+        self.fasthash_batch = fn
         for name, argtypes in _ENTRIES.items():
             fn = getattr(cdll, name, None)
             if fn is None:
@@ -188,3 +212,51 @@ def wire_assemble(units, offsets, numeric, label, mask, narrow: bool, out) -> in
         out.ctypes.data, int(out.shape[0]), ctypes.byref(enc_bucket),
     )
     return None if total < 0 else int(total)
+
+
+_warned_no_hash: list[bool] = []
+
+
+def hash_available() -> bool:
+    """Whether host hashing runs natively; a library without
+    ``fasthash_batch`` (a stale build) warns once a process."""
+    lib = get_lib()
+    if lib is None:
+        return False
+    if lib.fasthash_batch is None and not _warned_no_hash:
+        _warned_no_hash.append(True)
+        warnings.warn(f"native library {lib.path.name} lacks fasthash_batch: host hashing "
+                      "runs the Python path (delete the library to rebuild it)",
+                      RuntimeWarning, stacklevel=2)
+    return lib.fasthash_batch is not None
+
+
+def hash_texts(units, offsets, n: int, num_features: int, out_idx, out_val):
+    """Hash ``n`` lowercased texts (their UTF-16 ``units`` and int64
+    ``offsets``) into the caller's zeroed [B, L] ``out_idx`` (int32) and
+    ``out_val`` (float32) with ``native/fasthash.cpp``. Returns the per-row
+    distinct-term counts, or None when the entry is unavailable, L was too
+    small, or a row overflowed the C scratch table: the caller then runs
+    the Python hasher."""
+    if not hash_available():
+        return None
+    lib = get_lib()
+    b, l_max = out_idx.shape
+    if not (out_idx.dtype == np.int32 and out_val.dtype == np.float32 and n <= b
+            and out_val.shape == out_idx.shape and out_idx.flags.c_contiguous
+            and out_val.flags.c_contiguous and offsets.dtype == np.int64
+            and units.dtype == np.uint16 and units.flags.c_contiguous
+            and offsets.flags.c_contiguous and offsets.shape[0] == n + 1):
+        raise ValueError("hash_texts: buffers of the wrong dtype, shape or layout")
+    ntok = np.zeros(b, dtype=np.int32)
+    try:
+        threads = int(os.environ.get("TWTML_NATIVE_THREADS", "0"))
+    except ValueError:
+        threads = 0
+    max_terms = lib.fasthash_batch(
+        units.ctypes.data, offsets.ctypes.data, n, num_features, l_max,
+        out_idx.ctypes.data, out_val.ctypes.data, ntok.ctypes.data, threads,
+    )
+    if max_terms > l_max or (ntok[:n] < 0).any():
+        return None
+    return ntok

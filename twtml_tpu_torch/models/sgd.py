@@ -2,8 +2,10 @@
 ``twtml_tpu/models/sgd.py``).
 
 Per micro-batch: unpack the packed wire buffer and re-pad the ragged units
-(the default wire), hash the bigrams on the device, densify to [B, F_text] and
-append the 4 numeric features, predict with the pre-update weights and
+(the default wire), hash the bigrams on the device (or, under ``--hashOn
+host``, take the host-hashed tokens of a ``FeatureBatch``, upcast from
+their compact wire dtypes), densify to [B, F_text] and append the 4
+numeric features, predict with the pre-update weights and
 round HALF_UP, compute the batch stats (and the quality vector under
 ``--modelWatch``), then run ``numIterations`` of MLlib's GradientDescent.
 
@@ -223,8 +225,13 @@ def make_sgd_train_step(
                 batch.units, batch.length, f_text, dtype
             )
         else:
+            # host-hashed tokens in their compact wire dtypes (int16 indices;
+            # uint16 counts, which travel as int16 bits): upcast once
             token_idx = batch.token_idx.to(torch.int32)
-            token_val = batch.token_val.to(dtype)
+            token_val = batch.token_val
+            if token_val.dtype == torch.int16:
+                token_val = token_val.to(torch.int32) & 0xFFFF
+            token_val = token_val.to(dtype)
         mask = batch.mask.to(dtype)
         labels = batch.label.to(dtype)
         numeric = batch.numeric.to(dtype)
@@ -271,9 +278,9 @@ def batch_to_device(batch, device, non_blocking: bool = True):
     run the copy, which the fetch pipeline's lease rule guarantees (the
     lease retires after the batch's results were delivered). A pageable
     array is staged by the driver before the call returns. On the CPU the
-    tensors share the host arrays. uint16 code units travel as int16 (same
-    bits; the device ops mask them back), since torch's uint16 has few
-    kernels."""
+    tensors share the host arrays. uint16 code units and term counts travel
+    as int16 (same bits; the device ops mask them back), since torch's
+    uint16 has few kernels."""
 
     def move(a: np.ndarray) -> torch.Tensor:
         if a.dtype == np.uint16:

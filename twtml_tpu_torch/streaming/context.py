@@ -38,7 +38,7 @@ import time
 from typing import Callable
 
 from ..config import SHED_POLICIES
-from ..features.batch import RaggedUnitBatch, pad_row_count
+from ..features.batch import FeatureBatch, RaggedUnitBatch, pad_row_count
 from ..features.featurizer import Featurizer, Status
 from ..telemetry import blackbox as _blackbox
 from ..telemetry import lineage as _lineage
@@ -47,6 +47,7 @@ from ..telemetry import sideband as _sideband
 from ..telemetry import trace as _trace
 from ..utils import get_logger
 from ..utils.clock import now_s
+from ..utils.tracing import annotate
 from . import faults as _faults
 from . import journal as _journal
 from .sources import Source
@@ -207,30 +208,38 @@ class RawStream:
 class FeatureStream(RawStream):
     """A RawStream whose outputs receive featurized host batches: the
     padded units wire (``UnitBatch``) or, with ``ragged``, the ragged units
-    wire (``RaggedUnitBatch``, unpacked; the fetch pipeline packs it). Both
-    are device-hash wires: host hashing is not ported.
+    wire (``RaggedUnitBatch``, unpacked; the fetch pipeline packs it), both
+    hashed on the device; or, without ``device_hash`` (``--hashOn host``),
+    a ``FeatureBatch`` of bigram counts hashed on the host, which only the
+    padded wire carries (ragged raises, as in the JAX package).
 
     ``last_featurize`` describes the newest batch: when its featurize
     started (``time.perf_counter()``), its featurize ms, the featurizer's
     sub-stage ms, and whether the native fill built it."""
 
     def __init__(self, featurizer: Featurizer, row_bucket: int = 0,
-                 token_bucket: int = 0, ragged: bool = False):
+                 token_bucket: int = 0, ragged: bool = False, device_hash: bool = True):
         super().__init__(row_bucket)
+        if ragged and not device_hash:
+            raise ValueError("the ragged wire IS a device-hash wire format: "
+                             "--wire ragged requires --hashOn device")
         self.featurizer = featurizer
         self.token_bucket = token_bucket
         self.ragged = ragged
+        self.device_hash = device_hash
         self.last_featurize: dict = {}
         self._bucket_overflow_warned = False
         self._pinned_rows = pad_row_count(0, row_bucket) if row_bucket > 0 else 0
 
     @staticmethod
     def batch_shape(batch) -> "tuple[int, int]":
-        """(rows, units) of a featurized batch: the two axes the pinned
-        buckets govern (a ragged batch's static row length is its units
-        axis)."""
+        """(rows, units or tokens) of a featurized batch: the two axes the
+        pinned buckets govern (a ragged batch's static row length is its
+        units axis)."""
         if isinstance(batch, RaggedUnitBatch):
             return batch.mask.shape[0], batch.row_len
+        if isinstance(batch, FeatureBatch):
+            return batch.mask.shape[0], batch.token_idx.shape[1]
         return batch.mask.shape[0], batch.units.shape[1]
 
     def bucket_overflow(self, batch) -> bool:
@@ -265,8 +274,14 @@ class FeatureStream(RawStream):
         tr = _trace.get()
         fills = native.COUNTERS["fills_native"]
         t0 = time.perf_counter()
-        with tr.span("featurize", items=len(statuses)) as sp:
-            if self.ragged:
+        with tr.span("featurize", items=len(statuses)) as sp, annotate("twtml.featurize"):
+            if not self.device_hash:
+                # host hashing: bigram counts hashed here, padded tokens
+                # on the wire
+                batch = self.featurizer.featurize_batch(
+                    statuses, row_bucket=self.row_bucket, token_bucket=self.token_bucket,
+                )
+            elif self.ragged:
                 batch = self.featurizer.featurize_batch_ragged(
                     statuses, row_bucket=self.row_bucket, unit_bucket=self.token_bucket,
                 )
@@ -354,12 +369,13 @@ class StreamingContext:
 
     def source_stream(self, source: Source, featurizer: Featurizer,
                       row_bucket: int = 0, token_bucket: int = 0,
-                      ragged: bool = False) -> FeatureStream:
+                      ragged: bool = False, device_hash: bool = True) -> FeatureStream:
         """Attach the (single) source and build its feature stream."""
         if self._source is not None:
             raise ValueError("StreamingContext supports one source stream")
         self._source = source
-        self._stream = FeatureStream(featurizer, row_bucket, token_bucket, ragged)
+        self._stream = FeatureStream(featurizer, row_bucket, token_bucket, ragged,
+                                     device_hash)
         return self._stream
 
     def _drain(self, limit: int = 0) -> list[Status]:

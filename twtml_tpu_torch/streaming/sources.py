@@ -19,8 +19,8 @@ Supervision: a crashed producer restarts with jittered exponential backoff,
 up to ``max_restarts`` consecutive failures (counted in ``source.restarts``).
 ``produce()`` is also the plain generator of a source's tweets. The
 ``--chaos`` ``source.burst`` rule re-emits a tweet from the supervised loop
-(streaming/faults.py). Block ingest, the multi-host sharded sources and the
-live Twitter source are not ported.
+(streaming/faults.py). The live Twitter source is ``streaming/twitter.py``;
+block ingest and the multi-host sharded sources are not ported.
 """
 
 from __future__ import annotations

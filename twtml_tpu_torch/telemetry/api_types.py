@@ -9,11 +9,13 @@ interchangeable:
   {"jsonClass": "Config", "id": "...", "host": "...", "viz": ["..."]}
   {"jsonClass": "Stats", "count": 0, "batch": 0, "mse": 0, "realStddev": 0, "predStddev": 0}
 
-``Series``, ``Metrics``, ``ModelHealth``, ``Freshness`` and ``History`` are
-the JAX package's additive types (the live chart, the observability panel,
-the model-health, freshness and historian tiles); legacy dashboards ignore
-them. The other additive types (hosts, tenants, serving, fleet) belong to
-planes the port has not ported.
+The other types are the JAX package's additive ones, which legacy
+dashboards ignore: ``Series`` (the live chart), ``Metrics`` (the
+observability panel), ``Hosts``, ``Tenants``, ``ModelHealth``, ``Serving``,
+``Freshness``, ``Fleet`` and ``History`` (their tiles). The port's app
+publishes Series, Metrics, ModelHealth, Freshness and History; its web
+server caches and answers all of them (the producers of Hosts, Tenants,
+Serving and Fleet are the multi-host, tenant and serving planes).
 """
 
 from __future__ import annotations
@@ -69,6 +71,37 @@ class Metrics:
 
 
 @dataclass
+class Hosts:
+    """The per-host lockstep view of a multi-host run: one row a host, the
+    straggler (host, stage, skew), the elastic epoch and membership counts,
+    and the current lead's uid (-1 when not elastic)."""
+
+    hosts: list = field(default_factory=list)
+    straggler: int = -1
+    stage: str = ""
+    skewMs: float = 0.0
+    epoch: int = -1
+    liveHosts: int = 0
+    departed: int = 0
+    rejoined: int = 0
+    leadUid: int = -1
+
+    json_class = "Hosts"
+
+
+@dataclass
+class Tenants:
+    """The multi-tenant model plane's view: one row a tenant, the gating
+    tenant (most rows this tick) and the active-tenant count."""
+
+    tenants: list = field(default_factory=list)
+    gating: int = -1
+    active: int = 0
+
+    json_class = "Tenants"
+
+
+@dataclass
 class ModelHealth:
     """The model-health view (telemetry/modelwatch.py): level, drift score,
     loss trend, the weight/update/gradient norms, the rolling mse window and
@@ -85,6 +118,32 @@ class ModelHealth:
     episodes: int = 0
 
     json_class = "ModelHealth"
+
+
+@dataclass
+class Serving:
+    """The serving plane's view: QPS and latency percentiles over the serve
+    window, the active snapshot (age, step, quality level), request, row
+    and error totals, per-tenant rows, and the champion/challenger state."""
+
+    qps: float = 0.0
+    rowsPerSec: float = 0.0
+    p50Ms: float = 0.0
+    p95Ms: float = 0.0
+    p99Ms: float = 0.0
+    snapshotAgeS: float = -1.0
+    snapshotStep: int = -1
+    level: str = ""
+    requests: int = 0
+    rows: int = 0
+    errors: int = 0
+    tenants: list = field(default_factory=list)
+    champion: int = -1
+    shadows: list = field(default_factory=list)
+    promotions: int = 0
+    refusedPromotions: int = 0
+
+    json_class = "Serving"
 
 
 @dataclass
@@ -112,6 +171,21 @@ class Freshness:
 
 
 @dataclass
+class Fleet:
+    """The read fleet's router view: the route policy, per-replica tiles,
+    request, retry and ejection totals, and the fleet's champion tenant."""
+
+    policy: str = ""
+    replicas: list = field(default_factory=list)
+    requests: int = 0
+    retries: int = 0
+    ejections: int = 0
+    champion: int = -1
+
+    json_class = "Fleet"
+
+
+@dataclass
 class History:
     """The telemetry historian's view (telemetry/historian.py ``view``):
     the tail's RSS, fetch-RTT and per-sample stage-cost series, the RSS
@@ -133,8 +207,10 @@ class History:
     json_class = "History"
 
 
-TYPES = {"Config": Config, "Stats": Stats, "Series": Series, "Metrics": Metrics,
-         "ModelHealth": ModelHealth, "Freshness": Freshness, "History": History}
+TYPES = {"Config": Config, "Stats": Stats, "Series": Series,
+         "Metrics": Metrics, "Hosts": Hosts, "Tenants": Tenants,
+         "ModelHealth": ModelHealth, "Serving": Serving, "Fleet": Fleet,
+         "Freshness": Freshness, "History": History}
 
 
 def encode(obj) -> str:
