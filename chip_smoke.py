@@ -18,7 +18,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
                spill path) with NaN/Inf in masked rows bitwise ignored, and
                the operating point (spill path); and a valid row holding a
                NaN label, then an Inf feature: the twin's non-finite
-               pattern in w and preds, every iteration run;
+               pattern in w and preds, every iteration run; then the
+               kernel's logistic residual mode (r = σ(x·w) − y, 0/1 labels)
+               at the same shapes: the narrow pass, count 0, a ragged last
+               CTA with rows spilled, the tiled wide pass (NaN/Inf in masked
+               rows bitwise ignored) and the operating point;
   4. main    — the flagship app (``apps/linear_regression.run``, its
                streaming context and fetch pipeline, ``--seconds 0
                --batchBucket 16384``) on cuda for 4 full-width synthetic
@@ -103,15 +107,37 @@ Phases, in order; any failure ends the run with a non-zero exit:
                Chrome trace names the kernel and the app's annotated
                regions; host-hash featurize against the device-hash wire's,
                the profiled run's wall against an unprofiled run's;
- 15. times   — at the operating point: the launch plan (grid, rows resident
+ 15. logistic — ``apps/logistic_regression.py`` on the card: 4 full-width
+               batches of two-class tweets (a lexicon word drawn onto each
+               original) from a pre-filled source under the sync-debug
+               mode, B1 in its logistic mode 4 + 1 times, against the
+               ``--backend cpu`` twin: weights and stats within 1e-4,
+               predictions equal except rows whose margin is within 1e-4 of
+               0 (counted); the labels' positive share;
+ 16. superbatch — ``--superBatch 8`` on the group wire (one packed buffer
+               a group) and the stacked wire, and ``--superBatch 1``, every
+               dispatch under the sync-debug mode, all three bitwise equal
+               (weights, predictions, stats, quality, lines): over the
+               stream phase's 8 batches (their ragged units buckets decide
+               which group), then over 8 batches of one bucket fed twice, so
+               the second group replays the CUDA graph the first captured;
+               each arm's launches and H2D/D2H copies a dispatch (a
+               ``--profileDir`` trace), host wall a batch, tweets/s;
+ 17. kmeans  — ``apps/kmeans.py`` on the card: the (3, 2) random centers
+               bitwise the CPU's draw; 4 batches of 16384 retweets from a
+               pre-filled source against the ``--backend cpu`` twin:
+               assignments and sizes equal, centers and weights within
+               1e-5;
+ 18. times   — at the operating point: the launch plan (grid, rows resident
                and spilled, shared memory, registers from ptxas), kernel,
                prologue and per-iteration times, the twin, the bound; each
                wire's featurize by sub-stage, bytes and H2D copy; and where
-               a step's time goes on each wire.
+               a step's time goes on each wire; the logistic mode's kernel
+               time (50 iterations), twin and bound.
 No app run publishes anywhere but the loopback recorder and, in the web
 phase, the port's own server on a loopback port. The line before
-the last is the kernels' JSON record; the last line is ``{"ok": true,
-"device": {...}}``.
+the last is the kernels' JSON record (B1's least-squares and logistic
+modes); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -327,11 +353,13 @@ def kernel_phase():
                 raise AssertionError(f"{name}: NaN/Inf in masked rows reached the result")
             note += f"; NaN/Inf in {int((~keep).sum())} masked rows: bitwise equal"
         plan = fused_sgd.launch_plan(x.shape[0], x.shape[1], **sm_limits())
+        mode = fused_sgd.residual_mode(kw.get("residual_fn"))
         phase("kernel", f"{name}: B={x.shape[0]} F={x.shape[1]} grid {plan.grid}, "
               f"{plan.resident_rows} rows resident, {plan.spill_rows} spilled; "
-              f"max abs err w {ew:.3e} preds {ep:.3e}; max rel w {rw:.3e} "
+              f"residual mode {mode}, {int(fused_sgd.fused_dense_sgd.last_iterations.item())} "
+              f"iterations run; max abs err w {ew:.3e} preds {ep:.3e}; max rel w {rw:.3e} "
               f"preds {rp:.3e}; {note}")
-        cases.append((name, max(ew, ep)))
+        cases.append((name, max(ew, ep), mode))
         return w, p
 
     x, y, m = design(rng, 16, 64, 14, terms=6)
@@ -389,8 +417,43 @@ def kernel_phase():
 
     x, y, m, w0 = op_point_inputs(dev)
     case("operating point (spill path)", x, y, m, w0)
+
+    # the logistic residual mode, r = σ(x·w) − y, at the same shapes, with
+    # 0/1 labels: the narrow pass, count 0, rows spilled to L2 and the
+    # tiled wide pass, each with NaN/Inf in its masked rows (σ(0) − 0 = 0.5
+    # times a zeroed row adds nothing), and the operating point
+    logistic = dict(residual_fn=fused_sgd.logistic_residual, step_size=0.1)
+    binary = lambda n: to((rng.random(n) < 0.5).astype("float32"))  # noqa: E731
+    x_, _, m_ = design(rng, 1001, 1004, 1001)
+    case("logistic ragged (narrow pass)", to(x_), binary(1001), to(m_), small_w0(1004),
+         **logistic)
+    x_, _, m_ = design(rng, 64, 1004, 0)
+    w0_ = to(rng.normal(size=1004).astype("float32"))
+    w_, p_ = case("logistic count=0", to(x_), binary(64), to(m_), w0_, **logistic)
+    if not torch.equal(w_, w0_) or not torch.equal(p_, torch.zeros_like(p_)):
+        raise AssertionError("logistic count=0: weights must be unchanged, preds 0")
+    x_, _, m_ = design(rng, 16381, 1004, 16000)
+    case("logistic ragged last CTA (spill path)", to(x_), binary(16381), to(m_),
+         small_w0(1004), dirty=True, **logistic)
+    x_, _, m_ = design(rng, 4096, 8196, 4000)
+    case("logistic wide F (tiled + spill path)", to(x_), binary(4096), to(m_),
+         small_w0(8196), dirty=True, **logistic)
+    del x_, m_
+    case("logistic operating point (spill path)", x, op_point_labels(dev), m, w0,
+         dirty=True, **logistic)
     torch.cuda.synchronize()
-    return max(e for _, e in cases), [name for name, _ in cases] + NONFINITE_CASES
+    return ({mode: max(e for _, e, md in cases if md == mode) for mode in (0, 1)},
+            [name for name, _, _ in cases] + NONFINITE_CASES)
+
+
+def op_point_labels(device):
+    """0/1 labels of the operating point for the logistic mode, drawn from
+    a fixed seed (the synthetic tweets' sentiment is all 1)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(8)
+    return torch.from_numpy((rng.random(OP_ROWS) < 0.6).astype("float32")).to(device)
 
 
 NONFINITE_CASES: list = []
@@ -443,17 +506,18 @@ def sm_limits():
 
 # ---- phase 4/5/6: the main path on each wire --------------------------------
 
-def app_run(argv, max_batches=0, **kw):
-    """One run of the app with ``argv``, publishing to the loopback
-    recorder only; returns its totals and printed lines."""
-    from twtml_tpu_torch.apps.linear_regression import run
+def app_run(argv, max_batches=0, app_module=None, **kw):
+    """One run of an app (``app_module``, the flagship linear app when None)
+    with ``argv``, publishing to the loopback recorder only; returns its
+    totals and printed lines."""
+    from twtml_tpu_torch.apps import linear_regression
     from twtml_tpu_torch.config import ConfArguments
 
     out = io.StringIO()
     conf = ConfArguments().parse(
         ["--lightning", RECORDER.url, "--twtweb", RECORDER.url, *argv])
     with contextlib.redirect_stdout(out):
-        totals = run(conf, max_batches=max_batches, **kw)
+        totals = (app_module or linear_regression).run(conf, max_batches=max_batches, **kw)
     return totals, out.getvalue().splitlines()
 
 
@@ -471,7 +535,8 @@ class ErrorLog(logging.Handler):
 
 
 def recorded_app_run(argv, max_batches, source=None, blocking_copies=False,
-                     sleep_before=None, expected_errors=(), expect_abort=False, **kw):
+                     sleep_before=None, expected_errors=(), expect_abort=False,
+                     app_module=None, learner=None, **kw):
     """One app run with the kernel's launch counter and the native counters
     set to 0 just before it and read just after, recording what the run's
     model returned: the warm-up's output, each batch's StepOutput (device
@@ -486,7 +551,11 @@ def recorded_app_run(argv, max_batches, source=None, blocking_copies=False,
     error fails, unless the message starts with one of ``expected_errors``
     (a guard's own report of what it caught). With ``expect_abort`` the
     run must raise its guard abort: totals and lines are then None and []
-    and ``rec["aborted"]`` holds the message."""
+    and ``rec["aborted"]`` holds the message. ``app_module`` and ``learner``
+    (the flagship app and its linear learner when None) pick another SGD
+    app; ``rec["raw"]`` holds each fused call's raw margins (device
+    tensors); ``rec["groups"]`` the step_many calls; ``rec["captured"]``
+    the CUDA graphs the model captured."""
     import torch
 
     from twtml_tpu_torch.apps import common
@@ -496,10 +565,12 @@ def recorded_app_run(argv, max_batches, source=None, blocking_copies=False,
     from twtml_tpu_torch.models.linear import StreamingLinearRegressionWithSGD
     from twtml_tpu_torch.ops import fused_sgd
 
-    rec = {"outputs": [], "iterations": [], "fetches": 0, "restored": []}
+    rec = {"outputs": [], "iterations": [], "fetches": 0, "restored": [], "raw": [],
+           "groups": 0}
     base_build, base_source = app.build_model, app.build_source
+    base_cls = learner or StreamingLinearRegressionWithSGD
 
-    class Recorded(StreamingLinearRegressionWithSGD):
+    class Recorded(base_cls):
         def __init__(self, *a, **k):
             super().__init__(*a, **k)
             self.non_blocking = not blocking_copies
@@ -510,6 +581,15 @@ def recorded_app_run(argv, max_batches, source=None, blocking_copies=False,
                 torch.cuda._sleep(cycles)
             out = super().step(batch)
             rec["outputs"].append(out)
+            rec["model"] = self
+            return out
+
+        def step_many(self, stacked):
+            out = super().step_many(stacked)
+            rec["groups"] += 1
+            rec["outputs"].extend(
+                type(out)(*(None if f is None else f[i] for f in out))
+                for i in range(out.count.shape[0]))
             rec["model"] = self
             return out
 
@@ -525,9 +605,10 @@ def recorded_app_run(argv, max_batches, source=None, blocking_copies=False,
     def fused(*args, **kw):
         out = fused_sgd.fused_dense_sgd(*args, **kw)
         rec["iterations"].append(fused_sgd.fused_dense_sgd.last_iterations)
+        rec["raw"].append(out[1])
         return out
 
-    app.build_model = lambda conf: common.build_model(conf, model_cls=Recorded)
+    app.build_model = lambda conf, *_: common.build_model(conf, model_cls=Recorded)
     sgd_module.fused_dense_sgd = fused
     if source is not None:
         app.build_source = lambda conf: source
@@ -538,7 +619,8 @@ def recorded_app_run(argv, max_batches, source=None, blocking_copies=False,
         native.reset_counters()
         t0 = time.perf_counter()
         try:
-            totals, lines = app_run(argv, max_batches=max_batches, **kw)
+            totals, lines = app_run(argv, max_batches=max_batches, app_module=app_module,
+                                    **kw)
         except RuntimeError as exc:
             if not expect_abort or "runtime guard" not in str(exc):
                 raise
@@ -562,8 +644,10 @@ def recorded_app_run(argv, max_batches, source=None, blocking_copies=False,
     # the first step is the pre-stream warm-up's all-padding batch
     rec["warmup"], rec["outputs"] = rec["outputs"][0], rec["outputs"][1:]
     rec["iterations"] = rec["iterations"][1:]
+    rec["raw"] = rec["raw"][1:]
     rec["fetches"] -= 1  # the warm-up's
     rec["weights"] = rec["model"].latest_weights
+    rec["captured"] = len(rec["model"]._graphs)
     if float(rec["warmup"].count) != 0:
         raise AssertionError("the warm-up step trained rows")
     return totals, lines, rec
@@ -1941,6 +2025,361 @@ def hosthash_phase(padded_rec):
 QUEUE_AHEAD_CYCLES = 200_000
 
 
+# ---- the logistic learner, the superbatch, streaming k-means ----------------
+
+LOGISTIC_BATCHES = 4
+LOGISTIC_ARGV = ["--source", "synthetic", "--seconds", "0", "--batchBucket", str(OP_ROWS)]
+# a prediction may differ from the CPU twin's only where the twin's margin
+# lies this close to 0 (the card sums X·w in another order)
+MARGIN_ATOL = 1e-4
+
+
+def two_class_statuses(n, seed):
+    """``n`` synthetic tweets whose originals end in a lexicon word with a
+    seeded draw (" great" 40 %, " bad" 40 %, none 20 %), so the sentiment
+    labels hold both classes (the synthetic vocabulary alone is all 1)."""
+    import numpy as np
+
+    from twtml_tpu_torch.streaming.sources import SyntheticSource
+
+    statuses = list(SyntheticSource(total=n, seed=seed, base_ms=NOW_MS).produce())
+    words = np.random.default_rng(seed).choice(["", " great", " bad"], size=n,
+                                                p=[0.2, 0.4, 0.4])
+    for st, word in zip(statuses, words):
+        st.retweeted_status.text += str(word)
+    return statuses
+
+
+def logistic_phase(smi):
+    """``apps/logistic_regression.py`` on the card: 4 full-width batches of
+    two-class tweets from a pre-filled source under the sync-debug mode,
+    held against the ``--backend cpu`` twin (weights and stats within
+    SAMPLED_RTOL, predictions equal except where the twin's margin is
+    within MARGIN_ATOL of 0), B1 launched in its logistic mode once a batch
+    and once for the warm-up."""
+    import numpy as np
+
+    from twtml_tpu_torch.apps import logistic_regression
+    from twtml_tpu_torch.apps.common import SYNC_DEBUG_ENV
+    from twtml_tpu_torch.features.sentiment import sentiment_labels
+    from twtml_tpu_torch.models.logistic import StreamingLogisticRegressionWithSGD
+
+    t_phase = time.perf_counter()
+    statuses = two_class_statuses(LOGISTIC_BATCHES * OP_ROWS, 11)
+    share = float(sentiment_labels(statuses).mean())
+    run = dict(app_module=logistic_regression, learner=StreamingLogisticRegressionWithSGD)
+    os.environ[SYNC_DEBUG_ENV] = "error"
+    try:
+        totals, lines, rec = recorded_app_run(
+            ["--backend", "cuda", *LOGISTIC_ARGV], LOGISTIC_BATCHES,
+            source=prefilled_source(statuses), **run)
+    finally:
+        del os.environ[SYNC_DEBUG_ENV]
+    twin = recorded_app_run(["--backend", "cpu", *LOGISTIC_ARGV], LOGISTIC_BATCHES,
+                            source=prefilled_source(statuses), **run)
+    RECORDER.take()
+    if (totals["batches"], rec["launches"], rec["model"].route) != (
+            LOGISTIC_BATCHES, LOGISTIC_BATCHES + 1, "fused_dense_sgd"):
+        raise AssertionError(f"logistic: {totals['batches']} batches, {rec['launches']} "
+                             f"fused launches, route {rec['model'].route}")
+    if twin[1] != lines[:1] + twin[1][1:] or len(twin[1]) != len(lines):
+        raise AssertionError("logistic: the CPU twin printed another number of lines")
+    w_err, s_err = compare_twin("logistic", (totals, lines, rec), twin, SAMPLED_RTOL)
+    near, flips = [], 0
+    for i, (out, cout, raw) in enumerate(zip(rec["outputs"], twin[2]["outputs"],
+                                             twin[2]["raw"], strict=True)):
+        valid = cout.count.item()
+        close = (raw.abs() <= MARGIN_ATOL)[: int(valid)]
+        differ = (out.predictions.cpu() != cout.predictions)[: int(valid)]
+        near.append(int(close.sum()))
+        flips += int(differ.sum())
+        if (differ & ~close).any():
+            raise AssertionError(f"logistic batch {i + 1}: {int((differ & ~close).sum())} "
+                                 "predictions differ from the twin's at margins clear of 0")
+    for line, st in zip(lines, totals["steps"]):
+        phase("logistic", f"{line} | step {st['step_ms']:.3f} ms (CUDA events), "
+              f"featurize {st['featurize_ms']:.2f} ms, publish {st['publish_ms']:.3f} ms")
+    iters = [None if t is None else int(t.item()) for t in rec["iterations"]]
+    phase("logistic", f"{LOGISTIC_BATCHES} batches of {OP_ROWS} two-class tweets (positive "
+          f"label share {share:.4f}), every dispatch under set_sync_debug_mode('error'); "
+          f"fused_dense_sgd (logistic mode) launched {rec['launches']} times (batches + "
+          f"warm-up), iterations run {iters}; against the --backend cpu twin: weights "
+          f"{w_err:.3g} of the largest, stats {s_err:.3g} (tolerance {SAMPLED_RTOL:g}); "
+          f"predictions equal except {flips} row(s); rows with |margin| <= "
+          f"{MARGIN_ATOL:g} a batch {near} (batch 1: zero weights, every margin 0); "
+          f"whole stream {totals['count']} tweets in {totals['stream_seconds']:.4f} s = "
+          f"{totals['count'] / totals['stream_seconds']:.0f} tweets/s; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s | card: {smi}")
+    if not 0 < share < 1 or not np.isfinite(rec["weights"]).all():
+        raise AssertionError(f"logistic: label share {share}, weights finite "
+                             f"{np.isfinite(rec['weights']).all()}")
+    return {"launches": rec["launches"], "positive_share": share, "near_zero_rows": near[1:],
+            "prediction_flips": flips, "weights_err": w_err, "stats_err": s_err,
+            "tweets_per_s": totals["count"] / totals["stream_seconds"]}
+
+
+SB_K = 8
+# --superBatch needs pinned buckets: the row length bucket the synthetic
+# tweets take unpinned
+SB_ARGV = [*STREAM_ARGV, "--tokenBucket", "64"]
+SB_ARMS = (("group", ["--superBatch", str(SB_K), "--wirePack", "group"]),
+           ("stacked", ["--superBatch", str(SB_K), "--wirePack", "stacked"]),
+           ("K=1", ["--superBatch", "1"]))
+
+
+def units_buckets(statuses):
+    """The ragged units bucket of each full batch of ``statuses``."""
+    from twtml_tpu_torch.features.featurizer import Featurizer
+
+    featurizer = Featurizer(now_ms=NOW_MS)
+    return [int(featurizer.featurize_batch_ragged(statuses[i:i + OP_ROWS],
+                                                  row_bucket=OP_ROWS).units.shape[0])
+            for i in range(0, len(statuses), OP_ROWS)]
+
+
+def dispatch_costs(trace_path):
+    """Host launches (kernels, cooperative kernels, graphs) and device
+    copies by direction within each ``twtml.dispatch`` region of a
+    ``--profileDir`` Chrome trace, in dispatch order."""
+    with open(trace_path) as fh:
+        events = json.load(fh)["traceEvents"]
+    # the host's region (the trace repeats it on the device timeline as a
+    # gpu_user_annotation)
+    regions = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                     if e.get("name") == "twtml.dispatch" and e.get("ph") == "X"
+                     and e.get("cat") == "user_annotation")
+    copies = {e.get("args", {}).get("correlation"): e["name"] for e in events
+              if e.get("cat") == "gpu_memcpy"}
+    out = []
+    for lo, hi in regions:
+        calls = [e for e in events if e.get("cat") == "cuda_runtime"
+                 and lo <= e.get("ts", -1) <= hi]
+        launches = sum(e["name"].startswith(("cudaLaunch", "cudaGraphLaunch")) for e in calls)
+        kinds = [copies.get(e.get("args", {}).get("correlation"), "") for e in calls]
+        out.append({"launches": launches, "graph_launches": sum(
+            e["name"] == "cudaGraphLaunch" for e in calls),
+            "h2d": sum("HtoD" in k for k in kinds), "d2h": sum("DtoH" in k for k in kinds)})
+    return out
+
+
+def graph_memory(rec):
+    """(allocated, reserved) bytes the run's model's CUDA graphs held: the
+    card's figures with the graphs alive, less those once they (and the
+    record's capture-time tensors) are released and the cache emptied."""
+    import gc
+
+    import torch
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    rec["model"]._graphs.clear()
+    rec["raw"], rec["iterations"] = [], []
+    gc.collect()
+    torch.cuda.empty_cache()
+    return held[0] - torch.cuda.memory_allocated(), held[1] - torch.cuda.memory_reserved()
+
+
+def superbatch_arms(name, statuses, profile_dir=None):
+    """The three arms over ``statuses`` under the sync-debug mode, held
+    bitwise to the K = 1 arm (weights, each batch's predictions, stats and
+    quality, the lines), then, given a ``profile_dir``, each arm again with
+    ``--profileDir``: its launches and copies a dispatch. Returns the
+    per-arm summaries."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from twtml_tpu_torch.apps.common import SYNC_DEBUG_ENV
+
+    batches = len(statuses) // OP_ROWS
+    runs = {}
+    for arm, extra in SB_ARMS:
+        os.environ[SYNC_DEBUG_ENV] = "error"
+        try:
+            totals, lines, rec = recorded_app_run([*SB_ARGV, *extra], 0,
+                                                  source=prefilled_source(statuses))
+        finally:
+            del os.environ[SYNC_DEBUG_ENV]
+        if arm != "K=1":
+            rec["graph_memory"] = graph_memory(rec)
+        warm = SB_K if arm != "K=1" else 0  # the warm-up's all-padding group
+        if any(float(o.count) for o in rec["outputs"][:warm]):
+            raise AssertionError(f"{name} {arm}: the warm-up group trained rows")
+        rec["outputs"] = rec["outputs"][warm:]
+        if (totals["batches"], len(rec["outputs"])) != (batches, batches):
+            raise AssertionError(f"{name} {arm}: {totals['batches']} batches delivered, "
+                                 f"{len(rec['outputs'])} outputs for {batches} fed")
+        runs[arm] = (totals, lines, rec)
+    _, ref_lines, ref = runs["K=1"]
+    for arm, (totals, lines, rec) in runs.items():
+        if lines != ref_lines or not np.array_equal(rec["weights"], ref["weights"]):
+            raise AssertionError(f"{name} {arm}: lines or weights differ from K=1's")
+        for i, (a, b) in enumerate(zip(rec["outputs"], ref["outputs"], strict=True)):
+            for k in ("predictions", "quality", "count", "mse", "real_stdev", "pred_stdev"):
+                if not torch.equal(getattr(a, k), getattr(b, k)):
+                    raise AssertionError(f"{name} {arm} batch {i + 1}: {k} differs from K=1's")
+    summary = {}
+    for arm, extra in SB_ARMS:
+        totals, _, rec = runs[arm]
+        costs, profiled = [], ""
+        if profile_dir is not None:
+            out_dir = os.path.join(profile_dir, f"{name}-{arm}")
+            ptotals, _, _ = recorded_app_run([*SB_ARGV, *extra, "--profileDir", out_dir], 0,
+                                             source=prefilled_source(statuses))
+            costs = dispatch_costs(glob.glob(os.path.join(out_dir, "*.pt.trace.json"))[0])
+            profiled = f"; profiled run ({ptotals['stream_seconds']:.4f} s), "
+        groups = [st.get("group", 1) for st in totals["steps"]]
+        # host wall (dispatch + fetch wait) of each 8 consecutive batches:
+        # a group's, or 8 plain steps'
+        walls = [sum(st["dispatch_ms"] + st["fetch_wait_ms"]
+                     for st in totals["steps"][i:i + SB_K])
+                 for i in range(0, batches, SB_K)]
+        rate = totals["count"] / totals["stream_seconds"]
+        grouped = rec["groups"] - (1 if arm != "K=1" else 0)
+        per = (costs if len(costs) <= batches // SB_K else
+               [{k: sum(c[k] for c in costs[i:i + SB_K]) for k in costs[0]}
+                for i in range(0, len(costs), SB_K)])
+        if per:
+            profiled += (("per dispatch" if per is costs else f"per {SB_K} dispatches") + ": "
+                         + "; ".join(f"{c['launches']} launches ({c['graph_launches']} graph), "
+                                     f"{c['h2d']} H2D, {c['d2h']} D2H" for c in per))
+        phase("superbatch", f"{name} {arm}: {batches} batches, {grouped} group(s) of "
+              f"{SB_K} dispatched ({sum(g > 1 for g in groups)} batches grouped), CUDA graphs "
+              f"captured {rec['captured']} (the warm-up's included); host wall (dispatch + "
+              f"fetch wait) each {SB_K} batches: "
+              + ", ".join(f"{w:.3f} ms" for w in walls)
+              + f" ({walls[-1] / SB_K:.3f} ms a batch in the last)"
+              + ("" if arm == "K=1" else
+                 "; the graphs held {:.1f} MB allocated, {:.1f} MB reserved".format(
+                     *(b / 2**20 for b in rec["graph_memory"])))
+              + "; whole stream "
+              f"{totals['count']} tweets in {totals['stream_seconds']:.4f} s = {rate:.0f} "
+              f"tweets/s" + profiled)
+        host_ms = walls[-1] / SB_K
+        summary[arm] = {"groups": grouped, "captured": rec["captured"],
+                        "graph_memory_bytes": rec.get("graph_memory"),
+                        "host_ms_a_batch_last": host_ms, "host_ms_each_8": walls,
+                        "tweets_per_s": rate, "dispatch_costs": per}
+    phase("superbatch", f"{name}: the three arms bitwise equal over {batches} batches "
+          "(weights, predictions, stats, quality, lines), every dispatch under "
+          "set_sync_debug_mode('error')")
+    return summary
+
+
+def superbatch_phase(stream_statuses, smi):
+    """``--superBatch 8`` on the group wire, the stacked wire and K = 1,
+    three arms held bitwise equal: first over the stream phase's 8 batches,
+    whose ragged units buckets decide which of them may group; then over 8
+    batches of one units bucket (SyntheticSource seed 3, batches 2-9, each
+    bucket checked) fed twice, so the first group captures its CUDA graph
+    and the second replays it."""
+    import tempfile
+
+    from twtml_tpu_torch.streaming.sources import SyntheticSource
+
+    t_phase = time.perf_counter()
+    phase("superbatch", f"stream phase's batches: units buckets {units_buckets(stream_statuses)} "
+          f"(groups form only of consecutive batches of one bucket) | card: {smi}")
+    pool = list(SyntheticSource(total=9 * OP_ROWS, seed=3, base_ms=NOW_MS).produce())[OP_ROWS:]
+    buckets = units_buckets(pool)
+    if len(set(buckets)) != 1:
+        raise AssertionError(f"superbatch: the replay batches' units buckets differ: {buckets}")
+    first = superbatch_arms("stream", stream_statuses)
+    with tempfile.TemporaryDirectory() as tmp:
+        replay = superbatch_arms("one-bucket x2", pool + pool, tmp)
+    if replay["group"]["captured"] < 2 or replay["group"]["groups"] != 2:
+        raise AssertionError(f"superbatch: the one-bucket stream ran {replay['group']}")
+    phase("superbatch", f"phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {"stream": first, "one_bucket": replay}
+
+
+KMEANS_BATCHES = 4
+KMEANS_ARGV = ["--source", "synthetic", "--seconds", "0", "--batchBucket", str(OP_ROWS)]
+KMEANS_RTOL = 1e-5
+
+
+def kmeans_run(backend, statuses):
+    """``apps/kmeans.py`` on ``backend`` over a pre-filled source: (totals,
+    lines, the model, each batch's assignments on the host)."""
+    from twtml_tpu_torch.apps import kmeans
+    from twtml_tpu_torch.config import ConfArguments
+    from twtml_tpu_torch.models.kmeans import StreamingKMeans
+
+    rec = {"assign": []}
+    base_update, base_source = StreamingKMeans.update_device, kmeans.build_source
+
+    def update_device(self, points, mask=None):
+        assign = base_update(self, points, mask)
+        rec["assign"].append(assign.cpu().numpy())
+        rec["model"] = self
+        return assign
+
+    StreamingKMeans.update_device = update_device
+    kmeans.build_source = lambda conf: prefilled_source(statuses)
+    out = io.StringIO()
+    try:
+        conf = ConfArguments().parse(["--backend", backend, *KMEANS_ARGV, "--lightning",
+                                      RECORDER.url, "--twtweb", RECORDER.url])
+        with contextlib.redirect_stdout(out):
+            totals = kmeans.run(conf, max_batches=KMEANS_BATCHES)
+    finally:
+        StreamingKMeans.update_device, kmeans.build_source = base_update, base_source
+    return totals, out.getvalue().splitlines(), rec
+
+
+def kmeans_phase(smi):
+    """``apps/kmeans.py`` on the card: 4 batches of 16384 retweets from a
+    pre-filled source against the ``--backend cpu`` twin: the initial
+    centers bitwise the CPU's draw, centers and weights within KMEANS_RTOL,
+    assignments and sizes (the lines' ``sizes``) equal."""
+    import numpy as np
+
+    from twtml_tpu_torch.models.kmeans import StreamingKMeans
+    from twtml_tpu_torch.streaming.sources import SyntheticSource
+
+    t_phase = time.perf_counter()
+    card0 = StreamingKMeans(device="cuda").set_k(3).set_random_centers(2, 0.0).latest_centers
+    cpu0 = StreamingKMeans(device="cpu").set_k(3).set_random_centers(2, 0.0).latest_centers
+    if not np.array_equal(card0.view(np.int32), cpu0.view(np.int32)):
+        raise AssertionError(f"kmeans: initial centers on the card {card0} differ from the "
+                             f"CPU's {cpu0}")
+    phase("kmeans", f"initial centers (normal(PRNGKey(0), (3, 2)) on the card) "
+          f"{card0.tolist()}: bitwise equal to the CPU draw")
+    statuses = list(SyntheticSource(total=KMEANS_BATCHES * OP_ROWS, seed=13,
+                                    base_ms=NOW_MS).produce())
+    t0 = time.perf_counter()
+    totals, lines, rec = kmeans_run("cuda", statuses)
+    wall = time.perf_counter() - t0
+    ctotals, clines, crec = kmeans_run("cpu", statuses)
+    RECORDER.take()
+    model, cmodel = rec["model"], crec["model"]
+    if model.device.type != "cuda" or totals["batches"] != KMEANS_BATCHES:
+        raise AssertionError(f"kmeans: {totals['batches']} batches on {model.device}")
+    sizes = [ln.split("sizes: ")[1] for ln in lines]
+    csizes = [ln.split("sizes: ")[1] for ln in clines]
+    for i, (a, b) in enumerate(zip(rec["assign"], crec["assign"], strict=True)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"kmeans batch {i + 1}: {int((a != b).sum())} assignments "
+                                 "differ from the CPU twin's")
+    c_err = float(np.max(np.abs(model.latest_centers - cmodel.latest_centers)
+                         / np.maximum(np.abs(cmodel.latest_centers), 1e-30)))
+    w_err = float(np.max(np.abs(model.latest_weights - cmodel.latest_weights)
+                         / np.maximum(np.abs(cmodel.latest_weights), 1e-30)))
+    if sizes != csizes or c_err > KMEANS_RTOL or w_err > KMEANS_RTOL:
+        raise AssertionError(f"kmeans: sizes {sizes} / {csizes}, centers {c_err:.3g}, "
+                             f"weights {w_err:.3g} against the CPU twin")
+    for line in lines:
+        phase("kmeans", line)
+    phase("kmeans", f"{KMEANS_BATCHES} batches of {OP_ROWS} retweets on the card ("
+          f"{totals['count']} points, {wall:.3f} s for the run); against the --backend "
+          f"cpu twin: assignments and sizes equal, centers {c_err:.3g}, weights "
+          f"{w_err:.3g} relative (tolerance {KMEANS_RTOL:g}); final weights "
+          f"{model.latest_weights.tolist()}; phase wall {time.perf_counter() - t_phase:.1f} s "
+          f"| card: {smi}")
+    return {"centers_err": c_err, "weights_err": w_err, "seconds": wall}
+
+
 def timed(fn, runs, queue_ahead=False, ahead_cycles=QUEUE_AHEAD_CYCLES):
     """Median and all of ``runs`` CUDA-event times of ``fn``. With
     ``queue_ahead`` the device is kept busy (``ahead_cycles`` of
@@ -2280,12 +2719,80 @@ def times_phase(smi, max_err, launches):
     }
 
 
+def logistic_times(smi, max_err, launches):
+    """B1's logistic mode at the operating point (0/1 labels from a fixed
+    seed): the kernel alone as device time with all 50 iterations run
+    (tolerance 0: no freeze), and at the app's tolerance, its twin, its
+    bound (the least-squares mode's work plus σ: an exp, an add, a divide
+    and a subtract a row an iteration)."""
+    import torch
+
+    from twtml_tpu_torch.ops import fused_sgd
+
+    dev = torch.device("cuda")
+    x, _, m, w0 = op_point_inputs(dev)
+    y = op_point_labels(dev)
+    b, f = x.shape
+    plan = fused_sgd.launch_plan(b, f, **sm_limits())
+    w = torch.empty(f, device=dev)
+    preds = torch.empty(b, device=dev)
+    spill = torch.empty(plan.spill_elements, dtype=torch.bfloat16, device=dev)
+    scratch = torch.empty(plan.scratch_floats, device=dev)
+
+    def kernel_only(tol):
+        fused_sgd.call_kernel(plan, fused_sgd.kernel_args(
+            plan, x, y, m, w0, w, preds, spill, scratch, num_iterations=OP_ITERS,
+            step_size=0.1, l2_reg=0.0, convergence_tol=tol, mode=1))
+
+    runs = {}
+    for tol in (0.0, 0.001):
+        for _ in range(3):
+            kernel_only(tol)
+        runs[tol] = timed(lambda: kernel_only(tol), 25, queue_ahead=True)
+        runs[tol] = runs[tol] + (int(scratch[-1].item()),)
+    kernel_ms, times, iters = runs[0.0]
+    app_ms, _, app_iters = runs[0.001]
+    kw = dict(num_iterations=OP_ITERS, step_size=0.1, convergence_tol=0.0,
+              residual_fn=fused_sgd.logistic_residual)
+    twin_ms, _ = timed(lambda: fused_sgd.fused_dense_sgd_reference(x, y, m, w0, **kw), 10)
+    io_bytes = b * f * 4 + 4 * b * 2 + 4 * b + 4 * f * 2
+    flops = iters * (4 * b * f + 4 * b + 6 * f)
+    bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    phase("times", f"logistic mode (card: {smi}): kernel alone, {iters} iterations "
+          f"(tolerance 0), device time median {kernel_ms:.4f} ms over 25 runs (min "
+          f"{min(times):.4f}, max {max(times):.4f}); at the app's tolerance 0.001: "
+          f"{app_ms:.4f} ms, {app_iters} iterations run; twin on the card median "
+          f"{twin_ms:.4f} ms over 10 runs; bound: bytes {io_bytes} B = {bytes_ms:.5f} ms, "
+          f"operations {flops} = {ops_ms:.5f} ms, bound_ms {bound_ms:.5f} ({bound_by}); "
+          f"kernel at {kernel_ms / bound_ms:.1f}x its bound")
+    return {
+        "name": "fused_dense_sgd (logistic mode)",
+        "route": "cuda",
+        "source": "twtml_tpu_torch/csrc/fused_sgd.cu",
+        "replaces": "twtml_tpu/ops/pallas_sgd.py:55",
+        "tpu_function": "_sgd_kernel",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": kernel_ms,
+        "app_tolerance_ms": app_ms,
+        "app_tolerance_iterations": app_iters,
+        "plain_ms": twin_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "iterations_run": iters,
+    }
+
+
 def main() -> None:
     global RECORDER
     t_start = time.perf_counter()
     smi = device_phase()
     build_phase()
-    max_err, kernel_cases = kernel_phase()
+    max_errs, kernel_cases = kernel_phase()
     # pins the featurizer's clock and the synthetic tweets' creation times:
     # the wires and backends compared below featurize identical tweets
     os.environ["TWTML_NOW_MS"] = str(NOW_MS)
@@ -2299,24 +2806,32 @@ def main() -> None:
         sampled = sampled_phase(smi)
         dtypes = dtype_phase(smi)
         clock_launches = clock_phase()
-        web = web_phase(stream.pop("statuses"), stream["publish_ms"])
+        web_statuses = stream.pop("statuses")
+        web = web_phase(web_statuses, stream["publish_ms"])
         live = live_phase()
         hosthash = hosthash_phase(padded_rec)
+        logistic = logistic_phase(smi)
+        superbatch = superbatch_phase(web_statuses, smi)
+        kmeans = kmeans_phase(smi)
     finally:
         RECORDER.close()
-    record = times_phase(smi, max_err, launches)
-    record["cases"] = kernel_cases
+    record = times_phase(smi, max_errs[0], launches)
+    record["cases"] = [name for name in kernel_cases if not name.startswith("logistic")]
+    logistic_record = logistic_times(smi, max_errs[1], logistic.pop("launches"))
+    logistic_record.update(cases=[n for n in kernel_cases if n.startswith("logistic")],
+                           app=logistic)
     record.update(launches_stream=stream["launches"], launches_clock=clock_launches,
                   stream_tweets_per_s=stream["rate"],
                   guards_tweets_per_s=guards["rates"],
                   sampled_route=sampled, bfloat16_route=dtypes,
                   stream_device_idle=(stream["timeline"] or {}).get("idle"),
                   launches_hosthash=hosthash["launches"], web=web, live=live,
-                  hosthash_featurize_ms=hosthash["host_featurize_ms"])
+                  hosthash_featurize_ms=hosthash["host_featurize_ms"],
+                  superbatch=superbatch, kmeans=kmeans)
     import torch
 
     phase("done", f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [record]}), flush=True)
+    print(json.dumps({"kernels": [record, logistic_record]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -38,6 +38,21 @@ QUIET = ["--lightning", CLOSED, "--twtweb", CLOSED, "--webTimeout", "0.2"]
 NOW_MS = "1700000000000"
 
 
+@pytest.fixture(autouse=True)
+def restore_properties():
+    """Both packages' property tables as they were before each test: the
+    OAuth flags parsed here set ``twitter4j.oauth.*`` in both, and a later
+    test in the same process that measures the live source without
+    credentials (tests/test_bench_suite.py) would otherwise find them and
+    try the real endpoint."""
+    saved = (dict(jax_config._SYSTEM_PROPERTIES), dict(port_config._SYSTEM_PROPERTIES))
+    yield
+    for table, before in zip((jax_config._SYSTEM_PROPERTIES, port_config._SYSTEM_PROPERTIES),
+                             saved):
+        table.clear()
+        table.update(before)
+
+
 def _jax_parser_flags() -> list[str]:
     """Every flag string the JAX parser's ``parse`` matches, from its AST."""
     tree = ast.parse(open(jax_config.__file__, encoding="utf-8").read())
@@ -117,7 +132,7 @@ def _readme_lines() -> list[list[str]]:
 
 README_LINES = _readme_lines()
 # the ROADMAP item a README line needs, by the flag that needs it
-NEEDS = {"--ingest": "A12", "--superBatch": "A4", "--wireCodec": "A11", "--tenants": "A9",
+NEEDS = {"--ingest": "A12", "--wireCodec": "A11", "--tenants": "A9",
          "twtml://host0:9999": "A10"}
 
 
@@ -159,7 +174,7 @@ def test_readme_local_1_line_runs_on_the_cpu_with_the_jax_apps_lines(monkeypatch
 # ---- values that need an unported feature -------------------------------------------
 
 UNPORTED = [
-    (["--superBatch", "4"], "A4"), (["--wireCodec", "dict"], "A11"),
+    (["--wireCodec", "dict"], "A11"),
     (["--ingest", "block"], "A12"), (["--tenants", "2"], "A9"),
     (["--numProcesses", "2"], "A10"),
     (["--processId", "0"], "A10"), (["--coordinator", "host:9"], "A10"),
@@ -180,8 +195,11 @@ def test_unported_values_raise_naming_their_item(argv, item):
         common.select_backend(conf)
 
 
-# the host paths ported since: the live source, host hashing, the profiler
-NOW_PORTED = [["--hashOn", "host"], ["--source", "twitter"], ["--profileDir", "/tmp/prof"]]
+# the paths ported since: the live source, host hashing, the profiler, the
+# superbatch and its wires
+NOW_PORTED = [["--hashOn", "host"], ["--source", "twitter"], ["--profileDir", "/tmp/prof"],
+              ["--superBatch", "4"], ["--superBatch", "8", "--wirePack", "group"],
+              ["--wirePack", "stacked"]]
 
 
 @pytest.mark.parametrize("argv", NOW_PORTED, ids=" ".join)
@@ -198,8 +216,8 @@ def test_every_serve_flag_is_held():
 def test_the_app_refuses_an_unported_value_before_it_builds_anything(monkeypatch):
     monkeypatch.setattr(common, "build_model",
                         lambda conf: pytest.fail("built a model for an unported value"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        app.run(ConfArguments().parse(["--backend", "cpu", "--superBatch", "4", *QUIET]))
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        app.run(ConfArguments().parse(["--backend", "cpu", "--tenants", "4", *QUIET]))
 
 
 def test_values_the_jax_package_ignores_on_this_path_pass():
@@ -278,3 +296,10 @@ def test_values_the_jax_parser_refuses_exit_in_both(argv):
     assert exc.value.code == 1
     with pytest.raises((SystemExit, ValueError)):
         JaxConf().parse(argv)
+
+
+def test_app_name_defaults_to_the_jax_packages():
+    """Without ``--name`` or ``setAppName`` the app name (the Lightning
+    session of the k-means chart, the usage line) is the JAX parser's."""
+    assert ConfArguments().appName == JaxConf().appName() == "twtml-tpu"
+    assert ConfArguments().parse(["--name", "x"]).appName == JaxConf().parse(["--name", "x"]).appName()

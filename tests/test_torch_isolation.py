@@ -51,6 +51,9 @@ def test_port_files_are_found():
     assert "twtml_tpu_torch/apps/linear_regression.py" in names
     assert {"twtml_tpu_torch/web/server.py", "twtml_tpu_torch/web/websocket.py",
             "twtml_tpu_torch/streaming/twitter.py", "twtml_tpu_torch/utils/tracing.py"} <= names
+    assert {"twtml_tpu_torch/apps/logistic_regression.py", "twtml_tpu_torch/apps/kmeans.py",
+            "twtml_tpu_torch/models/logistic.py", "twtml_tpu_torch/models/kmeans.py",
+            "twtml_tpu_torch/features/sentiment.py", "twtml_tpu_torch/ops/scaler.py"} <= names
 
 
 def test_importing_the_app_leaves_jax_unloaded():
@@ -73,7 +76,8 @@ def test_importing_the_app_leaves_jax_unloaded():
 
 @pytest.mark.parametrize("module", [
     "twtml_tpu_torch.web.main", "twtml_tpu_torch.streaming.twitter",
-    "twtml_tpu_torch.utils.tracing",
+    "twtml_tpu_torch.utils.tracing", "twtml_tpu_torch.apps.logistic_regression",
+    "twtml_tpu_torch.apps.kmeans",
 ])
 def test_importing_the_host_modules_leaves_jax_and_aiohttp_unloaded(module):
     code = (

@@ -320,7 +320,9 @@ RAGGED_FIELDS = (((4096,), "|u1"), ((2,), "<u2"), ((2, 4), "<f4"), ((2,), "<f4")
 
 
 @pytest.mark.parametrize("layout,item", [
-    (("RaggedGroupSegments", ()), "A4"),
+    # the group layout is ported; its shard-aligned and digram-coded forms are not
+    (("RaggedGroupSegments", RAGGED_FIELDS, (8, 2, 1, "u16delta")), "A10"),
+    (("RaggedGroupSegments", RAGGED_FIELDS, (8, 1, 1, "u16delta", ("dict", 4096))), "A11"),
     (("RaggedShardSegments", ()), "A10"),
     (("RaggedUnitBatch", RAGGED_FIELDS, (8, 2, "u16delta")), "A10"),
     (("RaggedUnitBatch", RAGGED_FIELDS, (8, 1, "u16delta", ("dict", (4096,)))), "A11"),

@@ -5,8 +5,9 @@ installers, the backend checks (``select_backend``), the
 checkpoint (``AppCheckpoint``) and journal recovery, the runtime guards
 (``DivergenceSentinel``, ``ModelWatchGuard``, ``FreshnessGuard``,
 ``ProcessRecycler``), the fetch watchdog, the depth-D fetch pipeline of
-back-to-back streams, the synchronous per-batch path of wall-clock streams,
-and the pre-stream warm-up.
+back-to-back streams, the superbatch (``SuperBatcher``: K batches a
+``step_many`` dispatch), the synchronous per-batch path of wall-clock
+streams, and the pre-stream warm-up.
 
 A batch's life on ``cuda``: the stream featurizes it on the host (the
 unpacked batch, whose arrays the handler reads); the pipeline packs it into
@@ -25,8 +26,7 @@ wrappers in the JAX package's order, outermost first: the journal's token
 pop, freshness, model watch, the sentinel, then the journal commit and the
 app's handler. A checkpoint reads the weights (a blocking copy) only at a
 drained boundary, outside the sync-debug window of a dispatch. The
-superbatch and multi-host parts of the JAX package's runtime are not ported
-(ROADMAP A4, A10).
+multi-host parts of the JAX package's runtime are not ported (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -47,10 +47,11 @@ from ..features import assemble, featurize_native, native
 from ..features.arena import chain_leases, get_arena
 from ..features.batch import (
     NUM_NUMBER_FEATURES, FeatureBatch, PackedBatch, RaggedUnitBatch, UnitBatch,
-    pack_batch, wire_nbytes,
+    pack_batch, pack_ragged_group, stack_batches, wire_nbytes,
 )
+from ..models.base import StepOutput
 from ..models.linear import StreamingLinearRegressionWithSGD
-from ..models.sgd import DTYPES
+from ..models.sgd import DTYPES, wire_signature
 from ..streaming import faults as _faults
 from ..streaming import journal as _journal
 from ..streaming.sources import ReplayFileSource, SkipRowsSource, Source, SyntheticSource
@@ -1092,13 +1093,286 @@ class FetchPipeline:
                 self._pending.clear()
 
 
+class SuperBatcher:
+    """K featurized batches as ONE ``model.step_many`` dispatch, each
+    batch's outputs delivered to ``handle(host, batch, t, at_boundary,
+    stamp)`` in order (the JAX package's ``SuperBatcher``).
+
+    Only contiguous batches of one wire signature group: a batch of another
+    shape closes the pending group first, and a partial group (a shape
+    change, the stream's tail) runs as plain steps, fetched synchronously.
+    A full group is packed (``group_wire``: ``pack_ragged_group``, one
+    buffer, under ``wire_pack="group"`` on the ragged wire; else
+    ``stack_batches``), dispatched with its host fetch started (one D2H copy
+    of the K outputs), and up to ``fetch_depth`` groups stay in flight; the
+    oldest is delivered when that many are, and early when it is done.
+    ``at_boundary`` is True only for a group's last batch with nothing newer
+    in flight (the weights are current); ``boundary_every`` drains at the
+    first group boundary past each cadence point; ``max_dispatch`` caps the
+    batches that may train at group granularity (a group may overshoot it
+    by up to K - 1, as in the JAX package). A group's lease retires after
+    its last handler. The dispatch runs under ``sync_debug`` as the fetch
+    pipeline's does.
+
+    Each batch's ``stamp`` holds its featurize stamp and its share (1/K) of
+    the group's pack, dispatch, step (CUDA events on cuda) and fetch wait,
+    with ``group`` = K and ``depth`` = groups in flight at the dispatch."""
+
+    def __init__(self, model, k: int, handle, fetch_depth: int = 4,
+                 boundary_every: int = 0, max_dispatch: int = 0, abort=None,
+                 wire_pack: str = "stacked", stamp=None, sync_debug: str = ""):
+        if wire_pack not in ("stacked", "group"):
+            raise ValueError(f"wire_pack must be 'stacked' or 'group', got {wire_pack!r}")
+        self.model = model
+        self.k = k
+        self.handle = handle
+        self.fetch_depth = max(1, fetch_depth)
+        self.boundary_every = boundary_every
+        self.max_dispatch = max_dispatch
+        self.wire_pack = wire_pack
+        self.sync_debug = sync_debug
+        self._stamp = stamp
+        self._fetch = _fetcher(model)
+        self._registry = _metrics.get_registry()
+        self._health = _metrics.get_health_monitor()
+        self._fetch_count = self._registry.counter("fetch.count")
+        self._fetch_hist = self._registry.histogram("fetch.latency_s")
+        self._depth_gauge = self._registry.gauge("fetch.queue_depth")
+        self._refund_count = self._registry.counter("fetch.refunds")
+        self._watchdog = FetchWatchdog(self._health, abort=abort)
+        self._buf: list = []  # [(batch, t, stamp)] of the pending group
+        self._sig = None
+        self._inflight: list = []  # [(fetch, outs, group, lease, stamp)], oldest first
+        self._dispatched = 0
+        # the cadence runs on its own monotonic counter (a refund must not
+        # move it)
+        self._cadence = 0
+        self._last_boundary = 0
+        # journal replays a delivery started (note_replay)
+        self._replays = 0
+
+    def on_batch(self, batch, t) -> None:
+        if self._watchdog.aborted:
+            return  # a fetch abort is in flight: nothing more may train
+        if self.max_dispatch and self._dispatched >= self.max_dispatch:
+            # cap reached: deliver what trained, so the handler's stop fires
+            self._drain()
+            return
+        sig = wire_signature(batch)
+        if self._buf and sig != self._sig:
+            self._close_group()  # another shape: close the group, never drop
+        self._sig = sig
+        stamp = dict(self._stamp()) if self._stamp is not None else {}
+        self._buf.append((batch, t, stamp))
+        if len(self._buf) >= self.k:
+            self._close_group()
+
+    def _coalesce(self, batch) -> bool:
+        """Whether this batch rides the one-buffer group wire."""
+        return self.wire_pack == "group" and isinstance(batch, RaggedUnitBatch)
+
+    def group_wire(self, batches):
+        """The ``step_many`` wire of a full group: one packed buffer in
+        group mode on the ragged wire, the stacked arrays otherwise."""
+        if self._coalesce(batches[0]):
+            with _trace.get().span("wire_pack", mode="group", batches=len(batches)):
+                return pack_ragged_group(batches)
+        return stack_batches(batches)
+
+    def _emit_group(self) -> None:
+        pending, outs, group, lease, gstamp = self._inflight.pop(0)
+        t0 = time.perf_counter()
+        try:
+            host = self._watchdog.await_result(pending, lambda: self._fetch(outs))
+        except FetchAbort:
+            # the group trained but its outputs are lost: refund its cap
+            # slots; the dispatch may still run, so its buffers never return
+            if lease is not None:
+                lease.discard()
+            for _ in group:
+                self.refund_dispatch()
+            raise
+        dt = time.perf_counter() - t0
+        self._fetch_count.inc()
+        self._fetch_hist.observe(dt)
+        self._health.observe(dt)
+        _sideband.record_stage("fetch", dt)
+        tr = _trace.get()
+        if tr.enabled:
+            tr.complete("fetch", t0, dt, depth=self.fetch_depth, group=len(group))
+        events = gstamp.pop("step_events", None)
+        k = len(group)
+        share = dict(gstamp, fetch_wait_ms=dt * 1e3 / k, step_ms=(
+            events[0].elapsed_time(events[1]) / k if events is not None
+            else gstamp["step_host_ms"]))
+        last = k - 1
+        boundary_ok = not self._inflight
+        for i, (batch, bt, stamp) in enumerate(group):
+            out = StepOutput(*(None if f is None else f[i] for f in host))
+            self.handle(out, batch, bt, at_boundary=(i == last and boundary_ok),
+                        stamp=dict(stamp, **share))
+        if lease is not None:
+            lease.retire()  # after the handlers, which read the host arrays
+
+    def _drain(self) -> None:
+        while self._inflight:
+            self._emit_group()
+
+    def refund_dispatch(self) -> None:
+        """Give back one ``max_dispatch`` slot (a handler that skips a
+        delivered batch)."""
+        self._dispatched -= 1
+        self._refund_count.inc()
+
+    def note_replay(self, rolled_back: int = 0) -> None:
+        """A rollback's journal replay re-ingests the ``rolled_back`` batches
+        trained since the rollback point: their cap slots are given back,
+        and batches featurized before it but not yet dispatched are dropped
+        (their rows come back with the replay)."""
+        self._replays += 1
+        self._dispatched -= rolled_back
+
+    def _plain_steps(self, group) -> None:
+        """A partial group: one synchronous step a batch (the one-buffer
+        wire in group mode), after every earlier group was delivered."""
+        replays = self._replays
+        self._drain()
+        for batch, t, stamp in group:
+            if self._replays != replays:
+                _drop_undispatched(batch, "it re-ingests with the journal's replay")
+                continue
+            if self.max_dispatch and self._dispatched >= self.max_dispatch:
+                _drop_undispatched(batch, "the max-batches cap was reached")
+                continue
+            stamp["depth"] = 0
+            pending, out, lease = _guarded_dispatch(
+                self.model, batch, self._coalesce(batch), self._fetch, self.sync_debug, stamp)
+            self._dispatched += 1
+            self._cadence += 1
+            t0 = time.perf_counter()
+            try:
+                host = self._watchdog.await_result(pending, lambda: self._fetch(out))
+            except FetchAbort:
+                if lease is not None:
+                    lease.discard()
+                self.refund_dispatch()
+                raise
+            dt = time.perf_counter() - t0
+            self._fetch_count.inc()
+            self._fetch_hist.observe(dt)
+            self._health.observe(dt)
+            _finish_stamp(stamp, t0, dt, 1)
+            self.handle(host, batch, t, at_boundary=True, stamp=stamp)
+            if lease is not None:
+                lease.retire()
+
+    def _close_group(self) -> None:
+        if not self._buf:
+            return
+        group, self._buf = self._buf, []
+        if len(group) < self.k:
+            self._plain_steps(group)
+            return
+        replays = self._replays
+        while len(self._inflight) >= self.fetch_depth or (
+            self._inflight and self._inflight[0][0].done()
+        ):
+            self._emit_group()
+        if self._replays != replays:
+            # a delivery rolled back: these batches' rows re-ingest with
+            # the journal's replay
+            for batch, _t, _stamp in group:
+                _drop_undispatched(batch, "it re-ingests with the journal's replay")
+            return
+        batches = [b for b, _, _ in group]
+        device = getattr(self.model, "device", None)
+        events = None
+        tr = _trace.get()
+        with _sync_debug(self.model, self.sync_debug), annotate("twtml.dispatch"):
+            t0 = time.perf_counter()
+            wire = self.group_wire(batches)
+            t1 = time.perf_counter()
+            _faults.perturb("step")  # --chaos: inside the dispatch window
+            if device is not None and device.type == "cuda":
+                import torch
+
+                events = tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
+                events[0].record()
+            outs = self.model.step_many(wire)
+            if events is not None:
+                events[1].record()
+            t2 = time.perf_counter()
+            pending = self._fetch(outs)
+            t3 = time.perf_counter()
+        k = len(group)
+        _sideband.record_stage("wire_pack", t1 - t0)
+        _sideband.record_stage("dispatch", t3 - t1)
+        _lineage.mark_dispatch(k)
+        if tr.enabled:
+            tr.complete("dispatch", t1, t3 - t1, group=k, depth=len(self._inflight))
+        gstamp = dict(
+            pack_ms=(t1 - t0) * 1e3 / k, step_host_ms=(t2 - t1) * 1e3 / k,
+            dispatch_ms=(t3 - t1) * 1e3 / k, step_events=events, group=k,
+            depth=len(self._inflight), wire_bytes=wire_nbytes(wire) // k,
+        )
+        lease = chain_leases(getattr(wire, "lease", None),
+                             *(getattr(b, "lease", None) for b in batches))
+        self._inflight.append((pending, outs, group, lease, gstamp))
+        self._depth_gauge.set(len(self._inflight))
+        self._dispatched += k
+        self._cadence += k
+        if self.boundary_every and (
+            self._cadence - self._last_boundary >= self.boundary_every
+        ):
+            self._drain()  # a cadence point: the weights current for a save
+            self._last_boundary = self._cadence
+
+    def flush(self) -> None:
+        """Run the pending tail as plain steps and deliver every group in
+        flight; after a fetch abort, drop what is left (its leases
+        discarded, its cap slots refunded), never raising into shutdown."""
+        try:
+            self._close_group()
+            self._drain()
+        except FetchAbort:
+            for _pending, _outs, group, lease, _stamp in self._inflight:
+                if lease is not None:
+                    lease.discard()
+                for _ in group:
+                    self.refund_dispatch()
+            if self._inflight or self._buf:
+                log.warning("dropping %d in-flight group(s) and %d buffered batch(es) "
+                            "after the fetch abort", len(self._inflight), len(self._buf))
+            for batch, _t, _stamp in self._buf:
+                _drop_undispatched(batch, "the fetch watchdog aborted the run")
+            self._inflight.clear()
+            self._buf.clear()
+
+
+def super_batch_k(conf, stream) -> int:
+    """``--superBatch`` as the JAX package applies it: ignored (1, with a
+    warning) under a wall clock, where it would delay live stats by K
+    intervals; K > 1 needs pinned ``--batchBucket`` and ``--tokenBucket``
+    (every grouped batch one shape), else ``ValueError``."""
+    k = int(conf.superBatch or 1)
+    if k > 1 and conf.seconds > 0:
+        log.warning("--superBatch %d ignored: wall-clock streaming (--seconds %s) "
+                    "would delay live stats by %d intervals", k, conf.seconds, k)
+        return 1
+    if k > 1 and (stream.row_bucket <= 0 or stream.token_bucket <= 0):
+        raise ValueError("--superBatch needs pinned shapes: set --batchBucket and "
+                         "--tokenBucket so every grouped batch has one shape")
+    return max(1, k)
+
+
 def attach_super_batcher(conf, stream, model, handle, stop_requested=None,
                          max_dispatch: int = 0, abort=None,
                          fetch_depth: int = FETCH_DEPTH, stamp=None, sentinel=None,
                          modelwatch=None, freshness=None):
     """Wire the app's ``handle(host, batch, t, at_boundary, stamp)`` to the
-    stream (the K = 1 part of the JAX package's function: no superbatch) and
-    return the ``flush`` the app calls after the stream terminated.
+    stream and return the ``flush`` the app calls after the stream
+    terminated; ``flush.group_k`` is the superbatch's K (1 without one) and
+    ``flush.group_wire`` its group packer (None), for ``warmup_compile``.
 
     Each delivery passes the JAX package's wrappers, outermost first: the
     journal's dispatch-token pop (every delivery pops, a skipped one too),
@@ -1114,7 +1388,10 @@ def attach_super_batcher(conf, stream, model, handle, stop_requested=None,
     batch, so each interval's stats reach the dashboard in that interval.
     Either way the ragged wire is packed at dispatch, and a batch with no
     valid row is skipped before the step (its host mask is read, never a
-    device tensor), its lineage record and journal token dropped with it."""
+    device tensor), its lineage record and journal token dropped with it.
+    ``--superBatch K > 1`` (``super_batch_k``) groups K batches a dispatch
+    through a ``SuperBatcher`` on ``--wirePack``'s wire (group: one buffer,
+    ragged wire only), with the same wrappers, drains and cap."""
     pack = bool(getattr(stream, "ragged", False))
     sync_debug = os.environ.get(SYNC_DEBUG_ENV, "")
     watchdog = RssWatchdog()
@@ -1178,6 +1455,18 @@ def attach_super_batcher(conf, stream, model, handle, stop_requested=None,
     if int(conf.recycleAfterMb or 0) > 0 and not boundary_every:
         boundary_every = 64
 
+    k = super_batch_k(conf, stream)
+    if k > 1:
+        batcher = SuperBatcher(
+            model, k, handle, boundary_every=boundary_every, max_dispatch=max_dispatch,
+            abort=abort, stamp=stamp, sync_debug=sync_debug,
+            wire_pack="group" if pack and conf.effective_wire_pack() == "group" else "stacked",
+        )
+        if sentinel is not None:
+            sentinel.bind(batcher)  # a skipped batch refunds its cap slot
+        stream.foreach_batch(skip_empty(batcher.on_batch))
+        return _with_group(batcher.flush, k, batcher.group_wire)
+
     if conf.seconds <= 0:
         pipe = FetchPipeline(
             model, handle, depth=fetch_depth, stop_requested=stop_requested,
@@ -1187,7 +1476,7 @@ def attach_super_batcher(conf, stream, model, handle, stop_requested=None,
         if sentinel is not None:
             sentinel.bind(pipe)  # a skipped batch refunds its cap slot
         stream.foreach_batch(skip_empty(pipe.on_batch))
-        return pipe.flush
+        return _with_group(pipe.flush)
 
     fetch = _fetcher(model)
     reg = _metrics.get_registry()
@@ -1211,10 +1500,19 @@ def attach_super_batcher(conf, stream, model, handle, stop_requested=None,
             lease.retire()  # after the handler, which reads the host arrays
 
     stream.foreach_batch(skip_empty(per_batch))
-    return lambda: None
+    return _with_group(lambda: None)
 
 
-def warmup_compile(stream, model) -> None:
+def _with_group(flush, k: int = 1, group_wire=None):
+    """``flush`` as a function carrying ``group_k`` and ``group_wire``."""
+    def call() -> None:
+        flush()
+
+    call.group_k, call.group_wire = k, group_wire
+    return call
+
+
+def warmup_compile(stream, model, super_batch: int = 1, group_wire=None) -> None:
     """Build and warm the step BEFORE the stream starts, so the first
     wall-clock interval does not swallow the first-use builds (nvcc of the
     fused kernel, g++ of the native host library: seconds each) while a
@@ -1226,17 +1524,30 @@ def warmup_compile(stream, model) -> None:
     The JAX package's warm-up returns early on the ragged wire, whose XLA
     program depends on the data-dependent units bucket. The port compiles
     no program per shape (the kernel builds once; its launch plan is
-    computed each call), so it warms on every wire and every bucket."""
+    computed each call), so it warms on every wire and every bucket.
+
+    With ``super_batch`` K > 1 it also steps K all-padding batches through
+    ``step_many``, on the superbatch's ``group_wire``: on the card that
+    captures the group's CUDA graph for the all-padding batch's signature
+    (a ragged stream's real batches may have other units buckets, each of
+    which captures at its first group)."""
     t0 = time.perf_counter()
     empty = stream.featurize_empty()
     wire = pack_batch(empty) if getattr(stream, "ragged", False) else empty
     pending = _fetcher(model)(model.step(wire))
     pending.wait()
-    count = float(pending.result().count)
-    lease = chain_leases(getattr(wire, "lease", None), getattr(empty, "lease", None))
+    counts = [float(pending.result().count)]
+    leases = [getattr(wire, "lease", None)]
+    if super_batch > 1:
+        group = (group_wire or stack_batches)([empty] * super_batch)
+        pending = _fetcher(model)(model.step_many(group))
+        pending.wait()
+        counts.extend(pending.result().count.tolist())
+        leases.append(getattr(group, "lease", None))
+    lease = chain_leases(*leases, getattr(empty, "lease", None))
     if lease is not None:
         lease.retire()
-    if count != 0:
-        raise RuntimeError(f"warm-up batch trained {count} rows; it must train none")
+    if any(counts):
+        raise RuntimeError(f"warm-up batches trained {sum(counts)} rows; they must train none")
     log.info("warmed the train step (builds and one all-padding step) in %.1fs",
              time.perf_counter() - t0)

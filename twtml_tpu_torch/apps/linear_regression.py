@@ -28,6 +28,15 @@ baseline. Values of the JAX package's flags that need an unported feature
 (multi-host among them, ROADMAP A10) stop the run before anything is built
 (``select_backend``).
 
+``--superBatch K`` (back to back, pinned ``--batchBucket``/``--tokenBucket``)
+groups K batches into one ``step_many`` dispatch (apps/common.py
+``SuperBatcher``), on the stacked wire or, with ``--wirePack group``, one
+packed buffer a group; each batch is still reported on its own.
+
+``run_learner`` is the streaming loop every SGD entry point shares; the
+logistic app (apps/logistic_regression.py) runs it with its learner, its
+labels and its report.
+
 Run: ``python -m twtml_tpu_torch.apps.linear_regression --backend cpu \
       --source replay --replayFile tests/data/tweets.jsonl --seconds 0 \
       --batchBucket 4 --twtweb http://localhost:8899 \
@@ -74,8 +83,27 @@ from .common import (
 log = get_logger("apps.linear")
 
 
+def report_linear(out, totals: dict, b: int, session, real, pred) -> str:
+    """The flagship app's line of one batch, and its session update: MSE
+    and the two stdevs, HALF_UP-rounded."""
+    mse = round_half_up(float(out.mse))
+    real_stdev = round_half_up(float(out.real_stdev))
+    pred_stdev = round_half_up(float(out.pred_stdev))
+    with annotate("twtml.publish"):
+        session.update(totals["count"], b, mse, real_stdev, pred_stdev, real, pred)
+    return (f"count: {totals['count']}  batch: {b}  mse: {mse}  "
+            f"stdev (real, pred): ({int(real_stdev)}, {int(pred_stdev)})")
+
+
 def run(conf: ConfArguments, max_batches: int = 0, fetch_depth: int = FETCH_DEPTH) -> dict:
-    """Train on the configured source until it ends or ``max_batches``
+    """The flagship app: ``run_learner`` with the least-squares learner."""
+    return run_learner(conf, max_batches, fetch_depth)
+
+
+def run_learner(conf: ConfArguments, max_batches: int = 0, fetch_depth: int = FETCH_DEPTH,
+                *, learner=None, report=report_linear, label_fns=None) -> dict:
+    """Train ``learner`` (None: the least-squares learner, the flagship
+    app's) on the configured source until it ends or ``max_batches``
     micro-batches trained (0 = no cap). Returns the totals: ``count``,
     ``batches``, ``stream_seconds`` (from the stream's start to its last
     delivery) and ``stream_started_s`` (``time.perf_counter()`` at the
@@ -88,15 +116,20 @@ def run(conf: ConfArguments, max_batches: int = 0, fetch_depth: int = FETCH_DEPT
     (``time.perf_counter()``), and its wire: name, bytes, native fill and
     pack.
     ``fetch_depth`` sets the back-to-back stream's batches in flight.
+    ``report(out, totals, b, session, real, pred)`` publishes one batch and
+    returns its line; ``label_fns`` (label_fn, batch_label_fn) set the
+    featurizer's labelers.
     A run a runtime guard aborted (the fetch watchdog, the sentinel's
     rollback budget) raises after its shutdown saved the final checkpoint."""
     select_backend(conf)
     # the model first: without a card the default --backend cuda fails here,
     # before anything is published
-    model = build_model(conf)
+    model = build_model(conf) if learner is None else build_model(conf, learner)
     log.info("Initializing session stats...")
     session = SessionStats(conf).open()
     featurizer = Featurizer.from_conf(conf)
+    if label_fns is not None:
+        featurizer.label_fn, featurizer.batch_label_fn = label_fns
     wire = conf.effective_wire()
     install_trace(conf)
     install_chaos(conf)
@@ -133,20 +166,13 @@ def run(conf: ConfArguments, max_batches: int = 0, fetch_depth: int = FETCH_DEPT
         b = int(out.count)
         totals["count"] += b
         totals["batches"] += 1
-        mse = round_half_up(float(out.mse))
-        real_stdev = round_half_up(float(out.real_stdev))
-        pred_stdev = round_half_up(float(out.pred_stdev))
         valid = batch.mask.astype(bool)
         real = batch.label[valid].astype(np.float64)
         pred = np.asarray(out.predictions)[valid].astype(np.float64)
-        print(
-            f"count: {totals['count']}  batch: {b}  mse: {mse}  "
-            f"stdev (real, pred): ({int(real_stdev)}, {int(pred_stdev)})",
-            flush=True,
-        )
         t0 = time.perf_counter()
-        with annotate("twtml.publish"):
-            session.update(totals["count"], b, mse, real_stdev, pred_stdev, real, pred)
+        line = report(out, totals, b, session, real, pred)
+        publish_ms = (time.perf_counter() - t0) * 1e3
+        print(line, flush=True)
         stamp = dict(stamp or {})
         subs = dict(stamp.pop("featurize_substages_ms", {}))
         if "pack_ms" in stamp and stream.ragged:
@@ -158,7 +184,7 @@ def run(conf: ConfArguments, max_batches: int = 0, fetch_depth: int = FETCH_DEPT
             quality=None if out.quality is None else [float(v) for v in out.quality],
             featurize_ms=stamp.get("featurize_ms", 0.0) + stamp.get("pack_ms", 0.0),
             featurize_substages_ms=subs,
-            publish_ms=(time.perf_counter() - t0) * 1e3,
+            publish_ms=publish_ms,
             delivered_s=delivered_s,
             wire=wire,
         ))
@@ -180,7 +206,7 @@ def run(conf: ConfArguments, max_batches: int = 0, fetch_depth: int = FETCH_DEPT
         freshness=freshness,
     )
 
-    warmup_compile(stream, model)
+    warmup_compile(stream, model, super_batch=flush.group_k, group_wire=flush.group_wire)
 
     log.info("Starting the streaming computation...")
     tracer.start()

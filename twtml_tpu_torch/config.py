@@ -155,7 +155,7 @@ class ConfArguments:
     def __init__(self) -> None:
         conf = _load_defaults()
         conf.update(_load_application_conf())
-        self.appName = "twitter-stream-ml"
+        self.appName = "twtml-tpu"  # the JAX package's ConfArguments default
         for attr, kind in _TYPES.items():
             setattr(self, attr, kind(conf[attr]))
         # --master: local, local[N] or local[*] run on one host (the JAX
@@ -281,10 +281,17 @@ class ConfArguments:
   --freshnessSloMs <float ms>                  Warn-only freshness SLO (forces one checkpoint an
                                                episode); 0 = none. Default: {self.freshnessSloMs}
 
+  --superBatch <int K>                         Back to back (--seconds 0), with pinned --batchBucket
+                                               and --tokenBucket: K batches a step_many dispatch
+                                               (one CUDA graph replay on the card); each batch is
+                                               reported on its own. Default: {self.superBatch}
+  --wirePack <auto|stacked|group>              The superbatch's wire: stacked arrays, or (group,
+                                               ragged wire only) one packed buffer a group; auto =
+                                               stacked. Default: {self.wirePack}
+
   The JAX package's other flags parse with its defaults; a value other than
   the single-host default stops the run naming the ROADMAP item it needs:
-  --ingest block and --blockWire (A12), --superBatch > 1
-  and --wirePack (A4), --wireCodec dict (A11), --tenants > 1 and --tenantKey
+  --ingest block and --blockWire (A12), --wireCodec dict (A11), --tenants > 1 and --tenantKey
   (A9), --servePort, --serveBatchRows, --serveMaxWaitMs, --serveDepth,
   --servePromoteEvery, --routerPort, --replicas, --routePolicy, --abtest and
   --servingStaleSloS (A8), --coordinator, --numProcesses, --processId,
@@ -347,8 +354,6 @@ class ConfArguments:
             raise NotImplementedError(
                 f"{flag} needs {what}, which the port has not ported (ROADMAP {item})")
 
-        if self.superBatch > 1:
-            refuse(f"--superBatch {self.superBatch}", "the superbatch", "A4")
         if self.wireCodec == "dict":
             refuse("--wireCodec dict", "the digram wire codec", "A11")
         if self.ingest == "block":
@@ -374,6 +379,15 @@ class ConfArguments:
         if self.wire != "auto":
             return self.wire
         return "padded" if self.hashOn != "device" or self.seconds > 0 else "ragged"
+
+    def effective_wire_pack(self) -> str:
+        """Resolve ``--wirePack auto`` by the JAX package's rule: the
+        stacked superbatch wire; explicit ``group``/``stacked`` wins. (Its
+        refusal of ``stacked`` with ``--wireCodec dict`` never arises here:
+        the codec is refused first, ROADMAP A11.)"""
+        if self.wirePack != "auto":
+            return self.wirePack
+        return "stacked"
 
     def effective_journal(self) -> bool:
         """Resolve ``--journal auto`` by the JAX package's rule: on exactly

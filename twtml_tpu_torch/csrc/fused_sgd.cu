@@ -3,7 +3,8 @@
 // Replaces twtml_tpu/ops/pallas_sgd.py::_sgd_kernel, the TPU kernel that
 // runs MLlib's GradientDescent loop on a [B, F] design matrix held in VMEM:
 //   preds = X·w0; then for it = 1..N:
-//     r = X·w − y;  g = Xᵀr / max(count, 1);  η = stepSize/√it;
+//     r = X·w − y (least squares) or σ(X·w) − y (logistic);
+//     g = Xᵀr / max(count, 1);  η = stepSize/√it;
 //     w ← w·(1 − η·λ) − η·g   (skipped when count == 0);
 //     frozen from the next iteration once ‖Δw‖ < tol·max(‖w‖, 1).
 //
@@ -49,6 +50,16 @@
 //     work is done. A batch with count == 0 runs no iteration at all.
 // No float atomics anywhere: reruns are bitwise equal (on one card; the
 // order of the sums depends on the grid). One launch a call.
+//
+// Residual modes: the loss is a template parameter (two instantiations of
+// one kernel, chosen by the C entry's `residual_mode`): least squares
+// r = x·w − y, or logistic r = 1/(1 + expf(−x·w)) − y (MLlib's
+// LogisticGradient multiplier; expf, not the approximate __expf). preds
+// stays the raw margin X·w0 in both; the step thresholds it. A masked row
+// was zeroed in the prologue, so its logistic residual is σ(0) − 0 = 0.5,
+// not 0: it still adds nothing to Xᵀr, because every element of its row
+// of X is 0 (NaN/Inf that the caller left in a masked row never reached
+// shared memory).
 //
 // What Hopper offers and this design leaves out: tensor cores. Both
 // products are matrix × vector (N = 1, while wgmma takes N >= 8), and bf16
@@ -179,6 +190,16 @@ __device__ __forceinline__ void load_w8(const float* w_s, int v, float (&out)[8]
   out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
 }
 
+// The residual of one row from its margin x·w and label y.
+template <bool kLogistic>
+__device__ __forceinline__ float residual(float dot, float y) {
+  if constexpr (kLogistic) {
+    return 1.f / (1.f + expf(-dot)) - y;
+  } else {
+    return dot - y;
+  }
+}
+
 __device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);  // round to nearest even
   return *reinterpret_cast<const uint32_t*>(&h);
@@ -271,7 +292,8 @@ __device__ void cta_reduce_tile(const float (&acc)[kVpl][8], float* red, float* 
 }
 
 // One row of the narrow pass: dot = x·w by warp shuffle (preds on the first
-// pass), then acc += (dot − y)·x from the same registers.
+// pass), then acc += residual(dot, y)·x from the same registers.
+template <bool kLogistic>
 __device__ __forceinline__ void narrow_row(const Params& p, const float (&wr)[kVpl][8],
                                            float (&acc)[kVpl][8], const uint4 (&x)[kVpl],
                                            const float* y_s, int row0, int l, int lane,
@@ -282,7 +304,7 @@ __device__ __forceinline__ void narrow_row(const Params& p, const float (&wr)[kV
   dot = warp_sum(dot);
   if (first && lane == 0) p.preds[row0 + l] = dot;
   if (train) {
-    const float r = dot - y_s[l];
+    const float r = residual<kLogistic>(dot, y_s[l]);
 #pragma unroll
     for (int k = 0; k < kVpl; ++k) axpy8(r, x[k], acc[k]);
   }
@@ -291,6 +313,7 @@ __device__ __forceinline__ void narrow_row(const Params& p, const float (&wr)[kV
 // One pass over the CTA's rows, fpad <= kTileCols: w and the Xᵀr
 // accumulator in registers, each row read once; the next row of the warp
 // is loaded into the other register buffer while this one computes.
+template <bool kLogistic>
 __device__ void row_pass_narrow(const Params& p, const float* w_s, const float* y_s,
                                 const uint4* x_s, float* red, int cta, int row0,
                                 int my_rows, bool first, bool train) {
@@ -313,11 +336,11 @@ __device__ void row_pass_narrow(const Params& p, const float* w_s, const float* 
   if (l < my_rows) load_row_narrow(p, x_s, cta, l, lane, xa);
   while (l < my_rows) {
     if (l + kWarps < my_rows) load_row_narrow(p, x_s, cta, l + kWarps, lane, xb);
-    narrow_row(p, wr, acc, xa, y_s, row0, l, lane, first, train);
+    narrow_row<kLogistic>(p, wr, acc, xa, y_s, row0, l, lane, first, train);
     l += kWarps;
     if (l >= my_rows) break;
     if (l + kWarps < my_rows) load_row_narrow(p, x_s, cta, l + kWarps, lane, xa);
-    narrow_row(p, wr, acc, xb, y_s, row0, l, lane, first, train);
+    narrow_row<kLogistic>(p, wr, acc, xb, y_s, row0, l, lane, first, train);
     l += kWarps;
   }
   if (train) cta_reduce_tile(acc, red, p.partials + (size_t)cta * p.fpad, 0, p.fpad);
@@ -325,6 +348,7 @@ __device__ void row_pass_narrow(const Params& p, const float* w_s, const float* 
 
 // fpad > kTileCols: w stays in shared memory; r for every row first, then
 // Xᵀr one tile of columns at a time (two passes over each row).
+template <bool kLogistic>
 __device__ void row_pass_wide(const Params& p, const float* w_s, const float* y_s,
                               float* r_s, const uint4* x_s, float* red, int cta,
                               int row0, int my_rows, bool first, bool train) {
@@ -347,7 +371,7 @@ __device__ void row_pass_wide(const Params& p, const float* w_s, const float* y_
     dot = warp_sum(dot);
     if (lane == 0) {
       if (first) p.preds[row0 + l] = dot;
-      r_s[l] = dot - y_s[l];
+      r_s[l] = residual<kLogistic>(dot, y_s[l]);
     }
   }
   if (!train) return;
@@ -408,6 +432,7 @@ __device__ __forceinline__ void stage_row(const Params& p, uint4* x_s, float* y_
   if (lane == 0) y_s[l] = keep ? __ldg(p.labels + row) : 0.f;
 }
 
+template <bool kLogistic>
 __global__ void __launch_bounds__(kThreads, 1) fused_sgd_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout lay = layout(p.fpad, p.rows_cap);
@@ -456,11 +481,11 @@ __global__ void __launch_bounds__(kThreads, 1) fused_sgd_kernel(const Params p) 
 
   int it = 1;
   for (;; ++it) {
-    // ---- one pass over X: r = X·w − y (preds on the first), CTA's Xᵀr
+    // ---- one pass over X: r = residual(X·w, y) (preds on the first), CTA's Xᵀr
     if (narrow)
-      row_pass_narrow(p, w_s, y_s, x_s, red, cta, row0, my_rows, it == 1, train);
+      row_pass_narrow<kLogistic>(p, w_s, y_s, x_s, red, cta, row0, my_rows, it == 1, train);
     else
-      row_pass_wide(p, w_s, y_s, r_s, x_s, red, cta, row0, my_rows, it == 1, train);
+      row_pass_wide<kLogistic>(p, w_s, y_s, r_s, x_s, red, cta, row0, my_rows, it == 1, train);
     if (!train) break;
     // the JAX loop's f32 arithmetic operation for operation (no FMA
     // contraction): η = step/√it, w·(1 − η·λ) − (η·g)/max(count, 1)
@@ -532,9 +557,9 @@ __global__ void __launch_bounds__(kThreads, 1) fused_sgd_kernel(const Params p) 
 }  // namespace
 
 // Once a device, before its first launch: the SM count and the opt-in
-// shared memory a block may use on `device` (for the launch plan), and the
-// kernel's dynamic shared-memory limit raised to that opt-in there, so that
-// a launch makes no set-up call of its own. Returns a CUDA error code, 0 on
+// shared memory a block may use on `device` (for the launch plan), and both
+// instantiations' dynamic shared-memory limit raised to that opt-in there,
+// so that a launch makes no set-up call of its own. Returns a CUDA error code, 0 on
 // success.
 extern "C" int twtml_fused_sgd_setup(int device, int* sm_count, int* shared_optin) {
   int current = 0;
@@ -545,8 +570,11 @@ extern "C" int twtml_fused_sgd_setup(int device, int* sm_count, int* shared_opti
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(shared_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(fused_sgd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               *shared_optin);
+    err = cudaFuncSetAttribute(fused_sgd_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, *shared_optin);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fused_sgd_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, *shared_optin);
   const cudaError_t restored = cudaSetDevice(current);
   return (int)(err != cudaSuccess ? err : restored);
 }
@@ -563,18 +591,22 @@ extern "C" int twtml_fused_sgd_setup(int device, int* sm_count, int* shared_opti
 // memory: the plan's byte offsets of the reduction slots, y, r, scratch and
 // the resident rows, then the 16-byte groups a stored row takes) come from
 // the launch plan; a plan whose layout differs from layout() and
-// row_groups() here is refused. Returns the CUDA error of the launch (a
-// refused cooperative launch included), 0 when it was taken.
+// row_groups() here is refused. `residual_mode` picks the loss: 0 least
+// squares, 1 logistic (any other value is refused). Returns the CUDA error
+// of the launch (a refused cooperative launch included), 0 when it was
+// taken.
 extern "C" int twtml_fused_dense_sgd(
     const void* x, const void* labels, const void* mask, const void* w0, void* w_out,
     void* preds, void* spill, void* scratch, int rows, int features, int fpad, int grid,
     int rows_cap, int resident, int spill_per_cta, int shared_bytes, const int* plan_layout,
-    int num_iterations, float step_size, float l2_reg, float tol, void* stream) {
+    int num_iterations, float step_size, float l2_reg, float tol, int residual_mode,
+    void* stream) {
   const Layout lay = layout(fpad, rows_cap);
   const int stride = row_groups(fpad);
   if (rows < 1 || features < 1 || fpad % 8 != 0 || features > fpad || grid < 1 ||
       (long long)rows_cap * grid < rows || resident < 0 || resident > rows_cap ||
       spill_per_cta != rows_cap - resident || num_iterations < 0 ||
+      (residual_mode != 0 && residual_mode != 1) ||
       (size_t)plan_layout[0] != lay.red || (size_t)plan_layout[1] != lay.y ||
       (size_t)plan_layout[2] != lay.r || (size_t)plan_layout[3] != lay.scratch ||
       (size_t)plan_layout[4] != lay.x || plan_layout[5] != stride ||
@@ -607,7 +639,10 @@ extern "C" int twtml_fused_dense_sgd(
   p.l2_reg = l2_reg;
   p.tol = tol;
   void* args[] = {&p};
-  return (int)cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fused_sgd_kernel),
+  const void* kernel = residual_mode == 1
+                           ? reinterpret_cast<const void*>(fused_sgd_kernel<true>)
+                           : reinterpret_cast<const void*>(fused_sgd_kernel<false>);
+  return (int)cudaLaunchCooperativeKernel(kernel,
                                           dim3(grid), dim3(kThreads), args,
                                           (size_t)shared_bytes, static_cast<cudaStream_t>(stream));
 }

@@ -14,9 +14,16 @@ stream of varying batch sizes reuses a few shapes. Three wires:
   when the static row length allows. ``unpack_batch`` reinterprets the
   buffer, on the host or on the device, with the same bytes.
 
+The superbatch wires (``--superBatch K``): ``stack_batches`` gives K
+same-shape batches' fields a leading [K] axis (the stacked wire), and
+``pack_ragged_group`` lays K ragged batches into ONE buffer (the group
+wire, layout ``RaggedGroupSegments``: segment k holds batch k's five
+fields back to back), which ``unpack_batch`` turns back into the stacked
+batch. The buffer and layout are the JAX package's, byte for byte.
+
 Plain classes of numpy arrays (no pytree registration); the learner moves
-them to its device. The flat layouts only: the shard-segment and group
-layouts, and the digram codec, are not ported.
+them to its device. The shard-segment layout (ROADMAP A10) and the digram
+codec (A11) are not ported.
 """
 
 from __future__ import annotations
@@ -219,10 +226,11 @@ def _offsets_to_deltas(offsets) -> np.ndarray:
 
 
 def _deltas_to_offsets_np(deltas) -> np.ndarray:
-    """Host twin of ``ops/ragged.offsets_from_deltas``."""
+    """Host twin of ``ops/ragged.offsets_from_deltas``: deltas [..., B] ->
+    int32 offsets [..., B+1] starting at 0."""
     d = np.asarray(deltas, np.int64)
-    out = np.zeros((d.shape[0] + 1,), np.int64)
-    np.cumsum(d, out=out[1:])
+    out = np.zeros(d.shape[:-1] + (d.shape[-1] + 1,), np.int64)
+    np.cumsum(d, axis=-1, out=out[..., 1:])
     return out.astype(np.int32)
 
 
@@ -307,10 +315,119 @@ def _tensor_view(chunk, dt: np.dtype):
     return chunk.view(dtypes[f"{dt.kind}{dt.itemsize}"])
 
 
+def stack_batches(batches):
+    """K same-shape batches -> one batch whose fields carry a leading [K]
+    axis: the stacked superbatch wire of ``step_many``. Every batch must
+    share type, shapes and dtypes (ragged ones also ``row_len``)."""
+    first = batches[0]
+    for b in batches[1:]:
+        if type(b) is not type(first):
+            raise TypeError("cannot stack mixed batch types")
+    if isinstance(first, RaggedUnitBatch):
+        for b in batches[1:]:
+            if b.row_len != first.row_len:
+                raise ValueError("cannot stack ragged batches with different row_len")
+        return RaggedUnitBatch(
+            *(np.stack([getattr(b, f) for b in batches])
+              for f in ("units", "offsets", "numeric", "label", "mask")),
+            row_len=first.row_len,
+        )
+    return type(first)(*(np.stack(arrs) for arrs in zip(*batches)))
+
+
+def pack_ragged_group(batches, narrow_offsets: "bool | None" = None) -> PackedBatch:
+    """K ragged batches of one wire signature -> ONE uint8 buffer (the
+    group wire): segment k holds batch k's units, offsets (uint16 length
+    deltas under the static ``row_len`` gate, int32 beyond it), numeric,
+    label and mask back to back, segments in batch order. The layout is
+    ``("RaggedGroupSegments", per-segment field metas, (row_len, 1, K,
+    offsets form))``, the JAX package's single-device layout. The native
+    assembler fills the buffer when it can (features/assemble.py), byte for
+    byte as the numpy path here."""
+    if not batches:
+        raise ValueError("cannot pack an empty group")
+    first = batches[0]
+    if not isinstance(first, RaggedUnitBatch):
+        raise TypeError("pack_ragged_group is the ragged wire's group pack")
+    for rb in batches[1:]:
+        if (not isinstance(rb, RaggedUnitBatch) or rb.row_len != first.row_len
+                or rb.units.shape != first.units.shape
+                or rb.units.dtype != first.units.dtype
+                or rb.mask.shape != first.mask.shape):
+            raise ValueError("group batches must share one wire signature (shapes, "
+                             "dtypes, row_len)")
+    k = len(batches)
+    narrow = offsets_narrow(first.row_len) if narrow_offsets is None else narrow_offsets
+    from .assemble import try_assemble_group
+
+    fast = try_assemble_group(batches, narrow)
+    if fast is not None:
+        return fast
+    fields = [
+        np.ascontiguousarray(np.stack([np.asarray(get(rb)) for rb in batches]))
+        for get in (
+            lambda rb: rb.units,
+            (lambda rb: _offsets_to_deltas(rb.offsets)) if narrow else (lambda rb: rb.offsets),
+            lambda rb: rb.numeric, lambda rb: rb.label, lambda rb: rb.mask,
+        )
+    ]
+    layout = (
+        "RaggedGroupSegments",
+        tuple((f.shape[1:], f.dtype.str) for f in fields),
+        (first.row_len, 1, k, "u16delta" if narrow else "i32"),
+    )
+    from .arena import lease_wire
+
+    chunks = [f.view(np.uint8).reshape(k, -1) for f in fields]
+    lease = lease_wire(sum(c.nbytes for c in chunks))
+    np.concatenate(chunks, axis=1, out=lease.buf.reshape(k, -1))
+    return PackedBatch(lease.buf, layout, lease)
+
+
+def _unpack_ragged_group(buffer, layout: tuple) -> RaggedUnitBatch:
+    """The stacked ragged batch ([K]-leading fields, what ``stack_batches``
+    gives) of a ``RaggedGroupSegments`` buffer: numpy views of a numpy
+    buffer; of a torch tensor, each field's bytes copied out of the K
+    segments (one strided copy a field) and reinterpreted."""
+    fields_meta = layout[1]
+    row_len, num_shards, k, offs_mode = layout[2][:4]
+    if num_shards != 1 or len(layout[2]) > 4:
+        raise NotImplementedError("shard-aligned and digram-coded group layouts are "
+                                  "not ported (ROADMAP A10, A11)")
+    per_seg = sum(int(np.prod(shape, dtype=np.int64)) * np.dtype(dt).itemsize
+                  for shape, dt in fields_meta)
+    if buffer.shape[0] != k * per_seg:
+        raise ValueError(f"buffer of {buffer.shape[0]} bytes is not {k} group "
+                         f"segments of {per_seg} bytes")
+    segments = buffer.reshape(k, per_seg)
+    fields = []
+    off = 0
+    for shape, dtype_str in fields_meta:
+        dt = np.dtype(dtype_str)
+        nbytes = int(np.prod(shape, dtype=np.int64)) * dt.itemsize
+        chunk = segments[:, off: off + nbytes]
+        off += nbytes
+        if isinstance(chunk, np.ndarray):
+            fields.append(np.ascontiguousarray(chunk).view(dt).reshape((k,) + tuple(shape)))
+        else:
+            fields.append(_tensor_view(chunk.contiguous(), dt).reshape((k,) + tuple(shape)))
+    if offs_mode == "u16delta":
+        if isinstance(fields[1], np.ndarray):
+            fields[1] = _deltas_to_offsets_np(fields[1].reshape(k, -1))
+        else:
+            from ..ops.ragged import offsets_from_deltas
+
+            fields[1] = offsets_from_deltas(fields[1])
+    return RaggedUnitBatch(*fields, row_len=row_len)
+
+
 def unpack_batch(buffer, layout: tuple):
     """Rebuild the batch from a packed buffer: a numpy uint8 array gives
     numpy views; a torch uint8 tensor (on any device) gives tensors whose
-    bytes are the same. The flat layouts only."""
+    bytes are the same. The flat layouts and the group layout (a stacked
+    ragged batch)."""
+    if layout[0] == "RaggedGroupSegments":
+        return _unpack_ragged_group(buffer, layout)
     cls = {
         "FeatureBatch": FeatureBatch,
         "UnitBatch": UnitBatch,
@@ -318,8 +435,7 @@ def unpack_batch(buffer, layout: tuple):
     }.get(layout[0])
     if cls is None:
         raise NotImplementedError(
-            f"the {layout[0]} layout is not ported (group layout: ROADMAP A4, "
-            "shard segments: A10)"
+            f"the {layout[0]} layout is not ported (shard segments: ROADMAP A10)"
         )
     fields = []
     off = 0

@@ -8,7 +8,10 @@ Semantics kept from the JAX package:
   units; the device hashes its character bigrams (ops/text_hash.py);
 - numeric features: followers/favourites/friends scaled by 1e-12 and tweet
   age in milliseconds scaled by 1e-14;
-- label: the original tweet's retweetCount.
+- label: the original tweet's retweetCount, unless the featurizer's
+  ``label_fn`` (one status) or ``batch_label_fn`` (a batch, the hot path;
+  it wins) gives it: the logistic app's sentiment labels
+  (features/sentiment.py). Every featurize path honours both.
 
 Three batch assemblers, byte-equal to the JAX package's of the same name: the
 units wires ``featurize_batch_units`` (padded, numpy) and
@@ -24,13 +27,15 @@ the rows' distinct terms where the native path sizes it by their units).
 from __future__ import annotations
 
 import datetime
+import functools
+import inspect
 import itertools
 import operator
 import os
 import time
 from dataclasses import dataclass, field
 from email.utils import parsedate_to_datetime
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 
@@ -130,6 +135,16 @@ def _pad_ragged_units(
     return buf, length
 
 
+@functools.lru_cache(maxsize=16)
+def _accepts_encoded(fn) -> bool:
+    """Whether a batch labeler takes the featurizer's encoded texts
+    (an ``encoded`` keyword)."""
+    try:
+        return "encoded" in inspect.signature(fn).parameters
+    except (TypeError, ValueError):
+        return False
+
+
 @dataclass(slots=True)
 class Status:
     """Minimal tweet model: the Twitter4j Status surface the reference reads."""
@@ -178,6 +193,9 @@ class Featurizer:
     num_retweet_begin: int = 100  # MllibHelper.scala:15
     num_retweet_end: int = 1000  # MllibHelper.scala:16
     now_ms: int | None = None  # fixed clock for deterministic replay; None=wall
+    label_fn: "Callable[[Status], float] | None" = None  # default: retweetCount
+    # batched form of label_fn (same labels, one call a batch): the hot path
+    batch_label_fn: "Callable[[list[Status]], np.ndarray] | None" = None
     num_number_features: int = field(default=NUM_NUMBER_FEATURES, init=False)
     last_substages: list = field(
         default_factory=list, init=False, repr=False, compare=False
@@ -230,9 +248,29 @@ class Featurizer:
         return hashing_tf_counts(char_bigrams(text), self.num_text_features)
 
     def featurize(self, status: Status) -> tuple[dict[int, float], np.ndarray, float]:
-        """One tweet's text counts, numeric features and label."""
-        return (self.featurize_text(status), self.featurize_numbers(status),
-                float(status.retweeted_status.retweet_count))
+        """One tweet's text counts, numeric features and label
+        (``label_fn``'s when set)."""
+        label = (float(status.retweeted_status.retweet_count) if self.label_fn is None
+                 else float(self.label_fn(status)))
+        return (self.featurize_text(status), self.featurize_numbers(status), label)
+
+    def _apply_label_fns(self, label: np.ndarray, keep: list, encoded=None) -> bool:
+        """Write a configured labeler's labels over ``label[:n]``:
+        ``batch_label_fn`` (given ``encoded``, the batch's (units, offsets)
+        of the originals' texts, when it takes them), else ``label_fn``
+        row by row. False when neither is set (the label stays the retweet
+        count the caller filled)."""
+        n = len(keep)
+        if self.batch_label_fn is not None:
+            if encoded is not None and _accepts_encoded(self.batch_label_fn):
+                label[:n] = self.batch_label_fn(keep, encoded=encoded)
+            else:
+                label[:n] = self.batch_label_fn(keep)
+            return True
+        if self.label_fn is not None:
+            label[:n] = [self.label_fn(s) for s in keep]
+            return True
+        return False
 
     def featurize_batch(self, statuses: list[Status], row_bucket: int = 0,
                         token_bucket: int = 0) -> FeatureBatch:
@@ -253,8 +291,13 @@ class Featurizer:
             return fast
         native.HASH_COUNTERS["hashes_degraded"] += 1
         self.last_substages = []
+        if self.batch_label_fn is not None:
+            rows = [(self.featurize_text(s), self.featurize_numbers(s), float(lab))
+                    for s, lab in zip(keep, self.batch_label_fn(keep))]
+        else:
+            rows = [self.featurize(s) for s in keep]
         batch = pad_feature_batch(
-            [self.featurize(s) for s in keep], row_bucket=row_bucket,
+            rows, row_bucket=row_bucket,
             token_bucket=token_bucket, num_features=self.num_text_features, counts=True,
         )
         self._sub("python", t0)
@@ -284,14 +327,16 @@ class Featurizer:
         token_idx, token_val = compact_tokens(
             token_idx, token_val, self.num_text_features, counts=True, validate=False)
         t0 = self._sub("hash", t0)
-        numeric, label, mask = self._numeric_label_mask(originals, b)
+        numeric, label, mask = self._numeric_label_mask(
+            originals, b, keep=keep, encoded=(units, offsets))
         self._sub("numeric", t0)
         return FeatureBatch(token_idx, token_val, numeric, label, mask)
 
-    def _numeric_label_mask(self, originals, b: int, cols=None):
+    def _numeric_label_mask(self, originals, b: int, cols=None, keep=None, encoded=None):
         """Padded numeric/label/mask columns. ``cols``: the float64 [n, 5]
         columns already gathered by ``_gather_rows``; None gathers them from
-        ``originals``."""
+        ``originals``. ``keep`` (the kept statuses) and ``encoded`` feed a
+        configured labeler (``_apply_label_fns``)."""
         n = len(originals)
         numeric = np.zeros((b, NUM_NUMBER_FEATURES), dtype=np.float32)
         label = np.zeros((b,), dtype=np.float32)
@@ -305,31 +350,34 @@ class Featurizer:
             ).reshape(n, 5)
         numeric[:n, :3] = cols[:, :3] * COUNT_SCALE
         numeric[:n, 3] = (self._now() - cols[:, 3]) * AGE_SCALE
-        label[:n] = cols[:, 4]
+        if keep is None or not self._apply_label_fns(label, keep, encoded):
+            label[:n] = cols[:, 4]
         mask[:n] = 1.0
         return numeric, label, mask
 
     def _gather_rows(self, statuses: list[Status]):
-        """Filter, then extract the kept originals' raw texts and their
-        five numeric columns (float64 [n, 5], ``_NUMERIC_COLS`` order)."""
-        originals = [s.retweeted_status for s in statuses if self.filtrate(s)]
+        """Filter, then extract the kept statuses, their originals' raw
+        texts and the originals' five numeric columns (float64 [n, 5],
+        ``_NUMERIC_COLS`` order)."""
+        keep = [s for s in statuses if self.filtrate(s)]
+        originals = [s.retweeted_status for s in keep]
         texts = [o.text for o in originals]
         cols = np.fromiter(
             itertools.chain.from_iterable(map(_NUMERIC_COLS, originals)),
             np.float64, len(originals) * 5,
         ).reshape(len(originals), 5)
-        return originals, texts, cols
+        return keep, originals, texts, cols
 
     def _encode_batch_texts(self, statuses: list[Status]):
-        """Filter + UTF-16 encode: (originals, cols, units, offsets,
+        """Filter + UTF-16 encode: (keep, originals, cols, units, offsets,
         all_ascii). Texts with non-ASCII characters take Python's Unicode
         ``lower()``; ASCII texts are case-folded during the pad copy."""
-        originals, texts, cols = self._gather_rows(statuses)
+        keep, originals, texts, cols = self._gather_rows(statuses)
         joined = "".join(texts)
         if not joined.isascii():
             texts = [t if t.isascii() else t.lower() for t in texts]
             units, offsets = encode_texts(texts)
-            return originals, cols, units, offsets, False
+            return keep, originals, cols, units, offsets, False
         units = np.frombuffer(
             joined.encode("utf-16-le", "surrogatepass"), dtype=np.uint16
         )
@@ -338,7 +386,7 @@ class Featurizer:
         np.cumsum(np.fromiter(map(len, texts), np.int64, n), out=offsets[1:])
         if units.size == 0:
             units = np.zeros(1, dtype=np.uint16)
-        return originals, cols, units, offsets, True
+        return keep, originals, cols, units, offsets, True
 
     def _sub(self, name: str, t0: float) -> float:
         """Record one featurize sub-stage span in ``last_substages`` as
@@ -366,7 +414,7 @@ class Featurizer:
         hashes bigrams on its device."""
         self.last_substages = []
         t0 = time.perf_counter()
-        originals, cols, units, offsets, all_ascii = self._encode_batch_texts(
+        keep, originals, cols, units, offsets, all_ascii = self._encode_batch_texts(
             statuses
         )
         t0 = self._sub("encode", t0)
@@ -378,7 +426,8 @@ class Featurizer:
             units, offsets, lengths, n, b, lu, narrow=all_ascii
         )
         t0 = self._sub("wire_build", t0)
-        numeric, label, mask = self._numeric_label_mask(originals, b, cols=cols)
+        numeric, label, mask = self._numeric_label_mask(
+            originals, b, cols=cols, keep=keep, encoded=(units, offsets))
         self._sub("numeric", t0)
         return UnitBatch(buf, length, numeric, label, mask)
 
@@ -402,7 +451,7 @@ class Featurizer:
         arena, since the packed buffer holds copies of its bytes."""
         self.last_substages = []
         t0 = time.perf_counter()
-        originals, cols, units, offsets, all_ascii = self._encode_batch_texts(
+        keep, originals, cols, units, offsets, all_ascii = self._encode_batch_texts(
             statuses
         )
         t0 = self._sub("encode", t0)
@@ -420,12 +469,15 @@ class Featurizer:
             )
             featurize_native.attach_lease(batch, lease)
             t0 = self._sub("wire_build", t0)
+            if n and self._apply_label_fns(label, keep, (units, offsets)):
+                t0 = self._sub("numeric", t0)
         else:
             lengths = np.diff(offsets)
             lu = self._row_len_bucket(int(lengths.max()) if n else 0, unit_bucket)
             flat, offs = ragged_wire_arrays(units, offsets, n, b, narrow=all_ascii)
             t0 = self._sub("wire_build", t0)
-            numeric, label, mask = self._numeric_label_mask(originals, b, cols=cols)
+            numeric, label, mask = self._numeric_label_mask(
+                originals, b, cols=cols, keep=keep, encoded=(units, offsets))
             t0 = self._sub("numeric", t0)
             batch = RaggedUnitBatch(flat, offs, numeric, label, mask, row_len=lu)
         if not pack:

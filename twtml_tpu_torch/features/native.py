@@ -2,9 +2,10 @@
 (counterpart of the loader half of ``twtml_tpu/features/native.py``).
 
 ``native/featurize.cpp`` (the one-pass featurize fill), ``native/
-wireassemble.cpp`` (the packed-wire assembler), ``native/wirecodec.cpp``
-(the digram encoder the assembler links against) and ``native/
-fasthash.cpp`` (the host bigram hasher of ``--hashOn host``) are compiled
+wireassemble.cpp`` (the packed-wire assembler, flat and group), ``native/
+wirecodec.cpp`` (the digram encoder the assembler links against) and
+``native/fasthash.cpp`` (the host bigram hasher of ``--hashOn host`` and
+the lexicon sentiment scorer of the logistic app) are compiled
 with g++ at first use into ``build/twtml_tpu_torch/`` at the repository
 root. The library is named by a hash of its sources and flags, so an
 edited source builds a new library beside the old one.
@@ -129,21 +130,34 @@ _HASH_ENTRY = ("fasthash_batch", [
     ctypes.c_int32,
 ])
 
+# (units u16, offsets [n+1] i64, n, then per lexicon (words u16, word
+#  offsets i64, word hashes i32, count), out_score [n] i32, out_ok [n] u8);
+# returns nothing. Bound like fasthash_batch: a library without it scores in
+# Python
+_LEXICON_ENTRY = ("lexicon_score_batch", [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,
+    ctypes.c_void_p, ctypes.c_void_p,
+])
+
 
 class NativeLibrary:
     """A loaded native library with its entries bound. An entry of the
     wire path the library lacks (a stale build) is None, with one warning;
-    a missing ``fasthash_batch`` is None, and warns where it is wanted."""
+    a missing ``fasthash_batch`` or ``lexicon_score_batch`` is None, and
+    warns where it is wanted."""
 
     def __init__(self, path) -> None:
         self.path = Path(path)
         cdll = ctypes.CDLL(str(self.path))
-        name, argtypes = _HASH_ENTRY
-        fn = getattr(cdll, name, None)
-        if fn is not None:
-            fn.restype = ctypes.c_int32
-            fn.argtypes = argtypes
-        self.fasthash_batch = fn
+        for (name, argtypes), restype in ((_HASH_ENTRY, ctypes.c_int32),
+                                          (_LEXICON_ENTRY, None)):
+            fn = getattr(cdll, name, None)
+            if fn is not None:
+                fn.restype = restype
+                fn.argtypes = argtypes
+            setattr(self, name, fn)
         for name, argtypes in _ENTRIES.items():
             fn = getattr(cdll, name, None)
             if fn is None:
@@ -192,22 +206,23 @@ def featurize_wire_raw(*args) -> int | None:
     return None if max_len < 0 else int(max_len)
 
 
-def wire_assemble(units, offsets, numeric, label, mask, narrow: bool, out) -> int | None:
-    """One C pass from one ragged batch's five field arrays to the flat
-    packed wire in ``out`` (the k = 1, s = 1 form of the entry, no codec).
-    Returns the bytes written, or None when the entry is unavailable or
-    refuses the input (a length delta past uint16, ``out`` too small)."""
+def wire_assemble(fields_per_batch, narrow: bool, out) -> int | None:
+    """One C pass from K ragged batches' five field arrays (units, offsets,
+    numeric, label, mask each) to the packed wire in ``out``: the flat
+    layout for K = 1, the group layout's K segments otherwise (one shard,
+    no codec). Returns the bytes written, or None when the entry is
+    unavailable or refuses the input (a length delta past uint16, ``out``
+    too small)."""
     lib = get_lib()
     if lib is None or lib.wire_assemble is None:
         return None
-
-    def one(a):
-        return (ctypes.c_void_p * 1)(a.ctypes.data)
-
+    k = len(fields_per_batch)
+    ptrs = [(ctypes.c_void_p * k)(*(f[i].ctypes.data for f in fields_per_batch))
+            for i in range(5)]
+    units, mask = fields_per_batch[0][0], fields_per_batch[0][4]
     enc_bucket = ctypes.c_int64(0)
     total = lib.wire_assemble(
-        one(units), one(offsets), one(numeric), one(label), one(mask),
-        1, 1, int(units.shape[0]), int(mask.shape[0]), int(units.dtype.itemsize),
+        *ptrs, k, 1, int(units.shape[0]), int(mask.shape[0]), int(units.dtype.itemsize),
         1 if narrow else 0, None, 0, None, None,
         out.ctypes.data, int(out.shape[0]), ctypes.byref(enc_bucket),
     )
@@ -260,3 +275,28 @@ def hash_texts(units, offsets, n: int, num_features: int, out_idx, out_val):
     if max_terms > l_max or (ntok[:n] < 0).any():
         return None
     return ntok
+
+
+def lexicon_scores(encoded, n: int, pos_lex: tuple, neg_lex: tuple):
+    """Lexicon sentiment scores of ``n`` texts, their UTF-16 ``encoded``
+    (units, int64 offsets [n+1]), with ``native/fasthash.cpp``
+    ``lexicon_score_batch``: (scores int32 [n], ok uint8 [n]), where ok 0
+    marks a row with non-ASCII units, which the caller scores in Python.
+    ``pos_lex``/``neg_lex`` are (words' units, offsets, Java hash codes)
+    (features/sentiment.py). None when the entry is unavailable."""
+    lib = get_lib()
+    if lib is None or lib.lexicon_score_batch is None:
+        return None
+    units, offsets = (np.ascontiguousarray(a) for a in encoded)
+    if units.dtype != np.uint16 or offsets.dtype != np.int64 or offsets.shape != (n + 1,):
+        raise ValueError("lexicon_scores: units must be uint16 and offsets int64 [n + 1]")
+    score = np.empty((n,), np.int32)
+    ok = np.empty((n,), np.uint8)
+    (pw, po, ph), (nw, no, nh) = pos_lex, neg_lex
+    lib.lexicon_score_batch(
+        units.ctypes.data, offsets.ctypes.data, n,
+        pw.ctypes.data, po.ctypes.data, ph.ctypes.data, len(ph),
+        nw.ctypes.data, no.ctypes.data, nh.ctypes.data, len(nh),
+        score.ctypes.data, ok.ctypes.data,
+    )
+    return score, ok

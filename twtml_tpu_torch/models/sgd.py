@@ -1,13 +1,17 @@
 """Fused streaming-SGD step, dense regime (counterpart of a subset of
-``twtml_tpu/models/sgd.py``).
+``twtml_tpu/models/sgd.py``), for the least-squares and the logistic
+learner.
 
 Per micro-batch: unpack the packed wire buffer and re-pad the ragged units
 (the default wire), hash the bigrams on the device (or, under ``--hashOn
 host``, take the host-hashed tokens of a ``FeatureBatch``, upcast from
 their compact wire dtypes), densify to [B, F_text] and append the 4
-numeric features, predict with the pre-update weights and
-round HALF_UP, compute the batch stats (and the quality vector under
-``--modelWatch``), then run ``numIterations`` of MLlib's GradientDescent.
+numeric features, predict with the pre-update weights (``prediction_fn``
+of the raw margin, rounded HALF_UP when ``round_predictions``), compute the
+batch stats (and the quality vector under ``--modelWatch``), then run
+``numIterations`` of MLlib's GradientDescent, whose gradient multiplier is
+``residual_fn(raw, label)``: x·w − y for least squares (the default),
+σ(x·w) − y for the logistic learner (models/logistic.py).
 
 MLlib semantics kept (``sgd_inner_loop``): 1-indexed stepSize/sqrt(i); L2
 pre-scale w <- w(1 - eta*lambda); Bernoulli mini-batch sampling per
@@ -18,7 +22,9 @@ converged once ||w_i - w_{i-1}|| < tol * max(||w_i||, 1), then frozen.
 The loop's route is chosen by configuration (``dense_route``), never on a
 failure. At miniBatchFraction 1 with float32 weights (the default) it runs
 in ``ops/fused_sgd.fused_dense_sgd``: the hand-written kernel when the model
-is on ``cuda``, its plain twin on the CPU. Its predictions are that call's
+is on ``cuda``, its plain twin on the CPU, in the kernel's residual mode
+for ``residual_fn`` (a residual the kernel has no mode for runs the torch
+loop). Its predictions are that call's
 ``raw_predictions`` (X in bf16 times the pre-update weights, summed in
 f32): the text counts are exact in bf16 and the numeric features are of
 order 1e-6, so this differs from the JAX package's f32 ``x @ w`` only in
@@ -28,6 +34,15 @@ does not compute, run the JAX package's loop as torch ops in the weights'
 type (``dense_sgd_loop``), with every iteration's mask drawn in one batched
 pass before the loop. The sparse regime (numTextFeatures > 8192) raises
 ``NotImplementedError`` (ROADMAP A6).
+
+``StreamingSGDModel.step_many`` runs K micro-batches as one dispatch (the
+JAX package's ``lax.scan`` superbatch): a stacked batch or a packed group
+(features/batch.py). On the card the K steps of a (wire signature, K) are
+captured once into a CUDA graph and replayed: the group's bytes land in
+device buffers the graph owns (one H2D copy for a packed group), the weights
+chain through the K steps exactly as K ``step`` calls would, and the K
+outputs come back as one vector. The first group of a signature runs the K
+steps eagerly (which also runs every first-use set-up), then captures.
 """
 
 from __future__ import annotations
@@ -43,8 +58,8 @@ from ..features.batch import (
     UnitBatch,
     unpack_batch,
 )
-from ..ops import prng
-from ..ops.fused_sgd import fused_dense_sgd
+from ..ops import fused_sgd, prng
+from ..ops.fused_sgd import fused_dense_sgd, least_squares_residual, residual_mode
 from ..ops.quality import quality_vector
 from ..ops.ragged import ragged_repad
 from ..ops.sparse import densify_text
@@ -69,6 +84,9 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float64": torch
 
 # sampling-mask sets kept a step (one per batch row count)
 _MASK_CACHE_SIZE = 8
+
+# CUDA graphs kept a model (one per (wire signature, K) of step_many)
+_GRAPH_CACHE_SIZE = 4
 
 
 def _step_scalars(step_size: float, l2_reg: float, it: int, dtype) -> tuple[float, float]:
@@ -134,18 +152,19 @@ def sampling_masks(rows: int, num_iterations: int, fraction: float, dtype, devic
 
 def dense_sgd_loop(x_dense, labels, mask, weights, *, num_iterations: int,
                    step_size: float, l2_reg: float = 0.0,
-                   convergence_tol: float = 0.001, masks=None):
+                   convergence_tol: float = 0.001, masks=None,
+                   residual_fn=least_squares_residual):
     """The JAX package's dense step as torch ops in the weights' float type
     (``twtml_tpu/models/sgd.py`` ``sgd_inner_loop`` over ``x_dense @ w``):
     predictions with the pre-update weights, then each iteration's gradient
-    over the rows ``mask * masks[i - 1]`` selects (all valid rows when
-    ``masks`` is None), divided by the selected count. Returns
-    (new_weights [F], raw_predictions [B])."""
+    Xᵀ(residual_fn(X·w, y) * sel) over the rows ``sel = mask * masks[i - 1]``
+    selects (all valid rows when ``masks`` is None), divided by the selected
+    count. Returns (new_weights [F], raw_predictions [B])."""
     raw = x_dense @ weights
 
     def grad_and_count(w, it):
         sel = mask if masks is None else mask * masks[it - 1]
-        residual = (x_dense @ w - labels) * sel
+        residual = residual_fn(x_dense @ w, labels) * sel
         return x_dense.T @ residual, torch.sum(sel)
 
     w = sgd_inner_loop(
@@ -156,13 +175,15 @@ def dense_sgd_loop(x_dense, labels, mask, weights, *, num_iterations: int,
     return w, raw
 
 
-def dense_route(mini_batch_fraction: float, dtype) -> str:
+def dense_route(mini_batch_fraction: float, dtype, residual_fn=None) -> str:
     """Which loop a configuration's step runs, by configuration alone:
     ``fused_dense_sgd`` (the hand kernel on the card, its twin on the CPU)
-    at fraction 1 in float32; ``torch_loop`` (``dense_sgd_loop``) for a
-    Bernoulli mini-batch or another dtype, which the kernel does not
-    compute."""
-    if mini_batch_fraction >= 1.0 and dtype == torch.float32:
+    at fraction 1 in float32 for a residual the kernel has a mode for
+    (least squares, logistic); ``torch_loop`` (``dense_sgd_loop``) for a
+    Bernoulli mini-batch, another dtype or another residual, which the
+    kernel does not compute."""
+    if (mini_batch_fraction >= 1.0 and dtype == torch.float32
+            and residual_mode(residual_fn) is not None):
         return "fused_dense_sgd"
     return "torch_loop"
 
@@ -185,17 +206,23 @@ def make_sgd_train_step(
     mini_batch_fraction: float = 1.0,
     l2_reg: float = 0.0,
     convergence_tol: float = 0.001,
+    residual_fn=None,
+    prediction_fn=None,
     round_predictions: bool = True,
     quality: bool = False,
     dtype=torch.float32,
 ):
-    """Build the (weights, batch) -> (new_weights, StepOutput) step of the
-    least-squares learner. ``batch`` is a PackedBatch (a uint8 buffer
-    tensor), RaggedUnitBatch, UnitBatch or FeatureBatch of tensors on the
-    weights' device."""
+    """Build the (weights, batch) -> (new_weights, StepOutput) step.
+    ``residual_fn(raw, label)`` is the per-row gradient multiplier (None:
+    least squares, raw − label), ``prediction_fn(raw)`` maps the raw margin
+    to the reported prediction (None: identity), rounded HALF_UP when
+    ``round_predictions``: the JAX package's three knobs. ``batch`` is a
+    PackedBatch (a uint8 buffer tensor), RaggedUnitBatch, UnitBatch or
+    FeatureBatch of tensors on the weights' device."""
     _check_slice(num_text_features, dtype)
     f_text = num_text_features
-    route = dense_route(mini_batch_fraction, dtype)
+    residual_fn = residual_fn or least_squares_residual
+    route = dense_route(mini_batch_fraction, dtype, residual_fn)
     sampled = mini_batch_fraction < 1.0
     # every batch draws the same masks (the key is PRNGKey(42) each batch),
     # so a row count's [N, B] set is made once, on the step's device
@@ -239,24 +266,30 @@ def make_sgd_train_step(
             [densify_text(token_idx, token_val, f_text), numeric], dim=1
         )
         kw = dict(num_iterations=num_iterations, step_size=step_size,
-                  l2_reg=l2_reg, convergence_tol=convergence_tol)
+                  l2_reg=l2_reg, convergence_tol=convergence_tol,
+                  residual_fn=residual_fn)
         if route == "fused_dense_sgd":
             w_new, raw = fused_dense_sgd(x_dense, labels, mask, weights, **kw)
         else:
             masks = masks_for(mask.shape[0], mask.device) if sampled else None
             w_new, raw = dense_sgd_loop(x_dense, labels, mask, weights, masks=masks, **kw)
-        preds = torch_round_half_up(raw) if round_predictions else raw
+        preds = raw if prediction_fn is None else prediction_fn(raw)
+        if round_predictions:
+            preds = torch_round_half_up(preds)
         stats = batch_stats(labels, preds, mask)
         q = None
         if quality:
             q = quality_vector(
-                weights, w_new, residual=(raw - labels) * mask, preds=preds,
+                weights, w_new, residual=residual_fn(raw, labels) * mask, preds=preds,
                 labels=labels, mask=mask, numeric=numeric,
                 token_idx=token_idx, token_val=token_val,
             )
         return w_new, StepOutput(predictions=preds, quality=q, **stats)
 
     train_step.route = route
+    # the sampled route's cached mask sets (a CUDA graph that reads one
+    # holds a reference to it)
+    train_step.masks_by_rows = masks_by_rows
     return train_step
 
 
@@ -267,6 +300,13 @@ def zero_weights(num_text_features: int, dtype=torch.float32, device="cuda"):
         (num_text_features + NUM_NUMBER_FEATURES,), dtype=dtype,
         device=resolve_device(device),
     )
+
+
+def _host_tensor(a: np.ndarray) -> torch.Tensor:
+    """A host array as a CPU tensor sharing its memory; uint16 as int16."""
+    if a.dtype == np.uint16:
+        a = a.view(np.int16)
+    return torch.from_numpy(np.ascontiguousarray(a))
 
 
 def batch_to_device(batch, device, non_blocking: bool = True):
@@ -283,11 +323,7 @@ def batch_to_device(batch, device, non_blocking: bool = True):
     uint16 has few kernels."""
 
     def move(a: np.ndarray) -> torch.Tensor:
-        if a.dtype == np.uint16:
-            a = a.view(np.int16)
-        return torch.from_numpy(np.ascontiguousarray(a)).to(
-            device, non_blocking=non_blocking
-        )
+        return _host_tensor(a).to(device, non_blocking=non_blocking)
 
     if isinstance(batch, PackedBatch):
         return PackedBatch(move(batch.buffer), batch.layout)
@@ -302,19 +338,23 @@ def batch_to_device(batch, device, non_blocking: bool = True):
 
 class HostOutput:
     """A StepOutput on its way to the host: ONE device-to-host copy of the
-    predictions [B], the 4 stats and the quality vector, packed into one
-    f32 vector (f64 for a float64 step), into page-locked memory, with one CUDA event recorded after
-    it. ``done()`` asks the event without blocking; ``wait()`` blocks on it;
-    ``result()`` (after ``done()``) is the StepOutput of numpy arrays, bit
-    for bit the device values. On the CPU the result is ready at once."""
+    predictions, the 4 stats and the quality vector, packed into one f32
+    vector (f64 for a float64 step), into page-locked memory, with one CUDA
+    event recorded after it. ``done()`` asks the event without blocking;
+    ``wait()`` blocks on it; ``result()`` (after ``done()``) is the
+    StepOutput of numpy arrays, bit for bit the device values: a [K]-leading
+    one for a group (``step_many``'s output, ``groups`` = K). On the CPU the
+    result is ready at once."""
 
-    __slots__ = ("_host", "_event", "_rows", "_has_quality")
+    __slots__ = ("_host", "_event", "_rows", "_has_quality", "_groups")
 
-    def __init__(self, host: torch.Tensor, event, rows: int, has_quality: bool):
+    def __init__(self, host: torch.Tensor, event, rows: int, has_quality: bool,
+                 groups: int = 0):
         self._host = host
         self._event = event
         self._rows = rows
         self._has_quality = has_quality
+        self._groups = groups
 
     def done(self) -> bool:
         return self._event is None or self._event.query()
@@ -326,41 +366,107 @@ class HostOutput:
     def result(self) -> StepOutput:
         v = self._host.numpy()
         b = self._rows
+        if not self._groups:
+            return StepOutput(
+                predictions=v[:b], count=v[b], mse=v[b + 1], real_stdev=v[b + 2],
+                pred_stdev=v[b + 3],
+                quality=v[b + 4:].astype(np.float32) if self._has_quality else None,
+            )
+        k = self._groups
+        stats = v[k * b:k * b + 4 * k].reshape(4, k)
         return StepOutput(
-            predictions=v[:b], count=v[b], mse=v[b + 1], real_stdev=v[b + 2],
-            pred_stdev=v[b + 3],
-            quality=v[b + 4:].astype(np.float32) if self._has_quality else None,
+            predictions=v[:k * b].reshape(k, b), count=stats[0], mse=stats[1],
+            real_stdev=stats[2], pred_stdev=stats[3],
+            quality=(v[k * b + 4 * k:].reshape(k, -1).astype(np.float32)
+                     if self._has_quality else None),
         )
 
 
 def fetch_output(out: StepOutput) -> HostOutput:
-    """Start the host fetch of a device StepOutput: one device-side
+    """Start the host fetch of a device StepOutput, one batch's or a
+    group's ([K]-leading fields, from ``step_many``): one device-side
     concatenation, one non-blocking D2H copy into pinned memory and one
     event on the current stream, no host sync. Calling it again on the
     same output issues a fresh copy of the still-resident tensors."""
+    groups = out.predictions.shape[0] if out.predictions.dim() == 2 else 0
     parts = [out.predictions.reshape(-1),
-             torch.stack([out.count, out.mse, out.real_stdev, out.pred_stdev])]
+             torch.stack([out.count, out.mse, out.real_stdev, out.pred_stdev]).reshape(-1)]
     if out.quality is not None:
         parts.append(out.quality.reshape(-1))
     # float64 steps keep their stats in float64, as the JAX package's x64
     # step returns them; every other type fits float32 exactly
     kind = torch.float64 if out.predictions.dtype == torch.float64 else torch.float32
     vec = torch.cat([p.to(kind) for p in parts])
-    rows = out.predictions.numel()
+    rows = out.predictions.shape[-1]
     if vec.device.type != "cuda":
-        return HostOutput(vec, None, rows, out.quality is not None)
+        return HostOutput(vec, None, rows, out.quality is not None, groups)
     host = torch.empty(vec.shape, dtype=kind, pin_memory=True)
     host.copy_(vec, non_blocking=True)
     event = torch.cuda.Event()
     event.record()
-    return HostOutput(host, event, rows, out.quality is not None)
+    return HostOutput(host, event, rows, out.quality is not None, groups)
+
+
+def _batch_at(stacked, i: int):
+    """Batch ``i`` of a stacked batch ([K]-leading fields)."""
+    if isinstance(stacked, RaggedUnitBatch):
+        return RaggedUnitBatch(stacked.units[i], stacked.offsets[i], stacked.numeric[i],
+                               stacked.label[i], stacked.mask[i], row_len=stacked.row_len)
+    return type(stacked)(*(a[i] for a in stacked))
+
+
+def _stack_outputs(outs: list) -> StepOutput:
+    """K StepOutputs as one with [K]-leading fields."""
+    return StepOutput(*(
+        None if fields[0] is None else torch.stack(fields) for fields in zip(*outs)
+    ))
+
+
+def _wire_fields(batch) -> list:
+    """The arrays (host) or tensors (device) a wire batch carries, in order."""
+    if isinstance(batch, PackedBatch):
+        return [batch.buffer]
+    if isinstance(batch, RaggedUnitBatch):
+        return [batch.units, batch.offsets, batch.numeric, batch.label, batch.mask]
+    return list(batch)
+
+
+def wire_signature(batch) -> tuple:
+    """What fixes a step_many program: the wire's type, its layout or
+    ragged row length, and every field's shape and dtype."""
+    static = (batch.layout if isinstance(batch, PackedBatch)
+              else batch.row_len if isinstance(batch, RaggedUnitBatch) else None)
+    return (type(batch).__name__, static) + tuple(
+        (tuple(a.shape), str(a.dtype)) for a in _wire_fields(batch))
+
+
+class _GroupGraph:
+    """One captured step_many: the device buffers the graph reads (the
+    wire's fields, the incoming weights) and writes (the new weights, the
+    K outputs), the fused-kernel launches one replay makes, and what the
+    graph reads that the model caches (the sampled route's masks)."""
+
+    __slots__ = ("graph", "wire", "w_in", "w_out", "outs", "launches", "keep")
+
+    def __init__(self, graph, wire, w_in, w_out, outs, launches, keep):
+        self.graph = graph
+        self.wire = wire
+        self.w_in = w_in
+        self.w_out = w_out
+        self.outs = outs
+        self.launches = launches
+        self.keep = keep
 
 
 class StreamingSGDModel:
-    """Shared surface of the streaming SGD learners: weights on the model's
-    device (updated each step), the fused step, conf plumbing. Subclasses
-    set ``round_predictions`` and ``default_step_size``."""
+    """Shared surface of the streaming SGD learners (linear, logistic):
+    weights on the model's device (updated each step), the fused step, the
+    K-step ``step_many``, conf plumbing. Subclasses set the three gradient
+    knobs (``residual_fn``, ``prediction_fn``, ``round_predictions``) and
+    ``default_step_size``."""
 
+    residual_fn = None  # least squares when None
+    prediction_fn = None  # identity when None
     round_predictions = True
     default_step_size = 0.1
 
@@ -386,6 +492,8 @@ class StreamingSGDModel:
             mini_batch_fraction=mini_batch_fraction,
             l2_reg=l2_reg,
             convergence_tol=convergence_tol,
+            residual_fn=type(self).residual_fn,
+            prediction_fn=type(self).prediction_fn,
             round_predictions=self.round_predictions,
             quality=quality,
             dtype=dtype,
@@ -403,6 +511,8 @@ class StreamingSGDModel:
         self.stream = (
             torch.cuda.current_stream(self.device) if self.device.type == "cuda" else None
         )
+        # step_many's captured graphs by (wire signature, K), oldest first
+        self._graphs: dict = {}
 
     @classmethod
     def from_conf(cls, conf, **overrides):
@@ -476,5 +586,81 @@ class StreamingSGDModel:
 
     @staticmethod
     def fetch_output(out: StepOutput) -> HostOutput:
-        """Start the host fetch of ``step``'s output (``fetch_output``)."""
+        """Start the host fetch of ``step``'s or ``step_many``'s output
+        (``fetch_output``)."""
         return fetch_output(out)
+
+    def _train_many(self, weights, wire):
+        """The K steps of a device wire: a packed group or stack unpacks
+        first (its [K]-leading fields), then batch k steps with the weights
+        batch k - 1 left. Returns (new weights, [K]-leading StepOutput)."""
+        if isinstance(wire, PackedBatch):
+            wire = unpack_batch(wire.buffer, wire.layout)
+        outs = []
+        for i in range(wire.mask.shape[0]):
+            weights, out = self._train_step(weights, _batch_at(wire, i))
+            outs.append(out)
+        return weights, _stack_outputs(outs)
+
+    def step_many(self, stacked) -> StepOutput:
+        """K micro-batch steps as ONE dispatch (the JAX package's
+        ``step_many``): ``stacked`` is a host batch whose fields carry a
+        leading [K] axis (``stack_batches``) or a packed group
+        (``pack_ragged_group``). The weights chain through the K steps
+        exactly as K ``step`` calls would: the final weights and every
+        batch's outputs are bitwise theirs. Returns the StepOutput with a
+        leading [K] axis, on the device, nothing waited for.
+
+        On ``cuda`` the K steps of a (wire signature, K) are a CUDA graph:
+        the first group of a signature runs eagerly and is then captured;
+        each later one copies its bytes into the graph's own device buffers
+        (one H2D copy for a packed group) and the incoming weights into its
+        input, replays, and takes the new weights and outputs out of the
+        graph's buffers (two device copies), so the next replay may
+        overwrite them. The fused kernel's launches a replay makes are
+        added to ``fused_dense_sgd.launches`` at each replay."""
+        if self.device.type != "cuda":
+            self._weights, out = self._train_many(
+                self._weights, batch_to_device(stacked, self.device, self.non_blocking))
+            return out
+        key = wire_signature(stacked)
+        entry = self._graphs.get(key)
+        if entry is None:
+            self._weights, out = self._train_many(
+                self._weights, batch_to_device(stacked, self.device, self.non_blocking))
+            self._capture(key, stacked)
+            return out
+        entry.w_in.copy_(self._weights)
+        for dst, src in zip(_wire_fields(entry.wire), _wire_fields(stacked)):
+            dst.copy_(_host_tensor(src), non_blocking=self.non_blocking)
+        entry.graph.replay()
+        fused_sgd.fused_dense_sgd.launches += entry.launches
+        self._weights = entry.w_out.clone()
+        return StepOutput(*(None if t is None else t.clone() for t in entry.outs))
+
+    def _capture(self, key, stacked) -> None:
+        """Capture the K steps of ``stacked``'s signature into a CUDA graph
+        on a side stream (the graph's intermediates in its own memory pool)
+        and keep it; the oldest of ``_GRAPH_CACHE_SIZE`` graphs goes."""
+        wire = batch_to_device(stacked, self.device, self.non_blocking)
+        w_in = torch.empty_like(self._weights)
+        graph = torch.cuda.CUDAGraph()
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        # the wrapper's counters, on the function itself (a caller may have
+        # wrapped the name this module calls)
+        counter = fused_sgd.fused_dense_sgd
+        captured = counter.captured
+        with torch.cuda.stream(side):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                w_out, outs = self._train_many(w_in, wire)
+            finally:
+                graph.capture_end()
+        current.wait_stream(side)
+        if len(self._graphs) >= _GRAPH_CACHE_SIZE:
+            self._graphs.pop(next(iter(self._graphs)))
+        self._graphs[key] = _GroupGraph(
+            graph, wire, w_in, w_out, outs, counter.captured - captured,
+            tuple(self._train_step.masks_by_rows.values()))

@@ -5,7 +5,10 @@ and its plain PyTorch twin (counterpart of ``twtml_tpu/ops/pallas_sgd.py``).
 predict with the pre-update weights, then run MLlib's GradientDescent loop
 (1-indexed stepSize/sqrt(i), L2 pre-scale, zero-count skip, converged
 freeze) on a dense [B, F] batch. X is stored in bf16 (the bigram counts are
-small integers, exact in bf16); w, r, g and every sum stay in f32.
+small integers, exact in bf16); w, r, g and every sum stay in f32. The
+residual is a compile-time mode of the kernel: least squares (r = x·w − y)
+or logistic (r = σ(x·w) − y, the logistic learner's); the predictions are
+the raw margin X·w0 in both.
 
 The kernel (``csrc/fused_sgd.cu``, whose header gives the design) is one
 persistent cooperative launch a call: it reads the caller's f32 X from
@@ -19,7 +22,10 @@ Routing: a CPU tensor goes to the twin ``fused_dense_sgd_reference``; a CUDA
 tensor launches the kernel or raises. ``fused_dense_sgd.launches`` counts
 the calls that launched the kernel; ``fused_dense_sgd.last_iterations`` is
 a device scalar holding the iterations the last launch ran (read it only
-when a sync is acceptable).
+when a sync is acceptable). A call made while the current stream is being
+captured into a CUDA graph launches nothing then: it counts into
+``fused_dense_sgd.captured`` instead, and whoever replays the graph adds
+those to ``launches`` at each replay (models/sgd.py ``step_many``).
 """
 
 from __future__ import annotations
@@ -47,6 +53,26 @@ NVCC_DEFINES = tuple(
         ("REDUCE_SLOTS", REDUCE_SLOTS), ("SCRATCH_FLOATS", SCRATCH_FLOATS),
     )
 )
+
+
+def least_squares_residual(raw, label):
+    """MLlib's LeastSquaresGradient multiplier: x·w − y."""
+    return raw - label
+
+
+def logistic_residual(raw, label):
+    """MLlib's LogisticGradient multiplier: σ(x·w) − y."""
+    return torch.sigmoid(raw) - label
+
+
+# the kernel's residual modes: the C entry's ``residual_mode`` of each
+RESIDUAL_MODES = {least_squares_residual: 0, logistic_residual: 1}
+
+
+def residual_mode(residual_fn) -> "int | None":
+    """The kernel mode that computes ``residual_fn`` (None: least squares),
+    or None when the kernel has no mode for it."""
+    return RESIDUAL_MODES.get(residual_fn or least_squares_residual)
 
 
 def padded_columns(num_features: int) -> int:
@@ -149,11 +175,15 @@ def launch_plan(batch_rows: int, num_features: int, *, sm_count: int,
 def fused_dense_sgd_reference(
     x_dense, labels, mask, weights, *, num_iterations: int, step_size: float,
     l2_reg: float = 0.0, convergence_tol: float = 0.001,
+    residual_fn=least_squares_residual,
 ):
     """The plain PyTorch twin: the kernel's function on the same
-    bf16-rounded X in f32 arithmetic, summing in torch's order. Masked rows
-    and labels are zeroed with ``where`` (NaN * 0 would poison the
-    gradient). Returns (new_weights [F], raw_predictions [B])."""
+    bf16-rounded X in f32 arithmetic, summing in torch's order, with the
+    residual ``residual_fn`` (a key of ``RESIDUAL_MODES``: the logistic
+    one through ``torch.sigmoid``). Masked rows and labels are zeroed with
+    ``where`` (NaN * 0 would poison the gradient); a zeroed row adds
+    nothing to Xᵀr whatever its residual. Returns (new_weights [F],
+    raw_predictions [B])."""
     from ..models.sgd import sgd_inner_loop  # the one home of the MLlib rule
 
     keep = mask > 0
@@ -163,8 +193,10 @@ def fused_dense_sgd_reference(
     w0 = weights.float()
     preds = x @ w0
 
+    residual = residual_fn or least_squares_residual
+
     def grad_and_count(w, _it):
-        return x.T @ (x @ w - y), count
+        return x.T @ residual(x @ w, y), count
 
     w = sgd_inner_loop(
         w0,
@@ -185,6 +217,7 @@ KERNEL_ARGTYPES = (
     + [ctypes.POINTER(ctypes.c_int)]  # the plan's smem_layout
     + [ctypes.c_int]  # iterations
     + [ctypes.c_float] * 3  # step_size, l2_reg, tol
+    + [ctypes.c_int]  # residual_mode
     + [ctypes.c_void_p]  # stream
 )
 
@@ -223,17 +256,18 @@ def _layout_arg(smem_layout: tuple[int, ...]):
 
 def kernel_args(plan: LaunchPlan, x_dense, labels, mask, weights, w_out, preds,
                 spill, scratch, *, num_iterations: int, step_size: float,
-                l2_reg: float, convergence_tol: float) -> tuple:
+                l2_reg: float, convergence_tol: float, mode: int = 0) -> tuple:
     """The C entry's arguments for one launch on the current stream, with
     the buffers ``plan`` asks for (``spill_elements`` bf16,
-    ``scratch_floats`` f32) on the current device."""
+    ``scratch_floats`` f32) on the current device, in residual ``mode``
+    (``RESIDUAL_MODES``)."""
     return (
         x_dense.data_ptr(), labels.data_ptr(), mask.data_ptr(), weights.data_ptr(),
         w_out.data_ptr(), preds.data_ptr(), spill.data_ptr(), scratch.data_ptr(),
         plan.rows, x_dense.shape[1], plan.fpad, plan.grid, plan.rows_cap, plan.resident,
         plan.spill_per_cta, plan.shared_bytes, _layout_arg(plan.smem_layout),
         int(num_iterations), float(step_size), float(l2_reg), float(convergence_tol),
-        torch.cuda.current_stream().cuda_stream,
+        int(mode), torch.cuda.current_stream().cuda_stream,
     )
 
 
@@ -253,16 +287,23 @@ def call_kernel(plan: LaunchPlan, args: tuple) -> None:
 def fused_dense_sgd(
     x_dense, labels, mask, weights, *, num_iterations: int, step_size: float,
     l2_reg: float = 0.0, convergence_tol: float = 0.001,
+    residual_fn=least_squares_residual,
 ):
     """Run the fused loop on a dense [B, F] batch; ``weights`` is the flat
-    [F] vector. Returns (new_weights [F], raw_predictions [B]), where the
-    predictions use the pre-update weights. On CUDA every tensor must be
-    contiguous float32 on one device."""
+    [F] vector; ``residual_fn`` picks the kernel's residual mode
+    (``RESIDUAL_MODES``; None is least squares). Returns (new_weights [F],
+    raw_predictions [B]), where the predictions use the pre-update weights.
+    On CUDA every tensor must be contiguous float32 on one device."""
+    mode = residual_mode(residual_fn)
+    if mode is None:
+        raise ValueError(f"fused_dense_sgd has no residual mode for {residual_fn!r}; "
+                         f"it computes {[f.__name__ for f in RESIDUAL_MODES]}")
     dev = x_dense.device
     if dev.type == "cpu":
         return fused_dense_sgd_reference(
             x_dense, labels, mask, weights, num_iterations=num_iterations,
             step_size=step_size, l2_reg=l2_reg, convergence_tol=convergence_tol,
+            residual_fn=residual_fn,
         )
     if dev.type != "cuda":
         raise ValueError(f"fused_dense_sgd takes cpu or cuda tensors, got {dev}")
@@ -295,12 +336,16 @@ def fused_dense_sgd(
         call_kernel(plan, kernel_args(
             plan, x_dense, labels, mask, weights, w, preds, spill, scratch,
             num_iterations=num_iterations, step_size=step_size, l2_reg=l2_reg,
-            convergence_tol=convergence_tol,
+            convergence_tol=convergence_tol, mode=mode,
         ))
-    fused_dense_sgd.launches += 1
+        if torch.cuda.is_current_stream_capturing():
+            fused_dense_sgd.captured += 1  # launched by each replay of the graph
+        else:
+            fused_dense_sgd.launches += 1
     fused_dense_sgd.last_iterations = scratch[-1]
     return w, preds
 
 
 fused_dense_sgd.launches = 0
+fused_dense_sgd.captured = 0
 fused_dense_sgd.last_iterations = None

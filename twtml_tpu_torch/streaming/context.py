@@ -189,8 +189,10 @@ class _RowCountQueue(queue.Queue):
 
 
 class RawStream:
-    """A stream of raw Status lists; outputs fire per micro-batch in
-    registration order. ``row_bucket`` caps back-to-back drains."""
+    """A stream of raw Status lists, for apps that featurize on their own
+    (the k-means entry: a dense pair a retweet); outputs fire per
+    micro-batch in registration order. ``row_bucket`` caps back-to-back
+    drains."""
 
     def __init__(self, row_bucket: int = 0):
         self._outputs: list[Callable] = []
@@ -376,6 +378,16 @@ class StreamingContext:
         self._source = source
         self._stream = FeatureStream(featurizer, row_bucket, token_bucket, ragged,
                                      device_hash)
+        return self._stream
+
+    def raw_stream(self, source: Source, row_bucket: int = 0) -> RawStream:
+        """Attach the (single) source with no featurization: outputs receive
+        each micro-batch's Status list. ``row_bucket`` caps back-to-back
+        drains."""
+        if self._source is not None:
+            raise ValueError("StreamingContext supports one source stream")
+        self._source = source
+        self._stream = RawStream(row_bucket)
         return self._stream
 
     def _drain(self, limit: int = 0) -> list[Status]:

@@ -1,9 +1,11 @@
-"""Lightning visualization-server client, streaming line charts only
-(counterpart of ``twtml_tpu/telemetry/lightning.py``).
+"""Lightning visualization-server client, streaming charts (counterpart of
+``twtml_tpu/telemetry/lightning.py``).
 
 ``Lightning(host)`` creates its session lazily; ``line_streaming(series,
 size, color)`` creates a ``line-streaming`` visualization seeded with the
-series, and ``line_streaming(series, viz=viz)`` appends to it. Endpoints
+series, and ``line_streaming(series, viz=viz)`` appends to it;
+``scatter_streaming(x, y, label)`` does the same for the k-means app's
+``scatter-streaming`` cluster chart. Endpoints
 follow the public Lightning REST protocol: ``POST /sessions/``,
 ``POST /sessions/{id}/visualizations/``, ``POST /visualizations/{id}/data/``.
 Callers keep the reference's best-effort ``Try`` semantics.
@@ -48,6 +50,22 @@ class Lightning:
         self.session = str(out.get("id", ""))
         return self.session
 
+    def _create_or_append(self, viz_type: str, data: dict,
+                          viz: Visualization | None) -> Visualization:
+        """``viz=None`` creates a ``viz_type`` visualization seeded with
+        ``data`` (and the session, lazily); else appends ``data`` to it."""
+        if viz is not None:
+            self._post(f"/visualizations/{viz.id}/data/", {"data": data})
+            return viz
+        if not self.session:
+            self.create_session()
+        out = self._post(
+            f"/sessions/{self.session}/visualizations/",
+            {"type": viz_type, "data": data},
+        )
+        return Visualization(id=str(out.get("id", "")), session=self.session,
+                             host=self.host)
+
     def line_streaming(self, series, size=None, color=None,
                        viz: Visualization | None = None) -> Visualization:
         """Create (``viz=None``) or append to a streaming line chart."""
@@ -56,14 +74,13 @@ class Lightning:
             data["size"] = list(map(float, size))
         if color is not None:
             data["color"] = [list(map(float, c)) for c in color]
-        if viz is not None:
-            self._post(f"/visualizations/{viz.id}/data/", {"data": data})
-            return viz
-        if not self.session:
-            self.create_session()
-        out = self._post(
-            f"/sessions/{self.session}/visualizations/",
-            {"type": "line-streaming", "data": data},
-        )
-        return Visualization(id=str(out.get("id", "")), session=self.session,
-                             host=self.host)
+        return self._create_or_append("line-streaming", data, viz)
+
+    def scatter_streaming(self, x, y, label=None,
+                          viz: Visualization | None = None) -> Visualization:
+        """Create (``viz=None``) or append to a streaming scatter plot, with
+        per-point integer labels (the cluster chart)."""
+        data: dict = {"x": list(map(float, x)), "y": list(map(float, y))}
+        if label is not None:
+            data["label"] = list(map(int, label))
+        return self._create_or_append("scatter-streaming", data, viz)
