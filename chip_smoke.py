@@ -23,6 +23,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
                at the same shapes: the narrow pass, count 0, a ragged last
                CTA with rows spilled, the tiled wide pass (NaN/Inf in masked
                rows bitwise ignored) and the operating point;
+ 3b. kernel  — the sparse regime's Gram route (``ops/fused_gram.py``) at
+               F = 2^18 against its plain twins on the card: B4's counts and
+               the G product bitwise at a row mass of 127 (int8 counts,
+               ``torch._int_mm``), 128 and 255 (f32 counts), fractional
+               values within rtol 1e-6; B7 (the dual loop, one cooperative
+               launch) at B = 1, 16, 2048, 3072 and 4096 (G spilled to L2),
+               count 0, the logistic mode, ``-b 0.5`` masks, tolerance 0 and
+               0.001 with the twin's iterations run, NaN/Inf in masked rows
+               bitwise ignored, within rtol 1e-4 / atol 1e-5; B8 (the
+               write-back) within rtol 2e-4 of its twin and of the
+               per-occurrence scatter; each rerun bitwise equal;
   4. main    — the flagship app (``apps/linear_regression.run``, its
                streaming context and fetch pipeline, ``--seconds 0
                --batchBucket 16384``) on cuda for 4 full-width synthetic
@@ -128,16 +139,27 @@ Phases, in order; any failure ends the run with a non-zero exit:
                pre-filled source against the ``--backend cpu`` twin:
                assignments and sizes equal, centers and weights within
                1e-5;
- 18. times   — at the operating point: the launch plan (grid, rows resident
+ 18. sparse  — BASELINE config #4 through the app: ``--numTextFeatures
+               262144 --l2Reg 0.1 --batchBucket 2048``, 4 back-to-back
+               batches on the ragged packed wire at depth 8 under the
+               sync-debug mode, B4, B7 and B8 launched 4 + 1 times each and B1
+               never, weights, stats and predictions (but HALF_UP flips) held
+               against the card's scatter route and the ``--backend cpu``
+               twin; one batch at B = 16384 (over the gate: the scatter loop)
+               against its CPU twin; whether the card's scatter loop reruns
+               bitwise; where a Gram step's time goes (gather predict, B4, the
+               G product, B7, B8, quality; device busy, idle, launches);
+ 19. times   — at the operating point: the launch plan (grid, rows resident
                and spilled, shared memory, registers from ptxas), kernel,
                prologue and per-iteration times, the twin, the bound; each
                wire's featurize by sub-stage, bytes and H2D copy; and where
                a step's time goes on each wire; the logistic mode's kernel
-               time (50 iterations), twin and bound.
+               time (50 iterations), twin and bound; B4, the G product, B7
+               and B8 at config #4's operating point (B = 2048, F = 2^18).
 No app run publishes anywhere but the loopback recorder and, in the web
 phase, the port's own server on a loopback port. The line before
 the last is the kernels' JSON record (B1's least-squares and logistic
-modes); the last line is ``{"ok": true, "device": {...}}``.
+modes, B4, B7 and B8); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -504,6 +526,218 @@ def sm_limits():
     return {"sm_count": sm_count, "shared_limit": shared_limit}
 
 
+# ---- phase 3b: the Gram route's kernels against their twins --------------
+
+GRAM_F = 2**18  # BASELINE config #4's HashingTF width
+GRAM_ROWS = 2048  # its operating point (tools/bench_suite.py)
+# weights against the scatter route and the CPU twin: the JAX package's own
+# Gram-vs-scatter tolerance (tests/test_gram_sgd.py), scaled by max(1, max|w|)
+WEIGHT_RTOL = 2e-4
+GRAM_EXACT_RTOL = 1e-6  # the exact plane's G (f32 products in another order)
+
+
+def gram_tokens(rng, rows, peak, fractional=False, terms=40, tokens=48):
+    """[rows, tokens] (idx int32, val f32) pairs at F = 2^18: ``terms``
+    tweet-like tokens of value 1 or 2 a row, the rest padding (idx 0, val
+    0); row 0's first two tokens are feature 7 with values summing to
+    ``peak`` (its absolute mass is ``peak`` plus its other terms' unless
+    ``peak`` rules it), and row 1 holds feature 7 once (G[0, 1] witnesses a
+    count that wrapped). ``fractional`` scales every value by 0.37."""
+    import numpy as np
+
+    idx = np.zeros((rows, tokens), np.int32)
+    val = np.zeros((rows, tokens), np.float32)
+    idx[:, :terms] = rng.integers(0, GRAM_F, size=(rows, terms))
+    val[:, :terms] = rng.integers(1, 3, size=(rows, terms))
+    if peak:
+        idx[0, :] = 0
+        val[0, :] = 0.0
+        idx[0, :2] = 7
+        val[0, :2] = (peak - peak // 2, peak // 2)
+        idx[1, 0], val[1, 0] = 7, 1.0
+    if fractional:
+        val *= 0.37
+    return idx, val
+
+
+def gram_kernel_phase():
+    """B4 and the G product, B7 and B8 on the card against their plain
+    twins, each rerun bitwise equal. B4 + G: bitwise at a row mass of 127
+    (the int8 plane: s8 counts, ``torch._int_mm``), 128 and 255 (f32 counts,
+    an f32 matmul), fractional values within GRAM_EXACT_RTOL. B7: B = 1, 16,
+    2048, 3072 and 4096 (G spilled to L2), count 0, the logistic mode, ``-b
+    0.5`` masks, tolerance 0 and 0.001 with the same iterations run, NaN/Inf
+    in masked rows bitwise ignored; within RTOL/ATOL. B8: within WEIGHT_RTOL
+    of the scatter write-back and of its twin."""
+    import numpy as np
+    import torch
+
+    from twtml_tpu_torch.models.sgd import sampling_masks
+    from twtml_tpu_torch.ops import fused_gram, gram
+    from twtml_tpu_torch.ops.fused_sgd import logistic_residual
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2026)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    errs = {"count_build": 0.0, "dual_sgd": 0.0, "dual_writeback_counts": 0.0}
+    cases = []
+    counts_int8 = None
+    for name, peak, fractional in (("row mass 127", 127, False), ("row mass 128", 128, False),
+                                   ("row mass 255", 255, False), ("fractional", 0, True)):
+        idx, val = gram_tokens(rng, GRAM_ROWS, peak, fractional)
+        idx_t, val_t = to(idx), to(val)
+        plane = gram.data_plane(val_t)
+        int8 = plane == gram.PLANE_INT8
+        c = fused_gram.count_build(idx_t, val_t, GRAM_F, int8=int8)
+        again = fused_gram.count_build(idx_t, val_t, GRAM_F, int8=int8)
+        ref = fused_gram.count_build_reference(idx_t, val_t, GRAM_F, int8=int8,
+                                               rows_out=c.shape[0], cols_out=c.shape[1])
+        g = fused_gram.gram_from_counts(c)[:GRAM_ROWS, :GRAM_ROWS]
+        g_ref = gram.text_gram(idx_t, val_t, GRAM_F, plane=plane)
+        torch.cuda.synchronize()
+        if not torch.equal(c, again):
+            raise AssertionError(f"count_build {name}: reruns are not bitwise equal")
+        counts_bitwise = torch.equal(c, ref)
+        if plane == gram.PLANE_EXACT:
+            err = (c.float() - ref.float()).abs().max().item()
+            if err > GRAM_EXACT_RTOL * ref.float().abs().max().item():
+                raise AssertionError(f"count_build {name}: counts differ by {err:.3e}")
+            g_err = ((g - g_ref).abs() / g_ref.abs().clamp(min=1e-30)).max().item()
+            if not g_err <= GRAM_EXACT_RTOL:
+                raise AssertionError(f"G {name}: relative error {g_err:.3e} > "
+                                     f"{GRAM_EXACT_RTOL}")
+            errs["count_build"] = max(errs["count_build"], err)
+        else:
+            if not counts_bitwise:
+                raise AssertionError(f"count_build {name}: counts differ from the twin")
+            if not torch.equal(g, g_ref):
+                raise AssertionError(f"G {name} ({gram.PLANE_NAMES[plane]} plane): differs "
+                                     f"from the exact product by "
+                                     f"{(g - g_ref).abs().max().item():.3e}")
+            g_err = 0.0
+        if peak and float(g[0, 1]) != float(peak):
+            raise AssertionError(f"G {name}: G[0, 1] = {float(g[0, 1])}, want {peak}")
+        if int8 and counts_int8 is None:
+            counts_int8 = (idx_t, val_t, c)
+        phase("kernel", f"count_build + G {name}: B={GRAM_ROWS} F={GRAM_F} L={idx.shape[1]}, "
+              f"{gram.PLANE_NAMES[plane]} plane ({c.dtype} counts {tuple(c.shape)}); counts "
+              f"{'bitwise equal to' if counts_bitwise else 'within rtol 1e-6 of'} the twin, G "
+              f"{'bitwise equal to' if g_err == 0 else f'within {g_err:.2e} of'} the exact "
+              f"product; rerun bitwise equal")
+        cases.append(f"count_build + G {name}")
+        del c, again, ref, g, g_ref
+
+    # ---- B7: the dual loop
+    def dual_inputs(rows, n_valid, terms=40, cols=4096):
+        z = np.zeros((rows, cols), np.float32)
+        np.add.at(z, (np.arange(rows)[:, None], rng.integers(0, cols, size=(rows, terms))),
+                  1.0)
+        num = (rng.normal(size=(rows, 4)) * 0.1).astype(np.float32)
+        zt, nt = to(z), to(num)
+        g = zt @ zt.T + nt @ nt.T
+        u = to((rng.normal(size=rows) * 10).astype(np.float32))
+        y = to(rng.uniform(50, 900, size=rows).astype(np.float32))
+        mask = to((rng.permutation(rows) < n_valid).astype(np.float32))
+        return g, u, y, mask
+
+    def dual_case(name, g, u, y, mask, dirty=False, **kw):
+        kw = dict(dict(num_iterations=OP_ITERS, step_size=0.005, l2_reg=0.1,
+                       convergence_tol=0.001, p_prev=torch.tensor(3.0, device=dev)), **kw)
+        c, a, its = fused_gram.dual_sgd(g, u, y, mask, **kw)
+        c2, a2, its2 = fused_gram.dual_sgd(g, u, y, mask, **kw)
+        c_r, a_r, its_r = fused_gram.dual_sgd_reference(g, u, y, mask, **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(a, a2) and torch.equal(c, c2) and int(its) == int(its2)):
+            raise AssertionError(f"dual_sgd {name}: reruns are not bitwise equal")
+        if int(its) != int(its_r):
+            raise AssertionError(f"dual_sgd {name}: {int(its)} iterations run, the twin "
+                                 f"{int(its_r)}")
+        ea, ra = compare(f"dual_sgd {name} alpha", a, a_r)
+        ec, _ = compare(f"dual_sgd {name} c", c.reshape(1), c_r.reshape(1))
+        note = "rerun bitwise equal"
+        if dirty:
+            keep = mask > 0
+            both = keep[:, None] & keep[None, :]
+            b = mask.shape[0]
+            g_d = g.clone()
+            g_d[:b, :b] = torch.where(both, g[:b, :b], float("nan"))
+            u_d = torch.where(keep, u, float("nan"))
+            y_d = torch.where(keep, y, float("inf"))
+            c_d, a_d, its_d = fused_gram.dual_sgd(g_d, u_d, y_d, mask, **kw)
+            if not (torch.equal(a, a_d) and torch.equal(c, c_d) and int(its) == int(its_d)):
+                raise AssertionError(f"dual_sgd {name}: NaN/Inf in masked rows reached "
+                                     "the result")
+            note += f"; NaN/Inf in {int((~keep).sum())} masked rows: bitwise equal"
+        plan = fused_gram.dual_plan(mask.shape[0], **sm_limits())
+        phase("kernel", f"dual_sgd {name}: B={mask.shape[0]} grid {plan.grid}, "
+              f"{plan.resident_rows} rows of G resident, {plan.spill_rows} spilled; "
+              f"{int(its)} iterations run (twin {int(its_r)}); max abs err alpha {ea:.3e} "
+              f"(rel {ra:.3e}) c {ec:.3e}; {note}")
+        errs["dual_sgd"] = max(errs["dual_sgd"], ea, ec)
+        cases.append(f"dual_sgd {name}")
+        return c, a, its
+
+    dual_case("B=1", *dual_inputs(1, 1))
+    dual_case("B=16", *dual_inputs(16, 12), dirty=True)
+    g, u, y, m = dual_inputs(GRAM_ROWS, GRAM_ROWS - 100)
+    dual_case("B=2048 tol 0.001", g, u, y, m, dirty=True)
+    # labels near the margins: the loop freezes early at tolerance 0.001
+    near = u + to((rng.normal(size=GRAM_ROWS) * 10).astype(np.float32))
+    _, _, its = dual_case("B=2048 tol 0.001 (freezes)", g, u, near, m, dirty=True)
+    if not 1 < int(its) < OP_ITERS:
+        raise AssertionError(f"dual_sgd freeze case: {int(its)} iterations run")
+    _, _, its = dual_case("B=2048 tol 0", g, u, y, m, convergence_tol=0.0)
+    if int(its) != OP_ITERS:
+        raise AssertionError(f"dual_sgd tol 0: {int(its)} iterations run")
+    masks = sampling_masks(GRAM_ROWS, OP_ITERS, 0.5, torch.float32, dev)
+    dual_case("B=2048 -b 0.5 masks", g, u, y, m, masks=masks, dirty=True)
+    dual_case("B=2048 logistic", g, u, (y > 475).float(), m, step_size=0.1,
+              residual_fn=logistic_residual, dirty=True)
+    c0, a0, _ = dual_case("count=0", g, u, y, torch.zeros_like(m))
+    if float(c0) != 1.0 or a0.any():
+        raise AssertionError("dual_sgd count=0: c must stay 1 and alpha 0")
+    del g
+    dual_case("B=3072 (G spilled)", *dual_inputs(3072, 3000), dirty=True)
+    dual_case("B=4096 (G spilled)", *dual_inputs(4096, 4000), dirty=True)
+
+    # ---- B8: the write-back, from the int8 case's counts and f32 counts
+    from twtml_tpu_torch.ops.gram import dual_writeback
+
+    idx_t, val_t, c8 = counts_int8
+    for name, counts, vals in (("int8 counts", c8, val_t),
+                               ("f32 counts", None, val_t * 0.37)):
+        if counts is None:
+            counts = fused_gram.count_build(idx_t, vals, GRAM_F, int8=False)
+        w = to((rng.normal(size=GRAM_F + 4) * 1e-2).astype(np.float32))
+        alpha = to((rng.normal(size=GRAM_ROWS) * 1e-3).astype(np.float32))
+        num = to((rng.normal(size=(GRAM_ROWS, 4)) * 0.1).astype(np.float32))
+        c = torch.tensor(0.97, device=dev)
+        got = fused_gram.dual_writeback_counts(w, c, alpha, counts, num, GRAM_F)
+        again = fused_gram.dual_writeback_counts(w, c, alpha, counts, num, GRAM_F)
+        twin = fused_gram.dual_writeback_reference(w, c, alpha, counts, num, GRAM_F)
+        text, numw = dual_writeback(w[:GRAM_F], w[GRAM_F:], c, alpha, idx_t, vals, num)
+        scatter = torch.cat([text, numw])
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"dual_writeback_counts {name}: reruns are not bitwise equal")
+        worst = 0.0
+        for what, want in (("twin", twin), ("scatter write-back", scatter)):
+            err = (got - want).abs()
+            atol = WEIGHT_RTOL * max(1.0, want.abs().max().item())
+            if (err > atol + WEIGHT_RTOL * want.abs()).any() or not torch.isfinite(got).all():
+                raise AssertionError(f"dual_writeback_counts {name}: {what} differs by "
+                                     f"{err.max().item():.3e}")
+            worst = max(worst, err.max().item())
+        errs["dual_writeback_counts"] = max(errs["dual_writeback_counts"], worst)
+        phase("kernel", f"dual_writeback_counts {name}: B={GRAM_ROWS} F={GRAM_F}; max abs "
+              f"err {worst:.3e} against its twin and the per-occurrence scatter "
+              f"(tolerance rtol {WEIGHT_RTOL}, atol {WEIGHT_RTOL}*max(1, max|w|)); rerun "
+              "bitwise equal")
+        cases.append(f"dual_writeback_counts {name}")
+    torch.cuda.synchronize()
+    return errs, cases
+
+
 # ---- phase 4/5/6: the main path on each wire --------------------------------
 
 def app_run(argv, max_batches=0, app_module=None, **kw):
@@ -537,14 +771,16 @@ class ErrorLog(logging.Handler):
 def recorded_app_run(argv, max_batches, source=None, blocking_copies=False,
                      sleep_before=None, expected_errors=(), expect_abort=False,
                      app_module=None, learner=None, **kw):
-    """One app run with the kernel's launch counter and the native counters
-    set to 0 just before it and read just after, recording what the run's
+    """One app run with the kernels' launch counters (B1's, and B4's, B7's
+    and B8's in ``rec["gram_launches"]``) and the native counters set to 0
+    just before it and read just after, recording what the run's
     model returned: the warm-up's output, each batch's StepOutput (device
     tensors), the iterations each fused call ran (device scalars, no sync),
     the host fetches started (``fetch_output`` calls, the warm-up's
     excluded), the weights each ``set_initial_weights`` installed and the
     final weights. ``source`` replaces the configured source;
-    ``blocking_copies`` makes every H2D copy synchronous; ``sleep_before``
+    ``blocking_copies`` makes every H2D copy synchronous; ``rec["planes"]``
+    holds each ``step``'s Gram plane (``model.planes``); ``sleep_before``
     {step: cycles} queues ``torch.cuda._sleep`` on the model's stream ahead
     of that step (step 1 is the first batch after the warm-up), so that
     later batches dispatch while it is still in flight. A run that logged an
@@ -563,10 +799,10 @@ def recorded_app_run(argv, max_batches, source=None, blocking_copies=False,
     from twtml_tpu_torch.features import native
     from twtml_tpu_torch.models import sgd as sgd_module
     from twtml_tpu_torch.models.linear import StreamingLinearRegressionWithSGD
-    from twtml_tpu_torch.ops import fused_sgd
+    from twtml_tpu_torch.ops import fused_gram, fused_sgd
 
     rec = {"outputs": [], "iterations": [], "fetches": 0, "restored": [], "raw": [],
-           "groups": 0}
+           "groups": 0, "planes": []}
     base_build, base_source = app.build_model, app.build_source
     base_cls = learner or StreamingLinearRegressionWithSGD
 
@@ -581,6 +817,7 @@ def recorded_app_run(argv, max_batches, source=None, blocking_copies=False,
                 torch.cuda._sleep(cycles)
             out = super().step(batch)
             rec["outputs"].append(out)
+            rec["planes"].append(self.planes(batch))
             rec["model"] = self
             return out
 
@@ -616,6 +853,8 @@ def recorded_app_run(argv, max_batches, source=None, blocking_copies=False,
     logging.getLogger("twtml_tpu_torch").addHandler(errors)
     try:
         fused_sgd.fused_dense_sgd.launches = 0
+        for fn in fused_gram.KERNELS:
+            fn.launches = 0
         native.reset_counters()
         t0 = time.perf_counter()
         try:
@@ -631,6 +870,7 @@ def recorded_app_run(argv, max_batches, source=None, blocking_copies=False,
         torch.cuda.synchronize()
         rec["wall_s"] = time.perf_counter() - t0
         rec["launches"] = fused_sgd.fused_dense_sgd.launches
+        rec["gram_launches"] = {fn.__name__: fn.launches for fn in fused_gram.KERNELS}
         rec["native"] = dict(native.COUNTERS)
     finally:
         logging.getLogger("twtml_tpu_torch").removeHandler(errors)
@@ -643,6 +883,7 @@ def recorded_app_run(argv, max_batches, source=None, blocking_copies=False,
             f"{r.getMessage()} {r.exc_text or ''}" for r in unexpected))
     # the first step is the pre-stream warm-up's all-padding batch
     rec["warmup"], rec["outputs"] = rec["outputs"][0], rec["outputs"][1:]
+    rec["planes"] = rec["planes"][1:]  # each step's Gram plane (() off the Gram route)
     rec["iterations"] = rec["iterations"][1:]
     rec["raw"] = rec["raw"][1:]
     rec["fetches"] -= 1  # the warm-up's
@@ -2380,6 +2621,477 @@ def kmeans_phase(smi):
     return {"centers_err": c_err, "weights_err": w_err, "seconds": wall}
 
 
+# ---- the 2^18 sparse regime (BASELINE config #4) ----------------------------
+
+SPARSE_BATCHES = 4
+SPARSE_ARGV = ["--source", "synthetic", "--seconds", "0", "--batchBucket", str(GRAM_ROWS),
+               "--numTextFeatures", str(GRAM_F), "--l2Reg", "0.1", "--maxQueueRows", "-1"]
+GATE_MISS_ROWS = 16384  # 16384 x 2^18 x 4 B = 16 GiB of f32 counts: over the gate
+INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak
+
+
+# tweet-length rows for the f32-count planes: each batch's (shortest,
+# longest) row in code units. A row of n units holds n - 1 bigrams, so the
+# longest row picks the plane: 256 units (mass 255) bf16, 280 exact, 128
+# (mass 127) int8
+LONG_SPANS = ((140, 256), (140, 280), (100, 128), (140, 280))
+LONG_PLANES = ("bf16", "exact", "int8", "exact")
+
+
+def long_statuses(spans, rows, seed):
+    """``rows`` retweets for each (shortest, longest) span of code units in
+    ``spans``: ASCII text cut from a seeded stream of words of 2-9 letters
+    and digits, each row's length uniform in its span and each batch's first
+    row at the longest (which fixes the batch's plane); the retweet count
+    linear in followers and text length, as SyntheticSource makes it."""
+    import numpy as np
+
+    from twtml_tpu_torch.features.featurizer import Status
+
+    rng = np.random.default_rng(seed)
+    chars = np.array(list("abcdefghijklmnopqrstuvwxyz0123456789"))
+    vocab = ["".join(rng.choice(chars, size=int(n))) for n in rng.integers(2, 10, 4096)]
+    corpus = " ".join(vocab[i] for i in rng.integers(0, len(vocab), 40_000).tolist())
+    out = []
+    for lo, hi in spans:
+        lengths = rng.integers(lo, hi + 1, rows)
+        lengths[0] = hi
+        starts = rng.integers(0, len(corpus) - hi, rows)
+        followers = rng.integers(100, 2_000_000, rows)
+        noise = rng.normal(0, 20, rows)
+        ages = rng.integers(0, 86_400_000, rows)
+        for n, at, fo, e, age in zip(lengths, starts, followers, noise, ages):
+            text = corpus[at:at + n]
+            label = int(np.clip(100 + fo * 4e-4 + n * 2 + e, 100, 1000))
+            original = Status(text=text, retweet_count=label, followers_count=int(fo),
+                              favourites_count=int(fo % 50_000),
+                              friends_count=int(fo % 10_000),
+                              created_at_ms=NOW_MS - int(age))
+            out.append(Status(text="RT " + text, retweeted_status=original))
+    return out
+
+
+def scatter_learner():
+    """The linear learner forced onto the scatter loop (``use_gram=False``):
+    the JAX package's own differential baseline for the Gram route."""
+    from twtml_tpu_torch.models.linear import StreamingLinearRegressionWithSGD
+
+    class Scatter(StreamingLinearRegressionWithSGD):
+        def __init__(self, *a, **k):
+            super().__init__(*a, use_gram=False, **k)
+
+    return Scatter
+
+
+def sparse_run(name, backend, statuses, batches, extra=(), learner=None):
+    """``batches`` batches of ``statuses`` through the flagship app at 2^18
+    (a pre-filled source; on cuda every dispatch under the sync-debug mode
+    "error"): (totals, lines, record)."""
+    from twtml_tpu_torch.apps.common import SYNC_DEBUG_ENV
+
+    if backend == "cuda":
+        os.environ[SYNC_DEBUG_ENV] = "error"
+    try:
+        totals, lines, rec = recorded_app_run(
+            ["--backend", backend, *SPARSE_ARGV, *extra], batches,
+            source=prefilled_source(statuses), learner=learner)
+    finally:
+        os.environ.pop(SYNC_DEBUG_ENV, None)
+    if totals["batches"] != batches or rec["launches"] != 0:
+        raise AssertionError(f"sparse {name}: {totals['batches']} batches, fused_dense_sgd "
+                             f"launched {rec['launches']} times")
+    return totals, lines, rec
+
+
+def hold_run(name, run, ref):
+    """Weights within WEIGHT_RTOL (atol scaled by max(1, max|w|)), each
+    batch's count equal and other stats within RTOL, predictions equal but
+    for HALF_UP flips (|difference| 1, where the two margins straddle a
+    .5). Returns (weights max abs err, stats max rel err, flips)."""
+    import numpy as np
+
+    (totals, _, rec), (rtotals, _, rref) = run, ref
+    w, rw = rec["weights"], rref["weights"]
+    atol = WEIGHT_RTOL * max(1.0, float(np.abs(rw).max()))
+    w_err = float(np.abs(w - rw).max())
+    if not (np.abs(w - rw) <= atol + WEIGHT_RTOL * np.abs(rw)).all():
+        raise AssertionError(f"sparse {name}: weights differ by {w_err:.3e}")
+    s_err = 0.0
+    for i, (a, b) in enumerate(zip(totals["steps"], rtotals["steps"], strict=True)):
+        if a["count"] != b["count"]:
+            raise AssertionError(f"sparse {name} batch {i + 1}: count {a['count']} vs "
+                                 f"{b['count']}")
+        for k in ("mse", "real_stdev", "pred_stdev"):
+            err = abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+            if err > RTOL:
+                raise AssertionError(f"sparse {name} batch {i + 1} {k}: {a[k]} vs {b[k]}")
+            s_err = max(s_err, err)
+    flips = 0
+    for i, (a, b) in enumerate(zip(rec["outputs"], rref["outputs"], strict=True)):
+        d = np.abs(a.predictions.cpu().numpy() - b.predictions.cpu().numpy())
+        if (d > 1.0).any() or ((d > 0) & (d < 1.0)).any():
+            raise AssertionError(f"sparse {name} batch {i + 1}: predictions differ by up "
+                                 f"to {d.max()}")
+        flips += int((d > 0).sum())
+    if flips > 8:  # 8 of 8,192 rows
+        raise AssertionError(f"sparse {name}: {flips} predictions differ (HALF_UP flips)")
+    return w_err, s_err, flips
+
+
+def sparse_phase(smi):
+    """Config #4 through the app at F = 2^18, B = 2048, 50 iterations, L2
+    0.1, the ragged packed wire at depth 8, model watch on: 4 back-to-back
+    batches on the Gram route (B4, B7 and B8 once a batch and once for the
+    warm-up, B1 never, no dispatch syncing the host), held against the same
+    batches on the card's scatter route and on the CPU twin; one batch at
+    B = 16384 (a gate miss: the scatter loop) against its CPU twin; whether
+    the card's scatter loop reruns bitwise; ``--superBatch 4`` (a CUDA graph
+    of the Gram route, replayed) bitwise equal to K = 1; where a step's time
+    goes, on the short synthetic tweets (the int8 plane) and on tweet-length
+    rows (the f32-count planes: 4 batches through the app against the CPU
+    twin, each batch's plane asserted)."""
+    import numpy as np
+
+    from twtml_tpu_torch.ops.gram import PLANE_NAMES
+    from twtml_tpu_torch.streaming.sources import SyntheticSource
+
+    t_phase = time.perf_counter()
+    statuses = list(SyntheticSource(total=SPARSE_BATCHES * GRAM_ROWS, seed=11,
+                                    base_ms=NOW_MS).produce())
+    gram_run = sparse_run("gram", "cuda", statuses, SPARSE_BATCHES)
+    totals, lines, rec = gram_run
+    want = {"count_build": SPARSE_BATCHES + 1, "dual_sgd": SPARSE_BATCHES + 1,
+            "dual_writeback_counts": SPARSE_BATCHES + 1}
+    if rec["gram_launches"] != want or rec["model"].route != "gram":
+        raise AssertionError(f"sparse: route {rec['model'].route}, launches "
+                             f"{rec['gram_launches']}, want {want} (4 batches + the warm-up)")
+    for line, st in zip(lines, totals["steps"]):
+        phase("sparse", f"{line} | step {st['step_ms']:.3f} ms (CUDA events), dispatch "
+              f"{st['dispatch_ms']:.3f} ms, featurize {st['featurize_ms']:.2f} ms, fetch "
+              f"wait {st['fetch_wait_ms']:.3f} ms")
+    scatter = sparse_run("scatter", "cuda", statuses, SPARSE_BATCHES,
+                         learner=scatter_learner())
+    if any(scatter[2]["gram_launches"].values()) or scatter[2]["model"].route != "scatter":
+        raise AssertionError(f"sparse scatter: {scatter[2]['gram_launches']}")
+    phase("sparse", "scatter route (use_gram=False) on the card, step ms (CUDA events): "
+          + ", ".join(f"{st['step_ms']:.3f}" for st in scatter[0]["steps"]))
+    cpu = sparse_run("cpu twin", "cpu", statuses, SPARSE_BATCHES)
+    held = {what: hold_run(what, gram_run, ref)
+            for what, ref in (("card scatter route", scatter), ("cpu twin", cpu))}
+    RECORDER.take()
+    for what, (w_err, s_err, flips) in held.items():
+        phase("sparse", f"Gram route against the {what}: weights max abs err {w_err:.3e} "
+              f"(tolerance rtol {WEIGHT_RTOL}, atol {WEIGHT_RTOL}*max(1, max|w|)), stats "
+              f"{s_err:.3e} (rtol {RTOL}), {flips} HALF_UP prediction flips of "
+              f"{SPARSE_BATCHES * GRAM_ROWS}")
+    phase("sparse", f"{SPARSE_BATCHES} batches of {GRAM_ROWS} at F = {GRAM_F} on the Gram "
+          f"route (each batch's plane from host metadata), every "
+          f"dispatch under set_sync_debug_mode('error'); launches {rec['gram_launches']} "
+          f"(4 batches + the warm-up), fused_dense_sgd {rec['launches']}; app wall "
+          f"{rec['wall_s']:.3f} s, scatter route {scatter[2]['wall_s']:.3f} s")
+
+    # tweet-length rows: past 128 code units a batch leaves the int8 plane
+    # for f32 counts (B4 writes f32 C, the G product is an f32 matmul, B8
+    # reads f32 C); the same app and kernels, held against the CPU twin
+    long = long_statuses(LONG_SPANS, GRAM_ROWS, seed=14)
+    long_run = sparse_run("long tweets", "cuda", long, SPARSE_BATCHES)
+    long_planes = tuple(PLANE_NAMES[p] for (p,) in long_run[2]["planes"])
+    if long_planes != LONG_PLANES or long_run[2]["gram_launches"] != want:
+        raise AssertionError(f"sparse long tweets: planes {long_planes} (want {LONG_PLANES}), "
+                             f"launches {long_run[2]['gram_launches']} (want {want})")
+    long_cpu = sparse_run("long tweets cpu twin", "cpu", long, SPARSE_BATCHES)
+    RECORDER.take()
+    l_w, l_s, l_flips = hold_run("long tweets", long_run, long_cpu)
+    for line, st, pl, (lo, hi) in zip(long_run[1], long_run[0]["steps"], long_planes,
+                                      LONG_SPANS):
+        phase("sparse", f"long tweets ({lo}-{hi} code units, {pl} plane): {line} | step "
+              f"{st['step_ms']:.3f} ms (CUDA events), dispatch {st['dispatch_ms']:.3f} ms")
+    phase("sparse", f"long tweets: {SPARSE_BATCHES} batches of {GRAM_ROWS} through the app on "
+          f"the Gram route, planes {long_planes} from host metadata, launches "
+          f"{long_run[2]['gram_launches']}; against the CPU twin: weights {l_w:.3e}, stats "
+          f"{l_s:.3e}, {l_flips} flips; app wall {long_run[2]['wall_s']:.3f} s")
+
+    # --superBatch 4 on the padded wire with one row length (8 batches, 2
+    # groups of one signature): a group replays a CUDA graph holding B4, the
+    # G product, B7 and B8; bitwise equal to K = 1
+    more = statuses + list(SyntheticSource(total=SPARSE_BATCHES * GRAM_ROWS, seed=13,
+                                           base_ms=NOW_MS).produce())
+    padded = ["--wire", "padded", "--tokenBucket", "64"]
+    one = sparse_run("superbatch K=1", "cuda", more, 2 * SPARSE_BATCHES, padded)
+    sb = sparse_run("superbatch", "cuda", more, 2 * SPARSE_BATCHES,
+                    [*padded, "--superBatch", str(SPARSE_BATCHES)])
+    # the warm-up's step, then its group of 4 (eager, then captured) and the
+    # two groups of real batches (replays of one signature, or an eager run
+    # and a replay): 1 + 4 + 4 + 4 launches of each kernel
+    want_sb = {k: 1 + 3 * SPARSE_BATCHES for k in want}
+    warm = sb[2]["outputs"][:SPARSE_BATCHES]  # the warm-up's all-padding group
+    sb[2]["outputs"] = sb[2]["outputs"][SPARSE_BATCHES:]
+    if any(float(o.count) for o in warm):
+        raise AssertionError("sparse superbatch: the warm-up group trained rows")
+    if sb[2]["gram_launches"] != want_sb or sb[2]["groups"] != 3 or sb[2]["captured"] < 1:
+        raise AssertionError(f"sparse superbatch: launches {sb[2]['gram_launches']} (want "
+                             f"{want_sb}), {sb[2]['groups']} groups (want the warm-up's + 2), "
+                             f"{sb[2]['captured']} graphs")
+    if not np.array_equal(sb[2]["weights"], one[2]["weights"]) or any(
+            not np.array_equal(a.predictions.cpu().numpy(), b.predictions.cpu().numpy())
+            for a, b in zip(sb[2]["outputs"], one[2]["outputs"], strict=True)):
+        raise AssertionError("sparse superbatch: differs from K = 1")
+    RECORDER.take()
+    phase("sparse", f"--superBatch {SPARSE_BATCHES} --wire padded --tokenBucket 64, 8 "
+          f"batches: 2 groups, "
+          f"{sb[2]['captured']} CUDA graph(s) captured (the second group replays), launches "
+          f"{sb[2]['gram_launches']}; weights and predictions bitwise equal to K = 1")
+
+    # a gate miss: B = 16384 runs the scatter loop, on the card and the CPU
+    big = list(SyntheticSource(total=GATE_MISS_ROWS, seed=12, base_ms=NOW_MS).produce())
+    miss_argv = ["--batchBucket", str(GATE_MISS_ROWS)]
+    miss = sparse_run("gate miss", "cuda", big, 1, miss_argv)
+    if any(miss[2]["gram_launches"].values()):
+        raise AssertionError(f"sparse gate miss: {miss[2]['gram_launches']}")
+    miss_cpu = sparse_run("gate miss cpu twin", "cpu", big, 1, miss_argv)
+    RECORDER.take()
+    m_w, m_s, m_flips = hold_run("gate miss", miss, miss_cpu)
+    phase("sparse", f"gate miss B={GATE_MISS_ROWS}: the scatter loop (B4/B7/B8 launches "
+          f"{miss[2]['gram_launches']}), against the CPU twin: weights {m_w:.3e}, stats "
+          f"{m_s:.3e}, {m_flips} flips; step {miss[0]['steps'][0]['step_ms']:.2f} ms")
+    breakdown = sparse_breakdown(statuses)
+    long_breakdown = sparse_breakdown(long, scatter_check=False)
+    phase("sparse", f"phase wall {time.perf_counter() - t_phase:.1f} s | card: {smi}")
+    return {"launches": rec["gram_launches"],
+            "held": {k: {"weights_abs_err": v[0], "stats_rel_err": v[1], "flips": v[2]}
+                     for k, v in held.items()},
+            "gate_miss": {"weights_abs_err": m_w, "stats_rel_err": m_s, "flips": m_flips},
+            "superbatch": {"launches": sb[2]["gram_launches"], "graphs": sb[2]["captured"]},
+            "scatter_step_ms": [st["step_ms"] for st in scatter[0]["steps"]],
+            "step_ms": [st["step_ms"] for st in totals["steps"]],
+            "long": {"planes": long_planes, "weights_abs_err": l_w, "stats_rel_err": l_s,
+                     "flips": l_flips,
+                     "step_ms": [st["step_ms"] for st in long_run[0]["steps"]]},
+            "breakdown": breakdown, "long_breakdown": long_breakdown}
+
+
+def sparse_breakdown(statuses, scatter_check=True):
+    """Where one Gram step's time goes, on batch 2 of ``statuses``
+    (padded wire, on the card, from the weights batch 1 left): each piece's
+    device time (CUDA events, work queued ahead), the whole step's device
+    busy time and launches (profiler), its wall with the host's enqueue,
+    and the device's idle share of that wall; with ``scatter_check``,
+    whether two runs of the scatter loop on the same inputs are bitwise
+    equal."""
+    import torch
+
+    from twtml_tpu_torch.apps.common import build_model
+    from twtml_tpu_torch.config import ConfArguments
+    from twtml_tpu_torch.features.featurizer import Featurizer
+    from twtml_tpu_torch.models.sgd import batch_to_device, sparse_sgd_loop
+    from twtml_tpu_torch.ops import fused_gram
+    from twtml_tpu_torch.ops.gram import PLANE_INT8, PLANE_NAMES
+    from twtml_tpu_torch.ops.quality import quality_vector
+    from twtml_tpu_torch.ops.sparse import sparse_predict
+    from twtml_tpu_torch.ops.stats import batch_stats
+    from twtml_tpu_torch.ops.text_hash import hash_bigrams_device
+    from twtml_tpu_torch.utils.rounding import torch_round_half_up
+
+    featurizer = Featurizer(now_ms=NOW_MS, num_text_features=GRAM_F)
+    batches = [featurizer.featurize_batch_units(statuses[i:i + GRAM_ROWS], row_bucket=GRAM_ROWS)
+               for i in (0, GRAM_ROWS)]
+    model = build_model(ConfArguments().parse(["--backend", "cuda", *SPARSE_ARGV]))
+    float(model.step(batches[0]).mse)
+    (plane,) = model.planes(batches[1])
+    w = model._weights
+    dev = batch_to_device(batches[1], "cuda", non_blocking=False)
+    idx, val = hash_bigrams_device(dev.units, dev.length, GRAM_F)
+    num, y, m = dev.numeric, dev.label, dev.mask
+    f = GRAM_F
+    kw = dict(num_iterations=OP_ITERS, step_size=0.005, l2_reg=0.1, convergence_tol=0.001)
+    raw = sparse_predict(w[:f], w[f:], idx, val, num)
+    counts = fused_gram.count_build(idx, val, f, int8=plane == PLANE_INT8)
+    g = fused_gram.gram_from_counts(counts)
+    g[:GRAM_ROWS, :GRAM_ROWS] += num @ num.T
+    p_prev = torch.sum(w * w)
+    c, alpha, its = fused_gram.dual_sgd(g, raw, y, m, p_prev=p_prev, **kw)
+
+    def add_numeric():
+        gg = fused_gram.gram_from_counts(counts)
+        gg[:GRAM_ROWS, :GRAM_ROWS] += num @ num.T
+
+    w_new = fused_gram.dual_writeback_counts(w, c, alpha, counts, num, f)
+
+    def quality():  # the step's HALF_UP rounding, stats and quality vector
+        preds = torch_round_half_up(raw)
+        batch_stats(y, preds, m)
+        quality_vector(w, w_new, residual=(raw - y) * m, preds=preds, labels=y, mask=m,
+                       numeric=num, token_idx=idx, token_val=val)
+
+    pieces = {
+        "hash (units -> tokens)": lambda: hash_bigrams_device(dev.units, dev.length, f),
+        "gather predict": lambda: sparse_predict(w[:f], w[f:], idx, val, num),
+        "B4 count build": lambda: fused_gram.count_build(idx, val, f, int8=plane == PLANE_INT8),
+        "G product (+ N·Nᵀ)": add_numeric,
+        "B7 dual loop": lambda: fused_gram.dual_sgd(g, raw, y, m, p_prev=p_prev, **kw),
+        "B8 write-back": lambda: fused_gram.dual_writeback_counts(w, c, alpha, counts, num, f),
+        "rounding + stats + quality": quality,
+    }
+    times = {}
+    for name, fn in pieces.items():
+        fn()
+        # a piece of many small launches is queued whole before the device
+        # starts it, so its time is the device's, not the host's enqueue
+        times[name] = timed(fn, 10, queue_ahead=True, ahead_cycles=STEP_AHEAD_CYCLES)[0]
+    step = lambda: model._train_step(w, dev, plane=plane)  # noqa: E731
+    step_ms, busy, launches = device_costs(step, 5)
+    wall_ms = timed(step, 5)[0]
+    idle = max(0.0, 1.0 - busy / wall_ms)
+    phase("sparse", f"one Gram step of batch 2 (B={GRAM_ROWS}, {PLANE_NAMES[plane]} plane, "
+          f"{int(its)} dual iterations run), device ms by piece (CUDA events, queued "
+          "ahead, median of 10): " + "; ".join(f"{k} {v:.4f}" for k, v in times.items()))
+    phase("sparse", f"the whole step: {step_ms:.3f} ms device (queued ahead), {busy:.3f} ms "
+          f"device busy (profiler), {launches:g} kernel launches, {wall_ms:.3f} ms wall with "
+          f"the host's enqueue: device idle {idle:.1%} of it")
+    out = {"pieces_ms": times, "step_ms": step_ms, "busy_ms": busy, "launches": launches,
+           "wall_ms": wall_ms, "idle": idle, "plane": PLANE_NAMES[plane],
+           "dual_iterations": int(its)}
+    if not scatter_check:
+        return out
+    # the scatter loop's reproducibility on the card (index_add_: float atomics)
+    w1 = sparse_sgd_loop(w, idx, val, num, y, m, num_text_features=f, **kw)
+    w2 = sparse_sgd_loop(w, idx, val, num, y, m, num_text_features=f, **kw)
+    bitwise = bool(torch.equal(w1, w2))
+    phase("sparse", f"scatter loop run twice on the same batch on the card: "
+          f"{'bitwise equal' if bitwise else 'NOT bitwise equal'} (max abs difference "
+          f"{(w1 - w2).abs().max().item():.3e})")
+    return dict(out, scatter_bitwise=bitwise)
+
+
+def gram_times(smi, errs, launches):
+    """B4, the G product, B7 and B8 at config #4's operating point (B = 2048
+    synthetic tweets at F = 2^18, device-hashed, the int8 plane): each
+    kernel alone as device time, its twin, its bound, the library call where
+    one exists; the kernels line's records."""
+    import numpy as np
+    import torch
+
+    from twtml_tpu_torch.features.featurizer import Featurizer
+    from twtml_tpu_torch.models.sgd import batch_to_device, host_planes
+    from twtml_tpu_torch.ops import fused_gram
+    from twtml_tpu_torch.ops.gram import PLANE_INT8, PLANE_NAMES
+    from twtml_tpu_torch.ops.sparse import sparse_predict
+    from twtml_tpu_torch.ops.text_hash import hash_bigrams_device
+    from twtml_tpu_torch.streaming.sources import SyntheticSource
+
+    tweets = list(SyntheticSource(total=GRAM_ROWS, seed=11, base_ms=NOW_MS).produce())
+    host = Featurizer(now_ms=NOW_MS, num_text_features=GRAM_F).featurize_batch_units(
+        tweets, row_bucket=GRAM_ROWS)
+    (plane,) = host_planes(host)
+    dev = batch_to_device(host, "cuda", non_blocking=False)
+    idx, val = hash_bigrams_device(dev.units, dev.length, GRAM_F)
+    b, l = idx.shape
+    f = GRAM_F
+    int8 = plane == PLANE_INT8
+    w = torch.from_numpy((np.random.default_rng(5).normal(size=f + 4) * 1e-3)
+                         .astype(np.float32)).cuda()
+    num, y, m = dev.numeric, dev.label, dev.mask
+
+    def record(name, source_line, ms, twin_ms, bound, extra):
+        bytes_ms, ops_ms = bound
+        return dict({
+            "name": name, "route": "cuda", "source": "twtml_tpu_torch/csrc/gram.cu",
+            "replaces": source_line, "tpu_function": None,
+            "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
+            "plain_ms": twin_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None,
+        }, **extra)
+
+    # B4
+    counts = fused_gram.count_build(idx, val, f, int8=int8)
+    rows, cols = counts.shape
+    b4_ms, b4_all = timed(lambda: fused_gram.count_build(idx, val, f, int8=int8), 25,
+                          queue_ahead=True)
+    b4_twin, _ = timed(lambda: fused_gram.count_build_reference(
+        idx, val, f, int8=int8, rows_out=rows, cols_out=cols), 5)
+    b4_bytes = rows * cols * counts.element_size() + b * l * 8
+    b4_bound = (b4_bytes / HBM_BYTES_PER_S * 1e3, 0.0)
+    # the G product: torch._int_mm (s8 x s8 -> s32) and the f32 cast
+    mm_ms, _ = timed(lambda: torch._int_mm(counts, counts.t()), 10, queue_ahead=True)
+    g_ms, _ = timed(lambda: fused_gram.gram_from_counts(counts), 10, queue_ahead=True)
+    mm_ops = 2 * rows * rows * cols
+    mm_bound = max(mm_ops / INT8_OPS_PER_S, (rows * cols + rows * rows * 4) / HBM_BYTES_PER_S) * 1e3
+    counts_f32 = counts.float()
+    f32_ms, _ = timed(lambda: counts_f32 @ counts_f32.t(), 3, queue_ahead=True)
+    del counts_f32
+    phase("times", f"B4 count build at B={b} L={l} F={f} ({PLANE_NAMES[plane]} plane, "
+          f"C {tuple(counts.shape)} {counts.dtype}): median {b4_ms:.4f} ms over 25 (min "
+          f"{min(b4_all):.4f}); twin {b4_twin:.4f} ms; bound {b4_bytes} B / 3.35e12 B/s = "
+          f"{b4_bound[0]:.5f} ms (bytes); {b4_ms / b4_bound[0]:.1f}x | card: {smi}")
+    phase("times", f"G product: torch._int_mm {tuple(counts.shape)} x its transpose "
+          f"{mm_ms:.4f} ms (with the f32 cast {g_ms:.4f}); bound {mm_ops} int8 operations / "
+          f"1979e12 = {mm_bound:.5f} ms ({mm_ms / mm_bound:.1f}x); the f32 planes' f32 matmul "
+          f"at the same shape {f32_ms:.3f} ms")
+    # B7 at the app's tolerance and with every iteration run
+    g = fused_gram.gram_from_counts(counts)
+    g[:b, :b] += num @ num.T
+    raw = sparse_predict(w[:f], w[f:], idx, val, num)
+    p_prev = torch.sum(w * w)
+    kw = dict(num_iterations=OP_ITERS, step_size=0.005, l2_reg=0.1)
+    b7 = {}
+    for tol in (0.001, 0.0):
+        call = lambda: fused_gram.dual_sgd(g, raw, y, m, p_prev=p_prev,  # noqa: E731
+                                           convergence_tol=tol, **kw)
+        _, _, its = call()
+        b7[tol] = timed(call, 25, queue_ahead=True) + (int(its),)
+    b7_twin, _ = timed(lambda: fused_gram.dual_sgd_reference(
+        g, raw, y, m, p_prev=p_prev, convergence_tol=0.001, **kw), 5)
+    plan = fused_gram.dual_plan(b, **sm_limits())
+    its = b7[0.001][2]
+    # each iteration needs one product, G·α_new (2·B² flops: G·Δα is its
+    # difference with the last one, though the kernel computes both), and
+    # ~12·B elementwise (residual, α update, the four dot products); G read once
+    b7_ops = its * (2 * b * b + 12 * b)
+    b7_bytes = b * b * 4 + 5 * b * 4
+    b7_bound = (b7_bytes / HBM_BYTES_PER_S * 1e3, b7_ops / F32_FLOPS_PER_S * 1e3)
+    phase("times", f"B7 dual loop at B={b}: grid {plan.grid}, {plan.resident_rows} rows of G "
+          f"resident, {plan.shared_bytes} B shared a CTA; tol 0.001: median "
+          f"{b7[0.001][0]:.4f} ms ({its} iterations run), tol 0: {b7[0.0][0]:.4f} ms "
+          f"({b7[0.0][2]} iterations); per iteration "
+          f"{b7[0.0][0] / max(b7[0.0][2], 1) * 1e3:.2f} us; twin {b7_twin:.4f} ms; bound "
+          f"bytes {b7_bytes} B = {b7_bound[0]:.5f} ms, operations {b7_ops} f32 / 67e12 = "
+          f"{b7_bound[1]:.5f} ms")
+    # B8
+    c, alpha, _ = fused_gram.dual_sgd(g, raw, y, m, p_prev=p_prev, convergence_tol=0.001, **kw)
+    b8_ms, _ = timed(lambda: fused_gram.dual_writeback_counts(w, c, alpha, counts, num, f), 25,
+                     queue_ahead=True)
+    b8_twin, _ = timed(lambda: fused_gram.dual_writeback_reference(w, c, alpha, counts, num, f),
+                       5)
+    cf = counts[:b, :f].float()
+    wt = w[:f].clone()
+    addmv_ms, _ = timed(lambda: torch.addmv(wt, cf.t(), alpha, beta=float(c)), 10,
+                        queue_ahead=True)
+    del cf
+    b8_bytes = b * cols * counts.element_size() + b * 4 * 5 + (f + 4) * 4 * 2
+    b8_ops = 2 * b * f
+    b8_bound = (b8_bytes / HBM_BYTES_PER_S * 1e3, b8_ops / F32_FLOPS_PER_S * 1e3)
+    phase("times", f"B8 write-back at B={b} F={f}: median {b8_ms:.4f} ms; twin {b8_twin:.4f} "
+          f"ms; bound bytes {b8_bytes} B = {b8_bound[0]:.5f} ms, operations {b8_ops} = "
+          f"{b8_bound[1]:.5f} ms; torch.addmv on f32 counts of the same batch (the int8 C "
+          f"has no single library call) {addmv_ms:.4f} ms")
+    return [
+        record("count_build", "twtml_tpu/ops/gram.py:133 (onehot_counts_int8; :112 "
+               "onehot_counts, sparse.py:29 densify_text)", b4_ms, b4_twin, b4_bound, {
+                   "kernel": "B4", "plane": PLANE_NAMES[plane],
+                   "gram_product": {"call": "torch._int_mm", "ms": mm_ms,
+                                    "with_f32_cast_ms": g_ms, "bound_ms": mm_bound,
+                                    "bound_by": "operations", "f32_matmul_ms": f32_ms,
+                                    "replaces": "twtml_tpu/ops/gram.py:210"}}),
+        record("dual_sgd", "twtml_tpu/models/sgd.py:155 (run_dual_loop)", b7[0.001][0],
+               b7_twin, b7_bound, {"kernel": "B7", "iterations_run": its,
+                                   "all_iterations_ms": b7[0.0][0], "grid": plan.grid,
+                                   "shared_bytes": plan.shared_bytes}),
+        record("dual_writeback_counts", "twtml_tpu/ops/gram.py:269 (dual_writeback)", b8_ms,
+               b8_twin, b8_bound, {"kernel": "B8", "addmv_f32_counts_ms": addmv_ms}),
+    ]
+
+
 def timed(fn, runs, queue_ahead=False, ahead_cycles=QUEUE_AHEAD_CYCLES):
     """Median and all of ``runs`` CUDA-event times of ``fn``. With
     ``queue_ahead`` the device is kept busy (``ahead_cycles`` of
@@ -2793,6 +3505,7 @@ def main() -> None:
     smi = device_phase()
     build_phase()
     max_errs, kernel_cases = kernel_phase()
+    gram_errs, gram_cases = gram_kernel_phase()
     # pins the featurizer's clock and the synthetic tweets' creation times:
     # the wires and backends compared below featurize identical tweets
     os.environ["TWTML_NOW_MS"] = str(NOW_MS)
@@ -2813,6 +3526,7 @@ def main() -> None:
         logistic = logistic_phase(smi)
         superbatch = superbatch_phase(web_statuses, smi)
         kmeans = kmeans_phase(smi)
+        sparse = sparse_phase(smi)
     finally:
         RECORDER.close()
     record = times_phase(smi, max_errs[0], launches)
@@ -2828,10 +3542,14 @@ def main() -> None:
                   launches_hosthash=hosthash["launches"], web=web, live=live,
                   hosthash_featurize_ms=hosthash["host_featurize_ms"],
                   superbatch=superbatch, kmeans=kmeans)
+    gram_records = gram_times(smi, gram_errs, sparse.pop("launches"))
+    for r in gram_records:
+        r["cases"] = [c for c in gram_cases if c.startswith(r["name"])]
+    gram_records[0]["sparse_phase"] = sparse
     import torch
 
     phase("done", f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [record, logistic_record]}), flush=True)
+    print(json.dumps({"kernels": [record, logistic_record, *gram_records]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -321,12 +321,15 @@ def test_web_errors_are_counted_by_the_breaker():
 
 
 def test_step_error_fails_that_batch_only(caplog):
+    from twtml_tpu_torch.telemetry import lineage
+
+    # the lineage FIFOs are process-wide and outlive a run (ROADMAP C): an
+    # earlier in-process app run in this worker may have left records open
+    lineage.reset_for_tests()
     totals, lines = run_app(["--source", "replay", "--replayFile", DATA, "--seconds", "0",
                              "--batchBucket", "4", "--chaos", "step:error@2"])
     assert len(lines) == 2 and totals["batches"] == 2
     assert any("failed" in r.getMessage() for r in caplog.records)
-    from twtml_tpu_torch.telemetry import lineage
-
     assert lineage.depths() == (0, 0)  # the failed batch's record went with it
 
 

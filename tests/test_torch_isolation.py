@@ -54,6 +54,8 @@ def test_port_files_are_found():
     assert {"twtml_tpu_torch/apps/logistic_regression.py", "twtml_tpu_torch/apps/kmeans.py",
             "twtml_tpu_torch/models/logistic.py", "twtml_tpu_torch/models/kmeans.py",
             "twtml_tpu_torch/features/sentiment.py", "twtml_tpu_torch/ops/scaler.py"} <= names
+    assert {"twtml_tpu_torch/ops/gram.py", "twtml_tpu_torch/ops/fused_gram.py",
+            "twtml_tpu_torch/ops/sparse.py"} <= names
 
 
 def test_importing_the_app_leaves_jax_unloaded():

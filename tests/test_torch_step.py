@@ -119,12 +119,21 @@ def test_set_initial_weights_and_reset():
         model.set_initial_weights(np.zeros(11, np.float32))
 
 
-@pytest.mark.parametrize("kw,item", [
-    ({"num_text_features": 2**18}, "A6"),
+@pytest.mark.parametrize("kw,route", [
+    ({"num_text_features": 2**18}, "gram"),
 ])
-def test_out_of_slice_configurations_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        StreamingLinearRegressionWithSGD(device="cpu", **kw)
+def test_sparse_regime_model_builds_and_steps(kw, route):
+    """The 2^18 regime (BASELINE config #4) builds and steps on the CPU: the
+    Gram route by default (tests/test_torch_gram.py holds it against the
+    JAX package)."""
+    model = StreamingLinearRegressionWithSGD(device="cpu", l2_reg=0.1, **kw)
+    assert model.route == route
+    ours = list(SyntheticSource(total=32, seed=3, base_ms=NOW_MS).produce())
+    batch = Featurizer(now_ms=NOW_MS, **kw).featurize_batch_units(ours, row_bucket=32)
+    out = model.step(batch)
+    assert float(out.count) == 32.0
+    w = model.latest_weights
+    assert w.shape == (kw["num_text_features"] + 4,) and np.isfinite(w).all() and w.any()
 
 
 def test_cuda_without_a_card_raises():

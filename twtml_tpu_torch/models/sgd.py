@@ -1,17 +1,16 @@
-"""Fused streaming-SGD step, dense regime (counterpart of a subset of
-``twtml_tpu/models/sgd.py``), for the least-squares and the logistic
-learner.
+"""Fused streaming-SGD step (counterpart of ``twtml_tpu/models/sgd.py``),
+for the least-squares and the logistic learner, in both feature regimes.
 
 Per micro-batch: unpack the packed wire buffer and re-pad the ragged units
 (the default wire), hash the bigrams on the device (or, under ``--hashOn
 host``, take the host-hashed tokens of a ``FeatureBatch``, upcast from
-their compact wire dtypes), densify to [B, F_text] and append the 4
-numeric features, predict with the pre-update weights (``prediction_fn``
-of the raw margin, rounded HALF_UP when ``round_predictions``), compute the
-batch stats (and the quality vector under ``--modelWatch``), then run
-``numIterations`` of MLlib's GradientDescent, whose gradient multiplier is
-``residual_fn(raw, label)``: x·w − y for least squares (the default),
-σ(x·w) − y for the logistic learner (models/logistic.py).
+their compact wire dtypes), predict with the pre-update weights
+(``prediction_fn`` of the raw margin, rounded HALF_UP when
+``round_predictions``), compute the batch stats (and the quality vector
+under ``--modelWatch``), then run ``numIterations`` of MLlib's
+GradientDescent, whose gradient multiplier is ``residual_fn(raw, label)``:
+x·w − y for least squares (the default), σ(x·w) − y for the logistic
+learner (models/logistic.py).
 
 MLlib semantics kept (``sgd_inner_loop``): 1-indexed stepSize/sqrt(i); L2
 pre-scale w <- w(1 - eta*lambda); Bernoulli mini-batch sampling per
@@ -20,29 +19,46 @@ iteration with the JAX package's threefry keys (PRNGKey(42) folded with i,
 converged once ||w_i - w_{i-1}|| < tol * max(||w_i||, 1), then frozen.
 
 The loop's route is chosen by configuration (``dense_route``), never on a
-failure. At miniBatchFraction 1 with float32 weights (the default) it runs
-in ``ops/fused_sgd.fused_dense_sgd``: the hand-written kernel when the model
-is on ``cuda``, its plain twin on the CPU, in the kernel's residual mode
-for ``residual_fn`` (a residual the kernel has no mode for runs the torch
-loop). Its predictions are that call's
-``raw_predictions`` (X in bf16 times the pre-update weights, summed in
-f32): the text counts are exact in bf16 and the numeric features are of
+failure. The dense regime (numTextFeatures <= 8192) densifies the tokens to
+[B, F_text] and appends the 4 numeric features. At miniBatchFraction 1
+with float32 weights (the default) it runs ``ops/fused_sgd.fused_dense_sgd``:
+the hand-written kernel when the model is on ``cuda``, its plain twin on
+the CPU, in the kernel's residual mode for ``residual_fn`` (a residual the
+kernel has no mode for runs the torch loop). Its predictions are that
+call's ``raw_predictions`` (X in bf16 times the pre-update weights, summed
+in f32): the text counts are exact in bf16 and the numeric features are of
 order 1e-6, so this differs from the JAX package's f32 ``x @ w`` only in
 summation order and in the last bits of the numeric terms. A Bernoulli
 mini-batch (fraction < 1) or bfloat16/float64 weights, which the kernel
 does not compute, run the JAX package's loop as torch ops in the weights'
 type (``dense_sgd_loop``), with every iteration's mask drawn in one batched
-pass before the loop. The sparse regime (numTextFeatures > 8192) raises
-``NotImplementedError`` (ROADMAP A6).
+pass before the loop.
+
+The sparse regime (numTextFeatures > 8192, or ``use_sparse``) never forms
+X: predictions gather the weights (``ops/sparse.sparse_predict``). Its
+``gram`` route (float32 weights, or ``use_gram=True``) runs the loop in the
+dual basis of ``ops/gram.py`` for a batch that passes ``fits_gram``; a
+batch that misses the gate, bfloat16/float64 weights and ``use_gram=False``
+run the ``scatter`` route, the per-iteration gather/scatter loop as torch
+ops (``sparse_sgd_loop``). On ``cuda`` in float32 the Gram route is the
+hand kernels of ``ops/fused_gram.py``: B4 builds the counts C, C·Cᵀ
+(``torch._int_mm`` in the int8 plane) plus N·Nᵀ gives G, B7 runs the dual
+loop in one launch, B8 writes W back; elsewhere (the CPU, bfloat16) it is
+the plain ``gram_matrix`` / ``run_dual_loop`` / ``dual_writeback``. The
+plane of G (int8, bf16 or exact) is chosen by the batch's data, as the JAX
+package's ``lax.switch`` chooses it, but from host metadata beside the
+device batch (``host_planes``: the rows' unit counts on the units wires,
+the token values of a host-hashed batch), so no dispatch reads the device.
 
 ``StreamingSGDModel.step_many`` runs K micro-batches as one dispatch (the
 JAX package's ``lax.scan`` superbatch): a stacked batch or a packed group
-(features/batch.py). On the card the K steps of a (wire signature, K) are
-captured once into a CUDA graph and replayed: the group's bytes land in
-device buffers the graph owns (one H2D copy for a packed group), the weights
-chain through the K steps exactly as K ``step`` calls would, and the K
-outputs come back as one vector. The first group of a signature runs the K
-steps eagerly (which also runs every first-use set-up), then captures.
+(features/batch.py). On the card the K steps of a (wire signature, K,
+planes) are captured once into a CUDA graph and replayed: the group's
+bytes land in device buffers the graph owns (one H2D copy for a packed
+group), the weights chain through the K steps exactly as K ``step`` calls
+would, and the K outputs come back as one vector. The first group of a
+signature runs the K steps eagerly (which also runs every first-use
+set-up), then captures.
 """
 
 from __future__ import annotations
@@ -58,11 +74,21 @@ from ..features.batch import (
     UnitBatch,
     unpack_batch,
 )
-from ..ops import fused_sgd, prng
+from ..ops import fused_gram, fused_sgd, prng
 from ..ops.fused_sgd import fused_dense_sgd, least_squares_residual, residual_mode
+from ..ops.gram import (
+    GRAM_INT8_PLANE,
+    PLANE_INT8,
+    data_plane,
+    dual_norm_sq,
+    dual_writeback,
+    fits_gram,
+    gram_matrix,
+    gram_plane,
+)
 from ..ops.quality import quality_vector
 from ..ops.ragged import ragged_repad
-from ..ops.sparse import densify_text
+from ..ops.sparse import densify_text, sparse_grad_text, sparse_predict
 from ..ops.stats import batch_stats
 from ..ops.text_hash import hash_bigrams_device
 from ..utils import get_logger
@@ -72,8 +98,8 @@ from .base import StepOutput
 
 log = get_logger("models.sgd")
 
-# above this text-feature count the JAX package switches to its sparse
-# (gather/scatter, Gram) regime
+# above this text-feature count the sparse regime (gather/scatter, Gram)
+# takes over: the JAX package's limit
 DENSE_TEXT_FEATURE_LIMIT = 8192
 
 # GradientDescent samples with seed 42 (the JAX package's MLLIB_SAMPLING_SEED)
@@ -104,36 +130,92 @@ def _step_scalars(step_size: float, l2_reg: float, it: int, dtype) -> tuple[floa
     return float(eta), float(one - eta * torch.tensor(l2_reg, dtype=dtype))
 
 
+def _tree_map(fn, *trees):
+    """``fn`` over the leaves of weight trees: a tensor, or a dict of them."""
+    if isinstance(trees[0], dict):
+        return {k: fn(*(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _leaves(tree) -> list:
+    return list(tree.values()) if isinstance(tree, dict) else [tree]
+
+
 def sgd_inner_loop(
     weights, *, num_iterations: int, step_size: float, l2_reg: float,
-    convergence_tol: float, grad_and_count,
+    convergence_tol: float, grad_and_count, norm_sq=None,
+    with_iterations: bool = False,
 ):
-    """MLlib's GradientDescent loop over a weight tensor, with no host sync.
+    """MLlib's GradientDescent loop over a weight tensor, or a dict of them
+    (the dual state {c, α}), with no host sync.
 
-    ``grad_and_count(w, it)`` returns (gradient sum, selected count) of
-    1-indexed iteration ``it`` as tensors. The arithmetic is the JAX loop's
-    in the weights' float type: w * (1 - eta*lambda) - (eta * g) / max(count, 1),
-    with eta = stepSize/sqrt(i); an iteration that selects no row makes no
-    update and is not convergence."""
+    ``grad_and_count(w, it)`` returns (gradient sum of w's structure,
+    selected count) of 1-indexed iteration ``it`` as tensors. The arithmetic
+    is the JAX loop's in the weights' float type: w * (1 - eta*lambda) -
+    (eta * g) / max(count, 1), with eta = stepSize/sqrt(i); an iteration
+    that selects no row makes no update and is not convergence.
+    ``norm_sq(a, b)`` is ||a - b||² for the convergence test (default: the
+    sum over the leaves; the dual loop passes ``ops/gram.dual_norm_sq``).
+    With ``with_iterations`` it returns (w, iterations run): the iteration
+    that converged, else N, as a tensor."""
+    first = _leaves(weights)[0]
+    dtype, device = first.dtype, first.device
     w = weights
-    converged = torch.zeros((), dtype=torch.bool, device=w.device)
+    converged = torch.zeros((), dtype=torch.bool, device=device)
+    ran = torch.zeros((), dtype=torch.int64, device=device)
     for it in range(1, num_iterations + 1):
         grad_sum, count = grad_and_count(w, it)
         denom = torch.clamp(count, min=1.0)
-        eta, scale = _step_scalars(step_size, l2_reg, it, w.dtype)
-        w_new = w * scale - eta * grad_sum / denom
-        w_new = torch.where(count > 0, w_new, w)  # zero samples: no update
+        eta, scale = _step_scalars(step_size, l2_reg, it, dtype)
+        w_new = _tree_map(lambda wl, gl: wl * scale - eta * gl / denom, w, grad_sum)
+        # zero samples: no update
+        w_new = _tree_map(lambda nl, wl: torch.where(count > 0, nl, wl), w_new, w)
         if convergence_tol > 0:
-            delta = torch.sqrt(torch.sum((w_new - w) ** 2))
-            norm_new = torch.sqrt(torch.sum(w_new * w_new))
+            if norm_sq is None:
+                delta_sq = sum(torch.sum((nl - wl) ** 2)
+                               for nl, wl in zip(_leaves(w_new), _leaves(w)))
+                norm_new_sq = sum(torch.sum(nl * nl) for nl in _leaves(w_new))
+            else:
+                delta_sq = norm_sq(w_new, w)
+                norm_new_sq = norm_sq(w_new, _tree_map(torch.zeros_like, w_new))
             conv_now = (count > 0) & (
-                delta < convergence_tol * torch.clamp(norm_new, min=1.0)
+                torch.sqrt(delta_sq) < convergence_tol * torch.clamp(torch.sqrt(norm_new_sq), min=1.0)
             )
         else:
-            conv_now = torch.zeros((), dtype=torch.bool, device=w.device)
-        w = torch.where(converged, w, w_new)
+            conv_now = torch.zeros((), dtype=torch.bool, device=device)
+        w = _tree_map(lambda wl, nl: torch.where(converged, wl, nl), w, w_new)
+        if with_iterations:
+            ran = torch.where(converged, ran, it)
         converged = converged | conv_now
-    return w
+    return (w, ran) if with_iterations else w
+
+
+def run_dual_loop(*, u, g, labels, mask, dtype, residual_fn, num_iterations: int,
+                  step_size: float, l2_reg: float, convergence_tol: float, p_prev,
+                  masks=None, with_iterations: bool = False):
+    """MLlib's iteration loop in the Gram (dual) basis, as torch ops (the JAX
+    package's ``run_dual_loop``): the state {c, α} starts at {1, 0}; each
+    iteration's margin is c·u + G·α, its gradient {0, residual·sel} over
+    the rows ``sel = mask * masks[i - 1]`` selects (``mask`` when ``masks``
+    is None: the [N, B] draws of ``sampling_masks``, the unfolded
+    PRNGKey(42) as in the JAX package), and convergence is measured through
+    ``dual_norm_sq``. Returns {'c', 'alpha'}: W_new = c·W_prev + Zᵀα (and
+    the iterations run with ``with_iterations``)."""
+
+    def grad_and_count(w, it):
+        sel = mask if masks is None else mask * masks[it - 1]
+        raw = w["c"] * u + g @ w["alpha"]
+        residual = residual_fn(raw, labels) * sel
+        return {"c": torch.zeros((), dtype=dtype, device=u.device), "alpha": residual}, \
+            torch.sum(sel)
+
+    return sgd_inner_loop(
+        {"c": torch.ones((), dtype=dtype, device=u.device),
+         "alpha": torch.zeros(labels.shape, dtype=dtype, device=u.device)},
+        num_iterations=num_iterations, step_size=step_size, l2_reg=l2_reg,
+        convergence_tol=convergence_tol, grad_and_count=grad_and_count,
+        norm_sq=dual_norm_sq(p_prev, u, g), with_iterations=with_iterations,
+    )
 
 
 def sampling_masks(rows: int, num_iterations: int, fraction: float, dtype, device):
@@ -175,27 +257,102 @@ def dense_sgd_loop(x_dense, labels, mask, weights, *, num_iterations: int,
     return w, raw
 
 
-def dense_route(mini_batch_fraction: float, dtype, residual_fn=None) -> str:
-    """Which loop a configuration's step runs, by configuration alone:
-    ``fused_dense_sgd`` (the hand kernel on the card, its twin on the CPU)
-    at fraction 1 in float32 for a residual the kernel has a mode for
-    (least squares, logistic); ``torch_loop`` (``dense_sgd_loop``) for a
-    Bernoulli mini-batch, another dtype or another residual, which the
-    kernel does not compute."""
+def sparse_sgd_loop(weights, token_idx, token_val, numeric, labels, mask, *,
+                    num_text_features: int, num_iterations: int, step_size: float,
+                    l2_reg: float = 0.0, convergence_tol: float = 0.001, masks=None,
+                    residual_fn=least_squares_residual):
+    """The sparse regime's per-iteration loop as torch ops (the JAX
+    package's scatter loop): each iteration gathers the margins
+    (``sparse_predict``) and scatters residual·val back
+    (``sparse_grad_text``), plus the numeric columns' Nᵀr. Returns the new
+    weights [F + 4]."""
+    f_text = num_text_features
+
+    def grad_and_count(w, it):
+        sel = mask if masks is None else mask * masks[it - 1]
+        raw = sparse_predict(w[:f_text], w[f_text:], token_idx, token_val, numeric)
+        residual = residual_fn(raw, labels) * sel
+        grad = torch.cat([sparse_grad_text(token_idx, token_val, residual, f_text),
+                          residual @ numeric])
+        return grad, torch.sum(sel)
+
+    return sgd_inner_loop(
+        weights, num_iterations=num_iterations, step_size=step_size, l2_reg=l2_reg,
+        convergence_tol=convergence_tol, grad_and_count=grad_and_count,
+    )
+
+
+def dense_route(mini_batch_fraction: float, dtype, residual_fn=None,
+                sparse: bool = False, use_gram: "bool | None" = None) -> str:
+    """Which loop a configuration's step runs, by configuration alone.
+    Dense regime: ``fused_dense_sgd`` (the hand kernel on the card, its twin
+    on the CPU) at fraction 1 in float32 for a residual the kernel has a
+    mode for (least squares, logistic); ``torch_loop`` (``dense_sgd_loop``)
+    for a Bernoulli mini-batch, another dtype or another residual. Sparse
+    regime: ``gram`` (the dual loop; a batch that misses ``fits_gram`` runs
+    the scatter loop unless ``use_gram`` is True) for float32 weights or
+    ``use_gram=True``; ``scatter`` (``sparse_sgd_loop``) for other weights
+    or ``use_gram=False``."""
+    if sparse:
+        if use_gram is None:
+            return "gram" if dtype == torch.float32 else "scatter"
+        return "gram" if use_gram else "scatter"
     if (mini_batch_fraction >= 1.0 and dtype == torch.float32
             and residual_mode(residual_fn) is not None):
         return "fused_dense_sgd"
     return "torch_loop"
 
 
-def _check_slice(num_text_features: int, dtype) -> None:
-    if num_text_features > DENSE_TEXT_FEATURE_LIMIT:
-        raise NotImplementedError(
-            f"numTextFeatures {num_text_features} > {DENSE_TEXT_FEATURE_LIMIT} "
-            "needs the sparse/Gram regime (ROADMAP A6), not ported yet"
-        )
+def _check_slice(dtype) -> None:
     if dtype not in DTYPES.values():
         raise ValueError(f"dtype must be one of {sorted(DTYPES)}, got {dtype}")
+
+
+def _unit_mass(lengths, row_len: int):
+    """Row absolute masses of device-hashed tokens from the rows' unit
+    counts: a row of n >= 2 units has n - 1 bigram terms of value 1.0, a
+    1-unit row one term (ops/text_hash.py), at most ``row_len`` - 1."""
+    n = np.asarray(lengths, np.int64)
+    terms = np.where(n == 1, 1, np.maximum(n - 1, 0))
+    return np.minimum(terms, max(int(row_len) - 1, 0))
+
+
+def _bf16_exact(v: np.ndarray) -> np.ndarray:
+    """Whether each float32 value survives a round trip through bfloat16
+    (round to nearest even, as torch and XLA convert)."""
+    bits = np.ascontiguousarray(v, np.float32).view(np.uint32).astype(np.uint64)
+    rounded = ((bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000).astype(np.uint32)
+    return rounded.view(np.float32) == v
+
+
+def host_planes(batch, int8_plane: "bool | None" = None) -> tuple:
+    """The Gram plane of each batch in a HOST batch (numpy fields; one for a
+    single batch, K for a stacked or grouped one), from what the host holds
+    before the copy: the unit counts of the units wires (every device-hashed
+    value is 1.0: integral and bf16-exact, the row mass its term count), the
+    token values of a host-hashed ``FeatureBatch``. Equal to the branch the
+    JAX package's predicates pick on the device (``ops/gram.gram_plane``)."""
+    if isinstance(batch, PackedBatch):
+        batch = unpack_batch(batch.buffer, batch.layout)
+    if isinstance(batch, RaggedUnitBatch):
+        offs = np.asarray(batch.offsets, np.int64)
+        mass = _unit_mass(offs[..., 1:] - offs[..., :-1], batch.row_len)
+        peaks = mass.max(axis=-1, initial=0).reshape(-1)
+        return tuple(gram_plane(float(m), int8_plane=int8_plane) for m in peaks)
+    if isinstance(batch, UnitBatch):
+        mass = _unit_mass(batch.length, batch.units.shape[-1])
+        peaks = mass.max(axis=-1, initial=0).reshape(-1)
+        return tuple(gram_plane(float(m), int8_plane=int8_plane) for m in peaks)
+    v = np.asarray(batch.token_val).astype(np.float32)
+    v = v.reshape((-1,) + v.shape[-2:])  # [K, B, L]
+    planes = []
+    for vk in v:
+        mass = np.abs(vk).sum(axis=-1, dtype=np.float32)
+        planes.append(gram_plane(
+            float(mass.max(initial=0.0)), bool(np.all(vk == np.round(vk))),
+            bool(np.all(_bf16_exact(vk))), int8_plane,
+        ))
+    return tuple(planes)
 
 
 def make_sgd_train_step(
@@ -211,22 +368,33 @@ def make_sgd_train_step(
     round_predictions: bool = True,
     quality: bool = False,
     dtype=torch.float32,
+    use_sparse: "bool | None" = None,
+    use_gram: "bool | None" = None,
+    gram_int8: "bool | None" = None,
 ):
-    """Build the (weights, batch) -> (new_weights, StepOutput) step.
+    """Build the (weights, batch[, plane]) -> (new_weights, StepOutput) step.
     ``residual_fn(raw, label)`` is the per-row gradient multiplier (None:
     least squares, raw − label), ``prediction_fn(raw)`` maps the raw margin
     to the reported prediction (None: identity), rounded HALF_UP when
     ``round_predictions``: the JAX package's three knobs. ``batch`` is a
     PackedBatch (a uint8 buffer tensor), RaggedUnitBatch, UnitBatch or
-    FeatureBatch of tensors on the weights' device."""
-    _check_slice(num_text_features, dtype)
+    FeatureBatch of tensors on the weights' device. ``use_sparse`` (None:
+    above 8192 text features), ``use_gram`` (None: the gate; False: the
+    scatter loop) and ``gram_int8`` (None: ``GRAM_INT8_PLANE``) are the
+    JAX package's. ``plane`` is the batch's Gram plane from
+    ``host_planes`` (None: read from the tokens, which syncs on a card)."""
+    _check_slice(dtype)
     f_text = num_text_features
+    sparse = f_text > DENSE_TEXT_FEATURE_LIMIT if use_sparse is None else use_sparse
     residual_fn = residual_fn or least_squares_residual
-    route = dense_route(mini_batch_fraction, dtype, residual_fn)
+    route = dense_route(mini_batch_fraction, dtype, residual_fn, sparse, use_gram)
+    int8_plane = GRAM_INT8_PLANE if gram_int8 is None else gram_int8
     sampled = mini_batch_fraction < 1.0
     # every batch draws the same masks (the key is PRNGKey(42) each batch),
     # so a row count's [N, B] set is made once, on the step's device
     masks_by_rows: dict = {}
+    loop_kw = dict(num_iterations=num_iterations, step_size=step_size,
+                   l2_reg=l2_reg, convergence_tol=convergence_tol, residual_fn=residual_fn)
 
     def masks_for(rows: int, device):
         key = (rows, str(device))
@@ -237,7 +405,33 @@ def make_sgd_train_step(
                 rows, num_iterations, mini_batch_fraction, dtype, device)
         return masks_by_rows[key]
 
-    def train_step(weights, batch):
+    def gram_sgd(weights, token_idx, token_val, numeric, raw, labels, mask, masks, plane):
+        """The loop in the dual basis: the hand kernels on the card in
+        float32 (B4, the G product, B7, B8), the plain pieces elsewhere."""
+        rows = mask.shape[0]
+        p_prev = torch.sum(weights * weights)
+        dev = weights.device
+        if (dev.type == "cuda" and weights.dtype == torch.float32
+                and residual_mode(residual_fn) is not None):
+            counts = fused_gram.count_build(token_idx, token_val, f_text,
+                                            int8=plane == PLANE_INT8)
+            g = fused_gram.gram_from_counts(counts)
+            g[:rows, :rows] += numeric @ numeric.T  # add_numeric_block
+            # B7 raises past the rows its shared memory holds (~19,000 on an
+            # H100; the 2^18 gate admits at most 4,096)
+            c, alpha, _ = fused_gram.dual_sgd(g, raw, labels, mask, masks=masks,
+                                              p_prev=p_prev, **loop_kw)
+            return fused_gram.dual_writeback_counts(weights, c, alpha, counts, numeric,
+                                                    f_text)
+        g = gram_matrix(token_idx, token_val, numeric, f_text, weights.dtype,
+                        int8_plane, plane)
+        dual = run_dual_loop(u=raw, g=g, labels=labels, mask=mask, dtype=weights.dtype,
+                             p_prev=p_prev, masks=masks, **loop_kw)
+        w_text, w_num = dual_writeback(weights[:f_text], weights[f_text:], dual["c"],
+                                       dual["alpha"], token_idx, token_val, numeric)
+        return torch.cat([w_text, w_num])
+
+    def train_step(weights, batch, plane: "int | None" = None):
         if isinstance(batch, PackedBatch):
             # one-buffer wire: reinterpret its bytes on the device (the
             # offsets' delta decode is the only arithmetic)
@@ -262,17 +456,29 @@ def make_sgd_train_step(
         mask = batch.mask.to(dtype)
         labels = batch.label.to(dtype)
         numeric = batch.numeric.to(dtype)
-        x_dense = torch.cat(
-            [densify_text(token_idx, token_val, f_text), numeric], dim=1
-        )
-        kw = dict(num_iterations=num_iterations, step_size=step_size,
-                  l2_reg=l2_reg, convergence_tol=convergence_tol,
-                  residual_fn=residual_fn)
-        if route == "fused_dense_sgd":
-            w_new, raw = fused_dense_sgd(x_dense, labels, mask, weights, **kw)
+        rows = mask.shape[0]
+        masks = masks_for(rows, mask.device) if sampled else None
+        if not sparse:
+            x_dense = torch.cat(
+                [densify_text(token_idx, token_val, f_text), numeric], dim=1
+            )
+            if route == "fused_dense_sgd":
+                w_new, raw = fused_dense_sgd(x_dense, labels, mask, weights, **loop_kw)
+            else:
+                w_new, raw = dense_sgd_loop(x_dense, labels, mask, weights, masks=masks,
+                                            **loop_kw)
         else:
-            masks = masks_for(mask.shape[0], mask.device) if sampled else None
-            w_new, raw = dense_sgd_loop(x_dense, labels, mask, weights, masks=masks, **kw)
+            raw = sparse_predict(weights[:f_text], weights[f_text:], token_idx,
+                                 token_val, numeric)
+            if route == "gram" and (use_gram or fits_gram(rows, f_text, num_iterations)):
+                if plane is None:
+                    plane = data_plane(token_val, int8_plane)
+                w_new = gram_sgd(weights, token_idx, token_val, numeric, raw, labels,
+                                 mask, masks, plane)
+            else:
+                w_new = sparse_sgd_loop(weights, token_idx, token_val, numeric, labels,
+                                        mask, num_text_features=f_text, masks=masks,
+                                        **loop_kw)
         preds = raw if prediction_fn is None else prediction_fn(raw)
         if round_predictions:
             preds = torch_round_half_up(preds)
@@ -287,6 +493,8 @@ def make_sgd_train_step(
         return w_new, StepOutput(predictions=preds, quality=q, **stats)
 
     train_step.route = route
+    train_step.sparse = sparse
+    train_step.int8_plane = int8_plane
     # the sampled route's cached mask sets (a CUDA graph that reads one
     # holds a reference to it)
     train_step.masks_by_rows = masks_by_rows
@@ -440,11 +648,20 @@ def wire_signature(batch) -> tuple:
         (tuple(a.shape), str(a.dtype)) for a in _wire_fields(batch))
 
 
+def _kernel_counters() -> tuple:
+    """The hand kernels' wrappers, whose counters a graph's replay advances:
+    looked up on their modules at each call (a caller may have wrapped the
+    names this module calls)."""
+    return (fused_sgd.fused_dense_sgd, fused_gram.count_build, fused_gram.dual_sgd,
+            fused_gram.dual_writeback_counts)
+
+
 class _GroupGraph:
     """One captured step_many: the device buffers the graph reads (the
     wire's fields, the incoming weights) and writes (the new weights, the
-    K outputs), the fused-kernel launches one replay makes, and what the
-    graph reads that the model caches (the sampled route's masks)."""
+    K outputs), each hand kernel's launches one replay makes
+    (``_kernel_counters`` order), and what the graph reads that the model
+    caches (the sampled route's masks)."""
 
     __slots__ = ("graph", "wire", "w_in", "w_out", "outs", "launches", "keep")
 
@@ -481,6 +698,9 @@ class StreamingSGDModel:
         dtype=torch.float32,
         quality: bool = False,
         device="cuda",
+        use_sparse: "bool | None" = None,
+        use_gram: "bool | None" = None,
+        gram_int8: "bool | None" = None,
     ) -> None:
         self.num_text_features = num_text_features
         self.dtype = dtype
@@ -497,11 +717,14 @@ class StreamingSGDModel:
             round_predictions=self.round_predictions,
             quality=quality,
             dtype=dtype,
+            use_sparse=use_sparse,
+            use_gram=use_gram,
+            gram_int8=gram_int8,
         )
         self.route = self._train_step.route
-        log.info("dense step route: %s (miniBatchFraction %s, %s weights, %s)",
-                 self.route, mini_batch_fraction, str(dtype).replace("torch.", ""),
-                 self.device)
+        log.info("%s step route: %s (miniBatchFraction %s, %s weights, %s)",
+                 "sparse" if self._train_step.sparse else "dense", self.route,
+                 mini_batch_fraction, str(dtype).replace("torch.", ""), self.device)
         self._weights = zero_weights(num_text_features, dtype, self.device)
         # H2D copies queue without waiting (batch_to_device); False makes
         # each copy synchronous, the reference order for a pipelined run
@@ -575,12 +798,21 @@ class StreamingSGDModel:
             torch.cuda.set_device(self.stream.device)
             torch.cuda.set_stream(self.stream)
 
+    def planes(self, batch) -> tuple:
+        """The Gram plane of each batch in a host batch (``host_planes``), or
+        () on a route that builds no G."""
+        if self.route != "gram":
+            return ()
+        return host_planes(batch, self._train_step.int8_plane)
+
     def step(self, batch) -> StepOutput:
         """Fused predict-then-train on one host micro-batch; advances the
         model and returns the device-side StepOutput, with nothing waited
         for on ``cuda``."""
+        planes = self.planes(batch)
         self._weights, out = self._train_step(
-            self._weights, batch_to_device(batch, self.device, self.non_blocking)
+            self._weights, batch_to_device(batch, self.device, self.non_blocking),
+            plane=planes[0] if planes else None,
         )
         return out
 
@@ -590,15 +822,17 @@ class StreamingSGDModel:
         (``fetch_output``)."""
         return fetch_output(out)
 
-    def _train_many(self, weights, wire):
+    def _train_many(self, weights, wire, planes: tuple = ()):
         """The K steps of a device wire: a packed group or stack unpacks
         first (its [K]-leading fields), then batch k steps with the weights
-        batch k - 1 left. Returns (new weights, [K]-leading StepOutput)."""
+        batch k - 1 left (in Gram plane ``planes[k]`` when given). Returns
+        (new weights, [K]-leading StepOutput)."""
         if isinstance(wire, PackedBatch):
             wire = unpack_batch(wire.buffer, wire.layout)
         outs = []
         for i in range(wire.mask.shape[0]):
-            weights, out = self._train_step(weights, _batch_at(wire, i))
+            weights, out = self._train_step(weights, _batch_at(wire, i),
+                                            plane=planes[i] if planes else None)
             outs.append(out)
         return weights, _stack_outputs(outs)
 
@@ -617,28 +851,33 @@ class StreamingSGDModel:
         (one H2D copy for a packed group) and the incoming weights into its
         input, replays, and takes the new weights and outputs out of the
         graph's buffers (two device copies), so the next replay may
-        overwrite them. The fused kernel's launches a replay makes are
-        added to ``fused_dense_sgd.launches`` at each replay."""
+        overwrite them. The hand kernels' launches a replay makes are added
+        to their wrappers' ``launches`` at each replay. On the Gram route
+        the K batches' planes (``host_planes``) are part of the graph's key."""
+        planes = self.planes(stacked)
         if self.device.type != "cuda":
             self._weights, out = self._train_many(
-                self._weights, batch_to_device(stacked, self.device, self.non_blocking))
+                self._weights, batch_to_device(stacked, self.device, self.non_blocking),
+                planes)
             return out
-        key = wire_signature(stacked)
+        key = wire_signature(stacked) + (planes,)
         entry = self._graphs.get(key)
         if entry is None:
             self._weights, out = self._train_many(
-                self._weights, batch_to_device(stacked, self.device, self.non_blocking))
-            self._capture(key, stacked)
+                self._weights, batch_to_device(stacked, self.device, self.non_blocking),
+                planes)
+            self._capture(key, stacked, planes)
             return out
         entry.w_in.copy_(self._weights)
         for dst, src in zip(_wire_fields(entry.wire), _wire_fields(stacked)):
             dst.copy_(_host_tensor(src), non_blocking=self.non_blocking)
         entry.graph.replay()
-        fused_sgd.fused_dense_sgd.launches += entry.launches
+        for counter, n in zip(_kernel_counters(), entry.launches):
+            counter.launches += n
         self._weights = entry.w_out.clone()
         return StepOutput(*(None if t is None else t.clone() for t in entry.outs))
 
-    def _capture(self, key, stacked) -> None:
+    def _capture(self, key, stacked, planes: tuple = ()) -> None:
         """Capture the K steps of ``stacked``'s signature into a CUDA graph
         on a side stream (the graph's intermediates in its own memory pool)
         and keep it; the oldest of ``_GRAPH_CACHE_SIZE`` graphs goes."""
@@ -648,19 +887,18 @@ class StreamingSGDModel:
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
-        # the wrapper's counters, on the function itself (a caller may have
-        # wrapped the name this module calls)
-        counter = fused_sgd.fused_dense_sgd
-        captured = counter.captured
+        counters = _kernel_counters()
+        captured = [c.captured for c in counters]
         with torch.cuda.stream(side):
             graph.capture_begin(capture_error_mode="thread_local")
             try:
-                w_out, outs = self._train_many(w_in, wire)
+                w_out, outs = self._train_many(w_in, wire, planes)
             finally:
                 graph.capture_end()
         current.wait_stream(side)
         if len(self._graphs) >= _GRAPH_CACHE_SIZE:
             self._graphs.pop(next(iter(self._graphs)))
         self._graphs[key] = _GroupGraph(
-            graph, wire, w_in, w_out, outs, counter.captured - captured,
+            graph, wire, w_in, w_out, outs,
+            tuple(c.captured - n for c, n in zip(counters, captured)),
             tuple(self._train_step.masks_by_rows.values()))

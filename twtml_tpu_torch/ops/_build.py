@@ -18,13 +18,14 @@ import shutil
 import subprocess
 from pathlib import Path
 
-from . import fused_sgd
+from . import fused_gram, fused_sgd
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "twtml_tpu_torch"
 # library name -> (source, extra nvcc flags)
 SOURCES = {
     "fused_sgd": ("fused_sgd.cu", fused_sgd.NVCC_DEFINES),
+    "gram": ("gram.cu", fused_gram.NVCC_DEFINES),
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
