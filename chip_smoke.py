@@ -155,9 +155,35 @@ Phases, in order; any failure ends the run with a non-zero exit:
                wire's featurize by sub-stage, bytes and H2D copy; and where
                a step's time goes on each wire; the logistic mode's kernel
                time (50 iterations), twin and bound; B4, the G product, B7
-               and B8 at config #4's operating point (B = 2048, F = 2^18).
+               and B8 at config #4's operating point (B = 2048, F = 2^18);
+ 20. serve   — the serving plane: a verified checkpoint (stamped ok) of the
+               main phase's weights served by ``apps/serve.run`` on the card
+               (the dashboard server on a loopback port); 2,000 requests of
+               1-16 of the stream phase's tweets from 16 ``ServingClient``
+               threads, every dispatch under the sync-debug mode "error":
+               every answer bitwise equal to the card's train-step
+               pre-update predictions of its rows (computed 256 rows at a
+               time in another composition) under the snapshot step it
+               names, across a second checkpoint written mid-load (the
+               promoter's hot swap: both steps served, none torn); against
+               the ``--backend cpu`` predict engine rounded predictions
+               equal but HALF_UP flips of a raw margin within 2e-3 of a half
+               (counted) and raw margins within 2e-3; B1 launched once a
+               served batch plus the warm-up, each in its predict-only mode
+               (N = 0: 0 iterations, the served weights bitwise the
+               snapshot's); 0 client errors. Two ``python -m
+               twtml_tpu_torch.apps.serve`` processes on the card behind
+               ``apps/router.run``, under ``p99`` and under ``hash``, one
+               of them killed halfway through the second load: 0 client
+               errors, every answer bitwise the train step's, the kill
+               counted as an ejection. A 262,148-weight snapshot (config
+               #4) served on the gather predict, against the CPU twin, B1
+               launched 0 times. Latency p50/p99, QPS and batch fill; one
+               serve step's device ms, launches and host wall; B1 at N = 0
+               at B = 256 and 16384 against its twin, ``torch.mv`` and its
+               bound (all added to B1's record as ``predict_mode``).
 No app run publishes anywhere but the loopback recorder and, in the web
-phase, the port's own server on a loopback port. The line before
+and serve phases, the port's own servers on loopback ports. The line before
 the last is the kernels' JSON record (B1's least-squares and logistic
 modes, B4, B7 and B8); the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -3499,6 +3525,545 @@ def logistic_times(smi, max_err, launches):
     }
 
 
+# ---- phase 20: the serving plane and its fleet router on the card ----------
+
+SERVE_ROWS = 256  # --serveBatchRows's default: the predict step's B
+SERVE_REQUESTS = 2000
+SERVE_CLIENTS = 16
+SERVE_MAX_ROWS = 16
+SWAP_AT = SERVE_REQUESTS // 3  # the second checkpoint lands after this many answers
+FLEET_REQUESTS = 320
+FLEET_CLIENTS = 8
+SPARSE_SERVE_REQUESTS = 64
+RAW_ATOL = 2e-3  # tests/test_torch_step.py's tolerance on raw margins, card vs CPU
+
+
+def serve_pool(statuses):
+    """The request rows: the stream phase's originals as the JSON face."""
+    return [{
+        "text": s.retweeted_status.text,
+        "followers_count": s.retweeted_status.followers_count,
+        "favourites_count": s.retweeted_status.favourites_count,
+        "friends_count": s.retweeted_status.friends_count,
+        "created_at_ms": s.retweeted_status.created_at_ms,
+        "retweet_count": s.retweeted_status.retweet_count,
+    } for s in statuses]
+
+
+def serve_load(url, pool, requests, clients, seed, progress=None):
+    """``requests`` POST /api/predict of 1-16 rows (a seeded slice of
+    ``pool`` each) from ``clients`` threads through ``ServingClient``:
+    [(first row, rows, response, latency s)], the client errors, the
+    wall seconds. ``progress(n)`` sees each answer's running count."""
+    import numpy as np
+
+    from twtml_tpu_torch.serving import ServingClient
+
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(1, SERVE_MAX_ROWS + 1, size=requests)
+    starts = rng.integers(0, len(pool) - SERVE_MAX_ROWS, size=requests)
+    jobs = list(zip(starts.tolist(), sizes.tolist()))
+    out, errors, lock = [], [], threading.Lock()
+
+    def client_thread(k):
+        client = ServingClient(url, timeout=60.0, retries=3)
+        for start, n in jobs[k::clients]:
+            t0 = time.perf_counter()
+            try:
+                res = client.predict(pool[start:start + n])
+            except Exception as exc:  # every client error is counted and fails the phase
+                with lock:
+                    errors.append(repr(exc))
+                continue
+            with lock:
+                out.append((start, n, res, time.perf_counter() - t0))
+                done = len(out)
+            if progress is not None:
+                progress(done)
+
+    threads = [threading.Thread(target=client_thread, args=(k,)) for k in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("serve: a load client did not finish within 300 s")
+    return out, errors, time.perf_counter() - t0
+
+
+class RowRefs:
+    """Each row's reference prediction under a snapshot's weights, computed
+    in batches of ``SERVE_ROWS`` rows of another composition than served:
+    ``train`` is the card's train step (50 iterations; its pre-update
+    predictions), ``cpu`` the CPU predict engine, ``raw_cuda``/``raw_cpu``
+    the raw margins (rounding off) on each device."""
+
+    def __init__(self, pool, weights_by_step, num_text_features=1000):
+        self.pool = pool
+        self.weights = weights_by_step
+        self.nf = num_text_features
+        self.cache: dict = {}
+
+    def model(self, kind):
+        from twtml_tpu_torch.models.linear import StreamingLinearRegressionWithSGD
+        from twtml_tpu_torch.serving.engine import PredictEngine
+
+        class Raw(StreamingLinearRegressionWithSGD):
+            round_predictions = False
+
+        if kind == "train":
+            return StreamingLinearRegressionWithSGD(num_text_features=self.nf)
+        device = "cpu" if kind in ("cpu", "raw_cpu") else "cuda"
+        cls = Raw if kind.startswith("raw") else None
+        return PredictEngine(num_text_features=self.nf, model_cls=cls, device=device).model
+
+    def get(self, kind, step, rows):
+        """{row index: prediction} for ``rows`` (indices into the pool)."""
+        import numpy as np
+
+        from twtml_tpu_torch.features.featurizer import Featurizer
+        from twtml_tpu_torch.serving.plane import ServingPlane
+
+        have = self.cache.setdefault((kind, step), {})
+        todo = sorted(set(rows) - set(have))
+        if not todo:
+            return have
+        model = self.model(kind)
+        feat = Featurizer(num_text_features=self.nf)
+        for i in range(0, len(todo), SERVE_ROWS):
+            chunk = todo[i:i + SERVE_ROWS][::-1]  # another order than served
+            model.set_initial_weights(self.weights[step])
+            batch = feat.featurize_batch_ragged(
+                ServingPlane.statuses_from_rows([self.pool[j] for j in chunk]),
+                row_bucket=SERVE_ROWS, pre_filtered=True)
+            pending = model.fetch_output(model.step(batch))
+            pending.wait()
+            preds = pending.result().predictions[np.asarray(batch.mask) > 0]
+            have.update(zip(chunk, preds.tolist()))
+        return have
+
+
+def check_served(name, answers, refs, steps):
+    """Each answer's predictions against the card's train step under the
+    snapshot its ``snapshotStep`` names: bitwise. Returns the steps seen."""
+    import numpy as np
+
+    seen = {}
+    for start, n, res, _ in answers:
+        step = res["snapshotStep"]
+        if step not in steps or res["servedRows"] != n:
+            raise AssertionError(f"{name}: an answer of {res['servedRows']} rows for {n} "
+                                 f"names step {step}, want one of {steps}")
+        seen.setdefault(step, []).append((start, n, res))
+    for step, group in seen.items():
+        rows = [j for start, n, _ in group for j in range(start, start + n)]
+        want = refs.get("train", step, rows)
+        for start, n, res in group:
+            got = np.asarray(res["predictions"], np.float32)
+            ref = np.asarray([want[j] for j in range(start, start + n)], np.float32)
+            if got.tobytes() != ref.tobytes():  # JSON floats hold float32 exactly
+                raise AssertionError(f"{name}: rows {start}..{start + n} under step {step}: "
+                                     f"served {got[:4]} != train step {ref[:4]}")
+    return {step: len(group) for step, group in seen.items()}
+
+
+def hold_cpu(name, answers, refs, step):
+    """Served (card) against the CPU predict engine: rounded predictions
+    equal except HALF_UP flips of a raw margin within ``RAW_ATOL`` of a
+    half, and raw margins within ``RAW_ATOL``. Returns (rows, flips, max
+    raw error)."""
+    rows = sorted({j for start, n, res, _ in answers if res["snapshotStep"] == step
+                   for j in range(start, start + n)})
+    cpu = refs.get("cpu", step, rows)
+    raw_gpu, raw_cpu = refs.get("raw_cuda", step, rows), refs.get("raw_cpu", step, rows)
+    served = {}
+    for start, n, res, _ in answers:
+        if res["snapshotStep"] == step:
+            served.update(zip(range(start, start + n), res["predictions"]))
+    flips, err = 0, 0.0
+    for j in rows:
+        err = max(err, abs(raw_gpu[j] - raw_cpu[j]))
+        if served[j] != cpu[j]:
+            if abs(abs(raw_cpu[j] % 1.0) - 0.5) > RAW_ATOL:
+                raise AssertionError(f"{name}: row {j} served {served[j]} cpu {cpu[j]} "
+                                     f"(raw {raw_gpu[j]} / {raw_cpu[j]}), not a HALF_UP flip")
+            flips += 1
+    if err > RAW_ATOL:
+        raise AssertionError(f"{name}: raw margins {err:.3e} apart, card against CPU")
+    return len(rows), flips, err
+
+
+def spawn_serve(ck, port, log_path):
+    """``python -m twtml_tpu_torch.apps.serve`` on the card, a process of
+    its own, every dispatch under the sync-debug mode."""
+    from twtml_tpu_torch.apps.common import SYNC_DEBUG_ENV
+
+    env = dict(os.environ, **{SYNC_DEBUG_ENV: "error"})
+    log = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "twtml_tpu_torch.apps.serve", "--backend", "cuda",
+         "--checkpointDir", ck, "--servePort", str(port), "--servePromoteEvery", "0.2",
+         "--blackbox", "off"],
+        cwd=HERE, env=env, stdout=log, stderr=subprocess.STDOUT)
+    proc.log = log
+    return proc
+
+
+def wait_serving(url, step, proc, seconds=120.0):
+    """Until the replica's published Serving view names ``step``."""
+    from twtml_tpu_torch.serving import ServingClient
+
+    client = ServingClient(url, timeout=2.0, retries=0)
+    end = time.monotonic() + seconds
+    while time.monotonic() < end:
+        if proc.poll() is not None:
+            break
+        try:
+            if client.serving().get("snapshotStep", -1) >= step:
+                return
+        except OSError:
+            pass  # not listening yet
+        time.sleep(0.2)
+    proc.log.flush()
+    with open(proc.log.name) as fh:
+        tail = fh.read()[-3000:]
+    raise AssertionError(f"serve replica {url} never served step {step}:\n{tail}")
+
+
+def fleet_arm(ck, pool, refs, step):
+    """Two serve processes on the card behind ``apps/router.run``: a load
+    under ``p99``, then one under ``hash`` with replica 0 killed halfway.
+    No client error; every answer equals the train step under its step;
+    the kill counted as an ejection."""
+    import signal
+
+    from twtml_tpu_torch.apps import router as router_app
+    from twtml_tpu_torch.config import ConfArguments
+    from twtml_tpu_torch.telemetry import metrics
+
+    ports = (free_port(), free_port())
+    urls = [f"http://127.0.0.1:{p}" for p in ports]
+    logs = [os.path.join(os.path.dirname(ck), f"replica{i}.log") for i in range(2)]
+    procs = [spawn_serve(ck, p, log) for p, log in zip(ports, logs)]
+    results = {}
+    try:
+        t0 = time.perf_counter()
+        for url, proc in zip(urls, procs):
+            wait_serving(url, step, proc)
+        phase("serve", f"fleet: 2 serve processes on the card up in "
+              f"{time.perf_counter() - t0:.1f} s (torch import, CUDA context, warm-up)")
+        for policy, kill in (("p99", False), ("hash", True)):
+            ready, stop, got = threading.Event(), threading.Event(), {}
+
+            def started(server, router, got=got, ready=ready):
+                got["port"], got["router"] = server.port, router
+                ready.set()
+
+            conf = ConfArguments().parse(["--replicas", ",".join(urls), "--routerPort", "0",
+                                          "--routePolicy", policy])
+            runner = threading.Thread(target=router_app.run, kwargs=dict(
+                conf=conf, started=started, stop_event=stop))
+            runner.start()
+            if not ready.wait(30):
+                raise AssertionError("fleet: the router never came up")
+            reg = metrics.get_registry()
+            eject0 = reg.counter("fleet.replica_ejections").snapshot()
+
+            def progress(n, kill=kill):
+                if kill and n == FLEET_REQUESTS // 2 and procs[0].poll() is None:
+                    procs[0].send_signal(signal.SIGKILL)
+
+            try:
+                answers, errors, wall = serve_load(
+                    f"http://127.0.0.1:{got['port']}", pool, FLEET_REQUESTS, FLEET_CLIENTS,
+                    seed=31 if kill else 30, progress=progress)
+                if kill:
+                    procs[0].wait(timeout=30)
+                    router = got["router"]
+                    end = time.monotonic() + 30
+                    while router.replicas[0].healthy and time.monotonic() < end:
+                        router.health_check_once()
+                view = got["router"].stats()
+            finally:
+                stop.set()
+                runner.join(timeout=30)
+            if errors:
+                raise AssertionError(f"fleet {policy}: {len(errors)} client errors: "
+                                     f"{errors[:3]}")
+            check_served(f"fleet {policy}", answers, refs, {step})
+            ejections = reg.counter("fleet.replica_ejections").snapshot() - eject0
+            if kill and (ejections < 1 or view["replicas"][0]["healthy"]):
+                raise AssertionError(f"fleet {policy}: the killed replica was not ejected "
+                                     f"({view})")
+            lat = sorted(a[3] for a in answers)
+            results[policy] = {
+                "requests": len(answers), "client_errors": len(errors),
+                "qps": len(answers) / wall, "p50_ms": lat[len(lat) // 2] * 1e3,
+                "p99_ms": lat[int(0.99 * (len(lat) - 1))] * 1e3,
+                "replica_requests": [r["requests"] for r in view["replicas"]],
+                "retries": view["retries"], "ejections": ejections,
+            }
+            phase("serve", f"fleet {policy}{' (replica 0 killed halfway)' if kill else ''}: "
+                  f"{len(answers)} answers, 0 client errors, each bitwise the train step's; "
+                  f"{results[policy]['qps']:.0f} requests/s, p50 "
+                  f"{results[policy]['p50_ms']:.2f} ms, p99 {results[policy]['p99_ms']:.2f} ms; "
+                  f"per replica {results[policy]['replica_requests']}, router retries "
+                  f"{view['retries']}, ejections {ejections}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.terminate()
+                try:
+                    proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait(timeout=10)
+            proc.log.close()
+    return results
+
+
+def predict_mode_times(smi, launches):
+    """B1 at N = 0 (the serving path's predict-only mode) at B = 256 and
+    16384: the kernel alone (device time, queued ahead), its twin, the one
+    PyTorch call of the same function (``torch.mv``: X·w0), the bound; and
+    the mode's checks: w returned bitwise w0, 0 iterations, predictions
+    against the twin, an all-padding batch predicting zeros."""
+    import torch
+
+    from twtml_tpu_torch.ops import fused_sgd
+
+    dev = torch.device("cuda")
+    x_full, y_full, m_full, w0 = op_point_inputs(dev)
+    out = {"launches": launches}
+    for b in (SERVE_ROWS, OP_ROWS):
+        x, y, m = (t[:b].contiguous() for t in (x_full, y_full, m_full))
+        f = x.shape[1]
+        kw = dict(num_iterations=0, step_size=0.005)
+        w, preds = fused_sgd.fused_dense_sgd(x, y, m, w0, **kw)
+        if not torch.equal(w, w0) or int(fused_sgd.fused_dense_sgd.last_iterations.item()):
+            raise AssertionError(f"predict mode B={b}: w changed or iterations ran")
+        _, twin_preds = fused_sgd.fused_dense_sgd_reference(x, y, m, w0, **kw)
+        err, _ = compare(f"predict mode B={b}", preds, twin_preds)
+        _, empty = fused_sgd.fused_dense_sgd(x, y, torch.zeros_like(m), w0, **kw)
+        if empty.abs().max().item() != 0.0:
+            raise AssertionError(f"predict mode B={b}: an all-padding batch predicts non-zero")
+        plan = fused_sgd.launch_plan(b, f, **sm_limits())
+        wo, po = torch.empty(f, device=dev), torch.empty(b, device=dev)
+        spill = torch.empty(plan.spill_elements, dtype=torch.bfloat16, device=dev)
+        scratch = torch.empty(plan.scratch_floats, device=dev)
+        args = fused_sgd.kernel_args(plan, x, y, m, w0, wo, po, spill, scratch,
+                                     num_iterations=0, step_size=0.005, l2_reg=0.0,
+                                     convergence_tol=0.001)
+        for _ in range(3):
+            fused_sgd.call_kernel(plan, args)
+        kernel_ms, times = timed(lambda: fused_sgd.call_kernel(plan, args), 50, queue_ahead=True)
+        twin_ms, _ = timed(lambda: fused_sgd.fused_dense_sgd_reference(x, y, m, w0, **kw), 20,
+                           queue_ahead=True)
+        for _ in range(3):
+            torch.mv(x, w0)
+        mv_ms, _ = timed(lambda: torch.mv(x, w0), 50, queue_ahead=True)
+        mv_err = (torch.mv(x, w0) - preds)[m > 0].abs().max().item()
+        # each input read once, each output written once: f32 X, y, mask and
+        # w0; preds and w
+        io_bytes = b * f * 4 + 4 * b * 2 + 4 * f + 4 * b + 4 * f
+        flops = 2 * b * f
+        bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / F32_FLOPS_PER_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        out[str(b)] = {
+            "ms": kernel_ms, "plain_ms": twin_ms, "library_ms": mv_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "max_abs_err": err,
+            "grid": plan.grid, "mv_max_abs_diff": mv_err,
+        }
+        phase("serve", f"B1 predict-only mode (N = 0) at B={b} F={f} (card: {smi}): kernel "
+              f"alone median {kernel_ms:.4f} ms over 50 runs (min {min(times):.4f}), grid "
+              f"{plan.grid}; twin {twin_ms:.4f} ms; torch.mv (X·w0, the library call) "
+              f"{mv_ms:.4f} ms, within {mv_err:.2e} of the kernel; bound: bytes {io_bytes} B "
+              f"= {bytes_ms:.5f} ms, operations {flops} = {ops_ms:.5f} ms; kernel at "
+              f"{kernel_ms / bound_ms:.1f}x its bound, {kernel_ms / mv_ms:.2f}x torch.mv; "
+              f"w bitwise w0, 0 iterations, max abs err vs twin {err:.2e}, all-padding zeros")
+    return out
+
+
+def serve_step_costs(weights, pool):
+    """One full serve batch (B = 256) through the predict engine on the
+    card: device ms (queued ahead), device busy and launches (profiler),
+    and the host wall of a step with its fetch."""
+    from twtml_tpu_torch.features.featurizer import Featurizer
+    from twtml_tpu_torch.serving import ServingSnapshot
+    from twtml_tpu_torch.serving.engine import PredictEngine
+    from twtml_tpu_torch.serving.plane import ServingPlane
+
+    engine = PredictEngine()
+    engine.set_snapshot(ServingSnapshot(step=0, weights=weights))
+    batch = Featurizer().featurize_batch_ragged(
+        ServingPlane.statuses_from_rows(pool[:SERVE_ROWS]), row_bucket=SERVE_ROWS,
+        pre_filtered=True)
+    wire = engine.pack_for_wire(batch)
+    event_ms, busy, launches = device_costs(lambda: engine.step(wire), 20)
+    walls = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        pending = engine.fetch_output(engine.step(wire))
+        pending.wait()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return {"device_ms": event_ms, "busy_ms": busy, "launches": launches,
+            "host_wall_ms": statistics.median(walls)}
+
+
+def serve_phase(smi, main_weights, statuses):
+    """The serving plane on the card (module docstring, phase 20)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from twtml_tpu_torch.apps import serve as serve_app
+    from twtml_tpu_torch.apps.common import SYNC_DEBUG_ENV
+    from twtml_tpu_torch.checkpoint import Checkpointer
+    from twtml_tpu_torch.config import ConfArguments
+    from twtml_tpu_torch.features.featurizer import Featurizer
+    from twtml_tpu_torch.ops import fused_gram, fused_sgd
+    from twtml_tpu_torch.serving import ServingSnapshot
+    from twtml_tpu_torch.serving.plane import ServingPlane
+    from twtml_tpu_torch.telemetry import metrics
+
+    t_phase = time.perf_counter()
+    pool = serve_pool(statuses)
+    w1 = np.asarray(main_weights, np.float32)
+    w2 = (w1 * np.float32(0.75)).astype(np.float32)
+    refs = RowRefs(pool, {4: w1, 8: w2})
+    ok = {"quality": {"level": "ok"}}
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ck")
+        Checkpointer(ck).save(4, w1, dict(ok, count=4 * OP_ROWS, batches=4))
+        reg = metrics.get_registry()
+        batches0 = reg.counter("serve.batches").snapshot()
+        ready, stop, got = threading.Event(), threading.Event(), {}
+
+        def started(server, plane, promoter):
+            got["url"], got["plane"] = f"http://127.0.0.1:{server.port}", plane
+            ready.set()
+
+        def run():
+            try:
+                got["stats"] = serve_app.run(ConfArguments().parse([
+                    "--backend", "cuda", "--checkpointDir", ck, "--servePort",
+                    str(free_port()), "--servePromoteEvery", "0.2", "--blackbox", "off",
+                ]), started=started, stop_event=stop)
+            except BaseException as exc:  # raised below
+                got["error"] = exc
+                ready.set()
+
+        fused_sgd.fused_dense_sgd.launches = 0
+        for fn in fused_gram.KERNELS:
+            fn.launches = 0
+        os.environ[SYNC_DEBUG_ENV] = "error"
+        server = threading.Thread(target=run)
+        t0 = time.perf_counter()
+        server.start()
+        try:
+            if not ready.wait(120) or "error" in got:
+                raise AssertionError(f"serve: apps/serve.run did not come up: {got.get('error')}")
+            boot_s = time.perf_counter() - t0
+
+            def progress(n):
+                if n == SWAP_AT:  # mid-load, the trainer's next checkpoint
+                    Checkpointer(ck).save(8, w2, dict(ok, count=8 * OP_ROWS, batches=8))
+
+            answers, errors, wall = serve_load(got["url"], pool, SERVE_REQUESTS,
+                                               SERVE_CLIENTS, seed=20, progress=progress)
+        finally:
+            stop.set()
+            server.join(timeout=60)
+            del os.environ[SYNC_DEBUG_ENV]
+        torch.cuda.synchronize()
+        launches = fused_sgd.fused_dense_sgd.launches
+        gram_launches = {fn.__name__: fn.launches for fn in fused_gram.KERNELS}
+        served_batches = reg.counter("serve.batches").snapshot() - batches0
+        plane = got["plane"]
+        if server.is_alive() or "error" in got:
+            raise AssertionError(f"serve: the app did not stop cleanly: {got.get('error')}")
+        if errors:
+            raise AssertionError(f"serve: {len(errors)} client errors: {errors[:3]}")
+        if launches != served_batches + 1 or any(gram_launches.values()):
+            raise AssertionError(f"serve: B1 launched {launches} times for {served_batches} "
+                                 f"batches + the warm-up; Gram kernels {gram_launches}")
+        if (int(fused_sgd.fused_dense_sgd.last_iterations.item()) != 0
+                or not np.array_equal(plane._engine.model.latest_weights, w2)):
+            raise AssertionError("serve: the predict-only launches moved the snapshot's weights")
+        seen = check_served("serve", answers, refs, {4, 8})
+        if set(seen) != {4, 8}:
+            raise AssertionError(f"serve: the hot swap served steps {seen}")
+        lat = sorted(a[3] for a in answers)
+        rows = sum(a[1] for a in answers)
+        phase("serve", f"apps/serve.run on the card up in {boot_s:.2f} s (snapshot of the main "
+              f"phase's 4 batches, step 4); {len(answers)} requests of 1-{SERVE_MAX_ROWS} rows "
+              f"({rows} rows) from {SERVE_CLIENTS} ServingClient threads in {wall:.3f} s = "
+              f"{len(answers) / wall:.0f} requests/s, {rows / wall:.0f} rows/s; latency p50 "
+              f"{lat[len(lat) // 2] * 1e3:.2f} ms, p99 {lat[int(0.99 * (len(lat) - 1))] * 1e3:.2f}"
+              f" ms; {served_batches} batches, fill {rows / served_batches:.1f} rows of "
+              f"{SERVE_ROWS}; every dispatch under set_sync_debug_mode('error'), 0 client errors")
+        phase("serve", f"B1 launched {launches} times = {served_batches} batches + the warm-up, "
+              f"each in predict-only mode (last iterations 0), the served weights bitwise the "
+              f"snapshot's; Gram kernels 0")
+        phase("serve", f"hot swap mid-load to step 8: answers by snapshot step {seen}; every "
+              "answer bitwise equal to the card's train-step pre-update predictions of its rows "
+              f"under the step it names, the references batched {SERVE_ROWS} rows at a time in "
+              "another composition and order (each row's prediction is row-local)")
+        held = {step: hold_cpu("serve", answers, refs, step) for step in (4, 8)}
+        phase("serve", "against the --backend cpu predict engine: " + "; ".join(
+            f"step {s}: {n} rows, {fl} HALF_UP flips, raw margins within {e:.2e}"
+            for s, (n, fl, e) in held.items()) + f" (tolerance {RAW_ATOL})")
+        fleet = fleet_arm(ck, pool, refs, 8)
+
+    # config #4: a 262,148-weight snapshot on the card's gather predict
+    sparse_w = (np.random.default_rng(18).standard_normal(GRAM_F + 4) * 2.0).astype(np.float32)
+    fused_sgd.fused_dense_sgd.launches = 0
+    sparse_refs = RowRefs(pool, {1: sparse_w}, num_text_features=GRAM_F)
+    os.environ[SYNC_DEBUG_ENV] = "error"
+    sp = ServingPlane(ServingSnapshot(step=1, weights=sparse_w), num_text_features=GRAM_F,
+                      featurizer=Featurizer(num_text_features=GRAM_F))
+    try:
+        sp.warmup()
+        sp.start()
+        rng = np.random.default_rng(44)
+        jobs = [(int(s), int(n)) for s, n in zip(
+            rng.integers(0, len(pool) - SERVE_MAX_ROWS, SPARSE_SERVE_REQUESTS),
+            rng.integers(1, SERVE_MAX_ROWS + 1, SPARSE_SERVE_REQUESTS))]
+        futs = [(s, n, sp.submit(sp.statuses_from_rows(pool[s:s + n]))) for s, n in jobs]
+        sparse_answers = [(s, n, {"snapshotStep": 1, "servedRows": n,
+                                  "predictions": f.result(timeout=120)["predictions"]}, 0.0)
+                          for s, n, f in futs]
+    finally:
+        sp.stop()
+        del os.environ[SYNC_DEBUG_ENV]
+    if fused_sgd.fused_dense_sgd.launches or sp._engine.model.route != "scatter":
+        raise AssertionError(f"serve config #4: route {sp._engine.model.route}, B1 launched "
+                             f"{fused_sgd.fused_dense_sgd.launches} times")
+    n4, flips4, err4 = hold_cpu("serve config #4", sparse_answers, sparse_refs, 1)
+    phase("serve", f"config #4 (2^18 + 4 = {GRAM_F + 4} weights): {len(sparse_answers)} requests "
+          f"({n4} rows) on the card's gather predict (route scatter, 0 iterations: no "
+          f"kernel), B1 launched 0 times; against the CPU twin {flips4} HALF_UP flips, raw "
+          f"margins within {err4:.2e}")
+
+    step = serve_step_costs(w1, pool)
+    phase("serve", f"one serve step (B = {SERVE_ROWS}, packed ragged wire, H2D copy "
+          f"included): device {step['device_ms']:.4f} ms (CUDA events, queued ahead), "
+          f"{step['busy_ms']:.4f} ms busy and {step['launches']:.0f} launches (profiler), "
+          f"host wall of step + fetch {step['host_wall_ms']:.3f} ms (median of 20)")
+    predict = predict_mode_times(smi, launches)
+    phase("serve", f"phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {
+        "requests": len(answers), "qps": len(answers) / wall,
+        "p50_ms": lat[len(lat) // 2] * 1e3, "p99_ms": lat[int(0.99 * (len(lat) - 1))] * 1e3,
+        "batches": served_batches, "fill_rows": rows / served_batches, "steps_seen": seen,
+        "cpu_flips": {s: v[1] for s, v in held.items()}, "fleet": fleet, "step": step,
+        "predict_mode": predict,
+    }
+
+
 def main() -> None:
     global RECORDER
     t_start = time.perf_counter()
@@ -3546,6 +4111,9 @@ def main() -> None:
     for r in gram_records:
         r["cases"] = [c for c in gram_cases if c.startswith(r["name"])]
     gram_records[0]["sparse_phase"] = sparse
+    serve = serve_phase(smi, ragged_rec["weights"], web_statuses)
+    record["predict_mode"] = serve.pop("predict_mode")
+    record["serve"] = serve
     import torch
 
     phase("done", f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")

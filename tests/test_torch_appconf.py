@@ -160,8 +160,13 @@ def test_an_empty_oauth_key_sets_no_property(workdir):
 
 
 def test_check_ported_compares_with_the_packaged_defaults(workdir):
-    """A serve flag set in the file is still a non-default value (ROADMAP
-    A8), not the new default."""
-    (workdir / "application.conf").write_text('servePort="9000"\n')
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        ConfArguments().parse([]).check_ported()
+    """A value set in the file that needs an unported part is refused as
+    the same flag would be (``--abtest on``: ROADMAP A9), not taken as the
+    new default; the serve flags the port runs pass from the file too."""
+    (workdir / "application.conf").write_text('servePort="9000"\nabtest="on"\n')
+    conf = ConfArguments().parse([])
+    assert conf.servePort == 9000
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        conf.check_ported()
+    conf.abtest = "off"
+    conf.check_ported()

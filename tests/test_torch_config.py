@@ -179,11 +179,7 @@ UNPORTED = [
     (["--numProcesses", "2"], "A10"),
     (["--processId", "0"], "A10"), (["--coordinator", "host:9"], "A10"),
     (["--elastic", "on"], "A10"), (["--master", "twtml://host:9"], "A10"),
-    (["--servePort", "9000"], "A8"), (["--serveBatchRows", "64"], "A8"),
-    (["--serveMaxWaitMs", "1.5"], "A8"), (["--serveDepth", "2"], "A8"),
-    (["--servePromoteEvery", "1.0"], "A8"), (["--routerPort", "9001"], "A8"),
-    (["--replicas", "http://a:1"], "A8"), (["--routePolicy", "hash"], "A8"),
-    (["--abtest", "on"], "A8"), (["--servingStaleSloS", "5"], "A8"),
+    (["--abtest", "on"], "A9"),
 ]
 
 
@@ -209,8 +205,26 @@ def test_ported_host_paths_pass_check_ported(argv):
     conf.check_ported()
 
 
+# the serving plane and its router (ROADMAP A8): every serve flag but
+# --abtest on, which needs the tenant plane (A9)
+SERVE_VALUES = [
+    ["--servePort", "9000"], ["--serveBatchRows", "64"], ["--serveMaxWaitMs", "1.5"],
+    ["--serveDepth", "2"], ["--servePromoteEvery", "1.0"], ["--routerPort", "9001"],
+    ["--replicas", "http://a:1"], ["--routePolicy", "hash"], ["--servingStaleSloS", "5"],
+    ["--abtest", "off"],
+]
+
+
+@pytest.mark.parametrize("argv", SERVE_VALUES, ids=" ".join)
+def test_serve_flags_pass_check_ported(argv):
+    conf = ConfArguments().parse(argv)
+    JaxConf().parse(argv)
+    common.select_backend(conf)
+
+
 def test_every_serve_flag_is_held():
-    assert {a[0][2:] for a, item in UNPORTED if item == "A8"} == set(SERVE_FLAGS)
+    held = {a[0][2:] for a in SERVE_VALUES} | {a[0][2:] for a, _ in UNPORTED}
+    assert set(SERVE_FLAGS) <= held
 
 
 def test_the_app_refuses_an_unported_value_before_it_builds_anything(monkeypatch):

@@ -56,6 +56,10 @@ def test_port_files_are_found():
             "twtml_tpu_torch/features/sentiment.py", "twtml_tpu_torch/ops/scaler.py"} <= names
     assert {"twtml_tpu_torch/ops/gram.py", "twtml_tpu_torch/ops/fused_gram.py",
             "twtml_tpu_torch/ops/sparse.py"} <= names
+    assert {"twtml_tpu_torch/serving/snapshot.py", "twtml_tpu_torch/serving/engine.py",
+            "twtml_tpu_torch/serving/plane.py", "twtml_tpu_torch/serving/client.py",
+            "twtml_tpu_torch/serving/fleet.py", "twtml_tpu_torch/apps/serve.py",
+            "twtml_tpu_torch/apps/router.py"} <= names
 
 
 def test_importing_the_app_leaves_jax_unloaded():
@@ -79,7 +83,8 @@ def test_importing_the_app_leaves_jax_unloaded():
 @pytest.mark.parametrize("module", [
     "twtml_tpu_torch.web.main", "twtml_tpu_torch.streaming.twitter",
     "twtml_tpu_torch.utils.tracing", "twtml_tpu_torch.apps.logistic_regression",
-    "twtml_tpu_torch.apps.kmeans",
+    "twtml_tpu_torch.apps.kmeans", "twtml_tpu_torch.apps.serve",
+    "twtml_tpu_torch.apps.router", "twtml_tpu_torch.serving.plane",
 ])
 def test_importing_the_host_modules_leaves_jax_and_aiohttp_unloaded(module):
     code = (
@@ -95,3 +100,37 @@ def test_importing_the_host_modules_leaves_jax_and_aiohttp_unloaded(module):
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]"
+
+
+def test_the_router_runs_without_torch():
+    """The fleet router holds no model: importing it, and a run that routes
+    a request and publishes its views, leave torch (and the model layer)
+    unloaded, as the JAX router leaves jax."""
+    code = (
+        "import sys, json, threading, urllib.request, urllib.error\n"
+        "from twtml_tpu_torch.apps import router\n"
+        "from twtml_tpu_torch.config import ConfArguments\n"
+        "import twtml_tpu_torch.serving\n"
+        "assert 'torch' not in sys.modules\n"
+        "stop = threading.Event()\n"
+        "def started(server, rt):\n"
+        "    req = urllib.request.Request(f'http://127.0.0.1:{server.port}/api/predict',\n"
+        "                                 data=b'{\"rows\": [\"x\"]}', method='POST')\n"
+        "    try:\n"
+        "        urllib.request.urlopen(req, timeout=30)\n"
+        "    except urllib.error.HTTPError as exc:\n"
+        "        print(exc.code)\n"
+        "conf = ConfArguments().parse(['--replicas', 'http://127.0.0.1:9', '--routerPort', '0',\n"
+        "                              '--twtweb', 'http://127.0.0.1:9'])\n"
+        "router.run(conf, started=started, max_seconds=2.5)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax', 'twtml_tpu'))\n"
+        "bad += sorted(m for m in sys.modules if m.startswith('twtml_tpu_torch.models'))\n"
+        "print(bad)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["503", "[]"]

@@ -27,8 +27,13 @@ back to back, the padded units under a wall clock):
                          hand-written CUDA kernel in ``csrc/fused_sgd.cu``)
 - ``models``           — the dense streaming SGD step and the linear learner
 - ``convert``          — weights to and from the JAX package's models
+- ``serving``          — verified snapshots and their promotion, the
+                         predict step (the train step at zero iterations),
+                         the coalescing serve plane, its client and the
+                         read-fleet router
 - ``apps``             — the fetch pipeline and watchdog, the warm-up
-                         (``apps/common.py``) and the flagship app
+                         (``apps/common.py``), the training apps, and the
+                         serve and router entry points
 - ``utils``            — rounding, device selection, the clock seam, logging,
                          the ``--profileDir`` tracer (torch.profiler)
 

@@ -1001,6 +1001,8 @@ class FetchPipeline:
         self._last_boundary = 0
         # journal replays a delivery started (note_replay)
         self._replays = 0
+        # (head fetch, when poll() first saw it unfinished)
+        self._head_since = None
 
     def _emit_one(self) -> None:
         pending, out, batch, t, lease, stamp = self._pending.pop(0)
@@ -1078,6 +1080,33 @@ class FetchPipeline:
         delivered batch)."""
         self._dispatched -= 1
         self._refund_count.inc()
+
+    @property
+    def pending_fetches(self) -> int:
+        """Fetches in flight (the serving plane's idle tick reads it)."""
+        return len(self._pending)
+
+    def poll(self) -> None:
+        """Deliver the finished in-order results WITHOUT dispatching (the
+        serving plane's idle tick, so results deliver when no new request
+        comes to trigger ``on_batch``'s early emit). The watchdog's
+        deadline holds here too: a head fetch that outlives it with no
+        traffic behind it goes through the blocking path, whose watchdog
+        re-issues and at last aborts, so a stalled fetch on an idle plane
+        does not hang its clients until the next request."""
+        while self._pending and self._pending[0][0].done():
+            self._emit_one()
+        if not self._pending:
+            self._head_since = None
+            return
+        head = self._pending[0][0]
+        now = time.monotonic()
+        if self._head_since is None or self._head_since[0] is not head:
+            self._head_since = (head, now)
+            return
+        if now - self._head_since[1] > self._watchdog.deadline():
+            self._head_since = None
+            self._emit_one()  # blocking: the watchdog owns it from here
 
     def flush(self) -> None:
         try:

@@ -8,8 +8,8 @@ exists; its ``consumerKey``/``consumerSecret``/``accessToken``/
 ``accessTokenSecret`` land in the ``twitter4j.oauth.*`` property table). The
 parser takes every flag and short alias of the JAX package's parser;
 ``--backend`` is the one deliberate difference (``cuda|cpu``, default
-``cuda``). A value that selects a feature the port has not ported (a
-superbatch, the digram codec, block ingest, tenants, serving, multi-host)
+``cuda``). A value that selects a feature the port has not ported (the
+digram codec, block ingest, tenants and ``--abtest on``, multi-host)
 parses, and ``check_ported`` then raises ``NotImplementedError`` naming its
 ROADMAP item. ``--wire auto`` resolves by the JAX package's rule: ragged for
 a back-to-back stream (``--seconds 0`` or below) that hashes on the device,
@@ -141,8 +141,8 @@ _VALID = {
     "routePolicy": ("p99", "hash"), "servingStaleSloS": lambda v: v >= 0,
 }
 
-# the serving and router flags (apps/serve.py, apps/router.py of the JAX
-# package): any value but the default needs ROADMAP A8
+# the serving and router flags (apps/serve.py, apps/router.py); of them
+# only --abtest on needs an unported part (the tenant plane, ROADMAP A9)
 SERVE_FLAGS = ("servePort", "serveBatchRows", "serveMaxWaitMs", "serveDepth",
                "servePromoteEvery", "routerPort", "replicas", "routePolicy",
                "abtest", "servingStaleSloS")
@@ -289,13 +289,43 @@ class ConfArguments:
                                                ragged wire only) one packed buffer a group; auto =
                                                stacked. Default: {self.wirePack}
 
+  Serving (python -m twtml_tpu_torch.apps.serve) and its fleet router
+  (python -m twtml_tpu_torch.apps.router):
+  --servePort <int>                            Port of the serve entry point's web server (the
+                                               dashboard and the POST /api/predict front door).
+                                               Default: {self.servePort}
+  --serveBatchRows <int rows>                  Coalescer: dispatch a predict batch once this
+                                               many rows are admitted (the padded row bucket;
+                                               a larger request is refused). Default: {self.serveBatchRows}
+  --serveMaxWaitMs <float ms>                  Coalescer: dispatch a partial batch once the
+                                               oldest admitted request has waited this long.
+                                               Default: {self.serveMaxWaitMs}
+  --serveDepth <int>                           Predict batches in flight (pipelined result
+                                               fetches). Default: {self.serveDepth}
+  --servePromoteEvery <float seconds>          Poll --checkpointDir this often; a new verified
+                                               checkpoint stamped ok/warn hot-swaps in between
+                                               dispatches, alert refuses. Default: {self.servePromoteEvery}
+  --servingStaleSloS <float s>                 Warn-only staleness SLO on the served snapshot's
+                                               age (a flight-recorder event and a counter a
+                                               breach episode); 0 = none. Default: {self.servingStaleSloS}
+  --routerPort <int>                           Port of the router's front door (POST
+                                               /api/predict forwarded, GET /api/fleet live).
+                                               Default: {self.routerPort}
+  --replicas <url,url,...>                     The router's serve replicas (base URLs), health-
+                                               checked through GET /api/serving; a failing one
+                                               is ejected behind a jittered backoff and its
+                                               traffic retried on the others.
+  --routePolicy <p99|hash>                     p99: the healthy replica with the lowest rolling
+                                               p99 x (in flight + 1); hash: consistent hashing
+                                               of the request body (64 vnodes a replica), so a
+                                               key sticks to one replica. Default: {self.routePolicy}
+
   The JAX package's other flags parse with its defaults; a value other than
   the single-host default stops the run naming the ROADMAP item it needs:
-  --ingest block and --blockWire (A12), --wireCodec dict (A11), --tenants > 1 and --tenantKey
-  (A9), --servePort, --serveBatchRows, --serveMaxWaitMs, --serveDepth,
-  --servePromoteEvery, --routerPort, --replicas, --routePolicy, --abtest and
-  --servingStaleSloS (A8), --coordinator, --numProcesses, --processId,
-  --elastic, --elasticEvictTicks, --elasticEvictSkewMs and --elasticRejoin (A10).
+  --ingest block and --blockWire (A12), --wireCodec dict (A11), --tenants > 1, --tenantKey
+  and --abtest on (champion/challenger serving on a tenant stack: A9), --coordinator,
+  --numProcesses, --processId, --elastic, --elasticEvictTicks, --elasticEvictSkewMs
+  and --elasticRejoin (A10).
   -h, --help
 """
 
@@ -348,7 +378,6 @@ class ConfArguments:
         the JAX package ignores on this path (``--wirePack`` without a
         superbatch, ``--blockWire`` without block ingest, ``--tenantKey``
         with one tenant, the elastic knobs with ``--elastic off``) pass."""
-        defaults = _load_defaults()
 
         def refuse(flag, what, item):
             raise NotImplementedError(
@@ -360,9 +389,8 @@ class ConfArguments:
             refuse("--ingest block", "block ingest", "A12")
         if self.tenants > 1:
             refuse(f"--tenants {self.tenants}", "the tenant plane", "A9")
-        for attr in SERVE_FLAGS:
-            if getattr(self, attr) != _TYPES[attr](defaults[attr]):
-                refuse(f"--{attr} {getattr(self, attr)}", "serving", "A8")
+        if self.abtest == "on":
+            refuse("--abtest on", "champion/challenger serving on the tenant plane", "A9")
         if (self.coordinator or self.numProcesses != 0 or self.processId != -1
                 or self.master.startswith("twtml://") or self.elastic == "on"):
             refuse("--coordinator/--numProcesses/--processId/--elastic or a "

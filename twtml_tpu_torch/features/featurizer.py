@@ -355,11 +355,11 @@ class Featurizer:
         mask[:n] = 1.0
         return numeric, label, mask
 
-    def _gather_rows(self, statuses: list[Status]):
-        """Filter, then extract the kept statuses, their originals' raw
-        texts and the originals' five numeric columns (float64 [n, 5],
-        ``_NUMERIC_COLS`` order)."""
-        keep = [s for s in statuses if self.filtrate(s)]
+    def _gather_rows(self, statuses: list[Status], pre_filtered: bool = False):
+        """Filter (unless the caller did: ``pre_filtered``), then extract
+        the kept statuses, their originals' raw texts and the originals'
+        five numeric columns (float64 [n, 5], ``_NUMERIC_COLS`` order)."""
+        keep = statuses if pre_filtered else [s for s in statuses if self.filtrate(s)]
         originals = [s.retweeted_status for s in keep]
         texts = [o.text for o in originals]
         cols = np.fromiter(
@@ -368,11 +368,11 @@ class Featurizer:
         ).reshape(len(originals), 5)
         return keep, originals, texts, cols
 
-    def _encode_batch_texts(self, statuses: list[Status]):
+    def _encode_batch_texts(self, statuses: list[Status], pre_filtered: bool = False):
         """Filter + UTF-16 encode: (keep, originals, cols, units, offsets,
         all_ascii). Texts with non-ASCII characters take Python's Unicode
         ``lower()``; ASCII texts are case-folded during the pad copy."""
-        keep, originals, texts, cols = self._gather_rows(statuses)
+        keep, originals, texts, cols = self._gather_rows(statuses, pre_filtered)
         joined = "".join(texts)
         if not joined.isascii():
             texts = [t if t.isascii() else t.lower() for t in texts]
@@ -437,6 +437,7 @@ class Featurizer:
         row_bucket: int = 0,
         unit_bucket: int = 0,
         pack: bool = False,
+        pre_filtered: bool = False,
     ) -> RaggedUnitBatch | PackedBatch:
         """Filter + encode a micro-batch for the RAGGED wire: the units ship
         concatenated (the total rounded up to RAGGED_UNIT_MULTIPLE) with row
@@ -448,11 +449,14 @@ class Featurizer:
 
         ``pack=True`` returns the batch packed into one buffer
         (``pack_batch``); the fill's lease then goes straight back to the
-        arena, since the packed buffer holds copies of its bytes."""
+        arena, since the packed buffer holds copies of its bytes.
+        ``pre_filtered`` skips the retweet filter: every status is a row
+        (the serving plane's requests, each a retweet wrapper of the
+        original it scores)."""
         self.last_substages = []
         t0 = time.perf_counter()
         keep, originals, cols, units, offsets, all_ascii = self._encode_batch_texts(
-            statuses
+            statuses, pre_filtered
         )
         t0 = self._sub("encode", t0)
         n = len(originals)

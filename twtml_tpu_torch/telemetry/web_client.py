@@ -1,19 +1,22 @@
 """Minimal JSON/HTTP client of the twtml web API (counterpart of
 ``twtml_tpu/telemetry/web_client.py``): POST Config/Stats/Series/Metrics/
-ModelHealth/Freshness to ``{server}/api`` with stdlib urllib. Callers wrap
-every call best-effort, as the reference wraps them in ``Try``
-(telemetry/session_stats.py). Each request is a ``--chaos`` ``web``
+ModelHealth/Freshness/History/Serving/Fleet to ``{server}/api`` with stdlib
+urllib. Callers wrap every call best-effort, as the reference wraps them in
+``Try`` (telemetry/session_stats.py). Each request is a ``--chaos`` ``web``
 injection point."""
 
 from __future__ import annotations
 
+import sys
 import urllib.request
 
 from .api_types import (
-    Config, Freshness, History, Metrics, ModelHealth, Series, Stats, encode,
+    Config, Fleet, Freshness, History, Metrics, ModelHealth, Series, Serving, Stats, encode,
 )
 
 DEFAULT_SERVER = "http://localhost:8888"
+
+_FAULTS = __name__.rsplit(".", 2)[0] + ".streaming.faults"
 
 
 class WebClient:
@@ -22,9 +25,12 @@ class WebClient:
         self.timeout = timeout
 
     def _post(self, obj) -> None:
-        from ..streaming import faults as _faults
-
-        _faults.perturb("web")
+        # the --chaos "web" point; a process that never loaded the injector
+        # (the fleet router) has none installed, and does not load it here
+        # (it would pull in the model layer)
+        faults = sys.modules.get(_FAULTS)
+        if faults is not None:
+            faults.perturb("web")
         req = urllib.request.Request(
             self.server + "/api",
             data=encode(obj).encode("utf-8"),
@@ -80,3 +86,13 @@ class WebClient:
         """The historian's view (telemetry/historian.py ``last_history``)."""
         known = History.__dataclass_fields__
         self._post(History(**{k: v for k, v in view.items() if k in known}))
+
+    def serving(self, view: dict) -> None:
+        """The serving plane's view (``ServingPlane.stats()``)."""
+        known = Serving.__dataclass_fields__
+        self._post(Serving(**{k: v for k, v in view.items() if k in known}))
+
+    def fleet(self, view: dict) -> None:
+        """The read fleet's view (``FleetRouter.stats()``)."""
+        known = Fleet.__dataclass_fields__
+        self._post(Fleet(**{k: v for k, v in view.items() if k in known}))

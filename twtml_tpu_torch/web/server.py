@@ -12,9 +12,18 @@ semantics are the JAX server's:
 - ``WS /api``: push the cached Config to the new socket; every text frame
   it sends is cached and sent to every socket, the sender included;
 - ``GET /api/{config,stats,series,metrics,hosts,tenants,model,serving,
-  fleet,freshness,history}``: the cached views;
-- ``POST /api/predict``: 503 with an ``error`` field (this process serves
-  no model; the serving plane is ROADMAP A8);
+  fleet,freshness,history}``: the cached views; ``/api/fleet`` is the live
+  router view when a ``FleetRouter`` is attached (``attach_fleet``);
+- ``POST /api/predict``: the serving front door. With a ``ServingPlane``
+  attached (``attach_serving``, apps/serve.py) the rows go to its
+  coalescer and the handler awaits the plane's future without blocking
+  the loop: 200 with ``predictions``, ``snapshotStep``, ``servedRows`` and
+  ``modelStalenessS``; 400 for a malformed or oversized body; 503 after a
+  plane abort. With a router attached (apps/router.py) the body is
+  forwarded in the router's own thread pool, off the event loop, and the
+  replica's status and body pass through (503 when the whole fleet is
+  down). With neither, 503: this process serves no model. Errors are
+  JSON with an ``error`` field;
 - ``GET /`` the dashboard, ``GET /{path}`` its assets (each path segment
   vetted; a fresher ``.min.js`` shadows its ``.js``); 404 for an unknown
   path, 405 for a known path with another method (GET routes take HEAD).
@@ -150,6 +159,23 @@ class Server:
         self._server: asyncio.Server | None = None
         self._thread: threading.Thread | None = None
         self._assets = _res.files(__package__).joinpath("assets")
+        # the serving front door: a ServingPlane (apps/serve.py) or a
+        # FleetRouter (apps/router.py) makes POST /api/predict live
+        self._serving = None
+        self._fleet = None
+
+    def attach_serving(self, plane) -> "Server":
+        """Attach a ``serving.ServingPlane``: POST /api/predict submits to
+        its coalescer and awaits the pipelined result."""
+        self._serving = plane
+        return self
+
+    def attach_fleet(self, router) -> "Server":
+        """Attach a ``serving.FleetRouter``: POST /api/predict forwards to a
+        replica by the route policy, and GET /api/fleet answers with the
+        router's live view."""
+        self._fleet = router
+        return self
 
     # -- routing ---------------------------------------------------------------
     @staticmethod
@@ -191,14 +217,53 @@ class Server:
             await self._broadcast(text)
             body = OK.encode()
         elif name == "predict":
-            body = json.dumps({"error": "serving not enabled on this server (the port's "
-                                        "serving plane is ROADMAP A8)"}).encode()
-            status = 503
+            status, body = await self._predict(req.body)
+        elif name == "view" and req.path == "/api/fleet" and self._fleet is not None:
+            # a router answers live (host bookkeeping under its lock)
+            body = json.dumps({"jsonClass": "Fleet", **self._fleet.stats()}).encode()
         elif name == "view":
             body = getattr(self.cache, req.path[5:])().encode()
         else:
             body, ctype = self._static_file("index.html" if name == "index" else req.path[1:])
         return _response(status, body, ctype, req.keep_alive, head_only=req.method == "HEAD")
+
+    async def _predict(self, body: bytes) -> tuple[int, bytes]:
+        """(status, JSON body) of ``POST /api/predict`` (module docstring)."""
+        def fail(status: int, message: str) -> tuple[int, bytes]:
+            return status, json.dumps({"error": message}).encode()
+
+        if self._fleet is not None:
+            # urllib blocks: forward in the router's own pool, whose size
+            # bounds the fleet's in-flight forwards
+            return await asyncio.get_running_loop().run_in_executor(
+                self._fleet.executor, self._fleet.predict, body)
+        plane = self._serving
+        if plane is None:
+            return fail(503, "serving not enabled on this server (start via "
+                             "twtml_tpu_torch.apps.serve or route a fleet via "
+                             "twtml_tpu_torch.apps.router)")
+        try:
+            payload = json.loads(body.decode("utf-8"))
+            rows = payload["rows"] if isinstance(payload, dict) else payload
+            if not isinstance(rows, list):
+                raise ValueError("body must be {\"rows\": [...]} ")
+            statuses = plane.statuses_from_rows(rows)
+        except (ValueError, KeyError, TypeError) as exc:
+            return fail(400, f"bad predict request: {exc}")
+        try:
+            # the plane's future resolves on its serve loop; the fetch
+            # watchdog bounds how long it can take
+            result = await asyncio.wrap_future(plane.submit(statuses))
+        except ValueError as exc:  # an oversized request
+            return fail(400, str(exc))
+        except Exception as exc:  # a plane abort or shutdown: the client may retry
+            return fail(503, str(exc))
+        return 200, json.dumps({
+            "predictions": result["predictions"],
+            "snapshotStep": result["snapshot_step"],
+            "servedRows": len(result["predictions"]),
+            "modelStalenessS": result.get("model_staleness_s", -1.0),
+        }).encode()
 
     def _static_file(self, rel: str) -> tuple[bytes, str]:
         # join segment by segment with every segment vetted: an absolute
