@@ -155,7 +155,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
                wire's featurize by sub-stage, bytes and H2D copy; and where
                a step's time goes on each wire; the logistic mode's kernel
                time (50 iterations), twin and bound; B4, the G product, B7
-               and B8 at config #4's operating point (B = 2048, F = 2^18);
+               and B8 at config #4's operating point (B = 2048, F = 2^18),
+               with ``torch.bincount`` as B4's library call; B4's f32 build
+               on tweet-length rows (L = 511): (a) on their tokens, (b)
+               with every index out of range, (c) ``torch.bincount``, the
+               counts bitwise the CPU twin's and a rerun's;
  20. serve   — the serving plane: a verified checkpoint (stamped ok) of the
                main phase's weights served by ``apps/serve.run`` on the card
                (the dashboard server on a loopback port); 2,000 requests of
@@ -169,7 +173,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
                the ``--backend cpu`` predict engine rounded predictions
                equal but HALF_UP flips of a raw margin within 2e-3 of a half
                (counted) and raw margins within 2e-3; B1 launched once a
-               served batch plus the warm-up, each in its predict-only mode
+               served batch plus the warm-up, each its predict kernel
                (N = 0: 0 iterations, the served weights bitwise the
                snapshot's); 0 client errors. Two ``python -m
                twtml_tpu_torch.apps.serve`` processes on the card behind
@@ -179,13 +183,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
                counted as an ejection. A 262,148-weight snapshot (config
                #4) served on the gather predict, against the CPU twin, B1
                launched 0 times. Latency p50/p99, QPS and batch fill; one
-               serve step's device ms, launches and host wall; B1 at N = 0
-               at B = 256 and 16384 against its twin, ``torch.mv`` and its
-               bound (all added to B1's record as ``predict_mode``).
+               serve step's device ms, launches and host wall; B1's
+               predict kernel at B = 256 and 16384 bitwise the N = 1
+               launch's first-pass predictions, and at F = 2000 and 8196
+               (the wide order), NaN/Inf in masked rows bitwise ignored,
+               an all-padding batch predicting zeros; its device time
+               against its twin, ``torch.mv`` and its bound.
 No app run publishes anywhere but the loopback recorder and, in the web
 and serve phases, the port's own servers on loopback ports. The line before
 the last is the kernels' JSON record (B1's least-squares and logistic
-modes, B4, B7 and B8); the last line is ``{"ok": true, "device": {...}}``.
+modes, its predict kernel, B4 with its f32 build on tweet-length rows, B7
+and B8); the last line is ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --times-only [--package-root DIR]`` runs phases 1
+and 2 and then only the kernels' device times (B1's logistic mode, its
+predict kernel, B4 in both planes, the G product, B7, B8), importing the port from
+DIR (another checkout unpacked there), so that two versions can be timed
+in turns in one call; its last line is that JSON.
 """
 
 from __future__ import annotations
@@ -204,6 +218,7 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+PACKAGE_ROOT = HERE  # where twtml_tpu_torch is imported from (``--package-root``)
 OP_ROWS = 16384  # bench.py's operating point: tweets per batch
 OP_ITERS = 50
 RTOL, ATOL = 1e-4, 1e-5
@@ -284,7 +299,7 @@ def device_phase():
 
 
 def build_phase():
-    sys.path.insert(0, HERE)
+    sys.path.insert(0, PACKAGE_ROOT)
     from twtml_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -2989,6 +3004,96 @@ def sparse_breakdown(statuses, scatter_check=True):
     return dict(out, scatter_bitwise=bitwise)
 
 
+def bincount_ms(idx, val, rows, cols):
+    """``torch.bincount`` of the flat (row, index) pairs weighted by the
+    values, at ``minlength`` rows·cols: the dense counts in one PyTorch call
+    (float32 for float32 weights; it sizes its output from max(index), a
+    device-to-host read). Median device time of 10, queued ahead; and its
+    output's dtype."""
+    import torch
+
+    flat = (torch.arange(idx.shape[0], device=idx.device)[:, None] * cols + idx).reshape(-1)
+    w = val.reshape(-1)
+    call = lambda: torch.bincount(flat, weights=w, minlength=rows * cols)  # noqa: E731
+    dtype = str(call().dtype)
+    return timed(call, 10, queue_ahead=True)[0], dtype
+
+
+def f32_build_times(smi):
+    """B4's f32 build on tweet-length rows: batch 2 of the sparse phase's
+    ``long_statuses`` (140-280 code units, the exact plane), device-hashed at
+    B = 2048 x 2^18: (a) the kernel on those tokens, (b) the same shape with
+    every index out of range (only the zero-fill, the token staging and the
+    sort), (c) ``torch.bincount``; its twin, its bound; the counts bitwise
+    the CPU twin's and a rerun's, and the CPU twin's with the indices taken
+    mod 1024 (crowded steps)."""
+    import torch
+
+    from twtml_tpu_torch.features.featurizer import Featurizer
+    from twtml_tpu_torch.models.sgd import batch_to_device
+    from twtml_tpu_torch.ops import fused_gram
+    from twtml_tpu_torch.ops.text_hash import hash_bigrams_device
+
+    tweets = long_statuses(LONG_SPANS, GRAM_ROWS, seed=14)[GRAM_ROWS:2 * GRAM_ROWS]
+    host = Featurizer(now_ms=NOW_MS, num_text_features=GRAM_F).featurize_batch_units(
+        tweets, row_bucket=GRAM_ROWS)
+    dev = batch_to_device(host, "cuda", non_blocking=False)
+    idx, val = hash_bigrams_device(dev.units, dev.length, GRAM_F)
+    b, l = idx.shape
+    f = GRAM_F
+    build = lambda i: fused_gram.count_build(i, val, f, int8=False)  # noqa: E731
+    c = build(idx)
+    rows, cols = c.shape
+    again = build(idx)
+    twin = fused_gram.count_build_reference(idx.cpu(), val.cpu(), f, int8=False,
+                                            rows_out=rows, cols_out=cols)
+    card_twin = fused_gram.count_build_reference(idx, val, f, int8=False, rows_out=rows,
+                                                 cols_out=cols)
+    torch.cuda.synchronize()
+    if not torch.equal(bits(c), bits(again)):
+        raise AssertionError("count_build f32 L=511: reruns are not bitwise equal")
+    if not torch.equal(bits(c).cpu(), bits(twin)):
+        raise AssertionError("count_build f32 L=511: differs bitwise from the CPU twin")
+    card_twin_bitwise = bool(torch.equal(bits(c), bits(card_twin)))
+    del again, twin, card_twin
+    # every row's keys in the first 1024 columns: steps (32 chunks) that hold
+    # more keys than a warp's window of 32
+    crowded = build(idx % 1024)
+    crowded_twin = fused_gram.count_build_reference((idx % 1024).cpu(), val.cpu(), 1024,
+                                                    int8=False, rows_out=rows)
+    if (not torch.equal(bits(crowded[:, :1024]).cpu(), bits(crowded_twin))
+            or bool(crowded[:, 1024:].any())):
+        raise AssertionError("count_build f32 L=511, crowded steps: differs bitwise from the "
+                             "CPU twin")
+    del crowded, crowded_twin
+    oor = torch.full_like(idx, f)  # every index out of range: nothing counts
+    if bool(build(oor).any()):
+        raise AssertionError("count_build f32: an out-of-range index was counted")
+    a_ms, a_all = timed(lambda: build(idx), 25, queue_ahead=True)
+    b_ms, b_all = timed(lambda: build(oor), 25, queue_ahead=True)
+    lib_ms, lib_dtype = bincount_ms(idx, val, rows, cols)
+    twin_ms, _ = timed(lambda: fused_gram.count_build_reference(
+        idx, val, f, int8=False, rows_out=rows, cols_out=cols), 5)
+    io_bytes = rows * cols * 4 + b * l * 8
+    bound_ms = io_bytes / HBM_BYTES_PER_S * 1e3
+    phase("times", f"B4 f32 build on tweet-length rows (card: {smi}): B={b} L={l} F={f}, C "
+          f"{rows} x {cols} f32; (a) tokens: median {a_ms:.4f} ms over 25 (min "
+          f"{min(a_all):.4f}); (b) every index out of range: {b_ms:.4f} ms (min "
+          f"{min(b_all):.4f}); (a) - (b) = {a_ms - b_ms:.4f} ms; rows crowded into 1024 columns "
+          f"bitwise the CPU twin; (c) torch.bincount "
+          f"({lib_dtype}): {lib_ms:.4f} ms; twin {twin_ms:.4f} ms; bound {io_bytes} B / "
+          f"3.35e12 B/s = {bound_ms:.5f} ms "
+          f"(bytes), the kernel at {bound_ms / a_ms:.0%} of it; counts bitwise the CPU "
+          f"twin's and a rerun's (the card's twin: "
+          f"{'bitwise' if card_twin_bitwise else 'NOT bitwise'})")
+    return {"ms": a_ms, "tokens": l,
+            "out_of_range_ms": b_ms, "token_pass_ms": a_ms - b_ms, "plain_ms": twin_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms,
+            "library_call": "torch.bincount", "library_dtype": lib_dtype,
+            "bitwise_cpu_twin": True, "bitwise_card_twin": card_twin_bitwise,
+            "rerun_bitwise": True}
+
+
 def gram_times(smi, errs, launches):
     """B4, the G product, B7 and B8 at config #4's operating point (B = 2048
     synthetic tweets at F = 2^18, device-hashed, the int8 plane): each
@@ -3038,6 +3143,7 @@ def gram_times(smi, errs, launches):
         idx, val, f, int8=int8, rows_out=rows, cols_out=cols), 5)
     b4_bytes = rows * cols * counts.element_size() + b * l * 8
     b4_bound = (b4_bytes / HBM_BYTES_PER_S * 1e3, 0.0)
+    b4_lib, b4_lib_dtype = bincount_ms(idx, val, rows, cols)
     # the G product: torch._int_mm (s8 x s8 -> s32) and the f32 cast
     mm_ms, _ = timed(lambda: torch._int_mm(counts, counts.t()), 10, queue_ahead=True)
     g_ms, _ = timed(lambda: fused_gram.gram_from_counts(counts), 10, queue_ahead=True)
@@ -3048,8 +3154,10 @@ def gram_times(smi, errs, launches):
     del counts_f32
     phase("times", f"B4 count build at B={b} L={l} F={f} ({PLANE_NAMES[plane]} plane, "
           f"C {tuple(counts.shape)} {counts.dtype}): median {b4_ms:.4f} ms over 25 (min "
-          f"{min(b4_all):.4f}); twin {b4_twin:.4f} ms; bound {b4_bytes} B / 3.35e12 B/s = "
-          f"{b4_bound[0]:.5f} ms (bytes); {b4_ms / b4_bound[0]:.1f}x | card: {smi}")
+          f"{min(b4_all):.4f}); twin {b4_twin:.4f} ms; torch.bincount ({b4_lib_dtype} counts) {b4_lib:.4f} ms; bound "
+          f"{b4_bytes} B / 3.35e12 B/s = {b4_bound[0]:.5f} ms (bytes); "
+          f"{b4_ms / b4_bound[0]:.1f}x | card: {smi}")
+    f32_build = f32_build_times(smi)
     phase("times", f"G product: torch._int_mm {tuple(counts.shape)} x its transpose "
           f"{mm_ms:.4f} ms (with the f32 cast {g_ms:.4f}); bound {mm_ops} int8 operations / "
           f"1979e12 = {mm_bound:.5f} ms ({mm_ms / mm_bound:.1f}x); the f32 planes' f32 matmul "
@@ -3104,7 +3212,9 @@ def gram_times(smi, errs, launches):
     return [
         record("count_build", "twtml_tpu/ops/gram.py:133 (onehot_counts_int8; :112 "
                "onehot_counts, sparse.py:29 densify_text)", b4_ms, b4_twin, b4_bound, {
-                   "kernel": "B4", "plane": PLANE_NAMES[plane],
+                   "kernel": "B4", "plane": PLANE_NAMES[plane], "tokens": l,
+                   "library_ms": b4_lib, "library_call": "torch.bincount",
+                   "library_dtype": b4_lib_dtype, "f32_build": f32_build,
                    "gram_product": {"call": "torch._int_mm", "ms": mm_ms,
                                     "with_f32_cast_ms": g_ms, "bound_ms": mm_bound,
                                     "bound_by": "operations", "f32_matmul_ms": f32_ms,
@@ -3823,67 +3933,130 @@ def fleet_arm(ck, pool, refs, step):
     return results
 
 
+PREDICT_AHEAD_CYCLES = 2_000_000  # ~1 ms: the wrapper's host work stays off the clock
+
+
+def bits(t):
+    """A float32 tensor's bit patterns (a comparison that tells -0 from 0)."""
+    import torch
+
+    return t.contiguous().view(dtype=torch.int32)
+
+
+def predict_case(name, x, y, m, w0):
+    """The predict kernel (N = 0) against the training kernel's first row
+    pass (N = 1) on the same batch, bitwise; w returned bitwise w0, 0
+    iterations; the twin within RTOL/ATOL. Returns (preds, max abs err)."""
+    import torch
+
+    from twtml_tpu_torch.ops import fused_sgd
+
+    w, preds = fused_sgd.fused_dense_sgd(x, y, m, w0, num_iterations=0, step_size=0.005)
+    iterations = int(fused_sgd.fused_dense_sgd.last_iterations.item())
+    _, train = fused_sgd.fused_dense_sgd(x, y, m, w0, num_iterations=1, step_size=0.005)
+    again = fused_sgd.fused_dense_sgd(x, y, m, w0, num_iterations=0, step_size=0.005)[1]
+    _, twin = fused_sgd.fused_dense_sgd_reference(x, y, m, w0, num_iterations=0,
+                                                  step_size=0.005)
+    torch.cuda.synchronize()
+    if not torch.equal(bits(preds), bits(train)):
+        diff = int((bits(preds) != bits(train)).sum())
+        raise AssertionError(f"predict {name}: {diff} predictions differ bitwise from the "
+                             "N = 1 launch's first pass")
+    if not torch.equal(bits(w), bits(w0)) or iterations != 0:
+        raise AssertionError(f"predict {name}: w changed or {iterations} iterations ran")
+    if not torch.equal(bits(preds), bits(again)):
+        raise AssertionError(f"predict {name}: reruns are not bitwise equal")
+    err, _ = compare(f"predict {name}", preds, twin)
+    return preds, err
+
+
 def predict_mode_times(smi, launches):
-    """B1 at N = 0 (the serving path's predict-only mode) at B = 256 and
-    16384: the kernel alone (device time, queued ahead), its twin, the one
-    PyTorch call of the same function (``torch.mv``: X·w0), the bound; and
-    the mode's checks: w returned bitwise w0, 0 iterations, predictions
-    against the twin, an all-padding batch predicting zeros."""
+    """B1's predict-only kernel (N = 0, the serving path's) at B = 256 and
+    16384: bitwise the N = 1 launch's first-pass predictions, w bitwise w0,
+    0 iterations, the twin within RTOL/ATOL, an all-padding batch predicting
+    zeros; the same at F = 2000 and 8196 (the wide order) and with NaN/Inf
+    in masked rows, bitwise ignored; the kernel alone through its wrapper (device time,
+    queued ahead), its twin, the one PyTorch call of the same function
+    (``torch.mv``: X·w0), the bound. The kernels line's record."""
+    import numpy as np
     import torch
 
     from twtml_tpu_torch.ops import fused_sgd
 
     dev = torch.device("cuda")
     x_full, y_full, m_full, w0 = op_point_inputs(dev)
-    out = {"launches": launches}
+    out = {}
     for b in (SERVE_ROWS, OP_ROWS):
         x, y, m = (t[:b].contiguous() for t in (x_full, y_full, m_full))
         f = x.shape[1]
         kw = dict(num_iterations=0, step_size=0.005)
-        w, preds = fused_sgd.fused_dense_sgd(x, y, m, w0, **kw)
-        if not torch.equal(w, w0) or int(fused_sgd.fused_dense_sgd.last_iterations.item()):
-            raise AssertionError(f"predict mode B={b}: w changed or iterations ran")
-        _, twin_preds = fused_sgd.fused_dense_sgd_reference(x, y, m, w0, **kw)
-        err, _ = compare(f"predict mode B={b}", preds, twin_preds)
+        preds, err = predict_case(f"B={b}", x, y, m, w0)
         _, empty = fused_sgd.fused_dense_sgd(x, y, torch.zeros_like(m), w0, **kw)
         if empty.abs().max().item() != 0.0:
             raise AssertionError(f"predict mode B={b}: an all-padding batch predicts non-zero")
-        plan = fused_sgd.launch_plan(b, f, **sm_limits())
-        wo, po = torch.empty(f, device=dev), torch.empty(b, device=dev)
-        spill = torch.empty(plan.spill_elements, dtype=torch.bfloat16, device=dev)
-        scratch = torch.empty(plan.scratch_floats, device=dev)
-        args = fused_sgd.kernel_args(plan, x, y, m, w0, wo, po, spill, scratch,
-                                     num_iterations=0, step_size=0.005, l2_reg=0.0,
-                                     convergence_tol=0.001)
+        call = lambda: fused_sgd.fused_dense_sgd(x, y, m, w0, **kw)  # noqa: E731
         for _ in range(3):
-            fused_sgd.call_kernel(plan, args)
-        kernel_ms, times = timed(lambda: fused_sgd.call_kernel(plan, args), 50, queue_ahead=True)
+            call()
+        kernel_ms, times = timed(call, 50, queue_ahead=True,
+                                 ahead_cycles=PREDICT_AHEAD_CYCLES)
         twin_ms, _ = timed(lambda: fused_sgd.fused_dense_sgd_reference(x, y, m, w0, **kw), 20,
-                           queue_ahead=True)
+                           queue_ahead=True, ahead_cycles=PREDICT_AHEAD_CYCLES)
         for _ in range(3):
             torch.mv(x, w0)
-        mv_ms, _ = timed(lambda: torch.mv(x, w0), 50, queue_ahead=True)
+        mv_ms, _ = timed(lambda: torch.mv(x, w0), 50, queue_ahead=True,
+                         ahead_cycles=PREDICT_AHEAD_CYCLES)
         mv_err = (torch.mv(x, w0) - preds)[m > 0].abs().max().item()
-        # each input read once, each output written once: f32 X, y, mask and
-        # w0; preds and w
-        io_bytes = b * f * 4 + 4 * b * 2 + 4 * f + 4 * b + 4 * f
+        # each input the function needs read once, each output written once:
+        # f32 X, mask and w0; preds and w (it reads no labels)
+        io_bytes = b * f * 4 + 4 * b + 4 * f + 4 * b + 4 * f
         flops = 2 * b * f
         bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
         ops_ms = flops / F32_FLOPS_PER_S * 1e3
         bound_ms = max(bytes_ms, ops_ms)
-        out[str(b)] = {
-            "ms": kernel_ms, "plain_ms": twin_ms, "library_ms": mv_ms, "bound_ms": bound_ms,
+        out[b] = {
+            "ms": kernel_ms, "plain_ms": twin_ms,
+            "library_ms": mv_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "max_abs_err": err,
-            "grid": plan.grid, "mv_max_abs_diff": mv_err,
+            "mv_max_abs_diff": mv_err, "bitwise_first_pass": True,
         }
-        phase("serve", f"B1 predict-only mode (N = 0) at B={b} F={f} (card: {smi}): kernel "
-              f"alone median {kernel_ms:.4f} ms over 50 runs (min {min(times):.4f}), grid "
-              f"{plan.grid}; twin {twin_ms:.4f} ms; torch.mv (X·w0, the library call) "
-              f"{mv_ms:.4f} ms, within {mv_err:.2e} of the kernel; bound: bytes {io_bytes} B "
-              f"= {bytes_ms:.5f} ms, operations {flops} = {ops_ms:.5f} ms; kernel at "
-              f"{kernel_ms / bound_ms:.1f}x its bound, {kernel_ms / mv_ms:.2f}x torch.mv; "
-              f"w bitwise w0, 0 iterations, max abs err vs twin {err:.2e}, all-padding zeros")
-    return out
+        phase("serve", f"B1 predict kernel (N = 0) at B={b} F={f} (card: {smi}): kernel "
+              f"alone median {kernel_ms:.4f} ms over 50 runs (min {min(times):.4f}); twin "
+              f"{twin_ms:.4f} ms; torch.mv "
+              f"(X·w0, the library call) {mv_ms:.4f} ms, within {mv_err:.2e} of the kernel; "
+              f"bound: bytes {io_bytes} B = {bytes_ms:.5f} ms, operations {flops} = "
+              f"{ops_ms:.5f} ms; kernel at {kernel_ms / bound_ms:.1f}x its bound, "
+              f"{kernel_ms / mv_ms:.2f}x torch.mv; preds bitwise the N = 1 launch's first "
+              f"pass, w bitwise w0, 0 iterations, max abs err vs twin {err:.2e}, all-padding "
+              "zeros")
+
+    # the wide order (F > 1024) and NaN/Inf in masked rows, each bitwise
+    # the training kernel's first pass
+    rng = np.random.default_rng(2030)
+    to = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    for rows, feats, valid in ((1024, 2000, 1000), (SERVE_ROWS, 1004, 130), (300, 8196, 250)):
+        x, y, m = design(rng, rows, feats, valid)
+        w = to((rng.normal(size=feats) * 1e-2).astype("float32"))
+        clean, err = predict_case(f"B={rows} F={feats}", to(x * m[:, None]), to(y), to(m), w)
+        x[m == 0] = np.nan
+        x[(m == 0).nonzero()[0][::2], 1] = np.inf
+        dirty, _ = predict_case(f"B={rows} F={feats} NaN/Inf", to(x), to(y), to(m), w)
+        if not torch.equal(bits(clean), bits(dirty)):
+            raise AssertionError(f"predict B={rows} F={feats}: NaN/Inf in masked rows reached "
+                                 "the predictions")
+        phase("serve", f"B1 predict kernel at B={rows} F={feats} "
+              f"({'wide' if feats > fused_sgd.TILE_COLUMNS else 'narrow'} order): preds "
+              f"bitwise the N = 1 launch's first pass, max abs err vs twin {err:.2e}; "
+              f"NaN/Inf in {rows - valid} masked rows: bitwise equal")
+    serve = out[SERVE_ROWS]
+    return dict({
+        "name": "fused_dense_predict", "route": "cuda",
+        "source": "twtml_tpu_torch/csrc/fused_sgd.cu",
+        "replaces": "twtml_tpu/ops/pallas_sgd.py:55 (_sgd_kernel at num_iterations=0)",
+        "tpu_function": "_sgd_kernel", "launches": launches,
+        "max_abs_err": max(o["max_abs_err"] for o in out.values()),
+        "library_call": "torch.mv(X, w0)", "shape": [SERVE_ROWS, x_full.shape[1]],
+    }, **{k: serve[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        at_16384=out[OP_ROWS])
 
 
 def serve_step_costs(weights, pool):
@@ -3957,6 +4130,7 @@ def serve_phase(smi, main_weights, statuses):
                 ready.set()
 
         fused_sgd.fused_dense_sgd.launches = 0
+        fused_sgd.fused_dense_sgd.predict_launches = 0
         for fn in fused_gram.KERNELS:
             fn.launches = 0
         os.environ[SYNC_DEBUG_ENV] = "error"
@@ -3980,6 +4154,7 @@ def serve_phase(smi, main_weights, statuses):
             del os.environ[SYNC_DEBUG_ENV]
         torch.cuda.synchronize()
         launches = fused_sgd.fused_dense_sgd.launches
+        predict_launches = fused_sgd.fused_dense_sgd.predict_launches
         gram_launches = {fn.__name__: fn.launches for fn in fused_gram.KERNELS}
         served_batches = reg.counter("serve.batches").snapshot() - batches0
         plane = got["plane"]
@@ -3987,9 +4162,11 @@ def serve_phase(smi, main_weights, statuses):
             raise AssertionError(f"serve: the app did not stop cleanly: {got.get('error')}")
         if errors:
             raise AssertionError(f"serve: {len(errors)} client errors: {errors[:3]}")
-        if launches != served_batches + 1 or any(gram_launches.values()):
-            raise AssertionError(f"serve: B1 launched {launches} times for {served_batches} "
-                                 f"batches + the warm-up; Gram kernels {gram_launches}")
+        if (launches != served_batches + 1 or predict_launches != launches
+                or any(gram_launches.values())):
+            raise AssertionError(f"serve: B1 launched {launches} times ({predict_launches} "
+                                 f"of them its predict kernel) for {served_batches} batches "
+                                 f"+ the warm-up; Gram kernels {gram_launches}")
         if (int(fused_sgd.fused_dense_sgd.last_iterations.item()) != 0
                 or not np.array_equal(plane._engine.model.latest_weights, w2)):
             raise AssertionError("serve: the predict-only launches moved the snapshot's weights")
@@ -4006,8 +4183,8 @@ def serve_phase(smi, main_weights, statuses):
               f" ms; {served_batches} batches, fill {rows / served_batches:.1f} rows of "
               f"{SERVE_ROWS}; every dispatch under set_sync_debug_mode('error'), 0 client errors")
         phase("serve", f"B1 launched {launches} times = {served_batches} batches + the warm-up, "
-              f"each in predict-only mode (last iterations 0), the served weights bitwise the "
-              f"snapshot's; Gram kernels 0")
+              f"each its predict kernel ({predict_launches} predict launches, last iterations "
+              f"0), the served weights bitwise the snapshot's; Gram kernels 0")
         phase("serve", f"hot swap mid-load to step 8: answers by snapshot step {seen}; every "
               "answer bitwise equal to the card's train-step pre-update predictions of its rows "
               f"under the step it names, the references batched {SERVE_ROWS} rows at a time in "
@@ -4053,22 +4230,43 @@ def serve_phase(smi, main_weights, statuses):
           f"included): device {step['device_ms']:.4f} ms (CUDA events, queued ahead), "
           f"{step['busy_ms']:.4f} ms busy and {step['launches']:.0f} launches (profiler), "
           f"host wall of step + fetch {step['host_wall_ms']:.3f} ms (median of 20)")
-    predict = predict_mode_times(smi, launches)
+    predict = predict_mode_times(smi, predict_launches)
     phase("serve", f"phase wall {time.perf_counter() - t_phase:.1f} s")
     return {
         "requests": len(answers), "qps": len(answers) / wall,
         "p50_ms": lat[len(lat) // 2] * 1e3, "p99_ms": lat[int(0.99 * (len(lat) - 1))] * 1e3,
         "batches": served_batches, "fill_rows": rows / served_batches, "steps_seen": seen,
         "cpu_flips": {s: v[1] for s, v in held.items()}, "fleet": fleet, "step": step,
-        "predict_mode": predict,
+        "predict_kernel": predict,
     }
 
 
+def times_only(smi):
+    """``--times-only``: the kernels' device times alone (B1's training
+    kernel in its logistic mode, its predict-only mode, B4 in both planes,
+    the G product, B7 and B8), no app phase; with ``--package-root DIR`` on
+    the port found in DIR (another checkout, e.g. a parent commit unpacked
+    there), so that two versions are timed in one call, in turns. It calls
+    only the kernels' wrappers and C entries."""
+    from collections import defaultdict
+
+    out = {"package_root": PACKAGE_ROOT, "logistic": logistic_times(smi, 0.0, 0)}
+    out["predict"] = predict_mode_times(smi, 0)
+    out["gram"] = gram_times(smi, defaultdict(float), defaultdict(int))
+    print(json.dumps({"times_only": out}), flush=True)
+
+
 def main() -> None:
-    global RECORDER
+    global RECORDER, PACKAGE_ROOT
     t_start = time.perf_counter()
+    argv = sys.argv[1:]
+    if "--package-root" in argv:
+        PACKAGE_ROOT = os.path.abspath(argv[argv.index("--package-root") + 1])
     smi = device_phase()
     build_phase()
+    if "--times-only" in argv:
+        times_only(smi)
+        return
     max_errs, kernel_cases = kernel_phase()
     gram_errs, gram_cases = gram_kernel_phase()
     # pins the featurizer's clock and the synthetic tweets' creation times:
@@ -4112,12 +4310,13 @@ def main() -> None:
         r["cases"] = [c for c in gram_cases if c.startswith(r["name"])]
     gram_records[0]["sparse_phase"] = sparse
     serve = serve_phase(smi, ragged_rec["weights"], web_statuses)
-    record["predict_mode"] = serve.pop("predict_mode")
+    predict_record = serve.pop("predict_kernel")
     record["serve"] = serve
     import torch
 
     phase("done", f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [record, logistic_record, *gram_records]}), flush=True)
+    print(json.dumps({"kernels": [record, logistic_record, predict_record, *gram_records]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,7 @@ of X (it also rounds w and r to bf16 per product; the port keeps them f32).
 The CUDA kernel itself is held against this twin on the card by
 chip_smoke.py."""
 
+import ctypes
 import re
 from pathlib import Path
 
@@ -253,6 +254,18 @@ def test_kernel_entry_takes_the_wrapper_arguments():
     assert len(params.split(",")) == len(fused_sgd.KERNEL_ARGTYPES)
 
 
+def test_predict_entry_takes_the_wrapper_arguments():
+    """The predict kernel's C entry takes as many parameters as the
+    wrapper's ctypes argument list, pointers where the wrapper passes
+    pointers."""
+    source = KERNEL_SOURCE.read_text()
+    params = re.search(r'extern "C" int twtml_fused_dense_predict\(([^)]*)\)', source).group(1)
+    params = [p.strip() for p in params.split(",")]
+    assert len(params) == len(fused_sgd.PREDICT_ARGTYPES)
+    for param, argtype in zip(params, fused_sgd.PREDICT_ARGTYPES):
+        assert ("*" in param) == (argtype is ctypes.c_void_p), param
+
+
 def test_launch_plan_refuses_what_cannot_fit():
     with pytest.raises(ValueError, match="shared memory"):
         fused_sgd.launch_plan(16384, 8196, sm_count=1, shared_limit=48 * 1024)
@@ -343,3 +356,55 @@ def test_convergence_freeze_literal():
     np.testing.assert_allclose(
         free, [1.5401664525721208, 0, 0, 0, 0, 0], rtol=1e-5, atol=1e-6
     )
+
+
+# ---- the predict-only kernel (N = 0): its plan and the twin's predictions ----
+
+
+@pytest.mark.parametrize("features", [1004, 2000, 8196])
+@pytest.mark.parametrize("rows", [1, 255, 256, 16384])
+def test_predict_plan_covers_every_row_once(rows, features):
+    """Warp w of the grid takes rows w, w + warps, ...: every row exactly
+    once, every warp the same number of rows give or take one, at most two
+    CTAs an SM, and w0's shared memory within the 48 KiB a launch takes
+    without opting in."""
+    plan = fused_sgd.predict_plan(rows, features, sm_count=H100_SMS)
+    assert 1 <= plan.grid <= fused_sgd.PREDICT_CTAS_PER_SM * H100_SMS
+    owned = sorted(r for w in range(plan.warps) for r in plan.warp_rows(w))
+    assert owned == list(range(rows))
+    per_warp = [len(plan.warp_rows(w)) for w in range(plan.warps)]
+    assert max(per_warp) - min(per_warp) <= 1
+    # no CTA without a row, and no smaller grid gives each warp fewer rows
+    assert (plan.grid - 1) * fused_sgd.PREDICT_WARPS < rows
+    assert plan.fpad == fused_sgd.padded_columns(features)
+    assert plan.shared_bytes == 4 * max(plan.fpad, fused_sgd.TILE_COLUMNS) <= 48 * 1024
+
+
+def test_predict_plan_spreads_the_serve_batch():
+    """B = 256 (the serve batch): a row a warp over 32 CTAs; B = 16384: 8
+    rows a warp over 256 CTAs (two an SM at most on 132 SMs)."""
+    assert fused_sgd.predict_plan(256, 1004, sm_count=H100_SMS).grid == 32
+    plan = fused_sgd.predict_plan(16384, 1004, sm_count=H100_SMS)
+    assert plan.grid == 256 and {len(plan.warp_rows(w)) for w in range(plan.warps)} == {8}
+    with pytest.raises(ValueError, match="at least one row"):
+        fused_sgd.predict_plan(0, 1004, sm_count=H100_SMS)
+
+
+@pytest.mark.parametrize("n_valid", [14, 0])
+def test_predict_only_matches_the_pallas_kernel(n_valid):
+    """N = 0 (the serving path's predict-only call): the twin's predictions
+    against the JAX package's kernel at num_iterations=0, the weights
+    returned unchanged, masked rows predicting 0."""
+    batch = make_batch(n=n_valid)
+    x = dense_design(batch)
+    w0 = RNG.normal(size=(F_TEXT + 4,)).astype(np.float32) * 0.1
+    kw = dict(num_iterations=0, step_size=0.005)
+    w, preds = twin(x, batch.label, batch.mask, w0=w0, **kw)
+    w_ref, preds_ref = pallas_sgd.fused_dense_sgd(
+        jnp.asarray(x), jnp.asarray(batch.label), jnp.asarray(batch.mask),
+        jnp.asarray(w0), interpret=True, **kw)
+    np.testing.assert_array_equal(w, w0)
+    np.testing.assert_array_equal(np.asarray(w_ref), w0)
+    valid = batch.mask.astype(bool)
+    np.testing.assert_allclose(preds[valid], np.asarray(preds_ref)[valid], rtol=2e-3, atol=2e-3)
+    np.testing.assert_array_equal(preds[~valid], 0.0)

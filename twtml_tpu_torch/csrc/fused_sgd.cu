@@ -66,6 +66,25 @@
 // operands would round w and r at each product, which the f32 twin does
 // not; so the kernel stays on the f32 FMA units, and so does its bound.
 // TMA and clusters buy nothing for a one-time, row-contiguous prologue.
+//
+// ---- fused_predict_kernel: the predict-only mode (N = 0, every served
+// dense batch): preds = bf16(where(mask > 0, X, 0))·w0 in f32, w_out = w0,
+// 0 iterations. What bounds it: bytes, one read of f32 X (66 MB at B =
+// 16384, F = 1004: 0.0197 ms at 3.35 TB/s); at the serve batch (B = 256,
+// 1 MB) the launch and one trip to device memory. Design: a plain launch
+// (no cooperative launch, no grid barrier, no count, X never stored): a warp
+// takes a row at a time, grid-stride over the rows, and reads its f32
+// columns straight from device memory with 16-byte read-only loads, the
+// next row's loads in flight while this row computes (two register
+// buffers); w0 stays in registers (narrow) or shared memory (wide) across
+// the warp's rows. The arithmetic is the training kernel's first row pass
+// instruction for instruction: the same lane owns the same 8-column groups,
+// stage_row's where-and-round (pack_bf16x2), dot8 in the same order, then
+// warp_sum; wider than 1024 columns, row_pass_wide's order (the dot carried
+// across tiles). So its preds equal bitwise the preds of a launch of the
+// training kernel on the same batch. A lane's two 16-byte loads of one
+// group share a 32-byte sector; they go through L1 (ld.global.nc), so the
+// second finds the sector the first brought in and X crosses from L2 once.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -85,15 +104,20 @@ constexpr int kReduceSlots = 4;             // warps summed per slot in rounds
 constexpr int kScratchFloats = 4;  // CTA-wide broadcast slots
 constexpr int kConvergedSlot = 0;
 constexpr int kCountSlot = 1;
+constexpr int kPredictThreads = 256;  // 8 warps, two CTAs an SM
+constexpr int kPredictWarps = kPredictThreads / 32;
 
 // The launch plan (ops/fused_sgd.py) sizes the shared memory from its own
 // copy of these constants; ops/_build.py passes that copy as -D flags, so
 // the two cannot drift apart without the build failing here.
 #if !defined(TWTML_SGD_THREADS) || !defined(TWTML_SGD_TILE_COLUMNS) || \
-    !defined(TWTML_SGD_REDUCE_SLOTS) || !defined(TWTML_SGD_SCRATCH_FLOATS)
+    !defined(TWTML_SGD_REDUCE_SLOTS) || !defined(TWTML_SGD_SCRATCH_FLOATS) || \
+    !defined(TWTML_SGD_PREDICT_THREADS)
 #error "build through twtml_tpu_torch/ops/_build.py, which passes the launch plan's constants"
 #endif
 static_assert(kThreads == TWTML_SGD_THREADS, "THREADS differs from ops/fused_sgd.py");
+static_assert(kPredictThreads == TWTML_SGD_PREDICT_THREADS,
+              "PREDICT_THREADS differs from ops/fused_sgd.py");
 static_assert(kTileCols == TWTML_SGD_TILE_COLUMNS, "TILE_COLUMNS differs from ops/fused_sgd.py");
 static_assert(kReduceSlots == TWTML_SGD_REDUCE_SLOTS, "REDUCE_SLOTS differs from ops/fused_sgd.py");
 static_assert(kScratchFloats == TWTML_SGD_SCRATCH_FLOATS,
@@ -203,6 +227,12 @@ __device__ __forceinline__ float residual(float dot, float y) {
 __device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);  // round to nearest even
   return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// 8 f32 columns as one 16-byte group of bf16, in column order
+__device__ __forceinline__ uint4 pack8(const float4 a, const float4 b) {
+  return make_uint4(pack_bf16x2(a.x, a.y), pack_bf16x2(a.z, a.w), pack_bf16x2(b.x, b.y),
+                    pack_bf16x2(b.z, b.w));
 }
 
 // Where local row l is stored: shared memory for a resident row, the spill
@@ -424,9 +454,7 @@ __device__ __forceinline__ void stage_row(const Params& p, uint4* x_s, float* y_
 #pragma unroll
     for (int k = 0; k < kVpl; ++k) {
       const int v = v0 + lane + 32 * k;
-      if (v < p.stride)
-        dst[v] = make_uint4(pack_bf16x2(a[k].x, a[k].y), pack_bf16x2(a[k].z, a[k].w),
-                            pack_bf16x2(b[k].x, b[k].y), pack_bf16x2(b[k].z, b[k].w));
+      if (v < p.stride) dst[v] = pack8(a[k], b[k]);
     }
   }
   if (lane == 0) y_s[l] = keep ? __ldg(p.labels + row) : 0.f;
@@ -554,6 +582,122 @@ __global__ void __launch_bounds__(kThreads, 1) fused_sgd_kernel(const Params p) 
   if (cta == 0 && threadIdx.x == 0) *p.iterations = train ? (float)it : 0.f;
 }
 
+// ------------------------------------------------------------------ predict
+
+struct PredictParams {
+  const float* x;     // [rows, features] f32, row stride features
+  const float* mask;  // [rows] f32
+  const float* w0;    // [features] f32
+  float* w_out;       // [features] f32: w0
+  float* preds;       // [rows] f32
+  float* iterations;  // [1] f32: 0
+  int rows, features, fpad, nvec;
+};
+
+// The f32 columns of the groups v0 + lane + 32k (k < kVpl) of one row:
+// 16-byte read-only loads where a group lies whole inside the row, else
+// per column, zero past `features` (as stage_row reads them).
+__device__ __forceinline__ void load_groups_f32(const float* xr, int features, int v0,
+                                                int lane, bool vec4, float4 (&a)[kVpl],
+                                                float4 (&b)[kVpl]) {
+#pragma unroll
+  for (int k = 0; k < kVpl; ++k) {
+    const int c0 = (v0 + lane + 32 * k) * 8;
+    if (vec4 && c0 + 8 <= features) {
+      a[k] = __ldg(reinterpret_cast<const float4*>(xr + c0));
+      b[k] = __ldg(reinterpret_cast<const float4*>(xr + c0 + 4));
+    } else {  // ragged edge, zero padding, or X not 16-byte aligned
+      float f8[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) f8[e] = c0 + e < features ? __ldg(xr + c0 + e) : 0.f;
+      a[k] = make_float4(f8[0], f8[1], f8[2], f8[3]);
+      b[k] = make_float4(f8[4], f8[5], f8[6], f8[7]);
+    }
+  }
+}
+
+// One narrow row in flight: its f32 columns and its mask.
+struct RowF32 {
+  float4 a[kVpl], b[kVpl];
+  float m;
+};
+
+__device__ __forceinline__ void load_row_f32(const PredictParams& p, int row, int lane,
+                                             bool vec4, RowF32& r) {
+  load_groups_f32(p.x + (size_t)row * p.features, p.features, 0, lane, vec4, r.a, r.b);
+  r.m = __ldg(p.mask + row);
+}
+
+// narrow_row's dot on the first pass, from stage_row's bf16 groups.
+__device__ __forceinline__ void predict_narrow_row(const PredictParams& p, const RowF32& r,
+                                                   const float (&wr)[kVpl][8], int row,
+                                                   int lane) {
+  const bool keep = r.m > 0.f;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  float dot = dot8(keep ? pack8(r.a[0], r.b[0]) : zero, wr[0], 0.f);
+#pragma unroll
+  for (int k = 1; k < kVpl; ++k) dot += dot8(keep ? pack8(r.a[k], r.b[k]) : zero, wr[k], 0.f);
+  dot = warp_sum(dot);
+  if (lane == 0) p.preds[row] = dot;
+}
+
+__global__ void __launch_bounds__(kPredictThreads, 2) fused_predict_kernel(const PredictParams p) {
+  extern __shared__ __align__(16) float w_s[];  // w0, zero past features
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int stride = gridDim.x * kPredictWarps;  // warps in the grid
+  const int rows = p.rows, features = p.features, nvec = p.nvec;
+  const bool narrow = nvec <= kTileGroups;
+  const bool vec4 = features % 4 == 0 && (reinterpret_cast<uintptr_t>(p.x) & 15) == 0;
+  int row = blockIdx.x * kPredictWarps + warp;
+  RowF32 cur, nxt;
+  if (narrow && row < rows) load_row_f32(p, row, lane, vec4, cur);  // in flight meanwhile
+  const int wcols = narrow ? kTileCols : p.fpad;
+  for (int f = threadIdx.x; f < wcols; f += kPredictThreads)
+    w_s[f] = f < features ? __ldg(p.w0 + f) : 0.f;
+  for (int f = blockIdx.x * kPredictThreads + threadIdx.x; f < features;
+       f += gridDim.x * kPredictThreads)
+    p.w_out[f] = __ldg(p.w0 + f);
+  if (blockIdx.x == 0 && threadIdx.x == 0) *p.iterations = 0.f;
+  __syncthreads();
+
+  if (narrow) {  // w in registers; the next row's loads in flight while this one computes
+    float wr[kVpl][8];
+#pragma unroll
+    for (int k = 0; k < kVpl; ++k) load_w8(w_s, lane + 32 * k, wr[k]);
+    while (row < rows) {
+      if (row + stride < rows) load_row_f32(p, row + stride, lane, vec4, nxt);
+      predict_narrow_row(p, cur, wr, row, lane);
+      row += stride;
+      if (row >= rows) break;
+      if (row + stride < rows) load_row_f32(p, row + stride, lane, vec4, cur);
+      predict_narrow_row(p, nxt, wr, row, lane);
+      row += stride;
+    }
+    return;
+  }
+  // wide: row_pass_wide's order, the dot carried across tiles of 1024 columns
+  for (; row < rows; row += stride) {
+    const float* xr = p.x + (size_t)row * features;
+    const bool keep = __ldg(p.mask + row) > 0.f;
+    float dot = 0.f;
+    for (int g0 = 0; g0 < nvec; g0 += kTileGroups) {
+      float4 a[kVpl], b[kVpl];
+      load_groups_f32(xr, features, g0, lane, vec4, a, b);
+#pragma unroll
+      for (int k = 0; k < kVpl; ++k) {
+        const int v = g0 + lane + 32 * k;
+        if (v < nvec) {
+          float w8[8];
+          load_w8(w_s, v, w8);
+          dot = dot8(keep ? pack8(a[k], b[k]) : make_uint4(0u, 0u, 0u, 0u), w8, dot);
+        }
+      }
+    }
+    dot = warp_sum(dot);
+    if (lane == 0) p.preds[row] = dot;
+  }
+}
+
 }  // namespace
 
 // Once a device, before its first launch: the SM count and the opt-in
@@ -645,4 +789,34 @@ extern "C" int twtml_fused_dense_sgd(
   return (int)cudaLaunchCooperativeKernel(kernel,
                                           dim3(grid), dim3(kThreads), args,
                                           (size_t)shared_bytes, static_cast<cudaStream_t>(stream));
+}
+
+// The predict-only mode (N = 0) for one batch, one plain launch on `stream`:
+// x [rows, features] f32 contiguous, mask [rows], w0 [features] f32 (inputs);
+// preds [rows], w_out [features] (= w0) and iterations [1] (= 0) f32
+// (outputs). `grid` comes from the predict plan (ops/fused_sgd.py
+// predict_plan: warp w of the grid takes rows w, w + 8·grid, ...), and
+// shared_bytes = 4·max(fpad, 1024) (w0); a plan that differs is refused.
+// Returns the launch's CUDA error, 0 when it was taken.
+extern "C" int twtml_fused_dense_predict(const void* x, const void* mask, const void* w0,
+                                         void* w_out, void* preds, void* iterations, int rows,
+                                         int features, int fpad, int grid, int shared_bytes,
+                                         void* stream) {
+  if (rows < 1 || features < 1 || fpad % 8 != 0 || features > fpad || fpad - features >= 8 ||
+      grid < 1 || shared_bytes != 4 * (fpad <= kTileCols ? kTileCols : fpad))
+    return (int)cudaErrorInvalidValue;
+  PredictParams p;
+  p.x = static_cast<const float*>(x);
+  p.mask = static_cast<const float*>(mask);
+  p.w0 = static_cast<const float*>(w0);
+  p.w_out = static_cast<float*>(w_out);
+  p.preds = static_cast<float*>(preds);
+  p.iterations = static_cast<float*>(iterations);
+  p.rows = rows;
+  p.features = features;
+  p.fpad = fpad;
+  p.nvec = fpad / 8;
+  fused_predict_kernel<<<grid, kPredictThreads, (size_t)shared_bytes,
+                         static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
 }

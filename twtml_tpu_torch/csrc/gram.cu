@@ -19,14 +19,31 @@
 //
 // ---- B4, count_build_kernel<T> (T = int8_t for the int8 plane, float else)
 // What bounds it on an H100: bytes. It writes every byte of C once, zeros
-// included (512 MiB of int8 at B = 2048, F = 2^18: 0.16 ms at 3.35 TB/s);
-// the [B, L] tokens it reads are ~1/1000 of that. Design: one CTA a row of
-// C. The CTA zero-fills its row with 16-byte stores, stages the row's L
-// (idx, val) pairs in shared memory and, after a barrier (which orders the
-// zero-fill before what follows), each thread takes tokens j: if no k < j
-// holds the same index, it sums val over every k >= j with that index in
-// token order and writes the count once. No atomics, no separate memset.
-// The token scan is O(L²) a row in shared memory (L <= ~300 for a tweet).
+// included (512 MiB of int8 at B = 2048, F = 2^18: 0.16 ms at 3.35 TB/s; 2
+// GiB of f32: 0.64 ms); the [B, L] tokens it reads are ~1/1000 of that.
+// Design: one CTA a row of C, in two steps.
+//   1. The token pass, O(L log L) in shared memory: each token becomes one
+//      64-bit key, idx << ceil(log2 L) | j (an index outside [0, features)
+//      becomes the all-ones key, which sorts last and counts nothing); a
+//      bitonic sort over the next power of two puts the keys in (idx, j)
+//      order, so equal indices sit together in token order. Shared memory:
+//      8 bytes of key and 4 of value a token, whatever the row's width.
+//   2. The row, written once, in steps of 32 adjacent 16-byte chunks (512
+//      contiguous bytes, a store of the warp): each warp writes its own run
+//      of steps, one eighth of the row, and carries a cursor, its first key
+//      not yet counted (a binary search finds the run's first). A step that
+//      ends at or before the cursor key's feature is zeros: one compare in
+//      registers.
+//      Otherwise each lane loads one of the 32 keys from the cursor on, a
+//      ballot tells the step's own, those are shuffled across the warp in
+//      sorted order, and the lane whose chunk holds a key adds its value
+//      with __fadd_rn, from 0; where the step holds more than 32 keys, each
+//      lane finds its chunk's first key by binary search instead. Sorted
+//      order is token order: the twin's additions, in its order (bitwise
+//      equal to it, and run to run).
+// So no byte is written twice, no count waits for a zero-fill to land, and
+// no store is a scattered 4-byte one; the store stream of the other CTAs on
+// the SM covers a CTA's token pass. No atomics.
 //
 // ---- B7, dual_sgd_kernel<kLogistic>
 // Each iteration is one [B, B]·[B] product (G·α) plus elementwise work on
@@ -73,6 +90,7 @@
 // keep f32 operands as the twin does. The G product itself runs on the
 // tensor cores (cuBLASLt's int8 GEMM behind torch._int_mm).
 
+#include <climits>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -82,6 +100,9 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kCountThreads = 256;
+constexpr int kCountWarps = kCountThreads / 32;
+using CountKey = unsigned long long;  // a count-build sort key
+constexpr int kCountKeyBytes = sizeof(CountKey);
 constexpr int kDualThreads = 256;
 constexpr int kDualWarps = kDualThreads / 32;
 constexpr int kDualRedFloats = 64;
@@ -94,12 +115,14 @@ constexpr int kWbCols = 4 * kWbGroups;       // 128 text columns a block
 // ops/fused_gram.py sizes the launches from its own copy of these
 // constants; ops/_build.py passes that copy as -D flags, so the two cannot
 // drift apart without the build failing here.
-#if !defined(TWTML_GRAM_COUNT_THREADS) || !defined(TWTML_GRAM_DUAL_THREADS) || \
+#if !defined(TWTML_GRAM_COUNT_THREADS) || !defined(TWTML_GRAM_COUNT_KEY_BYTES) || \
+    !defined(TWTML_GRAM_DUAL_THREADS) || \
     !defined(TWTML_GRAM_DUAL_RED_FLOATS) || !defined(TWTML_GRAM_WRITEBACK_THREADS) || \
     !defined(TWTML_GRAM_WRITEBACK_COLUMNS)
 #error "build through twtml_tpu_torch/ops/_build.py, which passes the launch plan's constants"
 #endif
 static_assert(kCountThreads == TWTML_GRAM_COUNT_THREADS, "COUNT_THREADS differs");
+static_assert(kCountKeyBytes == TWTML_GRAM_COUNT_KEY_BYTES, "COUNT_KEY_BYTES differs");
 static_assert(kDualThreads == TWTML_GRAM_DUAL_THREADS, "DUAL_THREADS differs");
 static_assert(kDualRedFloats == TWTML_GRAM_DUAL_RED_FLOATS, "DUAL_RED_FLOATS differs");
 static_assert(kWbThreads == TWTML_GRAM_WRITEBACK_THREADS, "WRITEBACK_THREADS differs");
@@ -127,42 +150,207 @@ __device__ __forceinline__ float to_count<float>(float s) {
   return s;
 }
 
+// A 16-byte chunk of a row of C: the kPer counts it holds, packed.
+template <typename T>
+struct Chunk;
+template <>
+struct Chunk<float> {
+  static constexpr int kPer = 4;
+  static __device__ __forceinline__ uint4 pack(const float (&s)[kPer]) {
+    return make_uint4(__float_as_uint(s[0]), __float_as_uint(s[1]), __float_as_uint(s[2]),
+                      __float_as_uint(s[3]));
+  }
+};
+template <>
+struct Chunk<int8_t> {
+  static constexpr int kPer = 16;
+  static __device__ __forceinline__ uint4 pack(const float (&s)[kPer]) {
+    uint32_t w[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      w[q] = 0u;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        w[q] |= (uint32_t)(uint8_t)to_count<int8_t>(s[4 * q + e]) << (8 * e);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+
+constexpr CountKey kNoKey = ~CountKey(0);  // sorts after every valid key
+
+// Byte offsets of a count-build CTA's dynamic shared memory, each 16-byte
+// aligned: the sort keys [width] at 0, the values [tokens] f32, then the
+// end. ops/fused_gram.py count_layout computes the same.
+struct CountLayout {
+  int token_bits, width;
+  size_t vals, end;
+};
+
+__host__ __device__ inline CountLayout count_layout(int tokens) {
+  CountLayout l;
+  l.token_bits = 0;  // ceil(log2 tokens)
+  while ((1 << l.token_bits) < tokens) ++l.token_bits;
+  l.width = 1 << l.token_bits;
+  l.vals = align16((size_t)l.width * sizeof(CountKey));
+  l.end = l.vals + align16((size_t)tokens * 4);
+  return l;
+}
+
+// Ascending bitonic sort of keys[0, width) (width a power of two) by the
+// whole CTA; ends with a barrier.
+__device__ void bitonic_sort(CountKey* keys, int width) {
+  for (int size = 2; size <= width; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = threadIdx.x; i < width / 2; i += kCountThreads) {
+        const int lo = 2 * i - (i & (stride - 1));  // the pair (lo, lo + stride)
+        const CountKey a = keys[lo], c = keys[lo + stride];
+        if ((a > c) == ((lo & size) == 0)) {
+          keys[lo] = c;
+          keys[lo + stride] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// The counts of the chunk holding features [f0, f0 + kPer): the first key
+// at or past f0 by binary search in [lo, width), then each key of the
+// chunk's indices in sorted (= token) order, its value added with __fadd_rn
+// into its slot.
+template <typename T>
+__device__ __forceinline__ uint4 chunk_counts(const CountKey* keys, const float* vals, int lo,
+                                              int width, int token_bits, int f0) {
+  constexpr int kPer = Chunk<T>::kPer;
+  const CountKey first = (CountKey)f0 << token_bits;
+  int hi = width;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (keys[mid] < first)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  float s[kPer];
+#pragma unroll
+  for (int e = 0; e < kPer; ++e) s[e] = 0.f;
+  const CountKey jmask = ((CountKey)1 << token_bits) - 1;
+  for (int q = lo; q < width; ++q) {
+    const CountKey key = keys[q];
+    if (key == kNoKey) break;
+    const int slot = (int)(key >> token_bits) - f0;
+    if (slot >= kPer) break;
+    const float v = vals[(int)(key & jmask)];
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) s[e] = slot == e ? __fadd_rn(s[e], v) : s[e];
+  }
+  return Chunk<T>::pack(s);
+}
+
+// The counts of the lane's chunk, features [f0, f0 + kPer), from the
+// step's n keys held by lanes [0, n) of the warp: each key in sorted (=
+// token) order, its value added with __fadd_rn into its slot by the lane
+// whose chunk holds it. Called by the whole warp.
+template <typename T>
+__device__ __forceinline__ uint4 window_counts(CountKey key, int n, const float* vals,
+                                               int token_bits, int f0) {
+  constexpr int kPer = Chunk<T>::kPer;
+  const CountKey jmask = ((CountKey)1 << token_bits) - 1;
+  float s[kPer];
+#pragma unroll
+  for (int e = 0; e < kPer; ++e) s[e] = 0.f;
+  for (int t = 0; t < n; ++t) {
+    const CountKey kt = __shfl_sync(0xffffffffu, key, t);
+    const int slot = (int)(kt >> token_bits) - f0;
+    if (slot >= 0 && slot < kPer) {
+      const float v = vals[(int)(kt & jmask)];
+#pragma unroll
+      for (int e = 0; e < kPer; ++e) s[e] = slot == e ? __fadd_rn(s[e], v) : s[e];
+    }
+  }
+  return Chunk<T>::pack(s);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kCountThreads) count_build_kernel(
     const int* __restrict__ idx, const float* __restrict__ val, int rows, int tokens,
     int features, T* __restrict__ out, int cols) {
+  constexpr int kPer = Chunk<T>::kPer;
   extern __shared__ __align__(16) unsigned char smem[];
-  int* s_idx = reinterpret_cast<int*>(smem);
-  float* s_val = reinterpret_cast<float*>(smem + align16((size_t)tokens * 4));
-  const int b = blockIdx.x;
-  T* row = out + (size_t)b * cols;
-  uint4* row4 = reinterpret_cast<uint4*>(row);
-  const int n4 = (int)((size_t)cols * sizeof(T) / 16);
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int i = threadIdx.x; i < n4; i += kCountThreads) row4[i] = zero;
-  if (b >= rows) return;  // a padding row: zeros only (uniform across the CTA)
-  const int* ri = idx + (size_t)b * tokens;
-  const float* rv = val + (size_t)b * tokens;
-  for (int j = threadIdx.x; j < tokens; j += kCountThreads) {
-    s_idx[j] = __ldg(ri + j);
-    s_val[j] = __ldg(rv + j);
-  }
-  __syncthreads();  // the tokens staged, and the zero-fill ordered before the writes below
-  for (int j = threadIdx.x; j < tokens; j += kCountThreads) {
-    const int f = s_idx[j];
-    if (f < 0 || f >= features) continue;
-    bool first = true;
-    for (int k = 0; k < j; ++k) {
-      if (s_idx[k] == f) {
-        first = false;
-        break;
+  const CountLayout lay = count_layout(tokens);
+  CountKey* keys = reinterpret_cast<CountKey*>(smem);
+  float* s_val = reinterpret_cast<float*>(smem + lay.vals);
+  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
+  const int token_bits = lay.token_bits, width = lay.width;
+  const bool real = b < rows;  // else a padding row: zeros only (uniform across the CTA)
+  if (real) {
+    // ---- the token pass
+    const int* ri = idx + (size_t)b * tokens;
+    const float* rv = val + (size_t)b * tokens;
+    for (int j = tid; j < width; j += kCountThreads) {
+      CountKey key = kNoKey;
+      if (j < tokens) {
+        const int f = __ldg(ri + j);
+        s_val[j] = __ldg(rv + j);
+        if (f >= 0 && f < features) key = ((CountKey)f << token_bits) | (CountKey)j;
       }
+      keys[j] = key;
     }
-    if (!first) continue;
-    float s = s_val[j];
-    for (int k = j + 1; k < tokens; ++k)
-      if (s_idx[k] == f) s = __fadd_rn(s, s_val[k]);
-    row[f] = to_count<T>(s);
+    __syncthreads();
+    bitonic_sort(keys, width);
+  }
+  // ---- the row, every 16-byte chunk stored once. A step is 32 adjacent
+  // chunks (512 bytes); warp w writes the w-th of kCountWarps runs of
+  // steps. Its cursor q (uniform across the warp) is its first key not yet
+  // counted, `next` that key's feature: a step that ends at or before it
+  // is zeros.
+  constexpr int kStepFeatures = 32 * kPer;
+  constexpr unsigned kFull = 0xffffffffu;
+  uint4* row4 = reinterpret_cast<uint4*>(out + (size_t)b * cols);
+  const int chunks = (int)((size_t)cols * sizeof(T) / 16);
+  const int steps = (chunks + 31) / 32, run = (steps + kCountWarps - 1) / kCountWarps;
+  const int s0 = (tid >> 5) * run, s1 = min(s0 + run, steps);
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  int q = width;
+  if (real && s0 < s1) {  // the first key at or past the run's first feature
+    const CountKey first = (CountKey)s0 * kStepFeatures << token_bits;
+    int lo = 0, hi = width;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (keys[mid] < first)
+        lo = mid + 1;
+      else
+        hi = mid;
+    }
+    q = lo;
+  }
+  // the cursor key's feature (INT_MAX when none is left), and the step's end
+  int next = q < width && keys[q] != kNoKey ? (int)(keys[q] >> token_bits) : INT_MAX;
+  int end = s0 * kStepFeatures;
+  for (int step = s0; step < s1; ++step) {
+    const int i = step * 32 + lane;
+    end += kStepFeatures;
+    uint4 v = zero;
+    if (next < end) {  // the step holds keys[q], ...: each lane loads one of 32
+      const CountKey key_end = (CountKey)end << token_bits;
+      CountKey key = q + lane < width ? keys[q + lane] : kNoKey;
+      unsigned inside = __ballot_sync(kFull, key < key_end);  // a run of lanes from 0
+      if (inside != kFull) {  // all the step's keys
+        v = window_counts<T>(key, __popc(inside), s_val, token_bits, i * kPer);
+        q += __popc(inside);
+      } else {  // more than 32: each chunk's first key by binary search
+        if (i < chunks) v = chunk_counts<T>(keys, s_val, q, width, token_bits, i * kPer);
+        do {
+          q += 32;
+          key = q + lane < width ? keys[q + lane] : kNoKey;
+          inside = __ballot_sync(kFull, key < key_end);
+        } while (inside == kFull);
+        q += __popc(inside);
+      }
+      next = q < width && keys[q] != kNoKey ? (int)(keys[q] >> token_bits) : INT_MAX;
+    }
+    if (i < chunks) row4[i] = v;
   }
 }
 
@@ -522,26 +710,34 @@ extern "C" int twtml_gram_setup(int device, int* sm_count, int* shared_optin) {
   return (int)(err != cudaSuccess ? err : restored);
 }
 
+template <typename T>
+static void launch_count_build(const void* idx, const void* val, void* out, int rows,
+                               int tokens, int features, int rows_out, int cols,
+                               int shared_bytes, cudaStream_t s) {
+  count_build_kernel<T><<<rows_out, kCountThreads, shared_bytes, s>>>(
+      static_cast<const int*>(idx), static_cast<const float*>(val), rows, tokens, features,
+      static_cast<T*>(out), cols);
+}
+
 // B4: idx [rows, tokens] int32 and val [rows, tokens] f32 (device, contiguous)
 // -> out [rows_out, cols] (kind 0: int8, 1: f32), cols a multiple of 16,
-// rows_out >= rows; shared_bytes = 2·align16(4·tokens). Returns the launch's
-// CUDA error, 0 when it was taken.
+// rows_out >= rows; shared_bytes = count_layout(tokens)'s end
+// (ops/fused_gram.py count_layout: a size that differs is refused). Returns
+// the launch's CUDA error, 0 when it was taken.
 extern "C" int twtml_count_build(const void* idx, const void* val, void* out, int rows,
                                  int tokens, int features, int rows_out, int cols, int kind,
                                  int shared_bytes, void* stream) {
   if (rows < 1 || tokens < 1 || features < 1 || rows_out < rows || cols < features ||
       cols % 16 != 0 || (kind != 0 && kind != 1) ||
-      (size_t)shared_bytes != 2 * align16((size_t)tokens * 4))
+      (size_t)shared_bytes != count_layout(tokens).end)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kind == 0)
-    count_build_kernel<int8_t><<<rows_out, kCountThreads, shared_bytes, s>>>(
-        static_cast<const int*>(idx), static_cast<const float*>(val), rows, tokens, features,
-        static_cast<int8_t*>(out), cols);
+    launch_count_build<int8_t>(idx, val, out, rows, tokens, features, rows_out, cols,
+                               shared_bytes, s);
   else
-    count_build_kernel<float><<<rows_out, kCountThreads, shared_bytes, s>>>(
-        static_cast<const int*>(idx), static_cast<const float*>(val), rows, tokens, features,
-        static_cast<float*>(out), cols);
+    launch_count_build<float>(idx, val, out, rows, tokens, features, rows_out, cols,
+                              shared_bytes, s);
   return (int)cudaGetLastError();
 }
 

@@ -5,7 +5,8 @@ fusions of ``twtml_tpu/ops/gram.py`` and ``twtml_tpu/models/sgd.py``
 
 - B4 ``count_build``: [B, L] (idx, val) pairs -> the dense [rows_out,
   cols_out] counts C, int8 (the int8 plane) or f32 (the bf16 and exact
-  planes), every byte of C written by the one pass (zeros included). Twin:
+  planes), every byte of C written once (zeros included) after a sort of
+  the row's tokens in shared memory (``count_layout`` sizes it). Twin:
   ``ops/gram.py`` ``onehot_counts_int8`` / ``onehot_counts`` /
   ``densify_counts``.
 - the G product ``gram_from_counts``: C·Cᵀ, ``torch._int_mm`` (s8·s8 -> s32,
@@ -47,6 +48,7 @@ from .gram import densify_counts, onehot_counts_int8
 # constants of csrc/gram.cu that size its launches; the build passes them
 # to nvcc, and the source static_asserts its own against them
 COUNT_THREADS = 256
+COUNT_KEY_BYTES = 8  # a count-build sort key: idx << ceil(log2 L) | j
 DUAL_THREADS = 256
 DUAL_WARPS = DUAL_THREADS // 32
 DUAL_RED_FLOATS = 64  # the reduction scratch of a CTA
@@ -54,12 +56,12 @@ WRITEBACK_THREADS = 256
 WRITEBACK_COLUMNS = 128  # text columns a block of B8 owns
 NVCC_DEFINES = tuple(
     f"-DTWTML_GRAM_{name}={value}" for name, value in (
-        ("COUNT_THREADS", COUNT_THREADS), ("DUAL_THREADS", DUAL_THREADS),
+        ("COUNT_THREADS", COUNT_THREADS), ("COUNT_KEY_BYTES", COUNT_KEY_BYTES),
+        ("DUAL_THREADS", DUAL_THREADS),
         ("DUAL_RED_FLOATS", DUAL_RED_FLOATS), ("WRITEBACK_THREADS", WRITEBACK_THREADS),
         ("WRITEBACK_COLUMNS", WRITEBACK_COLUMNS),
     )
 )
-# count-build token storage: idx and val of a row's L tokens in shared memory
 COUNT_KINDS = {torch.int8: 0, torch.float32: 1}
 
 
@@ -77,9 +79,40 @@ def _align16(n: int) -> int:
     return -(-n // 16) * 16
 
 
-def count_shared_bytes(tokens: int) -> int:
-    """Dynamic shared memory of one count-build CTA: a row's idx and val."""
-    return 2 * _align16(4 * tokens)
+def count_token_bits(tokens: int) -> int:
+    """ceil(log2 L): the low bits of a count-build sort key, which hold the
+    token's position j."""
+    return (tokens - 1).bit_length()
+
+
+class CountLayout(NamedTuple):
+    """One count-build CTA's dynamic shared memory (csrc/gram.cu
+    count_layout): the sort keys [width] at 0, the values [L] f32 at
+    ``vals``, each 16-byte aligned, ``shared_bytes`` in all. It depends on
+    L alone."""
+
+    token_bits: int
+    width: int  # keys sorted: the next power of two >= L
+    vals: int
+    shared_bytes: int
+
+
+def count_layout(tokens: int) -> CountLayout:
+    """The shared memory of one count-build CTA for L = ``tokens``."""
+    bits = count_token_bits(tokens)
+    vals = _align16((1 << bits) * COUNT_KEY_BYTES)
+    return CountLayout(token_bits=bits, width=1 << bits, vals=vals,
+                       shared_bytes=vals + _align16(4 * tokens))
+
+
+def count_shared_bytes(tokens: int, *, shared_limit: int) -> int:
+    """Dynamic shared memory of one count-build CTA (``count_layout``);
+    raises when it exceeds ``shared_limit`` (232,448 B a block on an H100)."""
+    shared = count_layout(tokens).shared_bytes
+    if shared > shared_limit:
+        raise ValueError(f"count_build: {tokens} tokens a row need {shared} B of shared "
+                         f"memory; the limit is {shared_limit} B")
+    return shared
 
 
 class DualPlan(NamedTuple):
@@ -311,7 +344,8 @@ def count_build(token_idx, token_val, f_text: int, *, int8: bool,
     """B4: [B, L] int32 indices and f32 values -> the dense counts
     [rows_out, cols_out] (int8 when ``int8``, else f32), zero past the
     batch's rows and the ``f_text`` features; the sums in token order.
-    Indices outside [0, f_text) are ignored. On the card ``rows_out``
+    On the card indices outside [0, f_text) are ignored (the CPU route is
+    the twin, which follows the JAX scatter). On the card ``rows_out``
     defaults to ``padded_rows(B)`` and ``cols_out`` to
     ``padded_columns(f_text)``, which must be a multiple of 16."""
     dev = token_idx.device
@@ -331,10 +365,7 @@ def count_build(token_idx, token_val, f_text: int, *, int8: bool,
     dtype = torch.int8 if int8 else torch.float32
     with torch.cuda.device(dev):
         _, shared_limit = device_limits(torch.cuda.current_device())
-        shared = count_shared_bytes(l)
-        if shared > shared_limit:
-            raise ValueError(f"count_build: {l} tokens a row need {shared} B of shared "
-                             f"memory; the limit is {shared_limit} B")
+        shared = count_shared_bytes(l, shared_limit=shared_limit)
         out = torch.empty((rows_out, cols_out), dtype=dtype, device=dev)
         _raise_on(_entry("twtml_count_build")(
             token_idx.data_ptr(), token_val.data_ptr(), out.data_ptr(), b, l, f_text,

@@ -10,17 +10,22 @@ residual is a compile-time mode of the kernel: least squares (r = x·w − y)
 or logistic (r = σ(x·w) − y, the logistic learner's); the predictions are
 the raw margin X·w0 in both.
 
-The kernel (``csrc/fused_sgd.cu``, whose header gives the design) is one
-persistent cooperative launch a call: it reads the caller's f32 X from
-device memory once, keeps it in shared memory as bf16 (rows that do not fit
-spill once to an L2-resident buffer) and runs every iteration on chip, with
-grid barriers in place of kernel boundaries. No float atomics: reruns are
-bitwise equal. ``launch_plan`` sizes the grid and the shared memory; the
-wrapper only allocates outputs and scratch and launches.
+The kernels are ``csrc/fused_sgd.cu`` (its header gives both designs).
+With iterations to run, ``fused_sgd_kernel``: one persistent cooperative
+launch a call that reads the caller's f32 X from device memory once, keeps
+it in shared memory as bf16 (rows that do not fit spill once to an
+L2-resident buffer) and runs every iteration on chip, with grid barriers in
+place of kernel boundaries. At ``num_iterations == 0`` (the serving path's
+predict-only mode), ``fused_predict_kernel``: one plain launch that streams
+each row of X once, a warp a row, with the training kernel's first-pass
+arithmetic, so its predictions equal that pass's bitwise. No float atomics:
+reruns are bitwise equal. ``launch_plan`` and ``predict_plan`` size the
+launches; the wrapper only allocates outputs and scratch and launches.
 
 Routing: a CPU tensor goes to the twin ``fused_dense_sgd_reference``; a CUDA
-tensor launches the kernel or raises. ``fused_dense_sgd.launches`` counts
-the calls that launched the kernel; ``fused_dense_sgd.last_iterations`` is
+tensor launches a kernel or raises. ``fused_dense_sgd.launches`` counts
+the calls that launched either kernel, ``.predict_launches`` those that
+launched the predict kernel; ``fused_dense_sgd.last_iterations`` is
 a device scalar holding the iterations the last launch ran (read it only
 when a sync is acceptable). A call made while the current stream is being
 captured into a CUDA graph launches nothing then: it counts into
@@ -47,10 +52,14 @@ WARPS = THREADS // 32
 TILE_COLUMNS = 1024  # columns whose w and Xᵀr a warp holds in registers
 REDUCE_SLOTS = 4
 SCRATCH_FLOATS = 4
+PREDICT_THREADS = 256  # the predict kernel's CTA: 8 warps, a row each at a time
+PREDICT_WARPS = PREDICT_THREADS // 32
+PREDICT_CTAS_PER_SM = 2
 NVCC_DEFINES = tuple(
     f"-DTWTML_SGD_{name}={value}" for name, value in (
         ("THREADS", THREADS), ("TILE_COLUMNS", TILE_COLUMNS),
         ("REDUCE_SLOTS", REDUCE_SLOTS), ("SCRATCH_FLOATS", SCRATCH_FLOATS),
+        ("PREDICT_THREADS", PREDICT_THREADS),
     )
 )
 
@@ -172,6 +181,39 @@ def launch_plan(batch_rows: int, num_features: int, *, sm_count: int,
     )
 
 
+class PredictPlan(NamedTuple):
+    """How one predict-only call lays the batch over the card: warp w of
+    the grid (CTA w // PREDICT_WARPS) takes rows w, w + warps, ...; w0 [fpad
+    columns, at least TILE_COLUMNS] in shared memory."""
+
+    rows: int
+    fpad: int
+    grid: int
+    shared_bytes: int
+
+    @property
+    def warps(self) -> int:
+        return self.grid * PREDICT_WARPS
+
+    def warp_rows(self, warp: int) -> range:
+        return range(warp, self.rows, self.warps)
+
+
+def predict_plan(batch_rows: int, num_features: int, *, sm_count: int) -> PredictPlan:
+    """The grid of one predict-only launch: at most PREDICT_CTAS_PER_SM CTAs
+    an SM, and just enough CTAs that every warp takes the same number of
+    rows (``ceil(B / warps at most)``): at B = 256 a row a warp over 32
+    CTAs, at B = 16384 on 132 SMs 8 rows a warp over 256 CTAs."""
+    if batch_rows < 1:
+        raise ValueError("the predict kernel needs at least one row")
+    fpad = padded_columns(num_features)
+    most = PREDICT_CTAS_PER_SM * sm_count * PREDICT_WARPS
+    rows_per_warp = -(-batch_rows // most)
+    grid = -(-batch_rows // (PREDICT_WARPS * rows_per_warp))
+    return PredictPlan(rows=batch_rows, fpad=fpad, grid=grid,
+                       shared_bytes=4 * max(fpad, TILE_COLUMNS))
+
+
 def fused_dense_sgd_reference(
     x_dense, labels, mask, weights, *, num_iterations: int, step_size: float,
     l2_reg: float = 0.0, convergence_tol: float = 0.001,
@@ -222,14 +264,24 @@ KERNEL_ARGTYPES = (
 )
 
 
+# arguments of the C entry twtml_fused_dense_predict (csrc/fused_sgd.cu)
+PREDICT_ARGTYPES = (
+    [ctypes.c_void_p] * 6  # x, mask, w0, w_out, preds, iterations
+    + [ctypes.c_int] * 5  # rows, features, fpad, grid, shared_bytes
+    + [ctypes.c_void_p]  # stream
+)
+_ENTRIES = {"twtml_fused_dense_sgd": KERNEL_ARGTYPES,
+            "twtml_fused_dense_predict": PREDICT_ARGTYPES}
+
+
 @functools.cache
-def _entry():
-    """The C entry of csrc/fused_sgd.cu, built at first use."""
+def _entry(name: str = "twtml_fused_dense_sgd"):
+    """A C entry of csrc/fused_sgd.cu, built at first use."""
     from ._build import load
 
-    fn = load("fused_sgd").twtml_fused_dense_sgd
+    fn = getattr(load("fused_sgd"), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = KERNEL_ARGTYPES
+    fn.argtypes = _ENTRIES[name]
     return fn
 
 
@@ -269,6 +321,21 @@ def kernel_args(plan: LaunchPlan, x_dense, labels, mask, weights, w_out, preds,
         int(num_iterations), float(step_size), float(l2_reg), float(convergence_tol),
         int(mode), torch.cuda.current_stream().cuda_stream,
     )
+
+
+def call_predict(plan: PredictPlan, x_dense, mask, weights, w_out, preds,
+                 iterations) -> None:
+    """One launch of the predict kernel on the current stream (``iterations``
+    a one-float buffer that receives 0). Raises when the launch is refused.
+    Counts nothing: the wrapper does."""
+    err = _entry("twtml_fused_dense_predict")(
+        x_dense.data_ptr(), mask.data_ptr(), weights.data_ptr(), w_out.data_ptr(),
+        preds.data_ptr(), iterations.data_ptr(), plan.rows, x_dense.shape[1], plan.fpad,
+        plan.grid, plan.shared_bytes, torch.cuda.current_stream().cuda_stream)
+    if err == 1:  # cudaErrorInvalidValue: the entry's own checks
+        raise RuntimeError(f"fused_dense_sgd: the predict kernel refused the plan {plan}")
+    if err != 0:
+        raise RuntimeError(f"fused_dense_sgd predict kernel launch failed: CUDA error {err}")
 
 
 def call_kernel(plan: LaunchPlan, args: tuple) -> None:
@@ -328,24 +395,32 @@ def fused_dense_sgd(
 
     with torch.cuda.device(dev):
         sm_count, shared_limit = device_limits(torch.cuda.current_device())
-        plan = launch_plan(b, f, sm_count=sm_count, shared_limit=shared_limit)
         w = torch.empty((f,), dtype=torch.float32, device=dev)
         preds = torch.empty((b,), dtype=torch.float32, device=dev)
-        spill = torch.empty((plan.spill_elements,), dtype=torch.bfloat16, device=dev)
-        scratch = torch.empty((plan.scratch_floats,), dtype=torch.float32, device=dev)
-        call_kernel(plan, kernel_args(
-            plan, x_dense, labels, mask, weights, w, preds, spill, scratch,
-            num_iterations=num_iterations, step_size=step_size, l2_reg=l2_reg,
-            convergence_tol=convergence_tol, mode=mode,
-        ))
+        if num_iterations == 0:  # predict only: no staging, no scratch, no barrier
+            plan = predict_plan(b, f, sm_count=sm_count)
+            iterations = torch.empty((1,), dtype=torch.float32, device=dev)
+            call_predict(plan, x_dense, mask, weights, w, preds, iterations)
+        else:
+            plan = launch_plan(b, f, sm_count=sm_count, shared_limit=shared_limit)
+            spill = torch.empty((plan.spill_elements,), dtype=torch.bfloat16, device=dev)
+            scratch = torch.empty((plan.scratch_floats,), dtype=torch.float32, device=dev)
+            call_kernel(plan, kernel_args(
+                plan, x_dense, labels, mask, weights, w, preds, spill, scratch,
+                num_iterations=num_iterations, step_size=step_size, l2_reg=l2_reg,
+                convergence_tol=convergence_tol, mode=mode,
+            ))
+            iterations = scratch[-1:]
         if torch.cuda.is_current_stream_capturing():
             fused_dense_sgd.captured += 1  # launched by each replay of the graph
         else:
             fused_dense_sgd.launches += 1
-    fused_dense_sgd.last_iterations = scratch[-1]
+            fused_dense_sgd.predict_launches += int(num_iterations == 0)
+    fused_dense_sgd.last_iterations = iterations[0]
     return w, preds
 
 
 fused_dense_sgd.launches = 0
+fused_dense_sgd.predict_launches = 0
 fused_dense_sgd.captured = 0
 fused_dense_sgd.last_iterations = None
