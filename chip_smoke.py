@@ -30,8 +30,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
                values within rtol 1e-6; B7 (the dual loop, one cooperative
                launch) at B = 1, 16, 2048, 3072 and 4096 (G spilled to L2),
                count 0, the logistic mode, ``-b 0.5`` masks, tolerance 0 and
-               0.001 with the twin's iterations run, NaN/Inf in masked rows
-               bitwise ignored, within rtol 1e-4 / atol 1e-5; B8 (the
+               0.001 and tolerances that stop it at iterations 2 and N - 1,
+               with the twin's iterations run and one grid barrier an update
+               (the count the kernel writes), NaN/Inf in masked rows bitwise
+               ignored, within rtol 1e-4 / atol 1e-5, and two replays of a
+               CUDA graph that captured it bitwise the eager launch; B8 (the
                write-back) within rtol 2e-4 of its twin and of the
                per-occurrence scatter; each rerun bitwise equal;
   4. main    — the flagship app (``apps/linear_regression.run``, its
@@ -155,7 +158,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
                wire's featurize by sub-stage, bytes and H2D copy; and where
                a step's time goes on each wire; the logistic mode's kernel
                time (50 iterations), twin and bound; B4, the G product, B7
-               and B8 at config #4's operating point (B = 2048, F = 2^18),
+               (µs an iteration and the spread at both tolerances, grid
+               barriers, one barrier crossing alone on a probe kernel; and
+               at B = 3072 and 4096, G spilled) and B8 at config #4's
+               operating point (B = 2048, F = 2^18),
                with ``torch.bincount`` as B4's library call; B4's f32 build
                on tweet-length rows (L = 511): (a) on their tokens, (b)
                with every index out of range, (c) ``torch.bincount``, the
@@ -197,9 +203,10 @@ and B8); the last line is ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --times-only [--package-root DIR]`` runs phases 1
 and 2 and then only the kernels' device times (B1's logistic mode, its
-predict kernel, B4 in both planes, the G product, B7, B8), importing the port from
-DIR (another checkout unpacked there), so that two versions can be timed
-in turns in one call; its last line is that JSON.
+predict kernel, B4 in both planes, the G product, B7 at B = 2048, 3072
+and 4096, B8), importing the port from DIR (another checkout unpacked
+there), so that two versions can be timed in turns in one call; its last
+line is that JSON.
 """
 
 from __future__ import annotations
@@ -606,10 +613,14 @@ def gram_kernel_phase():
     twins, each rerun bitwise equal. B4 + G: bitwise at a row mass of 127
     (the int8 plane: s8 counts, ``torch._int_mm``), 128 and 255 (f32 counts,
     an f32 matmul), fractional values within GRAM_EXACT_RTOL. B7: B = 1, 16,
-    2048, 3072 and 4096 (G spilled to L2), count 0, the logistic mode, ``-b
-    0.5`` masks, tolerance 0 and 0.001 with the same iterations run, NaN/Inf
-    in masked rows bitwise ignored; within RTOL/ATOL. B8: within WEIGHT_RTOL
-    of the scatter write-back and of its twin."""
+    2047, 2048, 3072, 4095 and 4096 (G spilled to L2 past 2048), count 0,
+    the logistic mode, ``-b 0.5`` masks, tolerance 0, 0.001 and the
+    tolerances that stop the twin at iterations 2 and N - 1, each with the
+    same iterations run and the grid barriers ``expected_barriers`` counts,
+    NaN/Inf in masked rows bitwise ignored; within RTOL/ATOL; a CUDA graph
+    of it replayed twice, bitwise the eager launch; at B % 4 != 0 on
+    NaN-filled scratch, bitwise the launch on other scratch. B8: within
+    WEIGHT_RTOL of the scatter write-back and of its twin."""
     import numpy as np
     import torch
 
@@ -681,10 +692,24 @@ def gram_kernel_phase():
         mask = to((rng.permutation(rows) < n_valid).astype(np.float32))
         return g, u, y, mask
 
+    def expected_barriers(mask, kw, its):
+        """B7's grid barriers: one an update, less the last update's when no
+        test is pending (tolerance 0), plus one that carries the test that
+        stopped the loop early; 0 when no iteration selects a row, None (not
+        checked) when only some select none."""
+        masks, n = kw.get("masks"), kw["num_iterations"]
+        counts = (mask if masks is None else mask * masks).reshape(-1, mask.shape[0]).sum(1)
+        if not (counts > 0).any():
+            return 0
+        if not (counts > 0).all():
+            return None
+        return min(its + 1, n) if kw["convergence_tol"] > 0 else n - 1
+
     def dual_case(name, g, u, y, mask, dirty=False, **kw):
         kw = dict(dict(num_iterations=OP_ITERS, step_size=0.005, l2_reg=0.1,
                        convergence_tol=0.001, p_prev=torch.tensor(3.0, device=dev)), **kw)
         c, a, its = fused_gram.dual_sgd(g, u, y, mask, **kw)
+        barriers = fused_gram.dual_sgd.last_barriers
         c2, a2, its2 = fused_gram.dual_sgd(g, u, y, mask, **kw)
         c_r, a_r, its_r = fused_gram.dual_sgd_reference(g, u, y, mask, **kw)
         torch.cuda.synchronize()
@@ -693,6 +718,10 @@ def gram_kernel_phase():
         if int(its) != int(its_r):
             raise AssertionError(f"dual_sgd {name}: {int(its)} iterations run, the twin "
                                  f"{int(its_r)}")
+        want = expected_barriers(mask, kw, int(its))
+        if want is not None and int(barriers) != want:
+            raise AssertionError(f"dual_sgd {name}: {int(barriers)} grid barriers crossed "
+                                 f"in {int(its)} iterations, want {want}")
         ea, ra = compare(f"dual_sgd {name} alpha", a, a_r)
         ec, _ = compare(f"dual_sgd {name} c", c.reshape(1), c_r.reshape(1))
         note = "rerun bitwise equal"
@@ -710,13 +739,38 @@ def gram_kernel_phase():
                                      "the result")
             note += f"; NaN/Inf in {int((~keep).sum())} masked rows: bitwise equal"
         plan = fused_gram.dual_plan(mask.shape[0], **sm_limits())
-        phase("kernel", f"dual_sgd {name}: B={mask.shape[0]} grid {plan.grid}, "
-              f"{plan.resident_rows} rows of G resident, {plan.spill_rows} spilled; "
-              f"{int(its)} iterations run (twin {int(its_r)}); max abs err alpha {ea:.3e} "
-              f"(rel {ra:.3e}) c {ec:.3e}; {note}")
+        where = ("G in registers" if plan.in_registers
+                 else f"{plan.resident_rows} rows of G resident, {plan.spill_rows} spilled")
+        phase("kernel", f"dual_sgd {name}: B={mask.shape[0]} grid {plan.grid}, {where}; "
+              f"{int(its)} iterations run (twin {int(its_r)}), {int(barriers)} grid barriers "
+              f"crossed; max abs err alpha {ea:.3e} (rel {ra:.3e}) c {ec:.3e}; {note}")
         errs["dual_sgd"] = max(errs["dual_sgd"], ea, ec)
         cases.append(f"dual_sgd {name}")
         return c, a, its
+
+    def stopping_tol(k, g, u, y, mask):
+        """A tolerance at which the twin stops at iteration k, and the ratio
+        of the widest band of tolerances that do: the loop stops at the first
+        iteration whose test ratio falls below the tolerance, so the
+        iterations run fall as it grows; the band's geometric middle."""
+        p_prev = torch.tensor(3.0, device=dev)
+
+        def stops_by(tol, j):
+            return int(fused_gram.dual_sgd_reference(
+                g, u, y, mask, p_prev=p_prev, num_iterations=OP_ITERS, step_size=0.005,
+                l2_reg=0.1, convergence_tol=tol)[2]) <= j
+
+        def edge(j):  # the least tolerance (by log bisection) that stops it by iteration j
+            lo, hi = 1e-7, 1.0
+            for _ in range(30):
+                mid = math.sqrt(lo * hi)
+                lo, hi = (lo, mid) if stops_by(mid, j) else (mid, hi)
+            return hi
+
+        a, b = edge(k), edge(k - 1)
+        if not a < b:
+            raise AssertionError(f"dual_sgd: no tolerance stops the twin at iteration {k}")
+        return math.sqrt(a * b), b / a
 
     dual_case("B=1", *dual_inputs(1, 1))
     dual_case("B=16", *dual_inputs(16, 12), dirty=True)
@@ -727,6 +781,13 @@ def gram_kernel_phase():
     _, _, its = dual_case("B=2048 tol 0.001 (freezes)", g, u, near, m, dirty=True)
     if not 1 < int(its) < OP_ITERS:
         raise AssertionError(f"dual_sgd freeze case: {int(its)} iterations run")
+    # the folded test's first and last crossings: stops at iteration 2 and N - 1
+    for k in (2, OP_ITERS - 1):
+        tol, band = stopping_tol(k, g, u, near, m)
+        _, _, its = dual_case(f"B=2048 tol {tol:.6g} (stops at {k}; band x{band:.4f})", g, u,
+                              near, m, convergence_tol=tol)
+        if int(its) != k:
+            raise AssertionError(f"dual_sgd stops at {int(its)}, not {k}")
     _, _, its = dual_case("B=2048 tol 0", g, u, y, m, convergence_tol=0.0)
     if int(its) != OP_ITERS:
         raise AssertionError(f"dual_sgd tol 0: {int(its)} iterations run")
@@ -737,9 +798,56 @@ def gram_kernel_phase():
     c0, a0, _ = dual_case("count=0", g, u, y, torch.zeros_like(m))
     if float(c0) != 1.0 or a0.any():
         raise AssertionError("dual_sgd count=0: c must stay 1 and alpha 0")
-    del g
+    # captured in a CUDA graph (as step_many captures it) and replayed twice:
+    # each replay bitwise the eager launch, so no barrier state outlives one
+    kw = dict(num_iterations=OP_ITERS, step_size=0.005, l2_reg=0.1, convergence_tol=0.001,
+              p_prev=torch.tensor(3.0, device=dev))
+    eager = fused_gram.dual_sgd(g, u, near, m, **kw) + (fused_gram.dual_sgd.last_barriers,)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fused_gram.dual_sgd(g, u, near, m, **kw) + (fused_gram.dual_sgd.last_barriers,)
+    for replay in (1, 2):
+        graph.replay()
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, e) for x, e in zip(captured, eager)):
+            raise AssertionError(f"dual_sgd in a CUDA graph: replay {replay} differs from the "
+                                 "eager launch")
+    phase("kernel", f"dual_sgd CUDA graph: B={GRAM_ROWS}, tol 0.001, labels near the margins; "
+          f"2 replays bitwise equal to the eager launch (c, alpha, {int(eager[2])} iterations, "
+          f"{int(eager[3])} grid barriers)")
+    cases.append("dual_sgd CUDA graph")
+    del graph, captured, g
     dual_case("B=3072 (G spilled)", *dual_inputs(3072, 3000), dirty=True)
     dual_case("B=4096 (G spilled)", *dual_inputs(4096, 4000), dirty=True)
+
+    def nan_scratch_case(name, rows, n_valid):
+        """B % 4 != 0 on scratch that held NaN: G·α loads α's padding [B, bp)
+        as whole float4s, and it must meet G's zero columns as 0."""
+        g, u, y, m = dual_inputs(rows, n_valid)
+        kw = dict(num_iterations=OP_ITERS, step_size=0.005, l2_reg=0.1, convergence_tol=0.001,
+                  p_prev=torch.tensor(3.0, device=dev))
+        c, a, its = dual_case(name, g, u, y, m, dirty=True)
+        plan = fused_gram.dual_plan(rows, **sm_limits())
+        # NaN in free blocks of the scratch's size, each kept from merging
+        # with the next by a live one, so that the launch's scratch is one
+        held = [torch.full((plan.scratch_floats,), float("nan"), device=dev)
+                for _ in range(64)]
+        nan_ptrs = {t.data_ptr() for t in held[::2]}
+        del held[::2]
+        c_n, a_n, its_n = fused_gram.dual_sgd(g, u, y, m, **kw)
+        base = fused_gram.dual_sgd.last_barriers.data_ptr() - 4 * (plan.scratch_floats - 1)
+        del held
+        torch.cuda.synchronize()
+        if base not in nan_ptrs:
+            raise AssertionError(f"dual_sgd {name}: its scratch is not a NaN-filled block")
+        if not (torch.equal(a, a_n) and torch.equal(c, c_n) and int(its) == int(its_n)):
+            raise AssertionError(f"dual_sgd {name}: NaN left in its scratch reached the result")
+        phase("kernel", f"dual_sgd {name} on NaN-filled scratch: {plan.bp - rows} padding "
+              f"float(s) of alpha; bitwise equal to the launch on other scratch")
+        cases.append(f"dual_sgd {name} on NaN-filled scratch")
+
+    nan_scratch_case("B=2047 (G in registers)", 2047, 2000)
+    nan_scratch_case("B=4095 (G spilled)", 4095, 4000)
 
     # ---- B8: the write-back, from the int8 case's counts and f32 counts
     from twtml_tpu_torch.ops.gram import dual_writeback
@@ -3094,11 +3202,15 @@ def f32_build_times(smi):
             "rerun_bitwise": True}
 
 
-def gram_times(smi, errs, launches):
+def gram_times(smi, errs, launches, structure=True):
     """B4, the G product, B7 and B8 at config #4's operating point (B = 2048
-    synthetic tweets at F = 2^18, device-hashed, the int8 plane): each
-    kernel alone as device time, its twin, its bound, the library call where
-    one exists; the kernels line's records."""
+    synthetic tweets at F = 2^18, device-hashed, the int8 plane), and B7 at
+    B = 3072 and 4096 (G spilled): each kernel alone as device time, its
+    twin, its bound, the library call where one exists; the kernels line's
+    records. With ``structure`` also B7's grid barriers at each tolerance,
+    one barrier crossing alone and where G lives; without it only what
+    every tree's ``dual_sgd`` and ``dual_plan`` expose (``--times-only``
+    against another checkout)."""
     import numpy as np
     import torch
 
@@ -3110,12 +3222,17 @@ def gram_times(smi, errs, launches):
     from twtml_tpu_torch.ops.text_hash import hash_bigrams_device
     from twtml_tpu_torch.streaming.sources import SyntheticSource
 
-    tweets = list(SyntheticSource(total=GRAM_ROWS, seed=11, base_ms=NOW_MS).produce())
-    host = Featurizer(now_ms=NOW_MS, num_text_features=GRAM_F).featurize_batch_units(
-        tweets, row_bucket=GRAM_ROWS)
-    (plane,) = host_planes(host)
-    dev = batch_to_device(host, "cuda", non_blocking=False)
-    idx, val = hash_bigrams_device(dev.units, dev.length, GRAM_F)
+    def tweet_batch(rows):
+        """``rows`` synthetic tweets featurized onto the card: the batch, its
+        plane and its device-hashed bigrams."""
+        tweets = list(SyntheticSource(total=rows, seed=11, base_ms=NOW_MS).produce())
+        host = Featurizer(now_ms=NOW_MS, num_text_features=GRAM_F).featurize_batch_units(
+            tweets, row_bucket=rows)
+        (plane,) = host_planes(host)
+        dev = batch_to_device(host, "cuda", non_blocking=False)
+        return (dev, plane) + hash_bigrams_device(dev.units, dev.length, GRAM_F)
+
+    dev, plane, idx, val = tweet_batch(GRAM_ROWS)
     b, l = idx.shape
     f = GRAM_F
     int8 = plane == PLANE_INT8
@@ -3168,29 +3285,72 @@ def gram_times(smi, errs, launches):
     raw = sparse_predict(w[:f], w[f:], idx, val, num)
     p_prev = torch.sum(w * w)
     kw = dict(num_iterations=OP_ITERS, step_size=0.005, l2_reg=0.1)
-    b7 = {}
-    for tol in (0.001, 0.0):
+
+    def b7_time(g, raw, y, m, tol):
         call = lambda: fused_gram.dual_sgd(g, raw, y, m, p_prev=p_prev,  # noqa: E731
                                            convergence_tol=tol, **kw)
         _, _, its = call()
-        b7[tol] = timed(call, 25, queue_ahead=True) + (int(its),)
+        r = {"barriers": int(fused_gram.dual_sgd.last_barriers)} if structure else {}
+        ms, all_ms = timed(call, 25, queue_ahead=True)
+        return dict(r, ms=ms, min_ms=min(all_ms), max_ms=max(all_ms), iterations=int(its),
+                    us_per_iteration=ms / max(int(its), 1) * 1e3)
+
+    def b7_line(r):
+        crossed = f", {r['barriers']} grid barriers" if structure else ""
+        return (f"median {r['ms']:.4f} ms over 25 (min {r['min_ms']:.4f}, max "
+                f"{r['max_ms']:.4f}), {r['iterations']} iterations run{crossed}, "
+                f"{r['us_per_iteration']:.2f} us an iteration")
+
+    b7 = {tol: b7_time(g, raw, y, m, tol) for tol in (0.001, 0.0)}
     b7_twin, _ = timed(lambda: fused_gram.dual_sgd_reference(
         g, raw, y, m, p_prev=p_prev, convergence_tol=0.001, **kw), 5)
     plan = fused_gram.dual_plan(b, **sm_limits())
-    its = b7[0.001][2]
+    its = b7[0.001]["iterations"]
     # each iteration needs one product, G·α_new (2·B² flops: G·Δα is its
-    # difference with the last one, though the kernel computes both), and
-    # ~12·B elementwise (residual, α update, the four dot products); G read once
+    # difference with the last one), and ~12·B elementwise (residual, α
+    # update, the four dot products); G read once
     b7_ops = its * (2 * b * b + 12 * b)
     b7_bytes = b * b * 4 + 5 * b * 4
     b7_bound = (b7_bytes / HBM_BYTES_PER_S * 1e3, b7_ops / F32_FLOPS_PER_S * 1e3)
-    phase("times", f"B7 dual loop at B={b}: grid {plan.grid}, {plan.resident_rows} rows of G "
-          f"resident, {plan.shared_bytes} B shared a CTA; tol 0.001: median "
-          f"{b7[0.001][0]:.4f} ms ({its} iterations run), tol 0: {b7[0.0][0]:.4f} ms "
-          f"({b7[0.0][2]} iterations); per iteration "
-          f"{b7[0.0][0] / max(b7[0.0][2], 1) * 1e3:.2f} us; twin {b7_twin:.4f} ms; bound "
-          f"bytes {b7_bytes} B = {b7_bound[0]:.5f} ms, operations {b7_ops} f32 / 67e12 = "
-          f"{b7_bound[1]:.5f} ms")
+    spread = "; ".join(f"tol {tol}: {b7_line(r)}" for tol, r in b7.items())
+    if structure:
+        # one barrier crossing alone: the probe on B7's grid, 1000 crossings less none
+        fused_gram.dual_barrier_probe(plan.grid, 1000)
+        none_ms, _ = timed(lambda: fused_gram.dual_barrier_probe(plan.grid, 0), 25,
+                           queue_ahead=True)
+        many_ms, _ = timed(lambda: fused_gram.dual_barrier_probe(plan.grid, 1000), 25,
+                           queue_ahead=True)
+        barrier_us = (many_ms - none_ms) / 1000 * 1e3
+        where = ("G in registers" if plan.in_registers
+                 else f"{plan.resident_rows} rows of G resident")
+        spread += (f"; one grid barrier crossing alone {barrier_us:.3f} us (1000 crossings "
+                   f"on {plan.grid} CTAs); {where}")
+    phase("times", f"B7 dual loop at B={b}: grid {plan.grid}, {plan.shared_bytes} B shared a "
+          f"CTA; {spread}; twin {b7_twin:.4f} ms; bound bytes {b7_bytes} B = "
+          f"{b7_bound[0]:.5f} ms, operations {b7_ops} f32 / 67e12 = {b7_bound[1]:.5f} ms")
+    # B7 where G's rows do not all fit on chip: B = 3072 and 4096 tweets
+    # (the 2^18 route's 4 GiB gate admits both), tolerance 0.001
+    spilled = {}
+    for rows in (3072, 4096):
+        dev_s, plane_s, idx_s, val_s = tweet_batch(rows)
+        g_s = fused_gram.gram_from_counts(
+            fused_gram.count_build(idx_s, val_s, f, int8=plane_s == PLANE_INT8))
+        g_s[:rows, :rows] += dev_s.numeric @ dev_s.numeric.T
+        raw_s = sparse_predict(w[:f], w[f:], idx_s, val_s, dev_s.numeric)
+        plan_s = fused_gram.dual_plan(rows, **sm_limits())
+        spilled[rows] = dict(b7_time(g_s, raw_s, dev_s.label, dev_s.mask, 0.001),
+                             grid=plan_s.grid, resident_rows=plan_s.resident_rows,
+                             spill_rows=plan_s.spill_rows)
+        phase("times", f"B7 dual loop at B={rows} (G spilled): grid {plan_s.grid}, "
+              f"{plan_s.resident_rows} rows of G resident, {plan_s.spill_rows} spilled; tol "
+              f"0.001: {b7_line(spilled[rows])}")
+        del dev_s, idx_s, val_s, g_s, raw_s
+    b7_extra = {"kernel": "B7", "iterations_run": its, "all_iterations_ms": b7[0.0]["ms"],
+                "grid": plan.grid, "shared_bytes": plan.shared_bytes,
+                "tolerances": {str(tol): r for tol, r in b7.items()},
+                "spilled": {str(rows): r for rows, r in spilled.items()}}
+    if structure:
+        b7_extra.update(g_in_registers=plan.in_registers, barrier_crossing_us=barrier_us)
     # B8
     c, alpha, _ = fused_gram.dual_sgd(g, raw, y, m, p_prev=p_prev, convergence_tol=0.001, **kw)
     b8_ms, _ = timed(lambda: fused_gram.dual_writeback_counts(w, c, alpha, counts, num, f), 25,
@@ -3219,10 +3379,8 @@ def gram_times(smi, errs, launches):
                                     "with_f32_cast_ms": g_ms, "bound_ms": mm_bound,
                                     "bound_by": "operations", "f32_matmul_ms": f32_ms,
                                     "replaces": "twtml_tpu/ops/gram.py:210"}}),
-        record("dual_sgd", "twtml_tpu/models/sgd.py:155 (run_dual_loop)", b7[0.001][0],
-               b7_twin, b7_bound, {"kernel": "B7", "iterations_run": its,
-                                   "all_iterations_ms": b7[0.0][0], "grid": plan.grid,
-                                   "shared_bytes": plan.shared_bytes}),
+        record("dual_sgd", "twtml_tpu/models/sgd.py:155 (run_dual_loop)", b7[0.001]["ms"],
+               b7_twin, b7_bound, b7_extra),
         record("dual_writeback_counts", "twtml_tpu/ops/gram.py:269 (dual_writeback)", b8_ms,
                b8_twin, b8_bound, {"kernel": "B8", "addmv_f32_counts_ms": addmv_ms}),
     ]
@@ -4247,12 +4405,13 @@ def times_only(smi):
     the G product, B7 and B8), no app phase; with ``--package-root DIR`` on
     the port found in DIR (another checkout, e.g. a parent commit unpacked
     there), so that two versions are timed in one call, in turns. It calls
-    only the kernels' wrappers and C entries."""
+    only the kernels' wrappers and C entries, and reads of B7 only what
+    every tree exposes: no barrier count or probe."""
     from collections import defaultdict
 
     out = {"package_root": PACKAGE_ROOT, "logistic": logistic_times(smi, 0.0, 0)}
     out["predict"] = predict_mode_times(smi, 0)
-    out["gram"] = gram_times(smi, defaultdict(float), defaultdict(int))
+    out["gram"] = gram_times(smi, defaultdict(float), defaultdict(int), structure=False)
     print(json.dumps({"times_only": out}), flush=True)
 
 

@@ -283,3 +283,13 @@ def test_count_entry_takes_the_wrapper_arguments():
     source = GRAM_SOURCE.read_text()
     params = re.search(r'extern "C" int twtml_count_build\(([^)]*)\)', source).group(1)
     assert len(params.split(",")) == len(fused_gram._ENTRIES["twtml_count_build"])
+
+
+@pytest.mark.parametrize("entry", ["twtml_dual_sgd", "twtml_dual_barrier_probe",
+                                   "twtml_dual_writeback"])
+def test_gram_entries_take_the_wrapper_arguments(entry):
+    """Every other C entry of gram.cu takes as many arguments as its ctypes
+    binding passes."""
+    source = GRAM_SOURCE.read_text()
+    params = re.search(rf'extern "C" int {entry}\(([^)]*)\)', source).group(1)
+    assert len(params.split(",")) == len(fused_gram._ENTRIES[entry])

@@ -312,6 +312,16 @@ def test_dual_plan_covers_every_row(rows):
     assert plan.resident_rows + plan.spill_rows == rows
     # B = 2048 keeps G on chip; 3072 and 4096 spill to L2
     assert (plan.spill_rows > 0) == (rows >= 3072)
+    # up to 2048 rows G lives in registers: at most DUAL_ROWS rows a CTA, a
+    # thread's float4 columns of each; none of it in shared memory
+    assert plan.in_registers == (rows <= 2048)
+    if plan.in_registers:
+        assert plan.rows_cap <= fused_gram.DUAL_ROWS and plan.resident == plan.rows_cap
+        assert 4 * fused_gram.DUAL_THREADS * fused_gram.DUAL_REG_COLUMNS >= plan.bp
+        assert plan.shared_bytes == plan.smem_layout[-1]
+    offsets = (0, *plan.smem_layout)
+    assert all(o % 16 == 0 for o in offsets) and list(offsets) == sorted(offsets)
+    assert plan.scratch_floats == 2 * plan.bp + 8 * plan.grid + 3
 
 
 def test_dual_plan_refuses_what_does_not_fit():
@@ -370,9 +380,11 @@ def test_dual_twin_with_sampling_masks_and_zero_count():
                          residual_fn=sgd_module.least_squares_residual, masks=masks,
                          l2_reg=0.0, **{k: v for k, v in kw.items()})
     np.testing.assert_array_equal(alpha.numpy(), dual["alpha"].numpy())
+    fused_gram.dual_sgd.last_barriers = torch.tensor(3.0)  # as a card launch leaves it
     c0, alpha0, its0 = fused_gram.dual_sgd(g, u, y, torch.zeros(16), **kw)
     assert float(c0) == 1.0 and not alpha0.any() and int(its0) == 10
     assert fused_gram.dual_sgd.launches == 0
+    assert fused_gram.dual_sgd.last_barriers is None  # a CPU call launches no barrier
 
 
 # ---------------------------------------------------------------- trajectories

@@ -45,35 +45,52 @@
 // no store is a scattered 4-byte one; the store stream of the other CTAs on
 // the SM covers a CTA's token pass. No atomics.
 //
-// ---- B7, dual_sgd_kernel<kLogistic>
+// ---- B7, dual_sgd_kernel<kLogistic, kInRegisters>
 // Each iteration is one [B, B]·[B] product (G·α) plus elementwise work on
-// [B] vectors; the convergence test reads Δαᵀ·G·Δα, which this kernel takes
-// from a second product (G·Δα) and four dot products. The function needs
-// only the one product (G·Δα = G·α_new − G·α_old), so its bound counts
-// 2·B² flops an iteration. What bounds it: neither bytes nor operations of
-// the arithmetic (8.4 MFLOP an iteration at B = 2048), but latency:
-// grid-wide barriers and reading G each iteration. Design, B1's pattern
-// (csrc/fused_sgd.cu): one persistent cooperative launch a batch, at most
-// one CTA an SM; CTA c owns rows [c·B/grid, (c+1)·B/grid) of G and keeps
-// them in shared memory as f32 (16 MiB at B = 2048: ~124 KB a CTA over 132
-// SMs); rows that do not fit (B = 3072, 4096) are staged once into a spill
-// buffer and read through L2. α, Δα and the validity mask of the whole
-// batch, and u, y and G·α of the CTA's rows, live in shared memory. An
-// iteration: each CTA updates α on its rows (r = residual(c·u + G·α, y)·sel;
-// α <- α·(1 − ηλ) − (η·r)/max(count, 1)) into a global double buffer;
-// grid barrier; every CTA reads the new α and Δα and computes G·α and
-// G·Δα for its rows (a warp a row, lanes over float4 columns, a shuffle
-// sum) and the CTA's partials of Δαᵀ·G·Δα, αᵀ·G·α, u·Δα and u·α; grid
-// barrier; every CTA sums the partials in the same order and takes the
-// same converged decision (MLlib's test through dual_norm_sq), so the grid
-// leaves the loop together. With tolerance 0 the second barrier goes; the
-// last iteration needs no product. count is Σ mask·masks[i] over the whole
-// batch, the same bits in every CTA; an iteration with count 0 makes no
-// update and is not convergence. Rows with mask <= 0 are zeroed where they
-// are staged (their u and y, their rows and columns of G), so NaN/Inf
-// there is ignored. The update and the step scalars use the JAX loop's f32
-// operations without contraction; the products sum in another order than
-// torch's, so the twin holds B7 within tolerance.
+// [B] vectors; the convergence test reads Δαᵀ·G·Δα, αᵀ·G·α, u·Δα and u·α.
+// What bounds it: neither bytes nor operations of the arithmetic (8.4
+// MFLOP an iteration at B = 2048), but latency: a grid-wide barrier each
+// iteration, since every row's next α needs the whole batch's α. Design:
+// one persistent cooperative launch a batch, at most one CTA an SM; CTA c
+// owns rows [c·B/grid, (c+1)·B/grid) of G. Up to 16 rows a CTA and B <=
+// 2048 they live in registers across the loop (kInRegisters: 2 float4
+// columns of each row a thread, 128 floats at B = 2048 over 132 SMs);
+// otherwise in shared memory, and rows that do not fit (B = 3072, 4096) are
+// staged once into a spill buffer and read through L2; the product then
+// takes groups of up to 16 rows, all resident or all spilled, and a thread
+// issues a column's loads of a group together, so that the spilled rows'
+// L2 latencies overlap. An iteration (an update k):
+//   1. if the decision of test k − 2 is in, the CTA reads it: if that test
+//      converged, α_{k−2} (kept in shared memory by parity) and c_{k−2}
+//      are the result and the grid leaves the loop together;
+//   2. warp 0 updates α on the CTA's rows, a lane a row (r = residual(c·u
+//      + G·α, y)·sel; α <- α·(1 − ηλ) − (η·r)/max(count, 1)), and publishes
+//      them into a global double buffer;
+//   3. one grid barrier (cooperative groups' grid.sync());
+//   4. the last warp loads the CTAs' partials of test k − 1; G·α of the
+//      CTA's rows: every thread loads its columns of the new α from L2
+//      (16-byte loads) and takes them against its columns of every row, a
+//      reduce-scatter sums 16 rows across the warp, the warps in order;
+//   5. warp 0 writes the partials of test k over the CTA's rows, from the
+//      one product: Δαᵀ·G·Δα as Σ Δα·(G·α_new − G·α_old) (a CPU model
+//      holds the iterations this runs to the twin's and the JAX loop's,
+//      tests/test_torch_dual_form.py), into a double buffer by update;
+//      meanwhile the last warp sums test k − 1's partials in a fixed order,
+//      the same bits in every CTA, off the path the other warps wait on.
+// So an update crosses one barrier, which also carries the last test; the
+// last update crosses it only when a test is pending (never at tolerance
+// 0) and decides it at once, and a loop that stops at iteration i < N
+// crosses i + 1. The kernel writes the barriers it crossed beside c and
+// the iterations run. count is Σ mask·masks[i] over the whole batch, the
+// same bits in every CTA; an iteration with count 0 makes no update and is
+// not convergence. Rows with mask <= 0 are zeroed where they are staged
+// (their u and y, their rows and columns of G), so NaN/Inf there is
+// ignored; so is α's padding [B, bp) in the global buffers, once, since
+// the product loads it as whole float4s. The update and the step scalars use the JAX loop's f32
+// operations without contraction; the product sums in another order than
+// torch's, so the twin holds B7 within tolerance. What is left is latency:
+// at B = 2048 an iteration is about one grid.sync() crossing (~1.1 µs on
+// an H100) plus L2 round trips and the CTA's own reductions.
 //
 // ---- B8, writeback_kernel<T>
 // What bounds it: bytes, one read of C (B·F bytes in the int8 plane). Design:
@@ -86,9 +103,11 @@
 // twin holds it within tolerance.
 //
 // What Hopper offers and these designs leave out: tensor cores and TMA.
-// B4 and B8 stream bytes; B7's products are matrix × vector (N = 1) and
-// keep f32 operands as the twin does. The G product itself runs on the
-// tensor cores (cuBLASLt's int8 GEMM behind torch._int_mm).
+// B4 and B8 stream bytes; B7's product is matrix × vector (N = 1) on f32
+// operands, as the twin's, from a G that stays in registers: its time is
+// the barrier's and L2's latency, which neither unit shortens. The G
+// product itself runs on the tensor cores (cuBLASLt's int8 GEMM behind
+// torch._int_mm).
 
 #include <climits>
 #include <cooperative_groups.h>
@@ -105,8 +124,15 @@ using CountKey = unsigned long long;  // a count-build sort key
 constexpr int kCountKeyBytes = sizeof(CountKey);
 constexpr int kDualThreads = 256;
 constexpr int kDualWarps = kDualThreads / 32;
-constexpr int kDualRedFloats = 64;
-constexpr int kRedFlag = 48;  // the converged flag's slot in the scratch
+constexpr int kDualRows = 16;     // rows of G a product pass sums at once
+constexpr int kDualRegCols = 2;   // float4 columns of each row of G a thread holds in registers
+constexpr int kDualMaxGrid = 160;  // CTAs a launch: the decider reads 5 CTAs' partials a lane
+constexpr int kDecider = kDualWarps - 1;  // the warp that sums the tests' partials
+// the reduction scratch: the row partials [kDualWarps][kDualRows], then
+// block_sum's [kDualWarps] at kRedSum, then the converged flag
+constexpr int kRedSum = kDualWarps * kDualRows;
+constexpr int kRedFlag = kRedSum + kDualWarps;
+constexpr int kDualRedFloats = (kRedFlag + 4) & ~3;  // a multiple of 16 bytes
 constexpr int kWbThreads = 256;
 constexpr int kWbGroups = 32;                // 4-column groups a block
 constexpr int kWbSegments = kWbThreads / kWbGroups;  // row segments a block
@@ -116,7 +142,8 @@ constexpr int kWbCols = 4 * kWbGroups;       // 128 text columns a block
 // constants; ops/_build.py passes that copy as -D flags, so the two cannot
 // drift apart without the build failing here.
 #if !defined(TWTML_GRAM_COUNT_THREADS) || !defined(TWTML_GRAM_COUNT_KEY_BYTES) || \
-    !defined(TWTML_GRAM_DUAL_THREADS) || \
+    !defined(TWTML_GRAM_DUAL_THREADS) || !defined(TWTML_GRAM_DUAL_ROWS) || \
+    !defined(TWTML_GRAM_DUAL_REG_COLUMNS) || !defined(TWTML_GRAM_DUAL_MAX_GRID) || \
     !defined(TWTML_GRAM_DUAL_RED_FLOATS) || !defined(TWTML_GRAM_WRITEBACK_THREADS) || \
     !defined(TWTML_GRAM_WRITEBACK_COLUMNS)
 #error "build through twtml_tpu_torch/ops/_build.py, which passes the launch plan's constants"
@@ -124,6 +151,9 @@ constexpr int kWbCols = 4 * kWbGroups;       // 128 text columns a block
 static_assert(kCountThreads == TWTML_GRAM_COUNT_THREADS, "COUNT_THREADS differs");
 static_assert(kCountKeyBytes == TWTML_GRAM_COUNT_KEY_BYTES, "COUNT_KEY_BYTES differs");
 static_assert(kDualThreads == TWTML_GRAM_DUAL_THREADS, "DUAL_THREADS differs");
+static_assert(kDualRows == TWTML_GRAM_DUAL_ROWS, "DUAL_ROWS differs");
+static_assert(kDualRegCols == TWTML_GRAM_DUAL_REG_COLUMNS, "DUAL_REG_COLUMNS differs");
+static_assert(kDualMaxGrid == TWTML_GRAM_DUAL_MAX_GRID, "DUAL_MAX_GRID differs");
 static_assert(kDualRedFloats == TWTML_GRAM_DUAL_RED_FLOATS, "DUAL_RED_FLOATS differs");
 static_assert(kWbThreads == TWTML_GRAM_WRITEBACK_THREADS, "WRITEBACK_THREADS differs");
 static_assert(kWbCols == TWTML_GRAM_WRITEBACK_COLUMNS, "WRITEBACK_COLUMNS differs");
@@ -365,32 +395,37 @@ struct DualParams {
   const float* masks;    // [iterations, rows] f32 Bernoulli draws, or null
   const float* p_prev;   // [1] f32: ||W_prev||²
   float* alpha_out;      // [rows] f32
-  float* abuf;           // [2][2][bp] f32: α and Δα, double-buffered by update
-  float* partials;       // [grid][4] f32
+  float* abuf;           // [2][bp] f32: α, double-buffered by update
+  float* partials;       // [2][grid][4] f32: the tests' partials, double-buffered by update
   float* c_out;          // [1]
   float* iterations;     // [1]: the iteration that converged, else N
+  float* barriers;       // [1]: grid barriers crossed
   float* spill;          // [grid][spill_per_cta][bp] f32
   int rows, bp, rows_cap, resident, spill_per_cta, num_iterations;
   float step_size, l2_reg, tol;
 };
 
-// Byte offsets of the dynamic shared memory, each 16-byte aligned: α [bp]
-// at 0, Δα [bp], the mask [bp], u, y and G·α [rows_cap] of the CTA's rows,
-// the reduction scratch, then the resident rows of G [bp] f32 each. The
-// launch plan (ops/fused_gram.py dual_plan) computes the same.
+// Byte offsets of the dynamic shared memory, each 16-byte aligned: α of
+// the whole batch [bp] at 0 (staged from L2 each iteration, when G's rows
+// are not in registers), the mask [bp], then the CTA's rows: u and y
+// [rows_cap] each, α and G·α [2][rows_cap] each (by the parity of the
+// update that made them); the reduction scratch; then the resident rows
+// of G [bp] f32 each (none when G's rows live in registers). The launch
+// plan (ops/fused_gram.py dual_plan) computes the same.
 struct DualLayout {
-  size_t dalpha, mask, u, y, s, red, g;
+  size_t own, mask, u, y, a, s, red, g;  // own: the stride of a [rows_cap] vector
 };
 
 __host__ __device__ inline DualLayout dual_layout(int bp, int rows_cap) {
   DualLayout l;
-  const size_t vec = align16((size_t)bp * 4), own = align16((size_t)rows_cap * 4);
-  l.dalpha = vec;
-  l.mask = 2 * vec;
-  l.u = 3 * vec;
-  l.y = l.u + own;
-  l.s = l.y + own;
-  l.red = l.s + own;
+  const size_t vec = align16((size_t)bp * 4);
+  l.own = align16((size_t)rows_cap * 4);
+  l.mask = vec;
+  l.u = 2 * vec;
+  l.y = l.u + l.own;
+  l.a = l.y + l.own;
+  l.s = l.a + 2 * l.own;
+  l.red = l.s + 2 * l.own;
   l.g = l.red + kDualRedFloats * 4;
   return l;
 }
@@ -409,6 +444,76 @@ __device__ float block_sum(float v, float* red) {
   return s;
 }
 
+// The warp's sums of kDualRows per-lane values at once (a reduce-scatter:
+// 16 shuffles where a warp_sum each would take 80): returns, in lanes 2j
+// and 2j + 1, Σ over the 32 lanes of acc[j], each row in a fixed order.
+__device__ __forceinline__ float rows_sum(const float (&acc)[kDualRows], int lane) {
+  static_assert(kDualRows == 16, "the reduce-scatter below takes 16 rows");
+  constexpr unsigned kFull = 0xffffffffu;
+  float v8[8], v4[4], v2[2];
+  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4, b1 = lane & 2;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)  // rows 8·b4 + j
+    v8[j] = (b4 ? acc[j + 8] : acc[j]) + __shfl_xor_sync(kFull, b4 ? acc[j] : acc[j + 8], 16);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)  // rows 8·b4 + 4·b3 + j
+    v4[j] = (b3 ? v8[j + 4] : v8[j]) + __shfl_xor_sync(kFull, b3 ? v8[j] : v8[j + 4], 8);
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+    v2[j] = (b2 ? v4[j + 2] : v4[j]) + __shfl_xor_sync(kFull, b2 ? v4[j] : v4[j + 2], 4);
+  const float v1 = (b1 ? v2[1] : v2[0]) + __shfl_xor_sync(kFull, b1 ? v2[0] : v2[1], 2);
+  return v1 + __shfl_xor_sync(kFull, v1, 1);  // row (lane >> 1) & 15
+}
+
+__device__ __forceinline__ float dot4(float4 g, float4 a, float acc) {
+  acc = fmaf(g.x, a.x, acc);
+  acc = fmaf(g.y, a.y, acc);
+  acc = fmaf(g.z, a.z, acc);
+  return fmaf(g.w, a.w, acc);
+}
+
+// Each thread's partial sums of n <= kDualRows consecutive rows of G
+// ([n][nvec] float4 at g4: all in shared memory, or all in the spill
+// buffer, read through L2) against α (alpha4, shared), over its columns.
+// A column's n loads are issued together, so a spilled row's L2 latency
+// overlaps the other rows'.
+template <bool kSpilled>
+__device__ __forceinline__ void rows_partials(const float4* g4, const float4* alpha4, int nvec,
+                                              int n, float (&acc)[kDualRows]) {
+#pragma unroll
+  for (int j = 0; j < kDualRows; ++j) acc[j] = 0.f;
+  for (int v = threadIdx.x; v < nvec; v += kDualThreads) {
+    float4 gv[kDualRows];
+#pragma unroll
+    for (int j = 0; j < kDualRows; ++j)
+      if (j < n) gv[j] = kSpilled ? __ldcg(g4 + (size_t)j * nvec + v) : g4[(size_t)j * nvec + v];
+    const float4 av = alpha4[v];
+#pragma unroll
+    for (int j = 0; j < kDualRows; ++j)
+      if (j < n) acc[j] = dot4(gv[j], av, acc[j]);
+  }
+}
+
+// Rows [r0, r0 + n) of the CTA's G·α from every thread's partial sums:
+// each warp's reduce-scatter into red[warp][j], then lane (r0 + j) & 31 of
+// warp 0 (the thread that updates that row) sums the warps in order into
+// sn[r0 + j]. Ends with warp 0's reads of red pending: a caller that
+// writes red again first crosses a __syncthreads.
+__device__ __forceinline__ void finish_rows(const float (&acc)[kDualRows], int r0, int n,
+                                            float* red, float* sn) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float v = rows_sum(acc, lane);
+  if ((lane & 1) == 0) red[warp * kDualRows + (lane >> 1)] = v;
+  __syncthreads();
+  const int j = (lane - r0) & 31;
+  if (warp == 0 && j < n) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDualWarps; ++w) s += red[w * kDualRows + j];
+    sn[r0 + j] = s;
+  }
+}
+
 template <bool kLogistic>
 __device__ __forceinline__ float dual_residual(float raw, float y) {
   if constexpr (kLogistic) {
@@ -418,18 +523,22 @@ __device__ __forceinline__ float dual_residual(float raw, float y) {
   }
 }
 
-template <bool kLogistic>
+// kInRegisters: the CTA's rows of G (at most kDualRows) live in registers,
+// kDualRegCols float4 columns of each a thread; else in shared memory, and
+// past `resident` in the spill buffer, read through L2.
+template <bool kLogistic, bool kInRegisters>
 __global__ void __launch_bounds__(kDualThreads, 1) dual_sgd_kernel(const DualParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const DualLayout lay = dual_layout(p.bp, p.rows_cap);
   float* alpha_s = reinterpret_cast<float*>(smem);
-  float* dalpha_s = reinterpret_cast<float*>(smem + lay.dalpha);
   float* mask_s = reinterpret_cast<float*>(smem + lay.mask);
   float* u_s = reinterpret_cast<float*>(smem + lay.u);
   float* y_s = reinterpret_cast<float*>(smem + lay.y);
-  float* s_s = reinterpret_cast<float*>(smem + lay.s);
   float* red = reinterpret_cast<float*>(smem + lay.red);
-  float* g_s = reinterpret_cast<float*>(smem + lay.g);
+  const float4* g4_s = reinterpret_cast<const float4*>(smem + lay.g);
+  // α and G·α of the CTA's rows made by an update of parity q
+  const auto a_s = [&](int q) { return reinterpret_cast<float*>(smem + lay.a + q * lay.own); };
+  const auto s_s = [&](int q) { return reinterpret_cast<float*>(smem + lay.s + q * lay.own); };
 
   cg::grid_group grid = cg::this_grid();
   const int cta = blockIdx.x, ncta = gridDim.x;
@@ -437,173 +546,283 @@ __global__ void __launch_bounds__(kDualThreads, 1) dual_sgd_kernel(const DualPar
   const int rows = p.rows, bp = p.bp, nvec = bp / 4;
   const int row0 = (int)((long long)cta * rows / ncta);
   const int my_rows = (int)((long long)(cta + 1) * rows / ncta) - row0;
+  const bool test = p.tol > 0.f;
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
 
   // ---- prologue: the batch's mask, the CTA's u, y and rows of G, once
-  for (int k = tid; k < bp; k += kDualThreads) {
-    alpha_s[k] = 0.f;
-    dalpha_s[k] = 0.f;
-    mask_s[k] = k < rows ? __ldg(p.mask + k) : 0.f;
-  }
+  for (int k = tid; k < bp; k += kDualThreads) mask_s[k] = k < rows ? __ldg(p.mask + k) : 0.f;
   __syncthreads();
   for (int l = tid; l < my_rows; l += kDualThreads) {
     const bool keep = mask_s[row0 + l] > 0.f;
     u_s[l] = keep ? __ldg(p.u + row0 + l) : 0.f;
     y_s[l] = keep ? __ldg(p.y + row0 + l) : 0.f;
-    s_s[l] = 0.f;  // G·α with α = 0
+    a_s(0)[l] = 0.f;  // α = 0, the state before update 1
+    s_s(0)[l] = 0.f;  // G·α with α = 0
   }
-  for (int l = warp; l < my_rows; l += kDualWarps) {
-    const int r = row0 + l;
-    const bool keep = mask_s[r] > 0.f;
-    float* dst = l < p.resident
-                     ? g_s + (size_t)l * bp
-                     : p.spill + ((size_t)cta * p.spill_per_cta + (l - p.resident)) * bp;
-    const float* src = p.g + (size_t)r * p.ldg;
-    for (int k = lane; k < bp; k += 32)
-      dst[k] = keep && mask_s[k] > 0.f ? __ldg(src + k) : 0.f;  // mask_s is 0 past rows
+  // The padding [rows, bp) of both α buffers, which the updates never
+  // write but G·α loads as whole float4s: zero, so that whatever the
+  // scratch held there (NaN, Inf) meets G's zero columns as 0. The first
+  // barrier orders these writes before any load.
+  if (cta == 0)
+    for (int k = rows + tid; k < bp; k += kDualThreads) p.abuf[k] = p.abuf[bp + k] = 0.f;
+  // mask_s is 0 past rows: a masked row's or column's G is 0
+  float4 greg[kInRegisters ? kDualRows : 1][kInRegisters ? kDualRegCols : 1];
+  if constexpr (kInRegisters) {
+#pragma unroll
+    for (int j = 0; j < kDualRows; ++j) {
+      const bool keep = j < my_rows && mask_s[row0 + j] > 0.f;
+      const float* src = p.g + (size_t)(row0 + j) * p.ldg;
+#pragma unroll
+      for (int q = 0; q < kDualRegCols; ++q) {
+        const int k = 4 * (tid + q * kDualThreads);
+        float e[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          e[i] = keep && k + i < bp && mask_s[k + i] > 0.f ? __ldg(src + k + i) : 0.f;
+        greg[j][q] = make_float4(e[0], e[1], e[2], e[3]);
+      }
+    }
+  } else {
+    for (int l = warp; l < my_rows; l += kDualWarps) {
+      const int r = row0 + l;
+      const bool keep = mask_s[r] > 0.f;
+      float* dst = l < p.resident
+                       ? reinterpret_cast<float*>(smem + lay.g) + (size_t)l * bp
+                       : p.spill + ((size_t)cta * p.spill_per_cta + (l - p.resident)) * bp;
+      const float* src = p.g + (size_t)r * p.ldg;
+      for (int k = lane; k < bp; k += 32) dst[k] = keep && mask_s[k] > 0.f ? __ldg(src + k) : 0.f;
+    }
   }
   float count_all;
   {
     float v = 0.f;
     for (int k = tid; k < rows; k += kDualThreads) v += mask_s[k];
-    count_all = block_sum(v, red);  // also orders the staging above before the loop
+    count_all = block_sum(v, red + kRedSum);  // also orders the staging above before the loop
   }
   const float pp = __ldg(p.p_prev);
 
-  float c = 1.f;
-  int ran = p.num_iterations;
-  int updates = 0;
-  bool final_in_smem = true;  // else the last update wrote alpha_out itself
+  // The convergence test of update k: its partials are written after G·α_k,
+  // loaded by the decider warp past the barrier of update k + 1 (the only
+  // barrier an update crosses) and summed after that update's product, off
+  // the path the other warps wait on; the CTA reads the decision at the top
+  // of the next update. If it converged, α_k and c_k are the result (α_k is
+  // kept until update k + 2 would overwrite it) and the speculative update
+  // k + 1 is dropped.
+  float4 t[kDualMaxGrid / 32];  // the decider's loads of a test's partials
+  const auto load_partials = [&](int parity) {  // the decider warp
+    const float4* part = reinterpret_cast<const float4*>(p.partials) + (size_t)parity * ncta;
+#pragma unroll
+    for (int i = 0; i < kDualMaxGrid / 32; ++i) {
+      const int k = lane + 32 * i;
+      t[i] = k < ncta ? __ldcg(part + k) : zero4;
+    }
+  };
+  const auto decide = [&](float c_new, float c_old) {  // the decider warp, after load_partials
+    // each lane's CTAs in order, then the lanes: the same bits in every CTA
+    float q[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < kDualMaxGrid / 32; ++i) {
+      q[0] += t[i].x;
+      q[1] += t[i].y;
+      q[2] += t[i].z;
+      q[3] += t[i].w;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) q[j] = warp_sum(q[j]);
+    if (lane == 0) {
+      // dual_norm_sq: Δc²·p + 2·Δc·(u·Δα) + Δαᵀ·G·Δα, and the same of the new state
+      const float dc = c_new - c_old;
+      const float d2 = dc * dc * pp + 2.f * dc * q[2] + q[0];
+      const float n2 = c_new * c_new * pp + 2.f * c_new * q[3] + q[1];
+      red[kRedFlag] = sqrtf(d2) < p.tol * fmaxf(sqrtf(n2), 1.f) ? 1.f : 0.f;
+    }
+  };
+
+  float c = 1.f, c_prev = 1.f;  // c of the latest update and of the one before
+  int cur = 0;                  // the parity of the latest state's α and G·α
+  int ran = p.num_iterations, barriers = 0, updates = 0;
+  int undecided = -1, undecided_it = 0;  // the test whose partials await the next barrier
+  int decided_it = 0;                    // the test the decider summed, its flag unread
+  float decided_c = 1.f;
+  int result = -1;  // the parity of the result's α, once the loop stopped
   for (int it = 1; it <= p.num_iterations; ++it) {
     const float* draw = p.masks ? p.masks + (size_t)(it - 1) * rows : nullptr;
     float count = count_all;
     if (draw) {
       float v = 0.f;
       for (int k = tid; k < rows; k += kDualThreads) v += mask_s[k] * __ldg(draw + k);
-      count = block_sum(v, red);
+      count = block_sum(v, red + kRedSum);
     }
     if (!(count > 0.f)) continue;  // no sampled row: no update, and not convergence
+    if (decided_it > 0) {  // the decider's flag, before this update overwrites its α
+      __syncthreads();
+      if (red[kRedFlag] != 0.f) {
+        ran = decided_it;
+        c = decided_c;
+        result = cur ^ 1;
+        break;
+      }
+      decided_it = 0;
+    }
     // the JAX loop's f32 arithmetic, operation for operation
     const float eta = __fdiv_rn(p.step_size, __fsqrt_rn((float)it));
     const float scale = __fsub_rn(1.f, __fmul_rn(eta, p.l2_reg));
     const float denom = fmaxf(count, 1.f);
     const bool last = it == p.num_iterations;
-    float* a_buf = p.abuf + (size_t)(updates & 1) * 2 * bp;
-    float* d_buf = a_buf + bp;
+    const int nxt = cur ^ 1;
     ++updates;
-    for (int l = tid; l < my_rows; l += kDualThreads) {
-      const int r = row0 + l;
-      const float sel = draw ? mask_s[r] * __ldg(draw + r) : mask_s[r];
-      float res = 0.f;
-      if (mask_s[r] > 0.f) {
-        const float raw = __fadd_rn(__fmul_rn(c, u_s[l]), s_s[l]);
-        res = __fmul_rn(dual_residual<kLogistic>(raw, y_s[l]), sel);
-      }
-      const float a_old = alpha_s[r];
-      const float a_new =
-          __fsub_rn(__fmul_rn(a_old, scale), __fdiv_rn(__fmul_rn(eta, res), denom));
-      if (last) {
-        p.alpha_out[r] = a_new;
-      } else {
-        a_buf[r] = a_new;
-        d_buf[r] = __fsub_rn(a_new, a_old);
+    float* a_pub = p.abuf + (size_t)(updates & 1) * bp;
+    if (warp == 0) {  // the update of the CTA's rows, a lane a row
+      const float* a_old = a_s(cur);
+      const float* s_old = s_s(cur);
+      float* a_new = a_s(nxt);
+      for (int l = lane; l < my_rows; l += 32) {
+        const int r = row0 + l;
+        const float m = mask_s[r];
+        const float sel = draw ? m * __ldg(draw + r) : m;
+        float res = 0.f;
+        if (m > 0.f) {
+          const float raw = __fadd_rn(__fmul_rn(c, u_s[l]), s_old[l]);
+          res = __fmul_rn(dual_residual<kLogistic>(raw, y_s[l]), sel);
+        }
+        const float a =
+            __fsub_rn(__fmul_rn(a_old[l], scale), __fdiv_rn(__fmul_rn(eta, res), denom));
+        a_new[l] = a;
+        if (!last) a_pub[r] = a;
       }
     }
     const float c_new = __fmul_rn(c, scale);  // c·(1 − ηλ) − η·0/denom
-    if (last) {  // nothing reads G·α after the last update
+    if (last && undecided < 0) {  // nothing reads G·α after the last update
       c = c_new;
-      final_in_smem = false;
+      result = nxt;
       break;
     }
     grid.sync();
-    for (int k = tid; k < rows; k += kDualThreads) {
-      alpha_s[k] = __ldcg(a_buf + k);
-      dalpha_s[k] = __ldcg(d_buf + k);
-    }
-    __syncthreads();
-    // ---- G·α and G·Δα of the CTA's rows, a warp a row
-    const bool test = p.tol > 0.f;
-    float qd = 0.f, qa = 0.f, ud = 0.f, ua = 0.f;  // lane 0's partials
-    for (int l = warp; l < my_rows; l += kDualWarps) {
-      const bool resident = l < p.resident;
-      const float4* gr = reinterpret_cast<const float4*>(
-          resident ? g_s + (size_t)l * bp
-                   : p.spill + ((size_t)cta * p.spill_per_cta + (l - p.resident)) * bp);
-      const float4* a4 = reinterpret_cast<const float4*>(alpha_s);
-      const float4* d4 = reinterpret_cast<const float4*>(dalpha_s);
-      float s = 0.f, t = 0.f;
-      for (int v = lane; v < nvec; v += 32) {
-        const float4 gv = resident ? gr[v] : __ldcg(gr + v);
-        const float4 av = a4[v];
-        s = fmaf(gv.x, av.x, s);
-        s = fmaf(gv.y, av.y, s);
-        s = fmaf(gv.z, av.z, s);
-        s = fmaf(gv.w, av.w, s);
-        if (test) {
-          const float4 dv = d4[v];
-          t = fmaf(gv.x, dv.x, t);
-          t = fmaf(gv.y, dv.y, t);
-          t = fmaf(gv.z, dv.z, t);
-          t = fmaf(gv.w, dv.w, t);
-        }
-      }
-      s = warp_sum(s);
-      if (test) t = warp_sum(t);
-      if (lane == 0) {
-        const int r = row0 + l;
-        s_s[l] = s;
-        qd = fmaf(dalpha_s[r], t, qd);
-        qa = fmaf(alpha_s[r], s, qa);
-        ud = fmaf(u_s[l], dalpha_s[r], ud);
-        ua = fmaf(u_s[l], alpha_s[r], ua);
-      }
-    }
-    const float c_prev = c;
-    c = c_new;
-    if (test) {
-      if (lane == 0) {
-        red[16 + 4 * warp] = qd;
-        red[17 + 4 * warp] = qa;
-        red[18 + 4 * warp] = ud;
-        red[19 + 4 * warp] = ua;
-      }
+    ++barriers;
+    const bool deciding = undecided >= 0;
+    if (deciding && warp == kDecider) load_partials(undecided);
+    if (last) {  // the pending test decides between this update and the last
+      if (warp == kDecider) decide(c, c_prev);
       __syncthreads();
-      if (tid < 4) {
-        float v = 0.f;
-        for (int w = 0; w < kDualWarps; ++w) v += red[16 + 4 * w + tid];
-        p.partials[4 * cta + tid] = v;
-      }
-      grid.sync();
-      if (warp == 0) {
-        float q[4];
+      const bool stop = red[kRedFlag] != 0.f;
+      ran = stop ? undecided_it : ran;
+      c = stop ? c : c_new;
+      result = stop ? cur : nxt;
+      break;
+    }
+    // ---- G·α_new of the CTA's rows: a thread's columns of every row (α of
+    // the batch, 16 bytes a load from L2), then the rows' sums across the
+    // CTA in a fixed order
+    float* s_new = s_s(nxt);
+    const float4* a4 = reinterpret_cast<const float4*>(a_pub);
+    if constexpr (kInRegisters) {
+      float4 av[kDualRegCols];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float v = 0.f;
-          for (int k = lane; k < ncta; k += 32) v += __ldcg(p.partials + 4 * k + j);
-          q[j] = warp_sum(v);
-        }
-        if (lane == 0) {
-          // dual_norm_sq: Δc²·p + 2·Δc·(u·Δα) + Δαᵀ·G·Δα, and the same of the new state
-          const float dc = c - c_prev;
-          const float d2 = dc * dc * pp + 2.f * dc * q[2] + q[0];
-          const float n2 = c * c * pp + 2.f * c * q[3] + q[1];
-          red[kRedFlag] = sqrtf(d2) < p.tol * fmaxf(sqrtf(n2), 1.f) ? 1.f : 0.f;
-        }
+      for (int q = 0; q < kDualRegCols; ++q) {
+        const int v = tid + q * kDualThreads;
+        av[q] = v < nvec ? __ldcg(a4 + v) : zero4;
       }
+      float acc[kDualRows];
+#pragma unroll
+      for (int j = 0; j < kDualRows; ++j) {
+        acc[j] = 0.f;
+#pragma unroll
+        for (int q = 0; q < kDualRegCols; ++q) acc[j] = dot4(greg[j][q], av[q], acc[j]);
+      }
+      finish_rows(acc, 0, my_rows, red, s_new);
+    } else {
+      for (int v = tid; v < nvec; v += kDualThreads)
+        reinterpret_cast<float4*>(alpha_s)[v] = __ldcg(a4 + v);
+      __syncthreads();
+      const float4* alpha4 = reinterpret_cast<const float4*>(alpha_s);
+      const float4* spill4 =
+          reinterpret_cast<const float4*>(p.spill) + (size_t)cta * p.spill_per_cta * nvec;
+      const int kept = min(my_rows, p.resident);
+      // groups of up to 16 rows, each all resident or all spilled
+      for (int r0 = 0; r0 < my_rows;) {
+        if (r0 > 0) __syncthreads();  // warp 0 has read red
+        const bool spilled = r0 >= kept;
+        const int n = min(kDualRows, (spilled ? my_rows : kept) - r0);
+        float acc[kDualRows];
+        if (spilled)
+          rows_partials<true>(spill4 + (size_t)(r0 - p.resident) * nvec, alpha4, nvec, n, acc);
+        else
+          rows_partials<false>(g4_s + (size_t)r0 * nvec, alpha4, nvec, n, acc);
+        finish_rows(acc, r0, n, red, s_new);
+        r0 += n;
+      }
+    }
+    // ---- the partials of this update's test over the CTA's rows in order
+    // (lane l holds rows l, l + 32, ...; finish_rows wrote its s_new): the
+    // one product gives Δαᵀ·G·Δα as Σ Δα·(G·α_new − G·α_old)
+    if (test && warp == 0) {
+      const float *a_old = a_s(cur), *s_old = s_s(cur), *a_new = a_s(nxt);
+      float qd = 0.f, qa = 0.f, ud = 0.f, ua = 0.f;
+      for (int l = lane; l < my_rows; l += 32) {
+        const float an = a_new[l], sn = s_new[l];
+        const float d = __fsub_rn(an, a_old[l]);
+        qd = fmaf(d, __fsub_rn(sn, s_old[l]), qd);
+        qa = fmaf(an, sn, qa);
+        ud = fmaf(u_s[l], d, ud);
+        ua = fmaf(u_s[l], an, ua);
+      }
+      qd = warp_sum(qd);
+      qa = warp_sum(qa);
+      ud = warp_sum(ud);
+      ua = warp_sum(ua);
+      if (lane == 0)
+        reinterpret_cast<float4*>(p.partials)[(size_t)(updates & 1) * ncta + cta] =
+            make_float4(qd, qa, ud, ua);
+    }
+    if (deciding) {  // the last test, its loads landed during the product
+      if (warp == kDecider) decide(c, c_prev);
+      decided_it = undecided_it;
+      decided_c = c;
+    }
+    undecided = test ? (updates & 1) : -1;
+    undecided_it = it;
+    cur = nxt;
+    c_prev = c;
+    c = c_new;
+  }
+  if (result < 0) {  // the loop ran out, its last iterations selecting no row
+    result = cur;
+    if (decided_it > 0) {
       __syncthreads();
       if (red[kRedFlag] != 0.f) {
-        ran = it;
-        break;
+        ran = decided_it;
+        c = decided_c;
+        result = cur ^ 1;
+        undecided = -1;
       }
-    } else {
-      __syncthreads();  // s_s written before the next update reads it
+    }
+    if (undecided >= 0) {  // one more barrier decides the last test
+      grid.sync();
+      ++barriers;
+      if (warp == kDecider) {
+        load_partials(undecided);
+        decide(c, c_prev);
+      }
+      __syncthreads();
+      if (red[kRedFlag] != 0.f) ran = undecided_it;
     }
   }
-  if (final_in_smem)
-    for (int l = tid; l < my_rows; l += kDualThreads) p.alpha_out[row0 + l] = alpha_s[row0 + l];
+  if (warp == 0)
+    for (int l = lane; l < my_rows; l += 32) p.alpha_out[row0 + l] = a_s(result)[l];
   if (cta == 0 && tid == 0) {
     *p.c_out = c;
     *p.iterations = (float)ran;
+    *p.barriers = (float)barriers;
   }
+}
+
+// The probe that times B7's grid barrier: `crossings` grid.sync()s and
+// nothing else, on B7's block size. Cooperative groups keep the barrier's
+// arrival counter in the launch's own workspace, so B7 keeps no barrier
+// state in its scratch and a replayed CUDA graph starts it afresh.
+__global__ void __launch_bounds__(kDualThreads, 1) barrier_probe_kernel(int crossings) {
+  cg::grid_group grid = cg::this_grid();
+  for (int i = 0; i < crossings; ++i) grid.sync();
 }
 
 // ------------------------------------------------------------------ B8
@@ -687,7 +906,7 @@ __global__ void __launch_bounds__(kWbThreads) writeback_kernel(
 
 // Once a device, before its first launch: the SM count and the opt-in
 // shared memory a block may use on `device`, and the dynamic shared-memory
-// limit of the count build and of both dual-loop modes raised to that
+// limit of the count build and of every dual-loop instantiation raised to that
 // opt-in there. Returns a CUDA error code, 0 on success.
 extern "C" int twtml_gram_setup(int device, int* sm_count, int* shared_optin) {
   int current = 0;
@@ -700,8 +919,10 @@ extern "C" int twtml_gram_setup(int device, int* sm_count, int* shared_optin) {
   const void* kernels[] = {
       reinterpret_cast<const void*>(count_build_kernel<int8_t>),
       reinterpret_cast<const void*>(count_build_kernel<float>),
-      reinterpret_cast<const void*>(dual_sgd_kernel<false>),
-      reinterpret_cast<const void*>(dual_sgd_kernel<true>),
+      reinterpret_cast<const void*>(dual_sgd_kernel<false, false>),
+      reinterpret_cast<const void*>(dual_sgd_kernel<false, true>),
+      reinterpret_cast<const void*>(dual_sgd_kernel<true, false>),
+      reinterpret_cast<const void*>(dual_sgd_kernel<true, true>),
   };
   for (const void* k : kernels)
     if (err == cudaSuccess)
@@ -744,30 +965,38 @@ extern "C" int twtml_count_build(const void* idx, const void* val, void* out, in
 // B7: the whole dual loop for one batch, one cooperative launch on `stream`
 // (the current device's, set up by twtml_gram_setup). g [>= rows, ldg] f32;
 // u, y, mask [rows] f32; masks [iterations, rows] f32 or null; p_prev [1]
-// f32; alpha_out [rows] f32; scratch [4·bp + 4·grid + 2] f32 (its last two
-// floats receive c and the iterations run); spill [grid·spill_per_cta·bp]
-// f32. The plan's values and `plan_layout` (host memory: dual_layout()'s
-// offsets of Δα, the mask, u, y, G·α, the scratch and the resident rows)
-// come from ops/fused_gram.py dual_plan; a plan that differs is refused.
-// `residual_mode` 0 least squares, 1 logistic. Returns the launch's CUDA
-// error (a refused cooperative launch included), 0 when it was taken.
+// f32; alpha_out [rows] f32; scratch [2·bp + 8·grid + 3] f32 (α's double
+// buffer, the tests' partials; its last three floats receive c, the
+// iterations run and the grid barriers crossed); spill [grid·spill_per_cta·bp] f32. The plan's values and
+// `plan_layout` (host memory: dual_layout()'s offsets of the mask, u, y,
+// α and G·α by parity, the scratch and the resident rows) come
+// from ops/fused_gram.py dual_plan; a plan that differs is refused.
+// `in_registers` 1 keeps the CTA's rows of G in registers (at most
+// kDualRows rows, B <= 4·kDualThreads·kDualRegCols; nothing of G in shared
+// memory or spilled). `residual_mode` 0 least squares, 1 logistic. Returns the
+// launch's CUDA error (a refused cooperative launch included), 0 when it
+// was taken.
 extern "C" int twtml_dual_sgd(const void* g, long long ldg, const void* u, const void* y,
                               const void* mask, const void* masks, const void* p_prev,
                               void* alpha_out, void* scratch, void* spill, int rows, int bp,
                               int grid, int rows_cap, int resident, int spill_per_cta,
-                              int shared_bytes, const int* plan_layout, int num_iterations,
-                              float step_size, float l2_reg, float tol, int residual_mode,
-                              void* stream) {
+                              int in_registers, int shared_bytes, const int* plan_layout,
+                              int num_iterations, float step_size, float l2_reg, float tol,
+                              int residual_mode, void* stream) {
   const DualLayout lay = dual_layout(bp, rows_cap);
-  if (rows < 1 || ldg < rows || bp < rows || bp % 4 != 0 || grid < 1 ||
-      (long long)rows_cap * grid < rows || resident < 0 || resident > rows_cap ||
-      spill_per_cta != rows_cap - resident || num_iterations < 0 ||
-      (residual_mode != 0 && residual_mode != 1) || (size_t)plan_layout[0] != lay.dalpha ||
-      (size_t)plan_layout[1] != lay.mask || (size_t)plan_layout[2] != lay.u ||
-      (size_t)plan_layout[3] != lay.y || (size_t)plan_layout[4] != lay.s ||
-      (size_t)plan_layout[5] != lay.red || (size_t)plan_layout[6] != lay.g ||
-      (size_t)shared_bytes < lay.g + (size_t)resident * bp * 4)
-    return (int)cudaErrorInvalidValue;
+  const size_t offsets[] = {lay.mask, lay.u, lay.y, lay.a, lay.s, lay.red, lay.g};
+  bool ok = rows >= 1 && ldg >= rows && bp >= rows && bp % 4 == 0 && grid >= 1 &&
+            grid <= kDualMaxGrid &&
+            (long long)rows_cap * grid >= rows && resident >= 0 && resident <= rows_cap &&
+            spill_per_cta == rows_cap - resident && num_iterations >= 0 &&
+            (residual_mode == 0 || residual_mode == 1) &&
+            (in_registers == 0 || in_registers == 1) &&
+            (size_t)shared_bytes >= lay.g + (size_t)(in_registers ? 0 : resident) * bp * 4;
+  if (in_registers)
+    ok = ok && rows_cap <= kDualRows && bp <= 4 * kDualThreads * kDualRegCols &&
+         resident == rows_cap;
+  for (int i = 0; i < 7; ++i) ok = ok && (size_t)plan_layout[i] == offsets[i];
+  if (!ok) return (int)cudaErrorInvalidValue;
   DualParams p;
   p.g = static_cast<const float*>(g);
   p.ldg = ldg;
@@ -778,9 +1007,10 @@ extern "C" int twtml_dual_sgd(const void* g, long long ldg, const void* u, const
   p.p_prev = static_cast<const float*>(p_prev);
   p.alpha_out = static_cast<float*>(alpha_out);
   p.abuf = static_cast<float*>(scratch);
-  p.partials = p.abuf + 4 * (size_t)bp;
-  p.c_out = p.partials + 4 * (size_t)grid;
+  p.partials = p.abuf + 2 * (size_t)bp;
+  p.c_out = p.partials + 8 * (size_t)grid;
   p.iterations = p.c_out + 1;
+  p.barriers = p.c_out + 2;
   p.spill = static_cast<float*>(spill);
   p.rows = rows;
   p.bp = bp;
@@ -792,10 +1022,25 @@ extern "C" int twtml_dual_sgd(const void* g, long long ldg, const void* u, const
   p.l2_reg = l2_reg;
   p.tol = tol;
   void* args[] = {&p};
-  const void* kernel = residual_mode == 1 ? reinterpret_cast<const void*>(dual_sgd_kernel<true>)
-                                          : reinterpret_cast<const void*>(dual_sgd_kernel<false>);
-  return (int)cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kDualThreads), args,
-                                          (size_t)shared_bytes,
+  const void* kernels[2][2] = {
+      {reinterpret_cast<const void*>(dual_sgd_kernel<false, false>),
+       reinterpret_cast<const void*>(dual_sgd_kernel<false, true>)},
+      {reinterpret_cast<const void*>(dual_sgd_kernel<true, false>),
+       reinterpret_cast<const void*>(dual_sgd_kernel<true, true>)},
+  };
+  return (int)cudaLaunchCooperativeKernel(kernels[residual_mode][in_registers], dim3(grid),
+                                          dim3(kDualThreads), args, (size_t)shared_bytes,
+                                          static_cast<cudaStream_t>(stream));
+}
+
+// The barrier probe: `crossings` of B7's grid barrier on `grid` CTAs of
+// B7's block size, one cooperative launch on `stream`. Returns the launch's
+// CUDA error.
+extern "C" int twtml_dual_barrier_probe(int grid, int crossings, void* stream) {
+  if (grid < 1 || grid > kDualMaxGrid || crossings < 0) return (int)cudaErrorInvalidValue;
+  void* args[] = {&crossings};
+  return (int)cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(barrier_probe_kernel),
+                                          dim3(grid), dim3(kDualThreads), args, 0,
                                           static_cast<cudaStream_t>(stream));
 }
 

@@ -13,8 +13,10 @@ fusions of ``twtml_tpu/ops/gram.py`` and ``twtml_tpu/models/sgd.py``
   then an exact f32 cast) in the int8 plane, an f32 ``torch.matmul`` (TF32
   off) in the others. A library GEMM, as the JAX package leaves it to XLA.
 - B7 ``dual_sgd``: MLlib's loop on the dual state {c, α}, one persistent
-  cooperative launch a batch, G's rows resident in shared memory. Twin:
-  ``dual_sgd_reference`` (models/sgd.py ``run_dual_loop`` as torch ops).
+  cooperative launch a batch, one grid barrier and one pass over G an
+  iteration, G's rows in registers (or shared memory) across the loop.
+  Twin: ``dual_sgd_reference`` (models/sgd.py ``run_dual_loop`` as torch
+  ops).
 - B8 ``dual_writeback_counts``: W_new = c·W_prev + Cᵀα (and the numeric
   columns' w_num·c + Nᵀα) in one fixed-order column pass over C. Twin:
   ``dual_writeback_reference``.
@@ -51,13 +53,19 @@ COUNT_THREADS = 256
 COUNT_KEY_BYTES = 8  # a count-build sort key: idx << ceil(log2 L) | j
 DUAL_THREADS = 256
 DUAL_WARPS = DUAL_THREADS // 32
-DUAL_RED_FLOATS = 64  # the reduction scratch of a CTA
+DUAL_ROWS = 16  # rows of G a product pass sums at once
+DUAL_REG_COLUMNS = 2  # float4 columns of each row of G a thread holds in registers
+DUAL_MAX_GRID = 160  # CTAs a launch (the decider warp reads 5 CTAs' partials a lane)
+# the reduction scratch of a CTA: row partials [warps][rows], block_sum's
+# [warps], the converged flag; a multiple of 16 bytes
+DUAL_RED_FLOATS = (DUAL_WARPS * DUAL_ROWS + DUAL_WARPS + 4) & ~3
 WRITEBACK_THREADS = 256
 WRITEBACK_COLUMNS = 128  # text columns a block of B8 owns
 NVCC_DEFINES = tuple(
     f"-DTWTML_GRAM_{name}={value}" for name, value in (
         ("COUNT_THREADS", COUNT_THREADS), ("COUNT_KEY_BYTES", COUNT_KEY_BYTES),
-        ("DUAL_THREADS", DUAL_THREADS),
+        ("DUAL_THREADS", DUAL_THREADS), ("DUAL_ROWS", DUAL_ROWS),
+        ("DUAL_REG_COLUMNS", DUAL_REG_COLUMNS), ("DUAL_MAX_GRID", DUAL_MAX_GRID),
         ("DUAL_RED_FLOATS", DUAL_RED_FLOATS), ("WRITEBACK_THREADS", WRITEBACK_THREADS),
         ("WRITEBACK_COLUMNS", WRITEBACK_COLUMNS),
     )
@@ -117,21 +125,26 @@ def count_shared_bytes(tokens: int, *, shared_limit: int) -> int:
 
 class DualPlan(NamedTuple):
     """How one B7 launch lays G over the card. CTA c owns rows
-    [c*B // grid, (c+1)*B // grid); the first ``resident`` of them stay in
-    shared memory (``bp`` floats a row), the rest are staged once into the
-    spill buffer and read through L2 each iteration."""
+    [c*B // grid, (c+1)*B // grid). With ``in_registers`` (at most
+    ``DUAL_ROWS`` rows a CTA, B <= 2048) they live in registers,
+    ``DUAL_REG_COLUMNS`` float4 columns of each a thread; else the first
+    ``resident`` stay in shared memory (``bp`` floats a row) and the rest
+    are staged once into the spill buffer and read through L2 each
+    iteration."""
 
     rows: int
     bp: int  # floats a stored row of G takes (rows rounded up to 4)
     grid: int
     rows_cap: int
-    resident: int
+    resident: int  # rows of G a CTA keeps on chip (registers or shared memory)
     spill_per_cta: int
+    in_registers: bool
     shared_bytes: int
-    # byte offsets of dα, the mask, u, y, G·α, the reduction scratch and the
-    # resident rows (α at 0); the C entry refuses a plan that differs from
-    # the kernel's own dual_layout()
-    smem_layout: tuple[int, int, int, int, int, int, int]
+    # byte offsets of the mask, u, y, α and G·α ([2][rows_cap] each, by the
+    # parity of the update), the reduction scratch and the resident rows (α
+    # of the batch at 0); the C entry refuses a plan that differs from the
+    # kernel's own dual_layout()
+    smem_layout: tuple[int, ...]
 
     def cta_rows(self, cta: int) -> range:
         return range(cta * self.rows // self.grid, (cta + 1) * self.rows // self.grid)
@@ -150,37 +163,46 @@ class DualPlan(NamedTuple):
 
     @property
     def scratch_floats(self) -> int:
-        """α and Δα twice (the double buffer), the convergence partials [grid,
-        4], then c and the iterations run."""
-        return 4 * self.bp + 4 * self.grid + 2
+        """α twice (the double buffer), the convergence test's partials
+        [2, grid, 4] (double-buffered too), then c, the iterations run and
+        the grid barriers crossed."""
+        return 2 * self.bp + 8 * self.grid + 3
 
 
 def dual_plan(rows: int, *, sm_count: int, shared_limit: int) -> DualPlan:
-    """The grid, rows a CTA and resident/spill split of one B7 launch. Shared
-    memory holds α, Δα and the validity mask of the whole batch ([bp] f32
-    each), u, y and G·α of the CTA's rows, a small scratch, then as many
-    f32 rows of G as fit in ``shared_limit`` (232,448 B on an H100). At most
-    one CTA an SM, and no more CTAs than give each warp a row."""
+    """The grid, rows a CTA and where G's rows live for one B7 launch.
+    Shared memory holds α and the validity mask of the whole batch ([bp]
+    f32 each), six [rows_cap] vectors of the CTA's rows, a small scratch,
+    then, unless G's rows fit in registers, as many f32 rows of G as fit in
+    ``shared_limit`` (232,448 B on an H100). At most one CTA an SM, and no
+    more CTAs than give each warp a row."""
     if rows < 1:
         raise ValueError("the dual loop needs at least one row")
     bp = -(-rows // 4) * 4
-    grid = max(1, min(sm_count, -(-rows // DUAL_WARPS)))
+    grid = max(1, min(sm_count, DUAL_MAX_GRID, -(-rows // DUAL_WARPS)))
     rows_cap = -(-rows // grid)
     vec = _align16(4 * bp)
     own = _align16(4 * rows_cap)
-    dalpha, mask, u = vec, 2 * vec, 3 * vec
+    mask, u = vec, 2 * vec
     y = u + own
-    s = y + own
-    red = s + own
+    a = y + own  # α [2][rows_cap] by the parity of the update that made it
+    s = a + 2 * own  # G·α [2][rows_cap]
+    red = s + 2 * own
     g = red + DUAL_RED_FLOATS * 4
     if g > shared_limit:
         raise ValueError(f"{rows} rows need {g} B of shared memory before any row of G; "
                          f"the limit is {shared_limit} B")
+    layout = (mask, u, y, a, s, red, g)
+    if rows_cap <= DUAL_ROWS and bp <= 4 * DUAL_THREADS * DUAL_REG_COLUMNS:
+        return DualPlan(rows=rows, bp=bp, grid=grid, rows_cap=rows_cap, resident=rows_cap,
+                        spill_per_cta=0, in_registers=True, shared_bytes=g,
+                        smem_layout=layout)
     resident = min(rows_cap, (shared_limit - g) // (4 * bp))
     return DualPlan(
         rows=rows, bp=bp, grid=grid, rows_cap=rows_cap, resident=resident,
-        spill_per_cta=rows_cap - resident, shared_bytes=g + resident * 4 * bp,
-        smem_layout=(dalpha, mask, u, y, s, red, g),
+        spill_per_cta=rows_cap - resident, in_registers=False,
+        shared_bytes=g + resident * 4 * bp,
+        smem_layout=layout,
     )
 
 
@@ -265,13 +287,15 @@ _ENTRIES = {
     "twtml_dual_sgd": (
         [ctypes.c_void_p] + [ctypes.c_longlong]  # g, ldg
         + [ctypes.c_void_p] * 8  # u, y, mask, masks, p_prev, alpha_out, scratch, spill
-        + [ctypes.c_int] * 7  # rows, bp, grid, rows_cap, resident, spill_per_cta, shared_bytes
+        + [ctypes.c_int] * 8  # rows, bp, grid, rows_cap, resident, spill_per_cta,
+        #                       in_registers, shared_bytes
         + [ctypes.POINTER(ctypes.c_int)]  # the plan's smem_layout
         + [ctypes.c_int]  # iterations
         + [ctypes.c_float] * 3  # step_size, l2_reg, tol
         + [ctypes.c_int]  # residual_mode
         + [ctypes.c_void_p]  # stream
     ),
+    "twtml_dual_barrier_probe": [ctypes.c_int] * 2 + [ctypes.c_void_p],  # grid, crossings
     "twtml_dual_writeback": (
         [ctypes.c_void_p]  # counts
         + [ctypes.c_int] * 4  # kind, rows, cols, features
@@ -383,7 +407,9 @@ def dual_sgd(g, u, labels, mask, *, masks=None, p_prev, num_iterations: int,
     valid row each iteration) and p_prev = ||W_prev||² (a [] f32 tensor).
     Rows with mask <= 0 are ignored, whatever their u, y and G hold.
     Returns (c [] f32, α [B] f32, iterations run: the iteration that
-    converged, else N; a [] tensor, read it only when a sync is fine)."""
+    converged, else N; a [] tensor, read it only when a sync is fine).
+    ``dual_sgd.last_barriers`` is then the [] slot beside them that
+    receives the grid barriers the launch crossed, None after a CPU call."""
     mode = residual_mode(residual_fn)
     if mode is None:
         raise ValueError(f"dual_sgd has no residual mode for {residual_fn!r}")
@@ -391,6 +417,7 @@ def dual_sgd(g, u, labels, mask, *, masks=None, p_prev, num_iterations: int,
     kw = dict(masks=masks, p_prev=p_prev, num_iterations=num_iterations,
               step_size=step_size, l2_reg=l2_reg, convergence_tol=convergence_tol)
     if dev.type == "cpu":
+        dual_sgd.last_barriers = None
         return dual_sgd_reference(g, u, labels, mask, residual_fn=residual_fn, **kw)
     if dev.type != "cuda":
         raise ValueError(f"dual_sgd takes cpu or cuda tensors, got {dev}")
@@ -416,11 +443,23 @@ def dual_sgd(g, u, labels, mask, *, masks=None, p_prev, num_iterations: int,
             g.data_ptr(), g.stride(0), u.data_ptr(), labels.data_ptr(), mask.data_ptr(),
             0 if masks is None else masks.data_ptr(), p_prev.data_ptr(), alpha.data_ptr(),
             scratch.data_ptr(), spill.data_ptr(), plan.rows, plan.bp, plan.grid,
-            plan.rows_cap, plan.resident, plan.spill_per_cta, plan.shared_bytes,
+            plan.rows_cap, plan.resident, plan.spill_per_cta, int(plan.in_registers),
+            plan.shared_bytes,
             _layout_arg(plan.smem_layout), int(num_iterations), float(step_size),
             float(l2_reg), float(convergence_tol), mode, _stream()), "dual_sgd")
         _count(dual_sgd)
-    return scratch[-2], alpha, scratch[-1]
+    dual_sgd.last_barriers = scratch[-1]
+    return scratch[-3], alpha, scratch[-2]
+
+
+dual_sgd.last_barriers = None
+
+def dual_barrier_probe(grid: int, crossings: int) -> None:
+    """``crossings`` of B7's grid barrier on ``grid`` CTAs of its block size,
+    nothing else, on the current CUDA device and stream: what chip_smoke.py
+    times one crossing by. Not a kernel of the route (no count)."""
+    _raise_on(_entry("twtml_dual_barrier_probe")(grid, crossings, _stream()),
+              "dual_barrier_probe")
 
 
 def dual_writeback_counts(weights, c, alpha, counts, numeric, f_text: int):
