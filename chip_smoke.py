@@ -195,10 +195,45 @@ Phases, in order; any failure ends the run with a non-zero exit:
                (the wide order), NaN/Inf in masked rows bitwise ignored,
                an all-padding batch predicting zeros; its device time
                against its twin, ``torch.mv`` and its bound.
-No app run publishes anywhere but the loopback recorder and, in the web
-and serve phases, the port's own servers on loopback ports. The line before
-the last is the kernels' JSON record (B1's least-squares and logistic
-modes, its predict kernel, B4 with its f32 build on tweet-length rows, B7
+ 21. tenants — the tenant plane (``--tenants``, parallel/tenants.py) on the
+               card, 4 ticks of the stream phase's tweets from a pre-filled
+               source under the sync-debug mode "error", ``--modelWatch on``:
+               the linear app at M = 4 (hash key, ragged wire), B1 launched
+               4 x (4 ticks + the warm-up) times, one fetch a tick (the
+               model's ``fetch_output`` calls and ``fetch.count``); every
+               tenant's predictions, stats, quality and final weights bitwise
+               a standalone card learner stepped on its routed parts; the
+               [4, 1004] stack and the pooled stats within 1e-4 of the
+               ``--backend cpu`` twin; ``TWTML_FORCE_TENANT_PLANE=1
+               --tenants 1`` bitwise the plain run (lines, weights);
+               ``--chaos source.nan@3`` with a checkpoint every tick rolls
+               the whole stack back to the verified archive once, replays,
+               loses no row and ends bitwise the clean run; the logistic app
+               at M = 2 and ``--tenantKey lang`` at M = 4 (a dry tenant)
+               each bitwise standalone learners; from ``--profileDir``
+               traces, M = 4 against the plain M = 1 run: host wall, device
+               busy ms, launches and H2D/D2H copies a tick (one D2H), and
+               tweets/s;
+ 22. abtest  — champion/challenger serving: ``--tenants 3`` trained on the
+               card with ``--checkpointDir`` (the stack and a quality stamp a
+               tenant in its verified meta); ``apps.serve --abtest on`` over
+               that stack and a single-model ``apps.serve`` (the champion's
+               weights) as processes of their own, every dispatch under the
+               sync-debug mode; 2,000 requests from 16 ``ServingClient``
+               threads of this process to each: every A/B answer bitwise the
+               champion tenant's card train step under the step it names,
+               across a checkpoint written mid-load whose stamps promote
+               challenger 1 once and refuse the alert challenger 2
+               (``promotions`` 1, ``refusedPromotions`` 1 in the Serving
+               view), the router's Fleet view naming the champion; B1
+               launched 3 x (served batches + the warm-up) times in the A/B
+               process, each its predict kernel; requests/s and client
+               p50/p99 of both servers.
+No app run publishes anywhere but the loopback recorder and, in the web,
+serve and abtest phases, the port's own servers on loopback ports. The line before
+the last is the kernels' JSON record (B1's least-squares mode with its
+``tenants`` launches, its logistic mode, its predict kernel with its
+``abtest`` launches, B4 with its f32 build on tweet-length rows, B7
 and B8); the last line is ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --times-only [--package-root DIR]`` runs phases 1
@@ -1445,13 +1480,14 @@ def expect(name, got: dict, want: dict):
         raise AssertionError(f"guards {name}: (got, want) {bad}")
 
 
-def archive(directory):
-    """(weights, meta) of the directory's newest verified archive."""
+def archive(directory, step=None):
+    """(weights, meta) of the directory's newest verified archive, or of
+    ``step``'s."""
     from twtml_tpu_torch.checkpoint import Checkpointer
 
-    restored = Checkpointer(directory).restore()
+    restored = Checkpointer(directory).restore(step=step)
     if restored is None:
-        raise AssertionError(f"no verified archive in {directory}")
+        raise AssertionError(f"no verified archive (step {step}) in {directory}")
     return restored
 
 
@@ -3962,17 +3998,19 @@ def hold_cpu(name, answers, refs, step):
     return len(rows), flips, err
 
 
-def spawn_serve(ck, port, log_path):
+def spawn_serve(ck, port, log_path, extra=(), counted=False):
     """``python -m twtml_tpu_torch.apps.serve`` on the card, a process of
-    its own, every dispatch under the sync-debug mode."""
+    its own, every dispatch under the sync-debug mode, with ``extra``
+    flags; ``counted`` runs the same entry point under ``COUNTED_SERVE``
+    (stop it with ``stop_counted``)."""
     from twtml_tpu_torch.apps.common import SYNC_DEBUG_ENV
 
     env = dict(os.environ, **{SYNC_DEBUG_ENV: "error"})
     log = open(log_path, "w")
+    entry = ["-c", COUNTED_SERVE] if counted else ["-m", "twtml_tpu_torch.apps.serve"]
     proc = subprocess.Popen(
-        [sys.executable, "-m", "twtml_tpu_torch.apps.serve", "--backend", "cuda",
-         "--checkpointDir", ck, "--servePort", str(port), "--servePromoteEvery", "0.2",
-         "--blackbox", "off"],
+        [sys.executable, *entry, "--backend", "cuda", "--checkpointDir", ck, "--servePort",
+         str(port), "--servePromoteEvery", "0.2", "--blackbox", "off", *extra],
         cwd=HERE, env=env, stdout=log, stderr=subprocess.STDOUT)
     proc.log = log
     return proc
@@ -4399,6 +4437,501 @@ def serve_phase(smi, main_weights, statuses):
     }
 
 
+# ---- phase 21: the tenant plane --------------------------------------------
+
+TENANT_BATCHES = 4
+TENANT_M = 4
+TENANT_ARGV = [*STREAM_ARGV, "--modelWatch", "on"]
+# phrases whose widest code unit puts a row in the lang key's class 102 (CJK:
+# U+6587) or 5 (Cyrillic: U+0442); ASCII rows are class 0
+LANG_TAILS = (" café 中文", " привет")
+
+
+def copy_batch(b):
+    """A host batch with fresh arrays (the run's arena buffers are reused)."""
+    import numpy as np
+
+    from twtml_tpu_torch.features.batch import RaggedUnitBatch
+
+    if isinstance(b, RaggedUnitBatch):
+        return RaggedUnitBatch(*(np.array(a) for a in (b.units, b.offsets, b.numeric,
+                                                      b.label, b.mask)), row_len=b.row_len)
+    return type(b)(*(np.array(a) for a in b))
+
+
+def tenant_parts(model, wire):
+    """The M host parts a tick's wire carried (the routed split of a host
+    batch on the padded wire), copied."""
+    from twtml_tpu_torch.features.batch import PackedBatch, unpack_batch
+    from twtml_tpu_torch.models.sgd import _batch_at
+
+    if isinstance(wire, PackedBatch):
+        wire = unpack_batch(wire.buffer.copy(), wire.layout)
+    if not model._is_tenant_wire(wire):
+        return [copy_batch(p) for p in model.split(wire)]
+    return [copy_batch(_batch_at(wire, m)) for m in range(model.num_tenants)]
+
+
+def tenant_app_run(argv, statuses, app_module=None, expected_errors=(), sync_debug=True):
+    """One app run on the tenant plane (``--tenants`` in ``argv``) from a
+    pre-filled source of ``statuses``, every dispatch under the sync-debug
+    mode "error" unless ``sync_debug`` is False, B1's launch counters set to
+    0 just before it and read just after. Records what the run's
+    ``TenantStackModel`` saw and returned: each tick's M host parts and
+    [M]-leading device StepOutput (the warm-up's apart, checked to train
+    nothing), the host fetches it started (``fetch_output``), each stack
+    ``set_initial_weights`` installed, the final stack, the tenant view,
+    and the registry's guard counters and ``fetch.count`` as deltas."""
+    import numpy as np
+    import torch
+
+    from twtml_tpu_torch.apps import linear_regression as app
+    from twtml_tpu_torch.apps.common import SYNC_DEBUG_ENV
+    from twtml_tpu_torch.ops import fused_sgd
+    from twtml_tpu_torch.parallel import tenants
+    from twtml_tpu_torch.telemetry import metrics, modelwatch
+    from twtml_tpu_torch.telemetry import tenants as tenant_view
+
+    rec = {"parts": [], "outputs": [], "fetches": 0, "restored": []}
+    base = tenants.TenantStackModel
+
+    class RecordedStack(base):
+        def step(self, batch):
+            rec["parts"].append(tenant_parts(self, batch))
+            out = super().step(batch)
+            rec["outputs"].append(out)
+            rec["model"] = self
+            return out
+
+        def fetch_output(self, out):
+            rec["fetches"] += 1
+            return base.fetch_output(out)
+
+        def set_initial_weights(self, weights):
+            super().set_initial_weights(weights)
+            rec["restored"].append(self._weights)
+            return self
+
+    reg = metrics.get_registry()
+    keys = GUARD_COUNTERS + ("fetch.count",)
+    before = {k: reg.counter(k).snapshot() for k in keys}
+    base_source = app.build_source
+    tenants.TenantStackModel = RecordedStack
+    app.build_source = lambda conf: prefilled_source(statuses)
+    # the process-wide model watch keeps a track per tenant it has seen
+    # (both packages): a run at another M starts from a fresh watch
+    tenant_view.reset_for_tests()
+    modelwatch.reset_for_tests()
+    errors = ErrorLog()
+    logging.getLogger("twtml_tpu_torch").addHandler(errors)
+    if sync_debug:
+        os.environ[SYNC_DEBUG_ENV] = "error"
+    try:
+        fused_sgd.fused_dense_sgd.launches = 0
+        fused_sgd.fused_dense_sgd.predict_launches = 0
+        t0 = time.perf_counter()
+        totals, lines = app_run(argv, app_module=app_module)
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        rec["wall_s"] = time.perf_counter() - t0
+        rec["launches"] = fused_sgd.fused_dense_sgd.launches
+        rec["predict_launches"] = fused_sgd.fused_dense_sgd.predict_launches
+    finally:
+        os.environ.pop(SYNC_DEBUG_ENV, None)
+        logging.getLogger("twtml_tpu_torch").removeHandler(errors)
+        tenants.TenantStackModel = base
+        app.build_source = base_source
+    unexpected = [r for r in errors.records
+                  if not r.getMessage().startswith(tuple(expected_errors) or ("\0",))]
+    if unexpected:
+        raise AssertionError("the tenant run logged errors: " + "; ".join(
+            f"{r.getMessage()} {r.exc_text or ''}" for r in unexpected))
+    rec["counters"] = {k: int(reg.counter(k).snapshot() - before[k]) for k in keys}
+    warm = rec["outputs"].pop(0)
+    rec["parts"].pop(0)
+    rec["fetches"] -= 1  # the warm-up's
+    if warm.count.abs().sum().item() != 0:
+        raise AssertionError("the tenant warm-up trained rows")
+    rec["weights"] = rec["model"].latest_weights
+    rec["view"] = tenant_view.last_tenants()
+    return totals, lines, rec
+
+
+def hold_standalone(name, argv, rec, learner_cls):
+    """Each tenant against a standalone card learner of the app's
+    configuration (its step size and L2) stepped on the tenant's parts:
+    every tick's predictions, stats and quality and the final weights
+    bitwise."""
+    import torch
+
+    from twtml_tpu_torch.config import ConfArguments
+
+    model = rec["model"]
+    conf = ConfArguments().parse(list(argv))
+    singles = [learner_cls.from_conf(conf, step_size=model.step_sizes[m],
+                                     l2_reg=model.l2_regs[m])
+               for m in range(model.num_tenants)]
+    for t, (out, parts) in enumerate(zip(rec["outputs"], rec["parts"], strict=True)):
+        for m, (single, part) in enumerate(zip(singles, parts, strict=True)):
+            ref = single.step(part)
+            for k in ("predictions", "count", "mse", "real_stdev", "pred_stdev", "quality"):
+                a, b = getattr(out, k), getattr(ref, k)
+                if (a is None) != (b is None) or (a is not None and not torch.equal(a[m], b)):
+                    raise AssertionError(f"{name} tick {t + 1} tenant {m}: {k} is not the "
+                                         "standalone learner's")
+    for m, single in enumerate(singles):
+        if single.latest_weights.tobytes() != rec["weights"][m].tobytes():
+            raise AssertionError(f"{name} tenant {m}: final weights are not the standalone "
+                                 "learner's")
+
+
+def tick_rate(totals):
+    """Tweets/s over ticks 2..n (delivery to delivery)."""
+    steps = totals["steps"]
+    return (len(steps) - 1) * OP_ROWS / (steps[-1]["delivered_s"] - steps[0]["delivered_s"])
+
+
+def trace_costs(profile_dir):
+    """Per tick of a ``--profileDir`` run: host launches and copies by
+    direction (``dispatch_costs``), and the device's busy ms over the whole
+    traced stream (the union of its kernels, copies and sets)."""
+    import glob
+
+    path = glob.glob(os.path.join(profile_dir, "*.pt.trace.json"))[0]
+    costs = dispatch_costs(path)
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, cursor = 0.0, -math.inf
+    for lo, hi in spans:
+        lo = max(lo, cursor)
+        if hi > lo:
+            busy += hi - lo
+            cursor = hi
+    b1 = sum(1 for e in events if e.get("cat") == "kernel" and KERNEL in e.get("name", ""))
+    return costs, busy / 1e3, b1
+
+
+def lang_statuses(n, seed):
+    """``n`` synthetic tweets, every third original's text ending in a
+    Latin-1 and CJK or a Cyrillic phrase: rows of three scripts for the
+    ``lang`` key (at 4 tenants ASCII rows go to 0, Cyrillic to 1, CJK to 2;
+    tenant 3 stays dry)."""
+    from twtml_tpu_torch.streaming.sources import SyntheticSource
+
+    statuses = list(SyntheticSource(total=n, seed=seed, base_ms=NOW_MS).produce())
+    for i, st in enumerate(statuses):
+        if i % 3 == 0:
+            st.retweeted_status.text += LANG_TAILS[(i // 3) % 2]
+    return statuses
+
+
+def tenants_phase(stream_statuses, smi):
+    """The tenant plane on the card (module docstring, phase 21)."""
+    import tempfile
+
+    import numpy as np
+
+    from twtml_tpu_torch.apps import logistic_regression
+    from twtml_tpu_torch.apps.common import FORCE_TENANT_PLANE_ENV, SYNC_DEBUG_ENV
+    from twtml_tpu_torch.models.linear import StreamingLinearRegressionWithSGD
+    from twtml_tpu_torch.models.logistic import StreamingLogisticRegressionWithSGD
+
+    t_phase = time.perf_counter()
+    n = TENANT_BATCHES
+    statuses = stream_statuses[:n * OP_ROWS]
+    argv = [*TENANT_ARGV, "--tenants", str(TENANT_M)]
+    totals, lines, rec = tenant_app_run(argv, statuses)
+    RECORDER.take()
+    if (totals["batches"], totals["count"], totals["tenants"], len(rec["outputs"])) != (
+            n, n * OP_ROWS, TENANT_M, n):
+        raise AssertionError(f"tenants: {totals['batches']} ticks, {totals['count']} rows, "
+                             f"{totals['tenants']} tenants, {len(rec['outputs'])} outputs")
+    if (rec["launches"], rec["fetches"], rec["counters"]["fetch.count"]) != (
+            TENANT_M * (n + 1), n, n) or rec["model"].route != "fused_dense_sgd":
+        raise AssertionError(f"tenants: B1 launched {rec['launches']} times, "
+                             f"{rec['fetches']} fetches started, fetch.count "
+                             f"{rec['counters']['fetch.count']} for {n} ticks + the warm-up")
+    hold_standalone("tenants M=4", argv, rec, StreamingLinearRegressionWithSGD)
+    rows = [t["rows"] for t in rec["view"]["tenants"]]
+    if sum(rows) != n * OP_ROWS:
+        raise AssertionError(f"tenants: the view's rows {rows} for {n * OP_ROWS}")
+    for line, st in zip(lines, totals["steps"]):
+        phase("tenants", f"{line} | host wall {st['pack_ms'] + st['dispatch_ms'] + st['fetch_wait_ms']:.3f}"
+              f" ms (route + split + stack {st['pack_ms']:.3f}, dispatch "
+              f"{st['dispatch_ms']:.3f}, fetch wait {st['fetch_wait_ms']:.3f}), step "
+              f"{st['step_ms']:.3f} ms (CUDA events, {TENANT_M} tenants)")
+    phase("tenants", f"M = {TENANT_M}, hash key, ragged wire, {n} ticks of {OP_ROWS} under "
+          f"set_sync_debug_mode('error'): B1 launched {rec['launches']} = {TENANT_M} x ({n} "
+          f"ticks + the warm-up); {rec['fetches']} fetches for {n} ticks (fetch.count "
+          f"{rec['counters']['fetch.count']}): one D2H a tick; rows a tenant {rows}; each "
+          "tenant's predictions, stats, quality and final weights bitwise a standalone card "
+          "learner stepped on its routed parts")
+
+    twin = tenant_app_run([*argv, "--backend", "cpu"], statuses, sync_debug=False)
+    RECORDER.take()
+    if twin[1][:1] != lines[:1]:
+        raise AssertionError(f"tenants: tick 1 {lines[:1]} != the CPU twin's {twin[1][:1]}")
+    w_err, s_err = compare_twin("tenants", (totals, lines, rec), twin, RTOL)
+    phase("tenants", f"against the --backend cpu twin: the [{TENANT_M}, 1004] stack "
+          f"{w_err:.3g} of the largest weight, pooled stats {s_err:.3g} (tolerance "
+          f"{RTOL:g}); tick 1's line identical")
+
+    os.environ[FORCE_TENANT_PLANE_ENV] = "1"
+    try:
+        forced = tenant_app_run([*TENANT_ARGV, "--tenants", "1"], statuses)
+    finally:
+        del os.environ[FORCE_TENANT_PLANE_ENV]
+    os.environ[SYNC_DEBUG_ENV] = "error"
+    try:
+        plain = recorded_app_run(TENANT_ARGV, 0, source=prefilled_source(statuses))
+    finally:
+        del os.environ[SYNC_DEBUG_ENV]
+    RECORDER.take()
+    launches = (forced[2]["launches"], plain[2]["launches"])
+    if (forced[1] != plain[1] or forced[2]["weights"].shape != (1, 1004)
+            or forced[2]["weights"][0].tobytes() != plain[2]["weights"].tobytes()
+            or launches != (n + 1, n + 1)):
+        raise AssertionError("tenants: TWTML_FORCE_TENANT_PLANE=1 --tenants 1 is not the "
+                             f"plain run (lines equal {forced[1] == plain[1]}, B1 launched "
+                             f"{launches} times)")
+    phase("tenants", f"TWTML_FORCE_TENANT_PLANE=1 at --tenants 1: the plain run's {n} lines "
+          f"and its weights bitwise, B1 launched {forced[2]['launches']} times as there")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ck")
+        poisoned = tenant_app_run(
+            [*argv, "--checkpointDir", ck, "--checkpointEvery", "1", "--chaos", "source.nan@3"],
+            statuses, expected_errors=GUARD_ERRORS)
+        RECORDER.take()
+        verified, meta = archive(ck, step=2)
+    prec = poisoned[2]
+    expect("tenants poisoned", prec["counters"],
+           {"model.rollbacks": 1, "model.rows_lost": 0, "model.sentinel_aborts": 0})
+    rolled = prec["restored"][-1].cpu().numpy()
+    if (poisoned[0]["batches"], poisoned[0]["count"]) != (n, n * OP_ROWS) \
+            or rolled.shape != (TENANT_M, 1004) or rolled.tobytes() != verified.tobytes() \
+            or prec["weights"].tobytes() != rec["weights"].tobytes() \
+            or poisoned[1] != lines or prec["counters"]["journal.replayed_rows"] <= 0:
+        raise AssertionError("tenants: the poisoned run did not roll the whole stack back to "
+                             "the verified checkpoint and end as the clean run")
+    phase("tenants", f"--chaos source.nan@3 with a checkpoint every tick: 1 rollback of the "
+          f"whole [{TENANT_M}, 1004] stack, bitwise the verified archive of tick "
+          f"{meta.get('step')}; {prec['counters']['journal.replayed_rows']} rows replayed, 0 "
+          f"lost; the final stack and the {n} lines bitwise the clean run's; B1 launched "
+          f"{prec['launches']} times ({n + 1} ticks + the warm-up, x {TENANT_M})")
+
+    two = two_class_statuses(n * OP_ROWS, 13)
+    lg_argv = [*TENANT_ARGV, "--tenants", "2"]
+    lg = tenant_app_run(lg_argv, two, app_module=logistic_regression)
+    hold_standalone("tenants logistic M=2", lg_argv, lg[2], StreamingLogisticRegressionWithSGD)
+    if lg[2]["launches"] != 2 * (n + 1) or lg[0]["batches"] != n:
+        raise AssertionError(f"tenants logistic: B1 launched {lg[2]['launches']} times")
+    lang_argv = [*argv, "--tenantKey", "lang"]
+    lang = tenant_app_run(lang_argv, lang_statuses(n * OP_ROWS, 7))
+    RECORDER.take()
+    hold_standalone("tenants lang M=4", lang_argv, lang[2], StreamingLinearRegressionWithSGD)
+    lang_rows = [t["rows"] for t in lang[2]["view"]["tenants"]]
+    dry = [m for m, r in enumerate(lang_rows) if r == 0]
+    if sum(r > 0 for r in lang_rows) < 2 or not dry or lang[2]["weights"][dry].any():
+        raise AssertionError(f"tenants lang: rows a tenant {lang_rows}")
+    phase("tenants", f"the logistic app at M = 2 ({lg[1][-1]}) and --tenantKey lang at M = "
+          f"{TENANT_M} (rows a tenant {lang_rows}: dry tenant(s) {dry} with finite stats and "
+          "zero weights): each tenant bitwise its standalone card learner; B1 launched "
+          f"{lg[2]['launches']} and {lang[2]['launches']} times")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        prof = tenant_app_run([*argv, "--profileDir", os.path.join(tmp, "m4")], statuses)
+        p_m4 = trace_costs(os.path.join(tmp, "m4"))
+        recorded_app_run([*TENANT_ARGV, "--profileDir", os.path.join(tmp, "m1")], 0,
+                         source=prefilled_source(statuses))
+        p_m1 = trace_costs(os.path.join(tmp, "m1"))
+    RECORDER.take()
+    if [c["d2h"] for c in p_m4[0]] != [1] * n:
+        raise AssertionError(f"tenants: D2H copies a tick {[c['d2h'] for c in p_m4[0]]}")
+    out = {"M": TENANT_M}
+    for name, run, (costs, busy_ms, b1) in (("M=4", (totals, rec), p_m4),
+                                             ("M=1", plain, p_m1)):
+        steps = run[0]["steps"][1:]
+        host = statistics.mean(st["pack_ms"] + st["dispatch_ms"] + st["fetch_wait_ms"]
+                               for st in steps)
+        out[name] = {"host_wall_ms_a_tick": host, "device_busy_ms_a_tick": busy_ms / n,
+                     "launches_a_tick": statistics.mean(c["launches"] for c in costs),
+                     "b1_a_tick": b1 / n, "d2h_a_tick": statistics.mean(c["d2h"] for c in costs),
+                     "h2d_a_tick": statistics.mean(c["h2d"] for c in costs),
+                     "tweets_per_s": tick_rate(run[0])}
+        phase("tenants", f"{name}: host wall {host:.3f} ms a tick (ticks 2-{n}: route/split/"
+              f"pack + dispatch + fetch wait), device busy {busy_ms / n:.3f} ms a tick "
+              f"(profiler), {out[name]['launches_a_tick']:.0f} host launches a tick "
+              f"({b1 / n:.0f} of B1), {out[name]['h2d_a_tick']:.0f} H2D and "
+              f"{out[name]['d2h_a_tick']:.0f} D2H copies a tick; {out[name]['tweets_per_s']:.0f}"
+              f" tweets/s over ticks 2-{n}")
+    out.update(rows_a_tenant=rows, lang_rows=lang_rows, twin_weights_err=w_err,
+               twin_stats_err=s_err, launches=rec["launches"],
+               launches_logistic=lg[2]["launches"], launches_lang=lang[2]["launches"],
+               launches_poisoned=prec["launches"], profiled_stream_s=prof[0]["stream_seconds"])
+    phase("tenants", f"phase wall {time.perf_counter() - t_phase:.1f} s | card: {smi}")
+    return out
+
+
+# ---- phase 22: champion/challenger serving -----------------------------------
+
+AB_M = 3
+# the serve entry point with the B1 counters and the served batches printed
+# as JSON when it stops (SIGINT), so a serve process reports its launches
+COUNTED_SERVE = (
+    "import json, sys\n"
+    "from twtml_tpu_torch.apps import serve\n"
+    "from twtml_tpu_torch.ops import fused_sgd\n"
+    "from twtml_tpu_torch.telemetry import metrics\n"
+    "try:\n"
+    "    serve.main(sys.argv[1:])\n"
+    "finally:\n"
+    "    print(json.dumps({'launches': fused_sgd.fused_dense_sgd.launches,\n"
+    "                      'predict_launches': fused_sgd.fused_dense_sgd.predict_launches,\n"
+    "                      'batches': int(metrics.get_registry().counter('serve.batches')\n"
+    "                                     .snapshot())}), flush=True)\n"
+)
+
+
+def stamps(entries):
+    """A checkpoint's quality stamp with a stamp a tenant: [(level, loss)]."""
+    return {"level": "ok", "tenants": [
+        {"tenant": i, "level": level, "loss": loss, "drift_score": 9.0 if level == "alert"
+         else 0.5, "loss_trend": 0.0} for i, (level, loss) in enumerate(entries)]}
+
+
+def stop_counted(proc):
+    """SIGINT a counted serve process and read the counters it printed
+    ({} when it printed none: the caller's gate then fails)."""
+    import signal
+
+    proc.send_signal(signal.SIGINT)
+    try:
+        proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=10)
+    proc.log.flush()
+    with open(proc.log.name) as fh:
+        lines = [ln for ln in fh.read().splitlines() if ln.startswith('{"launches"')]
+    return json.loads(lines[-1]) if lines else {}
+
+
+def abtest_phase(smi, statuses):
+    """Champion/challenger serving on the card (module docstring, phase 22)."""
+    import tempfile
+
+    import numpy as np
+
+    from twtml_tpu_torch.checkpoint import Checkpointer
+    from twtml_tpu_torch.serving import FleetRouter, ServingClient
+
+    t_phase = time.perf_counter()
+    n = TENANT_BATCHES
+    with tempfile.TemporaryDirectory() as tmp:
+        train_ck = os.path.join(tmp, "train")
+        totals, _, rec = tenant_app_run(
+            [*TENANT_ARGV, "--tenants", str(AB_M), "--checkpointDir", train_ck,
+             "--checkpointEvery", "2"], statuses[:n * OP_ROWS])
+        RECORDER.take()
+        stack1, meta = archive(train_ck)
+        trained = (meta.get("quality") or {}).get("tenants") or []
+        if (stack1.shape != (AB_M, 1004) or stack1.tobytes() != rec["weights"].tobytes()
+                or [t.get("tenant") for t in trained] != list(range(AB_M))):
+            raise AssertionError(f"abtest: the trained checkpoint holds {stack1.shape}, "
+                                 f"tenant stamps {trained}")
+        phase("abtest", f"trained --tenants {AB_M} on the card ({totals['batches']} ticks, "
+              f"B1 launched {rec['launches']} times): the verified checkpoint holds the "
+              f"[{AB_M}, 1004] stack and a quality stamp a tenant: "
+              + json.dumps([{k: t[k] for k in ("tenant", "level", "loss")} for t in trained]))
+        stack2 = (stack1 * np.array([[1.0], [0.75], [1.0]], np.float32)).astype(np.float32)
+        base = {"count": totals["count"], "batches": totals["batches"]}
+        ab_ck, one_ck = os.path.join(tmp, "ab"), os.path.join(tmp, "one")
+        Checkpointer(ab_ck).save(1, stack1, dict(base, quality=stamps(
+            [("ok", 1.0), ("ok", 5.0), ("ok", 9.0)])))
+        Checkpointer(one_ck).save(1, stack1[0], dict(base, quality={"level": "ok"}))
+        ports = (free_port(), free_port())
+        urls = [f"http://127.0.0.1:{p}" for p in ports]
+        procs = [spawn_serve(ab_ck, ports[0], os.path.join(tmp, "ab.log"),
+                             extra=("--abtest", "on"), counted=True),
+                 spawn_serve(one_ck, ports[1], os.path.join(tmp, "one.log"), counted=True)]
+        counts = {}
+        try:
+            t0 = time.perf_counter()
+            for url, proc in zip(urls, procs):
+                wait_serving(url, 1, proc)
+            boot_s = time.perf_counter() - t0
+            pool = serve_pool(statuses)
+            refs = RowRefs(pool, {1: stack1[0], 2: stack2[1]})
+
+            def progress(done):
+                if done == SWAP_AT:  # mid-load: a checkpoint favouring challenger 1
+                    Checkpointer(ab_ck).save(2, stack2, dict(base, quality=stamps(
+                        [("ok", 1.0), ("ok", 0.5), ("alert", 0.1)])))
+
+            answers, errors, wall = serve_load(urls[0], pool, SERVE_REQUESTS, SERVE_CLIENTS,
+                                               seed=40, progress=progress)
+            client = ServingClient(urls[0], timeout=2.0, retries=0)
+            end = time.monotonic() + 30
+            view = client.serving()
+            while (view.get("promotions"), view.get("refusedPromotions")) != (1, 1) \
+                    and time.monotonic() < end:
+                time.sleep(0.2)
+                view = client.serving()
+            router = FleetRouter([urls[0]])
+            try:
+                router.health_check_once()
+                fleet = router.stats()
+            finally:
+                router.stop()
+            answers1, errors1, wall1 = serve_load(urls[1], pool, SERVE_REQUESTS,
+                                                  SERVE_CLIENTS, seed=40)
+        finally:
+            for name, proc in zip(("ab", "one"), procs):
+                counts[name] = stop_counted(proc) if proc.poll() is None else {}
+                proc.log.close()
+    if errors or errors1:
+        raise AssertionError(f"abtest: client errors {errors[:3]} {errors1[:3]}")
+    seen = check_served("abtest", answers, refs, {1, 2})
+    check_served("abtest single", answers1, refs, {1})
+    if set(seen) != {1, 2}:
+        raise AssertionError(f"abtest: answers by step {seen}: the swap did not serve both")
+    if (view.get("champion"), view.get("promotions"), view.get("refusedPromotions"),
+            fleet.get("champion")) != (1, 1, 1, 1):
+        raise AssertionError(f"abtest: Serving view {view}, Fleet view {fleet}")
+    ab, one = counts["ab"], counts["one"]
+    if (ab.get("predict_launches") != AB_M * (ab.get("batches", -1) + 1)
+            or ab.get("launches") != ab.get("predict_launches")
+            or one.get("predict_launches") != one.get("batches", -1) + 1):
+        raise AssertionError(f"abtest: B1 counts {ab} (A/B), {one} (single model)")
+    out = {"boot_s": boot_s, "steps_seen": seen, "counts_ab": ab, "counts_single": one,
+           "shadows": view.get("shadows")}
+    for name, ans, w in (("A/B", answers, wall), ("single", answers1, wall1)):
+        lat = sorted(a[3] for a in ans)
+        rows = sum(a[1] for a in ans)
+        out[name] = {"requests_per_s": len(ans) / w, "p50_ms": lat[len(lat) // 2] * 1e3,
+                     "p99_ms": lat[int(0.99 * (len(lat) - 1))] * 1e3, "rows": rows}
+        phase("abtest", f"{name} server (its own process; the {SERVE_CLIENTS} ServingClient "
+              f"threads in this one): {len(ans)} requests ({rows} rows) in {w:.3f} s = "
+              f"{len(ans) / w:.0f} requests/s, client p50 {out[name]['p50_ms']:.2f} ms, p99 "
+              f"{out[name]['p99_ms']:.2f} ms, 0 client errors")
+    phase("abtest", f"apps.serve --abtest on up with the single-model server in {boot_s:.1f} "
+          f"s; answers by snapshot step {seen}: each bitwise the champion tenant's card train "
+          "step under the step it names (step 1: tenant 0; step 2, written mid-load: tenant "
+          f"1), none torn; B1 launched {ab['predict_launches']} times = {AB_M} x "
+          f"({ab['batches']} served batches + the warm-up), every launch its predict kernel; "
+          f"the single model {one['predict_launches']} = {one['batches']} + 1")
+    phase("abtest", f"step 2's stamps: challenger 1 (ok, loss 0.5) promoted once "
+          f"(abtest.promotions {view['promotions']}), challenger 2 (alert, loss 0.1) refused "
+          f"(abtest.promotions_refused {view['refusedPromotions']}); Serving view champion "
+          f"{view['champion']}, the router's Fleet view champion {fleet['champion']}; "
+          f"shadows {json.dumps(view.get('shadows'))}")
+    phase("abtest", f"phase wall {time.perf_counter() - t_phase:.1f} s | card: {smi}")
+    return out
+
+
 def times_only(smi):
     """``--times-only``: the kernels' device times alone (B1's training
     kernel in its logistic mode, its predict-only mode, B4 in both planes,
@@ -4471,6 +5004,14 @@ def main() -> None:
     serve = serve_phase(smi, ragged_rec["weights"], web_statuses)
     predict_record = serve.pop("predict_kernel")
     record["serve"] = serve
+    RECORDER = Recorder()  # the tenant phases' app runs publish to it
+    try:
+        tenants = tenants_phase(web_statuses, smi)
+        abtest = abtest_phase(smi, web_statuses)
+    finally:
+        RECORDER.close()
+    record.update(tenants=tenants, launches_tenants=tenants["launches"])
+    predict_record.update(abtest=abtest, launches_abtest=abtest["counts_ab"]["predict_launches"])
     import torch
 
     phase("done", f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")

@@ -161,12 +161,14 @@ def test_an_empty_oauth_key_sets_no_property(workdir):
 
 def test_check_ported_compares_with_the_packaged_defaults(workdir):
     """A value set in the file that needs an unported part is refused as
-    the same flag would be (``--abtest on``: ROADMAP A9), not taken as the
-    new default; the serve flags the port runs pass from the file too."""
-    (workdir / "application.conf").write_text('servePort="9000"\nabtest="on"\n')
+    the same flag would be (``--wireCodec dict``: ROADMAP A11), not taken as
+    the new default; the serve flags the port runs pass from the file too
+    (``--abtest on`` among them)."""
+    (workdir / "application.conf").write_text(
+        'servePort="9000"\nabtest="on"\nwireCodec="dict"\n')
     conf = ConfArguments().parse([])
-    assert conf.servePort == 9000
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    assert (conf.servePort, conf.abtest) == (9000, "on")
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         conf.check_ported()
-    conf.abtest = "off"
+    conf.wireCodec = "off"
     conf.check_ported()

@@ -132,8 +132,7 @@ def _readme_lines() -> list[list[str]]:
 
 README_LINES = _readme_lines()
 # the ROADMAP item a README line needs, by the flag that needs it
-NEEDS = {"--ingest": "A12", "--wireCodec": "A11", "--tenants": "A9",
-         "twtml://host0:9999": "A10"}
+NEEDS = {"--ingest": "A12", "--wireCodec": "A11", "twtml://host0:9999": "A10"}
 
 
 def test_the_readme_has_its_jax_command_lines():
@@ -175,11 +174,11 @@ def test_readme_local_1_line_runs_on_the_cpu_with_the_jax_apps_lines(monkeypatch
 
 UNPORTED = [
     (["--wireCodec", "dict"], "A11"),
-    (["--ingest", "block"], "A12"), (["--tenants", "2"], "A9"),
+    (["--ingest", "block"], "A12"),
     (["--numProcesses", "2"], "A10"),
     (["--processId", "0"], "A10"), (["--coordinator", "host:9"], "A10"),
     (["--elastic", "on"], "A10"), (["--master", "twtml://host:9"], "A10"),
-    (["--abtest", "on"], "A9"),
+    (["--tenants", "2", "--coordinator", "host:9"], "A10"),
 ]
 
 
@@ -192,10 +191,11 @@ def test_unported_values_raise_naming_their_item(argv, item):
 
 
 # the paths ported since: the live source, host hashing, the profiler, the
-# superbatch and its wires
+# superbatch and its wires, the tenant plane
 NOW_PORTED = [["--hashOn", "host"], ["--source", "twitter"], ["--profileDir", "/tmp/prof"],
               ["--superBatch", "4"], ["--superBatch", "8", "--wirePack", "group"],
-              ["--wirePack", "stacked"]]
+              ["--wirePack", "stacked"], ["--tenants", "2"],
+              ["--tenants", "4", "--tenantKey", "lang"], ["--tenants", "1", "--tenantKey", "lang"]]
 
 
 @pytest.mark.parametrize("argv", NOW_PORTED, ids=" ".join)
@@ -205,13 +205,13 @@ def test_ported_host_paths_pass_check_ported(argv):
     conf.check_ported()
 
 
-# the serving plane and its router (ROADMAP A8): every serve flag but
-# --abtest on, which needs the tenant plane (A9)
+# the serving plane and its router (ROADMAP A8), and champion/challenger
+# serving on a tenant stack (--abtest on, A9)
 SERVE_VALUES = [
     ["--servePort", "9000"], ["--serveBatchRows", "64"], ["--serveMaxWaitMs", "1.5"],
     ["--serveDepth", "2"], ["--servePromoteEvery", "1.0"], ["--routerPort", "9001"],
     ["--replicas", "http://a:1"], ["--routePolicy", "hash"], ["--servingStaleSloS", "5"],
-    ["--abtest", "off"],
+    ["--abtest", "off"], ["--abtest", "on"],
 ]
 
 
@@ -230,12 +230,12 @@ def test_every_serve_flag_is_held():
 def test_the_app_refuses_an_unported_value_before_it_builds_anything(monkeypatch):
     monkeypatch.setattr(common, "build_model",
                         lambda conf: pytest.fail("built a model for an unported value"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        app.run(ConfArguments().parse(["--backend", "cpu", "--tenants", "4", *QUIET]))
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        app.run(ConfArguments().parse(["--backend", "cpu", "--wireCodec", "dict", *QUIET]))
 
 
 def test_values_the_jax_package_ignores_on_this_path_pass():
-    ConfArguments().parse(["--wirePack", "group", "--blockWire", "off", "--tenantKey", "lang",
+    ConfArguments().parse(["--wirePack", "group", "--blockWire", "off",
                            "--elasticRejoin", "off", "--elasticEvictTicks", "3",
                            "--elasticEvictSkewMs", "10"]).check_ported()
 

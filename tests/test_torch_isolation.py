@@ -60,6 +60,9 @@ def test_port_files_are_found():
             "twtml_tpu_torch/serving/plane.py", "twtml_tpu_torch/serving/client.py",
             "twtml_tpu_torch/serving/fleet.py", "twtml_tpu_torch/apps/serve.py",
             "twtml_tpu_torch/apps/router.py"} <= names
+    assert {"twtml_tpu_torch/parallel/__init__.py", "twtml_tpu_torch/parallel/tenants.py",
+            "twtml_tpu_torch/serving/abtest.py",
+            "twtml_tpu_torch/telemetry/tenants.py"} <= names
 
 
 def test_importing_the_app_leaves_jax_unloaded():
@@ -85,6 +88,8 @@ def test_importing_the_app_leaves_jax_unloaded():
     "twtml_tpu_torch.utils.tracing", "twtml_tpu_torch.apps.logistic_regression",
     "twtml_tpu_torch.apps.kmeans", "twtml_tpu_torch.apps.serve",
     "twtml_tpu_torch.apps.router", "twtml_tpu_torch.serving.plane",
+    "twtml_tpu_torch.parallel.tenants", "twtml_tpu_torch.serving.abtest",
+    "twtml_tpu_torch.telemetry.tenants",
 ])
 def test_importing_the_host_modules_leaves_jax_and_aiohttp_unloaded(module):
     code = (

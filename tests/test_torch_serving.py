@@ -967,9 +967,12 @@ REFUSALS = {
     "alert_only": (["--checkpointDir", "{alert}"], SystemExit, "no servable snapshot"),
     "multi_host": (["--checkpointDir", "{ok}", "--numProcesses", "2"], SystemExit,
                    "single-host"),
-    "abtest_on": (["--checkpointDir", "{ok}", "--abtest", "on"], NotImplementedError,
-                  "ROADMAP A9"),
-    "tenant_stack": (["--checkpointDir", "{stack}"], NotImplementedError, "ROADMAP A9"),
+    # --abtest on serves a tenant stack (tests/test_torch_abtest.py): a
+    # single-model checkpoint, or a stack of one, is refused
+    "abtest_on": (["--checkpointDir", "{ok}", "--abtest", "on"], SystemExit,
+                  "needs a tenant-stack checkpoint"),
+    "tenant_stack": (["--checkpointDir", "{stack}", "--abtest", "on"], SystemExit,
+                     r"tenant-stack checkpoint \(1 tenant"),
 }
 
 
@@ -978,7 +981,7 @@ def test_serve_app_refusals(tmp_path, case):
     dirs = {k: tmp_path / k for k in ("missing", "alert", "ok", "stack")}
     save(dirs["alert"], 1, np.zeros(F), level="alert")
     save(dirs["ok"], 1, np.zeros(F), level="ok")
-    save(dirs["stack"], 1, np.zeros((2, F)), level="ok")
+    save(dirs["stack"], 1, np.zeros((1, F)), level="ok")
     argv, exc, match = REFUSALS[case]
     argv = ["--backend", "cpu", *(a.format(**dirs) for a in argv)]
     with pytest.raises(exc, match=match):

@@ -23,8 +23,9 @@ The guards read only what the host already holds: the sentinel the 3
 fetched stat scalars, the model watch the quality slice of the same D2H
 vector, freshness the host's clock stamps. Each delivery passes through
 wrappers in the JAX package's order, outermost first: the journal's token
-pop, freshness, model watch, the sentinel, then the journal commit and the
-app's handler. A checkpoint reads the weights (a blocking copy) only at a
+pop, freshness, model watch, the tenant plane's view and aggregation
+(``--tenants``), the sentinel, then the journal commit and the app's
+handler. A checkpoint reads the weights (a blocking copy) only at a
 drained boundary, outside the sync-debug window of a dispatch. The
 multi-host parts of the JAX package's runtime are not ported (ROADMAP A10).
 """
@@ -124,13 +125,39 @@ def build_source(conf) -> Source:
     return source
 
 
+# routes --tenants 1 through the tenant plane when "1" (the app-level M = 1
+# parity hook); the default M = 1 path is the plain learner, which a
+# one-tenant stream must not pay the routing split for
+FORCE_TENANT_PLANE_ENV = "TWTML_FORCE_TENANT_PLANE"
+
+
 def build_model(conf, model_cls=StreamingLinearRegressionWithSGD):
     """The single-device learner on ``--backend``, with the process-wide
     native seams (``--featurizeNative``, ``--wireAssemble``) set and the
-    wire arena serving page-locked buffers to a ``cuda`` model."""
+    wire arena serving page-locked buffers to a ``cuda`` model.
+
+    ``--tenants M > 1`` (or ``TWTML_FORCE_TENANT_PLANE=1`` at M = 1) builds
+    the tenant plane instead (parallel/tenants.py): M learners of
+    ``model_cls``'s gradient family on one wire, one fetch a tick.
+    ``--tenantKey lang`` needs ``--hashOn device``; the tenant fleet across
+    hosts (``--coordinator``) is ROADMAP A10."""
     featurize_native.configure(conf.featurizeNative)
     assemble.configure(conf.wireAssemble)
-    model = model_cls.from_conf(conf)
+    tenants = int(conf.tenants or 1)
+    if tenants > 1 or os.environ.get(FORCE_TENANT_PLANE_ENV) == "1":
+        if conf.tenantKey == "lang" and conf.hashOn != "device":
+            raise SystemExit("--tenantKey lang routes on raw code units; it requires "
+                             "--hashOn device")
+        if conf.coordinator or conf.numProcesses > 0 or conf.processId >= 0:
+            raise _multi_host("--tenants with --coordinator (the tenant fleet)")
+        from ..parallel.tenants import TenantStackModel
+
+        model = TenantStackModel.from_conf(
+            conf, residual_fn=model_cls.residual_fn, prediction_fn=model_cls.prediction_fn,
+            round_predictions=model_cls.round_predictions,
+        )
+    else:
+        model = model_cls.from_conf(conf)
     get_arena().use_device(model.device)
     return model
 
@@ -462,7 +489,9 @@ class DivergenceSentinel:
     predictions), three ``math.isfinite`` calls on host scalars a batch.
 
     A non-finite delivery is skipped (its cap slot refunded), the model rolls
-    back to the last verified checkpoint (zeros without one), and the
+    back to the last verified checkpoint (zeros without one; on the tenant
+    plane the whole [M, F+4] stack, whose aggregate stats any poisoned
+    tenant makes non-finite), and the
     journal re-ingests the rows after it; ``model.rollbacks`` counts it.
     Batches dispatched against the poisoned weights before the rollback drain
     as tainted skips of the SAME episode; the first finite delivery closes
@@ -858,9 +887,15 @@ def _sync_debug(model, mode: str):
 _WIRE_TYPES = (PackedBatch, RaggedUnitBatch, UnitBatch, FeatureBatch)
 
 
+def _packer(model):
+    """The model's own wire pack (``pack_for_wire``: the tenant plane's
+    routed wire, the serve engines'), else ``pack_batch``."""
+    return getattr(model, "pack_for_wire", None) or pack_batch
+
+
 def _dispatch(model, batch, pack: bool, fetch, sync_debug: str, stamp: dict):
-    """Pack (the ragged wire), step and start the fetch of one host batch,
-    timing each part into ``stamp``, the stage clock (``wire_pack``,
+    """Pack (the ragged wire, by ``_packer``), step and start the fetch of
+    one host batch, timing each part into ``stamp``, the stage clock (``wire_pack``,
     ``dispatch``) and the trace; the batch's lineage record goes in flight.
     Returns (pending fetch, device output, the batch's leases). On cuda the
     step's device time is bracketed by two events, read at delivery
@@ -873,7 +908,7 @@ def _dispatch(model, batch, pack: bool, fetch, sync_debug: str, stamp: dict):
         t0 = time.perf_counter()
         if pack:
             with tr.span("wire_pack", mode="single") as sp:
-                wire = pack_batch(batch)
+                wire = _packer(model)(batch)
                 if tr.enabled:
                     sp.add(wire_bytes=wire_nbytes(wire))
         else:
@@ -1378,12 +1413,19 @@ class SuperBatcher:
             self._buf.clear()
 
 
-def super_batch_k(conf, stream) -> int:
+def super_batch_k(conf, stream, num_tenants: int = 0) -> int:
     """``--superBatch`` as the JAX package applies it: ignored (1, with a
-    warning) under a wall clock, where it would delay live stats by K
-    intervals; K > 1 needs pinned ``--batchBucket`` and ``--tokenBucket``
-    (every grouped batch one shape), else ``ValueError``."""
+    warning) on the tenant plane (``num_tenants`` >= 1), whose one stacked
+    fetch a tick already serves its M models, and under a wall clock, where
+    it would delay live stats by K intervals; K > 1 needs pinned
+    ``--batchBucket`` and ``--tokenBucket`` (every grouped batch one
+    shape), else ``ValueError``."""
     k = int(conf.superBatch or 1)
+    if k > 1 and num_tenants >= 1:
+        log.warning("--superBatch %d ignored with --tenants %d: the tenant stack already "
+                    "amortizes the per-tick stats fetch across its %d models (scanning K "
+                    "groups of M tenants is future work)", k, num_tenants, num_tenants)
+        return 1
     if k > 1 and conf.seconds > 0:
         log.warning("--superBatch %d ignored: wall-clock streaming (--seconds %s) "
                     "would delay live stats by %d intervals", k, conf.seconds, k)
@@ -1405,10 +1447,14 @@ def attach_super_batcher(conf, stream, model, handle, stop_requested=None,
 
     Each delivery passes the JAX package's wrappers, outermost first: the
     journal's dispatch-token pop (every delivery pops, a skipped one too),
-    ``freshness`` (every delivery pops its lineage record), ``modelwatch``,
-    the ``sentinel``'s gate (a non-finite batch stops here), then the RSS
-    watchdog's tick and the journal's commit of the popped token (only
-    admitted batches), then ``handle``.
+    ``freshness`` (every delivery pops its lineage record), ``modelwatch``
+    (on the tenant plane the raw [M, Q] quality: a track a tenant), the
+    tenant plane's (a model with ``num_tenants``: ``telemetry/tenants.
+    record_tick`` of the [M] counts and mses, then
+    ``aggregate_tenant_output`` into one batch-level output in the
+    original row order), the ``sentinel``'s gate (a non-finite batch stops
+    here), then the RSS watchdog's tick and the journal's commit of the
+    popped token (only admitted batches), then ``handle``.
 
     Back to back (``--seconds 0``): a ``FetchPipeline`` of ``fetch_depth``,
     which drains every ``--checkpointEvery`` dispatches when a checkpoint
@@ -1442,6 +1488,21 @@ def attach_super_batcher(conf, stream, model, handle, stop_requested=None,
         def handle(host, batch, t, at_boundary=True, stamp=None):  # noqa: F811
             if sentinel.admit(host, batch):
                 sentinel_inner(host, batch, t, at_boundary=at_boundary, stamp=stamp)
+
+    # a tenant-plane model (any M, the forced M = 1 included) carries
+    # num_tenants; plain learners do not
+    num_tenants = int(getattr(model, "num_tenants", 0) or 0)
+    if num_tenants >= 1:
+        from ..parallel.tenants import aggregate_tenant_output
+        from ..telemetry import tenants as _tenants
+
+        tenant_inner = handle
+
+        def handle(host, batch, t, at_boundary=True, stamp=None):  # noqa: F811
+            _tenants.record_tick(np.asarray(host.count, np.int64),
+                                 np.asarray(host.mse, np.float64))
+            tenant_inner(aggregate_tenant_output(host, batch, model), batch, t,
+                         at_boundary=at_boundary, stamp=stamp)
 
     if modelwatch is not None and modelwatch.enabled:
         watch_inner = handle
@@ -1484,7 +1545,7 @@ def attach_super_batcher(conf, stream, model, handle, stop_requested=None,
     if int(conf.recycleAfterMb or 0) > 0 and not boundary_every:
         boundary_every = 64
 
-    k = super_batch_k(conf, stream)
+    k = super_batch_k(conf, stream, num_tenants)
     if k > 1:
         batcher = SuperBatcher(
             model, k, handle, boundary_every=boundary_every, max_dispatch=max_dispatch,
@@ -1553,7 +1614,9 @@ def warmup_compile(stream, model, super_batch: int = 1, group_wire=None) -> None
     The JAX package's warm-up returns early on the ragged wire, whose XLA
     program depends on the data-dependent units bucket. The port compiles
     no program per shape (the kernel builds once; its launch plan is
-    computed each call), so it warms on every wire and every bucket.
+    computed each call), so it warms on every wire and every bucket. The
+    tenant plane's warm batch is its own wire (``pack_for_wire``): M
+    all-padding parts, M steps, one fetch.
 
     With ``super_batch`` K > 1 it also steps K all-padding batches through
     ``step_many``, on the superbatch's ``group_wire``: on the card that
@@ -1562,10 +1625,10 @@ def warmup_compile(stream, model, super_batch: int = 1, group_wire=None) -> None
     which captures at its first group)."""
     t0 = time.perf_counter()
     empty = stream.featurize_empty()
-    wire = pack_batch(empty) if getattr(stream, "ragged", False) else empty
+    wire = _packer(model)(empty) if getattr(stream, "ragged", False) else empty
     pending = _fetcher(model)(model.step(wire))
     pending.wait()
-    counts = [float(pending.result().count)]
+    counts = np.atleast_1d(pending.result().count).tolist()
     leases = [getattr(wire, "lease", None)]
     if super_batch > 1:
         group = (group_wire or stack_batches)([empty] * super_batch)

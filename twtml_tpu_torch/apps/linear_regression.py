@@ -33,6 +33,11 @@ groups K batches into one ``step_many`` dispatch (apps/common.py
 ``SuperBatcher``), on the stacked wire or, with ``--wirePack group``, one
 packed buffer a group; each batch is still reported on its own.
 
+``--tenants M`` trains M models on the stream (the tenant plane,
+parallel/tenants.py): each batch's rows route to the tenants on the host,
+one wire and M steps go to the device, ONE fetch comes back, and the batch
+is reported once, its stats pooled over the tenants (the JAX app's line).
+
 ``run_learner`` is the streaming loop every SGD entry point shares; the
 logistic app (apps/logistic_regression.py) runs it with its learner, its
 labels and its report.
@@ -149,8 +154,11 @@ def run_learner(conf: ConfArguments, max_batches: int = 0, fetch_depth: int = FE
         token_bucket=conf.tokenBucket, ragged=wire == "ragged",
         device_hash=conf.hashOn == "device",
     )
-    totals = {"count": 0, "batches": 0, "steps": []}
-    # the checkpoint's state is the one f32 weight vector (key "w")
+    # the tenant count in the run record, as the JAX app keeps it
+    totals = {"count": 0, "batches": 0, "steps": [],
+              "tenants": int(getattr(model, "num_tenants", 1) or 1)}
+    # the checkpoint's state is the one f32 weight vector (key "w"), or the
+    # tenant plane's [M, F+4] stack
     ckpt = AppCheckpoint(conf, get_state=lambda: model.latest_weights,
                          set_state=model.set_initial_weights, totals=totals)
     journal_boot_replay(conf, ssc, ckpt, totals)

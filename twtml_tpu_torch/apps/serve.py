@@ -20,9 +20,16 @@ path. Run both against one directory:
 
     curl -s localhost:8888/api/predict -d '{"rows": [{"text": "hello"}]}'
 
+A checkpoint of the tenant plane (``--tenants M``, an [M, F+4] stack)
+serves every tenant, each request row routed to its own; ``--abtest on``
+serves it as champion/challenger instead (serving/abtest.py): every batch
+mirrored to the M variants (M launches of B1's predict-only mode, one
+fetch), the champion answering, the challengers shadow-scored, and each
+new snapshot's per-tenant quality stamps deciding the champion through
+the promotion gate. ``--abtest on`` refuses a single-model checkpoint.
+
 ``--backend cpu`` serves on the CPU (the kernel's plain twin). A multi-host
-run is refused (scale reads with replicas behind apps/router.py), and so is
-``--abtest on`` with a tenant-stack snapshot (ROADMAP A9).
+run is refused (scale reads with replicas behind apps/router.py).
 """
 
 from __future__ import annotations
@@ -75,7 +82,19 @@ def run(conf: ConfArguments, started=None, stop_event=None, max_seconds: float =
         raise SystemExit(f"no servable snapshot: {reason}")
     log.info("initial snapshot: step %d, %d tenant(s) — %s",
              snapshot.step, snapshot.num_tenants, reason)
-    plane = ServingPlane.from_conf(conf, snapshot)
+    engine = None
+    if conf.abtest == "on":
+        if snapshot.num_tenants < 2:
+            raise SystemExit(f"--abtest on needs a tenant-stack checkpoint "
+                             f"({snapshot.num_tenants} tenant(s) found): train with "
+                             "--tenants M >= 2 so the snapshot carries M variants")
+        from ..models.sgd import DTYPES
+        from ..serving.abtest import ChampionEngine
+
+        engine = ChampionEngine(num_text_features=conf.numTextFeatures,
+                                num_tenants=snapshot.num_tenants, tenant_key=conf.tenantKey,
+                                dtype=DTYPES[conf.dtype], device=conf.backend)
+    plane = ServingPlane.from_conf(conf, snapshot, engine=engine)
     log.info("building and warming the predict step...")
     plane.warmup()
     plane.start()

@@ -9,8 +9,7 @@ exists; its ``consumerKey``/``consumerSecret``/``accessToken``/
 parser takes every flag and short alias of the JAX package's parser;
 ``--backend`` is the one deliberate difference (``cuda|cpu``, default
 ``cuda``). A value that selects a feature the port has not ported (the
-digram codec, block ingest, tenants and ``--abtest on``, multi-host)
-parses, and ``check_ported`` then raises ``NotImplementedError`` naming its
+digram codec, block ingest, multi-host) parses, and ``check_ported`` then raises ``NotImplementedError`` naming its
 ROADMAP item. ``--wire auto`` resolves by the JAX package's rule: ragged for
 a back-to-back stream (``--seconds 0`` or below) that hashes on the device,
 padded under a wall clock or with ``--hashOn host``.
@@ -141,8 +140,8 @@ _VALID = {
     "routePolicy": ("p99", "hash"), "servingStaleSloS": lambda v: v >= 0,
 }
 
-# the serving and router flags (apps/serve.py, apps/router.py); of them
-# only --abtest on needs an unported part (the tenant plane, ROADMAP A9)
+# the serving and router flags (apps/serve.py, apps/router.py), every one
+# ported (--abtest on serves a tenant stack: serving/abtest.py)
 SERVE_FLAGS = ("servePort", "serveBatchRows", "serveMaxWaitMs", "serveDepth",
                "servePromoteEvery", "routerPort", "replicas", "routePolicy",
                "abtest", "servingStaleSloS")
@@ -288,6 +287,15 @@ class ConfArguments:
   --wirePack <auto|stacked|group>              The superbatch's wire: stacked arrays, or (group,
                                                ragged wire only) one packed buffer a group; auto =
                                                stacked. Default: {self.wirePack}
+  --tenants <int M>                            The tenant plane (parallel/tenants.py): M models
+                                               on one wire, rows routed on the host, one launch
+                                               of the step a tenant and ONE fetch a tick; each
+                                               tenant bitwise a standalone learner on its rows.
+                                               Checkpoints hold the [M, F+4] stack. Default: {self.tenants}
+  --tenantKey <hash|lang>                      Tenant routing key: hash = SplitMix64 of each
+                                               row's units (an A/B split); lang = the script of
+                                               its widest code unit (needs --hashOn device).
+                                               Default: {self.tenantKey}
 
   Serving (python -m twtml_tpu_torch.apps.serve) and its fleet router
   (python -m twtml_tpu_torch.apps.router):
@@ -308,6 +316,12 @@ class ConfArguments:
   --servingStaleSloS <float s>                 Warn-only staleness SLO on the served snapshot's
                                                age (a flight-recorder event and a counter a
                                                breach episode); 0 = none. Default: {self.servingStaleSloS}
+  --abtest <on|off>                            Champion/challenger serving over a --tenants M >= 2
+                                               checkpoint (serving/abtest.py): every batch
+                                               mirrored to the M variants, the champion answers,
+                                               challengers are shadow-scored; a better-stamped
+                                               challenger is promoted unless its stamp is alert
+                                               (refused, counted). Default: {self.abtest}
   --routerPort <int>                           Port of the router's front door (POST
                                                /api/predict forwarded, GET /api/fleet live).
                                                Default: {self.routerPort}
@@ -322,8 +336,7 @@ class ConfArguments:
 
   The JAX package's other flags parse with its defaults; a value other than
   the single-host default stops the run naming the ROADMAP item it needs:
-  --ingest block and --blockWire (A12), --wireCodec dict (A11), --tenants > 1, --tenantKey
-  and --abtest on (champion/challenger serving on a tenant stack: A9), --coordinator,
+  --ingest block and --blockWire (A12), --wireCodec dict (A11), --coordinator,
   --numProcesses, --processId, --elastic, --elasticEvictTicks, --elasticEvictSkewMs
   and --elasticRejoin (A10).
   -h, --help
@@ -376,8 +389,10 @@ class ConfArguments:
         """Raise ``NotImplementedError`` naming the ROADMAP item of the
         first value that selects a feature the port has not ported. Values
         the JAX package ignores on this path (``--wirePack`` without a
-        superbatch, ``--blockWire`` without block ingest, ``--tenantKey``
-        with one tenant, the elastic knobs with ``--elastic off``) pass."""
+        superbatch, ``--blockWire`` without block ingest, the elastic knobs
+        with ``--elastic off``) pass. ``--tenants`` and ``--abtest on`` are
+        ported; the tenant fleet across hosts is refused with the rest of
+        the multi-host runtime (A10)."""
 
         def refuse(flag, what, item):
             raise NotImplementedError(
@@ -387,10 +402,6 @@ class ConfArguments:
             refuse("--wireCodec dict", "the digram wire codec", "A11")
         if self.ingest == "block":
             refuse("--ingest block", "block ingest", "A12")
-        if self.tenants > 1:
-            refuse(f"--tenants {self.tenants}", "the tenant plane", "A9")
-        if self.abtest == "on":
-            refuse("--abtest on", "champion/challenger serving on the tenant plane", "A9")
         if (self.coordinator or self.numProcesses != 0 or self.processId != -1
                 or self.master.startswith("twtml://") or self.elastic == "on"):
             refuse("--coordinator/--numProcesses/--processId/--elastic or a "

@@ -5,7 +5,8 @@ Both packages keep the SGD learners' state as one float32 vector of
 the linear and the logistic learner alike, since the logistic one differs
 only in its gradient and its predictions, never in its state. A JAX model's
 ``latest_weights`` seeds the port's model through ``set_initial_weights``,
-and the reverse.
+and the reverse. The tenant plane (``--tenants M``) stacks M such vectors
+into one [M, F+4] array in both packages, which moves the same way.
 
 Streaming k-means keeps centers [k, D] and cluster weights [k], float32, in
 both packages (the JAX model's ``latest_centers`` and ``cluster_weights``);
@@ -22,9 +23,10 @@ from .utils.device import resolve_device
 
 
 def _check(shape, dtype_ok: bool, num_text_features: int) -> None:
-    want = (num_text_features + NUM_NUMBER_FEATURES,)
-    if tuple(shape) != want:
-        raise ValueError(f"weights must have shape {want}, got {tuple(shape)}")
+    width = num_text_features + NUM_NUMBER_FEATURES
+    if tuple(shape[-1:]) != (width,) or len(shape) not in (1, 2):
+        raise ValueError(f"weights must have shape ({width},) or a tenant stack's "
+                         f"(M, {width}), got {tuple(shape)}")
     if not dtype_ok:
         raise TypeError("weights must be float32")
 
@@ -32,15 +34,16 @@ def _check(shape, dtype_ok: bool, num_text_features: int) -> None:
 def weights_from_jax(
     weights: np.ndarray, num_text_features: int = 1000, device="cuda"
 ) -> torch.Tensor:
-    """A JAX model's ``latest_weights`` as a float32 tensor on ``device``."""
+    """A JAX model's ``latest_weights`` ([F+4], or a tenant stack's [M, F+4])
+    as a float32 tensor on ``device``."""
     arr = np.asarray(weights)
     _check(arr.shape, arr.dtype == np.float32, num_text_features)
     return torch.from_numpy(arr.copy()).to(resolve_device(device))
 
 
 def weights_to_numpy(weights: torch.Tensor, num_text_features: int = 1000) -> np.ndarray:
-    """The port's weights as the float32 numpy vector the JAX package's
-    ``set_initial_weights`` takes."""
+    """The port's weights ([F+4], or a tenant stack's [M, F+4]) as the
+    float32 numpy array the JAX package's ``set_initial_weights`` takes."""
     _check(weights.shape, weights.dtype == torch.float32, num_text_features)
     return weights.detach().cpu().numpy().copy()
 

@@ -21,6 +21,13 @@ wire, layout ``RaggedGroupSegments``: segment k holds batch k's five
 fields back to back), which ``unpack_batch`` turns back into the stacked
 batch. The buffer and layout are the JAX package's, byte for byte.
 
+Tenant routing (``--tenants M``, parallel/tenants.py): ``tenant_route_keys``
+gives each row a tenant by a deterministic host key, ``tenant_rows`` lists
+each tenant's valid rows, and ``split_batch_tenants`` makes M batches of
+the batch's own padded shape (a dry tenant's is all padding), which the
+superbatch wires then carry as the M-tenant wire. Every output is the JAX
+package's, byte for byte.
+
 Plain classes of numpy arrays (no pytree registration); the learner moves
 them to its device. The shard-segment layout (ROADMAP A10) and the digram
 codec (A11) are not ported.
@@ -464,3 +471,131 @@ def unpack_batch(buffer, layout: tuple):
 
             fields[1] = offsets_from_deltas(fields[1])
     return RaggedUnitBatch(*fields, row_len=row_len)
+
+
+# ---- tenant routing ---------------------------------------------------------
+# One featurized batch's VALID rows split into M per-tenant batches of the
+# SAME padded shape (one wire signature; a dry tenant ships all padding),
+# which the superbatch wires carry as the M-tenant wire. Routing is a pure
+# function of the batch, so delivery (per-tenant stats, the predictions'
+# original order) recomputes it instead of carrying a permutation.
+
+def _splitmix(x: np.ndarray) -> np.ndarray:
+    """SplitMix64's finalizer over uint64 lanes: a routing mixer, not a
+    cryptographic hash."""
+    x = x ^ (x >> np.uint64(33))
+    x = x * np.uint64(0xFF51AFD7ED558CCD)
+    return x ^ (x >> np.uint64(33))
+
+
+def _ragged_row_sums(units: np.ndarray, offsets: np.ndarray):
+    """(unit sum, length) of each row of a flat ragged buffer, by cumsum."""
+    offs = np.asarray(offsets, np.int64)
+    u = np.asarray(units, np.uint64)
+    c = np.zeros((u.shape[0] + 1,), np.uint64)
+    np.cumsum(u, out=c[1:])
+    return c[offs[1:]] - c[offs[:-1]], (offs[1:] - offs[:-1])
+
+
+def _script_class(maxs: np.ndarray, m: np.uint64) -> np.ndarray:
+    """The ``lang`` key of rows whose largest code unit is ``maxs``: 0 for
+    ASCII, else 1 + the unit's high byte, modulo the tenant count."""
+    cls = np.where(maxs < 128, np.uint64(0), np.uint64(1) + (maxs >> np.uint64(8)))
+    return (cls % m).astype(np.int32)
+
+
+def tenant_route_keys(batch, num_tenants: int, mode: str = "hash") -> np.ndarray:
+    """The tenant id [B] of each row of a host batch (``--tenantKey``).
+
+    ``hash``: SplitMix64 over each row's (unit sum, length), a uniform
+    A/B-arm split; a FeatureBatch keys off its hashed tokens' index sums and
+    non-zero counts. ``lang``: a script class from the row's largest code
+    unit (0 for pure ASCII, else keyed by that unit's high byte); it needs
+    a units wire, since host-hashed tokens carry no script. Padding rows
+    get some id too; every tenant batch masks them out."""
+    m = np.uint64(num_tenants)
+    if isinstance(batch, RaggedUnitBatch):
+        sums, lengths = _ragged_row_sums(batch.units, batch.offsets)
+        if mode == "lang":
+            units = np.asarray(batch.units, np.uint64)
+            offs = np.asarray(batch.offsets, np.int64)
+            if units.shape[0] == 0:
+                maxs = np.zeros(lengths.shape, np.uint64)
+            else:
+                maxs = np.maximum.reduceat(units, np.minimum(offs[:-1], units.shape[0] - 1))
+            return _script_class(np.where(lengths > 0, maxs, np.uint64(0)), m)
+    elif isinstance(batch, UnitBatch):
+        units = np.asarray(batch.units, np.uint64)
+        sums = units.sum(axis=1)
+        lengths = np.asarray(batch.length, np.uint64)
+        if mode == "lang":
+            return _script_class(units.max(axis=1) if units.shape[1] else np.zeros_like(sums),
+                                 m)
+    elif isinstance(batch, FeatureBatch):
+        if mode == "lang":
+            raise ValueError("--tenantKey lang needs a raw-units wire (--hashOn device); "
+                             "host-hashed tokens carry no script signal")
+        sums = np.asarray(batch.token_idx, np.int64).astype(np.uint64).sum(axis=1)
+        lengths = (np.asarray(batch.token_val) != 0).sum(axis=1).astype(np.uint64)
+    else:
+        raise TypeError(f"cannot route a {type(batch).__name__}")
+    if mode != "hash":
+        raise ValueError(f"tenant key mode must be 'hash' or 'lang', got {mode!r}")
+    x = (sums.astype(np.uint64) * np.uint64(0x9E3779B97F4A7C15)
+         + lengths.astype(np.uint64) * np.uint64(0xBF58476D1CE4E5B9))
+    return (_splitmix(x) % m).astype(np.int32)
+
+
+def tenant_rows(batch, tenant_ids: np.ndarray, num_tenants: int) -> list:
+    """Each tenant's original row indices (valid rows only, ascending)."""
+    valid = np.asarray(batch.mask) > 0
+    ids = np.where(valid, np.asarray(tenant_ids), -1)
+    return [np.nonzero(ids == m)[0] for m in range(num_tenants)]
+
+
+def split_batch_tenants(batch, tenant_ids: np.ndarray, num_tenants: int) -> list:
+    """One host batch -> M batches of its padded shape (row bucket, units
+    buffer or token shape, ``row_len``): tenant m's valid rows packed to the
+    front in their original order, a dry tenant all padding. The M batches
+    share one wire signature, so ``stack_batches`` and ``pack_ragged_group``
+    take them."""
+    rows_per = tenant_rows(batch, tenant_ids, num_tenants)
+    if isinstance(batch, RaggedUnitBatch):
+        units = np.asarray(batch.units)
+        offs = np.asarray(batch.offsets, np.int64)
+        lengths = offs[1:] - offs[:-1]
+        b = batch.mask.shape[0]
+        out = []
+        for rows in rows_per:
+            lens_m = lengths[rows]
+            total = int(lens_m.sum())
+            units_m = np.zeros_like(units)
+            cml = np.zeros((rows.shape[0] + 1,), np.int64)
+            np.cumsum(lens_m, out=cml[1:])
+            if total:
+                idx = (np.arange(total, dtype=np.int64) - np.repeat(cml[:-1], lens_m)
+                       + np.repeat(offs[rows], lens_m))
+                units_m[:total] = units[idx]
+            offs_m = np.full((b + 1,), total, np.int32)
+            offs_m[: rows.shape[0] + 1] = cml.astype(np.int32)
+            n = rows.shape[0]
+            numeric = np.zeros_like(np.asarray(batch.numeric))
+            label = np.zeros_like(np.asarray(batch.label))
+            mask = np.zeros_like(np.asarray(batch.mask))
+            numeric[:n] = np.asarray(batch.numeric)[rows]
+            label[:n] = np.asarray(batch.label)[rows]
+            mask[:n] = 1.0
+            out.append(RaggedUnitBatch(units_m, offs_m, numeric, label, mask,
+                                       row_len=batch.row_len))
+        return out
+    out = []
+    for rows in rows_per:
+        n = rows.shape[0]
+        fields = []
+        for arr in batch:
+            arr = np.asarray(arr)
+            dest = np.zeros_like(arr)
+            dest[:n] = arr[rows]
+            fields.append(dest)
+        out.append(type(batch)(*fields))
+    return out

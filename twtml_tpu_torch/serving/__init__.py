@@ -13,10 +13,12 @@ pipelined inference from verified snapshots on the card.
 - ``fleet``    — the read-fleet router: least-p99 or consistent-hash routing
                  over N serve replicas, health checks, ejection.
 
+- ``abtest``   — champion/challenger serving on a tenant stack: the batch
+                 mirrored to M variants, the champion answering, promotion
+                 by the per-tenant quality stamps through the one gate.
+
 ``snapshot``, ``client`` and ``fleet`` import no torch (the router holds
 no model); ``ServingPlane`` loads the model layer when first asked for.
-The JAX package's champion/challenger A/B serving needs the tenant plane
-(ROADMAP A9) and is not here.
 """
 
 from __future__ import annotations

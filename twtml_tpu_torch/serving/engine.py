@@ -18,8 +18,11 @@ regime the Gram build exists for iterations serving never runs, so the step
 is the gather predict and the (zero-iteration) scatter loop launches
 nothing. ``quality=False``: the model-watch vector is training telemetry.
 
-The JAX package also serves an ``[M, F+4]`` tenant stack here; the port
-serves one model, and a stack raises naming ROADMAP A9.
+An ``[M, F+4]`` tenant stack serves through the same trick: the tenant
+plane (``parallel/tenants.TenantStackModel``) with zero-iteration steps,
+the rows routed on the host by ``tenant_route_keys``, M launches of B1's
+predict-only mode and one stacked fetch a batch; ``predictions_for`` puts
+the [M, B] output back in the request rows' order by the recomputed route.
 """
 
 from __future__ import annotations
@@ -35,14 +38,14 @@ class PredictEngine:
     """Snapshot-resident predict program with the model surface
     ``apps/common.FetchPipeline`` drives (``step``, ``fetch_output``,
     ``device``, ``pack_for_wire``, ``accepts_packed``), delegating to the
-    zero-iteration learner. ``model_cls`` gives the gradient family's knobs
-    (the linear learner by default; the logistic learner serves the
+    zero-iteration learner, or with ``num_tenants`` > 1 to the
+    zero-iteration tenant stack. ``model_cls`` gives the gradient family's
+    knobs (the linear learner by default; the logistic learner serves the
     sentiment family). ``device`` is ``cuda`` unless the caller asks for
     ``cpu``."""
 
-    num_tenants = 1  # a tenant stack needs ROADMAP A9 (set_snapshot refuses one)
-
-    def __init__(self, num_text_features: int = 1000, dtype=None, model_cls=None,
+    def __init__(self, num_text_features: int = 1000, num_tenants: int = 1,
+                 tenant_key: str = "hash", dtype=None, model_cls=None,
                  use_sparse: "bool | None" = None, device="cuda") -> None:
         import torch
 
@@ -50,26 +53,47 @@ class PredictEngine:
         from ..models.linear import StreamingLinearRegressionWithSGD
 
         model_cls = model_cls or StreamingLinearRegressionWithSGD
+        dtype = torch.float32 if dtype is None else dtype
         self.num_text_features = num_text_features
-        self.model = model_cls(
-            num_text_features=num_text_features,
-            num_iterations=0,  # predict only: no update runs
-            dtype=torch.float32 if dtype is None else dtype,
-            use_sparse=use_sparse,
-            use_gram=False,  # G exists for iterations serving never runs
-            quality=False,
-            device=device,
-        )
+        self.num_tenants = int(num_tenants)
+        if self.num_tenants > 1:
+            from ..parallel.tenants import TenantStackModel
+
+            self.model = TenantStackModel(
+                self.num_tenants,
+                num_text_features=num_text_features,
+                num_iterations=0,  # predict only: no update runs
+                dtype=dtype,
+                residual_fn=model_cls.residual_fn,
+                prediction_fn=model_cls.prediction_fn,
+                round_predictions=model_cls.round_predictions,
+                use_sparse=use_sparse,
+                use_gram=False,  # G exists for iterations serving never runs
+                tenant_key=tenant_key,
+                quality=False,
+                device=device,
+            )
+        else:
+            self.model = model_cls(
+                num_text_features=num_text_features,
+                num_iterations=0,
+                dtype=dtype,
+                use_sparse=use_sparse,
+                use_gram=False,
+                quality=False,
+                device=device,
+            )
         # the wire's arena buffers are page-locked for a cuda model, so the
         # step's H2D copy is asynchronous
         get_arena().use_device(self.model.device)
         self.snapshot_step = -1
 
     @classmethod
-    def from_conf(cls, conf, model_cls=None):
+    def from_conf(cls, conf, num_tenants: int = 1, model_cls=None):
         from ..models.sgd import DTYPES
 
-        return cls(num_text_features=conf.numTextFeatures, dtype=DTYPES[conf.dtype],
+        return cls(num_text_features=conf.numTextFeatures, num_tenants=num_tenants,
+                   tenant_key=conf.tenantKey, dtype=DTYPES[conf.dtype],
                    model_cls=model_cls, device=conf.backend)
 
     # -- snapshot state ------------------------------------------------------
@@ -80,10 +104,10 @@ class PredictEngine:
         iterations never change them; callers swap only between dispatches
         (serving/plane.py), which makes the swap tear-free."""
         weights = np.asarray(snapshot.weights)
-        if weights.ndim != 1:
-            raise NotImplementedError(
-                f"a snapshot of weights shaped {weights.shape} is a tenant stack, which "
-                "needs the tenant plane the port has not ported (ROADMAP A9)")
+        want = 2 if self.num_tenants > 1 else 1
+        if weights.ndim != want:
+            raise ValueError(f"snapshot weights ndim {weights.ndim} does not fit a "
+                             f"{self.num_tenants}-tenant predict program")
         self.model.set_initial_weights(weights)
         self.snapshot_step = int(snapshot.step)
 
@@ -109,13 +133,40 @@ class PredictEngine:
         return self.model.fetch_output(out)
 
     def pack_for_wire(self, batch):
+        """The one-buffer packed wire, or the tenant stack's routed wire."""
+        if self.num_tenants > 1:
+            return self.model.pack_for_wire(batch)
         from ..features.batch import pack_batch
 
         return pack_batch(batch)
 
     # -- result extraction ---------------------------------------------------
+    def step_output(self, host_out):
+        """The fetched StepOutput of a ``fetch_output`` result."""
+        return host_out
+
     def predictions_for(self, host_out, batch) -> np.ndarray:
         """The fetched output's predictions of the batch's valid rows, in
-        the batch's row order ([n])."""
+        the batch's row order ([n]). The tenant stack's [M, B] output, in
+        each tenant's row order, goes back to the batch's rows by the
+        recomputed route (``aggregate_tenant_output``'s rule)."""
         mask = np.asarray(batch.mask) > 0
-        return np.asarray(host_out.predictions)[mask]
+        if self.num_tenants == 1:
+            return np.asarray(host_out.predictions)[mask]
+        from ..features.batch import tenant_rows
+
+        tenant_preds = np.asarray(host_out.predictions)
+        preds = np.zeros(tenant_preds.shape[1:], tenant_preds.dtype)
+        for m, rows in enumerate(tenant_rows(batch, self.model.route_ids(batch),
+                                             self.num_tenants)):
+            preds[rows] = tenant_preds[m][: rows.shape[0]]
+        return preds[mask]
+
+    def tenant_row_counts(self, batch) -> "np.ndarray | None":
+        """[M] valid rows this batch routed to each tenant (None for one
+        model), from the wire's own route."""
+        if self.num_tenants == 1:
+            return None
+        ids = np.asarray(self.model.route_ids(batch))
+        valid = np.asarray(batch.mask) > 0
+        return np.bincount(ids[valid], minlength=self.num_tenants).astype(np.int64)

@@ -20,6 +20,12 @@ engine, with depth-K pipelined result fetches (counterpart of
   stalled or failed fetch and at last aborts, and the abort REJECTS every
   in-flight and queued request future.
 
+A tenant-stack snapshot ([M, F+4], ``--tenants M``) serves through the
+stacked engine: each request row routed to its tenant, one fetch a batch,
+and the per-tenant served rows in the view; with ``--abtest on`` a
+``ChampionEngine`` (serving/abtest.py) mirrors every batch to the M
+variants and its champion/challenger slice joins the view.
+
 The plane reads verified snapshots from DISK (the promoter), shares no
 mutable state with a co-located trainer and issues no fetch against it.
 """
@@ -63,17 +69,18 @@ class ServingPlane:
     dispatch and swap happen on the serve-loop thread alone."""
 
     def __init__(self, snapshot, *, num_text_features: int = 1000, batch_rows: int = 256,
-                 max_wait_ms: float = 5.0, depth: int = 8, model_cls=None, dtype=None,
-                 featurizer=None, engine: "PredictEngine | None" = None,
-                 stale_slo_s: float = 0.0, device="cuda") -> None:
+                 max_wait_ms: float = 5.0, depth: int = 8, model_cls=None,
+                 tenant_key: str = "hash", dtype=None, featurizer=None,
+                 engine: "PredictEngine | None" = None, stale_slo_s: float = 0.0,
+                 device="cuda") -> None:
         from ..features.featurizer import Featurizer
 
         self.batch_rows = max(1, int(batch_rows))
         self.max_wait_s = max(0.0, float(max_wait_ms) / 1e3)
         self.depth = max(1, int(depth))
         self._engine = engine if engine is not None else PredictEngine(
-            num_text_features=num_text_features, dtype=dtype, model_cls=model_cls,
-            device=device)
+            num_text_features=num_text_features, num_tenants=snapshot.num_tenants,
+            tenant_key=tenant_key, dtype=dtype, model_cls=model_cls, device=device)
         self._feat = featurizer if featurizer is not None else Featurizer(
             num_text_features=num_text_features)
         self._cond = threading.Condition()
@@ -103,6 +110,10 @@ class ServingPlane:
         self._in_stale_episode = False
         self._latency = reg.histogram("serve.latency_s")
         self._batch_fill = reg.histogram("serve.batch_rows")
+        # per-tenant served-row totals (the dashboard's tenant tiles); None
+        # for one model
+        self._tenant_rows = (np.zeros((self._engine.num_tenants,), np.int64)
+                             if self._engine.num_tenants > 1 else None)
         # (t_done, rows) of recent completions, for the QPS view
         self._completions: "collections.deque[tuple[float, int]]" = collections.deque(
             maxlen=COMPLETION_WINDOW)
@@ -128,6 +139,7 @@ class ServingPlane:
             max_wait_ms=float(getattr(conf, "serveMaxWaitMs", 5.0) or 0.0),
             depth=int(getattr(conf, "serveDepth", 8) or 8),
             model_cls=model_cls,
+            tenant_key=conf.tenantKey,
             dtype=DTYPES[conf.dtype],
             featurizer=featurizer,
             engine=engine,
@@ -250,19 +262,21 @@ class ServingPlane:
     def warmup(self) -> None:
         """Build and launch the predict step once before traffic, so the
         first request does not pay the kernel's nvcc build: one all-padding
-        batch of the row bucket, packed, stepped and fetched. It must come
-        back with count 0 and zero predictions."""
+        batch of the row bucket, packed (on a tenant stack, as its M parts),
+        stepped and fetched. It must come back with count 0 and zero
+        predictions."""
         batch = self._featurize([])
         wire = self._engine.pack_for_wire(batch)
         pending = self._engine.fetch_output(self._engine.step(wire))
         pending.wait()
-        out = pending.result()
+        out = self._engine.step_output(pending.result())
         for lease in (getattr(wire, "lease", None), getattr(batch, "lease", None)):
             if lease is not None:
                 lease.retire()
-        if float(out.count) != 0.0 or np.any(np.asarray(out.predictions) != 0):
+        counts = np.asarray(out.count)
+        if np.any(counts != 0) or np.any(np.asarray(out.predictions) != 0):
             raise RuntimeError("the serve warm-up's all-padding batch must predict zeros "
-                               f"over 0 rows; got count {float(out.count)}")
+                               f"over 0 rows; got count {counts.tolist()}")
 
     # -- the serve loop -------------------------------------------------------
     def _featurize(self, statuses):
@@ -348,6 +362,9 @@ class ServingPlane:
         # how old the serving weights were when THIS batch dispatched
         staleness = max(0.0, now_s() - installed) if installed >= 0.0 else -1.0
         preds = self._engine.predictions_for(host_out, batch)
+        counts = self._engine.tenant_row_counts(batch)
+        if counts is not None:
+            self._tenant_rows += counts
         now = time.perf_counter()
         offset = 0
         for req in group:
@@ -394,7 +411,8 @@ class ServingPlane:
     # -- telemetry view -------------------------------------------------------
     def stats(self) -> dict:
         """The ``Serving`` view: QPS over the rolling window, latency
-        quantiles of the serve histogram, the active snapshot and its age.
+        quantiles of the serve histogram, the active snapshot and its age,
+        the rows each tenant served, and a ``ChampionEngine``'s A/B slice.
         Host bookkeeping only."""
         now = time.monotonic()
         window = min(QPS_WINDOW_S, max(now - self._started_s, 1e-3))
@@ -420,7 +438,9 @@ class ServingPlane:
                             age, self.stale_slo_s, self.snapshot_step)
         else:
             self._in_stale_episode = False
-        return {
+        tenants = ([] if self._tenant_rows is None else
+                   [{"tenant": m, "rows": int(r)} for m, r in enumerate(self._tenant_rows)])
+        view = {
             "qps": round(reqs / window, 2),
             "rowsPerSec": round(rows / window, 1),
             "p50Ms": round(self._latency.percentile(0.50) * 1e3, 2),
@@ -432,5 +452,11 @@ class ServingPlane:
             "requests": int(self._req_count.snapshot()),
             "rows": int(self._row_count.snapshot()),
             "errors": int(self._err_count.snapshot()),
-            "tenants": [],
+            "tenants": tenants,
         }
+        # the champion/challenger slice: the router and the dashboard learn
+        # the A/B state from the view they already read
+        ab = getattr(self._engine, "abtest_view", None)
+        if ab is not None:
+            view.update(ab())
+        return view

@@ -62,7 +62,7 @@ def is_promotable(meta: "dict | None") -> "tuple[bool, str]":
 class ServingSnapshot:
     """One promotable weight state: ``weights`` is the checkpoint's host
     array, ``[F+4]`` for one model or ``[M, F+4]`` for a tenant stack
-    (``num_tenants`` reads the stack's height; the port serves one model)."""
+    (``num_tenants`` reads the stack's height)."""
 
     step: int
     weights: np.ndarray

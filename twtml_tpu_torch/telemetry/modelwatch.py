@@ -20,8 +20,9 @@ copy from the card.
 ``record_tick`` is the delivery adapter's hook (apps/common.py
 ``ModelWatchGuard``), ``last_model`` the dashboard view, and
 ``snapshot_for_checkpoint`` the stamp every verified checkpoint carries.
-One track a model: the port trains one (the JAX package's tenant plane
-keeps one a tenant; the port's ``observe`` takes its [M, Q] form too).
+One track a model, so the tenant plane (``--tenants M``) keeps one a
+tenant from its [M, Q] quality leaf, and the checkpoint stamp carries each
+tenant's.
 """
 
 from __future__ import annotations
@@ -255,12 +256,15 @@ class ModelWatch:
 
     def checkpoint_snapshot(self) -> "dict | None":
         """The quality stamp of a verified checkpoint's meta (None before
-        the first tick)."""
+        the first tick). With more than one track (the tenant plane) it
+        carries a ``tenants`` stamp a tenant (level, drift, trend and the
+        fast loss EWMA), which champion/challenger serving ranks
+        (serving/abtest.py)."""
         with self._lock:
             if self._ticks == 0:
                 return None
             wn, un, gn = self._last_norms
-            return {
+            stamp = {
                 "level": self._level,
                 "drift_score": round(max((t.drift for t in self._tracks), default=0.0), 4),
                 "loss_trend": round(max((t.trend for t in self._tracks), default=0.0), 4),
@@ -271,6 +275,14 @@ class ModelWatch:
                 "ticks": self._ticks,
                 "episodes": self._episodes,
             }
+            if len(self._tracks) > 1:
+                stamp["tenants"] = [
+                    {"tenant": i, "level": t.level, "drift_score": round(t.drift, 4),
+                     "loss_trend": round(t.trend, 4),
+                     "loss": round(t.ewma_fast, 4) if t.ewma_fast is not None else -1.0}
+                    for i, t in enumerate(self._tracks)
+                ]
+            return stamp
 
 
 _lock = threading.Lock()

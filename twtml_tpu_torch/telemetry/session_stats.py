@@ -14,14 +14,15 @@ points, and while the health monitor reports a DEGRADED transport only
 every ``SERIES_SHED_EVERY``-th series frame ships (the scalar stats keep
 full resolution); a metrics snapshot ships every ``METRICS_EVERY`` updates,
 with the host-process gauges (``host.rss_mb``, ``host.uptime_s``,
-``host.rss_slope_mb_per_min``), followed by the model-health and freshness
-views once they hold a delivery, and the historian's view. Each metrics
+``host.rss_slope_mb_per_min``), followed by the tenant plane's, the
+model-health and the freshness views once they hold a delivery, and the
+historian's view. Each metrics
 publish samples the telemetry historian (``historian.sample``, host views
 only, before the breaker gate: the historian writes to local disk, so a
 dead dashboard does not stop it). Each update is the ``stats_publish``
 stage (the stage clock, and a span under ``--trace``) and stamps the
-freshness plane's event-to-publish lag. The tenant and per-host views of
-the JAX package's publisher are not ported.
+freshness plane's event-to-publish lag. The per-host view of the JAX
+package's publisher is multi-host (ROADMAP A10) and not ported.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from . import historian as _historian
 from . import metrics as _metrics
 from . import modelwatch as _modelwatch
 from . import sideband as _sideband
+from . import tenants as _tenants
 from . import trace as _trace
 from .breaker import CircuitBreaker
 from .lightning import CHART_MAX_POINTS, Lightning, Visualization
@@ -180,7 +182,7 @@ class SessionStats:
     def publish_metrics(self) -> None:
         """Best-effort push of the metrics registry and the health summary,
         with per-histogram count/mean/p50/p95/p99 (not the raw buckets),
-        then the model-health, freshness and historian views. The host
+        then the tenant, model-health, freshness and historian views. The host
         gauges are sampled first (statm reads), then the historian."""
         reg = _metrics.get_registry()
         cur_mb = rss_mb()
@@ -208,6 +210,14 @@ class SessionStats:
         except Exception:  # lawcheck: disable=TW005 -- Try-parity: counted by the breaker, logged
             self._web_breaker.record_failure()
             log.debug("web.metrics failed", exc_info=True)
+        tview = _tenants.last_tenants()
+        if tview is not None and self._web_breaker.allow():
+            try:
+                self.web.tenants(tview["tenants"], tview["gating"], tview["active"])
+                self._web_breaker.record_success()
+            except Exception:  # lawcheck: disable=TW005 -- Try-parity: counted by the breaker, logged
+                self._web_breaker.record_failure()
+                log.debug("web.tenants failed", exc_info=True)
         mview = _modelwatch.last_model()
         if mview is not None and self._web_breaker.allow():
             try:

@@ -1,6 +1,6 @@
 """Minimal JSON/HTTP client of the twtml web API (counterpart of
 ``twtml_tpu/telemetry/web_client.py``): POST Config/Stats/Series/Metrics/
-ModelHealth/Freshness/History/Serving/Fleet to ``{server}/api`` with stdlib
+Tenants/ModelHealth/Freshness/History/Serving/Fleet to ``{server}/api`` with stdlib
 urllib. Callers wrap every call best-effort, as the reference wraps them in
 ``Try`` (telemetry/session_stats.py). Each request is a ``--chaos`` ``web``
 injection point."""
@@ -11,7 +11,8 @@ import sys
 import urllib.request
 
 from .api_types import (
-    Config, Fleet, Freshness, History, Metrics, ModelHealth, Series, Serving, Stats, encode,
+    Config, Fleet, Freshness, History, Metrics, ModelHealth, Series, Serving, Stats, Tenants,
+    encode,
 )
 
 DEFAULT_SERVER = "http://localhost:8888"
@@ -63,6 +64,10 @@ class WebClient:
         """A pipeline-metrics snapshot for the observability panel."""
         self._post(Metrics(counters=dict(counters), gauges=dict(gauges),
                            health=dict(health), histograms=dict(histograms or {})))
+
+    def tenants(self, tenants: list, gating: int = -1, active: int = 0) -> None:
+        """The tenant plane's view (telemetry/tenants.py ``last_tenants``)."""
+        self._post(Tenants(tenants=list(tenants), gating=int(gating), active=int(active)))
 
     def model_health(self, level: str = "ok", drift_score: float = 0.0,
                      loss_trend: float = 0.0, weight_norm: float = 0.0,
