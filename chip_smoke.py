@@ -229,10 +229,35 @@ Phases, in order; any failure ends the run with a non-zero exit:
                launched 3 x (served batches + the warm-up) times in the A/B
                process, each its predict kernel; requests/s and client
                p50/p99 of both servers.
+23. block   — block ingest and the digram wire codec: the superbatch
+               phase's 8 one-bucket batches written as a replay file; the
+               linear app on the card with ``--ingest object``, ``--ingest
+               block`` and ``--ingest block --wireCodec dict`` (``--seconds
+               0 --batchBucket 16384``, every dispatch under the sync-debug
+               mode "error"): the same 8 batches (rows a batch), lines,
+               weights, predictions, stats and quality bitwise equal across
+               the arms, B1 launched 8 + 1 times each, the C wire emitter
+               parsing with 0 degraded parses, fills or packs and 0 codec
+               fallbacks; the coded arm against its ``--backend cpu`` twin
+               (batch 1's line identical, every stat within 1e-4); each
+               arm's featurize by sub-stage, pack, wire bytes (raw and
+               coded, ``wire.codec_ratio``), parse rate and tweets/s over
+               batches 2-8; the raw and coded wires' pack ms, H2D ms, device
+               busy ms and kernels a step (the difference: the decode's
+               kernels) and ``units_from_codes`` alone (CUDA events, median
+               of 25); ``--superBatch 8 --wirePack group`` over the file
+               twice (the second group replays the CUDA graph, the decode
+               inside) and ``--tenants 4 --wirePack group``, each with the
+               codec bitwise without it; the logistic app (4 two-class
+               batches) and k-means (4 batches) with ``--ingest block``,
+               lines equal the CPU runs'; ``--chaos source.nan@5
+               --checkpointEvery 1`` rolling back once and replaying its
+               rows from kind-2 (block) journal records, 0 rows lost, lines
+               and the final archive bitwise the clean block run's.
 No app run publishes anywhere but the loopback recorder and, in the web,
 serve and abtest phases, the port's own servers on loopback ports. The line before
 the last is the kernels' JSON record (B1's least-squares mode with its
-``tenants`` launches, its logistic mode, its predict kernel with its
+``tenants`` launches and the ``block`` phase's figures, its logistic mode, its predict kernel with its
 ``abtest`` launches, B4 with its f32 build on tweet-length rows, B7
 and B8); the last line is ``{"ok": true, "device": {...}}``.
 
@@ -1032,7 +1057,7 @@ def recorded_app_run(argv, max_batches, source=None, blocking_copies=False,
     app.build_model = lambda conf, *_: common.build_model(conf, model_cls=Recorded)
     sgd_module.fused_dense_sgd = fused
     if source is not None:
-        app.build_source = lambda conf: source
+        app.build_source = lambda conf, **_: source
     errors = ErrorLog()
     logging.getLogger("twtml_tpu_torch").addHandler(errors)
     try:
@@ -1056,6 +1081,7 @@ def recorded_app_run(argv, max_batches, source=None, blocking_copies=False,
         rec["launches"] = fused_sgd.fused_dense_sgd.launches
         rec["gram_launches"] = {fn.__name__: fn.launches for fn in fused_gram.KERNELS}
         rec["native"] = dict(native.COUNTERS)
+        rec["parse"] = dict(native.PARSE_COUNTERS)
     finally:
         logging.getLogger("twtml_tpu_torch").removeHandler(errors)
         app.build_model, app.build_source = base_build, base_source
@@ -2717,7 +2743,7 @@ def superbatch_phase(stream_statuses, smi):
     if replay["group"]["captured"] < 2 or replay["group"]["groups"] != 2:
         raise AssertionError(f"superbatch: the one-bucket stream ran {replay['group']}")
     phase("superbatch", f"phase wall {time.perf_counter() - t_phase:.1f} s")
-    return {"stream": first, "one_bucket": replay}
+    return {"stream": first, "one_bucket": replay, "pool": pool}
 
 
 KMEANS_BATCHES = 4
@@ -2725,9 +2751,10 @@ KMEANS_ARGV = ["--source", "synthetic", "--seconds", "0", "--batchBucket", str(O
 KMEANS_RTOL = 1e-5
 
 
-def kmeans_run(backend, statuses):
-    """``apps/kmeans.py`` on ``backend`` over a pre-filled source: (totals,
-    lines, the model, each batch's assignments on the host)."""
+def kmeans_run(backend, statuses, argv=KMEANS_ARGV):
+    """``apps/kmeans.py`` on ``backend`` over a pre-filled source of
+    ``statuses`` (None: the source ``argv`` configures): (totals, lines,
+    the model, each batch's assignments on the host)."""
     from twtml_tpu_torch.apps import kmeans
     from twtml_tpu_torch.config import ConfArguments
     from twtml_tpu_torch.models.kmeans import StreamingKMeans
@@ -2742,10 +2769,11 @@ def kmeans_run(backend, statuses):
         return assign
 
     StreamingKMeans.update_device = update_device
-    kmeans.build_source = lambda conf: prefilled_source(statuses)
+    if statuses is not None:
+        kmeans.build_source = lambda conf, **_: prefilled_source(statuses)
     out = io.StringIO()
     try:
-        conf = ConfArguments().parse(["--backend", backend, *KMEANS_ARGV, "--lightning",
+        conf = ConfArguments().parse(["--backend", backend, *argv, "--lightning",
                                       RECORDER.url, "--twtweb", RECORDER.url])
         with contextlib.redirect_stdout(out):
             totals = kmeans.run(conf, max_batches=KMEANS_BATCHES)
@@ -4474,7 +4502,8 @@ def tenant_parts(model, wire):
 
 def tenant_app_run(argv, statuses, app_module=None, expected_errors=(), sync_debug=True):
     """One app run on the tenant plane (``--tenants`` in ``argv``) from a
-    pre-filled source of ``statuses``, every dispatch under the sync-debug
+    pre-filled source of ``statuses`` (None: the source ``argv``
+    configures), every dispatch under the sync-debug
     mode "error" unless ``sync_debug`` is False, B1's launch counters set to
     0 just before it and read just after. Records what the run's
     ``TenantStackModel`` saw and returned: each tick's M host parts and
@@ -4517,7 +4546,8 @@ def tenant_app_run(argv, statuses, app_module=None, expected_errors=(), sync_deb
     before = {k: reg.counter(k).snapshot() for k in keys}
     base_source = app.build_source
     tenants.TenantStackModel = RecordedStack
-    app.build_source = lambda conf: prefilled_source(statuses)
+    if statuses is not None:
+        app.build_source = lambda conf, **_: prefilled_source(statuses)
     # the process-wide model watch keeps a track per tenant it has seen
     # (both packages): a run at another M starts from a fresh watch
     tenant_view.reset_for_tests()
@@ -4932,6 +4962,360 @@ def abtest_phase(smi, statuses):
     return out
 
 
+# ---- phase 23: block ingest and the digram wire codec ------------------------
+
+BLOCK_BATCHES = 8
+BLOCK_ARGV = ["--source", "replay", "--seconds", "0", "--batchBucket", str(OP_ROWS),
+              "--maxQueueRows", "-1"]
+BLOCK_ARMS = (("object", []), ("block", ["--ingest", "block"]),
+              ("block+codec", ["--ingest", "block", "--wireCodec", "dict"]))
+BLOCK_COUNTERS = GUARD_COUNTERS + ("wire.codec_fallbacks", "ingest.rows_dropped_parse")
+BLOCK_FIELDS = ("predictions", "quality", "count", "mse", "real_stdev", "pred_stdev")
+# CUDA-event timings of the device decode
+DECODE_RUNS = 25
+
+
+def block_run(argv, max_batches=0, **kw):
+    """One app run of the block phase from the replay file ``argv`` names,
+    every dispatch under the sync-debug mode "error" on the card: the
+    registry's counters as deltas over the run, and the parse rate gauge."""
+    from twtml_tpu_torch.apps.common import SYNC_DEBUG_ENV
+    from twtml_tpu_torch.telemetry import metrics
+
+    reg = metrics.get_registry()
+    before = {k: reg.counter(k).snapshot() for k in BLOCK_COUNTERS}
+    reg.gauge("ingest.parse_tweets_per_s").set(0.0)
+    os.environ[SYNC_DEBUG_ENV] = "error"
+    try:
+        totals, lines, rec = recorded_app_run(argv, max_batches,
+                                              expected_errors=GUARD_ERRORS, **kw)
+    finally:
+        del os.environ[SYNC_DEBUG_ENV]
+    rec["counters"] = {k: int(reg.counter(k).snapshot() - before[k]) for k in BLOCK_COUNTERS}
+    rec["parse_rate"] = reg.gauge("ingest.parse_tweets_per_s").value
+    rec["codec_ratio"] = reg.gauge("wire.codec_ratio").value
+    return totals, lines, rec
+
+
+def hold_bitwise(name, runs):
+    """Every run of ``runs`` ({arm: (totals, lines, rec)}) bitwise the
+    first's: the rows of each batch, the lines, the final weights, and each
+    batch's predictions, quality and stats."""
+    import numpy as np
+    import torch
+
+    (ref_arm, (ref_totals, ref_lines, ref)), *rest = runs.items()
+    ref_rows = [st["count"] for st in ref_totals["steps"]]
+    for arm, (totals, lines, rec) in rest:
+        rows = [st["count"] for st in totals["steps"]]
+        if rows != ref_rows:
+            raise AssertionError(f"{name} {arm}: batch rows {rows} against {ref_arm}'s "
+                                 f"{ref_rows}")
+        if lines != ref_lines or not np.array_equal(rec["weights"], ref["weights"]):
+            raise AssertionError(f"{name} {arm}: lines or weights differ from {ref_arm}'s")
+        for i, (a, b) in enumerate(zip(rec["outputs"], ref["outputs"], strict=True)):
+            for k in BLOCK_FIELDS:
+                x, y = getattr(a, k), getattr(b, k)
+                if (x is None) != (y is None) or (x is not None and not torch.equal(x, y)):
+                    raise AssertionError(f"{name} {arm} batch {i + 1}: {k} differs from "
+                                         f"{ref_arm}'s")
+    return ref_rows
+
+
+def block_wires(path, n=3):
+    """The first ``n`` batches of the replay file through the block parser
+    (the wire emitter) and ``featurize_parsed_block``: (ragged batches, raw
+    packed wires, coded packed wires, median ms of the raw pack and of the
+    coded pack over 5 runs of each batch)."""
+    from twtml_tpu_torch.features.batch import pack_batch
+    from twtml_tpu_torch.features.blocks import iter_row_chunks
+    from twtml_tpu_torch.features.featurizer import Featurizer
+    from twtml_tpu_torch.streaming.sources import BlockReplayFileSource
+
+    featurizer = Featurizer(now_ms=NOW_MS)
+    chunks = iter_row_chunks(BlockReplayFileSource(path, wire=True).produce(), OP_ROWS)
+    batches = [featurizer.featurize_parsed_block(next(chunks), row_bucket=OP_ROWS, ragged=True)
+               for _ in range(n)]
+    times = {"raw": [], "dict": []}
+    for rb in batches:
+        for codec in ("raw", "dict"):
+            for _ in range(5):
+                t0 = time.perf_counter()
+                wire = pack_batch(rb, codec=None if codec == "raw" else codec)
+                times[codec].append((time.perf_counter() - t0) * 1e3)
+                wire.lease.retire()
+    raw = [pack_batch(rb) for rb in batches]
+    coded = [pack_batch(rb, codec="dict") for rb in batches]
+    return batches, raw, coded, {k: statistics.median(v) for k, v in times.items()}
+
+
+def step_profile(wires):
+    """Device busy ms and device kernels (copies apart) a step over steps
+    2..n of ``wires`` on a fresh card model (step 1 pays first-use set-up),
+    from torch.profiler's device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model = model_after_batch_1(wires)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for wire in wires[1:]:
+            float(model.step(wire).mse)
+    events = [ev for ev in prof.key_averages() if ev.device_time_total]
+    steps = sum(ev.count for ev in events if KERNEL in ev.key)
+    if not steps:
+        return None
+    busy = sum(ev.device_time_total for ev in events) / steps / 1e3
+    kernels = sum(ev.count for ev in events
+                  if "Memcpy" not in ev.key and "Memset" not in ev.key) / steps
+    copies = sum(ev.count for ev in events if "Memcpy" in ev.key) / steps
+    return {"busy_ms": busy, "kernels": kernels, "copies": copies, "steps": steps}
+
+
+def decode_times(coded):
+    """``units_from_codes`` on the card at the operating point: the coded
+    units of a packed wire decoded DECODE_RUNS times between CUDA events,
+    bitwise the host decode: the device's time (queued ahead: median, min
+    ms) and the call's time as the step issues it (its launches not queued
+    ahead: median ms)."""
+    import numpy as np
+    import torch
+
+    from twtml_tpu_torch.features.batch import _layout_codec
+    from twtml_tpu_torch.features.wirecodec import decode_np
+    from twtml_tpu_torch.ops.ragged import units_from_codes
+
+    (m,), _ = coded.layout[1][0]
+    out_len = int(np.prod(_layout_codec(coded.layout)[1]))
+    codes = torch.from_numpy(np.asarray(coded.buffer[:m]).copy()).to("cuda")
+    got = units_from_codes(codes, out_len)
+    if not np.array_equal(got.cpu().numpy(), decode_np(np.asarray(coded.buffer[:m]), out_len)):
+        raise AssertionError("block: units_from_codes on the card differs from the host decode")
+    ms, times = timed(lambda: units_from_codes(codes, out_len), DECODE_RUNS, queue_ahead=True,
+                      ahead_cycles=PREDICT_AHEAD_CYCLES)
+    issued, _ = timed(lambda: units_from_codes(codes, out_len), DECODE_RUNS)
+    return {"ms": ms, "min_ms": min(times), "issued_ms": issued, "codes": m, "units": out_len}
+
+
+def block_phase(pool, smi):
+    """Block ingest and the digram codec on the card (module docstring,
+    phase 23), from a replay file of the superbatch phase's 8 one-bucket
+    batches."""
+    import tempfile
+
+    import numpy as np
+
+    from twtml_tpu_torch.apps import kmeans as kmeans_app
+    from twtml_tpu_torch.apps import logistic_regression
+    from twtml_tpu_torch.features.arena import get_arena
+    from twtml_tpu_torch.features.blocks import ParsedBlock
+    from twtml_tpu_torch.models.logistic import StreamingLogisticRegressionWithSGD
+    from twtml_tpu_torch.streaming.journal import IntakeJournal
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="twtml-block-")
+    path = os.path.join(tmp, "stream.jsonl")
+    write_replay(path, pool)
+    twice = os.path.join(tmp, "twice.jsonl")
+    with open(path, "rb") as src, open(twice, "wb") as dst:
+        data = src.read()
+        dst.write(data + data)
+    phase("block", f"replay file of {len(pool)} tweets ({len(data)} B), written in "
+          f"{time.perf_counter() - t_phase:.2f} s | card: {smi}")
+    argv = ["--backend", "cuda", *BLOCK_ARGV, "--replayFile", path]
+
+    # -- the three ingest arms: the same batches, bitwise
+    runs = {}
+    for arm, extra in BLOCK_ARMS:
+        totals, lines, rec = block_run([*argv, *extra])
+        if (totals["batches"], totals["count"], rec["launches"]) != (
+                BLOCK_BATCHES, BLOCK_BATCHES * OP_ROWS, BLOCK_BATCHES + 1):
+            raise AssertionError(f"block {arm}: {totals['batches']} batches, "
+                                 f"{totals['count']} rows, B1 launched {rec['launches']}")
+        check_counters(f"block {arm}", rec, BLOCK_BATCHES, "ragged")
+        parse = rec["parse"]
+        if arm != "object" and not (parse["parses_wire"] >= 1 and parse["parses_native"]
+                                    == parse["parses_python"] == parse["wire_degraded"]
+                                    == parse["native_degraded"] == 0):
+            raise AssertionError(f"block {arm}: parse counters {parse}")
+        if rec["counters"]["wire.codec_fallbacks"] or rec["counters"][
+                "ingest.rows_dropped_parse"]:
+            raise AssertionError(f"block {arm}: counters {rec['counters']}")
+        if arm == "block+codec" and not all(st.get("units_coded_bytes") for st in
+                                            totals["steps"]):
+            raise AssertionError("block+codec: a batch shipped raw units")
+        runs[arm] = (totals, lines, rec)
+    rows = hold_bitwise("block", runs)
+    phase("block", f"object, block and block+codec arms: batch rows {rows}, lines, "
+          "weights, predictions, stats and quality bitwise equal; B1 launched "
+          f"{BLOCK_BATCHES} + 1 times in each, every dispatch under "
+          "set_sync_debug_mode('error'); wire emitter parses "
+          f"{runs['block+codec'][2]['parse']['parses_wire']}, 0 degraded, 0 codec fallbacks")
+    summary = {}
+    for arm, (totals, lines, rec) in runs.items():
+        later = totals["steps"][1:]
+        subs = {}
+        for st in later:
+            for k, v in st["featurize_substages_ms"].items():
+                subs[k] = subs.get(k, 0.0) + v / len(later)
+        span = later[-1]["delivered_s"] - totals["steps"][0]["delivered_s"]
+        rate = len(later) * OP_ROWS / span
+        mean = {k: statistics.mean(st[k] for st in later)
+                for k in ("featurize_ms", "pack_ms", "wire_bytes", "step_ms", "dispatch_ms")}
+        units = [st.get("units_bytes") for st in later]
+        coded = [st.get("units_coded_bytes") for st in later]
+        summary[arm] = {"featurize_ms": mean["featurize_ms"], "substages_ms": subs,
+                        "pack_ms": mean["pack_ms"], "wire_bytes": mean["wire_bytes"],
+                        "step_ms": mean["step_ms"], "tweets_per_s": rate,
+                        "parse_tweets_per_s": rec["parse_rate"] or None,
+                        "units_bytes": units[0], "units_coded_bytes": coded[0],
+                        "codec_ratio": rec["codec_ratio"] if coded[0] else None,
+                        "parse": rec["parse"]}
+        phase("block", f"{arm}: batches 2-{BLOCK_BATCHES} mean featurize "
+              f"{mean['featurize_ms']:.2f} ms (" + ", ".join(
+                  f"{k} {v:.2f}" for k, v in subs.items()) + f"), pack {mean['pack_ms']:.3f} "
+              f"ms, wire {mean['wire_bytes']:.0f} B" + (
+                  f" (units {units[0]} B raw, {coded[0]} B coded, wire.codec_ratio "
+                  f"{rec['codec_ratio']})" if coded[0] else "")
+              + f", step {mean['step_ms']:.3f} ms (CUDA events); "
+              f"{len(later) * OP_ROWS} tweets delivered in {span:.4f} s = {rate:.0f} "
+              f"tweets/s; parse rate {rec['parse_rate']:.0f} tweets/s (the "
+              "ingest.parse_tweets_per_s gauge, last chunk)" + "; lines: " + " / ".join(
+                  lines[:2]))
+
+    # -- the CPU twin of the coded arm
+    cpu_totals, cpu_lines = app_run(["--backend", "cpu", *BLOCK_ARGV, "--replayFile", path,
+                                     *BLOCK_ARMS[2][1]])
+    card_totals, card_lines, _ = runs["block+codec"]
+    if card_lines[0] != cpu_lines[0] or len(cpu_lines) != BLOCK_BATCHES:
+        raise AssertionError(f"block: batch 1 on the card {card_lines[0]!r}, on the CPU "
+                             f"{cpu_lines[0]!r} ({len(cpu_lines)} lines)")
+    s_err = 0.0
+    for i, (g, c) in enumerate(zip(card_totals["steps"], cpu_totals["steps"], strict=True)):
+        for k in ("count", "mse", "real_stdev", "pred_stdev"):
+            err = abs(g[k] - c[k]) / max(abs(c[k]), 1e-30)
+            s_err = max(s_err, err)
+            if abs(g[k] - c[k]) > RTOL * abs(c[k]) + ATOL:
+                raise AssertionError(f"block batch {i + 1} {k}: card {g[k]} cpu {c[k]}")
+    phase("block", f"block+codec against --backend cpu: batch 1's line identical, every "
+          f"stat of {BLOCK_BATCHES} batches within rtol {RTOL:g} (largest {s_err:.3g})")
+
+    # -- the wire and the device decode at the operating point
+    get_arena().use_device("cuda")
+    batches, raw, coded, pack_ms = block_wires(path)
+    h2d = {"raw": h2d_ms(raw[1]), "dict": h2d_ms(coded[1])}
+    prof = {"raw": step_profile(raw), "dict": step_profile(coded)}
+    decode = decode_times(coded[0])
+    decode_launches = (None if None in prof.values()
+                       else prof["dict"]["kernels"] - prof["raw"]["kernels"])
+    phase("block", f"pack of a batch (median of 15): raw {pack_ms['raw']:.3f} ms, coded "
+          f"{pack_ms['dict']:.3f} ms (the encode: {pack_ms['dict'] - pack_ms['raw']:.3f} ms); "
+          f"wire {raw[1].buffer.nbytes} B raw, {coded[1].buffer.nbytes} B coded; H2D "
+          f"(batch_to_device, synchronised, median/min of 20): raw {h2d['raw'][0]:.3f}/"
+          f"{h2d['raw'][1]:.3f} ms, coded {h2d['dict'][0]:.3f}/{h2d['dict'][1]:.3f} ms")
+    for codec, p in prof.items():
+        if p is None:
+            phase("block", f"{codec} step: the profiler recorded no step kernel; not measured")
+            continue
+        phase("block", f"{codec} wire, steps 2-3 (profiler): {p['busy_ms']:.3f} ms device "
+              f"busy a step, {p['kernels']:g} device kernels and {p['copies']:g} copies a "
+              "step")
+    phase("block", f"the codec's decode: {decode_launches} kernels a step; "
+          f"units_from_codes alone {decode['ms']:.4f} ms of device time (queued ahead, "
+          f"median of {DECODE_RUNS}, min {decode['min_ms']:.4f}; CUDA events), "
+          f"{decode['issued_ms']:.4f} ms as the step issues it (its launches not queued "
+          f"ahead), for {decode['codes']} codes to {decode['units']} units, bitwise the "
+          "host decode")
+
+    # -- the superbatch and the tenant plane with the codec
+    sb_argv = ["--backend", "cuda", *BLOCK_ARGV, "--replayFile", twice, "--ingest", "block",
+               "--superBatch", str(SB_K), "--tokenBucket", "64", "--wirePack", "group"]
+    sb = {}
+    for arm, extra in (("group", []), ("group+codec", ["--wireCodec", "dict"])):
+        totals, lines, rec = block_run([*sb_argv, *extra])
+        if (totals["batches"], rec["groups"], rec["captured"]) != (2 * BLOCK_BATCHES, 3, 2):
+            raise AssertionError(f"block superbatch {arm}: {totals['batches']} batches, "
+                                 f"{rec['groups']} step_many calls, {rec['captured']} graphs")
+        rec["outputs"] = rec["outputs"][SB_K:]  # the warm-up group's
+        sb[arm] = (totals, lines, rec)
+    hold_bitwise("block superbatch", sb)
+    phase("block", f"--superBatch {SB_K} --wirePack group, {2 * BLOCK_BATCHES} block batches: "
+          "with --wireCodec dict bitwise without it; 2 groups a run, the second replaying "
+          "the CUDA graph the first captured (the decode inside it); B1 launches "
+          f"{sb['group+codec'][2]['launches']} (the warm-up group's included)")
+    tn_argv = ["--backend", "cuda", *BLOCK_ARGV, "--replayFile", path, "--ingest", "block",
+               "--tenants", str(TENANT_M), "--wirePack", "group"]
+    tn = {}
+    for arm, extra in (("group", []), ("group+codec", ["--wireCodec", "dict"])):
+        totals, lines, rec = tenant_app_run([*tn_argv, *extra], None)
+        if (totals["batches"], rec["launches"]) != (BLOCK_BATCHES,
+                                                    TENANT_M * (BLOCK_BATCHES + 1)):
+            raise AssertionError(f"block tenants {arm}: {totals['batches']} ticks, B1 "
+                                 f"launched {rec['launches']}")
+        tn[arm] = (totals, lines, rec)
+    hold_bitwise("block tenants", tn)
+    RECORDER.take()
+    phase("block", f"--tenants {TENANT_M} --wirePack group on the block source: with "
+          f"--wireCodec dict bitwise without it over {BLOCK_BATCHES} ticks (lines, the "
+          f"[{TENANT_M}, 1004] stack, each tick's outputs); B1 "
+          f"{tn['group+codec'][2]['launches']} launches")
+
+    # -- the logistic and k-means apps on block batches, against the CPU
+    two = os.path.join(tmp, "two_class.jsonl")
+    write_replay(two, two_class_statuses(LOGISTIC_BATCHES * OP_ROWS, 11))
+    lg = dict(app_module=logistic_regression, learner=StreamingLogisticRegressionWithSGD)
+    lg_argv = [*BLOCK_ARGV, "--replayFile", two, "--ingest", "block"]
+    totals, lines, rec = block_run(["--backend", "cuda", *lg_argv], LOGISTIC_BATCHES, **lg)
+    _, cpu_lines, _ = recorded_app_run(["--backend", "cpu", *lg_argv], LOGISTIC_BATCHES, **lg)
+    if lines != cpu_lines or rec["launches"] != LOGISTIC_BATCHES + 1:
+        raise AssertionError(f"block logistic: lines {lines} against the CPU's {cpu_lines}, "
+                             f"B1 launched {rec['launches']}")
+    km_argv = [*BLOCK_ARGV, "--replayFile", path, "--ingest", "block"]
+    _, km_lines, km = kmeans_run("cuda", None, km_argv)
+    _, kc_lines, kc = kmeans_run("cpu", None, km_argv)
+    RECORDER.take()
+    if (km_lines != kc_lines or len(km_lines) != KMEANS_BATCHES
+            or not all(np.array_equal(a, b) for a, b in zip(km["assign"], kc["assign"],
+                                                             strict=True))):
+        raise AssertionError(f"block kmeans: lines {km_lines} against the CPU's {kc_lines}")
+    phase("block", f"logistic app, {LOGISTIC_BATCHES} two-class block batches: lines equal "
+          f"the CPU run's ({lines[-1]}); k-means, {KMEANS_BATCHES} block batches (every "
+          f"retweet): lines and assignments equal the CPU run's ({km_lines[-1]})")
+
+    # -- a poisoned batch rolls back and replays its rows from kind-2 records
+    ck = ["--ingest", "block", "--checkpointEvery", "1"]
+    clean, clean_lines, _ = block_run([*argv, *ck, "--checkpointDir", f"{tmp}/clean"])
+    got, lines, rec = block_run([*argv, *ck, "--checkpointDir", f"{tmp}/poison",
+                                 "--chaos", "source.nan@5"])
+    expect("block poison@5", {**rec["counters"], "batches": got["batches"],
+                              "count": got["count"], "fetches": rec["fetches"]},
+           {"model.rollbacks": 1, "model.nonfinite_batches": 1, "model.rows_lost": 0,
+            "journal.replayed_rows": OP_ROWS, "fetch.aborts": 0, "checkpoint.quarantined": 0,
+            "fetches": BLOCK_BATCHES + 1, "batches": BLOCK_BATCHES,
+            "count": BLOCK_BATCHES * OP_ROWS})
+    journal = IntakeJournal(f"{tmp}/poison/journal")
+    items = [item for _, its in journal.records_from(0) for item in its]
+    journal.close()
+    w_p, meta_p = archive(f"{tmp}/poison")
+    w_c, meta_c = archive(f"{tmp}/clean")
+    if (lines != clean_lines or not np.array_equal(w_p, w_c)
+            or meta_p["count"] != meta_c["count"]
+            or not items or not all(isinstance(b, ParsedBlock) for b in items)):
+        raise AssertionError(f"block poison@5: lines, final archive or the journal's "
+                             f"{len(items)} records differ from the clean run's")
+    RECORDER.take()
+    wall = time.perf_counter() - t_phase
+    phase("block", f"--chaos source.nan@5 --checkpointEvery 1: 1 rollback, "
+          f"{OP_ROWS} rows replayed from the journal's kind-2 (block) records "
+          f"({len(items)} records, {sum(b.rows for b in items)} rows on disk), 0 lost; "
+          f"lines and the final archive bitwise the clean run's; phase wall {wall:.1f} s "
+          f"| card: {smi}")
+    return {"launches": runs["block+codec"][2]["launches"], "arms": summary,
+            "cpu_stats_err": s_err, "pack_ms": pack_ms,
+            "wire_bytes": {"raw": int(raw[1].buffer.nbytes),
+                           "dict": int(coded[1].buffer.nbytes)},
+            "h2d_ms": {k: v[0] for k, v in h2d.items()}, "step": prof,
+            "decode_launches": decode_launches, "decode": decode, "seconds": wall}
+
+
 def times_only(smi):
     """``--times-only``: the kernels' device times alone (B1's training
     kernel in its logistic mode, its predict-only mode, B4 in both planes,
@@ -4980,6 +5364,7 @@ def main() -> None:
         hosthash = hosthash_phase(padded_rec)
         logistic = logistic_phase(smi)
         superbatch = superbatch_phase(web_statuses, smi)
+        block_pool = superbatch.pop("pool")
         kmeans = kmeans_phase(smi)
         sparse = sparse_phase(smi)
     finally:
@@ -5004,13 +5389,15 @@ def main() -> None:
     serve = serve_phase(smi, ragged_rec["weights"], web_statuses)
     predict_record = serve.pop("predict_kernel")
     record["serve"] = serve
-    RECORDER = Recorder()  # the tenant phases' app runs publish to it
+    RECORDER = Recorder()  # the tenant and block phases' app runs publish to it
     try:
         tenants = tenants_phase(web_statuses, smi)
         abtest = abtest_phase(smi, web_statuses)
+        block = block_phase(block_pool, smi)
     finally:
         RECORDER.close()
-    record.update(tenants=tenants, launches_tenants=tenants["launches"])
+    record.update(tenants=tenants, launches_tenants=tenants["launches"], block=block,
+                  launches_block=block["launches"])
     predict_record.update(abtest=abtest, launches_abtest=abtest["counts_ab"]["predict_launches"])
     import torch
 

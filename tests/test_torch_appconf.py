@@ -161,14 +161,19 @@ def test_an_empty_oauth_key_sets_no_property(workdir):
 
 def test_check_ported_compares_with_the_packaged_defaults(workdir):
     """A value set in the file that needs an unported part is refused as
-    the same flag would be (``--wireCodec dict``: ROADMAP A11), not taken as
-    the new default; the serve flags the port runs pass from the file too
-    (``--abtest on`` among them)."""
+    the same flag would be (``elastic="on"``: ROADMAP A10), not taken as the
+    new default; the values the port runs pass from the file too (the serve
+    flags, ``--abtest on``, ``--wireCodec dict`` and ``--ingest block``),
+    resolving as the JAX parser's."""
     (workdir / "application.conf").write_text(
-        'servePort="9000"\nabtest="on"\nwireCodec="dict"\n')
-    conf = ConfArguments().parse([])
-    assert (conf.servePort, conf.abtest) == (9000, "on")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        'servePort="9000"\nabtest="on"\nwireCodec="dict"\ningest="block"\nseconds="0"\n'
+        'elastic="on"\n')
+    conf, theirs, _, _ = both()
+    assert (conf.servePort, conf.abtest, conf.wireCodec, conf.ingest) == (9000, "on", "dict",
+                                                                        "block")
+    assert (conf.effective_wire_codec(), conf.effective_block_wire()) == (
+        theirs.effective_wire_codec(), theirs.effective_block_wire()) == ("dict", True)
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         conf.check_ported()
-    conf.wireCodec = "off"
+    conf.elastic = "off"
     conf.check_ported()

@@ -132,7 +132,7 @@ def _readme_lines() -> list[list[str]]:
 
 README_LINES = _readme_lines()
 # the ROADMAP item a README line needs, by the flag that needs it
-NEEDS = {"--ingest": "A12", "--wireCodec": "A11", "twtml://host0:9999": "A10"}
+NEEDS = {"twtml://host0:9999": "A10"}
 
 
 def test_the_readme_has_its_jax_command_lines():
@@ -173,8 +173,6 @@ def test_readme_local_1_line_runs_on_the_cpu_with_the_jax_apps_lines(monkeypatch
 # ---- values that need an unported feature -------------------------------------------
 
 UNPORTED = [
-    (["--wireCodec", "dict"], "A11"),
-    (["--ingest", "block"], "A12"),
     (["--numProcesses", "2"], "A10"),
     (["--processId", "0"], "A10"), (["--coordinator", "host:9"], "A10"),
     (["--elastic", "on"], "A10"), (["--master", "twtml://host:9"], "A10"),
@@ -191,8 +189,11 @@ def test_unported_values_raise_naming_their_item(argv, item):
 
 
 # the paths ported since: the live source, host hashing, the profiler, the
-# superbatch and its wires, the tenant plane
-NOW_PORTED = [["--hashOn", "host"], ["--source", "twitter"], ["--profileDir", "/tmp/prof"],
+# superbatch and its wires, the tenant plane, block ingest and the digram codec
+NOW_PORTED = [["--wireCodec", "dict"], ["--ingest", "block"], ["--ingest", "block",
+              "--blockWire", "on"], ["--wireCodec", "dict", "--seconds", "0",
+              "--superBatch", "4"],
+              ["--hashOn", "host"], ["--source", "twitter"], ["--profileDir", "/tmp/prof"],
               ["--superBatch", "4"], ["--superBatch", "8", "--wirePack", "group"],
               ["--wirePack", "stacked"], ["--tenants", "2"],
               ["--tenants", "4", "--tenantKey", "lang"], ["--tenants", "1", "--tenantKey", "lang"]]
@@ -230,8 +231,8 @@ def test_every_serve_flag_is_held():
 def test_the_app_refuses_an_unported_value_before_it_builds_anything(monkeypatch):
     monkeypatch.setattr(common, "build_model",
                         lambda conf: pytest.fail("built a model for an unported value"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        app.run(ConfArguments().parse(["--backend", "cpu", "--wireCodec", "dict", *QUIET]))
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        app.run(ConfArguments().parse(["--backend", "cpu", "--elastic", "on", *QUIET]))
 
 
 def test_values_the_jax_package_ignores_on_this_path_pass():

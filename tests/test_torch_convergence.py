@@ -14,7 +14,8 @@ held against the JAX package's curve on the same seeded tweets.
 The port featurizes on the units wire (hashing on the device), which gives
 the JAX package's host-hashed features bit for bit; the curves agree within
 CURVE_RTOL (the port's default step stores X in bf16, the JAX package's in
-f32). ``test_convergence.py``'s fourth test needs block ingest (ROADMAP A12).
+f32). ``test_convergence.py``'s fourth test: the object and block ingest
+modes give one curve from one file.
 """
 
 import time
@@ -113,3 +114,48 @@ def test_sharded_receivers_feed_one_stream():
     assert sorted(map(key, got)) == sorted(map(key, ref))
     assert [key(s) for s in multi.produce()] == [
         key(s) for src in multi.sources for s in src.produce()]
+
+
+def test_rmse_curve_identical_across_ingest_modes(tmp_path):
+    """Eight micro-batches from a FILE, weights carried across batches: the
+    object path and the native block path give the SAME per-batch MSE curve
+    (bitwise here: the same batches), and it is the JAX package's block
+    curve within CURVE_RTOL."""
+    import json
+
+    from tools.bench_suite import _status_json
+    from twtml_tpu.features.blocks import merge_blocks as jax_merge
+    from twtml_tpu.streaming.sources import BlockReplayFileSource as JaxBlockReplay
+    from twtml_tpu_torch.features.blocks import merge_blocks, slice_block
+    from twtml_tpu_torch.streaming.sources import BlockReplayFileSource
+
+    statuses = list(SyntheticSource(total=2048, seed=11, base_ms=NOW_MS).produce())
+    path = tmp_path / "stream.jsonl"
+    with open(path, "w") as fh:
+        for s in statuses:
+            fh.write(json.dumps(_status_json(s)) + "\n")
+    feat, b = Featurizer(now_ms=NOW_MS), 256
+
+    def curve(batches):
+        model = StreamingLinearRegressionWithSGD(device="cpu", num_iterations=10)
+        return [float(model.step(x).mse) for x in batches]
+
+    curve_o = curve(feat.featurize_batch_units(statuses[i:i + b], row_bucket=b, unit_bucket=64)
+                    for i in range(0, 2048, b))
+    block = merge_blocks(list(BlockReplayFileSource(str(path), wire=True).produce()))
+    assert block.rows == 2048
+    curve_b = curve(feat.featurize_parsed_block(slice_block(block, i, i + b), row_bucket=b,
+                                                unit_bucket=64) for i in range(0, 2048, b))
+    assert len(curve_o) == 8
+    np.testing.assert_array_equal(curve_o, curve_b)
+    assert curve_o[-1] < curve_o[0]  # it learns along the curve
+    jblock = jax_merge(list(JaxBlockReplay(str(path)).produce()))
+    jfeat, jmodel = JaxFeaturizer(now_ms=NOW_MS), JaxLinear(num_iterations=10)
+    jax_b = []
+    for i in range(0, 2048, b):
+        sub = type(jblock)(jblock.numeric[i:i + b],
+                           jblock.units[jblock.offsets[i]:jblock.offsets[i + b]],
+                           jblock.offsets[i:i + b + 1] - jblock.offsets[i], jblock.ascii[i:i + b])
+        jax_b.append(float(jmodel.step(jfeat.featurize_parsed_block(
+            sub, row_bucket=b, unit_bucket=64)).mse))
+    np.testing.assert_allclose(curve_b, jax_b, rtol=CURVE_RTOL)

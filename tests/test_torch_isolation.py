@@ -63,6 +63,7 @@ def test_port_files_are_found():
     assert {"twtml_tpu_torch/parallel/__init__.py", "twtml_tpu_torch/parallel/tenants.py",
             "twtml_tpu_torch/serving/abtest.py",
             "twtml_tpu_torch/telemetry/tenants.py"} <= names
+    assert {"twtml_tpu_torch/features/wirecodec.py", "twtml_tpu_torch/features/blocks.py"} <= names
 
 
 def test_importing_the_app_leaves_jax_unloaded():

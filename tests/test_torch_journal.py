@@ -109,19 +109,32 @@ def test_segment_bytes_equal_the_jax_packages(tmp_path):
 
 
 def test_block_records_of_the_jax_package_raise_naming_the_roadmap_item(tmp_path):
+    """A JAX-written block record (kind 2) replays in the port as the block
+    that crossed the JAX seam, its uint8 units as uint8, and the port
+    writes the same record byte for byte."""
     from twtml_tpu.features.blocks import ParsedBlock
+
+    from twtml_tpu_torch.features.blocks import ParsedBlock as PortBlock
 
     d = str(tmp_path / "j")
     j = JaxJournal(d)
     numeric = np.arange(10, dtype=np.int64).reshape(2, 5)
-    j.append([ParsedBlock(numeric, np.arange(6, dtype=np.uint8),
-                          np.array([0, 3, 6], np.int64), np.ones(2, np.uint8))])
+    units, offsets, ascii_col = (np.arange(6, dtype=np.uint8), np.array([0, 3, 6], np.int64),
+                                 np.ones(2, np.uint8))
+    j.append([ParsedBlock(numeric, units, offsets, ascii_col)])
     j.close()
     ours = IntakeJournal(d)
     assert (ours.next_id, ours.rows_total, ours.rows_from(0)) == (1, 2, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        list(ours.records_from(0))
+    (rec_id, items), = list(ours.records_from(0))
+    assert rec_id == 0 and len(items) == 1 and items[0].units.dtype == np.uint8
+    for got, want in zip(items[0], (numeric, units, offsets, ascii_col)):
+        np.testing.assert_array_equal(got, want)
     ours.close()
+    mine = IntakeJournal(str(tmp_path / "p"))
+    mine.append([PortBlock(numeric, units, offsets, ascii_col)])
+    mine.close()
+    read = lambda p: open(os.path.join(p, sorted(os.listdir(p))[0]), "rb").read()  # noqa: E731
+    assert read(str(tmp_path / "p")) == read(d)
 
 
 # ---- framing and disk (tests/test_journal.py) -------------------------------

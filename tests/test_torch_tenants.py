@@ -224,6 +224,27 @@ def test_tenant_wires_are_the_jax_packages(wire_pack):
         assert_same_bytes(wire, jwire)
 
 
+def test_the_coded_tenant_group_wire_is_the_jax_packages():
+    """``--wireCodec dict`` on the group tenant wire: each tenant segment
+    digram-coded in one shared bucket, bytes and layout the JAX package's,
+    and the tick bitwise the raw wire's."""
+    rb, = batches(n=1, unicode_mix=False)
+    jrb, = batches(n=1, jax=True, unicode_mix=False)
+    coded = stack(4, wire_pack="group", wire_codec="dict")
+    wire = coded.prepare_wire(rb)
+    jwire = JaxStack(4, wire_pack="group", wire_codec="dict").prepare_wire(jrb)
+    assert wire.layout == jwire.layout and wire.layout[2][4][0] == "dict"
+    assert np.asarray(wire.buffer).tobytes() == np.asarray(jwire.buffer).tobytes()
+    raw = stack(4, wire_pack="group")
+    outs = [m.fetch_output(m.step(w)) for m, w in ((raw, raw.prepare_wire(rb)), (coded, wire))]
+    for pending in outs:
+        pending.wait()
+    for f, g in zip(outs[0].result(), outs[1].result()):
+        if f is not None:
+            np.testing.assert_array_equal(np.asarray(f), np.asarray(g))
+    np.testing.assert_array_equal(raw.latest_weights, coded.latest_weights)
+
+
 # ---- the stack's steps ----------------------------------------------------------
 
 @pytest.mark.parametrize("kind,wire_pack", [("ragged", "stacked"), ("ragged", "group"),
@@ -511,6 +532,8 @@ APP_CASES = {
                              "linear_regression", False),
     "linear-m4-padded-wire": (["--tenants", "4", "--wire", "padded"],
                               "linear_regression", False),
+    "linear-m4-group-codec": (["--tenants", "4", "--wirePack", "group", "--wireCodec", "dict"],
+                              "linear_regression", False),
     "linear-m4-lang-key": (["--tenants", "4", "--tenantKey", "lang"],
                            "linear_regression", False),
     "logistic-m2": (["--tenants", "2"], "logistic_regression", True),
@@ -633,7 +656,6 @@ REFUSALS = {
     "lang_on_host_hashing": (lambda: common.build_model(ConfArguments().parse(
         ["--backend", "cpu", "--tenants", "2", "--tenantKey", "lang", "--hashOn", "host"])),
         SystemExit, "--hashOn device"),
-    "codec": (lambda: stack(2, wire_codec="dict"), NotImplementedError, "ROADMAP A11"),
 }
 
 

@@ -17,6 +17,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import unquote
 
 import jax
+import numpy as np
 import pytest
 
 from twtml_tpu import config as jax_config
@@ -271,12 +272,28 @@ def test_stream_base_url_overrides_the_endpoint(properties):
     assert src.url == "http://127.0.0.1:9/x.json" and src.credentials == CREDS
 
 
-def test_block_ingest_of_the_live_stream_names_a12():
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        twitter.BlockTwitterSource.from_properties()
+def test_block_ingest_of_the_live_stream_names_a12(properties):
+    """``--source twitter --ingest block``: the port builds its block
+    source from the property table as the JAX package does, and its blocks
+    from the same stream lines are the JAX package's."""
+    from twtml_tpu.streaming.twitter import BlockTwitterSource as JaxBlockTwitter
+
+    for key, value in CREDS.items():
+        config.set_property(key, value)
     conf = ConfArguments().parse(["--source", "twitter", "--ingest", "block"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        common.select_backend(conf)
+    common.select_backend(conf)
+    src = common.build_source(conf, allow_block=True)
+    assert isinstance(src, twitter.BlockTwitterSource) and src.credentials == CREDS
+    assert (src.begin, src.end, src.wire) == (100, 1000, False)  # --seconds 5: padded
+    lines = open("tests/data/tweets.jsonl", encoding="utf-8").read().splitlines()
+    ours = list(twitter.BlockTwitterSource(CREDS, connect_fn=lambda: iter(lines),
+                                           wire=True).produce())
+    theirs = list(JaxBlockTwitter(CREDS, connect_fn=lambda: iter(lines), wire=True).produce())
+    assert len(ours) == len(theirs) >= 1
+    for a, b in zip(ours, theirs):
+        for f in ("numeric", "units", "offsets", "ascii"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+            assert getattr(a, f).dtype == getattr(b, f).dtype
 
 
 def test_source_twitter_from_application_conf_gives_the_jax_apps_lines(

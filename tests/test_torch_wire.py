@@ -320,16 +320,40 @@ RAGGED_FIELDS = (((4096,), "|u1"), ((2,), "<u2"), ((2, 4), "<f4"), ((2,), "<f4")
 
 
 @pytest.mark.parametrize("layout,item", [
-    # the group layout is ported; its shard-aligned and digram-coded forms are not
+    # the group and flat layouts are ported, their digram-coded forms too;
+    # the shard-aligned forms are not
     (("RaggedGroupSegments", RAGGED_FIELDS, (8, 2, 1, "u16delta")), "A10"),
-    (("RaggedGroupSegments", RAGGED_FIELDS, (8, 1, 1, "u16delta", ("dict", 4096))), "A11"),
     (("RaggedShardSegments", ()), "A10"),
     (("RaggedUnitBatch", RAGGED_FIELDS, (8, 2, "u16delta")), "A10"),
-    (("RaggedUnitBatch", RAGGED_FIELDS, (8, 1, "u16delta", ("dict", (4096,)))), "A11"),
 ])
 def test_unpack_refuses_layouts_not_ported(layout, item):
     with pytest.raises(NotImplementedError, match=item):
         unpack_batch(np.zeros(4096 + 4 + 48, np.uint8), layout)
+
+
+CODED_FIELDS = (((2048,), "|u1"),) + RAGGED_FIELDS[1:]
+
+
+@pytest.mark.parametrize("layout", [
+    ("RaggedGroupSegments", CODED_FIELDS, (8, 1, 1, "u16delta", ("dict", 4096))),
+    ("RaggedUnitBatch", CODED_FIELDS, (8, 1, "u16delta", ("dict", (4096,)))),
+], ids=["group", "flat"])
+def test_coded_layouts_unpack_as_the_jax_package_does(layout):
+    """The digram-coded layouts (an all-zero units buffer codes to 2048
+    codes of the zero pair, dictionary entry 0): the port's numpy and torch
+    unpacks give the JAX package's host unpack, the 4096 raw zero units
+    decoded."""
+    rng = np.random.default_rng(5)
+    buf = np.zeros(2048 + 4 + 48, np.uint8)
+    buf[:2048] = 128  # CODE_BASE + 0
+    buf[2048:] = rng.integers(0, 4, 52).astype(np.uint8)  # small deltas, numeric bytes
+    want = jax_batch.unpack_batch(buf, layout)
+    for got in (unpack_batch(buf, layout), unpack_batch(torch.from_numpy(buf.copy()), layout)):
+        for f in FIELDS:
+            g = getattr(got, f)
+            g = g.numpy() if isinstance(g, torch.Tensor) else g
+            np.testing.assert_array_equal(g, np.asarray(getattr(want, f)), err_msg=f)
+        assert np.asarray(got.units).shape[-1] == 4096
 
 
 # ---- device decode ----------------------------------------------------------

@@ -33,6 +33,7 @@ multi-host parts of the JAX package's runtime are not ported (ROADMAP A10).
 from __future__ import annotations
 
 import contextlib
+import functools
 import logging
 import math
 import os
@@ -48,14 +49,16 @@ from ..features import assemble, featurize_native, native
 from ..features.arena import chain_leases, get_arena
 from ..features.batch import (
     NUM_NUMBER_FEATURES, FeatureBatch, PackedBatch, RaggedUnitBatch, UnitBatch,
-    pack_batch, pack_ragged_group, stack_batches, wire_nbytes,
+    pack_batch, pack_ragged_group, stack_batches, wire_composition, wire_nbytes,
 )
 from ..models.base import StepOutput
 from ..models.linear import StreamingLinearRegressionWithSGD
 from ..models.sgd import DTYPES, wire_signature
 from ..streaming import faults as _faults
 from ..streaming import journal as _journal
-from ..streaming.sources import ReplayFileSource, SkipRowsSource, Source, SyntheticSource
+from ..streaming.sources import (
+    BlockReplayFileSource, ReplayFileSource, SkipRowsSource, Source, SyntheticSource,
+)
 from ..telemetry import blackbox as _blackbox
 from ..telemetry import freshness as _freshness
 from ..telemetry import historian as _historian
@@ -91,7 +94,8 @@ class FetchAbort(RuntimeError):
     """The fetch watchdog exhausted its retries: the run is aborting."""
 
 
-def build_source(conf) -> Source:
+def build_source(conf, allow_block: bool = False,
+                 block_interval: "tuple[int, int] | None" = None) -> Source:
     """The configured source. ``--replaySpeed`` paces a replay (x realtime)
     or a synthetic stream (tweets/s). ``TWTML_NOW_MS`` (env), which pins the
     featurizer's clock, also pins the synthetic tweets' creation times, so
@@ -99,18 +103,47 @@ def build_source(conf) -> Source:
     twitter`` opens the live stream with the ``twitter4j.oauth.*``
     credentials (flags or ``application.conf``). ``--wire ragged`` with
     ``--hashOn host`` exits, as in the JAX package: the ragged wire ships
-    code units for the device to hash."""
+    code units for the device to hash.
+
+    ``--ingest block`` (the JAX package's rules and exits): an entry point
+    whose pipeline takes ParsedBlocks passes ``allow_block`` (linear and
+    logistic; k-means also ``block_interval``, the retweet-count interval
+    the parser filters by, since it keeps every retweet); the replay file
+    (as fast as it parses: ``--replaySpeed`` exits) or the live stream goes
+    through the block parser, the wire emitter under ``--blockWire``'s
+    rule. The multi-host byte-range shard is ROADMAP A10."""
     if conf.effective_wire() == "ragged" and conf.hashOn != "device":
         raise SystemExit("--wire ragged is a device-hash wire format; "
                          "it requires --hashOn device")
+    block = conf.ingest == "block"
+    if block and not allow_block:
+        raise SystemExit("--ingest block is not wired for this entry point; "
+                         "use --ingest object")
+    if block and conf.source not in ("replay", "twitter"):
+        raise SystemExit("--ingest block requires --source replay or twitter")
+    if block and conf.hashOn != "device":
+        raise SystemExit("--ingest block ships raw code units (device hashing); "
+                         "--hashOn host requires --ingest object")
+    begin, end = (block_interval if block_interval is not None
+                  else (conf.numRetweetBegin, conf.numRetweetEnd))
     if conf.source == "twitter":
-        from ..streaming.twitter import TwitterSource
+        from ..streaming.twitter import BlockTwitterSource, TwitterSource
 
-        source: Source = TwitterSource.from_properties()
+        source: Source = (
+            BlockTwitterSource.from_properties(
+                num_retweet_begin=begin, num_retweet_end=end,
+                wire=conf.effective_block_wire())
+            if block else TwitterSource.from_properties())
     elif conf.source == "replay":
         if not conf.replayFile:
             raise SystemExit("--source replay requires --replayFile <path.jsonl>")
-        source = ReplayFileSource(conf.replayFile, speed=conf.replaySpeed)
+        if block and conf.replaySpeed:
+            raise SystemExit("--ingest block replays as fast as possible; "
+                             "drop --replaySpeed or use --ingest object")
+        source = (
+            BlockReplayFileSource(conf.replayFile, num_retweet_begin=begin,
+                                  num_retweet_end=end, wire=conf.effective_block_wire())
+            if block else ReplayFileSource(conf.replayFile, speed=conf.replaySpeed))
     else:
         now_env = os.environ.get("TWTML_NOW_MS", "")
         source = SyntheticSource(
@@ -432,10 +465,11 @@ def journal_replay_rollback(ssc, ckpt: AppCheckpoint, totals: dict, meta,
     stale = j.cancel_pending_replay()
     if stale:
         queued = ssc._drain(0)
-        ssc._putback(queued[stale:])
+        qrows = _journal.rows_of(queued)
+        ssc._putback(_journal.drop_rows(queued, stale) if qrows > stale else [])
         log.warning("journal: superseded an in-progress replay: dropped %d stale "
                     "queued row(s) the new replay from cursor %d re-covers",
-                    min(stale, len(queued)), cursor)
+                    min(stale, qrows), cursor)
     items, rows = j.replay_from(cursor)
     ssc._putback(items)
     ckpt.adopt_replay_totals(totals, count, batches)
@@ -887,19 +921,66 @@ def _sync_debug(model, mode: str):
 _WIRE_TYPES = (PackedBatch, RaggedUnitBatch, UnitBatch, FeatureBatch)
 
 
-def _packer(model):
+def _packer(model, codec: str = ""):
     """The model's own wire pack (``pack_for_wire``: the tenant plane's
-    routed wire, the serve engines'), else ``pack_batch``."""
-    return getattr(model, "pack_for_wire", None) or pack_batch
+    routed wire, which carries the model's own ``wire_codec``; the serve
+    engines'), else ``pack_batch`` with ``codec`` ("" or "dict")."""
+    own = getattr(model, "pack_for_wire", None)
+    if own is not None:
+        return own
+    return functools.partial(pack_batch, codec=codec or None)
 
 
-def _dispatch(model, batch, pack: bool, fetch, sync_debug: str, stamp: dict):
-    """Pack (the ragged wire, by ``_packer``), step and start the fetch of
-    one host batch, timing each part into ``stamp``, the stage clock (``wire_pack``,
-    ``dispatch``) and the trace; the batch's lineage record goes in flight.
-    Returns (pending fetch, device output, the batch's leases). On cuda the
-    step's device time is bracketed by two events, read at delivery
-    (``_finish_stamp``)."""
+def _codec_requested(model, codec: str) -> str:
+    """The codec a dispatch's wire is meant to carry: the model's own under
+    its ``pack_for_wire``, else the pipeline's."""
+    if getattr(model, "pack_for_wire", None) is not None:
+        return getattr(model, "wire_codec", "") or ""
+    return codec
+
+
+_codec_fallback_warned = False
+
+
+def _record_wire_codec(wire, requested: str) -> "dict | None":
+    """A packed wire's codec telemetry (the JAX package's): the
+    ``wire.units_compressed_bytes`` and ``wire.codec_ratio`` gauges from
+    ``wire_composition`` (layout arithmetic, no array read). A wire that
+    asked for the codec and shipped raw (uint16 units, or an incompressible
+    batch) counts in ``wire.codec_fallbacks``, with one warning a process.
+    Returns the composition, or None when no codec was asked for."""
+    global _codec_fallback_warned
+    if not requested or requested == "off":
+        return None
+    comp = wire_composition(wire)
+    reg = _metrics.get_registry()
+    phys = comp.get("units_compressed")
+    if phys is None:
+        reg.counter("wire.codec_fallbacks").inc()
+        reg.gauge("wire.codec_ratio").set(1.0)
+        reg.gauge("wire.units_compressed_bytes").set(comp.get("units", 0))
+        if not _codec_fallback_warned:
+            _codec_fallback_warned = True
+            log.warning("wire codec requested but this batch shipped RAW (non-ASCII-"
+                        "widened units or incompressible): counted in "
+                        "wire.codec_fallbacks; further fallbacks are silent")
+        return comp
+    reg.gauge("wire.units_compressed_bytes").set(phys)
+    if phys:
+        reg.gauge("wire.codec_ratio").set(round(comp["units"] / phys, 3))
+    return comp
+
+
+def _dispatch(model, batch, pack: bool, fetch, sync_debug: str, stamp: dict,
+              codec: str = ""):
+    """Pack (the ragged wire, by ``_packer``, digram-coded under ``codec``),
+    step and start the fetch of one host batch, timing each part into
+    ``stamp``, the stage clock (``wire_pack``, ``dispatch``) and the trace;
+    the batch's lineage record goes in flight. Returns (pending fetch,
+    device output, the batch's leases). On cuda the step's device time is
+    bracketed by two events, read at delivery (``_finish_stamp``); a coded
+    wire's units bytes raw and coded go into ``stamp`` (``units_bytes``,
+    ``units_coded_bytes``: None when it shipped raw)."""
     device = getattr(model, "device", None)
     events = None
     tr = _trace.get()
@@ -908,7 +989,7 @@ def _dispatch(model, batch, pack: bool, fetch, sync_debug: str, stamp: dict):
         t0 = time.perf_counter()
         if pack:
             with tr.span("wire_pack", mode="single") as sp:
-                wire = _packer(model)(batch)
+                wire = _packer(model, codec)(batch)
                 if tr.enabled:
                     sp.add(wire_bytes=wire_nbytes(wire))
         else:
@@ -928,6 +1009,10 @@ def _dispatch(model, batch, pack: bool, fetch, sync_debug: str, stamp: dict):
         t3 = time.perf_counter()
     if pack:
         _sideband.record_stage("wire_pack", t1 - t0)
+        comp = _record_wire_codec(wire, _codec_requested(model, codec))
+        if comp is not None:
+            stamp.update(units_bytes=comp["units"],
+                         units_coded_bytes=comp.get("units_compressed"))
     _sideband.record_stage("dispatch", t3 - t1)
     _lineage.mark_dispatch()
     if tr.enabled:
@@ -957,11 +1042,11 @@ def _drop_undispatched(batch, why: str) -> None:
         lease.discard()
 
 
-def _guarded_dispatch(model, batch, pack, fetch, sync_debug, stamp):
+def _guarded_dispatch(model, batch, pack, fetch, sync_debug, stamp, codec: str = ""):
     """``_dispatch``; a dispatch that raises (the context logs and skips
     the batch) first drops the batch's lineage record and journal token."""
     try:
-        return _dispatch(model, batch, pack, fetch, sync_debug, stamp)
+        return _dispatch(model, batch, pack, fetch, sync_debug, stamp, codec)
     except Exception:
         _drop_undispatched(batch, "its dispatch raised")
         raise
@@ -1007,11 +1092,12 @@ class FetchPipeline:
                  boundary_every: int = 0, max_dispatch: int = 0, pack: bool = False,
                  abort=None, fetch_deadline_s: float = 0.0,
                  fetch_retries: "int | None" = None, stamp=None,
-                 sync_debug: str = ""):
+                 sync_debug: str = "", wire_codec: str = ""):
         self.model = model
         self.handle = handle
         self.depth = max(1, depth)
         self.pack = pack
+        self.wire_codec = wire_codec
         self._stop_requested = stop_requested
         self.boundary_every = boundary_every
         self.max_dispatch = max_dispatch
@@ -1089,7 +1175,8 @@ class FetchPipeline:
         stamp = dict(self._stamp()) if self._stamp is not None else {}
         stamp["depth"] = len(self._pending)
         pending, out, lease = _guarded_dispatch(
-            self.model, batch, self.pack, self._fetch, self.sync_debug, stamp
+            self.model, batch, self.pack, self._fetch, self.sync_debug, stamp,
+            self.wire_codec,
         )
         self._pending.append((pending, out, batch, t, lease, stamp))
         self._depth_gauge.set(len(self._pending))
@@ -1184,10 +1271,12 @@ class SuperBatcher:
 
     def __init__(self, model, k: int, handle, fetch_depth: int = 4,
                  boundary_every: int = 0, max_dispatch: int = 0, abort=None,
-                 wire_pack: str = "stacked", stamp=None, sync_debug: str = ""):
+                 wire_pack: str = "stacked", stamp=None, sync_debug: str = "",
+                 wire_codec: str = ""):
         if wire_pack not in ("stacked", "group"):
             raise ValueError(f"wire_pack must be 'stacked' or 'group', got {wire_pack!r}")
         self.model = model
+        self.wire_codec = wire_codec
         self.k = k
         self.handle = handle
         self.fetch_depth = max(1, fetch_depth)
@@ -1240,7 +1329,7 @@ class SuperBatcher:
         group mode on the ragged wire, the stacked arrays otherwise."""
         if self._coalesce(batches[0]):
             with _trace.get().span("wire_pack", mode="group", batches=len(batches)):
-                return pack_ragged_group(batches)
+                return pack_ragged_group(batches, codec=self.wire_codec or None)
         return stack_batches(batches)
 
     def _emit_group(self) -> None:
@@ -1310,7 +1399,8 @@ class SuperBatcher:
                 continue
             stamp["depth"] = 0
             pending, out, lease = _guarded_dispatch(
-                self.model, batch, self._coalesce(batch), self._fetch, self.sync_debug, stamp)
+                self.model, batch, self._coalesce(batch), self._fetch, self.sync_debug, stamp,
+                self.wire_codec)
             self._dispatched += 1
             self._cadence += 1
             t0 = time.perf_counter()
@@ -1371,6 +1461,7 @@ class SuperBatcher:
         k = len(group)
         _sideband.record_stage("wire_pack", t1 - t0)
         _sideband.record_stage("dispatch", t3 - t1)
+        comp = _record_wire_codec(wire, self.wire_codec) if self._coalesce(batches[0]) else None
         _lineage.mark_dispatch(k)
         if tr.enabled:
             tr.complete("dispatch", t1, t3 - t1, group=k, depth=len(self._inflight))
@@ -1379,6 +1470,10 @@ class SuperBatcher:
             dispatch_ms=(t3 - t1) * 1e3 / k, step_events=events, group=k,
             depth=len(self._inflight), wire_bytes=wire_nbytes(wire) // k,
         )
+        if comp is not None:
+            coded = comp.get("units_compressed")
+            gstamp.update(units_bytes=comp["units"] // k,
+                          units_coded_bytes=None if coded is None else coded // k)
         lease = chain_leases(getattr(wire, "lease", None),
                              *(getattr(b, "lease", None) for b in batches))
         self._inflight.append((pending, outs, group, lease, gstamp))
@@ -1545,28 +1640,36 @@ def attach_super_batcher(conf, stream, model, handle, stop_requested=None,
     if int(conf.recycleAfterMb or 0) > 0 and not boundary_every:
         boundary_every = 64
 
+    # --wireCodec dict rides the packed wire forms only, as in the JAX
+    # package: resolved (and its ValueError raised) only where the stream
+    # packs; a tenant plane's pack carries the model's own codec
+    wire_codec = ""
+    if pack and conf.effective_wire_codec() == "dict":
+        wire_codec = "dict"
+
     k = super_batch_k(conf, stream, num_tenants)
     if k > 1:
         batcher = SuperBatcher(
             model, k, handle, boundary_every=boundary_every, max_dispatch=max_dispatch,
             abort=abort, stamp=stamp, sync_debug=sync_debug,
             wire_pack="group" if pack and conf.effective_wire_pack() == "group" else "stacked",
+            wire_codec=wire_codec,
         )
         if sentinel is not None:
             sentinel.bind(batcher)  # a skipped batch refunds its cap slot
         stream.foreach_batch(skip_empty(batcher.on_batch))
-        return _with_group(batcher.flush, k, batcher.group_wire)
+        return _with_group(batcher.flush, k, batcher.group_wire, wire_codec)
 
     if conf.seconds <= 0:
         pipe = FetchPipeline(
             model, handle, depth=fetch_depth, stop_requested=stop_requested,
             boundary_every=boundary_every, max_dispatch=max_dispatch, pack=pack,
-            abort=abort, stamp=stamp, sync_debug=sync_debug,
+            abort=abort, stamp=stamp, sync_debug=sync_debug, wire_codec=wire_codec,
         )
         if sentinel is not None:
             sentinel.bind(pipe)  # a skipped batch refunds its cap slot
         stream.foreach_batch(skip_empty(pipe.on_batch))
-        return _with_group(pipe.flush)
+        return _with_group(pipe.flush, wire_codec=wire_codec)
 
     fetch = _fetcher(model)
     reg = _metrics.get_registry()
@@ -1575,7 +1678,8 @@ def attach_super_batcher(conf, stream, model, handle, stop_requested=None,
         # wall clock: ONE synchronous host fetch of the whole StepOutput
         st = dict(stamp()) if stamp is not None else {}
         st["depth"] = 0
-        pending, _out, lease = _guarded_dispatch(model, batch, pack, fetch, sync_debug, st)
+        pending, _out, lease = _guarded_dispatch(model, batch, pack, fetch, sync_debug, st,
+                                                 wire_codec)
         t0 = time.perf_counter()
         _faults.perturb("fetch")
         pending.wait()
@@ -1590,19 +1694,21 @@ def attach_super_batcher(conf, stream, model, handle, stop_requested=None,
             lease.retire()  # after the handler, which reads the host arrays
 
     stream.foreach_batch(skip_empty(per_batch))
-    return _with_group(lambda: None)
+    return _with_group(lambda: None, wire_codec=wire_codec)
 
 
-def _with_group(flush, k: int = 1, group_wire=None):
-    """``flush`` as a function carrying ``group_k`` and ``group_wire``."""
+def _with_group(flush, k: int = 1, group_wire=None, wire_codec: str = ""):
+    """``flush`` as a function carrying ``group_k``, ``group_wire`` and
+    ``wire_codec`` (the stream's packed-wire codec, "" or "dict")."""
     def call() -> None:
         flush()
 
-    call.group_k, call.group_wire = k, group_wire
+    call.group_k, call.group_wire, call.wire_codec = k, group_wire, wire_codec
     return call
 
 
-def warmup_compile(stream, model, super_batch: int = 1, group_wire=None) -> None:
+def warmup_compile(stream, model, super_batch: int = 1, group_wire=None,
+                   wire_codec: str = "") -> None:
     """Build and warm the step BEFORE the stream starts, so the first
     wall-clock interval does not swallow the first-use builds (nvcc of the
     fused kernel, g++ of the native host library: seconds each) while a
@@ -1625,7 +1731,7 @@ def warmup_compile(stream, model, super_batch: int = 1, group_wire=None) -> None
     which captures at its first group)."""
     t0 = time.perf_counter()
     empty = stream.featurize_empty()
-    wire = _packer(model)(empty) if getattr(stream, "ragged", False) else empty
+    wire = _packer(model, wire_codec)(empty) if getattr(stream, "ragged", False) else empty
     pending = _fetcher(model)(model.step(wire))
     pending.wait()
     counts = np.atleast_1d(pending.result().count).tolist()

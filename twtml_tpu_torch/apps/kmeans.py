@@ -12,9 +12,11 @@ scatter chart the reference sketches streams to Lightning from a daemon
 thread behind a drop-oldest queue (best effort: training never waits on
 it). The model's centers and weights live on the card unless ``--backend
 cpu`` is given; ``--checkpointDir`` saves and restores ``{centers,
-weights}`` as the JAX app does. Multi-host lockstep (ROADMAP A10) and block
-ingest (A12) are not ported: their flags stop the run in
-``select_backend``.
+weights}`` as the JAX app does. ``--ingest block`` parses with the
+retweet-count interval opened to every retweet (the parser's filter is then
+``isRetweet`` alone) and takes both dimensions from the parsed block's
+numeric columns. Multi-host lockstep (ROADMAP A10) is not ported: its flags
+stop the run in ``select_backend``.
 
 Run: ``python -m twtml_tpu_torch.apps.kmeans --backend cpu --source replay \\
       --replayFile tests/data/tweets.jsonl --seconds 0 \\
@@ -32,6 +34,7 @@ import torch
 
 from ..config import ConfArguments
 from ..features.batch import pad_row_count
+from ..features.blocks import COL_FOLLOWERS, COL_LABEL, ParsedBlock, merge_blocks
 from ..features.featurizer import Status
 from ..models.kmeans import StreamingKMeans, sq_dists
 from ..ops.scaler import standard_scale
@@ -107,7 +110,9 @@ def run(conf: ConfArguments, max_batches: int = 0, wall_clock: bool = True) -> d
     install_chaos(conf)
     install_blackbox(conf)
     install_historian(conf)
-    source = build_source(conf)
+    # every retweet, no retweet-count interval (KMeans.scala:77-80): block
+    # ingest opens the parser's interval filter
+    source = build_source(conf, allow_block=True, block_interval=(0, 2**62))
     chart_q = _start_chart_worker(conf)
     model = (
         StreamingKMeans(device=conf.backend)
@@ -131,17 +136,26 @@ def run(conf: ConfArguments, max_batches: int = 0, wall_clock: bool = True) -> d
     watchdog = RssWatchdog()
 
     def on_batch(statuses: list, _batch_time) -> None:
-        if statuses and not isinstance(statuses[0], Status):
-            raise NotImplementedError("block ingest batches need the block featurizer, "
-                                      "which is not ported (ROADMAP A12)")
-        retweets = [s for s in statuses if s.is_retweet]
-        if not retweets:
-            log.debug("batch: 0")
-            return
-        n = len(retweets)
-        rows = pad_row_count(n, 0)
-        pts = np.zeros((rows, NUM_DIMENSIONS), np.float32)
-        pts[:n] = np.stack([featurize(s) for s in retweets])
+        if statuses and isinstance(statuses[0], ParsedBlock):
+            # block ingest: both dimensions are numeric columns
+            block = merge_blocks(statuses)
+            n = block.rows
+            if n == 0:
+                log.debug("batch: 0")
+                return
+            rows = pad_row_count(n, 0)
+            pts = np.zeros((rows, NUM_DIMENSIONS), np.float32)
+            pts[:n, 0] = block.numeric[:, COL_LABEL]
+            pts[:n, 1] = block.numeric[:, COL_FOLLOWERS]
+        else:
+            retweets = [s for s in statuses if s.is_retweet]
+            if not retweets:
+                log.debug("batch: 0")
+                return
+            n = len(retweets)
+            rows = pad_row_count(n, 0)
+            pts = np.zeros((rows, NUM_DIMENSIONS), np.float32)
+            pts[:n] = np.stack([featurize(s) for s in retweets])
         mask = np.zeros((rows,), np.float32)
         mask[:n] = 1.0
         mask_d = torch.from_numpy(mask).to(model.device)

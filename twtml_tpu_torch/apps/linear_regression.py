@@ -122,8 +122,9 @@ def run_learner(conf: ConfArguments, max_batches: int = 0, fetch_depth: int = FE
     pack.
     ``fetch_depth`` sets the back-to-back stream's batches in flight.
     ``report(out, totals, b, session, real, pred)`` publishes one batch and
-    returns its line; ``label_fns`` (label_fn, batch_label_fn) set the
-    featurizer's labelers.
+    returns its line; ``label_fns`` (label_fn, batch_label_fn,
+    unit_label_fn) set the featurizer's labelers (the last labels parsed
+    blocks, ``--ingest block``).
     A run a runtime guard aborted (the fetch watchdog, the sentinel's
     rollback budget) raises after its shutdown saved the final checkpoint."""
     select_backend(conf)
@@ -134,7 +135,8 @@ def run_learner(conf: ConfArguments, max_batches: int = 0, fetch_depth: int = FE
     session = SessionStats(conf).open()
     featurizer = Featurizer.from_conf(conf)
     if label_fns is not None:
-        featurizer.label_fn, featurizer.batch_label_fn = label_fns
+        (featurizer.label_fn, featurizer.batch_label_fn,
+         featurizer.unit_label_fn) = label_fns
     wire = conf.effective_wire()
     install_trace(conf)
     install_chaos(conf)
@@ -150,7 +152,7 @@ def run_learner(conf: ConfArguments, max_batches: int = 0, fetch_depth: int = FE
         thread_init=model.bind_thread,
     )
     stream = ssc.source_stream(
-        build_source(conf), featurizer, row_bucket=conf.batchBucket,
+        build_source(conf, allow_block=True), featurizer, row_bucket=conf.batchBucket,
         token_bucket=conf.tokenBucket, ragged=wire == "ragged",
         device_hash=conf.hashOn == "device",
     )
@@ -214,7 +216,8 @@ def run_learner(conf: ConfArguments, max_batches: int = 0, fetch_depth: int = FE
         freshness=freshness,
     )
 
-    warmup_compile(stream, model, super_batch=flush.group_k, group_wire=flush.group_wire)
+    warmup_compile(stream, model, super_batch=flush.group_k, group_wire=flush.group_wire,
+                   wire_codec=flush.wire_codec)
 
     log.info("Starting the streaming computation...")
     tracer.start()

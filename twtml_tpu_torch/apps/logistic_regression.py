@@ -6,7 +6,8 @@ The flagship app's pipeline (apps/linear_regression.py ``run_learner``:
 the same streaming context, wires, fetch pipeline or superbatch, runtime
 guards, checkpoint, journal and historian) with the label swapped for the
 lexicon sentiment of the original tweet (features/sentiment.py: the
-featurizer's ``label_fn`` and, on the hot path, ``batch_label_fn``) and the
+featurizer's ``label_fn`` and, on the hot path, ``batch_label_fn``; under
+``--ingest block`` ``unit_label_fn`` over the parsed blocks' raw units) and the
 logistic learner (models/logistic.py), whose step runs the fused kernel in
 its logistic mode at ``-b 1`` in float32. The reported ``mse`` over hard
 0/1 predictions is the misclassification rate: each batch prints
@@ -26,7 +27,9 @@ from __future__ import annotations
 import sys
 
 from ..config import ConfArguments
-from ..features.sentiment import sentiment_label, sentiment_labels
+from ..features.sentiment import (
+    sentiment_label, sentiment_labels, sentiment_labels_from_units,
+)
 from ..models.logistic import StreamingLogisticRegressionWithSGD
 from ..utils import round_half_up
 from ..utils.tracing import annotate
@@ -54,7 +57,8 @@ def run(conf: ConfArguments, max_batches: int = 0, fetch_depth: int = FETCH_DEPT
     app's ``run_learner``, with the same totals and the same aborts)."""
     return linear_regression.run_learner(
         conf, max_batches, fetch_depth, learner=StreamingLogisticRegressionWithSGD,
-        report=report_logistic, label_fns=(sentiment_label, sentiment_labels),
+        report=report_logistic,
+        label_fns=(sentiment_label, sentiment_labels, sentiment_labels_from_units),
     )
 
 

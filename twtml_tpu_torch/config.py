@@ -9,8 +9,8 @@ exists; its ``consumerKey``/``consumerSecret``/``accessToken``/
 parser takes every flag and short alias of the JAX package's parser;
 ``--backend`` is the one deliberate difference (``cuda|cpu``, default
 ``cuda``). A value that selects a feature the port has not ported (the
-digram codec, block ingest, multi-host) parses, and ``check_ported`` then raises ``NotImplementedError`` naming its
-ROADMAP item. ``--wire auto`` resolves by the JAX package's rule: ragged for
+multi-host runtime) parses, and ``check_ported`` then raises
+``NotImplementedError`` naming its ROADMAP item (A10). ``--wire auto`` resolves by the JAX package's rule: ragged for
 a back-to-back stream (``--seconds 0`` or below) that hashes on the device,
 padded under a wall clock or with ``--hashOn host``.
 """
@@ -213,6 +213,20 @@ class ConfArguments:
                                                ships a [B, L] buffer and four more arrays. auto =
                                                ragged back to back (--seconds 0), padded under a
                                                wall clock. Default: {self.wire}
+  --ingest <object|block>                      Replay/live ingest: per-tweet Status objects, or
+                                               columnar blocks from the native C parser
+                                               (native/tweetjson.cpp; --source replay or twitter,
+                                               --hashOn device; replays as fast as it parses).
+                                               Default: {self.ingest}
+  --blockWire <auto|on|off>                    --ingest block's parser: on = the zero-copy wire
+                                               emitter (uint8 units when every row is ASCII), off =
+                                               the legacy C parser; auto = on iff the wire is
+                                               ragged. The same batches either way. Default: {self.blockWire}
+  --wireCodec <auto|off|dict>                  dict digram-codes the packed ragged wire's uint8
+                                               units on the host (native/wirecodec.cpp) and decodes
+                                               them on the device; uint16 units and incompressible
+                                               batches ship raw (wire.codec_fallbacks). Needs the
+                                               ragged wire; auto = off. Default: {self.wireCodec}
   --featurizeNative <auto|on|off>              One-pass native featurize of the ragged wire's arrays
                                                (native/featurize.cpp, built with g++ at first use);
                                                auto/on = whenever it loads, off = numpy. Byte-equal
@@ -286,7 +300,8 @@ class ConfArguments:
                                                reported on its own. Default: {self.superBatch}
   --wirePack <auto|stacked|group>              The superbatch's wire: stacked arrays, or (group,
                                                ragged wire only) one packed buffer a group; auto =
-                                               stacked. Default: {self.wirePack}
+                                               stacked, or group under --wireCodec dict (stacked
+                                               with the codec exits). Default: {self.wirePack}
   --tenants <int M>                            The tenant plane (parallel/tenants.py): M models
                                                on one wire, rows routed on the host, one launch
                                                of the step a tenant and ONE fetch a tick; each
@@ -334,11 +349,10 @@ class ConfArguments:
                                                of the request body (64 vnodes a replica), so a
                                                key sticks to one replica. Default: {self.routePolicy}
 
-  The JAX package's other flags parse with its defaults; a value other than
-  the single-host default stops the run naming the ROADMAP item it needs:
-  --ingest block and --blockWire (A12), --wireCodec dict (A11), --coordinator,
-  --numProcesses, --processId, --elastic, --elasticEvictTicks, --elasticEvictSkewMs
-  and --elasticRejoin (A10).
+  The JAX package's multi-host flags parse with its defaults; a value other
+  than the single-host default stops the run naming the ROADMAP item it
+  needs: --coordinator, --numProcesses, --processId, --elastic,
+  --elasticEvictTicks, --elasticEvictSkewMs and --elasticRejoin (A10).
   -h, --help
 """
 
@@ -387,21 +401,16 @@ class ConfArguments:
 
     def check_ported(self) -> None:
         """Raise ``NotImplementedError`` naming the ROADMAP item of the
-        first value that selects a feature the port has not ported. Values
-        the JAX package ignores on this path (``--wirePack`` without a
-        superbatch, ``--blockWire`` without block ingest, the elastic knobs
-        with ``--elastic off``) pass. ``--tenants`` and ``--abtest on`` are
-        ported; the tenant fleet across hosts is refused with the rest of
-        the multi-host runtime (A10)."""
+        first value that selects a feature the port has not ported: the
+        multi-host runtime (A10), the tenant fleet across hosts with it.
+        Values the JAX package ignores on this path (the elastic knobs with
+        ``--elastic off``) pass; block ingest, the digram codec, the tenant
+        plane and ``--abtest on`` are ported."""
 
         def refuse(flag, what, item):
             raise NotImplementedError(
                 f"{flag} needs {what}, which the port has not ported (ROADMAP {item})")
 
-        if self.wireCodec == "dict":
-            refuse("--wireCodec dict", "the digram wire codec", "A11")
-        if self.ingest == "block":
-            refuse("--ingest block", "block ingest", "A12")
         if (self.coordinator or self.numProcesses != 0 or self.processId != -1
                 or self.master.startswith("twtml://") or self.elastic == "on"):
             refuse("--coordinator/--numProcesses/--processId/--elastic or a "
@@ -419,14 +428,48 @@ class ConfArguments:
             return self.wire
         return "padded" if self.hashOn != "device" or self.seconds > 0 else "ragged"
 
+    def effective_block_wire(self) -> bool:
+        """Resolve ``--blockWire`` by the JAX package's rule: whether block
+        sources parse through the zero-copy wire emitter. ``auto`` follows
+        the effective wire (the emitter gives the ragged wire's units; the
+        padded wire keeps the legacy parser); explicit ``on``/``off`` wins.
+        The batches are the same either way."""
+        if self.blockWire != "auto":
+            return self.blockWire == "on"
+        return self.effective_wire() == "ragged"
+
     def effective_wire_pack(self) -> str:
         """Resolve ``--wirePack auto`` by the JAX package's rule: the
-        stacked superbatch wire; explicit ``group``/``stacked`` wins. (Its
-        refusal of ``stacked`` with ``--wireCodec dict`` never arises here:
-        the codec is refused first, ROADMAP A11.)"""
+        stacked superbatch wire, but the group wire under ``--wireCodec
+        dict`` (the codec rides the packed one-buffer forms);
+        ``--wirePack stacked`` with the codec raises ``ValueError``, since
+        it would ship the group's batches uncoded. Explicit ``group``/
+        ``stacked`` wins otherwise."""
+        if self.effective_wire_codec() == "dict":
+            if self.wirePack == "stacked":
+                raise ValueError(
+                    "--wirePack stacked contradicts --wireCodec dict: the "
+                    "codec rides the packed one-buffer wire (use "
+                    "--wirePack group, or drop the codec)"
+                )
+            return "group"
         if self.wirePack != "auto":
             return self.wirePack
         return "stacked"
+
+    def effective_wire_codec(self) -> str:
+        """Resolve ``--wireCodec`` by the JAX package's rule: ``auto`` and
+        ``off`` are off; ``dict`` needs the ragged raw-units wire, and with
+        another wire raises ``ValueError``."""
+        if self.wireCodec in ("off", "auto"):
+            return "off"
+        if self.effective_wire() != "ragged":
+            raise ValueError(
+                "--wireCodec dict needs the ragged raw-units wire "
+                "(--wire ragged, or auto with --hashOn device and "
+                "--seconds 0)"
+            )
+        return "dict"
 
     def effective_journal(self) -> bool:
         """Resolve ``--journal auto`` by the JAX package's rule: on exactly

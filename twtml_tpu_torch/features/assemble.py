@@ -5,9 +5,12 @@ assemble.py``).
 
 One C sweep (``native/wireassemble.cpp``) lays the final ``PackedBatch``
 buffer down: for each of the K batches (K = 1 on the flat wire) the units
-copied, the offsets as uint16 length deltas under the static ``row_len``
-gate (int32 beyond it), the numeric/label/mask sideband behind them, into a
-buffer leased from the arena (features/arena.py).
+copied, or digram-coded in the copy under ``--wireCodec dict`` (the pair
+LUT of features/wirecodec.py, the same greedy encode, one shared bucket and
+the all-or-nothing raw fallback of ``batch._encode_units_segments``), the
+offsets as uint16 length deltas under the static ``row_len`` gate (int32
+beyond it), the numeric/label/mask sideband behind them, into a buffer
+leased from the arena (features/arena.py).
 
 ``try_assemble_flat`` and ``try_assemble_group`` return a PackedBatch byte
 for byte as ``batch.pack_batch``'s or ``batch.pack_ragged_group``'s numpy
@@ -15,7 +18,7 @@ path would build it, or None: mode off, the
 native entry unavailable (counted in ``native.COUNTERS["packs_degraded"]``),
 a field off the wire schema, or an input the C pass refuses (a delta past
 uint16); the packer then runs the numpy path, which raises the canonical
-errors. No digram codec: it stays queued.
+errors.
 
 ``--wireAssemble <auto|on|off>`` drives ``configure``; ``auto`` and ``on``
 both mean "whenever the native entry loads".
@@ -83,29 +86,59 @@ def _field_arrays(rb) -> tuple | None:
     return units, offsets, numeric, label, mask
 
 
-def _assemble(fields_per_batch: list, narrow: bool):
+def _codec_lut(codec: "str | None", units_dtype):
+    """The pair LUT when the codec applies, None for the raw wire (codec
+    off, or uint16 units, which ship raw as on the numpy path), or ``()``
+    for an unknown codec, which the numpy path refuses."""
+    if codec is None or codec in ("", "off"):
+        return None
+    if codec != "dict":
+        return ()
+    if np.dtype(units_dtype) != np.uint8:
+        return None
+    from .wirecodec import pair_lut
+
+    return pair_lut()
+
+
+def _assemble(fields_per_batch: list, narrow: bool, lut):
     """The C pass over K batches' fields into a leased buffer: (buffer,
-    lease), or None (the entry refused the input)."""
+    codec bucket, lease), or None (the entry refused the input). With a
+    LUT the codes go through a leased scratch of K raw units buffers, which
+    returns to the pool when the pass is done."""
+    k = len(fields_per_batch)
     units, mask = fields_per_batch[0][0], fields_per_batch[0][4]
     n, b = units.shape[0], mask.shape[0]
     offs_bytes = b * 2 if narrow else (b + 1) * 4
     per_batch = n * units.dtype.itemsize + offs_bytes + b * (NUM_NUMBER_FEATURES + 2) * 4
-    lease = lease_wire(len(fields_per_batch) * per_batch)
-    total = native.wire_assemble(fields_per_batch, narrow, lease.buf)
-    if total is None:
+    scratch = enc_lens = None
+    if lut is not None:
+        scratch = lease_wire(k * n)
+        enc_lens = np.empty((k,), np.int64)
+    lease = lease_wire(k * per_batch)
+    try:
+        got = native.wire_assemble(fields_per_batch, narrow, lease.buf, lut,
+                                   None if scratch is None else scratch.buf, enc_lens)
+    finally:
+        if scratch is not None:
+            scratch.retire()
+    if got is None:
         lease.retire()
         return None
     native.COUNTERS["packs_native"] += 1
-    return lease.buf[:total], lease
+    total, enc_bucket = got
+    return lease.buf[:total], enc_bucket, lease
 
 
-def _field_metas(fields: tuple, narrow: bool) -> tuple:
-    """The per-batch field metas of a packed ragged layout."""
+def _field_metas(fields: tuple, narrow: bool, enc_bucket: int) -> tuple:
+    """The per-batch field metas of a packed ragged layout (the units as
+    ``enc_bucket`` codes when it is not 0)."""
     units, mask = fields[0], fields[4]
     b = mask.shape[0]
     f4 = np.dtype(np.float32).str
     return (
-        ((units.shape[0],), units.dtype.str),
+        ((enc_bucket,), np.dtype(np.uint8).str) if enc_bucket
+        else ((units.shape[0],), units.dtype.str),
         ((b,), np.dtype(np.uint16).str) if narrow else ((b + 1,), np.dtype(np.int32).str),
         ((b, NUM_NUMBER_FEATURES), f4), ((b,), f4), ((b,), f4),
     )
@@ -123,25 +156,41 @@ def _native_fields(batches) -> list | None:
     return None if any(f is None for f in fields) else fields
 
 
-def try_assemble_flat(rb, narrow: bool) -> PackedBatch | None:
+def _run(batches, narrow: bool, codec):
+    """(fields, buffer, codec bucket, lease) of the C pass over
+    ``batches``, or None for the numpy path."""
+    lut = _codec_lut(codec, np.asarray(batches[0].units).dtype)
+    if isinstance(lut, tuple):
+        return None
+    fields = _native_fields(batches)
+    got = None if fields is None else _assemble(fields, narrow, lut)
+    return None if got is None else (fields, *got)
+
+
+def try_assemble_flat(rb, narrow: bool, codec: "str | None" = None) -> PackedBatch | None:
     """The flat ragged pack in one C pass (one segment holding the whole
     batch, fields back to back), or None for the numpy path."""
-    fields = _native_fields([rb])
-    got = None if fields is None else _assemble(fields, narrow)
+    got = _run([rb], narrow, codec)
     if got is None:
         return None
-    layout = ("RaggedUnitBatch", _field_metas(fields[0], narrow),
-              (rb.row_len, 1, "u16delta" if narrow else "i32"))
-    return PackedBatch(got[0], layout, got[1])
+    fields, buffer, enc_bucket, lease = got
+    n = fields[0][0].shape[0]
+    layout = ("RaggedUnitBatch", _field_metas(fields[0], narrow, enc_bucket),
+              (rb.row_len, 1, "u16delta" if narrow else "i32")
+              + ((("dict", (n,)),) if enc_bucket else ()))
+    return PackedBatch(buffer, layout, lease)
 
 
-def try_assemble_group(batches, narrow: bool) -> PackedBatch | None:
+def try_assemble_group(batches, narrow: bool, codec: "str | None" = None
+                       ) -> PackedBatch | None:
     """The group pack of K ragged batches (``pack_ragged_group``, which
     checked their signature) in one C pass, or None for the numpy path."""
-    fields = _native_fields(batches)
-    got = None if fields is None else _assemble(fields, narrow)
+    got = _run(batches, narrow, codec)
     if got is None:
         return None
-    layout = ("RaggedGroupSegments", _field_metas(fields[0], narrow),
-              (batches[0].row_len, 1, len(batches), "u16delta" if narrow else "i32"))
-    return PackedBatch(got[0], layout, got[1])
+    fields, buffer, enc_bucket, lease = got
+    n_sb = fields[0][0].shape[0]
+    layout = ("RaggedGroupSegments", _field_metas(fields[0], narrow, enc_bucket),
+              (batches[0].row_len, 1, len(batches), "u16delta" if narrow else "i32")
+              + ((("dict", n_sb),) if enc_bucket else ()))
+    return PackedBatch(buffer, layout, lease)

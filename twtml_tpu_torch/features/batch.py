@@ -28,9 +28,16 @@ the batch's own padded shape (a dry tenant's is all padding), which the
 superbatch wires then carry as the M-tenant wire. Every output is the JAX
 package's, byte for byte.
 
+The digram codec (``--wireCodec dict``, features/wirecodec.py) rides the
+packed forms: ``pack_batch`` and ``pack_ragged_group`` code a uint8 units
+buffer (each group segment on its own, in one shared bucket) and record
+``("dict", raw units)`` in the layout; ``unpack_batch`` decodes it, with
+``decode_np`` on the host and ``ops/ragged.units_from_codes`` on a tensor.
+uint16 units and a batch whose coded bucket is not smaller ship raw, with
+the raw layout. Bytes and layouts are the JAX package's.
+
 Plain classes of numpy arrays (no pytree registration); the learner moves
-them to its device. The shard-segment layout (ROADMAP A10) and the digram
-codec (A11) are not ported.
+them to its device. The shard-segment layout is not ported (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -191,6 +198,43 @@ class PackedBatch:
         self.lease = lease
 
 
+def wire_composition(batch) -> "dict[str, int]":
+    """A batch's wire bytes split {units, offsets, sideband} (the JAX
+    package's ``wire_composition``): ``units`` the text payload (code
+    units, or hashed token indices and values), ``offsets`` the row
+    boundaries (offsets, length deltas or lengths), ``sideband`` numeric,
+    label and mask. A PackedBatch reports its layout's fields (times its
+    segments), so its packed and unpacked views agree; a coded layout keeps
+    ``units`` at the RAW bytes and adds ``units_compressed``, the bytes the
+    copy carries."""
+    if isinstance(batch, PackedBatch):
+        tag = batch.layout[0]
+        names = ("units", "units" if tag == "FeatureBatch" else "offsets",
+                 "sideband", "sideband", "sideband")
+        segs = 1
+        if tag == "RaggedGroupSegments":
+            per_seg = sum(int(np.prod(shape, dtype=np.int64)) * np.dtype(dt).itemsize
+                          for shape, dt in batch.layout[1])
+            if per_seg:
+                segs = int(batch.buffer.shape[0]) // per_seg
+        out = {"units": 0, "offsets": 0, "sideband": 0}
+        for name, (shape, dt) in zip(names, batch.layout[1]):
+            out[name] += segs * int(np.prod(shape, dtype=np.int64)) * np.dtype(dt).itemsize
+        codec_tag = _layout_codec(batch.layout)
+        if codec_tag is not None:
+            out["units_compressed"] = out["units"]
+            out["units"] = (int(np.prod(codec_tag[1], dtype=np.int64))
+                            if tag == "RaggedUnitBatch" else segs * int(codec_tag[1]))
+        return out
+    groups = {
+        "units": ("units", "token_idx", "token_val"),
+        "offsets": ("offsets", "length"),
+        "sideband": ("numeric", "label", "mask"),
+    }
+    return {name: sum(int(getattr(getattr(batch, a, None), "nbytes", 0) or 0) for a in attrs)
+            for name, attrs in groups.items()}
+
+
 def wire_nbytes(batch) -> int:
     """Bytes this batch puts on the host-to-device wire."""
     if isinstance(batch, PackedBatch):
@@ -241,6 +285,69 @@ def _deltas_to_offsets_np(deltas) -> np.ndarray:
     return out.astype(np.int32)
 
 
+# ---- the digram-coded units wire (--wireCodec dict) -------------------------
+# Only the packed forms carry it: every host consumer between featurize and
+# pack (tenant routing, stacking) indexes raw units by offset. Two gates,
+# both lossless: uint16 units ship raw (a metadata gate, like the int32
+# offsets), and so does a batch whose coded bucket is not strictly smaller
+# than its raw buffer (the layout says so; apps/common.py counts it in
+# ``wire.codec_fallbacks``).
+
+def _encode_units_segments(units: np.ndarray, num_segments: int, codec: "str | None"):
+    """Per-segment digram codes [num_segments, shared bucket] of a
+    segmented raw units buffer (a group's K segments, each decoded on its
+    own; the flat wire is one segment), or None for the raw wire (codec
+    off, uint16 units, or an incompressible batch). The bucket is the
+    largest segment's, rounded, so every segment has one shape; the
+    fallback is all or nothing; an unknown codec raises."""
+    if codec is None or codec in ("", "off"):
+        return None
+    if codec != "dict":
+        raise ValueError(f"unknown wire codec {codec!r} (know: dict)")
+    u = np.asarray(units)
+    if u.dtype != np.uint8:
+        return None
+    from .wirecodec import encode, encoded_bucket
+
+    rows = u.reshape(num_segments, -1)
+    enc = [encode(r) for r in rows]
+    bucket = encoded_bucket(max(e.shape[0] for e in enc))
+    if bucket >= rows.shape[1]:
+        return None
+    out = np.zeros((num_segments, bucket), np.uint8)
+    for i, e in enumerate(enc):
+        out[i, : e.shape[0]] = e
+    return out
+
+
+def _decode_units(arr, out_len: int):
+    """Decode a coded units field (codes along the LAST axis, [..., M] ->
+    [..., out_len]): ``decode_np`` on a numpy array, the device decode
+    (``ops/ragged.units_from_codes``) on a tensor; either gives the raw
+    wire's bytes."""
+    if isinstance(arr, np.ndarray):
+        from .wirecodec import decode_np
+
+        return decode_np(arr, out_len)
+    from ..ops.ragged import units_from_codes
+
+    return units_from_codes(arr, out_len)
+
+
+def _layout_codec(layout: tuple) -> "tuple | None":
+    """The codec entry ``("dict", raw units)`` of a packed layout, or None
+    for the raw wire: ``extra[3]`` of a ``RaggedUnitBatch`` layout (the raw
+    shape, a tuple), ``extra[4]`` of a ``RaggedGroupSegments`` one (the raw
+    units a segment, an int). One reader, so the entry cannot drift."""
+    extra = layout[2] if len(layout) > 2 else None
+    if not extra:
+        return None
+    at = {"RaggedUnitBatch": 3, "RaggedGroupSegments": 4}.get(layout[0])
+    if at is None or len(extra) <= at:
+        return None
+    return extra[at]
+
+
 def ragged_wire_arrays(
     units: np.ndarray, offsets: np.ndarray, n: int, b: int, narrow: bool
 ) -> tuple[np.ndarray, np.ndarray]:
@@ -271,12 +378,15 @@ def _finish_pack(chunks, layout: tuple) -> PackedBatch:
 def pack_batch(
     batch: "FeatureBatch | UnitBatch | RaggedUnitBatch",
     narrow_offsets: "bool | None" = None,
+    codec: "str | None" = None,
 ) -> PackedBatch:
     """Flatten a host batch into one uint8 wire buffer. A RaggedUnitBatch
     records ``row_len`` in the layout's third element, and its offsets ship
     as uint16 length deltas whenever ``offsets_narrow(row_len)`` allows
-    (``narrow_offsets`` overrides). The native assembler fills the buffer
-    when it can (features/assemble.py), byte for byte as this numpy path."""
+    (``narrow_offsets`` overrides); ``codec="dict"`` digram-codes its uint8
+    units (one stream) and appends ``("dict", raw shape)`` to that element.
+    The native assembler fills the buffer when it can
+    (features/assemble.py), byte for byte as this numpy path."""
     if isinstance(batch, RaggedUnitBatch):
         narrow = (
             offsets_narrow(batch.row_len) if narrow_offsets is None
@@ -284,15 +394,18 @@ def pack_batch(
         )
         from .assemble import try_assemble_flat
 
-        fast = try_assemble_flat(batch, narrow)
+        fast = try_assemble_flat(batch, narrow, codec)
         if fast is not None:
             return fast
+        units = np.asarray(batch.units)
+        codes = _encode_units_segments(units, 1, codec)
         arrays: tuple = (
-            batch.units,
+            units if codes is None else codes.reshape(-1),
             _offsets_to_deltas(batch.offsets) if narrow else batch.offsets,
             batch.numeric, batch.label, batch.mask,
         )
-        extra: tuple | None = (batch.row_len, 1, "u16delta" if narrow else "i32")
+        extra: tuple | None = (batch.row_len, 1, "u16delta" if narrow else "i32") + (
+            () if codes is None else (("dict", tuple(units.shape)),))
     else:
         arrays = tuple(batch)
         extra = None
@@ -342,15 +455,18 @@ def stack_batches(batches):
     return type(first)(*(np.stack(arrs) for arrs in zip(*batches)))
 
 
-def pack_ragged_group(batches, narrow_offsets: "bool | None" = None) -> PackedBatch:
+def pack_ragged_group(batches, narrow_offsets: "bool | None" = None,
+                      codec: "str | None" = None) -> PackedBatch:
     """K ragged batches of one wire signature -> ONE uint8 buffer (the
     group wire): segment k holds batch k's units, offsets (uint16 length
     deltas under the static ``row_len`` gate, int32 beyond it), numeric,
     label and mask back to back, segments in batch order. The layout is
     ``("RaggedGroupSegments", per-segment field metas, (row_len, 1, K,
-    offsets form))``, the JAX package's single-device layout. The native
-    assembler fills the buffer when it can (features/assemble.py), byte for
-    byte as the numpy path here."""
+    offsets form))``, the JAX package's single-device layout;
+    ``codec="dict"`` codes each segment's uint8 units into one shared
+    bucket (``_encode_units_segments``) and appends ``("dict", raw units a
+    segment)``. The native assembler fills the buffer when it can
+    (features/assemble.py), byte for byte as the numpy path here."""
     if not batches:
         raise ValueError("cannot pack an empty group")
     first = batches[0]
@@ -367,7 +483,7 @@ def pack_ragged_group(batches, narrow_offsets: "bool | None" = None) -> PackedBa
     narrow = offsets_narrow(first.row_len) if narrow_offsets is None else narrow_offsets
     from .assemble import try_assemble_group
 
-    fast = try_assemble_group(batches, narrow)
+    fast = try_assemble_group(batches, narrow, codec)
     if fast is not None:
         return fast
     fields = [
@@ -378,10 +494,15 @@ def pack_ragged_group(batches, narrow_offsets: "bool | None" = None) -> PackedBa
             lambda rb: rb.numeric, lambda rb: rb.label, lambda rb: rb.mask,
         )
     ]
+    n_sb = fields[0].shape[1]
+    codes = _encode_units_segments(fields[0], k, codec)
+    if codes is not None:
+        fields[0] = codes
     layout = (
         "RaggedGroupSegments",
         tuple((f.shape[1:], f.dtype.str) for f in fields),
-        (first.row_len, 1, k, "u16delta" if narrow else "i32"),
+        (first.row_len, 1, k, "u16delta" if narrow else "i32")
+        + (() if codes is None else (("dict", n_sb),)),
     )
     from .arena import lease_wire
 
@@ -398,9 +519,10 @@ def _unpack_ragged_group(buffer, layout: tuple) -> RaggedUnitBatch:
     segments (one strided copy a field) and reinterpreted."""
     fields_meta = layout[1]
     row_len, num_shards, k, offs_mode = layout[2][:4]
-    if num_shards != 1 or len(layout[2]) > 4:
-        raise NotImplementedError("shard-aligned and digram-coded group layouts are "
-                                  "not ported (ROADMAP A10, A11)")
+    if num_shards != 1:
+        raise NotImplementedError("the shard-aligned group layout is not ported "
+                                  "(ROADMAP A10)")
+    codec_tag = _layout_codec(layout)
     per_seg = sum(int(np.prod(shape, dtype=np.int64)) * np.dtype(dt).itemsize
                   for shape, dt in fields_meta)
     if buffer.shape[0] != k * per_seg:
@@ -418,6 +540,8 @@ def _unpack_ragged_group(buffer, layout: tuple) -> RaggedUnitBatch:
             fields.append(np.ascontiguousarray(chunk).view(dt).reshape((k,) + tuple(shape)))
         else:
             fields.append(_tensor_view(chunk.contiguous(), dt).reshape((k,) + tuple(shape)))
+    if codec_tag is not None:
+        fields[0] = _decode_units(fields[0], int(codec_tag[1]))
     if offs_mode == "u16delta":
         if isinstance(fields[1], np.ndarray):
             fields[1] = _deltas_to_offsets_np(fields[1].reshape(k, -1))
@@ -432,7 +556,7 @@ def unpack_batch(buffer, layout: tuple):
     """Rebuild the batch from a packed buffer: a numpy uint8 array gives
     numpy views; a torch uint8 tensor (on any device) gives tensors whose
     bytes are the same. The flat layouts and the group layout (a stacked
-    ragged batch)."""
+    ragged batch); a coded units field decodes to the raw wire's bytes."""
     if layout[0] == "RaggedGroupSegments":
         return _unpack_ragged_group(buffer, layout)
     cls = {
@@ -458,11 +582,14 @@ def unpack_batch(buffer, layout: tuple):
     if cls is not RaggedUnitBatch:
         return cls(*fields)
     row_len, num_shards, offsets_form = layout[2][:3]
-    if num_shards != 1 or len(layout[2]) > 3:
+    if num_shards != 1:
         raise NotImplementedError(
-            "shard-aligned and digram-coded ragged layouts are not ported "
-            "(ROADMAP A10, A11)"
-        )
+            "the shard-aligned ragged layout is not ported (ROADMAP A10)")
+    codec_tag = _layout_codec(layout)
+    if codec_tag is not None:
+        raw_shape = tuple(codec_tag[1])
+        fields[0] = _decode_units(fields[0].reshape(-1),
+                                  int(np.prod(raw_shape, dtype=np.int64))).reshape(raw_shape)
     if offsets_form == "u16delta":
         if isinstance(fields[1], np.ndarray):
             fields[1] = _deltas_to_offsets_np(fields[1])

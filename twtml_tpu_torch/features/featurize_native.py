@@ -29,8 +29,10 @@ from .arena import lease_wire
 from .batch import NUM_NUMBER_FEATURES, RAGGED_UNIT_MULTIPLE
 
 # the column order the C pass reads (followers, favourites, friends,
-# created_ms, label) in the Status traversal's float64 [n, 5] columns
+# created_ms, label): in the Status traversal's float64 [n, 5] columns, and
+# in a parsed block's int64 [n, 5] columns (features/blocks.py COL_*)
 _OBJECT_COL_ORDER = np.arange(5, dtype=np.int64)
+_BLOCK_COL_ORDER = np.array([1, 2, 3, 4, 0], np.int64)
 
 _MODES = ("auto", "on", "off")
 _mode = "auto"
@@ -90,9 +92,10 @@ def _lease_views(b: int, n_bucket: int, unit_dtype):
 def try_fill(units, offsets, cols, col_order, n: int, b: int, narrow: bool, now_ms: int):
     """The fused fill: (flat units, padded offsets, numeric, label, mask,
     max row length, lease), or None for the numpy path. ``cols`` is float64
-    [n, 5] in ``col_order`` (``object_col_order()``: the Status
-    traversal's); the C pass applies the reference scaling bit for bit
-    (float64 multiply, f32 cast on store)."""
+    [n, 5] in ``object_col_order()`` (the Status traversal's) or int64
+    [n, 5] in ``block_col_order()`` (a parsed block's columns); the C pass
+    applies the reference scaling bit for bit (float64 multiply, f32 cast
+    on store)."""
     if _mode == "off":
         return None
     if not native.featurize_available():
@@ -104,9 +107,11 @@ def try_fill(units, offsets, cols, col_order, n: int, b: int, narrow: bool, now_
     if (
         offsets.dtype != np.int64
         or units.dtype not in (np.uint8, np.uint16)
-        or (n and cols.dtype != np.float64)
+        or (n and cols.dtype not in (np.float64, np.int64))
     ):
         return None
+    cols_f64 = cols.ctypes.data if n and cols.dtype == np.float64 else None
+    cols_i64 = cols.ctypes.data if n and cols.dtype == np.int64 else None
     total = int(offsets[n]) if n else 0
     n_bucket = max(
         RAGGED_UNIT_MULTIPLE,
@@ -117,7 +122,7 @@ def try_fill(units, offsets, cols, col_order, n: int, b: int, narrow: bool, now_
     )
     max_len = native.featurize_wire_raw(
         units.ctypes.data, int(units.dtype.itemsize), offsets.ctypes.data,
-        cols.ctypes.data if n else None, None, col_order.ctypes.data,
+        cols_f64, cols_i64, col_order.ctypes.data,
         n, b, n_bucket, int(now_ms), 1 if narrow else 0, *ptrs,
     )
     if max_len is None:
@@ -136,3 +141,7 @@ def attach_lease(batch, lease) -> None:
 
 def object_col_order() -> np.ndarray:
     return _OBJECT_COL_ORDER
+
+
+def block_col_order() -> np.ndarray:
+    return _BLOCK_COL_ORDER

@@ -11,12 +11,20 @@ Semantics kept from the JAX package:
 - label: the original tweet's retweetCount, unless the featurizer's
   ``label_fn`` (one status) or ``batch_label_fn`` (a batch, the hot path;
   it wins) gives it: the logistic app's sentiment labels
-  (features/sentiment.py). Every featurize path honours both.
+  (features/sentiment.py). Every object featurize path honours both; the
+  block path (no Status objects) takes ``unit_label_fn`` over the
+  originals' raw units instead;
+- ``normalize_accents`` (off, as the reference computes and drops it)
+  strips combining marks after the lowercase on every path.
 
-Three batch assemblers, byte-equal to the JAX package's of the same name: the
+Four batch assemblers, byte-equal to the JAX package's of the same name: the
 units wires ``featurize_batch_units`` (padded, numpy) and
 ``featurize_batch_ragged`` (ragged, filled by one native C pass when it
-loads, else by numpy, and optionally packed into one buffer), and the host
+loads, else by numpy, and optionally packed into one buffer);
+``featurize_parsed_block`` (a columnar block of ``--ingest block``,
+features/blocks.py, to either units wire with no per-tweet Python work in
+the common case: one native fill for an all-ASCII block on the ragged
+wire); and the host
 hashing of ``--hashOn host``, ``featurize_batch`` (a padded ``FeatureBatch``
 of hashed bigram counts from ``native/fasthash.cpp``; the Python per-tweet
 hasher of ``features/hashing.py`` is its fallback, byte-equal to the JAX
@@ -33,6 +41,7 @@ import itertools
 import operator
 import os
 import time
+import unicodedata
 from dataclasses import dataclass, field
 from email.utils import parsedate_to_datetime
 from typing import Any, Callable
@@ -135,6 +144,13 @@ def _pad_ragged_units(
     return buf, length
 
 
+def _strip_accents(text: str) -> str:
+    """NFD-decompose and drop combining marks (the reference computes this
+    and then ignores it, MllibHelper.scala:49-54; opt-in here)."""
+    return "".join(ch for ch in unicodedata.normalize("NFD", text)
+                   if unicodedata.category(ch) != "Mn")
+
+
 @functools.lru_cache(maxsize=16)
 def _accepts_encoded(fn) -> bool:
     """Whether a batch labeler takes the featurizer's encoded texts
@@ -192,10 +208,14 @@ class Featurizer:
     num_text_features: int = 1000  # MllibHelper.scala:17
     num_retweet_begin: int = 100  # MllibHelper.scala:15
     num_retweet_end: int = 1000  # MllibHelper.scala:16
+    normalize_accents: bool = False  # the reference computes and drops it
     now_ms: int | None = None  # fixed clock for deterministic replay; None=wall
     label_fn: "Callable[[Status], float] | None" = None  # default: retweetCount
     # batched form of label_fn (same labels, one call a batch): the hot path
     batch_label_fn: "Callable[[list[Status]], np.ndarray] | None" = None
+    # labels of a parsed block, from its ragged raw units and offsets (the
+    # block path has no Status objects; uint8 or uint16 units)
+    unit_label_fn: "Callable[[np.ndarray, np.ndarray], np.ndarray] | None" = None
     num_number_features: int = field(default=NUM_NUMBER_FEATURES, init=False)
     last_substages: list = field(
         default_factory=list, init=False, repr=False, compare=False
@@ -245,6 +265,8 @@ class Featurizer:
     def featurize_text(self, status: Status) -> dict[int, float]:
         """The original's lowercased text as hashed bigram counts."""
         text = status.retweeted_status.text.lower()
+        if self.normalize_accents:
+            text = _strip_accents(text)
         return hashing_tf_counts(char_bigrams(text), self.num_text_features)
 
     def featurize(self, status: Status) -> tuple[dict[int, float], np.ndarray, float]:
@@ -253,6 +275,12 @@ class Featurizer:
         label = (float(status.retweeted_status.retweet_count) if self.label_fn is None
                  else float(self.label_fn(status)))
         return (self.featurize_text(status), self.featurize_numbers(status), label)
+
+    def _label_encoded(self, units, offsets):
+        """The encoded texts a batch labeler may reuse: None under
+        ``normalize_accents``, whose units are no longer the plain
+        lowercased texts (labels read the originals)."""
+        return None if self.normalize_accents else (units, offsets)
 
     def _apply_label_fns(self, label: np.ndarray, keep: list, encoded=None) -> bool:
         """Write a configured labeler's labels over ``label[:n]``:
@@ -307,8 +335,8 @@ class Featurizer:
                                 token_bucket: int, t0: float) -> FeatureBatch | None:
         from . import native
 
-        if not native.hash_available():
-            return None
+        if self.normalize_accents or not native.hash_available():
+            return None  # accent stripping changes the hashed units
         n = len(keep)
         originals = [s.retweeted_status for s in keep]
         texts = [o.text.lower() for o in originals]
@@ -373,6 +401,10 @@ class Featurizer:
         all_ascii). Texts with non-ASCII characters take Python's Unicode
         ``lower()``; ASCII texts are case-folded during the pad copy."""
         keep, originals, texts, cols = self._gather_rows(statuses, pre_filtered)
+        if self.normalize_accents:
+            texts = [_strip_accents(t.lower()) for t in texts]
+            units, offsets = encode_texts(texts)
+            return keep, originals, cols, units, offsets, all(t.isascii() for t in texts)
         joined = "".join(texts)
         if not joined.isascii():
             texts = [t if t.isascii() else t.lower() for t in texts]
@@ -427,7 +459,7 @@ class Featurizer:
         )
         t0 = self._sub("wire_build", t0)
         numeric, label, mask = self._numeric_label_mask(
-            originals, b, cols=cols, keep=keep, encoded=(units, offsets))
+            originals, b, cols=cols, keep=keep, encoded=self._label_encoded(units, offsets))
         self._sub("numeric", t0)
         return UnitBatch(buf, length, numeric, label, mask)
 
@@ -473,7 +505,7 @@ class Featurizer:
             )
             featurize_native.attach_lease(batch, lease)
             t0 = self._sub("wire_build", t0)
-            if n and self._apply_label_fns(label, keep, (units, offsets)):
+            if n and self._apply_label_fns(label, keep, self._label_encoded(units, offsets)):
                 t0 = self._sub("numeric", t0)
         else:
             lengths = np.diff(offsets)
@@ -481,7 +513,7 @@ class Featurizer:
             flat, offs = ragged_wire_arrays(units, offsets, n, b, narrow=all_ascii)
             t0 = self._sub("wire_build", t0)
             numeric, label, mask = self._numeric_label_mask(
-                originals, b, cols=cols, keep=keep, encoded=(units, offsets))
+                originals, b, cols=cols, keep=keep, encoded=self._label_encoded(units, offsets))
             t0 = self._sub("numeric", t0)
             batch = RaggedUnitBatch(flat, offs, numeric, label, mask, row_len=lu)
         if not pack:
@@ -490,4 +522,120 @@ class Featurizer:
         if batch.lease is not None:
             batch.lease.retire()
         self._sub("pack", t0)
+        return packed
+
+    def featurize_parsed_block(self, block, row_bucket: int = 0, unit_bucket: int = 0,
+                               ragged: bool = False, pack: bool = False):
+        """A columnar block (features/blocks.py, rows already filtered by
+        the block parser) to a ``UnitBatch``, or with ``ragged`` a
+        ``RaggedUnitBatch`` (``pack`` packs it), byte-equal to the JAX
+        package's. An all-ASCII block on the ragged wire without
+        ``normalize_accents`` takes ONE native C pass from the parser's
+        columns to the wire arrays (int64 columns scaled as float64, as the
+        numpy path's ``astype``), into one arena lease. Otherwise only the
+        rows with non-ASCII units (every row under ``normalize_accents``)
+        take a Python ``lower()`` round trip, written in place unless a
+        row's length changes. Labels come from ``unit_label_fn`` over the
+        ORIGINAL raw units, or the retweet count; a Status labeler
+        (``label_fn``, ``batch_label_fn``) needs the object path and is
+        refused. Sub-stages: ``encode``, ``wire_build``, ``numeric``."""
+        from .blocks import (
+            COL_CREATED_MS, COL_FAVOURITES, COL_FOLLOWERS, COL_FRIENDS, COL_LABEL,
+        )
+
+        if self.unit_label_fn is None and (
+                self.label_fn is not None or self.batch_label_fn is not None):
+            raise ValueError(
+                "featurize_parsed_block labels come from unit_label_fn "
+                "(Status-based label_fn/batch_label_fn need the object "
+                "ingest path)"
+            )
+        self.last_substages = []
+        t0 = time.perf_counter()
+        n = block.rows
+        if ragged and not self.normalize_accents and (
+                n == 0 or not bool((np.asarray(block.ascii) == 0).any())):
+            t0 = self._sub("encode", t0)  # the ascii probe is the text prep
+            b = pad_row_count(n, row_bucket)
+            fast = featurize_native.try_fill(
+                block.units, block.offsets, block.numeric,
+                featurize_native.block_col_order(), n, b, narrow=True, now_ms=self._now(),
+            )
+            if fast is not None:
+                flat, offs, numeric, label, mask, max_len, lease = fast
+                t0 = self._sub("wire_build", t0)
+                if n and self.unit_label_fn is not None:
+                    label[:n] = self.unit_label_fn(block.units, block.offsets)
+                self._sub("numeric", t0)
+                batch = RaggedUnitBatch(flat, offs, numeric, label, mask,
+                                        row_len=self._row_len_bucket(max_len, unit_bucket))
+                featurize_native.attach_lease(batch, lease)
+                return self._pack_block(batch) if pack else batch
+        units, offsets = block.units, block.offsets.copy()
+        redo = (np.arange(n) if self.normalize_accents
+                else np.nonzero(np.asarray(block.ascii) == 0)[0])
+        if n and redo.size and units.dtype == np.uint8:
+            # a narrow block that still needs the Unicode round trip (only
+            # under normalize_accents): widen once for the UTF-16 decode
+            units = units.astype(np.uint16)
+        if n and redo.size:
+            new_units = units.copy()
+            new_lens = np.diff(block.offsets)
+            resized: dict[int, np.ndarray] = {}
+            for i in redo:
+                raw = units[block.offsets[i]: block.offsets[i + 1]]
+                text = raw.tobytes().decode("utf-16-le", "surrogatepass").lower()
+                if self.normalize_accents:
+                    text = _strip_accents(text)
+                enc = np.frombuffer(text.encode("utf-16-le", "surrogatepass"), dtype=np.uint16)
+                if enc.size == raw.size:
+                    new_units[block.offsets[i]: block.offsets[i + 1]] = enc
+                else:
+                    resized[int(i)] = enc
+                    new_lens[i] = enc.size
+            if resized:
+                pieces = [resized.get(i, new_units[block.offsets[i]: block.offsets[i + 1]])
+                          for i in range(n)]
+                units = np.concatenate(pieces) if pieces else np.zeros(1, np.uint16)
+                np.cumsum(new_lens, out=offsets[1:])
+            else:
+                units = new_units
+        t0 = self._sub("encode", t0)
+        lengths = np.diff(offsets).astype(np.int32)
+        b = pad_row_count(n, row_bucket)
+        lu = self._row_len_bucket(int(lengths.max()) if n else 0, unit_bucket)
+        # the narrow wire iff every row is parser-ASCII-flagged (metadata,
+        # never sniffed); normalize_accents redoes every row, so stays wide
+        narrow = n == 0 or redo.size == 0
+        numeric = np.zeros((b, NUM_NUMBER_FEATURES), dtype=np.float32)
+        label = np.zeros((b,), dtype=np.float32)
+        mask = np.zeros((b,), dtype=np.float32)
+        if n:
+            cols64 = block.numeric.astype(np.float64)
+            numeric[:n, 0] = cols64[:, COL_FOLLOWERS] * COUNT_SCALE
+            numeric[:n, 1] = cols64[:, COL_FAVOURITES] * COUNT_SCALE
+            numeric[:n, 2] = cols64[:, COL_FRIENDS] * COUNT_SCALE
+            numeric[:n, 3] = (self._now() - cols64[:, COL_CREATED_MS]) * AGE_SCALE
+            if self.unit_label_fn is not None:
+                # the ORIGINAL raw units: normalize_accents never reaches labels
+                label[:n] = self.unit_label_fn(block.units, block.offsets)
+            else:
+                label[:n] = cols64[:, COL_LABEL]
+            mask[:n] = 1.0
+        t0 = self._sub("numeric", t0)
+        if ragged:
+            flat, offs = ragged_wire_arrays(units, offsets, n, b, narrow=narrow)
+            batch = RaggedUnitBatch(flat, offs, numeric, label, mask, row_len=lu)
+            self._sub("wire_build", t0)
+            return pack_batch(batch) if pack else batch
+        buf, length = _pad_ragged_units(units, offsets, lengths, n, b, lu, narrow=narrow)
+        self._sub("wire_build", t0)
+        return UnitBatch(buf, length, numeric, label, mask)
+
+    @staticmethod
+    def _pack_block(batch):
+        """``pack_batch`` of a natively filled batch; its fill lease goes
+        back to the arena, since the packed buffer holds copies."""
+        packed = pack_batch(batch)
+        batch.lease.retire()
         return packed

@@ -8,7 +8,9 @@ batch in one C scan (``native/fasthash.cpp`` ``lexicon_score_batch``, bound
 in features/native.py) with the lexicons packed as UTF-16 units, offsets and
 Java hash codes; rows with non-ASCII units, and every row when the native
 library is unavailable, take the per-row Python labeler, which the C scan
-equals on ASCII rows.
+equals on ASCII rows. ``sentiment_labels_from_units`` labels a parsed
+block (``--ingest block``, no Status objects) from its ragged raw units by
+the same scan and the same per-row fallback.
 """
 
 from __future__ import annotations
@@ -82,4 +84,29 @@ def sentiment_labels(statuses: list, encoded=None) -> np.ndarray:
     labels = (score >= 0).astype(np.float32)
     for i in np.nonzero(ok == 0)[0]:
         labels[i] = sentiment_label(statuses[i])
+    return labels
+
+
+def sentiment_labels_from_units(units, offsets) -> np.ndarray:
+    """The labels of ragged UTF-16 units (a parsed block's originals' raw
+    texts, uint8 or uint16 units, int64 offsets [n+1]): the C scan for
+    ASCII rows, the Python scorer for the others (and for every row when
+    the library is unavailable); pre-lowered units score the same, since
+    ``sentiment_score`` lowercases."""
+    from . import native
+
+    n = offsets.size - 1
+    if n <= 0:
+        return np.zeros((0,), np.float32)
+    if units.dtype == np.uint8:
+        units = units.astype(np.uint16)  # the C scan reads uint16 units
+    out = native.lexicon_scores((units, offsets), n, _POS_PACKED, _NEG_PACKED)
+    if out is None:
+        score, ok = np.zeros((n,), np.int32), np.zeros((n,), np.uint8)
+    else:
+        score, ok = out
+    labels = (score >= 0).astype(np.float32)
+    for i in np.nonzero(ok == 0)[0]:
+        text = units[offsets[i]: offsets[i + 1]].tobytes().decode("utf-16-le", "surrogatepass")
+        labels[i] = 1.0 if sentiment_score(text) >= 0 else 0.0
     return labels

@@ -160,13 +160,14 @@ class TenantStackModel:
         if mesh is not None:
             raise _refuse("a mesh shards the tenant plane over devices and hosts (the "
                           "multi-host runtime)", "A10")
-        if wire_codec not in ("", "off"):
-            raise _refuse(f"wire_codec={wire_codec!r} needs the digram wire codec", "A11")
         self.num_tenants = num_tenants
         self.num_text_features = num_text_features
         self.dtype = dtype
         self.tenant_key = tenant_key
         self.wire_pack = wire_pack
+        # --wireCodec dict: the group pack digram-codes each tenant segment
+        # ("" or "off": raw); the stacked wire ships raw by design
+        self.wire_codec = wire_codec
         self.device = resolve_device(device)
 
         def per_tenant(values, default, name):
@@ -220,7 +221,7 @@ class TenantStackModel:
             tenant_key=conf.tenantKey,
             wire_pack=("group" if conf.effective_wire_pack() == "group"
                        and conf.effective_wire() == "ragged" else "stacked"),
-            wire_codec="" if conf.wireCodec == "auto" else conf.wireCodec,
+            wire_codec=conf.effective_wire_codec(),
             mesh=mesh,
             quality=conf.modelWatch == "on",
             device=conf.backend,
@@ -256,7 +257,7 @@ class TenantStackModel:
         """M same-signature batches (routed by the caller, or one batch
         mirrored M times) as the M-tenant wire."""
         if self.wire_pack == "group" and isinstance(parts[0], RaggedUnitBatch):
-            return pack_ragged_group(parts)
+            return pack_ragged_group(parts, codec=self.wire_codec or None)
         return stack_batches(parts)
 
     def pack_for_wire(self, batch):

@@ -26,8 +26,15 @@ seam); ``--chaos source.nan`` poisons a featurized batch; a recovery puts
 journaled rows back at the queue FRONT (``StreamingContext._putback``); and
 ``request_abort`` dumps the flight recorder's bundle. The drain and the
 featurize are the ``source_read`` and ``featurize`` stages of the stage
-clock and of ``--trace``. The lockstep (multi-host) scheduler, elastic
-membership and block ingest are not ported (ROADMAP A10, A12).
+clock and of ``--trace``.
+
+Block ingest (``--ingest block``): the queue's items are ``ParsedBlock``s
+(features/blocks.py), each counting its rows in the row-bounded queue and
+in ``putback``; a drain capped at the row bucket cuts a block at the cap
+(``slice_block``) and leaves its tail at the front, so back-to-back block
+batches are bucket-sized as object batches are; a batch of blocks is merged
+and featurized by ``Featurizer.featurize_parsed_block``. The lockstep
+(multi-host) scheduler and elastic membership are not ported (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from typing import Callable
 
 from ..config import SHED_POLICIES
 from ..features.batch import FeatureBatch, RaggedUnitBatch, pad_row_count
+from ..features.blocks import ParsedBlock, merge_blocks, slice_block
 from ..features.featurizer import Featurizer, Status
 from ..telemetry import blackbox as _blackbox
 from ..telemetry import lineage as _lineage
@@ -265,7 +273,8 @@ class FeatureStream(RawStream):
         )
 
     def _featurize(self, statuses: list):
-        """The ONE featurize dispatch of this stream's configuration,
+        """The ONE featurize dispatch of this stream's configuration (a
+        batch of ParsedBlocks takes the block featurizer),
         shared by the per-batch path and ``featurize_empty``, timed into
         ``last_featurize``, the ``featurize.<name>_ms`` gauges and the
         stage clock (a span, and one a sub-stage, under ``--trace``). A real
@@ -277,7 +286,13 @@ class FeatureStream(RawStream):
         fills = native.COUNTERS["fills_native"]
         t0 = time.perf_counter()
         with tr.span("featurize", items=len(statuses)) as sp, annotate("twtml.featurize"):
-            if not self.device_hash:
+            if statuses and isinstance(statuses[0], ParsedBlock):
+                # block ingest: pre-filtered columnar rows, no Status objects
+                batch = self.featurizer.featurize_parsed_block(
+                    merge_blocks(statuses), row_bucket=self.row_bucket,
+                    unit_bucket=self.token_bucket, ragged=self.ragged,
+                )
+            elif not self.device_hash:
                 # host hashing: bigram counts hashed here, padded tokens
                 # on the wire
                 batch = self.featurizer.featurize_batch(
@@ -345,6 +360,12 @@ class FeatureStream(RawStream):
         return batch
 
 
+def _split_block(block, cut: int):
+    """(first ``cut`` rows, the rest) of a ParsedBlock: a capped drain's
+    slicer."""
+    return slice_block(block, 0, cut), slice_block(block, cut, block.rows)
+
+
 class StreamingContext:
     def __init__(self, batch_interval: float = 5.0, max_queue_rows: int = 0,
                  shed_policy: str = "block", thread_init: Callable | None = None):
@@ -391,12 +412,13 @@ class StreamingContext:
         return self._stream
 
     def _drain(self, limit: int = 0) -> list[Status]:
-        """Drain queued items, at most ``limit`` rows (0 = all), and set the
-        ``ingest.queue_rows`` gauge (once a drain, never a tweet); the
-        ``source_read`` stage."""
+        """Drain queued items, at most ``limit`` rows (0 = all; a block
+        that would overshoot is cut at the cap, its tail left at the
+        front), and set the ``ingest.queue_rows`` gauge (once a drain,
+        never a tweet); the ``source_read`` stage."""
         t0 = time.perf_counter()
         with _trace.get().span("source_read") as sp:
-            out = self._queue.drain_rows(limit)
+            out = self._queue.drain_rows(limit, slicer=_split_block)
             sp.add(items=len(out))
         _sideband.record_stage("source_read", time.perf_counter() - t0)
         _metrics.get_registry().gauge("ingest.queue_rows").set(self._queue.rows_queued)

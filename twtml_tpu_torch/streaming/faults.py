@@ -2,8 +2,8 @@
 ``twtml_tpu/streaming/faults.py``).
 
 ``FaultInjectingSource`` (``--faultEvery``) wraps a Source and raises a
-simulated receiver crash every ``crash_every`` tweets, exercising the
-source supervision.
+simulated receiver crash every ``crash_every`` tweets (a block source's
+``ParsedBlock`` counts its rows), exercising the source supervision.
 
 ``ChaosInjector`` (``--chaos SPEC``) injects seeded faults at the runtime's
 injection points:
@@ -16,8 +16,9 @@ injection points:
 - ``source.nan``: poison every valid label of the current featurized batch
   with NaN, which drives the weights non-finite in one step (the divergence
   sentinel's case),
-- ``source.garbage``: parsed as in the JAX package; it corrupts block-source
-  bytes, and the port has no block source (ROADMAP A12), so it never fires.
+- ``source.garbage``: truncate and garble a block source's raw bytes before
+  the block parser (``--ingest block``; streaming/sources.py), whose
+  skip-and-count contract absorbs them.
 
 Grammar, comma-separated clauses, the JAX package's:
 
@@ -254,6 +255,27 @@ def burst_extra() -> int:
     return int(v) if v else 0
 
 
+def maybe_corrupt_block(data: bytes) -> bytes:
+    """``source.garbage`` injection point (a block source's bytes, before
+    the parser): cut the buffer to two thirds, mid-line, and garble 32
+    bytes, a torn wire chunk; the cut tail rides the carry into the next
+    chunk as real damage would. A buffer under 256 bytes passes untouched
+    and counts no call: the parser's tail loops re-parse their own
+    shrinking carry, which must not be corrupted again and again."""
+    if _CHAOS is None or len(data) < 256:
+        return data
+    if _CHAOS.should("source.garbage") is None:
+        return data
+    cut = max(1, len(data) * 2 // 3)
+    corrupted = bytearray(data[:cut])
+    lo = max(0, cut // 2 - 16)
+    for i in range(lo, min(len(corrupted), lo + 32)):
+        corrupted[i] ^= 0xFF
+    log.warning("chaos: corrupted a %d-byte block buffer (truncated to %d, "
+                "garbled 32 bytes)", len(data), cut)
+    return bytes(corrupted)
+
+
 def maybe_poison_labels(batch):
     """``source.nan`` injection point (the featurize stage): ``batch`` with
     every VALID row's label set to NaN (padding rows keep their zeros). A
@@ -281,8 +303,9 @@ def maybe_poison_labels(batch):
 
 
 class FaultInjectingSource(Source):
-    """``--faultEvery``: a source that crashes every ``crash_every`` tweets
-    (``max_crashes`` caps it, so a finite replay still ends; 0 = no cap)."""
+    """``--faultEvery``: a source that crashes every ``crash_every`` tweets,
+    a ParsedBlock counting its rows (``max_crashes`` caps it, so a finite
+    replay still ends; 0 = no cap)."""
 
     name = "fault-injecting"
 
@@ -302,9 +325,10 @@ class FaultInjectingSource(Source):
 
     def produce(self) -> Iterator:
         for item in self.inner.produce():
-            # count, then crash before the yield: the tweet that crosses the
-            # threshold is lost in flight, like a dropped connection
-            self._emitted += 1
+            # count TWEETS (a block counts its rows), then crash before the
+            # yield: the item that crosses the threshold is lost in flight,
+            # like a dropped connection
+            self._emitted += getattr(item, "rows", 1)
             if self._emitted >= self._next_crash and self._may_crash():
                 self.crashes += 1
                 self._next_crash = self._emitted + self.crash_every

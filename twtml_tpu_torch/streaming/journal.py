@@ -29,9 +29,12 @@ Frame (little-endian): ``b"TWJL" | u32 payload_len | u32 crc32(payload) |
 payload``, ``payload = u64 record_id | u64 rows_after | u8 kind | u32 nrows
 | body``; an object record's body is a JSON array of 9-element rows
 ``[text, retweet_count, followers_count, favourites_count, friends_count,
-created_at_ms, lang, id, retweeted_status-row-or-null]``. Block records
-(kind 2) belong to block ingest (ROADMAP A12): the port reads their frames
-but does not decode their bodies.
+created_at_ms, lang, id, retweeted_status-row-or-null]``; a block record's
+(kind 2, ``--ingest block``) is ``u8 units dtype code (1 uint8, 2 uint16) |
+u64 units length`` and then the merged ParsedBlock's arrays as bytes:
+numeric int64 [n, 5], units, offsets int64 [n+1], ascii uint8 [n]. Both
+kinds are the JAX package's bytes, so each package replays the other's
+journal.
 """
 
 from __future__ import annotations
@@ -55,6 +58,9 @@ _FRAME = struct.Struct("<4sII")  # magic, payload_len, crc32(payload)
 _RECORD = struct.Struct("<QQBI")  # record id, rows_after, kind, nrows
 KIND_OBJ = 1
 KIND_BLOCK = 2
+# block body header: units dtype code (1 = the uint8 ASCII wire, 2 = uint16),
+# units length
+_BLOCK = struct.Struct("<BQ")
 _SEG_RE = re.compile(r"^seg-(\d{20})\.twj$")
 
 # segments rotate at this size unless --journalMaxMb forces smaller (a
@@ -86,13 +92,76 @@ def _row_to_status(v):
     )
 
 
-def _decode_record(kind: int, body: bytes) -> list:
-    if kind != KIND_OBJ:
-        raise NotImplementedError(
-            "journal holds a block-ingest record (kind 2); replaying block "
-            "records needs block ingest (ROADMAP A12)"
-        )
+def _encode_block(block) -> bytes:
+    import numpy as np
+
+    units = np.ascontiguousarray(block.units)
+    return b"".join((
+        _BLOCK.pack(1 if units.dtype == np.uint8 else 2, units.size),
+        np.ascontiguousarray(block.numeric, dtype=np.int64).tobytes(),
+        units.tobytes(),
+        np.ascontiguousarray(block.offsets, dtype=np.int64).tobytes(),
+        np.ascontiguousarray(block.ascii, dtype=np.uint8).tobytes(),
+    ))
+
+
+def _decode_block(nrows: int, body: bytes):
+    """The ParsedBlock of a kind-2 body, its units in the dtype written."""
+    import numpy as np
+
+    from ..features.blocks import ParsedBlock
+
+    code, units_len = _BLOCK.unpack_from(body, 0)
+    pos = _BLOCK.size
+    numeric = np.frombuffer(body, np.int64, nrows * 5, pos).reshape(nrows, 5).copy()
+    pos += nrows * 5 * 8
+    units_dtype = np.uint8 if code == 1 else np.uint16
+    units = np.frombuffer(body, units_dtype, units_len, pos).copy()
+    pos += units_len * np.dtype(units_dtype).itemsize
+    offsets = np.frombuffer(body, np.int64, nrows + 1, pos).copy()
+    pos += (nrows + 1) * 8
+    ascii_col = np.frombuffer(body, np.uint8, nrows, pos).copy()
+    return ParsedBlock(numeric, units, offsets, ascii_col)
+
+
+def _decode_record(kind: int, nrows: int, body: bytes) -> list:
+    """The items of one record as they crossed the seam: a Status list, or
+    a one-ParsedBlock list for a block record."""
+    if kind == KIND_BLOCK:
+        return [_decode_block(nrows, body)]
     return [_row_to_status(d) for d in json.loads(body.decode("utf-8"))]
+
+
+def rows_of(items: list) -> int:
+    """Rows of a seam batch: a batch is all Status objects or all blocks
+    (one source kind), so the first item decides."""
+    if not items or getattr(items[0], "rows", None) is None:
+        return len(items)
+    return sum(item.rows for item in items)
+
+
+def _encode_items(items: list):
+    """(kind, body, rows) of a seam batch's record: a block batch merges
+    into one kind-2 block, a Status batch is a kind-1 JSON array."""
+    if getattr(items[0], "rows", None) is not None:
+        from ..features.blocks import merge_blocks
+
+        block = merge_blocks(list(items))
+        return KIND_BLOCK, _encode_block(block), block.rows
+    body = json.dumps([_status_to_row(s) for s in items], separators=(",", ":"),
+                      ensure_ascii=False).encode("utf-8")
+    return KIND_OBJ, body, len(items)
+
+
+def drop_rows(items: list, skip_rows: int) -> list:
+    """A seam batch without its first ``skip_rows`` rows (the replayed head
+    of a mixed drain)."""
+    if getattr(items[0], "rows", None) is None:
+        return items[skip_rows:]
+    from ..features.blocks import merge_blocks, slice_block
+
+    block = merge_blocks(list(items))
+    return [slice_block(block, skip_rows, block.rows)]
 
 
 class IntakeJournal:
@@ -232,10 +301,11 @@ class IntakeJournal:
     # -------------------------------------------------------------- append
 
     def append(self, items: list) -> None:
-        """Journal one seam batch (a list of Status). Empty batches are
-        skipped; rows under replay suppression are not appended again (a
-        batch of replayed head and fresh tail appends only the tail)."""
-        rows = len(items)
+        """Journal one seam batch (a list of Status, or of ParsedBlocks).
+        Empty batches are skipped; rows under replay suppression are not
+        appended again (a batch of replayed head and fresh tail appends
+        only the tail)."""
+        rows = rows_of(items)
         if rows == 0:
             return
         with self._lock:
@@ -243,12 +313,10 @@ class IntakeJournal:
                 if rows <= self._pending_replay:
                     self._pending_replay -= rows
                     return
-                items = items[self._pending_replay:]
-                rows = len(items)
+                items = drop_rows(items, self._pending_replay)
                 self._pending_replay = 0
-            body = json.dumps([_status_to_row(s) for s in items],
-                              separators=(",", ":"), ensure_ascii=False).encode("utf-8")
-            payload = _RECORD.pack(self.next_id, self.rows_total + rows, KIND_OBJ,
+            kind, body, rows = _encode_items(items)
+            payload = _RECORD.pack(self.next_id, self.rows_total + rows, kind,
                                    rows) + body
             self._rotate_if_needed()
             self._fh.write(_FRAME.pack(MAGIC, len(payload), zlib.crc32(payload)))
@@ -308,19 +376,20 @@ class IntakeJournal:
     # -------------------------------------------------------------- replay
 
     def records_from(self, cursor: int):
-        """(record_id, statuses) of every record with id >= cursor, in id
-        order. A CRC failure mid-history raises: a silent partial replay
-        would lose rows."""
+        """(record_id, items) of every record with id >= cursor, in id
+        order: a Status list, or a one-ParsedBlock list for a block record.
+        A CRC failure mid-history raises: a silent partial replay would
+        lose rows."""
         segments = self._segments()
         for i, (first_id, path) in enumerate(segments):
             next_first = segments[i + 1][0] if i + 1 < len(segments) else self.next_id
             if next_first <= cursor:
                 continue
             expect = first_id
-            for rec_id, _rows_after, kind, _nrows, body, _end in self._scan_segment(path):
+            for rec_id, _rows_after, kind, nrows, body, _end in self._scan_segment(path):
                 expect = rec_id + 1
                 if rec_id >= cursor:
-                    yield rec_id, _decode_record(kind, body)
+                    yield rec_id, _decode_record(kind, nrows, body)
             if expect < next_first:
                 raise RuntimeError(
                     f"journal segment {path} is corrupt mid-history (valid through "
@@ -335,7 +404,7 @@ class IntakeJournal:
         items: list = []
         for _rec_id, rec_items in self.records_from(cursor):
             items.extend(rec_items)
-        rows = len(items)
+        rows = rows_of(items)
         with self._lock:
             self._pending_replay += rows
             # the restored weights hold exactly [0, cursor): re-base the

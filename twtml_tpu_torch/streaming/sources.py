@@ -19,8 +19,13 @@ Supervision: a crashed producer restarts with jittered exponential backoff,
 up to ``max_restarts`` consecutive failures (counted in ``source.restarts``).
 ``produce()`` is also the plain generator of a source's tweets. The
 ``--chaos`` ``source.burst`` rule re-emits a tweet from the supervised loop
-(streaming/faults.py). The live Twitter source is ``streaming/twitter.py``;
-block ingest and the multi-host sharded sources are not ported.
+(streaming/faults.py). The live Twitter source is ``streaming/twitter.py``.
+
+Block ingest (``--ingest block``): ``BlockReplayFileSource`` replays a file
+through the native block parser (``BlockParserMixin``, which the live
+``BlockTwitterSource`` shares), yielding columnar ``ParsedBlock`` items
+(features/blocks.py) with no per-tweet Python object. The multi-host
+sharded sources are not ported (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -34,6 +39,8 @@ from typing import Callable, Iterator
 
 from ..features.featurizer import Status
 from ..telemetry import metrics as _metrics
+from ..telemetry import sideband as _sideband
+from ..telemetry import trace as _trace
 from ..utils import get_logger
 from ..utils.clock import now_ms
 
@@ -43,15 +50,25 @@ log = get_logger("streaming.sources")
 _faults_mod = None
 
 
-def _burst_extra() -> int:
-    """Extra re-emits of the current tweet under ``--chaos source.burst``
-    (one global read and a None check when chaos is off)."""
+def _faults():
     global _faults_mod
     if _faults_mod is None:
         from . import faults
 
         _faults_mod = faults
-    return _faults_mod.burst_extra()
+    return _faults_mod
+
+
+def _burst_extra() -> int:
+    """Extra re-emits of the current tweet under ``--chaos source.burst``
+    (one global read and a None check when chaos is off)."""
+    return _faults().burst_extra()
+
+
+def _count_parse_drops(n: int) -> None:
+    """Malformed lines the block parser skipped, in the registry
+    (``ingest.rows_dropped_parse``) beside the other ingest losses."""
+    _metrics.get_registry().counter("ingest.rows_dropped_parse").inc(n)
 
 
 class Source:
@@ -185,6 +202,231 @@ class ReplayFileSource(Source):
                 return
 
 
+class BlockParserMixin:
+    """Bytes -> ``ParsedBlock``, the stage both block sources share (the
+    file replay below and the live ``BlockTwitterSource``, twitter.py). A
+    consumer sets ``begin``/``end`` (the retweet-count interval) and
+    ``wire``.
+
+    ``wire=True`` parses through the zero-copy wire emitter
+    (``native.parse_tweet_block_wire``): blocks carry uint8 units whenever
+    every kept row is ASCII, the narrow wire dtype, so the featurizer has
+    no downcast pass. Its rows and arrays equal the legacy parser's; only
+    the bad-line COUNT may undercount on keyless malformed lines (its
+    prescreen skips whole-line validation there, native/tweetjson.cpp).
+    The parse degrades in order: the wire emitter, the legacy C parser,
+    the Python ground truth; each step down is counted in
+    ``native.PARSE_COUNTERS`` and warned once, and each parse counts its
+    parser there. ``--chaos source.garbage`` damages the bytes before the
+    parser, whose skip-and-count contract absorbs it."""
+
+    begin: int
+    end: int
+    wire: bool = False
+
+    def parse_buffer(self, data: bytes) -> list:
+        """Parse a whole byte buffer (ending at a line boundary) into
+        ParsedBlocks, looping over the parser's capacity bounds so an
+        oversized buffer cannot drop its tail."""
+        blocks = []
+        while data.strip():
+            if not data.endswith(b"\n"):
+                data += b"\n"
+            block, rest = self._parse(data)
+            if block is not None and block.rows:
+                blocks.append(block)
+            if not rest or rest == data:
+                break
+            data = rest
+        return blocks
+
+    def _parse(self, data: bytes):
+        """(ParsedBlock | None, carry bytes) of one buffered chunk: the
+        ``parse`` stage (a span a chunk under ``--trace``), the
+        ``ingest.parse_bytes`` counter and the ``ingest.parse_tweets_per_s``
+        gauge."""
+        tr = _trace.get()
+        t0 = time.perf_counter()
+        with tr.span("parse", bytes=len(data)) as sp:
+            block, rest = self._parse_impl(data)
+            if tr.enabled and block is not None:
+                sp.add(rows=int(block.rows))
+        dt = time.perf_counter() - t0
+        _sideband.record_stage("parse", dt)
+        reg = _metrics.get_registry()
+        reg.counter("ingest.parse_bytes").inc(len(data))
+        if block is not None and dt > 0:
+            reg.gauge("ingest.parse_tweets_per_s").set(round(block.rows / dt, 1))
+        return block, rest
+
+    def _parse_impl(self, data: bytes):
+        from ..features import native
+        from ..features.blocks import ParsedBlock
+
+        data = _faults().maybe_corrupt_block(data)  # --chaos source.garbage
+        out = None
+        if self.wire:
+            out = native.parse_tweet_block_wire(data, self.begin, self.end)
+            if out is None:
+                native.note_parse_degraded(
+                    "wire", "the native library lacks parse_tweet_block_wire; the legacy "
+                    "C parser runs")
+            else:
+                native.PARSE_COUNTERS["parses_wire"] += 1
+        if out is None:
+            out = native.parse_tweet_block(data, self.begin, self.end)
+            if out is None:
+                native.note_parse_degraded(
+                    "native", "the native block parser is unavailable; the Python "
+                    "ground truth parses")
+            else:
+                native.PARSE_COUNTERS["parses_native"] += 1
+        if out is None:
+            native.PARSE_COUNTERS["parses_python"] += 1
+            return self._py_parse(data)
+        numeric, units, offsets, ascii_flags, consumed, bad = out
+        if bad:
+            log.warning("block parser skipped %d malformed lines", bad)
+            _count_parse_drops(bad)
+        return ParsedBlock(numeric, units, offsets, ascii_flags), data[consumed:]
+
+    def _py_parse(self, data: bytes):
+        """The ground truth: ``json.loads`` and ``Status`` a line. A
+        retweeted status with ANY direct ``text``/``full_text`` occurrence
+        (duplicate keys included: the C scanner bounds every occurrence,
+        where a dict keeps the last) over ``native.MAX_TEXT_UNITS`` makes
+        its line a counted bad line, as in the C parsers; malformed lines
+        and JSON that is not a tweet object skip and count."""
+        import numpy as np
+
+        from ..features.blocks import ParsedBlock
+        from ..features.featurizer import encode_texts
+        from ..features.native import MAX_TEXT_UNITS
+
+        class _Obj(dict):
+            oversized = False  # a direct text/full_text value too big
+            rt_oversized = False  # any retweeted_status occurrence oversized
+
+        def _pairs_hook(pairs):
+            d = _Obj(pairs)
+            for k, v in pairs:
+                if (k in ("text", "full_text") and isinstance(v, str)
+                        and len(v.encode("utf-16-le", "surrogatepass")) // 2
+                        > MAX_TEXT_UNITS):
+                    d.oversized = True
+                if k == "retweeted_status" and getattr(v, "oversized", False):
+                    d.rt_oversized = True
+            return d
+
+        nl = data.rfind(b"\n")
+        if nl < 0:
+            return None, data
+        lines, carry = data[:nl].split(b"\n"), data[nl + 1:]
+        numerics, texts = [], []
+        for ln in lines:
+            ln = ln.strip()
+            if not ln:
+                continue
+            try:
+                obj = json.loads(ln, object_pairs_hook=_pairs_hook)
+                if getattr(obj, "rt_oversized", False):
+                    raise ValueError("text exceeds the wire-format unit bound")
+                status = Status.from_json(obj)
+            except (ValueError, AttributeError, TypeError):
+                log.warning("block parser skipped a malformed line")
+                _count_parse_drops(1)
+                continue
+            o = status.retweeted_status
+            if o is not None and self.begin <= o.retweet_count <= self.end:
+                numerics.append((o.retweet_count, o.followers_count, o.favourites_count,
+                                 o.friends_count, o.created_at_ms))
+                texts.append(o.text)
+        units, offsets = encode_texts(texts)
+        block = ParsedBlock(
+            np.array(numerics, np.int64).reshape(len(texts), 5),
+            units[: offsets[-1]],
+            offsets,
+            np.array([1 if t.isascii() else 0 for t in texts], np.uint8),
+        )
+        return block, carry
+
+
+class BlockReplayFileSource(BlockParserMixin, Source):
+    """Replay a .jsonl file through the native block parser: each item is a
+    columnar ParsedBlock with the isRetweet and retweet-count filter
+    applied, no per-tweet Python object (the Python ground truth when the
+    C library is unavailable). As fast as it parses: block ingest has no
+    per-tweet pacing.
+
+    ``shard_index``/``shard_count`` select a line-aligned BYTE-RANGE shard
+    of the file: its span splits into ``shard_count`` equal ranges, and a
+    line belongs to the shard holding its first byte, so each reader parses
+    only its share, sequentially, with no line read twice. (Its multi-host
+    caller is ROADMAP A10; the range logic stands alone.)"""
+
+    name = "replay-block"
+
+    def __init__(self, path: str, num_retweet_begin: int = 100,
+                 num_retweet_end: int = 1000, block_bytes: int = 1 << 20,
+                 loop: bool = False, wire: bool = False,
+                 shard_index: int = 0, shard_count: int = 1, **kw):
+        super().__init__(**kw)
+        self.path = path
+        self.begin = num_retweet_begin
+        self.end = num_retweet_end
+        self.block_bytes = block_bytes
+        self.loop = loop
+        self.wire = wire
+        if not 0 <= shard_index < max(1, shard_count):
+            raise ValueError(f"shard index {shard_index} out of range for {shard_count}")
+        self.shard_index = shard_index
+        self.shard_count = max(1, shard_count)
+
+    def _shard_range(self) -> "tuple[int, int]":
+        """This shard's [start, stop) byte range, line-aligned: a raw range
+        boundary moves forward past the line holding it (unless it sits at
+        a line start), the same for this shard's stop and the next shard's
+        start, so every line lands in exactly one shard."""
+        import os
+
+        size = os.path.getsize(self.path)
+        if self.shard_count <= 1:
+            return 0, size
+
+        def boundary(pos: int) -> int:
+            if pos <= 0 or pos >= size:
+                return min(max(pos, 0), size)
+            with open(self.path, "rb") as fh:
+                fh.seek(pos - 1)
+                if fh.read(1) != b"\n":
+                    fh.readline()  # mid-line: the line belongs to the left
+                return fh.tell()
+
+        lo = size * self.shard_index // self.shard_count
+        hi = size * (self.shard_index + 1) // self.shard_count
+        return boundary(lo), boundary(hi)
+
+    def produce(self) -> Iterator:
+        while True:
+            lo, hi = self._shard_range()
+            with open(self.path, "rb") as fh:
+                fh.seek(lo)
+                remaining = hi - lo
+                carry = b""
+                while True:
+                    chunk = fh.read(min(self.block_bytes, remaining)) if remaining > 0 else b""
+                    remaining -= len(chunk)
+                    if not chunk:
+                        # the tail goes through the capacity-bound loop
+                        yield from self.parse_buffer(carry)
+                        break
+                    block, carry = self._parse(carry + chunk)
+                    if block is not None and block.rows:
+                        yield block
+            if not self.loop:
+                return
+
+
 class SyntheticSource(Source):
     """Tweets whose retweet counts follow a known linear function of the
     features. ``rate`` = tweets/s (0 = unpaced), ``total`` = stop after n
@@ -267,8 +509,9 @@ class QueueSource(Source):
 
 
 class SkipRowsSource(Source):
-    """Drop the first ``skip_rows`` tweets of an inner source: the boot half
-    of journal recovery. On a restart every row the journal holds is either
+    """Drop the first ``skip_rows`` tweets of an inner source (a ParsedBlock
+    counts its rows and is cut at the boundary): the boot half of journal
+    recovery. On a restart every row the journal holds is either
     inside the restored checkpoint or replayed from the journal, so a source
     that re-produces the same stream (a replay file, a pinned synthetic or
     pre-filled source) must skip all of them."""
@@ -288,8 +531,17 @@ class SkipRowsSource(Source):
         remaining = self.skip_rows
         for item in self.inner.produce():
             if remaining > 0:
-                remaining -= 1
-                continue
+                take = getattr(item, "rows", None)
+                if take is None:
+                    remaining -= 1
+                    continue
+                if take <= remaining:
+                    remaining -= take
+                    continue
+                # a block straddles the skip boundary: keep its tail rows
+                from ..features.blocks import slice_block
+
+                item, remaining = slice_block(item, remaining, take), 0
             yield item
 
     def stop(self) -> None:

@@ -48,9 +48,20 @@ def enabled() -> bool:
     return _ON
 
 
+def _numeric_span(numeric) -> "tuple[int, int]":
+    """(min_ms, max_ms) over a ParsedBlock's int64 created-at column."""
+    col = numeric[:, 4] if numeric.shape[0] else numeric[:0, 0]
+    col = col[col > 0]
+    return (int(col.min()), int(col.max())) if col.size else (0, 0)
+
+
 def _event_span(statuses) -> "tuple[int, int]":
-    """(min_ms, max_ms) of ``created_at_ms`` over a Status list; zeros
-    mean unknown."""
+    """(min_ms, max_ms) of ``created_at_ms`` over a Status list or a list
+    of ParsedBlocks (``--ingest block``: a batch is one kind, so its first
+    item decides); zeros mean unknown."""
+    if statuses and getattr(statuses[0], "numeric", None) is not None:
+        spans = [s for s in map(_numeric_span, (b.numeric for b in statuses)) if s[0] > 0]
+        return (min(s[0] for s in spans), max(s[1] for s in spans)) if spans else (0, 0)
     lo = hi = 0
     for item in statuses:
         ms = getattr(item, "created_at_ms", 0)
@@ -73,7 +84,9 @@ def open_batch(statuses) -> None:
         "stages": _sideband.stage_seconds(),
         "event_min_ms": lo,
         "event_max_ms": hi,
-        "rows": len(statuses),
+        "rows": (sum(b.rows for b in statuses)
+                 if statuses and getattr(statuses[0], "rows", None) is not None
+                 else len(statuses)),
     }
     with _LOCK:
         _PREP.append(rec)
