@@ -254,12 +254,34 @@ Phases, in order; any failure ends the run with a non-zero exit:
                --checkpointEvery 1`` rolling back once and replaying its
                rows from kind-2 (block) journal records, 0 rows lost, lines
                and the final archive bitwise the clean block run's.
+24. multihost — the lockstep multi-host runtime: B1's data-parallel
+               split at world size 1 (a one-rank gloo group, through
+               MultiHostSGDModel) bitwise B1 in both residual modes (2
+               steps: weights, predictions, stats), each split entry against
+               its twin at a rank's B = 8192; then the stream phase's first
+               4 x 16384 tweets as a replay file and the linear app on 2
+               ranks (``--master twtml://``, subprocesses, both on cuda:0,
+               so gloo) at 8192 rows a rank against one process on the card
+               at 16384: the lead's lines (count and batch exact, rounded
+               stats within 2), the follower silent, the final weights
+               within rtol 1e-4 and atol 1e-7, each rank 50 launches of each
+               split entry a step, 52 all-reduces, one alignment all-gather
+               a batch, no fused launch; the same for ``--wireCodec dict``,
+               ``--superBatch 4`` and the 2^18 Gram route at B = 2048;
+               ``--ingest block`` on byte-range shards against its emulation
+               on the card; a resume that trains nothing; ``source.nan@3``
+               rolled back on both ranks; ``peer.kill`` of rank 1 at tick 3
+               (rank 1 exits 77, the survivor non-zero within the watchdog);
+               a rank's step ms, launches, all-reduce and cadence all-gather
+               ms, host wall a tick, tweets/s against one process, and each
+               split entry's device time, twin time and bound.
 No app run publishes anywhere but the loopback recorder and, in the web,
 serve and abtest phases, the port's own servers on loopback ports. The line before
 the last is the kernels' JSON record (B1's least-squares mode with its
 ``tenants`` launches and the ``block`` phase's figures, its logistic mode, its predict kernel with its
-``abtest`` launches, B4 with its f32 build on tweet-length rows, B7
-and B8); the last line is ``{"ok": true, "device": {...}}``.
+``abtest`` launches, B4 with its f32 build on tweet-length rows, B7,
+B8 and the split's three entries); the last line is ``{"ok": true,
+"device": {...}}``.
 
 ``python3 chip_smoke.py --times-only [--package-root DIR]`` runs phases 1
 and 2 and then only the kernels' device times (B1's logistic mode, its
@@ -2056,9 +2078,9 @@ def clock_phase():
         base_warm(*a, **k)
         marks["warm_end"] = time.perf_counter()
 
-    def start(self):
+    def start(self, **kw):
         marks["start"] = time.perf_counter()
-        base_start(self)
+        base_start(self, **kw)
 
     app.warmup_compile, StreamingContext.start = warm, start
     try:
@@ -5316,6 +5338,613 @@ def block_phase(pool, smi):
             "decode_launches": decode_launches, "decode": decode, "seconds": wall}
 
 
+# ---- the multihost phase: the lockstep runtime, 2 ranks on cuda:0 over gloo ----
+
+MH_RANKS = 2
+MH_ROWS = OP_ROWS // MH_RANKS  # a rank's rows of the global B = 16384
+MH_BATCHES = 4
+MH_ARGV = ["--backend", "cuda", "--source", "replay", "--seconds", "0", "--tokenBucket", "64",
+           "--maxQueueRows", "-1"]
+MH_GRAM_ARGV = ["--numTextFeatures", str(GRAM_F), "--l2Reg", "0.1"]
+MH_TIMEOUT_S = 300
+MH_WATCHDOG_S = 20  # TWTML_LOCKSTEP_TIMEOUT_S of the peer.kill arm
+MH_WEIGHT_RTOL, MH_WEIGHT_ATOL = 1e-4, 1e-7  # the JAX multi-host test's
+MH_STAT_SLACK = 2  # rounded stats: the JAX multi-host test's rule
+SPLIT_ENTRIES = ("fused_dense_grad", "fused_dense_grad_reduce", "fused_dense_update")
+
+# one rank: the linear app as ``main`` runs it (``run`` on the parsed flags),
+# then its launch counts, collectives and step times as the last line
+MH_RANK = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from twtml_tpu_torch.apps import linear_regression
+from twtml_tpu_torch.config import ConfArguments
+from twtml_tpu_torch.ops import fused_gram, fused_sgd
+from twtml_tpu_torch.parallel import distributed
+failed, totals = None, {}
+try:
+    totals = linear_regression.run(ConfArguments().parse(sys.argv[2:]))
+except RuntimeError as exc:
+    failed = str(exc)
+launches = {n: getattr(fused_sgd, n).launches for n in
+            ("fused_dense_grad", "fused_dense_grad_reduce", "fused_dense_update")}
+launches["fused_dense_sgd"] = fused_sgd.fused_dense_sgd.launches
+launches.update({fn.__name__: fn.launches for fn in fused_gram.KERNELS})
+print(json.dumps({"failed": failed, "count": totals.get("count"),
+                  "batches": totals.get("batches"),
+                  "stream_seconds": totals.get("stream_seconds"),
+                  "step_ms": [s.get("step_ms") for s in totals.get("steps", [])],
+                  "launches": launches, "collectives": distributed.COUNTERS,
+                  "seconds": distributed.SECONDS}), flush=True)
+sys.stdout.flush()
+sys.exit(3 if failed else 0)
+"""
+
+
+def mh_group(name, argv, env=None, timeout=MH_TIMEOUT_S):
+    """The linear app on MH_RANKS ranks of one group (``--master
+    twtml://``, every rank on cuda:0, so gloo): each rank's (exit code,
+    stats lines, its JSON record or None, stderr tail, wall s). Every rank
+    is stopped before this returns."""
+    port = free_port()
+    full_env = dict(os.environ, **(env or {}))
+    full_env.pop("TWTML_SYNC_DEBUG", None)  # a gloo all-reduce waits for the card
+    procs, t0 = [], time.perf_counter()
+    for rank in range(MH_RANKS):
+        args = [sys.executable, "-c", MH_RANK, PACKAGE_ROOT, *argv,
+                "--lightning", RECORDER.url, "--twtweb", RECORDER.url,
+                "--master", f"twtml://127.0.0.1:{port}", "--numProcesses", str(MH_RANKS),
+                "--processId", str(rank)]
+        procs.append(subprocess.Popen(args, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True, env=full_env))
+    out = []
+    try:
+        for p in procs:
+            stdout, stderr = p.communicate(timeout=timeout)
+            lines = stdout.splitlines()
+            rec = None
+            if lines and lines[-1].startswith("{"):
+                rec = json.loads(lines[-1])
+            out.append((p.returncode, [ln for ln in lines if ln.startswith("count:")], rec,
+                        stderr[-4000:], time.perf_counter() - t0))
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    return out
+
+
+def mh_ok(name, results):
+    for rank, (rc, _lines, rec, err, _wall) in enumerate(results):
+        if rc != 0 or rec is None or rec["failed"]:
+            raise AssertionError(f"multihost {name}: rank {rank} exited {rc}:\n{err}")
+    return results
+
+
+def mh_hold_lines(name, got, want):
+    """The JAX multi-host test's rule for the lead's lines against one
+    process's: as many lines, count and batch exact, rounded stats within
+    MH_STAT_SLACK."""
+    import re
+
+    if len(got) != len(want) or not got:
+        raise AssertionError(f"multihost {name}: {len(got)} lines against {len(want)}")
+    for g_line, w_line in zip(got, want):
+        g = [int(x) for x in re.findall(r"-?\d+", g_line)]
+        w = [int(x) for x in re.findall(r"-?\d+", w_line)]
+        if g[:2] != w[:2] or len(g) != len(w) or any(
+                abs(a - b) > MH_STAT_SLACK for a, b in zip(g[2:], w[2:])):
+            raise AssertionError(f"multihost {name}: {g_line!r} against {w_line!r}")
+
+
+def mh_hold_weights(name, got_dir, want):
+    import numpy as np
+
+    from twtml_tpu_torch.checkpoint import Checkpointer
+
+    got, meta = Checkpointer(got_dir).restore()
+    got = np.asarray(got)
+    err = float(np.max(np.abs(got - want)))
+    if not np.allclose(got, want, rtol=MH_WEIGHT_RTOL, atol=MH_WEIGHT_ATOL):
+        raise AssertionError(f"multihost {name}: weights differ from one process's by "
+                             f"{err:.3g} (rtol {MH_WEIGHT_RTOL}, atol {MH_WEIGHT_ATOL})")
+    return err, meta
+
+
+def mh_arm(name, path, workdir, rows, extra=(), single_rows=None):
+    """One arm: the group on ``path`` at ``rows`` a rank against one
+    process on the card (in this process) at ``single_rows``; the lead's
+    lines and the final weights held, the follower silent. Returns the
+    ranks' records, the single run's totals and the weights' max error."""
+    from twtml_tpu_torch.checkpoint import Checkpointer
+
+    d_multi, d_single = (os.path.join(workdir, f"{name}-{k}") for k in ("multi", "single"))
+    argv = [*MH_ARGV, "--replayFile", path, *extra]
+    totals, single_lines = app_run(
+        [*argv, "--batchBucket", str(single_rows or rows * MH_RANKS),
+         "--checkpointDir", d_single])
+    results = mh_ok(name, mh_group(name, [*argv, "--batchBucket", str(rows),
+                                          "--checkpointDir", d_multi]))
+    if results[1][1]:
+        raise AssertionError(f"multihost {name}: the follower printed {results[1][1][:2]}")
+    single_lines = [ln for ln in single_lines if ln.startswith("count:")]
+    mh_hold_lines(name, results[0][1], single_lines)
+    err, meta = mh_hold_weights(name, d_multi, Checkpointer(d_single).restore()[0])
+    if meta["count"] != totals["count"]:
+        raise AssertionError(f"multihost {name}: the group counted {meta['count']} rows, "
+                             f"one process {totals['count']}")
+    phase("multihost", f"{name}: {len(single_lines)} lines held (count and batch exact, "
+          f"stats within {MH_STAT_SLACK}), weights within {err:.3g} of one process's, "
+          f"follower silent; group wall {results[0][4]:.1f} s")
+    return [r[2] for r in results], totals, err, d_multi, argv
+
+
+def mh_rank_numbers(name, recs, totals, steps):
+    """Per rank: step device ms, launches a step (``steps``: the batches and
+    the warm-up's), the all-reduce's and the cadence all-gather's host ms,
+    host wall a tick; tweets/s against one process."""
+    import statistics as st
+
+    out = []
+    single_rate = totals["count"] / totals["stream_seconds"]
+    for rank, rec in enumerate(recs):
+        c, s = rec["collectives"], rec["seconds"]
+        ticks = max(1, c["cadence_allgathers"])
+        row = {
+            "rank": rank,
+            "step_device_ms": st.median(rec["step_ms"]) if rec["step_ms"] else None,
+            "launches_a_step": {k: v / steps for k, v in rec["launches"].items() if v},
+            "allreduce_ms": 1e3 * s["allreduce"] / max(1, c["allreduces"]),
+            "allreduces_a_step": c["allreduces"] / steps,
+            "cadence_allgather_ms": 1e3 * s["cadence_allgather"] / ticks,
+            "host_wall_a_tick_ms": 1e3 * rec["stream_seconds"] / ticks,
+            "ticks": ticks,
+            "tweets_per_s": rec["count"] / rec["stream_seconds"],
+            "single_process_tweets_per_s": single_rate,
+        }
+        out.append(row)
+        phase("multihost", f"{name} rank {rank}: step {row['step_device_ms']:.3f} ms "
+              f"(CUDA events), launches a step {row['launches_a_step']}, all-reduce "
+              f"{row['allreduce_ms']:.3f} ms x {row['allreduces_a_step']:.0f} a step, cadence "
+              f"all-gather {row['cadence_allgather_ms']:.3f} ms, host wall a tick "
+              f"{row['host_wall_a_tick_ms']:.1f} ms, {row['tweets_per_s']:.0f} tweets/s "
+              f"(one process {single_rate:.0f})")
+    return out
+
+
+def split_checks():
+    """The split at world size 1 through MultiHostSGDModel (a one-rank gloo
+    group) against B1 on the same wire, bitwise, in both residual modes;
+    each split entry against its plain twin on the card. Returns each
+    entry's max error against its twin."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from twtml_tpu_torch.features.featurizer import Featurizer
+    from twtml_tpu_torch.models.linear import StreamingLinearRegressionWithSGD
+    from twtml_tpu_torch.models.logistic import StreamingLogisticRegressionWithSGD
+    from twtml_tpu_torch.ops import fused_sgd
+    from twtml_tpu_torch.parallel import distributed as D
+    from twtml_tpu_torch.parallel.mesh import make_mesh
+    from twtml_tpu_torch.parallel.sharding import ParallelSGDModel
+    from twtml_tpu_torch.streaming.sources import SyntheticSource
+
+    statuses = list(SyntheticSource(total=OP_ROWS, seed=11, base_ms=NOW_MS).produce())
+    batch = Featurizer(now_ms=NOW_MS).featurize_batch_ragged(
+        statuses, row_bucket=OP_ROWS, unit_bucket=64)
+    store = dist.TCPStore("127.0.0.1", free_port(), 1, is_master=True,
+                          timeout=datetime.timedelta(seconds=60))
+    dist.init_process_group("gloo", store=store, world_size=1, rank=0)
+    try:
+        for learner in (StreamingLinearRegressionWithSGD, StreamingLogisticRegressionWithSGD):
+            plain = learner(device="cuda", quality=True)
+            mesh = make_mesh(num_processes=1)
+            inner = ParallelSGDModel(
+                mesh, D.Collectives(rank=0, world=1, staged=True), device="cuda",
+                quality=True, residual_fn=learner.residual_fn,
+                prediction_fn=learner.prediction_fn,
+                round_predictions=learner.round_predictions,
+                step_size=learner.default_step_size)
+            multi = D.MultiHostSGDModel(inner, mesh)
+            before = fused_sgd.fused_dense_grad.launches
+            for _ in range(2):  # the second step from the first's weights
+                a, b = plain.step(batch), multi.step(multi.pack_for_wire(batch))
+            torch.cuda.synchronize()
+            if fused_sgd.fused_dense_grad.launches - before != 2 * OP_ITERS:
+                raise AssertionError("the world-size-1 step did not run the split kernels")
+            same = (np.array_equal(plain.latest_weights, multi.latest_weights)
+                    and torch.equal(a.predictions, b.predictions)
+                    and all(torch.equal(getattr(a, k), getattr(b, k))
+                            for k in ("count", "mse", "real_stdev", "pred_stdev")))
+            if not same:
+                raise AssertionError(f"{learner.__name__}: the split loop at world size 1 "
+                                     "differs from B1")
+            phase("multihost", f"split at world size 1 through MultiHostSGDModel, "
+                  f"{learner.__name__}: weights, predictions and stats bitwise B1's "
+                  "(2 steps)")
+    finally:
+        dist.destroy_process_group()
+    return split_twin_errors()
+
+
+SPLIT_SHAPES = ((MH_ROWS, 1004), (4096, 2000), (4096, 8196))  # narrow, wide (2 and 9 tiles)
+
+
+def split_inputs(rows=MH_ROWS, features=1004, seed=5, logistic=False):
+    """A tweet-like batch (``design``) on the card for the split's checks
+    and times: 97 % of the rows valid, a small w0, 0/1 labels for the
+    logistic mode."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    x, y, m = design(rng, rows, features, rows - rows // 32)
+    if logistic:
+        y = (rng.random(rows) < 0.5).astype("float32")
+    w0 = rng.normal(size=features).astype("float32") * 1e-3
+    return tuple(torch.from_numpy(a).cuda() for a in (x, y, m, w0))
+
+
+def split_update_twin(w, gbuf, f, *, it, step_size, l2_reg, tol):
+    """The update entry's function as torch ops: B1's f32 update of the
+    F columns with the all-reduced Xᵀr and count (no update at count 0),
+    then ‖Δw‖², ‖w‖² and the converged test. Returns (w', converged)."""
+    import torch
+
+    from twtml_tpu_torch.models.sgd import _step_scalars
+
+    eta, scale = _step_scalars(step_size, l2_reg, it, torch.float32)
+    count = gbuf[-1]
+    w_new = torch.where(count > 0, w * scale - eta * gbuf[:f] / count.clamp(min=1.0), w)
+    d, n = ((w_new - w) ** 2).sum(), (w_new * w_new).sum()
+    return w_new, bool(tol > 0) & (d.sqrt() < tol * n.sqrt().clamp(min=1.0))
+
+
+def split_loop_check(name, x, y, m, w0, **kw):
+    """The split loop at world size 1 (the all-reduce an identity) against
+    B1 on the same inputs: weights and margins bitwise; with NaN/Inf in the
+    masked rows, bitwise the clean run's."""
+    import torch
+
+    from twtml_tpu_torch.ops import fused_sgd
+
+    w_b1, p_b1 = fused_sgd.fused_dense_sgd(x, y, m, w0, **kw)
+    w_s, p_s = fused_sgd.fused_dense_sgd_split(x, y, m, w0, allreduce=lambda t: t, **kw)
+    keep = m > 0
+    x_d = torch.where(keep[:, None], x, float("nan"))
+    y_d = torch.where(keep, y, float("inf"))
+    w_d, p_d = fused_sgd.fused_dense_sgd_split(x_d, y_d, m, w0, allreduce=lambda t: t, **kw)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(w_b1).all() and torch.equal(w_s, w_b1) and torch.equal(p_s, p_b1)):
+        raise AssertionError(f"split loop {name}: differs from B1 by "
+                             f"{float((w_s - w_b1).abs().max()):.3g} (weights), "
+                             f"{float((p_s - p_b1).abs().max()):.3g} (margins)")
+    if not (torch.equal(w_d, w_s) and torch.equal(p_d, p_s)):
+        raise AssertionError(f"split loop {name}: NaN/Inf in masked rows reached the result")
+    return int((~keep).sum())
+
+
+def split_twin_errors():
+    """The split at each of SPLIT_SHAPES (B1's narrow pass at a rank's
+    operating point, its tiled wide pass at 2000 and 8196 columns), in both
+    residual modes: the loop at world size 1 bitwise B1's, NaN/Inf in masked
+    rows bitwise ignored; each entry against its twin: the grad entry's
+    per-CTA partials summed in torch against ``fused_dense_grad_reference``'s
+    Xᵀr (its margins too), the reduce entry's Xᵀr against the same partials
+    summed in float64 and its count exact, the update entry bitwise against
+    ``split_update_twin`` (weights and converged flag). Then a batch on
+    which the loop diverges (dense 0-2 counts at 4096 x 8196, step 0.005,
+    50 iterations: the weights overflow) through B1 and the split: the same
+    non-finite pattern and values. Returns each entry's max abs error and
+    max relative error against its twin."""
+    import torch
+
+    from twtml_tpu_torch.ops import fused_sgd
+
+    sms, shared = fused_sgd.device_limits(torch.cuda.current_device())
+    abs_err = dict.fromkeys(SPLIT_ENTRIES, 0.0)
+    rel_err = dict.fromkeys(SPLIT_ENTRIES, 0.0)
+    for rows, f in SPLIT_SHAPES:
+        for mode, rf in enumerate((fused_sgd.least_squares_residual,
+                                   fused_sgd.logistic_residual)):
+            x, y, m, w0 = split_inputs(rows, f, seed=5 + mode, logistic=bool(mode))
+            step = 0.1 if mode else 0.005
+            masked = split_loop_check(f"{rows} x {f} mode {mode}", x, y, m, w0,
+                                      num_iterations=OP_ITERS, step_size=step, l2_reg=0.01,
+                                      residual_fn=rf)
+            plan = fused_sgd.split_plan(rows, f, sm_count=sms, shared_limit=shared)
+            bufs = fused_sgd.split_buffers(plan, x.device)
+            w, preds = torch.empty_like(w0), torch.empty_like(y)
+            fused_sgd.fused_dense_grad(plan, bufs, x, y, m, w0, w, preds, first=True, mode=mode)
+            partials = bufs.scratch[:plan.grid * plan.fpad].view(plan.grid, plan.fpad).clone()
+            fused_sgd.fused_dense_grad_reduce(plan, bufs, f)
+            g_ref, count_ref, raw_ref = fused_sgd.fused_dense_grad_reference(
+                x, y, m, w0, residual_fn=rf)
+            torch.cuda.synchronize()
+            fpad = plan.fpad
+            scale_g = float(g_ref.abs().max().clamp(min=1))
+            summed = partials.double().sum(dim=0)
+            g_abs = float((summed[:f] - g_ref.double()).abs().max())
+            p_abs = float((preds - raw_ref).abs().max())
+            pad_abs = float(summed[f:].abs().max()) if fpad > f else 0.0
+            r_abs = float((bufs.gbuf[:fpad].double() - summed).abs().max())
+            if bufs.gbuf[fpad].item() != count_ref.item():
+                raise AssertionError("fused_dense_grad_reduce: the count differs from the twin's")
+            if g_abs > 1e-5 * scale_g or p_abs > 1e-3 or pad_abs:
+                raise AssertionError(f"fused_dense_grad ({rows} x {f}, mode {mode}): Xᵀr off "
+                                     f"by {g_abs:.3g} (max |Xᵀr| {scale_g:.3g}), margins by "
+                                     f"{p_abs:.3g}, padded columns {pad_abs:.3g}")
+            if r_abs > 1e-6 * scale_g:
+                raise AssertionError(f"fused_dense_grad_reduce ({rows} x {f}, mode {mode}): "
+                                     f"off the partials' sum by {r_abs:.3g}")
+            want, conv = split_update_twin(w0, torch.cat([bufs.gbuf[:f], bufs.gbuf[fpad:]]), f,
+                                           it=1, step_size=step, l2_reg=0.01, tol=0.001)
+            fused_sgd.fused_dense_update(plan, bufs, w, f, it=1, step_size=step, l2_reg=0.01,
+                                         convergence_tol=0.001)
+            torch.cuda.synchronize()
+            if not torch.equal(w, want) or bool(bufs.state[0].item()) != bool(conv):
+                raise AssertionError(f"fused_dense_update ({rows} x {f}, mode {mode}) differs "
+                                     f"from its twin by {float((w - want).abs().max()):.3g} "
+                                     f"(converged {bufs.state[0].item()} against {bool(conv)})")
+            for e, a, r in (("fused_dense_grad", max(g_abs, p_abs), g_abs / scale_g),
+                            ("fused_dense_grad_reduce", r_abs, r_abs / scale_g)):
+                abs_err[e], rel_err[e] = max(abs_err[e], a), max(rel_err[e], r)
+            phase("multihost", f"split at {rows} x {f} ({'narrow' if f <= 1024 else 'wide'} "
+                  f"pass, mode {mode}): the loop at world size 1 bitwise B1's ({OP_ITERS} "
+                  f"iterations), NaN/Inf in {masked} masked rows bitwise ignored; grad's "
+                  f"partials within {g_abs:.3g} of the twin's Xᵀr (max |Xᵀr| {scale_g:.3g}), "
+                  f"margins within {p_abs:.3g}; reduce within {r_abs:.3g} of the partials' "
+                  "sum, the count exact; the update and its converged flag bitwise")
+    # a divergent batch: dense 0-2 counts overflow the loop at 8196 columns
+    g = torch.Generator().manual_seed(5)
+    x = torch.randint(0, 3, (4096, 8196), generator=g).float()
+    x[:, -4:] = torch.rand(4096, 4, generator=g) * 1e-3
+    y = torch.rand(4096, generator=g) * 1000
+    m = (torch.rand(4096, generator=g) < 0.95).float()
+    w0 = torch.randn(8196, generator=g) * 1e-3
+    x, y, m, w0 = (t.cuda() for t in (x, y, m, w0))
+    kw = dict(num_iterations=OP_ITERS, step_size=0.005)
+    w_b1, p_b1 = fused_sgd.fused_dense_sgd(x, y, m, w0, **kw)
+    w_s, p_s = fused_sgd.fused_dense_sgd_split(x, y, m, w0, allreduce=lambda t: t, **kw)
+    torch.cuda.synchronize()
+    bad = int((~torch.isfinite(w_b1)).sum())
+    same = (torch.equal(w_b1.isnan(), w_s.isnan())
+            and torch.equal(w_b1.nan_to_num(0.0), w_s.nan_to_num(0.0))
+            and torch.equal(p_b1, p_s))
+    if not same:
+        raise AssertionError("the divergent 4096 x 8196 batch: the split's weights differ "
+                             f"from B1's ({bad} of B1's are not finite)")
+    phase("multihost", f"a divergent 4096 x 8196 batch: B1's own weights have "
+          f"{bad} non-finite of 8196 (the step diverges on dense 0-2 counts), the split's the "
+          f"same pattern and values (bit patterns equal: "
+          f"{torch.equal(w_b1.view(torch.int32), w_s.view(torch.int32))})")
+    return abs_err, rel_err
+
+
+def split_times(smi, errs, launches):
+    """Each split entry's device time at a rank's operating point (an
+    iteration after the first: X staged), its twin's, and its bound.
+    ``errs``: (max abs error, max relative error) by entry."""
+    import torch
+
+    from twtml_tpu_torch.ops import fused_sgd
+
+    x, y, m, w0 = split_inputs()
+    rows, f = x.shape
+    sms, shared = fused_sgd.device_limits(torch.cuda.current_device())
+    plan = fused_sgd.split_plan(rows, f, sm_count=sms, shared_limit=shared)
+    bufs = fused_sgd.split_buffers(plan, x.device)
+    w, preds = torch.empty_like(w0), torch.empty_like(y)
+    fused_sgd.fused_dense_grad(plan, bufs, x, y, m, w0, w, preds, first=True)
+    fused_sgd.fused_dense_grad_reduce(plan, bufs, f)
+    fused_sgd.fused_dense_update(plan, bufs, w, f, it=1, step_size=1e-12, l2_reg=0.0,
+                                 convergence_tol=0.0)  # tol 0: never converged
+    n = 50
+    g_count = torch.cat([bufs.gbuf[:f], bufs.gbuf[plan.fpad:]])
+    calls = {
+        "fused_dense_grad": lambda: fused_sgd.fused_dense_grad(
+            plan, bufs, x, y, m, w0, w, preds, first=False),
+        "fused_dense_grad_reduce": lambda: fused_sgd.fused_dense_grad_reduce(plan, bufs, f),
+        "fused_dense_update": lambda: fused_sgd.fused_dense_update(
+            plan, bufs, w, f, it=2, step_size=1e-12, l2_reg=0.0, convergence_tol=0.0),
+    }
+    plains = {
+        "fused_dense_grad": lambda: fused_sgd.fused_dense_grad_reference(x, y, m, w0),
+        "fused_dense_grad_reduce": lambda: bufs.scratch[:plan.grid * plan.fpad].view(
+            plan.grid, plan.fpad).sum(dim=0),
+        "fused_dense_update": lambda: split_update_twin(
+            w0, g_count, f, it=2, step_size=1e-12, l2_reg=0.0, tol=0.001),
+    }
+    # bytes each entry's function must move, each input read once and each
+    # output written once, at the batch's own size (no padding, none of the
+    # design's own scratch): grad reads X (bf16, as B1 stores it), y, the
+    # mask and w and writes Xᵀr [F]; reduce reads the [grid, fpad] partials
+    # and the counts and writes Xᵀr and the count; update reads w, Xᵀr and
+    # the count and writes w
+    moved = {
+        "fused_dense_grad": 2 * rows * f + 4 * (2 * rows + 2 * f),
+        "fused_dense_grad_reduce": 4 * (plan.grid * plan.fpad + plan.grid + f + 1),
+        "fused_dense_update": 4 * (3 * f + 1),
+    }
+    ops = {  # x·w and r·x: two FMAs an element of X
+        "fused_dense_grad": 4 * rows * f,
+        "fused_dense_grad_reduce": plan.grid * f,
+        "fused_dense_update": 8 * f,
+    }
+    records = []
+    for name in SPLIT_ENTRIES:
+        call, plain = calls[name], plains[name]
+
+        def many(fn=call):
+            for _ in range(n):
+                fn()
+
+        def many_plain(fn=plain):
+            for _ in range(n):
+                fn()
+
+        many()
+        ms = timed(many, 5, queue_ahead=True)[0] / n
+        plain_ms = timed(many_plain, 3, queue_ahead=True)[0] / n
+        bytes_ms = moved[name] / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops[name] / F32_FLOPS_PER_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        records.append({
+            "name": name, "route": "cuda", "source": "twtml_tpu_torch/csrc/fused_sgd.cu",
+            "replaces": "twtml_tpu/ops/pallas_sgd.py:55", "launches": launches[name],
+            "max_abs_err": errs[0][name], "max_rel_err": errs[1][name], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": None,
+            "bound_bytes": moved[name], "card": smi, "rows": rows, "features": f,
+            "grid": plan.grid, "shapes_checked": [list(sh) for sh in SPLIT_SHAPES],
+        })
+        phase("multihost", f"{name}: {ms:.5f} ms a launch at B = {rows} x {f} (CUDA events, "
+              f"{n} launches), twin {plain_ms:.5f} ms, bound {bound_ms:.5f} ms "
+              f"({records[-1]['bound_by']}, {moved[name]} B), launches on the main arm "
+              f"{launches[name]}")
+    total = sum(r["ms"] for r in records)
+    phase("multihost", f"split kernels {total:.5f} ms an iteration (grad + reduce + update); "
+          f"card: {smi}")
+    return records, total
+
+
+def mh_block_emulation(path, lines):
+    """The group's --ingest block run's weights, emulated in this process:
+    tick k's per-rank buckets of their byte-range shards (host 0's rows,
+    then host 1's) through one card learner."""
+    import numpy as np
+
+    from twtml_tpu_torch.features.batch import UnitBatch
+    from twtml_tpu_torch.features.blocks import empty_block, iter_row_chunks
+    from twtml_tpu_torch.features.featurizer import Featurizer
+    from twtml_tpu_torch.models.linear import StreamingLinearRegressionWithSGD
+    from twtml_tpu_torch.streaming.sources import BlockReplayFileSource
+
+    feat = Featurizer(now_ms=NOW_MS)
+    chunks = [list(iter_row_chunks(BlockReplayFileSource(
+        path, shard_index=i, shard_count=MH_RANKS).produce(), MH_ROWS))
+        for i in range(MH_RANKS)]
+    ticks = max(len(c) for c in chunks)
+    model = StreamingLinearRegressionWithSGD(device=MH_ARGV[1])
+    for k in range(ticks):
+        parts = [feat.featurize_parsed_block(c[k] if k < len(c) else empty_block(),
+                                             row_bucket=MH_ROWS, unit_bucket=64)
+                 for c in chunks]
+        model.step(UnitBatch(*(np.concatenate([getattr(b, fld) for b in parts])
+                               for fld in UnitBatch._fields)))
+    if len(lines) != ticks:
+        raise AssertionError(f"multihost block: {len(lines)} lines for {ticks} ticks")
+    return model.latest_weights
+
+
+def multihost_phase(smi, statuses):
+    """The multihost phase: the lockstep multi-host runtime, 2 ranks of the linear
+    app on the one card over gloo, at the global B = 16384 (8192 a rank),
+    full width, 50 iterations, on the stream phase's tweets as a replay
+    file, against one process on the card; the split kernels against B1
+    and their twins; the arms (codec, superbatch, block ingest, the 2^18
+    Gram route), a resume, a rollback and a killed peer."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from twtml_tpu_torch.checkpoint import Checkpointer
+
+    workdir = tempfile.mkdtemp(prefix="twtml-multihost-")
+    try:
+        errs = split_checks()
+        path = os.path.join(workdir, "tweets.jsonl")
+        write_replay(path, statuses[:MH_BATCHES * OP_ROWS])
+        # the main arm: the default wire; its counts are the split kernels' launches
+        recs, totals, w_err, d_main, argv = mh_arm("main", path, workdir, MH_ROWS)
+        launches = {e: sum(r["launches"][e] for r in recs) for e in SPLIT_ENTRIES}
+        for rank, rec in enumerate(recs):
+            steps = MH_BATCHES + 1
+            want = {e: steps * OP_ITERS for e in SPLIT_ENTRIES}
+            got = {e: rec["launches"][e] for e in SPLIT_ENTRIES}
+            c = rec["collectives"]
+            if got != want or rec["launches"]["fused_dense_sgd"]:
+                raise AssertionError(f"multihost main rank {rank}: launches {rec['launches']}, "
+                                     f"want {want} and no fused launch")
+            if c["allreduces"] != steps * (OP_ITERS + 2) or c["align_allgathers"] != steps:
+                raise AssertionError(f"multihost main rank {rank}: collectives {c} for "
+                                     f"{steps} steps")
+        numbers = {"main": mh_rank_numbers("main", recs, totals, MH_BATCHES + 1),
+                   "weights_max_err": w_err}
+        # a second run on the same directory: the journal resumes exactly
+        again = mh_ok("resume", mh_group("resume", [*argv, "--batchBucket", str(MH_ROWS),
+                                                     "--checkpointDir", d_main]))
+        meta = Checkpointer(d_main).restore()[1]
+        if again[0][1] or meta["count"] != totals["count"]:
+            raise AssertionError(f"multihost resume: {len(again[0][1])} new lines, count "
+                                 f"{meta['count']}")
+        phase("multihost", "resume: the second run trained no batch (count unchanged)")
+        # the superbatch's warm-up also steps one all-padding group of K
+        for name, extra, steps in (("codec", ["--wireCodec", "dict"], MH_BATCHES + 1),
+                                   ("superbatch", ["--superBatch", "4"], MH_BATCHES + 5)):
+            recs_x, totals_x, err_x, _d, _a = mh_arm(name, path, workdir, MH_ROWS, extra)
+            numbers[name] = {"weights_max_err": err_x,
+                             "ranks": mh_rank_numbers(name, recs_x, totals_x, steps)}
+        # block ingest on byte-range shards, against its emulation on the card
+        d_block = os.path.join(workdir, "block")
+        block = mh_ok("block", mh_group("block", [*MH_ARGV, "--replayFile", path,
+                                                   "--ingest", "block", "--batchBucket",
+                                                   str(MH_ROWS), "--checkpointDir", d_block]))
+        err_b, _meta = mh_hold_weights("block", d_block, mh_block_emulation(path, block[0][1]))
+        numbers["block"] = {"weights_max_err": err_b}
+        phase("multihost", f"block: {len(block[0][1])} ticks of byte-range shards, weights "
+              f"within {err_b:.3g} of the emulation on the card")
+        # the 2^18 Gram route at B = 2048 (1024 a rank) on short rows
+        gram_path = os.path.join(workdir, "gram.jsonl")
+        write_replay(gram_path, statuses[:MH_BATCHES * GRAM_ROWS])
+        recs_g, totals_g, err_g, _d, _a = mh_arm("gram", gram_path, workdir,
+                                                 GRAM_ROWS // MH_RANKS, MH_GRAM_ARGV)
+        for rank, rec in enumerate(recs_g):
+            if not all(rec["launches"][k] for k in ("count_build", "dual_sgd",
+                                                    "dual_writeback_counts")):
+                raise AssertionError(f"multihost gram rank {rank}: launches {rec['launches']}")
+        numbers["gram"] = {"weights_max_err": err_g,
+                           "ranks": mh_rank_numbers("gram", recs_g, totals_g,
+                                                    MH_BATCHES + 1)}
+        # a poisoned batch rolled back on both ranks
+        d_roll = os.path.join(workdir, "rollback")
+        roll = mh_ok("rollback", mh_group("rollback", [
+            *argv, "--batchBucket", str(MH_ROWS), "--checkpointDir", d_roll,
+            "--checkpointEvery", "1", "--chaos", "source.nan@3"]))
+        for rank, (_rc, _lines, _rec, err, _wall) in enumerate(roll):
+            if "rolled back to verified checkpoint" not in err or "disagree" in err:
+                raise AssertionError(f"multihost rollback rank {rank}:\n{err}")
+        state, meta = Checkpointer(d_roll).restore()
+        if (len(roll[0][1]) != MH_BATCHES or meta["count"] != totals["count"]
+                or not np.isfinite(np.asarray(state)).all()):
+            raise AssertionError(f"multihost rollback: {len(roll[0][1])} lines, count "
+                                 f"{meta['count']}")
+        phase("multihost", "rollback: source.nan@3 rolled both ranks back (the follower from "
+              f"the lead's broadcast), the journal replayed, {MH_BATCHES} batches trained")
+        # a peer killed at tick 3: the survivor aborts within the watchdog's bound
+        kill = mh_group("peer.kill", [*argv, "--batchBucket", str(MH_ROWS),
+                                      "--chaos", "peer.kill:uid=1:tick=3"],
+                        env={"TWTML_LOCKSTEP_TIMEOUT_S": str(MH_WATCHDOG_S)})
+        (rc0, _l0, _r0, err0, wall0), (rc1, *_rest) = kill
+        # the survivor's wall holds its start-up (a process reaches the card
+        # in ~8 s), the warm-up and two ticks, then at most the watchdog
+        if rc1 != 77 or rc0 == 0 or "lockstep" not in err0 or wall0 > MH_WATCHDOG_S + 90:
+            raise AssertionError(f"multihost peer.kill: exit codes {rc0}, {rc1} after "
+                                 f"{wall0:.1f} s:\n{err0}")
+        numbers["peer_kill"] = {"survivor_exit": rc0, "survivor_wall_s": wall0}
+        phase("multihost", f"peer.kill at tick 3: the peer exited 77, the survivor {rc0} "
+              f"after {wall0:.1f} s (watchdog {MH_WATCHDOG_S} s), no hang")
+        records, split_ms = split_times(smi, errs, launches)
+        numbers["split_ms_an_iteration"] = split_ms
+        return records, numbers
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def times_only(smi):
     """``--times-only``: the kernels' device times alone (B1's training
     kernel in its logistic mode, its predict-only mode, B4 in both planes,
@@ -5396,14 +6025,19 @@ def main() -> None:
         block = block_phase(block_pool, smi)
     finally:
         RECORDER.close()
+    RECORDER = Recorder()  # the multihost phase's app runs publish to it
+    try:
+        split_records, multihost = multihost_phase(smi, web_statuses)
+    finally:
+        RECORDER.close()
     record.update(tenants=tenants, launches_tenants=tenants["launches"], block=block,
-                  launches_block=block["launches"])
+                  launches_block=block["launches"], multihost=multihost)
     predict_record.update(abtest=abtest, launches_abtest=abtest["counts_ab"]["predict_launches"])
     import torch
 
     phase("done", f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [record, logistic_record, predict_record, *gram_records]}),
-          flush=True)
+    print(json.dumps({"kernels": [record, logistic_record, predict_record, *gram_records,
+                                  *split_records]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -131,8 +131,9 @@ def _readme_lines() -> list[list[str]]:
 
 
 README_LINES = _readme_lines()
-# the ROADMAP item a README line needs, by the flag that needs it
-NEEDS = {"twtml://host0:9999": "A10"}
+# the ROADMAP item a README line needs, by the flag that needs it: the
+# elastic runtime's (the lockstep runtime, A10a, took the twtml:// lines)
+NEEDS = {"--elastic": "A10b"}
 
 
 def test_the_readme_has_its_jax_command_lines():
@@ -172,6 +173,9 @@ def test_readme_local_1_line_runs_on_the_cpu_with_the_jax_apps_lines(monkeypatch
 
 # ---- values that need an unported feature -------------------------------------------
 
+# the multi-host values the port refused naming ROADMAP A10 before it ported
+# the lockstep runtime (A10a): --elastic on still raises, naming A10b; the
+# others are the feature's now
 UNPORTED = [
     (["--numProcesses", "2"], "A10"),
     (["--processId", "0"], "A10"), (["--coordinator", "host:9"], "A10"),
@@ -180,12 +184,40 @@ UNPORTED = [
 ]
 
 
+def _multihost_outcome(conf):
+    conf.validate_master()
+    try:
+        return conf.multihost()
+    except SystemExit as exc:
+        return ("exit", str(exc))
+
+
 @pytest.mark.parametrize("argv,item", UNPORTED, ids=lambda v: " ".join(v) if isinstance(v, list) else v)
 def test_unported_values_raise_naming_their_item(argv, item):
+    """``--elastic on`` raises naming ROADMAP A10b (the rest of ``item``);
+    the group coordinates pass ``select_backend`` and resolve as the JAX
+    package's ``multihost`` resolves them (half-given ones exit)."""
     conf = ConfArguments().parse(argv)
-    JaxConf().parse(argv)  # the JAX parser takes the same value
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        common.select_backend(conf)
+    theirs = JaxConf().parse(argv)  # the JAX parser takes the same value
+    if conf.elastic == "on":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}b"):
+            common.select_backend(conf)
+        return
+    common.select_backend(conf)
+    assert _multihost_outcome(conf) == _multihost_outcome(theirs)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--coordinator", "h:9", "--numProcesses", "2", "--processId", "1"],
+    ["--master", "twtml://h:9/", "--numProcesses", "4", "--processId", "0"],
+    ["--master", "twtml://h:9", "--coordinator", "h:9", "--numProcesses", "2",
+     "--processId", "0"],
+    ["--coordinator", "h:9", "--numProcesses", "2", "--processId", "2"],
+    ["--coordinator", "h:9", "--numProcesses", "1", "--processId", "0"],
+], ids=lambda a: " ".join(a))
+def test_multihost_coordinates_resolve_as_the_jax_package_does(argv):
+    assert _multihost_outcome(ConfArguments().parse(argv)) == _multihost_outcome(
+        JaxConf().parse(argv))
 
 
 # the paths ported since: the live source, host hashing, the profiler, the
@@ -246,15 +278,13 @@ def test_values_the_jax_package_ignores_on_this_path_pass():
     ("local[4]", "cuda", None), ("local[2]", "cpu", "A10"),
 ])
 def test_local_master_follows_the_jax_rule(master, backend, outcome):
-    """``local[N]`` sets the CPU platform's shards in the JAX package: a no-op
-    on the card; on the CPU, N > 1 needs data parallelism (A10)."""
+    """``local[N]`` resolves by the JAX rule, ``min(N, devices)`` data
+    shards: one process drives one device (the CPU or one card), so every
+    N runs unsharded. (N > 1 on the CPU raised naming ``outcome``, A10,
+    until the lockstep runtime was ported.)"""
     conf = ConfArguments().parse(["--master", master, "--backend", backend])
     assert conf.local_shards() == JaxConf().parse(["--master", master]).local_shards()
-    if outcome is None:
-        common.select_backend(conf)
-    else:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {outcome}"):
-            common.select_backend(conf)
+    common.select_backend(conf)
 
 
 @pytest.mark.parametrize("master", ["spark://host:7077", "mesos://m:5050", "yarn"])

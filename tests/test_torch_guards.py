@@ -503,8 +503,19 @@ def test_history_resolving_on_raises_naming_the_historian(tmp_path):
 
 @pytest.mark.parametrize("spec", ["peer.kill:tick=3", "peer.pause@2", "fetch:error@3,peer.kill"])
 def test_peer_chaos_raises_naming_the_roadmap_item(spec):
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        faults.install_chaos(spec)
+    """The peer.* targets raised naming ROADMAP A10 until the lockstep
+    runtime (A10a) was ported: they now parse into the JAX package's rules,
+    and an uninstalled injector leaves the tick hook a no-op."""
+    from twtml_tpu.streaming import faults as jax_faults
+
+    try:
+        ours = faults.install_chaos(spec)
+        theirs = jax_faults.ChaosInjector(spec)
+        assert ({t: [repr(r) for r in rs] for t, rs in ours._rules.items()}
+                == {t: [repr(r) for r in rs] for t, rs in theirs._rules.items()})
+    finally:
+        faults.uninstall_chaos()
+    faults.lockstep_chaos(3, 0.0, uid=0)
 
 
 @pytest.mark.parametrize("argv", [

@@ -64,6 +64,9 @@ def test_port_files_are_found():
             "twtml_tpu_torch/serving/abtest.py",
             "twtml_tpu_torch/telemetry/tenants.py"} <= names
     assert {"twtml_tpu_torch/features/wirecodec.py", "twtml_tpu_torch/features/blocks.py"} <= names
+    assert {"twtml_tpu_torch/parallel/distributed.py", "twtml_tpu_torch/parallel/mesh.py",
+            "twtml_tpu_torch/parallel/sharding.py",
+            "twtml_tpu_torch/telemetry/straggler.py"} <= names
 
 
 def test_importing_the_app_leaves_jax_unloaded():
@@ -90,7 +93,9 @@ def test_importing_the_app_leaves_jax_unloaded():
     "twtml_tpu_torch.apps.kmeans", "twtml_tpu_torch.apps.serve",
     "twtml_tpu_torch.apps.router", "twtml_tpu_torch.serving.plane",
     "twtml_tpu_torch.parallel.tenants", "twtml_tpu_torch.serving.abtest",
-    "twtml_tpu_torch.telemetry.tenants",
+    "twtml_tpu_torch.telemetry.tenants", "twtml_tpu_torch.parallel.distributed",
+    "twtml_tpu_torch.parallel.sharding", "twtml_tpu_torch.parallel.mesh",
+    "twtml_tpu_torch.telemetry.straggler", "twtml_tpu_torch.telemetry.sideband",
 ])
 def test_importing_the_host_modules_leaves_jax_and_aiohttp_unloaded(module):
     code = (

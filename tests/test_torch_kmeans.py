@@ -260,8 +260,13 @@ def test_app_checkpoints_centers_and_weights_for_either_package(tmp_path, monkey
 
 
 def test_app_refuses_the_multi_host_values():
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        app.run(ConfArguments().parse(["--backend", "cpu", "--master", "local[2]",
+    """K-means across hosts (its data-parallel mesh) raises naming ROADMAP
+    A10b before anything is built or joined (``local[2]`` raised naming
+    A10 until the lockstep runtime was ported; it resolves to one shard
+    now)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP A10b"):
+        app.run(ConfArguments().parse(["--backend", "cpu", "--master", "twtml://127.0.0.1:9",
+                                       "--numProcesses", "2", "--processId", "0",
                                        "--lightning", CLOSED]))
 
 

@@ -326,5 +326,13 @@ def test_app_publishes_percent_stats_and_checkpoints(tmp_path, monkeypatch):
 @pytest.mark.parametrize("argv,item", [(["--master", "local[2]"], "A10"),
                                        (["--elastic", "on"], "A10")])
 def test_app_refuses_the_multi_host_values(argv, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        app.run(ConfArguments().parse(["--backend", "cpu", *argv, *QUIET]))
+    """``--elastic on`` raises naming ROADMAP A10b (the rest of ``item``);
+    ``local[2]``, refused until the lockstep runtime (A10a) was ported,
+    resolves to one data shard and trains."""
+    conf = ConfArguments().parse(["--backend", "cpu", "--source", "synthetic", "--seconds",
+                                  "0", "--batchBucket", "4", *argv, *QUIET])
+    if conf.elastic == "on":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}b"):
+            app.run(conf)
+        return
+    assert app.run(conf, max_batches=1)["batches"] == 1

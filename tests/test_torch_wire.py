@@ -320,15 +320,30 @@ RAGGED_FIELDS = (((4096,), "|u1"), ((2,), "<u2"), ((2, 4), "<f4"), ((2,), "<f4")
 
 
 @pytest.mark.parametrize("layout,item", [
-    # the group and flat layouts are ported, their digram-coded forms too;
-    # the shard-aligned forms are not
+    # the shard-aligned layouts the port refused until ROADMAP A10(a)
+    # ported them: a multi-host group's count in a group or shard-segment
+    # layout, and a flat pack of a 2-shard batch
     (("RaggedGroupSegments", RAGGED_FIELDS, (8, 2, 1, "u16delta")), "A10"),
-    (("RaggedShardSegments", ()), "A10"),
+    (("RaggedShardSegments", RAGGED_FIELDS, (8, 2, "u16delta")), "A10"),
     (("RaggedUnitBatch", RAGGED_FIELDS, (8, 2, "u16delta")), "A10"),
 ])
 def test_unpack_refuses_layouts_not_ported(layout, item):
-    with pytest.raises(NotImplementedError, match=item):
-        unpack_batch(np.zeros(4096 + 4 + 48, np.uint8), layout)
+    """Since ROADMAP ``item`` these layouts unpack (none refuses any more):
+    the port's numpy and torch unpacks give the JAX package's host unpack
+    of the same bytes, field for field."""
+    from twtml_tpu.features.batch import unpack_batch as jax_unpack
+
+    buf = np.random.default_rng(3).integers(0, 200, 4096 + 4 + 48).astype(np.uint8)
+    buf[4096:4100] = (1, 0, 2, 0)  # two small length deltas
+    want = jax_unpack(buf, layout)
+    for got in (unpack_batch(buf, layout), unpack_batch(torch.from_numpy(buf), layout)):
+        fields = [getattr(got, f) for f in ("units", "offsets", "numeric", "label", "mask")]
+        for g, w in zip(fields, (want.units, want.offsets, want.numeric, want.label,
+                                 want.mask)):
+            g = g.numpy() if isinstance(g, torch.Tensor) else g
+            np.testing.assert_array_equal(g.view(np.uint16) if g.dtype == np.int16 else g,
+                                          np.asarray(w))
+        assert got.num_shards == want.num_shards and got.row_len == want.row_len
 
 
 CODED_FIELDS = (((2048,), "|u1"),) + RAGGED_FIELDS[1:]

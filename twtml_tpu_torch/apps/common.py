@@ -1,5 +1,6 @@
-"""Shared app runtime, single host (counterpart of the single-host parts of
-``twtml_tpu/apps/common.py``): source and model construction, the
+"""Shared app runtime (counterpart of ``twtml_tpu/apps/common.py``, its
+elastic parts aside): group formation (``init_distributed``), source and
+model construction, the
 ``--trace``/``--chaos``/``--blackbox``/``--journal``/``--history``
 installers, the backend checks (``select_backend``), the
 checkpoint (``AppCheckpoint``) and journal recovery, the runtime guards
@@ -26,8 +27,16 @@ wrappers in the JAX package's order, outermost first: the journal's token
 pop, freshness, model watch, the tenant plane's view and aggregation
 (``--tenants``), the sentinel, then the journal commit and the app's
 handler. A checkpoint reads the weights (a blocking copy) only at a
-drained boundary, outside the sync-debug window of a dispatch. The
-multi-host parts of the JAX package's runtime are not ported (ROADMAP A10).
+drained boundary, outside the sync-debug window of a dispatch.
+
+Across hosts (``--coordinator``/``twtml://``, a lockstep group): every rank
+reads its own intake shard (``build_source``), trains a
+``MultiHostSGDModel`` (``build_model``) whose stats are global, delivers at
+deterministic points only (no early emit, so a delivery's side effects land
+on the same tick on every rank), skips a globally empty batch after its
+step, restores and rolls back from the lead's checkpoint, broadcast
+(``AppCheckpoint``), journals under ``journal-p<rank>`` and leaves printing
+and publishing to the lead. Elastic membership is ROADMAP A10b.
 """
 
 from __future__ import annotations
@@ -111,7 +120,16 @@ def build_source(conf, allow_block: bool = False,
     the parser filters by, since it keeps every retweet); the replay file
     (as fast as it parses: ``--replaySpeed`` exits) or the live stream goes
     through the block parser, the wire emitter under ``--blockWire``'s
-    rule. The multi-host byte-range shard is ROADMAP A10."""
+    rule. In a multi-host group each rank reads its own shard: a block
+    replay its line-aligned byte range of the file, a live stream the
+    statuses whose id is its rank mod the ranks (``IdShardedSource``),
+    anything else every N-th item (``ShardedSource``); ``--source twitter
+    --ingest block`` exits there (a parsed block carries no per-row shard
+    key), as in the JAX package."""
+    from ..parallel import distributed as _dist
+
+    group = _dist.mesh()
+    multihost = group.num_processes > 1
     if conf.effective_wire() == "ragged" and conf.hashOn != "device":
         raise SystemExit("--wire ragged is a device-hash wire format; "
                          "it requires --hashOn device")
@@ -124,6 +142,10 @@ def build_source(conf, allow_block: bool = False,
     if block and conf.hashOn != "device":
         raise SystemExit("--ingest block ships raw code units (device hashing); "
                          "--hashOn host requires --ingest object")
+    if multihost and block and conf.source == "twitter":
+        raise SystemExit("--ingest block with --source twitter cannot shard across hosts "
+                         "(a parsed block has no per-row id to shard on); use --ingest "
+                         "object for a multi-host live stream")
     begin, end = (block_interval if block_interval is not None
                   else (conf.numRetweetBegin, conf.numRetweetEnd))
     if conf.source == "twitter":
@@ -142,7 +164,9 @@ def build_source(conf, allow_block: bool = False,
                              "drop --replaySpeed or use --ingest object")
         source = (
             BlockReplayFileSource(conf.replayFile, num_retweet_begin=begin,
-                                  num_retweet_end=end, wire=conf.effective_block_wire())
+                                  num_retweet_end=end, wire=conf.effective_block_wire(),
+                                  shard_index=group.process_index,
+                                  shard_count=group.num_processes)
             if block else ReplayFileSource(conf.replayFile, speed=conf.replaySpeed))
     else:
         now_env = os.environ.get("TWTML_NOW_MS", "")
@@ -155,6 +179,11 @@ def build_source(conf, allow_block: bool = False,
             source, crash_every=conf.faultEvery,
             max_crashes=3 if conf.source == "replay" else 0,
         )
+    if multihost and not block:
+        from ..streaming.sources import IdShardedSource, ShardedSource
+
+        shard = IdShardedSource if conf.source == "twitter" else ShardedSource
+        source = shard(source, group.process_index, group.num_processes)
     return source
 
 
@@ -172,17 +201,39 @@ def build_model(conf, model_cls=StreamingLinearRegressionWithSGD):
     ``--tenants M > 1`` (or ``TWTML_FORCE_TENANT_PLANE=1`` at M = 1) builds
     the tenant plane instead (parallel/tenants.py): M learners of
     ``model_cls``'s gradient family on one wire, one fetch a tick.
-    ``--tenantKey lang`` needs ``--hashOn device``; the tenant fleet across
-    hosts (``--coordinator``) is ROADMAP A10."""
+    ``--tenantKey lang`` needs ``--hashOn device``.
+
+    In a multi-host group (``init_distributed`` formed it) the learner is a
+    ``MultiHostSGDModel`` over a ``ParallelSGDModel`` of ``model_cls``'s
+    gradient family on this rank's device, with the digram codec's agreed
+    bucket under ``--wireCodec dict``; the tenant fleet across hosts is
+    ROADMAP A10b."""
+    from ..parallel import distributed as _dist
+
     featurize_native.configure(conf.featurizeNative)
     assemble.configure(conf.wireAssemble)
     tenants = int(conf.tenants or 1)
+    if tenants > 1 and (conf.coordinator or conf.numProcesses > 0 or conf.processId >= 0):
+        raise _multi_host("--tenants across hosts (the tenant fleet)")
+    if _dist.is_multihost():
+        from ..parallel.sharding import ParallelSGDModel
+
+        codec = conf.effective_wire_codec() if conf.effective_wire() == "ragged" else "off"
+        inner = ParallelSGDModel.from_conf(
+            conf, _dist.mesh(), _dist.Collectives.from_group(),
+            residual_fn=model_cls.residual_fn, prediction_fn=model_cls.prediction_fn,
+            round_predictions=model_cls.round_predictions, device=_dist.device())
+        model = _dist.MultiHostSGDModel(inner, _dist.mesh(),
+                                        wire_codec="dict" if codec == "dict" else "")
+        get_arena().use_device(model.device)
+        log.info("multi-host training (%s): rank %d of %d, %s step route",
+                 model_cls.__name__, _dist.mesh().process_index,
+                 _dist.mesh().num_processes, model.route)
+        return model
     if tenants > 1 or os.environ.get(FORCE_TENANT_PLANE_ENV) == "1":
         if conf.tenantKey == "lang" and conf.hashOn != "device":
             raise SystemExit("--tenantKey lang routes on raw code units; it requires "
                              "--hashOn device")
-        if conf.coordinator or conf.numProcesses > 0 or conf.processId >= 0:
-            raise _multi_host("--tenants with --coordinator (the tenant fleet)")
         from ..parallel.tenants import TenantStackModel
 
         model = TenantStackModel.from_conf(
@@ -197,11 +248,22 @@ def build_model(conf, model_cls=StreamingLinearRegressionWithSGD):
 
 # ---- installers of the process-wide planes ---------------------------------
 
+def _rank_suffix() -> str:
+    """``-p<rank>`` in a multi-host group (each rank's own trace, journal),
+    "" on one host."""
+    from ..parallel import distributed as _dist
+
+    group = _dist.mesh()
+    return f"-p{group.process_index}" if group.num_processes > 1 else ""
+
+
 def install_trace(conf) -> None:
     """``--trace PATH`` (rotated at ``--traceMaxMb``): the pipeline tracer
-    (telemetry/trace.py)."""
+    (telemetry/trace.py); a multi-host rank traces to ``PATH.p<rank>``."""
     if conf.trace:
-        _trace.install(conf.trace, max_bytes=int(conf.traceMaxMb or 0) * 1024 * 1024)
+        suffix = _rank_suffix()
+        _trace.install(conf.trace + (f".{suffix[1:]}" if suffix else ""),
+                       max_bytes=int(conf.traceMaxMb or 0) * 1024 * 1024)
 
 
 def install_chaos(conf) -> None:
@@ -229,13 +291,17 @@ def install_blackbox(conf) -> None:
     out_dir = (os.path.dirname(os.path.abspath(ckpt_dir)) if ckpt_dir
                else tempfile.gettempdir())
     cfg = {k: v for k, v in vars(conf).items() if isinstance(v, (str, int, float, bool))}
-    _blackbox.install(config=cfg, out_dir=out_dir, process_index=0)
+    from ..parallel import distributed as _dist
+
+    _blackbox.install(config=cfg, out_dir=out_dir,
+                      process_index=_dist.mesh().process_index)
     _blackbox.install_signal_handler()
 
 
 def install_journal(conf) -> None:
     """``--journal`` (auto: on with ``--checkpointDir``): open the intake
-    journal under ``<checkpointDir>/journal``, so the seam in
+    journal under ``<checkpointDir>/journal`` (``journal-p<rank>`` for a
+    multi-host rank: each journals its own shard), so the seam in
     streaming/context.py appends. Off uninstalls a journal an earlier run
     in the same process left."""
     if not conf.effective_journal():
@@ -245,7 +311,7 @@ def install_journal(conf) -> None:
         raise SystemExit("--journal on requires --checkpointDir: the replay cursor "
                          "lives in verified checkpoint meta (use --journal auto to "
                          "follow the checkpoint flag)")
-    _journal.install(os.path.join(conf.checkpointDir, "journal"),
+    _journal.install(os.path.join(conf.checkpointDir, "journal" + _rank_suffix()),
                      max_mb=int(conf.journalMaxMb or 512))
 
 
@@ -272,14 +338,34 @@ def install_historian(conf) -> None:
     )
 
 
+def init_distributed(conf) -> bool:
+    """The cluster face of every entry point (the reference's ``--master``):
+    validate ``--master``, and when ``--coordinator`` or a ``twtml://``
+    master asks for a multi-host group, join it (parallel/distributed.py
+    ``initialize``, on ``--backend``'s device kind). Returns whether this
+    process prints and publishes: the lead (rank 0), or any single-host
+    run."""
+    from ..parallel import distributed as _dist
+
+    conf.validate_master()
+    group = conf.multihost()
+    if group is None:
+        return True
+    coordinator, num_processes, process_id = group
+    return _dist.initialize(coordinator, num_processes, process_id, conf.backend)
+
+
 def select_backend(conf) -> None:
     """The JAX package's ``select_backend`` checks for the port, before
     anything is built: ``--master`` (``validate_master``), the values that
     need an unported feature (``check_ported``), ``--dtype`` (float64 on
     ``--backend cpu`` only: the JAX package runs it on its CPU backend
-    alone) and ``local[N]``, which sets the CPU's data-parallel shards in
-    the JAX package: a no-op on the card, and N > 1 on the CPU needs the
-    data-parallel runtime (ROADMAP A10)."""
+    alone) and ``local[N]``, which the JAX package resolves to
+    ``min(N, devices)`` data shards: one process drives one device (the
+    CPU, or one card), so every ``local[N]`` runs unsharded, and a
+    multi-host group ignores the hint (logged)."""
+    from ..parallel import distributed as _dist
+
     conf.validate_master()
     conf.check_ported()
     if conf.dtype not in DTYPES:
@@ -288,11 +374,12 @@ def select_backend(conf) -> None:
         raise SystemExit("--dtype float64 runs on the CPU backend only (as in the "
                          "JAX package); add --backend cpu")
     shards = conf.local_shards()
-    if conf.backend == "cpu" and shards and shards > 1:
-        raise NotImplementedError(
-            f"--master {conf.master} shards the batch over {shards} CPU devices, "
-            "which needs the data-parallel runtime the port has not ported "
-            "(ROADMAP A10); use local[1] or local[*]")
+    if shards and shards > 1:
+        if _dist.is_multihost():
+            log.warning("--master local[N] hint ignored in a multi-host run")
+        else:
+            log.info("--master %s: min(%d, 1 device) = 1 data shard, unsharded",
+                     conf.master, shards)
 
 
 # ---- checkpoint and journal recovery ---------------------------------------
@@ -311,8 +398,8 @@ def state_checksum(state) -> str:
 
 def _multi_host(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} belongs to the multi-host and elastic runtime, which is not "
-        "ported (ROADMAP A10)"
+        f"{what} belongs to the elastic part of the multi-host runtime, which is "
+        "not ported (ROADMAP A10b)"
     )
 
 
@@ -326,14 +413,21 @@ class AppCheckpoint:
 
     Each save stamps into the verified archive's meta the model-watch and
     freshness pictures and the journal's committed cursor, then retires the
-    journal segments every retained archive covers. The lead-authoritative
-    broadcast, the elastic standby archives and ``promote``/
-    ``resync_from_verified`` are multi-host (ROADMAP A10): a follower
-    (``lead=False``) and those two calls raise."""
+    journal segments every retained archive covers.
+
+    In a multi-host group the lead is authoritative: every rank restores
+    what it finds, then the lead's restored state and counters are
+    broadcast to all (a follower on other storage, or a stale one,
+    converges on the lead's), only the lead writes archives, and a rollback
+    restores on the lead and broadcasts (``rollback_to_verified``: every
+    rank calls it at the same delivery). The elastic standby archives and
+    ``promote``/``resync_from_verified`` are ROADMAP A10b and raise."""
 
     def __init__(self, conf, get_state, set_state, totals: dict, lead: bool = True):
-        if not lead:
-            raise _multi_host("a follower host's checkpoint (lead=False)")
+        from ..parallel import distributed as _dist
+
+        self._lead = lead
+        self._multihost = _dist.is_multihost()
         self._ckpt: "Checkpointer | None" = None
         self._get_state = get_state
         self._set_state = set_state
@@ -352,13 +446,33 @@ class AppCheckpoint:
             totals["batches"] = int(meta.get("batches", 0))
             log.info("resumed from checkpoint step %s (count=%s, state crc %s)",
                      meta.get("step"), totals["count"], state_checksum(state))
+        if self._multihost:
+            self._sync_from_lead(totals, restored is not None)
         self._last = totals["batches"]
+
+    def _sync_from_lead(self, totals: dict, restored: bool) -> None:
+        """Every rank takes the lead's state and counters (one broadcast)."""
+        from ..parallel import distributed as _dist
+
+        got = _dist.broadcast_object(
+            (restored, totals["count"], totals["batches"], self._get_state()),
+            is_source=self._lead)
+        lead_restored, count, batches, state = got
+        self._set_state(state)
+        totals["count"], totals["batches"] = int(count), int(batches)
+        if lead_restored and not restored:
+            log.info("resumed from the lead's broadcast checkpoint (count=%s)", count)
+        log.info("multi-host state synchronized from the lead (count=%s, state crc %s)",
+                 totals["count"], state_checksum(state))
 
     @property
     def directory(self) -> str:
         return self._ckpt.directory if self._ckpt is not None else ""
 
     def _save(self, totals: dict) -> None:
+        if not self._lead:
+            self._last = totals["batches"]  # the lead writes; keep the cadence aligned
+            return
         j = _journal.get()
         if j is not None and not j.save_allowed:
             # a replay is still draining: the weights hold rows past the
@@ -408,6 +522,17 @@ class AppCheckpoint:
         self._save(totals)
         return True
 
+    def own_journal_stamp(self, batches: int) -> "dict | None":
+        """This rank's journal cursor for an agreed rollback point: the
+        newest archive's stamp when its ``batches`` is that point (a stale or
+        missing archive gives None, and the caller counts the rows lost)."""
+        if self._ckpt is None:
+            return None
+        meta = self._ckpt.latest_meta()
+        if meta is None or int(meta.get("batches", -1)) != int(batches):
+            return None
+        return meta.get("journal")
+
     def adopt_replay_totals(self, totals: dict, count, batches) -> None:
         """Reset the run's counters to the rollback point whose rows a
         journal replay re-ingests: they count again through the unchanged
@@ -421,12 +546,31 @@ class AppCheckpoint:
         model: the sentinel's recovery. Returns its meta, or None when there
         is none (no directory, or every archive corrupt or non-finite)."""
         restored = self._ckpt.restore() if self._ckpt is not None else None
-        if restored is None:
+        if restored is not None:
+            _blackbox.note("last_verified_rollback", {"step": restored[1].get("step")})
+        if not self._multihost:
+            if restored is None:
+                return None
+            state, meta = restored
+            self._set_state(state)
+            return meta
+        from ..parallel import distributed as _dist
+
+        # every rank calls this at the same delivery; the lead's disk wins,
+        # and the agreed (count, batches) ride the same broadcast so a
+        # follower finds its own journal cursor
+        mine = None
+        if self._lead and restored is not None:
+            mine = (restored[0], int(restored[1].get("count", 0)),
+                    int(restored[1].get("batches", 0)))
+        got = _dist.broadcast_object(mine, is_source=self._lead)
+        if got is None:
             return None
-        state, meta = restored
-        _blackbox.note("last_verified_rollback", {"step": meta.get("step")})
+        state, count, batches = got
         self._set_state(state)
-        return meta
+        if self._lead:
+            return restored[1]
+        return {"broadcast": True, "count": count, "batches": batches}
 
     def promote(self) -> None:
         raise _multi_host("AppCheckpoint.promote (elastic lead election)")
@@ -454,6 +598,9 @@ def journal_replay_rollback(ssc, ckpt: AppCheckpoint, totals: dict, meta,
         count = int(meta.get("count", 0))
         batches = int(meta.get("batches", 0))
         stamp = meta.get("journal")
+        if stamp is None and meta.get("broadcast"):
+            # a follower: the lead's agreed rollback point, this rank's cursor
+            stamp = ckpt.own_journal_stamp(batches)
     if stamp is None:
         log.warning("journal: the rollback point (batches=%d) carries no journal "
                     "cursor after %s; rows stay counted as lost, not replayed",
@@ -734,6 +881,12 @@ class ProcessRecycler:
                                                        sample_every)))
         if self.threshold <= 0:
             return
+        from ..parallel import distributed as _dist
+
+        if _dist.is_multihost():
+            raise SystemExit("--recycleAfterMb is single-host: a multi-host lockstep group "
+                             "cannot lose a member mid-collective; recycle the whole group "
+                             "externally on the RSS watchdog's warning")
         if not conf.checkpointDir:
             raise SystemExit("--recycleAfterMb needs --checkpointDir (a recycle is "
                              "checkpoint + re-exec; without a checkpoint the restart "
@@ -1086,14 +1239,19 @@ class FetchPipeline:
     ones, where the app's stop fires); ``boundary_every`` drains on a
     monotonic cadence counter; ``flush()`` drains the tail. A batch's
     leases retire after its handler (the handler reads the unpacked
-    arrays), and are discarded on a fetch abort, never recycled."""
+    arrays), and are discarded on a fetch abort, never recycled.
+    ``deterministic`` (a multi-host rank) drops the early emit of a
+    finished head, whose timing differs between ranks: deliveries (and the
+    handler's saves, rollbacks and stops) then land at the same dispatch
+    on every rank."""
 
     def __init__(self, model, handle, depth: int = FETCH_DEPTH, stop_requested=None,
                  boundary_every: int = 0, max_dispatch: int = 0, pack: bool = False,
                  abort=None, fetch_deadline_s: float = 0.0,
                  fetch_retries: "int | None" = None, stamp=None,
-                 sync_debug: str = "", wire_codec: str = ""):
+                 sync_debug: str = "", wire_codec: str = "", deterministic: bool = False):
         self.model = model
+        self.deterministic = deterministic
         self.handle = handle
         self.depth = max(1, depth)
         self.pack = pack
@@ -1162,7 +1320,7 @@ class FetchPipeline:
             return
         replays = self._replays
         while len(self._pending) >= self.depth or (
-            self._pending and self._pending[0][0].done()
+            not self.deterministic and self._pending and self._pending[0][0].done()
         ):
             self._emit_one()
             if stop is not None and stop():
@@ -1272,10 +1430,11 @@ class SuperBatcher:
     def __init__(self, model, k: int, handle, fetch_depth: int = 4,
                  boundary_every: int = 0, max_dispatch: int = 0, abort=None,
                  wire_pack: str = "stacked", stamp=None, sync_debug: str = "",
-                 wire_codec: str = ""):
+                 wire_codec: str = "", deterministic: bool = False):
         if wire_pack not in ("stacked", "group"):
             raise ValueError(f"wire_pack must be 'stacked' or 'group', got {wire_pack!r}")
         self.model = model
+        self.deterministic = deterministic
         self.wire_codec = wire_codec
         self.k = k
         self.handle = handle
@@ -1328,7 +1487,10 @@ class SuperBatcher:
         """The ``step_many`` wire of a full group: one packed buffer in
         group mode on the ragged wire, the stacked arrays otherwise."""
         if self._coalesce(batches[0]):
+            own = getattr(self.model, "pack_group_for_wire", None)
             with _trace.get().span("wire_pack", mode="group", batches=len(batches)):
+                if own is not None:  # a multi-host rank's segment, agreed buckets
+                    return own(batches)
                 return pack_ragged_group(batches, codec=self.wire_codec or None)
         return stack_batches(batches)
 
@@ -1429,7 +1591,7 @@ class SuperBatcher:
             return
         replays = self._replays
         while len(self._inflight) >= self.fetch_depth or (
-            self._inflight and self._inflight[0][0].done()
+            not self.deterministic and self._inflight and self._inflight[0][0].done()
         ):
             self._emit_group()
         if self._replays != replays:
@@ -1562,10 +1724,17 @@ def attach_super_batcher(conf, stream, model, handle, stop_requested=None,
     ``--superBatch K > 1`` (``super_batch_k``) groups K batches a dispatch
     through a ``SuperBatcher`` on ``--wirePack``'s wire (group: one buffer,
     ragged wire only), with the same wrappers, drains and cap."""
+    from ..parallel import distributed as _dist
+
     pack = bool(getattr(stream, "ragged", False))
     sync_debug = os.environ.get(SYNC_DEBUG_ENV, "")
     watchdog = RssWatchdog()
     app_handle = handle
+    multihost = _dist.is_multihost()
+    if multihost and (stream.row_bucket <= 0 or stream.token_bucket <= 0):
+        raise SystemExit("multi-host runs need pinned shapes: set --batchBucket and "
+                         "--tokenBucket (every rank dispatches the same collectives every "
+                         "tick, all-padding batches included)")
 
     def handle(host, batch, t, at_boundary=True, stamp=None):  # noqa: F811
         watchdog.tick()
@@ -1599,6 +1768,21 @@ def attach_super_batcher(conf, stream, model, handle, stop_requested=None,
             tenant_inner(aggregate_tenant_output(host, batch, model), batch, t,
                          at_boundary=at_boundary, stamp=stamp)
 
+    if multihost:
+        # the local batch cannot gate the step (its collectives), but a batch
+        # GLOBALLY empty (every rank's rows filtered) must not reach the app,
+        # nor take a max-batches slot
+        empty_inner = handle
+        pipeline_ref: list = []
+
+        def handle(host, batch, t, at_boundary=True, stamp=None):  # noqa: F811
+            if int(np.asarray(host.count).sum()) == 0:
+                log.debug("batch: 0 (global)")
+                if pipeline_ref:
+                    pipeline_ref[0].refund_dispatch()
+                return
+            empty_inner(host, batch, t, at_boundary=at_boundary, stamp=stamp)
+
     if modelwatch is not None and modelwatch.enabled:
         watch_inner = handle
 
@@ -1623,6 +1807,9 @@ def attach_super_batcher(conf, stream, model, handle, stop_requested=None,
             pop_inner(host, batch, t, at_boundary=at_boundary, stamp=stamp)
 
     def skip_empty(fn):
+        if multihost:
+            return fn  # an empty rank still dispatches: its peers' collectives wait
+
         def cb(batch, t):
             if batch.num_valid == 0:
                 log.debug("batch: 0")
@@ -1653,11 +1840,18 @@ def attach_super_batcher(conf, stream, model, handle, stop_requested=None,
             model, k, handle, boundary_every=boundary_every, max_dispatch=max_dispatch,
             abort=abort, stamp=stamp, sync_debug=sync_debug,
             wire_pack="group" if pack and conf.effective_wire_pack() == "group" else "stacked",
-            wire_codec=wire_codec,
+            wire_codec=wire_codec, deterministic=multihost,
         )
         if sentinel is not None:
             sentinel.bind(batcher)  # a skipped batch refunds its cap slot
-        stream.foreach_batch(skip_empty(batcher.on_batch))
+        if multihost:
+            pipeline_ref.append(batcher)
+        # a multi-host rank agrees each batch's buckets before grouping, so
+        # every rank's group signatures match
+        prepare = getattr(model, "prepare", None)
+        on_batch = (batcher.on_batch if prepare is None
+                    else lambda batch, t: batcher.on_batch(prepare(batch), t))
+        stream.foreach_batch(skip_empty(on_batch))
         return _with_group(batcher.flush, k, batcher.group_wire, wire_codec)
 
     if conf.seconds <= 0:
@@ -1665,9 +1859,12 @@ def attach_super_batcher(conf, stream, model, handle, stop_requested=None,
             model, handle, depth=fetch_depth, stop_requested=stop_requested,
             boundary_every=boundary_every, max_dispatch=max_dispatch, pack=pack,
             abort=abort, stamp=stamp, sync_debug=sync_debug, wire_codec=wire_codec,
+            deterministic=multihost,
         )
         if sentinel is not None:
             sentinel.bind(pipe)  # a skipped batch refunds its cap slot
+        if multihost:
+            pipeline_ref.append(pipe)
         stream.foreach_batch(skip_empty(pipe.on_batch))
         return _with_group(pipe.flush, wire_codec=wire_codec)
 

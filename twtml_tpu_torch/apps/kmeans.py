@@ -15,8 +15,8 @@ cpu`` is given; ``--checkpointDir`` saves and restores ``{centers,
 weights}`` as the JAX app does. ``--ingest block`` parses with the
 retweet-count interval opened to every retweet (the parser's filter is then
 ``isRetweet`` alone) and takes both dimensions from the parsed block's
-numeric columns. Multi-host lockstep (ROADMAP A10) is not ported: its flags
-stop the run in ``select_backend``.
+numeric columns. K-means across hosts (its mesh) is ROADMAP A10b: the
+multi-host flags stop the run before anything is built.
 
 Run: ``python -m twtml_tpu_torch.apps.kmeans --backend cpu --source replay \\
       --replayFile tests/data/tweets.jsonl --seconds 0 \\
@@ -106,6 +106,9 @@ def run(conf: ConfArguments, max_batches: int = 0, wall_clock: bool = True) -> d
     the source synchronously (``run_to_completion``). Returns the totals
     (``count``, ``batches``)."""
     select_backend(conf)
+    if conf.multihost() is not None:
+        raise NotImplementedError("k-means across hosts (its data-parallel mesh) is not "
+                                  "ported (ROADMAP A10b)")
     install_trace(conf)
     install_chaos(conf)
     install_blackbox(conf)

@@ -1,5 +1,5 @@
 """Streaming linear-regression entry point, the flagship application
-(counterpart of ``twtml_tpu/apps/linear_regression.py``), single host.
+(counterpart of ``twtml_tpu/apps/linear_regression.py``).
 
 config -> model -> session stats (the twtml-web dashboard and Lightning) ->
 featurizer -> streaming context -> source -> per micro-batch: featurize on
@@ -25,8 +25,15 @@ resumes, the recycler (``--recycleAfterMb``) watches RSS; every delivery
 passes the divergence sentinel, the model watch and the freshness plane
 (all on by default). A clean shutdown stamps the historian's perfGuard
 baseline. Values of the JAX package's flags that need an unported feature
-(multi-host among them, ROADMAP A10) stop the run before anything is built
+(elastic membership, ROADMAP A10b) stop the run before anything is built
 (``select_backend``).
+
+Across hosts (``--master twtml://host:port --numProcesses N --processId
+I``, or ``--coordinator``): the process joins the group first
+(``init_distributed``), reads its own shard of the source, trains its rows
+of each global batch in lockstep with the others (``MultiHostSGDModel``,
+one cadence all-gather a tick), and only the lead (process 0) prints,
+publishes and writes checkpoints.
 
 ``--superBatch K`` (back to back, pinned ``--batchBucket``/``--tokenBucket``)
 groups K batches into one ``step_many`` dispatch (apps/common.py
@@ -79,11 +86,14 @@ from .common import (
     install_chaos,
     install_historian,
     install_journal,
+    init_distributed,
     install_trace,
     journal_boot_replay,
     select_backend,
     warmup_compile,
 )
+from ..parallel.distributed import is_multihost
+from ..parallel.distributed import shutdown as shutdown_distributed
 
 log = get_logger("apps.linear")
 
@@ -127,12 +137,17 @@ def run_learner(conf: ConfArguments, max_batches: int = 0, fetch_depth: int = FE
     blocks, ``--ingest block``).
     A run a runtime guard aborted (the fetch watchdog, the sentinel's
     rollback budget) raises after its shutdown saved the final checkpoint."""
+    # a multi-host group forms first: the rank's device is chosen before
+    # anything touches the card
+    lead = init_distributed(conf)
     select_backend(conf)
     # the model first: without a card the default --backend cuda fails here,
     # before anything is published
     model = build_model(conf) if learner is None else build_model(conf, learner)
+    lockstep = is_multihost()
     log.info("Initializing session stats...")
-    session = SessionStats(conf).open()
+    # one telemetry session a run: the lead publishes the global stats
+    session = SessionStats(conf).open() if lead else None
     featurizer = Featurizer.from_conf(conf)
     if label_fns is not None:
         (featurizer.label_fn, featurizer.batch_label_fn,
@@ -162,7 +177,7 @@ def run_learner(conf: ConfArguments, max_batches: int = 0, fetch_depth: int = FE
     # the checkpoint's state is the one f32 weight vector (key "w"), or the
     # tenant plane's [M, F+4] stack
     ckpt = AppCheckpoint(conf, get_state=lambda: model.latest_weights,
-                         set_state=model.set_initial_weights, totals=totals)
+                         set_state=model.set_initial_weights, totals=totals, lead=lead)
     journal_boot_replay(conf, ssc, ckpt, totals)
     recycler = ProcessRecycler(conf, ckpt, totals)
     sentinel = DivergenceSentinel(conf, model, ckpt, ssc, totals=totals)
@@ -176,13 +191,16 @@ def run_learner(conf: ConfArguments, max_batches: int = 0, fetch_depth: int = FE
         b = int(out.count)
         totals["count"] += b
         totals["batches"] += 1
-        valid = batch.mask.astype(bool)
-        real = batch.label[valid].astype(np.float64)
-        pred = np.asarray(out.predictions)[valid].astype(np.float64)
-        t0 = time.perf_counter()
-        line = report(out, totals, b, session, real, pred)
-        publish_ms = (time.perf_counter() - t0) * 1e3
-        print(line, flush=True)
+        publish_ms = 0.0
+        if lead:
+            # the stats are global, the per-row series this rank's rows
+            valid = batch.mask.astype(bool)
+            real = batch.label[valid].astype(np.float64)
+            pred = np.asarray(out.predictions)[valid].astype(np.float64)
+            t0 = time.perf_counter()
+            line = report(out, totals, b, session, real, pred)
+            publish_ms = (time.perf_counter() - t0) * 1e3
+            print(line, flush=True)
         stamp = dict(stamp or {})
         subs = dict(stamp.pop("featurize_substages_ms", {}))
         if "pack_ms" in stamp and stream.ragged:
@@ -222,7 +240,7 @@ def run_learner(conf: ConfArguments, max_batches: int = 0, fetch_depth: int = FE
     log.info("Starting the streaming computation...")
     tracer.start()
     t_stream = totals["stream_started_s"] = time.perf_counter()
-    ssc.start()
+    ssc.start(lockstep=lockstep)
     try:
         ssc.await_termination()
     except KeyboardInterrupt:
@@ -234,7 +252,8 @@ def run_learner(conf: ConfArguments, max_batches: int = 0, fetch_depth: int = FE
         try:
             totals["profile"] = tracer.stop()
         finally:
-            session.publish_metrics()  # the dashboard's panel ends current
+            if session is not None:
+                session.publish_metrics()  # the dashboard's panel ends current
             _trace.uninstall()
             ckpt.final_save(totals)
             # after the final save, which stamps the journal's cursor; a
@@ -246,12 +265,16 @@ def run_learner(conf: ConfArguments, max_batches: int = 0, fetch_depth: int = FE
             if not ssc.failed:
                 _historian.stamp_baseline()
             _historian.uninstall()
+        if lockstep and not ssc.failed:
+            # an aborted rank leaves the group with the process: a peer may
+            # be gone mid-collective
+            shutdown_distributed()
     if ssc.failed:
         raise RuntimeError(
-            "run aborted by a runtime guard: a fetch watchdog abort, the "
-            "divergence sentinel's rollback budget or a scheduler failure "
-            "(see the critical log above); progress up to the failure is "
-            "checkpointed"
+            "run aborted by a runtime guard: a lockstep peer's loss, a fetch "
+            "watchdog abort, the divergence sentinel's rollback budget or a "
+            "scheduler failure (see the critical log above); progress up to "
+            "the failure is checkpointed"
         )
     return totals
 

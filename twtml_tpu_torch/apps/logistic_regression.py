@@ -1,6 +1,6 @@
 """Streaming logistic-regression entry point (counterpart of
 ``twtml_tpu/apps/logistic_regression.py``; BASELINE config #3: binary
-sentiment on the tweet stream), single host.
+sentiment on the tweet stream).
 
 The flagship app's pipeline (apps/linear_regression.py ``run_learner``:
 the same streaming context, wires, fetch pipeline or superbatch, runtime
@@ -13,8 +13,8 @@ its logistic mode at ``-b 1`` in float32. The reported ``mse`` over hard
 0/1 predictions is the misclassification rate: each batch prints
 ``count: … batch: … errRate: … posRate (real, pred): (…, …)`` and
 publishes the error rate and both stdevs ×100 to the int dashboard.
-``--master local[N>1]`` and ``--elastic on`` raise naming ROADMAP A10, as
-in the flagship app.
+Across hosts (``--master twtml://``) it trains in lockstep as the flagship
+app does; ``--elastic on`` raises naming ROADMAP A10b.
 
 Run: ``python -m twtml_tpu_torch.apps.logistic_regression --backend cpu \\
       --source replay --replayFile tests/data/tweets.jsonl --seconds 0 \\

@@ -8,9 +8,11 @@ exists; its ``consumerKey``/``consumerSecret``/``accessToken``/
 ``accessTokenSecret`` land in the ``twitter4j.oauth.*`` property table). The
 parser takes every flag and short alias of the JAX package's parser;
 ``--backend`` is the one deliberate difference (``cuda|cpu``, default
-``cuda``). A value that selects a feature the port has not ported (the
-multi-host runtime) parses, and ``check_ported`` then raises
-``NotImplementedError`` naming its ROADMAP item (A10). ``--wire auto`` resolves by the JAX package's rule: ragged for
+``cuda``). ``--coordinator``/``--numProcesses``/``--processId`` (or a
+``twtml://`` master) form a lockstep multi-host group (``multihost``); a
+value that selects a feature the port has not ported (``--elastic on``)
+parses, and ``check_ported`` then raises ``NotImplementedError`` naming its
+ROADMAP item (A10b). ``--wire auto`` resolves by the JAX package's rule: ragged for
 a back-to-back stream (``--seconds 0`` or below) that hashes on the device,
 padded under a wall clock or with ``--hashOn host``.
 """
@@ -349,10 +351,12 @@ class ConfArguments:
                                                of the request body (64 vnodes a replica), so a
                                                key sticks to one replica. Default: {self.routePolicy}
 
-  The JAX package's multi-host flags parse with its defaults; a value other
-  than the single-host default stops the run naming the ROADMAP item it
-  needs: --coordinator, --numProcesses, --processId, --elastic,
-  --elasticEvictTicks, --elasticEvictSkewMs and --elasticRejoin (A10).
+  Multi-host (a lockstep group of processes, one model):
+  --coordinator <host:port> --numProcesses <N> --processId <I>, or
+  --master twtml://host:port with the other two. --backend cpu (or ranks that
+  share a card) joins over gloo, one card a rank over nccl. --elastic on stops
+  the run naming the ROADMAP item it needs (A10b); --elasticEvictTicks,
+  --elasticEvictSkewMs and --elasticRejoin parse and do nothing without it.
   -h, --help
 """
 
@@ -401,20 +405,35 @@ class ConfArguments:
 
     def check_ported(self) -> None:
         """Raise ``NotImplementedError`` naming the ROADMAP item of the
-        first value that selects a feature the port has not ported: the
-        multi-host runtime (A10), the tenant fleet across hosts with it.
-        Values the JAX package ignores on this path (the elastic knobs with
-        ``--elastic off``) pass; block ingest, the digram codec, the tenant
-        plane and ``--abtest on`` are ported."""
-
-        def refuse(flag, what, item):
+        first value that selects a feature the port has not ported: elastic
+        membership (A10b). The lockstep multi-host runtime (``--coordinator``
+        or a ``twtml://`` master, A10a) is ported; values the JAX package
+        ignores on this path (the elastic knobs with ``--elastic off``)
+        pass."""
+        if self.elastic == "on":
             raise NotImplementedError(
-                f"{flag} needs {what}, which the port has not ported (ROADMAP {item})")
+                "--elastic on needs elastic membership (membership plane, service "
+                "host, standby archives), which the port has not ported (ROADMAP "
+                "A10b)")
 
-        if (self.coordinator or self.numProcesses != 0 or self.processId != -1
-                or self.master.startswith("twtml://") or self.elastic == "on"):
-            refuse("--coordinator/--numProcesses/--processId/--elastic or a "
-                   "twtml:// master", "the multi-host runtime", "A10")
+    def multihost(self) -> "tuple[str, int, int] | None":
+        """(coordinator, num_processes, process_id) when a multi-host group is
+        requested, None for a single-host run: the JAX package's rule. Call
+        after ``validate_master``, which folds a ``twtml://`` master in.
+        Half-given coordinates, fewer than 2 processes or an id out of range
+        exit."""
+        if not self.coordinator:
+            if self.numProcesses > 0 or self.processId >= 0:
+                raise SystemExit("--numProcesses/--processId need --coordinator "
+                                 "host:port (or --master twtml://host:port)")
+            return None
+        if self.numProcesses < 2 or self.processId < 0:
+            raise SystemExit("--coordinator requires --numProcesses >= 2 and "
+                             "--processId >= 0 (one unique id per process)")
+        if self.processId >= self.numProcesses:
+            raise SystemExit(f"--processId {self.processId} out of range for "
+                             f"--numProcesses {self.numProcesses}")
+        return self.coordinator, self.numProcesses, self.processId
 
     def effective_wire(self) -> str:
         """Resolve ``--wire auto`` by the JAX package's rule

@@ -582,6 +582,193 @@ __global__ void __launch_bounds__(kThreads, 1) fused_sgd_kernel(const Params p) 
   if (cta == 0 && threadIdx.x == 0) *p.iterations = train ? (float)it : 0.f;
 }
 
+// ------------------------------------------------------------ data-parallel split
+//
+// The same loop cut at its one cross-rank point, for N processes that train
+// one model (parallel/distributed.py): no collective can run inside the
+// cooperative launch above, so each iteration becomes three plain launches
+// with one all-reduce on the host's side between the second and the third:
+//   dense_grad_kernel    r = residual(X·w, y), each CTA's Xᵀr into the
+//                        [grid, fpad] partials (B1's row split, warp order
+//                        and cta_reduce_tile); on the first launch of a step
+//                        it also stages X (where-and-round to bf16, stage_row)
+//                        into a device buffer laid out as B1's spill buffer
+//                        with no resident rows, writes preds = X·w0 and each
+//                        CTA's masked count;
+//   dense_reduce_kernel  the partials summed in B1's fixed order into
+//                        g[fpad], the count in g[fpad]; the host then
+//                        all-reduces (SUM) the fpad + 1 floats;
+//   dense_update_kernel  B1's update of each CTA's columns with the global g
+//                        and count, its ‖Δw‖² and ‖w‖² partials, and (in
+//                        the CTA that finishes last) the converged decision,
+//                        written to device memory.
+// Every launch after the first reads the converged flag and returns at
+// once, so the host never reads convergence back; a step whose global count
+// is 0 makes no update. The grid, the row split, the order of every sum and
+// the update's f32 arithmetic are B1's, so at world size 1 (the all-reduce
+// an identity) the split loop gives B1's w and preds bit for bit.
+// What bounds it: bytes. Each iteration streams the staged bf16 X once from
+// device memory (B_local = 8192 rows x 1024 stored columns: 16.8 MB) and
+// the partials once; X no longer stays on chip across iterations, because
+// the loop leaves the kernel at every iteration.
+
+struct SplitState {
+  int* state;   // [2]: converged flag, CTAs done with the current update
+  float* gbuf;  // [fpad + 1]: this rank's Xᵀr and count, then the global ones
+};
+
+constexpr int kStateConverged = 0;
+constexpr int kStateDone = 1;
+
+template <bool kLogistic>
+__global__ void __launch_bounds__(kThreads, 1)
+    dense_grad_kernel(const Params p, const SplitState s, const int first) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  if (!first && s.state[kStateConverged] != 0) return;
+  const Layout lay = layout(p.fpad, p.rows_cap);
+  float* w_s = reinterpret_cast<float*>(smem);
+  float* red = reinterpret_cast<float*>(smem + lay.red);
+  float* y_s = reinterpret_cast<float*>(smem + lay.y);
+  float* r_s = reinterpret_cast<float*>(smem + lay.r);
+  const int cta = blockIdx.x, ncta = gridDim.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = (int)((long long)cta * p.rows / ncta);
+  const int my_rows = (int)((long long)(cta + 1) * p.rows / ncta) - row0;
+  const int fpad = p.fpad, features = p.features;
+  if (first) {
+    const int cols_per_cta = (fpad + ncta - 1) / ncta;
+    const int col0 = min(cta * cols_per_cta, fpad);
+    const int col1 = min(col0 + cols_per_cta, fpad);
+    for (int f = threadIdx.x; f < fpad; f += kThreads)
+      w_s[f] = f < features ? __ldg(p.w0 + f) : 0.f;
+    for (int f = col0 + threadIdx.x; f < col1; f += kThreads) {
+      p.wbuf[f] = f < features ? __ldg(p.w0 + f) : 0.f;
+      if (f < features) p.w_out[f] = __ldg(p.w0 + f);  // the result when no update runs
+    }
+    if (cta == 0 && threadIdx.x == 0) {
+      s.state[kStateConverged] = 0;
+      s.state[kStateDone] = 0;
+      *p.iterations = 0.f;
+    }
+    const bool vec4 = features % 4 == 0 && (reinterpret_cast<uintptr_t>(p.x) & 15) == 0;
+    for (int l = warp; l < my_rows; l += kWarps)
+      stage_row(p, nullptr, y_s, cta, row0, l, lane, vec4);
+    if (warp == 0) {  // this CTA's count, as B1 sums it
+      float c = 0.f;
+      for (int i = lane; i < my_rows; i += 32) c += __ldg(p.mask + row0 + i);
+      c = warp_sum(c);
+      if (lane == 0) p.count_part[cta] = c;
+    }
+    __threadfence();  // the staged rows are read back through L2 below
+  } else {
+    for (int f = threadIdx.x; f < fpad; f += kThreads) w_s[f] = __ldcg(p.wbuf + f);
+    for (int l = threadIdx.x; l < my_rows; l += kThreads)
+      y_s[l] = __ldg(p.mask + row0 + l) > 0.f ? __ldg(p.labels + row0 + l) : 0.f;
+  }
+  __syncthreads();
+  if (p.nvec <= kTileGroups)
+    row_pass_narrow<kLogistic>(p, w_s, y_s, nullptr, red, cta, row0, my_rows, first, true);
+  else
+    row_pass_wide<kLogistic>(p, w_s, y_s, r_s, nullptr, red, cta, row0, my_rows, first, true);
+}
+
+// One CTA a column slice of B1's update (the same slices, grid = B1's):
+// g[f] = Σ_c partials[c][f] in B1's order; CTA 0 also sums the count.
+__global__ void __launch_bounds__(kThreads) dense_reduce_kernel(const Params p,
+                                                                const SplitState s) {
+  __shared__ float red[kWarps * 8];
+  if (s.state[kStateConverged] != 0) return;
+  const int cta = blockIdx.x, ncta = gridDim.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int fpad = p.fpad;
+  const int cols_per_cta = (fpad + ncta - 1) / ncta;
+  const int col0 = min(cta * cols_per_cta, fpad);
+  const int col1 = min(col0 + cols_per_cta, fpad);
+  for (int f0 = col0; f0 < col1; f0 += 8) {
+    const int f = f0 + (lane & 7);
+    float g = 0.f;
+    if (f < col1) {
+#pragma unroll 4
+      for (int c = 4 * warp + (lane >> 3); c < ncta; c += 4 * kWarps)
+        g += __ldcg(p.partials + (size_t)c * fpad + f);
+    }
+    g += __shfl_xor_sync(0xffffffffu, g, 8);
+    g += __shfl_xor_sync(0xffffffffu, g, 16);
+    if (lane < 8) red[warp * 8 + lane] = g;
+    __syncthreads();
+    if (warp == 0 && lane < 8 && f < col1) {
+      float gs = red[lane];
+      for (int w = 1; w < kWarps; ++w) gs += red[w * 8 + lane];
+      s.gbuf[f] = gs;
+    }
+    __syncthreads();
+  }
+  if (cta == 0 && warp == 0) {
+    float c = 0.f;
+    for (int k = lane; k < ncta; k += 32) c += __ldcg(p.count_part + k);
+    c = warp_sum(c);
+    if (lane == 0) s.gbuf[fpad] = c;
+  }
+}
+
+// One warp a column slice (B1's slices; lanes 0-7 hold 8 columns, as in
+// B1's update): w ← w·(1 − η·λ) − (η·g)/max(count, 1) with the global g and
+// count, then the converged decision in the CTA that finishes last.
+__global__ void __launch_bounds__(32) dense_update_kernel(const Params p, const SplitState s,
+                                                          const int it) {
+  if (s.state[kStateConverged] != 0) return;
+  const int cta = blockIdx.x, ncta = gridDim.x, lane = threadIdx.x;
+  const int fpad = p.fpad, features = p.features;
+  const float count = s.gbuf[fpad];
+  if (!(count > 0.f)) {  // no sample anywhere: w0 stands, 0 iterations
+    if (cta == 0 && lane == 0) s.state[kStateConverged] = 1;
+    return;
+  }
+  const float denom = fmaxf(count, 1.f);
+  const float eta = __fdiv_rn(p.step_size, __fsqrt_rn((float)it));
+  const float scale = __fsub_rn(1.f, __fmul_rn(eta, p.l2_reg));
+  const int cols_per_cta = (fpad + ncta - 1) / ncta;
+  const int col0 = min(cta * cols_per_cta, fpad);
+  const int col1 = min(col0 + cols_per_cta, fpad);
+  float d = 0.f, n = 0.f;
+  for (int f0 = col0; f0 < col1; f0 += 8) {
+    const int f = f0 + (lane & 7);
+    if (lane < 8 && f < col1) {
+      const float gs = s.gbuf[f];
+      const float wo = p.wbuf[f];
+      const float wn = __fsub_rn(__fmul_rn(wo, scale), __fdiv_rn(__fmul_rn(eta, gs), denom));
+      const float dw = __fsub_rn(wn, wo);
+      d = fmaf(dw, dw, d);
+      n = fmaf(wn, wn, n);
+      p.wbuf[f] = wn;
+      if (f < features) p.w_out[f] = wn;
+    }
+  }
+  d = warp_sum(d);
+  n = warp_sum(n);
+  if (lane == 0) {
+    p.norm_part[2 * cta] = d;
+    p.norm_part[2 * cta + 1] = n;
+  }
+  __threadfence();
+  int last = 0;
+  if (lane == 0) last = atomicAdd(s.state + kStateDone, 1) == ncta - 1;
+  if (!__shfl_sync(0xffffffffu, last, 0)) return;
+  __threadfence();
+  float ds = 0.f, ns = 0.f;  // B1's order: lane-strided over the CTAs, then the warp
+  for (int c = lane; c < ncta; c += 32) {
+    ds += __ldcg(p.norm_part + 2 * c);
+    ns += __ldcg(p.norm_part + 2 * c + 1);
+  }
+  ds = warp_sum(ds);
+  ns = warp_sum(ns);
+  if (lane == 0) {
+    *p.iterations = (float)it;
+    s.state[kStateDone] = 0;
+    if (p.tol > 0.f && sqrtf(ds) < p.tol * fmaxf(sqrtf(ns), 1.f)) s.state[kStateConverged] = 1;
+  }
+}
+
 // ------------------------------------------------------------------ predict
 
 struct PredictParams {
@@ -703,8 +890,8 @@ __global__ void __launch_bounds__(kPredictThreads, 2) fused_predict_kernel(const
 // Once a device, before its first launch: the SM count and the opt-in
 // shared memory a block may use on `device` (for the launch plan), and both
 // instantiations' dynamic shared-memory limit raised to that opt-in there,
-// so that a launch makes no set-up call of its own. Returns a CUDA error code, 0 on
-// success.
+// so that a launch makes no set-up call of its own (the split's grad kernel
+// too). Returns a CUDA error code, 0 on success.
 extern "C" int twtml_fused_sgd_setup(int device, int* sm_count, int* shared_optin) {
   int current = 0;
   cudaError_t err = cudaGetDevice(&current);
@@ -718,6 +905,12 @@ extern "C" int twtml_fused_sgd_setup(int device, int* sm_count, int* shared_opti
                                cudaFuncAttributeMaxDynamicSharedMemorySize, *shared_optin);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(fused_sgd_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, *shared_optin);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(dense_grad_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, *shared_optin);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(dense_grad_kernel<true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, *shared_optin);
   const cudaError_t restored = cudaSetDevice(current);
   return (int)(err != cudaSuccess ? err : restored);
@@ -818,5 +1011,105 @@ extern "C" int twtml_fused_dense_predict(const void* x, const void* mask, const 
   p.nvec = fpad / 8;
   fused_predict_kernel<<<grid, kPredictThreads, (size_t)shared_bytes,
                          static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// ---- the split's three C entries (each one plain launch on `stream`) -----
+//
+// Shared by all three: the launch plan of one B1 call on the rank's rows
+// (ops/fused_sgd.py split_plan: B1's grid and rows_cap, no resident rows,
+// shared_bytes = the layout's x offset), `staged` the bf16 X
+// [grid·rows_cap·8·plan_layout[5]], `scratch` B1's [grid·fpad + fpad +
+// 3·grid + 1] f32 (partials, w, counts, norms, iterations run), `state`
+// int32 [2] and `gbuf` f32 [fpad + 1]. Each returns the launch's CUDA error
+// (cudaErrorInvalidValue for a plan that differs from layout()), 0 when it
+// was taken.
+namespace {
+int split_params(Params& p, const void* x, const void* labels, const void* mask,
+                 const void* w0, void* w_out, void* preds, void* staged, void* scratch,
+                 int rows, int features, int fpad, int grid, int rows_cap, int shared_bytes,
+                 const int* plan_layout) {
+  const Layout lay = layout(fpad, rows_cap);
+  const int stride = row_groups(fpad);
+  if (rows < 1 || features < 1 || fpad % 8 != 0 || features > fpad || grid < 1 ||
+      (long long)rows_cap * grid < rows || (size_t)plan_layout[0] != lay.red ||
+      (size_t)plan_layout[1] != lay.y || (size_t)plan_layout[2] != lay.r ||
+      (size_t)plan_layout[3] != lay.scratch || (size_t)plan_layout[4] != lay.x ||
+      plan_layout[5] != stride || (size_t)shared_bytes != lay.x)
+    return (int)cudaErrorInvalidValue;
+  p.x = static_cast<const float*>(x);
+  p.labels = static_cast<const float*>(labels);
+  p.mask = static_cast<const float*>(mask);
+  p.w0 = static_cast<const float*>(w0);
+  p.w_out = static_cast<float*>(w_out);
+  p.preds = static_cast<float*>(preds);
+  p.spill = static_cast<__nv_bfloat16*>(staged);
+  p.partials = static_cast<float*>(scratch);
+  p.wbuf = p.partials + (size_t)grid * fpad;
+  p.count_part = p.wbuf + fpad;
+  p.norm_part = p.count_part + grid;
+  p.iterations = p.norm_part + 2 * grid;
+  p.rows = rows;
+  p.features = features;
+  p.fpad = fpad;
+  p.nvec = fpad / 8;
+  p.stride = stride;
+  p.rows_cap = rows_cap;
+  p.resident = 0;  // every row in the staged buffer
+  p.spill_per_cta = rows_cap;
+  p.num_iterations = 0;
+  p.step_size = p.l2_reg = p.tol = 0.f;
+  return 0;
+}
+}  // namespace
+
+extern "C" int twtml_fused_dense_grad(const void* x, const void* labels, const void* mask,
+                                      const void* w0, void* w_out, void* preds, void* staged,
+                                      void* scratch, void* state, void* gbuf, int rows,
+                                      int features, int fpad, int grid, int rows_cap,
+                                      int shared_bytes, const int* plan_layout, int first,
+                                      int residual_mode, void* stream) {
+  Params p;
+  const int err = split_params(p, x, labels, mask, w0, w_out, preds, staged, scratch, rows,
+                               features, fpad, grid, rows_cap, shared_bytes, plan_layout);
+  if (err != 0 || (residual_mode != 0 && residual_mode != 1)) return (int)cudaErrorInvalidValue;
+  const SplitState s{static_cast<int*>(state), static_cast<float*>(gbuf)};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (residual_mode == 1)
+    dense_grad_kernel<true><<<grid, kThreads, (size_t)shared_bytes, st>>>(p, s, first);
+  else
+    dense_grad_kernel<false><<<grid, kThreads, (size_t)shared_bytes, st>>>(p, s, first);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int twtml_fused_dense_grad_reduce(void* scratch, void* state, void* gbuf, int rows,
+                                             int features, int fpad, int grid, int rows_cap,
+                                             int shared_bytes, const int* plan_layout,
+                                             void* stream) {
+  Params p;
+  const int err = split_params(p, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                               scratch, rows, features, fpad, grid, rows_cap, shared_bytes,
+                               plan_layout);
+  if (err != 0) return err;
+  const SplitState s{static_cast<int*>(state), static_cast<float*>(gbuf)};
+  dense_reduce_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p, s);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int twtml_fused_dense_update(void* w_out, void* scratch, void* state, void* gbuf,
+                                        int rows, int features, int fpad, int grid,
+                                        int rows_cap, int shared_bytes, const int* plan_layout,
+                                        int it, float step_size, float l2_reg, float tol,
+                                        void* stream) {
+  Params p;
+  const int err = split_params(p, nullptr, nullptr, nullptr, nullptr, w_out, nullptr, nullptr,
+                               scratch, rows, features, fpad, grid, rows_cap, shared_bytes,
+                               plan_layout);
+  if (err != 0 || it < 1) return err != 0 ? err : (int)cudaErrorInvalidValue;
+  p.step_size = step_size;
+  p.l2_reg = l2_reg;
+  p.tol = tol;
+  const SplitState s{static_cast<int*>(state), static_cast<float*>(gbuf)};
+  dense_update_kernel<<<grid, 32, 0, static_cast<cudaStream_t>(stream)>>>(p, s, it);
   return (int)cudaGetLastError();
 }

@@ -37,7 +37,9 @@ uint16 units and a batch whose coded bucket is not smaller ship raw, with
 the raw layout. Bytes and layouts are the JAX package's.
 
 Plain classes of numpy arrays (no pytree registration); the learner moves
-them to its device. The shard-segment layout is not ported (ROADMAP A10).
+them to its device. A multi-host rank packs its rows as its segment of the
+shard-segment wire (``pack_ragged_sharded``, ``align_ragged_shards``), byte
+for byte the JAX package's.
 """
 
 from __future__ import annotations
@@ -170,9 +172,12 @@ class RaggedUnitBatch:
     rows hold the total: length 0), numeric/label/mask as in UnitBatch.
     ``row_len`` is the padded row length L the device rebuilds. ``lease``
     is the arena lease of the native fill whose buffer holds the fields
-    (features/featurize_native.py), or None."""
+    (features/featurize_native.py), or None. ``num_shards`` S > 1 marks a
+    shard-ALIGNED batch (``align_ragged_shards``): the units are S equal
+    sub-buffers and the offsets S segment-relative [B/S + 1] blocks."""
 
-    def __init__(self, units, offsets, numeric, label, mask, row_len: int, lease=None):
+    def __init__(self, units, offsets, numeric, label, mask, row_len: int, lease=None,
+                 num_shards: int = 1):
         self.units = units
         self.offsets = offsets
         self.numeric = numeric
@@ -180,6 +185,7 @@ class RaggedUnitBatch:
         self.mask = mask
         self.row_len = int(row_len)
         self.lease = lease
+        self.num_shards = int(num_shards)
 
     @property
     def num_valid(self) -> int:
@@ -212,7 +218,7 @@ def wire_composition(batch) -> "dict[str, int]":
         names = ("units", "units" if tag == "FeatureBatch" else "offsets",
                  "sideband", "sideband", "sideband")
         segs = 1
-        if tag == "RaggedGroupSegments":
+        if tag in ("RaggedGroupSegments", "RaggedShardSegments"):
             per_seg = sum(int(np.prod(shape, dtype=np.int64)) * np.dtype(dt).itemsize
                           for shape, dt in batch.layout[1])
             if per_seg:
@@ -250,6 +256,74 @@ def wire_nbytes(batch) -> int:
 # most this many units a batch, and a stream sees few distinct sizes
 RAGGED_UNIT_MULTIPLE = 4096
 
+def _shard_segment_need(rb: "RaggedUnitBatch", num_shards: int) -> int:
+    """Raw units the longest of ``num_shards`` row-contiguous shards holds."""
+    b = rb.mask.shape[0]
+    if b % num_shards:
+        raise ValueError(f"batch rows {b} not divisible by {num_shards} shards")
+    offs = np.asarray(rb.offsets, np.int64)
+    starts = offs[0: b + 1: b // num_shards]
+    return int((starts[1:] - starts[:-1]).max())
+
+
+def ragged_shard_bucket(rb: "RaggedUnitBatch", num_shards: int) -> int:
+    """The per-shard sub-buffer capacity ``align_ragged_shards`` would pick
+    (a batch already aligned to ``num_shards``: its own), which the ranks of
+    a multi-host group all-gather and agree on the maximum of."""
+    if rb.num_shards == num_shards:
+        return rb.units.shape[0] // num_shards
+    if rb.num_shards != 1:
+        raise ValueError(f"batch is aligned to {rb.num_shards} shards; re-align from "
+                         f"flat before bucketing for {num_shards}")
+    need = _shard_segment_need(rb, num_shards)
+    return max(RAGGED_UNIT_MULTIPLE,
+               -(-need // RAGGED_UNIT_MULTIPLE) * RAGGED_UNIT_MULTIPLE)
+
+
+def align_ragged_shards(rb: "RaggedUnitBatch", num_shards: int,
+                        unit_bucket: int = 0) -> "RaggedUnitBatch":
+    """Re-lay a ragged batch into ``num_shards`` equal shard segments: S unit
+    sub-buffers of one capacity and S segment-relative offset blocks (the
+    JAX package's layout, byte for byte). ``unit_bucket`` pins the
+    capacity (the value a multi-host group agreed); 0 sizes it from the
+    longest shard, rounded to ``RAGGED_UNIT_MULTIPLE``. A batch aligned to
+    ``num_shards`` already grows each sub-buffer to a larger pinned bucket
+    (its offsets stay)."""
+    if rb.num_shards == num_shards:
+        cur = rb.units.shape[0] // num_shards
+        if not unit_bucket or unit_bucket == cur:
+            return rb
+        if unit_bucket < cur:
+            raise ValueError(f"batch is aligned to sub-buffers of {cur} units; cannot "
+                             f"shrink to the pinned bucket {unit_bucket}")
+        grown = np.zeros((num_shards, unit_bucket), rb.units.dtype)
+        grown[:, :cur] = np.asarray(rb.units).reshape(num_shards, cur)
+        return RaggedUnitBatch(grown.reshape(-1), rb.offsets, rb.numeric, rb.label,
+                               rb.mask, row_len=rb.row_len, num_shards=num_shards)
+    if rb.num_shards != 1:
+        raise ValueError("batch is already shard-aligned; re-align from flat")
+    b = rb.mask.shape[0]
+    b_local = b // num_shards
+    need = _shard_segment_need(rb, num_shards)
+    n_sb = ragged_shard_bucket(rb, num_shards)
+    offs = np.asarray(rb.offsets, np.int64)
+    starts = offs[0: b + 1: b_local]
+    if unit_bucket:
+        if need > unit_bucket:
+            raise ValueError(f"shard units {need} exceed the pinned bucket {unit_bucket}")
+        n_sb = unit_bucket
+    units = np.asarray(rb.units)
+    flat = np.zeros((num_shards * n_sb,), units.dtype)
+    new_offs = np.empty((b + num_shards,), np.int32)
+    for s in range(num_shards):
+        lo, hi = int(starts[s]), int(starts[s + 1])
+        flat[s * n_sb: s * n_sb + (hi - lo)] = units[lo:hi]
+        new_offs[s * (b_local + 1):(s + 1) * (b_local + 1)] = (
+            offs[s * b_local:(s + 1) * b_local + 1] - lo)
+    return RaggedUnitBatch(flat, new_offs, rb.numeric, rb.label, rb.mask,
+                           row_len=rb.row_len, num_shards=num_shards)
+
+
 # The ragged offsets are bounded by the static row length L, so whenever L
 # fits uint16 they ship as per-row LENGTH DELTAS in half the bytes; the
 # device cumsums them back (ops/ragged.offsets_from_deltas). The gate is
@@ -262,12 +336,12 @@ def offsets_narrow(row_len: int) -> bool:
     return 0 < int(row_len) <= OFFSET_DELTA_MAX
 
 
-def _offsets_to_deltas(offsets) -> np.ndarray:
-    """int32 offsets [B+1] (starting at 0) -> uint16 length deltas [B]. A
-    delta past uint16 means the ``row_len`` gate was misdeclared: raise,
-    never wrap."""
-    offs = np.asarray(offsets, np.int64)
-    d = offs[1:] - offs[:-1]
+def _offsets_to_deltas(offsets, num_segments: int = 1) -> np.ndarray:
+    """Segment-relative int32 offsets [S·(B_s+1)] (each segment starting at
+    0) -> uint16 length deltas [S·B_s]. A delta past uint16 means the
+    ``row_len`` gate was misdeclared: raise, never wrap."""
+    offs = np.asarray(offsets, np.int64).reshape(num_segments, -1)
+    d = (offs[:, 1:] - offs[:, :-1]).reshape(-1)
     if d.size and (d.min() < 0 or d.max() > OFFSET_DELTA_MAX):
         raise ValueError(
             "offsets are not uint16-delta encodable (negative or "
@@ -276,13 +350,15 @@ def _offsets_to_deltas(offsets) -> np.ndarray:
     return d.astype(np.uint16)
 
 
-def _deltas_to_offsets_np(deltas) -> np.ndarray:
-    """Host twin of ``ops/ragged.offsets_from_deltas``: deltas [..., B] ->
-    int32 offsets [..., B+1] starting at 0."""
+def _deltas_to_offsets_np(deltas, num_segments: int = 1) -> np.ndarray:
+    """Host twin of ``ops/ragged.offsets_from_deltas``: deltas [..., S·B_s]
+    -> int32 offsets [..., S·(B_s+1)], each segment starting at 0."""
     d = np.asarray(deltas, np.int64)
+    lead = d.shape[:-1]
+    d = d.reshape(lead + (num_segments, -1))
     out = np.zeros(d.shape[:-1] + (d.shape[-1] + 1,), np.int64)
     np.cumsum(d, axis=-1, out=out[..., 1:])
-    return out.astype(np.int32)
+    return out.reshape(lead + (-1,)).astype(np.int32)
 
 
 # ---- the digram-coded units wire (--wireCodec dict) -------------------------
@@ -293,13 +369,18 @@ def _deltas_to_offsets_np(deltas) -> np.ndarray:
 # than its raw buffer (the layout says so; apps/common.py counts it in
 # ``wire.codec_fallbacks``).
 
-def _encode_units_segments(units: np.ndarray, num_segments: int, codec: "str | None"):
+def _encode_units_segments(units: np.ndarray, num_segments: int, codec: "str | None",
+                           bucket: "int | None" = None):
     """Per-segment digram codes [num_segments, shared bucket] of a
-    segmented raw units buffer (a group's K segments, each decoded on its
-    own; the flat wire is one segment), or None for the raw wire (codec
-    off, uint16 units, or an incompressible batch). The bucket is the
-    largest segment's, rounded, so every segment has one shape; the
-    fallback is all or nothing; an unknown codec raises."""
+    segmented raw units buffer (a group's K segments or a batch's shard
+    sub-buffers, each decoded on its own; the flat wire is one segment), or
+    None for the raw wire (codec off, uint16 units, or an incompressible
+    batch). The bucket is the largest segment's, rounded, so every segment
+    has one shape; the fallback is all or nothing; an unknown codec raises.
+    ``bucket`` forces the shared bucket to a value the ranks of a
+    multi-host group agreed (parallel/distributed.py): every rank then
+    emits the same segment shapes, and a segment that encodes past it
+    raises (a codec bug, never a silent truncation)."""
     if codec is None or codec in ("", "off"):
         return None
     if codec != "dict":
@@ -311,9 +392,16 @@ def _encode_units_segments(units: np.ndarray, num_segments: int, codec: "str | N
 
     rows = u.reshape(num_segments, -1)
     enc = [encode(r) for r in rows]
-    bucket = encoded_bucket(max(e.shape[0] for e in enc))
-    if bucket >= rows.shape[1]:
-        return None
+    if bucket is None:
+        bucket = encoded_bucket(max(e.shape[0] for e in enc))
+        if bucket >= rows.shape[1]:
+            return None
+    else:
+        over = max(e.shape[0] for e in enc)
+        if over > bucket:
+            raise ValueError(
+                f"agreed codec bucket {bucket} under-covers a segment encoding of "
+                f"{over} units: the cross-host zero-pad bound is violated (codec bug)")
     out = np.zeros((num_segments, bucket), np.uint8)
     for i, e in enumerate(enc):
         out[i, : e.shape[0]] = e
@@ -337,12 +425,14 @@ def _decode_units(arr, out_len: int):
 def _layout_codec(layout: tuple) -> "tuple | None":
     """The codec entry ``("dict", raw units)`` of a packed layout, or None
     for the raw wire: ``extra[3]`` of a ``RaggedUnitBatch`` layout (the raw
-    shape, a tuple), ``extra[4]`` of a ``RaggedGroupSegments`` one (the raw
+    shape, a tuple) or of a ``RaggedShardSegments`` one (the raw units a
+    shard, an int), ``extra[4]`` of a ``RaggedGroupSegments`` one (the raw
     units a segment, an int). One reader, so the entry cannot drift."""
     extra = layout[2] if len(layout) > 2 else None
     if not extra:
         return None
-    at = {"RaggedUnitBatch": 3, "RaggedGroupSegments": 4}.get(layout[0])
+    at = {"RaggedUnitBatch": 3, "RaggedShardSegments": 3,
+          "RaggedGroupSegments": 4}.get(layout[0])
     if at is None or len(extra) <= at:
         return None
     return extra[at]
@@ -401,10 +491,11 @@ def pack_batch(
         codes = _encode_units_segments(units, 1, codec)
         arrays: tuple = (
             units if codes is None else codes.reshape(-1),
-            _offsets_to_deltas(batch.offsets) if narrow else batch.offsets,
+            _offsets_to_deltas(batch.offsets, batch.num_shards) if narrow else batch.offsets,
             batch.numeric, batch.label, batch.mask,
         )
-        extra: tuple | None = (batch.row_len, 1, "u16delta" if narrow else "i32") + (
+        extra: tuple | None = (batch.row_len, batch.num_shards,
+                               "u16delta" if narrow else "i32") + (
             () if codes is None else (("dict", tuple(units.shape)),))
     else:
         arrays = tuple(batch)
@@ -455,119 +546,220 @@ def stack_batches(batches):
     return type(first)(*(np.stack(arrs) for arrs in zip(*batches)))
 
 
-def pack_ragged_group(batches, narrow_offsets: "bool | None" = None,
-                      codec: "str | None" = None) -> PackedBatch:
+def pack_ragged_sharded(rb: RaggedUnitBatch, num_shards_out: int = 0,
+                        narrow_offsets: "bool | None" = None, codec: "str | None" = None,
+                        codec_bucket: "int | None" = None) -> PackedBatch:
+    """A shard-aligned ragged batch -> ONE uint8 buffer laid out per shard
+    (the JAX package's ``RaggedShardSegments`` wire, byte for byte): S equal
+    segments, segment s holding shard s's units sub-buffer, offsets (uint16
+    length deltas under the static ``row_len`` gate), numeric, label and
+    mask back to back. The layout records the per-shard field metas and
+    (row_len, ``num_shards_out`` or S, offsets form). A multi-host rank
+    packs its local rows as S = 1 and records the group's shard count: its
+    buffer is its segment of the group's wire. ``codec="dict"`` codes each
+    shard's uint8 units into one shared bucket (``codec_bucket``: the
+    group's agreed one) and appends ``("dict", raw units a shard)``. The
+    native assembler fills the buffer when it can (features/assemble.py)."""
+    s = rb.num_shards
+    b = rb.mask.shape[0]
+    bl = b // s
+    n_sb = rb.units.shape[0] // s
+    narrow = offsets_narrow(rb.row_len) if narrow_offsets is None else narrow_offsets
+    from .assemble import try_assemble_sharded
+
+    fast = try_assemble_sharded(rb, narrow, codec, codec_bucket, num_shards_out)
+    if fast is not None:
+        return fast
+    offs_wire = ((_offsets_to_deltas(rb.offsets, s), (bl,)) if narrow
+                 else (rb.offsets, (bl + 1,)))
+    codes = _encode_units_segments(rb.units, s, codec, bucket=codec_bucket)
+    units_wire = (rb.units, (n_sb,)) if codes is None else (codes, (codes.shape[1],))
+    fields = tuple(
+        np.ascontiguousarray(np.asarray(a).reshape((s,) + shape))
+        for a, shape in (units_wire, offs_wire, (rb.numeric, (bl, NUM_NUMBER_FEATURES)),
+                         (rb.label, (bl,)), (rb.mask, (bl,)))
+    )
+    layout = (
+        "RaggedShardSegments",
+        tuple((f.shape[1:], f.dtype.str) for f in fields),
+        (rb.row_len, num_shards_out or s, "u16delta" if narrow else "i32")
+        + (() if codes is None else (("dict", n_sb),)),
+    )
+    from .arena import lease_wire
+
+    chunks = [f.view(np.uint8).reshape(s, -1) for f in fields]
+    lease = lease_wire(sum(c.nbytes for c in chunks))
+    np.concatenate(chunks, axis=1, out=lease.buf.reshape(s, -1))
+    return PackedBatch(lease.buf, layout, lease)
+
+
+def _segment_field(buffer, segs: int, per_seg: int, off: int, shape: tuple, dt):
+    """Field ``(shape, dt)`` at byte ``off`` of each of ``segs`` segments of
+    ``per_seg`` bytes: [segs, *shape], a numpy view or a reinterpreted
+    tensor copy (one strided copy)."""
+    nbytes = int(np.prod(shape, dtype=np.int64)) * dt.itemsize
+    chunk = buffer.reshape(segs, per_seg)[:, off: off + nbytes]
+    if isinstance(chunk, np.ndarray):
+        return np.ascontiguousarray(chunk).view(dt).reshape((segs,) + tuple(shape))
+    return _tensor_view(chunk.contiguous(), dt).reshape((segs,) + tuple(shape))
+
+
+def _decode_deltas(arr, num_segments: int):
+    """Length deltas -> segment-relative int32 offsets, on the host or the
+    device."""
+    if isinstance(arr, np.ndarray):
+        return _deltas_to_offsets_np(arr, num_segments)
+    from ..ops.ragged import offsets_from_deltas
+
+    return offsets_from_deltas(arr, num_segments)
+
+
+def _unpack_ragged_shards(buffer, layout: tuple) -> RaggedUnitBatch:
+    """The shard-aligned ragged batch of a ``RaggedShardSegments`` buffer:
+    its S segments (a multi-host rank's own buffer holds one: its rows,
+    ``num_shards`` 1), codes decoded and deltas summed back to
+    segment-relative offsets. Numpy views of a numpy buffer; tensors on a
+    tensor's device."""
+    fields_meta = layout[1]
+    row_len, offs_mode = layout[2][0], layout[2][2] if len(layout[2]) > 2 else "i32"
+    codec_tag = _layout_codec(layout)
+    per_seg = sum(int(np.prod(shape, dtype=np.int64)) * np.dtype(dt).itemsize
+                  for shape, dt in fields_meta)
+    s_here = buffer.shape[0] // per_seg
+    if buffer.shape[0] != s_here * per_seg:
+        raise ValueError(f"buffer of {buffer.shape[0]} bytes is not a whole number of "
+                         f"{per_seg}-byte shard segments")
+    fields, off = [], 0
+    for shape, dtype_str in fields_meta:
+        dt = np.dtype(dtype_str)
+        arr = _segment_field(buffer, s_here, per_seg, off, tuple(shape), dt)
+        off += int(np.prod(shape, dtype=np.int64)) * dt.itemsize
+        fields.append(arr.reshape((s_here * shape[0],) + tuple(shape[1:])))
+    if codec_tag is not None:
+        n_sb = int(codec_tag[1])
+        fields[0] = _decode_units(fields[0].reshape(s_here, -1), n_sb).reshape(s_here * n_sb)
+    if offs_mode == "u16delta":
+        fields[1] = _decode_deltas(fields[1], s_here)
+    return RaggedUnitBatch(*fields, row_len=row_len, num_shards=s_here)
+
+
+def pack_ragged_group(batches, num_shards_out: int = 0, narrow_offsets: "bool | None" = None,
+                      codec: "str | None" = None,
+                      codec_bucket: "int | None" = None) -> PackedBatch:
     """K ragged batches of one wire signature -> ONE uint8 buffer (the
     group wire): segment k holds batch k's units, offsets (uint16 length
     deltas under the static ``row_len`` gate, int32 beyond it), numeric,
-    label and mask back to back, segments in batch order. The layout is
-    ``("RaggedGroupSegments", per-segment field metas, (row_len, 1, K,
-    offsets form))``, the JAX package's single-device layout;
+    label and mask back to back, segments in batch order; shard-aligned
+    batches lay it out shard-major ([S, K, segment], the JAX package's
+    layout). The layout is ``("RaggedGroupSegments", per-segment field
+    metas, (row_len, num_shards_out or S, K, offsets form))``;
     ``codec="dict"`` codes each segment's uint8 units into one shared
-    bucket (``_encode_units_segments``) and appends ``("dict", raw units a
-    segment)``. The native assembler fills the buffer when it can
-    (features/assemble.py), byte for byte as the numpy path here."""
+    bucket (``_encode_units_segments``; ``codec_bucket`` a multi-host
+    group's agreed one) and appends ``("dict", raw units a segment)``. The
+    native assembler fills the buffer when it can (features/assemble.py),
+    byte for byte as the numpy path here."""
     if not batches:
         raise ValueError("cannot pack an empty group")
     first = batches[0]
     if not isinstance(first, RaggedUnitBatch):
         raise TypeError("pack_ragged_group is the ragged wire's group pack")
     for rb in batches[1:]:
-        if (not isinstance(rb, RaggedUnitBatch) or rb.row_len != first.row_len
+        if (not isinstance(rb, RaggedUnitBatch)
+                or (rb.row_len, rb.num_shards) != (first.row_len, first.num_shards)
                 or rb.units.shape != first.units.shape
                 or rb.units.dtype != first.units.dtype
                 or rb.mask.shape != first.mask.shape):
             raise ValueError("group batches must share one wire signature (shapes, "
-                             "dtypes, row_len)")
+                             "dtypes, row_len, shard alignment)")
     k = len(batches)
+    s = first.num_shards
+    bl = first.mask.shape[0] // s
+    n_sb = first.units.shape[0] // s
     narrow = offsets_narrow(first.row_len) if narrow_offsets is None else narrow_offsets
     from .assemble import try_assemble_group
 
-    fast = try_assemble_group(batches, narrow, codec)
+    fast = try_assemble_group(batches, narrow, codec, codec_bucket, num_shards_out)
     if fast is not None:
         return fast
+    specs = (
+        ((lambda rb: rb.units), (n_sb,)),
+        ((lambda rb: _offsets_to_deltas(rb.offsets, s)) if narrow else (lambda rb: rb.offsets),
+         (bl,) if narrow else (bl + 1,)),
+        ((lambda rb: rb.numeric), (bl, NUM_NUMBER_FEATURES)),
+        ((lambda rb: rb.label), (bl,)),
+        ((lambda rb: rb.mask), (bl,)),
+    )
     fields = [
-        np.ascontiguousarray(np.stack([np.asarray(get(rb)) for rb in batches]))
-        for get in (
-            lambda rb: rb.units,
-            (lambda rb: _offsets_to_deltas(rb.offsets)) if narrow else (lambda rb: rb.offsets),
-            lambda rb: rb.numeric, lambda rb: rb.label, lambda rb: rb.mask,
-        )
+        np.ascontiguousarray(np.stack(
+            [np.asarray(get(rb)).reshape((s,) + shape) for rb in batches], axis=1))
+        for get, shape in specs
     ]
-    n_sb = fields[0].shape[1]
-    codes = _encode_units_segments(fields[0], k, codec)
+    codes = _encode_units_segments(fields[0], s * k, codec, bucket=codec_bucket)
     if codes is not None:
-        fields[0] = codes
+        fields[0] = np.ascontiguousarray(codes.reshape(s, k, codes.shape[1]))
     layout = (
         "RaggedGroupSegments",
-        tuple((f.shape[1:], f.dtype.str) for f in fields),
-        (first.row_len, 1, k, "u16delta" if narrow else "i32")
+        tuple((f.shape[2:], f.dtype.str) for f in fields),
+        (first.row_len, num_shards_out or s, k, "u16delta" if narrow else "i32")
         + (() if codes is None else (("dict", n_sb),)),
     )
     from .arena import lease_wire
 
-    chunks = [f.view(np.uint8).reshape(k, -1) for f in fields]
+    chunks = [f.view(np.uint8).reshape(s, k, -1) for f in fields]
     lease = lease_wire(sum(c.nbytes for c in chunks))
-    np.concatenate(chunks, axis=1, out=lease.buf.reshape(k, -1))
+    np.concatenate(chunks, axis=2, out=lease.buf.reshape(s, k, -1))
     return PackedBatch(lease.buf, layout, lease)
 
 
 def _unpack_ragged_group(buffer, layout: tuple) -> RaggedUnitBatch:
     """The stacked ragged batch ([K]-leading fields, what ``stack_batches``
-    gives) of a ``RaggedGroupSegments`` buffer: numpy views of a numpy
-    buffer; of a torch tensor, each field's bytes copied out of the K
+    gives) of a ``RaggedGroupSegments`` buffer, over the S shard segments
+    it holds (a multi-host rank's own buffer holds one): numpy views of a
+    numpy buffer; of a torch tensor, each field's bytes copied out of the
     segments (one strided copy a field) and reinterpreted."""
     fields_meta = layout[1]
-    row_len, num_shards, k, offs_mode = layout[2][:4]
-    if num_shards != 1:
-        raise NotImplementedError("the shard-aligned group layout is not ported "
-                                  "(ROADMAP A10)")
+    row_len, _s_total, k, offs_mode = layout[2][:4]
     codec_tag = _layout_codec(layout)
     per_seg = sum(int(np.prod(shape, dtype=np.int64)) * np.dtype(dt).itemsize
                   for shape, dt in fields_meta)
-    if buffer.shape[0] != k * per_seg:
-        raise ValueError(f"buffer of {buffer.shape[0]} bytes is not {k} group "
-                         f"segments of {per_seg} bytes")
-    segments = buffer.reshape(k, per_seg)
-    fields = []
-    off = 0
+    s_here = buffer.shape[0] // (k * per_seg)
+    if buffer.shape[0] != s_here * k * per_seg:
+        raise ValueError(f"buffer of {buffer.shape[0]} bytes is not a whole number of "
+                         f"{k}x{per_seg}-byte group segments")
+    fields, off = [], 0
     for shape, dtype_str in fields_meta:
         dt = np.dtype(dtype_str)
-        nbytes = int(np.prod(shape, dtype=np.int64)) * dt.itemsize
-        chunk = segments[:, off: off + nbytes]
-        off += nbytes
-        if isinstance(chunk, np.ndarray):
-            fields.append(np.ascontiguousarray(chunk).view(dt).reshape((k,) + tuple(shape)))
-        else:
-            fields.append(_tensor_view(chunk.contiguous(), dt).reshape((k,) + tuple(shape)))
+        arr = _segment_field(buffer, s_here * k, per_seg, off, tuple(shape), dt)
+        off += int(np.prod(shape, dtype=np.int64)) * dt.itemsize
+        if s_here > 1:  # [S, K, d0, ...] -> [K, S·d0, ...]
+            arr = arr.reshape((s_here, k) + tuple(shape))
+            arr = (np.ascontiguousarray(np.swapaxes(arr, 0, 1))
+                   if isinstance(arr, np.ndarray) else arr.transpose(0, 1).contiguous())
+        fields.append(arr.reshape((k, s_here * shape[0]) + tuple(shape[1:])))
     if codec_tag is not None:
-        fields[0] = _decode_units(fields[0], int(codec_tag[1]))
+        n_sb = int(codec_tag[1])
+        fields[0] = _decode_units(fields[0].reshape(k, s_here, -1), n_sb).reshape(
+            k, s_here * n_sb)
     if offs_mode == "u16delta":
-        if isinstance(fields[1], np.ndarray):
-            fields[1] = _deltas_to_offsets_np(fields[1].reshape(k, -1))
-        else:
-            from ..ops.ragged import offsets_from_deltas
-
-            fields[1] = offsets_from_deltas(fields[1])
-    return RaggedUnitBatch(*fields, row_len=row_len)
+        fields[1] = _decode_deltas(fields[1], s_here)
+    return RaggedUnitBatch(*fields, row_len=row_len, num_shards=s_here)
 
 
 def unpack_batch(buffer, layout: tuple):
     """Rebuild the batch from a packed buffer: a numpy uint8 array gives
     numpy views; a torch uint8 tensor (on any device) gives tensors whose
-    bytes are the same. The flat layouts and the group layout (a stacked
-    ragged batch); a coded units field decodes to the raw wire's bytes."""
+    bytes are the same. The flat layouts, the shard-segment layout and the
+    group layout (a stacked ragged batch); a coded units field decodes to
+    the raw wire's bytes."""
+    if layout[0] == "RaggedShardSegments":
+        return _unpack_ragged_shards(buffer, layout)
     if layout[0] == "RaggedGroupSegments":
         return _unpack_ragged_group(buffer, layout)
     cls = {
         "FeatureBatch": FeatureBatch,
         "UnitBatch": UnitBatch,
         "RaggedUnitBatch": RaggedUnitBatch,
-    }.get(layout[0])
-    if cls is None:
-        raise NotImplementedError(
-            f"the {layout[0]} layout is not ported (shard segments: ROADMAP A10)"
-        )
+    }[layout[0]]
     fields = []
     off = 0
     for shape, dtype_str in layout[1]:
@@ -582,30 +774,15 @@ def unpack_batch(buffer, layout: tuple):
     if cls is not RaggedUnitBatch:
         return cls(*fields)
     row_len, num_shards, offsets_form = layout[2][:3]
-    if num_shards != 1:
-        raise NotImplementedError(
-            "the shard-aligned ragged layout is not ported (ROADMAP A10)")
     codec_tag = _layout_codec(layout)
     if codec_tag is not None:
         raw_shape = tuple(codec_tag[1])
         fields[0] = _decode_units(fields[0].reshape(-1),
                                   int(np.prod(raw_shape, dtype=np.int64))).reshape(raw_shape)
     if offsets_form == "u16delta":
-        if isinstance(fields[1], np.ndarray):
-            fields[1] = _deltas_to_offsets_np(fields[1])
-        else:
-            from ..ops.ragged import offsets_from_deltas
+        fields[1] = _decode_deltas(fields[1], num_shards)
+    return RaggedUnitBatch(*fields, row_len=row_len, num_shards=num_shards)
 
-            fields[1] = offsets_from_deltas(fields[1])
-    return RaggedUnitBatch(*fields, row_len=row_len)
-
-
-# ---- tenant routing ---------------------------------------------------------
-# One featurized batch's VALID rows split into M per-tenant batches of the
-# SAME padded shape (one wire signature; a dry tenant ships all padding),
-# which the superbatch wires carry as the M-tenant wire. Routing is a pure
-# function of the batch, so delivery (per-tenant stats, the predictions'
-# original order) recomputes it instead of carrying a permutation.
 
 def _splitmix(x: np.ndarray) -> np.ndarray:
     """SplitMix64's finalizer over uint64 lanes: a routing mixer, not a

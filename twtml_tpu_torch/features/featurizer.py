@@ -249,6 +249,19 @@ class Featurizer:
         return status.is_retweet and self.retweet_interval(status)
 
     # -- features (MllibHelper.scala:58-82) ----------------------------------
+    def unit_len(self, status: Status) -> int:
+        """UTF-16 code units the wire will carry for this status's text, the
+        same lowering and accent handling as the featurizers: the lockstep
+        scheduler's over-long-row probe. An unmeasurable row counts as
+        over-long."""
+        try:
+            text = status.retweeted_status.text.lower()
+            if self.normalize_accents:
+                text = _strip_accents(text)
+            return len(text.encode("utf-16-le", "surrogatepass")) // 2
+        except Exception:  # lawcheck: disable=TW005 -- documented degrade: an unmeasurable row counts as over-long, so the lockstep probe drops it
+            return 1 << 30
+
     def featurize_numbers(self, status: Status) -> np.ndarray:
         original = status.retweeted_status
         time_left = self._now() - original.created_at_ms

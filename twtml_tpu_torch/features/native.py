@@ -256,16 +256,20 @@ def featurize_wire_raw(*args) -> int | None:
 
 
 def wire_assemble(fields_per_batch, narrow: bool, out, lut=None, scratch=None,
-                  enc_lens=None) -> "tuple[int, int] | None":
+                  enc_lens=None, shards: int = 1,
+                  forced_bucket: int = 0) -> "tuple[int, int] | None":
     """One C pass from K ragged batches' five field arrays (units, offsets,
     numeric, label, mask each) to the packed wire in ``out``: the flat
-    layout for K = 1, the group layout's K segments otherwise (one shard).
-    With the pair ``lut`` (features/wirecodec.py) every segment's units are
-    digram-coded into ``scratch`` (K x units bytes; ``enc_lens`` int64 [K])
-    and laid down in one shared bucket, or shipped raw when that bucket is
-    not smaller. Returns (bytes written, codec bucket: 0 for raw units), or
-    None when the entry is unavailable or refuses the input (a length delta
-    past uint16, ``out`` too small)."""
+    layout for K = 1, the group layout's K segments otherwise, shard-major
+    over ``shards`` S shard-aligned segments ([S, K, segment]). With the
+    pair ``lut`` (features/wirecodec.py) every segment's units are
+    digram-coded into ``scratch`` (S·K x a segment's units bytes;
+    ``enc_lens`` int64 [S·K]) and laid down in one shared bucket, or
+    shipped raw when that bucket is not smaller; ``forced_bucket`` > 0 is a
+    bucket the ranks of a multi-host group agreed. Returns (bytes written,
+    codec bucket: 0 for raw units), or None when the entry is unavailable
+    or refuses the input (a length delta past uint16, ``out`` too small, a
+    segment past the forced bucket)."""
     lib = get_lib()
     if lib is None or lib.wire_assemble is None:
         return None
@@ -275,9 +279,9 @@ def wire_assemble(fields_per_batch, narrow: bool, out, lut=None, scratch=None,
     units, mask = fields_per_batch[0][0], fields_per_batch[0][4]
     enc_bucket = ctypes.c_int64(0)
     total = lib.wire_assemble(
-        *ptrs, k, 1, int(units.shape[0]), int(mask.shape[0]), int(units.dtype.itemsize),
-        1 if narrow else 0,
-        None if lut is None else lut.ctypes.data, 0,
+        *ptrs, k, int(shards), int(units.shape[0]) // shards, int(mask.shape[0]) // shards,
+        int(units.dtype.itemsize), 1 if narrow else 0,
+        None if lut is None else lut.ctypes.data, int(forced_bucket),
         None if scratch is None else scratch.ctypes.data,
         None if enc_lens is None else enc_lens.ctypes.data,
         out.ctypes.data, int(out.shape[0]), ctypes.byref(enc_bucket),

@@ -18,7 +18,8 @@ form (one [B, D]×[D, k] product) and the per-center sums a one-hot product.
 
 The random centers are ``jax.random.normal(PRNGKey(seed), (k, dim))``,
 drawn by ``ops/prng.normal`` bit for bit as jax draws them for the app's
-(3, 2). The JAX package's data-parallel mesh is not ported (ROADMAP A10).
+(3, 2). The JAX package's data-parallel mesh (k-means across hosts) is ROADMAP
+A10b.
 """
 
 from __future__ import annotations
@@ -94,8 +95,8 @@ class StreamingKMeans:
                  mesh=None, device="cuda"):
         if mesh is not None:
             raise NotImplementedError(
-                "a data-parallel k-means mesh needs the multi-host and data-parallel "
-                "runtime, which is not ported (ROADMAP A10)")
+                "a data-parallel k-means mesh (k-means across hosts) is not ported "
+                "(ROADMAP A10b)")
         self.k = k
         self.decay_factor = decay_factor
         self.time_unit = time_unit

@@ -79,12 +79,14 @@ from ..ops.fused_sgd import fused_dense_sgd, least_squares_residual, residual_mo
 from ..ops.gram import (
     GRAM_INT8_PLANE,
     PLANE_INT8,
+    add_numeric_block,
     data_plane,
     dual_norm_sq,
     dual_writeback,
     fits_gram,
     gram_matrix,
     gram_plane,
+    text_gram,
 )
 from ..ops.quality import quality_vector
 from ..ops.ragged import ragged_repad
@@ -218,30 +220,55 @@ def run_dual_loop(*, u, g, labels, mask, dtype, residual_fn, num_iterations: int
     )
 
 
-def sampling_masks(rows: int, num_iterations: int, fraction: float, dtype, device):
+def sampling_masks(rows: int, num_iterations: int, fraction: float, dtype, device,
+                   shard: "int | None" = None):
     """The JAX loop's Bernoulli mini-batch draws of every iteration at once,
     as an [N, rows] 0/1 tensor of ``dtype``: row i is
     ``jax.random.bernoulli(fold_in(PRNGKey(42), i + 1), fraction, (rows,))``.
+    A rank of a data-parallel group (``shard``) draws under
+    ``fold_in(PRNGKey(42), shard)``, as the JAX package's ``sampling_key``
+    folds the data-shard index in, so the ranks' masks are independent.
     The draw's float type follows ``fraction``: float32, or float64 in the
     JAX package's x64 mode (its ``--dtype float64``), which draws other
     masks. One batched pass of integer ops on ``device``, no host sync."""
     key = prng.prng_key(MLLIB_SAMPLING_SEED)
+    if shard is not None:
+        folded = prng.fold_in(key, torch.tensor(int(shard), dtype=torch.int64, device=device))
+        key = (folded[0].to(torch.int64), folded[1].to(torch.int64))
     its = torch.arange(1, num_iterations + 1, dtype=torch.int64, device=device)
     draw = torch.float64 if dtype == torch.float64 else torch.float32
     keys = prng.fold_in(key, its)
     return prng.bernoulli(keys, fraction, (rows,), draw, device).to(dtype)
 
 
+def _reduced(grad_and_count, reduce):
+    """``grad_and_count`` whose (gradient, count) go through ONE ``reduce``
+    (a data-parallel group's in-place SUM over its ranks: the JAX package's
+    two ``psum``s of the gradient and the count), or itself without one."""
+    if reduce is None:
+        return grad_and_count
+
+    def reduced(w, it):
+        grad, count = grad_and_count(w, it)
+        buf = torch.cat([grad.reshape(-1), count.reshape(1).to(grad.dtype)])
+        reduce(buf)
+        return buf[:-1].reshape(grad.shape), buf[-1]
+
+    return reduced
+
+
 def dense_sgd_loop(x_dense, labels, mask, weights, *, num_iterations: int,
                    step_size: float, l2_reg: float = 0.0,
                    convergence_tol: float = 0.001, masks=None,
-                   residual_fn=least_squares_residual):
+                   residual_fn=least_squares_residual, reduce=None):
     """The JAX package's dense step as torch ops in the weights' float type
     (``twtml_tpu/models/sgd.py`` ``sgd_inner_loop`` over ``x_dense @ w``):
     predictions with the pre-update weights, then each iteration's gradient
     Xᵀ(residual_fn(X·w, y) * sel) over the rows ``sel = mask * masks[i - 1]``
     selects (all valid rows when ``masks`` is None), divided by the selected
-    count. Returns (new_weights [F], raw_predictions [B])."""
+    count. With ``reduce`` (a data-parallel group) the gradient and count
+    are summed over the ranks each iteration. Returns (new_weights [F],
+    raw_predictions [B])."""
     raw = x_dense @ weights
 
     def grad_and_count(w, it):
@@ -252,7 +279,7 @@ def dense_sgd_loop(x_dense, labels, mask, weights, *, num_iterations: int,
     w = sgd_inner_loop(
         weights, num_iterations=num_iterations, step_size=step_size,
         l2_reg=l2_reg, convergence_tol=convergence_tol,
-        grad_and_count=grad_and_count,
+        grad_and_count=_reduced(grad_and_count, reduce),
     )
     return w, raw
 
@@ -260,12 +287,13 @@ def dense_sgd_loop(x_dense, labels, mask, weights, *, num_iterations: int,
 def sparse_sgd_loop(weights, token_idx, token_val, numeric, labels, mask, *,
                     num_text_features: int, num_iterations: int, step_size: float,
                     l2_reg: float = 0.0, convergence_tol: float = 0.001, masks=None,
-                    residual_fn=least_squares_residual):
+                    residual_fn=least_squares_residual, reduce=None):
     """The sparse regime's per-iteration loop as torch ops (the JAX
     package's scatter loop): each iteration gathers the margins
     (``sparse_predict``) and scatters residual·val back
-    (``sparse_grad_text``), plus the numeric columns' Nᵀr. Returns the new
-    weights [F + 4]."""
+    (``sparse_grad_text``), plus the numeric columns' Nᵀr; with ``reduce``
+    summed over a data-parallel group's ranks. Returns the new weights
+    [F + 4]."""
     f_text = num_text_features
 
     def grad_and_count(w, it):
@@ -278,7 +306,7 @@ def sparse_sgd_loop(weights, token_idx, token_val, numeric, labels, mask, *,
 
     return sgd_inner_loop(
         weights, num_iterations=num_iterations, step_size=step_size, l2_reg=l2_reg,
-        convergence_tol=convergence_tol, grad_and_count=grad_and_count,
+        convergence_tol=convergence_tol, grad_and_count=_reduced(grad_and_count, reduce),
     )
 
 
@@ -371,6 +399,7 @@ def make_sgd_train_step(
     use_sparse: "bool | None" = None,
     use_gram: "bool | None" = None,
     gram_int8: "bool | None" = None,
+    group=None,
 ):
     """Build the (weights, batch[, plane]) -> (new_weights, StepOutput) step.
     ``residual_fn(raw, label)`` is the per-row gradient multiplier (None:
@@ -382,7 +411,20 @@ def make_sgd_train_step(
     above 8192 text features), ``use_gram`` (None: the gate; False: the
     scatter loop) and ``gram_int8`` (None: ``GRAM_INT8_PLANE``) are the
     JAX package's. ``plane`` is the batch's Gram plane from
-    ``host_planes`` (None: read from the tokens, which syncs on a card)."""
+    ``host_planes`` (None: read from the tokens, which syncs on a card).
+
+    ``group`` (parallel/distributed.py ``Collectives``; None: one process)
+    makes the step this rank's share of a data-parallel step over the
+    group's ranks, the JAX package's step under ``axis_name``: the batch is
+    this rank's rows, the weights replicated. The stats and the quality
+    vector sum over the ranks (one all-reduce each); the fused route runs
+    B1's data-parallel split (``fused_dense_sgd_split``: one all-reduce of
+    the gradient and count an iteration), the torch and scatter loops
+    all-reduce the same; ``-b`` < 1 draws under the rank-folded key; the
+    Gram route all-gathers the rows once, builds this rank's [B_local, B]
+    panel of G, all-gathers G, runs the dual loop replicated and writes
+    back its own rows' share, all-reduced. The ``fits_gram`` gate counts
+    the global rows, as the JAX package's does."""
     _check_slice(dtype)
     f_text = num_text_features
     sparse = f_text > DENSE_TEXT_FEATURE_LIMIT if use_sparse is None else use_sparse
@@ -390,6 +432,8 @@ def make_sgd_train_step(
     route = dense_route(mini_batch_fraction, dtype, residual_fn, sparse, use_gram)
     int8_plane = GRAM_INT8_PLANE if gram_int8 is None else gram_int8
     sampled = mini_batch_fraction < 1.0
+    reduce = None if group is None else group.allreduce_
+    world = 1 if group is None else group.world
     # every batch draws the same masks (the key is PRNGKey(42) each batch),
     # so a row count's [N, B] set is made once, on the step's device
     masks_by_rows: dict = {}
@@ -402,12 +446,16 @@ def make_sgd_train_step(
             if len(masks_by_rows) >= _MASK_CACHE_SIZE:
                 masks_by_rows.clear()
             masks_by_rows[key] = sampling_masks(
-                rows, num_iterations, mini_batch_fraction, dtype, device)
+                rows, num_iterations, mini_batch_fraction, dtype, device,
+                shard=None if group is None else group.rank)
         return masks_by_rows[key]
 
     def gram_sgd(weights, token_idx, token_val, numeric, raw, labels, mask, masks, plane):
         """The loop in the dual basis: the hand kernels on the card in
         float32 (B4, the G product, B7, B8), the plain pieces elsewhere."""
+        if group is not None:
+            return gram_sgd_parallel(weights, token_idx, token_val, numeric, raw, labels,
+                                     mask, masks)
         rows = mask.shape[0]
         p_prev = torch.sum(weights * weights)
         dev = weights.device
@@ -431,6 +479,58 @@ def make_sgd_train_step(
                                        dual["alpha"], token_idx, token_val, numeric)
         return torch.cat([w_text, w_num])
 
+    def gram_sgd_parallel(weights, token_idx, token_val, numeric, raw, labels, mask,
+                          masks):
+        """The JAX package's data-parallel Gram route: ONE all-gather of the
+        rows, this rank's [B_local, B] panel of G (B4 and the G product on
+        the card in float32), an all-gather of the panels, the numeric
+        block, the dual loop replicated (B7 on the card), then this rank's
+        rows' write-back (B8 on zero weights: Cᵀα_local + Nᵀα_local) summed
+        over the ranks, and W_new = c·W + that sum. The plane is the
+        gathered rows' (read from the card: the group waits there anyway),
+        so every rank builds its panel in the same one."""
+        rows_local = mask.shape[0]
+        g_idx, g_val, g_num, g_raw, g_mask, g_labels = (
+            group.all_gather_rows(t)
+            for t in (token_idx, token_val, numeric, raw, mask, labels))
+        # the plane of the gathered rows (every rank the same), not this
+        # rank's: one rank's long row decides the plane of every panel
+        plane = data_plane(g_val, int8_plane)
+        rows = g_mask.shape[0]
+        row0 = group.rank * rows_local
+        p_prev = torch.sum(weights * weights)
+        dev = weights.device
+        # every rank's draws ([N, B_local] each) in the gathered row order
+        g_sel = None if masks is None else group.all_gather_rows(masks.T.contiguous()).T
+        kernels = (dev.type == "cuda" and weights.dtype == torch.float32
+                   and residual_mode(residual_fn) is not None)
+        if kernels:
+            counts = fused_gram.count_build(g_idx, g_val, f_text, int8=plane == PLANE_INT8)
+            panel = fused_gram.gram_from_counts(counts, rows=(row0, rows_local))
+        else:
+            panel = text_gram(g_idx, g_val, f_text, row_start=row0, rows=rows_local,
+                              int8_plane=int8_plane, plane=plane)
+        g_text = group.all_gather_rows(panel[:, :rows].contiguous())
+        g = add_numeric_block(g_text, g_num, torch.float32 if kernels else weights.dtype)
+        if kernels:
+            c, alpha, _ = fused_gram.dual_sgd(g, g_raw, g_labels, g_mask, masks=g_sel,
+                                              p_prev=p_prev, **loop_kw)
+        else:
+            dual = run_dual_loop(u=g_raw, g=g, labels=g_labels, mask=g_mask,
+                                 dtype=weights.dtype, p_prev=p_prev, masks=g_sel, **loop_kw)
+            c, alpha = dual["c"], dual["alpha"]
+        alpha_local = alpha[row0:row0 + rows_local].contiguous()
+        zeros = torch.zeros_like(weights)
+        if kernels:
+            delta = fused_gram.dual_writeback_counts(
+                zeros, c, alpha_local, counts[row0:row0 + rows_local], numeric, f_text)
+        else:
+            w_text, w_num = dual_writeback(zeros[:f_text], zeros[f_text:], c, alpha_local,
+                                           token_idx, token_val, numeric)
+            delta = torch.cat([w_text, w_num])
+        group.allreduce_(delta)
+        return weights * c + delta
+
     def train_step(weights, batch, plane: "int | None" = None):
         if isinstance(batch, PackedBatch):
             # one-buffer wire: reinterpret its bytes on the device (the
@@ -439,7 +539,8 @@ def make_sgd_train_step(
         if isinstance(batch, RaggedUnitBatch):
             # ragged wire: re-pad + ASCII fold on the device, giving the
             # padded wire's units bit for bit
-            units, length = ragged_repad(batch.units, batch.offsets, batch.row_len)
+            units, length = ragged_repad(batch.units, batch.offsets, batch.row_len,
+                                         batch.num_shards)
             batch = UnitBatch(units, length, batch.numeric, batch.label, batch.mask)
         if isinstance(batch, UnitBatch):
             token_idx, token_val = hash_bigrams_device(
@@ -462,15 +563,19 @@ def make_sgd_train_step(
             x_dense = torch.cat(
                 [densify_text(token_idx, token_val, f_text), numeric], dim=1
             )
-            if route == "fused_dense_sgd":
+            if route == "fused_dense_sgd" and group is not None:
+                w_new, raw = fused_sgd.fused_dense_sgd_split(
+                    x_dense, labels, mask, weights, allreduce=reduce, **loop_kw)
+            elif route == "fused_dense_sgd":
                 w_new, raw = fused_dense_sgd(x_dense, labels, mask, weights, **loop_kw)
             else:
                 w_new, raw = dense_sgd_loop(x_dense, labels, mask, weights, masks=masks,
-                                            **loop_kw)
+                                            reduce=reduce, **loop_kw)
         else:
             raw = sparse_predict(weights[:f_text], weights[f_text:], token_idx,
                                  token_val, numeric)
-            if route == "gram" and (use_gram or fits_gram(rows, f_text, num_iterations)):
+            if route == "gram" and (use_gram
+                                    or fits_gram(rows * world, f_text, num_iterations)):
                 if plane is None:
                     plane = data_plane(token_val, int8_plane)
                 w_new = gram_sgd(weights, token_idx, token_val, numeric, raw, labels,
@@ -478,17 +583,17 @@ def make_sgd_train_step(
             else:
                 w_new = sparse_sgd_loop(weights, token_idx, token_val, numeric, labels,
                                         mask, num_text_features=f_text, masks=masks,
-                                        **loop_kw)
+                                        reduce=reduce, **loop_kw)
         preds = raw if prediction_fn is None else prediction_fn(raw)
         if round_predictions:
             preds = torch_round_half_up(preds)
-        stats = batch_stats(labels, preds, mask)
+        stats = batch_stats(labels, preds, mask, reduce=reduce)
         q = None
         if quality:
             q = quality_vector(
                 weights, w_new, residual=residual_fn(raw, labels) * mask, preds=preds,
                 labels=labels, mask=mask, numeric=numeric,
-                token_idx=token_idx, token_val=token_val,
+                token_idx=token_idx, token_val=token_val, reduce=reduce,
             )
         return w_new, StepOutput(predictions=preds, quality=q, **stats)
 
@@ -680,7 +785,8 @@ class StreamingSGDModel:
     weights on the model's device (updated each step), the fused step, the
     K-step ``step_many``, conf plumbing. Subclasses set the three gradient
     knobs (``residual_fn``, ``prediction_fn``, ``round_predictions``) and
-    ``default_step_size``."""
+    ``default_step_size``; the constructor's arguments of the same names
+    override the knobs (the data-parallel learner takes them so)."""
 
     residual_fn = None  # least squares when None
     prediction_fn = None  # identity when None
@@ -701,6 +807,10 @@ class StreamingSGDModel:
         use_sparse: "bool | None" = None,
         use_gram: "bool | None" = None,
         gram_int8: "bool | None" = None,
+        group=None,
+        residual_fn=None,
+        prediction_fn=None,
+        round_predictions: "bool | None" = None,
     ) -> None:
         self.num_text_features = num_text_features
         self.dtype = dtype
@@ -712,14 +822,17 @@ class StreamingSGDModel:
             mini_batch_fraction=mini_batch_fraction,
             l2_reg=l2_reg,
             convergence_tol=convergence_tol,
-            residual_fn=type(self).residual_fn,
-            prediction_fn=type(self).prediction_fn,
-            round_predictions=self.round_predictions,
+            # the class's knobs unless given (read off the class, unbound)
+            residual_fn=residual_fn or type(self).residual_fn,
+            prediction_fn=prediction_fn or type(self).prediction_fn,
+            round_predictions=(self.round_predictions if round_predictions is None
+                               else round_predictions),
             quality=quality,
             dtype=dtype,
             use_sparse=use_sparse,
             use_gram=use_gram,
             gram_int8=gram_int8,
+            group=group,
         )
         self.route = self._train_step.route
         log.info("%s step route: %s (miniBatchFraction %s, %s weights, %s)",

@@ -5,12 +5,15 @@ Each kernel source in ``csrc/`` is compiled by ``nvcc`` for Hopper
 ``ctypes``. The build runs at first use, from the sources in the checkout
 only, into ``build/twtml_tpu_torch/`` at the repository root; a library is
 named by a hash of its source and flags, so an edited source rebuilds. All
-requested sources compile in parallel, one ``nvcc`` each.
+requested sources compile in parallel, one ``nvcc`` each, under an
+``fcntl`` lock on ``build/twtml_tpu_torch/lock``, so processes that start
+together build once.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -60,10 +63,23 @@ def build(names=None) -> dict[str, Path]:
     ``<library>.log``. Raises with the compiler's output when one fails."""
     names = list(SOURCES if names is None else names)
     paths = {name: library_path(name) for name in names}
-    todo = {name: p for name, p in paths.items() if not p.exists()}
-    if not todo:
+    if all(p.exists() for p in paths.values()):
         return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # one builder at a time: the ranks of a multi-host group start together
+    # and all load at first use; the rest find the libraries built
+    with open(BUILD_DIR / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            _compile({name: p for name, p in paths.items() if not p.exists()}, paths)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return paths
+
+
+def _compile(todo: dict, paths: dict) -> None:
+    if not todo:
+        return
     nvcc = _nvcc()
     procs = {}
     for name, path in todo.items():
@@ -86,7 +102,6 @@ def build(names=None) -> dict[str, Path]:
         os.replace(tmp, paths[name])  # atomic: a reader never sees a partial .so
     if failed:
         raise RuntimeError("nvcc failed to build " + "\n".join(failed))
-    return paths
 
 
 @functools.cache

@@ -225,17 +225,19 @@ def count_build_reference(token_idx, token_val, f_text: int, *, int8: bool,
     return torch.nn.functional.pad(c, (0, cols_out - f_text, 0, rows_out - b))
 
 
-def gram_from_counts(counts):
-    """G = C·Cᵀ ([rows, rows] f32) from the count build's padded C: on the
-    card ``torch._int_mm`` for int8 counts (|G| < 2^24: the f32 cast is
-    exact), an f32 matmul (TF32 off) for f32 counts; on the CPU a float64
-    product (exact for the planes' integer counts) cast to f32."""
+def gram_from_counts(counts, rows: "tuple[int, int] | None" = None):
+    """G = C·Cᵀ ([rows, rows] f32) from the count build's padded C, or with
+    ``rows`` = (start, n) the row panel C[start:start + n]·Cᵀ ([n, rows]: a
+    data-parallel rank's share): on the card ``torch._int_mm`` for int8
+    counts (|G| < 2^24: the f32 cast is exact), an f32 matmul (TF32 off)
+    for f32 counts; on the CPU a float64 product (exact for the planes'
+    integer counts) cast to f32."""
+    left = counts if rows is None else counts[rows[0]:rows[0] + rows[1]]
     if counts.device.type == "cuda":
         if counts.dtype == torch.int8:
-            return torch._int_mm(counts, counts.t()).float()
-        return counts @ counts.t()
-    c = counts.double()
-    return (c @ c.T).float()
+            return torch._int_mm(left, counts.t()).float()
+        return left @ counts.t()
+    return (left.double() @ counts.double().T).float()
 
 
 def dual_sgd_reference(g, u, labels, mask, *, masks=None, p_prev, num_iterations: int,

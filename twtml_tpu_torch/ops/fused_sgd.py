@@ -22,6 +22,16 @@ arithmetic, so its predictions equal that pass's bitwise. No float atomics:
 reruns are bitwise equal. ``launch_plan`` and ``predict_plan`` size the
 launches; the wrapper only allocates outputs and scratch and launches.
 
+The data-parallel split (``fused_dense_sgd_split``, N processes training
+one model): the same loop cut at its one cross-rank point, three plain
+launches an iteration (``fused_dense_grad``, ``fused_dense_grad_reduce``,
+``fused_dense_update``, csrc/fused_sgd.cu) with one all-reduce of the
+fpad + 1 floats of this rank's Xᵀr and count between the second and the
+third. It uses B1's grid, row split and orders of summation, so at world
+size 1 it gives B1's weights and predictions bit for bit; its CPU twin is
+``fused_dense_grad_reference`` in ``sgd_inner_loop``. Each wrapper counts
+its launches in ``.launches``.
+
 Routing: a CPU tensor goes to the twin ``fused_dense_sgd_reference``; a CUDA
 tensor launches a kernel or raises. ``fused_dense_sgd.launches`` counts
 the calls that launched either kernel, ``.predict_launches`` those that
@@ -251,6 +261,173 @@ def fused_dense_sgd_reference(
     return w, preds
 
 
+def fused_dense_grad_reference(x_dense, labels, mask, weights, *,
+                               residual_fn=least_squares_residual):
+    """The plain twin of one split iteration on this rank's rows, before the
+    all-reduce: (Xᵀ residual(X·w, y) [F], the masked count, the margins X·w
+    [B]) on B1's bf16-rounded X with masked rows and labels zeroed, as
+    ``fused_dense_sgd_reference`` computes them."""
+    keep = mask > 0
+    x = torch.where(keep[:, None], x_dense, 0.0).to(torch.bfloat16).float()
+    y = torch.where(keep, labels.float(), 0.0)
+    raw = x @ weights.float()
+    return x.T @ (residual_fn or least_squares_residual)(raw, y), mask.float().sum(), raw
+
+
+def split_plan(batch_rows: int, num_features: int, *, sm_count: int,
+               shared_limit: int) -> LaunchPlan:
+    """The split's launch plan: B1's grid and rows a CTA (``launch_plan``),
+    so its sums run in B1's order, with every row in the staged bf16 buffer
+    (no resident rows; the buffer is laid out as B1's spill buffer) and
+    shared memory up to the rows of X (w, reduction slots, y, r, scratch)."""
+    plan = launch_plan(batch_rows, num_features, sm_count=sm_count,
+                       shared_limit=shared_limit)
+    return plan._replace(resident=0, spill_per_cta=plan.rows_cap,
+                         shared_bytes=plan.smem_layout[4])
+
+
+class SplitBuffers(NamedTuple):
+    """One split step's device buffers (``split_plan``'s sizes): the staged
+    bf16 X, B1's scratch, the int32 [2] state (converged flag, CTAs done)
+    and the [fpad + 1] all-reduce buffer (Xᵀr, then the count)."""
+
+    staged: torch.Tensor
+    scratch: torch.Tensor
+    state: torch.Tensor
+    gbuf: torch.Tensor
+
+
+def split_buffers(plan: LaunchPlan, device) -> SplitBuffers:
+    return SplitBuffers(
+        torch.empty((plan.spill_elements,), dtype=torch.bfloat16, device=device),
+        torch.empty((plan.scratch_floats,), dtype=torch.float32, device=device),
+        torch.empty((2,), dtype=torch.int32, device=device),
+        torch.empty((plan.fpad + 1,), dtype=torch.float32, device=device),
+    )
+
+
+def _plan_args(plan: LaunchPlan, features: int) -> tuple:
+    return (plan.rows, features, plan.fpad, plan.grid, plan.rows_cap, plan.shared_bytes,
+            _layout_arg(plan.smem_layout))
+
+
+def _check_split(name: str, err: int, plan: LaunchPlan) -> None:
+    if err == 1:  # cudaErrorInvalidValue: the entry's own checks
+        raise RuntimeError(f"{name}: the kernel refused the split plan {plan}")
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def fused_dense_grad(plan: LaunchPlan, bufs: SplitBuffers, x_dense, labels, mask, weights,
+                     w_out, preds, *, first: bool, mode: int = 0) -> None:
+    """One launch of the split's grad kernel on the current stream: each
+    CTA's Xᵀ residual(X·w, y) into the partials; with ``first`` it also
+    stages X, writes ``preds`` (X·w0) and the counts, and starts the step's
+    state. Later launches of a converged step return at once."""
+    err = _entry("twtml_fused_dense_grad")(
+        x_dense.data_ptr(), labels.data_ptr(), mask.data_ptr(), weights.data_ptr(),
+        w_out.data_ptr(), preds.data_ptr(), bufs.staged.data_ptr(), bufs.scratch.data_ptr(),
+        bufs.state.data_ptr(), bufs.gbuf.data_ptr(), *_plan_args(plan, x_dense.shape[1]),
+        int(first), int(mode), torch.cuda.current_stream().cuda_stream)
+    _check_split("fused_dense_grad", err, plan)
+    fused_dense_grad.launches += 1
+
+
+def fused_dense_grad_reduce(plan: LaunchPlan, bufs: SplitBuffers, features: int) -> None:
+    """One launch of the split's reduce kernel: the partials in B1's order
+    into ``bufs.gbuf[:fpad]``, the count into ``bufs.gbuf[fpad]``."""
+    err = _entry("twtml_fused_dense_grad_reduce")(
+        bufs.scratch.data_ptr(), bufs.state.data_ptr(), bufs.gbuf.data_ptr(),
+        *_plan_args(plan, features), torch.cuda.current_stream().cuda_stream)
+    _check_split("fused_dense_grad_reduce", err, plan)
+    fused_dense_grad_reduce.launches += 1
+
+
+def fused_dense_update(plan: LaunchPlan, bufs: SplitBuffers, w_out, features: int, *,
+                       it: int, step_size: float, l2_reg: float,
+                       convergence_tol: float) -> None:
+    """One launch of the split's update kernel: B1's update of iteration
+    ``it`` with the all-reduced ``bufs.gbuf``, and the converged flag."""
+    err = _entry("twtml_fused_dense_update")(
+        w_out.data_ptr(), bufs.scratch.data_ptr(), bufs.state.data_ptr(),
+        bufs.gbuf.data_ptr(), *_plan_args(plan, features), int(it), float(step_size),
+        float(l2_reg), float(convergence_tol), torch.cuda.current_stream().cuda_stream)
+    _check_split("fused_dense_update", err, plan)
+    fused_dense_update.launches += 1
+
+
+fused_dense_grad.launches = 0
+fused_dense_grad_reduce.launches = 0
+fused_dense_update.launches = 0
+
+
+def fused_dense_sgd_split(
+    x_dense, labels, mask, weights, *, allreduce, num_iterations: int, step_size: float,
+    l2_reg: float = 0.0, convergence_tol: float = 0.001,
+    residual_fn=least_squares_residual,
+):
+    """B1's loop on this rank's rows of a batch that N ranks train together:
+    each iteration's Xᵀr and count go through ``allreduce(t)`` (an in-place
+    SUM over the ranks of a float32 tensor on the batch's device). Returns
+    (new weights [F], this rank's raw predictions [B]). On the card: three
+    plain launches an iteration and one ``allreduce`` of fpad + 1 floats,
+    no host read of convergence; on the CPU the twin
+    (``fused_dense_grad_reference`` in ``sgd_inner_loop``). At
+    ``num_iterations == 0`` no rank exchanges anything: B1's predict mode."""
+    mode = residual_mode(residual_fn)
+    if mode is None:
+        raise ValueError(f"fused_dense_sgd_split has no residual mode for {residual_fn!r}")
+    if num_iterations == 0:
+        return fused_dense_sgd(x_dense, labels, mask, weights, num_iterations=0,
+                               step_size=step_size, residual_fn=residual_fn)
+    dev = x_dense.device
+    if dev.type == "cpu":
+        from ..models.sgd import sgd_inner_loop  # the one home of the MLlib rule
+
+        f = x_dense.shape[1]
+
+        def grad_and_count(w, _it):
+            g, count, _ = fused_dense_grad_reference(x_dense, labels, mask, w,
+                                                     residual_fn=residual_fn)
+            buf = torch.cat([g, count[None]])
+            allreduce(buf)
+            return buf[:f], buf[f]
+
+        _, _, preds = fused_dense_grad_reference(x_dense, labels, mask, weights,
+                                                 residual_fn=residual_fn)
+        w = sgd_inner_loop(weights.float(), num_iterations=num_iterations,
+                           step_size=step_size, l2_reg=l2_reg,
+                           convergence_tol=convergence_tol, grad_and_count=grad_and_count)
+        return w, preds
+    if dev.type != "cuda":
+        raise ValueError(f"fused_dense_sgd_split takes cpu or cuda tensors, got {dev}")
+    b, f = x_dense.shape
+    if not supports(batch_rows=b, num_features=f, dtype=weights.dtype):
+        raise ValueError(f"fused_dense_sgd_split does not take X {tuple(x_dense.shape)} "
+                         f"with {weights.dtype} weights (see supports())")
+    for name, t, shape in (("x_dense", x_dense, (b, f)), ("labels", labels, (b,)),
+                           ("mask", mask, (b,)), ("weights", weights, (f,))):
+        if (t.device != dev or tuple(t.shape) != shape or t.dtype != torch.float32
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous float32 {shape} on {dev}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    with torch.cuda.device(dev):
+        sm_count, shared_limit = device_limits(torch.cuda.current_device())
+        plan = split_plan(b, f, sm_count=sm_count, shared_limit=shared_limit)
+        bufs = split_buffers(plan, dev)
+        w = torch.empty((f,), dtype=torch.float32, device=dev)
+        preds = torch.empty((b,), dtype=torch.float32, device=dev)
+        for it in range(1, num_iterations + 1):
+            fused_dense_grad(plan, bufs, x_dense, labels, mask, weights, w, preds,
+                             first=it == 1, mode=mode)
+            fused_dense_grad_reduce(plan, bufs, f)
+            allreduce(bufs.gbuf)
+            fused_dense_update(plan, bufs, w, f, it=it, step_size=step_size, l2_reg=l2_reg,
+                               convergence_tol=convergence_tol)
+    fused_dense_sgd.last_iterations = bufs.scratch[-1]
+    return w, preds
+
+
 # arguments of the C entry twtml_fused_dense_sgd (csrc/fused_sgd.cu)
 KERNEL_ARGTYPES = (
     [ctypes.c_void_p] * 8  # x, labels, mask, w0, w_out, preds, spill, scratch
@@ -270,8 +447,25 @@ PREDICT_ARGTYPES = (
     + [ctypes.c_int] * 5  # rows, features, fpad, grid, shared_bytes
     + [ctypes.c_void_p]  # stream
 )
+# the split's C entries (csrc/fused_sgd.cu); each ends with the plan's
+# rows, features, fpad, grid, rows_cap, shared_bytes and smem_layout
+_PLAN_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+GRAD_ARGTYPES = (
+    [ctypes.c_void_p] * 10  # x, labels, mask, w0, w_out, preds, staged, scratch, state, gbuf
+    + _PLAN_ARGTYPES + [ctypes.c_int] * 2  # first, residual_mode
+    + [ctypes.c_void_p]  # stream
+)
+REDUCE_ARGTYPES = [ctypes.c_void_p] * 3 + _PLAN_ARGTYPES + [ctypes.c_void_p]
+UPDATE_ARGTYPES = (
+    [ctypes.c_void_p] * 4  # w_out, scratch, state, gbuf
+    + _PLAN_ARGTYPES + [ctypes.c_int] + [ctypes.c_float] * 3  # it, step, l2, tol
+    + [ctypes.c_void_p]
+)
 _ENTRIES = {"twtml_fused_dense_sgd": KERNEL_ARGTYPES,
-            "twtml_fused_dense_predict": PREDICT_ARGTYPES}
+            "twtml_fused_dense_predict": PREDICT_ARGTYPES,
+            "twtml_fused_dense_grad": GRAD_ARGTYPES,
+            "twtml_fused_dense_grad_reduce": REDUCE_ARGTYPES,
+            "twtml_fused_dense_update": UPDATE_ARGTYPES}
 
 
 @functools.cache

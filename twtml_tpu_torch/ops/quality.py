@@ -48,29 +48,23 @@ QUALITY_INDEX = {name: i for i, name in enumerate(QUALITY_FIELDS)}
 
 
 def quality_vector(
-    w_prev, w_new, *, residual, preds, labels, mask, numeric, token_idx, token_val
+    w_prev, w_new, *, residual, preds, labels, mask, numeric, token_idx, token_val,
+    reduce=None,
 ):
     """The ``[QUALITY_WIDTH]`` f32 quality vector for one micro-batch.
 
     ``residual`` is the masked pre-update residual, ``preds`` the reported
-    (rounded) predictions, ``mask`` the valid-row mask."""
+    (rounded) predictions, ``mask`` the valid-row mask. With ``reduce`` (a
+    data-parallel group's in-place SUM over its ranks, the JAX package's
+    ``psum`` over the data axis) the row inputs are this rank's, and their
+    sums (count, squared residual, moments, numeric moments, the 32 bins)
+    go through ONE ``reduce`` before any division, so every rank gets the
+    global vector; the weights are replicated and need none."""
     f32 = torch.float32
     m = mask.to(f32)
-    denom = torch.clamp(torch.sum(m), min=1.0)
 
     w_sq = torch.sum(w_new.to(f32) ** 2)
     upd_sq = torch.sum((w_new.to(f32) - w_prev.to(f32)) ** 2)
-    grad_sq = torch.sum(residual.to(f32) ** 2)
-
-    def moments(x):
-        x = x.to(f32)
-        mean = torch.sum(x * m) / denom
-        var = torch.sum(x * x * m) / denom - mean * mean
-        return mean, torch.clamp(var, min=0.0)
-
-    pred_mean, pred_var = moments(preds)
-    label_mean, label_var = moments(labels)
-    resid_mean, resid_var = moments(labels.to(f32) - preds.to(f32))
 
     if numeric.shape[1] != NUM_NUMERIC:
         raise ValueError(
@@ -78,9 +72,8 @@ def quality_vector(
             f"(QUALITY_FIELDS layout); got {numeric.shape[1]}"
         )
     num = numeric.to(f32)
-    num_mean = torch.sum(num * m[:, None], dim=0) / denom
-    num_sq = torch.sum(num * num * m[:, None], dim=0) / denom
-    num_var = torch.clamp(num_sq - num_mean * num_mean, min=0.0)
+    x_p, x_l = preds.to(f32), labels.to(f32)
+    x_r = x_l - x_p
 
     # folded hash-bucket histogram; padding tokens carry zero value and
     # padded rows are masked, so only real token mass lands in the bins.
@@ -96,6 +89,37 @@ def quality_vector(
     tv = (token_val.to(f32) * m[:, None]).reshape(folded.shape)
     row_bins = torch.zeros((folded.shape[0], QUALITY_NBINS), dtype=f32, device=tv.device)
     bins = row_bins.scatter_add_(1, folded, tv).sum(dim=0)
+
+    # every sum over the rows, in one vector: [count, Σr², Σx·m, Σx²·m for
+    # preds, labels and labels − preds, the numeric sums, their squares,
+    # the bins]
+    sums = torch.cat([
+        torch.stack([
+            torch.sum(m), torch.sum(residual.to(f32) ** 2),
+            torch.sum(x_p * m), torch.sum(x_p * x_p * m),
+            torch.sum(x_l * m), torch.sum(x_l * x_l * m),
+            torch.sum(x_r * m), torch.sum(x_r * x_r * m),
+        ]),
+        torch.sum(num * m[:, None], dim=0),
+        torch.sum(num * num * m[:, None], dim=0),
+        bins,
+    ])
+    if reduce is not None:
+        reduce(sums)
+    denom = torch.clamp(sums[0], min=1.0)
+
+    def moments(at: int):
+        mean = sums[at] / denom
+        var = sums[at + 1] / denom - mean * mean
+        return mean, torch.clamp(var, min=0.0)
+
+    pred_mean, pred_var = moments(2)
+    label_mean, label_var = moments(4)
+    resid_mean, resid_var = moments(6)
+    num_mean = sums[8:8 + NUM_NUMERIC] / denom
+    num_sq = sums[8 + NUM_NUMERIC:8 + 2 * NUM_NUMERIC] / denom
+    num_var = torch.clamp(num_sq - num_mean * num_mean, min=0.0)
+    bins = sums[8 + 2 * NUM_NUMERIC:]
     total = torch.sum(bins)
     occupancy = torch.mean((bins > 0).to(f32))
     top_share = torch.max(bins) / torch.clamp(total, min=1.0)
@@ -104,7 +128,7 @@ def quality_vector(
         [
             torch.sqrt(w_sq),
             torch.sqrt(upd_sq),
-            torch.sqrt(grad_sq),
+            torch.sqrt(sums[1]),
             pred_mean,
             pred_var,
             label_mean,

@@ -1,5 +1,6 @@
-"""Device decode of the ragged units wire (counterpart of the single-segment
-forms of ``twtml_tpu/ops/ragged.py``), as plain torch ops.
+"""Device decode of the ragged units wire (counterpart of
+``twtml_tpu/ops/ragged.py``), as plain torch ops, for the flat, group and
+shard-segment layouts.
 
 The ragged wire (features/batch.py ``RaggedUnitBatch``) ships text as
 concatenated code units plus row offsets, the offsets as uint16 length
@@ -25,22 +26,36 @@ def _widen(t):
     return w & 0xFFFF if t.dtype == torch.int16 else w
 
 
-def offsets_from_deltas(deltas):
-    """uint16 per-row length deltas [..., B] -> int32 offsets [..., B+1]
-    starting at 0: the decode half of the narrow offset wire."""
+def offsets_from_deltas(deltas, num_segments: int = 1):
+    """uint16 per-row length deltas [..., S·B_s] -> int32 offsets [...,
+    S·(B_s+1)], each of the S segments starting at 0: the decode half of
+    the narrow offset wire (a shard-segment wire carries one segment a
+    shard)."""
     d = _widen(deltas)
-    zero = torch.zeros(d.shape[:-1] + (1,), dtype=torch.int32, device=d.device)
-    return torch.cat([zero, torch.cumsum(d, dim=-1, dtype=torch.int32)], dim=-1)
+    lead = d.shape[:-1]
+    d = d.reshape(lead + (num_segments, -1))
+    zero = torch.zeros(lead + (num_segments, 1), dtype=torch.int32, device=d.device)
+    out = torch.cat([zero, torch.cumsum(d, dim=-1, dtype=torch.int32)], dim=-1)
+    return out.reshape(lead + (-1,))
 
 
-def ragged_repad(units, offsets, row_len: int):
-    """(flat units [N], int32 offsets [B+1], static L) -> (int32 [B, L]
-    units with ASCII case folded and zeros past each row, int32 [B]
-    lengths): the padded wire's layout. The gather's indices are clipped
-    into the buffer, so a pad slot reads a real unit that ``where`` then
-    zeroes: no scatter, no out-of-range read."""
+def ragged_repad(units, offsets, row_len: int, num_segments: int = 1):
+    """(flat units [N], int32 offsets, static L) -> (int32 [B, L] units with
+    ASCII case folded and zeros past each row, int32 [B] lengths): the
+    padded wire's layout. A shard-aligned buffer (``num_segments`` S > 1)
+    holds S equal unit sub-buffers and S segment-relative [B/S + 1] offset
+    blocks; segment s's starts shift by s·N/S. The gather's indices are
+    clipped into the buffer, so a pad slot reads a real unit that
+    ``where`` then zeroes: no scatter, no out-of-range read."""
     offs = offsets.to(torch.int32)
-    starts, lens = offs[:-1], offs[1:] - offs[:-1]
+    if num_segments > 1:
+        ob = offs.reshape(num_segments, -1)
+        base = (torch.arange(num_segments, dtype=torch.int32, device=units.device)
+                * (units.shape[0] // num_segments))[:, None]
+        starts = (ob[:, :-1] + base).reshape(-1)
+        lens = (ob[:, 1:] - ob[:, :-1]).reshape(-1)
+    else:
+        starts, lens = offs[:-1], offs[1:] - offs[:-1]
     cols = torch.arange(row_len, dtype=torch.int32, device=units.device)[None, :]
     idx = torch.clamp(starts[:, None] + cols, 0, units.shape[0] - 1)
     buf = torch.where(cols < lens[:, None], _widen(units[idx.long()]), 0)

@@ -1,5 +1,5 @@
-"""Masked on-device batch statistics (counterpart of ``twtml_tpu/ops/stats.py``,
-single device, no mesh axis).
+"""Masked on-device batch statistics (counterpart of ``twtml_tpu/ops/stats.py``),
+on one device or, with ``reduce``, over the ranks of a data-parallel group.
 
 count / MSE / stdev(real) / stdev(pred) over the valid rows. ``RDD.stdev`` is
 the population stdev, computed as E[x^2] - E[x]^2 clamped at 0 (not
@@ -30,14 +30,36 @@ def masked_stdev(x, mask):
     return torch.sqrt(torch.clamp(var, min=0.0))
 
 
-def batch_stats(labels, rounded_preds, mask) -> dict:
-    """count, mse(y, rounded y_hat), stdev(y), stdev(y_hat)."""
-    count = masked_count(mask)
+def batch_stats(labels, rounded_preds, mask, reduce=None) -> dict:
+    """count, mse(y, rounded y_hat), stdev(y), stdev(y_hat). With ``reduce``
+    (a data-parallel group's in-place SUM of a float tensor over its ranks,
+    the JAX package's ``psum`` over the data axis) the six sums are this
+    rank's rows' and go through ONE ``reduce`` before the divisions, so
+    every rank gets the global stats; without it the sums are taken in the
+    same order, and the results are the single-device ones."""
+    if reduce is None:
+        count = masked_count(mask)
+        err = (labels - rounded_preds) * mask
+        mse = torch.sum(err * err) / torch.clamp(count, min=1.0)
+        return {
+            "count": count,
+            "mse": mse,
+            "real_stdev": masked_stdev(labels, mask),
+            "pred_stdev": masked_stdev(rounded_preds, mask),
+        }
     err = (labels - rounded_preds) * mask
-    mse = torch.sum(err * err) / torch.clamp(count, min=1.0)
-    return {
-        "count": count,
-        "mse": mse,
-        "real_stdev": masked_stdev(labels, mask),
-        "pred_stdev": masked_stdev(rounded_preds, mask),
-    }
+    sums = torch.stack([
+        masked_count(mask), torch.sum(err * err),
+        masked_sum(labels, mask), masked_sum(labels * labels, mask),
+        masked_sum(rounded_preds, mask), masked_sum(rounded_preds * rounded_preds, mask),
+    ])
+    reduce(sums)
+    count, sq_err, y, yy, p, pp = sums.unbind()
+    denom = torch.clamp(count, min=1.0)
+
+    def stdev(total, total_sq):
+        mean = total / denom
+        return torch.sqrt(torch.clamp(total_sq / denom - mean * mean, min=0.0))
+
+    return {"count": count, "mse": sq_err / denom, "real_stdev": stdev(y, yy),
+            "pred_stdev": stdev(p, pp)}

@@ -1,8 +1,9 @@
-"""Model planes over more than one learner (counterpart of
+"""Model planes over more than one learner or process (counterpart of
 ``twtml_tpu/parallel``): the tenant plane (``tenants.py``, ``--tenants
-M``), M stacked learners on one wire and one fetch a tick. The data
-parallel, multi-host and elastic parts of the JAX package are ROADMAP
-A10."""
+M``), M stacked learners on one wire and one fetch a tick; the lockstep
+multi-host runtime (``distributed.py``, ``sharding.py``, ``mesh.py``),
+N processes training one model. The elastic and 2D parts of the JAX
+package are ROADMAP A10b."""
 
 from .tenants import TenantStackModel, aggregate_tenant_output, split_tenant_output
 

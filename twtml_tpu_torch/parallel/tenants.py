@@ -27,8 +27,8 @@ work, not a round trip.
   and aggregates the tick into one batch-level StepOutput
   (``aggregate_tenant_output``) for the chain that predates tenants.
 
-Not here: a mesh and ``MultiHostTenantModel`` (the multi-host runtime,
-ROADMAP A10), and ``mapping="vmap"``, whose Hopper form is B1 with a tenant
+Not here: a mesh and ``MultiHostTenantModel`` (the tenant plane across
+devices and hosts, ROADMAP A10b), and ``mapping="vmap"``, whose Hopper form is B1 with a tenant
 grid dimension (ROADMAP B10).
 """
 
@@ -159,7 +159,7 @@ class TenantStackModel:
                           "that is B1 with a tenant grid dimension", "B10")
         if mesh is not None:
             raise _refuse("a mesh shards the tenant plane over devices and hosts (the "
-                          "multi-host runtime)", "A10")
+                          "tenant fleet of the multi-host runtime)", "A10b")
         self.num_tenants = num_tenants
         self.num_text_features = num_text_features
         self.dtype = dtype
@@ -342,9 +342,9 @@ class TenantStackModel:
 
 
 class MultiHostTenantModel:
-    """The tenant plane behind per-host sharded intake: the multi-host
-    runtime (ROADMAP A10)."""
+    """The tenant plane behind per-host sharded intake: the tenant fleet of
+    the multi-host runtime (ROADMAP A10b)."""
 
     def __init__(self, *args, **kwargs):
         raise _refuse("MultiHostTenantModel runs the tenant plane across hosts (the "
-                      "multi-host runtime)", "A10")
+                      "tenant fleet of the multi-host runtime)", "A10b")

@@ -33,8 +33,18 @@ Block ingest (``--ingest block``): the queue's items are ``ParsedBlock``s
 in ``putback``; a drain capped at the row bucket cuts a block at the cap
 (``slice_block``) and leaves its tail at the front, so back-to-back block
 batches are bucket-sized as object batches are; a batch of blocks is merged
-and featurized by ``Featurizer.featurize_parsed_block``. The lockstep
-(multi-host) scheduler and elastic membership are not ported (ROADMAP A10).
+and featurized by ``Featurizer.featurize_parsed_block``.
+
+Multi-host (``start(lockstep=True)``): every rank of the group must run the
+same sequence of collectives, so the lockstep scheduler agrees each tick
+with ONE all-gather over the host group (``_lockstep_loop``): whether any
+rank has rows, whether more are coming, whether one aborts, the sentinel's
+rollback count, and each rank's telemetry sideband (telemetry/sideband.py).
+A rank whose shard ran dry dispatches all-padding batches until every rank
+is done; a failure after featurize aborts the group; a dead peer trips the
+progress watchdog (``TWTML_LOCKSTEP_TIMEOUT_S``) or the transport's error
+and the survivor aborts loudly instead of hanging. Elastic membership is
+ROADMAP A10b.
 """
 
 from __future__ import annotations
@@ -61,6 +71,42 @@ from . import journal as _journal
 from .sources import Source
 
 log = get_logger("streaming.context")
+
+# the lockstep peer watchdog: how long the tick's cadence all-gather may make
+# no progress before this rank concludes a peer is gone and aborts (0
+# disables). Generous: ticks legitimately skew by a slow rank's featurize
+# and first-use builds.
+LOCKSTEP_TIMEOUT_ENV = "TWTML_LOCKSTEP_TIMEOUT_S"
+LOCKSTEP_TIMEOUT_DEFAULT_S = 120.0
+
+
+def _watched_allgather(arr, timeout_s: float):
+    """One cadence all-gather (parallel/distributed.py ``host_allgather``)
+    under a progress watchdog: the gathered [ranks, n] array, or None when
+    the watchdog fired. The collective runs on a daemon thread (a wedged one
+    must not hang interpreter exit); the scheduler waits for it before
+    anything else, so the order of collectives stays total. A transport
+    error from the collective (the other way a dead peer shows) propagates."""
+    from ..parallel.distributed import host_allgather
+
+    if timeout_s <= 0:
+        return host_allgather(arr)
+    box: dict = {}
+    done = threading.Event()
+
+    def run() -> None:
+        try:
+            box["out"] = host_allgather(arr)
+        except BaseException as exc:  # noqa: BLE001  # lawcheck: disable=TW005 -- not a swallow: re-raised by the waiting caller
+            box["exc"] = exc
+        done.set()
+
+    threading.Thread(target=run, daemon=True, name="twtml-lockstep-allgather").start()
+    if not done.wait(timeout_s):
+        return None
+    if "exc" in box:
+        raise box["exc"]
+    return box["out"]
 
 
 class _RowCountQueue(queue.Queue):
@@ -386,9 +432,11 @@ class StreamingContext:
         # set by request_abort: the app raises instead of reporting success
         self.failed = False
         # the sentinel's cumulative rollback count (DivergenceSentinel sets
-        # it); the multi-host lockstep scheduler would carry it on its
-        # cadence allgather, nothing reads it on a single host
+        # it): it rides the lockstep scheduler's cadence all-gather, where
+        # every rank must report the same
         self.rollback_count_fn: "Callable[[], int] | None" = None
+        # lockstep ticks run (the peer.* chaos points and the tests)
+        self.ticks = 0
 
     def source_stream(self, source: Source, featurizer: Featurizer,
                       row_bucket: int = 0, token_bucket: int = 0,
@@ -467,6 +515,159 @@ class StreamingContext:
         finally:
             self._terminated.set()
 
+    def _run_batch_aligned(self, statuses: list, batch_time: float) -> None:
+        """A lockstep tick's batch: a host-side failure must not change
+        this rank's sequence of collectives. A featurize failure (nothing
+        dispatched yet) substitutes the all-padding batch (its rows lost,
+        loudly); a batch that outgrew the pinned buckets would dispatch
+        other shapes than the peers', so its over-long rows are dropped
+        (counted in ``ingest.rows_dropped_overflow``), the whole batch if
+        that is not enough. A failure in the outputs (dispatch, handler)
+        propagates: after a partial dispatch the group's alignment is
+        unknown, and the loop aborts the group."""
+        stream = self._stream
+        if not isinstance(stream, FeatureStream):
+            stream._process(statuses, batch_time)
+            self.batches_processed += 1
+            return
+        _lineage.open_batch(statuses)
+        _journal.record_intake(statuses)
+        try:
+            batch = stream._featurize(statuses)
+        except Exception:  # lawcheck: disable=TW005 -- logged and counted as lost rows; the peers' collectives need this rank's batch
+            log.exception("featurize failed in lockstep mode; substituting an all-padding "
+                          "batch to keep the group's collectives aligned (these rows are "
+                          "lost)")
+            batch = stream._featurize([])
+        if stream.bucket_overflow(batch):
+            kept = [s for s in statuses
+                    if isinstance(s, Status)
+                    and stream.featurizer.unit_len(s) <= stream.token_bucket]
+            rows, units = stream.batch_shape(batch)
+            log.error("batch shape (%d, %d) overflowed the pinned buckets (%d, %d) in a "
+                      "multi-host run; dropping %d over-long row(s) to keep the group's "
+                      "shapes aligned: raise --batchBucket/--tokenBucket", rows, units,
+                      stream.row_bucket, stream.token_bucket, len(statuses) - len(kept))
+            reg = _metrics.get_registry()
+            reg.counter("ingest.rows_dropped_overflow").inc(len(statuses) - len(kept))
+            batch = stream._featurize(kept)
+            if stream.bucket_overflow(batch):
+                log.error("overflow persists; dropping the whole batch")
+                reg.counter("ingest.rows_dropped_overflow").inc(len(kept))
+                batch = stream._featurize([])
+        stream._record_metrics(batch)
+        for fn in stream._outputs:
+            fn(batch, batch_time)
+        self.batches_processed += 1
+
+    def _lockstep_loop(self) -> None:
+        """The multi-host scheduler: each tick one all-gather of (has rows,
+        more coming, aborting, sentinel rollbacks, the sideband vector)
+        decides for every rank at once whether to dispatch, stop or abort.
+        A rank with no rows dispatches an all-padding batch while any rank
+        has rows (a zero-count step changes no weight). A batch failure
+        after featurize sets ``aborting``: the rank dispatches nothing more
+        and its next tick tells the peers, so every rank stops at the same
+        tick, ``failed``. A cadence all-gather with no progress in
+        ``TWTML_LOCKSTEP_TIMEOUT_S`` (or one that raises: a dead peer)
+        aborts this rank loudly (``lockstep.watchdog_aborts``). Ranks that
+        disagree on the sentinel's rollback count have diverged and abort
+        too. Drains are capped at the row bucket in both clock modes, so a
+        batch never outgrows the peers' shapes."""
+        import os
+
+        import numpy as np
+
+        from ..parallel import distributed as _dist
+
+        if self._thread_init is not None:
+            try:
+                self._thread_init()
+            except Exception:  # lawcheck: disable=TW005 -- logged; the run is marked failed
+                log.exception("scheduler thread set-up failed")
+                self.failed = True
+                self._terminated.set()
+                return
+        watch_s = float(os.environ.get(LOCKSTEP_TIMEOUT_ENV, "") or LOCKSTEP_TIMEOUT_DEFAULT_S)
+        mesh = _dist.mesh()
+        tele = _sideband.LockstepTelemetry(mesh.process_index, mesh.num_processes)
+        reg = _metrics.get_registry()
+        limit = self._stream.row_bucket
+        next_tick = time.monotonic() + self.batch_interval
+        aborting = False
+        try:
+            while not self._stop.is_set():
+                if self.batch_interval > 0 and not aborting:
+                    delay = next_tick - time.monotonic()
+                    if delay > 0 and self._stop.wait(delay):
+                        break
+                    next_tick += self.batch_interval
+                elif limit and not aborting:
+                    while (self._queue.rows_queued < limit and not self._source.exhausted
+                           and not self._stop.is_set()):
+                        self._stop.wait(0.002)
+                self.ticks += 1
+                _faults.lockstep_chaos(self.ticks, self.batch_interval,
+                                       uid=mesh.process_index)
+                local = self._drain(limit)
+                rows = sum(getattr(s, "rows", 1) for s in local)
+                more = (not self._source.exhausted) or self._queue.rows_queued > 0
+                rollbacks = (int(self.rollback_count_fn())
+                             if self.rollback_count_fn is not None else 0)
+                try:
+                    flags = _watched_allgather(np.concatenate([
+                        np.array([rows > 0 and not aborting, more and not aborting,
+                                  aborting, rollbacks], np.float64),
+                        tele.vector(rollbacks=rollbacks),
+                    ]), watch_s)
+                except Exception:  # lawcheck: disable=TW005 -- logged, counted and the run aborted
+                    log.critical("lockstep cadence all-gather FAILED: a peer likely died "
+                                 "mid-run; aborting this rank loudly (progress up to the "
+                                 "last checkpoint is saved)", exc_info=True)
+                    reg.counter("lockstep.watchdog_aborts").inc()
+                    self.request_abort("lockstep cadence all-gather failed (peer death / "
+                                       "transport error)")
+                    break
+                tele.tick_done()
+                if flags is None:
+                    log.critical("lockstep peer watchdog: the cadence all-gather made no "
+                                 "progress in %.0fs: a peer is gone. Aborting this rank "
+                                 "loudly instead of hanging; tune with %s (0 disables)",
+                                 watch_s, LOCKSTEP_TIMEOUT_ENV)
+                    reg.counter("lockstep.watchdog_aborts").inc()
+                    _trace.get().instant("lockstep_watchdog", timeout_s=watch_s)
+                    self.request_abort(f"lockstep peer watchdog: no all-gather progress in "
+                                       f"{watch_s:.0f}s")
+                    break
+                fi = flags[:, :4].astype(np.int64)
+                tele.ingest(flags[:, 4:])
+                if fi[:, 2].any():
+                    if not aborting:
+                        log.critical("a peer rank aborted the lockstep run")
+                    self.request_abort("lockstep batch failure on this rank" if aborting
+                                       else "a peer rank aborted the lockstep run")
+                    break
+                if len(set(fi[:, 3].tolist())) > 1:
+                    log.critical("lockstep ranks disagree on sentinel rollback counts %s: "
+                                 "their models have diverged; aborting the group",
+                                 fi[:, 3].tolist())
+                    reg.counter("lockstep.rollback_disagreements").inc()
+                    self.request_abort("lockstep ranks disagree on sentinel rollback "
+                                       f"counts {fi[:, 3].tolist()}")
+                    break
+                if fi[:, 0].any():
+                    try:
+                        self._run_batch_aligned(local, now_s())
+                    except Exception:  # lawcheck: disable=TW005 -- logged; the next tick aborts the group
+                        log.critical("lockstep batch failed after featurize; this rank's "
+                                     "collective alignment is unknown: aborting the group",
+                                     exc_info=True)
+                        aborting = True
+                if not aborting and not (fi[:, 0].any() or fi[:, 1].any()):
+                    break
+        finally:
+            self._terminated.set()
+
     def request_stop(self) -> None:
         """Stop after the current batch (the apps' max-batches hook)."""
         self._stop.set()
@@ -487,7 +688,9 @@ class StreamingContext:
         return self._stop.is_set()
 
     # -- lifecycle (ssc.start/awaitTermination, LinearRegression.scala:89-91) --
-    def start(self) -> None:
+    def start(self, lockstep: bool = False) -> None:
+        """Start the source and the scheduler thread: the lockstep one
+        (``_lockstep_loop``) for a multi-host group."""
         if self._stream is None:
             raise ValueError("no stream registered")
         self._stop.clear()
@@ -495,7 +698,8 @@ class StreamingContext:
         self.failed = False
         self._source.start(self._queue.put)
         self._scheduler = threading.Thread(
-            target=self._scheduler_loop, name="twtml-batch-scheduler", daemon=True
+            target=self._lockstep_loop if lockstep else self._scheduler_loop,
+            name="twtml-batch-scheduler", daemon=True,
         )
         self._scheduler.start()
 

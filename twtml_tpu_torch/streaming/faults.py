@@ -32,8 +32,13 @@ Grammar, comma-separated clauses, the JAX package's:
              fromN   every call from the Nth on
              default: every call
 
-The ``peer.*`` targets belong to the multi-host lockstep scheduler and raise
-``NotImplementedError`` (ROADMAP A10).
+The ``peer.*`` targets drive the multi-host lockstep scheduler, once a tick:
+``peer.kill[:uid=U][:tick=N]`` hard-exits process U (every process without
+a uid) at lockstep tick N (default 1) with ``PEER_KILL_EXIT_CODE`` and no
+goodbye; ``peer.pause[:uid=U][:ticks=K][@TRIGGER]`` stalls it for K ticks'
+wall time (K x max(interval, 0.5 s)). The uid is the process id
+(``--processId``): elastic membership, which keys them on the elastic uid in
+the JAX package, is ROADMAP A10b.
 """
 
 from __future__ import annotations
@@ -51,10 +56,14 @@ log = get_logger("streaming.faults")
 TRANSPORT_TARGETS = ("fetch", "step", "web")
 SOURCE_TARGETS = ("source.garbage", "source.burst", "source.nan")
 PEER_TARGETS = ("peer.kill", "peer.pause")
-CHAOS_TARGETS = TRANSPORT_TARGETS + SOURCE_TARGETS
+CHAOS_TARGETS = TRANSPORT_TARGETS + SOURCE_TARGETS + PEER_TARGETS
 
 # extra re-emits a source.burst firing makes when the rule gives no rows=N
 BURST_DEFAULT_EXTRA = 4
+# a peer.pause stall's length when the rule gives no ticks=K
+PAUSE_DEFAULT_TICKS = 4
+# the exit code of a peer.kill hard death (the JAX package's)
+PEER_KILL_EXIT_CODE = 77
 
 
 class InjectedFault(ConnectionError):
@@ -64,14 +73,18 @@ class InjectedFault(ConnectionError):
 class _ChaosRule:
     """One parsed ``TARGET[:ACTION][@TRIGGER]`` clause."""
 
-    __slots__ = ("target", "kind", "value", "mode", "param")
+    __slots__ = ("target", "kind", "value", "mode", "param", "uid")
 
-    def __init__(self, target: str, kind: str, value: float, mode: str, param: float):
+    def __init__(self, target: str, kind: str, value: float, mode: str, param: float,
+                 uid: int = -1):
         self.target = target
-        self.kind = kind  # "delay" | "error" | "inject"
-        self.value = value  # seconds (delay) or extra rows (source.burst)
+        self.kind = kind  # "delay" | "error" | "inject" | "kill" | "pause"
+        # seconds (delay), extra rows (source.burst), the tick (kill) or the
+        # ticks stalled (pause)
+        self.value = value
         self.mode = mode  # "every" | "prob" | "from"
         self.param = param
+        self.uid = int(uid)  # peer.*: the one process it fires on (-1: every one)
 
     def fires(self, call_index: int, rng: random.Random) -> bool:
         if self.mode == "every":
@@ -80,12 +93,19 @@ class _ChaosRule:
             return call_index >= int(self.param)
         return rng.random() < self.param
 
+    def on_host(self, uid: int) -> bool:
+        return self.uid < 0 or self.uid == int(uid)
+
     def __repr__(self) -> str:
+        sel = f" uid={self.uid}" if self.uid >= 0 else ""
+        if self.kind == "kill":
+            return f"{self.target}{sel} (at lockstep tick {int(self.value)})"
         act = ("error" if self.kind == "error" else "inject" if self.kind == "inject"
+               else f"pause={int(self.value)} ticks" if self.kind == "pause"
                else f"delay={self.value:g}s")
         trig = {"every": "every %d", "from": "from call %d on",
                 "prob": "p=%g"}[self.mode] % self.param
-        return f"{self.target}:{act} ({trig})"
+        return f"{self.target}{sel}:{act} ({trig})"
 
 
 def _parse_trigger(text: str) -> "tuple[str, float]":
@@ -108,15 +128,33 @@ def _parse_trigger(text: str) -> "tuple[str, float]":
 def _parse_clause(clause: str) -> _ChaosRule:
     body, _, trigger = clause.partition("@")
     target, _, action = body.partition(":")
-    if target in PEER_TARGETS:
-        raise NotImplementedError(
-            f"chaos clause {clause!r}: the peer.* targets drive the multi-host "
-            "lockstep scheduler, which is not ported (ROADMAP A10)"
-        )
     if target not in CHAOS_TARGETS:
         raise ValueError(f"bad chaos clause {clause!r}: want TARGET[:ACTION] with "
                          f"TARGET in {CHAOS_TARGETS}")
     mode, param = _parse_trigger(trigger) if trigger else ("every", 1)
+    if target in PEER_TARGETS:
+        # parts are colon-separated and order-free: uid=U and tick=N (kill)
+        # or ticks=K (pause)
+        count_key = "tick" if target == "peer.kill" else "ticks"
+        uid, value = -1, None
+        for part in filter(None, action.split(":")):
+            key, eq, num = part.partition("=")
+            if not eq or key not in ("uid", count_key):
+                raise ValueError(f"bad chaos action {part!r} in {clause!r}: "
+                                 f"{target} takes {count_key}=N and uid=U")
+            if key == "uid":
+                uid = int(num)
+                if uid < 0:
+                    raise ValueError(f"negative uid in {clause!r}")
+            else:
+                value = int(num)
+                if value < 1:
+                    raise ValueError(f"non-positive {count_key} in {clause!r}")
+        if target == "peer.kill":
+            value = 1 if value is None else value
+            return _ChaosRule(target, "kill", value, "every", value, uid=uid)
+        return _ChaosRule(target, "pause", PAUSE_DEFAULT_TICKS if value is None else value,
+                          mode, param, uid=uid)
     if target in SOURCE_TARGETS:
         value = BURST_DEFAULT_EXTRA
         if action.startswith("rows="):
@@ -199,6 +237,43 @@ class ChaosInjector:
         if raise_after:
             raise InjectedFault(f"injected {target} fault (call #{n})")
 
+    def peer_chaos(self, tick: int, interval: float, uid: int = -1) -> None:
+        """``peer.kill``/``peer.pause`` at lockstep tick ``tick`` (the call
+        index: the same on every process) of process ``uid``. A kill is a
+        hard exit (``os._exit``): no abort broadcast, the failure the
+        lockstep watchdog exists for. A pause sleeps K ticks' wall time.
+        Every process draws the same rng sequence (rules evaluate before the
+        uid filter), so selected rules never desynchronize the others."""
+        from ..telemetry import blackbox as _blackbox
+        from ..telemetry import metrics as _metrics
+
+        for r in self._rules.get("peer.kill", ()):
+            if tick == int(r.value) and r.on_host(uid):
+                log.critical("chaos: peer.kill firing at lockstep tick %d: hard exit %d "
+                             "(no abort broadcast)", tick, PEER_KILL_EXIT_CODE)
+                _metrics.get_registry().counter("chaos.injected").inc()
+                _blackbox.record("chaos", target="peer.kill", tick=tick, uid=uid)
+                import os
+                import sys
+
+                sys.stdout.flush()
+                sys.stderr.flush()
+                os._exit(PEER_KILL_EXIT_CODE)
+        rules = self._rules.get("peer.pause", ())
+        if not rules:
+            return
+        with self._lock:
+            fired = [r for r in rules if r.fires(tick, self._rng)]
+        for r in (r for r in fired if r.on_host(uid)):
+            dur = int(r.value) * max(float(interval), 0.5)
+            reg = _metrics.get_registry()
+            reg.counter("chaos.injected").inc()
+            reg.counter("chaos.peer.pauses").inc()
+            _blackbox.record("chaos", target="peer.pause", tick=tick, secs=round(dur, 2))
+            log.warning("chaos: peer.pause stalling this process %.1fs (~%d ticks) at "
+                        "lockstep tick %d", dur, int(r.value), tick)
+            time.sleep(dur)
+
     def should(self, target: str) -> "float | None":
         """Count one call of a source target and return the firing rule's
         magnitude (source.burst rows; 1 otherwise), or None."""
@@ -222,8 +297,7 @@ _CHAOS: "ChaosInjector | None" = None
 
 
 def install_chaos(spec: str) -> ChaosInjector:
-    """Parse and activate a spec process-wide (ValueError when malformed,
-    NotImplementedError for a peer.* target)."""
+    """Parse and activate a spec process-wide (ValueError when malformed)."""
     global _CHAOS
     _CHAOS = ChaosInjector(spec)
     log.warning("chaos ACTIVE: %s",
@@ -244,6 +318,13 @@ def perturb(target: str) -> None:
     """Injection point: no-op unless a spec is installed."""
     if _CHAOS is not None:
         _CHAOS.perturb(target)
+
+
+def lockstep_chaos(tick: int, interval: float, uid: int = -1) -> None:
+    """The ``peer.*`` injection point, at the top of every lockstep tick
+    (streaming/context.py), with this process's id."""
+    if _CHAOS is not None:
+        _CHAOS.peer_chaos(tick, interval, uid=uid)
 
 
 def burst_extra() -> int:

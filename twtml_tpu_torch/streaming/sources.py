@@ -24,8 +24,10 @@ up to ``max_restarts`` consecutive failures (counted in ``source.restarts``).
 Block ingest (``--ingest block``): ``BlockReplayFileSource`` replays a file
 through the native block parser (``BlockParserMixin``, which the live
 ``BlockTwitterSource`` shares), yielding columnar ``ParsedBlock`` items
-(features/blocks.py) with no per-tweet Python object. The multi-host
-sharded sources are not ported (ROADMAP A10).
+(features/blocks.py) with no per-tweet Python object; across hosts each
+process parses its own line-aligned byte range of the file. The multi-host
+intake shards: ``ShardedSource`` (round-robin over a replay or synthetic
+stream) and ``IdShardedSource`` (by status id, for a live stream).
 """
 
 from __future__ import annotations
@@ -361,8 +363,8 @@ class BlockReplayFileSource(BlockParserMixin, Source):
     ``shard_index``/``shard_count`` select a line-aligned BYTE-RANGE shard
     of the file: its span splits into ``shard_count`` equal ranges, and a
     line belongs to the shard holding its first byte, so each reader parses
-    only its share, sequentially, with no line read twice. (Its multi-host
-    caller is ROADMAP A10; the range logic stands alone.)"""
+    only its share, sequentially, with no line read twice: a multi-host
+    run's intake shard, from the process id and count."""
 
     name = "replay-block"
 
@@ -506,6 +508,60 @@ class QueueSource(Source):
             if item is None:
                 return
             yield item
+
+
+class ShardedSource(Source):
+    """Items ``index``-of-``count`` (round-robin) of an inner source: a
+    multi-host run's intake shard. Every process opens the same replay or
+    synthetic source and keeps 1/N of it, so the union of the shards is the
+    single-host stream, and tick k of the N processes together covers the
+    rows a single-host run batches at tick k. (The residue set that elastic
+    rebalancing grows is ROADMAP A10b.)"""
+
+    name = "shard"
+
+    def __init__(self, inner: Source, index: int, count: int, **kw):
+        super().__init__(**kw)
+        if not 0 <= index < count:
+            raise ValueError(f"shard index {index} out of range for {count}")
+        self.inner = inner
+        self.index = index
+        self.count = count
+
+    def produce(self) -> Iterator[Status]:
+        for i, status in enumerate(self.inner.produce()):
+            if i % self.count == self.index:
+                yield status
+
+
+class IdShardedSource(Source):
+    """Rows whose status id is ``index`` mod ``count`` of an inner source:
+    the live stream's multi-host intake shard. Separately opened live
+    connections give no common order, so the round-robin shard cannot cut
+    them; the tweet's id can (each process keeps a disjoint id residue, and
+    no tweet trains twice). Rows without an id (id 0) land on shard 0."""
+
+    name = "idshard"
+
+    def __init__(self, inner: Source, index: int, count: int, **kw):
+        # supervision runs on this wrapper: the live source's restart policy
+        # carries through
+        kw.setdefault("max_restarts", inner.max_restarts)
+        kw.setdefault("restart_backoff", inner.restart_backoff)
+        super().__init__(**kw)
+        if not 0 <= index < count:
+            raise ValueError(f"shard index {index} out of range for {count}")
+        self.inner = inner
+        self.index = index
+        self.count = count
+
+    def produce(self) -> Iterator[Status]:
+        for status in self.inner.produce():
+            if status.id % self.count == self.index:
+                yield status
+
+    def _backoff(self, exc: Exception, restarts: int) -> float:
+        return self.inner._backoff(exc, restarts)
 
 
 class SkipRowsSource(Source):

@@ -21,8 +21,9 @@ publish samples the telemetry historian (``historian.sample``, host views
 only, before the breaker gate: the historian writes to local disk, so a
 dead dashboard does not stop it). Each update is the ``stats_publish``
 stage (the stage clock, and a span under ``--trace``) and stamps the
-freshness plane's event-to-publish lag. The per-host view of the JAX
-package's publisher is multi-host (ROADMAP A10) and not ported.
+freshness plane's event-to-publish lag. A lockstep run's lead also ships
+the per-host view (telemetry/sideband.py ``last_hosts``) with each metrics
+snapshot, as the JAX package's publisher does.
 """
 
 from __future__ import annotations
@@ -182,7 +183,7 @@ class SessionStats:
     def publish_metrics(self) -> None:
         """Best-effort push of the metrics registry and the health summary,
         with per-histogram count/mean/p50/p95/p99 (not the raw buckets),
-        then the tenant, model-health, freshness and historian views. The host
+        then the hosts, tenant, model-health, freshness and historian views. The host
         gauges are sampled first (statm reads), then the historian."""
         reg = _metrics.get_registry()
         cur_mb = rss_mb()
@@ -210,6 +211,15 @@ class SessionStats:
         except Exception:  # lawcheck: disable=TW005 -- Try-parity: counted by the breaker, logged
             self._web_breaker.record_failure()
             log.debug("web.metrics failed", exc_info=True)
+        view = _sideband.last_hosts()
+        if view is not None and self._web_breaker.allow():
+            try:
+                self.web.hosts(view["hosts"], view["straggler"], view["stage"],
+                               view["skew_ms"])
+                self._web_breaker.record_success()
+            except Exception:  # lawcheck: disable=TW005 -- Try-parity: counted by the breaker, logged
+                self._web_breaker.record_failure()
+                log.debug("web.hosts failed", exc_info=True)
         tview = _tenants.last_tenants()
         if tview is not None and self._web_breaker.allow():
             try:

@@ -1,6 +1,6 @@
 """Minimal JSON/HTTP client of the twtml web API (counterpart of
 ``twtml_tpu/telemetry/web_client.py``): POST Config/Stats/Series/Metrics/
-Tenants/ModelHealth/Freshness/History/Serving/Fleet to ``{server}/api`` with stdlib
+Hosts/Tenants/ModelHealth/Freshness/History/Serving/Fleet to ``{server}/api`` with stdlib
 urllib. Callers wrap every call best-effort, as the reference wraps them in
 ``Try`` (telemetry/session_stats.py). Each request is a ``--chaos`` ``web``
 injection point."""
@@ -11,8 +11,8 @@ import sys
 import urllib.request
 
 from .api_types import (
-    Config, Fleet, Freshness, History, Metrics, ModelHealth, Series, Serving, Stats, Tenants,
-    encode,
+    Config, Fleet, Freshness, History, Hosts, Metrics, ModelHealth, Series, Serving, Stats,
+    Tenants, encode,
 )
 
 DEFAULT_SERVER = "http://localhost:8888"
@@ -64,6 +64,14 @@ class WebClient:
         """A pipeline-metrics snapshot for the observability panel."""
         self._post(Metrics(counters=dict(counters), gauges=dict(gauges),
                            health=dict(health), histograms=dict(histograms or {})))
+
+    def hosts(self, hosts: list, straggler: int = -1, stage: str = "",
+              skew_ms: float = 0.0) -> None:
+        """The lockstep sideband's per-host view (telemetry/sideband.py
+        ``last_hosts``); the elastic fields keep their defaults (ROADMAP
+        A10b)."""
+        self._post(Hosts(hosts=list(hosts), straggler=int(straggler), stage=str(stage),
+                         skewMs=float(skew_ms)))
 
     def tenants(self, tenants: list, gating: int = -1, active: int = 0) -> None:
         """The tenant plane's view (telemetry/tenants.py ``last_tenants``)."""
