@@ -275,12 +275,27 @@ Phases, in order; any failure ends the run with a non-zero exit:
                a rank's step ms, launches, all-reduce and cadence all-gather
                ms, host wall a tick, tweets/s against one process, and each
                split entry's device time, twin time and bound.
+25. elastic — ``--elastic on`` on the same 2 ranks and file: a healthy
+               run with the lockstep main arm's collectives, fetches and
+               split launches (as many cadence all-gathers as ticks), its
+               host wall a tick and tweets/s beside the lockstep run's;
+               ``peer.kill`` of uid 1 at tick 3 (``--checkpointEvery 1``):
+               the survivor forms epoch 1 alone, and its final weights are
+               bitwise those of a world-1 split run and of B1, each from
+               the archive it restored, on the card in this process (the
+               rescue's seconds from the kill, rows rolled back and
+               replayed); ``peer.kill`` of uid 0: uid 1 wins the election,
+               promotes its standby archives, held the same way; a
+               restarted uid 1 parks and is admitted at an epoch boundary,
+               its first tick's state CRC the lead's; the split kernels'
+               launches and the phase's wall. The detached store processes
+               the ranks start are gone (or stopped) when the phase ends.
 No app run publishes anywhere but the loopback recorder and, in the web,
 serve and abtest phases, the port's own servers on loopback ports. The line before
 the last is the kernels' JSON record (B1's least-squares mode with its
 ``tenants`` launches and the ``block`` phase's figures, its logistic mode, its predict kernel with its
 ``abtest`` launches, B4 with its f32 build on tweet-length rows, B7,
-B8 and the split's three entries); the last line is ``{"ok": true,
+B8 and the split's three entries with their ``elastic`` launches); the last line is ``{"ok": true,
 "device": {...}}``.
 
 ``python3 chip_smoke.py --times-only [--package-root DIR]`` runs phases 1
@@ -5361,6 +5376,7 @@ from twtml_tpu_torch.apps import linear_regression
 from twtml_tpu_torch.config import ConfArguments
 from twtml_tpu_torch.ops import fused_gram, fused_sgd
 from twtml_tpu_torch.parallel import distributed
+from twtml_tpu_torch.telemetry import metrics
 failed, totals = None, {}
 try:
     totals = linear_regression.run(ConfArguments().parse(sys.argv[2:]))
@@ -5375,7 +5391,8 @@ print(json.dumps({"failed": failed, "count": totals.get("count"),
                   "stream_seconds": totals.get("stream_seconds"),
                   "step_ms": [s.get("step_ms") for s in totals.get("steps", [])],
                   "launches": launches, "collectives": distributed.COUNTERS,
-                  "seconds": distributed.SECONDS}), flush=True)
+                  "seconds": distributed.SECONDS,
+                  "counters": metrics.get_registry().snapshot()["counters"]}), flush=True)
 sys.stdout.flush()
 sys.exit(3 if failed else 0)
 """
@@ -5940,8 +5957,409 @@ def multihost_phase(smi, statuses):
               f"after {wall0:.1f} s (watchdog {MH_WATCHDOG_S} s), no hang")
         records, split_ms = split_times(smi, errs, launches)
         numbers["split_ms_an_iteration"] = split_ms
-        return records, numbers
+        return records, numbers, {"recs": recs, "numbers": numbers["main"]}
     finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+# ---- the elastic phase: --elastic on, 2 ranks on cuda:0 over gloo ----------
+
+EL_WATCHDOG_S = 5  # TWTML_LOCKSTEP_TIMEOUT_S of the elastic arms
+EL_ENV = {"TWTML_LOCKSTEP_TIMEOUT_S": str(EL_WATCHDOG_S), "TWTML_ELASTIC_RESCUE_GRACE_S": "2",
+          "TWTML_ELASTIC_SERVICE_LINGER_S": "3"}
+EL_TIMEOUT_S = 240
+EL_KILL_TICK = 3
+# the rejoin arm: the lead pauses 6 s a tick from the tick after the kill,
+# so the restarted rank (~8 s to reach the card) parks before its data ends;
+# the arm's watchdog outlasts the pause (the kill shows as a failed all-gather)
+EL_PAUSE = f"peer.pause:uid=0:ticks=12@from{EL_KILL_TICK + 1}"
+EL_REJOIN_ENV = {"TWTML_LOCKSTEP_TIMEOUT_S": "30"}
+
+# one elastic rank: the linear app as ``main`` runs it; it leaves through
+# elastic_exit's hard exit, so its record (totals, launches, collectives,
+# counters) prints just before
+EL_RANK = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from twtml_tpu_torch.apps import linear_regression
+from twtml_tpu_torch.config import ConfArguments
+from twtml_tpu_torch.ops import fused_sgd
+from twtml_tpu_torch.parallel import distributed
+from twtml_tpu_torch.telemetry import metrics
+kept = []
+checkpoint = linear_regression.AppCheckpoint
+def keeping(conf, get_state, set_state, totals, lead=True):
+    kept.append(totals)
+    return checkpoint(conf, get_state, set_state, totals, lead=lead)
+def report(failed, hard_exit):
+    totals = kept[0] if kept else {}
+    launches = {n: getattr(fused_sgd, n).launches for n in
+                ("fused_dense_grad", "fused_dense_grad_reduce", "fused_dense_update")}
+    launches["fused_dense_sgd"] = fused_sgd.fused_dense_sgd.launches
+    snap = metrics.get_registry().snapshot()
+    print(json.dumps({"failed": failed, "hard_exit": hard_exit, "count": totals.get("count"),
+                      "batches": totals.get("batches"),
+                      "stream_seconds": totals.get("stream_seconds"),
+                      "launches": launches, "collectives": distributed.COUNTERS,
+                      "seconds": distributed.SECONDS, "counters": snap["counters"],
+                      "gauges": snap["gauges"]}), flush=True)
+elastic_exit = linear_regression.elastic_exit
+def exit_reporting(failed=False):
+    report("the run failed" if failed else None, True)
+    elastic_exit(failed)
+linear_regression.AppCheckpoint = keeping
+linear_regression.elastic_exit = exit_reporting
+try:
+    linear_regression.run(ConfArguments().parse(sys.argv[2:]))
+except RuntimeError as exc:
+    report(str(exc), False)
+    sys.exit(3)
+report("the run returned instead of leaving through the elastic exit", False)
+sys.exit(4)
+"""
+
+
+def el_base_port(span: int = 12) -> int:
+    """A base port with ``span`` free ports from it (the beacon on base + 1,
+    epoch e's store on base + 2 + e)."""
+    import socket
+
+    for _ in range(100):
+        base = free_port()
+        socks = []
+        try:
+            for off in range(1, span):
+                s = socket.socket()
+                socks.append(s)
+                s.bind(("127.0.0.1", base + off))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise RuntimeError("no free port range for the elastic group")
+
+
+def el_spawn(rank, argv, base, extra=(), env=None):
+    """One elastic rank of the linear app (``--master twtml://``, cuda:0)."""
+    env = dict(os.environ, **{**EL_ENV, **(env or {})})
+    env.pop("TWTML_SYNC_DEBUG", None)  # a gloo all-reduce waits for the card
+    args = [sys.executable, "-c", EL_RANK, PACKAGE_ROOT, *argv, *extra,
+            "--lightning", RECORDER.url, "--twtweb", RECORDER.url,
+            "--master", f"twtml://127.0.0.1:{base}", "--numProcesses", str(MH_RANKS),
+            "--processId", str(rank)]
+    return subprocess.Popen(args, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env=env)
+
+
+def el_collect(procs, t0, name=""):
+    """Each process's (exit code, stats lines, record or None, stderr, wall
+    s); every process is stopped before this returns. With
+    ``TWTML_CHIP_LOG_DIR`` set, each stderr is also written there."""
+    out = []
+    log_dir = os.environ.get("TWTML_CHIP_LOG_DIR", "")
+    try:
+        for i, p in enumerate(procs):
+            stdout, stderr = p.communicate(timeout=EL_TIMEOUT_S)
+            if log_dir:
+                with open(os.path.join(log_dir, f"elastic-{name}-{i}.log"), "w") as fh:
+                    fh.write(stderr)
+            lines = stdout.splitlines()
+            rec = json.loads(lines[-1]) if lines and lines[-1].startswith("{") else None
+            out.append((p.returncode, [ln for ln in lines if ln.startswith("count:")], rec,
+                        stderr, time.perf_counter() - t0))
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    return out
+
+
+def el_group(name, argv, extra=((), ())):
+    """The two elastic ranks with ``argv`` (and each rank's ``extra``)."""
+    t0 = time.perf_counter()
+    base = el_base_port()
+    return el_collect([el_spawn(r, argv, base, extra[r]) for r in range(MH_RANKS)], t0, name)
+
+
+def el_survived(name, res, want_rc=(0, 0)):
+    for rank, (rc, _lines, rec, err, _wall) in enumerate(res):
+        if rc != want_rc[rank]:
+            raise AssertionError(f"elastic {name}: rank {rank} exited {rc} (want "
+                                 f"{want_rc[rank]}):\n{err[-4000:]}")
+        if rc == 0 and (rec is None or rec["failed"] or not rec["hard_exit"]):
+            raise AssertionError(f"elastic {name}: rank {rank}'s record {rec}:\n{err[-4000:]}")
+
+
+def el_log_time(err, text):
+    """The host clock (s) of the first log line of ``err`` holding
+    ``text`` (the log's asctime, to the millisecond), or None."""
+    import datetime
+
+    for line in err.splitlines():
+        if text in line:
+            stamp = datetime.datetime.strptime(line[:23], "%Y-%m-%d %H:%M:%S,%f")
+            return stamp.timestamp()
+    return None
+
+
+def el_resync(name, err):
+    import re
+
+    m = re.search(r"elastic resync: state from the lead's verified checkpoint \(count=(\d+), "
+                  r"batches=(\d+), state crc ([0-9a-f]+)\)(?: — (\d+) row\(s\) of "
+                  r"post-checkpoint progress rolled back)?", err)
+    if m is None:
+        raise AssertionError(f"elastic {name}: the survivor never logged its resync:\n"
+                             f"{err[-4000:]}")
+    replayed = re.findall(r"journal: replayed (\d+) row\(s\) from cursor \d+ after elastic", err)
+    return (int(m.group(1)), int(m.group(2)), m.group(3), int(m.group(4) or 0),
+            sum(int(r) for r in replayed))
+
+
+def el_clean_run(state, rows):
+    """The survivor's continuation in this process, on the card: the world-1
+    split (``MultiHostSGDModel`` over a ``ParallelSGDModel`` on a group of
+    one) and B1's fused learner, each from ``state`` over ``rows`` in
+    MH_ROWS-row batches. Returns (split weights, B1 weights)."""
+    from twtml_tpu_torch.config import ConfArguments
+    from twtml_tpu_torch.features.featurizer import Featurizer
+    from twtml_tpu_torch.models.linear import StreamingLinearRegressionWithSGD
+    from twtml_tpu_torch.parallel.distributed import Collectives, MultiHostSGDModel
+    from twtml_tpu_torch.parallel.mesh import make_mesh
+    from twtml_tpu_torch.parallel.sharding import ParallelSGDModel
+
+    conf = ConfArguments().parse(["--backend", MH_ARGV[1]])
+    mesh = make_mesh(num_processes=1)
+    split = MultiHostSGDModel(ParallelSGDModel.from_conf(conf, mesh, Collectives()), mesh)
+    plain = StreamingLinearRegressionWithSGD.from_conf(conf)
+    split.set_initial_weights(state)
+    plain.set_initial_weights(state)
+    feat = Featurizer(now_ms=NOW_MS)
+    for lo in range(0, len(rows), MH_ROWS):
+        batch = feat.featurize_batch_ragged(rows[lo:lo + MH_ROWS], row_bucket=MH_ROWS,
+                                            unit_bucket=64)
+        split.step(split.pack_for_wire(batch))
+        plain.step(batch)
+    return split.latest_weights, plain.latest_weights
+
+
+def el_hold_continuation(name, final_dir, archive_dir, step, rows):
+    """The survivor's final archive against its clean continuation on the
+    card from the archive it restored (step ``step``): bitwise the world-1
+    split's and B1's."""
+    import numpy as np
+
+    from twtml_tpu_torch.checkpoint import Checkpointer
+
+    state, _meta = Checkpointer(archive_dir).restore(step=step)
+    final, meta = Checkpointer(final_dir).restore()
+    split_w, b1_w = el_clean_run(state, rows)
+    if not (np.array_equal(np.asarray(final), split_w) and np.array_equal(split_w, b1_w)):
+        raise AssertionError(
+            f"elastic {name}: the survivor's weights differ from the clean run from step "
+            f"{step} by {float(np.max(np.abs(np.asarray(final) - split_w))):.3g} (split), the "
+            f"split from B1's by {float(np.max(np.abs(split_w - b1_w))):.3g}")
+    return state, int(meta["count"])
+
+
+def el_reap_store_hosts(deadline_s=30.0):
+    """Wait for the elastic stores' processes (parallel/service_host.py,
+    detached by the ranks) to reap themselves once their beacon is gone;
+    stop any still there at the deadline. Returns how many were stopped."""
+    import signal
+
+    def hosts():
+        pids = []
+        for d in os.listdir("/proc"):
+            if d.isdigit():
+                try:
+                    with open(f"/proc/{d}/cmdline", "rb") as fh:
+                        if b"twtml_tpu_torch.parallel.service_host" in fh.read():
+                            pids.append(int(d))
+                except OSError:
+                    pass
+        return pids
+
+    t0 = time.monotonic()
+    while hosts() and time.monotonic() - t0 < deadline_s:
+        time.sleep(0.5)
+    left = hosts()
+    for pid in left:
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except OSError:
+            pass
+    return len(left)
+
+
+def elastic_phase(smi, statuses, lockstep):
+    """The elastic phase (``--elastic on``): 2 ranks of the linear app on the
+    one card over gloo, full width, 8192 rows a rank, on the multihost
+    phase's replay file. A healthy run counted against the lockstep main
+    arm (``lockstep``: its ranks' records and numbers); ``peer.kill`` on uid
+    1 at tick 3: the survivor shrinks and its continuation is bitwise the
+    world-1 split's and B1's from the restored archive on the card;
+    ``peer.kill`` on uid 0: the election, held the same way from uid 1's
+    standby archive; a restarted uid 1: admitted, its first tick's state
+    CRC the lead's. Returns the phase's numbers."""
+    import re
+    import shutil
+    import tempfile
+
+    from twtml_tpu_torch.streaming.sources import ReplayFileSource
+
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="twtml-elastic-")
+    out = {}
+    try:
+        path = os.path.join(workdir, "tweets.jsonl")
+        write_replay(path, statuses[:MH_BATCHES * OP_ROWS])
+        rows = list(ReplayFileSource(path).produce())
+        argv = [*MH_ARGV, "--replayFile", path, "--batchBucket", str(MH_ROWS), "--elastic", "on"]
+        steps = MH_BATCHES + 1  # and the warm-up's
+        # healthy: the lockstep main arm's collectives, fetches and launches
+        d_h = os.path.join(workdir, "healthy")
+        res = el_group("healthy", [*argv, "--checkpointDir", d_h])
+        el_survived("healthy", res)
+        healthy = []
+        for rank, (_rc, lines, rec, _err, wall) in enumerate(res):
+            ref = lockstep["recs"][rank]
+            c = rec["collectives"]
+            if (c["cadence_allgathers"] != rec["counters"]["lockstep.ticks"]
+                    or {k: c[k] for k in ref["collectives"]} != ref["collectives"]
+                    or rec["counters"]["fetch.count"] != ref["counters"]["fetch.count"]
+                    or rec["count"] != ref["count"]
+                    or {k: rec["launches"][k] for k in SPLIT_ENTRIES}
+                    != {k: ref["launches"][k] for k in SPLIT_ENTRIES}):
+                raise AssertionError(f"elastic healthy rank {rank}: {rec} against the lockstep "
+                                     f"run's {ref}")
+            ticks = c["cadence_allgathers"]
+            row = {"rank": rank, "ticks": ticks, "collectives": c,
+                   "fetches": rec["counters"]["fetch.count"],
+                   "host_wall_a_tick_ms": 1e3 * rec["stream_seconds"] / ticks,
+                   "tweets_per_s": rec["count"] / rec["stream_seconds"],
+                   "lockstep_host_wall_a_tick_ms":
+                       lockstep["numbers"][rank]["host_wall_a_tick_ms"],
+                   "lockstep_tweets_per_s": lockstep["numbers"][rank]["tweets_per_s"],
+                   "group_wall_s": wall}
+            healthy.append(row)
+            phase("elastic", f"healthy rank {rank}: {ticks} ticks, {ticks} cadence all-gathers, "
+                  f"collectives and {row['fetches']} fetches as --elastic off; host wall a "
+                  f"tick {row['host_wall_a_tick_ms']:.1f} ms (lockstep "
+                  f"{row['lockstep_host_wall_a_tick_ms']:.1f}), {row['tweets_per_s']:.0f} "
+                  f"tweets/s (lockstep {row['lockstep_tweets_per_s']:.0f})")
+        out["healthy"] = healthy
+        launches = {e: sum(r[2]["launches"][e] for r in res) for e in SPLIT_ENTRIES}
+        # a follower killed at a tick boundary: the survivor shrinks
+        every = ["--checkpointEvery", "1"]
+        kill1 = f"peer.kill:uid=1:tick={EL_KILL_TICK}"
+        d_k = os.path.join(workdir, "kill1")
+        res = el_group("kill1", [*argv, *every, "--checkpointDir", d_k],
+                       extra=((), ("--chaos", kill1)))
+        el_survived("kill1", res, (0, 77))
+        err0, err1 = res[0][3], res[1][3]
+        if "elastic epoch 1 formed: 1 host(s) [0]" not in err0:
+            raise AssertionError(f"elastic kill1: no shrink:\n{err0[-4000:]}")
+        count, batches, crc, rolled, replayed = el_resync("kill1", err0)
+        done = batches * MH_ROWS  # the survivor's rows inside the restored archive
+        _state, final_count = el_hold_continuation("kill1", d_k, d_k, batches,
+                                                   rows[0::2][done:])
+        t_kill = el_log_time(err1, "peer.kill firing")
+        t_seen = el_log_time(err0, "lockstep collective failed")
+        t_formed = el_log_time(err0, "elastic epoch 1 formed")
+        rec = res[0][2]
+        out["kill1"] = {
+            "resync": {"count": count, "batches": batches, "crc": crc},
+            "rows_rolled_back": rolled, "rows_replayed": replayed,
+            "final_count": final_count, "detect_s": t_seen - t_kill,
+            "rescue_s": t_formed - t_kill,
+            "launches_survivor": {e: rec["launches"][e] for e in SPLIT_ENTRIES},
+            "allreduces_survivor": rec["collectives"]["allreduces"], "wall_s": res[0][4]}
+        phase("elastic", f"peer.kill uid 1 at tick {EL_KILL_TICK}: the survivor formed epoch 1 "
+              f"alone {t_formed - t_kill:.3f} s after the kill (the failed all-gather seen "
+              f"after {t_seen - t_kill:.3f} s), resynced to step {batches} (count {count}, crc "
+              f"{crc}), {rolled} rows rolled back, {replayed} replayed; final count "
+              f"{final_count}, weights bitwise the clean world-1 split's and B1's on the card; "
+              f"survivor's split launches {out['kill1']['launches_survivor']}")
+        # the lead killed: uid 1 wins the election and promotes its standby
+        d_l = os.path.join(workdir, "kill0")
+        res = el_group("kill0", [*argv, *every, "--checkpointDir", d_l, "--chaos",
+                                 f"peer.kill:uid=0:tick={EL_KILL_TICK}"])
+        el_survived("kill0", res, (77, 0))
+        err0, err1 = res[0][3], res[1][3]
+        for text in ("uid 1 WON the election", "checkpoint authority PROMOTED",
+                     "elastic epoch 1 formed: 1 host(s) [1]"):
+            if text not in err1:
+                raise AssertionError(f"elastic kill0: no {text!r}:\n{err1[-4000:]}")
+        count, batches, crc, rolled, replayed = el_resync("kill0", err1)
+        done = batches * MH_ROWS
+        standby = os.path.join(d_l, "standby-u1")
+        _state, final_count = el_hold_continuation("kill0", standby, standby, batches,
+                                                   rows[1::2][done:])
+        t_kill = el_log_time(err0, "peer.kill firing")
+        t_formed = el_log_time(err1, "elastic epoch 1 formed")
+        out["kill0"] = {"resync": {"count": count, "batches": batches, "crc": crc},
+                        "rows_rolled_back": rolled, "rows_replayed": replayed,
+                        "final_count": final_count, "rescue_s": t_formed - t_kill,
+                        "wall_s": res[1][4]}
+        phase("elastic", f"peer.kill uid 0 at tick {EL_KILL_TICK}: uid 1 won the election, "
+              f"formed epoch 1 {t_formed - t_kill:.3f} s after the kill from its own step "
+              f"{batches} (crc {crc}); final count {final_count}, weights bitwise the clean "
+              "world-1 split's and B1's on the card")
+        # a restarted uid 1: parks, admitted at an epoch boundary
+        d_r = os.path.join(workdir, "rejoin")
+        t0 = time.perf_counter()
+        base = el_base_port()
+        argv_r = [*argv, *every, "--checkpointDir", d_r]
+        lead = el_spawn(0, argv_r, base, ("--chaos", EL_PAUSE), EL_REJOIN_ENV)
+        peer = el_spawn(1, argv_r, base, ("--chaos", f"{EL_PAUSE},{kill1}"), EL_REJOIN_ENV)
+        rejoiner = None
+        try:
+            peer_rc = peer.wait(timeout=EL_TIMEOUT_S)
+            rejoiner = el_spawn(1, argv_r, base, ("--chaos", EL_PAUSE), EL_REJOIN_ENV)
+            res = el_collect([lead, rejoiner], t0, "rejoin")
+        finally:
+            for p in (lead, peer, rejoiner):
+                if p is not None:
+                    p.kill()
+                    p.wait()
+        if peer_rc != 77:
+            raise AssertionError(f"elastic rejoin: the killed rank exited {peer_rc}")
+        for rank, r in enumerate(res):
+            if r[0] != 0:
+                raise AssertionError(f"elastic rejoin: rank {rank} exited {r[0]}:\n"
+                                     f"{res[0][3][-3000:]}\n-- the rejoiner:\n{res[1][3][-3000:]}")
+        el_survived("rejoin", res)
+        err0, errr = res[0][3], res[1][3]
+        for text, err in (("elastic epoch 2 formed: 2 host(s) [0, 1]", err0),
+                          ("parking this host (uid 1) for admission", errr)):
+            if text not in err:
+                raise AssertionError(f"elastic rejoin: no {text!r}:\n{err[-4000:]}")
+        lead_crc = re.findall(r"elastic resync: .* state crc ([0-9a-f]+)", err0)
+        join_crc = re.findall(r"multi-host state synchronized from the lead \(count=(\d+), "
+                              r"state crc ([0-9a-f]+)\)", errr)
+        if not (lead_crc and join_crc and join_crc[-1][1] == lead_crc[-1]):
+            raise AssertionError(f"elastic rejoin: the rejoiner's first-tick crc {join_crc} "
+                                 f"against the lead's {lead_crc}")
+        t_formed = el_log_time(err0, "elastic epoch 2 formed")
+        t_parked = el_log_time(errr, "parking this host")
+        out["rejoin"] = {"crc": lead_crc[-1], "count_at_admission": int(join_crc[-1][0]),
+                         "parked_to_admitted_s": t_formed - t_parked,
+                         "lead_final_count": res[0][2]["count"], "wall_s": res[0][4]}
+        phase("elastic", f"restarted uid 1: parked, admitted at epoch 2 "
+              f"{t_formed - t_parked:.3f} s later; its first tick's state crc {lead_crc[-1]} "
+              f"the lead's (count {join_crc[-1][0]})")
+        stopped = el_reap_store_hosts()
+        out.update(launches=launches, store_hosts_stopped=stopped,
+                   wall_s=time.perf_counter() - t_phase, card=smi)
+        phase("elastic", f"split launches on the healthy run (both ranks) {launches}; store "
+              f"processes stopped at the end {stopped}; phase wall {out['wall_s']:.1f} s | "
+              f"card: {smi}")
+        return out
+    finally:
+        el_reap_store_hosts()
         shutil.rmtree(workdir, ignore_errors=True)
 
 
@@ -6025,13 +6443,16 @@ def main() -> None:
         block = block_phase(block_pool, smi)
     finally:
         RECORDER.close()
-    RECORDER = Recorder()  # the multihost phase's app runs publish to it
+    RECORDER = Recorder()  # the multihost and elastic phases' app runs publish to it
     try:
-        split_records, multihost = multihost_phase(smi, web_statuses)
+        split_records, multihost, lockstep = multihost_phase(smi, web_statuses)
+        elastic = elastic_phase(smi, web_statuses, lockstep)
     finally:
         RECORDER.close()
+    for r in split_records:
+        r["launches_elastic"] = elastic["launches"][r["name"]]
     record.update(tenants=tenants, launches_tenants=tenants["launches"], block=block,
-                  launches_block=block["launches"], multihost=multihost)
+                  launches_block=block["launches"], multihost=multihost, elastic=elastic)
     predict_record.update(abtest=abtest, launches_abtest=abtest["counts_ab"]["predict_launches"])
     import torch
 

@@ -160,11 +160,11 @@ def test_an_empty_oauth_key_sets_no_property(workdir):
 
 
 def test_check_ported_compares_with_the_packaged_defaults(workdir):
-    """A value set in the file that needs an unported part is refused as
-    the same flag would be (``elastic="on"``: ROADMAP A10), not taken as the
-    new default; the values the port runs pass from the file too (the serve
-    flags, ``--abtest on``, ``--wireCodec dict`` and ``--ingest block``),
-    resolving as the JAX parser's."""
+    """A value set in the file takes effect as the same flag would: the
+    values the port runs pass from the file (the serve flags, ``--abtest
+    on``, ``--wireCodec dict``, ``--ingest block`` and, since elastic
+    membership (ROADMAP A10b) is ported, ``elastic="on"``), resolving as
+    the JAX parser's."""
     (workdir / "application.conf").write_text(
         'servePort="9000"\nabtest="on"\nwireCodec="dict"\ningest="block"\nseconds="0"\n'
         'elastic="on"\n')
@@ -173,7 +173,7 @@ def test_check_ported_compares_with_the_packaged_defaults(workdir):
                                                                         "block")
     assert (conf.effective_wire_codec(), conf.effective_block_wire()) == (
         theirs.effective_wire_codec(), theirs.effective_block_wire()) == ("dict", True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        conf.check_ported()
+    assert conf.elastic == theirs.elastic == "on"
+    conf.check_ported()
     conf.elastic = "off"
     conf.check_ported()

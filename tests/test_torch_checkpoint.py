@@ -285,13 +285,47 @@ def test_app_checkpoint_without_a_directory_is_inert():
 
 @pytest.mark.parametrize("call", ["follower", "promote", "resync"])
 def test_multi_host_parts_raise_naming_the_roadmap_item(tmp_path, call):
-    totals = {"count": 0, "batches": 0}
-    conf = _conf("--checkpointDir", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        if call == "follower":
-            AppCheckpoint(conf, None, None, totals, lead=False)
-        ck = AppCheckpoint(conf, None, None, totals)
-        ck.promote() if call == "promote" else ck.resync_from_verified(totals)
+    """The elastic parts these cases found refused (ROADMAP A10b) are
+    ported; on one host each does what the JAX package's ``AppCheckpoint``
+    does with the same archive: a follower restores but writes no archive
+    and has nothing to resync from; ``promote`` makes it the writer; a
+    lead's ``resync_from_verified`` restores its newest verified archive
+    and takes its counters, counting the rows rolled back."""
+    from twtml_tpu.apps.common import AppCheckpoint as JaxAppCheckpoint
+
+    def run(package):
+        directory = tmp_path / package
+        cls, ckpt_cls, conf, metrics = (
+            (AppCheckpoint, Checkpointer, _conf, _metrics) if package == "port" else
+            (JaxAppCheckpoint, JaxCheckpointer,
+             lambda *a: JaxConf().parse(["--history", "off", *a]), jax_metrics))
+        ckpt_cls(str(directory)).save(3, _weights(6), {"count": 48, "batches": 3})
+        metrics.reset_for_tests()
+        got, totals = [], {"count": 0, "batches": 0}
+        ck = cls(conf("--checkpointDir", str(directory)), lambda: _weights(7), got.append,
+                 totals, lead=call == "resync")
+        if call == "promote":
+            ck.promote()
+            ck.promote()  # idempotent
+        totals["count"], totals["batches"] = 100, 5
+        resynced = ck.resync_from_verified(totals)
+        after = dict(totals)
+        totals["count"], totals["batches"] = 120, 6
+        ck.save_now(totals)
+        rolled = metrics.get_registry().snapshot()["counters"].get("elastic.rows_rolled_back")
+        return (resynced, after, [state_checksum(g) for g in got], rolled,
+                sorted(f for f in os.listdir(directory) if f.startswith("ckpt-")))
+
+    ours, theirs = run("port"), run("jax")
+    assert ours == theirs
+    resynced, after, states, rolled, files = ours
+    if call == "follower":
+        assert (resynced, after, rolled) == (False, {"count": 100, "batches": 5}, None)
+        assert files == ["ckpt-000000000003.npz"]
+    else:
+        assert (resynced, after, rolled) == (True, {"count": 48, "batches": 3}, 52)
+        assert states == [state_checksum(_weights(6))] * 2
+        assert files == ["ckpt-000000000003.npz", "ckpt-000000000006.npz"]
 
 
 # ---- cross-restore: one app's checkpoint continued by the other --------------

@@ -131,9 +131,10 @@ def _readme_lines() -> list[list[str]]:
 
 
 README_LINES = _readme_lines()
-# the ROADMAP item a README line needs, by the flag that needs it: the
-# elastic runtime's (the lockstep runtime, A10a, took the twtml:// lines)
-NEEDS = {"--elastic": "A10b"}
+# the ROADMAP item a README line needs, by the flag that needs it: none now
+# (the lockstep runtime, A10a, took the twtml:// lines, and its elastic
+# membership, A10b, the --elastic on lines)
+NEEDS: dict = {}
 
 
 def test_the_readme_has_its_jax_command_lines():
@@ -174,8 +175,8 @@ def test_readme_local_1_line_runs_on_the_cpu_with_the_jax_apps_lines(monkeypatch
 # ---- values that need an unported feature -------------------------------------------
 
 # the multi-host values the port refused naming ROADMAP A10 before it ported
-# the lockstep runtime (A10a): --elastic on still raises, naming A10b; the
-# others are the feature's now
+# the lockstep runtime (A10a) and its elastic membership (A10b): every one is
+# the feature's now
 UNPORTED = [
     (["--numProcesses", "2"], "A10"),
     (["--processId", "0"], "A10"), (["--coordinator", "host:9"], "A10"),
@@ -194,15 +195,13 @@ def _multihost_outcome(conf):
 
 @pytest.mark.parametrize("argv,item", UNPORTED, ids=lambda v: " ".join(v) if isinstance(v, list) else v)
 def test_unported_values_raise_naming_their_item(argv, item):
-    """``--elastic on`` raises naming ROADMAP A10b (the rest of ``item``);
-    the group coordinates pass ``select_backend`` and resolve as the JAX
-    package's ``multihost`` resolves them (half-given ones exit)."""
+    """Each value the port refused naming ROADMAP ``item`` is ported: it
+    passes ``select_backend`` (``--elastic on`` included, A10b) and the
+    group coordinates resolve as the JAX package's ``multihost`` resolves
+    them (half-given ones exit)."""
     conf = ConfArguments().parse(argv)
     theirs = JaxConf().parse(argv)  # the JAX parser takes the same value
-    if conf.elastic == "on":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}b"):
-            common.select_backend(conf)
-        return
+    assert item == "A10" and conf.elastic == theirs.elastic
     common.select_backend(conf)
     assert _multihost_outcome(conf) == _multihost_outcome(theirs)
 
@@ -260,11 +259,33 @@ def test_every_serve_flag_is_held():
     assert set(SERVE_FLAGS) <= held
 
 
-def test_the_app_refuses_an_unported_value_before_it_builds_anything(monkeypatch):
-    monkeypatch.setattr(common, "build_model",
-                        lambda conf: pytest.fail("built a model for an unported value"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        app.run(ConfArguments().parse(["--backend", "cpu", "--elastic", "on", *QUIET]))
+def test_the_app_refuses_an_unported_value_before_it_builds_anything(monkeypatch, tmp_path):
+    """The one value this refused, ``--elastic on`` (ROADMAP A10b), is
+    ported: without a group it is a one-host run, as in the JAX app (whose
+    ``init_distributed`` forms no group), so the app builds its model once
+    and trains the fixture as the plain run does, line for line."""
+    monkeypatch.setenv("TWTML_NOW_MS", NOW_MS)
+    monkeypatch.chdir(tmp_path)  # no application.conf here
+    built = []
+    build_model = app.build_model
+
+    def counted(conf):
+        built.append(conf.elastic)
+        return build_model(conf)
+
+    monkeypatch.setattr(app, "build_model", counted)
+    fixture = os.path.join(os.path.dirname(__file__), "data", "tweets.jsonl")
+    argv = ["--backend", "cpu", "--source", "replay", "--replayFile", fixture, "--seconds",
+            "0", "--batchBucket", "4", *QUIET]
+    lines = []
+    for extra in ([], ["--elastic", "on"]):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            totals = app.run(ConfArguments().parse(argv + extra))
+        lines.append([ln for ln in out.getvalue().splitlines() if ln.startswith("count:")])
+        assert totals["count"] == 6
+    assert built == ["off", "on"]
+    assert lines[0] == lines[1] and lines[0]
 
 
 def test_values_the_jax_package_ignores_on_this_path_pass():

@@ -67,6 +67,8 @@ def test_port_files_are_found():
     assert {"twtml_tpu_torch/parallel/distributed.py", "twtml_tpu_torch/parallel/mesh.py",
             "twtml_tpu_torch/parallel/sharding.py",
             "twtml_tpu_torch/telemetry/straggler.py"} <= names
+    assert {"twtml_tpu_torch/parallel/elastic.py", "twtml_tpu_torch/parallel/service_host.py",
+            "twtml_tpu_torch/streaming/membership.py"} <= names
 
 
 def test_importing_the_app_leaves_jax_unloaded():
@@ -96,6 +98,8 @@ def test_importing_the_app_leaves_jax_unloaded():
     "twtml_tpu_torch.telemetry.tenants", "twtml_tpu_torch.parallel.distributed",
     "twtml_tpu_torch.parallel.sharding", "twtml_tpu_torch.parallel.mesh",
     "twtml_tpu_torch.telemetry.straggler", "twtml_tpu_torch.telemetry.sideband",
+    "twtml_tpu_torch.parallel.elastic", "twtml_tpu_torch.parallel.service_host",
+    "twtml_tpu_torch.streaming.membership",
 ])
 def test_importing_the_host_modules_leaves_jax_and_aiohttp_unloaded(module):
     code = (
@@ -145,3 +149,53 @@ def test_the_router_runs_without_torch():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split() == ["503", "[]"]
+
+
+def test_the_elastic_store_process_loads_no_model_and_no_card():
+    """An elastic epoch's store process (parallel/service_host.py) imports
+    torch's store and none of the port's models, and never initializes
+    CUDA: it owns no device. Run as its members spawn it, it hosts a store
+    a client reaches, and it exits once the beacon it watches has been gone
+    for the linger window."""
+    import socket
+    import time
+
+    code = (
+        "import sys\n"
+        "import twtml_tpu_torch.parallel.service_host\n"
+        "import torch\n"
+        "bad = sorted(m for m in sys.modules if m.startswith('twtml_tpu_torch.models')\n"
+        "             or m.split('.')[0] in ('jax', 'twtml_tpu'))\n"
+        "print(bad, torch.cuda.is_initialized())\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["[]", "False"]
+    from twtml_tpu_torch.parallel.elastic import probe_port
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    # the beacon it watches (port 9) is never up: it lives 4 s past its start
+    host = subprocess.Popen([sys.executable, "-m", "twtml_tpu_torch.parallel.service_host",
+                             str(port), "1", "127.0.0.1", "9", "4"], cwd=REPO, env=env,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        import datetime
+
+        from torch.distributed import TCPStore
+
+        t0 = time.monotonic()
+        while not probe_port("127.0.0.1", port) and time.monotonic() - t0 < 60:
+            assert host.poll() is None, host.stderr.read()
+            time.sleep(0.05)
+        store = TCPStore("127.0.0.1", port, 1, is_master=False,
+                         timeout=datetime.timedelta(seconds=60))
+        store.set("k", "v")
+        assert store.get("k") == b"v"
+        assert host.wait(timeout=60) == 0, host.stderr.read()
+    finally:
+        host.kill()
+        host.wait()

@@ -261,13 +261,31 @@ def test_app_checkpoints_centers_and_weights_for_either_package(tmp_path, monkey
 
 def test_app_refuses_the_multi_host_values():
     """K-means across hosts (its data-parallel mesh) raises naming ROADMAP
-    A10b before anything is built or joined (``local[2]`` raised naming
+    A10c before anything is built or joined (``local[2]`` raised naming
     A10 until the lockstep runtime was ported; it resolves to one shard
     now)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A10b"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A10c"):
         app.run(ConfArguments().parse(["--backend", "cpu", "--master", "twtml://127.0.0.1:9",
                                        "--numProcesses", "2", "--processId", "0",
                                        "--lightning", CLOSED]))
+
+
+@pytest.mark.parametrize("group", [[], ["--master", "twtml://127.0.0.1:9", "--numProcesses",
+                                         "2", "--processId", "1"]],
+                         ids=["one host", "a group"])
+def test_elastic_on_exits_as_the_jax_app(group):
+    """``--elastic on`` stops both k-means apps on the same argv with the
+    JAX app's exit (the elastic rebuild is wired for the SGD apps only),
+    before anything is joined or built."""
+    from twtml_tpu.apps import kmeans as jax_app
+
+    argv = ["--backend", "cpu", "--elastic", "on", *group, "--lightning", CLOSED]
+    with pytest.raises(SystemExit) as theirs:
+        jax_app.run(JaxConf().parse([("tpu" if a == "cuda" else a) for a in argv]))
+    with pytest.raises(SystemExit) as ours:
+        app.run(ConfArguments().parse(argv))
+    assert str(ours.value) == str(theirs.value)
+    assert "k-means plane keeps the abort-on-peer-loss behavior" in str(ours.value)
 
 
 def test_scatter_streaming_payloads():

@@ -326,13 +326,11 @@ def test_app_publishes_percent_stats_and_checkpoints(tmp_path, monkeypatch):
 @pytest.mark.parametrize("argv,item", [(["--master", "local[2]"], "A10"),
                                        (["--elastic", "on"], "A10")])
 def test_app_refuses_the_multi_host_values(argv, item):
-    """``--elastic on`` raises naming ROADMAP A10b (the rest of ``item``);
-    ``local[2]``, refused until the lockstep runtime (A10a) was ported,
-    resolves to one data shard and trains."""
+    """Both values were refused naming ROADMAP ``item`` and are ported now:
+    ``local[2]`` (the lockstep runtime, A10a) resolves to one data shard,
+    and ``--elastic on`` (A10b) without a group is a single-host run, as
+    in the JAX app (its ``init_distributed`` forms no group); each trains."""
     conf = ConfArguments().parse(["--backend", "cpu", "--source", "synthetic", "--seconds",
                                   "0", "--batchBucket", "4", *argv, *QUIET])
-    if conf.elastic == "on":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}b"):
-            app.run(conf)
-        return
+    assert item == "A10"
     assert app.run(conf, max_batches=1)["batches"] == 1

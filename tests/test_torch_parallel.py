@@ -142,7 +142,7 @@ def test_the_backend_rule(device, hosts, want):
 def test_the_data_axis_and_the_model_axis():
     m = make_mesh(num_processes=4, process_index=2)
     assert (m.num_data, m.process_index, m.axis_name) == (4, 2, "data")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10b"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A10c"):
         make_mesh(num_model=2)
     with pytest.raises(ValueError):
         make_mesh(num_data=3, num_processes=2)

@@ -23,6 +23,26 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def free_port_range(span: int = 12) -> int:
+    """A base port with ``span`` free ports from it: an elastic group uses
+    base + 1 (the beacon) and base + 2 + e (epoch e's store)."""
+    for _ in range(200):
+        base = free_port()
+        socks = []
+        try:
+            for off in range(1, span):
+                s = socket.socket()
+                socks.append(s)
+                s.bind(("127.0.0.1", base + off))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise RuntimeError("no free port range")
+
+
 def write_replay(path, total: int, seed: int) -> str:
     """``total`` synthetic tweets (``seed``) as a replay file."""
     from tools.bench_suite import _status_json
@@ -63,17 +83,21 @@ def run_torch_group(args: list, nprocs: int = 2, timeout: float = 240.0,
 
 
 def run_worker_group(mode: str, args: list, nprocs: int = 2, timeout: float = 240.0,
-                     env: "dict | None" = None) -> list:
-    """``tests/torch_lockstep_worker.py <mode>`` in ``nprocs`` processes;
-    [(returncode, stdout, stderr)] by rank."""
-    port = free_port()
-    procs = [
-        subprocess.Popen([sys.executable, TORCH_WORKER, mode, str(i), str(nprocs), str(port),
-                          *args], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                         env=_env(env), cwd=REPO)
-        for i in range(nprocs)
-    ]
+                     env: "dict | None" = None, port: int = 0) -> list:
+    """``tests/torch_lockstep_worker.py <mode>`` in ``nprocs`` processes (the
+    group's ``port``, a free one by default); [(returncode, stdout, stderr)]
+    by rank."""
+    port = port or free_port()
+    procs = [spawn_worker(mode, i, nprocs, port, args, env) for i in range(nprocs)]
     return _collect(procs, timeout)
+
+
+def spawn_worker(mode: str, rank: int, nprocs: int, port: int, args: list,
+                 env: "dict | None" = None) -> subprocess.Popen:
+    """One ``tests/torch_lockstep_worker.py <mode>`` process of a group."""
+    return subprocess.Popen([sys.executable, TORCH_WORKER, mode, str(rank), str(nprocs),
+                             str(port), *args], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=_env(env), cwd=REPO)
 
 
 def _collect(procs, timeout: float) -> list:

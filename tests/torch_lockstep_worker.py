@@ -7,7 +7,9 @@ Usage: python tests/torch_lockstep_worker.py <mode> <rank> <world> <port> [args]
 - ``app``: the linear app (``apps.linear_regression.run``) with ``args`` and
   the group's ``--master``; prints, as its last line, a JSON object of the
   run's totals, the host-side collective counts
-  (parallel/distributed.py ``COUNTERS``) and the registry's counters.
+  (parallel/distributed.py ``COUNTERS``) and the registry's counters. Under
+  ``--elastic on`` the app leaves through ``elastic_exit``'s hard exit, so
+  the record prints just before it.
 - ``abort``: a lockstep stream of synthetic tweets whose handler raises on
   rank 1's third batch; prints the ticks and batches each rank saw.
 - ``parallel``: one ``ParallelSGDModel`` step on this rank's rows of the
@@ -34,18 +36,40 @@ def _app(rank: int, world: int, port: int, args: list) -> None:
 
     argv = args + ["--master", f"twtml://127.0.0.1:{port}", "--numProcesses", str(world),
                    "--processId", str(rank)]
+    # the totals the app counts into (an elastic run never returns them)
+    kept: list = []
+    checkpoint = linear_regression.AppCheckpoint
+
+    def keeping(conf, get_state, set_state, totals: dict, lead: bool = True):
+        kept.append(totals)
+        return checkpoint(conf, get_state, set_state, totals, lead=lead)
+
+    def report(failed: bool) -> None:
+        if getattr(report, "done", False):
+            return
+        report.done = True
+        totals = kept[0] if kept else {}
+        snap = metrics.get_registry().snapshot()
+        print(json.dumps({
+            "rank": rank, "failed": failed, "count": totals.get("count"),
+            "batches": totals.get("batches"), "collectives": dict(distributed.COUNTERS),
+            "counters": snap["counters"], "gauges": snap["gauges"],
+        }), flush=True)
+
+    elastic_exit = linear_regression.elastic_exit
+
+    def exit_reporting(failed: bool = False) -> None:
+        report(failed)
+        elastic_exit(failed)
+
+    linear_regression.AppCheckpoint = keeping
+    linear_regression.elastic_exit = exit_reporting
     failed = False
-    totals: dict = {}
     try:
-        totals = linear_regression.run(ConfArguments().parse(argv))
+        linear_regression.run(ConfArguments().parse(argv))
     except RuntimeError:
         failed = True
-    snap = metrics.get_registry().snapshot()
-    print(json.dumps({
-        "rank": rank, "failed": failed, "count": totals.get("count"),
-        "batches": totals.get("batches"), "collectives": dict(distributed.COUNTERS),
-        "counters": snap["counters"],
-    }), flush=True)
+    report(failed)
 
 
 def _abort(rank: int, world: int, port: int) -> None:

@@ -1,6 +1,6 @@
-"""Shared app runtime (counterpart of ``twtml_tpu/apps/common.py``, its
-elastic parts aside): group formation (``init_distributed``), source and
-model construction, the
+"""Shared app runtime (counterpart of ``twtml_tpu/apps/common.py``): group
+formation (``init_distributed``, elastic or not), source and model
+construction, the
 ``--trace``/``--chaos``/``--blackbox``/``--journal``/``--history``
 installers, the backend checks (``select_backend``), the
 checkpoint (``AppCheckpoint``) and journal recovery, the runtime guards
@@ -36,7 +36,20 @@ deterministic points only (no early emit, so a delivery's side effects land
 on the same tick on every rank), skips a globally empty batch after its
 step, restores and rolls back from the lead's checkpoint, broadcast
 (``AppCheckpoint``), journals under ``journal-p<rank>`` and leaves printing
-and publishing to the lead. Elastic membership is ROADMAP A10b.
+and publishing to the lead.
+
+Elastic (``--elastic on``, ``attach_elastic``): the group is a sequence of
+epochs (parallel/elastic.py) driven by the membership plane
+(streaming/membership.py). A re-formation drains the fetch pipeline (a
+rescue discards what is in flight: a dead peer failed its collectives),
+saves at the boundary on a clean commit, abandons the epoch, forms the
+next, rebuilds the model for its mesh, resynchronizes state and counters
+from the lead's verified checkpoint (every host shadow-saves under
+``standby-u<uid>``, so an elected lead restores from its own), replays the
+journal's rolled-back rows, and hands a departed host's intake residues to
+the survivors. Journals and historians are keyed by the elastic uid
+(``-u<uid>``), and an elastic process leaves through a hard exit
+(``elastic_exit``).
 """
 
 from __future__ import annotations
@@ -206,8 +219,9 @@ def build_model(conf, model_cls=StreamingLinearRegressionWithSGD):
     In a multi-host group (``init_distributed`` formed it) the learner is a
     ``MultiHostSGDModel`` over a ``ParallelSGDModel`` of ``model_cls``'s
     gradient family on this rank's device, with the digram codec's agreed
-    bucket under ``--wireCodec dict``; the tenant fleet across hosts is
-    ROADMAP A10b."""
+    bucket under ``--wireCodec dict``, and the closure that rebuilds it for
+    an elastic epoch's mesh; the tenant fleet across hosts is ROADMAP
+    A10c."""
     from ..parallel import distributed as _dist
 
     featurize_native.configure(conf.featurizeNative)
@@ -219,12 +233,16 @@ def build_model(conf, model_cls=StreamingLinearRegressionWithSGD):
         from ..parallel.sharding import ParallelSGDModel
 
         codec = conf.effective_wire_codec() if conf.effective_wire() == "ragged" else "off"
-        inner = ParallelSGDModel.from_conf(
-            conf, _dist.mesh(), _dist.Collectives.from_group(),
-            residual_fn=model_cls.residual_fn, prediction_fn=model_cls.prediction_fn,
-            round_predictions=model_cls.round_predictions, device=_dist.device())
-        model = _dist.MultiHostSGDModel(inner, _dist.mesh(),
-                                        wire_codec="dict" if codec == "dict" else "")
+
+        def rank_model(mesh):
+            return ParallelSGDModel.from_conf(
+                conf, mesh, _dist.Collectives.from_group(),
+                residual_fn=model_cls.residual_fn, prediction_fn=model_cls.prediction_fn,
+                round_predictions=model_cls.round_predictions, device=_dist.device())
+
+        model = _dist.MultiHostSGDModel(rank_model(_dist.mesh()), _dist.mesh(),
+                                        wire_codec="dict" if codec == "dict" else "",
+                                        rebuilder=rank_model)
         get_arena().use_device(model.device)
         log.info("multi-host training (%s): rank %d of %d, %s step route",
                  model_cls.__name__, _dist.mesh().process_index,
@@ -255,6 +273,16 @@ def _rank_suffix() -> str:
 
     group = _dist.mesh()
     return f"-p{group.process_index}" if group.num_processes > 1 else ""
+
+
+def _host_suffix() -> "str | None":
+    """``-u<uid>`` under ``--elastic on``: the elastic uid (the launch id)
+    keys a host's journal and historian across epochs and restarts, so a
+    restarted host finds its own; None otherwise."""
+    from ..parallel.elastic import get_runtime
+
+    runtime = get_runtime()
+    return None if runtime is None else f"-u{runtime.uid}"
 
 
 def install_trace(conf) -> None:
@@ -301,7 +329,8 @@ def install_blackbox(conf) -> None:
 def install_journal(conf) -> None:
     """``--journal`` (auto: on with ``--checkpointDir``): open the intake
     journal under ``<checkpointDir>/journal`` (``journal-p<rank>`` for a
-    multi-host rank: each journals its own shard), so the seam in
+    multi-host rank: each journals its own shard; ``journal-u<uid>`` under
+    ``--elastic on``), so the seam in
     streaming/context.py appends. Off uninstalls a journal an earlier run
     in the same process left."""
     if not conf.effective_journal():
@@ -311,13 +340,17 @@ def install_journal(conf) -> None:
         raise SystemExit("--journal on requires --checkpointDir: the replay cursor "
                          "lives in verified checkpoint meta (use --journal auto to "
                          "follow the checkpoint flag)")
-    _journal.install(os.path.join(conf.checkpointDir, "journal" + _rank_suffix()),
+    suffix = _host_suffix()
+    _journal.install(os.path.join(conf.checkpointDir,
+                                  "journal" + (_rank_suffix() if suffix is None else suffix)),
                      max_mb=int(conf.journalMaxMb or 512))
 
 
 def install_historian(conf) -> None:
     """``--history`` (auto: on with ``--checkpointDir``): open the telemetry
-    historian under ``<checkpointDir>/history``, so SessionStats' publish
+    historian under ``<checkpointDir>/history`` (``history-u<uid>`` under
+    ``--elastic on``: a restarted host appends after its own tail), so
+    SessionStats' publish
     seam samples into it, with a run id from the counter the JAX package
     shares and the config's fingerprint. Off uninstalls a historian an
     earlier run in the same process left."""
@@ -329,7 +362,7 @@ def install_historian(conf) -> None:
                          "segments and the --perfGuard baseline live under it (use "
                          "--history auto to follow the checkpoint flag)")
     _historian.configure(
-        os.path.join(conf.checkpointDir, "history"),
+        os.path.join(conf.checkpointDir, "history" + (_host_suffix() or "")),
         max_mb=int(conf.historyMaxMb or 256),
         perf_guard=conf.perfGuard == "warn",
         guard_ratio=float(conf.perfGuardRatio or 1.5),
@@ -342,9 +375,9 @@ def init_distributed(conf) -> bool:
     """The cluster face of every entry point (the reference's ``--master``):
     validate ``--master``, and when ``--coordinator`` or a ``twtml://``
     master asks for a multi-host group, join it (parallel/distributed.py
-    ``initialize``, on ``--backend``'s device kind). Returns whether this
-    process prints and publishes: the lead (rank 0), or any single-host
-    run."""
+    ``initialize``, on ``--backend``'s device kind; ``_init_elastic`` under
+    ``--elastic on``). Returns whether this process prints and publishes:
+    the lead (rank 0), or any single-host run."""
     from ..parallel import distributed as _dist
 
     conf.validate_master()
@@ -352,7 +385,71 @@ def init_distributed(conf) -> bool:
     if group is None:
         return True
     coordinator, num_processes, process_id = group
+    if conf.elastic == "on":
+        return _init_elastic(conf, coordinator, num_processes, process_id)
     return _dist.initialize(coordinator, num_processes, process_id, conf.backend)
+
+
+def _init_elastic(conf, coordinator: str, num_processes: int, process_id: int) -> bool:
+    """Elastic group formation. A cold start forms epoch 0 with the whole
+    launch membership; a restarted host (the run is live and this uid is
+    not a member) parks at the beacon and joins at the epoch boundary the
+    lead commits for it. The device is chosen first, once, from the launch
+    id."""
+    from ..parallel import distributed as _dist
+    from ..parallel import elastic as _elastic
+    from ..streaming.membership import PARK_TIMEOUT_DEFAULT_S, PARK_TIMEOUT_ENV
+
+    host, _, port = coordinator.rpartition(":")
+    _dist.setup(process_id, conf.backend)
+    runtime = _elastic.install_runtime(host or "127.0.0.1", int(port), process_id)
+    launch_members = list(range(num_processes))
+    if not conf.checkpointDir:
+        log.warning("--elastic on without --checkpointDir: membership changes "
+                    "re-synchronize from the lead's LIVE state instead of a verified "
+                    "on-disk checkpoint (reduced rollback guarantee)")
+    if process_id == 0 and runtime.beacon is not None:
+        # a cold start: uid 0 owns the beacon and leads the launch
+        runtime.beacon.publish("forming", 0, launch_members)
+        runtime.form(0, launch_members)
+        return _dist.mesh().process_index == 0
+    # uid 0 without the beacon is a RESTARTED ex-lead: an elected successor
+    # owns the port, so it rejoins through the followers' path
+    client = runtime.beacon_client()
+    deadline = time.monotonic() + _elastic._init_timeout_s()
+    hello = None
+    while time.monotonic() < deadline:
+        hello = client.request("hello", process_id)
+        if hello is not None:
+            break
+        time.sleep(0.5)
+    if hello is None:
+        raise SystemExit(f"--elastic on: the lead's membership beacon at "
+                         f"{host}:{runtime.beacon_port} never answered (is the lead up?)")
+    # the beacon names the CURRENT lead (an elected one after an election)
+    runtime.set_lead(int(hello.get("lead_uid", 0)))
+    if hello["state"] == "forming":
+        runtime.form(0, launch_members)
+        return _dist.mesh().process_index == 0
+    log.warning("elastic: run already live at epoch %d (members %s); parking this host "
+                "(uid %d) for admission at the next epoch boundary", hello["epoch"],
+                hello["members"], process_id)
+    park_deadline = time.monotonic() + float(
+        os.environ.get(PARK_TIMEOUT_ENV, "") or PARK_TIMEOUT_DEFAULT_S)
+    while time.monotonic() < park_deadline:
+        client.request("join", process_id)
+        state = client.request("hello", process_id) or {}
+        plan = (client.request("plan", process_id) or {}).get("plan")
+        if plan and process_id in plan.get("members", []) and (
+                plan["epoch"] > state.get("epoch", -1)):
+            # the admission plan names the lead that committed it
+            runtime.set_lead(int(plan.get("lead_uid", runtime.lead_uid)))
+            runtime.joined_late = True
+            runtime.form(plan["epoch"], plan["members"])
+            return _dist.mesh().process_index == 0
+        time.sleep(0.5)
+    raise SystemExit("elastic: admission never committed within the park window (is "
+                     "--elasticRejoin off on the lead, or the group idle?)")
 
 
 def select_backend(conf) -> None:
@@ -398,8 +495,8 @@ def state_checksum(state) -> str:
 
 def _multi_host(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} belongs to the elastic part of the multi-host runtime, which is "
-        "not ported (ROADMAP A10b)"
+        f"{what} belongs to the layouts over a model axis of the multi-host runtime, "
+        "which are not ported (ROADMAP A10c)"
     )
 
 
@@ -420,14 +517,23 @@ class AppCheckpoint:
     broadcast to all (a follower on other storage, or a stale one,
     converges on the lead's), only the lead writes archives, and a rollback
     restores on the lead and broadcasts (``rollback_to_verified``: every
-    rank calls it at the same delivery). The elastic standby archives and
-    ``promote``/``resync_from_verified`` are ROADMAP A10b and raise."""
+    rank calls it at the same delivery).
+
+    Elastic (``--elastic on``): the lead is the runtime's (``lead_uid``),
+    and every other host shadow-saves the same verified archives into its
+    own ``standby-u<uid>/`` under the directory, on the same cadence: the
+    steps are all-reduce-identical, so its archives are the lead's bits.
+    That is what an election relies on: ``promote`` hands the won
+    authority to this host's archives, and ``resync_from_verified``
+    re-synchronizes an epoch from the lead's own verified archive. The
+    broadcasts send from the lead's rank, whatever its place in the epoch."""
 
     def __init__(self, conf, get_state, set_state, totals: dict, lead: bool = True):
-        from ..parallel import distributed as _dist
+        from ..parallel.elastic import get_runtime
 
-        self._lead = lead
-        self._multihost = _dist.is_multihost()
+        runtime = get_runtime()
+        self._lead = runtime.is_lead if runtime is not None else lead
+        self._shadow = runtime is not None and not self._lead
         self._ckpt: "Checkpointer | None" = None
         self._get_state = get_state
         self._set_state = set_state
@@ -436,7 +542,12 @@ class AppCheckpoint:
         self._last = 0
         if not conf.checkpointDir:
             return
-        self._ckpt = Checkpointer(conf.checkpointDir)
+        ckpt_dir = conf.checkpointDir
+        if self._shadow:
+            ckpt_dir = os.path.join(conf.checkpointDir, f"standby-u{runtime.uid}")
+            log.info("elastic standby checkpoints: this host shadow-saves verified "
+                     "archives into %s (any host can restore)", ckpt_dir)
+        self._ckpt = Checkpointer(ckpt_dir)
         restored = self._ckpt.restore()
         self.restored_meta = restored[1] if restored is not None else None
         if restored is not None:
@@ -449,6 +560,14 @@ class AppCheckpoint:
         if self._multihost:
             self._sync_from_lead(totals, restored is not None)
         self._last = totals["batches"]
+
+    @property
+    def _multihost(self) -> bool:
+        """Whether the current group has more than one rank (an elastic group
+        shrunk to one host restores and rolls back locally)."""
+        from ..parallel import distributed as _dist
+
+        return _dist.is_multihost()
 
     def _sync_from_lead(self, totals: dict, restored: bool) -> None:
         """Every rank takes the lead's state and counters (one broadcast)."""
@@ -470,7 +589,7 @@ class AppCheckpoint:
         return self._ckpt.directory if self._ckpt is not None else ""
 
     def _save(self, totals: dict) -> None:
-        if not self._lead:
+        if not self._lead and not self._shadow:
             self._last = totals["batches"]  # the lead writes; keep the cadence aligned
             return
         j = _journal.get()
@@ -573,10 +692,67 @@ class AppCheckpoint:
         return {"broadcast": True, "count": count, "batches": batches}
 
     def promote(self) -> None:
-        raise _multi_host("AppCheckpoint.promote (elastic lead election)")
+        """The elastic lead's hand-off: this host won an election. Its standby
+        archives become the group's lineage (later saves go on into the same
+        directory), and the next ``resync_from_verified`` restores from them
+        and broadcasts from this host. Idempotent."""
+        if self._lead:
+            return
+        self._lead = True
+        self._shadow = False
+        if self._ckpt is not None:
+            log.warning("checkpoint authority PROMOTED after lead election: this host's "
+                        "verified archives in %s are the group's lineage now",
+                        self._ckpt.directory)
+        _blackbox.record("checkpoint_promoted", directory=self.directory)
 
     def resync_from_verified(self, totals: dict) -> bool:
-        raise _multi_host("AppCheckpoint.resync_from_verified (elastic epochs)")
+        """Re-synchronize a just-formed elastic epoch: every member takes the
+        LEAD's state and counters, its newest verified archive when one
+        exists (a clean commit saved at the boundary first, so it loses
+        nothing; a rescue rolls back at most ``--checkpointEvery`` batches),
+        else its live weights. Rolled-back rows are counted
+        (``elastic.rows_rolled_back``). The broadcast is the one a starting
+        rank's restore makes (``_sync_from_lead``), so a rejoiner's start
+        pairs with it. An epoch of one host restores locally, with no
+        collective. Returns False only when there is neither an archive nor
+        a broadcast to take (one host, no archive: the state goes on)."""
+        from ..parallel import distributed as _dist
+
+        restored = self._ckpt.restore() if self._ckpt is not None and self._lead else None
+        old_count = int(totals.get("count", 0))
+
+        def adopt(state, count, batches) -> None:
+            self._set_state(state)
+            totals["count"] = int(count)
+            totals["batches"] = int(batches)
+            self._last = totals["batches"]
+            rolled = max(0, old_count - totals["count"])
+            if rolled:
+                _metrics.get_registry().counter("elastic.rows_rolled_back").inc(rolled)
+            source = ("verified checkpoint" if restored is not None or not self._lead
+                      else "live weights")
+            log.warning("elastic resync: state from the lead's %s (count=%d, batches=%d, "
+                        "state crc %s)%s", source, totals["count"], totals["batches"],
+                        state_checksum(state),
+                        f" — {rolled} row(s) of post-checkpoint progress rolled back "
+                        "(counted)" if rolled else "")
+
+        if not _dist.is_multihost():
+            if restored is None:
+                return False
+            state, meta = restored
+            adopt(state, meta.get("count", 0), meta.get("batches", 0))
+            return True
+        state = self._get_state()
+        count, batches = totals.get("count", 0), totals.get("batches", 0)
+        if restored is not None:
+            state, meta = restored
+            count, batches = meta.get("count", 0), meta.get("batches", 0)
+        _found, count, batches, state = _dist.broadcast_object(
+            (restored is not None, int(count), int(batches), state), is_source=self._lead)
+        adopt(state, count, batches)
+        return True
 
 
 def journal_replay_rollback(ssc, ckpt: AppCheckpoint, totals: dict, meta,
@@ -637,11 +813,29 @@ def journal_boot_replay(conf, ssc, ckpt: AppCheckpoint, totals: dict) -> int:
     j = _journal.get()
     if j is None:
         return 0
+    from ..parallel.elastic import get_runtime
+
+    runtime = get_runtime()
+    if runtime is not None and runtime.joined_late:
+        # this host's pre-departure rows went to their adopters when the
+        # group re-formed without it: replaying (or skipping past) its old
+        # journal would train adopted rows twice
+        j.reset()
+        log.warning("journal: reset on late join: this host's pre-departure rows "
+                    "belong to their adopters now; boot replay skipped")
+        return 0
     meta = ckpt.restored_meta
     stamp = (meta or {}).get("journal")
     if meta is not None and stamp is None:
         log.warning("journal: the restored checkpoint carries no journal cursor; "
                     "boot replay skipped, the source re-produces from its top")
+        return 0
+    if meta is not None and int(meta.get("batches", -1)) != int(totals.get("batches", 0)):
+        # the lead's broadcast moved the counters away from this host's own
+        # archive: its cursor no longer names the adopted state
+        log.warning("journal: local archive (batches=%s) disagrees with the adopted "
+                    "counters (batches=%s); boot replay skipped", meta.get("batches"),
+                    totals.get("batches"))
         return 0
     cursor = int(stamp["cursor"]) if stamp is not None else 0
     skip_rows = j.rows_total
@@ -1303,9 +1497,37 @@ class FetchPipeline:
         if lease is not None:
             lease.retire()
 
-    def _drain(self) -> None:
+    def drain(self) -> None:
+        """Deliver every pending output now, dispatching nothing more (a
+        cap, a cadence point, a flush, an elastic clean commit before the
+        group re-forms: nothing stays in flight across a rebuild)."""
         while self._pending:
             self._emit_one()
+
+    def drain_discard(self, why: str) -> int:
+        """An elastic rescue's drain: a peer died, so an output in flight
+        may hold collectives that failed, and awaiting it would only burn
+        the fetch watchdog's retries. The resync restores the lead's
+        verified checkpoint anyway, so the outputs in flight are DISCARDED:
+        their cap slots refunded, their leases discarded (never reused), the
+        rows counted in ``elastic.rows_discarded_inflight``. Returns the
+        rows discarded."""
+        if not self._pending:
+            return 0
+        n, rows = len(self._pending), 0
+        for _pending, _out, batch, _t, lease, _stamp in self._pending:
+            rows += int(getattr(batch, "num_valid", 0) or 0)
+            self.refund_dispatch()
+            if lease is not None:
+                lease.discard()
+        self._pending.clear()
+        self._depth_gauge.set(0)
+        self._registry.counter("elastic.rows_discarded_inflight").inc(rows)
+        log.warning("elastic rescue: discarded %d in-flight batch output(s) (~%d row(s)): "
+                    "%s; the resync restores the verified checkpoint, so these rolled-back "
+                    "rows are counted in elastic.rows_discarded_inflight, never awaited",
+                    n, rows, why)
+        return rows
 
     def on_batch(self, batch, t) -> None:
         if self._watchdog.aborted:
@@ -1316,7 +1538,7 @@ class FetchPipeline:
         if self.max_dispatch and self._dispatched >= self.max_dispatch:
             # cap reached: this batch must not train, but what did train is
             # delivered now, or the handler-side stop never fires
-            self._drain()
+            self.drain()
             return
         replays = self._replays
         while len(self._pending) >= self.depth or (
@@ -1343,7 +1565,7 @@ class FetchPipeline:
         if self.boundary_every and (
             self._cadence - self._last_boundary >= self.boundary_every
         ):
-            self._drain()
+            self.drain()
             self._last_boundary = self._cadence
 
     def note_replay(self, rolled_back: int = 0) -> None:
@@ -1390,7 +1612,7 @@ class FetchPipeline:
 
     def flush(self) -> None:
         try:
-            self._drain()
+            self.drain()
         except FetchAbort:
             # logged and the abort hook fired; never raise into shutdown
             if self._pending:
@@ -1468,7 +1690,7 @@ class SuperBatcher:
             return  # a fetch abort is in flight: nothing more may train
         if self.max_dispatch and self._dispatched >= self.max_dispatch:
             # cap reached: deliver what trained, so the handler's stop fires
-            self._drain()
+            self.drain()
             return
         sig = wire_signature(batch)
         if self._buf and sig != self._sig:
@@ -1529,9 +1751,37 @@ class SuperBatcher:
         if lease is not None:
             lease.retire()  # after the handlers, which read the host arrays
 
-    def _drain(self) -> None:
+    def drain(self) -> None:
+        """Deliver every in-flight group now, dispatching nothing more (a
+        cap, a cadence point, an elastic clean commit); buffered batches not
+        yet dispatched are host-side and stay."""
         while self._inflight:
             self._emit_group()
+
+    def drain_discard(self, why: str) -> int:
+        """An elastic rescue's drain (``FetchPipeline.drain_discard``): the
+        groups in flight are discarded, their cap slots refunded, leases
+        discarded, rows counted in ``elastic.rows_discarded_inflight``;
+        buffered batches not yet dispatched never touched a collective and
+        train against the restored state after the re-formation. Returns
+        the rows discarded."""
+        if not self._inflight:
+            return 0
+        groups, rows = len(self._inflight), 0
+        for _pending, _outs, group, lease, _stamp in self._inflight:
+            for batch, _t, _st in group:
+                rows += int(getattr(batch, "num_valid", 0) or 0)
+                self.refund_dispatch()
+            if lease is not None:
+                lease.discard()
+        self._inflight.clear()
+        self._depth_gauge.set(0)
+        self._registry.counter("elastic.rows_discarded_inflight").inc(rows)
+        log.warning("elastic rescue: discarded %d in-flight group(s) (~%d row(s)): %s; the "
+                    "resync restores the verified checkpoint, so these rolled-back rows are "
+                    "counted in elastic.rows_discarded_inflight, never awaited", groups, rows,
+                    why)
+        return rows
 
     def refund_dispatch(self) -> None:
         """Give back one ``max_dispatch`` slot (a handler that skips a
@@ -1551,7 +1801,7 @@ class SuperBatcher:
         """A partial group: one synchronous step a batch (the one-buffer
         wire in group mode), after every earlier group was delivered."""
         replays = self._replays
-        self._drain()
+        self.drain()
         for batch, t, stamp in group:
             if self._replays != replays:
                 _drop_undispatched(batch, "it re-ingests with the journal's replay")
@@ -1645,7 +1895,7 @@ class SuperBatcher:
         if self.boundary_every and (
             self._cadence - self._last_boundary >= self.boundary_every
         ):
-            self._drain()  # a cadence point: the weights current for a save
+            self.drain()  # a cadence point: the weights current for a save
             self._last_boundary = self._cadence
 
     def flush(self) -> None:
@@ -1654,7 +1904,7 @@ class SuperBatcher:
         discarded, its cap slots refunded), never raising into shutdown."""
         try:
             self._close_group()
-            self._drain()
+            self.drain()
         except FetchAbort:
             for _pending, _outs, group, lease, _stamp in self._inflight:
                 if lease is not None:
@@ -1696,7 +1946,7 @@ def super_batch_k(conf, stream, num_tenants: int = 0) -> int:
 def attach_super_batcher(conf, stream, model, handle, stop_requested=None,
                          max_dispatch: int = 0, abort=None,
                          fetch_depth: int = FETCH_DEPTH, stamp=None, sentinel=None,
-                         modelwatch=None, freshness=None):
+                         modelwatch=None, freshness=None, elastic=None):
     """Wire the app's ``handle(host, batch, t, at_boundary, stamp)`` to the
     stream and return the ``flush`` the app calls after the stream
     terminated; ``flush.group_k`` is the superbatch's K (1 without one) and
@@ -1723,8 +1973,14 @@ def attach_super_batcher(conf, stream, model, handle, stop_requested=None,
     device tensor), its lineage record and journal token dropped with it.
     ``--superBatch K > 1`` (``super_batch_k``) groups K batches a dispatch
     through a ``SuperBatcher`` on ``--wirePack``'s wire (group: one buffer,
-    ragged wire only), with the same wrappers, drains and cap."""
+    ragged wire only), with the same wrappers, drains and cap.
+
+    ``elastic`` (``attach_elastic``'s plane) gets the pipeline or
+    superbatch, whose drains a re-formation calls, and the returned
+    ``flush``, whose warm-up arguments a re-formation warms with."""
     from ..parallel import distributed as _dist
+
+    bind = {} if elastic is None else elastic._bind_box
 
     pack = bool(getattr(stream, "ragged", False))
     sync_debug = os.environ.get(SYNC_DEBUG_ENV, "")
@@ -1852,7 +2108,9 @@ def attach_super_batcher(conf, stream, model, handle, stop_requested=None,
         on_batch = (batcher.on_batch if prepare is None
                     else lambda batch, t: batcher.on_batch(prepare(batch), t))
         stream.foreach_batch(skip_empty(on_batch))
-        return _with_group(batcher.flush, k, batcher.group_wire, wire_codec)
+        bind["pipeline"] = batcher
+        bind["flush"] = _with_group(batcher.flush, k, batcher.group_wire, wire_codec)
+        return bind["flush"]
 
     if conf.seconds <= 0:
         pipe = FetchPipeline(
@@ -1866,7 +2124,9 @@ def attach_super_batcher(conf, stream, model, handle, stop_requested=None,
         if multihost:
             pipeline_ref.append(pipe)
         stream.foreach_batch(skip_empty(pipe.on_batch))
-        return _with_group(pipe.flush, wire_codec=wire_codec)
+        bind["pipeline"] = pipe
+        bind["flush"] = _with_group(pipe.flush, wire_codec=wire_codec)
+        return bind["flush"]
 
     fetch = _fetcher(model)
     reg = _metrics.get_registry()
@@ -1891,7 +2151,170 @@ def attach_super_batcher(conf, stream, model, handle, stop_requested=None,
             lease.retire()  # after the handler, which reads the host arrays
 
     stream.foreach_batch(skip_empty(per_batch))
-    return _with_group(lambda: None, wire_codec=wire_codec)
+    bind["flush"] = _with_group(lambda: None, wire_codec=wire_codec)
+    return bind["flush"]
+
+
+# ---- elastic membership (--elastic on) --------------------------------------
+
+def _rebalance_intake(source, old_members, new_members, my_uid: int, reason: str) -> None:
+    """The intake across a membership change: a departed host's residues
+    are adopted round-robin by the survivors (exact coverage going forward,
+    streaming/sources.py). A REJOINED host: a live id-sharded stream hands
+    its residues back (ids are position-free); replay index shards stay
+    with the adopters, and the rejoiner is a hot standby (re-reading its
+    file shard from the top would train rows twice). A source with no
+    residue surface (block byte ranges) loses the departed range, counted
+    in ``elastic.shards_lost``."""
+    from ..streaming.sources import IdShardedSource
+
+    sharded = source
+    while sharded is not None and not hasattr(sharded, "adopt_residues"):
+        sharded = getattr(sharded, "inner", None)
+    departed = sorted(u for u in old_members if u not in new_members)
+    rejoined = sorted(u for u in new_members if u not in old_members)
+    if sharded is None:
+        if departed:
+            _metrics.get_registry().counter("elastic.shards_lost").inc(len(departed))
+            log.warning("elastic: this source kind cannot adopt departed shard(s) %s: their "
+                        "remaining rows are lost (counted in elastic.shards_lost)", departed)
+        return
+    survivors = sorted(u for u in new_members if u in old_members)
+    for i, uid in enumerate(departed):
+        owner = survivors[i % len(survivors)] if survivors else -1
+        if owner == my_uid:
+            sharded.adopt_residues([uid])
+    if rejoined and isinstance(sharded, IdShardedSource):
+        sharded.release_residues(rejoined)
+    if my_uid in rejoined and not isinstance(sharded, IdShardedSource):
+        sharded.residues.clear()
+        log.warning("elastic: rejoined a replay-sharded run as a hot standby (index shards "
+                    "are position-bound; residues stay with their adopters)")
+
+
+def attach_elastic(conf, ssc, model, stream, ckpt: AppCheckpoint, totals: dict):
+    """``--elastic on``: build the membership plane over the runtime
+    ``init_distributed`` formed and install it on the streaming context.
+    Its two transitions re-provision the app stack:
+
+    detach: drain the fetch pipeline (a RESCUE discards what is in flight:
+    a dead peer failed its collectives, ``drain_discard``), on a CLEAN
+    commit save at the boundary (loss-free), then abandon the epoch's
+    groups;
+
+    attach: form the new epoch, promote the checkpoint if this host won an
+    election, rebuild the model for the epoch's mesh, re-synchronize state
+    and counters from the lead (``resync_from_verified``), replay this
+    host's journaled rows past the agreed rollback point (a rejoiner resets
+    its journal instead), rebalance the intake shards, and warm the step
+    for the new group.
+
+    Returns the plane (None when the run is not elastic); pass it to
+    ``attach_super_batcher`` so the drains bind."""
+    from ..parallel import distributed as _dist
+    from ..parallel import elastic as _elastic
+    from ..streaming.membership import MembershipPlane
+    from ..streaming.sources import IdShardedSource
+
+    runtime = _elastic.get_runtime()
+    if runtime is None or not _dist.is_multihost():
+        return None
+    source = ssc._source
+    if runtime.joined_late:
+        # a restarted host admitted into a LIVE run: its replay residues
+        # were adopted when it departed, so it contributes all-padding
+        # batches (a live id-sharded source keeps them: the incumbents
+        # release them, _rebalance_intake)
+        sharded = source
+        while sharded is not None and not hasattr(sharded, "adopt_residues"):
+            sharded = getattr(sharded, "inner", None)
+        if sharded is not None and not isinstance(sharded, IdShardedSource):
+            sharded.residues.clear()
+            log.warning("elastic: joined a live replay-sharded run as a hot standby "
+                        "(residues stay with their adopters)")
+    st: dict = {"pipeline": None, "flush": None, "old_members": list(runtime.members)}
+
+    def detach(clean: bool) -> None:
+        st["old_members"] = list(runtime.members)
+        pipe = st["pipeline"]
+        if pipe is not None:
+            if clean:
+                pipe.drain()
+            else:
+                pipe.drain_discard("a peer died mid-step")
+        if clean:
+            # every member is alive and in step at a clean commit: the lead
+            # saves here, so the resync restores exactly this state
+            ckpt.save_now(totals)
+        runtime.abandon()
+
+    def attach(plan: dict, reason: str) -> None:
+        runtime.form(plan["epoch"], plan["members"])
+        if runtime.is_lead:
+            # a won election: authority moves to this host's archives
+            # before the resync broadcasts from them
+            ckpt.promote()
+        model.rebuild(_dist.mesh())
+        if reason == "rejoin":
+            # a rejoiner's queued rows predate its absence; the adopters
+            # own them now
+            dropped = sum(getattr(s, "rows", 1) for s in ssc._drain(0))
+            if dropped:
+                _metrics.get_registry().counter("elastic.rows_dropped_rejoin").inc(dropped)
+                log.warning("elastic: dropped %d stale queued row(s) on rejoin (counted in "
+                            "elastic.rows_dropped_rejoin)", dropped)
+        pre_resync = (int(totals["count"]), int(totals["batches"]))
+        ckpt.resync_from_verified(totals)
+        j = _journal.get()
+        if j is not None:
+            # the discarded deliveries' tokens would strand every later
+            # pairing; the replay below re-covers their rows
+            j.clear_inflight()
+            if runtime.uid in set(plan["members"]) - set(st["old_members"]):
+                j.reset()
+                log.warning("journal: reset on rejoin: this host's pre-departure rows "
+                            "belong to their adopters now")
+            else:
+                stub = {"count": totals["count"], "batches": totals["batches"]}
+                if (totals["count"], totals["batches"]) == pre_resync:
+                    # nothing rolled back: the adopted state covers exactly
+                    # the delivered batches, whose committed cursor this is
+                    stub["journal"] = j.snapshot_for_checkpoint()
+                else:
+                    stub["broadcast"] = True
+                journal_replay_rollback(ssc, ckpt, totals, stub, where=f"elastic {reason}")
+        _rebalance_intake(source, st["old_members"], plan["members"], runtime.uid, reason)
+        flush = st["flush"]
+        warmup_compile(stream, model, super_batch=flush.group_k, group_wire=flush.group_wire,
+                       wire_codec=flush.wire_codec)
+
+    plane = MembershipPlane(
+        runtime, detach, attach,
+        evict_ticks=int(conf.elasticEvictTicks or 0),
+        evict_skew_ms=float(conf.elasticEvictSkewMs),
+        rejoin=conf.elasticRejoin == "on",
+    )
+    plane._bind_box = st  # attach_super_batcher fills the pipeline and flush
+    ssc.membership = plane
+    log.info("elastic membership plane ACTIVE: epoch %d, members %s, evict after %s gating "
+             "tick(s), rejoin %s", runtime.epoch, runtime.members, plane.evict_ticks or "∞",
+             "on" if plane.rejoin else "off")
+    return plane
+
+
+def elastic_exit(failed: bool = False) -> None:
+    """An elastic run leaves through a hard exit (parallel/elastic.py
+    ``finalize_exit``: an abandoned epoch may hold a thread blocked in a
+    collective); a no-op without an elastic runtime. The LAST call of an
+    app's run, after its checkpoint and telemetry flushed."""
+    from ..parallel import elastic as _elastic
+
+    runtime = _elastic.get_runtime()
+    if runtime is None:
+        return
+    log.info("elastic run complete (epoch %d, %d re-formation(s)); hard exit %d",
+             runtime.epoch, len(runtime._graveyard), 1 if failed else 0)
+    runtime.finalize_exit(1 if failed else 0)
 
 
 def _with_group(flush, k: int = 1, group_wire=None, wire_codec: str = ""):

@@ -15,8 +15,10 @@ cpu`` is given; ``--checkpointDir`` saves and restores ``{centers,
 weights}`` as the JAX app does. ``--ingest block`` parses with the
 retweet-count interval opened to every retweet (the parser's filter is then
 ``isRetweet`` alone) and takes both dimensions from the parsed block's
-numeric columns. K-means across hosts (its mesh) is ROADMAP A10b: the
-multi-host flags stop the run before anything is built.
+numeric columns. K-means across hosts (its mesh) is ROADMAP A10c: the
+multi-host flags stop the run before anything is built, and ``--elastic
+on`` exits with the JAX app's message (the elastic rebuild is wired for
+the SGD apps only).
 
 Run: ``python -m twtml_tpu_torch.apps.kmeans --backend cpu --source replay \\
       --replayFile tests/data/tweets.jsonl --seconds 0 \\
@@ -105,10 +107,16 @@ def run(conf: ConfArguments, max_batches: int = 0, wall_clock: bool = True) -> d
     ``max_batches`` batches ran (0 = no cap); ``wall_clock=False`` drives
     the source synchronously (``run_to_completion``). Returns the totals
     (``count``, ``batches``)."""
+    if conf.elastic == "on":
+        # the JAX app's exit: its raw-stream handler owns the global
+        # assembly, and the elastic rebuild is wired for the SGD apps only
+        raise SystemExit("--elastic on is wired for the SGD entry points (linear, "
+                         "logistic); the k-means plane keeps the abort-on-peer-loss "
+                         "behavior for now")
     select_backend(conf)
     if conf.multihost() is not None:
         raise NotImplementedError("k-means across hosts (its data-parallel mesh) is not "
-                                  "ported (ROADMAP A10b)")
+                                  "ported (ROADMAP A10c)")
     install_trace(conf)
     install_chaos(conf)
     install_blackbox(conf)

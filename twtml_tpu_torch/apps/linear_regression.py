@@ -24,16 +24,18 @@ telemetry historian; the checkpoint restores, the journal's boot replay
 resumes, the recycler (``--recycleAfterMb``) watches RSS; every delivery
 passes the divergence sentinel, the model watch and the freshness plane
 (all on by default). A clean shutdown stamps the historian's perfGuard
-baseline. Values of the JAX package's flags that need an unported feature
-(elastic membership, ROADMAP A10b) stop the run before anything is built
-(``select_backend``).
+baseline.
 
 Across hosts (``--master twtml://host:port --numProcesses N --processId
 I``, or ``--coordinator``): the process joins the group first
 (``init_distributed``), reads its own shard of the source, trains its rows
 of each global batch in lockstep with the others (``MultiHostSGDModel``,
 one cadence all-gather a tick), and only the lead (process 0) prints,
-publishes and writes checkpoints.
+publishes and writes checkpoints. ``--elastic on`` makes the group elastic
+(``attach_elastic``): a dead host shrinks it, a dead lead is replaced by
+the lowest live uid, a restarted host is readmitted at an epoch boundary,
+and the process leaves through a hard exit (``elastic_exit``) once its
+checkpoint and telemetry flushed.
 
 ``--superBatch K`` (back to back, pinned ``--batchBucket``/``--tokenBucket``)
 groups K batches into one ``step_many`` dispatch (apps/common.py
@@ -79,9 +81,11 @@ from .common import (
     FreshnessGuard,
     ModelWatchGuard,
     ProcessRecycler,
+    attach_elastic,
     attach_super_batcher,
     build_model,
     build_source,
+    elastic_exit,
     install_blackbox,
     install_chaos,
     install_historian,
@@ -221,6 +225,10 @@ def run_learner(conf: ConfArguments, max_batches: int = 0, fetch_depth: int = FE
         if max_batches and totals["batches"] >= max_batches:
             ssc.request_stop()
 
+    # --elastic on: a host's loss shrinks the group instead of ending the
+    # run, and a recovered host rejoins at an epoch boundary
+    elastic = attach_elastic(conf, ssc, model, stream, ckpt, totals)
+
     flush = attach_super_batcher(
         conf, stream, model, handle,
         stop_requested=lambda: ssc.stop_requested,
@@ -232,6 +240,7 @@ def run_learner(conf: ConfArguments, max_batches: int = 0, fetch_depth: int = FE
         sentinel=sentinel,
         modelwatch=modelwatch,
         freshness=freshness,
+        elastic=elastic,
     )
 
     warmup_compile(stream, model, super_batch=flush.group_k, group_wire=flush.group_wire,
@@ -265,17 +274,20 @@ def run_learner(conf: ConfArguments, max_batches: int = 0, fetch_depth: int = FE
             if not ssc.failed:
                 _historian.stamp_baseline()
             _historian.uninstall()
-        if lockstep and not ssc.failed:
+        if lockstep and not ssc.failed and elastic is None:
             # an aborted rank leaves the group with the process: a peer may
             # be gone mid-collective
             shutdown_distributed()
     if ssc.failed:
+        # an elastic run leaves through a hard exit either way
+        elastic_exit(failed=True)
         raise RuntimeError(
             "run aborted by a runtime guard: a lockstep peer's loss, a fetch "
             "watchdog abort, the divergence sentinel's rollback budget or a "
             "scheduler failure (see the critical log above); progress up to "
             "the failure is checkpointed"
         )
+    elastic_exit(failed=False)
     return totals
 
 

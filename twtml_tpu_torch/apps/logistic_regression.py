@@ -14,7 +14,8 @@ its logistic mode at ``-b 1`` in float32. The reported ``mse`` over hard
 ``count: … batch: … errRate: … posRate (real, pred): (…, …)`` and
 publishes the error rate and both stdevs ×100 to the int dashboard.
 Across hosts (``--master twtml://``) it trains in lockstep as the flagship
-app does; ``--elastic on`` raises naming ROADMAP A10b.
+app does, and under ``--elastic on`` in an elastic group (``run_learner``
+wires ``attach_elastic`` and ``elastic_exit`` for every SGD entry point).
 
 Run: ``python -m twtml_tpu_torch.apps.logistic_regression --backend cpu \\
       --source replay --replayFile tests/data/tweets.jsonl --seconds 0 \\

@@ -9,10 +9,10 @@ exists; its ``consumerKey``/``consumerSecret``/``accessToken``/
 parser takes every flag and short alias of the JAX package's parser;
 ``--backend`` is the one deliberate difference (``cuda|cpu``, default
 ``cuda``). ``--coordinator``/``--numProcesses``/``--processId`` (or a
-``twtml://`` master) form a lockstep multi-host group (``multihost``); a
-value that selects a feature the port has not ported (``--elastic on``)
-parses, and ``check_ported`` then raises ``NotImplementedError`` naming its
-ROADMAP item (A10b). ``--wire auto`` resolves by the JAX package's rule: ragged for
+``twtml://`` master) form a lockstep multi-host group (``multihost``), an
+elastic one under ``--elastic on``; the layouts over a model axis, which
+the port has not ported, raise ``NotImplementedError`` naming ROADMAP A10c
+where they are built. ``--wire auto`` resolves by the JAX package's rule: ragged for
 a back-to-back stream (``--seconds 0`` or below) that hashes on the device,
 padded under a wall clock or with ``--hashOn host``.
 """
@@ -354,9 +354,22 @@ class ConfArguments:
   Multi-host (a lockstep group of processes, one model):
   --coordinator <host:port> --numProcesses <N> --processId <I>, or
   --master twtml://host:port with the other two. --backend cpu (or ranks that
-  share a card) joins over gloo, one card a rank over nccl. --elastic on stops
-  the run naming the ROADMAP item it needs (A10b); --elasticEvictTicks,
-  --elasticEvictSkewMs and --elasticRejoin parse and do nothing without it.
+  share a card) joins over gloo, one card a rank over nccl.
+  --elastic <off|on>          Elastic lockstep membership (the linear and logistic
+                              apps): a dead or evicted host SHRINKS the group (the
+                              survivors re-form at an epoch boundary, restore the
+                              lead's verified checkpoint and adopt the departed
+                              intake shards) instead of aborting; a dead lead is
+                              replaced by the lowest live uid; a recovered host
+                              REJOINS at the next boundary. An elastic process
+                              leaves through a hard exit. Default: {self.elastic}
+  --elasticEvictTicks <int>   Evict a host the sideband names gating for this many
+                              consecutive ticks (skew over --elasticEvictSkewMs);
+                              0 = never. Default: {self.elasticEvictTicks}
+  --elasticEvictSkewMs <float>  Least tick skew (ms) that counts toward
+                              --elasticEvictTicks. Default: {self.elasticEvictSkewMs}
+  --elasticRejoin <off|on>    Whether the lead admits parked or restarted hosts back
+                              at epoch boundaries. Default: {self.elasticRejoin}
   -h, --help
 """
 
@@ -404,17 +417,12 @@ class ConfArguments:
         return self
 
     def check_ported(self) -> None:
-        """Raise ``NotImplementedError`` naming the ROADMAP item of the
-        first value that selects a feature the port has not ported: elastic
-        membership (A10b). The lockstep multi-host runtime (``--coordinator``
-        or a ``twtml://`` master, A10a) is ported; values the JAX package
-        ignores on this path (the elastic knobs with ``--elastic off``)
-        pass."""
-        if self.elastic == "on":
-            raise NotImplementedError(
-                "--elastic on needs elastic membership (membership plane, service "
-                "host, standby archives), which the port has not ported (ROADMAP "
-                "A10b)")
+        """The check ``select_backend`` makes before anything is built: every
+        value of the JAX parser's flags selects a ported feature, the
+        lockstep runtime and its elastic membership (``--elastic on``)
+        included, so nothing is refused here. The layouts over a model
+        axis (the 2D feature-sharded step, the tenant fleet across hosts,
+        the k-means mesh) raise naming ROADMAP A10c where they are built."""
 
     def multihost(self) -> "tuple[str, int, int] | None":
         """(coordinator, num_processes, process_id) when a multi-host group is
@@ -533,7 +541,7 @@ class ConfArguments:
     def validate_master(self) -> None:
         """The JAX package's ``validate_master``: ``local``/``local[N]`` stay
         single-host; ``twtml://host:port`` fills ``--coordinator`` (a
-        multi-host group, which ``check_ported`` then refuses); any other
+        multi-host group, ``multihost``); any other
         scheme, the reference's ``spark://`` among them, exits."""
         m = self.master
         if m == "local" or (m.startswith("local[") and m.endswith("]")):

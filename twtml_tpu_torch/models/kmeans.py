@@ -19,7 +19,7 @@ form (one [B, D]×[D, k] product) and the per-center sums a one-hot product.
 The random centers are ``jax.random.normal(PRNGKey(seed), (k, dim))``,
 drawn by ``ops/prng.normal`` bit for bit as jax draws them for the app's
 (3, 2). The JAX package's data-parallel mesh (k-means across hosts) is ROADMAP
-A10b.
+A10c.
 """
 
 from __future__ import annotations
@@ -96,7 +96,7 @@ class StreamingKMeans:
         if mesh is not None:
             raise NotImplementedError(
                 "a data-parallel k-means mesh (k-means across hosts) is not ported "
-                "(ROADMAP A10b)")
+                "(ROADMAP A10c)")
         self.k = k
         self.decay_factor = decay_factor
         self.time_unit = time_unit

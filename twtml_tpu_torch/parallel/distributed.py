@@ -3,11 +3,13 @@ of ``twtml_tpu/parallel/distributed.py``).
 
 The reference runs one model on a Spark cluster (``--master
 spark://host:port``); the JAX package forms a ``jax.distributed`` group;
-the port forms a ``torch.distributed`` process group: ``initialize`` opens
-a ``TCPStore`` at the coordinator's host:port and joins
-``init_process_group`` with the world size and rank it is given. Each rank
-trains on its own device, ``cuda:(rank % device count)`` (every rank of a
-one-card machine on ``cuda:0``).
+the port forms ``torch.distributed`` process groups as explicit objects
+(never the default group), so that an elastic run (parallel/elastic.py)
+can form a new one each epoch and abandon the old. Joining has two halves:
+``setup`` chooses this process's device once, ``cuda:(launch id % device
+count)`` (every rank of a one-card machine on ``cuda:0``); ``form`` builds
+one epoch's group over a ``TCPStore``. ``initialize`` is both for a
+lockstep run: a store at the coordinator's host:port, hosted by rank 0.
 
 The collective backend follows one rule, decided from what every rank
 publishes in the store before the group forms: ``nccl`` when every rank on
@@ -32,6 +34,7 @@ from __future__ import annotations
 
 import datetime
 import os
+import pickle
 import socket
 import time
 
@@ -63,7 +66,8 @@ COUNTERS = {
 # the wait for the card; the cadence all-gathers with the wait for the peers)
 SECONDS = {"allreduce": 0.0, "cadence_allgather": 0.0}
 
-_STATE: dict = {"mesh": None, "backend": None, "host_group": None, "device": None}
+_STATE: dict = {"mesh": None, "backend": None, "group": None, "host_group": None,
+                "device": None, "lead_rank": 0}
 
 
 def choose_backend(device_type: str, hosts: "list[tuple[str, int]]") -> str:
@@ -91,26 +95,46 @@ def rank_device(rank: int, device_type: str) -> torch.device:
     return torch.device("cuda", rank % count)
 
 
-def initialize(coordinator: str, num_processes: int, process_id: int,
-               device_type: str = "cuda") -> bool:
-    """Join the group of ``num_processes`` ranks as rank ``process_id``
-    through a ``TCPStore`` at ``coordinator`` (host:port; rank 0 hosts the
-    store). The rank's device is chosen (and made current) before the
-    group forms; its collectives time out after ``collective_timeout()``.
-    Logs the backend and sets the ``distributed.nccl`` gauge
-    (1 nccl, 0 gloo). Returns whether this rank is the lead (rank 0), which
-    alone prints and publishes."""
-    import torch.distributed as dist
-
-    if dist.is_initialized():
-        raise RuntimeError("the process group is already formed")
-    host, _, port = coordinator.rpartition(":")
+def setup(process_id: int, device_type: str = "cuda") -> torch.device:
+    """The one-time half of joining: this process's device,
+    ``rank_device(process_id)``, chosen and made current before any group
+    forms, and kept for the process's life (an elastic group re-forms over
+    the same device; ``process_id`` is the launch id)."""
     device = rank_device(process_id, device_type)
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    timeout = datetime.timedelta(seconds=STORE_TIMEOUT_S)
-    store = dist.TCPStore(host or "127.0.0.1", int(port), num_processes,
-                          is_master=process_id == 0, timeout=timeout)
+    _STATE["device"] = device
+    return device
+
+
+def _process_group(backend: str, store, rank: int, size: int,
+                   timeout: datetime.timedelta):
+    """One explicit process group over ``store`` (never the default group:
+    an elastic epoch forms a new one and abandons the old without a
+    shutdown barrier)."""
+    import torch.distributed as dist
+
+    if backend == "nccl":
+        opts = dist.ProcessGroupNCCL.Options()
+        opts._timeout = timeout
+        return dist.ProcessGroupNCCL(store, rank, size, opts)
+    return dist.ProcessGroupGloo(store, rank, size, timeout)
+
+
+def form(store, process_id: int, num_processes: int, timeout: datetime.timedelta,
+         lead_rank: int = 0) -> str:
+    """The per-epoch half: every rank publishes its host and card count in
+    ``store``, the backend follows ``choose_backend`` (taken anew each
+    epoch), and the group forms as explicit process groups over the store:
+    the data group, and a gloo host group for the agreements when the data
+    group is nccl. ``lead_rank`` is the rank whose object a broadcast
+    sends. Logs the backend and sets the ``distributed.nccl`` gauge (1
+    nccl, 0 gloo). Returns the backend."""
+    import torch.distributed as dist
+
+    device = _STATE["device"]
+    if device is None:
+        raise RuntimeError("distributed.setup must choose the device before a group forms")
     cards = torch.cuda.device_count() if device.type == "cuda" else 0
     store.set(f"twtml/host/{process_id}", f"{socket.gethostname()}|{cards}")
     hosts = []
@@ -118,14 +142,38 @@ def initialize(coordinator: str, num_processes: int, process_id: int,
         name, _, n = store.get(f"twtml/host/{r}").decode().rpartition("|")
         hosts.append((name, int(n)))
     backend = choose_backend(device.type, hosts)
-    dist.init_process_group(backend, store=store, world_size=num_processes,
-                            rank=process_id, timeout=collective_timeout())
-    host_group = dist.new_group(backend="gloo") if backend != "gloo" else None
+    group = _process_group(backend, dist.PrefixStore("data/", store), process_id,
+                           num_processes, timeout)
+    host_group = group
+    if backend != "gloo":
+        host_group = _process_group("gloo", dist.PrefixStore("host/", store), process_id,
+                                    num_processes, timeout)
     _STATE.update(mesh=make_mesh(num_processes=num_processes, process_index=process_id),
-                  backend=backend, host_group=host_group, device=device)
+                  backend=backend, group=group, host_group=host_group, store=store,
+                  lead_rank=int(lead_rank))
     _metrics.get_registry().gauge("distributed.nccl").set(1 if backend == "nccl" else 0)
     log.info("joined process group: rank %d/%d on %s, collectives over %s",
              process_id, num_processes, device, backend)
+    return backend
+
+
+def initialize(coordinator: str, num_processes: int, process_id: int,
+               device_type: str = "cuda") -> bool:
+    """Join the group of ``num_processes`` ranks as rank ``process_id``
+    through a ``TCPStore`` at ``coordinator`` (host:port; rank 0 hosts the
+    store): ``setup`` then ``form``, the collectives timing out after
+    ``collective_timeout()``. Returns whether this rank is the lead (rank
+    0), which alone prints and publishes."""
+    import torch.distributed as dist
+
+    if _STATE["group"] is not None:
+        raise RuntimeError("the process group is already formed")
+    host, _, port = coordinator.rpartition(":")
+    setup(process_id, device_type)
+    timeout = datetime.timedelta(seconds=STORE_TIMEOUT_S)
+    store = dist.TCPStore(host or "127.0.0.1", int(port), num_processes,
+                          is_master=process_id == 0, timeout=timeout)
+    form(store, process_id, num_processes, collective_timeout())
     return process_id == 0
 
 
@@ -134,8 +182,8 @@ def collective_timeout() -> datetime.timedelta:
     lockstep watchdog's bound (``TWTML_LOCKSTEP_TIMEOUT_S``, at least
     ``MIN_COLLECTIVE_TIMEOUT_S``), so a peer that dies inside a step (an
     all-reduce, where the cadence watchdog does not look) fails the
-    survivor's batch within it, and the lockstep loop aborts; with the
-    watchdog off, ``STORE_TIMEOUT_S``."""
+    survivor's batch within it, and the lockstep loop aborts, or, under
+    ``--elastic on``, rescues; with the watchdog off, ``STORE_TIMEOUT_S``."""
     from ..streaming.context import LOCKSTEP_TIMEOUT_DEFAULT_S, LOCKSTEP_TIMEOUT_ENV
 
     watch = float(os.environ.get(LOCKSTEP_TIMEOUT_ENV, "") or LOCKSTEP_TIMEOUT_DEFAULT_S)
@@ -143,13 +191,24 @@ def collective_timeout() -> datetime.timedelta:
     return datetime.timedelta(seconds=seconds)
 
 
-def shutdown() -> None:
-    """Leave the group (a no-op when none formed)."""
-    import torch.distributed as dist
+def abandon() -> tuple:
+    """Leave the current group WITHOUT shutting it down (a dead peer, or a
+    thread still inside one of its collectives, can block a shutdown): the
+    group's objects are returned for the caller to keep alive, and the
+    module forgets them. The device stays."""
+    kept = (_STATE.get("group"), _STATE.get("host_group"), _STATE.get("store"))
+    _STATE.update(mesh=None, backend=None, group=None, host_group=None, store=None,
+                  lead_rank=0)
+    return kept
 
-    if dist.is_initialized():
-        dist.destroy_process_group()
-    _STATE.update(mesh=None, backend=None, host_group=None, device=None)
+
+def shutdown() -> None:
+    """Leave the group (a no-op when none formed): the module drops its
+    process groups, which close their connections once nothing uses them.
+    An abandoned group is never here (``abandon``), so nothing waits on a
+    dead peer."""
+    _STATE.update(mesh=None, backend=None, group=None, host_group=None, store=None,
+                  device=None, lead_rank=0)
 
 
 def mesh() -> DataMesh:
@@ -168,18 +227,18 @@ def device() -> "torch.device | None":
 
 def host_allgather(arr: np.ndarray, kind: str = "cadence") -> np.ndarray:
     """Every rank's copy of the 1-D float64 ``arr``, as [ranks, n], over the
-    host (gloo) group: the lockstep agreements. One process: ``arr[None]``.
-    Counted in ``COUNTERS[kind + "_allgathers"]``."""
-    import torch.distributed as dist
-
+    current group's host (gloo) group: the lockstep agreements. One process
+    (or a group of one): ``arr[None]``. Counted in
+    ``COUNTERS[kind + "_allgathers"]``."""
     COUNTERS[f"{kind}_allgathers"] += 1
     arr = np.ascontiguousarray(arr, np.float64).reshape(-1)
-    if not dist.is_initialized():
+    group = _STATE["host_group"]
+    if group is None or mesh().num_processes <= 1:
         return arr[None]
     t0 = time.perf_counter()
     t = torch.from_numpy(arr)
-    out = [torch.empty_like(t) for _ in range(dist.get_world_size())]
-    dist.all_gather(out, t, group=_STATE["host_group"])
+    out = [torch.empty_like(t) for _ in range(mesh().num_processes)]
+    group.allgather([out], [t]).wait()
     if kind == "cadence":
         SECONDS["cadence_allgather"] += time.perf_counter() - t0
     return torch.stack(out).numpy()
@@ -187,38 +246,57 @@ def host_allgather(arr: np.ndarray, kind: str = "cadence") -> np.ndarray:
 
 def broadcast_object(obj, is_source: bool):
     """The lead's ``obj`` on every rank (a checkpoint's meta and state, a
-    rollback's verdict), over the host group; ``is_source`` on exactly one
-    rank, the lead. One process: ``obj``."""
+    rollback's verdict), over the current host group from the lead's rank
+    (``form``'s ``lead_rank``); ``is_source`` on exactly one rank, the
+    lead. One process (or a group of one): ``obj``."""
+    COUNTERS["broadcasts"] += 1
+    group = _STATE["host_group"]
+    if group is None or mesh().num_processes <= 1:
+        return obj
+    root = _STATE["lead_rank"]
+    payload = pickle.dumps(obj if is_source else None)
+    size = torch.tensor([len(payload) if is_source else 0], dtype=torch.int64)
+    group.broadcast([size], _broadcast_opts(root)).wait()
+    data = (torch.frombuffer(bytearray(payload), dtype=torch.uint8) if is_source
+            else torch.empty((int(size[0]),), dtype=torch.uint8))
+    group.broadcast([data], _broadcast_opts(root)).wait()
+    return pickle.loads(data.numpy().tobytes())
+
+
+def _broadcast_opts(root: int):
     import torch.distributed as dist
 
-    COUNTERS["broadcasts"] += 1
-    if not dist.is_initialized():
-        return obj
-    box = [obj if is_source else None]
-    dist.broadcast_object_list(box, src=0, group=_STATE["host_group"])
-    return box[0]
+    opts = dist.BroadcastOptions()
+    opts.rootRank = int(root)
+    opts.rootTensor = 0
+    return opts
 
 
 class Collectives:
-    """The reductions a data-parallel step makes over the default group's
+    """The reductions a data-parallel step makes over the current group's
     ranks (``make_sgd_train_step(group=...)``): the JAX package's ``psum``
     and ``all_gather`` over the data axis. ``rank``/``world`` place this
-    rank; ``staged`` routes card tensors through a page-locked host buffer
-    (the gloo transport)."""
+    rank, ``group`` is the epoch's process group (None, and ``world`` 1,
+    for a group of one: nothing is reduced and no all-reduce issued);
+    ``staged`` routes card tensors through a page-locked host buffer (the
+    gloo transport)."""
 
-    def __init__(self, *, rank: int = 0, world: int = 1, staged: bool = True):
+    def __init__(self, *, rank: int = 0, world: int = 1, staged: bool = True, group=None):
         self.rank = rank
         self.world = world
         self.staged = staged
+        self.group = group
         self._pinned: dict = {}
+        if world > 1 and group is None:
+            raise ValueError(f"a data-parallel step over {world} ranks needs their group")
 
     @classmethod
     def from_group(cls) -> "Collectives":
-        """The formed default group (``initialize``)."""
-        import torch.distributed as dist
-
-        return cls(rank=dist.get_rank(), world=dist.get_world_size(),
-                   staged=_STATE["backend"] == "gloo")
+        """The current group (``form``)."""
+        m = mesh()
+        return cls(rank=m.process_index, world=m.num_processes,
+                   staged=_STATE["backend"] == "gloo",
+                   group=_STATE["group"] if m.num_processes > 1 else None)
 
     def _host(self, t: torch.Tensor) -> torch.Tensor:
         key = (t.numel(), t.dtype)
@@ -232,9 +310,9 @@ class Collectives:
         """SUM ``t`` over the ranks, in place (every rank gets the same
         bits). A card tensor over gloo: one copy to page-locked memory, a
         wait for it, the host all-reduce, one copy back queued on the
-        stream."""
-        import torch.distributed as dist
-
+        stream. A group of one returns ``t`` as it is."""
+        if self.world <= 1:
+            return t
         COUNTERS["allreduces"] += 1
         t0 = time.perf_counter()
         try:
@@ -243,37 +321,35 @@ class Collectives:
             SECONDS["allreduce"] += time.perf_counter() - t0
 
     def _allreduce(self, t: torch.Tensor) -> torch.Tensor:
-        import torch.distributed as dist
-
         if t.is_cuda and self.staged:
             host = self._host(t)
             host.copy_(t.reshape(-1), non_blocking=True)
             event = torch.cuda.Event()
             event.record()
             event.synchronize()
-            dist.all_reduce(host)
+            self.group.allreduce([host]).wait()
             t.copy_(host.reshape(t.shape), non_blocking=True)
             COUNTERS["staged_copies"] += 2
             return t
-        dist.all_reduce(t)
+        self.group.allreduce([t]).wait()
         return t
 
     def all_gather_rows(self, t: torch.Tensor) -> torch.Tensor:
         """Every rank's [B_local, ...] rows of ``t`` in rank order: [ranks ·
         B_local, ...] on ``t``'s device (a card tensor over gloo goes
         through the host)."""
-        import torch.distributed as dist
-
         COUNTERS["row_allgathers"] += 1
         t = t.contiguous()
+        if self.world <= 1:
+            return t
         if t.is_cuda and not self.staged:
             out = torch.empty((self.world * t.shape[0],) + tuple(t.shape[1:]),
                               dtype=t.dtype, device=t.device)
-            dist.all_gather_into_tensor(out, t)
+            self.group._allgather_base(out, t).wait()
             return out
         src = t.cpu()
         parts = [torch.empty_like(src) for _ in range(self.world)]
-        dist.all_gather(parts, src)
+        self.group.allgather([parts], [src]).wait()
         return torch.cat(parts).to(t.device)
 
 
@@ -342,7 +418,7 @@ class MultiHostSGDModel:
 
     accepts_packed = True
 
-    def __init__(self, inner, mesh_: DataMesh, wire_codec: str = ""):
+    def __init__(self, inner, mesh_: DataMesh, wire_codec: str = "", rebuilder=None):
         self.inner = inner
         self.mesh = mesh_
         self.num_data = mesh_.num_data
@@ -350,6 +426,27 @@ class MultiHostSGDModel:
         self._lead = mesh_.process_index == 0
         # codec buckets agreed at prepare(), by id of the aligned batch (held)
         self._group_buckets: dict = {}
+        # elastic membership: how to build the rank-local model for a
+        # re-formed epoch's mesh (apps/common.build_model sets it)
+        self._rebuilder = rebuilder
+
+    def rebuild(self, mesh_: DataMesh) -> "MultiHostSGDModel":
+        """Swap in a fresh rank-local model for a NEW epoch's ``mesh_`` in
+        place, so every holder of this wrapper (the fetch pipeline, the
+        checkpoint's closures, the sentinel) keeps working across an
+        elastic membership change; a group of one runs the split at one
+        rank and issues no all-reduce. The weights start at zeros: the
+        caller restores them from the lead's broadcast before the next
+        tick."""
+        if self._rebuilder is None:
+            raise RuntimeError("MultiHostSGDModel.rebuild needs the rebuilder closure "
+                               "(set by apps/common.build_model)")
+        self.inner = self._rebuilder(mesh_)
+        self.mesh = mesh_
+        self.num_data = mesh_.num_data
+        self._lead = mesh_.process_index == 0
+        self._group_buckets.clear()
+        return self
 
     # the rank-local model's surface, which the app runtime reads
     @property

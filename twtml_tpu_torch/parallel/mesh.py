@@ -5,7 +5,7 @@ device mesh object to build.
 Each rank trains on one device and holds one data shard, so the data axis
 is the ranks; the weights are replicated on every rank and the batch's rows
 are split over the ranks.
-A model axis (the 2D feature-sharded layout) is ROADMAP A10b.
+A model axis (the 2D feature-sharded layout) is ROADMAP A10c.
 """
 
 from __future__ import annotations
@@ -32,12 +32,12 @@ def make_mesh(num_data: "int | None" = None, num_model: int = 1, *,
     """The data axis of ``num_processes`` ranks of one device each (the JAX
     package's ``make_mesh`` over process-major devices). ``num_data``, when
     given, must equal the ranks; ``num_model`` > 1 (the model axis) raises
-    naming ROADMAP A10b."""
+    naming ROADMAP A10c."""
     if num_model != 1:
         raise NotImplementedError(
             f"a model axis of {num_model} (the 2D feature-sharded layout) belongs to "
-            "the elastic and 2D part of the multi-host runtime, which is not ported "
-            "(ROADMAP A10b)")
+            "the layouts over a model axis of the multi-host runtime, which are not "
+            "ported (ROADMAP A10c)")
     if num_data is not None and num_data != num_processes:
         raise ValueError(f"a rank holds one device: num_data {num_data} must equal the "
                          f"{num_processes} processes")

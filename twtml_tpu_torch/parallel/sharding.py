@@ -16,7 +16,10 @@ shard-segment wire, at buckets every rank agreed) is
 ``step_many`` runs a group's K steps eagerly, one after the other, with one
 fetch for the group: a gloo collective is a host round trip, which a CUDA
 graph cannot capture. The feature-sharded 2D layout
-(``_make_feature_sharded_step``) is ROADMAP A10b.
+(``_make_feature_sharded_step``, with the feature-split form of B1 it
+needs) is ROADMAP A10c. Under ``--elastic on`` the model is rebuilt for
+each epoch's group (``MultiHostSGDModel.rebuild``); a group shrunk to one
+rank runs the split at one rank, bitwise B1, with no all-reduce.
 """
 
 from __future__ import annotations

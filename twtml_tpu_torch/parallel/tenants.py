@@ -28,7 +28,7 @@ work, not a round trip.
   (``aggregate_tenant_output``) for the chain that predates tenants.
 
 Not here: a mesh and ``MultiHostTenantModel`` (the tenant plane across
-devices and hosts, ROADMAP A10b), and ``mapping="vmap"``, whose Hopper form is B1 with a tenant
+devices and hosts, ROADMAP A10c), and ``mapping="vmap"``, whose Hopper form is B1 with a tenant
 grid dimension (ROADMAP B10).
 """
 
@@ -159,7 +159,7 @@ class TenantStackModel:
                           "that is B1 with a tenant grid dimension", "B10")
         if mesh is not None:
             raise _refuse("a mesh shards the tenant plane over devices and hosts (the "
-                          "tenant fleet of the multi-host runtime)", "A10b")
+                          "tenant fleet of the multi-host runtime)", "A10c")
         self.num_tenants = num_tenants
         self.num_text_features = num_text_features
         self.dtype = dtype
@@ -343,8 +343,8 @@ class TenantStackModel:
 
 class MultiHostTenantModel:
     """The tenant plane behind per-host sharded intake: the tenant fleet of
-    the multi-host runtime (ROADMAP A10b)."""
+    the multi-host runtime (ROADMAP A10c)."""
 
     def __init__(self, *args, **kwargs):
         raise _refuse("MultiHostTenantModel runs the tenant plane across hosts (the "
-                      "tenant fleet of the multi-host runtime)", "A10b")
+                      "tenant fleet of the multi-host runtime)", "A10c")

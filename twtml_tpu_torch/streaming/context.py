@@ -43,8 +43,14 @@ rollback count, and each rank's telemetry sideband (telemetry/sideband.py).
 A rank whose shard ran dry dispatches all-padding batches until every rank
 is done; a failure after featurize aborts the group; a dead peer trips the
 progress watchdog (``TWTML_LOCKSTEP_TIMEOUT_S``) or the transport's error
-and the survivor aborts loudly instead of hanging. Elastic membership is
-ROADMAP A10b.
+and the survivor aborts loudly instead of hanging.
+
+Elastic membership (``--elastic on``, streaming/membership.py): the
+membership plane's columns ride the same one all-gather a tick, and the
+plane's actions (a committed re-formation, parking) run between ticks; a
+dead peer (the watchdog's fire, a failed all-gather, or a step whose
+collective failed) leads to the plane's out-of-band rescue instead of an
+abort, and the loop goes on in the re-formed group.
 """
 
 from __future__ import annotations
@@ -437,6 +443,10 @@ class StreamingContext:
         self.rollback_count_fn: "Callable[[], int] | None" = None
         # lockstep ticks run (the peer.* chaos points and the tests)
         self.ticks = 0
+        # the elastic membership plane (--elastic on, apps/common.py
+        # attach_elastic): a peer's loss re-forms the group instead of
+        # aborting it, and the plane's columns ride the cadence all-gather
+        self.membership = None
 
     def source_stream(self, source: Source, featurizer: Featurizer,
                       row_bucket: int = 0, token_bucket: int = 0,
@@ -477,6 +487,24 @@ class StreamingContext:
         replay's rows train next, before anything queued after them)."""
         for item in reversed(items):
             self._queue.putback(item)
+
+    def _elastic_recover(self, local: list, why: str) -> bool:
+        """A peer's loss under an elastic membership plane: ``local`` (this
+        tick's rows, not yet trained) goes back to the queue front and the
+        plane's rescue shrinks and re-forms the group. True when the loop
+        goes on in the new epoch; False without a plane, or when the rescue
+        failed (the caller aborts)."""
+        if self.membership is None:
+            return False
+        self._putback(local)
+        _metrics.get_registry().counter("lockstep.elastic_rescues").inc()
+        log.critical("lockstep collective failed (%s); elastic membership is ON: "
+                     "attempting an out-of-band shrink instead of aborting", why)
+        try:
+            return self.membership.rescue(why)
+        except Exception:  # lawcheck: disable=TW005 -- logged; the caller aborts the run
+            log.critical("elastic rescue failed", exc_info=True)
+            return False
 
     def _run_batch(self, statuses: list[Status], batch_time: float) -> None:
         try:
@@ -562,23 +590,33 @@ class StreamingContext:
 
     def _lockstep_loop(self) -> None:
         """The multi-host scheduler: each tick one all-gather of (has rows,
-        more coming, aborting, sentinel rollbacks, the sideband vector)
-        decides for every rank at once whether to dispatch, stop or abort.
-        A rank with no rows dispatches an all-padding batch while any rank
-        has rows (a zero-count step changes no weight). A batch failure
-        after featurize sets ``aborting``: the rank dispatches nothing more
-        and its next tick tells the peers, so every rank stops at the same
-        tick, ``failed``. A cadence all-gather with no progress in
-        ``TWTML_LOCKSTEP_TIMEOUT_S`` (or one that raises: a dead peer)
-        aborts this rank loudly (``lockstep.watchdog_aborts``). Ranks that
-        disagree on the sentinel's rollback count have diverged and abort
-        too. Drains are capped at the row bucket in both clock modes, so a
-        batch never outgrows the peers' shapes."""
+        more coming, aborting, sentinel rollbacks, the membership columns,
+        the sideband vector) decides for every rank at once whether to
+        dispatch, stop or abort. A rank with no rows dispatches an
+        all-padding batch while any rank has rows (a zero-count step changes
+        no weight). A batch failure after featurize sets ``aborting``: the
+        rank dispatches nothing more and its next tick tells the peers, so
+        every rank stops at the same tick, ``failed``. A cadence all-gather
+        with no progress in ``TWTML_LOCKSTEP_TIMEOUT_S`` (or one that
+        raises: a dead peer) aborts this rank loudly
+        (``lockstep.watchdog_aborts``). Ranks that disagree on the
+        sentinel's rollback count have diverged and abort too. Drains are
+        capped at the row bucket in both clock modes, so a batch never
+        outgrows the peers' shapes.
+
+        With a membership plane (``--elastic on``) the columns are the
+        plane's (zeros without one: the row's width is the same either
+        way), a committed re-formation or an eviction runs between ticks
+        with this tick's rows put back, and a dead peer (the watchdog, the
+        all-gather's error, or a batch whose collective failed) leads to
+        the plane's rescue: the loop goes on in the new epoch, with the
+        sideband's view re-made for its ranks."""
         import os
 
         import numpy as np
 
         from ..parallel import distributed as _dist
+        from . import membership as _membership
 
         if self._thread_init is not None:
             try:
@@ -589,12 +627,17 @@ class StreamingContext:
                 self._terminated.set()
                 return
         watch_s = float(os.environ.get(LOCKSTEP_TIMEOUT_ENV, "") or LOCKSTEP_TIMEOUT_DEFAULT_S)
-        mesh = _dist.mesh()
-        tele = _sideband.LockstepTelemetry(mesh.process_index, mesh.num_processes)
+
+        def telemetry():
+            mesh = _dist.mesh()
+            return _sideband.LockstepTelemetry(mesh.process_index, mesh.num_processes)
+
+        tele = telemetry()
         reg = _metrics.get_registry()
         limit = self._stream.row_bucket
         next_tick = time.monotonic() + self.batch_interval
         aborting = False
+        mem_end = 4 + _membership.WIDTH
         try:
             while not self._stop.is_set():
                 if self.batch_interval > 0 and not aborting:
@@ -607,20 +650,30 @@ class StreamingContext:
                            and not self._stop.is_set()):
                         self._stop.wait(0.002)
                 self.ticks += 1
+                # peer.kill/peer.pause key on the elastic uid (the launch
+                # id, stable across epochs) when a plane is installed
                 _faults.lockstep_chaos(self.ticks, self.batch_interval,
-                                       uid=mesh.process_index)
+                                       uid=(self.membership.uid if self.membership is not None
+                                            else _dist.mesh().process_index))
                 local = self._drain(limit)
                 rows = sum(getattr(s, "rows", 1) for s in local)
                 more = (not self._source.exhausted) or self._queue.rows_queued > 0
                 rollbacks = (int(self.rollback_count_fn())
                              if self.rollback_count_fn is not None else 0)
+                mem_cols = (self.membership.pre_tick() if self.membership is not None
+                            else np.zeros((_membership.WIDTH,), np.float64))
                 try:
                     flags = _watched_allgather(np.concatenate([
                         np.array([rows > 0 and not aborting, more and not aborting,
                                   aborting, rollbacks], np.float64),
+                        mem_cols,
                         tele.vector(rollbacks=rollbacks),
                     ]), watch_s)
-                except Exception:  # lawcheck: disable=TW005 -- logged, counted and the run aborted
+                except Exception:  # lawcheck: disable=TW005 -- logged, counted; a rescue or an abort follows
+                    if self._elastic_recover(local, "cadence all-gather transport error"):
+                        tele = telemetry()
+                        next_tick = time.monotonic() + self.batch_interval
+                        continue
                     log.critical("lockstep cadence all-gather FAILED: a peer likely died "
                                  "mid-run; aborting this rank loudly (progress up to the "
                                  "last checkpoint is saved)", exc_info=True)
@@ -630,6 +683,10 @@ class StreamingContext:
                     break
                 tele.tick_done()
                 if flags is None:
+                    if self._elastic_recover(local, f"no all-gather progress in {watch_s:.0f}s"):
+                        tele = telemetry()
+                        next_tick = time.monotonic() + self.batch_interval
+                        continue
                     log.critical("lockstep peer watchdog: the cadence all-gather made no "
                                  "progress in %.0fs: a peer is gone. Aborting this rank "
                                  "loudly instead of hanging; tune with %s (0 disables)",
@@ -640,7 +697,27 @@ class StreamingContext:
                                        f"{watch_s:.0f}s")
                     break
                 fi = flags[:, :4].astype(np.int64)
-                tele.ingest(flags[:, 4:])
+                tele.ingest(flags[:, mem_end:])
+                if self.membership is not None:
+                    action = self.membership.ingest(flags[:, 4:mem_end].astype(np.int64))
+                    if action == "reform":
+                        # a committed view change: this tick's rows go back,
+                        # the group re-forms (the lead saves at the boundary
+                        # first), and the loop resumes in the new epoch
+                        self._putback(local)
+                        self.membership.execute_reform()
+                        tele = telemetry()
+                        next_tick = time.monotonic() + self.batch_interval
+                        continue
+                    if action == "parked":
+                        self._putback(local)
+                        if self.membership.park():
+                            tele = telemetry()
+                            next_tick = time.monotonic() + self.batch_interval
+                            continue
+                        self.request_abort("elastic: evicted from the lockstep group and "
+                                           "not readmitted within the park window")
+                        break
                 if fi[:, 2].any():
                     if not aborting:
                         log.critical("a peer rank aborted the lockstep run")
@@ -658,7 +735,18 @@ class StreamingContext:
                 if fi[:, 0].any():
                     try:
                         self._run_batch_aligned(local, now_s())
-                    except Exception:  # lawcheck: disable=TW005 -- logged; the next tick aborts the group
+                    except Exception:  # lawcheck: disable=TW005 -- logged; a rescue, or the next tick aborts the group
+                        # a peer that died inside the step's collectives
+                        # fails it here (within the collective timeout):
+                        # with a plane that is a rescue. The batch's rows
+                        # crossed the journal's seam, so a journal replays
+                        # them after the resync; without one they go back
+                        if self.membership is not None and self._elastic_recover(
+                                [] if _journal.get() is not None else local,
+                                "a collective inside the step failed"):
+                            tele = telemetry()
+                            next_tick = time.monotonic() + self.batch_interval
+                            continue
                         log.critical("lockstep batch failed after featurize; this rank's "
                                      "collective alignment is unknown: aborting the group",
                                      exc_info=True)

@@ -37,8 +37,10 @@ The ``peer.*`` targets drive the multi-host lockstep scheduler, once a tick:
 a uid) at lockstep tick N (default 1) with ``PEER_KILL_EXIT_CODE`` and no
 goodbye; ``peer.pause[:uid=U][:ticks=K][@TRIGGER]`` stalls it for K ticks'
 wall time (K x max(interval, 0.5 s)). The uid is the process id
-(``--processId``): elastic membership, which keys them on the elastic uid in
-the JAX package, is ROADMAP A10b.
+(``--processId``); under ``--elastic on`` it is the elastic uid, the launch
+process id, which stays a host's across epochs (streaming/context.py passes
+the membership plane's), so one fleet-wide spec aims at one host, the lead
+included.
 """
 
 from __future__ import annotations

@@ -366,6 +366,15 @@ class IntakeJournal:
             if self._inflight:
                 self._inflight.pop()
 
+    def clear_inflight(self) -> None:
+        """An elastic re-formation discarded the fetch pipeline's in-flight
+        deliveries wholesale (``drain_discard``): their tokens would strand
+        and skew every later pairing. Drop them; the replay re-covers their
+        rows."""
+        with self._lock:
+            self._inflight.clear()
+            self._delivery_pos = None
+
     @property
     def save_allowed(self) -> bool:
         """False while a replay drains through the seam: a save now would
@@ -466,6 +475,32 @@ class IntakeJournal:
             self._disk_bytes = self.disk_bytes()
             self._update_disk_gauge()
         return retired
+
+    def reset(self) -> None:
+        """Drop every journaled record (an elastic rejoin: this host's
+        pre-departure rows were adopted by the survivors, and replaying them
+        would train them twice). Record ids stay monotonic: the next append
+        opens a fresh segment at ``next_id``, so cursors in older archives
+        stay ordered. Also clears an armed replay suppression."""
+        with self._lock:
+            if self._fh is not None:
+                self._fh.close()
+                self._fh = None
+            for _first_id, path in self._segments():
+                try:
+                    os.unlink(path)
+                except OSError:
+                    pass
+            self._active_size = 0
+            self._pending_replay = 0
+            self._inflight.clear()
+            self._delivery_pos = None
+            self._replay_draining = False
+            self._committed = (self.next_id, self.rows_total)
+            self._disk_bytes = self.disk_bytes()
+            self._update_disk_gauge()
+        log.warning("journal: RESET: all segments dropped, the next append starts a "
+                    "fresh segment at id %d", self.next_id)
 
     def close(self) -> None:
         with self._lock:

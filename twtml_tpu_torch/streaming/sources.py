@@ -515,8 +515,15 @@ class ShardedSource(Source):
     multi-host run's intake shard. Every process opens the same replay or
     synthetic source and keeps 1/N of it, so the union of the shards is the
     single-host stream, and tick k of the N processes together covers the
-    rows a single-host run batches at tick k. (The residue set that elastic
-    rebalancing grows is ROADMAP A10b.)"""
+    rows a single-host run batches at tick k.
+
+    Elastic rebalance (``--elastic on``): the shard is a RESIDUE SET, and
+    ``count`` stays the launch process count; a departed host's residues
+    are adopted by survivors (``adopt_residues``), so coverage going
+    forward is exact without re-keying anyone's position. ``produce``
+    reads the set an item at a time, so an adoption takes effect from the
+    adopter's current position (items of the departed residues before the
+    takeover are the counted loss window, streaming/membership.py)."""
 
     name = "shard"
 
@@ -527,10 +534,24 @@ class ShardedSource(Source):
         self.inner = inner
         self.index = index
         self.count = count
+        self.residues = {index}
+
+    def adopt_residues(self, residues) -> None:
+        """Take over the given residue classes (a departed host's shard),
+        from this source's current position."""
+        self.residues |= {int(r) % self.count for r in residues}
+        log.warning("intake shard rebalanced: now serving residues %s of %d",
+                    sorted(self.residues), self.count)
+
+    def release_residues(self, residues) -> None:
+        """Hand residue classes back (a rejoined live host resumes its own
+        slice); this host's own residue is never released."""
+        self.residues -= {int(r) % self.count for r in residues}
+        self.residues.add(self.index)
 
     def produce(self) -> Iterator[Status]:
         for i, status in enumerate(self.inner.produce()):
-            if i % self.count == self.index:
+            if i % self.count in self.residues:
                 yield status
 
 
@@ -554,10 +575,23 @@ class IdShardedSource(Source):
         self.inner = inner
         self.index = index
         self.count = count
+        self.residues = {index}
+
+    def adopt_residues(self, residues) -> None:
+        """Serve a departed host's id residues too, from this connection,
+        going forward: exact coverage of a live stream (ids are
+        position-free, unlike replay indexes)."""
+        self.residues |= {int(r) % self.count for r in residues}
+        log.warning("live intake shard rebalanced: now serving id residues %s of %d",
+                    sorted(self.residues), self.count)
+
+    def release_residues(self, residues) -> None:
+        self.residues -= {int(r) % self.count for r in residues}
+        self.residues.add(self.index)
 
     def produce(self) -> Iterator[Status]:
         for status in self.inner.produce():
-            if status.id % self.count == self.index:
+            if status.id % self.count in self.residues:
                 yield status
 
     def _backoff(self, exc: Exception, restarts: int) -> float:

@@ -214,8 +214,17 @@ class SessionStats:
         view = _sideband.last_hosts()
         if view is not None and self._web_breaker.allow():
             try:
+                # the elastic membership's summary rides the same frame, from
+                # the gauges and counters the membership plane keeps
+                snap = _metrics.get_registry().snapshot()
+                gauges, counters = snap["gauges"], snap["counters"]
                 self.web.hosts(view["hosts"], view["straggler"], view["stage"],
-                               view["skew_ms"])
+                               view["skew_ms"],
+                               epoch=int(gauges.get("elastic.epoch", -1)),
+                               live_hosts=int(gauges.get("elastic.live_hosts", 0)),
+                               departed=int(counters.get("elastic.hosts_departed", 0)),
+                               rejoined=int(counters.get("elastic.hosts_rejoined", 0)),
+                               lead_uid=int(gauges.get("elastic.lead_uid", -1)))
                 self._web_breaker.record_success()
             except Exception:  # lawcheck: disable=TW005 -- Try-parity: counted by the breaker, logged
                 self._web_breaker.record_failure()

@@ -66,12 +66,17 @@ class WebClient:
                            health=dict(health), histograms=dict(histograms or {})))
 
     def hosts(self, hosts: list, straggler: int = -1, stage: str = "",
-              skew_ms: float = 0.0) -> None:
+              skew_ms: float = 0.0, epoch: int = -1, live_hosts: int = 0,
+              departed: int = 0, rejoined: int = 0, lead_uid: int = -1) -> None:
         """The lockstep sideband's per-host view (telemetry/sideband.py
-        ``last_hosts``); the elastic fields keep their defaults (ROADMAP
-        A10b)."""
+        ``last_hosts``) and the elastic membership's summary: the epoch, the
+        live hosts, hosts departed and rejoined so far, and the current
+        lead's uid (streaming/membership.py's gauges; their defaults when
+        the run is not elastic)."""
         self._post(Hosts(hosts=list(hosts), straggler=int(straggler), stage=str(stage),
-                         skewMs=float(skew_ms)))
+                         skewMs=float(skew_ms), epoch=int(epoch), liveHosts=int(live_hosts),
+                         departed=int(departed), rejoined=int(rejoined),
+                         leadUid=int(lead_uid)))
 
     def tenants(self, tenants: list, gating: int = -1, active: int = 0) -> None:
         """The tenant plane's view (telemetry/tenants.py ``last_tenants``)."""
