@@ -304,6 +304,10 @@ predict kernel, B4 in both planes, the G product, B7 at B = 2048, 3072
 and 4096, B8), importing the port from DIR (another checkout unpacked
 there), so that two versions can be timed in turns in one call; its last
 line is that JSON.
+
+``python3 chip_smoke.py --elastic-ab N`` runs phases 1 and 2 and then
+only N alternating pairs of healthy group runs, lockstep and ``--elastic
+on`` (``elastic_ab``); its last line is their JSON.
 """
 
 from __future__ import annotations
@@ -5974,6 +5978,9 @@ EL_KILL_TICK = 3
 # the arm's watchdog outlasts the pause (the kill shows as a failed all-gather)
 EL_PAUSE = f"peer.pause:uid=0:ticks=12@from{EL_KILL_TICK + 1}"
 EL_REJOIN_ENV = {"TWTML_LOCKSTEP_TIMEOUT_S": "30"}
+# set on every elastic rank to the phase's own work directory: the store
+# processes the ranks spawn inherit it, and the phase stops only those
+EL_TAG_ENV = "TWTML_CHIP_ELASTIC_RUN"
 
 # one elastic rank: the linear app as ``main`` runs it; it leaves through
 # elastic_exit's hard exit, so its record (totals, launches, collectives,
@@ -6019,31 +6026,20 @@ sys.exit(4)
 """
 
 
-def el_base_port(span: int = 12) -> int:
-    """A base port with ``span`` free ports from it (the beacon on base + 1,
-    epoch e's store on base + 2 + e)."""
-    import socket
+def el_base_port() -> int:
+    """A base port with the elastic group's ports free from it (the beacon
+    on base + 1, epoch e's store on base + 2 + e)."""
+    from twtml_tpu_torch.parallel.elastic import free_base_port
 
-    for _ in range(100):
-        base = free_port()
-        socks = []
-        try:
-            for off in range(1, span):
-                s = socket.socket()
-                socks.append(s)
-                s.bind(("127.0.0.1", base + off))
-            return base
-        except OSError:
-            continue
-        finally:
-            for s in socks:
-                s.close()
-    raise RuntimeError("no free port range for the elastic group")
+    return free_base_port()
 
 
-def el_spawn(rank, argv, base, extra=(), env=None):
-    """One elastic rank of the linear app (``--master twtml://``, cuda:0)."""
-    env = dict(os.environ, **{**EL_ENV, **(env or {})})
+def el_spawn(tag, rank, argv, base, extra=(), env=None):
+    """One elastic rank of the linear app (``--master twtml://``, cuda:0).
+    ``tag`` goes into its environment as EL_TAG_ENV, which the store
+    processes it spawns inherit: el_reap_store_hosts finds this phase's by
+    it."""
+    env = dict(os.environ, **{**EL_ENV, **(env or {}), EL_TAG_ENV: tag})
     env.pop("TWTML_SYNC_DEBUG", None)  # a gloo all-reduce waits for the card
     args = [sys.executable, "-c", EL_RANK, PACKAGE_ROOT, *argv, *extra,
             "--lightning", RECORDER.url, "--twtweb", RECORDER.url,
@@ -6076,11 +6072,31 @@ def el_collect(procs, t0, name=""):
     return out
 
 
-def el_group(name, argv, extra=((), ())):
+def el_group(tag, name, argv, extra=((), ())):
     """The two elastic ranks with ``argv`` (and each rank's ``extra``)."""
     t0 = time.perf_counter()
     base = el_base_port()
-    return el_collect([el_spawn(r, argv, base, extra[r]) for r in range(MH_RANKS)], t0, name)
+    return el_collect([el_spawn(tag, r, argv, base, extra[r]) for r in range(MH_RANKS)], t0,
+                      name)
+
+
+def el_tick_split(rec):
+    """A rank's host wall a tick (ms) and the part of it in the gloo
+    all-reduces and in the cadence all-gather; the rest is the host's own
+    (featurize, dispatch, the plane, checkpoint saves). The collectives'
+    seconds are the run's (the warm-up step's included) over its ticks, so
+    the rest is a lower bound."""
+    ticks = max(1, rec["collectives"]["cadence_allgathers"])
+    wall, sec = 1e3 * rec["stream_seconds"] / ticks, rec["seconds"]
+    allreduce = 1e3 * sec["allreduce"] / ticks
+    allgather = 1e3 * sec["cadence_allgather"] / ticks
+    return {"host_wall": wall, "allreduces": allreduce, "allgather": allgather,
+            "rest": wall - allreduce - allgather}
+
+
+def el_tick_text(t):
+    return (f"{t['host_wall']:.1f} ms (all-reduces {t['allreduces']:.1f}, all-gather "
+            f"{t['allgather']:.1f}, rest {t['rest']:.1f})")
 
 
 def el_survived(name, res, want_rc=(0, 0)):
@@ -6164,11 +6180,15 @@ def el_hold_continuation(name, final_dir, archive_dir, step, rows):
     return state, int(meta["count"])
 
 
-def el_reap_store_hosts(deadline_s=30.0):
-    """Wait for the elastic stores' processes (parallel/service_host.py,
-    detached by the ranks) to reap themselves once their beacon is gone;
-    stop any still there at the deadline. Returns how many were stopped."""
+def el_reap_store_hosts(tag, deadline_s=30.0):
+    """Wait for the store processes this phase's ranks spawned
+    (parallel/service_host.py, detached, ``tag`` in their environment) to
+    reap themselves once their beacon is gone; stop any still there at the
+    deadline. A process whose environment cannot be read is not this
+    phase's. Returns how many were stopped."""
     import signal
+
+    mark = f"{EL_TAG_ENV}={tag}".encode()
 
     def hosts():
         pids = []
@@ -6176,7 +6196,10 @@ def el_reap_store_hosts(deadline_s=30.0):
             if d.isdigit():
                 try:
                     with open(f"/proc/{d}/cmdline", "rb") as fh:
-                        if b"twtml_tpu_torch.parallel.service_host" in fh.read():
+                        if b"twtml_tpu_torch.parallel.service_host" not in fh.read():
+                            continue
+                    with open(f"/proc/{d}/environ", "rb") as fh:
+                        if mark in fh.read().split(b"\0"):
                             pids.append(int(d))
                 except OSError:
                     pass
@@ -6198,7 +6221,8 @@ def elastic_phase(smi, statuses, lockstep):
     """The elastic phase (``--elastic on``): 2 ranks of the linear app on the
     one card over gloo, full width, 8192 rows a rank, on the multihost
     phase's replay file. A healthy run counted against the lockstep main
-    arm (``lockstep``: its ranks' records and numbers); ``peer.kill`` on uid
+    arm (``lockstep``: its ranks' records and numbers) and timed between it
+    and a lockstep run of the same flags after it; ``peer.kill`` on uid
     1 at tick 3: the survivor shrinks and its continuation is bitwise the
     world-1 split's and B1's from the restored archive on the card;
     ``peer.kill`` on uid 0: the election, held the same way from uid 1's
@@ -6217,46 +6241,59 @@ def elastic_phase(smi, statuses, lockstep):
         path = os.path.join(workdir, "tweets.jsonl")
         write_replay(path, statuses[:MH_BATCHES * OP_ROWS])
         rows = list(ReplayFileSource(path).produce())
-        argv = [*MH_ARGV, "--replayFile", path, "--batchBucket", str(MH_ROWS), "--elastic", "on"]
+        off = [*MH_ARGV, "--replayFile", path, "--batchBucket", str(MH_ROWS)]
+        argv = [*off, "--elastic", "on"]
         steps = MH_BATCHES + 1  # and the warm-up's
-        # healthy: the lockstep main arm's collectives, fetches and launches
+        # healthy: the lockstep main arm's collectives, fetches and launches;
+        # its tick timed between that arm (run before) and a lockstep run
+        # with this arm's flags but --elastic off (run after)
         d_h = os.path.join(workdir, "healthy")
-        res = el_group("healthy", [*argv, "--checkpointDir", d_h])
+        res = el_group(workdir, "healthy", [*argv, "--checkpointDir", d_h])
         el_survived("healthy", res)
+        d_after = os.path.join(workdir, "lockstep-after")
+        after = mh_ok("elastic lockstep-after", mh_group(
+            "elastic lockstep-after", [*off, "--checkpointDir", d_after], env=EL_ENV))
         healthy = []
         for rank, (_rc, lines, rec, _err, wall) in enumerate(res):
-            ref = lockstep["recs"][rank]
             c = rec["collectives"]
-            if (c["cadence_allgathers"] != rec["counters"]["lockstep.ticks"]
-                    or {k: c[k] for k in ref["collectives"]} != ref["collectives"]
-                    or rec["counters"]["fetch.count"] != ref["counters"]["fetch.count"]
-                    or rec["count"] != ref["count"]
-                    or {k: rec["launches"][k] for k in SPLIT_ENTRIES}
-                    != {k: ref["launches"][k] for k in SPLIT_ENTRIES}):
-                raise AssertionError(f"elastic healthy rank {rank}: {rec} against the lockstep "
-                                     f"run's {ref}")
+            for ref in (lockstep["recs"][rank], after[rank][2]):
+                if (c["cadence_allgathers"] != rec["counters"]["lockstep.ticks"]
+                        or {k: c[k] for k in ref["collectives"]} != ref["collectives"]
+                        or rec["counters"]["fetch.count"] != ref["counters"]["fetch.count"]
+                        or rec["count"] != ref["count"]
+                        or {k: rec["launches"][k] for k in SPLIT_ENTRIES}
+                        != {k: ref["launches"][k] for k in SPLIT_ENTRIES}):
+                    raise AssertionError(f"elastic healthy rank {rank}: {rec} against the "
+                                         f"lockstep run's {ref}")
             ticks = c["cadence_allgathers"]
             row = {"rank": rank, "ticks": ticks, "collectives": c,
                    "fetches": rec["counters"]["fetch.count"],
                    "host_wall_a_tick_ms": 1e3 * rec["stream_seconds"] / ticks,
                    "tweets_per_s": rec["count"] / rec["stream_seconds"],
+                   "tick_ms": el_tick_split(rec),
                    "lockstep_host_wall_a_tick_ms":
                        lockstep["numbers"][rank]["host_wall_a_tick_ms"],
                    "lockstep_tweets_per_s": lockstep["numbers"][rank]["tweets_per_s"],
+                   "lockstep_tick_ms": el_tick_split(lockstep["recs"][rank]),
+                   "lockstep_after_tick_ms": el_tick_split(after[rank][2]),
+                   "lockstep_after_tweets_per_s":
+                       after[rank][2]["count"] / after[rank][2]["stream_seconds"],
                    "group_wall_s": wall}
             healthy.append(row)
             phase("elastic", f"healthy rank {rank}: {ticks} ticks, {ticks} cadence all-gathers, "
-                  f"collectives and {row['fetches']} fetches as --elastic off; host wall a "
-                  f"tick {row['host_wall_a_tick_ms']:.1f} ms (lockstep "
-                  f"{row['lockstep_host_wall_a_tick_ms']:.1f}), {row['tweets_per_s']:.0f} "
-                  f"tweets/s (lockstep {row['lockstep_tweets_per_s']:.0f})")
+                  f"collectives and {row['fetches']} fetches as --elastic off; a tick "
+                  f"{el_tick_text(row['tick_ms'])} against lockstep before "
+                  f"{el_tick_text(row['lockstep_tick_ms'])} and after "
+                  f"{el_tick_text(row['lockstep_after_tick_ms'])}; {row['tweets_per_s']:.0f} "
+                  f"tweets/s against {row['lockstep_tweets_per_s']:.0f} before and "
+                  f"{row['lockstep_after_tweets_per_s']:.0f} after")
         out["healthy"] = healthy
         launches = {e: sum(r[2]["launches"][e] for r in res) for e in SPLIT_ENTRIES}
         # a follower killed at a tick boundary: the survivor shrinks
         every = ["--checkpointEvery", "1"]
         kill1 = f"peer.kill:uid=1:tick={EL_KILL_TICK}"
         d_k = os.path.join(workdir, "kill1")
-        res = el_group("kill1", [*argv, *every, "--checkpointDir", d_k],
+        res = el_group(workdir, "kill1", [*argv, *every, "--checkpointDir", d_k],
                        extra=((), ("--chaos", kill1)))
         el_survived("kill1", res, (0, 77))
         err0, err1 = res[0][3], res[1][3]
@@ -6285,7 +6322,7 @@ def elastic_phase(smi, statuses, lockstep):
               f"survivor's split launches {out['kill1']['launches_survivor']}")
         # the lead killed: uid 1 wins the election and promotes its standby
         d_l = os.path.join(workdir, "kill0")
-        res = el_group("kill0", [*argv, *every, "--checkpointDir", d_l, "--chaos",
+        res = el_group(workdir, "kill0", [*argv, *every, "--checkpointDir", d_l, "--chaos",
                                  f"peer.kill:uid=0:tick={EL_KILL_TICK}"])
         el_survived("kill0", res, (77, 0))
         err0, err1 = res[0][3], res[1][3]
@@ -6313,12 +6350,13 @@ def elastic_phase(smi, statuses, lockstep):
         t0 = time.perf_counter()
         base = el_base_port()
         argv_r = [*argv, *every, "--checkpointDir", d_r]
-        lead = el_spawn(0, argv_r, base, ("--chaos", EL_PAUSE), EL_REJOIN_ENV)
-        peer = el_spawn(1, argv_r, base, ("--chaos", f"{EL_PAUSE},{kill1}"), EL_REJOIN_ENV)
+        lead = el_spawn(workdir, 0, argv_r, base, ("--chaos", EL_PAUSE), EL_REJOIN_ENV)
+        peer = el_spawn(workdir, 1, argv_r, base, ("--chaos", f"{EL_PAUSE},{kill1}"),
+                        EL_REJOIN_ENV)
         rejoiner = None
         try:
             peer_rc = peer.wait(timeout=EL_TIMEOUT_S)
-            rejoiner = el_spawn(1, argv_r, base, ("--chaos", EL_PAUSE), EL_REJOIN_ENV)
+            rejoiner = el_spawn(workdir, 1, argv_r, base, ("--chaos", EL_PAUSE), EL_REJOIN_ENV)
             res = el_collect([lead, rejoiner], t0, "rejoin")
         finally:
             for p in (lead, peer, rejoiner):
@@ -6351,7 +6389,7 @@ def elastic_phase(smi, statuses, lockstep):
         phase("elastic", f"restarted uid 1: parked, admitted at epoch 2 "
               f"{t_formed - t_parked:.3f} s later; its first tick's state crc {lead_crc[-1]} "
               f"the lead's (count {join_crc[-1][0]})")
-        stopped = el_reap_store_hosts()
+        stopped = el_reap_store_hosts(workdir)
         out.update(launches=launches, store_hosts_stopped=stopped,
                    wall_s=time.perf_counter() - t_phase, card=smi)
         phase("elastic", f"split launches on the healthy run (both ranks) {launches}; store "
@@ -6359,7 +6397,81 @@ def elastic_phase(smi, statuses, lockstep):
               f"card: {smi}")
         return out
     finally:
-        el_reap_store_hosts()
+        el_reap_store_hosts(workdir)
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+EL_AB_BATCHES = 8  # a run's global batches in ``--elastic-ab``
+
+
+def elastic_ab(smi, pairs):
+    """``--elastic-ab N``: the healthy elastic tick against lockstep alone,
+    in N pairs of group runs of the same flags, environment and checkpoint
+    settings, the order alternating (lockstep first in even pairs, elastic
+    first in odd ones), each on EL_AB_BATCHES x 16384 synthetic tweets
+    (8192 rows a rank): per run and rank the host wall a tick split into
+    the all-reduces, the cadence all-gather and the rest
+    (``el_tick_split``), then the medians by arm. The counted collectives
+    and fetches are held equal in every pair."""
+    import shutil
+    import tempfile
+
+    from twtml_tpu_torch.streaming.sources import SyntheticSource
+
+    workdir = tempfile.mkdtemp(prefix="twtml-elastic-ab-")
+    runs = {"lockstep": [], "elastic": []}
+    ratios = []  # elastic over lockstep host wall a tick, a pair and rank
+    try:
+        path = os.path.join(workdir, "tweets.jsonl")
+        write_replay(path, SyntheticSource(total=EL_AB_BATCHES * OP_ROWS, seed=5,
+                                           base_ms=NOW_MS).produce())
+        off = [*MH_ARGV, "--replayFile", path, "--batchBucket", str(MH_ROWS)]
+        for i in range(pairs):
+            order = ("lockstep", "elastic") if i % 2 == 0 else ("elastic", "lockstep")
+            recs = {}
+            for arm in order:
+                ck = ["--checkpointDir", os.path.join(workdir, f"{arm}-{i}")]
+                if arm == "elastic":
+                    res = el_group(workdir, f"ab-{i}", [*off, "--elastic", "on", *ck])
+                    el_survived(f"ab-{i}", res)
+                else:
+                    res = mh_ok(f"elastic-ab lockstep {i}",
+                                mh_group(f"ab-{i}", [*off, *ck], env=EL_ENV))
+                recs[arm] = [r[2] for r in res]
+                for rank, rec in enumerate(recs[arm]):
+                    t = dict(el_tick_split(rec), pair=i, rank=rank, position=order.index(arm),
+                             tweets_per_s=rec["count"] / rec["stream_seconds"])
+                    runs[arm].append(t)
+                    phase("elastic-ab", f"pair {i} {arm} (run {order.index(arm) + 1} of 2) "
+                          f"rank {rank}: a tick {el_tick_text(t)}, "
+                          f"{t['tweets_per_s']:.0f} tweets/s")
+            for rank in range(MH_RANKS):
+                e, lk = recs["elastic"][rank], recs["lockstep"][rank]
+                if ({k: e["collectives"][k] for k in lk["collectives"]} != lk["collectives"]
+                        or e["counters"]["fetch.count"] != lk["counters"]["fetch.count"]):
+                    raise AssertionError(f"elastic-ab pair {i} rank {rank}: {e} against {lk}")
+                ratios.append(runs["elastic"][-MH_RANKS + rank]["host_wall"]
+                              / runs["lockstep"][-MH_RANKS + rank]["host_wall"])
+            phase("elastic-ab", f"pair {i}: elastic over lockstep, a tick's host wall "
+                  f"{[round(r, 4) for r in ratios[-MH_RANKS:]]} (ranks 0, 1)")
+        summary = {}
+        for arm, rows in runs.items():
+            summary[arm] = {k: statistics.median(r[k] for r in rows)
+                            for k in ("host_wall", "allreduces", "allgather", "rest",
+                                      "tweets_per_s")}
+        ratio = summary["elastic"]["host_wall"] / summary["lockstep"]["host_wall"]
+        pair_ratio = statistics.median(ratios)
+        phase("elastic-ab", f"medians over {pairs} pairs x {MH_RANKS} ranks: elastic a tick "
+              f"{el_tick_text(summary['elastic'])} against lockstep "
+              f"{el_tick_text(summary['lockstep'])}: {ratio:.4f}x; the pairs' ratios "
+              f"{min(ratios):.4f}-{max(ratios):.4f}, median {pair_ratio:.4f} | card: {smi}")
+        print(json.dumps({"elastic_ab": {"pairs": pairs, "batches": EL_AB_BATCHES,
+                                         "runs": runs, "medians": summary,
+                                         "host_wall_ratio": ratio, "pair_ratios": ratios,
+                                         "pair_ratio_median": pair_ratio, "card": smi}}),
+              flush=True)
+    finally:
+        el_reap_store_hosts(workdir)
         shutil.rmtree(workdir, ignore_errors=True)
 
 
@@ -6389,6 +6501,14 @@ def main() -> None:
     build_phase()
     if "--times-only" in argv:
         times_only(smi)
+        return
+    if "--elastic-ab" in argv:
+        os.environ["TWTML_NOW_MS"] = str(NOW_MS)
+        RECORDER = Recorder()
+        try:
+            elastic_ab(smi, int(argv[argv.index("--elastic-ab") + 1]))
+        finally:
+            RECORDER.close()
         return
     max_errs, kernel_cases = kernel_phase()
     gram_errs, gram_cases = gram_kernel_phase()

@@ -10,6 +10,7 @@ import pytest
 from twtml_tpu import config as jax_config
 from twtml_tpu.config import ConfArguments as JaxConf
 from twtml_tpu_torch import config
+from twtml_tpu_torch.apps import common
 from twtml_tpu_torch.config import _TYPES, _VALID, ConfArguments
 
 OAUTH = ("consumerKey", "consumerSecret", "accessToken", "accessTokenSecret")
@@ -174,6 +175,6 @@ def test_check_ported_compares_with_the_packaged_defaults(workdir):
     assert (conf.effective_wire_codec(), conf.effective_block_wire()) == (
         theirs.effective_wire_codec(), theirs.effective_block_wire()) == ("dict", True)
     assert conf.elastic == theirs.elastic == "on"
-    conf.check_ported()
+    common.select_backend(conf)
     conf.elastic = "off"
-    conf.check_ported()
+    common.select_backend(conf)

@@ -2,7 +2,7 @@
 
 - Every flag and short alias of the JAX parser parses in the port at the
   JAX package's default value, sets what the JAX parser sets, and selects
-  the single-host path (``validate_master`` and ``check_ported`` pass).
+  the single-host path (``select_backend`` passes).
   ``--backend`` is the one deliberate difference (cuda|cpu).
 - The README's command lines of the JAX app, with the module renamed,
   parse; the line that runs one host on the fixture runs on ``--backend
@@ -99,8 +99,7 @@ def test_every_jax_flag_parses_at_its_jax_default(flag):
     for attr in vars(ours):
         if attr not in ("appName", "backend"):
             assert getattr(ours, attr) == getattr(theirs, attr), attr
-    ours.validate_master()
-    ours.check_ported()
+    common.select_backend(ours)
     assert ours.effective_wire() == theirs.effective_wire()
 
 
@@ -131,10 +130,6 @@ def _readme_lines() -> list[list[str]]:
 
 
 README_LINES = _readme_lines()
-# the ROADMAP item a README line needs, by the flag that needs it: none now
-# (the lockstep runtime, A10a, took the twtml:// lines, and its elastic
-# membership, A10b, the --elastic on lines)
-NEEDS: dict = {}
 
 
 def test_the_readme_has_its_jax_command_lines():
@@ -146,13 +141,7 @@ def test_the_readme_has_its_jax_command_lines():
 def test_readme_command_lines_parse_in_the_port(argv):
     conf = ConfArguments().parse(argv)
     JaxConf().parse([("tpu" if a == "cuda" else a) for a in argv])
-    items = [item for key, item in NEEDS.items() if key in argv]
-    conf.validate_master()
-    if items:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {items[0]}"):
-            conf.check_ported()
-    else:
-        conf.check_ported()
+    common.select_backend(conf)
 
 
 def test_readme_local_1_line_runs_on_the_cpu_with_the_jax_apps_lines(monkeypatch, capsys):
@@ -234,7 +223,7 @@ NOW_PORTED = [["--wireCodec", "dict"], ["--ingest", "block"], ["--ingest", "bloc
 def test_ported_host_paths_pass_check_ported(argv):
     conf = ConfArguments().parse(argv)
     JaxConf().parse(argv)
-    conf.check_ported()
+    common.select_backend(conf)
 
 
 # the serving plane and its router (ROADMAP A8), and champion/challenger
@@ -289,9 +278,9 @@ def test_the_app_refuses_an_unported_value_before_it_builds_anything(monkeypatch
 
 
 def test_values_the_jax_package_ignores_on_this_path_pass():
-    ConfArguments().parse(["--wirePack", "group", "--blockWire", "off",
-                           "--elasticRejoin", "off", "--elasticEvictTicks", "3",
-                           "--elasticEvictSkewMs", "10"]).check_ported()
+    common.select_backend(ConfArguments().parse([
+        "--wirePack", "group", "--blockWire", "off", "--elasticRejoin", "off",
+        "--elasticEvictTicks", "3", "--elasticEvictSkewMs", "10"]))
 
 
 @pytest.mark.parametrize("master,backend,outcome", [

@@ -1,15 +1,17 @@
 """Elastic membership of the port's lockstep runtime (``--elastic on``) on the
 CPU: two gloo processes of the port's linear app, each under its own
 timeout, with the acceptance properties of the JAX package's
-tests/test_elastic_multiprocess.py (which cannot run on this image, so it
-is no oracle here):
+tests/test_elastic_multiprocess.py (whose two-process runs cannot run on
+this image; its oracle, an in-process run of the JAX package from the
+restored archive, does, and holds each survivor here too):
 
 - a healthy elastic tick adds no collective and no fetch over
   ``--elastic off``: as many cadence all-gathers as ticks, the same
   all-reduces, alignment all-gathers, broadcasts and fetches;
 - a follower killed at a tick boundary shrinks the group to the survivor,
   whose continuation is BITWISE an in-process world-1 run of the port from
-  the restored archive over its remaining rows;
+  the restored archive over its remaining rows, and within the JAX
+  multi-host tests' tolerance of the JAX package's one-host run from it;
 - the rows a rescue rolls back replay from the journal, each trained once;
 - a killed lead is replaced by the lowest live uid, which promotes its own
   standby archives and continues bitwise as a clean run from them;
@@ -28,11 +30,11 @@ import shutil
 import threading
 import time
 
+import jax
 import numpy as np
 from torch_group import (
     _collect,
     common_args,
-    free_port_range,
     last_json,
     spawn_worker,
     write_replay,
@@ -43,6 +45,7 @@ from twtml_tpu_torch.checkpoint import Checkpointer
 from twtml_tpu_torch.config import ConfArguments
 from twtml_tpu_torch.features.featurizer import Featurizer
 from twtml_tpu_torch.parallel.distributed import Collectives, MultiHostSGDModel
+from twtml_tpu_torch.parallel.elastic import free_base_port
 from twtml_tpu_torch.parallel.mesh import make_mesh
 from twtml_tpu_torch.parallel.sharding import ParallelSGDModel
 from twtml_tpu_torch.streaming.sources import ReplayFileSource
@@ -51,6 +54,8 @@ NOW_MS = 1785320000000
 TIMEOUT_S = 120
 ENV = {"TWTML_NOW_MS": str(NOW_MS), "TWTML_LOCKSTEP_TIMEOUT_S": "5",
        "TWTML_ELASTIC_RESCUE_GRACE_S": "2", "TWTML_ELASTIC_SERVICE_LINGER_S": "3"}
+# the JAX multi-host tests' tolerance for the weights across packages
+JAX_RTOL, JAX_ATOL = 1e-4, 1e-7
 RESYNC = (r"elastic resync: state from the lead's verified checkpoint \(count=(\d+), "
           r"batches=(\d+), state crc ([0-9a-f]+)\)")
 
@@ -65,7 +70,7 @@ def _args(path, ck=None, *extra) -> list:
 
 
 def _group(args0: list, args1: list, env=None) -> list:
-    base = free_port_range()
+    base = free_base_port()
     procs = [spawn_worker("app", 0, 2, base, args0, dict(ENV, **(env or {}))),
              spawn_worker("app", 1, 2, base, args1, dict(ENV, **(env or {})))]
     return _collect(procs, TIMEOUT_S)
@@ -120,6 +125,35 @@ def _clean_run(state, rows: list):
     return model.latest_weights
 
 
+def _jax_clean_run(state, rows: list):
+    """The JAX package's oracle of tests/test_elastic_multiprocess.py: its
+    ``ParallelSGDModel`` on one host's 2-device mesh, from ``state`` over
+    ``rows`` in 16-row batches. Returns its weights."""
+    from twtml_tpu.config import ConfArguments as JaxConf
+    from twtml_tpu.features.featurizer import Featurizer as JaxFeaturizer
+    from twtml_tpu.parallel import ParallelSGDModel as JaxParallel
+    from twtml_tpu.parallel import make_mesh as jax_make_mesh
+
+    conf = JaxConf().parse(["--backend", "cpu"])
+    mesh = jax_make_mesh(num_data=2, devices=jax.devices()[:2])
+    model = JaxParallel.from_conf(conf, mesh).set_initial_weights(state)
+    feat = JaxFeaturizer(now_ms=NOW_MS)
+    for lo in range(0, len(rows), 16):
+        batch = feat.featurize_batch_ragged(rows[lo:lo + 16], row_bucket=16, unit_bucket=64,
+                                            row_multiple=2)
+        model.step(model.pack_for_wire(batch))
+    return np.asarray(model.latest_weights)
+
+
+def _hold_survivor(final, state, rows) -> None:
+    """The survivor's final weights: bitwise the port's clean world-1 run
+    from ``state`` over ``rows``, and the JAX package's within tolerance."""
+    final = np.asarray(final)
+    np.testing.assert_array_equal(final, _clean_run(state, rows))
+    np.testing.assert_allclose(final, _jax_clean_run(state, rows), rtol=JAX_RTOL,
+                               atol=JAX_ATOL)
+
+
 def test_a_healthy_elastic_tick_adds_no_collective_and_no_fetch(tmp_path):
     """(a) Counted on both ranks: with the membership plane active, the
     cadence all-gathers are the ticks, and every other host collective and
@@ -144,7 +178,8 @@ def test_a_killed_follower_shrinks_the_group_and_the_survivor_is_a_clean_run(tmp
     """(b) ``peer.kill`` on uid 1 at tick 4: uid 0 shrinks to epoch 1 alone,
     restores the step-3 archive (count 96) and trains its remaining 52 rows
     (148): its final weights are bitwise the port's world-1 run from that
-    archive over host 0's rows 48 on."""
+    archive over host 0's rows 48 on, and the JAX package's run from it
+    within tolerance."""
     path = write_replay(tmp_path / "tweets.jsonl", 200, 5)
     ck = tmp_path / "ck"
     keeper = _Keeper(ck, tmp_path / "archives")
@@ -168,8 +203,7 @@ def test_a_killed_follower_shrinks_the_group_and_the_survivor_is_a_clean_run(tmp
     assert resync.group(3) == state_checksum(state3)
     final, meta = Checkpointer(str(ck)).restore()
     assert meta["count"] == 148
-    want = _clean_run(state3, _statuses(path)[0::2][48:])
-    np.testing.assert_array_equal(np.asarray(final), want)
+    _hold_survivor(final, state3, _statuses(path)[0::2][48:])
     rec = last_json(out0)
     assert rec["counters"]["elastic.hosts_departed"] == 1
     assert rec["gauges"]["elastic.epoch"] == 1 and rec["gauges"]["elastic.live_hosts"] == 1
@@ -180,7 +214,7 @@ def test_a_rescue_replays_its_rolled_back_rows_from_the_journal(tmp_path):
     2, so the rescue throws batch 3 away (discarded in flight, or rolled
     back); the survivor's journal replays exactly its 16 rows, and the
     continuation is bitwise the world-1 run from step 2 over host 0's rows
-    32 on: 132 rows, each trained once."""
+    32 on (and the JAX package's within tolerance): 132 rows, each trained once."""
     path = write_replay(tmp_path / "tweets.jsonl", 200, 5)
     ck = tmp_path / "ck"
     keeper = _Keeper(ck, tmp_path / "archives")
@@ -208,8 +242,7 @@ def test_a_rescue_replays_its_rolled_back_rows_from_the_journal(tmp_path):
     final, meta = Checkpointer(str(ck)).restore()
     assert meta["count"] == 132
     assert int(re.findall(r"count: (\d+)", _stat_lines(out0)[-1])[0]) == 132
-    want = _clean_run(state2, _statuses(path)[0::2][32:])
-    np.testing.assert_array_equal(np.asarray(final), want)
+    _hold_survivor(final, state2, _statuses(path)[0::2][32:])
 
 
 def test_a_killed_lead_is_replaced_by_the_lowest_live_uid(tmp_path):
@@ -217,7 +250,8 @@ def test_a_killed_lead_is_replaced_by_the_lowest_live_uid(tmp_path):
     report finds the beacon gone, it wins the election, promotes its
     standby lineage, restores its own step-3 archive and trains on; its
     final archive (in ``standby-u1``, the lineage now) is bitwise the
-    world-1 run from that archive over host 1's rows 48 on."""
+    world-1 run from that archive over host 1's rows 48 on, and the JAX
+    package's run from it within tolerance."""
     path = write_replay(tmp_path / "tweets.jsonl", 200, 5)
     ck = tmp_path / "ck"
     standby = ck / "standby-u1"
@@ -241,8 +275,7 @@ def test_a_killed_lead_is_replaced_by_the_lowest_live_uid(tmp_path):
     assert resync.group(3) == state_checksum(state3)
     final, meta = Checkpointer(str(standby)).restore()
     assert meta["count"] == 148
-    want = _clean_run(state3, _statuses(path)[1::2][48:])
-    np.testing.assert_array_equal(np.asarray(final), want)
+    _hold_survivor(final, state3, _statuses(path)[1::2][48:])
     rec = last_json(out1)
     assert rec["counters"]["elastic.elections"] == 1
     assert rec["gauges"]["elastic.lead_uid"] == 1
@@ -260,7 +293,7 @@ def test_a_restarted_host_is_readmitted_with_the_leads_state(tmp_path):
     ck = tmp_path / "ck"
     chaos = "peer.pause:uid=0:ticks=1@from5"
     args = _args(path, ck, "--checkpointEvery", "1", "--chaos", chaos)
-    base = free_port_range()
+    base = free_base_port()
     lead = spawn_worker("app", 0, 2, base, args, ENV)
     peer = spawn_worker("app", 1, 2, base, _args(
         path, ck, "--checkpointEvery", "1", "--chaos", chaos + ",peer.kill:uid=1:tick=4"), ENV)

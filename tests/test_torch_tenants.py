@@ -636,7 +636,7 @@ def test_the_tenants_view_is_published(monkeypatch):
 def test_conf_flags():
     conf = ConfArguments().parse(["--tenants", "4", "--tenantKey", "lang", "--abtest", "on"])
     assert (conf.tenants, conf.tenantKey, conf.abtest) == (4, "lang", "on")
-    conf.check_ported()
+    common.select_backend(conf)
     for bad in (["--tenantKey", "bogus"], ["--tenants", "0"]):
         with pytest.raises(SystemExit):
             ConfArguments().parse(bad)

@@ -389,4 +389,4 @@ def test_codec_flags_resolve_as_in_the_jax_package(argv, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     conf = ConfArguments().parse(argv)
     assert _resolve(conf) == _resolve(jax_config.ConfArguments().parse(argv))
-    conf.check_ported()  # the codec is ported: no value of it is refused
+    common.select_backend(conf)  # the codec is ported: no value of it is refused

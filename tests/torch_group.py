@@ -23,26 +23,6 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def free_port_range(span: int = 12) -> int:
-    """A base port with ``span`` free ports from it: an elastic group uses
-    base + 1 (the beacon) and base + 2 + e (epoch e's store)."""
-    for _ in range(200):
-        base = free_port()
-        socks = []
-        try:
-            for off in range(1, span):
-                s = socket.socket()
-                socks.append(s)
-                s.bind(("127.0.0.1", base + off))
-            return base
-        except OSError:
-            continue
-        finally:
-            for s in socks:
-                s.close()
-    raise RuntimeError("no free port range")
-
-
 def write_replay(path, total: int, seed: int) -> str:
     """``total`` synthetic tweets (``seed``) as a replay file."""
     from tools.bench_suite import _status_json

@@ -454,8 +454,7 @@ def _init_elastic(conf, coordinator: str, num_processes: int, process_id: int) -
 
 def select_backend(conf) -> None:
     """The JAX package's ``select_backend`` checks for the port, before
-    anything is built: ``--master`` (``validate_master``), the values that
-    need an unported feature (``check_ported``), ``--dtype`` (float64 on
+    anything is built: ``--master`` (``validate_master``), ``--dtype`` (float64 on
     ``--backend cpu`` only: the JAX package runs it on its CPU backend
     alone) and ``local[N]``, which the JAX package resolves to
     ``min(N, devices)`` data shards: one process drives one device (the
@@ -464,7 +463,6 @@ def select_backend(conf) -> None:
     from ..parallel import distributed as _dist
 
     conf.validate_master()
-    conf.check_ported()
     if conf.dtype not in DTYPES:
         raise SystemExit(f"--dtype {conf.dtype!r}: the port trains {'|'.join(DTYPES)}")
     if conf.dtype == "float64" and conf.backend != "cpu":
@@ -2157,6 +2155,28 @@ def attach_super_batcher(conf, stream, model, handle, stop_requested=None,
 
 # ---- elastic membership (--elastic on) --------------------------------------
 
+def _sharded_source(source):
+    """The residue-sharded source under ``source``'s wrappers, or None (a
+    source kind with no residue surface, such as block byte ranges)."""
+    while source is not None and not hasattr(source, "adopt_residues"):
+        source = getattr(source, "inner", None)
+    return source
+
+
+def _hot_standby(sharded, how: str) -> None:
+    """A rejoiner of a replay-sharded run: index shards are position-bound,
+    so its residues stay with their adopters and it feeds all-padding
+    batches (re-reading its file shard from the top would train rows
+    twice). A live id-sharded stream keeps its residues: the incumbents
+    hand them back (``_rebalance_intake``)."""
+    from ..streaming.sources import IdShardedSource
+
+    if sharded is not None and not isinstance(sharded, IdShardedSource):
+        sharded.residues.clear()
+        log.warning("elastic: %s replay-sharded run as a hot standby (residues stay with "
+                    "their adopters)", how)
+
+
 def _rebalance_intake(source, old_members, new_members, my_uid: int, reason: str) -> None:
     """The intake across a membership change: a departed host's residues
     are adopted round-robin by the survivors (exact coverage going forward,
@@ -2168,9 +2188,7 @@ def _rebalance_intake(source, old_members, new_members, my_uid: int, reason: str
     in ``elastic.shards_lost``."""
     from ..streaming.sources import IdShardedSource
 
-    sharded = source
-    while sharded is not None and not hasattr(sharded, "adopt_residues"):
-        sharded = getattr(sharded, "inner", None)
+    sharded = _sharded_source(source)
     departed = sorted(u for u in old_members if u not in new_members)
     rejoined = sorted(u for u in new_members if u not in old_members)
     if sharded is None:
@@ -2186,10 +2204,8 @@ def _rebalance_intake(source, old_members, new_members, my_uid: int, reason: str
             sharded.adopt_residues([uid])
     if rejoined and isinstance(sharded, IdShardedSource):
         sharded.release_residues(rejoined)
-    if my_uid in rejoined and not isinstance(sharded, IdShardedSource):
-        sharded.residues.clear()
-        log.warning("elastic: rejoined a replay-sharded run as a hot standby (index shards "
-                    "are position-bound; residues stay with their adopters)")
+    if my_uid in rejoined:
+        _hot_standby(sharded, "rejoined a")
 
 
 def attach_elastic(conf, ssc, model, stream, ckpt: AppCheckpoint, totals: dict):
@@ -2214,7 +2230,6 @@ def attach_elastic(conf, ssc, model, stream, ckpt: AppCheckpoint, totals: dict):
     from ..parallel import distributed as _dist
     from ..parallel import elastic as _elastic
     from ..streaming.membership import MembershipPlane
-    from ..streaming.sources import IdShardedSource
 
     runtime = _elastic.get_runtime()
     if runtime is None or not _dist.is_multihost():
@@ -2222,16 +2237,8 @@ def attach_elastic(conf, ssc, model, stream, ckpt: AppCheckpoint, totals: dict):
     source = ssc._source
     if runtime.joined_late:
         # a restarted host admitted into a LIVE run: its replay residues
-        # were adopted when it departed, so it contributes all-padding
-        # batches (a live id-sharded source keeps them: the incumbents
-        # release them, _rebalance_intake)
-        sharded = source
-        while sharded is not None and not hasattr(sharded, "adopt_residues"):
-            sharded = getattr(sharded, "inner", None)
-        if sharded is not None and not isinstance(sharded, IdShardedSource):
-            sharded.residues.clear()
-            log.warning("elastic: joined a live replay-sharded run as a hot standby "
-                        "(residues stay with their adopters)")
+        # were adopted when it departed
+        _hot_standby(_sharded_source(source), "joined a live")
     st: dict = {"pipeline": None, "flush": None, "old_members": list(runtime.members)}
 
     def detach(clean: bool) -> None:

@@ -416,14 +416,6 @@ class ConfArguments:
                 self.printUsage(1)
         return self
 
-    def check_ported(self) -> None:
-        """The check ``select_backend`` makes before anything is built: every
-        value of the JAX parser's flags selects a ported feature, the
-        lockstep runtime and its elastic membership (``--elastic on``)
-        included, so nothing is refused here. The layouts over a model
-        axis (the 2D feature-sharded step, the tenant fleet across hosts,
-        the k-means mesh) raise naming ROADMAP A10c where they are built."""
-
     def multihost(self) -> "tuple[str, int, int] | None":
         """(coordinator, num_processes, process_id) when a multi-host group is
         requested, None for a single-host run: the JAX package's rule. Call

@@ -257,6 +257,29 @@ def probe_port(host: str, port: int, timeout_s: float = 0.5) -> bool:
         return False
 
 
+def free_base_port(host: str = "127.0.0.1", span: int = 12) -> int:
+    """A base port for a group launched on one machine: ``base + 1`` (the
+    beacon) up to ``base + span - 1`` (epoch ``span - 3``'s store) are free
+    when this returns."""
+    for _ in range(200):
+        with socket.socket() as s:
+            s.bind((host, 0))
+            base = s.getsockname()[1]
+        socks = []
+        try:
+            for off in range(BEACON_OFFSET, span):
+                s = socket.socket()
+                socks.append(s)
+                s.bind((host, base + off))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise RuntimeError(f"no {span} free ports in a row on {host}")
+
+
 class ElasticRuntime:
     """One process's epochs. ``uid`` is its LAUNCH process id, stable
     across epochs; ``lead_uid`` the current lead's (0 at launch, sticky
