@@ -290,13 +290,42 @@ Phases, in order; any failure ends the run with a non-zero exit:
                its first tick's state CRC the lead's; the split kernels'
                launches and the phase's wall. The detached store processes
                the ranks start are gone (or stopped) when the phase ends.
+26. modelaxis — the layouts over a model axis, every rank on cuda:0 over
+               gloo: B4 at each [2048, 2^17] slice against its twin
+               (bitwise in the int8 and bf16 planes), the G that a 2 x 2
+               and a 1 x 2 group sum from their ranks' panels bitwise one
+               process's G, B7 on it and B8 at a rank's [1024, 2^17] slice
+               against their twins, on short tweets and tweet-length rows,
+               and B4 at a [2048, 500] slice; then
+               ``tests/torch_mesh_worker.py`` in a 2 x 2 group (4 ranks)
+               and a 1 x 2 group (2 ranks): the 2D Gram step at BASELINE
+               config #4 (2^18, L2 0.1, 50 iterations, B = 2048 global) on
+               3 batches of each kind against the port's one-process step
+               on the card (weights within rtol 1e-4, each rank's
+               predictions within 1e-4, HALF_UP flips counted, B4/B7/B8
+               once a step), the small arm at F = 1000, the scatter route
+               (2 x 256 rows, 10 iterations, 3 collectives an iteration), a
+               checkpoint round trip bitwise, k-means over 2 data shards
+               (assignments equal, centers within 1e-5) and 4 tenants on a
+               1 x 2 model axis bitwise the one-process stack; then on the
+               multihost phase's replay ``--tenants 4`` on 2 ranks against
+               one process (lines, the stack within rtol 1e-4, one fetch a
+               tick, 4 x 50 launches of each split entry a step),
+               ``--elastic on --tenants 4`` with uid 1 killed (the
+               survivor's stack bitwise the world-1 fleet's and the plain
+               stack's from its archive) and the k-means app on 2 ranks
+               against one process (lines equal, assignments equal); a
+               rank's 2D step device ms and host wall, each axis's
+               collectives and their ms, the fleet's tick and tweets/s,
+               the k-means wall and the phase's.
 No app run publishes anywhere but the loopback recorder and, in the web,
 serve and abtest phases, the port's own servers on loopback ports. The line before
 the last is the kernels' JSON record (B1's least-squares mode with its
 ``tenants`` launches and the ``block`` phase's figures, its logistic mode, its predict kernel with its
 ``abtest`` launches, B4 with its f32 build on tweet-length rows, B7,
-B8 and the split's three entries with their ``elastic`` launches); the last line is ``{"ok": true,
-"device": {...}}``.
+B8 and the split's three entries with their ``elastic`` and ``modelaxis`` launches, B4, B7 and
+B8 with their ``modelaxis`` launches, the split's grad and reduce with their library call's
+time); the last line is ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --times-only [--package-root DIR]`` runs phases 1
 and 2 and then only the kernels' device times (B1's logistic mode, its
@@ -5472,7 +5501,7 @@ def mh_hold_weights(name, got_dir, want):
     return err, meta
 
 
-def mh_arm(name, path, workdir, rows, extra=(), single_rows=None):
+def mh_arm(name, path, workdir, rows, extra=(), single_rows=None, label="multihost"):
     """One arm: the group on ``path`` at ``rows`` a rank against one
     process on the card (in this process) at ``single_rows``; the lead's
     lines and the final weights held, the follower silent. Returns the
@@ -5494,13 +5523,13 @@ def mh_arm(name, path, workdir, rows, extra=(), single_rows=None):
     if meta["count"] != totals["count"]:
         raise AssertionError(f"multihost {name}: the group counted {meta['count']} rows, "
                              f"one process {totals['count']}")
-    phase("multihost", f"{name}: {len(single_lines)} lines held (count and batch exact, "
+    phase(label, f"{name}: {len(single_lines)} lines held (count and batch exact, "
           f"stats within {MH_STAT_SLACK}), weights within {err:.3g} of one process's, "
           f"follower silent; group wall {results[0][4]:.1f} s")
     return [r[2] for r in results], totals, err, d_multi, argv
 
 
-def mh_rank_numbers(name, recs, totals, steps):
+def mh_rank_numbers(name, recs, totals, steps, label="multihost"):
     """Per rank: step device ms, launches a step (``steps``: the batches and
     the warm-up's), the all-reduce's and the cadence all-gather's host ms,
     host wall a tick; tweets/s against one process."""
@@ -5524,7 +5553,7 @@ def mh_rank_numbers(name, recs, totals, steps):
             "single_process_tweets_per_s": single_rate,
         }
         out.append(row)
-        phase("multihost", f"{name} rank {rank}: step {row['step_device_ms']:.3f} ms "
+        phase(label, f"{name} rank {rank}: step {row['step_device_ms']:.3f} ms "
               f"(CUDA events), launches a step {row['launches_a_step']}, all-reduce "
               f"{row['allreduce_ms']:.3f} ms x {row['allreduces_a_step']:.0f} a step, cadence "
               f"all-gather {row['cadence_allgather_ms']:.3f} ms, host wall a tick "
@@ -5779,6 +5808,15 @@ def split_times(smi, errs, launches):
         "fused_dense_update": lambda: split_update_twin(
             w0, g_count, f, it=2, step_size=1e-12, l2_reg=0.0, tol=0.001),
     }
+    # the one PyTorch call for each entry's function, where there is one:
+    # Xᵀr as torch.mv on the f32 X the caller holds (4·B·F bytes read, where
+    # the kernel reads its staged bf16 copy), and the partials' column sums
+    residual = (x @ w0 - y) * m
+    partials = bufs.scratch[:plan.grid * plan.fpad].view(plan.grid, plan.fpad)
+    libraries = {
+        "fused_dense_grad": ("torch.mv(X.t(), r), f32 X", lambda: torch.mv(x.t(), residual)),
+        "fused_dense_grad_reduce": ("partials.sum(0)", lambda: partials.sum(0)),
+    }
     # bytes each entry's function must move, each input read once and each
     # output written once, at the batch's own size (no padding, none of the
     # design's own scratch): grad reads X (bf16, as B1 stores it), y, the
@@ -5810,6 +5848,14 @@ def split_times(smi, errs, launches):
         many()
         ms = timed(many, 5, queue_ahead=True)[0] / n
         plain_ms = timed(many_plain, 3, queue_ahead=True)[0] / n
+        library, library_ms = libraries.get(name, (None, None)), None
+        if library[1] is not None:
+            def many_library(fn=library[1]):
+                for _ in range(n):
+                    fn()
+
+            many_library()
+            library_ms = timed(many_library, 5, queue_ahead=True)[0] / n
         bytes_ms = moved[name] / HBM_BYTES_PER_S * 1e3
         ops_ms = ops[name] / F32_FLOPS_PER_S * 1e3
         bound_ms = max(bytes_ms, ops_ms)
@@ -5818,12 +5864,15 @@ def split_times(smi, errs, launches):
             "replaces": "twtml_tpu/ops/pallas_sgd.py:55", "launches": launches[name],
             "max_abs_err": errs[0][name], "max_rel_err": errs[1][name], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": None,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms, "library": library[0],
             "bound_bytes": moved[name], "card": smi, "rows": rows, "features": f,
             "grid": plan.grid, "shapes_checked": [list(sh) for sh in SPLIT_SHAPES],
         })
         phase("multihost", f"{name}: {ms:.5f} ms a launch at B = {rows} x {f} (CUDA events, "
-              f"{n} launches), twin {plain_ms:.5f} ms, bound {bound_ms:.5f} ms "
+              f"{n} launches), twin {plain_ms:.5f} ms, library "
+              f"{'none' if library_ms is None else f'{library[0]} {library_ms:.5f} ms'}, "
+              f"bound {bound_ms:.5f} ms "
               f"({records[-1]['bound_by']}, {moved[name]} B), launches on the main arm "
               f"{launches[name]}")
     total = sum(r["ms"] for r in records)
@@ -6401,6 +6450,596 @@ def elastic_phase(smi, statuses, lockstep):
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+# ---- the modelaxis phase: the layouts over a model axis, ranks on cuda:0 ----
+
+MA_BATCHES = 3  # global batches of each 2^18 arm
+MA_UNITS = 128  # the short tweets' units row (mass <= 127: the int8 plane)
+MA_LONG_SPAN = (140, 280)  # tweet-length rows (f32 counts on one process)
+MA_LONG_UNITS = 512
+MA_SMALL_F = 1000  # the small arm: B4 at a 500-column slice on 2 x 2
+MA_SCATTER_ROWS, MA_SCATTER_BATCHES, MA_SCATTER_ITERS = 256, 2, 10
+MA_TENANTS = 4
+MA_TIMEOUT_S = 600
+MA_PRED_ATOL = 1e-4  # the JAX package's mesh tests' prediction tolerance
+MA_KMEANS_ROWS = 16384  # a k-means library batch (global)
+MA_WORKER = os.path.join("tests", "torch_mesh_worker.py")
+MA_DEVICE = "cuda"  # a CPU rehearsal sets "cpu" (and MH_ARGV[1])
+
+# one rank of the k-means app (``main`` on the parsed flags), recording its
+# rows' assignments; its record as the last line
+MA_KMEANS_RANK = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+from twtml_tpu_torch.apps import kmeans
+from twtml_tpu_torch.config import ConfArguments
+from twtml_tpu_torch.models.kmeans import StreamingKMeans
+from twtml_tpu_torch.parallel import distributed
+assign, model = [], []
+base = StreamingKMeans.update_device
+def update_device(self, points, mask=None):
+    out = base(self, points, mask)
+    assign.append(out.cpu().numpy().tolist())
+    model[:] = [self]
+    return out
+StreamingKMeans.update_device = update_device
+t0 = time.perf_counter()
+totals = kmeans.run(ConfArguments().parse(sys.argv[2:]))
+print(json.dumps({"count": totals["count"], "batches": totals["batches"],
+                  "wall_s": time.perf_counter() - t0, "assign": assign,
+                  "centers": model[0].latest_centers.tolist(),
+                  "weights": model[0].latest_weights.tolist(),
+                  "collectives": distributed.COUNTERS, "seconds": distributed.SECONDS}),
+      flush=True)
+"""
+
+
+def ma_group(name, workdir, nprocs, spec):
+    """``tests/torch_mesh_worker.py`` in ``nprocs`` ranks of one group on
+    the card (every rank on cuda:0, so gloo) with ``spec``: (each rank's
+    record, each run's arrays by rank: ``arrays[run][rank]``), the group's
+    wall s. Every rank is stopped before this returns."""
+    import numpy as np
+
+    spec = dict(spec, device=MA_DEVICE, out=workdir)
+    path = os.path.join(workdir, f"{name}-spec.json")
+    with open(path, "w") as fh:
+        json.dump(spec, fh)
+    env = dict(os.environ)
+    env.pop("TWTML_SYNC_DEBUG", None)  # a gloo collective waits for the card
+    port, t0 = free_port(), time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.join(PACKAGE_ROOT, MA_WORKER),
+                               str(r), str(nprocs), str(port), path], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, env=env)
+             for r in range(nprocs)]
+    recs = []
+    try:
+        for r, p in enumerate(procs):
+            stdout, stderr = p.communicate(timeout=MA_TIMEOUT_S)
+            lines = stdout.splitlines()
+            if p.returncode != 0 or not lines or not lines[-1].startswith("{"):
+                raise AssertionError(f"modelaxis {name}: rank {r} exited {p.returncode}:\n"
+                                     f"{stderr[-4000:]}")
+            recs.append(json.loads(lines[-1]))
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    arrays = {}
+    for run in spec["runs"]:
+        arrays[run["name"]] = []
+        for r in range(nprocs):
+            with np.load(os.path.join(workdir, f"{run['name']}-rank{r}.npz")) as data:
+                arrays[run["name"]].append({k: data[k] for k in data.files})
+    return recs, arrays, wall
+
+
+def ma_unit_batches(path, statuses, rows, features, units):
+    """Each ``rows`` of ``statuses`` as a padded units batch (device
+    hashing, uint16 units of ``units`` a row), saved stacked to ``path``;
+    returns the batches."""
+    import numpy as np
+
+    from twtml_tpu_torch.features.batch import UnitBatch
+    from twtml_tpu_torch.features.featurizer import Featurizer
+
+    feat = Featurizer(num_text_features=features, now_ms=NOW_MS)
+    out = []
+    for lo in range(0, len(statuses), rows):
+        b = feat.featurize_batch_units(statuses[lo:lo + rows], row_bucket=rows,
+                                       unit_bucket=units)
+        out.append(b._replace(units=np.asarray(b.units, np.uint16)))
+    np.savez(path, **{f: np.stack([getattr(b, f) for b in out]) for f in UnitBatch._fields})
+    return out
+
+
+def ma_single(batches, **kw):
+    """The port's one-process learner on the card over ``batches``: the
+    weights after each step and each step's predictions (host)."""
+    from twtml_tpu_torch.models.linear import StreamingLinearRegressionWithSGD
+
+    model = StreamingLinearRegressionWithSGD(device=MA_DEVICE, **kw)
+    ws, preds = [], []
+    for b in batches:
+        out = model.step(b)
+        preds.append(out.predictions.cpu().numpy())
+        ws.append(model.latest_weights)
+    return ws, preds
+
+
+def ma_hold_run(name, layout, recs, arrays, want, rtol=1e-4, atol=1e-7, bitwise=False):
+    """A group's run against the one-process run (``want``: weights and
+    predictions a step): every rank's gathered weights equal, within
+    ``rtol``/``atol`` of one process's (bitwise with ``bitwise``); each
+    rank's rows' predictions within MA_PRED_ATOL, HALF_UP flips (a
+    difference of 1) counted. Returns (weights max error, flips)."""
+    import numpy as np
+
+    ws, preds = want
+    err, flips = 0.0, 0
+    for rank, arr in enumerate(arrays):
+        if not np.array_equal(arr["w"], arrays[0]["w"]):
+            raise AssertionError(f"modelaxis {name} {layout}: rank {rank}'s weights differ "
+                                 "from rank 0's")
+        d, nd = recs[rank]["data_index"], len({r["data_index"] for r in recs})
+        for k, (w, p) in enumerate(zip(ws, preds)):
+            got = arr["w"][k]
+            e = float(np.max(np.abs(got - w)))
+            ok = np.array_equal(got, w) if bitwise else np.allclose(got, w, rtol=rtol,
+                                                                    atol=atol)
+            if not ok:
+                raise AssertionError(f"modelaxis {name} {layout} step {k}: weights differ from "
+                                     f"one process's by {e:.3g}")
+            err = max(err, e)
+            rows = p.shape[0] // nd
+            diff = np.abs(arr["preds"][k] - p[d * rows:(d + 1) * rows])
+            flip = np.isclose(diff, 1.0)
+            if np.any(diff[~flip] > MA_PRED_ATOL):
+                raise AssertionError(f"modelaxis {name} {layout} step {k}: predictions "
+                                     f"differ by {float(diff[~flip].max()):.3g}")
+            flips += int(flip.sum())
+    return err, flips
+
+
+def ma_slice(idx, val, f_local, m):
+    """Model shard ``m``'s tokens of a batch: relative, clipped indices and
+    the values zeroed outside its slice (as ``gram_sgd_parallel`` keeps
+    them)."""
+    import torch
+
+    rel = idx - m * f_local
+    keep = (rel >= 0) & (rel < f_local)
+    return torch.clamp(rel, 0, f_local - 1), val * keep.to(val.dtype)
+
+
+def ma_kernel_holds(name, batch, features, num_model=2, num_data=2):
+    """The 2D route's kernels at the slice's shapes on one batch, against
+    their twins: B4 at each [B, F/num_model] slice (bitwise in the int8
+    and bf16 planes), the G a (num_data x num_model) group sums from its
+    ranks' panels (bitwise the one-process G), B7 on it and B8 at a rank's
+    slice. Returns each kernel's max error and the slices' planes."""
+    import torch
+
+    from twtml_tpu_torch.models.sgd import batch_to_device, decode_batch, host_planes
+    from twtml_tpu_torch.ops import fused_gram, gram
+
+    dev = torch.device(MA_DEVICE)
+    idx, val, num, lab, mask = decode_batch(batch_to_device(batch, dev), features,
+                                            torch.float32)
+    b, f_local = mask.shape[0], features // num_model
+    full = host_planes(batch)[0]
+    c_full = fused_gram.count_build(idx, val, features, int8=full == gram.PLANE_INT8)
+    g_full = fused_gram.gram_from_counts(c_full)[:b, :b]
+    del c_full
+    g_sum, g_sum1 = torch.zeros_like(g_full), torch.zeros_like(g_full)
+    planes, errs, rows = [], {"count_build": 0.0}, b // num_data
+    for m in range(num_model):
+        rel, val_m = ma_slice(idx, val, f_local, m)
+        plane = gram.data_plane(val_m)
+        planes.append(gram.PLANE_NAMES[plane])
+        c = fused_gram.count_build(rel, val_m, f_local, int8=plane == gram.PLANE_INT8)
+        ref = fused_gram.count_build_reference(rel, val_m, f_local,
+                                               int8=plane == gram.PLANE_INT8,
+                                               rows_out=c.shape[0], cols_out=c.shape[1])
+        e = float((c.float() - ref.float()).abs().max())
+        if plane != gram.PLANE_EXACT and e != 0.0:
+            raise AssertionError(f"modelaxis {name}: B4 at slice {m} [{b}, {f_local}] differs "
+                                 f"from its twin by {e:.3g}")
+        errs["count_build"] = max(errs["count_build"], e)
+        del ref
+        panels = [fused_gram.gram_from_counts(c, rows=(d * rows, rows))[:, :b]
+                  for d in range(num_data)]
+        g_sum += torch.cat(panels)  # the num_data x num_model ranks' panels
+        g_sum1 += fused_gram.gram_from_counts(c)[:b, :b]  # a 1 x num_model rank's
+        if m == 0:
+            c0 = c
+    for layout, got in ((f"{num_data} x {num_model}", g_sum), (f"1 x {num_model}", g_sum1)):
+        if not torch.equal(got, g_full):
+            raise AssertionError(f"modelaxis {name}: G summed over the model axis of "
+                                 f"{layout} differs from one process's by "
+                                 f"{float((got - g_full).abs().max()):.3g}")
+    g = gram.add_numeric_block(g_sum, num)
+    raw = torch.zeros_like(lab)
+    kw = dict(num_iterations=OP_ITERS, step_size=0.005, l2_reg=0.1, convergence_tol=0.001,
+              p_prev=torch.tensor(0.0, device=dev))
+    c_, a, _its = fused_gram.dual_sgd(g, raw, lab, mask, **kw)
+    c_r, a_r, _ = fused_gram.dual_sgd_reference(g, raw, lab, mask, **kw)
+    errs["dual_sgd"] = compare(f"modelaxis {name} B7 alpha", a, a_r)[0]
+    compare(f"modelaxis {name} B7 c", c_.reshape(1), c_r.reshape(1))
+    zeros = torch.zeros((f_local + 4,), dtype=torch.float32, device=dev)
+    alpha0 = a[:rows].contiguous()
+    w = fused_gram.dual_writeback_counts(zeros, c_, alpha0, c0[:rows], num[:rows], f_local)
+    w_r = fused_gram.dual_writeback_reference(zeros, c_, alpha0, c0[:rows], num[:rows],
+                                              f_local)
+    e = float((w - w_r).abs().max())
+    if e > WEIGHT_RTOL * float(w_r.abs().max()):
+        raise AssertionError(f"modelaxis {name}: B8 at slice 0 [{rows}, {f_local}] differs "
+                             f"from its twin by {e:.3g}")
+    errs["dual_writeback_counts"] = e
+    return errs, planes
+
+
+def ma_rank_numbers(name, layout, recs, run):
+    """Per rank: a 2D step's device ms (CUDA events) and host wall, and the
+    ms of each axis's collectives in a step, each the median over the steps
+    after the first (which pays the first use of every kernel and group);
+    the run's collectives a step (the weights' gathers for the holds
+    included)."""
+    import statistics as st
+
+    out = []
+    for rec in recs:
+        r = rec["runs"][run]
+        steps = max(1, len(r["step_wall_ms"]))
+        c = r["collectives"]
+        later = r["step_collective_ms"][1:] or r["step_collective_ms"]
+        row = {"rank": rec["rank"],
+               "step_device_ms": st.median(r["step_device_ms"][1:] or [float("nan")]),
+               "step_wall_ms": st.median(r["step_wall_ms"][1:] or r["step_wall_ms"]),
+               "collectives_a_step": {k: c[k] / steps for k in c if c[k]},
+               "collective_ms_a_step": {k: st.median(m.get(k, 0.0) for m in later)
+                                        for k in sorted({k for m in later for k in m})}}
+        out.append(row)
+        phase("modelaxis", f"{name} {layout} rank {rec['rank']}: step {row['step_device_ms']:.2f} "
+              f"ms (CUDA events), host wall {row['step_wall_ms']:.2f} ms; a step's "
+              f"collectives {row['collectives_a_step']}, their ms "
+              f"{ {k: round(v, 3) for k, v in row['collective_ms_a_step'].items()} }")
+    return out
+
+
+def ma_tenant_clean_run(state, rows):
+    """The fleet survivor's continuation on the card: the world-1 fleet
+    (split) and the plain stack (B1), each from ``state`` over ``rows`` in
+    MH_ROWS-row batches. Returns (fleet weights, stack weights)."""
+    from twtml_tpu_torch.features.featurizer import Featurizer
+    from twtml_tpu_torch.parallel.distributed import Collectives
+    from twtml_tpu_torch.parallel.mesh import make_mesh
+    from twtml_tpu_torch.parallel.tenants import MultiHostTenantModel, TenantStackModel
+
+    mesh = make_mesh(num_processes=1)
+    kw = dict(step_size=0.005, quality=True, device=MA_DEVICE)
+    fleet = MultiHostTenantModel(TenantStackModel(MA_TENANTS, mesh=mesh, group=Collectives(),
+                                                  **kw), mesh)
+    plain = TenantStackModel(MA_TENANTS, **kw)
+    fleet.set_initial_weights(state)
+    plain.set_initial_weights(state)
+    feat = Featurizer(now_ms=NOW_MS)
+    for lo in range(0, len(rows), MH_ROWS):
+        batch = feat.featurize_batch_ragged(rows[lo:lo + MH_ROWS], row_bucket=MH_ROWS,
+                                            unit_bucket=64)
+        fleet.step(fleet.pack_for_wire(batch))
+        plain.step(batch)
+    return fleet.latest_weights, plain.latest_weights
+
+
+def modelaxis_phase(smi, statuses):
+    """The modelaxis phase: the layouts over a model axis, every rank on the one
+    card over gloo (tests/torch_mesh_worker.py at the library level, the
+    apps in a group). (a) The 2D Gram step at BASELINE config #4 (2^18, L2
+    0.1, 50 iterations, B = 2048 global) on 2 x 2 and 1 x 2, short tweets
+    (the int8 plane) and tweet-length rows, each 3 batches against the
+    port's one-process step on the card; B4, the summed G, B7 and B8 at the
+    slice's shapes against their twins and one process's G; a small arm at
+    F = 1000 (B4 at a 500-column slice). (b) The scatter route on 2 x 2.
+    (c) A checkpoint round trip on 2 x 2, bitwise. (d) ``--tenants 4`` on 2
+    ranks against one process, tenants on a 1 x 2 model axis bitwise the
+    one-process stack, and ``--elastic on --tenants 4`` with the follower
+    killed. (e) K-means across 2 ranks, the model and the app, against one
+    process. Returns the phase's numbers and the kernels' launches."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from twtml_tpu_torch.models.kmeans import StreamingKMeans
+    from twtml_tpu_torch.parallel.tenants import TenantStackModel
+    from twtml_tpu_torch.streaming.sources import ReplayFileSource, SyntheticSource
+
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="twtml-modelaxis-")
+    out = {"card": smi}
+    gram_kw = dict(num_text_features=GRAM_F, num_iterations=OP_ITERS, step_size=0.005,
+                   l2_reg=0.1)
+    try:
+        short = list(SyntheticSource(total=MA_BATCHES * GRAM_ROWS, seed=17,
+                                     base_ms=NOW_MS).produce())
+        data = {
+            "short": ma_unit_batches(os.path.join(workdir, "short.npz"), short, GRAM_ROWS,
+                                     GRAM_F, MA_UNITS),
+            "long": ma_unit_batches(os.path.join(workdir, "long.npz"),
+                                    long_statuses((MA_LONG_SPAN,) * MA_BATCHES, GRAM_ROWS, 29),
+                                    GRAM_ROWS, GRAM_F, MA_LONG_UNITS),
+            "small": ma_unit_batches(os.path.join(workdir, "small.npz"), short, GRAM_ROWS,
+                                     MA_SMALL_F, MA_UNITS),
+            "scatter": ma_unit_batches(os.path.join(workdir, "scatter.npz"),
+                                       short[:MA_SCATTER_BATCHES * MA_SCATTER_ROWS],
+                                       MA_SCATTER_ROWS, GRAM_F, MA_UNITS),
+        }
+        rng = np.random.default_rng(31)
+        km_points = (rng.normal(size=(MA_BATCHES, MA_KMEANS_ROWS, 2)) * [1.0, 5.0]).astype(
+            np.float32)
+        km_mask = (rng.random((MA_BATCHES, MA_KMEANS_ROWS)) < 0.95).astype(np.float32)
+        np.savez(os.path.join(workdir, "kmeans.npz"), points=km_points, mask=km_mask)
+
+        # the kernels at the slice's shapes, in this process
+        holds = {}
+        for name in ("short", "long"):
+            errs, planes = ma_kernel_holds(name, data[name][0], GRAM_F)
+            holds[name] = {"errors": errs, "slice_planes": planes}
+            phase("modelaxis", f"{name}: B4 at two [{GRAM_ROWS}, {GRAM_F // 2}] slices "
+                  f"(planes {planes}) against its twin (max err {errs['count_build']:.3g}); G "
+                  f"summed from the 2 x 2 and 1 x 2 ranks' panels bitwise one process's; B7 on "
+                  f"it {errs['dual_sgd']:.3g}, B8 at a [{GRAM_ROWS // 2}, {GRAM_F // 2}] slice "
+                  f"{errs['dual_writeback_counts']:.3g} against their twins")
+        errs, planes = ma_kernel_holds("small", data["small"][0], MA_SMALL_F)
+        holds["small"] = {"errors": errs, "slice_planes": planes}
+        phase("modelaxis", f"small: B4 at two [{GRAM_ROWS}, {MA_SMALL_F // 2}] slices "
+              f"(planes {planes}) bitwise its twin, G summed bitwise one process's")
+        out["kernel_holds"] = holds
+
+        runs4 = [
+            {"mode": "sgd", "name": "short", "batches": os.path.join(workdir, "short.npz"),
+             "wire": "unit", "model": gram_kw},
+            {"mode": "sgd", "name": "long", "batches": os.path.join(workdir, "long.npz"),
+             "wire": "unit", "model": gram_kw},
+            {"mode": "sgd", "name": "small", "batches": os.path.join(workdir, "small.npz"),
+             "wire": "unit", "model": dict(gram_kw, num_text_features=MA_SMALL_F),
+             "checkpoint": os.path.join(workdir, "ck")},
+            {"mode": "sgd", "name": "scatter", "batches": os.path.join(workdir, "scatter.npz"),
+             "wire": "unit", "model": dict(gram_kw, num_iterations=MA_SCATTER_ITERS,
+                                            use_gram=False)},
+            {"mode": "kmeans", "name": "kmeans", "batches": os.path.join(workdir,
+                                                                           "kmeans.npz")},
+        ]
+        recs4, arr4, wall4 = ma_group("2x2", workdir, 4, {"num_data": 2, "num_model": 2,
+                                                          "runs": runs4})
+        runs2 = [runs4[0], runs4[1],
+                 {"mode": "tenants", "name": "tenants", "num_tenants": MA_TENANTS,
+                  "batches": os.path.join(workdir, "small.npz"), "wire": "unit",
+                  "model": dict(num_text_features=MA_SMALL_F, step_size=0.005)}]
+        recs2, arr2, wall2 = ma_group("1x2", workdir, 2, {"num_data": 1, "num_model": 2,
+                                                          "runs": runs2})
+        out["group_wall_s"] = {"2x2": wall4, "1x2": wall2}
+
+        # (a) the Gram route against one process, (b) the scatter route
+        out["gram"] = {}
+        for name in ("short", "long"):
+            want = ma_single(data[name], **gram_kw)
+            for layout, recs, arrs in (("2x2", recs4, arr4), ("1x2", recs2, arr2)):
+                rr = [dict(r["runs"][name], data_index=r["data_index"]) for r in recs]
+                if any(r["route"] != "gram" for r in rr):
+                    raise AssertionError(f"modelaxis {name} {layout}: routes "
+                                         f"{[r['route'] for r in rr]}")
+                for r in rr if MA_DEVICE == "cuda" else ():  # the CPU twins count none
+                    got = {k: r["launches"][k] for k in
+                           ("count_build", "dual_sgd", "dual_writeback_counts")}
+                    if got != dict.fromkeys(got, MA_BATCHES):
+                        raise AssertionError(f"modelaxis {name} {layout}: launches {got}, "
+                                             f"want {MA_BATCHES} each")
+                err, flips = ma_hold_run(name, layout, rr, arrs[name], want)
+                out["gram"][f"{name}_{layout}"] = {
+                    "weights_max_err": err, "flips": flips,
+                    "ranks": ma_rank_numbers(name, layout, recs, name)}
+                phase("modelaxis", f"{name} {layout}: {MA_BATCHES} steps held against one "
+                      f"process on the card: weights within {err:.3g} (rtol 1e-4), "
+                      f"predictions within {MA_PRED_ATOL} with {flips} HALF_UP flips")
+        want = ma_single(data["small"], **dict(gram_kw, num_text_features=MA_SMALL_F),
+                         use_sparse=True)
+        rr = [dict(r["runs"]["small"], data_index=r["data_index"]) for r in recs4]
+        err, flips = ma_hold_run("small", "2x2", rr, arr4["small"], want)
+        out["gram"]["small_2x2"] = {"weights_max_err": err, "flips": flips}
+        phase("modelaxis", f"small (F = {MA_SMALL_F}) 2x2: weights within {err:.3g} of one "
+              f"process's Gram route, {flips} flips")
+        want = ma_single(data["scatter"], **dict(gram_kw, num_iterations=MA_SCATTER_ITERS),
+                         use_gram=False)
+        rr = [dict(r["runs"]["scatter"], data_index=r["data_index"]) for r in recs4]
+        if any(r["route"] != "scatter" or r["launches"]["count_build"] for r in rr):
+            raise AssertionError(f"modelaxis scatter: {[(r['route'], r['launches']) for r in rr]}")
+        err, flips = ma_hold_run("scatter", "2x2", rr, arr4["scatter"], want)
+        for r in rr:
+            c = r["collectives"]
+            n = MA_SCATTER_ITERS * MA_SCATTER_BATCHES
+            if (c["model_allreduces"] != 2 * n + MA_SCATTER_BATCHES
+                    or c["data_allreduces"] != n + MA_SCATTER_BATCHES):
+                raise AssertionError(f"modelaxis scatter: collectives {c}")
+        out["scatter"] = {"weights_max_err": err, "flips": flips,
+                          "ranks": ma_rank_numbers("scatter", "2x2", recs4, "scatter")}
+        phase("modelaxis", f"scatter 2x2 ({MA_SCATTER_BATCHES} x {MA_SCATTER_ROWS} rows, "
+              f"{MA_SCATTER_ITERS} iterations): weights within {err:.3g} of one process's "
+              f"scatter loop, 3 collectives an iteration (margins and norms over model, "
+              f"the gradient over data)")
+        # (c) the checkpoint round trip (on the small arm's Gram route)
+        for rank, arr in enumerate(arr4["small"]):
+            if not np.array_equal(arr["resumed"], arr["uninterrupted"]):
+                raise AssertionError(f"modelaxis checkpoint: rank {rank} resumed "
+                                     "differently from the uninterrupted model")
+        phase("modelaxis", "checkpoint 2x2: gathered, saved by the lead, restored into fresh "
+              "models; the next step bitwise the uninterrupted run's on every rank")
+
+        # (d) tenants on a 1 x 2 model axis, bitwise the one-process stack
+        stack = TenantStackModel(MA_TENANTS, num_text_features=MA_SMALL_F, step_size=0.005,
+                                 device=MA_DEVICE)
+        for b in data["small"]:
+            stack.step(b)
+        for rank, arr in enumerate(arr2["tenants"]):
+            if not np.array_equal(arr["w"], stack.latest_weights):
+                raise AssertionError(f"modelaxis tenants 1x2: rank {rank}'s stack differs from "
+                                     "one process's by "
+                                     f"{float(np.max(np.abs(arr['w'] - stack.latest_weights))):.3g}")
+            c = recs2[rank]["runs"]["tenants"]["collectives"]
+            if c["model_allreduces"] or c["data_allreduces"] or c["allreduces"]:
+                raise AssertionError(f"modelaxis tenants 1x2: collectives {c}")
+        phase("modelaxis", f"tenants on a 1x2 model axis ({MA_TENANTS // 2} a rank): the "
+              f"gathered [{MA_TENANTS}, {MA_SMALL_F + 4}] stack bitwise one process's, no "
+              "collective inside a tick")
+        # (e) the k-means model over 2 data shards against one process
+        km = (StreamingKMeans(device=MA_DEVICE).set_k(3).set_half_life(5, "batches")
+              .set_random_centers(2, 0.0))
+        km_assign = [km.update(p, m) for p, m in zip(km_points, km_mask)]
+        for rank, arr in enumerate(arr4["kmeans"]):
+            d = recs4[rank]["data_index"]
+            rows = MA_KMEANS_ROWS // 2
+            for k, a in enumerate(km_assign):
+                if not np.array_equal(arr["assign"][k], a[d * rows:(d + 1) * rows]):
+                    raise AssertionError(f"modelaxis kmeans: rank {rank} batch {k} assignments "
+                                         "differ from one process's")
+            if not (np.allclose(arr["centers"], km.latest_centers, rtol=KMEANS_RTOL, atol=1e-7)
+                    and np.allclose(arr["weights"], km.latest_weights, rtol=KMEANS_RTOL)):
+                raise AssertionError(f"modelaxis kmeans: rank {rank} centers {arr['centers']} "
+                                     f"against {km.latest_centers}")
+        phase("modelaxis", f"k-means over 2 data shards ({MA_BATCHES} x {MA_KMEANS_ROWS} "
+              "points): assignments equal, centers and weights within 1e-5 of one process's")
+
+        # the apps in a group, on the multihost phase's replay
+        path = os.path.join(workdir, "tweets.jsonl")
+        write_replay(path, statuses[:MH_BATCHES * OP_ROWS])
+        recs_t, totals_t, err_t, _d, _a = mh_arm("tenants", path, workdir, MH_ROWS,
+                                                 ["--tenants", str(MA_TENANTS)],
+                                                 label="modelaxis")
+        steps = MH_BATCHES + 1  # and the warm-up's
+        for rank, rec in enumerate(recs_t):
+            want = {e: MA_TENANTS * OP_ITERS * steps for e in SPLIT_ENTRIES}
+            got = {e: rec["launches"][e] for e in SPLIT_ENTRIES}
+            if MA_DEVICE != "cuda":
+                got = want  # the CPU twins count no launch
+            if (got != want or rec["launches"]["fused_dense_sgd"]
+                    or rec["counters"]["fetch.count"] != rec["batches"]):
+                raise AssertionError(f"modelaxis tenants app rank {rank}: launches "
+                                     f"{rec['launches']}, fetches {rec['counters']['fetch.count']}"
+                                     f" for {rec['batches']} ticks")
+        out["tenant_fleet"] = {"weights_max_err": err_t,
+                               "launches": {e: sum(r["launches"][e] for r in recs_t)
+                                            for e in SPLIT_ENTRIES},
+                               "ranks": mh_rank_numbers("tenants", recs_t, totals_t, steps,
+                                                        label="modelaxis")}
+        phase("modelaxis", f"--tenants {MA_TENANTS} on 2 ranks: lines and the [{MA_TENANTS}, "
+              f"1004] stack within {err_t:.3g} of one process's, one fetch a tick, the split "
+              f"{MA_TENANTS} x {OP_ITERS} x 3 launches a step")
+        # --elastic on: a killed follower, the survivor's stack from its archive
+        kill1 = f"peer.kill:uid=1:tick={EL_KILL_TICK}"
+        d_k = os.path.join(workdir, "tenants-kill1")
+        argv = [*MH_ARGV, "--replayFile", path, "--batchBucket", str(MH_ROWS), "--elastic", "on",
+                "--tenants", str(MA_TENANTS), "--checkpointEvery", "1", "--checkpointDir", d_k]
+        res = el_group(workdir, "tenants-kill1", argv, extra=((), ("--chaos", kill1)))
+        el_survived("tenants-kill1", res, (0, 77))
+        count, batches, crc, _rolled, _replayed = el_resync("tenants-kill1", res[0][3])
+        from twtml_tpu_torch.checkpoint import Checkpointer
+
+        state, _meta = Checkpointer(d_k).restore(step=batches)
+        final, meta = Checkpointer(d_k).restore()
+        rows = list(ReplayFileSource(path).produce())[0::2][batches * MH_ROWS:]
+        fleet_w, stack_w = ma_tenant_clean_run(state, rows)
+        if not (np.array_equal(np.asarray(final), fleet_w) and np.array_equal(fleet_w, stack_w)):
+            raise AssertionError(
+                f"modelaxis tenants-kill1: the survivor's stack differs from the clean run "
+                f"by {float(np.max(np.abs(np.asarray(final) - fleet_w))):.3g}, the world-1 "
+                f"fleet from the stack by {float(np.max(np.abs(fleet_w - stack_w))):.3g}")
+        out["tenant_fleet"]["kill1"] = {"resync_count": count, "resync_batches": batches,
+                                        "final_count": int(meta["count"]), "wall_s": res[0][4]}
+        phase("modelaxis", f"--elastic on --tenants {MA_TENANTS}, uid 1 killed at tick "
+              f"{EL_KILL_TICK}: the survivor resynced to step {batches} (count {count}, crc "
+              f"{crc}); its final stack (count {int(meta['count'])}) bitwise the world-1 "
+              "fleet's and the plain stack's from that archive on the card")
+        el_reap_store_hosts(workdir)
+        # (e) the k-means app on 2 ranks against one process
+        km_argv = [*MH_ARGV[:2], "--source", "replay", "--replayFile", path, "--seconds", "0"]
+        t0 = time.perf_counter()
+        totals_k, lines_k, rec_k = kmeans_run(MA_DEVICE, None, argv=[*km_argv[2:], "--batchBucket",
+                                                                    str(OP_ROWS)])
+        single_wall = time.perf_counter() - t0
+        port, procs, t0 = free_port(), [], time.perf_counter()
+        env = dict(os.environ)
+        env.pop("TWTML_SYNC_DEBUG", None)
+        for rank in range(MH_RANKS):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", MA_KMEANS_RANK, PACKAGE_ROOT, *km_argv, "--batchBucket",
+                 str(MH_ROWS), "--lightning", RECORDER.url, "--twtweb", RECORDER.url,
+                 "--master", f"twtml://127.0.0.1:{port}", "--numProcesses", str(MH_RANKS),
+                 "--processId", str(rank)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True, env=env))
+        km_out = []
+        try:
+            for rank, p in enumerate(procs):
+                stdout, stderr = p.communicate(timeout=MA_TIMEOUT_S)
+                lines = stdout.splitlines()
+                if p.returncode != 0 or not lines or not lines[-1].startswith("{"):
+                    raise AssertionError(f"modelaxis kmeans app: rank {rank} exited "
+                                         f"{p.returncode}:\n{stderr[-4000:]}")
+                km_out.append(([ln for ln in lines if ln.startswith("count:")],
+                               json.loads(lines[-1])))
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        group_wall = time.perf_counter() - t0
+        single_lines = [ln for ln in lines_k if ln.startswith("count:")]
+        if km_out[1][0] or km_out[0][0] != single_lines:
+            raise AssertionError(f"modelaxis kmeans app: lead {km_out[0][0][:2]} against "
+                                 f"{single_lines[:2]}, follower {km_out[1][0][:2]}")
+        replay = list(ReplayFileSource(path).produce())
+        for k, a in enumerate(rec_k["assign"]):
+            batch = replay[k * OP_ROWS:(k + 1) * OP_ROWS]
+            rt = np.array([s.is_retweet for s in batch])
+            pos = np.cumsum(rt) - 1
+            for rank in range(MH_RANKS):
+                mine = pos[rank::MH_RANKS][rt[rank::MH_RANKS]]
+                got = np.asarray(km_out[rank][1]["assign"][k][:len(mine)])
+                if not np.array_equal(got, a[mine]):
+                    raise AssertionError(f"modelaxis kmeans app: rank {rank} batch {k} "
+                                         "assignments differ from one process's")
+        model = rec_k["model"]
+        for rank, (_l, rec) in enumerate(km_out):
+            if not (np.allclose(rec["centers"], model.latest_centers, rtol=KMEANS_RTOL,
+                                atol=1e-7)
+                    and np.allclose(rec["weights"], model.latest_weights, rtol=KMEANS_RTOL)):
+                raise AssertionError(f"modelaxis kmeans app: rank {rank} centers "
+                                     f"{rec['centers']} against {model.latest_centers}")
+        out["kmeans_app"] = {"lines": len(single_lines), "group_wall_s": group_wall,
+                             "rank_wall_s": [rec["wall_s"] for _l, rec in km_out],
+                             "single_wall_s": single_wall,
+                             "collectives": [rec["collectives"] for _l, rec in km_out]}
+        phase("modelaxis", f"k-means app on 2 ranks: {len(single_lines)} lines equal to one "
+              "process's (counts, batches, centers, sizes), assignments equal, centers within "
+              f"1e-5; the group's wall {group_wall:.1f} s (ranks' runs "
+              f"{[round(rec['wall_s'], 2) for _l, rec in km_out]} s), one process's run "
+              f"{single_wall:.2f} s")
+        gram = {k: sum(r["runs"][run]["launches"][k] for recs, runs in
+                       ((recs4, ("short", "long", "small")), (recs2, ("short", "long")))
+                       for r in recs for run in runs)
+                for k in ("count_build", "dual_sgd", "dual_writeback_counts")}
+        split = {e: out["tenant_fleet"]["launches"][e]
+                 + sum(r["runs"]["tenants"]["launches"][e] for r in recs2)
+                 for e in SPLIT_ENTRIES}
+        out["launches"] = dict(gram, **split)
+        out["wall_s"] = time.perf_counter() - t_phase
+        phase("modelaxis", f"launches {out['launches']}; phase wall {out['wall_s']:.1f} s | "
+              f"card: {smi}")
+        return out
+    finally:
+        el_reap_store_hosts(workdir)
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 EL_AB_BATCHES = 8  # a run's global batches in ``--elastic-ab``
 
 
@@ -6563,16 +7202,20 @@ def main() -> None:
         block = block_phase(block_pool, smi)
     finally:
         RECORDER.close()
-    RECORDER = Recorder()  # the multihost and elastic phases' app runs publish to it
+    RECORDER = Recorder()  # the multihost, elastic and modelaxis phases' app runs publish to it
     try:
         split_records, multihost, lockstep = multihost_phase(smi, web_statuses)
         elastic = elastic_phase(smi, web_statuses, lockstep)
+        modelaxis = modelaxis_phase(smi, web_statuses)
     finally:
         RECORDER.close()
     for r in split_records:
         r["launches_elastic"] = elastic["launches"][r["name"]]
+    for r in [*split_records, *gram_records]:
+        r["launches_modelaxis"] = modelaxis["launches"][r["name"]]
     record.update(tenants=tenants, launches_tenants=tenants["launches"], block=block,
-                  launches_block=block["launches"], multihost=multihost, elastic=elastic)
+                  launches_block=block["launches"], multihost=multihost, elastic=elastic,
+                  modelaxis=modelaxis)
     predict_record.update(abtest=abtest, launches_abtest=abtest["counts_ab"]["predict_launches"])
     import torch
 

@@ -125,9 +125,27 @@ def test_model_update_and_predict_match_the_jax_model():
         np.testing.assert_array_equal(ours.predict(points), theirs.predict(points))
 
 
-def test_a_mesh_raises_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        StreamingKMeans(mesh=object(), device="cpu")
+def test_a_mesh_of_one_rank_trains_as_one_device():
+    """What raised naming ROADMAP A10 until k-means across hosts was ported:
+    a mesh (with its group's Collectives) builds, and over a group of one
+    it trains bitwise as the single-device model; a mesh without its group
+    raises."""
+    from twtml_tpu_torch.parallel.distributed import Collectives
+    from twtml_tpu_torch.parallel.mesh import make_mesh
+
+    def build(**kw):
+        return (StreamingKMeans(device="cpu", **kw).set_k(3).set_half_life(5, "batches")
+                .set_random_centers(2, 0.0))
+
+    rng = np.random.default_rng(4)
+    points = (rng.normal(size=(64, 2)) * [1.0, 5.0]).astype(np.float32)
+    mesh, one = build(mesh=make_mesh(num_processes=1), group=Collectives()), build()
+    for _ in range(3):
+        np.testing.assert_array_equal(mesh.update(points), one.update(points))
+    np.testing.assert_array_equal(mesh.latest_centers, one.latest_centers)
+    np.testing.assert_array_equal(mesh.latest_weights, one.latest_weights)
+    with pytest.raises(ValueError, match="needs its group"):
+        StreamingKMeans(mesh=make_mesh(num_processes=1), device="cpu")
 
 
 @pytest.mark.parametrize("valid", [0, 1, 2, 40, 64])
@@ -259,15 +277,22 @@ def test_app_checkpoints_centers_and_weights_for_either_package(tmp_path, monkey
     assert lines[0].startswith("count: 16  batch: 8")
 
 
-def test_app_refuses_the_multi_host_values():
-    """K-means across hosts (its data-parallel mesh) raises naming ROADMAP
-    A10c before anything is built or joined (``local[2]`` raised naming
-    A10 until the lockstep runtime was ported; it resolves to one shard
-    now)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A10c"):
-        app.run(ConfArguments().parse(["--backend", "cpu", "--master", "twtml://127.0.0.1:9",
-                                       "--numProcesses", "2", "--processId", "0",
-                                       "--lightning", CLOSED]))
+def test_app_runs_with_the_multi_host_values(tmp_path):
+    """The multi-host values (a ``twtml://`` master, ``--numProcesses``,
+    ``--processId``), which raised naming ROADMAP A10c until k-means across
+    hosts was ported, now form a group: two CPU ranks over the fixture's 8
+    retweets at 4 rows a rank print one process's line at ``--batchBucket
+    8``, and the follower prints nothing."""
+    from torch_group import run_torch_group, run_torch_single, stat_lines
+
+    argv = ["--backend", "cpu", "--source", "replay", "--replayFile", FIXTURE, "--seconds",
+            "0", "--lightning", CLOSED, "--twtweb", CLOSED]
+    results = run_torch_group([*argv, "--batchBucket", "4"], app="kmeans")
+    for rc, _out, err in results:
+        assert rc == 0, err[-3000:]
+    lead, follower = (stat_lines(out) for _rc, out, _err in results)
+    assert follower == []
+    assert lead == stat_lines(run_torch_single([*argv, "--batchBucket", "8"], app="kmeans"))
 
 
 @pytest.mark.parametrize("group", [[], ["--master", "twtml://127.0.0.1:9", "--numProcesses",

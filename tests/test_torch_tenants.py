@@ -57,6 +57,8 @@ from twtml_tpu_torch.features.featurizer import Featurizer
 from twtml_tpu_torch.models.linear import StreamingLinearRegressionWithSGD as Linear
 from twtml_tpu_torch.models.logistic import StreamingLogisticRegressionWithSGD as Logistic
 from twtml_tpu_torch.parallel import tenants as port_tenants
+from twtml_tpu_torch.parallel.distributed import Collectives
+from twtml_tpu_torch.parallel.mesh import make_mesh
 from twtml_tpu_torch.parallel.tenants import (
     MultiHostTenantModel,
     TenantStackModel,
@@ -647,12 +649,6 @@ def test_conf_flags():
 REFUSALS = {
     "vmap": (lambda: stack(2, mapping="vmap"), NotImplementedError,
              "tenant grid dimension.*ROADMAP B10"),
-    "mesh": (lambda: stack(2, mesh=object()), NotImplementedError, "ROADMAP A10"),
-    "multi_host": (lambda: MultiHostTenantModel(None, None), NotImplementedError,
-                   "ROADMAP A10"),
-    "coordinator": (lambda: common.build_model(ConfArguments().parse(
-        ["--backend", "cpu", "--tenants", "2", "--coordinator", "h:1"])),
-        NotImplementedError, "ROADMAP A10"),
     "lang_on_host_hashing": (lambda: common.build_model(ConfArguments().parse(
         ["--backend", "cpu", "--tenants", "2", "--tenantKey", "lang", "--hashOn", "host"])),
         SystemExit, "--hashOn device"),
@@ -664,6 +660,52 @@ def test_refusals(case):
     make, exc, match = REFUSALS[case]
     with pytest.raises(exc, match=match):
         make()
+
+
+def _one_rank_fleet(mesh_):
+    return MultiHostTenantModel(stack(2, mesh=mesh_, group=Collectives()), mesh_)
+
+
+@pytest.mark.parametrize("case", ["mesh", "multi_host"])
+def test_the_stack_over_a_group_builds_and_steps(case):
+    """What raised naming ROADMAP A10 until the layouts over a group were
+    ported: a stack over a mesh (with its group), and the tenant fleet's
+    ``MultiHostTenantModel``. Over a group of one they train bitwise as the
+    plain stack; a mesh without its group's Collectives raises."""
+    one = make_mesh(num_processes=1)
+    model = stack(2, mesh=one, group=Collectives()) if case == "mesh" else _one_rank_fleet(one)
+    plain = stack(2)
+    for b in batches("ragged", n=2):
+        out, ref = model.step(b), plain.step(b)
+        for f in STATS:
+            assert torch.equal(getattr(out, f), getattr(ref, f)), f
+    np.testing.assert_array_equal(model.latest_weights, plain.latest_weights)
+    with pytest.raises(ValueError, match="needs its group"):
+        stack(2, mesh=one)
+
+
+def test_tenants_with_a_coordinator_build_the_fleet_in_a_group(tmp_path):
+    """``--tenants 2 --coordinator``: in a formed group of two CPU ranks the
+    app builds the tenant fleet, and the lead prints the lines of one
+    process's ``--tenants 2`` run of the same replay (rounded stats within
+    2)."""
+    from torch_group import (
+        assert_lines_match,
+        common_args,
+        run_torch_group,
+        run_torch_single,
+        stat_lines,
+        write_replay,
+    )
+
+    common = common_args(write_replay(tmp_path / "tweets.jsonl", 64, 9), "--tenants", "2")
+    results = run_torch_group(common + ["--batchBucket", "16"], join="coordinator")
+    for rc, _out, err in results:
+        assert rc == 0 and "multi-tenant model fleet: 2 tenants across 2 hosts" in err, \
+            err[-3000:]
+    lead, follower = (stat_lines(out) for _rc, out, _err in results)
+    assert follower == []
+    assert_lines_match(lead, stat_lines(run_torch_single(common + ["--batchBucket", "32"])))
 
 
 def test_the_tenant_plane_builds_on_the_card_unless_asked_for_the_cpu(monkeypatch):

@@ -14,6 +14,12 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_WORKER = os.path.join(REPO, "tests", "app_worker.py")
 TORCH_WORKER = os.path.join(REPO, "tests", "torch_lockstep_worker.py")
+MESH_WORKER = os.path.join(REPO, "tests", "torch_mesh_worker.py")
+# a port process's CPU math runs on one thread: MKL's sgemv (X·w, Xᵀr) and
+# torch's reductions split their sums by the thread count, which MKL's
+# dynamic threading may lower on a loaded machine, so two runs of one
+# process could end a few ulps apart
+ONE_THREAD = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1", "MKL_DYNAMIC": "FALSE"}
 CLOSED = "http://127.0.0.1:9"  # a closed port: the publishers' Try paths, no DNS
 
 
@@ -40,26 +46,59 @@ def common_args(path: str, *extra: str) -> list:
             "--twtweb", CLOSED, *extra]
 
 
-def _env(extra: "dict | None") -> dict:
-    return dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu", **(extra or {}))
+def _env(extra: "dict | None", port: bool = True) -> dict:
+    """A test process's environment: the repo on the path, JAX on the CPU,
+    and a port process (``port``) on one CPU thread (``ONE_THREAD``)."""
+    return dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu",
+                **(ONE_THREAD if port else {}), **(extra or {}))
 
 
 def run_torch_group(args: list, nprocs: int = 2, timeout: float = 240.0,
-                    env: "dict | None" = None, app: str = "linear_regression") -> list:
+                    env: "dict | None" = None, app: str = "linear_regression",
+                    join: str = "master") -> list:
     """The port's ``app`` in ``nprocs`` processes of one group (``--master
-    twtml://``); [(returncode, stdout, stderr)] by rank. Every process is
-    gone when this returns."""
+    twtml://``, or ``--coordinator`` with ``join="coordinator"``);
+    [(returncode, stdout, stderr)] by rank. Every process is gone when this
+    returns."""
     port = free_port()
+    where = (["--master", f"twtml://127.0.0.1:{port}"] if join == "master"
+             else ["--coordinator", f"127.0.0.1:{port}"])
     procs = [
         subprocess.Popen(
-            [sys.executable, "-m", f"twtml_tpu_torch.apps.{app}", *args,
-             "--master", f"twtml://127.0.0.1:{port}", "--numProcesses", str(nprocs),
-             "--processId", str(i)],
+            [sys.executable, "-m", f"twtml_tpu_torch.apps.{app}", *args, *where,
+             "--numProcesses", str(nprocs), "--processId", str(i)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=_env(env),
             cwd=REPO)
         for i in range(nprocs)
     ]
     return _collect(procs, timeout)
+
+
+def run_mesh_group(mode: str, spec: dict, nprocs: int, timeout: float = 240.0) -> tuple:
+    """One ``mode`` run of ``tests/torch_mesh_worker.py`` in ``nprocs``
+    processes of one group on the CPU, with ``spec`` (written to its ``out``
+    directory): (each rank's record of the run, with the rank's place on the
+    mesh, each rank's arrays)."""
+    import numpy as np
+
+    spec = dict(spec, device="cpu", runs=[{"mode": mode, "name": mode}])
+    path = os.path.join(spec["out"], f"{mode}-spec.json")
+    with open(path, "w") as fh:
+        json.dump(spec, fh)
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, MESH_WORKER, str(i), str(nprocs), str(port),
+                               path], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, env=_env(None), cwd=REPO)
+             for i in range(nprocs)]
+    recs, arrays = [], []
+    for rank, (rc, out, err) in enumerate(_collect(procs, timeout)):
+        assert rc == 0, f"rank {rank}:\n{err[-3000:]}"
+        rec = last_json(out)
+        recs.append(dict(rec["runs"][mode], data_index=rec["data_index"],
+                         model_index=rec["model_index"]))
+        with np.load(os.path.join(spec["out"], f"{mode}-rank{rank}.npz")) as data:
+            arrays.append({k: data[k] for k in data.files})
+    return recs, arrays
 
 
 def run_worker_group(mode: str, args: list, nprocs: int = 2, timeout: float = 240.0,
@@ -93,22 +132,23 @@ def _collect(procs, timeout: float) -> list:
     return out
 
 
-def run_torch_single(args: list, timeout: float = 240.0, env: "dict | None" = None) -> str:
-    """The port's linear app in one process; its stdout."""
-    proc = subprocess.run([sys.executable, "-m", "twtml_tpu_torch.apps.linear_regression",
-                           *args], capture_output=True, text=True, env=_env(env),
-                          timeout=timeout, cwd=REPO)
+def run_torch_single(args: list, timeout: float = 240.0, env: "dict | None" = None,
+                     app: str = "linear_regression") -> str:
+    """The port's ``app`` in one process; its stdout."""
+    proc = subprocess.run([sys.executable, "-m", f"twtml_tpu_torch.apps.{app}", *args],
+                          capture_output=True, text=True, env=_env(env), timeout=timeout,
+                          cwd=REPO)
     assert proc.returncode == 0, proc.stderr[-3000:]
     return proc.stdout
 
 
 def run_jax_single(args: list, devices: int = 4, timeout: float = 240.0,
-                   env: "dict | None" = None) -> str:
-    """The JAX linear app's single-process run (``devices`` virtual CPU
+                   env: "dict | None" = None, app: str = "linear") -> str:
+    """The JAX ``app``'s single-process run (``devices`` virtual CPU
     devices); its stdout."""
-    proc = subprocess.run([sys.executable, JAX_WORKER, "0", "1", "0", str(devices), "linear",
-                           *args], capture_output=True, text=True, env=_env(env),
-                          timeout=timeout, cwd=REPO)
+    proc = subprocess.run([sys.executable, JAX_WORKER, "0", "1", "0", str(devices), app,
+                           *args], capture_output=True, text=True,
+                          env=_env(env, port=False), timeout=timeout, cwd=REPO)
     assert proc.returncode == 0, proc.stderr[-3000:]
     return proc.stdout
 

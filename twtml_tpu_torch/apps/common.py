@@ -220,15 +220,34 @@ def build_model(conf, model_cls=StreamingLinearRegressionWithSGD):
     ``MultiHostSGDModel`` over a ``ParallelSGDModel`` of ``model_cls``'s
     gradient family on this rank's device, with the digram codec's agreed
     bucket under ``--wireCodec dict``, and the closure that rebuilds it for
-    an elastic epoch's mesh; the tenant fleet across hosts is ROADMAP
-    A10c."""
+    an elastic epoch's mesh; with the tenant plane it is the tenant fleet,
+    a ``MultiHostTenantModel`` over a ``TenantStackModel`` on the group's
+    data axis, with its own rebuilder."""
     from ..parallel import distributed as _dist
 
     featurize_native.configure(conf.featurizeNative)
     assemble.configure(conf.wireAssemble)
     tenants = int(conf.tenants or 1)
-    if tenants > 1 and (conf.coordinator or conf.numProcesses > 0 or conf.processId >= 0):
-        raise _multi_host("--tenants across hosts (the tenant fleet)")
+    plane = tenants > 1 or os.environ.get(FORCE_TENANT_PLANE_ENV) == "1"
+    if plane and conf.tenantKey == "lang" and conf.hashOn != "device":
+        raise SystemExit("--tenantKey lang routes on raw code units; it requires "
+                         "--hashOn device")
+    if _dist.is_multihost() and plane:
+        from ..parallel.tenants import MultiHostTenantModel, TenantStackModel
+
+        def rank_stack(mesh):
+            return TenantStackModel.from_conf(
+                conf, mesh, _dist.Collectives.from_group(),
+                residual_fn=model_cls.residual_fn, prediction_fn=model_cls.prediction_fn,
+                round_predictions=model_cls.round_predictions, device=_dist.device())
+
+        model = MultiHostTenantModel(rank_stack(_dist.mesh()), _dist.mesh(),
+                                     rebuilder=rank_stack)
+        get_arena().use_device(model.device)
+        log.info("multi-tenant model fleet: %d tenants across %d hosts, key %s, stacked "
+                 "wire, %s step route", tenants, _dist.mesh().num_processes,
+                 model.tenant_key, model.route)
+        return model
     if _dist.is_multihost():
         from ..parallel.sharding import ParallelSGDModel
 
@@ -248,10 +267,7 @@ def build_model(conf, model_cls=StreamingLinearRegressionWithSGD):
                  model_cls.__name__, _dist.mesh().process_index,
                  _dist.mesh().num_processes, model.route)
         return model
-    if tenants > 1 or os.environ.get(FORCE_TENANT_PLANE_ENV) == "1":
-        if conf.tenantKey == "lang" and conf.hashOn != "device":
-            raise SystemExit("--tenantKey lang routes on raw code units; it requires "
-                             "--hashOn device")
+    if plane:
         from ..parallel.tenants import TenantStackModel
 
         model = TenantStackModel.from_conf(
@@ -489,13 +505,6 @@ def state_checksum(state) -> str:
         a = np.ascontiguousarray(np.asarray(arrs[key]))
         crc = zlib.crc32(a.tobytes(), zlib.crc32(f"{key}:{a.dtype}:{a.shape}".encode(), crc))
     return f"{crc:08x}"
-
-
-def _multi_host(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} belongs to the layouts over a model axis of the multi-host runtime, "
-        "which are not ported (ROADMAP A10c)"
-    )
 
 
 class AppCheckpoint:

@@ -10,11 +10,11 @@ parser takes every flag and short alias of the JAX package's parser;
 ``--backend`` is the one deliberate difference (``cuda|cpu``, default
 ``cuda``). ``--coordinator``/``--numProcesses``/``--processId`` (or a
 ``twtml://`` master) form a lockstep multi-host group (``multihost``), an
-elastic one under ``--elastic on``; the layouts over a model axis, which
-the port has not ported, raise ``NotImplementedError`` naming ROADMAP A10c
-where they are built. ``--wire auto`` resolves by the JAX package's rule: ragged for
-a back-to-back stream (``--seconds 0`` or below) that hashes on the device,
-padded under a wall clock or with ``--hashOn host``.
+elastic one under ``--elastic on``; no flag builds a model axis (as in the
+JAX package, that layout is the library's). ``--wire auto`` resolves by
+the JAX package's rule: ragged for a back-to-back stream (``--seconds 0``
+or below) that hashes on the device, padded under a wall clock or with
+``--hashOn host``.
 """
 
 from __future__ import annotations

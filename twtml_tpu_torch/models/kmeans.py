@@ -18,8 +18,14 @@ form (one [B, D]×[D, k] product) and the per-center sums a one-hot product.
 
 The random centers are ``jax.random.normal(PRNGKey(seed), (k, dim))``,
 drawn by ``ops/prng.normal`` bit for bit as jax draws them for the app's
-(3, 2). The JAX package's data-parallel mesh (k-means across hosts) is ROADMAP
-A10c.
+(3, 2).
+
+Data-parallel over a process group (``mesh=``, ``group=``; k-means across
+hosts): each rank holds its data shard's rows, the per-center counts and
+sums and the batch's point count are summed over the ranks (one all-reduce
+a batch: the JAX package's three ``psum``s), and the centers and weights
+stay replicated, so the decay and the dying-cluster rule compute the same
+on every rank.
 """
 
 from __future__ import annotations
@@ -45,16 +51,22 @@ def sq_dists(points, centers):
     )
 
 
-def update_step(centers, weights, points, mask, decay_factor: float, time_unit: str):
+def update_step(centers, weights, points, mask, decay_factor: float, time_unit: str,
+                reduce=None):
     """One streaming k-means batch update: centers [k, D], weights [k],
     points [B, D], mask [B] -> (new centers, new weights, assignments [B]).
+    With ``reduce`` (a data-parallel group's in-place SUM) the per-center
+    counts and sums and the point count are summed over the ranks first.
     No host sync."""
-    k = centers.shape[0]
+    k, d = centers.shape
     assign = torch.argmin(sq_dists(points, centers), dim=1)
     onehot = torch.nn.functional.one_hot(assign, k).to(points.dtype) * mask[:, None]
     counts = torch.sum(onehot, dim=0)
     sums = onehot.T @ points
     num_points = torch.sum(mask)
+    if reduce is not None:
+        buf = reduce(torch.cat([counts, sums.reshape(-1), num_points.reshape(1)]))
+        counts, sums, num_points = buf[:k], buf[k:k + k * d].view(k, d), buf[-1]
     decay = torch.full((), decay_factor, dtype=points.dtype, device=points.device)
     discount = decay if time_unit == BATCHES else decay ** num_points
     # an all-padding batch is a state no-op: no decay, no split
@@ -89,14 +101,24 @@ def update_step(centers, weights, points, mask, decay_factor: float, time_unit: 
 class StreamingKMeans:
     """The streaming k-means model on one device (``cuda`` unless the
     caller asks for the CPU): MLlib's builder surface, ``update``,
-    ``predict`` and the centers and weights on the host."""
+    ``predict`` and the centers and weights on the host.
+
+    Over a ``mesh`` (parallel/mesh.py) with its ``group``'s Collectives (a
+    ``ModelMesh``'s: its data axis), this rank is data shard
+    ``mesh.data_index`` of ``mesh.num_data``: ``update`` takes the global
+    batch (its rows must divide by the shards, as in the JAX package) and
+    trains this rank's contiguous shard of it, ``update_device`` this
+    rank's rows themselves."""
 
     def __init__(self, k: int = 2, decay_factor: float = 1.0, time_unit: str = BATCHES,
-                 mesh=None, device="cuda"):
+                 mesh=None, group=None, device="cuda"):
+        if mesh is not None and group is None:
+            raise ValueError("a k-means mesh needs its group's Collectives")
+        self.mesh = mesh
+        self.num_data = 1 if mesh is None else mesh.num_data
+        self._reduce = None
         if mesh is not None:
-            raise NotImplementedError(
-                "a data-parallel k-means mesh (k-means across hosts) is not ported "
-                "(ROADMAP A10c)")
+            self._reduce = (group.data if mesh.num_model > 1 else group).allreduce_
         self.k = k
         self.decay_factor = decay_factor
         self.time_unit = time_unit
@@ -149,11 +171,23 @@ class StreamingKMeans:
             mask = self._points(mask)
         self.centers, self.cluster_weights, assign = update_step(
             self.centers, self.cluster_weights, points, mask, self.decay_factor,
-            self.time_unit)
+            self.time_unit, reduce=self._reduce)
         return assign
 
     def update(self, points, mask=None) -> np.ndarray:
-        """One batch update; returns the per-point assignments on the host."""
+        """One batch update; returns the per-point assignments on the host.
+        Over a mesh ``points`` is the global batch, and the assignments are
+        this rank's rows'."""
+        if self.mesh is not None:
+            rows = np.shape(points)[0]
+            if rows % self.num_data:
+                raise ValueError(f"batch rows {rows} not divisible by data shards "
+                                 f"{self.num_data}; pad rows to a multiple of the mesh's "
+                                 f"data axis")
+            mine = slice(self.mesh.data_index * rows // self.num_data,
+                         (self.mesh.data_index + 1) * rows // self.num_data)
+            points = points[mine]
+            mask = None if mask is None else mask[mine]
         return self.update_device(points, mask).cpu().numpy()
 
     def predict(self, points) -> np.ndarray:

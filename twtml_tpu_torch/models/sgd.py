@@ -145,7 +145,7 @@ def _leaves(tree) -> list:
 
 def sgd_inner_loop(
     weights, *, num_iterations: int, step_size: float, l2_reg: float,
-    convergence_tol: float, grad_and_count, norm_sq=None,
+    convergence_tol: float, grad_and_count, norm_sq=None, norms=None,
     with_iterations: bool = False,
 ):
     """MLlib's GradientDescent loop over a weight tensor, or a dict of them
@@ -157,7 +157,10 @@ def sgd_inner_loop(
     (eta * g) / max(count, 1), with eta = stepSize/sqrt(i); an iteration
     that selects no row makes no update and is not convergence.
     ``norm_sq(a, b)`` is ||a - b||² for the convergence test (default: the
-    sum over the leaves; the dual loop passes ``ops/gram.dual_norm_sq``).
+    sum over the leaves; the dual loop passes ``ops/gram.dual_norm_sq``);
+    ``norms(w_new, w)``, when given, returns (||w_new - w||², ||w_new||²)
+    at once (a feature-sharded loop sums both over its model axis in one
+    all-reduce).
     With ``with_iterations`` it returns (w, iterations run): the iteration
     that converged, else N, as a tensor."""
     first = _leaves(weights)[0]
@@ -173,7 +176,9 @@ def sgd_inner_loop(
         # zero samples: no update
         w_new = _tree_map(lambda nl, wl: torch.where(count > 0, nl, wl), w_new, w)
         if convergence_tol > 0:
-            if norm_sq is None:
+            if norms is not None:
+                delta_sq, norm_new_sq = norms(w_new, w)
+            elif norm_sq is None:
                 delta_sq = sum(torch.sum((nl - wl) ** 2)
                                for nl, wl in zip(_leaves(w_new), _leaves(w)))
                 norm_new_sq = sum(torch.sum(nl * nl) for nl in _leaves(w_new))
@@ -383,6 +388,106 @@ def host_planes(batch, int8_plane: "bool | None" = None) -> tuple:
     return tuple(planes)
 
 
+def decode_batch(batch, f_text: int, dtype) -> tuple:
+    """A device wire batch as the step's inputs (token_idx [B, L] int32
+    global indices, token_val [B, L], numeric [B, 4], labels [B], mask [B],
+    the last four in ``dtype``): a PackedBatch reinterprets its bytes on the
+    device (the offsets' delta decode is the only arithmetic), the ragged
+    wire re-pads with the ASCII fold (the padded wire's units bit for bit),
+    the units wires hash their bigrams on the device, and host-hashed
+    tokens in their compact wire dtypes (int16 indices; uint16 counts,
+    which travel as int16 bits) upcast once."""
+    if isinstance(batch, PackedBatch):
+        batch = unpack_batch(batch.buffer, batch.layout)
+    if isinstance(batch, RaggedUnitBatch):
+        units, length = ragged_repad(batch.units, batch.offsets, batch.row_len,
+                                     batch.num_shards)
+        batch = UnitBatch(units, length, batch.numeric, batch.label, batch.mask)
+    if isinstance(batch, UnitBatch):
+        token_idx, token_val = hash_bigrams_device(batch.units, batch.length, f_text, dtype)
+    else:
+        token_idx = batch.token_idx.to(torch.int32)
+        token_val = batch.token_val
+        if token_val.dtype == torch.int16:
+            token_val = token_val.to(torch.int32) & 0xFFFF
+        token_val = token_val.to(dtype)
+    return (token_idx, token_val, batch.numeric.to(dtype), batch.label.to(dtype),
+            batch.mask.to(dtype))
+
+
+def gram_sgd_parallel(weights, token_idx, token_val, numeric, raw, labels, mask, *,
+                      data, f_local: int, p_prev, model=None, lo: int = 0, masks=None,
+                      int8_plane: "bool | None" = None, num_iterations: int,
+                      step_size: float, l2_reg: float, convergence_tol: float,
+                      residual_fn=least_squares_residual):
+    """The JAX package's Gram route over a group, this rank's share of it:
+    ONE all-gather of the rows over ``data`` (``Collectives``), this rank's
+    [B_local, B] panel of G over its features (B4 and the G product on the
+    card in float32), summed over ``model`` when the features are split
+    over a model axis, an all-gather of the panels over ``data``, the
+    numeric block, the dual loop replicated (B7 on the card), then this
+    rank's rows' write-back (B8 on zero weights: Cᵀα_local + Nᵀα_local)
+    summed over ``data``, and W_new = c·W + that sum.
+
+    ``weights`` are this rank's [f_local + 4]: the whole text (the data
+    axis alone, ``model`` None) or the slice [lo, lo + f_local) of a
+    feature-sharded model, then the 4 numeric weights. ``token_idx`` holds
+    global indices: a slice keeps the tokens that land in it, each index
+    made relative (``rel = idx − lo``, clipped) with the value zeroed
+    outside. ``p_prev`` is ||W_prev||² over the whole model, ``masks`` the
+    [N, B] Bernoulli draws of every global row (the unfolded key, as the
+    JAX dual loop draws one global mask). The plane is the gathered rows'
+    in this rank's features (read from the card: the group waits there
+    anyway): every rank of a data axis builds its panel in the same one,
+    and in the int8 and bf16 planes the panels are exact integer sums, so
+    G summed over ``model`` is the one-process G bit for bit."""
+    rows_local = mask.shape[0]
+    g_idx, g_val, g_num, g_raw, g_mask, g_labels = data.all_gather_columns(
+        token_idx, token_val, numeric, raw, mask, labels)
+    if model is not None:
+        rel = g_idx - lo
+        g_val = g_val * ((rel >= 0) & (rel < f_local)).to(g_val.dtype)
+        g_idx = torch.clamp(rel, 0, f_local - 1)
+    plane = data_plane(g_val, int8_plane)
+    rows = g_mask.shape[0]
+    row0 = data.rank * rows_local
+    dev = weights.device
+    loop_kw = dict(num_iterations=num_iterations, step_size=step_size, l2_reg=l2_reg,
+                   convergence_tol=convergence_tol, residual_fn=residual_fn)
+    kernels = (dev.type == "cuda" and weights.dtype == torch.float32
+               and residual_mode(residual_fn) is not None)
+    if kernels:
+        counts = fused_gram.count_build(g_idx, g_val, f_local, int8=plane == PLANE_INT8)
+        panel = fused_gram.gram_from_counts(counts, rows=(row0, rows_local))[:, :rows]
+    else:
+        panel = text_gram(g_idx, g_val, f_local, row_start=row0, rows=rows_local,
+                          int8_plane=int8_plane, plane=plane)
+    panel = panel.contiguous()
+    if model is not None:
+        model.allreduce_(panel)
+    g_text = data.all_gather_rows(panel)
+    g = add_numeric_block(g_text, g_num, torch.float32 if kernels else weights.dtype)
+    if kernels:
+        c, alpha, _ = fused_gram.dual_sgd(g, g_raw, g_labels, g_mask, masks=masks,
+                                          p_prev=p_prev, **loop_kw)
+    else:
+        dual = run_dual_loop(u=g_raw, g=g, labels=g_labels, mask=g_mask,
+                             dtype=weights.dtype, p_prev=p_prev, masks=masks, **loop_kw)
+        c, alpha = dual["c"], dual["alpha"]
+    alpha_local = alpha[row0:row0 + rows_local].contiguous()
+    zeros = torch.zeros_like(weights)
+    if kernels:
+        delta = fused_gram.dual_writeback_counts(
+            zeros, c, alpha_local, counts[row0:row0 + rows_local], numeric, f_local)
+    else:
+        w_text, w_num = dual_writeback(zeros[:f_local], zeros[f_local:], c, alpha_local,
+                                       g_idx[row0:row0 + rows_local],
+                                       g_val[row0:row0 + rows_local], numeric)
+        delta = torch.cat([w_text, w_num])
+    data.allreduce_(delta)
+    return weights * c + delta
+
+
 def make_sgd_train_step(
     *,
     num_text_features: int,
@@ -420,11 +525,14 @@ def make_sgd_train_step(
     vector sum over the ranks (one all-reduce each); the fused route runs
     B1's data-parallel split (``fused_dense_sgd_split``: one all-reduce of
     the gradient and count an iteration), the torch and scatter loops
-    all-reduce the same; ``-b`` < 1 draws under the rank-folded key; the
-    Gram route all-gathers the rows once, builds this rank's [B_local, B]
-    panel of G, all-gathers G, runs the dual loop replicated and writes
-    back its own rows' share, all-reduced. The ``fits_gram`` gate counts
-    the global rows, as the JAX package's does."""
+    all-reduce the same, and under ``-b`` < 1 draw under the key folded
+    with the group's rank (the data index, when ``group`` is a mesh's data
+    axis); the Gram route (``gram_sgd_parallel``) all-gathers the rows
+    once, builds this rank's [B_local, B] panel of G, all-gathers G, runs
+    the dual loop replicated (under ``-b`` < 1 on one mask over the global
+    rows, the unfolded key, as the JAX dual loop draws it) and writes back
+    its own rows' share, all-reduced. The ``fits_gram`` gate counts the
+    global rows, as the JAX package's does."""
     _check_slice(dtype)
     f_text = num_text_features
     sparse = f_text > DENSE_TEXT_FEATURE_LIMIT if use_sparse is None else use_sparse
@@ -440,22 +548,26 @@ def make_sgd_train_step(
     loop_kw = dict(num_iterations=num_iterations, step_size=step_size,
                    l2_reg=l2_reg, convergence_tol=convergence_tol, residual_fn=residual_fn)
 
-    def masks_for(rows: int, device):
-        key = (rows, str(device))
+    def masks_for(rows: int, device, shard: "int | None"):
+        key = (rows, str(device), shard)
         if key not in masks_by_rows:
             if len(masks_by_rows) >= _MASK_CACHE_SIZE:
                 masks_by_rows.clear()
             masks_by_rows[key] = sampling_masks(
-                rows, num_iterations, mini_batch_fraction, dtype, device,
-                shard=None if group is None else group.rank)
+                rows, num_iterations, mini_batch_fraction, dtype, device, shard=shard)
         return masks_by_rows[key]
 
     def gram_sgd(weights, token_idx, token_val, numeric, raw, labels, mask, masks, plane):
         """The loop in the dual basis: the hand kernels on the card in
         float32 (B4, the G product, B7, B8), the plain pieces elsewhere."""
         if group is not None:
-            return gram_sgd_parallel(weights, token_idx, token_val, numeric, raw, labels,
-                                     mask, masks)
+            # the JAX dual loop draws one mask over the global rows with the
+            # unfolded key
+            return gram_sgd_parallel(
+                weights, token_idx, token_val, numeric, raw, labels, mask, data=group,
+                f_local=f_text, p_prev=torch.sum(weights * weights),
+                masks=masks_for(mask.shape[0] * world, mask.device, None) if sampled else None,
+                int8_plane=int8_plane, **loop_kw)
         rows = mask.shape[0]
         p_prev = torch.sum(weights * weights)
         dev = weights.device
@@ -479,86 +591,13 @@ def make_sgd_train_step(
                                        dual["alpha"], token_idx, token_val, numeric)
         return torch.cat([w_text, w_num])
 
-    def gram_sgd_parallel(weights, token_idx, token_val, numeric, raw, labels, mask,
-                          masks):
-        """The JAX package's data-parallel Gram route: ONE all-gather of the
-        rows, this rank's [B_local, B] panel of G (B4 and the G product on
-        the card in float32), an all-gather of the panels, the numeric
-        block, the dual loop replicated (B7 on the card), then this rank's
-        rows' write-back (B8 on zero weights: Cᵀα_local + Nᵀα_local) summed
-        over the ranks, and W_new = c·W + that sum. The plane is the
-        gathered rows' (read from the card: the group waits there anyway),
-        so every rank builds its panel in the same one."""
-        rows_local = mask.shape[0]
-        g_idx, g_val, g_num, g_raw, g_mask, g_labels = (
-            group.all_gather_rows(t)
-            for t in (token_idx, token_val, numeric, raw, mask, labels))
-        # the plane of the gathered rows (every rank the same), not this
-        # rank's: one rank's long row decides the plane of every panel
-        plane = data_plane(g_val, int8_plane)
-        rows = g_mask.shape[0]
-        row0 = group.rank * rows_local
-        p_prev = torch.sum(weights * weights)
-        dev = weights.device
-        # every rank's draws ([N, B_local] each) in the gathered row order
-        g_sel = None if masks is None else group.all_gather_rows(masks.T.contiguous()).T
-        kernels = (dev.type == "cuda" and weights.dtype == torch.float32
-                   and residual_mode(residual_fn) is not None)
-        if kernels:
-            counts = fused_gram.count_build(g_idx, g_val, f_text, int8=plane == PLANE_INT8)
-            panel = fused_gram.gram_from_counts(counts, rows=(row0, rows_local))
-        else:
-            panel = text_gram(g_idx, g_val, f_text, row_start=row0, rows=rows_local,
-                              int8_plane=int8_plane, plane=plane)
-        g_text = group.all_gather_rows(panel[:, :rows].contiguous())
-        g = add_numeric_block(g_text, g_num, torch.float32 if kernels else weights.dtype)
-        if kernels:
-            c, alpha, _ = fused_gram.dual_sgd(g, g_raw, g_labels, g_mask, masks=g_sel,
-                                              p_prev=p_prev, **loop_kw)
-        else:
-            dual = run_dual_loop(u=g_raw, g=g, labels=g_labels, mask=g_mask,
-                                 dtype=weights.dtype, p_prev=p_prev, masks=g_sel, **loop_kw)
-            c, alpha = dual["c"], dual["alpha"]
-        alpha_local = alpha[row0:row0 + rows_local].contiguous()
-        zeros = torch.zeros_like(weights)
-        if kernels:
-            delta = fused_gram.dual_writeback_counts(
-                zeros, c, alpha_local, counts[row0:row0 + rows_local], numeric, f_text)
-        else:
-            w_text, w_num = dual_writeback(zeros[:f_text], zeros[f_text:], c, alpha_local,
-                                           token_idx, token_val, numeric)
-            delta = torch.cat([w_text, w_num])
-        group.allreduce_(delta)
-        return weights * c + delta
-
     def train_step(weights, batch, plane: "int | None" = None):
-        if isinstance(batch, PackedBatch):
-            # one-buffer wire: reinterpret its bytes on the device (the
-            # offsets' delta decode is the only arithmetic)
-            batch = unpack_batch(batch.buffer, batch.layout)
-        if isinstance(batch, RaggedUnitBatch):
-            # ragged wire: re-pad + ASCII fold on the device, giving the
-            # padded wire's units bit for bit
-            units, length = ragged_repad(batch.units, batch.offsets, batch.row_len,
-                                         batch.num_shards)
-            batch = UnitBatch(units, length, batch.numeric, batch.label, batch.mask)
-        if isinstance(batch, UnitBatch):
-            token_idx, token_val = hash_bigrams_device(
-                batch.units, batch.length, f_text, dtype
-            )
-        else:
-            # host-hashed tokens in their compact wire dtypes (int16 indices;
-            # uint16 counts, which travel as int16 bits): upcast once
-            token_idx = batch.token_idx.to(torch.int32)
-            token_val = batch.token_val
-            if token_val.dtype == torch.int16:
-                token_val = token_val.to(torch.int32) & 0xFFFF
-            token_val = token_val.to(dtype)
-        mask = batch.mask.to(dtype)
-        labels = batch.label.to(dtype)
-        numeric = batch.numeric.to(dtype)
+        token_idx, token_val, numeric, labels, mask = decode_batch(batch, f_text, dtype)
         rows = mask.shape[0]
-        masks = masks_for(rows, mask.device) if sampled else None
+        # a rank of a data axis draws under the key folded with its data
+        # index (``group.rank``: the JAX package's ``sampling_key(data)``)
+        shard = None if group is None else group.rank
+        masks = masks_for(rows, mask.device, shard) if sampled else None
         if not sparse:
             x_dense = torch.cat(
                 [densify_text(token_idx, token_val, f_text), numeric], dim=1
@@ -815,7 +854,7 @@ class StreamingSGDModel:
         self.num_text_features = num_text_features
         self.dtype = dtype
         self.device = resolve_device(device)
-        self._train_step = make_sgd_train_step(
+        self._train_step = self._make_step(
             num_text_features=num_text_features,
             num_iterations=num_iterations,
             step_size=self.default_step_size if step_size is None else step_size,
@@ -838,7 +877,7 @@ class StreamingSGDModel:
         log.info("%s step route: %s (miniBatchFraction %s, %s weights, %s)",
                  "sparse" if self._train_step.sparse else "dense", self.route,
                  mini_batch_fraction, str(dtype).replace("torch.", ""), self.device)
-        self._weights = zero_weights(num_text_features, dtype, self.device)
+        self._weights = self._zero_weights()
         # H2D copies queue without waiting (batch_to_device); False makes
         # each copy synchronous, the reference order for a pipelined run
         self.non_blocking = True
@@ -849,6 +888,14 @@ class StreamingSGDModel:
         )
         # step_many's captured graphs by (wire signature, K), oldest first
         self._graphs: dict = {}
+
+    def _make_step(self, **kwargs):
+        """The train step (``make_sgd_train_step``'s arguments)."""
+        return make_sgd_train_step(**kwargs)
+
+    def _zero_weights(self):
+        """MLlib's initial weights on the model's device."""
+        return zero_weights(self.num_text_features, self.dtype, self.device)
 
     @classmethod
     def from_conf(cls, conf, **overrides):
@@ -888,7 +935,7 @@ class StreamingSGDModel:
 
     def reset(self) -> "StreamingSGDModel":
         """Back to MLlib's initial state: zero weights."""
-        self._weights = zero_weights(self.num_text_features, self.dtype, self.device)
+        self._weights = self._zero_weights()
         return self
 
     @property

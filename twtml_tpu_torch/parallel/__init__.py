@@ -2,10 +2,12 @@
 ``twtml_tpu/parallel``): the tenant plane (``tenants.py``, ``--tenants
 M``), M stacked learners on one wire and one fetch a tick; the lockstep
 multi-host runtime (``distributed.py``, ``sharding.py``, ``mesh.py``),
-N processes training one model; and its elastic membership
-(``elastic.py``, ``service_host.py``, ``--elastic on``). The layouts over a
-model axis (the 2D feature-sharded step, the tenant fleet across hosts,
-the k-means mesh) are ROADMAP A10c.
+N processes training one model; its elastic membership (``elastic.py``,
+``service_host.py``, ``--elastic on``); and the layouts over a model axis
+(``mesh.py``'s ``ModelMesh``): the 2D feature-sharded step
+(``sharding.py``), the tenant stack over a mesh and the tenant fleet
+across hosts (``tenants.py``), and k-means across hosts
+(``models/kmeans.py``).
 
 The tenant plane's names import on first use, so a process that needs only
 a submodule (the elastic store's ``service_host``) does not load the

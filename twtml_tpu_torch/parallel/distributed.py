@@ -37,6 +37,7 @@ import os
 import pickle
 import socket
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -44,7 +45,7 @@ import torch
 from ..features.batch import RaggedUnitBatch, UnitBatch
 from ..telemetry import metrics as _metrics
 from ..utils import get_logger
-from .mesh import DataMesh, make_mesh
+from .mesh import DataMesh, ModelMesh, make_mesh
 
 log = get_logger("parallel.distributed")
 
@@ -59,15 +60,21 @@ MIN_COLLECTIVE_TIMEOUT_S = 30.0
 # lockstep tick adds exactly one cadence all-gather, a dispatched batch of
 # the ragged wire one alignment all-gather)
 COUNTERS = {
-    "cadence_allgathers": 0, "align_allgathers": 0, "broadcasts": 0,
+    "cadence_allgathers": 0, "align_allgathers": 0, "stats_allgathers": 0, "broadcasts": 0,
     "allreduces": 0, "row_allgathers": 0, "staged_copies": 0,
+    # each axis of a (data, model) mesh's own (``Collectives(axis=...)``)
+    "data_allreduces": 0, "data_row_allgathers": 0,
+    "model_allreduces": 0, "model_row_allgathers": 0,
 }
-# host seconds spent in them (the all-reduces with their staging copies and
-# the wait for the card; the cadence all-gathers with the wait for the peers)
-SECONDS = {"allreduce": 0.0, "cadence_allgather": 0.0}
+# host seconds spent in them (the all-reduces and row all-gathers with their
+# staging copies and the wait for the card; the cadence all-gathers with the
+# wait for the peers)
+SECONDS = {"allreduce": 0.0, "row_allgather": 0.0, "cadence_allgather": 0.0,
+           "data_allreduce": 0.0, "data_row_allgather": 0.0,
+           "model_allreduce": 0.0, "model_row_allgather": 0.0}
 
 _STATE: dict = {"mesh": None, "backend": None, "group": None, "host_group": None,
-                "device": None, "lead_rank": 0}
+                "device": None, "lead_rank": 0, "axis_groups": {}}
 
 
 def choose_backend(device_type: str, hosts: "list[tuple[str, int]]") -> str:
@@ -150,7 +157,7 @@ def form(store, process_id: int, num_processes: int, timeout: datetime.timedelta
                                     num_processes, timeout)
     _STATE.update(mesh=make_mesh(num_processes=num_processes, process_index=process_id),
                   backend=backend, group=group, host_group=host_group, store=store,
-                  lead_rank=int(lead_rank))
+                  lead_rank=int(lead_rank), axis_groups={})
     _metrics.get_registry().gauge("distributed.nccl").set(1 if backend == "nccl" else 0)
     log.info("joined process group: rank %d/%d on %s, collectives over %s",
              process_id, num_processes, device, backend)
@@ -196,9 +203,10 @@ def abandon() -> tuple:
     thread still inside one of its collectives, can block a shutdown): the
     group's objects are returned for the caller to keep alive, and the
     module forgets them. The device stays."""
-    kept = (_STATE.get("group"), _STATE.get("host_group"), _STATE.get("store"))
+    kept = (_STATE.get("group"), _STATE.get("host_group"), _STATE.get("store"),
+            tuple(_STATE["axis_groups"].values()))
     _STATE.update(mesh=None, backend=None, group=None, host_group=None, store=None,
-                  lead_rank=0)
+                  lead_rank=0, axis_groups={})
     return kept
 
 
@@ -208,7 +216,7 @@ def shutdown() -> None:
     An abandoned group is never here (``abandon``), so nothing waits on a
     dead peer."""
     _STATE.update(mesh=None, backend=None, group=None, host_group=None, store=None,
-                  device=None, lead_rank=0)
+                  device=None, lead_rank=0, axis_groups={})
 
 
 def mesh() -> DataMesh:
@@ -279,13 +287,19 @@ class Collectives:
     rank, ``group`` is the epoch's process group (None, and ``world`` 1,
     for a group of one: nothing is reduced and no all-reduce issued);
     ``staged`` routes card tensors through a page-locked host buffer (the
-    gloo transport)."""
+    gloo transport). ``axis`` names a mesh axis whose subgroup this is
+    ("data" or "model", ``MeshCollectives``; "" for the whole group): its
+    collectives count in ``COUNTERS`` and ``SECONDS`` under the axis's
+    own names (``data_allreduces``, ``model_row_allgather``, ...)."""
 
-    def __init__(self, *, rank: int = 0, world: int = 1, staged: bool = True, group=None):
+    def __init__(self, *, rank: int = 0, world: int = 1, staged: bool = True, group=None,
+                 axis: str = ""):
         self.rank = rank
         self.world = world
         self.staged = staged
         self.group = group
+        self.axis = axis
+        self._prefix = f"{axis}_" if axis else ""
         self._pinned: dict = {}
         if world > 1 and group is None:
             raise ValueError(f"a data-parallel step over {world} ranks needs their group")
@@ -313,12 +327,12 @@ class Collectives:
         stream. A group of one returns ``t`` as it is."""
         if self.world <= 1:
             return t
-        COUNTERS["allreduces"] += 1
+        COUNTERS[self._prefix + "allreduces"] += 1
         t0 = time.perf_counter()
         try:
             return self._allreduce(t)
         finally:
-            SECONDS["allreduce"] += time.perf_counter() - t0
+            SECONDS[self._prefix + "allreduce"] += time.perf_counter() - t0
 
     def _allreduce(self, t: torch.Tensor) -> torch.Tensor:
         if t.is_cuda and self.staged:
@@ -338,19 +352,96 @@ class Collectives:
         """Every rank's [B_local, ...] rows of ``t`` in rank order: [ranks ·
         B_local, ...] on ``t``'s device (a card tensor over gloo goes
         through the host)."""
-        COUNTERS["row_allgathers"] += 1
         t = t.contiguous()
         if self.world <= 1:
             return t
-        if t.is_cuda and not self.staged:
-            out = torch.empty((self.world * t.shape[0],) + tuple(t.shape[1:]),
-                              dtype=t.dtype, device=t.device)
-            self.group._allgather_base(out, t).wait()
-            return out
-        src = t.cpu()
-        parts = [torch.empty_like(src) for _ in range(self.world)]
-        self.group.allgather([parts], [src]).wait()
-        return torch.cat(parts).to(t.device)
+        COUNTERS[self._prefix + "row_allgathers"] += 1
+        t0 = time.perf_counter()
+        try:
+            if t.is_cuda and not self.staged:
+                out = torch.empty((self.world * t.shape[0],) + tuple(t.shape[1:]),
+                                  dtype=t.dtype, device=t.device)
+                self.group._allgather_base(out, t).wait()
+                return out
+            src = t.cpu()
+            parts = [torch.empty_like(src) for _ in range(self.world)]
+            self.group.allgather([parts], [src]).wait()
+            return torch.cat(parts).to(t.device)
+        finally:
+            SECONDS[self._prefix + "row_allgather"] += time.perf_counter() - t0
+
+    def all_gather_columns(self, *tensors: torch.Tensor) -> tuple:
+        """Every rank's rows of each of ``tensors`` (float32 or int32, one
+        leading row axis, all of the same rows), in ONE all-gather: the
+        int32 ones travel as their float32 bits beside the others' columns
+        in one [B_local, columns] buffer, and come back as they went."""
+        cols = []
+        for t in tensors:
+            if t.dtype not in (torch.float32, torch.int32):
+                raise ValueError(f"all_gather_columns takes float32 or int32, got {t.dtype}")
+            c = t.reshape(t.shape[0], -1)
+            cols.append(c.view(torch.float32) if c.dtype == torch.int32 else c)
+        gathered = self.all_gather_rows(torch.cat(cols, dim=1))
+        out, start = [], 0
+        for t, c in zip(tensors, cols):
+            part = gathered[:, start:start + c.shape[1]].contiguous()
+            start += c.shape[1]
+            if t.dtype == torch.int32:
+                part = part.view(torch.int32)
+            out.append(part.reshape((gathered.shape[0],) + tuple(t.shape[1:])))
+        return tuple(out)
+
+
+class MeshCollectives(NamedTuple):
+    """The two axes of a ``('data', 'model')`` mesh (``parallel/mesh.py``
+    ``ModelMesh``) as ``Collectives`` over their subgroups: ``data``, the
+    ranks of this rank's model index (they hold the same feature slice),
+    and ``model``, the ranks of this rank's data index (they hold the same
+    rows)."""
+
+    data: Collectives
+    model: Collectives
+
+    @classmethod
+    def from_group(cls, mesh_: ModelMesh) -> "MeshCollectives":
+        """The two axis subgroups of the current group laid out as
+        ``mesh_`` (whose ranks must be the group's), formed on first use
+        and kept for the epoch (``axis_collectives``)."""
+        return cls(axis_collectives(mesh_, "data"), axis_collectives(mesh_, "model"))
+
+
+def axis_collectives(mesh_: ModelMesh, axis: str) -> Collectives:
+    """``Collectives`` over this rank's ``axis`` subgroup of the current
+    group laid out as ``mesh_``: an explicit process group of the group's
+    backend over a prefix of the group's store, which only the subgroup's
+    own ranks join (so the subgroups need no global order of creation; a
+    rank forms its model axis before its data axis, and every rank does the
+    same). Kept until the group is left (``abandon``, ``shutdown``). An
+    axis of one rank has no group and issues no collective."""
+    import torch.distributed as dist
+
+    m = mesh()
+    if (mesh_.num_processes, mesh_.process_index) != (m.num_processes, m.process_index):
+        raise ValueError(f"a mesh of {mesh_.num_processes} ranks placing this one at "
+                         f"{mesh_.process_index} does not lay out the current group "
+                         f"({m.num_processes} ranks, this one {m.process_index})")
+    ranks = mesh_.axis_ranks(axis)
+    key = (axis, tuple(ranks))
+    coll = _STATE["axis_groups"].get(key)
+    if coll is None:
+        index = ranks.index(mesh_.process_index)
+        group = None
+        if len(ranks) > 1:
+            if axis == "data" and ("model", tuple(mesh_.axis_ranks("model"))) not in \
+                    _STATE["axis_groups"]:
+                axis_collectives(mesh_, "model")  # every rank: the model axis first
+            store = dist.PrefixStore(f"axis/{axis}/{ranks[0]}/", _STATE["store"])
+            group = _process_group(_STATE["backend"], store, index, len(ranks),
+                                   collective_timeout())
+        coll = Collectives(rank=index, world=len(ranks), staged=_STATE["backend"] == "gloo",
+                           group=group, axis=axis)
+        _STATE["axis_groups"][key] = coll
+    return coll
 
 
 # ---- the cross-host agreement of the shard-segment wire --------------------

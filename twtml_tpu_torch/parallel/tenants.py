@@ -27,9 +27,26 @@ work, not a round trip.
   and aggregates the tick into one batch-level StepOutput
   (``aggregate_tenant_output``) for the chain that predates tenants.
 
-Not here: a mesh and ``MultiHostTenantModel`` (the tenant plane across
-devices and hosts, ROADMAP A10c), and ``mapping="vmap"``, whose Hopper form is B1 with a tenant
-grid dimension (ROADMAP B10).
+Over a process group (``mesh``, with its ``group``'s Collectives):
+
+- on a data axis (``DataMesh``) each tenant's step is the data-parallel
+  step of this rank's part of the rows (``make_sgd_train_step(group=...)``:
+  on the card B1's split, once a tenant), every rank holding the whole
+  stack, replicated;
+- on a ``('data', 'model')`` mesh (``ModelMesh``) the TENANTS shard over
+  ``model``: rank (d, m) holds and trains tenants [m·M/n, (m+1)·M/n) (n the
+  model axis) on data shard d's rows, data-parallel over ``data``; the
+  tenants are independent, so no collective crosses ``model`` inside a
+  tick. Its step returns its own tenants' [M/n]-leading outputs, and
+  ``latest_weights`` all-gathers the stack over ``model``.
+
+``MultiHostTenantModel`` is the tenant fleet of the multi-host runtime
+(``--tenants M`` in a group): each host routes its own rows with the
+deterministic key into the stacked wire, the tenant stack on the group's
+data axis, one fetch a tick.
+
+Not here: ``mapping="vmap"``, whose Hopper form is B1 with a tenant grid
+dimension (ROADMAP B10).
 """
 
 from __future__ import annotations
@@ -142,6 +159,7 @@ class TenantStackModel:
         wire_pack: str = "stacked",
         wire_codec: str = "",
         mesh=None,
+        group=None,
         step_sizes=None,
         l2_regs=None,
         mapping: str = "scan",
@@ -157,9 +175,24 @@ class TenantStackModel:
         if mapping == "vmap":
             raise _refuse("mapping='vmap' batches the tenants in one program: on the card "
                           "that is B1 with a tenant grid dimension", "B10")
+        self.mesh = mesh
+        # this rank's tenants [tenant0, tenant0 + num_local) and the group
+        # their steps reduce over (the data axis)
+        self.num_local, self.tenant0, data_group = num_tenants, 0, None
+        self._model_group = None
         if mesh is not None:
-            raise _refuse("a mesh shards the tenant plane over devices and hosts (the "
-                          "tenant fleet of the multi-host runtime)", "A10c")
+            if group is None:
+                raise ValueError("a tenant plane over a mesh needs its group's Collectives")
+            data_group = group
+            if mesh.num_model > 1:
+                if num_tenants % mesh.num_model:
+                    raise ValueError(f"{num_tenants} tenants not divisible by the mesh's "
+                                     f"model axis ({mesh.num_model})")
+                self.num_local = num_tenants // mesh.num_model
+                self.tenant0 = mesh.model_index * self.num_local
+                data_group, self._model_group = group.data, group.model
+                # the stacked wire: the group buffer has no tenant-axis layout
+                wire_pack = "stacked"
         self.num_tenants = num_tenants
         self.num_text_features = num_text_features
         self.dtype = dtype
@@ -185,7 +218,8 @@ class TenantStackModel:
         self.l2_regs = per_tenant(l2_regs, l2_reg, "l2_regs")
         built: dict = {}
         self._steps = []
-        for hyper in zip(self.step_sizes, self.l2_regs):
+        mine = slice(self.tenant0, self.tenant0 + self.num_local)
+        for hyper in zip(self.step_sizes[mine], self.l2_regs[mine]):
             if hyper not in built:  # tenants with equal hyperparameters share one
                 built[hyper] = make_sgd_train_step(
                     num_text_features=num_text_features, num_iterations=num_iterations,
@@ -194,19 +228,21 @@ class TenantStackModel:
                     residual_fn=residual_fn, prediction_fn=prediction_fn,
                     round_predictions=round_predictions, quality=quality, dtype=dtype,
                     use_sparse=use_sparse, use_gram=use_gram, gram_int8=gram_int8,
+                    group=data_group,
                 )
             self._steps.append(built[hyper])
         self.route = self._steps[0].route
-        log.info("tenant plane: %d tenants, key %s, %s wire, %s step route on %s",
-                 num_tenants, tenant_key, wire_pack, self.route, self.device)
-        self._weights = torch.zeros((num_tenants, num_text_features + NUM_NUMBER_FEATURES),
+        log.info("tenant plane: %d tenants (%d on this rank), key %s, %s wire, %s step route "
+                 "on %s", num_tenants, self.num_local, tenant_key, wire_pack, self.route,
+                 self.device)
+        self._weights = torch.zeros((self.num_local, num_text_features + NUM_NUMBER_FEATURES),
                                     dtype=dtype, device=self.device)
         self.non_blocking = True
         self.stream = (torch.cuda.current_stream(self.device)
                        if self.device.type == "cuda" else None)
 
     @classmethod
-    def from_conf(cls, conf, mesh=None, **overrides):
+    def from_conf(cls, conf, mesh=None, group=None, **overrides):
         from ..models.sgd import DTYPES
 
         kwargs = dict(
@@ -223,6 +259,7 @@ class TenantStackModel:
                        and conf.effective_wire() == "ragged" else "stacked"),
             wire_codec=conf.effective_wire_codec(),
             mesh=mesh,
+            group=group,
             quality=conf.modelWatch == "on",
             device=conf.backend,
         )
@@ -250,8 +287,9 @@ class TenantStackModel:
     def prepare_wire(self, batch):
         """A host batch as the M-tenant wire: routed and split, then one
         ``pack_ragged_group`` buffer (``wire_pack="group"``, ragged) or the
-        stacked arrays."""
-        return self.prepare_wire_from_parts(self.split(batch))
+        stacked arrays; on a model axis this rank's tenants' parts only."""
+        parts = self.split(batch)
+        return self.prepare_wire_from_parts(parts[self.tenant0:self.tenant0 + self.num_local])
 
     def prepare_wire_from_parts(self, parts):
         """M same-signature batches (routed by the caller, or one batch
@@ -307,8 +345,12 @@ class TenantStackModel:
     @property
     def latest_weights(self) -> np.ndarray:
         """[M, F+4] on the host: one checkpointable array for every tenant
-        (a blocking copy; read it at a drained boundary)."""
+        (a blocking copy; read it at a drained boundary). On a model axis
+        the ranks' tenants are all-gathered over ``model``: a collective,
+        which every rank calls at the same point."""
         w = self._weights.detach()
+        if self._model_group is not None:
+            w = self._model_group.all_gather_rows(w)
         if w.dtype == torch.bfloat16:
             w = w.float()
         return w.cpu().numpy().copy()
@@ -326,6 +368,7 @@ class TenantStackModel:
         if w.shape[0] != self.num_tenants:
             raise ValueError(f"stacked weights lead with {w.shape[0]} tenants; "
                              f"this plane has {self.num_tenants}")
+        w = w[self.tenant0:self.tenant0 + self.num_local]
         if tuple(w.shape) != tuple(self._weights.shape):
             raise ValueError(f"weights must have shape {tuple(self._weights.shape)}, "
                              f"got {tuple(w.shape)}")
@@ -342,9 +385,92 @@ class TenantStackModel:
 
 
 class MultiHostTenantModel:
-    """The tenant plane behind per-host sharded intake: the tenant fleet of
-    the multi-host runtime (ROADMAP A10c)."""
+    """The tenant fleet of the multi-host runtime (the JAX package's
+    ``MultiHostTenantModel``, ``--tenants M`` in a group): the tenant stack
+    behind per-host sharded intake. ``inner`` is a ``TenantStackModel`` on
+    the group's data axis (every rank holds the whole [M, F+4] stack,
+    replicated like the single model's weights). Each host routes ITS OWN
+    rows with the deterministic key into the M-tenant split, stacks them
+    and steps its part of every tenant's data-parallel step; one fetch a
+    tick of the [M]-leading output (global stats, this rank's rows'
+    predictions). The stacked wire is the only one (``accepts_packed``
+    False: the coalesced group buffer has no tenant axis across hosts),
+    built as this rank's ``pack_for_wire``. Ragged parts agree one per-shard
+    unit capacity across every part and every host with ONE all-gather of
+    this host's largest need a batch (``_stack_ragged_parts``), their units
+    widened to uint16. ``rebuild`` swaps in a stack for an elastic epoch's
+    mesh, as ``MultiHostSGDModel.rebuild`` does."""
 
-    def __init__(self, *args, **kwargs):
-        raise _refuse("MultiHostTenantModel runs the tenant plane across hosts (the "
-                      "tenant fleet of the multi-host runtime)", "A10c")
+    accepts_packed = False
+    wire_pack = "stacked"
+    wire_codec = ""  # the stacked wire ships raw
+
+    def __init__(self, inner: TenantStackModel, mesh, rebuilder=None):
+        self.inner = inner
+        self.mesh = mesh
+        self.num_data = mesh.num_data
+        self._lead = mesh.process_index == 0
+        self._rebuilder = rebuilder
+
+    def rebuild(self, mesh) -> "MultiHostTenantModel":
+        """A fresh stack for a NEW epoch's ``mesh``, in place (the caller
+        restores the weights from the lead's broadcast before the next
+        tick)."""
+        if self._rebuilder is None:
+            raise RuntimeError("MultiHostTenantModel.rebuild needs the rebuilder closure "
+                               "(set by apps/common.build_model)")
+        self.inner = self._rebuilder(mesh)
+        self.mesh = mesh
+        self.num_data = mesh.num_data
+        self._lead = mesh.process_index == 0
+        return self
+
+    # the tenant plane's surface, which the app runtime reads
+    num_tenants = property(lambda self: self.inner.num_tenants)
+    tenant_key = property(lambda self: self.inner.tenant_key)
+    route = property(lambda self: self.inner.route)
+    device = property(lambda self: self.inner.device)
+
+    def route_ids(self, batch) -> np.ndarray:
+        return self.inner.route_ids(batch)
+
+    def bind_thread(self) -> None:
+        self.inner.bind_thread()
+
+    def _stack_ragged_parts(self, parts):
+        """M ragged tenant parts as ONE stacked batch, each aligned as this
+        rank's one shard segment at the capacity every part on every host
+        needs: one all-gather (``host_allgather``, an ``align`` agreement)
+        of this host's largest need."""
+        from ..features.batch import align_ragged_shards, ragged_shard_bucket
+        from .distributed import _as_units, host_allgather
+
+        parts = [_as_units(p, np.uint16) for p in parts]
+        need = max(ragged_shard_bucket(p, 1) for p in parts)
+        agreed = int(host_allgather(np.array([need], np.float64), "align")[:, 0].max())
+        return stack_batches([align_ragged_shards(p, 1, unit_bucket=agreed) for p in parts])
+
+    def pack_for_wire(self, batch):
+        """This host's rows as the stacked M-tenant wire."""
+        parts = self.inner.split(batch)
+        if isinstance(parts[0], RaggedUnitBatch):
+            return self._stack_ragged_parts(parts)
+        return stack_batches(parts)
+
+    def step(self, batch) -> StepOutput:
+        """One tick on this host's rows (a host batch, or its stacked wire
+        from ``pack_for_wire``); the [M]-leading device StepOutput."""
+        wire = batch if self.inner._is_tenant_wire(batch) else self.pack_for_wire(batch)
+        return self.inner.step(wire)
+
+    def fetch_output(self, out):
+        """Start the ONE host fetch of a tick's output."""
+        return self.inner.fetch_output(out)
+
+    @property
+    def latest_weights(self) -> np.ndarray:
+        return self.inner.latest_weights
+
+    def set_initial_weights(self, weights) -> "MultiHostTenantModel":
+        self.inner.set_initial_weights(weights)
+        return self
