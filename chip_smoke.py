@@ -291,11 +291,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
                launches and the phase's wall. The detached store processes
                the ranks start are gone (or stopped) when the phase ends.
 26. modelaxis — the layouts over a model axis, every rank on cuda:0 over
-               gloo: B4 at each [2048, 2^17] slice against its twin
-               (bitwise in the int8 and bf16 planes), the G that a 2 x 2
-               and a 1 x 2 group sum from their ranks' panels bitwise one
-               process's G, B7 on it and B8 at a rank's [1024, 2^17] slice
-               against their twins, on short tweets and tweet-length rows,
+               gloo, on tweets of ASCII and CJK words (an ASCII bigram
+               hashes below 4,064, so only wider code units reach the
+               second half of 2^18): B4 at each [2048, 2^17] slice, each
+               holding tokens, bitwise its twin (short tweets int8 in both
+               slices; tweet-length rows exact in the first, bf16 in the
+               second), the G that a 2 x 2 and a 1 x 2 group sum from
+               their ranks' panels bitwise one process's G, B7 on it and
+               B8 at each rank's [1024, 2^17] slice against their twins,
                and B4 at a [2048, 500] slice; then
                ``tests/torch_mesh_worker.py`` in a 2 x 2 group (4 ranks)
                and a 1 x 2 group (2 ranks): the 2D Gram step at BASELINE
@@ -337,6 +340,15 @@ line is that JSON.
 ``python3 chip_smoke.py --elastic-ab N`` runs phases 1 and 2 and then
 only N alternating pairs of healthy group runs, lockstep and ``--elastic
 on`` (``elastic_ab``); its last line is their JSON.
+
+``python3 chip_smoke.py --modelaxis-only`` runs phases 1 and 2 and then
+only the modelaxis phase, its tenant fleet and k-means app on synthetic
+tweets; its last line is the phase's JSON.
+
+``python3 chip_smoke.py --gram-ab N --package-root DIR`` runs phases 1 and
+2 (on DIR's port) and then only N alternating pairs of the app's 2-rank
+2^18 Gram route, the port found in DIR (e.g. the parent commit unpacked
+there) against this checkout's (``gram_ab``); its last line is their JSON.
 """
 
 from __future__ import annotations
@@ -6453,9 +6465,16 @@ def elastic_phase(smi, statuses, lockstep):
 # ---- the modelaxis phase: the layouts over a model axis, ranks on cuda:0 ----
 
 MA_BATCHES = 3  # global batches of each 2^18 arm
-MA_UNITS = 128  # the short tweets' units row (mass <= 127: the int8 plane)
+MA_SHORT_SPAN = (16, 120)  # short tweets' code units (mass <= 127: the int8 plane)
+MA_UNITS = 128
 MA_LONG_SPAN = (140, 280)  # tweet-length rows (f32 counts on one process)
 MA_LONG_UNITS = 512
+MA_CJK = (0x4E00, 0xA000)  # CJK ideographs: their bigrams reach both halves of 2^18
+MA_WIDE_ROW = 200  # the tweet-length arm's row of second-half bigrams only
+# each arm's planes at the two [B, 2^17] slices: the short tweets int8 in
+# both; the tweet-length rows exact in the first (an ASCII row of 280
+# units) and bf16 in the second (a row of MA_WIDE_ROW units hashed there)
+MA_SLICE_PLANES = {"short": ["int8", "int8"], "long": ["exact", "bf16"]}
 MA_SMALL_F = 1000  # the small arm: B4 at a 500-column slice on 2 x 2
 MA_SCATTER_ROWS, MA_SCATTER_BATCHES, MA_SCATTER_ITERS = 256, 2, 10
 MA_TENANTS = 4
@@ -6491,6 +6510,58 @@ print(json.dumps({"count": totals["count"], "batches": totals["batches"],
                   "collectives": distributed.COUNTERS, "seconds": distributed.SECONDS}),
       flush=True)
 """
+
+
+def ma_statuses(span, rows, batches, seed, heads=False):
+    """``batches`` x ``rows`` retweets of ASCII and CJK words (about half
+    each), each row's length uniform in ``span`` code units and each
+    batch's first row at the longest; the retweet count linear in
+    followers and text length, as SyntheticSource makes it. An ASCII
+    bigram hashes below 4,064 (``31·c₁ + c₂``), so at 2^18 only the wider
+    code units reach the second half of the features, the second model
+    slice of a 2-way axis. With ``heads`` each batch's row 0 is ASCII only
+    (every bigram in the first half) and row 1 MA_WIDE_ROW units of
+    ideographs whose every bigram lands in the second half, which set the
+    slices' planes (MA_SLICE_PLANES)."""
+    import numpy as np
+
+    from twtml_tpu_torch.features.featurizer import Status
+
+    rng = np.random.default_rng(seed)
+    ascii_ = np.array(list("abcdefghijklmnopqrstuvwxyz0123456789"))
+    cjk = np.arange(*MA_CJK)
+    # (31·c mod 2^18) + any unit below MA_CJK[1] stays in [2^17, 2^18)
+    wide = cjk[((31 * cjk) % 2**18 >= 2**17) & ((31 * cjk) % 2**18 < 2**18 - MA_CJK[1])]
+
+    def word():
+        n = int(rng.integers(2, 6))
+        if rng.random() < 0.5:
+            return "".join(rng.choice(ascii_, n))
+        return "".join(chr(int(c)) for c in rng.choice(cjk, n))
+
+    def text(n, k):
+        if heads and k == 0:
+            return "".join(rng.choice(ascii_, n))
+        if heads and k == 1:
+            return "".join(chr(int(c)) for c in rng.choice(wide, MA_WIDE_ROW))
+        t = ""
+        while len(t) < n:
+            t += word() + " "
+        return t[:n]
+
+    out = []
+    for _ in range(batches):
+        lengths = rng.integers(span[0], span[1] + 1, rows)
+        lengths[0] = span[1]
+        for k, n in enumerate(lengths.tolist()):
+            t = text(n, k)
+            fo = int(rng.integers(100, 2_000_000))
+            label = int(np.clip(100 + fo * 4e-4 + len(t) * 2 + rng.normal(0, 20), 100, 1000))
+            original = Status(text=t, retweet_count=label, followers_count=fo,
+                              favourites_count=fo % 50_000, friends_count=fo % 10_000,
+                              created_at_ms=NOW_MS - int(rng.integers(0, 86_400_000)))
+            out.append(Status(text="RT " + t, retweeted_status=original))
+    return out
 
 
 def ma_group(name, workdir, nprocs, spec):
@@ -6614,10 +6685,11 @@ def ma_slice(idx, val, f_local, m):
 
 def ma_kernel_holds(name, batch, features, num_model=2, num_data=2):
     """The 2D route's kernels at the slice's shapes on one batch, against
-    their twins: B4 at each [B, F/num_model] slice (bitwise in the int8
-    and bf16 planes), the G a (num_data x num_model) group sums from its
-    ranks' panels (bitwise the one-process G), B7 on it and B8 at a rank's
-    slice. Returns each kernel's max error and the slices' planes."""
+    their twins: B4 at each [B, F/num_model] slice bitwise in every plane
+    (its counts are integer sums), the G a (num_data x num_model) group
+    sums from its ranks' panels (bitwise the one-process G), B7 on it and
+    B8 at each rank's [B/num_data, F/num_model] slice. Every slice must
+    hold tokens. Returns each kernel's max error and the slices' planes."""
     import torch
 
     from twtml_tpu_torch.models.sgd import batch_to_device, decode_batch, host_planes
@@ -6632,27 +6704,28 @@ def ma_kernel_holds(name, batch, features, num_model=2, num_data=2):
     g_full = fused_gram.gram_from_counts(c_full)[:b, :b]
     del c_full
     g_sum, g_sum1 = torch.zeros_like(g_full), torch.zeros_like(g_full)
-    planes, errs, rows = [], {"count_build": 0.0}, b // num_data
+    planes, counts, errs, rows = [], [], {"count_build": 0.0}, b // num_data
     for m in range(num_model):
         rel, val_m = ma_slice(idx, val, f_local, m)
+        tokens = int(torch.count_nonzero(val_m))
+        if tokens == 0:
+            raise AssertionError(f"modelaxis {name}: slice {m} holds no token")
         plane = gram.data_plane(val_m)
         planes.append(gram.PLANE_NAMES[plane])
         c = fused_gram.count_build(rel, val_m, f_local, int8=plane == gram.PLANE_INT8)
         ref = fused_gram.count_build_reference(rel, val_m, f_local,
                                                int8=plane == gram.PLANE_INT8,
                                                rows_out=c.shape[0], cols_out=c.shape[1])
-        e = float((c.float() - ref.float()).abs().max())
-        if plane != gram.PLANE_EXACT and e != 0.0:
-            raise AssertionError(f"modelaxis {name}: B4 at slice {m} [{b}, {f_local}] differs "
-                                 f"from its twin by {e:.3g}")
-        errs["count_build"] = max(errs["count_build"], e)
+        if not torch.equal(c, ref):
+            raise AssertionError(f"modelaxis {name}: B4 at slice {m} [{b}, {f_local}] in the "
+                                 f"{planes[-1]} plane differs from its twin by "
+                                 f"{float((c.float() - ref.float()).abs().max()):.3g}")
         del ref
         panels = [fused_gram.gram_from_counts(c, rows=(d * rows, rows))[:, :b]
                   for d in range(num_data)]
         g_sum += torch.cat(panels)  # the num_data x num_model ranks' panels
         g_sum1 += fused_gram.gram_from_counts(c)[:b, :b]  # a 1 x num_model rank's
-        if m == 0:
-            c0 = c
+        counts.append(c)
     for layout, got in ((f"{num_data} x {num_model}", g_sum), (f"1 x {num_model}", g_sum1)):
         if not torch.equal(got, g_full):
             raise AssertionError(f"modelaxis {name}: G summed over the model axis of "
@@ -6668,14 +6741,16 @@ def ma_kernel_holds(name, batch, features, num_model=2, num_data=2):
     compare(f"modelaxis {name} B7 c", c_.reshape(1), c_r.reshape(1))
     zeros = torch.zeros((f_local + 4,), dtype=torch.float32, device=dev)
     alpha0 = a[:rows].contiguous()
-    w = fused_gram.dual_writeback_counts(zeros, c_, alpha0, c0[:rows], num[:rows], f_local)
-    w_r = fused_gram.dual_writeback_reference(zeros, c_, alpha0, c0[:rows], num[:rows],
-                                              f_local)
-    e = float((w - w_r).abs().max())
-    if e > WEIGHT_RTOL * float(w_r.abs().max()):
-        raise AssertionError(f"modelaxis {name}: B8 at slice 0 [{rows}, {f_local}] differs "
-                             f"from its twin by {e:.3g}")
-    errs["dual_writeback_counts"] = e
+    errs["dual_writeback_counts"] = 0.0
+    for m, c in enumerate(counts):
+        w = fused_gram.dual_writeback_counts(zeros, c_, alpha0, c[:rows], num[:rows], f_local)
+        w_r = fused_gram.dual_writeback_reference(zeros, c_, alpha0, c[:rows], num[:rows],
+                                                  f_local)
+        e = float((w - w_r).abs().max())
+        if e > WEIGHT_RTOL * float(w_r.abs().max()):
+            raise AssertionError(f"modelaxis {name}: B8 at slice {m} [{rows}, {f_local}] "
+                                 f"differs from its twin by {e:.3g}")
+        errs["dual_writeback_counts"] = max(errs["dual_writeback_counts"], e)
     return errs, planes
 
 
@@ -6737,8 +6812,9 @@ def modelaxis_phase(smi, statuses):
     card over gloo (tests/torch_mesh_worker.py at the library level, the
     apps in a group). (a) The 2D Gram step at BASELINE config #4 (2^18, L2
     0.1, 50 iterations, B = 2048 global) on 2 x 2 and 1 x 2, short tweets
-    (the int8 plane) and tweet-length rows, each 3 batches against the
-    port's one-process step on the card; B4, the summed G, B7 and B8 at the
+    (the int8 plane) and tweet-length rows of ASCII and CJK words (tokens in
+    both slices, MA_SLICE_PLANES), each 3 batches against the port's
+    one-process step on the card; B4, the summed G, B7 and B8 at the
     slice's shapes against their twins and one process's G; a small arm at
     F = 1000 (B4 at a 500-column slice). (b) The scatter route on 2 x 2.
     (c) A checkpoint round trip on 2 x 2, bitwise. (d) ``--tenants 4`` on 2
@@ -6753,7 +6829,7 @@ def modelaxis_phase(smi, statuses):
 
     from twtml_tpu_torch.models.kmeans import StreamingKMeans
     from twtml_tpu_torch.parallel.tenants import TenantStackModel
-    from twtml_tpu_torch.streaming.sources import ReplayFileSource, SyntheticSource
+    from twtml_tpu_torch.streaming.sources import ReplayFileSource
 
     t_phase = time.perf_counter()
     workdir = tempfile.mkdtemp(prefix="twtml-modelaxis-")
@@ -6761,13 +6837,13 @@ def modelaxis_phase(smi, statuses):
     gram_kw = dict(num_text_features=GRAM_F, num_iterations=OP_ITERS, step_size=0.005,
                    l2_reg=0.1)
     try:
-        short = list(SyntheticSource(total=MA_BATCHES * GRAM_ROWS, seed=17,
-                                     base_ms=NOW_MS).produce())
+        short = ma_statuses(MA_SHORT_SPAN, GRAM_ROWS, MA_BATCHES, 17)
         data = {
             "short": ma_unit_batches(os.path.join(workdir, "short.npz"), short, GRAM_ROWS,
                                      GRAM_F, MA_UNITS),
             "long": ma_unit_batches(os.path.join(workdir, "long.npz"),
-                                    long_statuses((MA_LONG_SPAN,) * MA_BATCHES, GRAM_ROWS, 29),
+                                    ma_statuses(MA_LONG_SPAN, GRAM_ROWS, MA_BATCHES, 29,
+                                                heads=True),
                                     GRAM_ROWS, GRAM_F, MA_LONG_UNITS),
             "small": ma_unit_batches(os.path.join(workdir, "small.npz"), short, GRAM_ROWS,
                                      MA_SMALL_F, MA_UNITS),
@@ -6785,11 +6861,14 @@ def modelaxis_phase(smi, statuses):
         holds = {}
         for name in ("short", "long"):
             errs, planes = ma_kernel_holds(name, data[name][0], GRAM_F)
+            if planes != MA_SLICE_PLANES[name]:
+                raise AssertionError(f"modelaxis {name}: slice planes {planes}, want "
+                                     f"{MA_SLICE_PLANES[name]}")
             holds[name] = {"errors": errs, "slice_planes": planes}
-            phase("modelaxis", f"{name}: B4 at two [{GRAM_ROWS}, {GRAM_F // 2}] slices "
-                  f"(planes {planes}) against its twin (max err {errs['count_build']:.3g}); G "
-                  f"summed from the 2 x 2 and 1 x 2 ranks' panels bitwise one process's; B7 on "
-                  f"it {errs['dual_sgd']:.3g}, B8 at a [{GRAM_ROWS // 2}, {GRAM_F // 2}] slice "
+            phase("modelaxis", f"{name}: B4 at two [{GRAM_ROWS}, {GRAM_F // 2}] slices, each "
+                  f"holding tokens (planes {planes}), bitwise its twin; G summed from the 2 x 2 "
+                  f"and 1 x 2 ranks' panels bitwise one process's; B7 on it "
+                  f"{errs['dual_sgd']:.3g}, B8 at each [{GRAM_ROWS // 2}, {GRAM_F // 2}] slice "
                   f"{errs['dual_writeback_counts']:.3g} against their twins")
         errs, planes = ma_kernel_holds("small", data["small"][0], MA_SMALL_F)
         holds["small"] = {"errors": errs, "slice_planes": planes}
@@ -7114,6 +7193,88 @@ def elastic_ab(smi, pairs):
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+def gram_ab(smi, pairs, parent_root):
+    """``--gram-ab N --package-root DIR``: the app's data-parallel 2^18 Gram
+    route on 2 ranks (the multihost phase's gram arm: BASELINE config #4, B
+    = 2048, 1024 rows a rank, MH_BATCHES batches of short synthetic tweets)
+    with the port found in DIR (another checkout, e.g. the parent commit
+    unpacked there) against this checkout's, in N pairs, the order
+    alternating. Per run and rank: the step's device ms (median), the host
+    wall a tick, the row all-gathers and all-reduces a step and their ms,
+    tweets/s. The lead's lines are held equal between the two trees."""
+    import shutil
+    import tempfile
+
+    from twtml_tpu_torch.streaming.sources import SyntheticSource
+
+    global PACKAGE_ROOT
+    roots = {"parent": parent_root, "change": HERE}
+    workdir = tempfile.mkdtemp(prefix="twtml-gram-ab-")
+    runs = {"parent": [], "change": []}
+    try:
+        path = os.path.join(workdir, "gram.jsonl")
+        write_replay(path, SyntheticSource(total=MH_BATCHES * GRAM_ROWS, seed=5,
+                                           base_ms=NOW_MS).produce())
+        argv = [*MH_ARGV, "--replayFile", path, "--batchBucket", str(GRAM_ROWS // MH_RANKS),
+                *MH_GRAM_ARGV]
+        for i in range(pairs):
+            order = ("parent", "change") if i % 2 == 0 else ("change", "parent")
+            lines = {}
+            for arm in order:
+                PACKAGE_ROOT = roots[arm]
+                res = mh_ok(f"gram-ab {arm} {i}", mh_group(f"gram-ab-{i}", argv))
+                lines[arm] = res[0][1]
+                for rank, (_rc, _l, rec, _err, _wall) in enumerate(res):
+                    c, sec = rec["collectives"], rec["seconds"]
+                    steps = MH_BATCHES + 1  # and the warm-up's
+                    ticks = max(1, c["cadence_allgathers"])
+                    row = {"pair": i, "rank": rank, "position": order.index(arm),
+                           "step_device_ms": statistics.median(rec["step_ms"]),
+                           "host_wall_a_tick_ms": 1e3 * rec["stream_seconds"] / ticks,
+                           "row_allgathers_a_step": c.get("row_allgathers", 0) / steps,
+                           # a tree that does not time its row all-gathers: None
+                           "row_allgather_ms_a_step": (1e3 * sec["row_allgather"] / steps
+                                                       if "row_allgather" in sec else None),
+                           "allreduces_a_step": c["allreduces"] / steps,
+                           "allreduce_ms_a_step": 1e3 * sec["allreduce"] / steps,
+                           "tweets_per_s": rec["count"] / rec["stream_seconds"]}
+                    runs[arm].append(row)
+                    phase("gram-ab", f"pair {i} {arm} (run {order.index(arm) + 1} of 2) rank "
+                          f"{rank}: step {row['step_device_ms']:.2f} ms (CUDA events), host "
+                          f"wall a tick {row['host_wall_a_tick_ms']:.1f} ms; a step "
+                          f"{row['row_allgathers_a_step']:.0f} row all-gathers in "
+                          f"{row['row_allgather_ms_a_step'] or 'untimed'} ms, "
+                          f"{row['allreduces_a_step']:.0f} all-reduces in "
+                          f"{row['allreduce_ms_a_step']:.2f} ms; "
+                          f"{row['tweets_per_s']:.0f} tweets/s")
+            if lines["parent"] != lines["change"] or not lines["change"]:
+                raise AssertionError(f"gram-ab pair {i}: the lead's lines differ between the "
+                                     f"trees: {lines['parent'][:2]} against "
+                                     f"{lines['change'][:2]}")
+        keys = ("step_device_ms", "host_wall_a_tick_ms", "row_allgather_ms_a_step",
+                "allreduce_ms_a_step", "tweets_per_s")
+        medians = {arm: {k: statistics.median([r[k] for r in rows if r[k] is not None]
+                                              or [float("nan")]) for k in keys}
+                   for arm, rows in runs.items()}
+        # a run's host wall a tick: the mean over its ranks; a pair is won by
+        # the arm whose run took less
+        walls = {arm: [statistics.mean(r["host_wall_a_tick_ms"] for r in rows if r["pair"] == i)
+                       for i in range(pairs)] for arm, rows in runs.items()}
+        wins = sum(c < p for c, p in zip(walls["change"], walls["parent"]))
+        q = statistics.quantiles(walls["parent"], n=4) if pairs > 1 else [0.0, 0.0, 0.0]
+        phase("gram-ab", f"medians over {pairs} pairs x {MH_RANKS} ranks: change "
+              f"{medians['change']} against parent {medians['parent']}; the change's run "
+              f"took less host wall a tick in {wins} of {pairs} pairs; the parent's runs' "
+              f"quartiles {q[0]:.1f}-{q[2]:.1f} ms; the lead's lines equal in every pair | "
+              f"card: {smi}")
+        print(json.dumps({"gram_ab": {"pairs": pairs, "runs": runs, "medians": medians,
+                                      "run_walls": walls, "change_wins": wins,
+                                      "parent_quartiles": q, "card": smi}}), flush=True)
+    finally:
+        PACKAGE_ROOT = HERE
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def times_only(smi):
     """``--times-only``: the kernels' device times alone (B1's training
     kernel in its logistic mode, its predict-only mode, B4 in both planes,
@@ -7140,6 +7301,26 @@ def main() -> None:
     build_phase()
     if "--times-only" in argv:
         times_only(smi)
+        return
+    if "--modelaxis-only" in argv:
+        from twtml_tpu_torch.streaming.sources import SyntheticSource
+
+        os.environ["TWTML_NOW_MS"] = str(NOW_MS)
+        RECORDER = Recorder()
+        try:
+            statuses = list(SyntheticSource(total=MH_BATCHES * OP_ROWS, seed=5,
+                                            base_ms=NOW_MS).produce())
+            print(json.dumps({"modelaxis": modelaxis_phase(smi, statuses)}), flush=True)
+        finally:
+            RECORDER.close()
+        return
+    if "--gram-ab" in argv:
+        os.environ["TWTML_NOW_MS"] = str(NOW_MS)
+        RECORDER = Recorder()
+        try:
+            gram_ab(smi, int(argv[argv.index("--gram-ab") + 1]), PACKAGE_ROOT)
+        finally:
+            RECORDER.close()
         return
     if "--elastic-ab" in argv:
         os.environ["TWTML_NOW_MS"] = str(NOW_MS)

@@ -12,6 +12,7 @@ from __future__ import annotations
 import json
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -59,6 +60,9 @@ CASES = {
     # the JAX dual loop draws ONE mask over the global rows (the unfolded key)
     "gram_sampled": dict(residual="least_squares", step_size=0.002, use_sparse=True,
                          use_gram=True, l2_reg=0.1, mini_batch_fraction=0.5),
+    # bfloat16 weights sent to the Gram route, as the JAX step sends them
+    "gram_bfloat16": dict(residual="least_squares", step_size=0.002, use_sparse=True,
+                          use_gram=True, l2_reg=0.1, dtype="bfloat16"),
 }
 
 
@@ -78,14 +82,18 @@ def test_world_size_2_matches_the_jax_mesh_model(tmp_path, case):
         recs.append(last_json(out))
     learner = JaxLogistic if residual == "logistic" else JaxLinear
     mesh = jax_make_mesh(num_data=2, devices=jax.devices()[:2])
+    jax_kw = dict(kw, dtype=jnp.dtype(kw["dtype"])) if "dtype" in kw else kw
     ref = JaxParallel(mesh, residual_fn=learner.residual_fn, prediction_fn=learner.prediction_fn,
-                      round_predictions=learner.round_predictions, **kw)
+                      round_predictions=learner.round_predictions, **jax_kw)
     batch = JaxFeatureBatch(**data)
     for _ in range(2):
         out = ref.step(batch)
     assert recs[0]["weights"] == recs[1]["weights"]  # every rank the same bits
-    np.testing.assert_allclose(recs[0]["weights"], np.asarray(ref.latest_weights), rtol=1e-5,
-                               atol=1e-7)
+    # bfloat16 within 2**-7, two units of its 8-bit mantissa (the port's
+    # bfloat16 tolerance, tests/test_torch_sampling.py BF16_RTOL)
+    rtol = 2.0**-7 if kw.get("dtype") == "bfloat16" else 1e-5
+    np.testing.assert_allclose(recs[0]["weights"], np.asarray(ref.latest_weights, np.float32),
+                               rtol=rtol, atol=1e-7)
     for rec in recs:
         assert rec["count"] == float(out.count)
         for k in ("mse", "real_stdev", "pred_stdev"):

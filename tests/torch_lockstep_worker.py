@@ -113,6 +113,10 @@ def _parallel(rank: int, world: int, port: int, npz: str, opts: str) -> None:
     wire = kw.pop("wire")
     steps = kw.pop("steps", 1)
     residual = kw.pop("residual", "least_squares")
+    if "dtype" in kw:
+        from twtml_tpu_torch.models.sgd import DTYPES
+
+        kw["dtype"] = DTYPES[kw["dtype"]]
     data = np.load(npz)
     cls = UnitBatch if wire == "unit" else FeatureBatch
     fields = [data[f] for f in cls._fields]

@@ -65,6 +65,17 @@ def _batches(path: str, wire: str, mesh):
             for i in range(k)]
 
 
+def _model_kw(spec: dict) -> dict:
+    """The constructor's arguments: the spec's ``model`` (its ``dtype`` a
+    ``--dtype`` name), device and learner."""
+    from twtml_tpu_torch.models.sgd import DTYPES
+
+    kw = dict(spec["model"], device=spec["device"], **_learner(spec.get("residual", "")))
+    if "dtype" in kw:
+        kw["dtype"] = DTYPES[kw["dtype"]]
+    return kw
+
+
 def _learner(residual: str) -> dict:
     from twtml_tpu_torch.models.linear import StreamingLinearRegressionWithSGD
     from twtml_tpu_torch.models.logistic import StreamingLogisticRegressionWithSGD
@@ -128,7 +139,7 @@ def _sgd(spec: dict, mesh, group) -> tuple:
     from twtml_tpu_torch.parallel import distributed
     from twtml_tpu_torch.parallel.sharding import ParallelSGDModel
 
-    kw = dict(spec["model"], device=spec["device"], **_learner(spec.get("residual", "")))
+    kw = _model_kw(spec)
     batches = _batches(spec["batches"], spec.get("wire", "host"), mesh)
     model = ParallelSGDModel(mesh, group, **kw)
     clock = _Clock(spec["device"])
@@ -161,7 +172,7 @@ def _sgd(spec: dict, mesh, group) -> tuple:
 def _tenants(spec: dict, mesh, group) -> tuple:
     from twtml_tpu_torch.parallel.tenants import TenantStackModel
 
-    kw = dict(spec["model"], device=spec["device"], **_learner(spec.get("residual", "")))
+    kw = _model_kw(spec)
     batches = _batches(spec["batches"], spec.get("wire", "host"), mesh)
     model = TenantStackModel(spec["num_tenants"], mesh=mesh, group=group, **kw)
     clock = _Clock(spec["device"])

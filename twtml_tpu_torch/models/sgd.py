@@ -388,6 +388,26 @@ def host_planes(batch, int8_plane: "bool | None" = None) -> tuple:
     return tuple(planes)
 
 
+def mask_cache(num_iterations: int, fraction: float, dtype) -> tuple:
+    """A step's ``sampling_masks`` sets: (the cache, ``masks_for(rows,
+    device, shard)``). Every batch draws the same masks (the key is
+    PRNGKey(42) each batch), so a (row count, device, shard)'s [N, B] set is
+    made once, on the step's device; at _MASK_CACHE_SIZE sets the cache
+    starts over."""
+    cache: dict = {}
+
+    def masks_for(rows: int, device, shard: "int | None"):
+        key = (rows, str(device), shard)
+        if key not in cache:
+            if len(cache) >= _MASK_CACHE_SIZE:
+                cache.clear()
+            cache[key] = sampling_masks(rows, num_iterations, fraction, dtype, device,
+                                        shard=shard)
+        return cache[key]
+
+    return cache, masks_for
+
+
 def decode_batch(batch, f_text: int, dtype) -> tuple:
     """A device wire batch as the step's inputs (token_idx [B, L] int32
     global indices, token_val [B, L], numeric [B, 4], labels [B], mask [B],
@@ -542,20 +562,9 @@ def make_sgd_train_step(
     sampled = mini_batch_fraction < 1.0
     reduce = None if group is None else group.allreduce_
     world = 1 if group is None else group.world
-    # every batch draws the same masks (the key is PRNGKey(42) each batch),
-    # so a row count's [N, B] set is made once, on the step's device
-    masks_by_rows: dict = {}
+    masks_by_rows, masks_for = mask_cache(num_iterations, mini_batch_fraction, dtype)
     loop_kw = dict(num_iterations=num_iterations, step_size=step_size,
                    l2_reg=l2_reg, convergence_tol=convergence_tol, residual_fn=residual_fn)
-
-    def masks_for(rows: int, device, shard: "int | None"):
-        key = (rows, str(device), shard)
-        if key not in masks_by_rows:
-            if len(masks_by_rows) >= _MASK_CACHE_SIZE:
-                masks_by_rows.clear()
-            masks_by_rows[key] = sampling_masks(
-                rows, num_iterations, mini_batch_fraction, dtype, device, shard=shard)
-        return masks_by_rows[key]
 
     def gram_sgd(weights, token_idx, token_val, numeric, raw, labels, mask, masks, plane):
         """The loop in the dual basis: the hand kernels on the card in

@@ -371,23 +371,18 @@ class Collectives:
             SECONDS[self._prefix + "row_allgather"] += time.perf_counter() - t0
 
     def all_gather_columns(self, *tensors: torch.Tensor) -> tuple:
-        """Every rank's rows of each of ``tensors`` (float32 or int32, one
-        leading row axis, all of the same rows), in ONE all-gather: the
-        int32 ones travel as their float32 bits beside the others' columns
-        in one [B_local, columns] buffer, and come back as they went."""
-        cols = []
-        for t in tensors:
-            if t.dtype not in (torch.float32, torch.int32):
-                raise ValueError(f"all_gather_columns takes float32 or int32, got {t.dtype}")
-            c = t.reshape(t.shape[0], -1)
-            cols.append(c.view(torch.float32) if c.dtype == torch.int32 else c)
+        """Every rank's rows of each of ``tensors`` (one leading row axis,
+        all of the same rows, any dtypes), in ONE all-gather: each travels
+        as its bytes beside the others' in one [B_local, bytes] uint8
+        buffer, and comes back as it went."""
+        if self.world <= 1:
+            return tuple(t.contiguous() for t in tensors)
+        cols = [t.contiguous().reshape(t.shape[0], -1).view(torch.uint8) for t in tensors]
         gathered = self.all_gather_rows(torch.cat(cols, dim=1))
         out, start = [], 0
         for t, c in zip(tensors, cols):
-            part = gathered[:, start:start + c.shape[1]].contiguous()
+            part = gathered[:, start:start + c.shape[1]].contiguous().view(t.dtype)
             start += c.shape[1]
-            if t.dtype == torch.int32:
-                part = part.view(torch.int32)
             out.append(part.reshape((gathered.shape[0],) + tuple(t.shape[1:])))
         return tuple(out)
 

@@ -16,7 +16,8 @@ share with ``Collectives`` in place of the axis names:
   wraps this one. Under ``--elastic on`` the model is rebuilt for each
   epoch's group (``MultiHostSGDModel.rebuild``); a group shrunk to one
   rank runs the split at one rank, bitwise B1, with no all-reduce.
-- **feature-sharded** (a ``ModelMesh``, ``make_feature_sharded_step``):
+- **feature-sharded** (a ``ModelMesh``, ``FeatureShardedSGDModel`` over
+  ``make_feature_sharded_step``):
   the hashed text features are sharded over ``model``, so rank (d, m)
   holds the slice [m·F/M, (m+1)·F/M) of the text weights (and the 4
   numeric weights, replicated), and the rows of data shard d. Each rank
@@ -44,14 +45,13 @@ import torch
 from ..features.batch import NUM_NUMBER_FEATURES
 from ..models.base import StepOutput
 from ..models.sgd import (
-    _MASK_CACHE_SIZE,
     DTYPES,
     StreamingSGDModel,
     _reduced,
     batch_to_device,
     decode_batch,
     gram_sgd_parallel,
-    sampling_masks,
+    mask_cache,
     sgd_inner_loop,
 )
 from ..ops.fused_sgd import least_squares_residual
@@ -85,16 +85,7 @@ def make_feature_sharded_step(
     sampled = mini_batch_fraction < 1.0
     loop_kw = dict(num_iterations=num_iterations, step_size=step_size, l2_reg=l2_reg,
                    convergence_tol=convergence_tol)
-    masks_by_rows: dict = {}
-
-    def masks_for(rows: int, device, shard: "int | None"):
-        key = (rows, str(device), shard)
-        if key not in masks_by_rows:
-            if len(masks_by_rows) >= _MASK_CACHE_SIZE:
-                masks_by_rows.clear()
-            masks_by_rows[key] = sampling_masks(rows, num_iterations, mini_batch_fraction,
-                                                dtype, device, shard=shard)
-        return masks_by_rows[key]
+    masks_by_rows, masks_for = mask_cache(num_iterations, mini_batch_fraction, dtype)
 
     def text_sq(w):
         return torch.sum(w[:f_local] * w[:f_local])
@@ -159,50 +150,23 @@ def make_feature_sharded_step(
 
 
 class ParallelSGDModel(StreamingSGDModel):
-    """The rank-local learner over ``mesh`` with the step surface of the
-    single-device learners. On a ``DataMesh`` ``group`` is the
-    ``Collectives`` its data-parallel step reduces over; on a ``ModelMesh``
-    it is the ``MeshCollectives`` of the two axes, and the step is the
-    feature-sharded one (numTextFeatures must divide by the model axis).
-    ``residual_fn``, ``prediction_fn`` and ``round_predictions``
-    (StreamingSGDModel's) are the learner's knobs, the JAX package's
-    constructor arguments."""
+    """The rank-local learner of a data-parallel group over ``mesh``
+    (``group``: the ``Collectives`` its step reduces over), with the step
+    surface of the single-device learners. ``residual_fn``,
+    ``prediction_fn`` and ``round_predictions`` (StreamingSGDModel's) are
+    the learner's knobs, the JAX package's constructor arguments. Built on
+    a ``ModelMesh`` it is a ``FeatureShardedSGDModel`` (the JAX package's
+    ``ParallelSGDModel`` takes either mesh)."""
+
+    def __new__(cls, mesh: "DataMesh | ModelMesh", *args, **kwargs):
+        if cls is ParallelSGDModel and isinstance(mesh, ModelMesh):
+            cls = FeatureShardedSGDModel
+        return super().__new__(cls)
 
     def __init__(self, mesh: "DataMesh | ModelMesh", group, **kwargs):
         self.mesh = mesh
         self.group = group
-        if mesh.num_model > 1:
-            f_text = kwargs.get("num_text_features", 1000)
-            if f_text % mesh.num_model:
-                raise ValueError(f"numTextFeatures={f_text} not divisible by model-axis size "
-                                 f"{mesh.num_model}")
-            self.f_local = f_text // mesh.num_model
-            self.lo = mesh.model_index * self.f_local
-            if kwargs.get("quality"):
-                # the JAX package's degrade: the 2D step's weight norms would
-                # need model-axis sums the quality plane does not wire
-                log.warning("--modelWatch quality vector is not wired for the "
-                            "feature-sharded (2D model-axis) layout; disabling the "
-                            "in-step quality leaf for this model")
-                kwargs["quality"] = False
-            super().__init__(**kwargs)
-        else:
-            super().__init__(group=group, **kwargs)
-
-    def _make_step(self, **kwargs):
-        if self.mesh.num_model == 1:
-            return super()._make_step(**kwargs)
-        for unused in ("quality", "use_sparse", "group"):
-            kwargs.pop(unused)
-        return make_feature_sharded_step(
-            f_text=kwargs.pop("num_text_features"), f_local=self.f_local, lo=self.lo,
-            data=self.group.data, model=self.group.model, **kwargs)
-
-    def _zero_weights(self):
-        if self.mesh.num_model == 1:
-            return super()._zero_weights()
-        return torch.zeros((self.f_local + NUM_NUMBER_FEATURES,), dtype=self.dtype,
-                           device=self.device)
+        super().__init__(group=group, **kwargs)
 
     @classmethod
     def from_conf(cls, conf, mesh: "DataMesh | ModelMesh" = None, group=None, **overrides):
@@ -220,38 +184,6 @@ class ParallelSGDModel(StreamingSGDModel):
         kwargs.update(overrides)
         return cls(mesh, group, **kwargs)
 
-    def planes(self, batch) -> tuple:
-        """A feature-sharded step reads each slice's plane itself."""
-        if self.mesh.num_model > 1:
-            return ()
-        return super().planes(batch)
-
-    @property
-    def latest_weights(self) -> np.ndarray:
-        """The whole [F + 4] weights on the host. On a model axis the text
-        slices are all-gathered over ``model``: a collective, which every
-        rank calls at the same point (the JAX package's ``_to_host``)."""
-        if self.mesh.num_model == 1:
-            return super().latest_weights
-        w = self._weights.detach()
-        text = self.group.model.all_gather_rows(w[:self.f_local])
-        out = torch.cat([text, w[self.f_local:]])
-        if out.dtype == torch.bfloat16:
-            out = out.float()
-        return out.cpu().numpy().copy()
-
-    def set_initial_weights(self, weights) -> "ParallelSGDModel":
-        """The whole [F + 4] weights (a checkpoint's); on a model axis this
-        rank keeps its text slice and the numeric weights."""
-        if self.mesh.num_model > 1:
-            w = np.asarray(weights)
-            f_text = self.num_text_features
-            if w.shape != (f_text + NUM_NUMBER_FEATURES,):
-                raise ValueError(f"weights must have shape ({f_text + NUM_NUMBER_FEATURES},), "
-                                 f"got {w.shape}")
-            weights = np.concatenate([w[self.lo:self.lo + self.f_local], w[f_text:]])
-        return super().set_initial_weights(weights)
-
     def step_many(self, stacked) -> StepOutput:
         """K steps of a stacked batch or packed group, eagerly (a collective
         inside cannot be captured over gloo); the [K]-leading outputs come
@@ -260,3 +192,63 @@ class ParallelSGDModel(StreamingSGDModel):
         self._weights, out = self._train_many(
             self._weights, batch_to_device(stacked, self.device, self.non_blocking), planes)
         return out
+
+
+class FeatureShardedSGDModel(ParallelSGDModel):
+    """The rank-local learner of a ``ModelMesh``: ``group`` is the
+    ``MeshCollectives`` of its two axes, the step the feature-sharded one
+    (``make_feature_sharded_step``), the weights this rank's text slice
+    [lo, lo + F/num_model) and the 4 numeric weights. numTextFeatures must
+    divide by the model axis."""
+
+    def __init__(self, mesh: ModelMesh, group, **kwargs):
+        f_text = kwargs.get("num_text_features", 1000)
+        if f_text % mesh.num_model:
+            raise ValueError(f"numTextFeatures={f_text} not divisible by model-axis size "
+                             f"{mesh.num_model}")
+        self.f_local = f_text // mesh.num_model
+        self.lo = mesh.model_index * self.f_local
+        if kwargs.get("quality"):
+            # the JAX package's degrade: the 2D step's weight norms would
+            # need model-axis sums the quality plane does not wire
+            log.warning("--modelWatch quality vector is not wired for the "
+                        "feature-sharded (2D model-axis) layout; disabling the "
+                        "in-step quality leaf for this model")
+            kwargs["quality"] = False
+        super().__init__(mesh, group, **kwargs)
+
+    def _make_step(self, *, num_text_features, quality, use_sparse, group, **kwargs):
+        return make_feature_sharded_step(
+            f_text=num_text_features, f_local=self.f_local, lo=self.lo, data=self.group.data,
+            model=self.group.model, **kwargs)
+
+    def _zero_weights(self):
+        return torch.zeros((self.f_local + NUM_NUMBER_FEATURES,), dtype=self.dtype,
+                           device=self.device)
+
+    def planes(self, batch) -> tuple:
+        """The step reads each slice's plane itself."""
+        return ()
+
+    @property
+    def latest_weights(self) -> np.ndarray:
+        """The whole [F + 4] weights on the host: the text slices
+        all-gathered over ``model``. A collective, which every rank calls at
+        the same point (the JAX package's ``_to_host``)."""
+        w = self._weights.detach()
+        text = self.group.model.all_gather_rows(w[:self.f_local])
+        out = torch.cat([text, w[self.f_local:]])
+        if out.dtype == torch.bfloat16:
+            out = out.float()
+        return out.cpu().numpy().copy()
+
+    def set_initial_weights(self, weights) -> "FeatureShardedSGDModel":
+        """The whole [F + 4] weights (a checkpoint's): this rank keeps its
+        text slice and the numeric weights."""
+        w = np.asarray(weights)
+        f_text = self.num_text_features
+        if w.shape != (f_text + NUM_NUMBER_FEATURES,):
+            raise ValueError(f"weights must have shape ({f_text + NUM_NUMBER_FEATURES},), "
+                             f"got {w.shape}")
+        return super().set_initial_weights(
+            np.concatenate([w[self.lo:self.lo + self.f_local], w[f_text:]]))
