@@ -257,15 +257,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
 24. multihost — the lockstep multi-host runtime: B1's data-parallel
                split at world size 1 (a one-rank gloo group, through
                MultiHostSGDModel) bitwise B1 in both residual modes (2
-               steps: weights, predictions, stats), each split entry against
-               its twin at a rank's B = 8192; then the stream phase's first
+               steps: weights, predictions, stats), each split launch against
+               its plain version at a rank's B = 8192 (the iteration's
+               launch at it = 2 bitwise the update-only launch and then a
+               first launch from its weights); then the stream phase's first
                4 x 16384 tweets as a replay file and the linear app on 2
                ranks (``--master twtml://``, subprocesses, both on cuda:0,
                so gloo) at 8192 rows a rank against one process on the card
                at 16384: the lead's lines (count and batch exact, rounded
                stats within 2), the follower silent, the final weights
-               within rtol 1e-4 and atol 1e-7, each rank 50 launches of each
-               split entry a step, 52 all-reduces, one alignment all-gather
+               within rtol 1e-4 and atol 1e-7, each rank 51 split launches
+               a step (50 iterations, the last update), 52 all-reduces, one
+               alignment all-gather
                a batch, no fused launch; the same for ``--wireCodec dict``,
                ``--superBatch 4`` and the 2^18 Gram route at B = 2048;
                ``--ingest block`` on byte-range shards against its emulation
@@ -274,7 +277,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
                (rank 1 exits 77, the survivor non-zero within the watchdog);
                a rank's step ms, launches, all-reduce and cadence all-gather
                ms, host wall a tick, tweets/s against one process, and each
-               split entry's device time, twin time and bound.
+               split launch's device time, twin time and bound.
 25. elastic — ``--elastic on`` on the same 2 ranks and file: a healthy
                run with the lockstep main arm's collectives, fetches and
                split launches (as many cadence all-gathers as ticks), its
@@ -313,7 +316,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
                1 x 2 model axis bitwise the one-process stack; then on the
                multihost phase's replay ``--tenants 4`` on 2 ranks against
                one process (lines, the stack within rtol 1e-4, one fetch a
-               tick, 4 x 50 launches of each split entry a step),
+               tick, 4 x 51 split launches a step),
                ``--elastic on --tenants 4`` with uid 1 killed (the
                survivor's stack bitwise the world-1 fleet's and the plain
                stack's from its archive) and the k-means app on 2 ranks
@@ -326,9 +329,9 @@ serve and abtest phases, the port's own servers on loopback ports. The line befo
 the last is the kernels' JSON record (B1's least-squares mode with its
 ``tenants`` launches and the ``block`` phase's figures, its logistic mode, its predict kernel with its
 ``abtest`` launches, B4 with its f32 build on tweet-length rows, B7,
-B8 and the split's three entries with their ``elastic`` and ``modelaxis`` launches, B4, B7 and
-B8 with their ``modelaxis`` launches, the split's grad and reduce with their library call's
-time); the last line is ``{"ok": true, "device": {...}}``.
+B8 and the split's two launches with their ``elastic`` and ``modelaxis`` launches, B4, B7 and
+B8 with their ``modelaxis`` launches, the split's iteration launch with its library calls'
+times); the last line is ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --times-only [--package-root DIR]`` runs phases 1
 and 2 and then only the kernels' device times (B1's logistic mode, its
@@ -349,6 +352,12 @@ tweets; its last line is the phase's JSON.
 2 (on DIR's port) and then only N alternating pairs of the app's 2-rank
 2^18 Gram route, the port found in DIR (e.g. the parent commit unpacked
 there) against this checkout's (``gram_ab``); its last line is their JSON.
+
+``python3 chip_smoke.py --split-ab N --package-root DIR`` runs phases 1 and
+2 (on DIR's port) and then only N alternating pairs of one split
+iteration's device time at a rank's B = 8192 x 1004, DIR's port (e.g. the
+parent commit unpacked there) against this checkout's, each in a process
+of its own (``split_ab``); its last line is their JSON.
 """
 
 from __future__ import annotations
@@ -5410,7 +5419,14 @@ MH_TIMEOUT_S = 300
 MH_WATCHDOG_S = 20  # TWTML_LOCKSTEP_TIMEOUT_S of the peer.kill arm
 MH_WEIGHT_RTOL, MH_WEIGHT_ATOL = 1e-4, 1e-7  # the JAX multi-host test's
 MH_STAT_SLACK = 2  # rounded stats: the JAX multi-host test's rule
-SPLIT_ENTRIES = ("fused_dense_grad", "fused_dense_grad_reduce", "fused_dense_update")
+SPLIT_ENTRIES = ("fused_dense_grad", "fused_dense_update")
+
+
+def split_launches_a_step():
+    """Each split entry's launches in one step of OP_ITERS iterations: an
+    iteration's launch each iteration, the update alone once
+    (``fused_sgd.split_schedule``)."""
+    return {"fused_dense_grad": OP_ITERS, "fused_dense_update": 1}
 
 # one rank: the linear app as ``main`` runs it (``run`` on the parsed flags),
 # then its launch counts, collectives and step times as the last line
@@ -5427,8 +5443,7 @@ try:
     totals = linear_regression.run(ConfArguments().parse(sys.argv[2:]))
 except RuntimeError as exc:
     failed = str(exc)
-launches = {n: getattr(fused_sgd, n).launches for n in
-            ("fused_dense_grad", "fused_dense_grad_reduce", "fused_dense_update")}
+launches = {n: getattr(fused_sgd, n).launches for n in ("fused_dense_grad", "fused_dense_update")}
 launches["fused_dense_sgd"] = fused_sgd.fused_dense_sgd.launches
 launches.update({fn.__name__: fn.launches for fn in fused_gram.KERNELS})
 print(json.dumps({"failed": failed, "count": totals.get("count"),
@@ -5611,12 +5626,13 @@ def split_checks():
                 round_predictions=learner.round_predictions,
                 step_size=learner.default_step_size)
             multi = D.MultiHostSGDModel(inner, mesh)
-            before = fused_sgd.fused_dense_grad.launches
+            before = {e: getattr(fused_sgd, e).launches for e in SPLIT_ENTRIES}
             for _ in range(2):  # the second step from the first's weights
                 a, b = plain.step(batch), multi.step(multi.pack_for_wire(batch))
             torch.cuda.synchronize()
-            if fused_sgd.fused_dense_grad.launches - before != 2 * OP_ITERS:
-                raise AssertionError("the world-size-1 step did not run the split kernels")
+            ran = {e: getattr(fused_sgd, e).launches - before[e] for e in SPLIT_ENTRIES}
+            if ran != {e: 2 * k for e, k in split_launches_a_step().items()}:
+                raise AssertionError(f"the world-size-1 steps made split launches {ran}")
             same = (np.array_equal(plain.latest_weights, multi.latest_weights)
                     and torch.equal(a.predictions, b.predictions)
                     and all(torch.equal(getattr(a, k), getattr(b, k))
@@ -5633,6 +5649,37 @@ def split_checks():
 
 
 SPLIT_SHAPES = ((MH_ROWS, 1004), (4096, 2000), (4096, 8196))  # narrow, wide (2 and 9 tiles)
+# ~20 ms of torch.cuda._sleep ahead of a timed run of split launches: the
+# host takes 10-30 µs to enqueue each (a Python wrapper and a ctypes call),
+# longer than a launch takes on the card, so a shorter lead lets the card
+# wait for the host and times the enqueue
+SPLIT_AHEAD_CYCLES = 40_000_000
+
+
+def split_queued(fn, runs, n=50):
+    """``fn``'s device time a call, ``n`` calls queued behind
+    SPLIT_AHEAD_CYCLES of sleep (the median of ``runs``, after one
+    unqueued round), and the host's µs to enqueue one (the median over the
+    runs). Returns (ms, all runs' ms, host µs)."""
+    import torch
+
+    def many():
+        for _ in range(n):
+            fn()
+
+    many()
+    runs_ms, host_us = [], []
+    for _ in range(runs):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(SPLIT_AHEAD_CYCLES)
+        start.record()
+        t0 = time.perf_counter()
+        many()
+        host_us.append(1e6 * (time.perf_counter() - t0) / n)
+        end.record()
+        end.synchronize()
+        runs_ms.append(start.elapsed_time(end) / n)
+    return statistics.median(runs_ms), runs_ms, statistics.median(host_us)
 
 
 def split_inputs(rows=MH_ROWS, features=1004, seed=5, logistic=False):
@@ -5648,21 +5695,6 @@ def split_inputs(rows=MH_ROWS, features=1004, seed=5, logistic=False):
         y = (rng.random(rows) < 0.5).astype("float32")
     w0 = rng.normal(size=features).astype("float32") * 1e-3
     return tuple(torch.from_numpy(a).cuda() for a in (x, y, m, w0))
-
-
-def split_update_twin(w, gbuf, f, *, it, step_size, l2_reg, tol):
-    """The update entry's function as torch ops: B1's f32 update of the
-    F columns with the all-reduced Xᵀr and count (no update at count 0),
-    then ‖Δw‖², ‖w‖² and the converged test. Returns (w', converged)."""
-    import torch
-
-    from twtml_tpu_torch.models.sgd import _step_scalars
-
-    eta, scale = _step_scalars(step_size, l2_reg, it, torch.float32)
-    count = gbuf[-1]
-    w_new = torch.where(count > 0, w * scale - eta * gbuf[:f] / count.clamp(min=1.0), w)
-    d, n = ((w_new - w) ** 2).sum(), (w_new * w_new).sum()
-    return w_new, bool(tol > 0) & (d.sqrt() < tol * n.sqrt().clamp(min=1.0))
 
 
 def split_loop_check(name, x, y, m, w0, **kw):
@@ -5689,19 +5721,87 @@ def split_loop_check(name, x, y, m, w0, **kw):
     return int((~keep).sum())
 
 
+def split_fold_check(name, plan, x, y, m, w0, mode, kw):
+    """The iteration's launch against its parts, at it = 1 and 2. The first
+    launch: its per-CTA partials summed in torch against
+    ``fused_dense_grad_reference``'s Xᵀr (its margins too), its gbuf
+    within 1e-6·max|Xᵀr| of the partials' float64 sum and its count exact.
+    Then from that launch's buffers (the all-reduce an identity): the
+    update-only launch of iteration 1 bitwise ``fused_dense_update_reference``
+    (weights and the step's flag), and the launch at it = 2 bitwise that
+    update followed by a first launch from its weights (weights, the
+    iterations run, the flag and, unless the update stopped the step, the
+    gbuf of Xᵀr and count). Returns the grad launch's (max abs error, max
+    relative error) against its twin and the update's max abs error."""
+    import torch
+
+    from twtml_tpu_torch.ops import fused_sgd
+
+    rows, f = x.shape
+    fpad = plan.fpad
+    rf = (fused_sgd.least_squares_residual, fused_sgd.logistic_residual)[mode]
+    bufs = fused_sgd.split_buffers(plan, x.device)
+    w, preds = torch.empty_like(w0), torch.empty_like(y)
+    fused_sgd.fused_dense_grad(plan, bufs, x, y, m, w0, w, preds, it=1, mode=mode, **kw)
+    partials = bufs.scratch[:plan.grid * fpad].view(plan.grid, fpad).clone()
+    after_1 = fused_sgd.SplitBuffers(*(t.clone() for t in bufs))
+    g_ref, count_ref, raw_ref = fused_sgd.fused_dense_grad_reference(x, y, m, w0, residual_fn=rf)
+    torch.cuda.synchronize()
+    scale_g = float(g_ref.abs().max().clamp(min=1))
+    summed = partials.double().sum(dim=0)
+    g_abs = float((summed[:f] - g_ref.double()).abs().max())
+    p_abs = float((preds - raw_ref).abs().max())
+    pad_abs = float(summed[f:].abs().max()) if fpad > f else 0.0
+    r_abs = float((bufs.gbuf[:fpad].double() - summed).abs().max())
+    if bufs.gbuf[fpad].item() != count_ref.item():
+        raise AssertionError(f"fused_dense_grad ({name}): the count differs from the twin's")
+    if g_abs > 1e-5 * scale_g or p_abs > 1e-3 or pad_abs:
+        raise AssertionError(f"fused_dense_grad ({name}): Xᵀr off by {g_abs:.3g} (max |Xᵀr| "
+                             f"{scale_g:.3g}), margins by {p_abs:.3g}, padded columns "
+                             f"{pad_abs:.3g}")
+    if r_abs > 1e-6 * scale_g:
+        raise AssertionError(f"fused_dense_grad ({name}): gbuf off the partials' sum by "
+                             f"{r_abs:.3g}")
+    # path A: the launch at it = 2 (the update of 1, then the row pass)
+    fused_sgd.fused_dense_grad(plan, bufs, x, y, m, w0, w, preds, it=2, mode=mode, **kw)
+    # path B: the update of 1 alone from the same buffers, then a first launch
+    gbuf_1 = torch.cat([after_1.gbuf[:f], after_1.gbuf[fpad:]])
+    want, stop = fused_sgd.fused_dense_update_reference(w0, gbuf_1, f, it=1, **kw)
+    w_b = torch.empty_like(w0)
+    fused_sgd.fused_dense_update(plan, after_1, w_b, f, it=1, **kw)
+    torch.cuda.synchronize()
+    u_abs = float((w_b - want).abs().max())
+    if (not torch.equal(w_b, want)
+            or bool(after_1.state[0].item()) != bool(stop.item())):
+        raise AssertionError(f"fused_dense_update ({name}) differs from its twin by "
+                             f"{u_abs:.3g} (flag {after_1.state[0].item()} against "
+                             f"{bool(stop.item())})")
+    fresh = fused_sgd.split_buffers(plan, x.device)
+    w_c, preds_c = torch.empty_like(w0), torch.empty_like(y)
+    fused_sgd.fused_dense_grad(plan, fresh, x, y, m, w_b.clone(), w_c, preds_c, it=1,
+                               mode=mode, **kw)
+    torch.cuda.synchronize()
+    same = (torch.equal(w, w_b) and torch.equal(bufs.state, after_1.state)
+            and torch.equal(bufs.scratch[-1:], after_1.scratch[-1:])
+            and torch.equal(bufs.scratch[plan.grid * fpad:][:fpad],
+                            after_1.scratch[plan.grid * fpad:][:fpad])
+            and torch.equal(bufs.gbuf, after_1.gbuf if bool(stop.item()) else fresh.gbuf))
+    if not same:
+        raise AssertionError(f"fused_dense_grad ({name}) at it = 2 differs from the update-only "
+                             "launch followed by a first launch from its weights")
+    return max(g_abs, p_abs, r_abs), max(g_abs, r_abs) / scale_g, u_abs
+
+
 def split_twin_errors():
     """The split at each of SPLIT_SHAPES (B1's narrow pass at a rank's
     operating point, its tiled wide pass at 2000 and 8196 columns), in both
     residual modes: the loop at world size 1 bitwise B1's, NaN/Inf in masked
-    rows bitwise ignored; each entry against its twin: the grad entry's
-    per-CTA partials summed in torch against ``fused_dense_grad_reference``'s
-    Xᵀr (its margins too), the reduce entry's Xᵀr against the same partials
-    summed in float64 and its count exact, the update entry bitwise against
-    ``split_update_twin`` (weights and converged flag). Then a batch on
-    which the loop diverges (dense 0-2 counts at 4096 x 8196, step 0.005,
-    50 iterations: the weights overflow) through B1 and the split: the same
-    non-finite pattern and values. Returns each entry's max abs error and
-    max relative error against its twin."""
+    rows bitwise ignored; the launches against their parts and twins
+    (``split_fold_check``). Then a batch on which the loop diverges (dense
+    0-2 counts at 4096 x 8196, step 0.005, 50 iterations: the weights
+    overflow) through B1 and the split: the same non-finite pattern and
+    values. Returns each entry's max abs error and max relative error
+    against its twin."""
     import torch
 
     from twtml_tpu_torch.ops import fused_sgd
@@ -5718,48 +5818,18 @@ def split_twin_errors():
                                       num_iterations=OP_ITERS, step_size=step, l2_reg=0.01,
                                       residual_fn=rf)
             plan = fused_sgd.split_plan(rows, f, sm_count=sms, shared_limit=shared)
-            bufs = fused_sgd.split_buffers(plan, x.device)
-            w, preds = torch.empty_like(w0), torch.empty_like(y)
-            fused_sgd.fused_dense_grad(plan, bufs, x, y, m, w0, w, preds, first=True, mode=mode)
-            partials = bufs.scratch[:plan.grid * plan.fpad].view(plan.grid, plan.fpad).clone()
-            fused_sgd.fused_dense_grad_reduce(plan, bufs, f)
-            g_ref, count_ref, raw_ref = fused_sgd.fused_dense_grad_reference(
-                x, y, m, w0, residual_fn=rf)
-            torch.cuda.synchronize()
-            fpad = plan.fpad
-            scale_g = float(g_ref.abs().max().clamp(min=1))
-            summed = partials.double().sum(dim=0)
-            g_abs = float((summed[:f] - g_ref.double()).abs().max())
-            p_abs = float((preds - raw_ref).abs().max())
-            pad_abs = float(summed[f:].abs().max()) if fpad > f else 0.0
-            r_abs = float((bufs.gbuf[:fpad].double() - summed).abs().max())
-            if bufs.gbuf[fpad].item() != count_ref.item():
-                raise AssertionError("fused_dense_grad_reduce: the count differs from the twin's")
-            if g_abs > 1e-5 * scale_g or p_abs > 1e-3 or pad_abs:
-                raise AssertionError(f"fused_dense_grad ({rows} x {f}, mode {mode}): Xᵀr off "
-                                     f"by {g_abs:.3g} (max |Xᵀr| {scale_g:.3g}), margins by "
-                                     f"{p_abs:.3g}, padded columns {pad_abs:.3g}")
-            if r_abs > 1e-6 * scale_g:
-                raise AssertionError(f"fused_dense_grad_reduce ({rows} x {f}, mode {mode}): "
-                                     f"off the partials' sum by {r_abs:.3g}")
-            want, conv = split_update_twin(w0, torch.cat([bufs.gbuf[:f], bufs.gbuf[fpad:]]), f,
-                                           it=1, step_size=step, l2_reg=0.01, tol=0.001)
-            fused_sgd.fused_dense_update(plan, bufs, w, f, it=1, step_size=step, l2_reg=0.01,
-                                         convergence_tol=0.001)
-            torch.cuda.synchronize()
-            if not torch.equal(w, want) or bool(bufs.state[0].item()) != bool(conv):
-                raise AssertionError(f"fused_dense_update ({rows} x {f}, mode {mode}) differs "
-                                     f"from its twin by {float((w - want).abs().max()):.3g} "
-                                     f"(converged {bufs.state[0].item()} against {bool(conv)})")
-            for e, a, r in (("fused_dense_grad", max(g_abs, p_abs), g_abs / scale_g),
-                            ("fused_dense_grad_reduce", r_abs, r_abs / scale_g)):
+            g_abs, g_rel, u_abs = split_fold_check(
+                f"{rows} x {f}, mode {mode}", plan, x, y, m, w0, mode,
+                dict(step_size=step, l2_reg=0.01, convergence_tol=0.001))
+            for e, a, r in (("fused_dense_grad", g_abs, g_rel), ("fused_dense_update", u_abs, 0.0)):
                 abs_err[e], rel_err[e] = max(abs_err[e], a), max(rel_err[e], r)
             phase("multihost", f"split at {rows} x {f} ({'narrow' if f <= 1024 else 'wide'} "
                   f"pass, mode {mode}): the loop at world size 1 bitwise B1's ({OP_ITERS} "
-                  f"iterations), NaN/Inf in {masked} masked rows bitwise ignored; grad's "
-                  f"partials within {g_abs:.3g} of the twin's Xᵀr (max |Xᵀr| {scale_g:.3g}), "
-                  f"margins within {p_abs:.3g}; reduce within {r_abs:.3g} of the partials' "
-                  "sum, the count exact; the update and its converged flag bitwise")
+                  f"iterations), NaN/Inf in {masked} masked rows bitwise ignored; the first "
+                  f"launch's partials and gbuf within {g_abs:.3g} of the twin's Xᵀr and the "
+                  "partials' sum, the count exact; the update-only launch and its flag "
+                  "bitwise its twin; the launch at it = 2 bitwise the update-only launch "
+                  "and a first launch from its weights")
     # a divergent batch: dense 0-2 counts overflow the loop at 8196 columns
     g = torch.Generator().manual_seed(5)
     x = torch.randint(0, 3, (4096, 8196), generator=g).float()
@@ -5787,9 +5857,12 @@ def split_twin_errors():
 
 
 def split_times(smi, errs, launches):
-    """Each split entry's device time at a rank's operating point (an
-    iteration after the first: X staged), its twin's, and its bound.
-    ``errs``: (max abs error, max relative error) by entry."""
+    """Each split launch's device time at a rank's operating point (the
+    iteration's launch at it = 2: X staged, the update of 1 folded in; the
+    update alone), its plain version's, the library calls' and its bound;
+    a whole split step at world size 1 (the all-reduce an identity) beside
+    B1 on the same rows. ``errs``: (max abs error, max relative error) by
+    entry."""
     import torch
 
     from twtml_tpu_torch.ops import fused_sgd
@@ -5800,74 +5873,50 @@ def split_times(smi, errs, launches):
     plan = fused_sgd.split_plan(rows, f, sm_count=sms, shared_limit=shared)
     bufs = fused_sgd.split_buffers(plan, x.device)
     w, preds = torch.empty_like(w0), torch.empty_like(y)
-    fused_sgd.fused_dense_grad(plan, bufs, x, y, m, w0, w, preds, first=True)
-    fused_sgd.fused_dense_grad_reduce(plan, bufs, f)
-    fused_sgd.fused_dense_update(plan, bufs, w, f, it=1, step_size=1e-12, l2_reg=0.0,
-                                 convergence_tol=0.0)  # tol 0: never converged
+    kw = dict(step_size=1e-12, l2_reg=0.0, convergence_tol=0.0)  # tol 0: never converged
+    fused_sgd.fused_dense_grad(plan, bufs, x, y, m, w0, w, preds, it=1, **kw)
     n = 50
     g_count = torch.cat([bufs.gbuf[:f], bufs.gbuf[plan.fpad:]])
     calls = {
         "fused_dense_grad": lambda: fused_sgd.fused_dense_grad(
-            plan, bufs, x, y, m, w0, w, preds, first=False),
-        "fused_dense_grad_reduce": lambda: fused_sgd.fused_dense_grad_reduce(plan, bufs, f),
-        "fused_dense_update": lambda: fused_sgd.fused_dense_update(
-            plan, bufs, w, f, it=2, step_size=1e-12, l2_reg=0.0, convergence_tol=0.0),
+            plan, bufs, x, y, m, w0, w, preds, it=2, **kw),
+        "fused_dense_update": lambda: fused_sgd.fused_dense_update(plan, bufs, w, f, it=2, **kw),
     }
     plains = {
-        "fused_dense_grad": lambda: fused_sgd.fused_dense_grad_reference(x, y, m, w0),
-        "fused_dense_grad_reduce": lambda: bufs.scratch[:plan.grid * plan.fpad].view(
-            plan.grid, plan.fpad).sum(dim=0),
-        "fused_dense_update": lambda: split_update_twin(
-            w0, g_count, f, it=2, step_size=1e-12, l2_reg=0.0, tol=0.001),
+        "fused_dense_grad": lambda: fused_sgd.fused_dense_iteration_reference(
+            x, y, m, w0, g_count, it=2, **kw),
+        "fused_dense_update": lambda: fused_sgd.fused_dense_update_reference(
+            w0, g_count, f, it=2, **kw),
     }
-    # the one PyTorch call for each entry's function, where there is one:
-    # Xᵀr as torch.mv on the f32 X the caller holds (4·B·F bytes read, where
-    # the kernel reads its staged bf16 copy), and the partials' column sums
+    # the one PyTorch call for the iteration's main work: Xᵀr as torch.mv on
+    # the f32 X the caller holds (4·B·F bytes read, where the kernel reads
+    # its staged bf16 copy); beside it the partials' column sums, the work
+    # of the reduce that the launch folds in
     residual = (x @ w0 - y) * m
     partials = bufs.scratch[:plan.grid * plan.fpad].view(plan.grid, plan.fpad)
-    libraries = {
-        "fused_dense_grad": ("torch.mv(X.t(), r), f32 X", lambda: torch.mv(x.t(), residual)),
-        "fused_dense_grad_reduce": ("partials.sum(0)", lambda: partials.sum(0)),
-    }
-    # bytes each entry's function must move, each input read once and each
+    libraries = {"fused_dense_grad": ("torch.mv(X.t(), r), f32 X", lambda: torch.mv(x.t(), residual))}
+    extra_library = ("partials.sum(0)", lambda: partials.sum(0))
+    # bytes each launch's function must move, each input read once and each
     # output written once, at the batch's own size (no padding, none of the
-    # design's own scratch): grad reads X (bf16, as B1 stores it), y, the
-    # mask and w and writes Xᵀr [F]; reduce reads the [grid, fpad] partials
-    # and the counts and writes Xᵀr and the count; update reads w, Xᵀr and
-    # the count and writes w
+    # design's own scratch such as the partials): the iteration reads X
+    # (bf16, as B1 stores it), y, the mask, w and the all-reduced Xᵀr and
+    # count, and writes w, Xᵀr and the count; the update alone reads w, Xᵀr
+    # and the count and writes w
     moved = {
-        "fused_dense_grad": 2 * rows * f + 4 * (2 * rows + 2 * f),
-        "fused_dense_grad_reduce": 4 * (plan.grid * plan.fpad + plan.grid + f + 1),
+        "fused_dense_grad": 2 * rows * f + 4 * (2 * rows + 4 * f + 2),
         "fused_dense_update": 4 * (3 * f + 1),
     }
-    ops = {  # x·w and r·x: two FMAs an element of X
-        "fused_dense_grad": 4 * rows * f,
-        "fused_dense_grad_reduce": plan.grid * f,
+    ops = {  # x·w and r·x: two FMAs an element of X; the update's 8 a column
+        "fused_dense_grad": 4 * rows * f + 8 * f,
         "fused_dense_update": 8 * f,
     }
+
     records = []
     for name in SPLIT_ENTRIES:
-        call, plain = calls[name], plains[name]
-
-        def many(fn=call):
-            for _ in range(n):
-                fn()
-
-        def many_plain(fn=plain):
-            for _ in range(n):
-                fn()
-
-        many()
-        ms = timed(many, 5, queue_ahead=True)[0] / n
-        plain_ms = timed(many_plain, 3, queue_ahead=True)[0] / n
-        library, library_ms = libraries.get(name, (None, None)), None
-        if library[1] is not None:
-            def many_library(fn=library[1]):
-                for _ in range(n):
-                    fn()
-
-            many_library()
-            library_ms = timed(many_library, 5, queue_ahead=True)[0] / n
+        ms, _runs, host_us = split_queued(calls[name], 5, n)
+        plain_ms = split_queued(plains[name], 3, n)[0]
+        library = libraries.get(name, (None, None))
+        library_ms = None if library[1] is None else split_queued(library[1], 5, n)[0]
         bytes_ms = moved[name] / HBM_BYTES_PER_S * 1e3
         ops_ms = ops[name] / F32_FLOPS_PER_S * 1e3
         bound_ms = max(bytes_ms, ops_ms)
@@ -5880,17 +5929,153 @@ def split_times(smi, errs, launches):
             "library_ms": library_ms, "library": library[0],
             "bound_bytes": moved[name], "card": smi, "rows": rows, "features": f,
             "grid": plan.grid, "shapes_checked": [list(sh) for sh in SPLIT_SHAPES],
+            "host_us_a_launch": host_us,
         })
         phase("multihost", f"{name}: {ms:.5f} ms a launch at B = {rows} x {f} (CUDA events, "
-              f"{n} launches), twin {plain_ms:.5f} ms, library "
+              f"{n} launches queued; the host's enqueue {host_us:.1f} µs a launch), twin "
+              f"{plain_ms:.5f} ms, library "
               f"{'none' if library_ms is None else f'{library[0]} {library_ms:.5f} ms'}, "
               f"bound {bound_ms:.5f} ms "
               f"({records[-1]['bound_by']}, {moved[name]} B), launches on the main arm "
               f"{launches[name]}")
-    total = sum(r["ms"] for r in records)
-    phase("multihost", f"split kernels {total:.5f} ms an iteration (grad + reduce + update); "
-          f"card: {smi}")
-    return records, total
+    grad = records[0]
+    grad["reduce_library"] = extra_library[0]
+    grad["reduce_library_ms"] = split_queued(extra_library[1], 5, n)[0]
+    # one whole step at world size 1 (OP_ITERS iterations, tol 0), and B1 on the same rows
+    step_kw = dict(num_iterations=OP_ITERS, step_size=1e-12, convergence_tol=0.0)
+    before = {e: getattr(fused_sgd, e).launches for e in SPLIT_ENTRIES}
+    fused_sgd.fused_dense_sgd_split(x, y, m, w0, allreduce=lambda t: t, **step_kw)
+    step_launches = sum(getattr(fused_sgd, e).launches - before[e] for e in SPLIT_ENTRIES)
+    step_ms = split_queued(lambda: fused_sgd.fused_dense_sgd_split(
+        x, y, m, w0, allreduce=lambda t: t, **step_kw), 5, 1)[0]
+    b1_ms = split_queued(lambda: fused_sgd.fused_dense_sgd(x, y, m, w0, **step_kw), 5, 1)[0]
+    grad.update(step_ms=step_ms, step_launches=step_launches, b1_step_ms=b1_ms)
+    phase("multihost", f"split: {grad['ms']:.5f} ms an iteration in one launch, the update "
+          f"alone {records[1]['ms']:.5f} ms; {extra_library[0]} {grad['reduce_library_ms']:.5f} "
+          f"ms; a step at world size 1 ({OP_ITERS} iterations, the all-reduce an identity) "
+          f"{step_ms:.4f} ms in {step_launches} launches against B1's one launch on the same "
+          f"rows {b1_ms:.4f} ms; card: {smi}")
+    return records, grad["ms"]
+
+
+def split_iteration_ms(runs=5, n=50):
+    """One split iteration's device time at a rank's B = 8192 x 1004 on the
+    port this process imports: ``n`` iterations after the first (X staged)
+    queued behind SPLIT_AHEAD_CYCLES (``split_queued``), the median of
+    ``runs``, and the host's µs to enqueue one; a port with a reduce entry runs
+    its three launches an iteration, this one its one. Then a whole step at
+    world size 1 (OP_ITERS iterations, tol 0, the all-reduce an identity)
+    and its launches, and B1's one launch at B = OP_ROWS x 1004."""
+    import torch
+
+    from twtml_tpu_torch.ops import fused_sgd
+
+    x, y, m, w0 = split_inputs()
+    rows, f = x.shape
+    sms, shared = fused_sgd.device_limits(torch.cuda.current_device())
+    plan = fused_sgd.split_plan(rows, f, sm_count=sms, shared_limit=shared)
+    bufs = fused_sgd.split_buffers(plan, x.device)
+    w, preds = torch.empty_like(w0), torch.empty_like(y)
+    kw = dict(step_size=1e-12, l2_reg=0.0, convergence_tol=0.0)  # tol 0: never converged
+    entries = [e for e in ("fused_dense_grad", "fused_dense_grad_reduce", "fused_dense_update")
+               if hasattr(fused_sgd, e)]
+    if "fused_dense_grad_reduce" in entries:  # three plain launches an iteration
+        fused_sgd.fused_dense_grad(plan, bufs, x, y, m, w0, w, preds, first=True)
+
+        def iteration():
+            fused_sgd.fused_dense_grad(plan, bufs, x, y, m, w0, w, preds, first=False)
+            fused_sgd.fused_dense_grad_reduce(plan, bufs, f)
+            fused_sgd.fused_dense_update(plan, bufs, w, f, it=2, **kw)
+    else:
+        fused_sgd.fused_dense_grad(plan, bufs, x, y, m, w0, w, preds, it=1, **kw)
+
+        def iteration():
+            fused_sgd.fused_dense_grad(plan, bufs, x, y, m, w0, w, preds, it=2, **kw)
+
+    median, all_runs, host_us = split_queued(iteration, runs, n)
+    step_kw = dict(num_iterations=OP_ITERS, step_size=1e-12, convergence_tol=0.0)
+    before = {e: getattr(fused_sgd, e).launches for e in entries}
+    fused_sgd.fused_dense_sgd_split(x, y, m, w0, allreduce=lambda t: t, **step_kw)
+    launches = sum(getattr(fused_sgd, e).launches - before[e] for e in entries)
+    step = split_queued(lambda: fused_sgd.fused_dense_sgd_split(
+        x, y, m, w0, allreduce=lambda t: t, **step_kw), runs, 1)
+    # B1's one launch at the operating point, the kernel both trees share
+    xb, yb, mb, wb = split_inputs(rows=OP_ROWS)
+    b1 = split_queued(lambda: fused_sgd.fused_dense_sgd(xb, yb, mb, wb, **step_kw), runs, 1)
+    return {"iteration_ms": median, "iteration_ms_runs": all_runs,
+            "host_us_an_iteration": host_us,
+            "launches_an_iteration": len(entries) if "fused_dense_grad_reduce" in entries else 1,
+            "step_ms": step[0], "step_ms_runs": step[1], "step_host_us": step[2],
+            "launches_a_step": launches, "b1_ms": b1[0], "b1_ms_runs": b1[1],
+            "entries": entries}
+
+
+# one arm of ``--split-ab``: the port found in argv[1], this chip_smoke
+# (argv[2]) for its inputs and timing; the result as the last line
+SPLIT_AB_RUN = r"""
+import importlib.util, json, sys
+sys.path.insert(0, sys.argv[1])
+spec = importlib.util.spec_from_file_location("chip_smoke_ab", sys.argv[2])
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+import twtml_tpu_torch
+out = cs.split_iteration_ms()
+out["package"] = twtml_tpu_torch.__file__
+print(json.dumps(out), flush=True)
+"""
+
+
+def split_ab(smi, pairs, parent_root):
+    """``--split-ab N --package-root DIR``: one split iteration at a rank's
+    B = 8192 x 1004, the port found in DIR (e.g. the parent commit
+    unpacked there: three plain launches an iteration) against this
+    checkout's (one cooperative launch), each arm in a process of its own
+    (``split_iteration_ms``), N pairs, the order alternating; the ptxas
+    report of each tree's fused_sgd build."""
+    import glob
+
+    roots = {"parent": parent_root, "change": HERE}
+    runs = {"parent": [], "change": []}
+    for i in range(pairs):
+        order = ("parent", "change") if i % 2 == 0 else ("change", "parent")
+        for arm in order:
+            res = subprocess.run([sys.executable, "-c", SPLIT_AB_RUN, roots[arm],
+                                  os.path.join(HERE, "chip_smoke.py")],
+                                 capture_output=True, text=True, timeout=600)
+            lines = res.stdout.splitlines()
+            if res.returncode != 0 or not lines or not lines[-1].startswith("{"):
+                raise AssertionError(f"split-ab {arm} pair {i}: exit {res.returncode}:\n"
+                                     f"{res.stderr[-4000:]}")
+            rec = json.loads(lines[-1])
+            if os.path.dirname(os.path.dirname(rec["package"])) != roots[arm]:
+                raise AssertionError(f"split-ab {arm}: imported {rec['package']}")
+            rec.update(pair=i, position=order.index(arm))
+            runs[arm].append(rec)
+            phase("split-ab", f"pair {i} {arm} (run {order.index(arm) + 1} of 2): an iteration "
+                  f"{rec['iteration_ms']:.5f} ms in {rec['launches_an_iteration']} launch(es) "
+                  f"(CUDA events, 50 queued, median of 5; the host's enqueue "
+                  f"{rec['host_us_an_iteration']:.1f} µs), a step at world size 1 "
+                  f"{rec['step_ms']:.4f} ms in {rec['launches_a_step']} launches; B1 at "
+                  f"{OP_ROWS} x 1004 {rec['b1_ms']:.4f} ms")
+    medians = {arm: {k: statistics.median(r[k] for r in rows)
+                     for k in ("iteration_ms", "host_us_an_iteration", "step_ms", "b1_ms")}
+               for arm, rows in runs.items()}
+    wins = sum(c["iteration_ms"] < p["iteration_ms"] for c, p in zip(
+        sorted(runs["change"], key=lambda r: r["pair"]),
+        sorted(runs["parent"], key=lambda r: r["pair"])))
+    for arm, root in roots.items():
+        for log in glob.glob(os.path.join(root, "build", "twtml_tpu_torch", "libfused_sgd-*.log")):
+            phase("split-ab", f"{arm} build ({os.path.basename(log)}):\n"
+                  + open(log).read().strip())
+    phase("split-ab", f"medians over {pairs} pairs: an iteration {medians['change']['iteration_ms']:.5f} "
+          f"ms against the parent's {medians['parent']['iteration_ms']:.5f}, lower in {wins} of "
+          f"{pairs} pairs; the host's enqueue {medians['change']['host_us_an_iteration']:.1f} "
+          f"against {medians['parent']['host_us_an_iteration']:.1f} µs an iteration; a step "
+          f"{medians['change']['step_ms']:.4f} against "
+          f"{medians['parent']['step_ms']:.4f} ms; B1 {medians['change']['b1_ms']:.4f} against "
+          f"{medians['parent']['b1_ms']:.4f} ms | card: {smi}")
+    print(json.dumps({"split_ab": {"pairs": pairs, "runs": runs, "medians": medians,
+                                   "change_wins": wins, "card": smi}}), flush=True)
 
 
 def mh_block_emulation(path, lines):
@@ -5946,7 +6131,7 @@ def multihost_phase(smi, statuses):
         launches = {e: sum(r["launches"][e] for r in recs) for e in SPLIT_ENTRIES}
         for rank, rec in enumerate(recs):
             steps = MH_BATCHES + 1
-            want = {e: steps * OP_ITERS for e in SPLIT_ENTRIES}
+            want = {e: steps * k for e, k in split_launches_a_step().items()}
             got = {e: rec["launches"][e] for e in SPLIT_ENTRIES}
             c = rec["collectives"]
             if got != want or rec["launches"]["fused_dense_sgd"]:
@@ -6062,7 +6247,7 @@ def keeping(conf, get_state, set_state, totals, lead=True):
 def report(failed, hard_exit):
     totals = kept[0] if kept else {}
     launches = {n: getattr(fused_sgd, n).launches for n in
-                ("fused_dense_grad", "fused_dense_grad_reduce", "fused_dense_update")}
+                ("fused_dense_grad", "fused_dense_update")}
     launches["fused_dense_sgd"] = fused_sgd.fused_dense_sgd.launches
     snap = metrics.get_registry().snapshot()
     print(json.dumps({"failed": failed, "hard_exit": hard_exit, "count": totals.get("count"),
@@ -6997,7 +7182,7 @@ def modelaxis_phase(smi, statuses):
                                                  label="modelaxis")
         steps = MH_BATCHES + 1  # and the warm-up's
         for rank, rec in enumerate(recs_t):
-            want = {e: MA_TENANTS * OP_ITERS * steps for e in SPLIT_ENTRIES}
+            want = {e: MA_TENANTS * k * steps for e, k in split_launches_a_step().items()}
             got = {e: rec["launches"][e] for e in SPLIT_ENTRIES}
             if MA_DEVICE != "cuda":
                 got = want  # the CPU twins count no launch
@@ -7013,7 +7198,7 @@ def modelaxis_phase(smi, statuses):
                                                         label="modelaxis")}
         phase("modelaxis", f"--tenants {MA_TENANTS} on 2 ranks: lines and the [{MA_TENANTS}, "
               f"1004] stack within {err_t:.3g} of one process's, one fetch a tick, the split "
-              f"{MA_TENANTS} x {OP_ITERS} x 3 launches a step")
+              f"{MA_TENANTS} x ({OP_ITERS} + 1) launches a step")
         # --elastic on: a killed follower, the survivor's stack from its archive
         kill1 = f"peer.kill:uid=1:tick={EL_KILL_TICK}"
         d_k = os.path.join(workdir, "tenants-kill1")
@@ -7321,6 +7506,9 @@ def main() -> None:
             gram_ab(smi, int(argv[argv.index("--gram-ab") + 1]), PACKAGE_ROOT)
         finally:
             RECORDER.close()
+        return
+    if "--split-ab" in argv:
+        split_ab(smi, int(argv[argv.index("--split-ab") + 1]), PACKAGE_ROOT)
         return
     if "--elastic-ab" in argv:
         os.environ["TWTML_NOW_MS"] = str(NOW_MS)

@@ -90,8 +90,7 @@ def _launches() -> dict:
     from twtml_tpu_torch.ops import fused_gram, fused_sgd
 
     out = {fn.__name__: fn.launches for fn in fused_gram.KERNELS}
-    for name in ("fused_dense_sgd", "fused_dense_grad", "fused_dense_grad_reduce",
-                 "fused_dense_update"):
+    for name in ("fused_dense_sgd", "fused_dense_grad", "fused_dense_update"):
         out[name] = getattr(fused_sgd, name).launches
     return out
 

@@ -460,6 +460,86 @@ __device__ __forceinline__ void stage_row(const Params& p, uint4* x_s, float* y_
   if (lane == 0) y_s[l] = keep ? __ldg(p.labels + row) : 0.f;
 }
 
+// ---- the update, shared by B1 and the split: the one home of its arithmetic
+
+// η = step/√it and 1 − η·λ of iteration it, as the JAX loop rounds them
+struct StepScalars {
+  float eta, scale;
+};
+
+__device__ __forceinline__ StepScalars step_scalars(const Params& p, int it) {
+  const float eta = __fdiv_rn(p.step_size, __fsqrt_rn((float)it));
+  return {eta, __fsub_rn(1.f, __fmul_rn(eta, p.l2_reg))};
+}
+
+// Column f's update, the JAX loop's f32 arithmetic operation for operation
+// (no FMA contraction): w·(1 − η·λ) − (η·g)/max(count, 1), written to wbuf
+// and w_out; adds its ‖Δw‖² and ‖w‖² terms to d and n.
+__device__ __forceinline__ void update_column(const Params& p, int f, float wo, float g,
+                                              StepScalars k, float denom, float& d, float& n) {
+  const float wn = __fsub_rn(__fmul_rn(wo, k.scale), __fdiv_rn(__fmul_rn(k.eta, g), denom));
+  const float dw = __fsub_rn(wn, wo);
+  d = fmaf(dw, dw, d);
+  n = fmaf(wn, wn, n);
+  p.wbuf[f] = wn;
+  if (f < p.features) p.w_out[f] = wn;
+}
+
+// The CTA's columns [col0, col1), 8 at a time, summed across the CTA
+// partials in a fixed order: lane & 7 takes column f0 + (lane & 7), and the
+// warps read partial rows 4·warp + (lane >> 3) + 48j, so a load instruction
+// covers 4 partial rows × 8 adjacent columns (whole 32-byte sectors); then
+// use(f, Σ) in lanes 0-7 of warp 0, in column order.
+template <class Use>
+__device__ __forceinline__ void column_sums(const Params& p, float* red, int col0, int col1,
+                                            Use use) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ncta = gridDim.x, fpad = p.fpad;
+  for (int f0 = col0; f0 < col1; f0 += 8) {
+    const int f = f0 + (lane & 7);
+    float g = 0.f;
+    if (f < col1) {
+#pragma unroll 4
+      for (int c = 4 * warp + (lane >> 3); c < ncta; c += 4 * kWarps)
+        g += __ldcg(p.partials + (size_t)c * fpad + f);
+    }
+    g += __shfl_xor_sync(0xffffffffu, g, 8);
+    g += __shfl_xor_sync(0xffffffffu, g, 16);
+    if (lane < 8) red[warp * 8 + lane] = g;
+    __syncthreads();
+    if (warp == 0 && lane < 8 && f < col1) {
+      float gs = red[lane];
+      for (int w = 1; w < kWarps; ++w) gs += red[w * 8 + lane];
+      use(f, gs);
+    }
+    __syncthreads();
+  }
+}
+
+// In warp 0 after the norm partials are in: the converged decision from
+// every CTA's ‖Δw‖² and ‖w‖², summed lane-strided over the CTAs and then
+// across the warp, so every lane of every CTA takes the same one.
+__device__ __forceinline__ bool converged(const Params& p, int lane) {
+  float ds = 0.f, ns = 0.f;
+  for (int c = lane; c < (int)gridDim.x; c += 32) {
+    ds += __ldcg(p.norm_part + 2 * c);
+    ns += __ldcg(p.norm_part + 2 * c + 1);
+  }
+  ds = warp_sum(ds);
+  ns = warp_sum(ns);
+  return p.tol > 0.f && sqrtf(ds) < p.tol * fmaxf(sqrtf(ns), 1.f);
+}
+
+// In warp 0: the CTA's ‖Δw‖² and ‖w‖² partials from lanes' d and n.
+__device__ __forceinline__ void store_norms(const Params& p, int cta, float d, float n) {
+  d = warp_sum(d);
+  n = warp_sum(n);
+  if ((threadIdx.x & 31) == 0) {
+    p.norm_part[2 * cta] = d;
+    p.norm_part[2 * cta + 1] = n;
+  }
+}
+
 template <bool kLogistic>
 __global__ void __launch_bounds__(kThreads, 1) fused_sgd_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -515,66 +595,23 @@ __global__ void __launch_bounds__(kThreads, 1) fused_sgd_kernel(const Params p) 
     else
       row_pass_wide<kLogistic>(p, w_s, y_s, r_s, x_s, red, cta, row0, my_rows, it == 1, train);
     if (!train) break;
-    // the JAX loop's f32 arithmetic operation for operation (no FMA
-    // contraction): η = step/√it, w·(1 − η·λ) − (η·g)/max(count, 1)
-    const float eta = __fdiv_rn(p.step_size, __fsqrt_rn((float)it));
-    const float scale = __fsub_rn(1.f, __fmul_rn(eta, p.l2_reg));
+    const StepScalars k = step_scalars(p, it);
     grid.sync();
 
-    // ---- update of this CTA's columns, 8 at a time: lane & 7 takes column
-    // f0 + (lane & 7), and the warps read partial rows 4·warp + (lane >> 3)
-    // + 48j, so a load instruction covers 4 partial rows × 8 adjacent
-    // columns (whole 32-byte sectors); sums in a fixed order
+    // ---- update of this CTA's columns with Xᵀr summed across the CTAs
     float d = 0.f, n = 0.f;  // in lanes 0-7 of warp 0
-    for (int f0 = col0; f0 < col1; f0 += 8) {
-      const int f = f0 + (lane & 7);
-      float g = 0.f;
-      if (f < col1) {
-#pragma unroll 4
-        for (int c = 4 * warp + (lane >> 3); c < ncta; c += 4 * kWarps)
-          g += __ldcg(p.partials + (size_t)c * fpad + f);
-      }
-      g += __shfl_xor_sync(0xffffffffu, g, 8);
-      g += __shfl_xor_sync(0xffffffffu, g, 16);
-      if (lane < 8) red[warp * 8 + lane] = g;
-      __syncthreads();
-      if (warp == 0 && lane < 8 && f < col1) {
-        float gs = red[lane];
-        for (int w = 1; w < kWarps; ++w) gs += red[w * 8 + lane];
-        const float wo = w_s[f];
-        const float wn = __fsub_rn(__fmul_rn(wo, scale), __fdiv_rn(__fmul_rn(eta, gs), denom));
-        const float dw = __fsub_rn(wn, wo);
-        d = fmaf(dw, dw, d);
-        n = fmaf(wn, wn, n);
-        p.wbuf[f] = wn;
-        if (f < features) p.w_out[f] = wn;
-      }
-      __syncthreads();
-    }
-    if (warp == 0) {
-      d = warp_sum(d);
-      n = warp_sum(n);
-      if (lane == 0) {
-        p.norm_part[2 * cta] = d;
-        p.norm_part[2 * cta + 1] = n;
-      }
-    }
+    column_sums(p, red, col0, col1, [&](int f, float g) {
+      update_column(p, f, w_s[f], g, k, denom, d, n);
+    });
+    if (warp == 0) store_norms(p, cta, d, n);
     grid.sync();
 
     // ---- every CTA: the new w, and the same converged decision
     for (int f = threadIdx.x - 32; warp > 0 && f < fpad; f += kThreads - 32)
       w_s[f] = __ldcg(p.wbuf + f);
     if (warp == 0) {
-      float ds = 0.f, ns = 0.f;
-      for (int c = lane; c < ncta; c += 32) {
-        ds += __ldcg(p.norm_part + 2 * c);
-        ns += __ldcg(p.norm_part + 2 * c + 1);
-      }
-      ds = warp_sum(ds);
-      ns = warp_sum(ns);
-      if (lane == 0)
-        scratch[kConvergedSlot] =
-            (p.tol > 0.f && sqrtf(ds) < p.tol * fmaxf(sqrtf(ns), 1.f)) ? 1.f : 0.f;
+      const bool done = converged(p, lane);
+      if (lane == 0) scratch[kConvergedSlot] = done ? 1.f : 0.f;
     }
     __syncthreads();
     if (scratch[kConvergedSlot] != 0.f || it >= p.num_iterations) break;
@@ -585,60 +622,65 @@ __global__ void __launch_bounds__(kThreads, 1) fused_sgd_kernel(const Params p) 
 // ------------------------------------------------------------ data-parallel split
 //
 // The same loop cut at its one cross-rank point, for N processes that train
-// one model (parallel/distributed.py): no collective can run inside the
-// cooperative launch above, so each iteration becomes three plain launches
-// with one all-reduce on the host's side between the second and the third:
-//   dense_grad_kernel    r = residual(X·w, y), each CTA's Xᵀr into the
-//                        [grid, fpad] partials (B1's row split, warp order
-//                        and cta_reduce_tile); on the first launch of a step
-//                        it also stages X (where-and-round to bf16, stage_row)
-//                        into a device buffer laid out as B1's spill buffer
-//                        with no resident rows, writes preds = X·w0 and each
-//                        CTA's masked count;
-//   dense_reduce_kernel  the partials summed in B1's fixed order into
-//                        g[fpad], the count in g[fpad]; the host then
-//                        all-reduces (SUM) the fpad + 1 floats;
-//   dense_update_kernel  B1's update of each CTA's columns with the global g
-//                        and count, its ‖Δw‖² and ‖w‖² partials, and (in
-//                        the CTA that finishes last) the converged decision,
-//                        written to device memory.
-// Every launch after the first reads the converged flag and returns at
-// once, so the host never reads convergence back; a step whose global count
-// is 0 makes no update. The grid, the row split, the order of every sum and
-// the update's f32 arithmetic are B1's, so at world size 1 (the all-reduce
-// an identity) the split loop gives B1's w and preds bit for bit.
+// one model (parallel/distributed.py). No collective can run inside a
+// launch, so the loop leaves the kernel once an iteration, at the all-reduce
+// (SUM, on the host's side) of this rank's Xᵀr and count, fpad + 1 floats in
+// gbuf. Each iteration is ONE cooperative launch of dense_iteration_kernel
+// over B1's grid, which at iteration `it` does, in order:
+//   (a) it >= 2: B1's update of iteration it − 1 with the all-reduced Xᵀr
+//       and count in gbuf, each CTA its column slice (update_column; wbuf,
+//       w_out and its ‖Δw‖², ‖w‖² partials); a grid barrier; then every CTA
+//       loads the new w into shared memory and takes B1's converged
+//       decision. A step that converged, or whose global count is 0 (no
+//       update: w0 stands, 0 iterations), returns here in every CTA, and
+//       CTA 0 sets the step's flag in `state`: later launches of the step
+//       return at entry, so the host never reads convergence back;
+//   (b) the row pass: r = residual(X·w, y), each CTA's Xᵀr into the [grid,
+//       fpad] partials (B1's row split, warp order and cta_reduce_tile). The
+//       first launch of a step also stages X (stage_row's where-and-round to
+//       bf16) into a device buffer laid out as B1's spill buffer with no
+//       resident rows, writes preds = X·w0 and each CTA's masked count;
+//   (c) a grid barrier, then each CTA sums its column slice of the partials
+//       into gbuf in B1's order (column_sums), CTA 0 the count into
+//       gbuf[fpad].
+// After the step's last all-reduce, one launch in update-only mode does (a)
+// alone. A step of N iterations is N + 1 launches and N all-reduces. The
+// grid, the row split, the order of every sum and the update's f32
+// arithmetic are B1's, so at world size 1 (the all-reduce an identity) the
+// split gives B1's w and preds bit for bit.
 // What bounds it: bytes. Each iteration streams the staged bf16 X once from
-// device memory (B_local = 8192 rows x 1024 stored columns: 16.8 MB) and
-// the partials once; X no longer stays on chip across iterations, because
-// the loop leaves the kernel at every iteration.
+// device memory (B_local = 8192 rows x 1024 stored columns: 16.8 MB); X no
+// longer stays on chip across iterations, because the loop leaves the
+// kernel at every iteration. The update and the reduce move a few KB and
+// cost a grid barrier each (~1.1 µs on an H100) inside the launch.
 
 struct SplitState {
-  int* state;   // [2]: converged flag, CTAs done with the current update
+  int* state;   // [1]: the step's flag: converged, or no row anywhere
   float* gbuf;  // [fpad + 1]: this rank's Xᵀr and count, then the global ones
 };
 
-constexpr int kStateConverged = 0;
-constexpr int kStateDone = 1;
-
 template <bool kLogistic>
 __global__ void __launch_bounds__(kThreads, 1)
-    dense_grad_kernel(const Params p, const SplitState s, const int first) {
+    dense_iteration_kernel(const Params p, const SplitState s, const int it, const int row_pass) {
   extern __shared__ __align__(16) unsigned char smem[];
-  if (!first && s.state[kStateConverged] != 0) return;
+  const bool first = row_pass && it == 1;
+  if (!first && s.state[0] != 0) return;
   const Layout lay = layout(p.fpad, p.rows_cap);
   float* w_s = reinterpret_cast<float*>(smem);
   float* red = reinterpret_cast<float*>(smem + lay.red);
   float* y_s = reinterpret_cast<float*>(smem + lay.y);
   float* r_s = reinterpret_cast<float*>(smem + lay.r);
+  float* scratch = reinterpret_cast<float*>(smem + lay.scratch);
+  cg::grid_group grid = cg::this_grid();
   const int cta = blockIdx.x, ncta = gridDim.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row0 = (int)((long long)cta * p.rows / ncta);
   const int my_rows = (int)((long long)(cta + 1) * p.rows / ncta) - row0;
   const int fpad = p.fpad, features = p.features;
+  const int cols_per_cta = (fpad + ncta - 1) / ncta;
+  const int col0 = min(cta * cols_per_cta, fpad);
+  const int col1 = min(col0 + cols_per_cta, fpad);
   if (first) {
-    const int cols_per_cta = (fpad + ncta - 1) / ncta;
-    const int col0 = min(cta * cols_per_cta, fpad);
-    const int col1 = min(col0 + cols_per_cta, fpad);
     for (int f = threadIdx.x; f < fpad; f += kThreads)
       w_s[f] = f < features ? __ldg(p.w0 + f) : 0.f;
     for (int f = col0 + threadIdx.x; f < col1; f += kThreads) {
@@ -646,8 +688,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (f < features) p.w_out[f] = __ldg(p.w0 + f);  // the result when no update runs
     }
     if (cta == 0 && threadIdx.x == 0) {
-      s.state[kStateConverged] = 0;
-      s.state[kStateDone] = 0;
+      s.state[0] = 0;
       *p.iterations = 0.f;
     }
     const bool vec4 = features % 4 == 0 && (reinterpret_cast<uintptr_t>(p.x) & 15) == 0;
@@ -661,111 +702,59 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     __threadfence();  // the staged rows are read back through L2 below
   } else {
-    for (int f = threadIdx.x; f < fpad; f += kThreads) w_s[f] = __ldcg(p.wbuf + f);
-    for (int l = threadIdx.x; l < my_rows; l += kThreads)
-      y_s[l] = __ldg(p.mask + row0 + l) > 0.f ? __ldg(p.labels + row0 + l) : 0.f;
+    // ---- (a) the update of iteration u with the all-reduced Xᵀr and count
+    const int u = row_pass ? it - 1 : it;
+    const float count = __ldcg(s.gbuf + fpad);
+    if (!(count > 0.f)) {  // no row on any rank: every CTA returns
+      if (cta == 0 && threadIdx.x == 0) s.state[0] = 1;
+      return;
+    }
+    if (row_pass)
+      for (int l = threadIdx.x; l < my_rows; l += kThreads)
+        y_s[l] = __ldg(p.mask + row0 + l) > 0.f ? __ldg(p.labels + row0 + l) : 0.f;
+    if (warp == 0) {  // lanes 0-7 take 8 adjacent columns, as B1's update does
+      const StepScalars k = step_scalars(p, u);
+      const float denom = fmaxf(count, 1.f);
+      float d = 0.f, n = 0.f;
+      for (int f0 = col0; f0 < col1; f0 += 8) {
+        const int f = f0 + (lane & 7);
+        if (lane < 8 && f < col1)
+          update_column(p, f, __ldcg(p.wbuf + f), __ldcg(s.gbuf + f), k, denom, d, n);
+      }
+      store_norms(p, cta, d, n);
+    }
+    grid.sync();
+    if (row_pass)
+      for (int f = threadIdx.x - 32; warp > 0 && f < fpad; f += kThreads - 32)
+        w_s[f] = __ldcg(p.wbuf + f);
+    if (warp == 0) {
+      const bool done = converged(p, lane);
+      if (lane == 0) scratch[kConvergedSlot] = done ? 1.f : 0.f;
+    }
+    __syncthreads();
+    const bool stop = scratch[kConvergedSlot] != 0.f;
+    if (cta == 0 && threadIdx.x == 0) {
+      *p.iterations = (float)u;
+      if (stop) s.state[0] = 1;
+    }
+    if (stop || !row_pass) return;
   }
   __syncthreads();
+
+  // ---- (b) one pass over this rank's rows: each CTA's Xᵀr into the partials
   if (p.nvec <= kTileGroups)
     row_pass_narrow<kLogistic>(p, w_s, y_s, nullptr, red, cta, row0, my_rows, first, true);
   else
     row_pass_wide<kLogistic>(p, w_s, y_s, r_s, nullptr, red, cta, row0, my_rows, first, true);
-}
+  grid.sync();
 
-// One CTA a column slice of B1's update (the same slices, grid = B1's):
-// g[f] = Σ_c partials[c][f] in B1's order; CTA 0 also sums the count.
-__global__ void __launch_bounds__(kThreads) dense_reduce_kernel(const Params p,
-                                                                const SplitState s) {
-  __shared__ float red[kWarps * 8];
-  if (s.state[kStateConverged] != 0) return;
-  const int cta = blockIdx.x, ncta = gridDim.x;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int fpad = p.fpad;
-  const int cols_per_cta = (fpad + ncta - 1) / ncta;
-  const int col0 = min(cta * cols_per_cta, fpad);
-  const int col1 = min(col0 + cols_per_cta, fpad);
-  for (int f0 = col0; f0 < col1; f0 += 8) {
-    const int f = f0 + (lane & 7);
-    float g = 0.f;
-    if (f < col1) {
-#pragma unroll 4
-      for (int c = 4 * warp + (lane >> 3); c < ncta; c += 4 * kWarps)
-        g += __ldcg(p.partials + (size_t)c * fpad + f);
-    }
-    g += __shfl_xor_sync(0xffffffffu, g, 8);
-    g += __shfl_xor_sync(0xffffffffu, g, 16);
-    if (lane < 8) red[warp * 8 + lane] = g;
-    __syncthreads();
-    if (warp == 0 && lane < 8 && f < col1) {
-      float gs = red[lane];
-      for (int w = 1; w < kWarps; ++w) gs += red[w * 8 + lane];
-      s.gbuf[f] = gs;
-    }
-    __syncthreads();
-  }
+  // ---- (c) this CTA's columns of Xᵀr in B1's order, CTA 0 the count
+  column_sums(p, red, col0, col1, [&](int f, float g) { s.gbuf[f] = g; });
   if (cta == 0 && warp == 0) {
     float c = 0.f;
-    for (int k = lane; k < ncta; k += 32) c += __ldcg(p.count_part + k);
+    for (int i = lane; i < ncta; i += 32) c += __ldcg(p.count_part + i);
     c = warp_sum(c);
     if (lane == 0) s.gbuf[fpad] = c;
-  }
-}
-
-// One warp a column slice (B1's slices; lanes 0-7 hold 8 columns, as in
-// B1's update): w ← w·(1 − η·λ) − (η·g)/max(count, 1) with the global g and
-// count, then the converged decision in the CTA that finishes last.
-__global__ void __launch_bounds__(32) dense_update_kernel(const Params p, const SplitState s,
-                                                          const int it) {
-  if (s.state[kStateConverged] != 0) return;
-  const int cta = blockIdx.x, ncta = gridDim.x, lane = threadIdx.x;
-  const int fpad = p.fpad, features = p.features;
-  const float count = s.gbuf[fpad];
-  if (!(count > 0.f)) {  // no sample anywhere: w0 stands, 0 iterations
-    if (cta == 0 && lane == 0) s.state[kStateConverged] = 1;
-    return;
-  }
-  const float denom = fmaxf(count, 1.f);
-  const float eta = __fdiv_rn(p.step_size, __fsqrt_rn((float)it));
-  const float scale = __fsub_rn(1.f, __fmul_rn(eta, p.l2_reg));
-  const int cols_per_cta = (fpad + ncta - 1) / ncta;
-  const int col0 = min(cta * cols_per_cta, fpad);
-  const int col1 = min(col0 + cols_per_cta, fpad);
-  float d = 0.f, n = 0.f;
-  for (int f0 = col0; f0 < col1; f0 += 8) {
-    const int f = f0 + (lane & 7);
-    if (lane < 8 && f < col1) {
-      const float gs = s.gbuf[f];
-      const float wo = p.wbuf[f];
-      const float wn = __fsub_rn(__fmul_rn(wo, scale), __fdiv_rn(__fmul_rn(eta, gs), denom));
-      const float dw = __fsub_rn(wn, wo);
-      d = fmaf(dw, dw, d);
-      n = fmaf(wn, wn, n);
-      p.wbuf[f] = wn;
-      if (f < features) p.w_out[f] = wn;
-    }
-  }
-  d = warp_sum(d);
-  n = warp_sum(n);
-  if (lane == 0) {
-    p.norm_part[2 * cta] = d;
-    p.norm_part[2 * cta + 1] = n;
-  }
-  __threadfence();
-  int last = 0;
-  if (lane == 0) last = atomicAdd(s.state + kStateDone, 1) == ncta - 1;
-  if (!__shfl_sync(0xffffffffu, last, 0)) return;
-  __threadfence();
-  float ds = 0.f, ns = 0.f;  // B1's order: lane-strided over the CTAs, then the warp
-  for (int c = lane; c < ncta; c += 32) {
-    ds += __ldcg(p.norm_part + 2 * c);
-    ns += __ldcg(p.norm_part + 2 * c + 1);
-  }
-  ds = warp_sum(ds);
-  ns = warp_sum(ns);
-  if (lane == 0) {
-    *p.iterations = (float)it;
-    s.state[kStateDone] = 0;
-    if (p.tol > 0.f && sqrtf(ds) < p.tol * fmaxf(sqrtf(ns), 1.f)) s.state[kStateConverged] = 1;
   }
 }
 
@@ -890,7 +879,7 @@ __global__ void __launch_bounds__(kPredictThreads, 2) fused_predict_kernel(const
 // Once a device, before its first launch: the SM count and the opt-in
 // shared memory a block may use on `device` (for the launch plan), and both
 // instantiations' dynamic shared-memory limit raised to that opt-in there,
-// so that a launch makes no set-up call of its own (the split's grad kernel
+// so that a launch makes no set-up call of its own (the split's kernel
 // too). Returns a CUDA error code, 0 on success.
 extern "C" int twtml_fused_sgd_setup(int device, int* sm_count, int* shared_optin) {
   int current = 0;
@@ -907,10 +896,10 @@ extern "C" int twtml_fused_sgd_setup(int device, int* sm_count, int* shared_opti
     err = cudaFuncSetAttribute(fused_sgd_kernel<true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, *shared_optin);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(dense_grad_kernel<false>,
+    err = cudaFuncSetAttribute(dense_iteration_kernel<false>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, *shared_optin);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(dense_grad_kernel<true>,
+    err = cudaFuncSetAttribute(dense_iteration_kernel<true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, *shared_optin);
   const cudaError_t restored = cudaSetDevice(current);
   return (int)(err != cudaSuccess ? err : restored);
@@ -1014,24 +1003,24 @@ extern "C" int twtml_fused_dense_predict(const void* x, const void* mask, const 
   return (int)cudaGetLastError();
 }
 
-// ---- the split's three C entries (each one plain launch on `stream`) -----
+// ---- the split's two C entries (each one cooperative launch on `stream`) --
 //
-// Shared by all three: the launch plan of one B1 call on the rank's rows
+// Shared by both: the launch plan of one B1 call on the rank's rows
 // (ops/fused_sgd.py split_plan: B1's grid and rows_cap, no resident rows,
-// shared_bytes = the layout's x offset), `staged` the bf16 X
-// [grid·rows_cap·8·plan_layout[5]], `scratch` B1's [grid·fpad + fpad +
+// shared_bytes = the layout's x offset), `scratch` B1's [grid·fpad + fpad +
 // 3·grid + 1] f32 (partials, w, counts, norms, iterations run), `state`
-// int32 [2] and `gbuf` f32 [fpad + 1]. Each returns the launch's CUDA error
-// (cudaErrorInvalidValue for a plan that differs from layout()), 0 when it
-// was taken.
+// int32 [1] and `gbuf` f32 [fpad + 1]; `it` >= 1 and the step's step size,
+// L2 and tolerance. Each returns the launch's CUDA error (a refused
+// cooperative launch included; cudaErrorInvalidValue for a plan that
+// differs from layout()), 0 when it was taken.
 namespace {
 int split_params(Params& p, const void* x, const void* labels, const void* mask,
                  const void* w0, void* w_out, void* preds, void* staged, void* scratch,
                  int rows, int features, int fpad, int grid, int rows_cap, int shared_bytes,
-                 const int* plan_layout) {
+                 const int* plan_layout, int it, float step_size, float l2_reg, float tol) {
   const Layout lay = layout(fpad, rows_cap);
   const int stride = row_groups(fpad);
-  if (rows < 1 || features < 1 || fpad % 8 != 0 || features > fpad || grid < 1 ||
+  if (rows < 1 || features < 1 || fpad % 8 != 0 || features > fpad || grid < 1 || it < 1 ||
       (long long)rows_cap * grid < rows || (size_t)plan_layout[0] != lay.red ||
       (size_t)plan_layout[1] != lay.y || (size_t)plan_layout[2] != lay.r ||
       (size_t)plan_layout[3] != lay.scratch || (size_t)plan_layout[4] != lay.x ||
@@ -1058,44 +1047,47 @@ int split_params(Params& p, const void* x, const void* labels, const void* mask,
   p.resident = 0;  // every row in the staged buffer
   p.spill_per_cta = rows_cap;
   p.num_iterations = 0;
-  p.step_size = p.l2_reg = p.tol = 0.f;
+  p.step_size = step_size;
+  p.l2_reg = l2_reg;
+  p.tol = tol;
   return 0;
+}
+
+int launch_iteration(Params p, void* state, void* gbuf, int it, int row_pass, int residual_mode,
+                     int grid, int shared_bytes, void* stream) {
+  SplitState s{static_cast<int*>(state), static_cast<float*>(gbuf)};
+  void* args[] = {&p, &s, &it, &row_pass};
+  const void* kernel = residual_mode == 1
+                           ? reinterpret_cast<const void*>(dense_iteration_kernel<true>)
+                           : reinterpret_cast<const void*>(dense_iteration_kernel<false>);
+  return (int)cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads), args,
+                                          (size_t)shared_bytes, static_cast<cudaStream_t>(stream));
 }
 }  // namespace
 
+// Iteration `it` of a step on this rank's rows: (a) the update of it − 1
+// from the all-reduced gbuf (it >= 2), (b) the row pass (it == 1 also stages
+// X from x [rows, features] f32, reads labels/mask [rows] and w0 [features]
+// f32, and writes preds [rows] and w_out [features] = w0), (c) this rank's
+// Xᵀr and count into gbuf. `staged` is the bf16 X [grid·rows_cap·8·
+// plan_layout[5]]. `residual_mode`: 0 least squares, 1 logistic.
 extern "C" int twtml_fused_dense_grad(const void* x, const void* labels, const void* mask,
                                       const void* w0, void* w_out, void* preds, void* staged,
                                       void* scratch, void* state, void* gbuf, int rows,
                                       int features, int fpad, int grid, int rows_cap,
-                                      int shared_bytes, const int* plan_layout, int first,
+                                      int shared_bytes, const int* plan_layout, int it,
+                                      float step_size, float l2_reg, float tol,
                                       int residual_mode, void* stream) {
   Params p;
   const int err = split_params(p, x, labels, mask, w0, w_out, preds, staged, scratch, rows,
-                               features, fpad, grid, rows_cap, shared_bytes, plan_layout);
+                               features, fpad, grid, rows_cap, shared_bytes, plan_layout, it,
+                               step_size, l2_reg, tol);
   if (err != 0 || (residual_mode != 0 && residual_mode != 1)) return (int)cudaErrorInvalidValue;
-  const SplitState s{static_cast<int*>(state), static_cast<float*>(gbuf)};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (residual_mode == 1)
-    dense_grad_kernel<true><<<grid, kThreads, (size_t)shared_bytes, st>>>(p, s, first);
-  else
-    dense_grad_kernel<false><<<grid, kThreads, (size_t)shared_bytes, st>>>(p, s, first);
-  return (int)cudaGetLastError();
+  return launch_iteration(p, state, gbuf, it, 1, residual_mode, grid, shared_bytes, stream);
 }
 
-extern "C" int twtml_fused_dense_grad_reduce(void* scratch, void* state, void* gbuf, int rows,
-                                             int features, int fpad, int grid, int rows_cap,
-                                             int shared_bytes, const int* plan_layout,
-                                             void* stream) {
-  Params p;
-  const int err = split_params(p, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                               scratch, rows, features, fpad, grid, rows_cap, shared_bytes,
-                               plan_layout);
-  if (err != 0) return err;
-  const SplitState s{static_cast<int*>(state), static_cast<float*>(gbuf)};
-  dense_reduce_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p, s);
-  return (int)cudaGetLastError();
-}
-
+// The update of iteration `it` alone, after the step's last all-reduce: (a)
+// with no row pass; w_out [features] f32 receives the weights.
 extern "C" int twtml_fused_dense_update(void* w_out, void* scratch, void* state, void* gbuf,
                                         int rows, int features, int fpad, int grid,
                                         int rows_cap, int shared_bytes, const int* plan_layout,
@@ -1104,12 +1096,7 @@ extern "C" int twtml_fused_dense_update(void* w_out, void* scratch, void* state,
   Params p;
   const int err = split_params(p, nullptr, nullptr, nullptr, nullptr, w_out, nullptr, nullptr,
                                scratch, rows, features, fpad, grid, rows_cap, shared_bytes,
-                               plan_layout);
-  if (err != 0 || it < 1) return err != 0 ? err : (int)cudaErrorInvalidValue;
-  p.step_size = step_size;
-  p.l2_reg = l2_reg;
-  p.tol = tol;
-  const SplitState s{static_cast<int*>(state), static_cast<float*>(gbuf)};
-  dense_update_kernel<<<grid, 32, 0, static_cast<cudaStream_t>(stream)>>>(p, s, it);
-  return (int)cudaGetLastError();
+                               plan_layout, it, step_size, l2_reg, tol);
+  if (err != 0) return err;
+  return launch_iteration(p, state, gbuf, it, 0, 0, grid, shared_bytes, stream);
 }

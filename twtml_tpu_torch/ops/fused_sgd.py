@@ -23,14 +23,18 @@ reruns are bitwise equal. ``launch_plan`` and ``predict_plan`` size the
 launches; the wrapper only allocates outputs and scratch and launches.
 
 The data-parallel split (``fused_dense_sgd_split``, N processes training
-one model): the same loop cut at its one cross-rank point, three plain
-launches an iteration (``fused_dense_grad``, ``fused_dense_grad_reduce``,
-``fused_dense_update``, csrc/fused_sgd.cu) with one all-reduce of the
-fpad + 1 floats of this rank's Xᵀr and count between the second and the
-third. It uses B1's grid, row split and orders of summation, so at world
-size 1 it gives B1's weights and predictions bit for bit; its CPU twin is
-``fused_dense_grad_reference`` in ``sgd_inner_loop``. Each wrapper counts
-its launches in ``.launches``.
+one model): the same loop cut at its one cross-rank point, the all-reduce
+of the fpad + 1 floats of this rank's Xᵀr and count. Each iteration is one
+cooperative launch (``fused_dense_grad``: the update of the iteration
+before from the all-reduced buffer, B1's converged decision, this rank's
+row pass and its Xᵀr and count), and the step ends with one launch of the
+update alone (``fused_dense_update``): N + 1 launches and N all-reduces a
+step (``split_schedule``). It uses B1's grid, row split, orders of
+summation and update arithmetic, so at world size 1 it gives B1's weights
+and predictions bit for bit. Its CPU twin is ``fused_dense_grad_reference``
+in ``sgd_inner_loop``; ``fused_dense_iteration_reference`` and
+``fused_dense_update_reference`` are the two launches' plain functions.
+Each wrapper counts its launches in ``.launches``.
 
 Routing: a CPU tensor goes to the twin ``fused_dense_sgd_reference``; a CUDA
 tensor launches a kernel or raises. ``fused_dense_sgd.launches`` counts
@@ -286,10 +290,57 @@ def split_plan(batch_rows: int, num_features: int, *, sm_count: int,
                          shared_bytes=plan.smem_layout[4])
 
 
+def fused_dense_update_reference(w, gbuf, features: int, *, it: int, step_size: float,
+                                 l2_reg: float, convergence_tol: float):
+    """The plain function of the split's update-only launch: B1's f32
+    update of iteration ``it`` of the F columns of ``w`` with the
+    all-reduced Xᵀr ``gbuf[:F]`` and count ``gbuf[-1]``, then ‖Δw‖², ‖w‖²
+    and the converged test, as ``sgd_inner_loop`` computes them. Returns
+    (w', stop): ``stop`` (a bool tensor) is the step's flag the kernel sets,
+    true when the count is 0 (no update: w stands) or the update converged."""
+    from ..models.sgd import _step_scalars
+
+    eta, scale = _step_scalars(step_size, l2_reg, it, torch.float32)
+    count = gbuf[-1]
+    w_new = torch.where(count > 0, w * scale - eta * gbuf[:features] / count.clamp(min=1.0), w)
+    d, n = ((w_new - w) ** 2).sum(), (w_new * w_new).sum()
+    return w_new, ~(count > 0) | (
+        (convergence_tol > 0) & (d.sqrt() < convergence_tol * n.sqrt().clamp(min=1.0)))
+
+
+def fused_dense_iteration_reference(x_dense, labels, mask, w, gbuf, *, it: int,
+                                    step_size: float, l2_reg: float, convergence_tol: float,
+                                    residual_fn=least_squares_residual):
+    """The plain function of the split's launch at iteration ``it``: for
+    ``it`` >= 2 the update of ``it`` − 1 from the all-reduced ``gbuf`` [F +
+    1] (``fused_dense_update_reference``), which ends the step when it
+    stops; then this rank's Xᵀr and count at the new w. Returns (w, stop,
+    buffer): the buffer is [F + 1] (Xᵀr, then the count) for the
+    all-reduce, or ``gbuf`` untouched when the step stopped."""
+    if it > 1:
+        w, stop = fused_dense_update_reference(
+            w, gbuf, x_dense.shape[1], it=it - 1, step_size=step_size, l2_reg=l2_reg,
+            convergence_tol=convergence_tol)
+        if bool(stop):
+            return w, stop, gbuf
+    g, count, _ = fused_dense_grad_reference(x_dense, labels, mask, w, residual_fn=residual_fn)
+    return w, torch.zeros((), dtype=torch.bool, device=w.device), torch.cat([g, count[None]])
+
+
+def split_schedule(num_iterations: int) -> tuple:
+    """One split step of N >= 1 iterations as (what, it) pairs, in order:
+    for it = 1..N the iteration's launch ("grad") and the all-reduce of its
+    fpad + 1 floats ("allreduce"), then the update of N alone ("update"):
+    N + 1 launches and N all-reduces."""
+    return (*((what, it) for it in range(1, num_iterations + 1)
+              for what in ("grad", "allreduce")), ("update", num_iterations))
+
+
 class SplitBuffers(NamedTuple):
     """One split step's device buffers (``split_plan``'s sizes): the staged
-    bf16 X, B1's scratch, the int32 [2] state (converged flag, CTAs done)
-    and the [fpad + 1] all-reduce buffer (Xᵀr, then the count)."""
+    bf16 X, B1's scratch, the int32 [1] state (the step's flag: converged,
+    or no row on any rank) and the [fpad + 1] all-reduce buffer (Xᵀr, then
+    the count)."""
 
     staged: torch.Tensor
     scratch: torch.Tensor
@@ -301,7 +352,7 @@ def split_buffers(plan: LaunchPlan, device) -> SplitBuffers:
     return SplitBuffers(
         torch.empty((plan.spill_elements,), dtype=torch.bfloat16, device=device),
         torch.empty((plan.scratch_floats,), dtype=torch.float32, device=device),
-        torch.empty((2,), dtype=torch.int32, device=device),
+        torch.empty((1,), dtype=torch.int32, device=device),
         torch.empty((plan.fpad + 1,), dtype=torch.float32, device=device),
     )
 
@@ -314,40 +365,36 @@ def _plan_args(plan: LaunchPlan, features: int) -> tuple:
 def _check_split(name: str, err: int, plan: LaunchPlan) -> None:
     if err == 1:  # cudaErrorInvalidValue: the entry's own checks
         raise RuntimeError(f"{name}: the kernel refused the split plan {plan}")
-    if err != 0:
+    if err != 0:  # a refused cooperative launch included
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
 def fused_dense_grad(plan: LaunchPlan, bufs: SplitBuffers, x_dense, labels, mask, weights,
-                     w_out, preds, *, first: bool, mode: int = 0) -> None:
-    """One launch of the split's grad kernel on the current stream: each
-    CTA's Xᵀ residual(X·w, y) into the partials; with ``first`` it also
-    stages X, writes ``preds`` (X·w0) and the counts, and starts the step's
-    state. Later launches of a converged step return at once."""
+                     w_out, preds, *, it: int, step_size: float, l2_reg: float,
+                     convergence_tol: float, mode: int = 0) -> None:
+    """One cooperative launch of the split's kernel at iteration ``it`` on
+    the current stream: for ``it`` >= 2 the update of ``it`` − 1 from the
+    all-reduced ``bufs.gbuf`` into ``w_out`` and the converged decision,
+    then each CTA's Xᵀ residual(X·w, y), summed into ``bufs.gbuf`` (Xᵀr, the
+    count last). At ``it`` 1 it also stages X, writes ``preds`` (X·w0) and
+    the counts, and starts the step's state. Launches of a step that
+    stopped return at once."""
     err = _entry("twtml_fused_dense_grad")(
         x_dense.data_ptr(), labels.data_ptr(), mask.data_ptr(), weights.data_ptr(),
         w_out.data_ptr(), preds.data_ptr(), bufs.staged.data_ptr(), bufs.scratch.data_ptr(),
         bufs.state.data_ptr(), bufs.gbuf.data_ptr(), *_plan_args(plan, x_dense.shape[1]),
-        int(first), int(mode), torch.cuda.current_stream().cuda_stream)
+        int(it), float(step_size), float(l2_reg), float(convergence_tol), int(mode),
+        torch.cuda.current_stream().cuda_stream)
     _check_split("fused_dense_grad", err, plan)
     fused_dense_grad.launches += 1
-
-
-def fused_dense_grad_reduce(plan: LaunchPlan, bufs: SplitBuffers, features: int) -> None:
-    """One launch of the split's reduce kernel: the partials in B1's order
-    into ``bufs.gbuf[:fpad]``, the count into ``bufs.gbuf[fpad]``."""
-    err = _entry("twtml_fused_dense_grad_reduce")(
-        bufs.scratch.data_ptr(), bufs.state.data_ptr(), bufs.gbuf.data_ptr(),
-        *_plan_args(plan, features), torch.cuda.current_stream().cuda_stream)
-    _check_split("fused_dense_grad_reduce", err, plan)
-    fused_dense_grad_reduce.launches += 1
 
 
 def fused_dense_update(plan: LaunchPlan, bufs: SplitBuffers, w_out, features: int, *,
                        it: int, step_size: float, l2_reg: float,
                        convergence_tol: float) -> None:
-    """One launch of the split's update kernel: B1's update of iteration
-    ``it`` with the all-reduced ``bufs.gbuf``, and the converged flag."""
+    """One cooperative launch of the split's kernel in update-only mode:
+    B1's update of iteration ``it`` with the all-reduced ``bufs.gbuf`` into
+    ``w_out``, and the converged flag; no row pass."""
     err = _entry("twtml_fused_dense_update")(
         w_out.data_ptr(), bufs.scratch.data_ptr(), bufs.state.data_ptr(),
         bufs.gbuf.data_ptr(), *_plan_args(plan, features), int(it), float(step_size),
@@ -357,7 +404,6 @@ def fused_dense_update(plan: LaunchPlan, bufs: SplitBuffers, w_out, features: in
 
 
 fused_dense_grad.launches = 0
-fused_dense_grad_reduce.launches = 0
 fused_dense_update.launches = 0
 
 
@@ -369,10 +415,10 @@ def fused_dense_sgd_split(
     """B1's loop on this rank's rows of a batch that N ranks train together:
     each iteration's Xᵀr and count go through ``allreduce(t)`` (an in-place
     SUM over the ranks of a float32 tensor on the batch's device). Returns
-    (new weights [F], this rank's raw predictions [B]). On the card: three
-    plain launches an iteration and one ``allreduce`` of fpad + 1 floats,
-    no host read of convergence; on the CPU the twin
-    (``fused_dense_grad_reference`` in ``sgd_inner_loop``). At
+    (new weights [F], this rank's raw predictions [B]). On the card:
+    ``split_schedule``'s N + 1 cooperative launches and N ``allreduce``
+    calls of fpad + 1 floats, no host read of convergence; on the CPU the
+    twin (``fused_dense_grad_reference`` in ``sgd_inner_loop``). At
     ``num_iterations == 0`` no rank exchanges anything: B1's predict mode."""
     mode = residual_mode(residual_fn)
     if mode is None:
@@ -417,13 +463,15 @@ def fused_dense_sgd_split(
         bufs = split_buffers(plan, dev)
         w = torch.empty((f,), dtype=torch.float32, device=dev)
         preds = torch.empty((b,), dtype=torch.float32, device=dev)
-        for it in range(1, num_iterations + 1):
-            fused_dense_grad(plan, bufs, x_dense, labels, mask, weights, w, preds,
-                             first=it == 1, mode=mode)
-            fused_dense_grad_reduce(plan, bufs, f)
-            allreduce(bufs.gbuf)
-            fused_dense_update(plan, bufs, w, f, it=it, step_size=step_size, l2_reg=l2_reg,
-                               convergence_tol=convergence_tol)
+        kw = dict(step_size=step_size, l2_reg=l2_reg, convergence_tol=convergence_tol)
+        for what, it in split_schedule(num_iterations):
+            if what == "grad":
+                fused_dense_grad(plan, bufs, x_dense, labels, mask, weights, w, preds, it=it,
+                                 mode=mode, **kw)
+            elif what == "allreduce":
+                allreduce(bufs.gbuf)
+            else:
+                fused_dense_update(plan, bufs, w, f, it=it, **kw)
     fused_dense_sgd.last_iterations = bufs.scratch[-1]
     return w, preds
 
@@ -452,10 +500,10 @@ PREDICT_ARGTYPES = (
 _PLAN_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
 GRAD_ARGTYPES = (
     [ctypes.c_void_p] * 10  # x, labels, mask, w0, w_out, preds, staged, scratch, state, gbuf
-    + _PLAN_ARGTYPES + [ctypes.c_int] * 2  # first, residual_mode
+    + _PLAN_ARGTYPES + [ctypes.c_int] + [ctypes.c_float] * 3  # it, step, l2, tol
+    + [ctypes.c_int]  # residual_mode
     + [ctypes.c_void_p]  # stream
 )
-REDUCE_ARGTYPES = [ctypes.c_void_p] * 3 + _PLAN_ARGTYPES + [ctypes.c_void_p]
 UPDATE_ARGTYPES = (
     [ctypes.c_void_p] * 4  # w_out, scratch, state, gbuf
     + _PLAN_ARGTYPES + [ctypes.c_int] + [ctypes.c_float] * 3  # it, step, l2, tol
@@ -464,7 +512,6 @@ UPDATE_ARGTYPES = (
 _ENTRIES = {"twtml_fused_dense_sgd": KERNEL_ARGTYPES,
             "twtml_fused_dense_predict": PREDICT_ARGTYPES,
             "twtml_fused_dense_grad": GRAD_ARGTYPES,
-            "twtml_fused_dense_grad_reduce": REDUCE_ARGTYPES,
             "twtml_fused_dense_update": UPDATE_ARGTYPES}
 
 
