@@ -194,6 +194,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
                launch's first-pass predictions, and at F = 2000 and 8196
                (the wide order), NaN/Inf in masked rows bitwise ignored,
                an all-padding batch predicting zeros; its device time
+               (one call between events behind ~1 ms of sleep, and 50 calls
+               back to back behind the long sleep of ``split_queued``)
                against its twin, ``torch.mv`` and its bound.
  21. tenants — the tenant plane (``--tenants``, parallel/tenants.py) on the
                card, 4 ticks of the stream phase's tweets from a pre-filled
@@ -213,7 +215,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
                each bitwise standalone learners; from ``--profileDir``
                traces, M = 4 against the plain M = 1 run: host wall, device
                busy ms, launches and H2D/D2H copies a tick (one D2H), and
-               tweets/s;
+               tweets/s. Its vmap arm: B1's tenant grid
+               (``fused_dense_sgd_tenants``) against its plain version in
+               both residual modes on skewed parts (1 : 3 : 0 : 12
+               thousand rows, a dry tenant, per-tenant step sizes and
+               L2s), NaN/Inf in masked rows bitwise ignored, a NaN label
+               kept in its tenant, parts of 16 rows, all dry; its device
+               time at 4 x 4096 valid rows against the 4 single B1
+               launches on the same parts and B1 on the 16384 rows, in
+               turns behind a long queued sleep; then
+               ``TenantStackModel(mapping="vmap")`` (library level) on the
+               linear app run's parts (M = 4) and the logistic one's (M =
+               2): the grid launched once a tick (4 + the warm-up) and B1
+               never, under the sync-debug mode, each tick's counts equal
+               to the scan form's, predictions equal but flips at a tie,
+               stats, quality and the final stack within 1e-3; both
+               forms' host wall, device busy ms, launches and copies a
+               tick (M = 4);
  22. abtest  — champion/challenger serving: ``--tenants 3`` trained on the
                card with ``--checkpointDir`` (the stack and a quality stamp a
                tenant in its verified meta); ``apps.serve --abtest on`` over
@@ -331,7 +349,8 @@ the last is the kernels' JSON record (B1's least-squares mode with its
 ``abtest`` launches, B4 with its f32 build on tweet-length rows, B7,
 B8 and the split's two launches with their ``elastic`` and ``modelaxis`` launches, B4, B7 and
 B8 with their ``modelaxis`` launches, the split's iteration launch with its library calls'
-times); the last line is ``{"ok": true, "device": {...}}``.
+times, B1's tenant grid with the vmap arm's launches); the last line is ``{"ok": true,
+"device": {...}}``.
 
 ``python3 chip_smoke.py --times-only [--package-root DIR]`` runs phases 1
 and 2 and then only the kernels' device times (B1's logistic mode, its
@@ -347,6 +366,11 @@ on`` (``elastic_ab``); its last line is their JSON.
 ``python3 chip_smoke.py --modelaxis-only`` runs phases 1 and 2 and then
 only the modelaxis phase, its tenant fleet and k-means app on synthetic
 tweets; its last line is the phase's JSON.
+
+``python3 chip_smoke.py --tenants-vmap-only`` runs phases 1 and 2, the
+linear tenant app at M = 4 and the logistic one at M = 2 on 4 x 16384
+synthetic tweets for their parts, then only the tenants phase's vmap arm;
+its last line is the arm's JSON.
 
 ``python3 chip_smoke.py --gram-ab N --package-root DIR`` runs phases 1 and
 2 (on DIR's port) and then only N alternating pairs of the app's 2-rank
@@ -3734,9 +3758,9 @@ def wire_times():
         profile_step(wire, batches, walls[wire])
 
 
-def ptxas_report():
-    """Registers, spills and barriers of the kernel, from the ptxas report
-    that the build leaves beside the library."""
+def ptxas_report(kernel=KERNEL):
+    """Registers and spills of ``kernel`` (a kernel of csrc/fused_sgd.cu),
+    from the ptxas report that the build leaves beside the library."""
     import re
 
     from twtml_tpu_torch.ops import _build
@@ -3744,7 +3768,7 @@ def ptxas_report():
     path = _build.library_path("fused_sgd")
     log = path.with_name(path.name + ".log")
     text = log.read_text() if log.exists() else ""
-    block = text[text.find(KERNEL):] if KERNEL in text else ""
+    block = text[text.find(kernel):] if kernel in text else ""
     regs = re.search(r"Used (\d+) registers", block)
     spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
     return (
@@ -4320,6 +4344,10 @@ def predict_mode_times(smi, launches):
             torch.mv(x, w0)
         mv_ms, _ = timed(lambda: torch.mv(x, w0), 50, queue_ahead=True,
                          ahead_cycles=PREDICT_AHEAD_CYCLES)
+        # the same two, 50 calls back to back behind split_queued's long
+        # sleep: no event pair around each call, the host never in the way
+        long_ms, long_runs, host_us = split_queued(call, 10)
+        mv_long_ms, _, _ = split_queued(lambda: torch.mv(x, w0), 10)
         mv_err = (torch.mv(x, w0) - preds)[m > 0].abs().max().item()
         # each input the function needs read once, each output written once:
         # f32 X, mask and w0; preds and w (it reads no labels)
@@ -4329,8 +4357,9 @@ def predict_mode_times(smi, launches):
         ops_ms = flops / F32_FLOPS_PER_S * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         out[b] = {
-            "ms": kernel_ms, "plain_ms": twin_ms,
-            "library_ms": mv_ms, "bound_ms": bound_ms,
+            "ms": long_ms, "plain_ms": twin_ms, "library_ms": mv_long_ms,
+            "ms_one_call": kernel_ms, "library_ms_one_call": mv_ms,
+            "runs_ms": long_runs, "host_us_a_call": host_us, "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "max_abs_err": err,
             "mv_max_abs_diff": mv_err, "bitwise_first_pass": True,
         }
@@ -4343,6 +4372,12 @@ def predict_mode_times(smi, launches):
               f"{kernel_ms / mv_ms:.2f}x torch.mv; preds bitwise the N = 1 launch's first "
               f"pass, w bitwise w0, 0 iterations, max abs err vs twin {err:.2e}, all-padding "
               "zeros")
+        phase("serve", f"B1 predict kernel at B={b}, 10 runs of 50 calls back to back queued "
+              f"behind {SPLIT_AHEAD_CYCLES} cycles of sleep (split_queued): median "
+              f"{long_ms:.4f} ms a call (runs {min(long_runs):.4f}-{max(long_runs):.4f}; the "
+              f"host's enqueue {host_us:.1f} us a call), torch.mv {mv_long_ms:.4f} ms: the "
+              f"kernel at {long_ms / bound_ms:.1f}x its bound, {long_ms / mv_long_ms:.2f}x "
+              "torch.mv")
 
     # the wide order (F > 1024) and NaN/Inf in masked rows, each bitwise
     # the training kernel's first pass
@@ -4892,8 +4927,442 @@ def tenants_phase(stream_statuses, smi):
                twin_stats_err=s_err, launches=rec["launches"],
                launches_logistic=lg[2]["launches"], launches_lang=lang[2]["launches"],
                launches_poisoned=prec["launches"], profiled_stream_s=prof[0]["stream_seconds"])
+    out["vmap"], out["grid_record"] = tenant_vmap_phase(argv, rec, smi, lg_argv, lg[2])
     phase("tenants", f"phase wall {time.perf_counter() - t_phase:.1f} s | card: {smi}")
     return out
+
+
+def tenant_vmap_phase(argv, rec, smi, lg_argv, lg_rec):
+    """The vmap arm of the tenants phase: B1's tenant grid against its plain
+    version and its times (``tenant_grid_checks``), then the vmap form
+    against the scan form on the linear app run ``rec``'s parts (the
+    grid's main path, timed too) and on the logistic app run ``lg_rec``'s
+    (the grid's logistic mode) (``tenant_vmap_arm``). Returns (the arm's
+    summary, the grid's kernels line record with the arm's launches)."""
+    from twtml_tpu_torch.models.logistic import StreamingLogisticRegressionWithSGD as L
+
+    t0 = time.perf_counter()
+    record = tenant_grid_checks(smi)
+    summary, record["launches"] = tenant_vmap_arm(argv, rec, smi)
+    knobs = dict(residual_fn=L.residual_fn, prediction_fn=L.prediction_fn,
+                 round_predictions=L.round_predictions,
+                 step_size=lg_rec["model"].step_sizes[0])
+    summary["logistic"], record["launches_logistic"] = tenant_vmap_arm(
+        lg_argv, lg_rec, smi, knobs=knobs, timing=False)
+    record["vmap_tick"] = summary
+    phase("tenants", f"vmap arm wall {time.perf_counter() - t0:.1f} s")
+    return summary, record
+
+
+# ---- phase 21, its vmap arm: B1's tenant grid (ROADMAP B10) ------------------
+
+# tests/test_torch_tenants_vmap.py's tolerance of the vmap form against the
+# JAX vmap, which is that far from its own scan form
+VMAP_RTOL = VMAP_ATOL = 1e-3
+# a rounded prediction of the vmap form may differ from the scan form's by
+# one HALF_UP step only where the f64 margin lies this close to a tie
+VMAP_TIE = 1e-3
+TENANT_SKEW = (1, 3, 0, 12)  # the skewed parts' rows, in 1024s: tenant 2 dry
+TENANT_STEPS = (0.005, 0.002, 0.01, 0.005)
+TENANT_L2S = (0.0, 0.1, 0.01, 0.0)
+
+
+def tenant_grid_parts(x, y, m, rows, dirty=False):
+    """M parts [M, B, F] (B the rows of ``x``): part t holds the next
+    ``rows[t]`` rows of (x, y, m) at its front, the rest masked. With
+    ``dirty`` the first quarter of part 1's rows is masked too (rows the
+    kernel reads and must mask), then NaN fills X and y of every masked row
+    and +Inf every third one's X (past a part's valid rows the kernel must
+    never read them)."""
+    import torch
+
+    b, f = x.shape
+    n = len(rows)
+    xs = torch.zeros((n, b, f), device=x.device)
+    ys = torch.zeros((n, b), device=x.device)
+    ms = torch.zeros((n, b), device=x.device)
+    at = 0
+    for t, v in enumerate(rows):
+        xs[t, :v], ys[t, :v], ms[t, :v] = x[at:at + v], y[at:at + v], m[at:at + v]
+        at += v
+    if dirty:
+        ms[1, : rows[1] // 4] = 0.0
+        off = ms == 0
+        xs[off] = float("nan")
+        ys[off] = float("nan")
+        third = torch.zeros_like(off)
+        third[:, ::3] = True
+        xs[off & third] = float("inf")
+    return xs, ys, ms
+
+
+def tenant_grid_case(name, xs, ys, ms, w0, **kw):
+    """B1's tenant grid against its plain version (M calls of B1's twin) on
+    the card: weights and preds within RTOL/ATOL where the twin's are
+    finite, the twin's NaN/Inf pattern elsewhere, a rerun bitwise equal.
+    Returns (w, preds, each tenant's iterations run, max abs err)."""
+    import torch
+
+    from twtml_tpu_torch.features.batch import tenant_valid_rows
+    from twtml_tpu_torch.ops import fused_sgd
+
+    valid = tenant_valid_rows(ms.cpu().numpy())
+    w, p = fused_sgd.fused_dense_sgd_tenants(xs, ys, ms, w0, valid_rows=valid, **kw)
+    iters = [int(v) for v in fused_sgd.fused_dense_sgd_tenants.last_iterations.tolist()]
+    w2, p2 = fused_sgd.fused_dense_sgd_tenants(xs, ys, ms, w0, valid_rows=valid, **kw)
+    w_ref, p_ref = fused_sgd.fused_dense_sgd_tenants_reference(xs, ys, ms, w0, **kw)
+    torch.cuda.synchronize()
+    err = 0.0
+    for what, got, want in (("weights", w, w_ref), ("preds", p, p_ref)):
+        for test in (torch.isnan, torch.isposinf, torch.isneginf):
+            if not torch.equal(test(got), test(want)):
+                raise AssertionError(f"tenant grid {name} {what}: {test.__name__} pattern "
+                                     f"differs: kernel {int(test(got).sum())}, twin "
+                                     f"{int(test(want).sum())}")
+        fin = torch.isfinite(want)
+        if fin.any():
+            err = max(err, compare(f"tenant grid {name} {what}", got[fin], want[fin])[0])
+    if not (torch.equal(bits(w), bits(w2)) and torch.equal(bits(p), bits(p2))):
+        raise AssertionError(f"tenant grid {name}: reruns are not bitwise equal")
+    for t, v in enumerate(valid):
+        if v == 0 and (iters[t] != 0 or not torch.equal(bits(w[t]), bits(w0[t]))
+                       or p[t].abs().max().item() != 0.0):
+            raise AssertionError(f"tenant grid {name}: dry tenant {t} moved")
+    phase("tenants", f"tenant grid {name}: valid rows {valid}, iterations run {iters}; "
+          f"weights and preds within rtol {RTOL} atol {ATOL} of the plain version (max abs "
+          f"err {err:.2e}); rerun bitwise equal")
+    return w, p, iters, err
+
+
+def tenant_grid_checks(smi):
+    """B1's tenant grid (``fused_dense_sgd_tenants``, csrc/fused_sgd.cu
+    ``tenant_sgd_kernel``) on the card at the operating point's width:
+    against its plain version in both residual modes on skewed parts
+    (1 : 3 : 0 : 12 thousand rows, a dry tenant, per-tenant step sizes and
+    L2s), bitwise unmoved by NaN/Inf in masked rows (past the valid rows and
+    inside them), a NaN label in one tenant (its NaN pattern the twin's,
+    every iteration run, the others finite), parts of 16 rows; then at 4 x
+    4096 valid rows in parts of 16384 its device time (median of 20 runs of
+    5 calls, queued behind ``split_queued``'s long sleep, in turns) against
+    the 4 single B1 launches on the same parts, B1 on the 16384 rows as one
+    batch and the grid with those rows as one tenant; the plain version's
+    time, and its bound. Returns the kernels line's
+    record (launches are the vmap arm's)."""
+    import torch
+
+    from twtml_tpu_torch.features.batch import tenant_valid_rows
+    from twtml_tpu_torch.ops import fused_sgd
+
+    dev = torch.device("cuda")
+    x, y, m, w0 = op_point_inputs(dev)
+    b, f = x.shape
+    w0s = (w0[None] * torch.tensor([1.0, -1.0, 2.0, 0.5], device=dev)[:, None]).contiguous()
+    kw = dict(num_iterations=OP_ITERS, step_sizes=TENANT_STEPS, l2_regs=TENANT_L2S)
+    skew = [r * 1024 for r in TENANT_SKEW]
+    errs = []
+    clean = tenant_grid_parts(x, y, m, skew)
+    w_c, p_c, _, err = tenant_grid_case("1:3:0:12", *clean, w0s, **kw)
+    errs.append(err)
+    dirty = tenant_grid_parts(x, y, m, skew, dirty=True)
+    holed = (clean[0], clean[1], dirty[2])  # the same mask without the garbage
+    w_h, p_h, _, err = tenant_grid_case("1:3:0:12 part 1 holed", *holed, w0s, **kw)
+    w_d, p_d, _, err_d = tenant_grid_case("1:3:0:12 NaN/Inf in masked rows", *dirty, w0s, **kw)
+    errs += [err, err_d]
+    if not (torch.equal(bits(w_h), bits(w_d)) and torch.equal(bits(p_h), bits(p_d))):
+        raise AssertionError("tenant grid: NaN/Inf in masked rows reached the results")
+    labels01 = op_point_labels(dev)
+    lg = tenant_grid_parts(x, labels01, m, skew)
+    _, _, lg_iters, err = tenant_grid_case(
+        "1:3:0:12 logistic", *lg, w0s, **dict(kw, step_sizes=(0.5, 1.0, 0.5, 2.0)),
+        residual_fn=fused_sgd.logistic_residual)
+    errs.append(err)
+    xs, ys, ms = (t.clone() for t in clean)
+    row = int(torch.nonzero(ms[3])[0])
+    ys[3, row] = float("nan")
+    w_n, _, n_iters, err = tenant_grid_case("1:3:0:12 NaN label in tenant 3", xs, ys, ms,
+                                            w0s, **kw)
+    errs.append(err)
+    if (n_iters[3] != OP_ITERS or not torch.isnan(w_n[3]).all()
+            or not torch.isfinite(w_n[[0, 1, 2]]).all()
+            or not torch.equal(bits(w_n[[0, 1, 2]]), bits(w_c[[0, 1, 2]]))):
+        raise AssertionError(f"tenant grid NaN label: tenant 3 ran {n_iters[3]} iterations; "
+                             "the NaN must stay in tenant 3")
+    small = tenant_grid_parts(x[:16].contiguous(), y[:16].contiguous(), m[:16].contiguous(),
+                              [1, 3, 0, 12])
+    errs.append(tenant_grid_case("B=16 1:3:0:12", *small, w0s, **kw)[3])
+    none = tenant_grid_parts(x, y, m, [0, 0, 0, 0])
+    errs.append(tenant_grid_case("all dry", *none, w0s, **kw)[3])
+
+    # the operating point: 4 parts of 16384 rows, 4096 valid each
+    even = tenant_grid_parts(x, y, m, [b // 4] * 4)
+    one = dict(num_iterations=OP_ITERS, step_size=0.005)
+    kw_even = dict(num_iterations=OP_ITERS, step_sizes=[0.005] * 4, l2_regs=[0.0] * 4)
+    valid = tenant_valid_rows(even[2].cpu().numpy())
+    _, _, iters, err = tenant_grid_case("4 x 4096", *even, w0s, **kw_even)
+    errs.append(err)
+    grid_call = lambda: fused_sgd.fused_dense_sgd_tenants(  # noqa: E731
+        *even, w0s, valid_rows=valid, **kw_even)
+    singles = lambda: [fused_sgd.fused_dense_sgd(  # noqa: E731
+        even[0][t], even[1][t], even[2][t], w0s[t], **one) for t in range(4)]
+    together = lambda: fused_sgd.fused_dense_sgd(x, y, m, w0, **one)  # noqa: E731
+    # the grid with one tenant of the 16384 rows: B1's work and grid, the
+    # tenant's view and its per-tenant decisions, one tenant's reduce
+    x1, y1, m1, w1 = (t[None].contiguous() for t in (x, y, m, w0))
+    valid1 = tenant_valid_rows(m1.cpu().numpy())
+    grid_one = lambda: fused_sgd.fused_dense_sgd_tenants(  # noqa: E731
+        x1, y1, m1, w1, valid_rows=valid1, num_iterations=OP_ITERS, step_sizes=[0.005],
+        l2_regs=[0.0])
+    calls = (("grid", grid_call), ("singles", singles), ("together", together),
+             ("grid_one", grid_one))
+    rounds = {name: [] for name, _ in calls}
+    for _ in range(2):  # in turns, forwards then backwards
+        for name, fn in (*calls, *calls[::-1]):
+            rounds[name].append(split_queued(fn, 5, n=5))
+    ms_of = {k: statistics.median([r for v in runs for r in v[1]])
+             for k, runs in rounds.items()}
+    b1_iters = []
+    for t in range(4):
+        fused_sgd.fused_dense_sgd(even[0][t], even[1][t], even[2][t], w0s[t], **one)
+        b1_iters.append(int(fused_sgd.fused_dense_sgd.last_iterations.item()))
+    plain_ms, _ = timed(lambda: fused_sgd.fused_dense_sgd_tenants_reference(
+        *even, w0s, **kw_even), 3)
+    # the function's bytes: each valid row of X, its label and mask read
+    # once, w0 read, w and every pred written; its operations: each
+    # tenant's iterations run over its valid rows (X·w0 the first one's)
+    rows = sum(valid)
+    io_bytes = rows * f * 4 + 2 * 4 * rows + 2 * 4 * 4 * f + 4 * 4 * b
+    flops = sum(it * (4 * v * f + 6 * f) if it else 2 * v * f for it, v in zip(iters, valid))
+    bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    regs, spills = ptxas_report("tenant_sgd_kernel")
+    plan = fused_sgd.tenant_launch_plan(valid, f, **sm_limits())
+    phase("tenants", f"tenant grid at 4 x 4096 valid rows in parts of B={b}, F={f}, "
+          f"{OP_ITERS} iterations (card: {smi}): plan grid {plan.grid} CTAs "
+          f"{plan.first_cta}, {plan.rows_cap} rows a CTA at most, {plan.resident} resident, "
+          f"{plan.shared_bytes} B shared; {regs} registers a thread, spill stores/loads "
+          f"{spills} B (ptxas); iterations run {iters} (B1 on each part: {b1_iters})")
+    phase("tenants", f"device time a call, median of 20 runs of 5 calls queued behind "
+          f"{SPLIT_AHEAD_CYCLES} cycles of sleep, in turns: the tenant grid "
+          f"{ms_of['grid']:.4f} ms; the 4 single B1 launches on the same parts "
+          f"{ms_of['singles']:.4f} ms; B1 on the 16384 rows as one batch "
+          f"{ms_of['together']:.4f} ms; the grid with one tenant of those 16384 rows "
+          f"{ms_of['grid_one']:.4f} ms; the plain version {plain_ms:.4f} ms; bound: bytes "
+          f"{io_bytes} B = {bytes_ms:.5f} ms, operations {flops} = {ops_ms:.5f} ms: the "
+          f"kernel at {ms_of['grid'] / bound_ms:.1f}x")
+    return {
+        "name": "fused_dense_sgd_tenants", "route": "cuda",
+        "source": "twtml_tpu_torch/csrc/fused_sgd.cu",
+        "replaces": "twtml_tpu/ops/pallas_sgd.py:55 (_sgd_kernel under the tenant "
+                    "stack's jax.vmap, twtml_tpu/parallel/tenants.py:330)",
+        "tpu_function": "_sgd_kernel", "launches": 0, "max_abs_err": max(errs),
+        "ms": ms_of["grid"], "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": None,
+        "b1_singles_ms": ms_of["singles"], "b1_one_batch_ms": ms_of["together"],
+        "one_tenant_ms": ms_of["grid_one"],
+        "runs_ms": {k: [r for v in runs for r in v[1]] for k, runs in rounds.items()},
+        "iterations_run": iters, "b1_iterations_run": b1_iters,
+        "logistic_iterations_run": lg_iters, "grid": plan.grid,
+        "shared_bytes": plan.shared_bytes, "registers": regs, "spills": spills,
+        "shape": [4, b, f], "valid_rows": valid, "card": smi,
+    }
+
+
+def tick_inputs(model, parts):
+    """A tick's dense X [M, B, F] on the card, decoded by the port's ops
+    from the wire the model packs of ``parts``."""
+    import torch
+
+    from twtml_tpu_torch.features.batch import PackedBatch, unpack_batch
+    from twtml_tpu_torch.models.sgd import batch_to_device, decode_batch, flatten_tenants
+    from twtml_tpu_torch.ops.sparse import densify_text
+
+    dev = batch_to_device(model.prepare_wire_from_parts(parts), model.device)
+    if isinstance(dev, PackedBatch):
+        dev = unpack_batch(dev.buffer, dev.layout)
+    idx, val, num, _, mask = decode_batch(flatten_tenants(dev), model.num_text_features,
+                                          torch.float32)
+    x = torch.cat([densify_text(idx, val, model.num_text_features), num], dim=1)
+    return x.view(model.num_tenants, mask.shape[0] // model.num_tenants, -1)
+
+
+def tenant_ticks(model, ticks, profile_dir=None, sync_debug=False):
+    """``model``'s steps over ``ticks`` (lists of M parts), one fetch each,
+    each tick's pack, step and fetch in a ``twtml.dispatch`` region (under
+    the sync-debug mode "error" with ``sync_debug``), then its wait.
+    Returns (host results, host wall ms a tick: pack + step + fetch +
+    wait). With ``profile_dir`` the ticks after the first run under
+    ``torch.profiler``, whose Chrome trace lands there."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    outs, walls = [], []
+
+    def tick(parts):
+        t0 = time.perf_counter()
+        if sync_debug:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            with record_function("twtml.dispatch"):
+                pending = model.fetch_output(model.step(model.prepare_wire_from_parts(parts)))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        pending.wait()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        outs.append(pending.result())
+
+    tick(ticks[0])
+    if profile_dir is None:
+        for parts in ticks[1:]:
+            tick(parts)
+        return outs, walls
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for parts in ticks[1:]:
+            tick(parts)
+    prof.export_chrome_trace(os.path.join(profile_dir, "ticks.pt.trace.json"))
+    return outs, walls
+
+
+def hold_vmap_tick(k, ov, os_, x, w_prev, logistic=False):
+    """Tick ``k`` of the vmap form (host results ``ov``) against the scan
+    form's (``os_``) on the same parts: counts equal; predictions equal but
+    where one step lies between them and the f64 margin X·w_prev (``x`` the
+    tick's dense X on the card, ``w_prev`` the scan stack before it) is
+    within VMAP_TIE of a tie (a HALF_UP half, or 0 for the ``logistic``
+    learner's class); the stats and the quality vector within VMAP_RTOL /
+    VMAP_ATOL. Returns (flips, largest relative stat difference)."""
+    import numpy as np
+    import torch
+
+    if not np.array_equal(ov.count, os_.count):
+        raise AssertionError(f"tenants vmap tick {k}: counts {ov.count} != scan's {os_.count}")
+    diff = ov.predictions != os_.predictions
+    if diff.any():
+        raw = torch.bmm(x.double(), w_prev.double()[..., None])[..., 0].cpu().numpy()
+        tie = np.abs(raw) if logistic else np.abs(raw - (np.floor(raw) + 0.5))
+        near = (np.abs(ov.predictions - os_.predictions) == 1) & (tie < VMAP_TIE)
+        if (diff & ~near).any():
+            raise AssertionError(f"tenants vmap tick {k}: {int((diff & ~near).sum())} "
+                                 "rounded predictions differ from the scan form's away from "
+                                 "a tie")
+    worst = 0.0
+    for f in ("mse", "real_stdev", "pred_stdev", "quality"):
+        a = np.asarray(getattr(ov, f), np.float64)
+        b = np.asarray(getattr(os_, f), np.float64)
+        if not np.isfinite(a).all() or (np.abs(a - b) > VMAP_ATOL + VMAP_RTOL * np.abs(b)).any():
+            raise AssertionError(f"tenants vmap tick {k}: {f} {a} against the scan form's {b}")
+        worst = max(worst, float((np.abs(a - b) / np.maximum(np.abs(b), 1e-30)).max()))
+    return int(diff.sum()), worst
+
+
+def tenant_vmap_arm(argv, rec, smi, knobs=None, timing=True):
+    """The tenant plane's vmap form at full width, library level (the JAX
+    package reaches it only so): ``TenantStackModel.from_conf`` of the
+    phase's configuration with ``mapping="vmap"`` and the scan form, each
+    stepped on the app run's routed parts (its ticks, after a warm-up tick
+    of all padding), one fetch a tick; ``knobs`` are the learner's (the
+    logistic one's residual, prediction and step size). The vmap form's
+    ticks are the main path of B1's tenant grid: every dispatch under the
+    sync-debug mode "error", the grid's count from 0 (a launch a tick) and
+    B1's (none). Each tick held against the scan form's
+    (``hold_vmap_tick``), the final stacks within VMAP_RTOL / VMAP_ATOL;
+    then, with ``timing``, each form's host wall a tick (in turns: vmap,
+    scan, scan, vmap), and from a profiled pass its device busy ms,
+    launches and copies a tick. Returns (summary, launches)."""
+    import tempfile
+
+    import numpy as np
+
+    from twtml_tpu_torch.config import ConfArguments
+    from twtml_tpu_torch.ops import fused_sgd
+    from twtml_tpu_torch.parallel.tenants import TenantStackModel
+
+    conf = ConfArguments().parse(list(argv))
+    knobs = knobs or {}
+    logistic = "residual_fn" in knobs
+    m_tenants = rec["model"].num_tenants
+    warm = [copy_batch(p) for p in rec["parts"][0]]
+    for p in warm:
+        p.mask[:] = 0.0
+    ticks = [warm, *rec["parts"]]
+    n = len(ticks) - 1
+    vmap = TenantStackModel.from_conf(conf, mapping="vmap", **knobs)
+    scan = TenantStackModel.from_conf(conf, **knobs)
+    if vmap.route != "fused_dense_sgd" or vmap.mapping != "vmap":
+        raise AssertionError(f"tenants vmap: route {vmap.route}, mapping {vmap.mapping}")
+    fused_sgd.fused_dense_sgd_tenants.launches = 0
+    fused_sgd.fused_dense_sgd.launches = 0
+    v_outs, _ = tenant_ticks(vmap, ticks, sync_debug=True)
+    launches = fused_sgd.fused_dense_sgd_tenants.launches
+    b1_in_vmap = fused_sgd.fused_dense_sgd.launches
+    if launches != n + 1 or b1_in_vmap != 0:
+        raise AssertionError(f"tenants vmap: the tenant grid launched {launches} times, B1 "
+                             f"{b1_in_vmap}, for {n} ticks + the warm-up")
+    fused_sgd.fused_dense_sgd.launches = 0
+    flips, worst, prev = 0, 0.0, []
+    s_outs = []
+    for parts in ticks:
+        prev.append(scan._weights.clone())
+        s_outs.append(tenant_ticks(scan, [parts])[0][0])
+    if fused_sgd.fused_dense_sgd.launches != m_tenants * (n + 1):
+        raise AssertionError(f"tenants vmap: the scan form launched B1 "
+                             f"{fused_sgd.fused_dense_sgd.launches} times")
+    for k, (parts, ov, os_, w_prev) in enumerate(zip(ticks, v_outs, s_outs, prev)):
+        f_k, w_k = hold_vmap_tick(k, ov, os_, tick_inputs(scan, parts), w_prev, logistic)
+        flips, worst = flips + f_k, max(worst, w_k)
+    w_v, w_s = vmap.latest_weights.astype(np.float64), scan.latest_weights.astype(np.float64)
+    if not np.allclose(w_v, w_s, rtol=VMAP_RTOL, atol=VMAP_ATOL) or not np.isfinite(w_v).all():
+        raise AssertionError("tenants vmap: the final stack is not the scan form's within "
+                             f"rtol {VMAP_RTOL} atol {VMAP_ATOL}")
+    w_err = float(np.abs(w_v - w_s).max())
+    phase("tenants", f"vmap form, {'logistic' if logistic else 'linear'} learner at M = "
+          f"{m_tenants} (library level, {conf.numTextFeatures + 4} dims, B = {OP_ROWS}, the "
+          f"app run's {n} ticks of routed ragged parts + a warm-up of padding, --modelWatch "
+          f"on): B1's tenant grid launched {launches} times (a tick), B1 {b1_in_vmap}, every "
+          f"dispatch under the sync-debug mode \"error\"; each tick against the scan form's "
+          f"({m_tenants * (n + 1)} B1 launches): counts equal, {flips} prediction(s) a step "
+          f"apart within {VMAP_TIE} of a tie, stats and quality within {worst:.2e} "
+          f"(tolerance rtol {VMAP_RTOL} atol {VMAP_ATOL}); the final [{m_tenants}, "
+          f"{w_v.shape[1]}] stacks {w_err:.2e} apart at most")
+    out = {"ticks": n, "launches": launches, "b1_launches_scan": m_tenants * (n + 1),
+           "flips": flips, "stats_rel_err": worst, "weights_abs_err": w_err}
+    if not timing:
+        return out, launches
+
+    walls = {"vmap": [], "scan": []}
+    for mapping in ("vmap", "scan", "scan", "vmap"):
+        walls[mapping] += tenant_ticks(TenantStackModel.from_conf(conf, mapping=mapping),
+                                       ticks)[1][1:]
+    with tempfile.TemporaryDirectory() as tmp:
+        for mapping in ("vmap", "scan"):
+            where = os.path.join(tmp, mapping)
+            os.makedirs(where)
+            tenant_ticks(TenantStackModel.from_conf(conf, mapping=mapping), ticks,
+                         profile_dir=where)
+            costs, busy_ms, b1 = trace_costs(where)
+            with open(os.path.join(where, "ticks.pt.trace.json")) as fh:
+                grid = sum(1 for e in json.load(fh)["traceEvents"] if e.get("cat") == "kernel"
+                           and "tenant_sgd_kernel" in e.get("name", ""))
+            out[mapping] = {
+                "host_wall_ms_a_tick": statistics.median(walls[mapping]),
+                "host_wall_ms": walls[mapping],
+                "device_busy_ms_a_tick": busy_ms / n,
+                "launches_a_tick": statistics.mean(c["launches"] for c in costs),
+                "b1_a_tick": b1 / n, "tenant_grid_a_tick": grid / n,
+                "h2d_a_tick": statistics.mean(c["h2d"] for c in costs),
+                "d2h_a_tick": statistics.mean(c["d2h"] for c in costs),
+            }
+            o = out[mapping]
+            phase("tenants", f"{mapping} tick (library level, the {n} ticks after the "
+                  f"warm-up): host wall "
+                  f"median {o['host_wall_ms_a_tick']:.3f} ms (pack + step + fetch + wait, "
+                  f"8 runs of each form in turns); device busy {o['device_busy_ms_a_tick']:.3f}"
+                  f" ms, {o['launches_a_tick']:.0f} host launches ({o['b1_a_tick']:.0f} of B1,"
+                  f" {o['tenant_grid_a_tick']:.0f} of the tenant grid), {o['h2d_a_tick']:.0f} "
+                  f"H2D and {o['d2h_a_tick']:.0f} D2H copies a tick (profiler) | card: {smi}")
+    if out["vmap"]["d2h_a_tick"] != 1:
+        raise AssertionError(f"tenants vmap: {out['vmap']['d2h_a_tick']} D2H copies a tick")
+    return out, launches
 
 
 # ---- phase 22: champion/challenger serving -----------------------------------
@@ -7499,6 +7968,26 @@ def main() -> None:
         finally:
             RECORDER.close()
         return
+    if "--tenants-vmap-only" in argv:
+        from twtml_tpu_torch.streaming.sources import SyntheticSource
+
+        os.environ["TWTML_NOW_MS"] = str(NOW_MS)
+        RECORDER = Recorder()
+        try:
+            statuses = list(SyntheticSource(total=TENANT_BATCHES * OP_ROWS, seed=5,
+                                            base_ms=NOW_MS).produce())
+            from twtml_tpu_torch.apps import logistic_regression
+
+            argv_t = [*TENANT_ARGV, "--tenants", str(TENANT_M)]
+            rec = tenant_app_run(argv_t, statuses)[2]
+            lg_argv = [*TENANT_ARGV, "--tenants", "2"]
+            lg = tenant_app_run(lg_argv, two_class_statuses(TENANT_BATCHES * OP_ROWS, 13),
+                                app_module=logistic_regression)[2]
+            summary, grid_record = tenant_vmap_phase(argv_t, rec, smi, lg_argv, lg)
+            print(json.dumps({"tenants_vmap": summary, "kernel": grid_record}), flush=True)
+        finally:
+            RECORDER.close()
+        return
     if "--gram-ab" in argv:
         os.environ["TWTML_NOW_MS"] = str(NOW_MS)
         RECORDER = Recorder()
@@ -7582,6 +8071,7 @@ def main() -> None:
         r["launches_elastic"] = elastic["launches"][r["name"]]
     for r in [*split_records, *gram_records]:
         r["launches_modelaxis"] = modelaxis["launches"][r["name"]]
+    grid_record = tenants.pop("grid_record")
     record.update(tenants=tenants, launches_tenants=tenants["launches"], block=block,
                   launches_block=block["launches"], multihost=multihost, elastic=elastic,
                   modelaxis=modelaxis)
@@ -7590,7 +8080,7 @@ def main() -> None:
 
     phase("done", f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [record, logistic_record, predict_record, *gram_records,
-                                  *split_records]}), flush=True)
+                                  *split_records, grid_record]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -647,8 +647,9 @@ def test_conf_flags():
 
 
 REFUSALS = {
-    "vmap": (lambda: stack(2, mapping="vmap"), NotImplementedError,
-             "tenant grid dimension.*ROADMAP B10"),
+    "vmap": (lambda: stack(2, mapping="vmap", mesh=make_mesh(num_processes=1),
+                           group=Collectives()), NotImplementedError,
+             "split with a tenant grid.*ROADMAP B10 b"),
     "lang_on_host_hashing": (lambda: common.build_model(ConfArguments().parse(
         ["--backend", "cpu", "--tenants", "2", "--tenantKey", "lang", "--hashOn", "host"])),
         SystemExit, "--hashOn device"),

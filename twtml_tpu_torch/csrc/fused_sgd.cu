@@ -85,6 +85,10 @@
 // training kernel on the same batch. A lane's two 16-byte loads of one
 // group share a 32-byte sector; they go through L1 (ld.global.nc), so the
 // second finds the sector the first brought in and X crosses from L2 once.
+//
+// ---- tenant_sgd_kernel: B1 with a tenant grid dimension, M tenants' loops
+// in one cooperative launch (the tenant plane's vmap form); its section
+// below gives its design.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -104,6 +108,7 @@ constexpr int kReduceSlots = 4;             // warps summed per slot in rounds
 constexpr int kScratchFloats = 4;  // CTA-wide broadcast slots
 constexpr int kConvergedSlot = 0;
 constexpr int kCountSlot = 1;
+constexpr int kMaxTenants = 32;  // tenants a tenant-grid launch: one bit each in a mask
 constexpr int kPredictThreads = 256;  // 8 warps, two CTAs an SM
 constexpr int kPredictWarps = kPredictThreads / 32;
 
@@ -112,12 +117,14 @@ constexpr int kPredictWarps = kPredictThreads / 32;
 // the two cannot drift apart without the build failing here.
 #if !defined(TWTML_SGD_THREADS) || !defined(TWTML_SGD_TILE_COLUMNS) || \
     !defined(TWTML_SGD_REDUCE_SLOTS) || !defined(TWTML_SGD_SCRATCH_FLOATS) || \
-    !defined(TWTML_SGD_PREDICT_THREADS)
+    !defined(TWTML_SGD_PREDICT_THREADS) || !defined(TWTML_SGD_TENANTS_PER_LAUNCH)
 #error "build through twtml_tpu_torch/ops/_build.py, which passes the launch plan's constants"
 #endif
 static_assert(kThreads == TWTML_SGD_THREADS, "THREADS differs from ops/fused_sgd.py");
 static_assert(kPredictThreads == TWTML_SGD_PREDICT_THREADS,
               "PREDICT_THREADS differs from ops/fused_sgd.py");
+static_assert(kMaxTenants == TWTML_SGD_TENANTS_PER_LAUNCH,
+              "TENANTS_PER_LAUNCH differs from ops/fused_sgd.py");
 static_assert(kTileCols == TWTML_SGD_TILE_COLUMNS, "TILE_COLUMNS differs from ops/fused_sgd.py");
 static_assert(kReduceSlots == TWTML_SGD_REDUCE_SLOTS, "REDUCE_SLOTS differs from ops/fused_sgd.py");
 static_assert(kScratchFloats == TWTML_SGD_SCRATCH_FLOATS,
@@ -485,16 +492,16 @@ __device__ __forceinline__ void update_column(const Params& p, int f, float wo, 
   if (f < p.features) p.w_out[f] = wn;
 }
 
-// The CTA's columns [col0, col1), 8 at a time, summed across the CTA
-// partials in a fixed order: lane & 7 takes column f0 + (lane & 7), and the
-// warps read partial rows 4·warp + (lane >> 3) + 48j, so a load instruction
-// covers 4 partial rows × 8 adjacent columns (whole 32-byte sectors); then
-// use(f, Σ) in lanes 0-7 of warp 0, in column order.
+// The CTA's columns [col0, col1), 8 at a time, summed across the `ncta`
+// CTA partials at p.partials in a fixed order: lane & 7 takes column f0 +
+// (lane & 7), and the warps read partial rows 4·warp + (lane >> 3) + 48j, so
+// a load instruction covers 4 partial rows × 8 adjacent columns (whole
+// 32-byte sectors); then use(f, Σ) in lanes 0-7 of warp 0, in column order.
 template <class Use>
 __device__ __forceinline__ void column_sums(const Params& p, float* red, int col0, int col1,
-                                            Use use) {
+                                            int ncta, Use use) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int ncta = gridDim.x, fpad = p.fpad;
+  const int fpad = p.fpad;
   for (int f0 = col0; f0 < col1; f0 += 8) {
     const int f = f0 + (lane & 7);
     float g = 0.f;
@@ -517,17 +524,19 @@ __device__ __forceinline__ void column_sums(const Params& p, float* red, int col
 }
 
 // In warp 0 after the norm partials are in: the converged decision from
-// every CTA's ‖Δw‖² and ‖w‖², summed lane-strided over the CTAs and then
-// across the warp, so every lane of every CTA takes the same one.
-__device__ __forceinline__ bool converged(const Params& p, int lane) {
+// the ‖Δw‖² and ‖w‖² of the `ncta` CTAs at norm_part, summed lane-strided
+// over the CTAs and then across the warp, so every lane of every CTA takes
+// the same one.
+__device__ __forceinline__ bool converged(const float* norm_part, int ncta, float tol,
+                                          int lane) {
   float ds = 0.f, ns = 0.f;
-  for (int c = lane; c < (int)gridDim.x; c += 32) {
-    ds += __ldcg(p.norm_part + 2 * c);
-    ns += __ldcg(p.norm_part + 2 * c + 1);
+  for (int c = lane; c < ncta; c += 32) {
+    ds += __ldcg(norm_part + 2 * c);
+    ns += __ldcg(norm_part + 2 * c + 1);
   }
   ds = warp_sum(ds);
   ns = warp_sum(ns);
-  return p.tol > 0.f && sqrtf(ds) < p.tol * fmaxf(sqrtf(ns), 1.f);
+  return tol > 0.f && sqrtf(ds) < tol * fmaxf(sqrtf(ns), 1.f);
 }
 
 // In warp 0: the CTA's ‖Δw‖² and ‖w‖² partials from lanes' d and n.
@@ -600,7 +609,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_sgd_kernel(const Params p) 
 
     // ---- update of this CTA's columns with Xᵀr summed across the CTAs
     float d = 0.f, n = 0.f;  // in lanes 0-7 of warp 0
-    column_sums(p, red, col0, col1, [&](int f, float g) {
+    column_sums(p, red, col0, col1, ncta, [&](int f, float g) {
       update_column(p, f, w_s[f], g, k, denom, d, n);
     });
     if (warp == 0) store_norms(p, cta, d, n);
@@ -610,7 +619,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_sgd_kernel(const Params p) 
     for (int f = threadIdx.x - 32; warp > 0 && f < fpad; f += kThreads - 32)
       w_s[f] = __ldcg(p.wbuf + f);
     if (warp == 0) {
-      const bool done = converged(p, lane);
+      const bool done = converged(p.norm_part, ncta, p.tol, lane);
       if (lane == 0) scratch[kConvergedSlot] = done ? 1.f : 0.f;
     }
     __syncthreads();
@@ -728,7 +737,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int f = threadIdx.x - 32; warp > 0 && f < fpad; f += kThreads - 32)
         w_s[f] = __ldcg(p.wbuf + f);
     if (warp == 0) {
-      const bool done = converged(p, lane);
+      const bool done = converged(p.norm_part, ncta, p.tol, lane);
       if (lane == 0) scratch[kConvergedSlot] = done ? 1.f : 0.f;
     }
     __syncthreads();
@@ -749,13 +758,188 @@ __global__ void __launch_bounds__(kThreads, 1)
   grid.sync();
 
   // ---- (c) this CTA's columns of Xᵀr in B1's order, CTA 0 the count
-  column_sums(p, red, col0, col1, [&](int f, float g) { s.gbuf[f] = g; });
+  column_sums(p, red, col0, col1, ncta, [&](int f, float g) { s.gbuf[f] = g; });
   if (cta == 0 && warp == 0) {
     float c = 0.f;
     for (int i = lane; i < ncta; i += 32) c += __ldcg(p.count_part + i);
     c = warp_sum(c);
     if (lane == 0) s.gbuf[fpad] = c;
   }
+}
+
+// ------------------------------------------------------------ tenant grid (B10)
+//
+// M tenants' loops in one cooperative launch: the JAX package's
+// jax.vmap of the train step over a tenant stack (twtml_tpu/parallel/
+// tenants.py, mapping="vmap"), where the scan form launches B1 once a
+// tenant over its whole padded part. The grid is laid over the tenants by
+// the host (ops/fused_sgd.py tenant_launch_plan): tenant t owns CTAs
+// [first_cta[t], first_cta[t+1]), in proportion to its valid rows, none for
+// a dry tenant, at most one CTA an SM in all. Tenant t's rows [0, valid[t])
+// (its rows up to its last with mask > 0, which the host knows before the
+// copy) are split over its CTAs as B1 splits a batch; rows past valid[t]
+// are never read as X, and their preds are written 0, B1's value for a
+// masked row.
+//
+// Each CTA runs B1's code on its tenant's view (`Params q`: the pointers
+// offset to tenant t's part, w, partials, norms and its own step size and
+// L2, CTA j of the tenant's k): stage_row, the row pass, cta_reduce_tile,
+// then column_sums over the tenant's k partials (a fixed order, no
+// atomics), update_column with the tenant's η = step_t/√it and λ_t, and the
+// tenant's ‖Δw‖², ‖w‖². Every CTA crosses the same grid barriers: a tenant
+// that has converged (or never trains: count 0, or N = 0) skips its row
+// pass and update but keeps crossing them. After each update every CTA
+// takes the converged decision of every tenant still training, from the
+// same partials in the same order, so all CTAs hold the same bit mask of
+// finished tenants and leave the loop together, once all have finished or
+// at N. The first row pass runs in every CTA (preds = X·w0).
+// What bounds it: as B1, operations, once the tenants' valid rows are on
+// chip: the M tenants' work is that of one B1 call on their valid rows
+// together, and rows that are padding cost nothing.
+
+struct TenantTable {
+  int tenants;     // M of this launch, at most kMaxTenants
+  int batch_rows;  // B: rows a tenant's part has (its padded rows included)
+  int first_cta[kMaxTenants + 1];
+  int valid[kMaxTenants];
+  float step_size[kMaxTenants], l2_reg[kMaxTenants];
+};
+
+template <bool kLogistic>
+__global__ void __launch_bounds__(kThreads, 1)
+    tenant_sgd_kernel(const Params p, const TenantTable t) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout lay = layout(p.fpad, p.rows_cap);
+  float* w_s = reinterpret_cast<float*>(smem);
+  float* red = reinterpret_cast<float*>(smem + lay.red);
+  float* y_s = reinterpret_cast<float*>(smem + lay.y);
+  float* r_s = reinterpret_cast<float*>(smem + lay.r);
+  float* scratch = reinterpret_cast<float*>(smem + lay.scratch);
+  unsigned* finished_s = reinterpret_cast<unsigned*>(scratch + kConvergedSlot);
+  uint4* x_s = reinterpret_cast<uint4*>(smem + lay.x);
+
+  cg::grid_group grid = cg::this_grid();
+  const int cta = blockIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int fpad = p.fpad, features = p.features, rows = t.batch_rows;
+  int m = 0;  // this CTA's tenant: first_cta[m] <= cta < first_cta[m + 1]
+  while (cta >= t.first_cta[m + 1]) ++m;
+  const int c0 = t.first_cta[m], k = t.first_cta[m + 1] - c0, j = cta - c0;
+  const int valid = t.valid[m];
+  const int row0 = (int)((long long)j * valid / k);
+  const int my_rows = (int)((long long)(j + 1) * valid / k) - row0;
+  const int cols_per_cta = (fpad + k - 1) / k;
+  const int col0 = min(j * cols_per_cta, fpad);
+  const int col1 = min(col0 + cols_per_cta, fpad);
+  Params q = p;  // tenant m's view, CTA j of its k
+  q.x = p.x + (size_t)m * rows * features;
+  q.labels = p.labels + (size_t)m * rows;
+  q.mask = p.mask + (size_t)m * rows;
+  q.preds = p.preds + (size_t)m * rows;
+  q.w0 = p.w0 + (size_t)m * features;
+  q.w_out = p.w_out + (size_t)m * features;
+  q.spill = p.spill + (size_t)c0 * p.spill_per_cta * p.stride * 8;
+  q.partials = p.partials + (size_t)c0 * fpad;
+  q.wbuf = p.wbuf + (size_t)m * fpad;
+  q.count_part = p.count_part + c0;
+  q.norm_part = p.norm_part + 2 * c0;
+  q.iterations = p.iterations + m;
+  q.step_size = t.step_size[m];
+  q.l2_reg = t.l2_reg[m];
+
+  // ---- prologue: w0, then the CTA's valid rows of X from device memory, once
+  for (int f = threadIdx.x; f < fpad; f += kThreads)
+    w_s[f] = f < features ? __ldg(q.w0 + f) : 0.f;
+  for (int f = col0 + threadIdx.x; f < min(col1, features); f += kThreads)
+    q.w_out[f] = __ldg(q.w0 + f);  // the result when no update runs
+  const bool vec4 = features % 4 == 0 && (reinterpret_cast<uintptr_t>(q.x) & 15) == 0;
+  for (int l = warp; l < my_rows; l += kWarps) stage_row(q, x_s, y_s, j, row0, l, lane, vec4);
+  if (warp == 0) {  // this CTA's share of its tenant's count, in a fixed order
+    float s = 0.f;
+    for (int i = lane; i < my_rows; i += 32) s += __ldg(q.mask + row0 + i);
+    s = warp_sum(s);
+    if (lane == 0) q.count_part[j] = s;
+  }
+  // what no CTA's row pass writes: the preds of rows past each tenant's
+  // valid ones, and a dry tenant's w_out (w0) and iterations (0)
+  const long long gthreads = (long long)gridDim.x * kThreads;
+  const long long gtid = (long long)cta * kThreads + threadIdx.x;
+  for (long long i = gtid; i < (long long)t.tenants * rows; i += gthreads)
+    if ((int)(i % rows) >= t.valid[i / rows]) p.preds[i] = 0.f;
+  for (long long i = gtid; i < (long long)t.tenants * features; i += gthreads)
+    if (t.valid[i / features] == 0) p.w_out[i] = __ldg(p.w0 + i);
+  if (gtid < t.tenants && t.valid[gtid] == 0) p.iterations[gtid] = 0.f;
+  grid.sync();
+
+  // ---- every CTA: each tenant's count, and which tenants train no iteration
+  if (warp == 0) {
+    unsigned idle = 0u;
+    float mine = 0.f;
+    for (int u = 0; u < t.tenants; ++u) {
+      const int a = t.first_cta[u], n = t.first_cta[u + 1] - a;
+      float s = 0.f;
+      for (int c = lane; c < n; c += 32) s += __ldcg(p.count_part + a + c);
+      s = warp_sum(s);
+      if (u == m) mine = s;
+      if (!(p.num_iterations > 0 && s > 0.f)) idle |= 1u << u;
+    }
+    if (lane == 0) {
+      scratch[kCountSlot] = mine;
+      *finished_s = idle;
+    }
+  }
+  __syncthreads();
+  const float denom = fmaxf(scratch[kCountSlot], 1.f);
+  const unsigned idle = *finished_s;
+  const unsigned all = t.tenants == 32 ? ~0u : (1u << t.tenants) - 1u;
+  const bool narrow = p.nvec <= kTileGroups;
+  unsigned finished = idle;
+
+  for (int it = 1;; ++it) {
+    const bool training = !((finished >> m) & 1u);  // the same in every CTA of tenant m
+    // ---- one pass over the CTA's rows (preds on the first), the CTA's Xᵀr
+    if (it == 1 || training) {
+      if (narrow)
+        row_pass_narrow<kLogistic>(q, w_s, y_s, x_s, red, j, row0, my_rows, it == 1, training);
+      else
+        row_pass_wide<kLogistic>(q, w_s, y_s, r_s, x_s, red, j, row0, my_rows, it == 1,
+                                 training);
+    }
+    if (finished == all) break;  // no tenant trains at all
+    const StepScalars ks = step_scalars(q, it);
+    grid.sync();
+
+    // ---- tenant m's update of this CTA's columns with Xᵀr summed over its CTAs
+    if (training) {
+      float d = 0.f, n = 0.f;  // in lanes 0-7 of warp 0
+      column_sums(q, red, col0, col1, k, [&](int f, float g) {
+        update_column(q, f, w_s[f], g, ks, denom, d, n);
+      });
+      if (warp == 0) store_norms(q, j, d, n);
+    }
+    grid.sync();
+
+    // ---- every CTA: its tenant's new w, and every training tenant's decision
+    if (training)
+      for (int f = threadIdx.x - 32; warp > 0 && f < fpad; f += kThreads - 32)
+        w_s[f] = __ldcg(q.wbuf + f);
+    if (warp == 0) {
+      unsigned now = finished;
+      for (int u = 0; u < t.tenants; ++u) {
+        if ((finished >> u) & 1u) continue;
+        const int a = t.first_cta[u];
+        if (converged(p.norm_part + 2 * a, t.first_cta[u + 1] - a, p.tol, lane)) now |= 1u << u;
+      }
+      if (lane == 0) *finished_s = now;
+    }
+    __syncthreads();
+    finished = *finished_s;
+    if (training && j == 0 && threadIdx.x == 0 &&
+        (((finished >> m) & 1u) || it >= p.num_iterations))
+      *q.iterations = (float)it;
+    if (finished == all || it >= p.num_iterations) break;
+  }
+  if (((idle >> m) & 1u) && j == 0 && threadIdx.x == 0) *q.iterations = 0.f;
 }
 
 // ------------------------------------------------------------------ predict
@@ -879,8 +1063,8 @@ __global__ void __launch_bounds__(kPredictThreads, 2) fused_predict_kernel(const
 // Once a device, before its first launch: the SM count and the opt-in
 // shared memory a block may use on `device` (for the launch plan), and both
 // instantiations' dynamic shared-memory limit raised to that opt-in there,
-// so that a launch makes no set-up call of its own (the split's kernel
-// too). Returns a CUDA error code, 0 on success.
+// so that a launch makes no set-up call of its own (the split's and the
+// tenant grid's kernels too). Returns a CUDA error code, 0 on success.
 extern "C" int twtml_fused_sgd_setup(int device, int* sm_count, int* shared_optin) {
   int current = 0;
   cudaError_t err = cudaGetDevice(&current);
@@ -900,6 +1084,12 @@ extern "C" int twtml_fused_sgd_setup(int device, int* sm_count, int* shared_opti
                                cudaFuncAttributeMaxDynamicSharedMemorySize, *shared_optin);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(dense_iteration_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, *shared_optin);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(tenant_sgd_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, *shared_optin);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(tenant_sgd_kernel<true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, *shared_optin);
   const cudaError_t restored = cudaSetDevice(current);
   return (int)(err != cudaSuccess ? err : restored);
@@ -1099,4 +1289,88 @@ extern "C" int twtml_fused_dense_update(void* w_out, void* scratch, void* state,
                                plan_layout, it, step_size, l2_reg, tol);
   if (err != 0) return err;
   return launch_iteration(p, state, gbuf, it, 0, 0, grid, shared_bytes, stream);
+}
+
+// M tenants' loops, one cooperative launch on `stream` (tenant_sgd_kernel;
+// the current device's, set up by twtml_fused_sgd_setup). Device pointers:
+// x [tenants, rows, features] f32 contiguous, labels/mask [tenants, rows]
+// f32, w0 [tenants, features] f32 (inputs, unchanged); w_out [tenants,
+// features], preds [tenants, rows] f32 (outputs); spill [grid·spill_per_cta
+// ·8·plan_layout[5]] bf16 and scratch [grid·fpad + tenants·fpad + 3·grid +
+// tenants] f32 (its last `tenants` floats receive each tenant's iterations
+// run). Host arrays from the tenant plan (ops/fused_sgd.py
+// tenant_launch_plan): first_cta [tenants + 1] (tenant t owns CTAs
+// [first_cta[t], first_cta[t+1]), first_cta[tenants] = grid), valid
+// [tenants] (rows read as X), step_sizes and l2_regs [tenants]; rows_cap
+// (most rows a CTA owns), resident, spill_per_cta, shared_bytes and
+// plan_layout as B1's. A plan that breaks these, or whose layout differs
+// from layout() and row_groups(), is refused. Returns the launch's CUDA
+// error (a refused cooperative launch included), 0 when it was taken.
+extern "C" int twtml_fused_dense_sgd_tenants(
+    const void* x, const void* labels, const void* mask, const void* w0, void* w_out,
+    void* preds, void* spill, void* scratch, int tenants, int rows, int features, int fpad,
+    int grid, int rows_cap, int resident, int spill_per_cta, int shared_bytes,
+    const int* plan_layout, const int* first_cta, const int* valid, const float* step_sizes,
+    const float* l2_regs, int num_iterations, float tol, int residual_mode, void* stream) {
+  const Layout lay = layout(fpad, rows_cap);
+  const int stride = row_groups(fpad);
+  if (tenants < 1 || tenants > kMaxTenants || rows < 1 || features < 1 || fpad % 8 != 0 ||
+      features > fpad || grid < 1 || rows_cap < 1 || resident < 0 || resident > rows_cap ||
+      spill_per_cta != rows_cap - resident || num_iterations < 0 ||
+      (residual_mode != 0 && residual_mode != 1) || first_cta[0] != 0 ||
+      first_cta[tenants] != grid || (size_t)plan_layout[0] != lay.red ||
+      (size_t)plan_layout[1] != lay.y || (size_t)plan_layout[2] != lay.r ||
+      (size_t)plan_layout[3] != lay.scratch || (size_t)plan_layout[4] != lay.x ||
+      plan_layout[5] != stride || (size_t)shared_bytes < lay.x + (size_t)resident * stride * 16)
+    return (int)cudaErrorInvalidValue;
+  TenantTable t;
+  t.tenants = tenants;
+  t.batch_rows = rows;
+  for (int u = 0; u <= tenants; ++u) t.first_cta[u] = first_cta[u];
+  for (int u = 0; u < tenants; ++u) {
+    const int k = first_cta[u + 1] - first_cta[u];
+    // rows in [0, B]; a tenant with rows has CTAs, and none holds more than rows_cap
+    if (k < 0 || valid[u] < 0 || valid[u] > rows || (valid[u] > 0 && k == 0) ||
+        (k > 0 && (valid[u] + k - 1) / k > rows_cap))
+      return (int)cudaErrorInvalidValue;
+    t.valid[u] = valid[u];
+    t.step_size[u] = step_sizes[u];
+    t.l2_reg[u] = l2_regs[u];
+  }
+  for (int u = tenants; u < kMaxTenants; ++u) {
+    t.first_cta[u + 1] = grid;
+    t.valid[u] = 0;
+    t.step_size[u] = t.l2_reg[u] = 0.f;
+  }
+  Params p;
+  p.x = static_cast<const float*>(x);
+  p.labels = static_cast<const float*>(labels);
+  p.mask = static_cast<const float*>(mask);
+  p.w0 = static_cast<const float*>(w0);
+  p.w_out = static_cast<float*>(w_out);
+  p.preds = static_cast<float*>(preds);
+  p.spill = static_cast<__nv_bfloat16*>(spill);
+  p.partials = static_cast<float*>(scratch);
+  p.wbuf = p.partials + (size_t)grid * fpad;
+  p.count_part = p.wbuf + (size_t)tenants * fpad;
+  p.norm_part = p.count_part + grid;
+  p.iterations = p.norm_part + 2 * grid;
+  p.rows = rows;
+  p.features = features;
+  p.fpad = fpad;
+  p.nvec = fpad / 8;
+  p.stride = stride;
+  p.rows_cap = rows_cap;
+  p.resident = resident;
+  p.spill_per_cta = spill_per_cta;
+  p.num_iterations = num_iterations;
+  p.step_size = 0.f;  // each tenant's own, from the table
+  p.l2_reg = 0.f;
+  p.tol = tol;
+  void* args[] = {&p, &t};
+  const void* kernel = residual_mode == 1
+                           ? reinterpret_cast<const void*>(tenant_sgd_kernel<true>)
+                           : reinterpret_cast<const void*>(tenant_sgd_kernel<false>);
+  return (int)cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads), args,
+                                          (size_t)shared_bytes, static_cast<cudaStream_t>(stream));
 }

@@ -857,6 +857,20 @@ def tenant_rows(batch, tenant_ids: np.ndarray, num_tenants: int) -> list:
     return [np.nonzero(ids == m)[0] for m in range(num_tenants)]
 
 
+def tenant_valid_rows(masks) -> list:
+    """Each tenant part's rows up to its last valid one (mask > 0), from
+    the host masks [M, B] (or M masks [B]): the rows the vmap form's kernel
+    reads as X. A part from ``split_batch_tenants`` holds its valid rows at
+    the front, so this is its valid count; a part with valid rows further
+    back is bounded by its last one, and its masked rows before it stay
+    masked."""
+    out = []
+    for mask in masks:
+        rows = np.flatnonzero(np.asarray(mask) > 0)
+        out.append(int(rows[-1]) + 1 if rows.size else 0)
+    return out
+
+
 def split_batch_tenants(batch, tenant_ids: np.ndarray, num_tenants: int) -> list:
     """One host batch -> M batches of its padded shape (row bucket, units
     buffer or token shape, ``row_len``): tenant m's valid rows packed to the

@@ -146,7 +146,7 @@ def _leaves(tree) -> list:
 def sgd_inner_loop(
     weights, *, num_iterations: int, step_size: float, l2_reg: float,
     convergence_tol: float, grad_and_count, norm_sq=None, norms=None,
-    with_iterations: bool = False,
+    with_iterations: bool = False, step_table=None,
 ):
     """MLlib's GradientDescent loop over a weight tensor, or a dict of them
     (the dual state {c, α}), with no host sync.
@@ -162,26 +162,41 @@ def sgd_inner_loop(
     at once (a feature-sharded loop sums both over its model axis in one
     all-reduce).
     With ``with_iterations`` it returns (w, iterations run): the iteration
-    that converged, else N, as a tensor."""
+    that converged, else N, as a tensor.
+
+    ``step_table`` (eta, scale), each [N, M, 1] in the weights' type, runs M
+    tenants' loops at once (the vmap form of a tenant stack): ``weights``
+    [M, F], ``grad_and_count`` giving [M, F] and [M], tenant m's iteration
+    ``it`` with eta[it - 1, m] and scale[it - 1, m] (``_step_scalars`` of
+    its own step size and L2), the zero-count rule and the converged freeze
+    per tenant."""
     first = _leaves(weights)[0]
     dtype, device = first.dtype, first.device
+    tenants = step_table is not None
+    # per tenant: [M] counts and flags against [M, F] weights
+    col = (lambda t: t[:, None]) if tenants else (lambda t: t)
+    total = (lambda t: torch.sum(t, dim=-1)) if tenants else torch.sum
     w = weights
-    converged = torch.zeros((), dtype=torch.bool, device=device)
-    ran = torch.zeros((), dtype=torch.int64, device=device)
+    flags = first.shape[:1] if tenants else ()
+    converged = torch.zeros(flags, dtype=torch.bool, device=device)
+    ran = torch.zeros(flags, dtype=torch.int64, device=device)
     for it in range(1, num_iterations + 1):
         grad_sum, count = grad_and_count(w, it)
-        denom = torch.clamp(count, min=1.0)
-        eta, scale = _step_scalars(step_size, l2_reg, it, dtype)
+        denom = col(torch.clamp(count, min=1.0))
+        if tenants:
+            eta, scale = step_table[0][it - 1], step_table[1][it - 1]
+        else:
+            eta, scale = _step_scalars(step_size, l2_reg, it, dtype)
         w_new = _tree_map(lambda wl, gl: wl * scale - eta * gl / denom, w, grad_sum)
         # zero samples: no update
-        w_new = _tree_map(lambda nl, wl: torch.where(count > 0, nl, wl), w_new, w)
+        w_new = _tree_map(lambda nl, wl: torch.where(col(count > 0), nl, wl), w_new, w)
         if convergence_tol > 0:
             if norms is not None:
                 delta_sq, norm_new_sq = norms(w_new, w)
             elif norm_sq is None:
-                delta_sq = sum(torch.sum((nl - wl) ** 2)
+                delta_sq = sum(total((nl - wl) ** 2)
                                for nl, wl in zip(_leaves(w_new), _leaves(w)))
-                norm_new_sq = sum(torch.sum(nl * nl) for nl in _leaves(w_new))
+                norm_new_sq = sum(total(nl * nl) for nl in _leaves(w_new))
             else:
                 delta_sq = norm_sq(w_new, w)
                 norm_new_sq = norm_sq(w_new, _tree_map(torch.zeros_like, w_new))
@@ -189,8 +204,8 @@ def sgd_inner_loop(
                 torch.sqrt(delta_sq) < convergence_tol * torch.clamp(torch.sqrt(norm_new_sq), min=1.0)
             )
         else:
-            conv_now = torch.zeros((), dtype=torch.bool, device=device)
-        w = _tree_map(lambda wl, nl: torch.where(converged, wl, nl), w, w_new)
+            conv_now = torch.zeros(flags, dtype=torch.bool, device=device)
+        w = _tree_map(lambda wl, nl: torch.where(col(converged), wl, nl), w, w_new)
         if with_iterations:
             ran = torch.where(converged, ran, it)
         converged = converged | conv_now
@@ -262,10 +277,21 @@ def _reduced(grad_and_count, reduce):
     return reduced
 
 
+def _matvec(x, w):
+    """X·w: [B, F] @ [F], or each tenant's [M, B, F] @ [M, F] as one batched
+    product."""
+    return x @ w if x.dim() == 2 else torch.bmm(x, w[..., None])[..., 0]
+
+
+def _rmatvec(x, r):
+    """Xᵀr: [B, F]ᵀ @ [B], or each tenant's as one batched product."""
+    return x.T @ r if x.dim() == 2 else torch.bmm(x.transpose(1, 2), r[..., None])[..., 0]
+
+
 def dense_sgd_loop(x_dense, labels, mask, weights, *, num_iterations: int,
                    step_size: float, l2_reg: float = 0.0,
                    convergence_tol: float = 0.001, masks=None,
-                   residual_fn=least_squares_residual, reduce=None):
+                   residual_fn=least_squares_residual, reduce=None, step_table=None):
     """The JAX package's dense step as torch ops in the weights' float type
     (``twtml_tpu/models/sgd.py`` ``sgd_inner_loop`` over ``x_dense @ w``):
     predictions with the pre-update weights, then each iteration's gradient
@@ -273,18 +299,22 @@ def dense_sgd_loop(x_dense, labels, mask, weights, *, num_iterations: int,
     selects (all valid rows when ``masks`` is None), divided by the selected
     count. With ``reduce`` (a data-parallel group) the gradient and count
     are summed over the ranks each iteration. Returns (new_weights [F],
-    raw_predictions [B])."""
-    raw = x_dense @ weights
+    raw_predictions [B]). With ``step_table`` (``sgd_inner_loop``'s, in place
+    of ``step_size`` and ``l2_reg``) it runs M tenants at once, the JAX
+    package's vmap of the step: ``x_dense`` [M, B, F], ``labels`` and
+    ``mask`` [M, B], ``weights`` [M, F], every tenant on the same ``masks``
+    (its draw takes no tenant index); it returns [M, F] and [M, B]."""
+    raw = _matvec(x_dense, weights)
 
     def grad_and_count(w, it):
         sel = mask if masks is None else mask * masks[it - 1]
-        residual = residual_fn(x_dense @ w, labels) * sel
-        return x_dense.T @ residual, torch.sum(sel)
+        residual = residual_fn(_matvec(x_dense, w), labels) * sel
+        return _rmatvec(x_dense, residual), torch.sum(sel, dim=-1)
 
     w = sgd_inner_loop(
         weights, num_iterations=num_iterations, step_size=step_size,
         l2_reg=l2_reg, convergence_tol=convergence_tol,
-        grad_and_count=_reduced(grad_and_count, reduce),
+        grad_and_count=_reduced(grad_and_count, reduce), step_table=step_table,
     )
     return w, raw
 
@@ -652,6 +682,126 @@ def make_sgd_train_step(
     # holds a reference to it)
     train_step.masks_by_rows = masks_by_rows
     return train_step
+
+
+def flatten_tenants(wire):
+    """A stacked device wire ([M]-leading fields, or an unpacked group) as
+    ONE batch of its M·B rows in tenant order: the padded wires' fields
+    reshaped, the ragged wire's M unit buffers and offset blocks as the
+    segments of a shard-segment batch (``ops/ragged.ragged_repad``), so
+    ``decode_batch`` decodes every tenant at once, each row as alone."""
+    if isinstance(wire, PackedBatch):
+        wire = unpack_batch(wire.buffer, wire.layout)
+    if isinstance(wire, RaggedUnitBatch):
+        m = wire.mask.shape[0]
+        return RaggedUnitBatch(
+            wire.units.reshape(-1), wire.offsets.reshape(-1),
+            wire.numeric.reshape((-1,) + tuple(wire.numeric.shape[2:])),
+            wire.label.reshape(-1), wire.mask.reshape(-1), row_len=wire.row_len,
+            num_shards=m * wire.num_shards)
+    return type(wire)(*(a.reshape((-1,) + tuple(a.shape[2:])) for a in wire))
+
+
+def make_sgd_tenant_step(
+    *,
+    num_tenants: int,
+    step_sizes,
+    l2_regs,
+    num_text_features: int,
+    num_iterations: int,
+    mini_batch_fraction: float = 1.0,
+    convergence_tol: float = 0.001,
+    residual_fn=None,
+    prediction_fn=None,
+    round_predictions: bool = True,
+    quality: bool = False,
+    dtype=torch.float32,
+):
+    """The dense regime's train step batched over M tenants: the JAX
+    package's ``jax.vmap`` of the step (``twtml_tpu/parallel/tenants.py``,
+    ``mapping="vmap"``). Builds ``(weights [M, F+4], wire, valid_rows) ->
+    (new weights, [M]-leading StepOutput)``: ``wire`` a stacked device wire
+    or an unpacked group of M tenant parts, ``valid_rows`` each part's rows
+    up to its last valid one (``features/batch.tenant_valid_rows`` of the
+    HOST masks, so nothing is read back). Tenant m trains with
+    ``step_sizes[m]`` and ``l2_regs[m]``; the rest is shared.
+
+    The M·B rows decode, hash and densify at once (``flatten_tenants``),
+    then one loop trains every tenant: on the route of ``dense_route``,
+    ``fused_dense_sgd_tenants`` (the tenant grid kernel on the card, its
+    plain version on the CPU) or the batched torch loop (``dense_sgd_loop``
+    with a step table; every tenant on the same ``-b`` < 1 masks, as the
+    JAX vmap draws them under one key). Rounding, the stats and the quality
+    vector run over the leading M as batched ops. The products sum in
+    another order than the scan form's M steps, so the two agree within
+    float rounding, not bitwise, as the JAX package's vmap and scan do."""
+    _check_slice(dtype)
+    f_text = num_text_features
+    if f_text > DENSE_TEXT_FEATURE_LIMIT:
+        raise ValueError("the batched tenant step is the dense regime's (<= "
+                         f"{DENSE_TEXT_FEATURE_LIMIT} text features)")
+    residual_fn = residual_fn or least_squares_residual
+    route = dense_route(mini_batch_fraction, dtype, residual_fn)
+    step_sizes = [float(v) for v in step_sizes]
+    l2_regs = [float(v) for v in l2_regs]
+    if not len(step_sizes) == len(l2_regs) == num_tenants:
+        raise ValueError(f"{num_tenants} tenants need {num_tenants} step sizes and L2s")
+    sampled = mini_batch_fraction < 1.0
+    _, masks_for = mask_cache(num_iterations, mini_batch_fraction, dtype)
+    tables: dict = {}
+    loop_kw = dict(num_iterations=num_iterations, convergence_tol=convergence_tol,
+                   residual_fn=residual_fn)
+
+    def step_table(device):
+        """(eta, scale) [N, M, 1] of every iteration and tenant in the
+        weights' type (``_step_scalars``), made once a device: from
+        page-locked memory with a non-blocking copy on cuda (no host sync),
+        the host tensor kept with it."""
+        key = str(device)
+        if key not in tables:
+            host = torch.tensor(
+                [[_step_scalars(s, l2, it, dtype) for s, l2 in zip(step_sizes, l2_regs)]
+                 for it in range(1, num_iterations + 1)],
+                dtype=dtype).reshape(num_iterations, num_tenants, 2)
+            host = host.permute(2, 0, 1).contiguous()[..., None]
+            if device.type == "cuda":
+                host = host.pin_memory()
+            tables[key] = (host, host.to(device, non_blocking=True))
+        dev = tables[key][1]
+        return dev[0], dev[1]
+
+    def tenant_step(weights, wire, valid_rows):
+        m = num_tenants
+        token_idx, token_val, numeric, labels, mask = decode_batch(
+            flatten_tenants(wire), f_text, dtype)
+        rows = mask.shape[0] // m
+        x_dense = torch.cat([densify_text(token_idx, token_val, f_text), numeric],
+                            dim=1).view(m, rows, -1)
+        labels, mask = labels.view(m, rows), mask.view(m, rows)
+        if route == "fused_dense_sgd":
+            w_new, raw = fused_sgd.fused_dense_sgd_tenants(
+                x_dense, labels, mask, weights, valid_rows=valid_rows,
+                step_sizes=step_sizes, l2_regs=l2_regs, **loop_kw)
+        else:
+            masks = masks_for(rows, mask.device, None) if sampled else None
+            w_new, raw = dense_sgd_loop(x_dense, labels, mask, weights, masks=masks,
+                                        step_size=None, step_table=step_table(mask.device),
+                                        **loop_kw)
+        preds = raw if prediction_fn is None else prediction_fn(raw)
+        if round_predictions:
+            preds = torch_round_half_up(preds)
+        stats = batch_stats(labels, preds, mask)
+        q = None
+        if quality:
+            q = quality_vector(
+                weights, w_new, residual=residual_fn(raw, labels) * mask, preds=preds,
+                labels=labels, mask=mask, numeric=numeric.view(m, rows, -1),
+                token_idx=token_idx.view(m, rows, -1), token_val=token_val.view(m, rows, -1),
+            )
+        return w_new, StepOutput(predictions=preds, quality=q, **stats)
+
+    tenant_step.route = route
+    return tenant_step
 
 
 def zero_weights(num_text_features: int, dtype=torch.float32, device="cuda"):

@@ -36,6 +36,14 @@ in ``sgd_inner_loop``; ``fused_dense_iteration_reference`` and
 ``fused_dense_update_reference`` are the two launches' plain functions.
 Each wrapper counts its launches in ``.launches``.
 
+B1 with a tenant grid dimension (``fused_dense_sgd_tenants``, the tenant
+plane's vmap form): M tenants' loops in one cooperative launch of
+``tenant_sgd_kernel``, each tenant's CTAs (``tenant_launch_plan``: in
+proportion to its valid rows, none for a dry tenant) reading only its
+part's rows up to its last valid one, each tenant with its own step size,
+L2, reduce, update and converged decision. Its plain version is M calls of
+``fused_dense_sgd_reference`` (``fused_dense_sgd_tenants_reference``).
+
 Routing: a CPU tensor goes to the twin ``fused_dense_sgd_reference``; a CUDA
 tensor launches a kernel or raises. ``fused_dense_sgd.launches`` counts
 the calls that launched either kernel, ``.predict_launches`` those that
@@ -69,11 +77,12 @@ SCRATCH_FLOATS = 4
 PREDICT_THREADS = 256  # the predict kernel's CTA: 8 warps, a row each at a time
 PREDICT_WARPS = PREDICT_THREADS // 32
 PREDICT_CTAS_PER_SM = 2
+TENANTS_PER_LAUNCH = 32  # the tenant grid's launch: one bit a tenant in its masks
 NVCC_DEFINES = tuple(
     f"-DTWTML_SGD_{name}={value}" for name, value in (
         ("THREADS", THREADS), ("TILE_COLUMNS", TILE_COLUMNS),
         ("REDUCE_SLOTS", REDUCE_SLOTS), ("SCRATCH_FLOATS", SCRATCH_FLOATS),
-        ("PREDICT_THREADS", PREDICT_THREADS),
+        ("PREDICT_THREADS", PREDICT_THREADS), ("TENANTS_PER_LAUNCH", TENANTS_PER_LAUNCH),
     )
 )
 
@@ -164,34 +173,132 @@ class LaunchPlan(NamedTuple):
         return self.grid * self.spill_per_cta * self.row_columns
 
 
-def launch_plan(batch_rows: int, num_features: int, *, sm_count: int,
-                shared_limit: int) -> LaunchPlan:
-    """The grid, rows a CTA, resident/spill split and shared-memory layout
-    of one call. At most one CTA an SM, and no more CTAs than give each warp
-    a row. Shared memory holds w [fpad] f32, the reduction slots, y and r a
-    row, a small scratch, then as many bf16 rows of X as fit in
+def _shared_split(fpad: int, rows_cap: int, shared_limit: int, what: str) -> tuple:
+    """A CTA's shared memory for ``rows_cap`` rows: (row_columns, resident
+    rows, shared bytes, smem_layout). w [fpad] f32, the reduction slots, y
+    and r a row, a small scratch, then as many bf16 rows of X as fit in
     ``shared_limit`` (the card's opt-in limit a block: 232,448 B on an
     H100); a row up to TILE_COLUMNS wide is stored TILE_COLUMNS wide, so
-    the narrow pass needs no bounds checks."""
-    fpad = padded_columns(num_features)
+    the narrow pass needs no bounds checks. The rest of the rows spill."""
     row_columns = max(fpad, TILE_COLUMNS)
-    grid = max(1, min(sm_count, -(-batch_rows // WARPS)))
-    rows_cap = -(-batch_rows // grid)
     red = _align16(fpad * 4)
     y = red + REDUCE_SLOTS * TILE_COLUMNS * 4
     r = y + _align16(rows_cap * 4)
     scratch = r + _align16(rows_cap * 4)
     x_rows = scratch + SCRATCH_FLOATS * 4
     if x_rows > shared_limit:
-        raise ValueError(f"{batch_rows} rows x {num_features} columns need {x_rows} B "
-                         f"of shared memory before any row of X; the limit is "
-                         f"{shared_limit} B")
+        raise ValueError(f"{what} need {x_rows} B of shared memory before any row of X; "
+                         f"the limit is {shared_limit} B")
     resident = min(rows_cap, (shared_limit - x_rows) // (2 * row_columns))
+    return (row_columns, resident, x_rows + resident * 2 * row_columns,
+            (red, y, r, scratch, x_rows, row_columns // COLUMN_MULTIPLE))
+
+
+def launch_plan(batch_rows: int, num_features: int, *, sm_count: int,
+                shared_limit: int) -> LaunchPlan:
+    """The grid, rows a CTA, resident/spill split and shared-memory layout
+    of one call (``_shared_split``). At most one CTA an SM, and no more CTAs
+    than give each warp a row."""
+    fpad = padded_columns(num_features)
+    grid = max(1, min(sm_count, -(-batch_rows // WARPS)))
+    rows_cap = -(-batch_rows // grid)
+    row_columns, resident, shared_bytes, smem_layout = _shared_split(
+        fpad, rows_cap, shared_limit, f"{batch_rows} rows x {num_features} columns")
     return LaunchPlan(
         rows=batch_rows, fpad=fpad, row_columns=row_columns, grid=grid,
         rows_cap=rows_cap, resident=resident, spill_per_cta=rows_cap - resident,
-        shared_bytes=x_rows + resident * 2 * row_columns,
-        smem_layout=(red, y, r, scratch, x_rows, row_columns // COLUMN_MULTIPLE),
+        shared_bytes=shared_bytes, smem_layout=smem_layout,
+    )
+
+
+class TenantPlan(NamedTuple):
+    """How one tenant-grid launch lays M tenants over the card: tenant t
+    owns CTAs [first_cta[t], first_cta[t+1]) and its rows [0,
+    valid_rows[t]) split over them as ``LaunchPlan.cta_rows`` splits a
+    batch; each CTA keeps its first ``resident`` rows in shared memory and
+    spills the rest."""
+
+    valid_rows: tuple
+    fpad: int
+    row_columns: int
+    first_cta: tuple
+    rows_cap: int
+    resident: int
+    spill_per_cta: int
+    shared_bytes: int
+    smem_layout: tuple
+
+    @property
+    def tenants(self) -> int:
+        return len(self.valid_rows)
+
+    @property
+    def grid(self) -> int:
+        return self.first_cta[-1]
+
+    def entries(self) -> list:
+        """Each CTA's (tenant, first row, rows), in CTA order."""
+        out = []
+        for t, valid in enumerate(self.valid_rows):
+            k = self.first_cta[t + 1] - self.first_cta[t]
+            out += [(t, j * valid // k, (j + 1) * valid // k - j * valid // k)
+                    for j in range(k)]
+        return out
+
+    @property
+    def scratch_floats(self) -> int:
+        """partials [grid, fpad], each tenant's w [tenants, fpad], count
+        [grid], norms [grid, 2], each tenant's iterations run [tenants]."""
+        return (self.grid + self.tenants) * self.fpad + 3 * self.grid + self.tenants
+
+    @property
+    def spill_elements(self) -> int:
+        return self.grid * self.spill_per_cta * self.row_columns
+
+
+def tenant_launch_plan(valid_rows, num_features: int, *, sm_count: int,
+                       shared_limit: int) -> TenantPlan:
+    """The tenant grid's launch for tenants with ``valid_rows`` rows each
+    (a part's rows up to its last valid one): at most ``sm_count`` CTAs,
+    one an SM, and no more CTAs for a tenant than give each warp a row;
+    every tenant with a row gets a CTA, a dry one none (all dry: tenant 0
+    gets one, which writes the outputs); each tenant's share of the CTAs is
+    in proportion to its valid rows (rounded down), and the CTAs left go one
+    at a time to the tenant whose CTAs hold the most rows each (first of
+    equals). Shared memory is sized for
+    the CTA with the most rows (``_shared_split``). At most
+    TENANTS_PER_LAUNCH tenants, and no more with rows than ``sm_count``."""
+    valid = tuple(int(v) for v in valid_rows)
+    if not 1 <= len(valid) <= TENANTS_PER_LAUNCH or min(valid) < 0:
+        raise ValueError(f"a tenant-grid launch takes 1..{TENANTS_PER_LAUNCH} tenants with "
+                         f"0 or more rows each, got {valid}")
+    ctas = [1 if v > 0 else 0 for v in valid]
+    if sum(ctas) > sm_count:
+        raise ValueError(f"{sum(ctas)} tenants with rows need a CTA each; the card has "
+                         f"{sm_count} SMs")
+    if not any(ctas):
+        ctas[0] = 1
+    want = [-(-v // WARPS) for v in valid]
+    budget = min(sm_count, sum(want))
+    share = [min(w, max(1, budget * v // sum(valid))) if v else 0
+             for v, w in zip(valid, want)]
+    if sum(valid) and sum(share) <= budget:
+        ctas = share
+    for _ in range(budget - sum(ctas)):
+        t = max((t for t in range(len(valid)) if ctas[t] < want[t]),
+                key=lambda t: (-(-valid[t] // ctas[t]), -t))
+        ctas[t] += 1
+    first = [0]
+    for k in ctas:
+        first.append(first[-1] + k)
+    fpad = padded_columns(num_features)
+    rows_cap = max(1, max(-(-v // k) for v, k in zip(valid, ctas) if k))
+    row_columns, resident, shared_bytes, smem_layout = _shared_split(
+        fpad, rows_cap, shared_limit, f"{rows_cap} rows a CTA x {num_features} columns")
+    return TenantPlan(
+        valid_rows=valid, fpad=fpad, row_columns=row_columns, first_cta=tuple(first),
+        rows_cap=rows_cap, resident=resident, spill_per_cta=rows_cap - resident,
+        shared_bytes=shared_bytes, smem_layout=smem_layout,
     )
 
 
@@ -263,6 +370,22 @@ def fused_dense_sgd_reference(
         grad_and_count=grad_and_count,
     )
     return w, preds
+
+
+def fused_dense_sgd_tenants_reference(
+    x_dense, labels, mask, weights, *, num_iterations: int, step_sizes, l2_regs,
+    convergence_tol: float = 0.001, residual_fn=least_squares_residual,
+):
+    """The plain version of the tenant grid: M calls of
+    ``fused_dense_sgd_reference``, tenant m on ``x_dense[m]`` [B, F],
+    ``labels[m]``, ``mask[m]`` and ``weights[m]`` with its own step size and
+    L2 (each rounded to float32 where the loop forms η). Returns
+    (new_weights [M, F], raw_predictions [M, B])."""
+    outs = [fused_dense_sgd_reference(
+        x_dense[m], labels[m], mask[m], weights[m], num_iterations=num_iterations,
+        step_size=step_sizes[m], l2_reg=l2_regs[m], convergence_tol=convergence_tol,
+        residual_fn=residual_fn) for m in range(x_dense.shape[0])]
+    return torch.stack([w for w, _ in outs]), torch.stack([p for _, p in outs])
 
 
 def fused_dense_grad_reference(x_dense, labels, mask, weights, *,
@@ -509,10 +632,20 @@ UPDATE_ARGTYPES = (
     + _PLAN_ARGTYPES + [ctypes.c_int] + [ctypes.c_float] * 3  # it, step, l2, tol
     + [ctypes.c_void_p]
 )
+TENANTS_ARGTYPES = (
+    [ctypes.c_void_p] * 8  # x, labels, mask, w0, w_out, preds, spill, scratch
+    + [ctypes.c_int] * 9  # tenants, rows, features, fpad, grid, rows_cap, resident,
+    # spill_per_cta, shared_bytes
+    + [ctypes.POINTER(ctypes.c_int)] * 3  # smem_layout, first_cta, valid rows
+    + [ctypes.POINTER(ctypes.c_float)] * 2  # step sizes, L2s
+    + [ctypes.c_int, ctypes.c_float, ctypes.c_int]  # iterations, tol, residual_mode
+    + [ctypes.c_void_p]  # stream
+)
 _ENTRIES = {"twtml_fused_dense_sgd": KERNEL_ARGTYPES,
             "twtml_fused_dense_predict": PREDICT_ARGTYPES,
             "twtml_fused_dense_grad": GRAD_ARGTYPES,
-            "twtml_fused_dense_update": UPDATE_ARGTYPES}
+            "twtml_fused_dense_update": UPDATE_ARGTYPES,
+            "twtml_fused_dense_sgd_tenants": TENANTS_ARGTYPES}
 
 
 @functools.cache
@@ -665,3 +798,87 @@ fused_dense_sgd.launches = 0
 fused_dense_sgd.predict_launches = 0
 fused_dense_sgd.captured = 0
 fused_dense_sgd.last_iterations = None
+
+
+def fused_dense_sgd_tenants(
+    x_dense, labels, mask, weights, *, valid_rows, num_iterations: int, step_sizes,
+    l2_regs, convergence_tol: float = 0.001, residual_fn=least_squares_residual,
+):
+    """M tenants' fused loops (B1 with a tenant grid dimension):
+    ``x_dense`` [M, B, F], ``labels`` and ``mask`` [M, B], ``weights`` [M,
+    F], tenant m with its own ``step_sizes[m]`` and ``l2_regs[m]``; every
+    tenant shares the iterations, tolerance and residual mode. Returns
+    (new_weights [M, F], raw_predictions [M, B]). ``valid_rows`` (host
+    ints, one a tenant) bounds the rows the kernel reads as X: tenant m's
+    rows past ``valid_rows[m]`` must be masked (the host knows each part's
+    last valid row before the copy; no count is read back). On the CPU the
+    plain version; on CUDA one cooperative launch of ``tenant_sgd_kernel``
+    (csrc/fused_sgd.cu) for each TENANTS_PER_LAUNCH tenants, counted in
+    ``fused_dense_sgd_tenants.launches``, each tenant's iterations run in
+    the device tensor ``fused_dense_sgd_tenants.last_iterations`` [M]."""
+    mode = residual_mode(residual_fn)
+    if mode is None:
+        raise ValueError(f"fused_dense_sgd_tenants has no residual mode for {residual_fn!r}")
+    if x_dense.dim() != 3:
+        raise ValueError(f"x_dense must be [M, B, F], got {tuple(x_dense.shape)}")
+    m, b, f = x_dense.shape
+    valid_rows = [int(v) for v in valid_rows]
+    if not len(valid_rows) == len(step_sizes) == len(l2_regs) == m:
+        raise ValueError(f"{m} tenants need {m} valid row counts, step sizes and L2s")
+    if any(not 0 <= v <= b for v in valid_rows):
+        raise ValueError(f"valid rows {valid_rows} outside [0, {b}]")
+    dev = x_dense.device
+    if dev.type == "cpu":
+        return fused_dense_sgd_tenants_reference(
+            x_dense, labels, mask, weights, num_iterations=num_iterations,
+            step_sizes=step_sizes, l2_regs=l2_regs, convergence_tol=convergence_tol,
+            residual_fn=residual_fn)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_dense_sgd_tenants takes cpu or cuda tensors, got {dev}")
+    if not supports(batch_rows=b, num_features=f, dtype=weights.dtype):
+        raise ValueError(f"fused_dense_sgd_tenants does not take X {tuple(x_dense.shape)} "
+                         f"with {weights.dtype} weights (see supports())")
+    for name, t, shape in (("x_dense", x_dense, (m, b, f)), ("labels", labels, (m, b)),
+                           ("mask", mask, (m, b)), ("weights", weights, (m, f))):
+        if (t.device != dev or tuple(t.shape) != shape or t.dtype != torch.float32
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous float32 {shape} on {dev}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if num_iterations < 0:
+        raise ValueError("num_iterations must be >= 0")
+    with torch.cuda.device(dev):
+        sm_count, shared_limit = device_limits(torch.cuda.current_device())
+        w = torch.empty((m, f), dtype=torch.float32, device=dev)
+        preds = torch.empty((m, b), dtype=torch.float32, device=dev)
+        iterations = []
+        for lo in range(0, m, TENANTS_PER_LAUNCH):
+            hi = min(m, lo + TENANTS_PER_LAUNCH)
+            plan = tenant_launch_plan(valid_rows[lo:hi], f, sm_count=sm_count,
+                                      shared_limit=shared_limit)
+            spill = torch.empty((plan.spill_elements,), dtype=torch.bfloat16, device=dev)
+            scratch = torch.empty((plan.scratch_floats,), dtype=torch.float32, device=dev)
+            n = plan.tenants
+            err = _entry("twtml_fused_dense_sgd_tenants")(
+                x_dense[lo].data_ptr(), labels[lo].data_ptr(), mask[lo].data_ptr(),
+                weights[lo].data_ptr(), w[lo].data_ptr(), preds[lo].data_ptr(),
+                spill.data_ptr(), scratch.data_ptr(), n, b, f, plan.fpad, plan.grid,
+                plan.rows_cap, plan.resident, plan.spill_per_cta, plan.shared_bytes,
+                _layout_arg(plan.smem_layout), (ctypes.c_int * (n + 1))(*plan.first_cta),
+                (ctypes.c_int * n)(*plan.valid_rows),
+                (ctypes.c_float * n)(*(float(v) for v in step_sizes[lo:hi])),
+                (ctypes.c_float * n)(*(float(v) for v in l2_regs[lo:hi])),
+                int(num_iterations), float(convergence_tol), int(mode),
+                torch.cuda.current_stream().cuda_stream)
+            if err == 1:  # cudaErrorInvalidValue: the entry's own checks
+                raise RuntimeError(f"fused_dense_sgd_tenants: the kernel refused the plan {plan}")
+            if err != 0:
+                raise RuntimeError(f"fused_dense_sgd_tenants launch failed: CUDA error {err}")
+            fused_dense_sgd_tenants.launches += 1
+            iterations.append(scratch[-n:])
+    fused_dense_sgd_tenants.last_iterations = (
+        iterations[0] if len(iterations) == 1 else torch.cat(iterations))
+    return w, preds
+
+
+fused_dense_sgd_tenants.launches = 0
+fused_dense_sgd_tenants.last_iterations = None

@@ -51,7 +51,9 @@ def quality_vector(
     w_prev, w_new, *, residual, preds, labels, mask, numeric, token_idx, token_val,
     reduce=None,
 ):
-    """The ``[QUALITY_WIDTH]`` f32 quality vector for one micro-batch.
+    """The ``[QUALITY_WIDTH]`` f32 quality vector for one micro-batch, or
+    [M, QUALITY_WIDTH] for M tenants at once (the vmap form: every input
+    with a leading [M], the sums taken per tenant).
 
     ``residual`` is the masked pre-update residual, ``preds`` the reported
     (rounded) predictions, ``mask`` the valid-row mask. With ``reduce`` (a
@@ -63,13 +65,13 @@ def quality_vector(
     f32 = torch.float32
     m = mask.to(f32)
 
-    w_sq = torch.sum(w_new.to(f32) ** 2)
-    upd_sq = torch.sum((w_new.to(f32) - w_prev.to(f32)) ** 2)
+    w_sq = torch.sum(w_new.to(f32) ** 2, dim=-1)
+    upd_sq = torch.sum((w_new.to(f32) - w_prev.to(f32)) ** 2, dim=-1)
 
-    if numeric.shape[1] != NUM_NUMERIC:
+    if numeric.shape[-1] != NUM_NUMERIC:
         raise ValueError(
             f"quality_vector pins {NUM_NUMERIC} numeric columns "
-            f"(QUALITY_FIELDS layout); got {numeric.shape[1]}"
+            f"(QUALITY_FIELDS layout); got {numeric.shape[-1]}"
         )
     num = numeric.to(f32)
     x_p, x_l = preds.to(f32), labels.to(f32)
@@ -84,51 +86,53 @@ def quality_vector(
     # (chip_smoke.py's step profile), and not bincount, which reads the
     # input's max back to the host on CUDA (a sync inside the dispatch).
     # Every partial sum is an integer below 2**24, so the bins are exact.
+    lead = m.shape[:-1]  # () for one batch, (M,) for M tenants
+    rows = m.numel()
     folded = torch.bitwise_and(token_idx.to(torch.int64), QUALITY_NBINS - 1)
-    folded = folded.reshape(folded.shape[0], -1)
-    tv = (token_val.to(f32) * m[:, None]).reshape(folded.shape)
-    row_bins = torch.zeros((folded.shape[0], QUALITY_NBINS), dtype=f32, device=tv.device)
-    bins = row_bins.scatter_add_(1, folded, tv).sum(dim=0)
+    folded = folded.reshape(rows, -1)
+    tv = (token_val.to(f32) * m[..., None]).reshape(folded.shape)
+    row_bins = torch.zeros((rows, QUALITY_NBINS), dtype=f32, device=tv.device)
+    bins = row_bins.scatter_add_(1, folded, tv).reshape(lead + (-1, QUALITY_NBINS)).sum(dim=-2)
 
     # every sum over the rows, in one vector: [count, Σr², Σx·m, Σx²·m for
     # preds, labels and labels − preds, the numeric sums, their squares,
     # the bins]
     sums = torch.cat([
         torch.stack([
-            torch.sum(m), torch.sum(residual.to(f32) ** 2),
-            torch.sum(x_p * m), torch.sum(x_p * x_p * m),
-            torch.sum(x_l * m), torch.sum(x_l * x_l * m),
-            torch.sum(x_r * m), torch.sum(x_r * x_r * m),
-        ]),
-        torch.sum(num * m[:, None], dim=0),
-        torch.sum(num * num * m[:, None], dim=0),
+            torch.sum(m, dim=-1), torch.sum(residual.to(f32) ** 2, dim=-1),
+            torch.sum(x_p * m, dim=-1), torch.sum(x_p * x_p * m, dim=-1),
+            torch.sum(x_l * m, dim=-1), torch.sum(x_l * x_l * m, dim=-1),
+            torch.sum(x_r * m, dim=-1), torch.sum(x_r * x_r * m, dim=-1),
+        ], dim=-1),
+        torch.sum(num * m[..., None], dim=-2),
+        torch.sum(num * num * m[..., None], dim=-2),
         bins,
-    ])
+    ], dim=-1)
     if reduce is not None:
         reduce(sums)
-    denom = torch.clamp(sums[0], min=1.0)
+    denom = torch.clamp(sums[..., 0], min=1.0)
 
     def moments(at: int):
-        mean = sums[at] / denom
-        var = sums[at + 1] / denom - mean * mean
+        mean = sums[..., at] / denom
+        var = sums[..., at + 1] / denom - mean * mean
         return mean, torch.clamp(var, min=0.0)
 
     pred_mean, pred_var = moments(2)
     label_mean, label_var = moments(4)
     resid_mean, resid_var = moments(6)
-    num_mean = sums[8:8 + NUM_NUMERIC] / denom
-    num_sq = sums[8 + NUM_NUMERIC:8 + 2 * NUM_NUMERIC] / denom
+    num_mean = sums[..., 8:8 + NUM_NUMERIC] / denom[..., None]
+    num_sq = sums[..., 8 + NUM_NUMERIC:8 + 2 * NUM_NUMERIC] / denom[..., None]
     num_var = torch.clamp(num_sq - num_mean * num_mean, min=0.0)
-    bins = sums[8 + 2 * NUM_NUMERIC:]
-    total = torch.sum(bins)
-    occupancy = torch.mean((bins > 0).to(f32))
-    top_share = torch.max(bins) / torch.clamp(total, min=1.0)
+    bins = sums[..., 8 + 2 * NUM_NUMERIC:]
+    total = torch.sum(bins, dim=-1)
+    occupancy = torch.mean((bins > 0).to(f32), dim=-1)
+    top_share = torch.amax(bins, dim=-1) / torch.clamp(total, min=1.0)
 
     return torch.stack(
         [
             torch.sqrt(w_sq),
             torch.sqrt(upd_sq),
-            torch.sqrt(sums[1]),
+            torch.sqrt(sums[..., 1]),
             pred_mean,
             pred_var,
             label_mean,
@@ -136,7 +140,8 @@ def quality_vector(
             resid_mean,
             resid_var,
         ]
-        + [num_mean[i] for i in range(NUM_NUMERIC)]
-        + [num_var[i] for i in range(NUM_NUMERIC)]
-        + [occupancy, top_share]
+        + [num_mean[..., i] for i in range(NUM_NUMERIC)]
+        + [num_var[..., i] for i in range(NUM_NUMERIC)]
+        + [occupancy, top_share],
+        dim=-1,
     ).to(f32)

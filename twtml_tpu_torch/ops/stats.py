@@ -3,7 +3,9 @@ on one device or, with ``reduce``, over the ranks of a data-parallel group.
 
 count / MSE / stdev(real) / stdev(pred) over the valid rows. ``RDD.stdev`` is
 the population stdev, computed as E[x^2] - E[x]^2 clamped at 0 (not
-``torch.std``, which is the sample stdev and sums in another order).
+``torch.std``, which is the sample stdev and sums in another order). The
+rows are the last axis: [M, B] inputs (a tenant stack's vmap form) give
+[M] stats, one a tenant.
 """
 
 from __future__ import annotations
@@ -12,11 +14,11 @@ import torch
 
 
 def masked_sum(x, mask):
-    return torch.sum(x * mask)
+    return torch.sum(x * mask, dim=-1)
 
 
 def masked_count(mask):
-    return torch.sum(mask)
+    return torch.sum(mask, dim=-1)
 
 
 def masked_mean(x, mask):
@@ -40,7 +42,7 @@ def batch_stats(labels, rounded_preds, mask, reduce=None) -> dict:
     if reduce is None:
         count = masked_count(mask)
         err = (labels - rounded_preds) * mask
-        mse = torch.sum(err * err) / torch.clamp(count, min=1.0)
+        mse = torch.sum(err * err, dim=-1) / torch.clamp(count, min=1.0)
         return {
             "count": count,
             "mse": mse,

@@ -8,13 +8,24 @@ work, not a round trip.
 
 - **weights**: one [M, F+4] tensor on the model's device; each tenant's
   step size and L2 are its own (``step_sizes``, ``l2_regs``).
-- **the step**: tenant m runs the learner's train step
-  (``models/sgd.make_sgd_train_step``, built with that tenant's step size
-  and L2) on its part of the wire, with its own row of the stack: the JAX
-  package's ``lax.map`` with no carry. On the dense float32 route each
-  tenant's step is one launch of B1 (``ops/fused_sgd.py``) at the batch's
-  padded B, so a tick launches B1 M times. Tenant m's weights, predictions
-  and stats are bitwise a standalone learner's stepped on m's rows.
+- **the step**: with ``mapping="scan"`` (the default) tenant m runs the
+  learner's train step (``models/sgd.make_sgd_train_step``, built with that
+  tenant's step size and L2) on its part of the wire, with its own row of
+  the stack: the JAX package's ``lax.map`` with no carry. On the dense
+  float32 route each tenant's step is one launch of B1
+  (``ops/fused_sgd.py``) at the batch's padded B, so a tick launches B1 M
+  times. Tenant m's weights, predictions and stats are bitwise a
+  standalone learner's stepped on m's rows. ``mapping="vmap"`` (the JAX
+  package's ``jax.vmap``, reached only through the library, as there) runs
+  the dense regime as ONE batched step (``models/sgd.make_sgd_tenant_step``):
+  the M·B rows decode at once, the float32 kernel route is one launch of
+  B1's tenant grid (``fused_dense_sgd_tenants``: each tenant's CTAs read its
+  valid rows only, which the host counts before the copy), the other dense
+  routes one batched torch loop, and rounding, stats and quality run over
+  the leading M; its sums run in another order, so it agrees with scan
+  within float rounding, as the JAX vmap does. On the 2^18 routes (gram,
+  scatter), which have no batched form here (ROADMAP B10 c), it runs the
+  tenants' steps in turn, as scan does; the construction log says which.
 - **the wire**: the rows route on the host by a deterministic key
   (``features/batch.tenant_route_keys``) into M batches of the batch's
   padded shape (a dry tenant gets all padding), carried as the superbatch
@@ -45,8 +56,8 @@ Over a process group (``mesh``, with its ``group``'s Collectives):
 deterministic key into the stacked wire, the tenant stack on the group's
 data axis, one fetch a tick.
 
-Not here: ``mapping="vmap"``, whose Hopper form is B1 with a tenant grid
-dimension (ROADMAP B10).
+Not here: ``mapping="vmap"`` over a mesh, whose Hopper form is the split
+with a tenant grid (ROADMAP B10 b).
 """
 
 from __future__ import annotations
@@ -63,6 +74,7 @@ from ..features.batch import (
     stack_batches,
     tenant_route_keys,
     tenant_rows,
+    tenant_valid_rows,
     unpack_batch,
 )
 from ..models.base import StepOutput
@@ -72,6 +84,7 @@ from ..models.sgd import (
     batch_to_device,
     fetch_output,
     host_planes,
+    make_sgd_tenant_step,
     make_sgd_train_step,
 )
 from ..utils import get_logger
@@ -135,7 +148,9 @@ class TenantStackModel:
     here) or an M-tenant wire from ``prepare_wire``/``pack_for_wire``, and
     returns the device StepOutput with [M]-leading fields: [M, B]
     predictions in each tenant's row order (``route_ids`` gives the
-    original order back on the host)."""
+    original order back on the host). ``mapping`` is "scan" (M steps, each
+    bitwise a standalone learner) or "vmap" (one batched step on the dense
+    routes; module docstring)."""
 
     accepts_packed = True
 
@@ -172,9 +187,10 @@ class TenantStackModel:
             raise ValueError(f"mapping must be 'scan' or 'vmap', got {mapping!r}")
         if wire_pack not in ("stacked", "group"):
             raise ValueError(f"wire_pack must be 'stacked' or 'group', got {wire_pack!r}")
-        if mapping == "vmap":
-            raise _refuse("mapping='vmap' batches the tenants in one program: on the card "
-                          "that is B1 with a tenant grid dimension", "B10")
+        if mapping == "vmap" and mesh is not None:
+            raise _refuse("mapping='vmap' over a mesh batches the tenants' data-parallel "
+                          "steps: on the card that is the split with a tenant grid", "B10 b")
+        self.mapping = mapping
         self.mesh = mesh
         # this rank's tenants [tenant0, tenant0 + num_local) and the group
         # their steps reduce over (the data axis)
@@ -232,9 +248,22 @@ class TenantStackModel:
                 )
             self._steps.append(built[hyper])
         self.route = self._steps[0].route
+        # the vmap form's one batched step: the dense regime's routes
+        self._batched = None
+        if mapping == "vmap" and not self._steps[0].sparse:
+            self._batched = make_sgd_tenant_step(
+                num_tenants=num_tenants, step_sizes=self.step_sizes, l2_regs=self.l2_regs,
+                num_text_features=num_text_features, num_iterations=num_iterations,
+                mini_batch_fraction=mini_batch_fraction, convergence_tol=convergence_tol,
+                residual_fn=residual_fn, prediction_fn=prediction_fn,
+                round_predictions=round_predictions, quality=quality, dtype=dtype)
+        form = ("scan: a step a tenant" if mapping == "scan" else
+                "vmap: one batched step" if self._batched is not None else
+                f"vmap: the {self.route} route has no batched form (ROADMAP B10 c), so the "
+                "tenants' steps run in turn")
         log.info("tenant plane: %d tenants (%d on this rank), key %s, %s wire, %s step route "
-                 "on %s", num_tenants, self.num_local, tenant_key, wire_pack, self.route,
-                 self.device)
+                 "on %s, mapping %s", num_tenants, self.num_local, tenant_key, wire_pack,
+                 self.route, self.device, form)
         self._weights = torch.zeros((self.num_local, num_text_features + NUM_NUMBER_FEATURES),
                                     dtype=dtype, device=self.device)
         self.non_blocking = True
@@ -293,10 +322,17 @@ class TenantStackModel:
 
     def prepare_wire_from_parts(self, parts):
         """M same-signature batches (routed by the caller, or one batch
-        mirrored M times) as the M-tenant wire."""
+        mirrored M times) as the M-tenant wire. The vmap form's wire carries
+        each part's valid rows (``valid_rows``: ``tenant_valid_rows``), which
+        its kernel reads X to; a stacked padded wire (a tuple) carries its
+        host mask, which gives them."""
         if self.wire_pack == "group" and isinstance(parts[0], RaggedUnitBatch):
-            return pack_ragged_group(parts, codec=self.wire_codec or None)
-        return stack_batches(parts)
+            wire = pack_ragged_group(parts, codec=self.wire_codec or None)
+        else:
+            wire = stack_batches(parts)
+        if self._batched is not None and hasattr(wire, "__dict__"):
+            wire.valid_rows = tenant_valid_rows([p.mask for p in parts])
+        return wire
 
     def pack_for_wire(self, batch):
         """The fetch pipeline's pack: the tenant wire, built once a batch."""
@@ -310,16 +346,33 @@ class TenantStackModel:
             return ()
         return host_planes(wire, self._steps[0].int8_plane)
 
+    @staticmethod
+    def valid_rows(wire) -> list:
+        """Each part's rows up to its last valid one, from a HOST tenant
+        wire: what it carries, else its mask (unpacked from a group buffer
+        that carries none)."""
+        rows = getattr(wire, "valid_rows", None)
+        if rows is None:
+            mask = (unpack_batch(wire.buffer, wire.layout) if isinstance(wire, PackedBatch)
+                    else wire).mask
+            rows = tenant_valid_rows(mask)
+        return rows
+
     def step(self, batch) -> StepOutput:
         """One tick: the wire's H2D copy, then tenant m's train step on part
-        m with row m of the stack, m = 0..M-1; returns the [M]-leading
-        device StepOutput, nothing waited for on ``cuda``. The new stack is
-        a fresh tensor (a step still queued keeps reading the old rows)."""
+        m with row m of the stack, m = 0..M-1 (the vmap form: one batched
+        step over the M parts); returns the [M]-leading device StepOutput,
+        nothing waited for on ``cuda``. The new stack is a fresh tensor (a
+        step still queued keeps reading the old rows)."""
         wire = batch if self._is_tenant_wire(batch) else self.prepare_wire(batch)
         planes = self.planes(wire)
+        valid = self.valid_rows(wire) if self._batched is not None else None
         dev = batch_to_device(wire, self.device, self.non_blocking)
         if isinstance(dev, PackedBatch):
             dev = unpack_batch(dev.buffer, dev.layout)
+        if self._batched is not None:
+            self._weights, out = self._batched(self._weights, dev, valid)
+            return out
         rows, outs = [], []
         for m, train_step in enumerate(self._steps):
             w_m, out = train_step(self._weights[m], _batch_at(dev, m),
