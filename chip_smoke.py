@@ -220,10 +220,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
                both residual modes on skewed parts (1 : 3 : 0 : 12
                thousand rows, a dry tenant, per-tenant step sizes and
                L2s), NaN/Inf in masked rows bitwise ignored, a NaN label
-               kept in its tenant, parts of 16 rows, all dry; its device
-               time at 4 x 4096 valid rows against the 4 single B1
-               launches on the same parts and B1 on the 16384 rows, in
-               turns behind a long queued sleep; then
+               kept in its tenant, parts of 16 rows, all dry, text values
+               no count is (a 300, a 2.5, a NaN in a valid row), M = 16
+               and M = 32; reruns bitwise; at 4 x 4096 valid rows its
+               resident and spilled rows, its device time
+               against the 4 single B1 launches on the same parts and B1
+               on the 16384 rows, in turns behind a long queued sleep, and
+               its timing instantiation's phase split; then
                ``TenantStackModel(mapping="vmap")`` (library level) on the
                linear app run's parts (M = 4) and the logistic one's (M =
                2): the grid launched once a tick (4 + the warm-up) and B1
@@ -376,6 +379,13 @@ its last line is the arm's JSON.
 2 (on DIR's port) and then only N alternating pairs of the app's 2-rank
 2^18 Gram route, the port found in DIR (e.g. the parent commit unpacked
 there) against this checkout's (``gram_ab``); its last line is their JSON.
+
+``python3 chip_smoke.py --grid-ab N --package-root DIR`` runs phases 1 and
+2 (on DIR's port) and then only N alternating pairs of B1's tenant grid
+at 4 x 4096 valid rows and with those rows as one tenant, DIR's port
+against this checkout's, each in a process of its own, with each tree's
+phase split where it has the timing instantiation (``grid_ab``); its last
+line is their JSON.
 
 ``python3 chip_smoke.py --split-ab N --package-root DIR`` runs phases 1 and
 2 (on DIR's port) and then only N alternating pairs of one split
@@ -4965,6 +4975,81 @@ VMAP_TIE = 1e-3
 TENANT_SKEW = (1, 3, 0, 12)  # the skewed parts' rows, in 1024s: tenant 2 dry
 TENANT_STEPS = (0.005, 0.002, 0.01, 0.005)
 TENANT_L2S = (0.0, 0.1, 0.01, 0.0)
+TENANT_LG_STEPS = (0.5, 1.0, 0.5, 2.0)  # the logistic mode's, on 0/1 labels
+
+
+def tenant_grid_text_values(clean, labels01, w0s, w_clean, kw, lg_kw):
+    """Text columns holding what no bigram count is (a 300 in a valid row of
+    tenant 0 and a 2.5 in one of tenant 1; then a NaN in a valid row of
+    tenant 3) against the plain version in both residual modes: the NaN
+    held to the twin's pattern in tenant 3, the other tenants bitwise the
+    clean run's. Returns the max abs errors."""
+    import torch
+
+    errs = []
+    xs, ys, ms = clean
+    last = {t: int(torch.nonzero(ms[t])[-1]) for t in (0, 1, 3)}  # tenant 2 is dry
+    odd = xs.clone()
+    odd[0, last[0], 5] = 300.0
+    odd[1, last[1], 17] = 2.5
+    nan = xs.clone()
+    nan[3, last[3], 999] = float("nan")
+    for mode, (labels, case_kw) in (("least squares", (ys, kw)),
+                                    ("logistic", (labels01, lg_kw))):
+        errs.append(tenant_grid_case(f"1:3:0:12 a count of 300 and a 2.5, {mode}", odd, labels,
+                                     ms, w0s, **case_kw)[3])
+        w_n, _, _, err = tenant_grid_case(f"1:3:0:12 NaN in a text column, {mode}", nan,
+                                          labels, ms, w0s, **case_kw)
+        errs.append(err)
+        if not torch.isnan(w_n[3]).all():
+            raise AssertionError(f"tenant grid NaN in a text column ({mode}): tenant 3 finite")
+        if mode == "least squares" and not torch.equal(bits(w_n[:3]), bits(w_clean[:3])):
+            raise AssertionError("tenant grid NaN in a text column: it left tenant 3")
+    return errs
+
+
+def tenant_grid_many(x, y, labels01, m, w0, kw, lg_kw):
+    """The grid at M = 16 (B/16 valid rows each) and M = 32 (31 parts of
+    B/32 valid rows and a dry one, tests' PLAN_CASES["thirty_two_tenants"])
+    in parts of the B rows of ``x``, both residual modes, against the plain
+    version. Returns the max abs errors."""
+    import torch
+
+    errs = []
+    b = x.shape[0]
+    for rows in ([b // 16] * 16, [b // 32] * 31 + [0]):
+        n = len(rows)
+        scale = torch.linspace(-2.0, 2.0, n, device=x.device)[:, None]
+        w0s = (w0[None] * scale).contiguous()
+        cyc = lambda vals: [vals[t % len(vals)] for t in range(n)]  # noqa: E731
+        for mode, labels, case_kw in (("least squares", y, kw), ("logistic", labels01, lg_kw)):
+            parts = tenant_grid_parts(x, labels, m, rows)
+            case_kw = dict(case_kw, step_sizes=cyc(case_kw["step_sizes"]),
+                           l2_regs=cyc(case_kw["l2_regs"]))
+            errs.append(tenant_grid_case(f"M = {n}, {mode}", *parts, w0s, **case_kw)[3])
+            del parts
+    return errs
+
+
+def tenant_ptxas():
+    """Registers and spills (ptxas) of each tenant_sgd_kernel instantiation:
+    the two residual modes and their timing (probe) instantiations."""
+    import re
+
+    from twtml_tpu_torch.ops import _build
+
+    path = _build.library_path("fused_sgd")
+    log = path.with_name(path.name + ".log")
+    out = {}
+    for block in ptxas_blocks(log.read_text() if log.exists() else "", "tenant_sgd_kernel"):
+        inst = re.search(r"tenant_sgd_kernelILb(\d)ELb(\d)E", block)
+        regs = re.search(r"Used (\d+) registers", block)
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+        if inst and regs and spills:
+            name = ("logistic" if inst.group(1) == "1" else "least_squares") + (
+                "_probe" if inst.group(2) == "1" else "")
+            out[name] = (int(regs.group(1)), (int(spills.group(1)), int(spills.group(2))))
+    return out
 
 
 def tenant_grid_parts(x, y, m, rows, dirty=False):
@@ -4996,11 +5081,11 @@ def tenant_grid_parts(x, y, m, rows, dirty=False):
     return xs, ys, ms
 
 
-def tenant_grid_case(name, xs, ys, ms, w0, **kw):
+def tenant_grid_case(name, xs, ys, ms, w0, reruns=1, **kw):
     """B1's tenant grid against its plain version (M calls of B1's twin) on
     the card: weights and preds within RTOL/ATOL where the twin's are
-    finite, the twin's NaN/Inf pattern elsewhere, a rerun bitwise equal.
-    Returns (w, preds, each tenant's iterations run, max abs err)."""
+    finite, the twin's NaN/Inf pattern elsewhere, ``reruns`` reruns bitwise
+    equal. Returns (w, preds, each tenant's iterations run, max abs err)."""
     import torch
 
     from twtml_tpu_torch.features.batch import tenant_valid_rows
@@ -5009,7 +5094,10 @@ def tenant_grid_case(name, xs, ys, ms, w0, **kw):
     valid = tenant_valid_rows(ms.cpu().numpy())
     w, p = fused_sgd.fused_dense_sgd_tenants(xs, ys, ms, w0, valid_rows=valid, **kw)
     iters = [int(v) for v in fused_sgd.fused_dense_sgd_tenants.last_iterations.tolist()]
-    w2, p2 = fused_sgd.fused_dense_sgd_tenants(xs, ys, ms, w0, valid_rows=valid, **kw)
+    for _ in range(reruns):
+        w2, p2 = fused_sgd.fused_dense_sgd_tenants(xs, ys, ms, w0, valid_rows=valid, **kw)
+        if not (torch.equal(bits(w), bits(w2)) and torch.equal(bits(p), bits(p2))):
+            raise AssertionError(f"tenant grid {name}: reruns are not bitwise equal")
     w_ref, p_ref = fused_sgd.fused_dense_sgd_tenants_reference(xs, ys, ms, w0, **kw)
     torch.cuda.synchronize()
     err = 0.0
@@ -5022,15 +5110,15 @@ def tenant_grid_case(name, xs, ys, ms, w0, **kw):
         fin = torch.isfinite(want)
         if fin.any():
             err = max(err, compare(f"tenant grid {name} {what}", got[fin], want[fin])[0])
-    if not (torch.equal(bits(w), bits(w2)) and torch.equal(bits(p), bits(p2))):
-        raise AssertionError(f"tenant grid {name}: reruns are not bitwise equal")
     for t, v in enumerate(valid):
         if v == 0 and (iters[t] != 0 or not torch.equal(bits(w[t]), bits(w0[t]))
                        or p[t].abs().max().item() != 0.0):
             raise AssertionError(f"tenant grid {name}: dry tenant {t} moved")
-    phase("tenants", f"tenant grid {name}: valid rows {valid}, iterations run {iters}; "
-          f"weights and preds within rtol {RTOL} atol {ATOL} of the plain version (max abs "
-          f"err {err:.2e}); rerun bitwise equal")
+    shown = valid if len(valid) <= 4 else f"{len(valid)} tenants, {sum(valid)} rows"
+    phase("tenants", f"tenant grid {name}: valid rows {shown}, iterations run "
+          f"{iters if len(iters) <= 4 else sorted(set(iters))}; weights and preds within rtol "
+          f"{RTOL} atol {ATOL} of the plain version (max abs err {err:.2e}); {reruns} rerun(s) "
+          "bitwise equal")
     return w, p, iters, err
 
 
@@ -5072,9 +5160,8 @@ def tenant_grid_checks(smi):
         raise AssertionError("tenant grid: NaN/Inf in masked rows reached the results")
     labels01 = op_point_labels(dev)
     lg = tenant_grid_parts(x, labels01, m, skew)
-    _, _, lg_iters, err = tenant_grid_case(
-        "1:3:0:12 logistic", *lg, w0s, **dict(kw, step_sizes=(0.5, 1.0, 0.5, 2.0)),
-        residual_fn=fused_sgd.logistic_residual)
+    lg_kw = dict(kw, step_sizes=TENANT_LG_STEPS, residual_fn=fused_sgd.logistic_residual)
+    _, _, lg_iters, err = tenant_grid_case("1:3:0:12 logistic", *lg, w0s, **lg_kw)
     errs.append(err)
     xs, ys, ms = (t.clone() for t in clean)
     row = int(torch.nonzero(ms[3])[0])
@@ -5092,14 +5179,18 @@ def tenant_grid_checks(smi):
     errs.append(tenant_grid_case("B=16 1:3:0:12", *small, w0s, **kw)[3])
     none = tenant_grid_parts(x, y, m, [0, 0, 0, 0])
     errs.append(tenant_grid_case("all dry", *none, w0s, **kw)[3])
+    errs += tenant_grid_text_values(clean, lg[1], w0s, w_c, kw, lg_kw)
+    errs += tenant_grid_many(x, y, labels01, m, w0, kw, lg_kw)
 
     # the operating point: 4 parts of 16384 rows, 4096 valid each
     even = tenant_grid_parts(x, y, m, [b // 4] * 4)
     one = dict(num_iterations=OP_ITERS, step_size=0.005)
     kw_even = dict(num_iterations=OP_ITERS, step_sizes=[0.005] * 4, l2_regs=[0.0] * 4)
     valid = tenant_valid_rows(even[2].cpu().numpy())
-    _, _, iters, err = tenant_grid_case("4 x 4096", *even, w0s, **kw_even)
+    _, _, iters, err = tenant_grid_case("4 x 4096", *even, w0s, reruns=3, **kw_even)
     errs.append(err)
+    plan = fused_sgd.tenant_launch_plan(valid, f, **sm_limits())
+    resident = sum(min(rows, plan.resident) for _, _, rows in plan.entries())
     grid_call = lambda: fused_sgd.fused_dense_sgd_tenants(  # noqa: E731
         *even, w0s, valid_rows=valid, **kw_even)
     singles = lambda: [fused_sgd.fused_dense_sgd(  # noqa: E731
@@ -5135,13 +5226,20 @@ def tenant_grid_checks(smi):
     bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / F32_FLOPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
-    regs, spills = ptxas_report("tenant_sgd_kernel")
-    plan = fused_sgd.tenant_launch_plan(valid, f, **sm_limits())
+    ptxas = tenant_ptxas()
+    regs, spills = ptxas["least_squares"]
+    probe = grid_probe(even, w0s, **kw_even)
+    probe_one = grid_probe((x1, y1, m1), w1, num_iterations=OP_ITERS, step_sizes=[0.005],
+                           l2_regs=[0.0])
     phase("tenants", f"tenant grid at 4 x 4096 valid rows in parts of B={b}, F={f}, "
           f"{OP_ITERS} iterations (card: {smi}): plan grid {plan.grid} CTAs "
-          f"{plan.first_cta}, {plan.rows_cap} rows a CTA at most, {plan.resident} resident, "
-          f"{plan.shared_bytes} B shared; {regs} registers a thread, spill stores/loads "
-          f"{spills} B (ptxas); iterations run {iters} (B1 on each part: {b1_iters})")
+          f"{plan.first_cta}, {plan.rows_cap} rows a CTA at most, {plan.resident} resident: "
+          f"{resident} of the {sum(valid)} valid rows resident, {sum(valid) - resident} "
+          f"spilled; {plan.shared_bytes} B shared; "
+          f"registers and spill stores/loads (ptxas) {ptxas}; iterations run {iters} (B1 on "
+          f"each part: {b1_iters})")
+    phase("tenants", f"tenant grid probe at 4 x 4096: {probe_text(probe)}")
+    phase("tenants", f"tenant grid probe, one tenant of the 16384 rows: {probe_text(probe_one)}")
     phase("tenants", f"device time a call, median of 20 runs of 5 calls queued behind "
           f"{SPLIT_AHEAD_CYCLES} cycles of sleep, in turns: the tenant grid "
           f"{ms_of['grid']:.4f} ms; the 4 single B1 launches on the same parts "
@@ -5164,8 +5262,168 @@ def tenant_grid_checks(smi):
         "iterations_run": iters, "b1_iterations_run": b1_iters,
         "logistic_iterations_run": lg_iters, "grid": plan.grid,
         "shared_bytes": plan.shared_bytes, "registers": regs, "spills": spills,
-        "shape": [4, b, f], "valid_rows": valid, "card": smi,
+        "ptxas": ptxas, "resident": resident, "spilled": sum(valid) - resident, "probe": probe,
+        "probe_one_tenant": probe_one, "shape": [4, b, f], "valid_rows": valid, "card": smi,
     }
+
+
+def grid_probe(parts, w0s, runs=5, **kw):
+    """The tenant grid's phase split on ``parts`` (the timing
+    instantiation, ``runs`` launches): the median over the launches of
+    each phase's mean (``fused_sgd.tenant_probe_split``), the µs an iteration, the probe
+    launch's device ms (CUDA events) and iterations stamped."""
+    import torch
+
+    from twtml_tpu_torch.features.batch import tenant_valid_rows
+    from twtml_tpu_torch.ops import fused_sgd
+
+    valid = tenant_valid_rows(parts[2].cpu().numpy())
+    kw = dict(kw, valid_rows=valid, probe_iterations=kw["num_iterations"])
+    splits = []
+    for _ in range(runs + 1):  # the first a warm-up
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        stamps = fused_sgd.tenant_grid_probe(*parts, w0s, **kw)[3]
+        end.record()
+        end.synchronize()
+        splits.append((fused_sgd.tenant_probe_split(stamps), start.elapsed_time(end)))
+    splits = splits[1:]
+    med = lambda xs: statistics.median(xs)  # noqa: E731
+    prologue = {k: med([s[0][0][k] for s in splits]) for k in fused_sgd.PROBE_PROLOGUE}
+    phases = {k: med([s[0][1][k] for s in splits]) for k in fused_sgd.PROBE_PHASES}
+    return {"prologue_us": prologue, "iteration_us": phases,
+            "us_an_iteration": sum(phases.values()),
+            "iterations_stamped": splits[0][0][2], "span_us": med([s[0][3] for s in splits]),
+            "probe_launch_ms": med([s[1] for s in splits])}
+
+
+def probe_text(split):
+    return (f"prologue {', '.join(f'{k} {v:.2f}' for k, v in split['prologue_us'].items())} "
+            f"µs; an iteration {split['us_an_iteration']:.2f} µs: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in split["iteration_us"].items())
+            + f" ({split['iterations_stamped']} iterations stamped, the first left out; "
+            f"span {split['span_us']:.1f} µs, the probe launch {split['probe_launch_ms']:.4f} "
+            "ms with its event pair)")
+
+
+def grid_ab_times(runs=5):
+    """The tenant grid at 4 x 4096 valid rows in parts of B = OP_ROWS and
+    with those rows as one tenant, on the port this process imports:
+    device ms a call (5 calls queued behind the long sleep, the median of
+    ``runs``; in turns, twice), B1 on the same rows as one batch beside
+    them, and, where the port has the timing instantiation, each grid's
+    phase split (``grid_probe``)."""
+    import torch
+
+    from twtml_tpu_torch.features.batch import tenant_valid_rows
+    from twtml_tpu_torch.ops import fused_sgd
+
+    dev = torch.device("cuda")
+    x, y, m, w0 = op_point_inputs(dev)
+    b, _ = x.shape
+    w0s = (w0[None] * torch.tensor([1.0, -1.0, 2.0, 0.5], device=dev)[:, None]).contiguous()
+    even = tenant_grid_parts(x, y, m, [b // 4] * 4)
+    kw_even = dict(num_iterations=OP_ITERS, step_sizes=[0.005] * 4, l2_regs=[0.0] * 4)
+    one = (x[None].contiguous(), y[None].contiguous(), m[None].contiguous())
+    kw_one = dict(num_iterations=OP_ITERS, step_sizes=[0.005], l2_regs=[0.0])
+    valid, valid1 = (tenant_valid_rows(p[2].cpu().numpy()) for p in (even, one))
+    calls = (("grid", lambda: fused_sgd.fused_dense_sgd_tenants(
+                 *even, w0s, valid_rows=valid, **kw_even)),
+             ("one_tenant", lambda: fused_sgd.fused_dense_sgd_tenants(
+                 *one, w0[None].contiguous(), valid_rows=valid1, **kw_one)),
+             ("b1", lambda: fused_sgd.fused_dense_sgd(x, y, m, w0, num_iterations=OP_ITERS,
+                                                      step_size=0.005)))
+    runs_ms = {name: [] for name, _ in calls}
+    for _ in range(2):  # in turns, forwards then backwards
+        for name, fn in (*calls, *calls[::-1]):
+            runs_ms[name] += split_queued(fn, runs, n=5)[1]
+    out = {f"{k}_ms": statistics.median(v) for k, v in runs_ms.items()}
+    out["runs_ms"] = runs_ms
+    if hasattr(fused_sgd, "tenant_grid_probe"):
+        out["probe"] = grid_probe(even, w0s, **kw_even)
+        out["probe_one_tenant"] = grid_probe(one, w0[None].contiguous(), **kw_one)
+    return out
+
+
+# one arm of ``--grid-ab``: the port found in argv[1], this chip_smoke
+# (argv[2]) for its inputs and timing; the result as the last line
+GRID_AB_RUN = r"""
+import importlib.util, json, sys
+sys.path.insert(0, sys.argv[1])
+spec = importlib.util.spec_from_file_location("chip_smoke_ab", sys.argv[2])
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+import twtml_tpu_torch
+out = cs.grid_ab_times()
+out["package"] = twtml_tpu_torch.__file__
+print(json.dumps(out), flush=True)
+"""
+
+
+def ptxas_blocks(text, kernel):
+    """The ptxas report's blocks (an entry function's header line and the
+    lines up to the next) of every instantiation of ``kernel``."""
+    blocks, keep = [], False
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            keep = kernel in line
+            if keep:
+                blocks.append([])
+        if keep:
+            blocks[-1].append(line.strip())
+    return ["\n".join(b) for b in blocks]
+
+
+def grid_ab(smi, pairs, parent_root):
+    """``--grid-ab N --package-root DIR``: the tenant grid at 4 x 4096 valid
+    rows and the one-tenant grid (``grid_ab_times``), the port found in
+    DIR (e.g. the parent commit unpacked there) against this checkout's,
+    each arm in a process of its own, N pairs, the order alternating; the
+    probe's split where a tree has it; each tree's ptxas report."""
+    import glob
+
+    roots = {"parent": parent_root, "change": HERE}
+    runs = {"parent": [], "change": []}
+    for i in range(pairs):
+        order = ("parent", "change") if i % 2 == 0 else ("change", "parent")
+        for arm in order:
+            res = subprocess.run([sys.executable, "-c", GRID_AB_RUN, roots[arm],
+                                  os.path.join(HERE, "chip_smoke.py")],
+                                 capture_output=True, text=True, timeout=900)
+            lines = res.stdout.splitlines()
+            if res.returncode != 0 or not lines or not lines[-1].startswith("{"):
+                raise AssertionError(f"grid-ab {arm} pair {i}: exit {res.returncode}:\n"
+                                     f"{res.stderr[-4000:]}")
+            rec = json.loads(lines[-1])
+            if os.path.dirname(os.path.dirname(rec["package"])) != roots[arm]:
+                raise AssertionError(f"grid-ab {arm}: imported {rec['package']}")
+            rec.update(pair=i, position=order.index(arm))
+            runs[arm].append(rec)
+            phase("grid-ab", f"pair {i} {arm} (run {order.index(arm) + 1} of 2): the grid at 4 "
+                  f"x 4096 {rec['grid_ms']:.4f} ms, one tenant {rec['one_tenant_ms']:.4f} ms, "
+                  f"B1 on the 16384 rows {rec['b1_ms']:.4f} ms (median of 20 runs of 5 calls)")
+            for key in ("probe", "probe_one_tenant"):
+                if key in rec:
+                    phase("grid-ab", f"pair {i} {arm} {key}: {probe_text(rec[key])}")
+    keys = ("grid_ms", "one_tenant_ms", "b1_ms")
+    medians = {arm: {k: statistics.median(r[k] for r in rows) for k in keys}
+               for arm, rows in runs.items()}
+    pair_of = lambda arm: sorted(runs[arm], key=lambda r: r["pair"])  # noqa: E731
+    wins = {k: sum(c[k] < p[k] for c, p in zip(pair_of("change"), pair_of("parent")))
+            for k in keys}
+    for arm, root in roots.items():
+        for log in glob.glob(os.path.join(root, "build", "twtml_tpu_torch", "libfused_sgd-*.log")):
+            phase("grid-ab", f"{arm} build ({os.path.basename(log)}), tenant_sgd_kernel:\n"
+                  + "\n".join(ptxas_blocks(open(log).read(), "tenant_sgd_kernel")))
+    phase("grid-ab", f"medians over {pairs} pairs: the grid {medians['change']['grid_ms']:.4f} "
+          f"ms against the parent's {medians['parent']['grid_ms']:.4f}, lower in "
+          f"{wins['grid_ms']} of {pairs} pairs; one tenant "
+          f"{medians['change']['one_tenant_ms']:.4f} against "
+          f"{medians['parent']['one_tenant_ms']:.4f}, lower in {wins['one_tenant_ms']}; B1 "
+          f"{medians['change']['b1_ms']:.4f} against {medians['parent']['b1_ms']:.4f} | card: "
+          f"{smi}")
+    print(json.dumps({"grid_ab": {"pairs": pairs, "runs": runs, "medians": medians,
+                                  "change_wins": wins, "card": smi}}), flush=True)
 
 
 def tick_inputs(model, parts):
@@ -7998,6 +8256,9 @@ def main() -> None:
         return
     if "--split-ab" in argv:
         split_ab(smi, int(argv[argv.index("--split-ab") + 1]), PACKAGE_ROOT)
+        return
+    if "--grid-ab" in argv:
+        grid_ab(smi, int(argv[argv.index("--grid-ab") + 1]), PACKAGE_ROOT)
         return
     if "--elastic-ab" in argv:
         os.environ["TWTML_NOW_MS"] = str(NOW_MS)

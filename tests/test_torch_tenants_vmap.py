@@ -303,6 +303,85 @@ def test_tenant_launch_plan_refuses_what_one_launch_cannot_hold():
         fused_sgd.tenant_launch_plan([1] * 8, 1004, sm_count=4, shared_limit=H100_SHARED)
 
 
+def _stamps(ns_a_cycle, cycles, slots=3):
+    """Made-up probe stamps: slot 1 unused (CTA 0 is its tenant's last
+    CTA), the others from a cycle count a phase edge, the globaltimer at
+    ``ns_a_cycle`` and a coarse 32 ns tick."""
+    st = torch.zeros((slots, len(cycles), 2), dtype=torch.int64)
+    c = torch.tensor(np.cumsum(cycles) + 1000, dtype=torch.int64)
+    for s in (0, 2):
+        st[s, :, 1] = c
+        st[s, :, 0] = (c.double() * ns_a_cycle).long() // 32 * 32 + 10**12
+    return st
+
+
+def test_the_tenant_probe_split_times_each_phase_by_the_ctas_own_clock():
+    """Each stamping CTA's phase lengths are its SM cycles at its own rate
+    (globaltimer span over clock64 span); the prologue's three phases, then
+    each iteration's six, the first iteration left out of their means;
+    a slot that no CTA stamped is skipped."""
+    its = 5
+    pro = [0, 100, 200, 300]  # entry, staged, barrier 0, counts (cycles after the edge before)
+    it = [700, 50, 60, 70, 80, 90]  # row pass ... decisions
+    first = [1700, 150, 160, 170, 180, 190]  # the first iteration (preds), left out
+    cycles = pro + first + it * (its - 1)
+    st = _stamps(0.5, cycles)
+    prologue, phases, stamped, span = fused_sgd.tenant_probe_split(st)
+    assert stamped == its
+    assert list(prologue) == list(fused_sgd.PROBE_PROLOGUE)
+    assert list(phases) == list(fused_sgd.PROBE_PHASES)
+    g, c = st[0, :, 0].double(), st[0, :, 1].double()
+    ns_a_cycle = float((g[-1] - g[0]) / (c[-1] - c[0]))  # the coarse clock's, ~0.5
+    assert ns_a_cycle == pytest.approx(0.5, rel=1e-2)
+    for got, want in zip(list(prologue.values()) + list(phases.values()), pro[1:] + it):
+        assert got == pytest.approx(want * ns_a_cycle / 1e3, rel=1e-9)
+    assert span == float(g[-1] - g[0]) / 1e3
+    # a launch cut short: the last iteration's edges past its row pass unstamped
+    st = _stamps(0.5, cycles)
+    st[:, -5:] = 0
+    assert fused_sgd.tenant_probe_split(st)[2] == its - 1
+
+
+REFUSED = {
+    "two tenants' step sizes for three": (dict(step_sizes=[0.1, 0.1]), "3 tenants need"),
+    "a part's valid rows past its rows": (dict(valid_rows=[4, 5, 0]), r"outside \[0, 4\]"),
+    "negative iterations": (dict(num_iterations=-1), "num_iterations"),
+    "a residual without a mode": (dict(residual_fn=torch.tanh), "no residual mode"),
+}
+
+
+@pytest.mark.parametrize("case", list(REFUSED))
+def test_the_tenant_wrapper_refuses_what_the_grid_cannot_take(case):
+    kw = dict(valid_rows=[4, 4, 0], num_iterations=2, step_sizes=[0.1] * 3,
+              l2_regs=[0.0] * 3)
+    bad, match = REFUSED[case]
+    x = torch.zeros((3, 4, 1004))
+    with pytest.raises(ValueError, match=match):
+        fused_sgd.fused_dense_sgd_tenants(x, torch.zeros((3, 4)), torch.ones((3, 4)),
+                                          torch.zeros((3, 1004)), **dict(kw, **bad))
+
+
+@pytest.mark.parametrize("shape", [(33, 4, 8), (4, 8)])
+def test_the_probe_takes_one_launch_of_tenants(shape):
+    """The timing instantiation stamps one launch: 1..TENANTS_PER_LAUNCH
+    tenants of [B, F] rows, refused before any device work."""
+    x = torch.zeros(shape)
+    with pytest.raises(ValueError, match="1..32 tenants in one launch"):
+        fused_sgd.tenant_grid_probe(x, None, None, None, probe_iterations=1, valid_rows=[1],
+                                    num_iterations=1, step_sizes=[0.1], l2_regs=[0.0])
+
+
+def test_the_tenant_entry_takes_the_wrapper_arguments():
+    """The tenant grid's C entry takes as many parameters as the wrapper's
+    ctypes argument list (the probe's buffer and edges among them)."""
+    import pathlib
+    import re
+
+    source = (pathlib.Path(fused_sgd.__file__).parents[1] / "csrc" / "fused_sgd.cu").read_text()
+    params = re.search(r'extern "C" int twtml_fused_dense_sgd_tenants\(([^)]*)\)', source)
+    assert len(params.group(1).split(",")) == len(fused_sgd.TENANTS_ARGTYPES)
+
+
 def test_vmap_over_a_mesh_is_refused_naming_b10_b():
     one = make_mesh(num_processes=1)
     with pytest.raises(NotImplementedError, match="split with a tenant grid.*ROADMAP B10 b"):

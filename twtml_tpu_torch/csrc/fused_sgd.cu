@@ -117,7 +117,8 @@ constexpr int kPredictWarps = kPredictThreads / 32;
 // the two cannot drift apart without the build failing here.
 #if !defined(TWTML_SGD_THREADS) || !defined(TWTML_SGD_TILE_COLUMNS) || \
     !defined(TWTML_SGD_REDUCE_SLOTS) || !defined(TWTML_SGD_SCRATCH_FLOATS) || \
-    !defined(TWTML_SGD_PREDICT_THREADS) || !defined(TWTML_SGD_TENANTS_PER_LAUNCH)
+    !defined(TWTML_SGD_PREDICT_THREADS) || !defined(TWTML_SGD_TENANTS_PER_LAUNCH) || \
+    !defined(TWTML_SGD_PROBE_PROLOGUE_EDGES) || !defined(TWTML_SGD_PROBE_ITERATION_EDGES)
 #error "build through twtml_tpu_torch/ops/_build.py, which passes the launch plan's constants"
 #endif
 static_assert(kThreads == TWTML_SGD_THREADS, "THREADS differs from ops/fused_sgd.py");
@@ -349,13 +350,14 @@ __device__ __forceinline__ void narrow_row(const Params& p, const float (&wr)[kV
 
 // One pass over the CTA's rows, fpad <= kTileCols: w and the Xᵀr
 // accumulator in registers, each row read once; the next row of the warp
-// is loaded into the other register buffer while this one computes.
+// is loaded into the other register buffer while this one computes. The
+// CTA's Xᵀr is left in `acc` (row_pass_narrow reduces it).
 template <bool kLogistic>
-__device__ void row_pass_narrow(const Params& p, const float* w_s, const float* y_s,
-                                const uint4* x_s, float* red, int cta, int row0,
-                                int my_rows, bool first, bool train) {
+__device__ __forceinline__ void narrow_rows(const Params& p, const float* w_s, const float* y_s,
+                                            const uint4* x_s, int cta, int row0, int my_rows,
+                                            bool first, bool train, float (&acc)[kVpl][8]) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float wr[kVpl][8], acc[kVpl][8];
+  float wr[kVpl][8];
 #pragma unroll
   for (int k = 0; k < kVpl; ++k) {
     const int v = lane + 32 * k;
@@ -380,6 +382,14 @@ __device__ void row_pass_narrow(const Params& p, const float* w_s, const float* 
     narrow_row<kLogistic>(p, wr, acc, xb, y_s, row0, l, lane, first, train);
     l += kWarps;
   }
+}
+
+template <bool kLogistic>
+__device__ void row_pass_narrow(const Params& p, const float* w_s, const float* y_s,
+                                const uint4* x_s, float* red, int cta, int row0,
+                                int my_rows, bool first, bool train) {
+  float acc[kVpl][8];
+  narrow_rows<kLogistic>(p, w_s, y_s, x_s, cta, row0, my_rows, first, train, acc);
   if (train) cta_reduce_tile(acc, red, p.partials + (size_t)cta * p.fpad, 0, p.fpad);
 }
 
@@ -779,23 +789,59 @@ __global__ void __launch_bounds__(kThreads, 1)
 // (its rows up to its last with mask > 0, which the host knows before the
 // copy) are split over its CTAs as B1 splits a batch; rows past valid[t]
 // are never read as X, and their preds are written 0, B1's value for a
-// masked row.
+// masked row. CTA j of tenant m's k runs B1's code on rows m·B + ... of
+// the M·B rows, with its own index in the grid for its partials, count,
+// norms and spilled rows, and tenant m's w, step size and L2 in the update.
 //
-// Each CTA runs B1's code on its tenant's view (`Params q`: the pointers
-// offset to tenant t's part, w, partials, norms and its own step size and
-// L2, CTA j of the tenant's k): stage_row, the row pass, cta_reduce_tile,
-// then column_sums over the tenant's k partials (a fixed order, no
-// atomics), update_column with the tenant's η = step_t/√it and λ_t, and the
-// tenant's ‖Δw‖², ‖w‖². Every CTA crosses the same grid barriers: a tenant
-// that has converged (or never trains: count 0, or N = 0) skips its row
-// pass and update but keeps crossing them. After each update every CTA
-// takes the converged decision of every tenant still training, from the
-// same partials in the same order, so all CTAs hold the same bit mask of
-// finished tenants and leave the loop together, once all have finished or
-// at N. The first row pass runs in every CTA (preds = X·w0).
-// What bounds it: as B1, operations, once the tenants' valid rows are on
-// chip: the M tenants' work is that of one B1 call on their valid rows
-// together, and rows that are padding cost nothing.
+// What bounds it: as B1, operations once the valid rows are on chip (the M
+// tenants' work is one B1 call's on their valid rows together; padding
+// rows cost nothing): 0.0491 ms at 4 x 4096 valid rows of 1004 columns, 50
+// iterations (3.29 GFLOP f32). Each CTA stages, stores (B1's layout: its
+// first `resident` bf16 rows in shared memory, the rest spilled to L2) and
+// passes over its rows with B1's own code (stage_row, narrow_rows or
+// row_pass_wide, cta_reduce_tile). What the timing probe found on top of
+// B1's iteration at M = 4 on an H100, and what this design does about it:
+//   - The reduce in rounds. A tenant's k CTAs each sum a slice of
+//     ceil(fpad / k) columns over the tenant's k partials; column_sums
+//     takes 8 columns a round (4 rounds at k = 33, each two __syncthreads
+//     and a serial sum of 12 warps). Here one round: thread t takes column
+//     t % cols of the slice and stripe t / cols of the k partial rows
+//     (each stripe summed in ascending row order, its loads issued
+//     together), the stripes meet in shared memory and are added in stripe
+//     order, then the update. A slice of at most 8 columns (k >= 126:
+//     one tenant on the whole card) keeps column_sums' one round.
+//   - The decisions in turn. Every CTA took the M tenants' converged
+//     decisions one after another, an L2 round trip each. Here, up to
+//     kDirectTenants tenants, warp u takes tenant u's decision from L2
+//     (converged()) while the other warps reload the tenant's new w: one
+//     round of loads. More tenants: the CTA loads the whole norm table (2
+//     floats a CTA of the grid) into shared memory with w, and warp u sums
+//     tenants u, u + 12, ... from it in converged()'s order. Each deciding
+//     warp sets its tenant's bit of the finished mask. The tenants' counts
+//     after the prologue come from a table likewise.
+// Every CTA crosses the same two grid barriers an iteration: a tenant that
+// has converged (or never trains: count 0, or N = 0) skips its row pass
+// and update but keeps crossing them, and all CTAs take the same decisions
+// from the same partials in the same order, so they hold the same mask and
+// leave the loop together, once all have finished or at N. No float
+// atomics (the finished mask is an integer OR); every sum has a fixed
+// order, so reruns are bitwise equal.
+// Left out: the text columns' counts in 8 bits, so that every row stays
+// resident (a count c in [0, 255] is exact in a byte; a row's 1000 text
+// columns take 1,000 B, not 2,000). Unpacking a byte (prmt into the low
+// byte of 2^23, then a subtraction) costs two instructions a column where
+// bf16 costs one, and on an H100 the row pass took longer with 8-bit rows
+// than with the 22 of 125 rows a CTA that B1's layout spills to L2: every
+// row in 8 bits, or 80 rows in bf16 and 45 in 8 bits, both timed slower
+// than this design. Tensor cores (each tenant's two products are matrix x
+// vector, N = 1 where wgmma takes N >= 8, and bf16 operands would round w
+// and r, which the f32 twin does not); a barrier of each tenant's own (a
+// flag barrier measured 2.3x slower than grid.sync() in B7); clusters and
+// distributed shared memory (a tenant spans 33 CTAs at M = 4, more than a
+// cluster holds).
+// The timing instantiation (kProbe) stamps %globaltimer and clock64 at
+// each phase edge in CTA 0 and each tenant's last CTA (probe_stamp); no
+// launch the port makes for training uses it.
 
 struct TenantTable {
   int tenants;     // M of this launch, at most kMaxTenants
@@ -803,9 +849,136 @@ struct TenantTable {
   int first_cta[kMaxTenants + 1];
   int valid[kMaxTenants];
   float step_size[kMaxTenants], l2_reg[kMaxTenants];
+  // the timing probe (kProbe instantiations): [1 + tenants, probe_edges]
+  // pairs of (%globaltimer, clock64), or null
+  unsigned long long* probe;
+  int probe_edges;
 };
 
-template <bool kLogistic>
+// Phase edges the probe stamps: the prologue's, then kIterEdges an iteration
+constexpr int kPrologueEdges = 4;  // entry, rows staged, barrier 0, counts taken
+constexpr int kIterEdges = 6;      // row pass, CTA reduce, barrier 1, update, barrier 2, decisions
+static_assert(kPrologueEdges == TWTML_SGD_PROBE_PROLOGUE_EDGES,
+              "PROBE_PROLOGUE_EDGES differs from ops/fused_sgd.py");
+static_assert(kIterEdges == TWTML_SGD_PROBE_ITERATION_EDGES,
+              "PROBE_ITERATION_EDGES differs from ops/fused_sgd.py");
+
+// kProbe only: after every thread of the CTA has reached it, thread 0 of a
+// stamping CTA (slot >= 0: CTA 0 is slot 0, tenant m's last CTA slot 1 + m)
+// writes the time at phase edge `edge`.
+template <bool kProbe>
+__device__ __forceinline__ void probe_stamp(const TenantTable& t, int slot, int edge) {
+  if constexpr (kProbe) {
+    __syncthreads();
+    if (threadIdx.x == 0 && slot >= 0 && edge < t.probe_edges) {
+      unsigned long long g;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g));
+      unsigned long long* at = t.probe + ((size_t)slot * t.probe_edges + edge) * 2;
+      at[0] = g;
+      at[1] = (unsigned long long)clock64();
+    }
+  }
+}
+
+constexpr int kStripeLoads = 4;  // a stripe's partial rows loaded at once
+constexpr int kDirectTenants = kWarps / 2;  // decisions straight from L2, a warp each
+
+// Tenant m's Xᵀr over this CTA's columns [col0, col1) from its k CTA
+// partials, in one round: thread i < stripes·cols takes column col0 + i %
+// cols and stripe i / cols, rows [s·len, (s+1)·len) of the k partial rows
+// summed in ascending order (adjacent threads on adjacent columns); the
+// stripes meet in `red` and are added in stripe order. With one stripe
+// (a slice wider than half the CTA, or k = 1) a thread sums its columns'
+// k rows alone, cols apart. Then use(f, Σ) in the thread that holds it.
+// Every thread must call it: it crosses one __syncthreads.
+template <class Use>
+__device__ __forceinline__ void tenant_column_sums(const float* partials, int fpad, float* red,
+                                                   int col0, int col1, int k, Use use) {
+  const int cols = col1 - col0;
+  const int most = cols > 0 ? min(k, kThreads / cols) : 1;
+  const int len = (k + max(most, 1) - 1) / max(most, 1);
+  const int stripes = most > 1 ? (k + len - 1) / len : 1;
+  if (stripes == 1) {
+    for (int c = threadIdx.x; c < cols; c += kThreads) {
+      float g = 0.f;
+#pragma unroll 4
+      for (int r = 0; r < k; ++r) g += __ldcg(partials + (size_t)r * fpad + col0 + c);
+      use(col0 + c, g);
+    }
+    __syncthreads();
+    return;
+  }
+  const int i = threadIdx.x;
+  if (i < stripes * cols) {
+    const int c = i % cols, s = i / cols;
+    const int n = min(k, (s + 1) * len) - s * len;  // this stripe's rows
+    const float* src = partials + (size_t)s * len * fpad + col0 + c;
+    float g = 0.f;
+    if (n <= kStripeLoads) {  // every load issued before the first add
+      float v[kStripeLoads];
+#pragma unroll
+      for (int r = 0; r < kStripeLoads; ++r) v[r] = r < n ? __ldcg(src + (size_t)r * fpad) : 0.f;
+#pragma unroll
+      for (int r = 0; r < kStripeLoads; ++r)
+        if (r < n) g += v[r];
+    } else {
+      for (int r = 0; r < n; ++r) g += __ldcg(src + (size_t)r * fpad);
+    }
+    red[i] = g;
+  }
+  __syncthreads();
+  if (i < cols) {
+    float g = red[i];
+    for (int s = 1; s < stripes; ++s) g += red[s * cols + i];
+    use(col0 + i, g);
+  }
+}
+
+// The CTA's ‖Δw‖² and ‖w‖² partials from every thread's d and n: each
+// warp's sum, then thread 0 adds the kWarps sums in warp order (`red2`,
+// two floats a warp); with `warp0` (a slice of at most 32 columns: only
+// warp 0 updated any) warp 0's sum alone. Every thread must call it: it
+// crosses one __syncthreads unless warp0.
+__device__ __forceinline__ void tenant_store_norms(const Params& p, float* red2, int cta, float d,
+                                                   float n, bool warp0) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp0) {
+    if (warp == 0) store_norms(p, cta, d, n);
+    return;
+  }
+  d = warp_sum(d);
+  n = warp_sum(n);
+  if (lane == 0) {
+    red2[2 * warp] = d;
+    red2[2 * warp + 1] = n;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float ds = red2[0], ns = red2[1];
+    for (int w = 1; w < kWarps; ++w) {
+      ds += red2[2 * w];
+      ns += red2[2 * w + 1];
+    }
+    p.norm_part[2 * cta] = ds;
+    p.norm_part[2 * cta + 1] = ns;
+  }
+}
+
+// converged() on a norm table in shared memory: the same sums in the same
+// order.
+__device__ __forceinline__ bool tenant_converged(const float* norms, int ncta, float tol,
+                                                 int lane) {
+  float ds = 0.f, ns = 0.f;
+  for (int c = lane; c < ncta; c += 32) {
+    ds += norms[2 * c];
+    ns += norms[2 * c + 1];
+  }
+  ds = warp_sum(ds);
+  ns = warp_sum(ns);
+  return tol > 0.f && sqrtf(ds) < tol * fmaxf(sqrtf(ns), 1.f);
+}
+
+template <bool kLogistic, bool kProbe>
 __global__ void __launch_bounds__(kThreads, 1)
     tenant_sgd_kernel(const Params p, const TenantTable t) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -819,47 +992,40 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint4* x_s = reinterpret_cast<uint4*>(smem + lay.x);
 
   cg::grid_group grid = cg::this_grid();
-  const int cta = blockIdx.x;
+  const int cta = blockIdx.x, ncta = gridDim.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int fpad = p.fpad, features = p.features, rows = t.batch_rows;
   int m = 0;  // this CTA's tenant: first_cta[m] <= cta < first_cta[m + 1]
   while (cta >= t.first_cta[m + 1]) ++m;
   const int c0 = t.first_cta[m], k = t.first_cta[m + 1] - c0, j = cta - c0;
   const int valid = t.valid[m];
-  const int row0 = (int)((long long)j * valid / k);
-  const int my_rows = (int)((long long)(j + 1) * valid / k) - row0;
+  // row0 indexes the [tenants·rows] rows of X, labels, mask and preds: B1's
+  // code reads tenant m's part as rows m·B.. of one batch, and the CTA's
+  // partials, count, norms and spilled rows by its index in the grid
+  const int row0 = m * rows + (int)((long long)j * valid / k);
+  const int my_rows = m * rows + (int)((long long)(j + 1) * valid / k) - row0;
   const int cols_per_cta = (fpad + k - 1) / k;
   const int col0 = min(j * cols_per_cta, fpad);
   const int col1 = min(col0 + cols_per_cta, fpad);
-  Params q = p;  // tenant m's view, CTA j of its k
-  q.x = p.x + (size_t)m * rows * features;
-  q.labels = p.labels + (size_t)m * rows;
-  q.mask = p.mask + (size_t)m * rows;
-  q.preds = p.preds + (size_t)m * rows;
-  q.w0 = p.w0 + (size_t)m * features;
-  q.w_out = p.w_out + (size_t)m * features;
-  q.spill = p.spill + (size_t)c0 * p.spill_per_cta * p.stride * 8;
-  q.partials = p.partials + (size_t)c0 * fpad;
-  q.wbuf = p.wbuf + (size_t)m * fpad;
-  q.count_part = p.count_part + c0;
-  q.norm_part = p.norm_part + 2 * c0;
-  q.iterations = p.iterations + m;
-  q.step_size = t.step_size[m];
-  q.l2_reg = t.l2_reg[m];
+  const bool narrow = p.nvec <= kTileGroups;
+  float* wbuf = p.wbuf + (size_t)m * fpad;  // tenant m's w after each update
+  const int slot = cta == 0 ? 0 : j == k - 1 ? 1 + m : -1;  // the probe's
+  probe_stamp<kProbe>(t, slot, 0);
 
   // ---- prologue: w0, then the CTA's valid rows of X from device memory, once
-  for (int f = threadIdx.x; f < fpad; f += kThreads)
-    w_s[f] = f < features ? __ldg(q.w0 + f) : 0.f;
+  const float* w0 = p.w0 + (size_t)m * features;
+  for (int f = threadIdx.x; f < fpad; f += kThreads) w_s[f] = f < features ? __ldg(w0 + f) : 0.f;
   for (int f = col0 + threadIdx.x; f < min(col1, features); f += kThreads)
-    q.w_out[f] = __ldg(q.w0 + f);  // the result when no update runs
-  const bool vec4 = features % 4 == 0 && (reinterpret_cast<uintptr_t>(q.x) & 15) == 0;
-  for (int l = warp; l < my_rows; l += kWarps) stage_row(q, x_s, y_s, j, row0, l, lane, vec4);
+    p.w_out[(size_t)m * features + f] = __ldg(w0 + f);  // the result when no update runs
+  const bool vec4 = features % 4 == 0 && (reinterpret_cast<uintptr_t>(p.x) & 15) == 0;
+  for (int l = warp; l < my_rows; l += kWarps) stage_row(p, x_s, y_s, cta, row0, l, lane, vec4);
   if (warp == 0) {  // this CTA's share of its tenant's count, in a fixed order
     float s = 0.f;
-    for (int i = lane; i < my_rows; i += 32) s += __ldg(q.mask + row0 + i);
+    for (int i = lane; i < my_rows; i += 32) s += __ldg(p.mask + row0 + i);
     s = warp_sum(s);
-    if (lane == 0) q.count_part[j] = s;
+    if (lane == 0) p.count_part[cta] = s;
   }
+  if (threadIdx.x == 0) *finished_s = 0u;
   // what no CTA's row pass writes: the preds of rows past each tenant's
   // valid ones, and a dry tenant's w_out (w0) and iterations (0)
   const long long gthreads = (long long)gridDim.x * kThreads;
@@ -869,77 +1035,115 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (long long i = gtid; i < (long long)t.tenants * features; i += gthreads)
     if (t.valid[i / features] == 0) p.w_out[i] = __ldg(p.w0 + i);
   if (gtid < t.tenants && t.valid[gtid] == 0) p.iterations[gtid] = 0.f;
+  probe_stamp<kProbe>(t, slot, 1);
   grid.sync();
+  probe_stamp<kProbe>(t, slot, 2);
 
-  // ---- every CTA: each tenant's count, and which tenants train no iteration
-  if (warp == 0) {
-    unsigned idle = 0u;
-    float mine = 0.f;
-    for (int u = 0; u < t.tenants; ++u) {
-      const int a = t.first_cta[u], n = t.first_cta[u + 1] - a;
-      float s = 0.f;
-      for (int c = lane; c < n; c += 32) s += __ldcg(p.count_part + a + c);
-      s = warp_sum(s);
-      if (u == m) mine = s;
-      if (!(p.num_iterations > 0 && s > 0.f)) idle |= 1u << u;
-    }
+  // ---- every CTA: each tenant's count, and which tenants train no
+  // iteration, from the count table in shared memory (warp u: tenant u)
+  float* table = red;  // the counts [ncta], later the norms [2, ncta]
+  for (int i = threadIdx.x; i < ncta; i += kThreads) table[i] = __ldcg(p.count_part + i);
+  __syncthreads();
+  for (int u = warp; u < t.tenants; u += kWarps) {
+    const int a = t.first_cta[u], n = t.first_cta[u + 1] - a;
+    float s = 0.f;
+    for (int c = lane; c < n; c += 32) s += table[a + c];
+    s = warp_sum(s);
     if (lane == 0) {
-      scratch[kCountSlot] = mine;
-      *finished_s = idle;
+      if (u == m) scratch[kCountSlot] = s;
+      if (!(p.num_iterations > 0 && s > 0.f)) atomicOr(finished_s, 1u << u);
     }
   }
   __syncthreads();
   const float denom = fmaxf(scratch[kCountSlot], 1.f);
   const unsigned idle = *finished_s;
   const unsigned all = t.tenants == 32 ? ~0u : (1u << t.tenants) - 1u;
-  const bool narrow = p.nvec <= kTileGroups;
   unsigned finished = idle;
+  probe_stamp<kProbe>(t, slot, 3);
 
   for (int it = 1;; ++it) {
     const bool training = !((finished >> m) & 1u);  // the same in every CTA of tenant m
+    const int e0 = kPrologueEdges + kIterEdges * (it - 1);
     // ---- one pass over the CTA's rows (preds on the first), the CTA's Xᵀr
     if (it == 1 || training) {
-      if (narrow)
-        row_pass_narrow<kLogistic>(q, w_s, y_s, x_s, red, j, row0, my_rows, it == 1, training);
-      else
-        row_pass_wide<kLogistic>(q, w_s, y_s, r_s, x_s, red, j, row0, my_rows, it == 1,
+      if (narrow) {
+        float acc[kVpl][8];
+        narrow_rows<kLogistic>(p, w_s, y_s, x_s, cta, row0, my_rows, it == 1, training, acc);
+        probe_stamp<kProbe>(t, slot, e0);
+        if (training) cta_reduce_tile(acc, red, p.partials + (size_t)cta * fpad, 0, fpad);
+      } else {
+        row_pass_wide<kLogistic>(p, w_s, y_s, r_s, x_s, red, cta, row0, my_rows, it == 1,
                                  training);
+        probe_stamp<kProbe>(t, slot, e0);
+      }
+    } else {
+      probe_stamp<kProbe>(t, slot, e0);
     }
+    probe_stamp<kProbe>(t, slot, e0 + 1);
     if (finished == all) break;  // no tenant trains at all
-    const StepScalars ks = step_scalars(q, it);
+    Params tenant = p;  // tenant m's step size and L2, for η and 1 − η·λ before the barrier
+    tenant.step_size = t.step_size[m];
+    tenant.l2_reg = t.l2_reg[m];
+    const StepScalars ks = step_scalars(tenant, it);
     grid.sync();
+    probe_stamp<kProbe>(t, slot, e0 + 2);
 
-    // ---- tenant m's update of this CTA's columns with Xᵀr summed over its CTAs
+    // ---- tenant m's update of this CTA's columns with Xᵀr summed over its
+    // CTAs in one round, then the CTA's ‖Δw‖², ‖w‖²
     if (training) {
-      float d = 0.f, n = 0.f;  // in lanes 0-7 of warp 0
-      column_sums(q, red, col0, col1, k, [&](int f, float g) {
-        update_column(q, f, w_s[f], g, ks, denom, d, n);
-      });
-      if (warp == 0) store_norms(q, j, d, n);
+      Params u = p;  // tenant m's partials and w
+      u.partials += (size_t)c0 * fpad;
+      u.w_out += (size_t)m * features;
+      u.wbuf = wbuf;
+      float d = 0.f, n = 0.f;
+      auto use = [&](int f, float g) { update_column(u, f, w_s[f], g, ks, denom, d, n); };
+      if (col1 - col0 <= 8)  // B1's reduce takes 8 columns in one round
+        column_sums(u, red, col0, col1, k, use);
+      else
+        tenant_column_sums(u.partials, fpad, red, col0, col1, k, use);
+      tenant_store_norms(p, red + kThreads, cta, d, n, col1 - col0 <= 32);
     }
+    probe_stamp<kProbe>(t, slot, e0 + 3);
     grid.sync();
+    probe_stamp<kProbe>(t, slot, e0 + 4);
 
-    // ---- every CTA: its tenant's new w, and every training tenant's decision
-    if (training)
-      for (int f = threadIdx.x - 32; warp > 0 && f < fpad; f += kThreads - 32)
-        w_s[f] = __ldcg(q.wbuf + f);
-    if (warp == 0) {
-      unsigned now = finished;
-      for (int u = 0; u < t.tenants; ++u) {
+    // ---- every CTA: its tenant's new w and every training tenant's
+    // decision in one round of loads: up to kDirectTenants tenants, warp u
+    // takes tenant u's from L2 (converged()) while the other warps reload
+    // w; more, the whole norm table into shared memory with w, then warp u
+    // takes tenants u, u + kWarps, ...
+    if (t.tenants <= kDirectTenants) {
+      const int deciders = 32 * t.tenants;
+      if (warp < t.tenants) {
+        const int a = t.first_cta[warp];
+        if (!((finished >> warp) & 1u) &&
+            converged(p.norm_part + 2 * a, t.first_cta[warp + 1] - a, p.tol, lane) && lane == 0)
+          atomicOr(finished_s, 1u << warp);
+      } else if (training) {
+        for (int f = threadIdx.x - deciders; f < fpad; f += kThreads - deciders)
+          w_s[f] = __ldcg(wbuf + f);
+      }
+    } else {
+      for (int i = threadIdx.x; i < 2 * ncta; i += kThreads) table[i] = __ldcg(p.norm_part + i);
+      if (training)
+        for (int f = threadIdx.x; f < fpad; f += kThreads) w_s[f] = __ldcg(wbuf + f);
+      __syncthreads();
+      for (int u = warp; u < t.tenants; u += kWarps) {
         if ((finished >> u) & 1u) continue;
         const int a = t.first_cta[u];
-        if (converged(p.norm_part + 2 * a, t.first_cta[u + 1] - a, p.tol, lane)) now |= 1u << u;
+        if (tenant_converged(table + 2 * a, t.first_cta[u + 1] - a, p.tol, lane) && lane == 0)
+          atomicOr(finished_s, 1u << u);
       }
-      if (lane == 0) *finished_s = now;
     }
     __syncthreads();
     finished = *finished_s;
+    probe_stamp<kProbe>(t, slot, e0 + 5);
     if (training && j == 0 && threadIdx.x == 0 &&
         (((finished >> m) & 1u) || it >= p.num_iterations))
-      *q.iterations = (float)it;
+      p.iterations[m] = (float)it;
     if (finished == all || it >= p.num_iterations) break;
   }
-  if (((idle >> m) & 1u) && j == 0 && threadIdx.x == 0) *q.iterations = 0.f;
+  if (((idle >> m) & 1u) && j == 0 && threadIdx.x == 0) p.iterations[m] = 0.f;
 }
 
 // ------------------------------------------------------------------ predict
@@ -1086,10 +1290,16 @@ extern "C" int twtml_fused_sgd_setup(int device, int* sm_count, int* shared_opti
     err = cudaFuncSetAttribute(dense_iteration_kernel<true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, *shared_optin);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(tenant_sgd_kernel<false>,
+    err = cudaFuncSetAttribute(tenant_sgd_kernel<false, false>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, *shared_optin);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(tenant_sgd_kernel<true>,
+    err = cudaFuncSetAttribute(tenant_sgd_kernel<true, false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, *shared_optin);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(tenant_sgd_kernel<false, true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, *shared_optin);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(tenant_sgd_kernel<true, true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, *shared_optin);
   const cudaError_t restored = cudaSetDevice(current);
   return (int)(err != cudaSuccess ? err : restored);
@@ -1303,15 +1513,18 @@ extern "C" int twtml_fused_dense_update(void* w_out, void* scratch, void* state,
 // [first_cta[t], first_cta[t+1]), first_cta[tenants] = grid), valid
 // [tenants] (rows read as X), step_sizes and l2_regs [tenants]; rows_cap
 // (most rows a CTA owns), resident, spill_per_cta, shared_bytes and
-// plan_layout as B1's. A plan that breaks these, or whose layout differs
-// from layout() and row_groups(), is refused. Returns the launch's CUDA
-// error (a refused cooperative launch included), 0 when it was taken.
+// plan_layout as B1's. With `probe` (int64 [1 + tenants, probe_edges, 2],
+// zeroed) the timing instantiation runs. A plan that breaks these, or whose
+// layout differs from layout() and row_groups(), is refused. Returns the
+// launch's CUDA error (a refused cooperative launch included), 0 when it
+// was taken.
 extern "C" int twtml_fused_dense_sgd_tenants(
     const void* x, const void* labels, const void* mask, const void* w0, void* w_out,
     void* preds, void* spill, void* scratch, int tenants, int rows, int features, int fpad,
     int grid, int rows_cap, int resident, int spill_per_cta, int shared_bytes,
     const int* plan_layout, const int* first_cta, const int* valid, const float* step_sizes,
-    const float* l2_regs, int num_iterations, float tol, int residual_mode, void* stream) {
+    const float* l2_regs, int num_iterations, float tol, int residual_mode, void* probe,
+    int probe_edges, void* stream) {
   const Layout lay = layout(fpad, rows_cap);
   const int stride = row_groups(fpad);
   if (tenants < 1 || tenants > kMaxTenants || rows < 1 || features < 1 || fpad % 8 != 0 ||
@@ -1321,9 +1534,12 @@ extern "C" int twtml_fused_dense_sgd_tenants(
       first_cta[tenants] != grid || (size_t)plan_layout[0] != lay.red ||
       (size_t)plan_layout[1] != lay.y || (size_t)plan_layout[2] != lay.r ||
       (size_t)plan_layout[3] != lay.scratch || (size_t)plan_layout[4] != lay.x ||
-      plan_layout[5] != stride || (size_t)shared_bytes < lay.x + (size_t)resident * stride * 16)
+      plan_layout[5] != stride || (size_t)shared_bytes < lay.x + (size_t)resident * stride * 16 ||
+      (probe != nullptr && probe_edges < 1))
     return (int)cudaErrorInvalidValue;
   TenantTable t;
+  t.probe = static_cast<unsigned long long*>(probe);
+  t.probe_edges = probe != nullptr ? probe_edges : 0;
   t.tenants = tenants;
   t.batch_rows = rows;
   for (int u = 0; u <= tenants; ++u) t.first_cta[u] = first_cta[u];
@@ -1368,9 +1584,12 @@ extern "C" int twtml_fused_dense_sgd_tenants(
   p.l2_reg = 0.f;
   p.tol = tol;
   void* args[] = {&p, &t};
-  const void* kernel = residual_mode == 1
-                           ? reinterpret_cast<const void*>(tenant_sgd_kernel<true>)
-                           : reinterpret_cast<const void*>(tenant_sgd_kernel<false>);
+  const void* kernels[2][2] = {
+      {reinterpret_cast<const void*>(tenant_sgd_kernel<false, false>),
+       reinterpret_cast<const void*>(tenant_sgd_kernel<false, true>)},
+      {reinterpret_cast<const void*>(tenant_sgd_kernel<true, false>),
+       reinterpret_cast<const void*>(tenant_sgd_kernel<true, true>)}};
+  const void* kernel = kernels[residual_mode][probe != nullptr];
   return (int)cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads), args,
                                           (size_t)shared_bytes, static_cast<cudaStream_t>(stream));
 }

@@ -43,6 +43,9 @@ proportion to its valid rows, none for a dry tenant) reading only its
 part's rows up to its last valid one, each tenant with its own step size,
 L2, reduce, update and converged decision. Its plain version is M calls of
 ``fused_dense_sgd_reference`` (``fused_dense_sgd_tenants_reference``).
+``tenant_grid_probe`` launches its timing instantiation, which stamps each
+phase edge of the prologue and of every iteration, and
+``tenant_probe_split`` turns the stamps into µs a phase.
 
 Routing: a CPU tensor goes to the twin ``fused_dense_sgd_reference``; a CUDA
 tensor launches a kernel or raises. ``fused_dense_sgd.launches`` counts
@@ -78,11 +81,17 @@ PREDICT_THREADS = 256  # the predict kernel's CTA: 8 warps, a row each at a time
 PREDICT_WARPS = PREDICT_THREADS // 32
 PREDICT_CTAS_PER_SM = 2
 TENANTS_PER_LAUNCH = 32  # the tenant grid's launch: one bit a tenant in its masks
+# the phase edges the tenant grid's timing instantiation stamps: the
+# prologue's, then each iteration's
+PROBE_PROLOGUE_EDGES = 4
+PROBE_ITERATION_EDGES = 6
 NVCC_DEFINES = tuple(
     f"-DTWTML_SGD_{name}={value}" for name, value in (
         ("THREADS", THREADS), ("TILE_COLUMNS", TILE_COLUMNS),
         ("REDUCE_SLOTS", REDUCE_SLOTS), ("SCRATCH_FLOATS", SCRATCH_FLOATS),
         ("PREDICT_THREADS", PREDICT_THREADS), ("TENANTS_PER_LAUNCH", TENANTS_PER_LAUNCH),
+        ("PROBE_PROLOGUE_EDGES", PROBE_PROLOGUE_EDGES),
+        ("PROBE_ITERATION_EDGES", PROBE_ITERATION_EDGES),
     )
 )
 
@@ -639,6 +648,7 @@ TENANTS_ARGTYPES = (
     + [ctypes.POINTER(ctypes.c_int)] * 3  # smem_layout, first_cta, valid rows
     + [ctypes.POINTER(ctypes.c_float)] * 2  # step sizes, L2s
     + [ctypes.c_int, ctypes.c_float, ctypes.c_int]  # iterations, tol, residual_mode
+    + [ctypes.c_void_p, ctypes.c_int]  # the timing probe's buffer (or null), its edges
     + [ctypes.c_void_p]  # stream
 )
 _ENTRIES = {"twtml_fused_dense_sgd": KERNEL_ARGTYPES,
@@ -816,23 +826,110 @@ def fused_dense_sgd_tenants(
     (csrc/fused_sgd.cu) for each TENANTS_PER_LAUNCH tenants, counted in
     ``fused_dense_sgd_tenants.launches``, each tenant's iterations run in
     the device tensor ``fused_dense_sgd_tenants.last_iterations`` [M]."""
+    kw = dict(valid_rows=valid_rows, num_iterations=num_iterations, step_sizes=step_sizes,
+              l2_regs=l2_regs, convergence_tol=convergence_tol, residual_fn=residual_fn)
+    if x_dense.device.type == "cpu":
+        _check_tenants(x_dense, **kw)
+        return fused_dense_sgd_tenants_reference(
+            x_dense, labels, mask, weights, num_iterations=num_iterations,
+            step_sizes=step_sizes, l2_regs=l2_regs, convergence_tol=convergence_tol,
+            residual_fn=residual_fn)
+    w, preds, launches = _tenant_launches(x_dense, labels, mask, weights, **kw)
+    fused_dense_sgd_tenants.launches += len(launches)
+    iterations = [scratch[-plan.tenants:] for plan, scratch in launches]
+    fused_dense_sgd_tenants.last_iterations = (
+        iterations[0] if len(iterations) == 1 else torch.cat(iterations))
+    return w, preds
+
+
+def tenant_grid_probe(x_dense, labels, mask, weights, *, probe_iterations: int, **kw):
+    """One launch of the tenant grid's timing instantiation (at most
+    TENANTS_PER_LAUNCH tenants, on CUDA; ``fused_dense_sgd_tenants``'
+    keywords): CTA 0 and each tenant's last CTA stamp (%globaltimer,
+    clock64) at the prologue's 4 phase edges and at 6 edges of each of the
+    first ``probe_iterations`` iterations (csrc/fused_sgd.cu
+    ``probe_stamp``; stamps never reached stay 0). Counts no launch.
+    Returns (w, preds, iterations run [M], stamps int64 [1 + M, 4 + 6 x
+    probe_iterations, 2] on the device, the plan)."""
+    if x_dense.dim() != 3 or not 1 <= x_dense.shape[0] <= TENANTS_PER_LAUNCH:
+        raise ValueError(f"the probe takes 1..{TENANTS_PER_LAUNCH} tenants in one launch")
+    edges = PROBE_PROLOGUE_EDGES + PROBE_ITERATION_EDGES * int(probe_iterations)
+    probe = torch.zeros((x_dense.shape[0] + 1, edges, 2), dtype=torch.int64,
+                        device=x_dense.device)
+    w, preds, launches = _tenant_launches(x_dense, labels, mask, weights, probe=probe, **kw)
+    plan, scratch = launches[0]
+    return w, preds, scratch[-plan.tenants:], probe, plan
+
+
+def tenant_probe_split(stamps) -> tuple:
+    """One probe launch's phase split from ``tenant_grid_probe``'s stamps
+    (int64 [slots, edges, 2] of %globaltimer ns and clock64): each stamping
+    CTA's phase lengths in SM cycles turned into ns at that CTA's own rate
+    over its whole span (%globaltimer ticks coarsely), then the mean over
+    the stamping CTAs of each prologue phase (PROBE_PROLOGUE) and, over the
+    iterations after the first, of each iteration phase (PROBE_PHASES), in
+    µs. Returns (prologue, iteration phases, iterations stamped, the median
+    CTA's span in µs)."""
+    st = stamps.detach().cpu().to(torch.float64)
+    n_pro, n_it = PROBE_PROLOGUE_EDGES, PROBE_ITERATION_EDGES
+    pro, its, spans, n_iters = [], [], [], 0
+    for g, c in zip(st[..., 0], st[..., 1]):
+        stamped = torch.nonzero(g).flatten()
+        if g[0] == 0 or len(stamped) == 0 or int(stamped[-1]) < n_pro:
+            continue  # a slot no CTA stamped
+        last = int(stamped[-1])
+        us_a_cycle = (g[last] - g[0]) / max(float(c[last] - c[0]), 1.0) / 1e3
+        spans.append(float(g[last] - g[0]) / 1e3)
+        pro.append(torch.diff(c[:n_pro]) * us_a_cycle)
+        done = (last + 1 - n_pro) // n_it  # iterations with all their edges
+        n_iters = max(n_iters, done)
+        if done >= 2:
+            edges = c[n_pro - 1:n_pro + n_it * done]
+            its.append(torch.diff(edges).reshape(done, n_it)[1:] * us_a_cycle)
+    prologue = dict(zip(PROBE_PROLOGUE, torch.stack(pro).mean(0).tolist())) if pro else {}
+    phases = dict(zip(PROBE_PHASES, torch.cat(its).mean(0).tolist())) if its else {}
+    return (prologue, phases, n_iters,
+            float(torch.tensor(spans, dtype=torch.float64).median()) if spans else None)
+
+
+# the phases between the probe's edges: the prologue's, then an iteration's
+PROBE_PROLOGUE = ("staging", "barrier 0", "counts")
+PROBE_PHASES = ("row pass", "CTA reduce", "barrier 1", "tenant reduce + update", "barrier 2",
+                "w reload + decisions")
+
+
+def _check_tenants(x_dense, *, valid_rows, num_iterations, step_sizes, l2_regs,
+                   convergence_tol, residual_fn):
+    """The tenant grid's arguments as both routes take them; returns the
+    residual mode."""
     mode = residual_mode(residual_fn)
     if mode is None:
         raise ValueError(f"fused_dense_sgd_tenants has no residual mode for {residual_fn!r}")
     if x_dense.dim() != 3:
         raise ValueError(f"x_dense must be [M, B, F], got {tuple(x_dense.shape)}")
-    m, b, f = x_dense.shape
-    valid_rows = [int(v) for v in valid_rows]
+    m, b, _ = x_dense.shape
     if not len(valid_rows) == len(step_sizes) == len(l2_regs) == m:
         raise ValueError(f"{m} tenants need {m} valid row counts, step sizes and L2s")
-    if any(not 0 <= v <= b for v in valid_rows):
-        raise ValueError(f"valid rows {valid_rows} outside [0, {b}]")
+    if any(not 0 <= int(v) <= b for v in valid_rows):
+        raise ValueError(f"valid rows {list(valid_rows)} outside [0, {b}]")
+    if num_iterations < 0:
+        raise ValueError("num_iterations must be >= 0")
+    return mode
+
+
+def _tenant_launches(x_dense, labels, mask, weights, *, valid_rows, num_iterations,
+                     step_sizes, l2_regs, convergence_tol=0.001,
+                     residual_fn=least_squares_residual, probe=None):
+    """The tenant grid's cooperative launches on CUDA tensors, one for each
+    TENANTS_PER_LAUNCH tenants (the timing instantiation with ``probe``, a
+    one-launch int64 buffer). Returns (w [M, F], preds [M, B], each
+    launch's (plan, scratch))."""
+    mode = _check_tenants(x_dense, valid_rows=valid_rows, num_iterations=num_iterations,
+                          step_sizes=step_sizes, l2_regs=l2_regs,
+                          convergence_tol=convergence_tol, residual_fn=residual_fn)
+    m, b, f = x_dense.shape
+    valid_rows = [int(v) for v in valid_rows]
     dev = x_dense.device
-    if dev.type == "cpu":
-        return fused_dense_sgd_tenants_reference(
-            x_dense, labels, mask, weights, num_iterations=num_iterations,
-            step_sizes=step_sizes, l2_regs=l2_regs, convergence_tol=convergence_tol,
-            residual_fn=residual_fn)
     if dev.type != "cuda":
         raise ValueError(f"fused_dense_sgd_tenants takes cpu or cuda tensors, got {dev}")
     if not supports(batch_rows=b, num_features=f, dtype=weights.dtype):
@@ -844,13 +941,11 @@ def fused_dense_sgd_tenants(
                 or not t.is_contiguous()):
             raise ValueError(f"{name} must be contiguous float32 {shape} on {dev}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if num_iterations < 0:
-        raise ValueError("num_iterations must be >= 0")
+    launches = []
     with torch.cuda.device(dev):
         sm_count, shared_limit = device_limits(torch.cuda.current_device())
         w = torch.empty((m, f), dtype=torch.float32, device=dev)
         preds = torch.empty((m, b), dtype=torch.float32, device=dev)
-        iterations = []
         for lo in range(0, m, TENANTS_PER_LAUNCH):
             hi = min(m, lo + TENANTS_PER_LAUNCH)
             plan = tenant_launch_plan(valid_rows[lo:hi], f, sm_count=sm_count,
@@ -868,16 +963,15 @@ def fused_dense_sgd_tenants(
                 (ctypes.c_float * n)(*(float(v) for v in step_sizes[lo:hi])),
                 (ctypes.c_float * n)(*(float(v) for v in l2_regs[lo:hi])),
                 int(num_iterations), float(convergence_tol), int(mode),
+                None if probe is None else probe.data_ptr(),
+                0 if probe is None else probe.shape[1],
                 torch.cuda.current_stream().cuda_stream)
             if err == 1:  # cudaErrorInvalidValue: the entry's own checks
                 raise RuntimeError(f"fused_dense_sgd_tenants: the kernel refused the plan {plan}")
             if err != 0:
                 raise RuntimeError(f"fused_dense_sgd_tenants launch failed: CUDA error {err}")
-            fused_dense_sgd_tenants.launches += 1
-            iterations.append(scratch[-n:])
-    fused_dense_sgd_tenants.last_iterations = (
-        iterations[0] if len(iterations) == 1 else torch.cat(iterations))
-    return w, preds
+            launches.append((plan, scratch))
+    return w, preds, launches
 
 
 fused_dense_sgd_tenants.launches = 0
