@@ -344,7 +344,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
                against one process (lines equal, assignments equal); a
                rank's 2D step device ms and host wall, each axis's
                collectives and their ms, the fleet's tick and tweets/s,
-               the k-means wall and the phase's.
+               the k-means wall and the phase's; then its vmap arm (ROADMAP
+               B10 b), 2 ranks on a data axis: the split with a tenant grid
+               (``fused_dense_sgd_tenants_split``) against its plain
+               version on each rank over the real all-reduce (rtol 1e-4 /
+               atol 1e-5, both residual modes, a tenant dry on one rank
+               and one on both, NaN/Inf in masked rows bitwise ignored,
+               the ranks' stacks bitwise equal, one tenant bitwise the
+               split); 4 tenants at 1004 columns on 8192 rows a rank, a
+               warm-up and 4 ticks, the vmap form within 1e-3 of the scan
+               form on the same mesh (HALF_UP flips counted), 52
+               all-reduces a tick against 208, their ms and a rank's host
+               wall a tick; the iteration launch's device ms at 4 x 2048
+               valid rows against the split's on the same 8192 rows, its
+               twin's, ``torch.bmm``'s and its bound.
 No app run publishes anywhere but the loopback recorder and, in the web,
 serve and abtest phases, the port's own servers on loopback ports. The line before
 the last is the kernels' JSON record (B1's least-squares mode with its
@@ -352,7 +365,8 @@ the last is the kernels' JSON record (B1's least-squares mode with its
 ``abtest`` launches, B4 with its f32 build on tweet-length rows, B7,
 B8 and the split's two launches with their ``elastic`` and ``modelaxis`` launches, B4, B7 and
 B8 with their ``modelaxis`` launches, the split's iteration launch with its library calls'
-times, B1's tenant grid with the vmap arm's launches); the last line is ``{"ok": true,
+times, B1's tenant grid with the vmap arm's launches, the split with a tenant
+grid with the modelaxis phase's vmap arm's launches); the last line is ``{"ok": true,
 "device": {...}}``.
 
 ``python3 chip_smoke.py --times-only [--package-root DIR]`` runs phases 1
@@ -374,6 +388,11 @@ tweets; its last line is the phase's JSON.
 linear tenant app at M = 4 and the logistic one at M = 2 on 4 x 16384
 synthetic tweets for their parts, then only the tenants phase's vmap arm;
 its last line is the arm's JSON.
+
+``python3 chip_smoke.py --tenants-mesh-only`` runs phases 1 and 2 and then
+only the modelaxis phase's vmap arm on 5 x 16384 synthetic tweets, with
+three turns of (vmap, scan, scan, vmap) for a longer reading of the tick's
+wall; its last line is the arm's JSON.
 
 ``python3 chip_smoke.py --gram-ab N --package-root DIR`` runs phases 1 and
 2 (on DIR's port) and then only N alternating pairs of the app's 2-rank
@@ -7719,6 +7738,229 @@ def ma_tenant_clean_run(state, rows):
     return fleet.latest_weights, plain.latest_weights
 
 
+# ---- phase 26, its vmap arm: the tenant plane's vmap form over a data axis (B10 b)
+
+TS_M = 4  # the arm's tenants
+TS_F = 1000  # text columns: 1004 with the numeric ones
+TS_TICKS = 4  # timed ticks a run, after one warm-up tick
+TS_ENTRY = "fused_dense_sgd_tenants_split"
+# each rank's tenants' valid rows in the kernel checks' parts of MH_ROWS rows:
+# tenant 1 has rows on rank 0 only, tenant 2 on neither (its global count 0)
+TS_CHECK_VALID = ((2048, 2048, 0, 3072), (2048, 0, 0, 1024))
+TS_TIME_VALID = 2048  # a tenant's valid rows in the timed launch: TS_M x 2048 = MH_ROWS
+
+
+def tenant_split_times(smi):
+    """The split with a tenant grid's iteration launch (it = 2: the update of
+    1 folded in) on a rank's MH_ROWS x 1004 rows (``split_inputs``) cut into
+    TS_M parts of TS_TIME_VALID valid rows, each padded to MH_ROWS as the
+    tenant wire carries it, the all-reduce an identity: against the split's
+    iteration launch on the same rows as one model, in turns (split,
+    tenants, tenants, split, each the median of 5 runs of 50 queued
+    launches); its plain version (each tenant's
+    ``fused_dense_iteration_reference``), the library call (``torch.bmm`` of
+    the TS_M tenants' Xᵀr on the f32 X of their valid rows) and its bound.
+    Returns the kernels line's record, without its launches and errors."""
+    import torch
+
+    from twtml_tpu_torch.ops import fused_sgd
+
+    x, y, m, w0 = split_inputs()
+    rows, f = x.shape
+    xs, ys, ms = tenant_grid_parts(x, y, m, [TS_TIME_VALID] * TS_M)
+    w0s = w0.expand(TS_M, f).contiguous()
+    kw = dict(step_size=1e-12, l2_reg=0.0, convergence_tol=0.0)  # tol 0: never converged
+    step = fused_sgd.TenantSplitStep(xs, ys, ms, w0s, valid_rows=[TS_TIME_VALID] * TS_M,
+                                     step_sizes=[1e-12] * TS_M, l2_regs=[0.0] * TS_M,
+                                     convergence_tol=0.0, mode=0)
+    step.launch(1)
+    sms, shared = fused_sgd.device_limits(torch.cuda.current_device())
+    plan = fused_sgd.split_plan(rows, f, sm_count=sms, shared_limit=shared)
+    bufs = fused_sgd.split_buffers(plan, x.device)
+    w, preds = torch.empty_like(w0), torch.empty_like(y)
+    fused_sgd.fused_dense_grad(plan, bufs, x, y, m, w0, w, preds, it=1, **kw)
+    n = 50
+    arms = {"split": lambda: fused_sgd.fused_dense_grad(plan, bufs, x, y, m, w0, w, preds,
+                                                        it=2, **kw),
+            "tenants": lambda: step.launch(2)}
+    times, host = {"split": [], "tenants": []}, {"split": [], "tenants": []}
+    for name in ("split", "tenants", "tenants", "split"):
+        ms_, _runs, host_us = split_queued(arms[name], 5, n)
+        times[name].append(ms_)
+        host[name].append(host_us)
+    fpad = plan.fpad
+    g = torch.cat([step.gbuf[:, :f], step.gbuf[:, fpad:]], dim=1)
+    plain_ms = split_queued(lambda: [fused_sgd.fused_dense_iteration_reference(
+        xs[t], ys[t], ms[t], w0s[t], g[t], it=2, **kw) for t in range(TS_M)], 3, 10)[0]
+    v = TS_TIME_VALID
+    xv = xs[:, :v].contiguous()
+    r = (torch.bmm(xv, w0s[..., None])[..., 0] - ys[:, :v]) * ms[:, :v]
+    library_ms = split_queued(lambda: torch.bmm(xv.transpose(1, 2), r[..., None]), 5, n)[0]
+    valid = TS_M * v
+    # each input read once and each output written once at the parts' valid
+    # rows: X (bf16, as staged), y and the mask, each tenant's w and its
+    # all-reduced Xᵀr and count; written: each tenant's w, Xᵀr and count
+    moved = 2 * valid * f + 4 * (2 * valid + 4 * f * TS_M + 2 * TS_M)
+    ops = 4 * valid * f + 8 * f * TS_M  # x·w and r·x a valid element; the update's 8 a column
+    bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS_PER_S * 1e3
+    split_ = step.launches[0][0]
+    record = {
+        "name": TS_ENTRY, "route": "cuda", "source": "twtml_tpu_torch/csrc/fused_sgd.cu",
+        "replaces": "twtml_tpu/ops/pallas_sgd.py:55",
+        "ms": statistics.median(times["tenants"]), "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": library_ms,
+        "library": "torch.bmm(X.transpose(1, 2), r) of the tenants' valid rows, f32 X",
+        "bound_bytes": moved, "card": smi, "tenants": TS_M, "rows": rows,
+        "valid_rows": [v] * TS_M, "features": f, "grid": split_.tenants.grid,
+        "slices": split_.slices, "split_ms": statistics.median(times["split"]),
+        "turns_ms": times, "host_us_a_launch": {k: statistics.median(h)
+                                                for k, h in host.items()},
+    }
+    phase("modelaxis", f"{TS_ENTRY}: {record['ms']:.5f} ms an iteration launch at {TS_M} x "
+          f"{v} valid rows of {rows} x {f} (grid {record['grid']}, {record['slices']} "
+          f"slices; turns {[round(t, 5) for t in times['tenants']]}), the split's on the "
+          f"same {valid} rows as one model {record['split_ms']:.5f} ms (turns "
+          f"{[round(t, 5) for t in times['split']]}); twin {plain_ms:.5f} ms, "
+          f"{record['library']} {library_ms:.5f} ms, bound {record['bound_ms']:.5f} ms "
+          f"({record['bound_by']}, {moved} B); host enqueue {record['host_us_a_launch']} µs "
+          f"| card: {smi}")
+    return record
+
+
+def tenants_mesh_arm(smi, statuses, workdir, pairs=1):
+    """The vmap form over a data axis on 2 gloo ranks on the card
+    (tests/torch_mesh_worker.py): the split with a tenant grid against its
+    plain version on each rank over the real all-reduce (``tenant_split``
+    mode, both residual modes, TS_CHECK_VALID: a tenant dry on one rank,
+    one dry on both; NaN/Inf in masked rows bitwise ignored; one tenant
+    bitwise the split), then TS_M tenants at 1004 columns on MH_ROWS rows a
+    rank, a warm-up tick and TS_TICKS ticks of ``statuses``, the vmap form
+    against the scan form on the same mesh in ``pairs`` turns of (vmap,
+    scan, scan, vmap): weights within VMAP_RTOL / VMAP_ATOL, counts equal,
+    rounded predictions off by one HALF_UP step at most (counted), each
+    form's reruns bitwise; the all-reduces a tick (N + 2 against TS_M x
+    that) and their ms, a rank's host wall a tick. Returns (the arm's
+    summary, the kernels line's record)."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    record = tenant_split_times(smi) if MA_DEVICE == "cuda" else {"name": TS_ENTRY}
+    n = max(1, len(statuses) // OP_ROWS)
+    pool = [s for k in range(TS_TICKS + 1)
+            for s in statuses[(k % n) * OP_ROWS:(k % n + 1) * OP_ROWS]]
+    path = os.path.join(workdir, "tenants-mesh.npz")
+    ma_unit_batches(path, pool, OP_ROWS, TS_F, MA_LONG_UNITS)
+    model = dict(num_text_features=TS_F, num_iterations=OP_ITERS, step_sizes=list(TENANT_STEPS),
+                 l2_regs=list(TENANT_L2S), quality=True)
+    checks = [{"mode": "tenant_split", "name": f"split_{mode}", "residual": residual,
+               "tenants": TS_M, "rows": MH_ROWS, "features": TS_F + 4,
+               "valid": [list(v) for v in TS_CHECK_VALID], "iterations": OP_ITERS,
+               "step_sizes": list(steps), "l2_regs": list(TENANT_L2S), "seed": 41}
+              for mode, residual, steps in (("least_squares", "", TENANT_STEPS),
+                                            ("logistic", "logistic", TENANT_LG_STEPS))]
+    order = [("vmap", "scan", "scan", "vmap")[i % 4] for i in range(4 * pairs)]
+    names = [f"{form}{i}" for i, form in enumerate(order)]
+    runs = checks + [{"mode": "tenants", "name": name, "mapping": form, "num_tenants": TS_M,
+                      "batches": path, "wire": "unit", "model": model}
+                     for name, form in zip(names, order)]
+    recs, arrays, wall = ma_group("tenants-mesh", workdir, MH_RANKS,
+                                  {"num_data": MH_RANKS, "num_model": 1, "runs": runs})
+    out = {"card": smi, "group_wall_s": wall, "checks": {}}
+    errs = []
+    for check in checks:
+        name = check["name"]
+        rr = [r["runs"][name] for r in recs]
+        ws = [a["w"] for a in arrays[name]]
+        bad = [r for r in rr if not (r["within"] and r["dirty_bitwise"]
+                                     and r["one_tenant_bitwise"])]
+        if bad or not np.array_equal(ws[0], ws[1]) or rr[0]["iterations"] != rr[1]["iterations"]:
+            raise AssertionError(f"tenants mesh {name}: {[{k: r[k] for k in ('w_err', 'p_err', 'within', 'dirty_bitwise', 'one_tenant_bitwise', 'iterations')} for r in rr]}, ranks' weights equal: {np.array_equal(ws[0], ws[1])}")
+        if MA_DEVICE == "cuda" and rr[0]["iterations"][2] != 0:
+            raise AssertionError(f"tenants mesh {name}: tenant 2 (no row on any rank) ran "
+                                 f"{rr[0]['iterations'][2]} iterations")
+        errs += [r["w_err"] for r in rr] + [r["p_err"] for r in rr]
+        out["checks"][name] = {"ranks": [{k: r[k] for k in ("valid", "iterations", "w_err",
+                                                            "p_err", "w_scale", "p_scale")}
+                                         for r in rr]}
+        phase("modelaxis", f"tenants mesh {name}: the split with a tenant grid on 2 ranks "
+              f"(valid rows {[r['valid'] for r in rr]}, iterations {rr[0]['iterations']}) "
+              f"within rtol {RTOL} atol {ATOL} of its plain version over the same all-reduce "
+              f"(weights {max(r['w_err'] for r in rr):.3g}, margins "
+              f"{max(r['p_err'] for r in rr):.3g}), the ranks' stacks bitwise equal (tenant 1 "
+              "updated on the rank without its rows), NaN/Inf in masked rows bitwise ignored, "
+              "one tenant of every row bitwise the split")
+    record["max_abs_err"] = max(errs)
+    # the vmap form against the scan form, each form's runs bitwise each other
+    by_form = {form: [nm for nm, fm in zip(names, order) if fm == form]
+               for form in ("vmap", "scan")}
+    for form, nms in by_form.items():
+        for nm in nms[1:]:
+            for a, b in zip(arrays[nms[0]], arrays[nm]):
+                if not all(np.array_equal(a[k], b[k]) for k in ("w", "counts", "preds")):
+                    raise AssertionError(f"tenants mesh: {form} runs {nms[0]} and {nm} differ")
+    v, sc = by_form["vmap"][0], by_form["scan"][0]
+    flips, w_err = 0, 0.0
+    for rank in range(MH_RANKS):
+        av, as_ = arrays[v][rank], arrays[sc][rank]
+        if not (np.allclose(av["w"], as_["w"], rtol=VMAP_RTOL, atol=VMAP_ATOL)
+                and np.array_equal(av["counts"], as_["counts"])):
+            raise AssertionError(f"tenants mesh: rank {rank}'s vmap stack differs from the "
+                                 f"scan form's by {float(np.max(np.abs(av['w'] - as_['w']))):.3g}")
+        w_err = max(w_err, float(np.max(np.abs(av["w"] - as_["w"]))))
+        d = np.abs(av["preds"].astype(np.float64) - as_["preds"])
+        if d.max(initial=0.0) > 1.0:
+            raise AssertionError(f"tenants mesh: rank {rank}'s predictions differ by "
+                                 f"{d.max():.3g}, more than one HALF_UP step")
+        flips += int((d > 0).sum())
+    ticks = TS_TICKS + 1
+    want = {"vmap": OP_ITERS + 2, "scan": TS_M * (OP_ITERS + 2)}
+    want_launches = {"vmap": {TS_ENTRY: ticks * (OP_ITERS + 1), "fused_dense_grad": 0},
+                     "scan": {TS_ENTRY: 0, "fused_dense_grad": TS_M * ticks * OP_ITERS}}
+    numbers = {}
+    for form, nms in by_form.items():
+        rr = [r["runs"][nm] for nm in nms for r in recs]
+        for r in rr:
+            counts = [t["allreduces"] for t in r["tick_collectives"]]
+            got = {k: r["launches"][k] for k in want_launches[form]}
+            if MA_DEVICE != "cuda":
+                got = want_launches[form]  # the CPU twins count no launch
+            if counts != [want[form]] * ticks or got != want_launches[form]:
+                raise AssertionError(f"tenants mesh {form}: all-reduces a tick {counts}, "
+                                     f"launches {got}; want {want[form]} and "
+                                     f"{want_launches[form]}")
+        timed = [(r["step_wall_ms"][1:], r["step_device_ms"][1:],
+                  [c.get("allreduce", 0.0) for c in r["step_collective_ms"][1:]]) for r in rr]
+        wall_ms = statistics.median([x for t in timed for x in t[0]])
+        numbers[form] = {
+            "allreduces_a_tick": want[form],
+            "tick_wall_ms": wall_ms,
+            "tick_wall_ms_by_run": [statistics.median(t[0]) for t in timed],
+            "tick_device_ms": (statistics.median([x for t in timed for x in t[1]])
+                               if timed[0][1] else None),
+            "allreduce_ms_a_tick": statistics.median([x for t in timed for x in t[2]]),
+        }
+        numbers[form]["ms_an_allreduce"] = numbers[form]["allreduce_ms_a_tick"] / want[form]
+    out.update(weights_max_err=w_err, flips=flips, forms=numbers,
+               launches=sum(r["runs"][nm]["launches"].get(TS_ENTRY, 0)
+                            for nm in by_form["vmap"] for r in recs))
+    record["launches"] = out["launches"]
+    nv, ns = numbers["vmap"], numbers["scan"]
+    phase("modelaxis", f"tenants mesh: vmap over 2 ranks x {MH_ROWS} rows, {TS_M} tenants, "
+          f"{TS_F + 4} columns, {TS_TICKS} ticks after a warm-up, {len(order)} runs in turns: "
+          f"the stack within {w_err:.3g} of the scan form's (rtol/atol {VMAP_RTOL}), counts "
+          f"equal, {flips} HALF_UP flips; all-reduces a tick {nv['allreduces_a_tick']} against "
+          f"scan's {ns['allreduces_a_tick']} ({nv['allreduce_ms_a_tick']:.1f} against "
+          f"{ns['allreduce_ms_a_tick']:.1f} ms a tick, {nv['ms_an_allreduce']:.2f} and "
+          f"{ns['ms_an_allreduce']:.2f} ms each); a rank's host wall a tick "
+          f"{nv['tick_wall_ms']:.1f} ms against scan's {ns['tick_wall_ms']:.1f} ms; launches of "
+          f"{TS_ENTRY} {out['launches']}; arm wall {time.perf_counter() - t0:.1f} s | "
+          f"card: {smi}")
+    out["wall_s"] = time.perf_counter() - t0
+    return out, record
+
+
 def modelaxis_phase(smi, statuses):
     """The modelaxis phase: the layouts over a model axis, every rank on the one
     card over gloo (tests/torch_mesh_worker.py at the library level, the
@@ -7733,7 +7975,9 @@ def modelaxis_phase(smi, statuses):
     ranks against one process, tenants on a 1 x 2 model axis bitwise the
     one-process stack, and ``--elastic on --tenants 4`` with the follower
     killed. (e) K-means across 2 ranks, the model and the app, against one
-    process. Returns the phase's numbers and the kernels' launches."""
+    process. (f) The vmap form over a data axis (``tenants_mesh_arm``).
+    Returns the phase's numbers, the kernels' launches and the split with
+    a tenant grid's kernels line record (``tenant_split_record``)."""
     import shutil
     import tempfile
 
@@ -7900,6 +8144,9 @@ def modelaxis_phase(smi, statuses):
                                      f"against {km.latest_centers}")
         phase("modelaxis", f"k-means over 2 data shards ({MA_BATCHES} x {MA_KMEANS_ROWS} "
               "points): assignments equal, centers and weights within 1e-5 of one process's")
+        # (f) the vmap form over a data axis (ROADMAP B10 b)
+        out["tenants_mesh"], out["tenant_split_record"] = tenants_mesh_arm(smi, statuses,
+                                                                           workdir)
 
         # the apps in a group, on the multihost phase's replay
         path = os.path.join(workdir, "tweets.jsonl")
@@ -8226,6 +8473,22 @@ def main() -> None:
         finally:
             RECORDER.close()
         return
+    if "--tenants-mesh-only" in argv:
+        import shutil
+        import tempfile
+
+        from twtml_tpu_torch.streaming.sources import SyntheticSource
+
+        os.environ["TWTML_NOW_MS"] = str(NOW_MS)
+        workdir = tempfile.mkdtemp(prefix="twtml-tenants-mesh-")
+        try:
+            statuses = list(SyntheticSource(total=(TS_TICKS + 1) * OP_ROWS, seed=5,
+                                            base_ms=NOW_MS).produce())
+            summary, ts_record = tenants_mesh_arm(smi, statuses, workdir, pairs=3)
+            print(json.dumps({"tenants_mesh": summary, "kernel": ts_record}), flush=True)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        return
     if "--tenants-vmap-only" in argv:
         from twtml_tpu_torch.streaming.sources import SyntheticSource
 
@@ -8339,9 +8602,11 @@ def main() -> None:
     predict_record.update(abtest=abtest, launches_abtest=abtest["counts_ab"]["predict_launches"])
     import torch
 
+    tenant_split_record = modelaxis.pop("tenant_split_record")
     phase("done", f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [record, logistic_record, predict_record, *gram_records,
-                                  *split_records, grid_record]}), flush=True)
+                                  *split_records, grid_record, tenant_split_record]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -21,6 +21,10 @@ import pytest
 
 from tools import postmortem_report, trace_report
 from twtml_tpu.streaming import faults as jax_faults
+from twtml_tpu.telemetry import blackbox as jax_blackbox
+from twtml_tpu.telemetry import metrics as jax_metrics
+from twtml_tpu.telemetry import sideband as jax_sideband
+from twtml_tpu.telemetry import trace as jax_trace
 from twtml_tpu_torch.apps import linear_regression as app
 from twtml_tpu_torch.config import ConfArguments
 from twtml_tpu_torch.features.batch import RaggedUnitBatch, UnitBatch
@@ -28,7 +32,7 @@ from twtml_tpu_torch.features.featurizer import Status
 from twtml_tpu_torch.streaming import faults
 from twtml_tpu_torch.streaming.context import StreamingContext
 from twtml_tpu_torch.streaming.sources import QueueSource, Source
-from twtml_tpu_torch.telemetry import blackbox, trace
+from twtml_tpu_torch.telemetry import blackbox, sideband, trace
 from twtml_tpu_torch.telemetry import metrics as _metrics
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -73,6 +77,73 @@ def test_bundle_passes_the_jax_packages_report(tmp_path, capsys):
     assert bundle["events"][1]["arr"] == [0, 1, 2]
     assert postmortem_report.main([path]) == 0
     capsys.readouterr()
+
+
+@pytest.fixture
+def both_packages():
+    """Both packages' process-wide telemetry (registry, health monitor,
+    sideband view, trace, flight recorder) clean before and after."""
+    def clean():
+        for mod in (blackbox, jax_blackbox, trace, jax_trace):
+            mod.uninstall()
+        for mod in (_metrics, jax_metrics, sideband, jax_sideband):
+            mod.reset_for_tests()
+
+    clean()
+    yield
+    clean()
+
+
+def test_the_bundle_carries_the_hosts_view_as_the_jax_packages(tmp_path, both_packages):
+    """The same gathered sideband matrix through each package's
+    ``LockstepTelemetry``: the two bundles carry the same ``hosts`` view,
+    under the same keys; before a lockstep tick both carry None."""
+    ours = blackbox.install(out_dir=str(tmp_path / "port"))
+    theirs = jax_blackbox.install(out_dir=str(tmp_path / "jax"))
+    assert ours.bundle("x")["hosts"] is None and theirs.bundle("x")["hosts"] is None
+    m = np.zeros((2, sideband.WIDTH))
+    m[:, 0] = (12.0, 55.0)  # host 1 gates the tick
+    m[1, sideband.FIELDS.index("dispatch_ms")] = 40.0
+    sideband.LockstepTelemetry(0, 2).ingest(m.copy())
+    jax_sideband.LockstepTelemetry(0, 2).ingest(m.copy())
+    bundle, jbundle = ours.bundle("x"), theirs.bundle("x")
+    assert set(bundle) == set(jbundle)
+    assert bundle["hosts"] == jbundle["hosts"] == jax_sideband.last_hosts()
+    assert bundle["hosts"]["straggler"] == 1 and len(bundle["hosts"]["hosts"]) == 2
+
+
+def test_a_phase_flip_lands_in_the_trace_and_the_ring_as_the_jax_packages(tmp_path,
+                                                                          both_packages):
+    """Both health monitors fed the same waits (a healthy run, a slow
+    stretch, a recovery), each with a trace and a flight recorder installed:
+    the same ``health_phase`` instants in the trace files and the same
+    ``health_phase`` records (and trace instants) in the rings, with
+    ``phase`` and ``latency_ms``."""
+    rings = []
+    for bb, tr, mx, name in ((blackbox, trace, _metrics, "port"),
+                             (jax_blackbox, jax_trace, jax_metrics, "jax")):
+        rec = bb.install(out_dir=str(tmp_path / name))
+        tr.install(str(tmp_path / f"{name}.trace"))
+        monitor = mx.get_health_monitor()
+        waits = [0.010] * 6 + [0.120] * 8 + [0.011] * 12
+        phases = [monitor.observe(w, now=float(i)) for i, w in enumerate(waits)]
+        assert phases.count("degraded") > 0 and phases[-1] == "healthy"
+        tr.uninstall()
+        rings.append([{k: v for k, v in e.items() if k != "t"}
+                      for e in rec.bundle("x")["events"]])
+        assert mx.get_registry().counter("tunnel.phase_transitions").snapshot() == 2
+    assert rings[0] == rings[1]
+    kinds = [(e["kind"], e.get("name"), e["phase"]) for e in rings[0]]
+    assert kinds == [("instant", "health_phase", "degraded"), ("health_phase", None, "degraded"),
+                     ("instant", "health_phase", "healthy"), ("health_phase", None, "healthy")]
+    assert all(e["latency_ms"] in (120.0, 11.0) for e in rings[0])
+    instants = []
+    for name in ("port", "jax"):
+        with open(tmp_path / f"{name}.trace") as fh:
+            events = [json.loads(ln.rstrip(",")) for ln in fh.read().splitlines()[1:]]
+        instants.append([(e["name"], e["args"]) for e in events if e["ph"] == "i"])
+    assert instants[0] == instants[1] and len(instants[0]) == 2
+    assert [a["phase"] for _n, a in instants[0]] == ["degraded", "healthy"]
 
 
 def test_one_bundle_a_process_unless_forced(tmp_path):

@@ -647,9 +647,10 @@ def test_conf_flags():
 
 
 REFUSALS = {
-    "vmap": (lambda: stack(2, mapping="vmap", mesh=make_mesh(num_processes=1),
-                           group=Collectives()), NotImplementedError,
-             "split with a tenant grid.*ROADMAP B10 b"),
+    # the vmap form over a mesh is ported (ROADMAP B10 b); without its
+    # group's Collectives it is refused as the scan form is
+    "vmap": (lambda: stack(2, mapping="vmap", mesh=make_mesh(num_processes=1)), ValueError,
+             "needs its group"),
     "lang_on_host_hashing": (lambda: common.build_model(ConfArguments().parse(
         ["--backend", "cpu", "--tenants", "2", "--tenantKey", "lang", "--hashOn", "host"])),
         SystemExit, "--hashOn device"),
@@ -667,15 +668,18 @@ def _one_rank_fleet(mesh_):
     return MultiHostTenantModel(stack(2, mesh=mesh_, group=Collectives()), mesh_)
 
 
-@pytest.mark.parametrize("case", ["mesh", "multi_host"])
+@pytest.mark.parametrize("case", ["mesh", "multi_host", "mesh_vmap"])
 def test_the_stack_over_a_group_builds_and_steps(case):
     """What raised naming ROADMAP A10 until the layouts over a group were
     ported: a stack over a mesh (with its group), and the tenant fleet's
-    ``MultiHostTenantModel``. Over a group of one they train bitwise as the
-    plain stack; a mesh without its group's Collectives raises."""
+    ``MultiHostTenantModel``; and what raised naming ROADMAP B10 b, the vmap
+    form over a mesh. Over a group of one they train bitwise as the plain
+    stack (of their form); a mesh without its group's Collectives raises."""
     one = make_mesh(num_processes=1)
-    model = stack(2, mesh=one, group=Collectives()) if case == "mesh" else _one_rank_fleet(one)
-    plain = stack(2)
+    mapping = "vmap" if case == "mesh_vmap" else "scan"
+    model = (_one_rank_fleet(one) if case == "multi_host"
+             else stack(2, mesh=one, group=Collectives(), mapping=mapping))
+    plain = stack(2, mapping=mapping)
     for b in batches("ragged", n=2):
         out, ref = model.step(b), plain.step(b)
         for f in STATS:

@@ -9,7 +9,8 @@ the JAX package's ``TenantStackModel(mapping="vmap")`` on the same tweets.
   rounded predictions and counts equal, the mse within MSE_RTOL.
 - B1's tenant grid: its plain version is M calls of B1's, bitwise, and the
   wrapper takes it on the CPU; ``tenant_launch_plan`` at an H100's numbers.
-- The wire carries each part's valid rows; the mesh refusal names B10 b.
+- The wire carries each part's valid rows; over a one-rank mesh the vmap
+  form is no longer refused (B10 b, tests/test_torch_tenants_vmap_mesh.py).
 """
 
 import contextlib
@@ -383,9 +384,19 @@ def test_the_tenant_entry_takes_the_wrapper_arguments():
 
 
 def test_vmap_over_a_mesh_is_refused_naming_b10_b():
+    """B10 b is ported: the vmap form over a mesh is no longer refused. It
+    builds one batched step over the group (logged as such), and on a
+    one-rank mesh it steps as the one-process vmap, bit for bit
+    (tests/test_torch_tenants_vmap_mesh.py holds it on two ranks)."""
     one = make_mesh(num_processes=1)
-    with pytest.raises(NotImplementedError, match="split with a tenant grid.*ROADMAP B10 b"):
-        TenantStackModel(2, mapping="vmap", device="cpu", mesh=one, group=Collectives())
+    meshed = TenantStackModel(2, mapping="vmap", device="cpu", mesh=one, group=Collectives(),
+                              step_size=0.1)
+    single = TenantStackModel(2, mapping="vmap", device="cpu", step_size=0.1)
+    assert meshed._batched is not None
+    for b in batches(False, n=1):
+        meshed.step(b)
+        single.step(b)
+    assert meshed.latest_weights.tobytes() == single.latest_weights.tobytes()
 
 
 @pytest.mark.parametrize("case,form", [("least_squares", "one batched step"),

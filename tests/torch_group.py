@@ -79,10 +79,18 @@ def run_mesh_group(mode: str, spec: dict, nprocs: int, timeout: float = 240.0) -
     processes of one group on the CPU, with ``spec`` (written to its ``out``
     directory): (each rank's record of the run, with the rank's place on the
     mesh, each rank's arrays)."""
+    return run_mesh_runs(spec, [{"mode": mode, "name": mode}], nprocs, timeout)[mode]
+
+
+def run_mesh_runs(spec: dict, runs: list, nprocs: int, timeout: float = 240.0) -> dict:
+    """The ``runs`` (each a dict with its ``mode``, ``name`` and the keys it
+    sets over ``spec``'s) of ``tests/torch_mesh_worker.py`` in ``nprocs``
+    processes of ONE group on the CPU: {name: (each rank's record of the
+    run, with the rank's place on the mesh, each rank's arrays)}."""
     import numpy as np
 
-    spec = dict(spec, device="cpu", runs=[{"mode": mode, "name": mode}])
-    path = os.path.join(spec["out"], f"{mode}-spec.json")
+    spec = dict(spec, device="cpu", runs=runs)
+    path = os.path.join(spec["out"], f"{runs[0]['name']}-spec.json")
     with open(path, "w") as fh:
         json.dump(spec, fh)
     port = free_port()
@@ -90,15 +98,16 @@ def run_mesh_group(mode: str, spec: dict, nprocs: int, timeout: float = 240.0) -
                                path], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True, env=_env(None), cwd=REPO)
              for i in range(nprocs)]
-    recs, arrays = [], []
+    out_runs = {run["name"]: ([], []) for run in runs}
     for rank, (rc, out, err) in enumerate(_collect(procs, timeout)):
         assert rc == 0, f"rank {rank}:\n{err[-3000:]}"
         rec = last_json(out)
-        recs.append(dict(rec["runs"][mode], data_index=rec["data_index"],
-                         model_index=rec["model_index"]))
-        with np.load(os.path.join(spec["out"], f"{mode}-rank{rank}.npz")) as data:
-            arrays.append({k: data[k] for k in data.files})
-    return recs, arrays
+        for name, (recs, arrays) in out_runs.items():
+            recs.append(dict(rec["runs"][name], data_index=rec["data_index"],
+                             model_index=rec["model_index"]))
+            with np.load(os.path.join(spec["out"], f"{name}-rank{rank}.npz")) as data:
+                arrays.append({k: data[k] for k in data.files})
+    return out_runs
 
 
 def run_worker_group(mode: str, args: list, nprocs: int = 2, timeout: float = 240.0,

@@ -26,10 +26,32 @@ Modes (a run's keys):
   steps the lead saves the gathered weights with the port's Checkpointer,
   every rank restores them into a fresh model, and both models step once
   more on batch 0: ``resumed`` and ``uninterrupted``.
-- ``tenants``: a ``TenantStackModel`` of ``num_tenants`` on the mesh steps
-  the same global batches (each rank routing its data shard's rows); the
-  arrays: the gathered stack (``w``, [M, F + 4]) and this rank's tenants'
-  counts (``counts``).
+- ``tenants``: a ``TenantStackModel`` of ``num_tenants`` on the mesh, in
+  the run's ``mapping`` ("scan" by default, or "vmap"), steps the same
+  global batches (each rank routing its data shard's rows) or, with
+  ``parts`` (an .npz of FeatureBatch fields with a leading [K, M] axis: K
+  ticks of M tenant parts of B rows), each tick's parts as routed there,
+  each rank taking its data shard's rows of its own tenants' parts
+  (``prepare_wire_from_parts``); ``init`` (an .npy [M, F + 4]) sets the
+  start weights. The arrays: the gathered stack (``w``, [M, F + 4]), this
+  rank's tenants' counts (``counts``), mse (``mse``), its rows' predictions
+  (``preds``) and, with the
+  quality vector, quality (``quality``); the record: each tick's device ms,
+  host wall, collective ms by kind and collectives (``tick_collectives``,
+  ``distributed.COUNTERS``' deltas).
+- ``tenant_split``: the split with a tenant grid
+  (``fused_sgd.fused_dense_sgd_tenants_split``) against its plain version
+  on this rank's rows over the group's all-reduce: ``tenants`` parts of
+  ``rows`` rows and ``features`` columns made from ``seed`` + the rank (40
+  bigram counts of 1-2 a row, rank r's tenant t valid up to ``valid[r][t]``,
+  97 % of those rows unmasked), ``iterations`` and per-tenant
+  ``step_sizes`` / ``l2_regs``, the ``residual`` learner (logistic: 0/1
+  labels), every rank from the same small w0 (``seed``). The record: the max abs errors of the weights and predictions
+  against the plain version where it is finite, its NaN/Inf patterns equal,
+  the run with NaN in masked rows (+Inf in every third one's X) bitwise the
+  clean run, each tenant's iterations run, and one tenant with every row
+  valid bitwise the split (``fused_dense_sgd_split``); the arrays: the
+  kernel's and the plain version's weights (``w``, ``w_plain``).
 - ``kmeans``: a ``StreamingKMeans`` (k 3, half-life 5 batches, random 2-d
   centers) on the mesh updates on each of ``points`` ([K, B, 2]) and
   ``mask`` ([K, B]), the global batches: this rank's assignments
@@ -90,7 +112,8 @@ def _launches() -> dict:
     from twtml_tpu_torch.ops import fused_gram, fused_sgd
 
     out = {fn.__name__: fn.launches for fn in fused_gram.KERNELS}
-    for name in ("fused_dense_sgd", "fused_dense_grad", "fused_dense_update"):
+    for name in ("fused_dense_sgd", "fused_dense_grad", "fused_dense_update",
+                 "fused_dense_sgd_tenants", "fused_dense_sgd_tenants_split"):
         out[name] = getattr(fused_sgd, name).launches
     return out
 
@@ -168,20 +191,133 @@ def _sgd(spec: dict, mesh, group) -> tuple:
     return rec, arrays
 
 
+def _tenant_parts(path: str, model, mesh) -> list:
+    """Each tick's M tenant parts of the .npz as this rank's wires: its data
+    shard's rows of its own tenants' parts."""
+    from twtml_tpu_torch.features.batch import FeatureBatch
+
+    data = np.load(path)
+    mine = range(model.tenant0, model.tenant0 + model.num_local)
+    return [model.prepare_wire_from_parts([
+        FeatureBatch(*(_rows(data[f][k][t], mesh.data_index, mesh.num_data)
+                       for f in FeatureBatch._fields)) for t in mine])
+        for k in range(data["mask"].shape[0])]
+
+
 def _tenants(spec: dict, mesh, group) -> tuple:
+    from twtml_tpu_torch.parallel import distributed
     from twtml_tpu_torch.parallel.tenants import TenantStackModel
 
     kw = _model_kw(spec)
-    batches = _batches(spec["batches"], spec.get("wire", "host"), mesh)
-    model = TenantStackModel(spec["num_tenants"], mesh=mesh, group=group, **kw)
+    model = TenantStackModel(spec["num_tenants"], mesh=mesh, group=group,
+                             mapping=spec.get("mapping", "scan"), **kw)
+    if spec.get("init"):
+        model.set_initial_weights(np.load(spec["init"]))
+    ticks = (_tenant_parts(spec["parts"], model, mesh) if spec.get("parts")
+             else _batches(spec["batches"], spec.get("wire", "host"), mesh))
     clock = _Clock(spec["device"])
-    counts = []
-    for b in batches:
+    counts, mse, preds, quality, tick_collectives = [], [], [], [], []
+    for b in ticks:
+        before = dict(distributed.COUNTERS)
         out = clock.run(lambda b=b: model.step(b))
+        tick_collectives.append(_delta(distributed.COUNTERS, before))
         counts.append(out.count.float().cpu().numpy())
+        mse.append(out.mse.double().cpu().numpy())
+        preds.append(out.predictions.float().cpu().numpy())
+        if out.quality is not None:
+            quality.append(out.quality.float().cpu().numpy())
     rec = {"route": model.route, "tenants": [model.tenant0, model.num_local],
-           "step_device_ms": clock.device_ms, "step_wall_ms": clock.wall_ms}
-    return rec, {"w": model.latest_weights, "counts": np.stack(counts)}
+           "step_device_ms": clock.device_ms, "step_wall_ms": clock.wall_ms,
+           "step_collective_ms": clock.collective_ms, "tick_collectives": tick_collectives}
+    arrays = {"w": model.latest_weights, "counts": np.stack(counts), "mse": np.stack(mse),
+              "preds": np.stack(preds)}
+    if quality:
+        arrays["quality"] = np.stack(quality)
+    return rec, arrays
+
+
+def _split_parts(rng, tenants: int, rows: int, features: int, valid) -> tuple:
+    """``tenants`` parts of ``rows`` rows: part t's first ``valid[t]`` rows
+    tweet-like (40 bigram counts of 1-2, 4 small numeric columns), 97 % of
+    them unmasked, the rest zero and masked."""
+    x = np.zeros((tenants, rows, features), np.float32)
+    mask = np.zeros((tenants, rows), np.float32)
+    for t, v in enumerate(valid):
+        cols = rng.integers(0, features - 4, (v, 40))
+        np.add.at(x[t], (np.arange(v)[:, None], cols), rng.integers(1, 3, (v, 40)))
+        x[t, :v, -4:] = rng.normal(size=(v, 4)) * 1e-3
+        mask[t, :v] = rng.random(v) < 0.97
+    return x, rng.uniform(50, 900, (tenants, rows)).astype(np.float32), mask
+
+
+def _finite_err(got, want) -> float:
+    """The max abs error where ``want`` is finite; raises when the NaN/Inf
+    patterns differ."""
+    import torch
+
+    for test in (torch.isnan, torch.isposinf, torch.isneginf):
+        if not torch.equal(test(got), test(want)):
+            raise AssertionError(f"{test.__name__} patterns differ: {int(test(got).sum())} "
+                                 f"against {int(test(want).sum())}")
+    fin = torch.isfinite(want)
+    return float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
+
+
+def _tenant_split(spec: dict, mesh, group) -> tuple:
+    import torch
+
+    from twtml_tpu_torch.features.batch import tenant_valid_rows
+    from twtml_tpu_torch.ops import fused_sgd
+    from twtml_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(spec["device"])
+    rng = np.random.default_rng(spec["seed"] + mesh.data_index)
+    m, rows, f = spec["tenants"], spec["rows"], spec["features"]
+    x, y, mask = _split_parts(rng, m, rows, f, spec["valid"][mesh.data_index])
+    logistic = spec.get("residual") == "logistic"
+    if logistic:
+        y = (rng.random(y.shape) < 0.5).astype(np.float32)
+    # the replicated weights: alike on every rank
+    w0 = (np.random.default_rng(spec["seed"]).normal(size=(m, f)) * 1e-3).astype(np.float32)
+    rf = fused_sgd.logistic_residual if logistic else fused_sgd.least_squares_residual
+    kw = dict(num_iterations=spec["iterations"], step_sizes=spec["step_sizes"],
+              l2_regs=spec["l2_regs"], convergence_tol=0.001, residual_fn=rf)
+    valid = tenant_valid_rows(mask)
+    x, y, mask, w0 = (torch.from_numpy(a).to(dev) for a in (x, y, mask, w0))
+    reduce = group.allreduce_
+    w, p = fused_sgd.fused_dense_sgd_tenants_split(x, y, mask, w0, valid_rows=valid,
+                                                   allreduce=reduce, **kw)
+    iterations = fused_sgd.fused_dense_sgd_tenants_split.last_iterations
+    iterations = [int(v) for v in (iterations.tolist() if iterations is not None else [])]
+    w_ref, p_ref = fused_sgd.fused_dense_sgd_tenants_split_reference(
+        x, y, mask, w0, allreduce=reduce, **kw)
+    off = mask == 0
+    x_d = torch.where(off[..., None], float("nan"), x)
+    x_d[off & (torch.arange(rows, device=dev) % 3 == 0)] = float("inf")
+    y_d = torch.where(off, float("nan"), y)
+    w_d, p_d = fused_sgd.fused_dense_sgd_tenants_split(x_d, y_d, mask, w0, valid_rows=valid,
+                                                       allreduce=reduce, **kw)
+    # one tenant whose every row is read: the split's weights and margins
+    x1, y1, m1 = (torch.from_numpy(a).to(dev) for a in _split_parts(rng, 1, rows, f, [rows]))
+    if logistic:
+        y1 = (y1 > 475).float()
+    one = dict(kw, step_sizes=kw["step_sizes"][:1], l2_regs=kw["l2_regs"][:1])
+    w1, p1 = fused_sgd.fused_dense_sgd_tenants_split(x1, y1, m1, w0[:1], valid_rows=[rows],
+                                                     allreduce=reduce, **one)
+    ws, ps = fused_sgd.fused_dense_sgd_split(
+        x1[0], y1[0], m1[0], w0[0], allreduce=reduce, num_iterations=kw["num_iterations"],
+        step_size=one["step_sizes"][0], l2_reg=one["l2_regs"][0], convergence_tol=0.001,
+        residual_fn=rf)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    rec = {"valid": valid, "iterations": iterations,
+           "w_err": _finite_err(w, w_ref), "p_err": _finite_err(p, p_ref),
+           "w_scale": float(w_ref.abs().max()), "p_scale": float(p_ref.abs().max()),
+           "within": bool(torch.allclose(w, w_ref, rtol=1e-4, atol=1e-5, equal_nan=True)
+                          and torch.allclose(p, p_ref, rtol=1e-4, atol=1e-5, equal_nan=True)),
+           "dirty_bitwise": bool(torch.equal(w_d, w) and torch.equal(p_d, p)),
+           "one_tenant_bitwise": bool(torch.equal(w1[0], ws) and torch.equal(p1[0], ps))}
+    return rec, {"w": w.cpu().numpy(), "w_plain": w_ref.cpu().numpy()}
 
 
 def _kmeans(spec: dict, mesh, group) -> tuple:
@@ -212,7 +348,8 @@ def main() -> None:
                      process_index=rank)
     group = (distributed.MeshCollectives.from_group(mesh) if mesh.num_model > 1
              else distributed.Collectives.from_group())
-    modes = {"sgd": _sgd, "tenants": _tenants, "kmeans": _kmeans}
+    modes = {"sgd": _sgd, "tenants": _tenants, "tenant_split": _tenant_split,
+             "kmeans": _kmeans}
     runs = {}
     for run in spec["runs"]:
         before = (dict(distributed.COUNTERS), dict(distributed.SECONDS), _launches())

@@ -89,6 +89,11 @@
 // ---- tenant_sgd_kernel: B1 with a tenant grid dimension, M tenants' loops
 // in one cooperative launch (the tenant plane's vmap form); its section
 // below gives its design.
+//
+// ---- tenant_iteration_kernel: the data-parallel split with that tenant
+// grid (the vmap form over a data axis), one launch an iteration around ONE
+// all-reduce of every tenant's Xᵀr and count; its section below gives its
+// design.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -1146,6 +1151,221 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (((idle >> m) & 1u) && j == 0 && threadIdx.x == 0) p.iterations[m] = 0.f;
 }
 
+// ------------------------------------------------------------ tenant split (B10 b)
+//
+// The vmap form of a tenant stack over a data axis: the JAX package runs
+// jax.vmap of the data-parallel step inside shard_map, so the M tenants'
+// psums over the data axis become one collective. Here M tenants' splits
+// run as one: each iteration is ONE cooperative launch of
+// tenant_iteration_kernel on this rank's rows of every tenant, and between
+// launches ONE all-reduce (SUM, on the host's side) of gbuf, [tenants, fpad
+// + 1] floats: each tenant's Xᵀr, then its count. At iteration `it` the
+// launch does, in order:
+//   (a) it >= 2: the update of iteration it − 1 of EVERY tenant still
+//       training, from the all-reduced gbuf, each with its own step size and
+//       L2 (update_column), over column slices shared grid-wide: CTA c takes
+//       slices c, c + grid, ... of every tenant, warp u tenant u (lanes 0-7
+//       8 adjacent columns, as the split's update), and writes the tenant's
+//       ‖Δw‖², ‖w‖² of the slice. A grid barrier; then warp u takes tenant
+//       u's converged decision over its slices (converged()); a tenant whose
+//       global count is 0 makes no update and ends there, as the split's
+//       step does. The finished tenants are one bit each in `state`;
+//   (b) the row pass of each CTA's tenant, if it still trains: the tenant
+//       grid's CTAs and rows (tenant t's CTAs [first_cta[t], first_cta[t+1])
+//       split its rows [0, valid[t]) on this rank as B1 splits a batch), the
+//       split's row pass over rows staged in a device buffer. The first
+//       launch stages X (stage_row), writes the predictions (0 past a
+//       tenant's valid rows) and each CTA's masked count;
+//   (c) a grid barrier, then each training tenant's Xᵀr over its CTAs into
+//       its row of gbuf, column slice by column slice in B1's order
+//       (column_sums), and CTA 0 each tenant's count into gbuf[t, fpad].
+// After the last all-reduce one launch in update-only mode does (a) alone:
+// N + 1 launches and N all-reduces a step, whatever M.
+// The trap of a tenant grid here: a tenant may have no row on this rank
+// (no CTA in the plan) and rows on another. Every rank holds the whole
+// replicated stack, so every rank must update that tenant all the same:
+// the update's slices are every tenant's columns, whoever owns the rows,
+// and a tenant with no CTA adds zeros to the all-reduce. The slices are
+// B1's grid at the parts' padded rows (ops/fused_sgd.py tenant_split_plan),
+// the same on every rank whatever its valid rows, so every rank sums each
+// tenant's ‖Δw‖² and ‖w‖² in one order: the ranks hold the same finished
+// bits and weights, and once every tenant has finished a launch returns at
+// entry, with no host read of convergence.
+// At one tenant whose rows are all valid the grid, rows a CTA, slices and
+// every order of summation are the split's (dense_iteration_kernel), so it
+// gives the split's w and preds bit for bit.
+// What bounds it: bytes, as the split. An iteration streams this rank's
+// staged bf16 rows once (at 4 tenants x 2,048 valid rows of 8,192 padded,
+// F = 1,004: 8,192 rows x 1,024 stored columns, 16.8 MB); the update and
+// the reduce move M x (fpad + 1) floats and a few KB of partials. Left out:
+// keeping rows on chip across launches (the loop leaves the kernel at each
+// all-reduce) and every tenant's reduce in one round (the tenant grid's
+// tenant_column_sums): each tenant here takes one column_sums round of its
+// slice, M rounds a slice, which keeps one tenant's order of summation the
+// split's.
+
+struct TenantSplitState {
+  int* state;   // [1]: the finished tenants, one bit each
+  float* gbuf;  // [tenants, fpad + 1]: this rank's Xᵀr and count, then the global ones
+  int slices;   // column slices of the update and the reduce, alike on every rank
+};
+
+template <bool kLogistic>
+__global__ void __launch_bounds__(kThreads, 1)
+    tenant_iteration_kernel(const Params p, const TenantTable t, const TenantSplitState s,
+                            const int it, const int row_pass) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const bool first = row_pass && it == 1;
+  const int tenants = t.tenants;
+  const unsigned all = tenants == 32 ? ~0u : (1u << tenants) - 1u;
+  const unsigned prev = first ? 0u : (unsigned)__ldcg(s.state);
+  if (prev == all) return;  // every tenant finished in an earlier launch
+  const Layout lay = layout(p.fpad, p.rows_cap);
+  float* w_s = reinterpret_cast<float*>(smem);
+  float* red = reinterpret_cast<float*>(smem + lay.red);
+  float* y_s = reinterpret_cast<float*>(smem + lay.y);
+  float* r_s = reinterpret_cast<float*>(smem + lay.r);
+  float* scratch = reinterpret_cast<float*>(smem + lay.scratch);
+  unsigned* finished_s = reinterpret_cast<unsigned*>(scratch + kConvergedSlot);
+  cg::grid_group grid = cg::this_grid();
+  const int cta = blockIdx.x, ncta = gridDim.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int fpad = p.fpad, features = p.features, rows = t.batch_rows;
+  int m = 0;  // this CTA's tenant: first_cta[m] <= cta < first_cta[m + 1]
+  while (cta >= t.first_cta[m + 1]) ++m;
+  const int k = t.first_cta[m + 1] - t.first_cta[m], j = cta - t.first_cta[m];
+  const int valid = t.valid[m];
+  const int row0 = m * rows + (int)((long long)j * valid / k);
+  const int my_rows = m * rows + (int)((long long)(j + 1) * valid / k) - row0;
+  const int cols = (fpad + s.slices - 1) / s.slices;  // a slice's columns
+  const size_t gstride = (size_t)fpad + 1;
+  unsigned finished = prev;
+  if (first) {
+    const float* w0 = p.w0 + (size_t)m * features;
+    for (int f = threadIdx.x; f < fpad; f += kThreads)
+      w_s[f] = f < features ? __ldg(w0 + f) : 0.f;
+    // every tenant's w where no update runs, this CTA's slices
+    for (int q = cta; q < s.slices; q += ncta) {
+      const int q0 = min(q * cols, fpad), n = min(q0 + cols, fpad) - q0;
+      for (int i = threadIdx.x; i < tenants * n; i += kThreads) {
+        const int u = i / n, f = q0 + i % n;
+        const float v = f < features ? __ldg(p.w0 + (size_t)u * features + f) : 0.f;
+        p.wbuf[(size_t)u * fpad + f] = v;
+        if (f < features) p.w_out[(size_t)u * features + f] = v;
+      }
+    }
+    if (cta == 0 && threadIdx.x < tenants) p.iterations[threadIdx.x] = 0.f;
+    if (cta == 0 && threadIdx.x == 0) *s.state = 0;
+    const bool vec4 = features % 4 == 0 && (reinterpret_cast<uintptr_t>(p.x) & 15) == 0;
+    for (int l = warp; l < my_rows; l += kWarps)
+      stage_row(p, nullptr, y_s, cta, row0, l, lane, vec4);
+    if (warp == 0) {  // this CTA's share of its tenant's count, as B1 sums it
+      float c = 0.f;
+      for (int i = lane; i < my_rows; i += 32) c += __ldg(p.mask + row0 + i);
+      c = warp_sum(c);
+      if (lane == 0) p.count_part[cta] = c;
+    }
+    // the preds no row pass writes: rows past each tenant's valid ones
+    const long long gthreads = (long long)ncta * kThreads;
+    for (long long i = (long long)cta * kThreads + threadIdx.x; i < (long long)tenants * rows;
+         i += gthreads)
+      if ((int)(i % rows) >= t.valid[i / rows]) p.preds[i] = 0.f;
+    __threadfence();  // the staged rows are read back through L2 below
+  } else {
+    // ---- (a) every training tenant's update of iteration u from the all-reduced gbuf
+    const int uit = row_pass ? it - 1 : it;
+    for (int q = cta; q < s.slices; q += ncta) {
+      const int q0 = min(q * cols, fpad), q1 = min(q0 + cols, fpad);
+      for (int u = warp; u < tenants; u += kWarps) {
+        const float* g = s.gbuf + u * gstride;
+        const float count = __ldcg(g + fpad);
+        if (((prev >> u) & 1u) || !(count > 0.f)) continue;  // warp-uniform
+        Params tp = p;  // tenant u's w, step size and L2
+        tp.wbuf = p.wbuf + (size_t)u * fpad;
+        tp.w_out = p.w_out + (size_t)u * features;
+        tp.step_size = t.step_size[u];
+        tp.l2_reg = t.l2_reg[u];
+        const StepScalars ks = step_scalars(tp, uit);
+        const float denom = fmaxf(count, 1.f);
+        float d = 0.f, n = 0.f;
+        for (int f0 = q0; f0 < q1; f0 += 8) {
+          const int f = f0 + (lane & 7);
+          if (lane < 8 && f < q1)
+            update_column(tp, f, __ldcg(tp.wbuf + f), __ldcg(g + f), ks, denom, d, n);
+        }
+        d = warp_sum(d);  // store_norms' sums, into tenant u's slot of slice q
+        n = warp_sum(n);
+        if (lane == 0) {
+          p.norm_part[2 * ((size_t)u * s.slices + q)] = d;
+          p.norm_part[2 * ((size_t)u * s.slices + q) + 1] = n;
+        }
+      }
+    }
+    grid.sync();
+    // ---- every CTA: every tenant's decision (warp u: tenant u), the same in each
+    if (threadIdx.x == 0) *finished_s = prev;
+    __syncthreads();
+    for (int u = warp; u < tenants; u += kWarps) {
+      if ((prev >> u) & 1u) continue;
+      const bool live = __ldcg(s.gbuf + u * gstride + fpad) > 0.f;
+      const bool done =
+          !live || converged(p.norm_part + 2 * (size_t)u * s.slices, s.slices, p.tol, lane);
+      if (lane == 0) {
+        if (done) atomicOr(finished_s, 1u << u);
+        if (cta == 0 && live) p.iterations[u] = (float)uit;
+      }
+    }
+    __syncthreads();
+    finished = *finished_s;
+    if (cta == 0 && threadIdx.x == 0) *s.state = (int)finished;
+    if (!row_pass || finished == all) return;
+    if (!((finished >> m) & 1u)) {  // the tenant's new w and this rank's labels
+      for (int f = threadIdx.x; f < fpad; f += kThreads)
+        w_s[f] = __ldcg(p.wbuf + (size_t)m * fpad + f);
+      for (int l = threadIdx.x; l < my_rows; l += kThreads)
+        y_s[l] = __ldg(p.mask + row0 + l) > 0.f ? __ldg(p.labels + row0 + l) : 0.f;
+    }
+  }
+  __syncthreads();
+
+  // ---- (b) the row pass of this CTA's tenant: its Xᵀr into the CTA's partials
+  if (!((finished >> m) & 1u)) {
+    if (p.nvec <= kTileGroups)
+      row_pass_narrow<kLogistic>(p, w_s, y_s, nullptr, red, cta, row0, my_rows, first, true);
+    else
+      row_pass_wide<kLogistic>(p, w_s, y_s, r_s, nullptr, red, cta, row0, my_rows, first,
+                               true);
+  }
+  grid.sync();
+
+  // ---- (c) each training tenant's Xᵀr over its CTAs, this CTA's slices; CTA 0 the counts
+  for (int q = cta; q < s.slices; q += ncta) {
+    const int q0 = min(q * cols, fpad), q1 = min(q0 + cols, fpad);
+    for (int u = 0; u < tenants; ++u) {
+      if ((finished >> u) & 1u) continue;
+      float* g = s.gbuf + u * gstride;
+      const int a = t.first_cta[u], ku = t.first_cta[u + 1] - a;
+      if (ku == 0) {  // no row on this rank: zeros to the all-reduce
+        for (int f = q0 + threadIdx.x; f < q1; f += kThreads) g[f] = 0.f;
+        continue;
+      }
+      Params up = p;
+      up.partials = p.partials + (size_t)a * fpad;
+      column_sums(up, red, q0, q1, ku, [&](int f, float v) { g[f] = v; });
+    }
+  }
+  if (cta == 0) {
+    for (int u = warp; u < tenants; u += kWarps) {
+      if ((finished >> u) & 1u) continue;
+      const int a = t.first_cta[u], ku = t.first_cta[u + 1] - a;
+      float c = 0.f;
+      for (int i = lane; i < ku; i += 32) c += __ldcg(p.count_part + a + i);
+      c = warp_sum(c);
+      if (lane == 0) s.gbuf[u * gstride + fpad] = c;
+    }
+  }
+}
+
 // ------------------------------------------------------------------ predict
 
 struct PredictParams {
@@ -1300,6 +1520,12 @@ extern "C" int twtml_fused_sgd_setup(int device, int* sm_count, int* shared_opti
                                cudaFuncAttributeMaxDynamicSharedMemorySize, *shared_optin);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(tenant_sgd_kernel<true, true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, *shared_optin);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(tenant_iteration_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, *shared_optin);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(tenant_iteration_kernel<true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, *shared_optin);
   const cudaError_t restored = cudaSetDevice(current);
   return (int)(err != cudaSuccess ? err : restored);
@@ -1590,6 +1816,93 @@ extern "C" int twtml_fused_dense_sgd_tenants(
       {reinterpret_cast<const void*>(tenant_sgd_kernel<true, false>),
        reinterpret_cast<const void*>(tenant_sgd_kernel<true, true>)}};
   const void* kernel = kernels[residual_mode][probe != nullptr];
+  return (int)cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads), args,
+                                          (size_t)shared_bytes, static_cast<cudaStream_t>(stream));
+}
+
+// Iteration `it` of the split with a tenant grid on this rank's rows, one
+// cooperative launch of tenant_iteration_kernel on `stream`: with row_pass
+// 1, (a) the update of it − 1 from the all-reduced gbuf (it >= 2), (b) the
+// row pass (it == 1 also stages X from x [tenants, rows, features] f32,
+// reads labels/mask [tenants, rows] and w0 [tenants, features] f32, and
+// writes preds [tenants, rows] and w_out [tenants, features] = w0), (c)
+// every training tenant's Xᵀr and count into gbuf [tenants, fpad + 1]; with
+// row_pass 0, the update of `it` alone. `staged` is the bf16 X
+// [grid·rows_cap·8·plan_layout[5]], `scratch` f32 [grid·fpad + tenants·fpad
+// + grid + 2·tenants·slices + tenants] (its last `tenants` floats receive
+// each tenant's iterations run), `state` int32 [1]. The tenant table (host
+// arrays first_cta, valid, step_sizes, l2_regs), rows_cap and plan_layout
+// come from ops/fused_sgd.py tenant_split_plan (no resident rows,
+// shared_bytes = the layout's x offset), `slices` >= 1 too. A plan that
+// breaks these is refused. Returns the launch's CUDA error (a refused
+// cooperative launch included), 0 when it was taken.
+extern "C" int twtml_fused_dense_tenants_split(
+    const void* x, const void* labels, const void* mask, const void* w0, void* w_out,
+    void* preds, void* staged, void* scratch, void* state, void* gbuf, int tenants, int rows,
+    int features, int fpad, int grid, int rows_cap, int shared_bytes, const int* plan_layout,
+    const int* first_cta, const int* valid, const float* step_sizes, const float* l2_regs,
+    int slices, int it, int row_pass, float tol, int residual_mode, void* stream) {
+  const Layout lay = layout(fpad, rows_cap);
+  const int stride = row_groups(fpad);
+  if (tenants < 1 || tenants > kMaxTenants || rows < 1 || features < 1 || fpad % 8 != 0 ||
+      features > fpad || grid < 1 || rows_cap < 1 || slices < 1 || it < 1 ||
+      (row_pass != 0 && row_pass != 1) || (residual_mode != 0 && residual_mode != 1) ||
+      first_cta[0] != 0 || first_cta[tenants] != grid || (size_t)plan_layout[0] != lay.red ||
+      (size_t)plan_layout[1] != lay.y || (size_t)plan_layout[2] != lay.r ||
+      (size_t)plan_layout[3] != lay.scratch || (size_t)plan_layout[4] != lay.x ||
+      plan_layout[5] != stride || (size_t)shared_bytes != lay.x)
+    return (int)cudaErrorInvalidValue;
+  TenantTable t;
+  t.probe = nullptr;
+  t.probe_edges = 0;
+  t.tenants = tenants;
+  t.batch_rows = rows;
+  for (int u = 0; u <= tenants; ++u) t.first_cta[u] = first_cta[u];
+  for (int u = 0; u < tenants; ++u) {
+    const int k = first_cta[u + 1] - first_cta[u];
+    // rows in [0, B]; a tenant with rows has CTAs, and none holds more than rows_cap
+    if (k < 0 || valid[u] < 0 || valid[u] > rows || (valid[u] > 0 && k == 0) ||
+        (k > 0 && (valid[u] + k - 1) / k > rows_cap))
+      return (int)cudaErrorInvalidValue;
+    t.valid[u] = valid[u];
+    t.step_size[u] = step_sizes[u];
+    t.l2_reg[u] = l2_regs[u];
+  }
+  for (int u = tenants; u < kMaxTenants; ++u) {
+    t.first_cta[u + 1] = grid;
+    t.valid[u] = 0;
+    t.step_size[u] = t.l2_reg[u] = 0.f;
+  }
+  Params p;
+  p.x = static_cast<const float*>(x);
+  p.labels = static_cast<const float*>(labels);
+  p.mask = static_cast<const float*>(mask);
+  p.w0 = static_cast<const float*>(w0);
+  p.w_out = static_cast<float*>(w_out);
+  p.preds = static_cast<float*>(preds);
+  p.spill = static_cast<__nv_bfloat16*>(staged);
+  p.partials = static_cast<float*>(scratch);
+  p.wbuf = p.partials + (size_t)grid * fpad;
+  p.count_part = p.wbuf + (size_t)tenants * fpad;
+  p.norm_part = p.count_part + grid;
+  p.iterations = p.norm_part + 2 * (size_t)tenants * slices;
+  p.rows = rows;
+  p.features = features;
+  p.fpad = fpad;
+  p.nvec = fpad / 8;
+  p.stride = stride;
+  p.rows_cap = rows_cap;
+  p.resident = 0;  // every row in the staged buffer
+  p.spill_per_cta = rows_cap;
+  p.num_iterations = 0;
+  p.step_size = 0.f;  // each tenant's own, from the table
+  p.l2_reg = 0.f;
+  p.tol = tol;
+  TenantSplitState st{static_cast<int*>(state), static_cast<float*>(gbuf), slices};
+  void* args[] = {&p, &t, &st, &it, &row_pass};
+  const void* kernel = residual_mode == 1
+                           ? reinterpret_cast<const void*>(tenant_iteration_kernel<true>)
+                           : reinterpret_cast<const void*>(tenant_iteration_kernel<false>);
   return (int)cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads), args,
                                           (size_t)shared_bytes, static_cast<cudaStream_t>(stream));
 }

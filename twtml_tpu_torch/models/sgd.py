@@ -264,17 +264,32 @@ def sampling_masks(rows: int, num_iterations: int, fraction: float, dtype, devic
 def _reduced(grad_and_count, reduce):
     """``grad_and_count`` whose (gradient, count) go through ONE ``reduce``
     (a data-parallel group's in-place SUM over its ranks: the JAX package's
-    two ``psum``s of the gradient and the count), or itself without one."""
+    two ``psum``s of the gradient and the count), or itself without one.
+    The tenant form (an [M, F] gradient and [M] counts, the vmap form of a
+    tenant stack) reduces every tenant's in the same one buffer: the JAX
+    vmap's psums of the M tenants' values as one collective."""
     if reduce is None:
         return grad_and_count
 
     def reduced(w, it):
         grad, count = grad_and_count(w, it)
-        buf = torch.cat([grad.reshape(-1), count.reshape(1).to(grad.dtype)])
+        n = count.numel()
+        buf = torch.cat([grad.reshape(-1), count.reshape(-1).to(grad.dtype)])
         reduce(buf)
-        return buf[:-1].reshape(grad.shape), buf[-1]
+        return buf[:-n].reshape(grad.shape), buf[-n:].reshape(count.shape)
 
     return reduced
+
+
+def tenant_step_table(step_sizes, l2_regs, num_iterations: int, dtype) -> torch.Tensor:
+    """(eta, scale) of every iteration and tenant as one host tensor [2, N,
+    M, 1] in the weights' type (``_step_scalars`` of each tenant's step size
+    and L2): ``sgd_inner_loop``'s ``step_table`` is its two halves."""
+    table = torch.tensor(
+        [[_step_scalars(s, l2, it, dtype) for s, l2 in zip(step_sizes, l2_regs)]
+         for it in range(1, num_iterations + 1)],
+        dtype=dtype).reshape(num_iterations, len(step_sizes), 2)
+    return table.permute(2, 0, 1).contiguous()[..., None]
 
 
 def _matvec(x, w):
@@ -716,6 +731,7 @@ def make_sgd_tenant_step(
     round_predictions: bool = True,
     quality: bool = False,
     dtype=torch.float32,
+    group=None,
 ):
     """The dense regime's train step batched over M tenants: the JAX
     package's ``jax.vmap`` of the step (``twtml_tpu/parallel/tenants.py``,
@@ -734,7 +750,20 @@ def make_sgd_tenant_step(
     JAX vmap draws them under one key). Rounding, the stats and the quality
     vector run over the leading M as batched ops. The products sum in
     another order than the scan form's M steps, so the two agree within
-    float rounding, not bitwise, as the JAX package's vmap and scan do."""
+    float rounding, not bitwise, as the JAX package's vmap and scan do.
+
+    ``group`` (``Collectives`` of a data axis; None: one process) makes it
+    this rank's share of the M tenants' data-parallel steps, the JAX vmap
+    inside ``shard_map``, whose psums over the data axis become one
+    collective of the M tenants' values: the fused route runs
+    ``fused_dense_sgd_tenants_split`` (on the card the tenant grid form of
+    B1's split, one all-reduce of [M, fpad + 1] floats an iteration), the
+    torch loop all-reduces the [M, F] gradients and [M] counts in one
+    buffer an iteration and, under ``-b`` < 1, draws every tenant's masks
+    under the key folded with the rank (the JAX vmap's one
+    ``sampling_key(data)``); the stats and the quality vector take one
+    all-reduce each. N + 1 all-reduces a step (N + 2 with the quality
+    vector), whatever M."""
     _check_slice(dtype)
     f_text = num_text_features
     if f_text > DENSE_TEXT_FEATURE_LIMIT:
@@ -747,6 +776,8 @@ def make_sgd_tenant_step(
     if not len(step_sizes) == len(l2_regs) == num_tenants:
         raise ValueError(f"{num_tenants} tenants need {num_tenants} step sizes and L2s")
     sampled = mini_batch_fraction < 1.0
+    reduce = None if group is None else group.allreduce_
+    shard = None if group is None else group.rank
     _, masks_for = mask_cache(num_iterations, mini_batch_fraction, dtype)
     tables: dict = {}
     loop_kw = dict(num_iterations=num_iterations, convergence_tol=convergence_tol,
@@ -754,16 +785,12 @@ def make_sgd_tenant_step(
 
     def step_table(device):
         """(eta, scale) [N, M, 1] of every iteration and tenant in the
-        weights' type (``_step_scalars``), made once a device: from
+        weights' type (``tenant_step_table``), made once a device: from
         page-locked memory with a non-blocking copy on cuda (no host sync),
         the host tensor kept with it."""
         key = str(device)
         if key not in tables:
-            host = torch.tensor(
-                [[_step_scalars(s, l2, it, dtype) for s, l2 in zip(step_sizes, l2_regs)]
-                 for it in range(1, num_iterations + 1)],
-                dtype=dtype).reshape(num_iterations, num_tenants, 2)
-            host = host.permute(2, 0, 1).contiguous()[..., None]
+            host = tenant_step_table(step_sizes, l2_regs, num_iterations, dtype)
             if device.type == "cuda":
                 host = host.pin_memory()
             tables[key] = (host, host.to(device, non_blocking=True))
@@ -778,25 +805,30 @@ def make_sgd_tenant_step(
         x_dense = torch.cat([densify_text(token_idx, token_val, f_text), numeric],
                             dim=1).view(m, rows, -1)
         labels, mask = labels.view(m, rows), mask.view(m, rows)
-        if route == "fused_dense_sgd":
+        if route == "fused_dense_sgd" and group is not None:
+            w_new, raw = fused_sgd.fused_dense_sgd_tenants_split(
+                x_dense, labels, mask, weights, valid_rows=valid_rows, allreduce=reduce,
+                step_sizes=step_sizes, l2_regs=l2_regs, **loop_kw)
+        elif route == "fused_dense_sgd":
             w_new, raw = fused_sgd.fused_dense_sgd_tenants(
                 x_dense, labels, mask, weights, valid_rows=valid_rows,
                 step_sizes=step_sizes, l2_regs=l2_regs, **loop_kw)
         else:
-            masks = masks_for(rows, mask.device, None) if sampled else None
+            masks = masks_for(rows, mask.device, shard) if sampled else None
             w_new, raw = dense_sgd_loop(x_dense, labels, mask, weights, masks=masks,
                                         step_size=None, step_table=step_table(mask.device),
-                                        **loop_kw)
+                                        reduce=reduce, **loop_kw)
         preds = raw if prediction_fn is None else prediction_fn(raw)
         if round_predictions:
             preds = torch_round_half_up(preds)
-        stats = batch_stats(labels, preds, mask)
+        stats = batch_stats(labels, preds, mask, reduce=reduce)
         q = None
         if quality:
             q = quality_vector(
                 weights, w_new, residual=residual_fn(raw, labels) * mask, preds=preds,
                 labels=labels, mask=mask, numeric=numeric.view(m, rows, -1),
                 token_idx=token_idx.view(m, rows, -1), token_val=token_val.view(m, rows, -1),
+                reduce=reduce,
             )
         return w_new, StepOutput(predictions=preds, quality=q, **stats)
 

@@ -47,6 +47,15 @@ L2, reduce, update and converged decision. Its plain version is M calls of
 phase edge of the prologue and of every iteration, and
 ``tenant_probe_split`` turns the stamps into µs a phase.
 
+The split with a tenant grid (``fused_dense_sgd_tenants_split``, the vmap
+form over a data axis: M tenants' data-parallel steps at once): the
+split's schedule (``split_schedule``) with the tenant grid's row layout,
+one cooperative launch of ``tenant_iteration_kernel`` an iteration and ONE
+all-reduce of every tenant's Xᵀr and count ([M, fpad + 1] floats) between
+launches, the update spread over every tenant's columns grid-wide so that a
+tenant dry on this rank is updated too (``tenant_split_plan``). Its plain
+version is ``fused_dense_sgd_tenants_split_reference``.
+
 Routing: a CPU tensor goes to the twin ``fused_dense_sgd_reference``; a CUDA
 tensor launches a kernel or raises. ``fused_dense_sgd.launches`` counts
 the calls that launched either kernel, ``.predict_launches`` those that
@@ -468,6 +477,86 @@ def split_schedule(num_iterations: int) -> tuple:
               for what in ("grad", "allreduce")), ("update", num_iterations))
 
 
+class TenantSplitPlan(NamedTuple):
+    """One rank's launch of the split with a tenant grid: ``tenants`` the
+    tenant grid's CTAs over this rank's valid rows (``tenant_launch_plan``)
+    with every row in the staged bf16 buffer (no resident rows, shared
+    memory up to the rows of X, as ``split_plan``), and ``slices`` column
+    slices of ceil(fpad / slices) columns, over which every CTA shares the
+    update and the reduce of every tenant (CTA c takes slices c, c + grid,
+    ...). ``slices`` is B1's grid at the part's padded rows, which every
+    rank has alike, so every rank sums each tenant's ‖Δw‖² and ‖w‖² in one
+    order and takes the same converged decisions."""
+
+    tenants: TenantPlan
+    slices: int
+
+    def cta_columns(self, cta: int) -> list:
+        """The columns of EVERY tenant that CTA ``cta`` updates and reduces,
+        whichever tenant's rows it owns: slices cta, cta + grid, ... of
+        ceil(fpad / slices) columns each (the kernel's own split)."""
+        fpad, cols = self.tenants.fpad, -(-self.tenants.fpad // self.slices)
+        return [range(min(q * cols, fpad), min(q * cols + cols, fpad))
+                for q in range(cta, self.slices, self.tenants.grid)]
+
+    @property
+    def scratch_floats(self) -> int:
+        """partials [grid, fpad], each tenant's w [tenants, fpad], counts
+        [grid], norms [tenants, slices, 2], iterations run [tenants]."""
+        t = self.tenants
+        return ((t.grid + t.tenants) * t.fpad + t.grid + 2 * t.tenants * self.slices
+                + t.tenants)
+
+
+def tenant_split_plan(valid_rows, batch_rows: int, num_features: int, *, sm_count: int,
+                      shared_limit: int) -> TenantSplitPlan:
+    """The tenant grid of ``tenant_launch_plan`` over this rank's
+    ``valid_rows`` (a dry tenant gets no CTA), staged as the split stages
+    (``split_plan``), and the update's ``slices``: B1's grid at the parts'
+    ``batch_rows``. At one tenant with every row valid the grid, the rows a
+    CTA and the slices are the split's."""
+    plan = tenant_launch_plan(valid_rows, num_features, sm_count=sm_count,
+                              shared_limit=shared_limit)
+    slices = launch_plan(batch_rows, num_features, sm_count=sm_count,
+                         shared_limit=shared_limit).grid
+    return TenantSplitPlan(plan._replace(resident=0, spill_per_cta=plan.rows_cap,
+                                         shared_bytes=plan.smem_layout[4]), slices)
+
+
+def fused_dense_sgd_tenants_split_reference(
+    x_dense, labels, mask, weights, *, allreduce, num_iterations: int, step_sizes, l2_regs,
+    convergence_tol: float = 0.001, residual_fn=least_squares_residual,
+):
+    """The plain version of the split with a tenant grid: M tenants' loops
+    on this rank's rows of their parts (``x_dense`` [M, B, F], ``labels`` and
+    ``mask`` [M, B], ``weights`` [M, F]), B1's bf16-rounded X with masked
+    rows and labels zeroed, each iteration's M Xᵀr and counts through ONE
+    ``allreduce`` of one buffer ([M, F] then [M]), then each tenant's update
+    with its own step size and L2, zero-count rule and converged freeze
+    (``sgd_inner_loop`` with a step table). Returns (new_weights [M, F], this
+    rank's raw predictions [M, B])."""
+    from ..models.sgd import _reduced, sgd_inner_loop, tenant_step_table
+
+    keep = mask > 0
+    x = torch.where(keep[..., None], x_dense, 0.0).to(torch.bfloat16).float()
+    y = torch.where(keep, labels.float(), 0.0)
+    count = mask.float().sum(dim=-1)
+    w0 = weights.float()
+    tenants = range(x.shape[0])
+    preds = torch.stack([x[m] @ w0[m] for m in tenants])
+    residual = residual_fn or least_squares_residual
+
+    def grad_and_count(w, _it):
+        return torch.stack([x[m].T @ residual(x[m] @ w[m], y[m]) for m in tenants]), count
+
+    table = tenant_step_table(step_sizes, l2_regs, num_iterations, torch.float32)
+    w = sgd_inner_loop(w0, num_iterations=num_iterations, step_size=None, l2_reg=None,
+                       convergence_tol=convergence_tol,
+                       grad_and_count=_reduced(grad_and_count, allreduce),
+                       step_table=(table[0].to(w0.device), table[1].to(w0.device)))
+    return w, preds
+
+
 class SplitBuffers(NamedTuple):
     """One split step's device buffers (``split_plan``'s sizes): the staged
     bf16 X, B1's scratch, the int32 [1] state (the step's flag: converged,
@@ -651,11 +740,21 @@ TENANTS_ARGTYPES = (
     + [ctypes.c_void_p, ctypes.c_int]  # the timing probe's buffer (or null), its edges
     + [ctypes.c_void_p]  # stream
 )
+TENANT_SPLIT_ARGTYPES = (
+    [ctypes.c_void_p] * 10  # x, labels, mask, w0, w_out, preds, staged, scratch, state, gbuf
+    + [ctypes.c_int] * 7  # tenants, rows, features, fpad, grid, rows_cap, shared_bytes
+    + [ctypes.POINTER(ctypes.c_int)] * 3  # smem_layout, first_cta, valid rows
+    + [ctypes.POINTER(ctypes.c_float)] * 2  # step sizes, L2s
+    + [ctypes.c_int] * 3  # slices, it, row_pass
+    + [ctypes.c_float, ctypes.c_int]  # tol, residual_mode
+    + [ctypes.c_void_p]  # stream
+)
 _ENTRIES = {"twtml_fused_dense_sgd": KERNEL_ARGTYPES,
             "twtml_fused_dense_predict": PREDICT_ARGTYPES,
             "twtml_fused_dense_grad": GRAD_ARGTYPES,
             "twtml_fused_dense_update": UPDATE_ARGTYPES,
-            "twtml_fused_dense_sgd_tenants": TENANTS_ARGTYPES}
+            "twtml_fused_dense_sgd_tenants": TENANTS_ARGTYPES,
+            "twtml_fused_dense_tenants_split": TENANT_SPLIT_ARGTYPES}
 
 
 @functools.cache
@@ -917,6 +1016,27 @@ def _check_tenants(x_dense, *, valid_rows, num_iterations, step_sizes, l2_regs,
     return mode
 
 
+def _check_tenants_cuda(name: str, x_dense, labels, mask, weights, **kw) -> int:
+    """``_check_tenants`` and what a tenant launch takes on the card: CUDA
+    tensors, contiguous float32 of the tenant shapes; returns the residual
+    mode."""
+    mode = _check_tenants(x_dense, **kw)
+    m, b, f = x_dense.shape
+    dev = x_dense.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} takes cpu or cuda tensors, got {dev}")
+    if not supports(batch_rows=b, num_features=f, dtype=weights.dtype):
+        raise ValueError(f"{name} does not take X {tuple(x_dense.shape)} "
+                         f"with {weights.dtype} weights (see supports())")
+    for arg, t, shape in (("x_dense", x_dense, (m, b, f)), ("labels", labels, (m, b)),
+                          ("mask", mask, (m, b)), ("weights", weights, (m, f))):
+        if (t.device != dev or tuple(t.shape) != shape or t.dtype != torch.float32
+                or not t.is_contiguous()):
+            raise ValueError(f"{arg} must be contiguous float32 {shape} on {dev}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    return mode
+
+
 def _tenant_launches(x_dense, labels, mask, weights, *, valid_rows, num_iterations,
                      step_sizes, l2_regs, convergence_tol=0.001,
                      residual_fn=least_squares_residual, probe=None):
@@ -924,23 +1044,13 @@ def _tenant_launches(x_dense, labels, mask, weights, *, valid_rows, num_iteratio
     TENANTS_PER_LAUNCH tenants (the timing instantiation with ``probe``, a
     one-launch int64 buffer). Returns (w [M, F], preds [M, B], each
     launch's (plan, scratch))."""
-    mode = _check_tenants(x_dense, valid_rows=valid_rows, num_iterations=num_iterations,
-                          step_sizes=step_sizes, l2_regs=l2_regs,
-                          convergence_tol=convergence_tol, residual_fn=residual_fn)
+    mode = _check_tenants_cuda("fused_dense_sgd_tenants", x_dense, labels, mask, weights,
+                               valid_rows=valid_rows, num_iterations=num_iterations,
+                               step_sizes=step_sizes, l2_regs=l2_regs,
+                               convergence_tol=convergence_tol, residual_fn=residual_fn)
     m, b, f = x_dense.shape
     valid_rows = [int(v) for v in valid_rows]
     dev = x_dense.device
-    if dev.type != "cuda":
-        raise ValueError(f"fused_dense_sgd_tenants takes cpu or cuda tensors, got {dev}")
-    if not supports(batch_rows=b, num_features=f, dtype=weights.dtype):
-        raise ValueError(f"fused_dense_sgd_tenants does not take X {tuple(x_dense.shape)} "
-                         f"with {weights.dtype} weights (see supports())")
-    for name, t, shape in (("x_dense", x_dense, (m, b, f)), ("labels", labels, (m, b)),
-                           ("mask", mask, (m, b)), ("weights", weights, (m, f))):
-        if (t.device != dev or tuple(t.shape) != shape or t.dtype != torch.float32
-                or not t.is_contiguous()):
-            raise ValueError(f"{name} must be contiguous float32 {shape} on {dev}, "
-                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
     launches = []
     with torch.cuda.device(dev):
         sm_count, shared_limit = device_limits(torch.cuda.current_device())
@@ -976,3 +1086,120 @@ def _tenant_launches(x_dense, labels, mask, weights, *, valid_rows, num_iteratio
 
 fused_dense_sgd_tenants.launches = 0
 fused_dense_sgd_tenants.last_iterations = None
+
+
+def fused_dense_sgd_tenants_split(
+    x_dense, labels, mask, weights, *, valid_rows, allreduce, num_iterations: int,
+    step_sizes, l2_regs, convergence_tol: float = 0.001, residual_fn=least_squares_residual,
+):
+    """M tenants' data-parallel loops on this rank's rows of their parts, the
+    M steps' all-reduces batched into one (the vmap form of a tenant stack
+    over a data axis): ``fused_dense_sgd_tenants``' arguments, with
+    ``valid_rows`` this rank's, and ``allreduce(t)`` an in-place SUM over the
+    ranks of a float32 tensor on the batch's device. Returns (new weights [M,
+    F], this rank's raw predictions [M, B]).
+
+    On the card, for each TENANTS_PER_LAUNCH tenants, ``split_schedule``'s
+    launches of ``tenant_iteration_kernel`` (csrc/fused_sgd.cu; its first
+    stages X and writes the predictions, each later one updates every
+    tenant from the all-reduced buffer before its row pass, the last
+    updates alone), and between iterations ONE ``allreduce`` of every
+    tenant's Xᵀr and count, [M, fpad + 1] floats: N + 1 launches a
+    TENANTS_PER_LAUNCH tenants and N all-reduces a step, whatever M, no host
+    read of convergence. Counted in ``fused_dense_sgd_tenants_split.launches``;
+    each tenant's iterations run in the device tensor
+    ``.last_iterations`` [M]. On the CPU the plain version,
+    ``fused_dense_sgd_tenants_split_reference``. At ``num_iterations == 0``
+    no rank exchanges anything: the tenant grid's predict mode."""
+    kw = dict(valid_rows=valid_rows, num_iterations=num_iterations, step_sizes=step_sizes,
+              l2_regs=l2_regs, convergence_tol=convergence_tol, residual_fn=residual_fn)
+    if num_iterations == 0:
+        return fused_dense_sgd_tenants(x_dense, labels, mask, weights, **kw)
+    if x_dense.device.type == "cpu":
+        _check_tenants(x_dense, **kw)
+        return fused_dense_sgd_tenants_split_reference(
+            x_dense, labels, mask, weights, allreduce=allreduce,
+            num_iterations=num_iterations, step_sizes=step_sizes, l2_regs=l2_regs,
+            convergence_tol=convergence_tol, residual_fn=residual_fn)
+    mode = _check_tenants_cuda("fused_dense_sgd_tenants_split", x_dense, labels, mask,
+                               weights, **kw)
+    step = TenantSplitStep(x_dense, labels, mask, weights, valid_rows=valid_rows,
+                           step_sizes=step_sizes, l2_regs=l2_regs,
+                           convergence_tol=convergence_tol, mode=mode)
+    for what, it in split_schedule(num_iterations):
+        if what == "allreduce":
+            allreduce(step.gbuf)
+        else:
+            step.launch(it, row_pass=what == "grad")
+    fused_dense_sgd_tenants_split.last_iterations = step.iterations
+    return step.w, step.preds
+
+
+class TenantSplitStep:
+    """One step of the split with a tenant grid on the card, set up on the
+    current stream of the batch's device: the outputs ``w`` [M, F] and
+    ``preds`` [M, B], the all-reduce buffer ``gbuf`` [M, fpad + 1] and, for
+    each TENANTS_PER_LAUNCH tenants, its ``tenant_split_plan``, staged X,
+    scratch, state and the C entry's arguments. ``launch(it, row_pass)``
+    makes iteration ``it``'s launch of every such group of tenants (with
+    ``row_pass`` False the update of ``it`` alone), each counted in
+    ``fused_dense_sgd_tenants_split.launches``; the caller all-reduces
+    ``gbuf`` between them (``fused_dense_sgd_tenants_split``). The arguments
+    are checked by the caller (``_check_tenants_cuda``)."""
+
+    def __init__(self, x_dense, labels, mask, weights, *, valid_rows, step_sizes, l2_regs,
+                 convergence_tol: float, mode: int):
+        m, b, f = x_dense.shape
+        valid_rows = [int(v) for v in valid_rows]
+        dev = x_dense.device
+        self.device, self.tol, self.mode = dev, float(convergence_tol), int(mode)
+        self._entry = _entry("twtml_fused_dense_tenants_split")
+        with torch.cuda.device(dev):
+            sm_count, shared_limit = device_limits(torch.cuda.current_device())
+            self.w = torch.empty((m, f), dtype=torch.float32, device=dev)
+            self.preds = torch.empty((m, b), dtype=torch.float32, device=dev)
+            self.gbuf = torch.empty((m, padded_columns(f) + 1), dtype=torch.float32,
+                                    device=dev)
+            self.launches = []  # (plan, the entry's arguments before it, buffers)
+            for lo in range(0, m, TENANTS_PER_LAUNCH):
+                hi = min(m, lo + TENANTS_PER_LAUNCH)
+                split = tenant_split_plan(valid_rows[lo:hi], b, f, sm_count=sm_count,
+                                          shared_limit=shared_limit)
+                plan, n = split.tenants, hi - lo
+                bufs = (torch.empty((plan.spill_elements,), dtype=torch.bfloat16, device=dev),
+                        torch.empty((split.scratch_floats,), dtype=torch.float32, device=dev),
+                        torch.empty((1,), dtype=torch.int32, device=dev))
+                head = (x_dense[lo].data_ptr(), labels[lo].data_ptr(), mask[lo].data_ptr(),
+                        weights[lo].data_ptr(), self.w[lo].data_ptr(),
+                        self.preds[lo].data_ptr(), *(t.data_ptr() for t in bufs),
+                        self.gbuf[lo].data_ptr(), n, b, f, plan.fpad, plan.grid,
+                        plan.rows_cap, plan.shared_bytes, _layout_arg(plan.smem_layout),
+                        (ctypes.c_int * (n + 1))(*plan.first_cta),
+                        (ctypes.c_int * n)(*plan.valid_rows),
+                        (ctypes.c_float * n)(*(float(v) for v in step_sizes[lo:hi])),
+                        (ctypes.c_float * n)(*(float(v) for v in l2_regs[lo:hi])),
+                        split.slices)
+                self.launches.append((split, head, bufs))
+
+    def launch(self, it: int, row_pass: bool = True) -> None:
+        with torch.cuda.device(self.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            for split, head, _ in self.launches:
+                err = self._entry(*head, int(it), int(row_pass), self.tol, self.mode, stream)
+                if err == 1:  # cudaErrorInvalidValue: the entry's own checks
+                    raise RuntimeError("fused_dense_sgd_tenants_split: the kernel refused "
+                                       f"the plan {split}")
+                if err != 0:  # a refused cooperative launch included
+                    raise RuntimeError("fused_dense_sgd_tenants_split launch failed: "
+                                       f"CUDA error {err}")
+                fused_dense_sgd_tenants_split.launches += 1
+
+    @property
+    def iterations(self) -> torch.Tensor:
+        """Each tenant's iterations run (a device tensor [M])."""
+        its = [bufs[1][-split.tenants.tenants:] for split, _, bufs in self.launches]
+        return its[0] if len(its) == 1 else torch.cat(its)
+
+
+fused_dense_sgd_tenants_split.launches = 0
+fused_dense_sgd_tenants_split.last_iterations = None

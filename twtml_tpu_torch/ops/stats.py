@@ -38,7 +38,8 @@ def batch_stats(labels, rounded_preds, mask, reduce=None) -> dict:
     the JAX package's ``psum`` over the data axis) the six sums are this
     rank's rows' and go through ONE ``reduce`` before the divisions, so
     every rank gets the global stats; without it the sums are taken in the
-    same order, and the results are the single-device ones."""
+    same order, and the results are the single-device ones. [M, B] inputs
+    reduce their [6, M] sums in the same one call."""
     if reduce is None:
         count = masked_count(mask)
         err = (labels - rounded_preds) * mask
@@ -51,7 +52,7 @@ def batch_stats(labels, rounded_preds, mask, reduce=None) -> dict:
         }
     err = (labels - rounded_preds) * mask
     sums = torch.stack([
-        masked_count(mask), torch.sum(err * err),
+        masked_count(mask), torch.sum(err * err, dim=-1),
         masked_sum(labels, mask), masked_sum(labels * labels, mask),
         masked_sum(rounded_preds, mask), masked_sum(rounded_preds * rounded_preds, mask),
     ])

@@ -42,22 +42,27 @@ Over a process group (``mesh``, with its ``group``'s Collectives):
 
 - on a data axis (``DataMesh``) each tenant's step is the data-parallel
   step of this rank's part of the rows (``make_sgd_train_step(group=...)``:
-  on the card B1's split, once a tenant), every rank holding the whole
-  stack, replicated;
+  on the card B1's split, once a tenant: M x (N + 1) all-reduces a tick),
+  every rank holding the whole stack, replicated. The vmap form batches
+  the M tenants' data-parallel steps into one (``make_sgd_tenant_step(
+  group=...)``, the JAX vmap inside ``shard_map``): on the card the dense
+  float32 route is the split with a tenant grid
+  (``fused_dense_sgd_tenants_split``), the torch-loop routes reduce every
+  tenant's sums in one buffer, so a tick makes N + 1 all-reduces (N + 2
+  with the quality vector) whatever M; the 2^18 routes still run the
+  tenants' data-parallel steps in turn (ROADMAP B10 c);
 - on a ``('data', 'model')`` mesh (``ModelMesh``) the TENANTS shard over
   ``model``: rank (d, m) holds and trains tenants [m·M/n, (m+1)·M/n) (n the
-  model axis) on data shard d's rows, data-parallel over ``data``; the
-  tenants are independent, so no collective crosses ``model`` inside a
-  tick. Its step returns its own tenants' [M/n]-leading outputs, and
-  ``latest_weights`` all-gathers the stack over ``model``.
+  model axis) on data shard d's rows, data-parallel over ``data`` (the vmap
+  form batches the rank's own tenants the same way); the tenants are
+  independent, so no collective crosses ``model`` inside a tick. Its step
+  returns its own tenants' [M/n]-leading outputs, and ``latest_weights``
+  all-gathers the stack over ``model``.
 
 ``MultiHostTenantModel`` is the tenant fleet of the multi-host runtime
 (``--tenants M`` in a group): each host routes its own rows with the
 deterministic key into the stacked wire, the tenant stack on the group's
 data axis, one fetch a tick.
-
-Not here: ``mapping="vmap"`` over a mesh, whose Hopper form is the split
-with a tenant grid (ROADMAP B10 b).
 """
 
 from __future__ import annotations
@@ -134,10 +139,6 @@ def split_tenant_output(out: StepOutput, num_tenants: int) -> list:
             for m in range(num_tenants)]
 
 
-def _refuse(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what}, which the port has not ported (ROADMAP {item})")
-
-
 class TenantStackModel:
     """M stacked streaming-SGD learners with the single learner's surface
     (``step``, ``fetch_output``, ``latest_weights``,
@@ -187,9 +188,6 @@ class TenantStackModel:
             raise ValueError(f"mapping must be 'scan' or 'vmap', got {mapping!r}")
         if wire_pack not in ("stacked", "group"):
             raise ValueError(f"wire_pack must be 'stacked' or 'group', got {wire_pack!r}")
-        if mapping == "vmap" and mesh is not None:
-            raise _refuse("mapping='vmap' over a mesh batches the tenants' data-parallel "
-                          "steps: on the card that is the split with a tenant grid", "B10 b")
         self.mapping = mapping
         self.mesh = mesh
         # this rank's tenants [tenant0, tenant0 + num_local) and the group
@@ -248,15 +246,17 @@ class TenantStackModel:
                 )
             self._steps.append(built[hyper])
         self.route = self._steps[0].route
-        # the vmap form's one batched step: the dense regime's routes
+        # the vmap form's one batched step over this rank's tenants: the
+        # dense regime's routes
         self._batched = None
         if mapping == "vmap" and not self._steps[0].sparse:
             self._batched = make_sgd_tenant_step(
-                num_tenants=num_tenants, step_sizes=self.step_sizes, l2_regs=self.l2_regs,
-                num_text_features=num_text_features, num_iterations=num_iterations,
-                mini_batch_fraction=mini_batch_fraction, convergence_tol=convergence_tol,
-                residual_fn=residual_fn, prediction_fn=prediction_fn,
-                round_predictions=round_predictions, quality=quality, dtype=dtype)
+                num_tenants=self.num_local, step_sizes=self.step_sizes[mine],
+                l2_regs=self.l2_regs[mine], num_text_features=num_text_features,
+                num_iterations=num_iterations, mini_batch_fraction=mini_batch_fraction,
+                convergence_tol=convergence_tol, residual_fn=residual_fn,
+                prediction_fn=prediction_fn, round_predictions=round_predictions,
+                quality=quality, dtype=dtype, group=data_group)
         form = ("scan: a step a tenant" if mapping == "scan" else
                 "vmap: one batched step" if self._batched is not None else
                 f"vmap: the {self.route} route has no batched form (ROADMAP B10 c), so the "

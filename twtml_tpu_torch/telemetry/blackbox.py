@@ -10,7 +10,8 @@ config, sticky notes (the last checkpoint, the last rollback), the event ring
 snapshot and the health summary. Its keys are the JAX package's, so that
 package's ``tools/postmortem_report.py`` renders it; ``history`` is the
 telemetry historian's in-memory tail (None with ``--history off``) and
-``hosts`` is None (the per-host sideband is not ported).
+``hosts`` the lockstep sideband's newest hosts[] view
+(``telemetry/sideband.last_hosts``, None before a lockstep tick).
 
 Recording is one lock and one deque append on the host; the dump runs once,
 on the way down. Nothing here touches the device.
@@ -77,6 +78,7 @@ class FlightRecorder:
     def bundle(self, reason: str) -> dict:
         from . import historian as _historian
         from . import metrics as _metrics
+        from . import sideband as _sideband
 
         with self._lock:
             events = list(self._ring)
@@ -94,7 +96,7 @@ class FlightRecorder:
             "events_dropped": dropped,
             "metrics": _metrics.get_registry().snapshot(),
             "health": _metrics.get_health_monitor().summary(),
-            "hosts": None,
+            "hosts": _sideband.last_hosts(),
             # the minutes before the dump: the historian's in-memory tail
             # (samples and phase transitions), None with --history off
             "history": _historian.bundle_tail(),

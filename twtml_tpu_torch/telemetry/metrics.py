@@ -12,8 +12,9 @@ degraded phases, self-relative: degraded when the rolling median sits
 ``degrade_factor`` times above the best wait seen. On the card the fetch
 wait is the host's wait on a batch's device-to-host copy event
 (apps/common.py ``FetchPipeline``); the watchdog's deadline derives from its
-median. The trace and flight-recorder stamps of the JAX package's monitor
-are not ported.
+median. A phase flip is stamped, as in the JAX package, into the registry,
+the active trace (a ``health_phase`` instant) and the flight recorder's
+ring (a ``health_phase`` record).
 """
 
 from __future__ import annotations
@@ -191,8 +192,10 @@ class TunnelHealthMonitor:
     window, DEGRADED when the window median exceeds ``degrade_factor`` x the
     best latency ever seen (and ``floor_s``), HEALTHY again under
     ``recover_factor`` x best (or ``floor_s``). A transition counts in the
-    registry (``tunnel.phase_transitions``, ``tunnel.degraded``). ``now`` is
-    injectable for deterministic tests."""
+    registry (``tunnel.phase_transitions``, ``tunnel.degraded``) and lands as
+    a ``health_phase`` instant in the active trace and a ``health_phase``
+    record in the flight recorder's ring (``_stamp``). ``now`` is injectable
+    for deterministic tests."""
 
     HEALTHY = "healthy"
     DEGRADED = "degraded"
@@ -240,10 +243,22 @@ class TunnelHealthMonitor:
             if flipped:
                 self.transitions.append((now, new_phase))
         if flipped:
-            reg = self._registry if self._registry is not None else get_registry()
-            reg.counter("tunnel.phase_transitions").inc()
-            reg.gauge("tunnel.degraded").set(1 if new_phase == self.DEGRADED else 0)
+            self._stamp(new_phase, latency_s)
         return new_phase
+
+    def _stamp(self, phase: str, latency_s: float) -> None:
+        """A phase flip in the registry, the active trace and the flight
+        recorder's ring (outside the lock: the trace writer takes its own),
+        with the JAX package's names and fields."""
+        from . import blackbox as _blackbox
+        from . import trace as _trace
+
+        reg = self._registry if self._registry is not None else get_registry()
+        reg.counter("tunnel.phase_transitions").inc()
+        reg.gauge("tunnel.degraded").set(1 if phase == self.DEGRADED else 0)
+        latency_ms = round(latency_s * 1e3, 3)
+        _trace.get().instant("health_phase", phase=phase, latency_ms=latency_ms)
+        _blackbox.record("health_phase", phase=phase, latency_ms=latency_ms)
 
     def median_ms(self) -> float:
         with self._lock:
