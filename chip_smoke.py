@@ -406,6 +406,15 @@ against this checkout's, each in a process of its own, with each tree's
 phase split where it has the timing instantiation (``grid_ab``); its last
 line is their JSON.
 
+``python3 chip_smoke.py --tsplit-ab N --package-root DIR`` runs phases 1
+and 2 (on DIR's port) and then only N alternating pairs of the split with
+a tenant grid at 4 x 2048 valid rows of a rank's 8192 x 1004: its
+iteration and update-only launches against the split's on the same rows,
+the host's enqueue and, where a tree has the timing instantiation, the
+phase split at 4 tenants and at one tenant of every row, DIR's port
+against this checkout's, each in a process of its own (``tsplit_ab``);
+its last line is their JSON.
+
 ``python3 chip_smoke.py --split-ab N --package-root DIR`` runs phases 1 and
 2 (on DIR's port) and then only N alternating pairs of one split
 iteration's device time at a rank's B = 8192 x 1004, DIR's port (e.g. the
@@ -5364,19 +5373,47 @@ def grid_ab_times(runs=5):
     return out
 
 
-# one arm of ``--grid-ab``: the port found in argv[1], this chip_smoke
-# (argv[2]) for its inputs and timing; the result as the last line
-GRID_AB_RUN = r"""
+# one arm of an A/B mode (``--grid-ab``, ``--split-ab``, ``--tsplit-ab``):
+# the port found in argv[1], this chip_smoke (argv[2]) for its inputs and
+# timing, its function argv[3]; the result as the last line
+AB_RUN = r"""
 import importlib.util, json, sys
 sys.path.insert(0, sys.argv[1])
 spec = importlib.util.spec_from_file_location("chip_smoke_ab", sys.argv[2])
 cs = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(cs)
 import twtml_tpu_torch
-out = cs.grid_ab_times()
+out = getattr(cs, sys.argv[3])()
 out["package"] = twtml_tpu_torch.__file__
 print(json.dumps(out), flush=True)
 """
+
+
+def ab_pairs(label, fn, pairs, parent_root, report, timeout=900):
+    """``pairs`` pairs of an A/B mode's runs: ``fn`` (this chip_smoke's
+    function of that name, returning a dict) on the port found in
+    ``parent_root`` and on this checkout's, each in a process of its own,
+    the order alternating; ``report(pair, arm, record)`` after each run.
+    Returns each arm's records, with their pair and position."""
+    roots = {"parent": parent_root, "change": HERE}
+    runs = {"parent": [], "change": []}
+    for i in range(pairs):
+        order = ("parent", "change") if i % 2 == 0 else ("change", "parent")
+        for arm in order:
+            res = subprocess.run([sys.executable, "-c", AB_RUN, roots[arm],
+                                  os.path.join(HERE, "chip_smoke.py"), fn],
+                                 capture_output=True, text=True, timeout=timeout)
+            lines = res.stdout.splitlines()
+            if res.returncode != 0 or not lines or not lines[-1].startswith("{"):
+                raise AssertionError(f"{label} {arm} pair {i}: exit {res.returncode}:\n"
+                                     f"{res.stderr[-4000:]}")
+            rec = json.loads(lines[-1])
+            if os.path.dirname(os.path.dirname(rec["package"])) != roots[arm]:
+                raise AssertionError(f"{label} {arm}: imported {rec['package']}")
+            rec.update(pair=i, position=order.index(arm))
+            runs[arm].append(rec)
+            report(i, arm, rec)
+    return runs
 
 
 def ptxas_blocks(text, kernel):
@@ -5401,29 +5438,16 @@ def grid_ab(smi, pairs, parent_root):
     probe's split where a tree has it; each tree's ptxas report."""
     import glob
 
+    def report(i, arm, rec):
+        phase("grid-ab", f"pair {i} {arm} (run {rec['position'] + 1} of 2): the grid at 4 "
+              f"x 4096 {rec['grid_ms']:.4f} ms, one tenant {rec['one_tenant_ms']:.4f} ms, "
+              f"B1 on the 16384 rows {rec['b1_ms']:.4f} ms (median of 20 runs of 5 calls)")
+        for key in ("probe", "probe_one_tenant"):
+            if key in rec:
+                phase("grid-ab", f"pair {i} {arm} {key}: {probe_text(rec[key])}")
+
     roots = {"parent": parent_root, "change": HERE}
-    runs = {"parent": [], "change": []}
-    for i in range(pairs):
-        order = ("parent", "change") if i % 2 == 0 else ("change", "parent")
-        for arm in order:
-            res = subprocess.run([sys.executable, "-c", GRID_AB_RUN, roots[arm],
-                                  os.path.join(HERE, "chip_smoke.py")],
-                                 capture_output=True, text=True, timeout=900)
-            lines = res.stdout.splitlines()
-            if res.returncode != 0 or not lines or not lines[-1].startswith("{"):
-                raise AssertionError(f"grid-ab {arm} pair {i}: exit {res.returncode}:\n"
-                                     f"{res.stderr[-4000:]}")
-            rec = json.loads(lines[-1])
-            if os.path.dirname(os.path.dirname(rec["package"])) != roots[arm]:
-                raise AssertionError(f"grid-ab {arm}: imported {rec['package']}")
-            rec.update(pair=i, position=order.index(arm))
-            runs[arm].append(rec)
-            phase("grid-ab", f"pair {i} {arm} (run {order.index(arm) + 1} of 2): the grid at 4 "
-                  f"x 4096 {rec['grid_ms']:.4f} ms, one tenant {rec['one_tenant_ms']:.4f} ms, "
-                  f"B1 on the 16384 rows {rec['b1_ms']:.4f} ms (median of 20 runs of 5 calls)")
-            for key in ("probe", "probe_one_tenant"):
-                if key in rec:
-                    phase("grid-ab", f"pair {i} {arm} {key}: {probe_text(rec[key])}")
+    runs = ab_pairs("grid-ab", "grid_ab_times", pairs, parent_root, report)
     keys = ("grid_ms", "one_tenant_ms", "b1_ms")
     medians = {arm: {k: statistics.median(r[k] for r in rows) for k in keys}
                for arm, rows in runs.items()}
@@ -6756,21 +6780,6 @@ def split_iteration_ms(runs=5, n=50):
             "entries": entries}
 
 
-# one arm of ``--split-ab``: the port found in argv[1], this chip_smoke
-# (argv[2]) for its inputs and timing; the result as the last line
-SPLIT_AB_RUN = r"""
-import importlib.util, json, sys
-sys.path.insert(0, sys.argv[1])
-spec = importlib.util.spec_from_file_location("chip_smoke_ab", sys.argv[2])
-cs = importlib.util.module_from_spec(spec)
-spec.loader.exec_module(cs)
-import twtml_tpu_torch
-out = cs.split_iteration_ms()
-out["package"] = twtml_tpu_torch.__file__
-print(json.dumps(out), flush=True)
-"""
-
-
 def split_ab(smi, pairs, parent_root):
     """``--split-ab N --package-root DIR``: one split iteration at a rank's
     B = 8192 x 1004, the port found in DIR (e.g. the parent commit
@@ -6780,29 +6789,16 @@ def split_ab(smi, pairs, parent_root):
     report of each tree's fused_sgd build."""
     import glob
 
+    def report(i, arm, rec):
+        phase("split-ab", f"pair {i} {arm} (run {rec['position'] + 1} of 2): an iteration "
+              f"{rec['iteration_ms']:.5f} ms in {rec['launches_an_iteration']} launch(es) "
+              f"(CUDA events, 50 queued, median of 5; the host's enqueue "
+              f"{rec['host_us_an_iteration']:.1f} µs), a step at world size 1 "
+              f"{rec['step_ms']:.4f} ms in {rec['launches_a_step']} launches; B1 at "
+              f"{OP_ROWS} x 1004 {rec['b1_ms']:.4f} ms")
+
     roots = {"parent": parent_root, "change": HERE}
-    runs = {"parent": [], "change": []}
-    for i in range(pairs):
-        order = ("parent", "change") if i % 2 == 0 else ("change", "parent")
-        for arm in order:
-            res = subprocess.run([sys.executable, "-c", SPLIT_AB_RUN, roots[arm],
-                                  os.path.join(HERE, "chip_smoke.py")],
-                                 capture_output=True, text=True, timeout=600)
-            lines = res.stdout.splitlines()
-            if res.returncode != 0 or not lines or not lines[-1].startswith("{"):
-                raise AssertionError(f"split-ab {arm} pair {i}: exit {res.returncode}:\n"
-                                     f"{res.stderr[-4000:]}")
-            rec = json.loads(lines[-1])
-            if os.path.dirname(os.path.dirname(rec["package"])) != roots[arm]:
-                raise AssertionError(f"split-ab {arm}: imported {rec['package']}")
-            rec.update(pair=i, position=order.index(arm))
-            runs[arm].append(rec)
-            phase("split-ab", f"pair {i} {arm} (run {order.index(arm) + 1} of 2): an iteration "
-                  f"{rec['iteration_ms']:.5f} ms in {rec['launches_an_iteration']} launch(es) "
-                  f"(CUDA events, 50 queued, median of 5; the host's enqueue "
-                  f"{rec['host_us_an_iteration']:.1f} µs), a step at world size 1 "
-                  f"{rec['step_ms']:.4f} ms in {rec['launches_a_step']} launches; B1 at "
-                  f"{OP_ROWS} x 1004 {rec['b1_ms']:.4f} ms")
+    runs = ab_pairs("split-ab", "split_iteration_ms", pairs, parent_root, report, timeout=600)
     medians = {arm: {k: statistics.median(r[k] for r in rows)
                      for k in ("iteration_ms", "host_us_an_iteration", "step_ms", "b1_ms")}
                for arm, rows in runs.items()}
@@ -7744,25 +7740,85 @@ TS_M = 4  # the arm's tenants
 TS_F = 1000  # text columns: 1004 with the numeric ones
 TS_TICKS = 4  # timed ticks a run, after one warm-up tick
 TS_ENTRY = "fused_dense_sgd_tenants_split"
-# each rank's tenants' valid rows in the kernel checks' parts of MH_ROWS rows:
-# tenant 1 has rows on rank 0 only, tenant 2 on neither (its global count 0)
-TS_CHECK_VALID = ((2048, 2048, 0, 3072), (2048, 0, 0, 1024))
 TS_TIME_VALID = 2048  # a tenant's valid rows in the timed launch: TS_M x 2048 = MH_ROWS
+TS_PROBE_LAUNCHES = 20  # probe launches a split (each stamps one iteration)
 
 
-def tenant_split_times(smi):
-    """The split with a tenant grid's iteration launch (it = 2: the update of
-    1 folded in) on a rank's MH_ROWS x 1004 rows (``split_inputs``) cut into
-    TS_M parts of TS_TIME_VALID valid rows, each padded to MH_ROWS as the
-    tenant wire carries it, the all-reduce an identity: against the split's
-    iteration launch on the same rows as one model, in turns (split,
-    tenants, tenants, split, each the median of 5 runs of 50 queued
-    launches); its plain version (each tenant's
-    ``fused_dense_iteration_reference``), the library call (``torch.bmm`` of
-    the TS_M tenants' Xᵀr on the f32 X of their valid rows) and its bound.
-    Returns the kernels line's record, without its launches and errors."""
+def ts_check_valid(m, rows):
+    """Each rank's valid rows of the kernel checks' M parts of ``rows`` rows:
+    every row on rank 0, a varying share on rank 1; tenant 1 has rows on
+    rank 0 only, tenant 2 (M > 2) on neither (its global count 0)."""
+    r0 = [rows] * m
+    r1 = [rows // 2 + (t * 37) % (rows // 2) for t in range(m)]
+    r1[1] = 0
+    if m > 2:
+        r0[2] = r1[2] = 0
+    return [r0, r1]
+
+
+# the kernel checks on 2 ranks: (tenants, a part's rows, each rank's valid
+# rows). M = 2 ... 32 split a rank's MH_ROWS rows into M parts, at each
+# count where the kernel's layouts change: up to 12 tenants the reduce
+# shares its 12 warps (6, 2 and 1 a tenant at M = 2, 5 and 8 or 12; at
+# M = 5 two warps idle), above 12 it takes a thread a (tenant, column)
+# pair; the update's lanes a tenant change with M, and above 6 tenants the
+# decisions take the table of lane sums. The skew gives the four tenants
+# 1 : 3 : 0 : 12 of the rows on rank 0 and 12 : 0 : 0 : 4 on rank 1
+TS_CHECKS = {
+    "m4": (4, MH_ROWS, [[2048, 2048, 0, 3072], [2048, 0, 0, 1024]]),
+    **{f"m{m}": (m, MH_ROWS // m, ts_check_valid(m, MH_ROWS // m)) for m in (2, 5, 8, 12)},
+    "m16": (16, MH_ROWS // 16, ts_check_valid(16, MH_ROWS // 16)),
+    "m32": (32, MH_ROWS // 32, ts_check_valid(32, MH_ROWS // 32)),
+    "skew": (4, MH_ROWS, [[v * MH_ROWS // 16 for v in (1, 3, 0, 12)],
+                          [v * MH_ROWS // 16 for v in (12, 0, 0, 4)]]),
+}
+
+
+def tsplit_probe(parts, w0s, runs=TS_PROBE_LAUNCHES):
+    """The split with a tenant grid's phase split on ``parts`` (x, y, mask
+    [M, B, ·]): ``runs`` launches of its timing instantiation at it = 2
+    (``fused_sgd.tenant_split_probe``), each phase's mean in µs
+    (``tenant_split_probe_split``) and their sum."""
+    from twtml_tpu_torch.features.batch import tenant_valid_rows
+    from twtml_tpu_torch.ops import fused_sgd
+
+    m = parts[0].shape[0]
+    valid = tenant_valid_rows(parts[2].cpu().numpy())
+    stamps = fused_sgd.tenant_split_probe(*parts, w0s, valid_rows=valid, step_sizes=[1e-12] * m,
+                                          l2_regs=[0.0] * m, launches=runs)[2]
+    phases, launches, span, by_slot = fused_sgd.tenant_split_probe_split(stamps)
+    return {"iteration_us": phases, "us_an_iteration": sum(phases.values()),
+            "launches_stamped": launches, "span_us": span, "valid_rows": list(valid),
+            "cta0_us": by_slot.get(0, {}),
+            "last_ctas_us": {k: statistics.mean(v[k] for slot, v in by_slot.items() if slot)
+                             for k in phases} if len(by_slot) > 1 else {}}
+
+
+def tsplit_probe_text(split):
+    slots = "; ".join(f"{who} " + ", ".join(f"{k} {v:.3f}" for k, v in split[key].items())
+                      for who, key in (("CTA 0", "cta0_us"), ("the tenants' last CTAs",
+                                                              "last_ctas_us")) if split.get(key))
+    return (f"an iteration {split['us_an_iteration']:.2f} µs: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in split["iteration_us"].items())
+            + f" ({split['launches_stamped']} launches stamped, span {split['span_us']:.2f} µs"
+            + (f"; {slots})" if slots else ")"))
+
+
+def tenant_split_timing():
+    """The split with a tenant grid's launches on a rank's MH_ROWS x 1004
+    rows (``split_inputs``) cut into TS_M parts of TS_TIME_VALID valid rows,
+    each padded to MH_ROWS as the tenant wire carries it, the all-reduce an
+    identity, on the port this process imports: the iteration launch (it =
+    2: the update of 1 folded in) and the update-only launch, at TS_M
+    tenants and with the same rows as one tenant, each against the split's
+    on the same rows as one model, in turns (split, tenants, tenants, split;
+    each the median of 5 runs of 50 queued launches) with the host's µs to
+    enqueue one; where the port has the timing instantiation, its phase
+    split at TS_M tenants and at one tenant. Returns (the numbers, the
+    inputs and the step for the caller's twin and bound)."""
     import torch
 
+    from twtml_tpu_torch.features.batch import tenant_valid_rows
     from twtml_tpu_torch.ops import fused_sgd
 
     x, y, m, w0 = split_inputs()
@@ -7779,19 +7835,54 @@ def tenant_split_times(smi):
     bufs = fused_sgd.split_buffers(plan, x.device)
     w, preds = torch.empty_like(w0), torch.empty_like(y)
     fused_sgd.fused_dense_grad(plan, bufs, x, y, m, w0, w, preds, it=1, **kw)
-    n = 50
+    # the same rows as ONE tenant: the split's work through this kernel
+    one = (x[None].contiguous(), y[None].contiguous(), m[None].contiguous())
+    one_valid = tenant_valid_rows(one[2].cpu().numpy())
+    step1 = fused_sgd.TenantSplitStep(*one, w0[None].contiguous(), valid_rows=one_valid,
+                                      step_sizes=[1e-12], l2_regs=[0.0], convergence_tol=0.0,
+                                      mode=0)
+    step1.launch(1)
     arms = {"split": lambda: fused_sgd.fused_dense_grad(plan, bufs, x, y, m, w0, w, preds,
                                                         it=2, **kw),
-            "tenants": lambda: step.launch(2)}
-    times, host = {"split": [], "tenants": []}, {"split": [], "tenants": []}
-    for name in ("split", "tenants", "tenants", "split"):
-        ms_, _runs, host_us = split_queued(arms[name], 5, n)
-        times[name].append(ms_)
-        host[name].append(host_us)
-    fpad = plan.fpad
+            "tenants": lambda: step.launch(2),
+            "one_tenant": lambda: step1.launch(2),
+            "split_update": lambda: fused_sgd.fused_dense_update(plan, bufs, w, f, it=2, **kw),
+            "tenants_update": lambda: step.launch(2, row_pass=False),
+            "one_tenant_update": lambda: step1.launch(2, row_pass=False)}
+    times, host = ({name: [] for name in arms} for _ in range(2))
+    for pair in (("split", "tenants"), ("split", "one_tenant"),
+                 ("split_update", "tenants_update"), ("split_update", "one_tenant_update")):
+        for name in (*pair, *pair[::-1]):
+            ms_, _runs, host_us = split_queued(arms[name], 5, 50)
+            times[name].append(ms_)
+            host[name].append(host_us)
+    split_ = fused_sgd.tenant_split_plan([TS_TIME_VALID] * TS_M, rows, f, sm_count=sms,
+                                         shared_limit=shared)
+    out = {"ms": {k: statistics.median(v) for k, v in times.items()}, "turns_ms": times,
+           "host_us_a_launch": {k: statistics.median(v) for k, v in host.items()},
+           "grid": split_.tenants.grid, "slices": split_.slices, "rows": rows, "features": f,
+           "valid_rows": [TS_TIME_VALID] * TS_M}
+    if hasattr(fused_sgd, "tenant_split_probe"):
+        out["probe"] = tsplit_probe((xs, ys, ms), w0s)
+        out["probe_one_tenant"] = tsplit_probe(one, w0[None].contiguous())
+    return out, (xs, ys, ms, w0s, step, plan.fpad, kw)
+
+
+def tenant_split_times(smi):
+    """``tenant_split_timing``'s launches, probe splits and host enqueue, with
+    the iteration launch's plain version (each tenant's
+    ``fused_dense_iteration_reference``), the library call (``torch.bmm`` of
+    the TS_M tenants' Xᵀr on the f32 X of their valid rows) and its bound.
+    Returns the kernels line's record, without its launches and errors."""
+    import torch
+
+    from twtml_tpu_torch.ops import fused_sgd
+
+    t, (xs, ys, ms, w0s, step, fpad, kw) = tenant_split_timing()
+    rows, f, n = t["rows"], t["features"], 50
     g = torch.cat([step.gbuf[:, :f], step.gbuf[:, fpad:]], dim=1)
     plain_ms = split_queued(lambda: [fused_sgd.fused_dense_iteration_reference(
-        xs[t], ys[t], ms[t], w0s[t], g[t], it=2, **kw) for t in range(TS_M)], 3, 10)[0]
+        xs[u], ys[u], ms[u], w0s[u], g[u], it=2, **kw) for u in range(TS_M)], 3, 10)[0]
     v = TS_TIME_VALID
     xv = xs[:, :v].contiguous()
     r = (torch.bmm(xv, w0s[..., None])[..., 0] - ys[:, :v]) * ms[:, :v]
@@ -7803,38 +7894,106 @@ def tenant_split_times(smi):
     moved = 2 * valid * f + 4 * (2 * valid + 4 * f * TS_M + 2 * TS_M)
     ops = 4 * valid * f + 8 * f * TS_M  # x·w and r·x a valid element; the update's 8 a column
     bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS_PER_S * 1e3
-    split_ = step.launches[0][0]
+    update_moved = 4 * TS_M * (3 * f + 1)  # the update alone: w, Xᵀr, count read; w written
+    tms, host = t["ms"], t["host_us_a_launch"]
     record = {
         "name": TS_ENTRY, "route": "cuda", "source": "twtml_tpu_torch/csrc/fused_sgd.cu",
         "replaces": "twtml_tpu/ops/pallas_sgd.py:55",
-        "ms": statistics.median(times["tenants"]), "plain_ms": plain_ms,
+        "ms": tms["tenants"], "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": library_ms,
         "library": "torch.bmm(X.transpose(1, 2), r) of the tenants' valid rows, f32 X",
         "bound_bytes": moved, "card": smi, "tenants": TS_M, "rows": rows,
-        "valid_rows": [v] * TS_M, "features": f, "grid": split_.tenants.grid,
-        "slices": split_.slices, "split_ms": statistics.median(times["split"]),
-        "turns_ms": times, "host_us_a_launch": {k: statistics.median(h)
-                                                for k, h in host.items()},
+        "valid_rows": t["valid_rows"], "features": f, "grid": t["grid"],
+        "slices": t["slices"], "split_ms": tms["split"], "one_tenant_ms": tms["one_tenant"],
+        "update_ms": tms["tenants_update"],
+        "split_update_ms": tms["split_update"], "update_bound_bytes": update_moved,
+        "update_bound_ms": update_moved / HBM_BYTES_PER_S * 1e3, "turns_ms": t["turns_ms"],
+        "host_us_a_launch": host, "probe": t.get("probe"),
+        "probe_one_tenant": t.get("probe_one_tenant"),
     }
-    phase("modelaxis", f"{TS_ENTRY}: {record['ms']:.5f} ms an iteration launch at {TS_M} x "
-          f"{v} valid rows of {rows} x {f} (grid {record['grid']}, {record['slices']} "
-          f"slices; turns {[round(t, 5) for t in times['tenants']]}), the split's on the "
-          f"same {valid} rows as one model {record['split_ms']:.5f} ms (turns "
-          f"{[round(t, 5) for t in times['split']]}); twin {plain_ms:.5f} ms, "
-          f"{record['library']} {library_ms:.5f} ms, bound {record['bound_ms']:.5f} ms "
-          f"({record['bound_by']}, {moved} B); host enqueue {record['host_us_a_launch']} µs "
-          f"| card: {smi}")
+    phase("modelaxis", f"{TS_ENTRY}: {tms['tenants']:.5f} ms an iteration launch at {TS_M} x "
+          f"{v} valid rows of {rows} x {f} (grid {t['grid']}, {t['slices']} slices; turns "
+          f"{[round(x, 5) for x in t['turns_ms']['tenants']]}), the split's on the same {valid} "
+          f"rows as one model {tms['split']:.5f} ms (turns "
+          f"{[round(x, 5) for x in t['turns_ms']['split']]}), as one tenant through this "
+          f"kernel {tms['one_tenant']:.5f} ms; the update-only launch "
+          f"{tms['tenants_update']:.5f} ms (one tenant {tms['one_tenant_update']:.5f}) against "
+          f"the split's {tms['split_update']:.5f}; twin "
+          f"{plain_ms:.5f} ms, {record['library']} {library_ms:.5f} ms, bound "
+          f"{record['bound_ms']:.5f} ms ({record['bound_by']}, {moved} B); host enqueue "
+          f"{ {k: round(x, 1) for k, x in host.items()} } µs | card: {smi}")
+    for key in ("probe", "probe_one_tenant"):
+        phase("modelaxis", f"{TS_ENTRY} {key} (valid rows {t[key]['valid_rows']}): "
+              f"{tsplit_probe_text(t[key])} | card: {smi}")
     return record
+
+
+def tenant_split_ab_times():
+    """One ``--tsplit-ab`` arm: ``tenant_split_timing``'s numbers."""
+    return tenant_split_timing()[0]
+
+
+def tsplit_ab(smi, pairs, parent_root):
+    """``--tsplit-ab N --package-root DIR``: the split with a tenant grid at
+    TS_M x TS_TIME_VALID valid rows of a rank's MH_ROWS x 1004
+    (``tenant_split_timing``: the iteration and the update-only launch, the
+    split's beside them, the host's enqueue, the probe split where a tree
+    has it), the port found in DIR (e.g. the parent commit unpacked there)
+    against this checkout's, each arm in a process of its own, N pairs, the
+    order alternating; each tree's ptxas report of the kernel."""
+    import glob
+
+    def report(i, arm, rec):
+        ms, host = rec["ms"], rec["host_us_a_launch"]
+        phase("tsplit-ab", f"pair {i} {arm} (run {rec['position'] + 1} of 2): an iteration "
+              f"{ms['tenants']:.5f} ms (the split's {ms['split']:.5f}; one tenant of those "
+              f"rows {ms['one_tenant']:.5f}), the update-only launch "
+              f"{ms['tenants_update']:.5f} (the split's {ms['split_update']:.5f}); host "
+              f"enqueue {host['tenants']:.1f} / {host['tenants_update']:.1f} µs (the split's "
+              f"{host['split']:.1f} / {host['split_update']:.1f})")
+        for key in ("probe", "probe_one_tenant"):
+            if key in rec:
+                phase("tsplit-ab", f"pair {i} {arm} {key}: {tsplit_probe_text(rec[key])}")
+
+    roots = {"parent": parent_root, "change": HERE}
+    runs = ab_pairs("tsplit-ab", "tenant_split_ab_times", pairs, parent_root, report)
+    keys = {"iteration_ms": ("ms", "tenants"), "one_tenant_ms": ("ms", "one_tenant"),
+            "update_ms": ("ms", "tenants_update"),
+            "one_tenant_update_ms": ("ms", "one_tenant_update"),
+            "split_ms": ("ms", "split"), "split_update_ms": ("ms", "split_update"),
+            "host_us": ("host_us_a_launch", "tenants"),
+            "split_host_us": ("host_us_a_launch", "split")}
+    medians = {arm: {k: statistics.median(r[a][b] for r in rows) for k, (a, b) in keys.items()}
+               for arm, rows in runs.items()}
+    pair_of = lambda arm: sorted(runs[arm], key=lambda r: r["pair"])  # noqa: E731
+    wins = {k: sum(c[a][b] < p[a][b] for c, p in zip(pair_of("change"), pair_of("parent")))
+            for k, (a, b) in keys.items()}
+    for arm, root in roots.items():
+        for log in glob.glob(os.path.join(root, "build", "twtml_tpu_torch", "libfused_sgd-*.log")):
+            phase("tsplit-ab", f"{arm} build ({os.path.basename(log)}), tenant_iteration_kernel:\n"
+                  + "\n".join(ptxas_blocks(open(log).read(), "tenant_iteration_kernel")))
+    mc, mp = medians["change"], medians["parent"]
+    phase("tsplit-ab", f"medians over {pairs} pairs: an iteration {mc['iteration_ms']:.5f} ms "
+          f"against the parent's {mp['iteration_ms']:.5f}, lower in {wins['iteration_ms']} of "
+          f"{pairs} (the split's {mc['split_ms']:.5f} / {mp['split_ms']:.5f}; one tenant "
+          f"{mc['one_tenant_ms']:.5f} / {mp['one_tenant_ms']:.5f}); the update-only "
+          f"launch {mc['update_ms']:.5f} against {mp['update_ms']:.5f} (one tenant "
+          f"{mc['one_tenant_update_ms']:.5f} / {mp['one_tenant_update_ms']:.5f}; the split's "
+          f"{mc['split_update_ms']:.5f} / {mp['split_update_ms']:.5f}); host enqueue "
+          f"{mc['host_us']:.1f} against {mp['host_us']:.1f} µs (the split's "
+          f"{mc['split_host_us']:.1f} / {mp['split_host_us']:.1f}) | card: {smi}")
+    print(json.dumps({"tsplit_ab": {"pairs": pairs, "runs": runs, "medians": medians,
+                                    "change_wins": wins, "card": smi}}), flush=True)
 
 
 def tenants_mesh_arm(smi, statuses, workdir, pairs=1):
     """The vmap form over a data axis on 2 gloo ranks on the card
     (tests/torch_mesh_worker.py): the split with a tenant grid against its
     plain version on each rank over the real all-reduce (``tenant_split``
-    mode, both residual modes, TS_CHECK_VALID: a tenant dry on one rank,
-    one dry on both; NaN/Inf in masked rows bitwise ignored; one tenant
+    mode, both residual modes, each of TS_CHECKS: a tenant dry on one rank,
+    one dry on both when M > 2; NaN/Inf in masked rows bitwise ignored; one tenant
     bitwise the split), then TS_M tenants at 1004 columns on MH_ROWS rows a
     rank, a warm-up tick and TS_TICKS ticks of ``statuses``, the vmap form
     against the scan form on the same mesh in ``pairs`` turns of (vmap,
@@ -7854,10 +8013,11 @@ def tenants_mesh_arm(smi, statuses, workdir, pairs=1):
     ma_unit_batches(path, pool, OP_ROWS, TS_F, MA_LONG_UNITS)
     model = dict(num_text_features=TS_F, num_iterations=OP_ITERS, step_sizes=list(TENANT_STEPS),
                  l2_regs=list(TENANT_L2S), quality=True)
-    checks = [{"mode": "tenant_split", "name": f"split_{mode}", "residual": residual,
-               "tenants": TS_M, "rows": MH_ROWS, "features": TS_F + 4,
-               "valid": [list(v) for v in TS_CHECK_VALID], "iterations": OP_ITERS,
-               "step_sizes": list(steps), "l2_regs": list(TENANT_L2S), "seed": 41}
+    checks = [{"mode": "tenant_split", "name": f"split_{case}_{mode}", "residual": residual,
+               "tenants": m, "rows": rows, "features": TS_F + 4, "valid": valid,
+               "iterations": OP_ITERS, "step_sizes": [steps[t % 4] for t in range(m)],
+               "l2_regs": [TENANT_L2S[t % 4] for t in range(m)], "seed": 41}
+              for case, (m, rows, valid) in TS_CHECKS.items()
               for mode, residual, steps in (("least_squares", "", TENANT_STEPS),
                                             ("logistic", "logistic", TENANT_LG_STEPS))]
     order = [("vmap", "scan", "scan", "vmap")[i % 4] for i in range(4 * pairs)]
@@ -7877,15 +8037,16 @@ def tenants_mesh_arm(smi, statuses, workdir, pairs=1):
                                      and r["one_tenant_bitwise"])]
         if bad or not np.array_equal(ws[0], ws[1]) or rr[0]["iterations"] != rr[1]["iterations"]:
             raise AssertionError(f"tenants mesh {name}: {[{k: r[k] for k in ('w_err', 'p_err', 'within', 'dirty_bitwise', 'one_tenant_bitwise', 'iterations')} for r in rr]}, ranks' weights equal: {np.array_equal(ws[0], ws[1])}")
-        if MA_DEVICE == "cuda" and rr[0]["iterations"][2] != 0:
+        if MA_DEVICE == "cuda" and check["tenants"] > 2 and rr[0]["iterations"][2] != 0:
             raise AssertionError(f"tenants mesh {name}: tenant 2 (no row on any rank) ran "
                                  f"{rr[0]['iterations'][2]} iterations")
         errs += [r["w_err"] for r in rr] + [r["p_err"] for r in rr]
         out["checks"][name] = {"ranks": [{k: r[k] for k in ("valid", "iterations", "w_err",
                                                             "p_err", "w_scale", "p_scale")}
                                          for r in rr]}
-        phase("modelaxis", f"tenants mesh {name}: the split with a tenant grid on 2 ranks "
-              f"(valid rows {[r['valid'] for r in rr]}, iterations {rr[0]['iterations']}) "
+        phase("modelaxis", f"tenants mesh {name}: the split with a tenant grid on 2 ranks, "
+              f"{check['tenants']} parts of {check['rows']} rows (valid rows "
+              f"{[r['valid'] for r in rr]}, iterations {rr[0]['iterations']}) "
               f"within rtol {RTOL} atol {ATOL} of its plain version over the same all-reduce "
               f"(weights {max(r['w_err'] for r in rr):.3g}, margins "
               f"{max(r['p_err'] for r in rr):.3g}), the ranks' stacks bitwise equal (tenant 1 "
@@ -8522,6 +8683,9 @@ def main() -> None:
         return
     if "--grid-ab" in argv:
         grid_ab(smi, int(argv[argv.index("--grid-ab") + 1]), PACKAGE_ROOT)
+        return
+    if "--tsplit-ab" in argv:
+        tsplit_ab(smi, int(argv[argv.index("--tsplit-ab") + 1]), PACKAGE_ROOT)
         return
     if "--elastic-ab" in argv:
         os.environ["TWTML_NOW_MS"] = str(NOW_MS)

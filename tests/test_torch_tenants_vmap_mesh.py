@@ -15,8 +15,10 @@ vmap inside ``shard_map`` on ``make_mesh(num_data=2)``.
   vmap's within 1e-3, and no collective crosses the model axis in a tick.
 - The split with a tenant grid: its plain version with an identity
   all-reduce is the tenant grid's plain version, and at M = 1 the split's,
-  bit for bit; its launch plan at an H100's numbers updates every tenant's
-  every column, dry tenants' included.
+  bit for bit; over two ranks, at each tenant count where the kernel's
+  reduce changes layout, both ranks' stacks are alike bit for bit; its
+  launch plan at an H100's numbers updates every tenant's every column,
+  dry tenants' included.
 """
 
 import jax.numpy as jnp
@@ -309,6 +311,56 @@ def test_the_plain_version_reduces_every_tenant_in_one_call_an_iteration():
     torch.testing.assert_close(torch.cat([p0, p1], dim=1), want_p, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 6, 7, 8, 12, 13, 16, 32])
+def test_the_plain_version_over_two_ranks_at_each_reduce_layout(m):
+    """At each tenant count where the kernel's reduce and decisions change
+    layout (the on-card checks' counts among them): two ranks' halves of the
+    rows joined by a summing all-reduce, tenant 1 without rows on rank 1
+    and tenant 2 without rows on either. Both ranks hold the same weights
+    bit for bit, a tenant with no row keeps its w0, and the stack is the
+    tenant grid's on the whole rows within float rounding (rtol / atol
+    1e-5: the sums split at the ranks)."""
+    import threading
+
+    x, y, mask, w0 = _split_inputs(m, rows=24, f=68, seed=m)
+    if m > 1:
+        mask[1, 12:] = 0.0
+    if m > 2:
+        mask[2] = 0.0
+    steps = [STEP_SIZES[t % 4] for t in range(m)]
+    l2s = [L2_REGS[t % 4] for t in range(m)]
+    kw = dict(num_iterations=N, step_sizes=steps, l2_regs=l2s, convergence_tol=0.001,
+              residual_fn=fused_sgd.least_squares_residual)
+    barrier, slots, results = threading.Barrier(2), [None, None], [None, None]
+
+    def rank(r):
+        def allreduce(t):
+            slots[r] = t.clone()
+            barrier.wait()
+            total = slots[0] + slots[1]
+            barrier.wait()
+            t.copy_(total)
+            return t
+
+        rows = slice(12 * r, 12 * (r + 1))
+        results[r] = fused_sgd.fused_dense_sgd_tenants_split_reference(
+            x[:, rows], y[:, rows], mask[:, rows], w0, allreduce=allreduce, **kw)
+
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    (w, _), (w1, _) = results
+    assert torch.equal(w, w1)
+    if m > 2:
+        assert torch.equal(w[2], w0[2])
+    if m > 1:
+        assert not torch.equal(w[1], w0[1])  # updated on the rank without its rows too
+    want, _ = fused_sgd.fused_dense_sgd_tenants_reference(x, y, mask, w0, **kw)
+    torch.testing.assert_close(w, want, rtol=1e-5, atol=1e-5)
+
+
 H100_SMS, H100_SHARED = 132, 232_448
 SPLIT_PLAN_CASES = {
     "op_point_4_x_2048_of_8192": ([2048] * 4, 8192, 1004),
@@ -318,6 +370,15 @@ SPLIT_PLAN_CASES = {
     "small_parts": ([16, 0, 3, 16], 16, 68),
     "thirty_two_tenants": ([256] * 31 + [0], 8192, 1004),
     "wide_rows_f8196": ([1024, 0, 512, 512], 2048, 8196),
+    # the tenant counts at which the kernel's reduce and decisions change
+    # layout: 6, 4 and 2 warps a tenant (M = 2, 3, 5), one (M = 8, 12; the
+    # decisions from a table above 6), a thread a (tenant, column) pair (13)
+    "two_tenants": ([4096, 2048], 4096, 1004),
+    "three_tenants": ([2730, 0, 1365], 2730, 1004),
+    "five_tenants": ([1638, 1638, 0, 819, 1000], 1638, 1004),
+    "eight_tenants": ([1024] * 7 + [0], 1024, 1004),
+    "twelve_tenants": ([682, 341] * 6, 682, 1004),
+    "thirteen_tenants": ([630] * 12 + [1], 630, 1004),
 }
 
 
@@ -348,7 +409,7 @@ def test_the_tenant_split_plan_updates_every_tenants_columns(case):
             owned[t][r] += 1
     assert all(n == 1 for rows_ in owned for n in rows_)
     assert split.scratch_floats == ((plan.grid + len(valid)) * plan.fpad + plan.grid
-                                    + 2 * len(valid) * split.slices + len(valid))
+                                    + len(valid) + 2 * len(valid) * split.slices + len(valid))
     if case == "one_tenant_every_row":
         assert (plan.grid, plan.rows_cap, plan.shared_bytes) == (b1.grid, b1.rows_cap,
                                                                  b1.shared_bytes)
@@ -357,13 +418,17 @@ def test_the_tenant_split_plan_updates_every_tenants_columns(case):
 
 
 def test_the_tenant_split_entry_takes_the_wrapper_arguments():
-    """The C entry takes as many parameters as the wrapper's ctypes list."""
+    """Each C entry of the split with a tenant grid (the handle prepared once
+    a step, its launch, its release) takes as many parameters as the
+    wrapper's ctypes list for it."""
     import pathlib
     import re
 
     source = (pathlib.Path(fused_sgd.__file__).parents[1] / "csrc" / "fused_sgd.cu").read_text()
-    params = re.search(r'extern "C" int twtml_fused_dense_tenants_split\(([^)]*)\)', source)
-    assert len(params.group(1).split(",")) == len(fused_sgd.TENANT_SPLIT_ARGTYPES)
+    for name in ("twtml_tenant_split_prepare", "twtml_tenant_split_launch",
+                 "twtml_tenant_split_release"):
+        params = re.search(rf'extern "C" int {name}\(([^)]*)\)', source)
+        assert len(params.group(1).split(",")) == len(fused_sgd._ENTRIES[name]), name
 
 
 def test_the_tenant_split_refuses_what_the_grid_cannot_take():

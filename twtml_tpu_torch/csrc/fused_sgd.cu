@@ -123,7 +123,8 @@ constexpr int kPredictWarps = kPredictThreads / 32;
 #if !defined(TWTML_SGD_THREADS) || !defined(TWTML_SGD_TILE_COLUMNS) || \
     !defined(TWTML_SGD_REDUCE_SLOTS) || !defined(TWTML_SGD_SCRATCH_FLOATS) || \
     !defined(TWTML_SGD_PREDICT_THREADS) || !defined(TWTML_SGD_TENANTS_PER_LAUNCH) || \
-    !defined(TWTML_SGD_PROBE_PROLOGUE_EDGES) || !defined(TWTML_SGD_PROBE_ITERATION_EDGES)
+    !defined(TWTML_SGD_PROBE_PROLOGUE_EDGES) || !defined(TWTML_SGD_PROBE_ITERATION_EDGES) || \
+    !defined(TWTML_SGD_PROBE_SPLIT_EDGES)
 #error "build through twtml_tpu_torch/ops/_build.py, which passes the launch plan's constants"
 #endif
 static_assert(kThreads == TWTML_SGD_THREADS, "THREADS differs from ops/fused_sgd.py");
@@ -538,6 +539,11 @@ __device__ __forceinline__ void column_sums(const Params& p, float* red, int col
   }
 }
 
+// MLlib's converged test on the summed ‖Δw‖² and ‖w‖²
+__device__ __forceinline__ bool converged_norms(float ds, float ns, float tol) {
+  return tol > 0.f && sqrtf(ds) < tol * fmaxf(sqrtf(ns), 1.f);
+}
+
 // In warp 0 after the norm partials are in: the converged decision from
 // the ‖Δw‖² and ‖w‖² of the `ncta` CTAs at norm_part, summed lane-strided
 // over the CTAs and then across the warp, so every lane of every CTA takes
@@ -549,9 +555,7 @@ __device__ __forceinline__ bool converged(const float* norm_part, int ncta, floa
     ds += __ldcg(norm_part + 2 * c);
     ns += __ldcg(norm_part + 2 * c + 1);
   }
-  ds = warp_sum(ds);
-  ns = warp_sum(ns);
-  return tol > 0.f && sqrtf(ds) < tol * fmaxf(sqrtf(ns), 1.f);
+  return converged_norms(warp_sum(ds), warp_sum(ns), tol);
 }
 
 // In warp 0: the CTA's ‖Δw‖² and ‖w‖² partials from lanes' d and n.
@@ -867,6 +871,11 @@ static_assert(kPrologueEdges == TWTML_SGD_PROBE_PROLOGUE_EDGES,
               "PROBE_PROLOGUE_EDGES differs from ops/fused_sgd.py");
 static_assert(kIterEdges == TWTML_SGD_PROBE_ITERATION_EDGES,
               "PROBE_ITERATION_EDGES differs from ops/fused_sgd.py");
+// the split with a tenant grid's, a launch: entry, update, barrier 1,
+// decisions and reloads, row pass, barrier 2, reduce
+constexpr int kSplitEdges = 7;
+static_assert(kSplitEdges == TWTML_SGD_PROBE_SPLIT_EDGES,
+              "PROBE_SPLIT_EDGES differs from ops/fused_sgd.py");
 
 // kProbe only: after every thread of the CTA has reached it, thread 0 of a
 // stamping CTA (slot >= 0: CTA 0 is slot 0, tenant m's last CTA slot 1 + m)
@@ -887,6 +896,27 @@ __device__ __forceinline__ void probe_stamp(const TenantTable& t, int slot, int 
 
 constexpr int kStripeLoads = 4;  // a stripe's partial rows loaded at once
 constexpr int kDirectTenants = kWarps / 2;  // decisions straight from L2, a warp each
+
+// Σ src[r·stride] over rows r = first, first + step, ... < end, added in
+// ascending order, kStripeLoads loads issued before their adds. (A loop of
+// a runtime step and few trips leaves each load waiting for the add before
+// it: one L2 round trip a row.)
+__device__ __forceinline__ float strided_sum(const float* src, size_t stride, int first,
+                                             int step, int end) {
+  float g = 0.f;
+  for (int r0 = first; r0 < end; r0 += kStripeLoads * step) {
+    float v[kStripeLoads];
+#pragma unroll
+    for (int i = 0; i < kStripeLoads; ++i) {
+      const int r = r0 + i * step;
+      v[i] = r < end ? __ldcg(src + (size_t)r * stride) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kStripeLoads; ++i)
+      if (r0 + i * step < end) g += v[i];
+  }
+  return g;
+}
 
 // Tenant m's Xᵀr over this CTA's columns [col0, col1) from its k CTA
 // partials, in one round: thread i < stripes·cols takes column col0 + i %
@@ -978,9 +1008,7 @@ __device__ __forceinline__ bool tenant_converged(const float* norms, int ncta, f
     ds += norms[2 * c];
     ns += norms[2 * c + 1];
   }
-  ds = warp_sum(ds);
-  ns = warp_sum(ns);
-  return tol > 0.f && sqrtf(ds) < tol * fmaxf(sqrtf(ns), 1.f);
+  return converged_norms(warp_sum(ds), warp_sum(ns), tol);
 }
 
 template <bool kLogistic, bool kProbe>
@@ -1164,23 +1192,35 @@ __global__ void __launch_bounds__(kThreads, 1)
 //   (a) it >= 2: the update of iteration it − 1 of EVERY tenant still
 //       training, from the all-reduced gbuf, each with its own step size and
 //       L2 (update_column), over column slices shared grid-wide: CTA c takes
-//       slices c, c + grid, ... of every tenant, warp u tenant u (lanes 0-7
-//       8 adjacent columns, as the split's update), and writes the tenant's
-//       ‖Δw‖², ‖w‖² of the slice. A grid barrier; then warp u takes tenant
-//       u's converged decision over its slices (converged()); a tenant whose
-//       global count is 0 makes no update and ends there, as the split's
-//       step does. The finished tenants are one bit each in `state`;
+//       slices c, c + grid, ... of every tenant, and the (tenant, column)
+//       pairs of a slice spread over update_lanes() lanes a tenant
+//       (tenant_split_update: the count, w and Xᵀr loaded together, η and
+//       1 − η·λ computed while they are in flight), each tenant's ‖Δw‖²,
+//       ‖w‖² of the slice summed by its lanes' shuffles in an order set by M
+//       and the slice alone. Meanwhile the warps the update leaves free load
+//       the CTA's tenant's labels. A grid barrier; then every CTA takes
+//       every training tenant's converged decision while its other warps
+//       reload the CTA's tenant's new w (one round of loads; up to
+//       kDirectTenants warp u decides tenant u from L2, more from a table of
+//       lane sums in shared memory, both in converged()'s order). A tenant
+//       whose global count is 0 makes no update and ends there, as the
+//       split's step does. The finished tenants are one bit each in `state`;
 //   (b) the row pass of each CTA's tenant, if it still trains: the tenant
 //       grid's CTAs and rows (tenant t's CTAs [first_cta[t], first_cta[t+1])
 //       split its rows [0, valid[t]) on this rank as B1 splits a batch), the
 //       split's row pass over rows staged in a device buffer. The first
 //       launch stages X (stage_row), writes the predictions (0 past a
 //       tenant's valid rows) and each CTA's masked count;
-//   (c) a grid barrier, then each training tenant's Xᵀr over its CTAs into
-//       its row of gbuf, column slice by column slice in B1's order
-//       (column_sums), and CTA 0 each tenant's count into gbuf[t, fpad].
+//   (c) a grid barrier, then every training tenant's Xᵀr over its CTAs into
+//       its row of gbuf, all tenants in one round (tenant_split_reduce:
+//       column_sums with its 12 warps shared among the tenants; above 12
+//       tenants a thread a (tenant, column) pair), and each tenant's count:
+//       summed from the CTAs' counts by the first launch, which keeps it in
+//       `counts`, and copied from there by every later one.
 // After the last all-reduce one launch in update-only mode does (a) alone:
-// N + 1 launches and N all-reduces a step, whatever M.
+// N + 1 launches and N all-reduces a step, whatever M. The host builds the
+// launch's parameters once a step (twtml_tenant_split_prepare) and each
+// launch passes only the handle, `it`, `row_pass` and the stream.
 // The trap of a tenant grid here: a tenant may have no row on this rank
 // (no CTA in the plan) and rows on another. Every rank holds the whole
 // replicated stack, so every rank must update that tenant all the same:
@@ -1192,25 +1232,189 @@ __global__ void __launch_bounds__(kThreads, 1)
 // bits and weights, and once every tenant has finished a launch returns at
 // entry, with no host read of convergence.
 // At one tenant whose rows are all valid the grid, rows a CTA, slices and
-// every order of summation are the split's (dense_iteration_kernel), so it
-// gives the split's w and preds bit for bit.
+// every order of summation are the split's (dense_iteration_kernel: B1's
+// lanes 0-7 in the update, converged()'s order, column_sums' in the reduce),
+// so it gives the split's w and preds bit for bit.
 // What bounds it: bytes, as the split. An iteration streams this rank's
 // staged bf16 rows once (at 4 tenants x 2,048 valid rows of 8,192 padded,
 // F = 1,004: 8,192 rows x 1,024 stored columns, 16.8 MB); the update and
-// the reduce move M x (fpad + 1) floats and a few KB of partials. Left out:
-// keeping rows on chip across launches (the loop leaves the kernel at each
-// all-reduce) and every tenant's reduce in one round (the tenant grid's
-// tenant_column_sums): each tenant here takes one column_sums round of its
-// slice, M rounds a slice, which keeps one tenant's order of summation the
-// split's.
+// the reduce move M x (fpad + 1) floats and a few KB of partials. What the
+// timing probe (kProbe: CTA 0 and each tenant's last CTA stamp 7 edges a
+// launch) found in the first design at 4 x 2,048 on an H100, against one
+// tenant of all the rows: the reloads of w and the labels after the
+// decisions (2.3 µs for the decisions and reloads at either M) and the
+// reduce in one column_sums round a tenant (2.3 µs at M = 4, 0.9 at one).
+// This design overlaps the reloads with the decisions and barrier 1 and
+// reduces every tenant in one round: the decisions and reloads take
+// 0.9-1.1 µs, the reduce 0.9 at M = 4 (0.7 at one tenant); the labels'
+// two dependent loads now sit beside (a), which takes 1.0 µs. What is left
+// on top of the row pass (4.4-4.6 µs, the split's) is the launch itself
+// (its event time less the stamped span: ~3 µs), two grid barriers and an
+// L2 round trip or two in each of (a), the decisions and (c). Issuing
+// (a)'s loads and the labels' at entry, beside the state's, measured
+// slower on the H100 than issuing them after it.
+// Left out: keeping rows on chip across launches (a persistent launch that
+// waits on a flag the host's all-reduce sets: bound up with C6 and B11
+// (a)/(d) in ROADMAP); text counts in 8 bits (measured slower in the
+// tenant grid: a byte takes two instructions to unpack); tensor cores
+// (each product is matrix x vector, N = 1, and bf16 operands would round w
+// and r, which the f32 twin does not).
 
 struct TenantSplitState {
-  int* state;   // [1]: the finished tenants, one bit each
-  float* gbuf;  // [tenants, fpad + 1]: this rank's Xᵀr and count, then the global ones
-  int slices;   // column slices of the update and the reduce, alike on every rank
+  int* state;     // [1]: the finished tenants, one bit each
+  float* gbuf;    // [tenants, fpad + 1]: this rank's Xᵀr and count, then the global ones
+  float* counts;  // [tenants]: each tenant's count on this rank, from the first launch
+  int slices;     // column slices of the update and the reduce, alike on every rank
 };
 
-template <bool kLogistic>
+// The lanes that take one tenant's columns of a slice in the update: at one
+// tenant B1's 8 (lanes 0-7 of warp 0, 8 columns apart); more, a power of
+// two up to 32 and the slice's columns, with every tenant's lanes in one
+// pass of the CTA. It depends on M and the slice's width alone, so every
+// rank sums each tenant's ‖Δw‖² and ‖w‖² of a slice in one order.
+__host__ __device__ inline int update_lanes(int tenants, int cols) {
+  if (tenants == 1) return 8;
+  int g = 1;
+  while (g < 32 && g < cols && tenants * g * 2 <= kThreads) g *= 2;
+  return g;
+}
+
+// (a) of slice q: every tenant that still trains (not in `prev`, global
+// count > 0) updated over columns [q0, q1) with its own step size and L2
+// from the all-reduced gbuf, its ‖Δw‖², ‖w‖² of the slice into its row of
+// the norm table. Thread u·G + l takes tenant u's columns q0 + l, q0 + l +
+// G, ... (G = update_lanes), then each tenant's G lanes sum their terms by
+// shuffles. At one tenant that is warp_sum's order over lanes 0-7: the
+// lanes past them hold +0 (sums of squares start at +0), so warp_sum's
+// offsets 16 and 8 add nothing to lanes 0-7.
+__device__ __forceinline__ void tenant_split_update(const Params& p, const TenantTable& t,
+                                                    const TenantSplitState& s, unsigned prev,
+                                                    int uit, int q, int q0, int q1, int lanes) {
+  const int tenants = t.tenants, fpad = p.fpad;
+  if (threadIdx.x >= ((tenants * lanes + 31) & ~31)) return;  // whole warps past the pairs
+  const int u = threadIdx.x / lanes, l = threadIdx.x % lanes;
+  float d = 0.f, n = 0.f;
+  bool active = false;
+  if (u < tenants && !((prev >> u) & 1u)) {
+    Params tp = p;  // tenant u's w, step size and L2
+    tp.wbuf = p.wbuf + (size_t)u * fpad;
+    tp.w_out = p.w_out + (size_t)u * p.features;
+    tp.step_size = t.step_size[u];
+    tp.l2_reg = t.l2_reg[u];
+    const float* g = s.gbuf + u * ((size_t)fpad + 1);
+    // the count with the first column's w and Xᵀr, one round trip; η and
+    // 1 − η·λ while it is in flight
+    const float count = __ldcg(g + fpad);
+    float wo = 0.f, go = 0.f;
+    if (q0 + l < q1) {
+      wo = __ldcg(tp.wbuf + q0 + l);
+      go = __ldcg(g + q0 + l);
+    }
+    const StepScalars ks = step_scalars(tp, uit);
+    if (count > 0.f) {
+      active = true;
+      const float denom = fmaxf(count, 1.f);
+      for (int f = q0 + l; f < q1; f += lanes) {
+        update_column(tp, f, wo, go, ks, denom, d, n);
+        if (f + lanes < q1) {
+          wo = __ldcg(tp.wbuf + f + lanes);
+          go = __ldcg(g + f + lanes);
+        }
+      }
+    }
+  }
+  for (int o = lanes >> 1; o > 0; o >>= 1) {
+    d += __shfl_xor_sync(0xffffffffu, d, o);
+    n += __shfl_xor_sync(0xffffffffu, n, o);
+  }
+  if (active && l == 0) {
+    p.norm_part[2 * ((size_t)u * s.slices + q)] = d;
+    p.norm_part[2 * ((size_t)u * s.slices + q) + 1] = n;
+  }
+}
+
+// (c) of slice [q0, q1): every training tenant's Xᵀr over its CTA partials
+// into gbuf, all tenants in one round. Up to kWarps tenants: column_sums
+// with its warps shared among the tenants. Tenant u takes warps [u·W,
+// (u+1)·W), W = kWarps / M; lane & 7 takes column f0 + (lane & 7) and
+// warp u·W + w reads the tenant's partial rows 4w + (lane >> 3), + 4W, ...
+// in ascending order (a load instruction covers 4 rows x 8 adjacent
+// columns); the warp's 4 row groups meet by shuffles, then thread 8u + l
+// adds the tenant's W warps in order. 8 columns a round, two
+// __syncthreads a round; at M = 1 it is column_sums' layout and order (W =
+// kWarps), so one tenant sums as the split does. More tenants: each thread
+// takes whole (tenant, column) pairs and sums the tenant's k_u rows in
+// order. A tenant with no CTA on this rank writes zeros. Every thread must
+// call it.
+__device__ __forceinline__ void tenant_split_reduce(const Params& p, const TenantTable& t,
+                                                    const TenantSplitState& s, float* red,
+                                                    unsigned finished, int q0, int q1) {
+  const int tenants = t.tenants, fpad = p.fpad;
+  const size_t gstride = (size_t)fpad + 1;
+  if (tenants > kWarps) {
+    const int cols = q1 - q0;
+    for (int i = threadIdx.x; i < tenants * cols; i += kThreads) {
+      const int u = i / cols, c = i % cols;
+      if ((finished >> u) & 1u) continue;
+      s.gbuf[u * gstride + q0 + c] =
+          strided_sum(p.partials + (size_t)t.first_cta[u] * fpad + q0 + c, (size_t)fpad, 0, 1,
+                      t.first_cta[u + 1] - t.first_cta[u]);
+    }
+    return;
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int per = kWarps / tenants, u = warp / per, w = warp - u * per;
+  const bool reads = u < tenants && !((finished >> u) & 1u);
+  const int a = reads ? t.first_cta[u] : 0, k = reads ? t.first_cta[u + 1] - a : 0;
+  for (int f0 = q0; f0 < q1; f0 += 8) {
+    const int f = f0 + (lane & 7);
+    float g = 0.f;
+    if (f < q1)
+      g = strided_sum(p.partials + (size_t)a * fpad + f, (size_t)fpad, 4 * w + (lane >> 3),
+                      4 * per, k);
+    g += __shfl_xor_sync(0xffffffffu, g, 8);
+    g += __shfl_xor_sync(0xffffffffu, g, 16);
+    if (lane < 8) red[warp * 8 + lane] = g;
+    __syncthreads();
+    const int v = threadIdx.x >> 3, l = threadIdx.x & 7;
+    if (v < tenants && !((finished >> v) & 1u) && f0 + l < q1) {
+      const float* part = red + v * per * 8 + l;
+      float gs = part[0];
+#pragma unroll
+      for (int x = 1; x < kWarps; ++x)  // unrolled: the loads issued together
+        if (x < per) gs += part[8 * x];
+      s.gbuf[v * gstride + f0 + l] = gs;
+    }
+    __syncthreads();
+  }
+}
+
+// Lane `lane`'s share of a norm table of n (‖Δw‖², ‖w‖²) pairs, in
+// converged()'s order, every load of a table of up to 256 pairs issued
+// before the first add.
+__device__ __forceinline__ void norm_lane_sums(const float* norms, int n, int lane, float& ds,
+                                               float& ns) {
+  constexpr int kLoads = 8;
+  ds = 0.f;
+  ns = 0.f;
+  for (int c0 = lane; c0 < n; c0 += 32 * kLoads) {
+    float d[kLoads], m[kLoads];
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      const int c = c0 + 32 * i;
+      d[i] = c < n ? __ldcg(norms + 2 * c) : 0.f;
+      m[i] = c < n ? __ldcg(norms + 2 * c + 1) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i)
+      if (c0 + 32 * i < n) {
+        ds += d[i];
+        ns += m[i];
+      }
+  }
+}
+
+template <bool kLogistic, bool kProbe>
 __global__ void __launch_bounds__(kThreads, 1)
     tenant_iteration_kernel(const Params p, const TenantTable t, const TenantSplitState s,
                             const int it, const int row_pass) {
@@ -1239,6 +1443,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int my_rows = m * rows + (int)((long long)(j + 1) * valid / k) - row0;
   const int cols = (fpad + s.slices - 1) / s.slices;  // a slice's columns
   const size_t gstride = (size_t)fpad + 1;
+  const float* wbuf = p.wbuf + (size_t)m * fpad;  // tenant m's w after each update
+  const int slot = cta == 0 ? 0 : j == k - 1 ? 1 + m : -1;  // the probe's
+  probe_stamp<kProbe>(t, slot, 0);
   unsigned finished = prev;
   if (first) {
     const float* w0 = p.w0 + (size_t)m * features;
@@ -1271,62 +1478,82 @@ __global__ void __launch_bounds__(kThreads, 1)
          i += gthreads)
       if ((int)(i % rows) >= t.valid[i / rows]) p.preds[i] = 0.f;
     __threadfence();  // the staged rows are read back through L2 below
-  } else {
-    // ---- (a) every training tenant's update of iteration u from the all-reduced gbuf
-    const int uit = row_pass ? it - 1 : it;
-    for (int q = cta; q < s.slices; q += ncta) {
-      const int q0 = min(q * cols, fpad), q1 = min(q0 + cols, fpad);
-      for (int u = warp; u < tenants; u += kWarps) {
-        const float* g = s.gbuf + u * gstride;
-        const float count = __ldcg(g + fpad);
-        if (((prev >> u) & 1u) || !(count > 0.f)) continue;  // warp-uniform
-        Params tp = p;  // tenant u's w, step size and L2
-        tp.wbuf = p.wbuf + (size_t)u * fpad;
-        tp.w_out = p.w_out + (size_t)u * features;
-        tp.step_size = t.step_size[u];
-        tp.l2_reg = t.l2_reg[u];
-        const StepScalars ks = step_scalars(tp, uit);
-        const float denom = fmaxf(count, 1.f);
-        float d = 0.f, n = 0.f;
-        for (int f0 = q0; f0 < q1; f0 += 8) {
-          const int f = f0 + (lane & 7);
-          if (lane < 8 && f < q1)
-            update_column(tp, f, __ldcg(tp.wbuf + f), __ldcg(g + f), ks, denom, d, n);
-        }
-        d = warp_sum(d);  // store_norms' sums, into tenant u's slot of slice q
-        n = warp_sum(n);
-        if (lane == 0) {
-          p.norm_part[2 * ((size_t)u * s.slices + q)] = d;
-          p.norm_part[2 * ((size_t)u * s.slices + q) + 1] = n;
-        }
-      }
-    }
-    grid.sync();
-    // ---- every CTA: every tenant's decision (warp u: tenant u), the same in each
-    if (threadIdx.x == 0) *finished_s = prev;
     __syncthreads();
-    for (int u = warp; u < tenants; u += kWarps) {
-      if ((prev >> u) & 1u) continue;
-      const bool live = __ldcg(s.gbuf + u * gstride + fpad) > 0.f;
-      const bool done =
-          !live || converged(p.norm_part + 2 * (size_t)u * s.slices, s.slices, p.tol, lane);
-      if (lane == 0) {
-        if (done) atomicOr(finished_s, 1u << u);
-        if (cta == 0 && live) p.iterations[u] = (float)uit;
+  } else {
+    const int uit = row_pass ? it - 1 : it;  // the iteration this launch updates
+    const bool reload = row_pass && !((prev >> m) & 1u);  // w and y for the row pass
+    const int lanes = update_lanes(tenants, cols);
+    // this rank's labels of the CTA's tenant, by the warps the update leaves
+    // free (a warp that loads a label waits for it before its next load):
+    // in flight through (a) and barrier 1
+    const int busy = min((tenants * lanes + 31) & ~31, kThreads - 32);
+    if (reload && (int)threadIdx.x >= busy)
+      for (int l = threadIdx.x - busy; l < my_rows; l += kThreads - busy)
+        y_s[l] = __ldg(p.mask + row0 + l) > 0.f ? __ldg(p.labels + row0 + l) : 0.f;
+    // ---- (a) every training tenant's update of iteration uit, this CTA's slices
+    for (int q = cta; q < s.slices; q += ncta)
+      tenant_split_update(p, t, s, prev, uit, q, min(q * cols, fpad),
+                          min(q * cols + cols, fpad), lanes);
+    if (threadIdx.x == 0) *finished_s = prev;  // the grid barrier orders it before the ORs
+    probe_stamp<kProbe>(t, slot, 1);
+    grid.sync();
+    probe_stamp<kProbe>(t, slot, 2);
+
+    // ---- every CTA: every tenant's decision, the same in each, in one round
+    // of loads with the CTA's tenant's new w (used only if it still trains).
+    // Up to kDirectTenants tenants warp u takes tenant u's from L2
+    // (converged()) while the other warps reload w; more, thread (u, lane)
+    // sums lane `lane`'s share of tenant u's norm table (converged()'s own
+    // order) into shared memory with the count while every thread reloads
+    // w, then warp u takes tenants u, u + kWarps, ... from there (both in
+    // converged()'s order of summation)
+    if (tenants <= kDirectTenants) {
+      if (warp < tenants) {
+        if (!((prev >> warp) & 1u)) {
+          const bool live = __ldcg(s.gbuf + warp * gstride + fpad) > 0.f;
+          float ds, ns;
+          norm_lane_sums(p.norm_part + 2 * (size_t)warp * s.slices, s.slices, lane, ds, ns);
+          const bool conv = converged_norms(warp_sum(ds), warp_sum(ns), p.tol);
+          if (lane == 0) {
+            if (!live || conv) atomicOr(finished_s, 1u << warp);
+            if (cta == 0 && live) p.iterations[warp] = (float)uit;
+          }
+        }
+      } else if (reload) {
+        for (int f = threadIdx.x - 32 * tenants; f < fpad; f += kThreads - 32 * tenants)
+          w_s[f] = __ldcg(wbuf + f);
+      }
+    } else {
+      float* table = red;  // [tenants, 32] lane sums of ‖Δw‖², ‖w‖², then the counts
+      for (int i = threadIdx.x; i < 32 * tenants; i += kThreads) {
+        const int u = i >> 5, l = i & 31;
+        if ((prev >> u) & 1u) continue;
+        float ds, ns;
+        norm_lane_sums(p.norm_part + 2 * (size_t)u * s.slices, s.slices, l, ds, ns);
+        table[2 * i] = ds;
+        table[2 * i + 1] = ns;
+        if (l == 0) table[64 * tenants + u] = __ldcg(s.gbuf + u * gstride + fpad);
+      }
+      if (reload)
+        for (int f = threadIdx.x; f < fpad; f += kThreads) w_s[f] = __ldcg(wbuf + f);
+      __syncthreads();
+      for (int u = warp; u < tenants; u += kWarps) {
+        if ((prev >> u) & 1u) continue;
+        const bool live = table[64 * tenants + u] > 0.f;
+        const float ds = warp_sum(table[2 * (32 * u + lane)]);
+        const float ns = warp_sum(table[2 * (32 * u + lane) + 1]);
+        if (lane == 0) {
+          if (!live || converged_norms(ds, ns, p.tol)) atomicOr(finished_s, 1u << u);
+          if (cta == 0 && live) p.iterations[u] = (float)uit;
+        }
       }
     }
     __syncthreads();
     finished = *finished_s;
     if (cta == 0 && threadIdx.x == 0) *s.state = (int)finished;
+    probe_stamp<kProbe>(t, slot, 3);
     if (!row_pass || finished == all) return;
-    if (!((finished >> m) & 1u)) {  // the tenant's new w and this rank's labels
-      for (int f = threadIdx.x; f < fpad; f += kThreads)
-        w_s[f] = __ldcg(p.wbuf + (size_t)m * fpad + f);
-      for (int l = threadIdx.x; l < my_rows; l += kThreads)
-        y_s[l] = __ldg(p.mask + row0 + l) > 0.f ? __ldg(p.labels + row0 + l) : 0.f;
-    }
   }
-  __syncthreads();
 
   // ---- (b) the row pass of this CTA's tenant: its Xᵀr into the CTA's partials
   if (!((finished >> m) & 1u)) {
@@ -1336,34 +1563,29 @@ __global__ void __launch_bounds__(kThreads, 1)
       row_pass_wide<kLogistic>(p, w_s, y_s, r_s, nullptr, red, cta, row0, my_rows, first,
                                true);
   }
+  // a later launch's counts: each tenant's on this rank, constant through the step
+  const bool copy_count = !first && cta == 0 && (int)threadIdx.x < tenants;
+  const float count = copy_count ? __ldcg(s.counts + threadIdx.x) : 0.f;
+  probe_stamp<kProbe>(t, slot, 4);
   grid.sync();
+  probe_stamp<kProbe>(t, slot, 5);
 
-  // ---- (c) each training tenant's Xᵀr over its CTAs, this CTA's slices; CTA 0 the counts
-  for (int q = cta; q < s.slices; q += ncta) {
-    const int q0 = min(q * cols, fpad), q1 = min(q0 + cols, fpad);
-    for (int u = 0; u < tenants; ++u) {
-      if ((finished >> u) & 1u) continue;
-      float* g = s.gbuf + u * gstride;
-      const int a = t.first_cta[u], ku = t.first_cta[u + 1] - a;
-      if (ku == 0) {  // no row on this rank: zeros to the all-reduce
-        for (int f = q0 + threadIdx.x; f < q1; f += kThreads) g[f] = 0.f;
-        continue;
-      }
-      Params up = p;
-      up.partials = p.partials + (size_t)a * fpad;
-      column_sums(up, red, q0, q1, ku, [&](int f, float v) { g[f] = v; });
-    }
-  }
-  if (cta == 0) {
+  // ---- (c) each training tenant's Xᵀr over its CTAs, this CTA's slices, and
+  // each tenant's count
+  for (int q = cta; q < s.slices; q += ncta)
+    tenant_split_reduce(p, t, s, red, finished, min(q * cols, fpad), min(q * cols + cols, fpad));
+  if (first && cta == 0) {  // warp u sums tenant u's CTA counts, as the split sums its own
     for (int u = warp; u < tenants; u += kWarps) {
-      if ((finished >> u) & 1u) continue;
       const int a = t.first_cta[u], ku = t.first_cta[u + 1] - a;
       float c = 0.f;
       for (int i = lane; i < ku; i += 32) c += __ldcg(p.count_part + a + i);
       c = warp_sum(c);
-      if (lane == 0) s.gbuf[u * gstride + fpad] = c;
+      if (lane == 0) s.gbuf[u * gstride + fpad] = s.counts[u] = c;
     }
+  } else if (copy_count && !((finished >> threadIdx.x) & 1u)) {
+    s.gbuf[threadIdx.x * gstride + fpad] = count;
   }
+  probe_stamp<kProbe>(t, slot, 6);
 }
 
 // ------------------------------------------------------------------ predict
@@ -1522,10 +1744,16 @@ extern "C" int twtml_fused_sgd_setup(int device, int* sm_count, int* shared_opti
     err = cudaFuncSetAttribute(tenant_sgd_kernel<true, true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, *shared_optin);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(tenant_iteration_kernel<false>,
+    err = cudaFuncSetAttribute(tenant_iteration_kernel<false, false>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, *shared_optin);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(tenant_iteration_kernel<true>,
+    err = cudaFuncSetAttribute(tenant_iteration_kernel<true, false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, *shared_optin);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(tenant_iteration_kernel<false, true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, *shared_optin);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(tenant_iteration_kernel<true, true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, *shared_optin);
   const cudaError_t restored = cudaSetDevice(current);
   return (int)(err != cudaSuccess ? err : restored);
@@ -1820,41 +2048,58 @@ extern "C" int twtml_fused_dense_sgd_tenants(
                                           (size_t)shared_bytes, static_cast<cudaStream_t>(stream));
 }
 
-// Iteration `it` of the split with a tenant grid on this rank's rows, one
-// cooperative launch of tenant_iteration_kernel on `stream`: with row_pass
-// 1, (a) the update of it − 1 from the all-reduced gbuf (it >= 2), (b) the
-// row pass (it == 1 also stages X from x [tenants, rows, features] f32,
-// reads labels/mask [tenants, rows] and w0 [tenants, features] f32, and
-// writes preds [tenants, rows] and w_out [tenants, features] = w0), (c)
-// every training tenant's Xᵀr and count into gbuf [tenants, fpad + 1]; with
-// row_pass 0, the update of `it` alone. `staged` is the bf16 X
-// [grid·rows_cap·8·plan_layout[5]], `scratch` f32 [grid·fpad + tenants·fpad
-// + grid + 2·tenants·slices + tenants] (its last `tenants` floats receive
-// each tenant's iterations run), `state` int32 [1]. The tenant table (host
-// arrays first_cta, valid, step_sizes, l2_regs), rows_cap and plan_layout
-// come from ops/fused_sgd.py tenant_split_plan (no resident rows,
-// shared_bytes = the layout's x offset), `slices` >= 1 too. A plan that
-// breaks these is refused. Returns the launch's CUDA error (a refused
-// cooperative launch included), 0 when it was taken.
-extern "C" int twtml_fused_dense_tenants_split(
+// The split with a tenant grid on this rank's rows, set up once a step:
+// twtml_tenant_split_prepare checks the plan and builds the launch's
+// Params, TenantTable and TenantSplitState into a host handle; each
+// iteration's launch then passes only the handle, `it`, `row_pass` and the
+// stream (twtml_tenant_split_launch); twtml_tenant_split_release frees the
+// handle. Device pointers: x [tenants, rows, features] f32, labels/mask
+// [tenants, rows] f32 and w0 [tenants, features] f32 (inputs); w_out
+// [tenants, features] and preds [tenants, rows] f32 (outputs); `staged` the
+// bf16 X [grid·rows_cap·8·plan_layout[5]], `scratch` f32 [grid·fpad +
+// tenants·fpad + grid + tenants + 2·tenants·slices + tenants] (partials,
+// each tenant's w, the CTAs' counts, each tenant's count, the norm table;
+// its last `tenants` floats receive each tenant's iterations run), `state`
+// int32 [1], `gbuf`
+// f32 [tenants, fpad + 1]. The tenant table (host arrays first_cta, valid,
+// step_sizes, l2_regs), rows_cap and plan_layout come from
+// ops/fused_sgd.py tenant_split_plan (no resident rows, shared_bytes = the
+// layout's x offset), `slices` >= 1 too. With `probe` (int64 [1 + tenants,
+// probe_edges, 2], zeroed) the launches run the timing instantiation. A
+// plan that breaks these is refused with cudaErrorInvalidValue and no
+// handle. The launch is on the device that was current at prepare.
+namespace {
+struct TenantSplitLaunch {
+  Params p;
+  TenantTable t;
+  TenantSplitState s;
+  const void* kernel;
+  int grid, shared_bytes, device;
+};
+}  // namespace
+
+extern "C" int twtml_tenant_split_prepare(
     const void* x, const void* labels, const void* mask, const void* w0, void* w_out,
     void* preds, void* staged, void* scratch, void* state, void* gbuf, int tenants, int rows,
     int features, int fpad, int grid, int rows_cap, int shared_bytes, const int* plan_layout,
     const int* first_cta, const int* valid, const float* step_sizes, const float* l2_regs,
-    int slices, int it, int row_pass, float tol, int residual_mode, void* stream) {
+    int slices, float tol, int residual_mode, void* probe, int probe_edges, void** handle) {
+  *handle = nullptr;
   const Layout lay = layout(fpad, rows_cap);
   const int stride = row_groups(fpad);
   if (tenants < 1 || tenants > kMaxTenants || rows < 1 || features < 1 || fpad % 8 != 0 ||
-      features > fpad || grid < 1 || rows_cap < 1 || slices < 1 || it < 1 ||
-      (row_pass != 0 && row_pass != 1) || (residual_mode != 0 && residual_mode != 1) ||
-      first_cta[0] != 0 || first_cta[tenants] != grid || (size_t)plan_layout[0] != lay.red ||
+      features > fpad || grid < 1 || rows_cap < 1 || slices < 1 ||
+      (residual_mode != 0 && residual_mode != 1) || first_cta[0] != 0 ||
+      first_cta[tenants] != grid || (size_t)plan_layout[0] != lay.red ||
       (size_t)plan_layout[1] != lay.y || (size_t)plan_layout[2] != lay.r ||
       (size_t)plan_layout[3] != lay.scratch || (size_t)plan_layout[4] != lay.x ||
-      plan_layout[5] != stride || (size_t)shared_bytes != lay.x)
+      plan_layout[5] != stride || (size_t)shared_bytes != lay.x ||
+      (probe != nullptr && probe_edges < 1))
     return (int)cudaErrorInvalidValue;
-  TenantTable t;
-  t.probe = nullptr;
-  t.probe_edges = 0;
+  TenantSplitLaunch h;
+  TenantTable& t = h.t;
+  t.probe = static_cast<unsigned long long*>(probe);
+  t.probe_edges = probe != nullptr ? probe_edges : 0;
   t.tenants = tenants;
   t.batch_rows = rows;
   for (int u = 0; u <= tenants; ++u) t.first_cta[u] = first_cta[u];
@@ -1873,7 +2118,7 @@ extern "C" int twtml_fused_dense_tenants_split(
     t.valid[u] = 0;
     t.step_size[u] = t.l2_reg[u] = 0.f;
   }
-  Params p;
+  Params& p = h.p;
   p.x = static_cast<const float*>(x);
   p.labels = static_cast<const float*>(labels);
   p.mask = static_cast<const float*>(mask);
@@ -1884,7 +2129,8 @@ extern "C" int twtml_fused_dense_tenants_split(
   p.partials = static_cast<float*>(scratch);
   p.wbuf = p.partials + (size_t)grid * fpad;
   p.count_part = p.wbuf + (size_t)tenants * fpad;
-  p.norm_part = p.count_part + grid;
+  float* counts = p.count_part + grid;
+  p.norm_part = counts + tenants;
   p.iterations = p.norm_part + 2 * (size_t)tenants * slices;
   p.rows = rows;
   p.features = features;
@@ -1898,11 +2144,52 @@ extern "C" int twtml_fused_dense_tenants_split(
   p.step_size = 0.f;  // each tenant's own, from the table
   p.l2_reg = 0.f;
   p.tol = tol;
-  TenantSplitState st{static_cast<int*>(state), static_cast<float*>(gbuf), slices};
-  void* args[] = {&p, &t, &st, &it, &row_pass};
-  const void* kernel = residual_mode == 1
-                           ? reinterpret_cast<const void*>(tenant_iteration_kernel<true>)
-                           : reinterpret_cast<const void*>(tenant_iteration_kernel<false>);
-  return (int)cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads), args,
-                                          (size_t)shared_bytes, static_cast<cudaStream_t>(stream));
+  TenantSplitState& st = h.s;
+  st.state = static_cast<int*>(state);
+  st.gbuf = static_cast<float*>(gbuf);
+  st.counts = counts;
+  st.slices = slices;
+  const void* kernels[2][2] = {
+      {reinterpret_cast<const void*>(tenant_iteration_kernel<false, false>),
+       reinterpret_cast<const void*>(tenant_iteration_kernel<false, true>)},
+      {reinterpret_cast<const void*>(tenant_iteration_kernel<true, false>),
+       reinterpret_cast<const void*>(tenant_iteration_kernel<true, true>)}};
+  h.kernel = kernels[residual_mode][probe != nullptr];
+  h.grid = grid;
+  h.shared_bytes = shared_bytes;
+  const cudaError_t err = cudaGetDevice(&h.device);
+  if (err != cudaSuccess) return (int)err;
+  *handle = new TenantSplitLaunch(h);
+  return 0;
+}
+
+// Iteration `it` >= 1 of the step a handle was prepared for, one
+// cooperative launch of tenant_iteration_kernel on `stream`: with row_pass
+// 1, (a) the update of it − 1 from the all-reduced gbuf (it >= 2), (b) the
+// row pass (it == 1 also stages X and writes preds and w_out = w0), (c)
+// every training tenant's Xᵀr and count into gbuf; with row_pass 0, the
+// update of `it` alone. Returns the launch's CUDA error (a refused
+// cooperative launch included; cudaErrorInvalidValue for a bad `it` or
+// `row_pass`), 0 when it was taken.
+extern "C" int twtml_tenant_split_launch(void* handle, int it, int row_pass, void* stream) {
+  TenantSplitLaunch* h = static_cast<TenantSplitLaunch*>(handle);
+  if (h == nullptr || it < 1 || (row_pass != 0 && row_pass != 1))
+    return (int)cudaErrorInvalidValue;
+  int current = 0;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != h->device) err = cudaSetDevice(h->device);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {&h->p, &h->t, &h->s, &it, &row_pass};
+  err = cudaLaunchCooperativeKernel(h->kernel, dim3(h->grid), dim3(kThreads), args,
+                                    (size_t)h->shared_bytes, static_cast<cudaStream_t>(stream));
+  if (current != h->device) {
+    const cudaError_t restored = cudaSetDevice(current);
+    if (err == cudaSuccess) err = restored;
+  }
+  return (int)err;
+}
+
+extern "C" int twtml_tenant_split_release(void* handle) {
+  delete static_cast<TenantSplitLaunch*>(handle);
+  return 0;
 }

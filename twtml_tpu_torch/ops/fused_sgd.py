@@ -54,7 +54,11 @@ one cooperative launch of ``tenant_iteration_kernel`` an iteration and ONE
 all-reduce of every tenant's Xᵀr and count ([M, fpad + 1] floats) between
 launches, the update spread over every tenant's columns grid-wide so that a
 tenant dry on this rank is updated too (``tenant_split_plan``). Its plain
-version is ``fused_dense_sgd_tenants_split_reference``.
+version is ``fused_dense_sgd_tenants_split_reference``. ``TenantSplitStep``
+prepares the C entry's launch once a step (a handle), so a launch passes
+only the handle, the iteration and the stream. ``tenant_split_probe``
+launches its timing instantiation, which stamps 7 phase edges a launch,
+and ``tenant_split_probe_split`` turns the stamps into µs a phase.
 
 Routing: a CPU tensor goes to the twin ``fused_dense_sgd_reference``; a CUDA
 tensor launches a kernel or raises. ``fused_dense_sgd.launches`` counts
@@ -71,6 +75,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 from typing import NamedTuple
 
 import torch
@@ -94,6 +99,9 @@ TENANTS_PER_LAUNCH = 32  # the tenant grid's launch: one bit a tenant in its mas
 # prologue's, then each iteration's
 PROBE_PROLOGUE_EDGES = 4
 PROBE_ITERATION_EDGES = 6
+# the phase edges the split with a tenant grid's timing instantiation stamps
+# in a launch: entry, then the end of each of PROBE_SPLIT_PHASES
+PROBE_SPLIT_EDGES = 7
 NVCC_DEFINES = tuple(
     f"-DTWTML_SGD_{name}={value}" for name, value in (
         ("THREADS", THREADS), ("TILE_COLUMNS", TILE_COLUMNS),
@@ -101,6 +109,7 @@ NVCC_DEFINES = tuple(
         ("PREDICT_THREADS", PREDICT_THREADS), ("TENANTS_PER_LAUNCH", TENANTS_PER_LAUNCH),
         ("PROBE_PROLOGUE_EDGES", PROBE_PROLOGUE_EDGES),
         ("PROBE_ITERATION_EDGES", PROBE_ITERATION_EDGES),
+        ("PROBE_SPLIT_EDGES", PROBE_SPLIT_EDGES),
     )
 )
 
@@ -501,11 +510,12 @@ class TenantSplitPlan(NamedTuple):
 
     @property
     def scratch_floats(self) -> int:
-        """partials [grid, fpad], each tenant's w [tenants, fpad], counts
-        [grid], norms [tenants, slices, 2], iterations run [tenants]."""
+        """partials [grid, fpad], each tenant's w [tenants, fpad], the CTAs'
+        counts [grid], each tenant's count on this rank [tenants], norms
+        [tenants, slices, 2], iterations run [tenants]."""
         t = self.tenants
-        return ((t.grid + t.tenants) * t.fpad + t.grid + 2 * t.tenants * self.slices
-                + t.tenants)
+        return ((t.grid + t.tenants) * t.fpad + t.grid + t.tenants
+                + 2 * t.tenants * self.slices + t.tenants)
 
 
 def tenant_split_plan(valid_rows, batch_rows: int, num_features: int, *, sm_count: int,
@@ -740,21 +750,26 @@ TENANTS_ARGTYPES = (
     + [ctypes.c_void_p, ctypes.c_int]  # the timing probe's buffer (or null), its edges
     + [ctypes.c_void_p]  # stream
 )
+# the split with a tenant grid: a handle prepared once a step, then launched
 TENANT_SPLIT_ARGTYPES = (
     [ctypes.c_void_p] * 10  # x, labels, mask, w0, w_out, preds, staged, scratch, state, gbuf
     + [ctypes.c_int] * 7  # tenants, rows, features, fpad, grid, rows_cap, shared_bytes
     + [ctypes.POINTER(ctypes.c_int)] * 3  # smem_layout, first_cta, valid rows
     + [ctypes.POINTER(ctypes.c_float)] * 2  # step sizes, L2s
-    + [ctypes.c_int] * 3  # slices, it, row_pass
-    + [ctypes.c_float, ctypes.c_int]  # tol, residual_mode
-    + [ctypes.c_void_p]  # stream
+    + [ctypes.c_int, ctypes.c_float, ctypes.c_int]  # slices, tol, residual_mode
+    + [ctypes.c_void_p, ctypes.c_int]  # the timing probe's buffer (or null), its edges
+    + [ctypes.POINTER(ctypes.c_void_p)]  # the handle (out)
 )
+TENANT_SPLIT_LAUNCH_ARGTYPES = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # handle, it, row_pass
+                                ctypes.c_void_p)  # stream
 _ENTRIES = {"twtml_fused_dense_sgd": KERNEL_ARGTYPES,
             "twtml_fused_dense_predict": PREDICT_ARGTYPES,
             "twtml_fused_dense_grad": GRAD_ARGTYPES,
             "twtml_fused_dense_update": UPDATE_ARGTYPES,
             "twtml_fused_dense_sgd_tenants": TENANTS_ARGTYPES,
-            "twtml_fused_dense_tenants_split": TENANT_SPLIT_ARGTYPES}
+            "twtml_tenant_split_prepare": TENANT_SPLIT_ARGTYPES,
+            "twtml_tenant_split_launch": TENANT_SPLIT_LAUNCH_ARGTYPES,
+            "twtml_tenant_split_release": (ctypes.c_void_p,)}
 
 
 @functools.cache
@@ -1137,30 +1152,37 @@ def fused_dense_sgd_tenants_split(
 
 class TenantSplitStep:
     """One step of the split with a tenant grid on the card, set up on the
-    current stream of the batch's device: the outputs ``w`` [M, F] and
-    ``preds`` [M, B], the all-reduce buffer ``gbuf`` [M, fpad + 1] and, for
-    each TENANTS_PER_LAUNCH tenants, its ``tenant_split_plan``, staged X,
-    scratch, state and the C entry's arguments. ``launch(it, row_pass)``
-    makes iteration ``it``'s launch of every such group of tenants (with
-    ``row_pass`` False the update of ``it`` alone), each counted in
-    ``fused_dense_sgd_tenants_split.launches``; the caller all-reduces
-    ``gbuf`` between them (``fused_dense_sgd_tenants_split``). The arguments
+    batch's device: the outputs ``w`` [M, F] and ``preds`` [M, B], the
+    all-reduce buffer ``gbuf`` [M, fpad + 1] and, for each TENANTS_PER_LAUNCH
+    tenants, its ``tenant_split_plan``, staged X, scratch, state and the C
+    entry's handle: Params, tenant table and state built once here, so
+    that ``launch(it, row_pass)`` passes the kernel only the handle, ``it``,
+    ``row_pass`` and the current stream. A plan the C entry refuses raises
+    here. ``launch`` makes iteration ``it``'s launch of every such group of
+    tenants (with ``row_pass`` False the update of ``it`` alone), each
+    counted in ``fused_dense_sgd_tenants_split.launches``; the caller
+    all-reduces ``gbuf`` between them (``fused_dense_sgd_tenants_split``).
+    With ``probe`` (int64 [1 + M, PROBE_SPLIT_EDGES, 2], zeroed; one group
+    of tenants) every launch runs the timing instantiation. The arguments
     are checked by the caller (``_check_tenants_cuda``)."""
 
     def __init__(self, x_dense, labels, mask, weights, *, valid_rows, step_sizes, l2_regs,
-                 convergence_tol: float, mode: int):
+                 convergence_tol: float, mode: int, probe=None):
         m, b, f = x_dense.shape
         valid_rows = [int(v) for v in valid_rows]
         dev = x_dense.device
-        self.device, self.tol, self.mode = dev, float(convergence_tol), int(mode)
-        self._entry = _entry("twtml_fused_dense_tenants_split")
+        self.device = dev
+        self._launch = _entry("twtml_tenant_split_launch")
+        prepare = _entry("twtml_tenant_split_prepare")
+        self.groups = []  # (plan, handle, buffers), one a TENANTS_PER_LAUNCH tenants
+        handles = []  # freed with the step
+        weakref.finalize(self, _release_handles, handles)
         with torch.cuda.device(dev):
             sm_count, shared_limit = device_limits(torch.cuda.current_device())
             self.w = torch.empty((m, f), dtype=torch.float32, device=dev)
             self.preds = torch.empty((m, b), dtype=torch.float32, device=dev)
             self.gbuf = torch.empty((m, padded_columns(f) + 1), dtype=torch.float32,
                                     device=dev)
-            self.launches = []  # (plan, the entry's arguments before it, buffers)
             for lo in range(0, m, TENANTS_PER_LAUNCH):
                 hi = min(m, lo + TENANTS_PER_LAUNCH)
                 split = tenant_split_plan(valid_rows[lo:hi], b, f, sm_count=sm_count,
@@ -1169,36 +1191,110 @@ class TenantSplitStep:
                 bufs = (torch.empty((plan.spill_elements,), dtype=torch.bfloat16, device=dev),
                         torch.empty((split.scratch_floats,), dtype=torch.float32, device=dev),
                         torch.empty((1,), dtype=torch.int32, device=dev))
-                head = (x_dense[lo].data_ptr(), labels[lo].data_ptr(), mask[lo].data_ptr(),
-                        weights[lo].data_ptr(), self.w[lo].data_ptr(),
-                        self.preds[lo].data_ptr(), *(t.data_ptr() for t in bufs),
-                        self.gbuf[lo].data_ptr(), n, b, f, plan.fpad, plan.grid,
-                        plan.rows_cap, plan.shared_bytes, _layout_arg(plan.smem_layout),
-                        (ctypes.c_int * (n + 1))(*plan.first_cta),
-                        (ctypes.c_int * n)(*plan.valid_rows),
-                        (ctypes.c_float * n)(*(float(v) for v in step_sizes[lo:hi])),
-                        (ctypes.c_float * n)(*(float(v) for v in l2_regs[lo:hi])),
-                        split.slices)
-                self.launches.append((split, head, bufs))
+                handle = ctypes.c_void_p()
+                err = prepare(
+                    x_dense[lo].data_ptr(), labels[lo].data_ptr(), mask[lo].data_ptr(),
+                    weights[lo].data_ptr(), self.w[lo].data_ptr(), self.preds[lo].data_ptr(),
+                    *(t.data_ptr() for t in bufs), self.gbuf[lo].data_ptr(), n, b, f,
+                    plan.fpad, plan.grid, plan.rows_cap, plan.shared_bytes,
+                    _layout_arg(plan.smem_layout), (ctypes.c_int * (n + 1))(*plan.first_cta),
+                    (ctypes.c_int * n)(*plan.valid_rows),
+                    (ctypes.c_float * n)(*(float(v) for v in step_sizes[lo:hi])),
+                    (ctypes.c_float * n)(*(float(v) for v in l2_regs[lo:hi])),
+                    split.slices, float(convergence_tol), int(mode),
+                    None if probe is None else probe.data_ptr(),
+                    0 if probe is None else probe.shape[1], ctypes.byref(handle))
+                if err == 1:  # cudaErrorInvalidValue: the entry's own checks
+                    raise RuntimeError("fused_dense_sgd_tenants_split: the kernel refused the "
+                                       f"plan {split}")
+                if err != 0:
+                    raise RuntimeError("fused_dense_sgd_tenants_split set-up failed: CUDA "
+                                       f"error {err}")
+                handles.append(handle)
+                self.groups.append((split, handle, bufs))
 
     def launch(self, it: int, row_pass: bool = True) -> None:
-        with torch.cuda.device(self.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            for split, head, _ in self.launches:
-                err = self._entry(*head, int(it), int(row_pass), self.tol, self.mode, stream)
-                if err == 1:  # cudaErrorInvalidValue: the entry's own checks
-                    raise RuntimeError("fused_dense_sgd_tenants_split: the kernel refused "
-                                       f"the plan {split}")
-                if err != 0:  # a refused cooperative launch included
-                    raise RuntimeError("fused_dense_sgd_tenants_split launch failed: "
-                                       f"CUDA error {err}")
-                fused_dense_sgd_tenants_split.launches += 1
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        for split, handle, _ in self.groups:
+            err = self._launch(handle, it, row_pass, stream)
+            if err != 0:  # a refused cooperative launch included
+                raise RuntimeError("fused_dense_sgd_tenants_split launch failed: CUDA error "
+                                   f"{err} (plan {split})")
+            fused_dense_sgd_tenants_split.launches += 1
 
     @property
     def iterations(self) -> torch.Tensor:
         """Each tenant's iterations run (a device tensor [M])."""
-        its = [bufs[1][-split.tenants.tenants:] for split, _, bufs in self.launches]
+        its = [bufs[1][-split.tenants.tenants:] for split, _, bufs in self.groups]
         return its[0] if len(its) == 1 else torch.cat(its)
+
+
+def _release_handles(handles) -> None:
+    release = _entry("twtml_tenant_split_release")
+    for handle in handles:
+        release(handle)
+
+
+def tenant_split_probe(x_dense, labels, mask, weights, *, valid_rows, step_sizes, l2_regs,
+                       convergence_tol: float = 0.0, residual_fn=least_squares_residual,
+                       launches: int = 5):
+    """The split with a tenant grid's timing instantiation (at most
+    TENANTS_PER_LAUNCH tenants, on CUDA; ``fused_dense_sgd_tenants_split``'s
+    keywords, the all-reduce an identity): the first launch stages X, then
+    ``launches`` launches at it = 2, each stamping (%globaltimer, clock64)
+    in CTA 0 and each tenant's last CTA at the PROBE_SPLIT_EDGES phase edges
+    of one iteration (csrc/fused_sgd.cu ``probe_stamp``; stamps never
+    reached stay 0). Counts its launches as the step does. Returns (w,
+    preds, the stamps int64 [launches, 1 + M, PROBE_SPLIT_EDGES, 2] on the
+    device, the plan)."""
+    if x_dense.dim() != 3 or not 1 <= x_dense.shape[0] <= TENANTS_PER_LAUNCH:
+        raise ValueError(f"the probe takes 1..{TENANTS_PER_LAUNCH} tenants in one launch")
+    if x_dense.device.type != "cuda":
+        raise ValueError("tenant_split_probe times the kernel on the card; got "
+                         f"{x_dense.device}")
+    kw = dict(valid_rows=valid_rows, step_sizes=step_sizes, l2_regs=l2_regs,
+              convergence_tol=convergence_tol)
+    mode = _check_tenants_cuda("tenant_split_probe", x_dense, labels, mask, weights,
+                               num_iterations=2, residual_fn=residual_fn, **kw)
+    probe = torch.zeros((x_dense.shape[0] + 1, PROBE_SPLIT_EDGES, 2), dtype=torch.int64,
+                        device=x_dense.device)
+    step = TenantSplitStep(x_dense, labels, mask, weights, mode=mode, probe=probe, **kw)
+    step.launch(1)
+    stamps = []
+    for _ in range(launches):
+        probe.zero_()
+        step.launch(2)
+        stamps.append(probe.clone())
+    return step.w, step.preds, torch.stack(stamps), step.groups[0][0]
+
+
+# the phases between the split probe's edges, in order
+PROBE_SPLIT_PHASES = ("update", "barrier 1", "decisions + reloads", "row pass", "barrier 2",
+                      "reduce")
+
+
+def tenant_split_probe_split(stamps) -> tuple:
+    """The phase split of ``tenant_split_probe``'s stamps (int64 [launches,
+    slots, PROBE_SPLIT_EDGES, 2] of %globaltimer ns and clock64): for each
+    launch and stamping CTA with every edge stamped, its phase lengths in SM
+    cycles, turned into ns at one rate pooled over all of them (their
+    %globaltimer spans over their cycle spans: a launch is a few µs, and
+    %globaltimer ticks coarsely), then the mean of each phase
+    (PROBE_SPLIT_PHASES) in µs. Returns (phases, launches counted, the mean
+    span from entry to the reduce's end in µs, each stamping slot's phases:
+    slot 0 is CTA 0, slot 1 + m tenant m's last CTA)."""
+    st = stamps.detach().cpu().to(torch.float64)
+    whole = (st[..., 0] != 0).all(dim=-1)  # [launches, slots]
+    if not whole.any():
+        return {}, 0, None, {}
+    g, c = st[whole][..., 0], st[whole][..., 1]
+    us_a_cycle = float((g[:, -1] - g[:, 0]).sum() / (c[:, -1] - c[:, 0]).sum().clamp(min=1.0)) / 1e3
+    phases = torch.diff(c, dim=1) * us_a_cycle
+    slot_of = whole.nonzero()[:, 1]
+    by_slot = {int(k): dict(zip(PROBE_SPLIT_PHASES, phases[slot_of == k].mean(0).tolist()))
+               for k in slot_of.unique()}
+    return (dict(zip(PROBE_SPLIT_PHASES, phases.mean(0).tolist())), int(whole.any(dim=1).sum()),
+            float((c[:, -1] - c[:, 0]).mean()) * us_a_cycle, by_slot)
 
 
 fused_dense_sgd_tenants_split.launches = 0
