@@ -366,13 +366,15 @@ the last is the kernels' JSON record (B1's least-squares mode with its
 B8 and the split's two launches with their ``elastic`` and ``modelaxis`` launches, B4, B7 and
 B8 with their ``modelaxis`` launches, the split's iteration launch with its library calls'
 times, B1's tenant grid with the vmap arm's launches, the split with a tenant
-grid with the modelaxis phase's vmap arm's launches); the last line is ``{"ok": true,
+grid with the modelaxis phase's vmap arm's launches, the tenant forms of
+B4, B7 and B8 with the 2^18 vmap arm's launches); the last line is ``{"ok": true,
 "device": {...}}``.
 
 ``python3 chip_smoke.py --times-only [--package-root DIR]`` runs phases 1
 and 2 and then only the kernels' device times (B1's logistic mode, its
 predict kernel, B4 in both planes, the G product, B7 at B = 2048, 3072
-and 4096, B8), importing the port from DIR (another checkout unpacked
+and 4096 and, where the tree has it, B7's tenant form at one tenant on
+B7's 2048 rows, B8), importing the port from DIR (another checkout unpacked
 there), so that two versions can be timed in turns in one call; its last
 line is that JSON.
 
@@ -388,6 +390,12 @@ tweets; its last line is the phase's JSON.
 linear tenant app at M = 4 and the logistic one at M = 2 on 4 x 16384
 synthetic tweets for their parts, then only the tenants phase's vmap arm;
 its last line is the arm's JSON.
+
+``python3 chip_smoke.py --tenants-sparse-only`` runs phases 1 and 2 and
+then only the 2^18 vmap arm (``tenants_sparse_arm``: the tenant forms of
+B4, B7 and B8 against their plain versions, the vmap form against scan at
+config #4 on short tweets, mixed planes and the scatter route, the
+kernels' times); its last line is the arm's JSON.
 
 ``python3 chip_smoke.py --tenants-mesh-only`` runs phases 1 and 2 and then
 only the modelaxis phase's vmap arm on 5 x 16384 synthetic tweets, with
@@ -3126,8 +3134,9 @@ def sparse_phase(smi):
                                     base_ms=NOW_MS).produce())
     gram_run = sparse_run("gram", "cuda", statuses, SPARSE_BATCHES)
     totals, lines, rec = gram_run
-    want = {"count_build": SPARSE_BATCHES + 1, "dual_sgd": SPARSE_BATCHES + 1,
-            "dual_writeback_counts": SPARSE_BATCHES + 1}
+    # one B4, B7 and B8 a batch; none of their tenant forms (no tenant plane)
+    want = dict(dict.fromkeys(SV_KERNELS, 0), count_build=SPARSE_BATCHES + 1,
+                dual_sgd=SPARSE_BATCHES + 1, dual_writeback_counts=SPARSE_BATCHES + 1)
     if rec["gram_launches"] != want or rec["model"].route != "gram":
         raise AssertionError(f"sparse: route {rec['model'].route}, launches "
                              f"{rec['gram_launches']}, want {want} (4 batches + the warm-up)")
@@ -3189,7 +3198,7 @@ def sparse_phase(smi):
     # the warm-up's step, then its group of 4 (eager, then captured) and the
     # two groups of real batches (replays of one signature, or an eager run
     # and a replay): 1 + 4 + 4 + 4 launches of each kernel
-    want_sb = {k: 1 + 3 * SPARSE_BATCHES for k in want}
+    want_sb = {k: 1 + 3 * SPARSE_BATCHES if n else 0 for k, n in want.items()}
     warm = sb[2]["outputs"][:SPARSE_BATCHES]  # the warm-up's all-padding group
     sb[2]["outputs"] = sb[2]["outputs"][SPARSE_BATCHES:]
     if any(float(o.count) for o in warm):
@@ -3427,7 +3436,8 @@ def gram_times(smi, errs, launches, structure=True):
     records. With ``structure`` also B7's grid barriers at each tolerance,
     one barrier crossing alone and where G lives; without it only what
     every tree's ``dual_sgd`` and ``dual_plan`` expose (``--times-only``
-    against another checkout)."""
+    against another checkout). Where the tree has B7's tenant form, it
+    is timed at one tenant on B7's rows beside B7."""
     import numpy as np
     import torch
 
@@ -3471,8 +3481,11 @@ def gram_times(smi, errs, launches, structure=True):
     # B4
     counts = fused_gram.count_build(idx, val, f, int8=int8)
     rows, cols = counts.shape
-    b4_ms, b4_all = timed(lambda: fused_gram.count_build(idx, val, f, int8=int8), 25,
-                          queue_ahead=True)
+    b4_one, b4_all = timed(lambda: fused_gram.count_build(idx, val, f, int8=int8), 25,
+                           queue_ahead=True)
+    # 50 calls back to back behind ~20 ms of sleep: one call between two
+    # events carries the events' own cost (PERF.md §6, the predict kernel)
+    b4_ms, b4_runs, _ = split_queued(lambda: fused_gram.count_build(idx, val, f, int8=int8), 5)
     b4_twin, _ = timed(lambda: fused_gram.count_build_reference(
         idx, val, f, int8=int8, rows_out=rows, cols_out=cols), 5)
     b4_bytes = rows * cols * counts.element_size() + b * l * 8
@@ -3487,8 +3500,9 @@ def gram_times(smi, errs, launches, structure=True):
     f32_ms, _ = timed(lambda: counts_f32 @ counts_f32.t(), 3, queue_ahead=True)
     del counts_f32
     phase("times", f"B4 count build at B={b} L={l} F={f} ({PLANE_NAMES[plane]} plane, "
-          f"C {tuple(counts.shape)} {counts.dtype}): median {b4_ms:.4f} ms over 25 (min "
-          f"{min(b4_all):.4f}); twin {b4_twin:.4f} ms; torch.bincount ({b4_lib_dtype} counts) {b4_lib:.4f} ms; bound "
+          f"C {tuple(counts.shape)} {counts.dtype}): {b4_ms:.4f} ms back to back (50 calls "
+          f"behind ~20 ms of sleep, median of 5: {min(b4_runs):.4f}-{max(b4_runs):.4f}); one "
+          f"call between events median {b4_one:.4f} ms over 25 (min {min(b4_all):.4f}); twin {b4_twin:.4f} ms; torch.bincount ({b4_lib_dtype} counts) {b4_lib:.4f} ms; bound "
           f"{b4_bytes} B / 3.35e12 B/s = {b4_bound[0]:.5f} ms (bytes); "
           f"{b4_ms / b4_bound[0]:.1f}x | card: {smi}")
     f32_build = f32_build_times(smi)
@@ -3509,14 +3523,18 @@ def gram_times(smi, errs, launches, structure=True):
         _, _, its = call()
         r = {"barriers": int(fused_gram.dual_sgd.last_barriers)} if structure else {}
         ms, all_ms = timed(call, 25, queue_ahead=True)
-        return dict(r, ms=ms, min_ms=min(all_ms), max_ms=max(all_ms), iterations=int(its),
-                    us_per_iteration=ms / max(int(its), 1) * 1e3)
+        queued, queued_runs, _ = split_queued(call, 5)
+        return dict(r, one_call_ms=ms, min_ms=min(all_ms), max_ms=max(all_ms),
+                    ms=queued, queued_runs_ms=queued_runs, iterations=int(its),
+                    us_per_iteration=queued / max(int(its), 1) * 1e3)
 
     def b7_line(r):
         crossed = f", {r['barriers']} grid barriers" if structure else ""
-        return (f"median {r['ms']:.4f} ms over 25 (min {r['min_ms']:.4f}, max "
-                f"{r['max_ms']:.4f}), {r['iterations']} iterations run{crossed}, "
-                f"{r['us_per_iteration']:.2f} us an iteration")
+        return (f"{r['ms']:.4f} ms back to back (median of 5 runs of 50: "
+                f"{min(r['queued_runs_ms']):.4f}-{max(r['queued_runs_ms']):.4f}); one call "
+                f"between events median {r['one_call_ms']:.4f} ms over 25 (min "
+                f"{r['min_ms']:.4f}, max {r['max_ms']:.4f}), {r['iterations']} iterations "
+                f"run{crossed}, {r['us_per_iteration']:.2f} us an iteration")
 
     b7 = {tol: b7_time(g, raw, y, m, tol) for tol in (0.001, 0.0)}
     b7_twin, _ = timed(lambda: fused_gram.dual_sgd_reference(
@@ -3566,12 +3584,39 @@ def gram_times(smi, errs, launches, structure=True):
                 "grid": plan.grid, "shared_bytes": plan.shared_bytes,
                 "tolerances": {str(tol): r for tol, r in b7.items()},
                 "spilled": {str(rows): r for rows, r in spilled.items()}}
+    if hasattr(fused_gram, "dual_sgd_tenants"):
+        # B7's tenant form at one tenant on B7's rows, against B7 itself: what
+        # keeps the two dual loops apart (B7's G in registers, one barrier an
+        # iteration, its speculative update)
+        c7, a7, _ = fused_gram.dual_sgd(g, raw, y, m, p_prev=p_prev, convergence_tol=0.001, **kw)
+        g_text = fused_gram.gram_from_counts(counts)
+        one = lambda: fused_gram.dual_sgd_tenants(  # noqa: E731
+            [g_text], raw[None], y[None], m[None], num[None], valid_rows=[b],
+            p_prev=p_prev[None], num_iterations=OP_ITERS, step_sizes=[0.005], l2_regs=[0.1],
+            convergence_tol=0.001)
+        c1, a1, i1 = one()
+        one_ms, one_runs, one_host_us = split_queued(one, 5)
+        one_rec = {
+            "ms": one_ms, "queued_runs_ms": one_runs, "host_enqueue_us": one_host_us,
+            "iterations": int(i1[0]), "b7_ms": b7[0.001]["ms"],
+            "max_abs_diff_alpha": float((a1[0] - a7).abs().max()),
+            "c_diff": float((c1[0] - c7).abs())}
+        b7_extra["tenant_form_one_tenant"] = one_rec
+        phase("times", f"B7's tenant form at one tenant on the same B={b} rows, tol 0.001: "
+              f"{one_ms:.4f} ms back to back (median of 5 runs of 50: {min(one_runs):.4f}-"
+              f"{max(one_runs):.4f}; host enqueue {one_host_us:.1f} us a call), "
+              f"{one_rec['iterations']} iterations, against B7's {one_rec['b7_ms']:.4f} ms; "
+              f"max |Δα| {one_rec['max_abs_diff_alpha']:.3g}, |Δc| {one_rec['c_diff']:.3g} | "
+              f"card: {smi}")
+        del g_text
     if structure:
         b7_extra.update(g_in_registers=plan.in_registers, barrier_crossing_us=barrier_us)
     # B8
     c, alpha, _ = fused_gram.dual_sgd(g, raw, y, m, p_prev=p_prev, convergence_tol=0.001, **kw)
-    b8_ms, _ = timed(lambda: fused_gram.dual_writeback_counts(w, c, alpha, counts, num, f), 25,
-                     queue_ahead=True)
+    b8_one, _ = timed(lambda: fused_gram.dual_writeback_counts(w, c, alpha, counts, num, f),
+                      25, queue_ahead=True)
+    b8_ms, b8_runs, _ = split_queued(
+        lambda: fused_gram.dual_writeback_counts(w, c, alpha, counts, num, f), 5)
     b8_twin, _ = timed(lambda: fused_gram.dual_writeback_reference(w, c, alpha, counts, num, f),
                        5)
     cf = counts[:b, :f].float()
@@ -3582,8 +3627,9 @@ def gram_times(smi, errs, launches, structure=True):
     b8_bytes = b * cols * counts.element_size() + b * 4 * 5 + (f + 4) * 4 * 2
     b8_ops = 2 * b * f
     b8_bound = (b8_bytes / HBM_BYTES_PER_S * 1e3, b8_ops / F32_FLOPS_PER_S * 1e3)
-    phase("times", f"B8 write-back at B={b} F={f}: median {b8_ms:.4f} ms; twin {b8_twin:.4f} "
-          f"ms; bound bytes {b8_bytes} B = {b8_bound[0]:.5f} ms, operations {b8_ops} = "
+    phase("times", f"B8 write-back at B={b} F={f}: {b8_ms:.4f} ms back to back (median of 5 "
+          f"runs of 50: {min(b8_runs):.4f}-{max(b8_runs):.4f}); one call between events "
+          f"median {b8_one:.4f} ms; twin {b8_twin:.4f} ms; bound bytes {b8_bytes} B = {b8_bound[0]:.5f} ms, operations {b8_ops} = "
           f"{b8_bound[1]:.5f} ms; torch.addmv on f32 counts of the same batch (the int8 C "
           f"has no single library call) {addmv_ms:.4f} ms")
     return [
@@ -3591,6 +3637,7 @@ def gram_times(smi, errs, launches, structure=True):
                "onehot_counts, sparse.py:29 densify_text)", b4_ms, b4_twin, b4_bound, {
                    "kernel": "B4", "plane": PLANE_NAMES[plane], "tokens": l,
                    "library_ms": b4_lib, "library_call": "torch.bincount",
+                   "one_call_ms": b4_one, "queued_runs_ms": b4_runs,
                    "library_dtype": b4_lib_dtype, "f32_build": f32_build,
                    "gram_product": {"call": "torch._int_mm", "ms": mm_ms,
                                     "with_f32_cast_ms": g_ms, "bound_ms": mm_bound,
@@ -3599,7 +3646,8 @@ def gram_times(smi, errs, launches, structure=True):
         record("dual_sgd", "twtml_tpu/models/sgd.py:155 (run_dual_loop)", b7[0.001]["ms"],
                b7_twin, b7_bound, b7_extra),
         record("dual_writeback_counts", "twtml_tpu/ops/gram.py:269 (dual_writeback)", b8_ms,
-               b8_twin, b8_bound, {"kernel": "B8", "addmv_f32_counts_ms": addmv_ms}),
+               b8_twin, b8_bound, {"kernel": "B8", "addmv_f32_counts_ms": addmv_ms,
+                                   "one_call_ms": b8_one, "queued_runs_ms": b8_runs}),
     ]
 
 
@@ -5528,10 +5576,11 @@ def hold_vmap_tick(k, ov, os_, x, w_prev, logistic=False):
     """Tick ``k`` of the vmap form (host results ``ov``) against the scan
     form's (``os_``) on the same parts: counts equal; predictions equal but
     where one step lies between them and the f64 margin X·w_prev (``x`` the
-    tick's dense X on the card, ``w_prev`` the scan stack before it) is
-    within VMAP_TIE of a tie (a HALF_UP half, or 0 for the ``logistic``
-    learner's class); the stats and the quality vector within VMAP_RTOL /
-    VMAP_ATOL. Returns (flips, largest relative stat difference)."""
+    tick's dense X on the card, or a function of ``w_prev`` that gives the
+    margins, ``w_prev`` the scan stack before it) is within VMAP_TIE of a
+    tie (a HALF_UP half, or 0 for the ``logistic`` learner's class); the
+    stats and the quality vector within VMAP_RTOL / VMAP_ATOL. Returns
+    (flips, largest relative stat difference)."""
     import numpy as np
     import torch
 
@@ -5539,7 +5588,8 @@ def hold_vmap_tick(k, ov, os_, x, w_prev, logistic=False):
         raise AssertionError(f"tenants vmap tick {k}: counts {ov.count} != scan's {os_.count}")
     diff = ov.predictions != os_.predictions
     if diff.any():
-        raw = torch.bmm(x.double(), w_prev.double()[..., None])[..., 0].cpu().numpy()
+        raw = (x(w_prev) if callable(x) else
+               torch.bmm(x.double(), w_prev.double()[..., None])[..., 0]).cpu().numpy()
         tie = np.abs(raw) if logistic else np.abs(raw - (np.floor(raw) + 0.5))
         near = (np.abs(ov.predictions - os_.predictions) == 1) & (tie < VMAP_TIE)
         if (diff & ~near).any():
@@ -5664,6 +5714,560 @@ def tenant_vmap_arm(argv, rec, smi, knobs=None, timing=True):
     if out["vmap"]["d2h_a_tick"] != 1:
         raise AssertionError(f"tenants vmap: {out['vmap']['d2h_a_tick']} D2H copies a tick")
     return out, launches
+
+
+# ---- the 2^18 vmap arm: B4, B7 and B8's tenant forms (ROADMAP B10 c) --------
+
+SV_M = 4  # the ticks' tenants
+SV_TICKS = 5  # ticks after the warm-up
+SV_LONG_ROWS = 3  # tweet-length rows a tick in the mixed-planes ticks
+SV_LONG_SPAN = (200, 280)  # their code units: row mass past 127 (the bf16 or exact plane)
+SV_TIME_RUNS = 5
+SV_KERNELS = ("count_build_tenants", "dual_sgd_tenants", "dual_writeback_tenants")
+# the kernel holds: (name, each part's valid rows, a part's rows, options)
+SV_CASES = (
+    ("M=1 of 2048 rows", (2048,), 2048, {}),
+    ("M=2", (700, 1300), 2048, {}),
+    ("M=4 config #4", (512, 530, 498, 508), 2048, {}),
+    ("M=4 skew 1:3:0:12", (100, 300, 0, 1200), 2048, {}),
+    ("M=4 a tenant at 4096 rows", (4096, 200, 0, 50), 4096, {}),
+    ("M=16", tuple(48 + 13 * t for t in range(15)) + (0,), 256, {}),
+    ("M=40 (two launches of each form)", tuple(30 + 5 * t for t in range(39)) + (0,), 256, {}),
+    ("M=4 logistic", (512, 530, 498, 508), 2048, {"logistic": True}),
+    ("M=4 -b 0.5", (512, 530, 498, 508), 2048, {"sampled": True}),
+    ("M=4 tol 0", (512, 530, 498, 508), 2048, {"tol": 0.0}),
+    ("M=4 tenants 0 and 2 freeze early", (512, 530, 498, 508), 2048, {"near": (0, 2)}),
+    ("M=4 every tenant freezes (the launch ends early)", (512, 530, 0, 508), 2048,
+     {"near": (0, 1, 3)}),
+    ("M=4 f32 counts (row mass 128)", (512, 530, 498, 508), 2048, {"peak": 128}),
+    ("M=4 exact plane (fractional)", (300, 0, 700, 64), 2048, {"fractional": True}),
+)
+
+
+def sv_inputs(rng, valid, rows, peak=0, fractional=False):
+    """M parts of ``rows`` rows at F = 2^18 on the card: part m's first
+    valid[m] rows tweet-like tokens (``gram_tokens``; part 0's row 0 at
+    ``peak``), the rest padding; ~10 % of the valid rows masked, each part's
+    last valid row kept; numeric features, u = Z·W_prev and labels."""
+    import numpy as np
+    import torch
+
+    m, tokens = len(valid), 48
+    idx = np.zeros((m, rows, tokens), np.int32)
+    val = np.zeros((m, rows, tokens), np.float32)
+    mask = np.zeros((m, rows), np.float32)
+    for t, v in enumerate(valid):
+        if v:
+            idx[t, :v], val[t, :v] = gram_tokens(rng, v, peak if t == 0 else 0, fractional)
+            mask[t, :v] = rng.random(v) < 0.9
+            mask[t, v - 1] = 1.0
+    num = (rng.normal(size=(m, rows, 4)) * 0.1).astype(np.float32)
+    u = (rng.normal(size=(m, rows)) * 10).astype(np.float32)
+    y = rng.uniform(50, 900, size=(m, rows)).astype(np.float32)
+    return tuple(torch.from_numpy(a).cuda() for a in (idx, val, num, mask, u, y))
+
+
+def sv_check_case(name, valid, rows, opts, errs, rng):
+    """One hold of the three tenant forms on ``valid``'s parts: B4's tenant
+    form bitwise its plain version and each tenant's block bitwise B4 on
+    its valid rows; B7's within RTOL/ATOL of its plain version with the same
+    iterations run by each tenant, NaN/Inf in masked rows bitwise ignored;
+    B8's within WEIGHT_RTOL of its plain version and each tenant's row
+    bitwise B8 on the same rows; every rerun bitwise. Returns the line."""
+    import torch
+
+    from twtml_tpu_torch.models.sgd import sampling_masks
+    from twtml_tpu_torch.ops import fused_gram
+    from twtml_tpu_torch.ops.fused_sgd import logistic_residual
+
+    idx, val, num, mask, u, y = sv_inputs(rng, valid, rows, opts.get("peak", 0),
+                                          opts.get("fractional", False))
+    m = len(valid)
+    int8 = not (opts.get("peak") or opts.get("fractional"))
+    counts, at = fused_gram.count_build_tenants(idx, val, GRAM_F, valid_rows=valid, int8=int8)
+    again, _ = fused_gram.count_build_tenants(idx, val, GRAM_F, valid_rows=valid, int8=int8)
+    plain, plain_at = fused_gram.count_build_tenants_reference(
+        idx, val, GRAM_F, valid_rows=valid, int8=int8, cols_out=counts.shape[1])
+    torch.cuda.synchronize()
+    if not torch.equal(counts, again) or plain_at != at or not torch.equal(counts, plain):
+        raise AssertionError(f"count_build_tenants {name}: not bitwise its plain version "
+                             "(or a rerun)")
+    for t, v in enumerate(valid):
+        if v:
+            single = fused_gram.count_build(idx[t, :v].contiguous(), val[t, :v].contiguous(),
+                                            GRAM_F, int8=int8)
+            if not torch.equal(counts[at[t]:at[t] + single.shape[0]], single):
+                raise AssertionError(f"count_build_tenants {name}: tenant {t}'s block is not "
+                                     "B4's on its rows")
+    del plain, again
+    gs = fused_gram.tenant_gram_blocks(counts, at, valid)
+    logistic = opts.get("logistic", False)
+    labels = (y > 475).float() if logistic else y.clone()
+    for t in opts.get("near", ()):  # labels near the margins: the tenant's test converges early
+        labels[t] = u[t] + torch.from_numpy(rng.normal(size=rows).astype("float32")).to(u)
+    kw = dict(num_iterations=OP_ITERS, convergence_tol=opts.get("tol", 0.001),
+              step_sizes=[0.1 if logistic else 0.005 * (1 + t % 3) for t in range(m)],
+              l2_regs=[(0.1, 0.0, 0.01)[t % 3] for t in range(m)],
+              residual_fn=logistic_residual if logistic else None)
+    kw = {k: v for k, v in kw.items() if v is not None}
+    masks = (sampling_masks(rows, OP_ITERS, 0.5, torch.float32, idx.device)
+             if opts.get("sampled") else None)
+    p_prev = (torch.full((m,), 1.5, device=idx.device) if opts.get("near")
+              else torch.rand(m, device=idx.device) * 3)
+    args = (gs, u, labels, mask, num)
+    c, alpha, its = fused_gram.dual_sgd_tenants(*args, valid_rows=valid, masks=masks,
+                                                p_prev=p_prev, **kw)
+    c2, alpha2, its2 = fused_gram.dual_sgd_tenants(*args, valid_rows=valid, masks=masks,
+                                                   p_prev=p_prev, **kw)
+    keep = mask > 0
+    dirty = (gs, torch.where(keep, u, float("nan")), torch.where(keep, labels, float("inf")),
+             mask, torch.where(keep[..., None], num, float("nan")))
+    c3, alpha3, its3 = fused_gram.dual_sgd_tenants(*dirty, valid_rows=valid, masks=masks,
+                                                   p_prev=p_prev, **kw)
+    c_r, alpha_r, its_r = fused_gram.dual_sgd_tenants_reference(
+        *args, valid_rows=valid, masks=masks, p_prev=p_prev, **kw)
+    torch.cuda.synchronize()
+    for what, (cc, aa, ii) in (("a rerun", (c2, alpha2, its2)),
+                               ("NaN/Inf in masked rows", (c3, alpha3, its3))):
+        if not (torch.equal(c, cc) and torch.equal(alpha, aa) and torch.equal(its, ii)):
+            raise AssertionError(f"dual_sgd_tenants {name}: {what} is not bitwise equal")
+    if not torch.equal(its, its_r.to(its.dtype)):
+        raise AssertionError(f"dual_sgd_tenants {name}: iterations run {its.tolist()}, the "
+                             f"plain version {its_r.tolist()}")
+    early = [t for t in opts.get("near", ()) if not int(its[t]) < OP_ITERS]
+    if early or any(int(its[t]) != OP_ITERS for t in range(m)
+                    if valid[t] and t not in opts.get("near", ()) and opts.get("near")):
+        raise AssertionError(f"dual_sgd_tenants {name}: iterations run {its.tolist()}: the "
+                             f"tenants {opts.get('near')} were to freeze early, the others not")
+    ea, _ = compare(f"dual_sgd_tenants {name} alpha", alpha, alpha_r)
+    ec, _ = compare(f"dual_sgd_tenants {name} c", c, c_r)
+    single_note = ""
+    if m == 1:  # B7 on the same rows: G with N·Nᵀ added by the library product
+        v = valid[0]
+        g = gs[0].float()
+        g[:v, :v] += num[0, :v] @ num[0, :v].T
+        c1, a1, i1 = fused_gram.dual_sgd(
+            g, u[0, :v].contiguous(), labels[0, :v].contiguous(), mask[0, :v].contiguous(),
+            masks=None if masks is None else masks[:, :v].contiguous(), p_prev=p_prev[0],
+            num_iterations=OP_ITERS, step_size=kw["step_sizes"][0], l2_reg=kw["l2_regs"][0],
+            convergence_tol=kw["convergence_tol"])
+        torch.cuda.synchronize()
+        if int(i1) != int(its[0]):
+            raise AssertionError(f"dual_sgd_tenants {name}: {int(its[0])} iterations, B7 "
+                                 f"{int(i1)}")
+        e1, _ = compare(f"dual_sgd_tenants {name} against B7", alpha[0, :v], a1)
+        same = torch.equal(alpha[0, :v], a1) and torch.equal(c[0], c1)
+        single_note = (f"; against B7 on the same rows (B7's CTAs and product order; G's "
+                       f"N·Nᵀ added in the prologue, the test's partials summed in CTA order): "
+                       f"{'bitwise equal' if same else f'max abs err {e1:.3e}'}")
+    w = (torch.randn(m, GRAM_F + 4, device=idx.device) * 1e-2).contiguous()
+    tenants = tuple(range(m))
+    wb = fused_gram.dual_writeback_tenants(w, c, alpha, counts, num, GRAM_F, valid_rows=valid,
+                                           tenants=tenants, at=at)
+    wb2 = fused_gram.dual_writeback_tenants(w, c, alpha, counts, num, GRAM_F, valid_rows=valid,
+                                            tenants=tenants, at=at)
+    wb_r = fused_gram.dual_writeback_tenants_reference(w, c, alpha, counts, num, GRAM_F,
+                                                       valid_rows=valid, tenants=tenants, at=at)
+    torch.cuda.synchronize()
+    if not torch.equal(wb, wb2):
+        raise AssertionError(f"dual_writeback_tenants {name}: a rerun is not bitwise equal")
+    err = (wb - wb_r).abs()
+    atol = WEIGHT_RTOL * max(1.0, wb_r.abs().max().item())
+    if (err > atol + WEIGHT_RTOL * wb_r.abs()).any() or not torch.isfinite(wb).all():
+        raise AssertionError(f"dual_writeback_tenants {name}: its plain version differs by "
+                             f"{err.max().item():.3e}")
+    for t, v in enumerate(valid):
+        if v:
+            single = fused_gram.dual_writeback_counts(
+                w[t], c[t], alpha[t, :v].contiguous(),
+                counts[at[t]:at[t] + fused_gram.tenant_padded_rows(v)],
+                num[t, :v].contiguous(), GRAM_F)
+            if not torch.equal(single, wb[t]):
+                raise AssertionError(f"dual_writeback_tenants {name}: tenant {t}'s row is not "
+                                     "B8's on its rows")
+        elif not torch.equal(wb[t], w[t] * c[t]):
+            raise AssertionError(f"dual_writeback_tenants {name}: dry tenant {t} moved")
+    for key, e in zip(SV_KERNELS, (0.0, max(ea, ec), err.max().item())):
+        errs[key] = max(errs[key], e)
+    return (f"{name}: valid rows {list(valid)} of {rows}, {'int8' if int8 else 'f32'} counts "
+            f"{tuple(counts.shape)}; B4's tenant form bitwise its plain version and B4 on each "
+            f"tenant's rows; B7's iterations run {[int(i) for i in its.tolist()]} (the plain "
+            f"version's), max abs err alpha {ea:.3e} c {ec:.3e}{single_note}, NaN/Inf in "
+            f"masked rows bitwise ignored; B8's within {err.max().item():.3e} of its plain "
+            "version, each row bitwise B8 on the same rows; reruns bitwise")
+
+
+def sv_checks():
+    """The tenant forms' holds (``sv_check_case``) over SV_CASES: M = 1, 2,
+    4, 16 and 40 (past TENANTS_PER_LAUNCH: consecutive launches), a dry
+    tenant, a tenant at 4096 rows, the 1 : 3 : 0 : 12 skew,
+    the logistic mode, ``-b 0.5`` masks, tolerance 0 and 0.001, int8 and f32
+    counts. Returns (max abs errors by kernel, the cases' names)."""
+    import numpy as np
+
+    rng = np.random.default_rng(2323)
+    errs = dict.fromkeys(SV_KERNELS, 0.0)
+    for name, valid, rows, opts in SV_CASES:
+        phase("tenants-sparse", "kernel hold " + sv_check_case(name, valid, rows, opts, errs,
+                                                              rng))
+    return errs, [c[0] for c in SV_CASES]
+
+
+def sv_ticks(kind, ticks=SV_TICKS):
+    """``ticks`` host batches of GRAM_ROWS synthetic tweets (seed 11) at
+    2^18 for ``kind``: "short" (the int8 plane), "mixed" (SV_LONG_ROWS of
+    each batch's rows tweet-length: their tenants' parts leave the int8
+    plane) or "scatter" (the short tweets, for the scatter route)."""
+    from twtml_tpu_torch.features.featurizer import Featurizer
+    from twtml_tpu_torch.streaming.sources import SyntheticSource
+
+    statuses = list(SyntheticSource(total=ticks * GRAM_ROWS, seed=11, base_ms=NOW_MS).produce())
+    if kind == "mixed":
+        longs = long_statuses([SV_LONG_SPAN], SV_LONG_ROWS * ticks, 17)
+        for k in range(ticks):
+            for j in range(SV_LONG_ROWS):
+                at = k * GRAM_ROWS + (j + 1) * GRAM_ROWS // (SV_LONG_ROWS + 1)
+                statuses[at] = longs[k * SV_LONG_ROWS + j]
+    feat = Featurizer(num_text_features=GRAM_F, now_ms=NOW_MS)
+    return [feat.featurize_batch_ragged(statuses[k * GRAM_ROWS:(k + 1) * GRAM_ROWS],
+                                        row_bucket=GRAM_ROWS, pre_filtered=True)
+            for k in range(ticks)]
+
+
+def sv_model(mapping, kind):
+    from twtml_tpu_torch.parallel.tenants import TenantStackModel
+
+    return TenantStackModel(SV_M, mapping=mapping, num_text_features=GRAM_F, step_size=0.005,
+                            l2_reg=0.1, quality=True, use_gram=False if kind == "scatter" else None,
+                            device="cuda")
+
+
+def sv_margins(model, parts):
+    """A function of the stack before a tick that gives the tick's f64
+    margins [M, B] on the card (``hold_vmap_tick``'s ``x``)."""
+    import torch
+
+    from twtml_tpu_torch.models.sgd import batch_to_device, decode_batch, flatten_tenants
+    from twtml_tpu_torch.ops.sparse import sparse_predict
+
+    dev = batch_to_device(model.prepare_wire_from_parts(parts), model.device)
+    idx, val, num, _, mask = decode_batch(flatten_tenants(dev), GRAM_F, torch.float32)
+    m = SV_M
+    rows = mask.shape[0] // m
+
+    def raw(w):
+        w = w.double()
+        return sparse_predict(w[:, :GRAM_F], w[:, GRAM_F:], idx.view(m, rows, -1),
+                              val.view(m, rows, -1).double(), num.view(m, rows, -1).double())
+
+    return raw
+
+
+def sv_expected(model, ticks):
+    """The vmap form's launches over ``ticks`` on the Gram route: a tick
+    launches B4's tenant form once a plane its tenants with rows hold, B8's
+    once a plane (a dry tenant rides with the first tenant with rows), B7's
+    once, and one G product a tenant with rows."""
+    from twtml_tpu_torch.ops.gram import PLANE_INT8
+
+    want = dict.fromkeys(SV_KERNELS, 0)
+    want["products"] = 0
+    for parts in ticks:
+        wire = model.prepare_wire_from_parts(parts)
+        planes, valid = model.planes(wire), model.valid_rows(wire)
+        held = {planes[t] == PLANE_INT8 for t in range(SV_M) if valid[t]}
+        want["count_build_tenants"] += len(held)
+        want["dual_writeback_tenants"] += max(len(held), 1)
+        want["dual_sgd_tenants"] += 1
+        want["products"] += sum(1 for v in valid if v)
+    return want
+
+
+def sv_scan_expected(kind, ticks):
+    """The scan form's launches over ``ticks`` ticks: on the Gram route B4,
+    B7 and B8 once a tenant (its padded part, a dry one's too), none of the
+    tenant forms; on the scatter route no kernel."""
+    per = 0 if kind == "scatter" else SV_M * ticks
+    return dict(dict.fromkeys(SV_KERNELS, 0), count_build=per, dual_sgd=per,
+                dual_writeback_counts=per)
+
+
+def sv_tick_arm(kind, smi, timing=False):
+    """The tenant plane's vmap form at config #4 (2^18, step 0.005, L2 0.1,
+    GRAM_ROWS tweets a tick routed to SV_M tenants, model watch on),
+    library level, against the scan form on the same parts: a warm-up tick
+    of all padding, then SV_TICKS ticks. Its ticks are the main path of the
+    tenant forms on the Gram route: every dispatch under the sync-debug
+    mode "error", the counts from 0 (one B4 and one B8 a plane present, one
+    B7 a tick, M G products; B4, B7 and B8 themselves none), against scan's
+    M of each. Each tick within VMAP_RTOL / VMAP_ATOL of scan's, HALF_UP
+    flips counted (``hold_vmap_tick``); the final stacks too. With
+    ``timing``, each form's device busy ms, launches and copies a tick from
+    a profiled pass. Returns the summary (its ``launches`` by kernel)."""
+    import tempfile
+
+    import numpy as np
+
+    from twtml_tpu_torch.ops import fused_gram
+
+    vmap, scan = sv_model("vmap", kind), sv_model("scan", kind)
+    ticks = [vmap.split(b) for b in sv_ticks(kind)]
+    warm = [copy_batch(p) for p in ticks[0]]
+    for p in warm:
+        p.mask[:] = 0.0
+    ticks = [warm, *ticks]
+    if vmap._batched is None or vmap.route != ("scatter" if kind == "scatter" else "gram"):
+        raise AssertionError(f"tenants sparse {kind}: no batched step on route {vmap.route}")
+    counters = [getattr(fused_gram, k) for k in SV_KERNELS + (
+        "count_build", "dual_sgd", "dual_writeback_counts")]
+    for fn in counters:
+        fn.launches = 0
+    fused_gram.tenant_gram_blocks.products = 0
+    v_outs, _ = tenant_ticks(vmap, ticks, sync_debug=True)
+    got = {fn.__name__: fn.launches for fn in counters}
+    got["products"] = fused_gram.tenant_gram_blocks.products
+    want = (sv_expected(vmap, ticks) if kind != "scatter"
+            else dict(dict.fromkeys(SV_KERNELS, 0), products=0))
+    want.update(count_build=0, dual_sgd=0, dual_writeback_counts=0)
+    if got != want:
+        raise AssertionError(f"tenants sparse {kind}: launches {got}, want {want}")
+    for fn in counters:
+        fn.launches = 0
+    s_outs, prev = [], []
+    for parts in ticks:
+        prev.append(scan._weights.clone())
+        s_outs.append(tenant_ticks(scan, [parts], sync_debug=True)[0][0])
+    scan_launches = {fn.__name__: fn.launches for fn in counters}
+    if scan_launches != sv_scan_expected(kind, len(ticks)):
+        raise AssertionError(f"tenants sparse {kind}: the scan form launched {scan_launches}")
+    flips, worst = 0, 0.0
+    for k, (parts, ov, os_, w_prev) in enumerate(zip(ticks, v_outs, s_outs, prev)):
+        f_k, w_k = hold_vmap_tick(k, ov, os_, sv_margins(scan, parts), w_prev)
+        flips, worst = flips + f_k, max(worst, w_k)
+    w_v, w_s = vmap.latest_weights.astype(np.float64), scan.latest_weights.astype(np.float64)
+    if not np.allclose(w_v, w_s, rtol=VMAP_RTOL, atol=VMAP_ATOL) or not np.isfinite(w_v).all():
+        raise AssertionError(f"tenants sparse {kind}: the final stack is not the scan form's "
+                             f"within rtol {VMAP_RTOL} atol {VMAP_ATOL}")
+    planes = [vmap.planes(vmap.prepare_wire_from_parts(p)) for p in ticks[1:]]
+    out = {"ticks": len(ticks) - 1, "launches": got, "scan_launches": scan_launches,
+           "flips": flips, "stats_rel_err": worst,
+           "weights_abs_err": float(np.abs(w_v - w_s).max()),
+           "planes": [list(p) for p in planes]}
+    phase("tenants-sparse", f"{kind} ticks, M = {SV_M} at 2^18 (library level, B = {GRAM_ROWS}, "
+          f"{len(ticks) - 1} ticks + a warm-up of padding, route {vmap.route}, planes "
+          f"{out['planes']}): the vmap form launched {got} under the sync-debug mode \"error\", "
+          f"the scan form {scan_launches}; each tick against scan's: counts equal, {flips} "
+          f"prediction(s) a step apart within {VMAP_TIE} of a tie, stats and quality within "
+          f"{worst:.2e}; the final stacks {out['weights_abs_err']:.2e} apart (tolerance rtol "
+          f"{VMAP_RTOL} atol {VMAP_ATOL})")
+    if not timing:
+        return out
+    walls = {"vmap": [], "scan": []}
+    for mapping in ("vmap", "scan", "scan", "vmap"):
+        walls[mapping] += tenant_ticks(sv_model(mapping, kind), ticks)[1][1:]
+    with tempfile.TemporaryDirectory() as tmp:
+        for mapping in ("vmap", "scan"):
+            where = os.path.join(tmp, mapping)
+            os.makedirs(where)
+            tenant_ticks(sv_model(mapping, kind), ticks, profile_dir=where)
+            costs, busy_ms, _ = trace_costs(where)
+            n = len(ticks) - 1
+            out[mapping] = {"host_wall_ms_a_tick": statistics.median(walls[mapping]),
+                            "host_wall_ms": walls[mapping],
+                            "device_busy_ms_a_tick": busy_ms / n,
+                            "launches_a_tick": statistics.mean(c["launches"] for c in costs),
+                            "h2d_a_tick": statistics.mean(c["h2d"] for c in costs),
+                            "d2h_a_tick": statistics.mean(c["d2h"] for c in costs)}
+            o = out[mapping]
+            phase("tenants-sparse", f"{kind} {mapping} tick (the {n} ticks after the warm-up): "
+                  f"host wall median {o['host_wall_ms_a_tick']:.3f} ms (pack + step + fetch + "
+                  f"wait, {2 * n} ticks of each form in turns); profiler: device busy "
+                  f"{o['device_busy_ms_a_tick']:.3f} ms, "
+                  f"{o['launches_a_tick']:.0f} host launches, {o['h2d_a_tick']:.0f} H2D and "
+                  f"{o['d2h_a_tick']:.0f} D2H copies a tick | card: {smi}")
+    return out
+
+
+def sv_times(smi, errs, launches):
+    """The tenant forms at the short ticks' shapes (the first tick's SV_M
+    parts of GRAM_ROWS rows, ~512 valid each, the int8 plane): each kernel
+    alone, 50 calls back to back behind ``split_queued``'s sleep (the
+    median of SV_TIME_RUNS), its plain version's time, its bound and the
+    library call where one computes the same work (B4: ``torch.bincount``
+    over tenant-offset keys; B8: ``torch.bmm`` on f32 counts of the parts
+    padded alike; B7: none); beside each, the in-turn kernel's M launches
+    on the padded parts (the scan form's). Returns the kernels line's
+    records."""
+    import numpy as np
+    import torch
+
+    from twtml_tpu_torch.models.sgd import batch_to_device, decode_batch, flatten_tenants
+    from twtml_tpu_torch.ops import fused_gram
+    from twtml_tpu_torch.ops.gram import PLANE_INT8
+    from twtml_tpu_torch.ops.sparse import sparse_predict
+
+    model = sv_model("vmap", "short")
+    parts = model.split(sv_ticks("short", 1)[0])
+    wire = model.prepare_wire_from_parts(parts)
+    valid = model.valid_rows(wire)
+    if set(model.planes(wire)) != {PLANE_INT8}:
+        raise AssertionError(f"tenants sparse times: planes {model.planes(wire)}")
+    dev = batch_to_device(wire, model.device, non_blocking=False)
+    idx, val, num, y, mask = decode_batch(flatten_tenants(dev), GRAM_F, torch.float32)
+    m, f = SV_M, GRAM_F
+    b = mask.shape[0] // m
+    idx, val, num = idx.view(m, b, -1), val.view(m, b, -1), num.view(m, b, -1)
+    y, mask = y.view(m, b), mask.view(m, b)
+    l = idx.shape[2]
+    w = torch.from_numpy((np.random.default_rng(5).normal(size=(m, f + 4)) * 1e-3)
+                         .astype(np.float32)).cuda()
+    raw = sparse_predict(w[:, :f], w[:, f:], idx, val, num)
+    p_prev = torch.sum(w * w, dim=1)
+    kw = dict(num_iterations=OP_ITERS, step_sizes=[0.005] * m, l2_regs=[0.1] * m,
+              convergence_tol=0.001)
+    tv = sum(valid)
+
+    def queued(fn):
+        ms, all_ms, host_us = split_queued(fn, SV_TIME_RUNS)
+        return {"ms": ms, "runs_ms": all_ms, "host_enqueue_us": host_us}
+
+    def record(name, replaces, t, plain_ms, bound, library_ms, extra):
+        bytes_ms, ops_ms = bound
+        return dict({
+            "name": name, "route": "cuda", "source": "twtml_tpu_torch/csrc/gram.cu",
+            "replaces": replaces, "tpu_function": None, "launches": launches[name],
+            "max_abs_err": errs[name], "ms": t["ms"], "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms, "valid_rows": list(valid), "part_rows": b,
+            "runs_ms": t["runs_ms"], "host_enqueue_us": t["host_enqueue_us"]}, **extra)
+
+    # B4's tenant form
+    counts, at = fused_gram.count_build_tenants(idx, val, f, valid_rows=valid, int8=True)
+    rows, cols = counts.shape
+    b4 = queued(lambda: fused_gram.count_build_tenants(idx, val, f, valid_rows=valid,
+                                                       int8=True))
+    b4_plain, _ = timed(lambda: fused_gram.count_build_tenants_reference(
+        idx, val, f, valid_rows=valid, int8=True, cols_out=cols), 3)
+    b4_bytes = rows * cols + tv * l * 8
+    keys = torch.cat([(at[t] + torch.arange(v, device=idx.device))[:, None] * cols
+                      + idx[t, :v] for t, v in enumerate(valid) if v]).reshape(-1)
+    kval = torch.cat([val[t, :v] for t, v in enumerate(valid) if v]).reshape(-1)
+    bincount = lambda: torch.bincount(keys, weights=kval, minlength=rows * cols)  # noqa: E731
+    b4_lib, _ = timed(bincount, 10, queue_ahead=True)
+    in_turn = [(idx[t].contiguous(), val[t].contiguous()) for t in range(m)]
+    b4_turn = queued(lambda: [fused_gram.count_build(i, v, f, int8=True) for i, v in in_turn])
+    # the G products
+    gs = fused_gram.tenant_gram_blocks(counts, at, valid)
+    products = queued(lambda: fused_gram.tenant_gram_blocks(counts, at, valid))
+    # a yardstick for the products: ONE product over every tenant's rows
+    # (its diagonal blocks are the tenants' G; the rest is work no tenant needs)
+    one_product = queued(lambda: torch._int_mm(counts, counts.t()))
+    # B7's tenant form
+    c, alpha, its = fused_gram.dual_sgd_tenants(gs, raw, y, mask, num, valid_rows=valid,
+                                                p_prev=p_prev, **kw)
+    its = [int(i) for i in its.tolist()]
+    b7 = queued(lambda: fused_gram.dual_sgd_tenants(gs, raw, y, mask, num, valid_rows=valid,
+                                                    p_prev=p_prev, **kw))
+    b7_tol0 = queued(lambda: fused_gram.dual_sgd_tenants(
+        gs, raw, y, mask, num, valid_rows=valid, p_prev=p_prev, **dict(kw, convergence_tol=0.0)))
+    b7_plain, _ = timed(lambda: fused_gram.dual_sgd_tenants_reference(
+        gs, raw, y, mask, num, valid_rows=valid, p_prev=p_prev, **kw), 3)
+    b7_ops = sum(i * (2 * v * v + 12 * v) for i, v in zip(its, valid))
+    b7_bytes = sum(v * v * 4 + 9 * v * 4 for v in valid)
+    g_pad = []
+    for t in range(m):  # B7 in turn: each padded part's G, N·Nᵀ added
+        cp = fused_gram.count_build(*in_turn[t], f, int8=True)
+        g = fused_gram.gram_from_counts(cp)
+        g[:b, :b] += num[t] @ num[t].T
+        g_pad.append((g, raw[t].contiguous(), y[t].contiguous(), mask[t].contiguous(),
+                      p_prev[t]))
+        del cp
+    b7_turn = queued(lambda: [fused_gram.dual_sgd(g, r_, y_, m_, p_prev=p_, num_iterations=OP_ITERS,
+                                                  step_size=0.005, l2_reg=0.1,
+                                                  convergence_tol=0.001)
+                              for g, r_, y_, m_, p_ in g_pad])
+    del g_pad
+    # B8's tenant form
+    tenants = tuple(range(m))
+    out_w = torch.empty_like(w)
+    b8 = queued(lambda: fused_gram.dual_writeback_tenants(
+        w, c, alpha, counts, num, f, valid_rows=valid, tenants=tenants, at=at, out=out_w))
+    b8_plain, _ = timed(lambda: fused_gram.dual_writeback_tenants_reference(
+        w, c, alpha, counts, num, f, valid_rows=valid, tenants=tenants, at=at), 3)
+    b8_bytes = sum(v * cols for v in valid) + tv * 4 * 5 + m * (f + 4) * 4 * 2
+    b8_ops = 2 * tv * f
+    pad = max(fused_gram.tenant_padded_rows(v) for v in valid)
+    cf = torch.zeros((m, pad, cols), dtype=torch.float32, device=idx.device)
+    ap = torch.zeros((m, pad, 1), dtype=torch.float32, device=idx.device)
+    for t, v in enumerate(valid):
+        cf[t, :v] = counts[at[t]:at[t] + v].float()
+        ap[t, :v, 0] = alpha[t, :v]
+    b8_lib, _ = timed(lambda: torch.bmm(cf.transpose(1, 2), ap), 10, queue_ahead=True)
+    del cf, ap
+    cp_turn = [fused_gram.count_build(i, v, f, int8=True) for i, v in in_turn]
+    a_turn = [torch.zeros(b, device=idx.device) for _ in range(m)]
+    b8_turn = queued(lambda: [fused_gram.dual_writeback_counts(w[t], c[t], a_turn[t], cp_turn[t],
+                                                                num[t], f) for t in range(m)])
+    del cp_turn
+    card = {"card": smi}
+    phase("tenants-sparse", f"times at {m} parts of {b} rows, valid {list(valid)}, F = {f}, int8 "
+          f"counts {tuple(counts.shape)} (50 calls back to back behind ~20 ms of sleep, median "
+          f"of {SV_TIME_RUNS}): B4's tenant form {b4['ms']:.4f} ms (in turn, B4 on the {m} "
+          f"padded parts: {b4_turn['ms']:.4f}), plain {b4_plain:.4f}, torch.bincount "
+          f"{b4_lib:.4f}, bound {b4_bytes} B = {b4_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms; the "
+          f"{sum(1 for v in valid if v)} G products {products['ms']:.4f} ms (one product over "
+          f"all {rows} rows {one_product['ms']:.4f}); B7's tenant form "
+          f"{b7['ms']:.4f} ms ({its} iterations; tol 0 {b7_tol0['ms']:.4f}; in turn on the "
+          f"padded parts {b7_turn['ms']:.4f}), plain {b7_plain:.4f}, bound {b7_ops} f32 "
+          f"operations = {b7_ops / F32_FLOPS_PER_S * 1e3:.5f} ms; B8's tenant form "
+          f"{b8['ms']:.4f} ms (in turn {b8_turn['ms']:.4f}), plain {b8_plain:.4f}, torch.bmm "
+          f"on f32 counts {b8_lib:.4f}, bound {b8_bytes} B = "
+          f"{b8_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms | card: {smi}")
+    return [
+        record("count_build_tenants", "twtml_tpu/ops/gram.py:133 (onehot_counts_int8) under "
+               "jax.vmap (twtml_tpu/parallel/tenants.py:329)", b4, b4_plain,
+               (b4_bytes / HBM_BYTES_PER_S * 1e3, 0.0), b4_lib, dict(
+                   card, kernel="B4 tenant form", library_call="torch.bincount over "
+                   "tenant-offset keys", in_turn_ms=b4_turn["ms"],
+                   gram_products={"call": "torch._int_mm", "products": sum(
+                       1 for v in valid if v), "ms": products["ms"],
+                       "one_product_over_all_rows_ms": one_product["ms"]})),
+        record("dual_sgd_tenants", "twtml_tpu/models/sgd.py:155 (run_dual_loop) under jax.vmap "
+               "(twtml_tpu/parallel/tenants.py:329)", b7, b7_plain,
+               (b7_bytes / HBM_BYTES_PER_S * 1e3, b7_ops / F32_FLOPS_PER_S * 1e3), None, dict(
+                   card, kernel="B7 tenant form", iterations_run=its, tol0_ms=b7_tol0["ms"],
+                   in_turn_ms=b7_turn["ms"])),
+        record("dual_writeback_tenants", "twtml_tpu/ops/gram.py:269 (dual_writeback) under "
+               "jax.vmap (twtml_tpu/parallel/tenants.py:329)", b8, b8_plain,
+               (b8_bytes / HBM_BYTES_PER_S * 1e3, b8_ops / F32_FLOPS_PER_S * 1e3), b8_lib, dict(
+                   card, kernel="B8 tenant form", library_call="torch.bmm on f32 counts of "
+                   "the parts padded alike", in_turn_ms=b8_turn["ms"])),
+    ]
+
+
+def tenants_sparse_arm(smi):
+    """The 2^18 vmap arm (ROADMAP B10 c): the tenant forms' holds
+    (``sv_checks``), then the vmap form against scan on short tweets (the
+    main path of the tenant forms, profiled), mixed planes and the scatter
+    route (``sv_tick_arm``), then the kernels' times (``sv_times``).
+    Returns (the arm's summary, the three kernels line records, launches
+    from the short ticks' run)."""
+    t0 = time.perf_counter()
+    errs, cases = sv_checks()
+    summary = {"short": sv_tick_arm("short", smi, timing=True),
+               "mixed": sv_tick_arm("mixed", smi), "scatter": sv_tick_arm("scatter", smi)}
+    launches = dict(summary["short"]["launches"])
+    for k in SV_KERNELS:
+        launches[k] += summary["mixed"]["launches"][k]
+    records = sv_times(smi, errs, launches)
+    for r in records:
+        r["cases"] = cases
+        r["launches_short_ticks"] = summary["short"]["launches"][r["name"]]
+        r["launches_mixed_ticks"] = summary["mixed"]["launches"][r["name"]]
+    summary["wall_s"] = time.perf_counter() - t0
+    phase("tenants-sparse", f"the 2^18 vmap arm wall {summary['wall_s']:.1f} s")
+    return summary, records
 
 
 # ---- phase 22: champion/challenger serving -----------------------------------
@@ -8670,6 +9274,10 @@ def main() -> None:
         finally:
             RECORDER.close()
         return
+    if "--tenants-sparse-only" in argv:
+        summary, sv_records = tenants_sparse_arm(smi)
+        print(json.dumps({"tenants_sparse": summary, "kernels": sv_records}), flush=True)
+        return
     if "--gram-ab" in argv:
         os.environ["TWTML_NOW_MS"] = str(NOW_MS)
         RECORDER = Recorder()
@@ -8738,6 +9346,7 @@ def main() -> None:
     for r in gram_records:
         r["cases"] = [c for c in gram_cases if c.startswith(r["name"])]
     gram_records[0]["sparse_phase"] = sparse
+    sparse_vmap, sv_records = tenants_sparse_arm(smi)
     serve = serve_phase(smi, ragged_rec["weights"], web_statuses)
     predict_record = serve.pop("predict_kernel")
     record["serve"] = serve
@@ -8760,6 +9369,7 @@ def main() -> None:
     for r in [*split_records, *gram_records]:
         r["launches_modelaxis"] = modelaxis["launches"][r["name"]]
     grid_record = tenants.pop("grid_record")
+    sv_records[0]["tenants_sparse"] = sparse_vmap
     record.update(tenants=tenants, launches_tenants=tenants["launches"], block=block,
                   launches_block=block["launches"], multihost=multihost, elastic=elastic,
                   modelaxis=modelaxis)
@@ -8769,7 +9379,8 @@ def main() -> None:
     tenant_split_record = modelaxis.pop("tenant_split_record")
     phase("done", f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [record, logistic_record, predict_record, *gram_records,
-                                  *split_records, grid_record, tenant_split_record]}),
+                                  *split_records, grid_record, tenant_split_record,
+                                  *sv_records]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -11,6 +11,8 @@ the JAX package's ``TenantStackModel(mapping="vmap")`` on the same tweets.
   wrapper takes it on the CPU; ``tenant_launch_plan`` at an H100's numbers.
 - The wire carries each part's valid rows; over a one-rank mesh the vmap
   form is no longer refused (B10 b, tests/test_torch_tenants_vmap_mesh.py).
+  The 2^18 routes' batched step (B10 c) has its own cases in
+  tests/test_torch_tenants_vmap_sparse.py.
 """
 
 import contextlib
@@ -149,6 +151,7 @@ def test_vmap_matches_the_jax_packages_vmap(case):
     port, (jax_weights, _), outs, jax_outs = run_case(case)
     assert port.mapping == "vmap"
     assert port.route == ROUTES.get(case, "fused_dense_sgd")
+    assert port._batched is not None  # one batched step on every route, 2^18's too
     for out, jout in zip(outs, jax_outs):
         assert out.predictions.shape == (M, ROWS)
         np.testing.assert_array_equal(out.count.float().numpy(), np.asarray(jout.count))
@@ -182,8 +185,9 @@ def test_the_jax_vmap_is_its_scan_within_the_same_tolerance(case):
 @pytest.mark.parametrize("case", ["least_squares", "per_tenant_hyperparams", "scatter_2_18"])
 def test_vmap_steps_as_the_ports_scan_on_the_cpu(case):
     """On the CPU B1's tenant grid is its plain version (M calls of B1's),
-    and the 2^18 routes run the tenants' steps in turn: the vmap form is
-    the scan form's weights and outputs bitwise there."""
+    and the batched scatter loop's gather and ``index_add_`` sum each
+    tenant's terms in its step's order: the vmap form is the scan form's
+    weights and outputs bitwise there."""
     shared, port_kw, _, batch_kw = CASES[case]
     vmap = TenantStackModel(M, mapping="vmap", device="cpu", **shared, **port_kw)
     scan = TenantStackModel(M, device="cpu", **shared, **port_kw)
@@ -400,7 +404,7 @@ def test_vmap_over_a_mesh_is_refused_naming_b10_b():
 
 
 @pytest.mark.parametrize("case,form", [("least_squares", "one batched step"),
-                                       ("gram_2_18", "run in turn")])
+                                       ("gram_2_18", "one batched step")])
 def test_the_construction_log_names_the_form(case, form, caplog):
     shared, port_kw, _, _ = CASES[case]
     with caplog.at_level(logging.INFO, logger="twtml_tpu_torch.parallel.tenants"):

@@ -497,9 +497,9 @@ def test_the_stats_and_quality_reduce_m_tenants_in_one_call():
 
 
 def test_the_2_18_routes_run_their_tenants_in_turn_over_a_mesh(caplog):
-    """The vmap form over a mesh on the 2^18 routes (no batched form, B10 c)
-    builds no batched step, and its construction log says the tenants'
-    steps run in turn, as on one process."""
+    """The vmap form over a mesh on the 2^18 routes (no batched form over a
+    data axis, B10 d) builds no batched step, and its construction log
+    says the tenants' steps run in turn (one process batches them)."""
     import logging
 
     with caplog.at_level(logging.INFO, logger="twtml_tpu_torch.parallel.tenants"):

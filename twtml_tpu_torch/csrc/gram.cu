@@ -21,7 +21,8 @@
 // What bounds it on an H100: bytes. It writes every byte of C once, zeros
 // included (512 MiB of int8 at B = 2048, F = 2^18: 0.16 ms at 3.35 TB/s; 2
 // GiB of f32: 0.64 ms); the [B, L] tokens it reads are ~1/1000 of that.
-// Design: one CTA a row of C, in two steps.
+// Design: one CTA a row of C (rows from a tenant table, below: one tenant
+// for a single batch), in two steps.
 //   1. The token pass, O(L log L) in shared memory: each token becomes one
 //      64-bit key, idx << ceil(log2 L) | j (an index outside [0, features)
 //      becomes the all-ones key, which sorts last and counts nothing); a
@@ -94,13 +95,48 @@
 //
 // ---- B8, writeback_kernel<T>
 // What bounds it: bytes, one read of C (B·F bytes in the int8 plane). Design:
-// a block owns 128 text columns: 32 column groups of 4 (a warp reads 128
+// a block (over column blocks x the tenants of a table: one tenant for a
+// single batch) owns 128 text columns: 32 column groups of 4 (a warp reads 128
 // contiguous bytes of a row of int8 C) by 8 row segments; each thread sums
 // count·α over its segment's rows in row order, the 8 segments are summed
 // in order in shared memory, and w = c·w_prev + Σ. The last block computes
 // the 4 numeric columns, w_num·c + Nᵀα, in a fixed-order block reduction.
 // It sums count·α where the JAX scatter adds val·α per occurrence, so the
 // twin holds it within tolerance.
+//
+// ---- The tenant forms: B4's and B8's tenant tables, dual_tenants_kernel<kLogistic>
+// They replace the same XLA fusions under jax.vmap: the JAX package's
+// tenant stack with mapping="vmap" (twtml_tpu/parallel/tenants.py:329-330)
+// maps the step over M parts of B rows, each tenant with its own step size
+// and L2. A part's rows past its last valid one are padding, so each form
+// works on a tenant's valid rows v only (the host counts them before the
+// copy), from a per-tenant table passed by value (at most kGramTenants
+// tenants a launch).
+// - B4's (bound: bytes, C's Σ padded v rows written once): B4 itself, a CTA
+//   a row of one counts buffer that holds every tenant's block of C (v rows
+//   padded as B4 pads a batch): each block is B4's on those rows bit for
+//   bit, since a single batch is the table of one tenant. The tenants of a launch share
+//   a Gram plane (the caller launches once a plane present), so a tenant
+//   with a tweet-length row does not widen the others to f32 counts.
+// - B7's (bound: operations, Σ iterations·(2v² + 12v) f32; in practice the
+//   barriers' latency): M dual loops behind one grid barrier. Tenant u's
+//   CTAs are a run of the grid, in proportion to its v² rows of G; each
+//   keeps B7's layout of its rows (shared memory, then a spill buffer
+//   through L2), reads its text G (the int8 plane's s32 product read as
+//   f32, exactly) and adds N·Nᵀ as it stages G, runs B7's update, product
+//   and test partials over its rows, and freezes where its test converges;
+//   the launch ends when every tenant with rows has converged or N is
+//   reached. An iteration crosses two barriers where B7 crosses one: the
+//   first publishes α, the second the test's partials, after which every
+//   CTA takes every tenant's decision (lane u of one warp sums tenant u's
+//   CTAs in CTA order: the same bits in every CTA). Simple first: B7's
+//   speculative update past a pending test is left out. An iteration whose
+//   draws select none of a tenant's rows leaves that tenant as it is and
+//   is not its convergence. A dry tenant gets no CTA: CTA 0 writes its c =
+//   1, α = 0 and N iterations.
+// - B8's (bound: bytes, each tenant's v rows of C read once): B8 itself,
+//   its blocks over (column block, tenant): each tenant's row of W is B8's
+//   on the same rows bit for bit (a dry tenant's is c·W_prev).
 //
 // What Hopper offers and these designs leave out: tensor cores and TMA.
 // B4 and B8 stream bytes; B7's product is matrix × vector (N = 1) on f32
@@ -137,6 +173,7 @@ constexpr int kWbThreads = 256;
 constexpr int kWbGroups = 32;                // 4-column groups a block
 constexpr int kWbSegments = kWbThreads / kWbGroups;  // row segments a block
 constexpr int kWbCols = 4 * kWbGroups;       // 128 text columns a block
+constexpr int kGramTenants = 32;  // tenants a tenant-form launch: a lane of the decider warp each
 
 // ops/fused_gram.py sizes the launches from its own copy of these
 // constants; ops/_build.py passes that copy as -D flags, so the two cannot
@@ -145,7 +182,7 @@ constexpr int kWbCols = 4 * kWbGroups;       // 128 text columns a block
     !defined(TWTML_GRAM_DUAL_THREADS) || !defined(TWTML_GRAM_DUAL_ROWS) || \
     !defined(TWTML_GRAM_DUAL_REG_COLUMNS) || !defined(TWTML_GRAM_DUAL_MAX_GRID) || \
     !defined(TWTML_GRAM_DUAL_RED_FLOATS) || !defined(TWTML_GRAM_WRITEBACK_THREADS) || \
-    !defined(TWTML_GRAM_WRITEBACK_COLUMNS)
+    !defined(TWTML_GRAM_WRITEBACK_COLUMNS) || !defined(TWTML_GRAM_TENANTS_PER_LAUNCH)
 #error "build through twtml_tpu_torch/ops/_build.py, which passes the launch plan's constants"
 #endif
 static_assert(kCountThreads == TWTML_GRAM_COUNT_THREADS, "COUNT_THREADS differs");
@@ -157,6 +194,8 @@ static_assert(kDualMaxGrid == TWTML_GRAM_DUAL_MAX_GRID, "DUAL_MAX_GRID differs")
 static_assert(kDualRedFloats == TWTML_GRAM_DUAL_RED_FLOATS, "DUAL_RED_FLOATS differs");
 static_assert(kWbThreads == TWTML_GRAM_WRITEBACK_THREADS, "WRITEBACK_THREADS differs");
 static_assert(kWbCols == TWTML_GRAM_WRITEBACK_COLUMNS, "WRITEBACK_COLUMNS differs");
+static_assert(kGramTenants == TWTML_GRAM_TENANTS_PER_LAUNCH, "TENANTS_PER_LAUNCH differs");
+static_assert(kGramTenants <= 32, "the tenant form's decisions take a lane a tenant");
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
@@ -302,22 +341,22 @@ __device__ __forceinline__ uint4 window_counts(CountKey key, int n, const float*
   return Chunk<T>::pack(s);
 }
 
+// One row of C by the whole CTA: the row's tokens ri/rv [tokens] (when
+// `real`; else a padding row, zeros only, uniform across the CTA) summed
+// into out_row [cols].
 template <typename T>
-__global__ void __launch_bounds__(kCountThreads) count_build_kernel(
-    const int* __restrict__ idx, const float* __restrict__ val, int rows, int tokens,
-    int features, T* __restrict__ out, int cols) {
+__device__ __forceinline__ void count_row(const int* __restrict__ ri,
+                                          const float* __restrict__ rv, bool real, int tokens,
+                                          int features, T* __restrict__ out_row, int cols,
+                                          unsigned char* smem) {
   constexpr int kPer = Chunk<T>::kPer;
-  extern __shared__ __align__(16) unsigned char smem[];
   const CountLayout lay = count_layout(tokens);
   CountKey* keys = reinterpret_cast<CountKey*>(smem);
   float* s_val = reinterpret_cast<float*>(smem + lay.vals);
-  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
+  const int tid = threadIdx.x, lane = tid & 31;
   const int token_bits = lay.token_bits, width = lay.width;
-  const bool real = b < rows;  // else a padding row: zeros only (uniform across the CTA)
   if (real) {
     // ---- the token pass
-    const int* ri = idx + (size_t)b * tokens;
-    const float* rv = val + (size_t)b * tokens;
     for (int j = tid; j < width; j += kCountThreads) {
       CountKey key = kNoKey;
       if (j < tokens) {
@@ -337,7 +376,7 @@ __global__ void __launch_bounds__(kCountThreads) count_build_kernel(
   // is zeros.
   constexpr int kStepFeatures = 32 * kPer;
   constexpr unsigned kFull = 0xffffffffu;
-  uint4* row4 = reinterpret_cast<uint4*>(out + (size_t)b * cols);
+  uint4* row4 = reinterpret_cast<uint4*>(out_row);
   const int chunks = (int)((size_t)cols * sizeof(T) / 16);
   const int steps = (chunks + 31) / 32, run = (steps + kCountWarps - 1) / kCountWarps;
   const int s0 = (tid >> 5) * run, s1 = min(s0 + run, steps);
@@ -382,6 +421,32 @@ __global__ void __launch_bounds__(kCountThreads) count_build_kernel(
     }
     if (i < chunks) row4[i] = v;
   }
+}
+
+// B4's row table (a launch's tenants, in the stack's order; a single
+// batch is one tenant): the tenant's first row in the [M·B, L] tokens, its
+// valid rows, and its first row of C (out_row[tenants]: C's rows in all).
+struct CountTenants {
+  int tenants;
+  int src_row[kGramTenants];
+  int valid[kGramTenants];
+  int out_row[kGramTenants + 1];
+};
+
+// B4: CTA b writes row b of C, row b − out_row[u] of tenant u's block: that tenant's token row when it is one of its valid rows,
+// else a padding row of zeros.
+template <typename T>
+__global__ void __launch_bounds__(kCountThreads) count_build_kernel(
+    const int* __restrict__ idx, const float* __restrict__ val, int tokens, int features,
+    T* __restrict__ out, int cols, const CountTenants t) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.x;
+  int u = 0;  // the CTA's tenant (a dry tenant owns no row: the scan steps past it)
+  while (u + 1 < t.tenants && t.out_row[u + 1] <= b) ++u;
+  const int r = b - t.out_row[u];
+  const bool real = r < t.valid[u];
+  const size_t src = (size_t)(t.src_row[u] + (real ? r : 0)) * tokens;
+  count_row<T>(idx + src, val + src, real, tokens, features, out + (size_t)b * cols, cols, smem);
 }
 
 // ------------------------------------------------------------------ B7
@@ -816,6 +881,285 @@ __global__ void __launch_bounds__(kDualThreads, 1) dual_sgd_kernel(const DualPar
   }
 }
 
+// ---- B7's tenant form: M dual loops in one cooperative launch
+
+// A launch's tenants (in the stack's order): CTAs [first_cta[u],
+// first_cta[u + 1]) run tenant u's loop over its v = valid[u] rows, each
+// CTA k of them rows [k·v/ctas, (k+1)·v/ctas); `slot` is its row m of the
+// stack (its u, y, mask and numeric rows start at m·B, its c, iterations
+// and p_prev at m); `resident` of a CTA's rows live in shared memory, the
+// rest in the spill buffer from float `spill_at` on (a CTA's rows_cap −
+// resident rows after the one before's); its α at float `abuf_at` of each
+// half of the α double buffer; its text G [>= v, ldg] f32, or int32 (the
+// int8 plane's s32 product, exact in f32).
+struct DualTenants {
+  int tenants, batch_rows;
+  int first_cta[kGramTenants + 1];
+  int valid[kGramTenants], slot[kGramTenants], rows_cap[kGramTenants];
+  int resident[kGramTenants], g_int32[kGramTenants];
+  long long spill_at[kGramTenants], abuf_at[kGramTenants], ldg[kGramTenants];
+  const void* g[kGramTenants];
+  float step_size[kGramTenants], l2_reg[kGramTenants];
+};
+
+struct DualTenantParams {
+  const float* u;        // [M·B] f32: Z·W_prev of every tenant's rows
+  const float* y;        // [M·B]
+  const float* mask;     // [M·B]
+  const float* numeric;  // [M·B, 4]: N, whose N·Nᵀ the prologue adds to G
+  const float* masks;    // [iterations, B] Bernoulli draws every tenant shares, or null
+  const float* p_prev;   // [M]: ||W_prev||² of each tenant
+  float* alpha_out;      // [M, B]: zero past each tenant's valid rows
+  float* c_out;          // [M]
+  float* iterations;     // [M]: the iteration that converged, else N
+  float* abuf;           // [2][abuf_floats]
+  float* partials;       // [grid][8]: each CTA's test partials, then (active, c_new, c, p)
+  float* spill;
+  long long abuf_floats;
+  int bp_max, rows_cap_max, num_iterations;
+  float tol;
+};
+
+// G's element (r, k) of a tenant as B7 reads it: the text G's, in f32,
+// plus (N·Nᵀ)[r, k] summed as one fixed fma chain; 0 where row r or
+// column k is masked.
+__device__ __forceinline__ float tenant_g(const void* g, bool int32, long long ldg, int r, int k,
+                                          const float (&nr)[4], const float* numeric) {
+  const float text = int32 ? (float)__ldg(static_cast<const int*>(g) + r * ldg + k)
+                           : __ldg(static_cast<const float*>(g) + r * ldg + k);
+  const float* nk = numeric + 4 * (size_t)k;
+  const float nn =
+      fmaf(nr[3], __ldg(nk + 3), fmaf(nr[2], __ldg(nk + 2), fmaf(nr[1], __ldg(nk + 1),
+                                                                   nr[0] * __ldg(nk))));
+  return __fadd_rn(text, nn);
+}
+
+template <bool kLogistic>
+__global__ void __launch_bounds__(kDualThreads, 1)
+    dual_tenants_kernel(const DualTenantParams p, const DualTenants t) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const DualLayout lay = dual_layout(p.bp_max, p.rows_cap_max);
+  float* alpha_s = reinterpret_cast<float*>(smem);
+  float* mask_s = reinterpret_cast<float*>(smem + lay.mask);
+  float* u_s = reinterpret_cast<float*>(smem + lay.u);
+  float* y_s = reinterpret_cast<float*>(smem + lay.y);
+  float* red = reinterpret_cast<float*>(smem + lay.red);
+  const float4* g4_s = reinterpret_cast<const float4*>(smem + lay.g);
+  const auto a_s = [&](int q) { return reinterpret_cast<float*>(smem + lay.a + q * lay.own); };
+  const auto s_s = [&](int q) { return reinterpret_cast<float*>(smem + lay.s + q * lay.own); };
+
+  cg::grid_group grid = cg::this_grid();
+  const int cta = blockIdx.x, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int batch = t.batch_rows;
+  int me = 0;  // the CTA's tenant (a dry tenant owns no CTA, unless every tenant is dry)
+  while (me + 1 < t.tenants && t.first_cta[me + 1] <= cta) ++me;
+  const int k = cta - t.first_cta[me], ctas = t.first_cta[me + 1] - t.first_cta[me];
+  const int v = t.valid[me], bp = (v + 3) & ~3, nvec = bp / 4;
+  const int row0 = (int)((long long)k * v / ctas);
+  const int my_rows = (int)((long long)(k + 1) * v / ctas) - row0;
+  const size_t base = (size_t)t.slot[me] * batch;
+  const float* numeric = p.numeric + 4 * base;
+  const bool test = p.tol > 0.f;
+  unsigned live = 0;  // tenants with rows: the loop ends when each has converged
+  for (int u = 0; u < t.tenants; ++u) live |= t.valid[u] > 0 ? 1u << u : 0u;
+
+  // the dry tenants' results: c = 1, α = 0, N iterations (no row, no update)
+  if (cta == 0)
+    for (int u = 0; u < t.tenants; ++u)
+      if (t.valid[u] == 0) {
+        const int m = t.slot[u];
+        for (int r = tid; r < batch; r += kDualThreads) p.alpha_out[(size_t)m * batch + r] = 0.f;
+        if (tid == 0) {
+          p.c_out[m] = 1.f;
+          p.iterations[m] = (float)p.num_iterations;
+        }
+      }
+
+  // ---- prologue: the tenant's mask, the CTA's u, y and rows of G, once
+  for (int i = tid; i < p.bp_max; i += kDualThreads)
+    mask_s[i] = i < v ? __ldg(p.mask + base + i) : 0.f;
+  __syncthreads();
+  for (int l = tid; l < my_rows; l += kDualThreads) {
+    const bool keep = mask_s[row0 + l] > 0.f;
+    u_s[l] = keep ? __ldg(p.u + base + row0 + l) : 0.f;
+    y_s[l] = keep ? __ldg(p.y + base + row0 + l) : 0.f;
+    a_s(0)[l] = 0.f;
+    s_s(0)[l] = 0.f;
+  }
+  const long long ab = t.abuf_at[me];
+  if (k == 0 && v > 0)  // α's padding [v, bp) in both halves: G's zero columns meet it as 0
+    for (int i = v + tid; i < bp; i += kDualThreads)
+      p.abuf[ab + i] = p.abuf[p.abuf_floats + ab + i] = 0.f;
+  const int resident = t.resident[me];
+  float* spill = p.spill + t.spill_at[me] + (size_t)k * (t.rows_cap[me] - resident) * bp;
+  for (int l = warp; l < my_rows; l += kDualWarps) {
+    const int r = row0 + l;
+    const bool keep = mask_s[r] > 0.f;
+    float nr[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) nr[j] = keep ? __ldg(numeric + 4 * (size_t)r + j) : 0.f;
+    float* dst = l < resident ? reinterpret_cast<float*>(smem + lay.g) + (size_t)l * bp
+                              : spill + (size_t)(l - resident) * bp;
+    for (int i = lane; i < bp; i += 32)
+      dst[i] = keep && mask_s[i] > 0.f
+                   ? tenant_g(t.g[me], t.g_int32[me] != 0, t.ldg[me], r, i, nr, numeric)
+                   : 0.f;
+  }
+  float count_all;
+  {
+    float s = 0.f;
+    for (int i = tid; i < v; i += kDualThreads) s += mask_s[i];
+    count_all = block_sum(s, red + kRedSum);  // also orders the staging before the loop
+  }
+  const float pp = v > 0 ? __ldg(p.p_prev + t.slot[me]) : 0.f;
+  const float step = t.step_size[me], l2 = t.l2_reg[me];
+
+  float c = 1.f;
+  int cur = 0, ran = p.num_iterations;
+  unsigned frozen = 0;  // the launch's tenants that converged: frozen at that state
+  float4* part4 = reinterpret_cast<float4*>(p.partials);
+  for (int it = 1; it <= p.num_iterations && (frozen & live) != live; ++it) {
+    const float* draw = p.masks ? p.masks + (size_t)(it - 1) * batch : nullptr;
+    const bool mine_frozen = (frozen >> me & 1u) != 0;
+    float count = count_all;
+    if (draw && !mine_frozen) {
+      float s = 0.f;
+      for (int i = tid; i < v; i += kDualThreads) s += mask_s[i] * __ldg(draw + i);
+      count = block_sum(s, red + kRedSum);
+    }
+    // an iteration that selects no row makes no update and is not convergence
+    const bool active = !mine_frozen && count > 0.f;
+    // the JAX loop's f32 arithmetic, operation for operation
+    const float eta = __fdiv_rn(step, __fsqrt_rn((float)it));
+    const float scale = __fsub_rn(1.f, __fmul_rn(eta, l2));
+    const float denom = fmaxf(count, 1.f);
+    const int nxt = cur ^ 1;
+    float* a_pub = p.abuf + (size_t)(it & 1) * p.abuf_floats + ab;
+    if (active && warp == 0) {  // the update of the CTA's rows, a lane a row
+      const float *a_old = a_s(cur), *s_old = s_s(cur);
+      float* a_new = a_s(nxt);
+      for (int l = lane; l < my_rows; l += 32) {
+        const int r = row0 + l;
+        const float m = mask_s[r];
+        const float sel = draw ? m * __ldg(draw + r) : m;
+        float res = 0.f;
+        if (m > 0.f) {
+          const float raw = __fadd_rn(__fmul_rn(c, u_s[l]), s_old[l]);
+          res = __fmul_rn(dual_residual<kLogistic>(raw, y_s[l]), sel);
+        }
+        const float a =
+            __fsub_rn(__fmul_rn(a_old[l], scale), __fdiv_rn(__fmul_rn(eta, res), denom));
+        a_new[l] = a;
+        a_pub[r] = a;
+      }
+    }
+    const float c_new = __fmul_rn(c, scale);  // c·(1 − ηλ) − η·0/denom
+    if (it == p.num_iterations) {  // the last update: nothing reads G·α or a test after it
+      if (active) {
+        cur = nxt;
+        c = c_new;
+      }
+      break;
+    }
+    grid.sync();
+    float* s_new = s_s(nxt);
+    if (active) {  // G·α_new of the CTA's rows, in groups of up to 16 rows
+      const float4* a4 = reinterpret_cast<const float4*>(a_pub);
+      for (int i = tid; i < nvec; i += kDualThreads)
+        reinterpret_cast<float4*>(alpha_s)[i] = __ldcg(a4 + i);
+      __syncthreads();
+      const float4* alpha4 = reinterpret_cast<const float4*>(alpha_s);
+      const float4* spill4 = reinterpret_cast<const float4*>(spill);
+      const int kept = min(my_rows, resident);
+      for (int r0 = 0; r0 < my_rows;) {
+        if (r0 > 0) __syncthreads();  // warp 0 has read red
+        const bool spilled = r0 >= kept;
+        const int n = min(kDualRows, (spilled ? my_rows : kept) - r0);
+        float acc[kDualRows];
+        if (spilled)
+          rows_partials<true>(spill4 + (size_t)(r0 - resident) * nvec, alpha4, nvec, n, acc);
+        else
+          rows_partials<false>(g4_s + (size_t)r0 * nvec, alpha4, nvec, n, acc);
+        finish_rows(acc, r0, n, red, s_new);
+        r0 += n;
+      }
+    }
+    if (test) {
+      // this update's test partials over the CTA's rows (lane l holds rows
+      // l, l + 32, ...: finish_rows wrote its s_new), and whether the
+      // tenant updated, with its c before and after
+      if (warp == 0) {
+        float qd = 0.f, qa = 0.f, ud = 0.f, ua = 0.f;
+        if (active) {
+          const float *a_old = a_s(cur), *s_old = s_s(cur), *a_new = a_s(nxt);
+          for (int l = lane; l < my_rows; l += 32) {
+            const float an = a_new[l], sn = s_new[l];
+            const float d = __fsub_rn(an, a_old[l]);
+            qd = fmaf(d, __fsub_rn(sn, s_old[l]), qd);
+            qa = fmaf(an, sn, qa);
+            ud = fmaf(u_s[l], d, ud);
+            ua = fmaf(u_s[l], an, ua);
+          }
+          qd = warp_sum(qd);
+          qa = warp_sum(qa);
+          ud = warp_sum(ud);
+          ua = warp_sum(ua);
+        }
+        if (lane == 0) {
+          part4[2 * (size_t)cta] = make_float4(qd, qa, ud, ua);
+          part4[2 * (size_t)cta + 1] = make_float4(active ? 1.f : 0.f, c_new, c, pp);
+        }
+      }
+      grid.sync();
+      // every tenant's decision in every CTA, the same bits everywhere: lane
+      // u of the decider warp sums tenant u's CTAs' partials in CTA order
+      if (warp == kDecider) {
+        bool conv = false;
+        if (lane < t.tenants && t.valid[lane] > 0) {
+          const int c0 = t.first_cta[lane], c1 = t.first_cta[lane + 1];
+          const float4 meta = __ldcg(part4 + 2 * (size_t)c0 + 1);
+          if (meta.x != 0.f) {
+            float q[4] = {0.f, 0.f, 0.f, 0.f};
+            for (int cc = c0; cc < c1; ++cc) {
+              const float4 pq = __ldcg(part4 + 2 * (size_t)cc);
+              q[0] += pq.x;
+              q[1] += pq.y;
+              q[2] += pq.z;
+              q[3] += pq.w;
+            }
+            // dual_norm_sq: Δc²·p + 2·Δc·(u·Δα) + Δαᵀ·G·Δα, and of the new state
+            const float dc = meta.y - meta.z;
+            const float d2 = dc * dc * meta.w + 2.f * dc * q[2] + q[0];
+            const float n2 = meta.y * meta.y * meta.w + 2.f * meta.y * q[3] + q[1];
+            conv = sqrtf(d2) < p.tol * fmaxf(sqrtf(n2), 1.f);
+          }
+        }
+        const unsigned bits = __ballot_sync(0xffffffffu, conv);
+        if (lane == 0) reinterpret_cast<unsigned*>(red)[kRedFlag] = bits;
+      }
+      __syncthreads();
+      const unsigned conv = reinterpret_cast<const unsigned*>(red)[kRedFlag];
+      if (conv >> me & 1u) ran = it;
+      frozen |= conv;
+    }
+    if (active) {
+      cur = nxt;
+      c = c_new;
+    }
+  }
+  if (v > 0) {
+    if (warp == 0)
+      for (int l = lane; l < my_rows; l += 32) p.alpha_out[base + row0 + l] = a_s(cur)[l];
+    if (k == 0) {
+      for (int r = v + tid; r < batch; r += kDualThreads) p.alpha_out[base + r] = 0.f;
+      if (tid == 0) {
+        p.c_out[t.slot[me]] = c;
+        p.iterations[t.slot[me]] = (float)ran;
+      }
+    }
+  }
+}
+
 // The probe that times B7's grid barrier: `crossings` grid.sync()s and
 // nothing else, on B7's block size. Cooperative groups keep the barrier's
 // arrival counter in the launch's own workspace, so B7 keeps no barrier
@@ -843,16 +1187,18 @@ struct Vec4<float> {
   }
 };
 
+// Block `block` of `blocks` of one write-back: text columns [128·block,
+// 128·block + 128), or the 4 numeric columns in the last block.
 template <typename T>
-__global__ void __launch_bounds__(kWbThreads) writeback_kernel(
+__device__ __forceinline__ void writeback_block(
     const T* __restrict__ counts, int rows, int cols, int features,
     const float* __restrict__ alpha, const float* __restrict__ c_ptr,
     const float* __restrict__ w_prev, const float* __restrict__ numeric,
-    float* __restrict__ w_out) {
+    float* __restrict__ w_out, int block, int blocks) {
   __shared__ float part[kWbSegments][kWbCols];
   const float c = __ldg(c_ptr);
   const int tid = threadIdx.x;
-  if (blockIdx.x == gridDim.x - 1) {  // the 4 numeric columns: w_num·c + Nᵀα
+  if (block == blocks - 1) {  // the 4 numeric columns: w_num·c + Nᵀα
     float acc[4] = {0.f, 0.f, 0.f, 0.f};
     for (int b = tid; b < rows; b += kWbThreads) {
       const float a = __ldg(alpha + b);
@@ -872,7 +1218,7 @@ __global__ void __launch_bounds__(kWbThreads) writeback_kernel(
     return;
   }
   const int group = tid % kWbGroups, seg = tid / kWbGroups;
-  const int col0 = blockIdx.x * kWbCols + 4 * group;
+  const int col0 = block * kWbCols + 4 * group;
   const int b0 = (int)((long long)seg * rows / kWbSegments);
   const int b1 = (int)((long long)(seg + 1) * rows / kWbSegments);
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
@@ -892,7 +1238,7 @@ __global__ void __launch_bounds__(kWbThreads) writeback_kernel(
   for (int e = 0; e < 4; ++e) part[seg][4 * group + e] = acc[e];
   __syncthreads();
   if (tid < kWbCols) {
-    const int f = blockIdx.x * kWbCols + tid;
+    const int f = block * kWbCols + tid;
     if (f < features) {
       float s = part[0][tid];
 #pragma unroll
@@ -900,6 +1246,30 @@ __global__ void __launch_bounds__(kWbThreads) writeback_kernel(
       w_out[f] = __fadd_rn(__fmul_rn(__ldg(w_prev + f), c), s);
     }
   }
+}
+
+// B8's tenant table (a single batch is one tenant): block (x, u) is block
+// x of tenant u's write-back, over its valid rows of its block of C (from row c_row[u]),
+// its α and numeric rows (from row src_row[u] of the [M·B] rows), its c
+// and its row `slot[u]` of the [M, features + 4] stacks.
+struct WritebackTenants {
+  int tenants;
+  int slot[kGramTenants];
+  int c_row[kGramTenants];
+  int valid[kGramTenants];
+  int src_row[kGramTenants];
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kWbThreads) writeback_kernel(
+    const T* __restrict__ counts, int cols, int features, const float* __restrict__ alpha,
+    const float* __restrict__ c, const float* __restrict__ w_prev,
+    const float* __restrict__ numeric, float* __restrict__ w_out, const WritebackTenants t) {
+  const int u = blockIdx.y;
+  const size_t w_row = (size_t)t.slot[u] * (features + 4);
+  writeback_block<T>(counts + (size_t)t.c_row[u] * cols, t.valid[u], cols, features,
+                     alpha + t.src_row[u], c + t.slot[u], w_prev + w_row,
+                     numeric + (size_t)t.src_row[u] * 4, w_out + w_row, blockIdx.x, gridDim.x);
 }
 
 }  // namespace
@@ -917,49 +1287,20 @@ extern "C" int twtml_gram_setup(int device, int* sm_count, int* shared_optin) {
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(shared_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   const void* kernels[] = {
-      reinterpret_cast<const void*>(count_build_kernel<int8_t>),
-      reinterpret_cast<const void*>(count_build_kernel<float>),
       reinterpret_cast<const void*>(dual_sgd_kernel<false, false>),
       reinterpret_cast<const void*>(dual_sgd_kernel<false, true>),
       reinterpret_cast<const void*>(dual_sgd_kernel<true, false>),
       reinterpret_cast<const void*>(dual_sgd_kernel<true, true>),
+      reinterpret_cast<const void*>(count_build_kernel<int8_t>),
+      reinterpret_cast<const void*>(count_build_kernel<float>),
+      reinterpret_cast<const void*>(dual_tenants_kernel<false>),
+      reinterpret_cast<const void*>(dual_tenants_kernel<true>),
   };
   for (const void* k : kernels)
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, *shared_optin);
   const cudaError_t restored = cudaSetDevice(current);
   return (int)(err != cudaSuccess ? err : restored);
-}
-
-template <typename T>
-static void launch_count_build(const void* idx, const void* val, void* out, int rows,
-                               int tokens, int features, int rows_out, int cols,
-                               int shared_bytes, cudaStream_t s) {
-  count_build_kernel<T><<<rows_out, kCountThreads, shared_bytes, s>>>(
-      static_cast<const int*>(idx), static_cast<const float*>(val), rows, tokens, features,
-      static_cast<T*>(out), cols);
-}
-
-// B4: idx [rows, tokens] int32 and val [rows, tokens] f32 (device, contiguous)
-// -> out [rows_out, cols] (kind 0: int8, 1: f32), cols a multiple of 16,
-// rows_out >= rows; shared_bytes = count_layout(tokens)'s end
-// (ops/fused_gram.py count_layout: a size that differs is refused). Returns
-// the launch's CUDA error, 0 when it was taken.
-extern "C" int twtml_count_build(const void* idx, const void* val, void* out, int rows,
-                                 int tokens, int features, int rows_out, int cols, int kind,
-                                 int shared_bytes, void* stream) {
-  if (rows < 1 || tokens < 1 || features < 1 || rows_out < rows || cols < features ||
-      cols % 16 != 0 || (kind != 0 && kind != 1) ||
-      (size_t)shared_bytes != count_layout(tokens).end)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kind == 0)
-    launch_count_build<int8_t>(idx, val, out, rows, tokens, features, rows_out, cols,
-                               shared_bytes, s);
-  else
-    launch_count_build<float>(idx, val, out, rows, tokens, features, rows_out, cols,
-                              shared_bytes, s);
-  return (int)cudaGetLastError();
 }
 
 // B7: the whole dual loop for one batch, one cooperative launch on `stream`
@@ -1044,16 +1385,156 @@ extern "C" int twtml_dual_barrier_probe(int grid, int crossings, void* stream) {
                                           static_cast<cudaStream_t>(stream));
 }
 
-// B8: counts [>= rows, cols] (kind 0: int8, 1: f32; cols a multiple of 16),
-// alpha [rows], c [1], w_prev [features + 4], numeric [rows, 4] (f32, device,
-// contiguous) -> w_out [features + 4]. Returns the launch's CUDA error.
-extern "C" int twtml_dual_writeback(const void* counts, int kind, int rows, int cols,
-                                    int features, const void* alpha, const void* c,
-                                    const void* w_prev, const void* numeric, void* w_out,
-                                    void* stream) {
-  if (rows < 1 || cols < features || cols % 16 != 0 || features < 1 || (kind != 0 && kind != 1))
+// B4: idx [*, tokens] int32 and val [*, tokens] f32 (a batch's rows, or a
+// tenant stack's [M·B]) -> out [out_row[tenants], cols] (kind 0: int8, 1:
+// f32), a CTA a row of out (a single batch of B rows is one tenant:
+// src_row 0, valid B, out_row {0, rows_out}): tenant u's block is rows [out_row[u],
+// out_row[u + 1]), its first valid[u] rows counted from token row
+// src_row[u] on, the rest zeros. Host arrays of `tenants` (out_row of
+// tenants + 1, from 0). shared_bytes = count_layout(tokens)'s end. Returns
+// the launch's CUDA error, 0 when it was taken.
+extern "C" int twtml_count_build(const void* idx, const void* val, void* out, int tenants,
+                                 int tokens, int features, int cols, int kind, int shared_bytes,
+                                 const int* src_row, const int* valid, const int* out_row,
+                                 void* stream) {
+  if (tenants < 1 || tenants > kGramTenants || tokens < 1 || features < 1 || cols < features ||
+      cols % 16 != 0 || (kind != 0 && kind != 1) || out_row[0] != 0 ||
+      (size_t)shared_bytes != count_layout(tokens).end)
     return (int)cudaErrorInvalidValue;
-  const int blocks = (features + kWbCols - 1) / kWbCols + 1;  // + the numeric block
+  CountTenants t;
+  t.tenants = tenants;
+  t.out_row[0] = 0;
+  for (int u = 0; u < kGramTenants; ++u) {
+    const bool in = u < tenants;
+    if (in && (src_row[u] < 0 || valid[u] < 0 || out_row[u + 1] - out_row[u] < valid[u]))
+      return (int)cudaErrorInvalidValue;
+    t.src_row[u] = in ? src_row[u] : 0;
+    t.valid[u] = in ? valid[u] : 0;
+    t.out_row[u + 1] = in ? out_row[u + 1] : out_row[tenants];
+  }
+  const int rows = out_row[tenants];
+  if (rows < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kind == 0)
+    count_build_kernel<int8_t><<<rows, kCountThreads, shared_bytes, s>>>(
+        static_cast<const int*>(idx), static_cast<const float*>(val), tokens, features,
+        static_cast<int8_t*>(out), cols, t);
+  else
+    count_build_kernel<float><<<rows, kCountThreads, shared_bytes, s>>>(
+        static_cast<const int*>(idx), static_cast<const float*>(val), tokens, features,
+        static_cast<float*>(out), cols, t);
+  return (int)cudaGetLastError();
+}
+
+// B7's tenant form: every tenant's dual loop in one cooperative launch on
+// `stream`. u, y, mask [M·B] f32, numeric [M·B, 4] f32, masks [iterations,
+// B] f32 or null, p_prev [M] f32 -> alpha_out [M, B], c_out and
+// iterations [M] (each tenant's row m = slot[u]); abuf [2·abuf_floats],
+// partials [8·grid] and spill f32 scratch. The plan's values and
+// `plan_layout` (dual_layout(bp_max, rows_cap_max)'s offsets, as B7's)
+// come from ops/fused_gram.py dual_tenants_plan; a plan that differs is
+// refused. g[u]: tenant u's text G, int32 where g_int32[u], else f32, row
+// stride ldg[u] (null for a dry tenant). `residual_mode` 0 least squares,
+// 1 logistic. Returns the launch's CUDA error, 0 when it was taken.
+extern "C" int twtml_dual_sgd_tenants(
+    const void* u, const void* y, const void* mask, const void* numeric, const void* masks,
+    const void* p_prev, void* alpha_out, void* c_out, void* iterations, void* abuf,
+    void* partials, void* spill, long long abuf_floats, int tenants, int batch_rows, int grid,
+    int bp_max, int rows_cap_max, int shared_bytes, const int* plan_layout,
+    const int* first_cta, const int* valid, const int* slot, const int* rows_cap,
+    const int* resident, const long long* spill_at, const long long* abuf_at,
+    const void* const* g, const long long* ldg, const int* g_int32, const float* step_sizes,
+    const float* l2_regs, int num_iterations, float tol, int residual_mode, void* stream) {
+  const DualLayout lay = dual_layout(bp_max, rows_cap_max);
+  const size_t offsets[] = {lay.mask, lay.u, lay.y, lay.a, lay.s, lay.red, lay.g};
+  bool ok = tenants >= 1 && tenants <= kGramTenants && batch_rows >= 1 && grid >= 1 &&
+            grid <= kDualMaxGrid && bp_max >= 4 && bp_max % 4 == 0 && rows_cap_max >= 1 &&
+            abuf_floats >= 4 && abuf_floats % 4 == 0 && num_iterations >= 0 &&
+            (residual_mode == 0 || residual_mode == 1) && first_cta[0] == 0 &&
+            first_cta[tenants] == grid && (size_t)shared_bytes >= lay.g;
+  for (int i = 0; i < 7; ++i) ok = ok && (size_t)plan_layout[i] == offsets[i];
+  DualTenants t;
+  t.tenants = tenants;
+  t.batch_rows = batch_rows;
+  t.first_cta[0] = 0;
+  for (int w = 0; ok && w < kGramTenants; ++w) {
+    const bool in = w < tenants;
+    const int k = in ? first_cta[w + 1] - first_cta[w] : 0;
+    const int v = in ? valid[w] : 0, bp = (v + 3) & ~3;
+    if (in)
+      ok = k >= 0 && v >= 0 && v <= batch_rows && bp <= bp_max && slot[w] >= 0 &&
+           resident[w] >= 0 && resident[w] <= rows_cap[w] && rows_cap[w] <= rows_cap_max &&
+           spill_at[w] >= 0 && abuf_at[w] >= 0 && abuf_at[w] % 4 == 0 &&
+           abuf_at[w] + bp <= abuf_floats &&
+           (size_t)shared_bytes >= lay.g + (size_t)resident[w] * bp * 4 &&
+           (v == 0 || (k > 0 && (v + k - 1) / k <= rows_cap[w] && g[w] != nullptr &&
+                       ldg[w] >= v));
+    t.first_cta[w + 1] = in ? first_cta[w + 1] : grid;
+    t.valid[w] = v;
+    t.slot[w] = in ? slot[w] : 0;
+    t.rows_cap[w] = in ? rows_cap[w] : 0;
+    t.resident[w] = in ? resident[w] : 0;
+    t.g_int32[w] = in ? g_int32[w] : 0;
+    t.spill_at[w] = in ? spill_at[w] : 0;
+    t.abuf_at[w] = in ? abuf_at[w] : 0;
+    t.ldg[w] = in ? ldg[w] : 0;
+    t.g[w] = in ? g[w] : nullptr;
+    t.step_size[w] = in ? step_sizes[w] : 0.f;
+    t.l2_reg[w] = in ? l2_regs[w] : 0.f;
+  }
+  if (!ok) return (int)cudaErrorInvalidValue;
+  DualTenantParams p;
+  p.u = static_cast<const float*>(u);
+  p.y = static_cast<const float*>(y);
+  p.mask = static_cast<const float*>(mask);
+  p.numeric = static_cast<const float*>(numeric);
+  p.masks = static_cast<const float*>(masks);
+  p.p_prev = static_cast<const float*>(p_prev);
+  p.alpha_out = static_cast<float*>(alpha_out);
+  p.c_out = static_cast<float*>(c_out);
+  p.iterations = static_cast<float*>(iterations);
+  p.abuf = static_cast<float*>(abuf);
+  p.partials = static_cast<float*>(partials);
+  p.spill = static_cast<float*>(spill);
+  p.abuf_floats = abuf_floats;
+  p.bp_max = bp_max;
+  p.rows_cap_max = rows_cap_max;
+  p.num_iterations = num_iterations;
+  p.tol = tol;
+  void* args[] = {&p, &t};
+  const void* kernel = residual_mode ? reinterpret_cast<const void*>(dual_tenants_kernel<true>)
+                                     : reinterpret_cast<const void*>(dual_tenants_kernel<false>);
+  return (int)cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kDualThreads), args,
+                                          (size_t)shared_bytes, static_cast<cudaStream_t>(stream));
+}
+
+// B8: for each tenant u of `tenants` (a single batch of B rows is one
+// tenant: slot, c_row and src_row 0, valid B), w_out[slot[u]] =
+// c[slot[u]]·w_prev[slot[u]] + Cᵀα over its valid[u] rows of counts (from
+// row c_row[u]; kind 0: int8, 1: f32; cols a multiple of 16) and α and
+// numeric (from row src_row[u] of the [M·B] rows), as B8 on those rows.
+// w_prev, w_out [M, features + 4], c [M] f32. Returns the launch's CUDA
+// error.
+extern "C" int twtml_dual_writeback(const void* counts, int kind, int cols, int features,
+                                    const void* alpha, const void* c, const void* w_prev,
+                                    const void* numeric, void* w_out, int tenants,
+                                    const int* slot, const int* c_row, const int* valid,
+                                    const int* src_row, void* stream) {
+  if (tenants < 1 || tenants > kGramTenants || cols < features || cols % 16 != 0 ||
+      features < 1 || (kind != 0 && kind != 1))
+    return (int)cudaErrorInvalidValue;
+  WritebackTenants t;
+  t.tenants = tenants;
+  for (int u = 0; u < kGramTenants; ++u) {
+    const bool in = u < tenants;
+    if (in && (slot[u] < 0 || c_row[u] < 0 || valid[u] < 0 || src_row[u] < 0))
+      return (int)cudaErrorInvalidValue;
+    t.slot[u] = in ? slot[u] : 0;
+    t.c_row[u] = in ? c_row[u] : 0;
+    t.valid[u] = in ? valid[u] : 0;
+    t.src_row[u] = in ? src_row[u] : 0;
+  }
+  const dim3 blocks((features + kWbCols - 1) / kWbCols + 1, tenants);  // + the numeric block
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* a = static_cast<const float*>(alpha);
   const float* cp = static_cast<const float*>(c);
@@ -1062,9 +1543,9 @@ extern "C" int twtml_dual_writeback(const void* counts, int kind, int rows, int 
   float* wo = static_cast<float*>(w_out);
   if (kind == 0)
     writeback_kernel<int8_t><<<blocks, kWbThreads, 0, s>>>(
-        static_cast<const int8_t*>(counts), rows, cols, features, a, cp, wp, num, wo);
+        static_cast<const int8_t*>(counts), cols, features, a, cp, wp, num, wo, t);
   else
     writeback_kernel<float><<<blocks, kWbThreads, 0, s>>>(
-        static_cast<const float*>(counts), rows, cols, features, a, cp, wp, num, wo);
+        static_cast<const float*>(counts), cols, features, a, cp, wp, num, wo, t);
   return (int)cudaGetLastError();
 }

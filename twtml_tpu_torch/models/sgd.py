@@ -337,19 +337,30 @@ def dense_sgd_loop(x_dense, labels, mask, weights, *, num_iterations: int,
 def sparse_sgd_loop(weights, token_idx, token_val, numeric, labels, mask, *,
                     num_text_features: int, num_iterations: int, step_size: float,
                     l2_reg: float = 0.0, convergence_tol: float = 0.001, masks=None,
-                    residual_fn=least_squares_residual, reduce=None):
+                    residual_fn=least_squares_residual, reduce=None, step_table=None):
     """The sparse regime's per-iteration loop as torch ops (the JAX
     package's scatter loop): each iteration gathers the margins
     (``sparse_predict``) and scatters residual·val back
     (``sparse_grad_text``), plus the numeric columns' Nᵀr; with ``reduce``
     summed over a data-parallel group's ranks. Returns the new weights
-    [F + 4]."""
+    [F + 4]. With ``step_table`` (``sgd_inner_loop``'s, in place of
+    ``step_size`` and ``l2_reg``) it runs M tenants at once, the JAX
+    package's vmap of the step: ``weights`` [M, F + 4], the tokens [M, B,
+    L], ``numeric`` [M, B, 4], ``labels`` and ``mask`` [M, B], every tenant
+    on the same ``masks``; one gather and one ``index_add_`` an iteration
+    for all M (tenant m's indices offset into [M·F]); it returns [M, F +
+    4]."""
     f_text = num_text_features
+    tenants = step_table is not None
 
     def grad_and_count(w, it):
         sel = mask if masks is None else mask * masks[it - 1]
-        raw = sparse_predict(w[:f_text], w[f_text:], token_idx, token_val, numeric)
+        raw = sparse_predict(w[..., :f_text], w[..., f_text:], token_idx, token_val, numeric)
         residual = residual_fn(raw, labels) * sel
+        if tenants:
+            grad = torch.cat([sparse_grad_text(token_idx, token_val, residual, f_text),
+                              _rmatvec(numeric, residual)], dim=1)
+            return grad, torch.sum(sel, dim=-1)
         grad = torch.cat([sparse_grad_text(token_idx, token_val, residual, f_text),
                           residual @ numeric])
         return grad, torch.sum(sel)
@@ -357,6 +368,7 @@ def sparse_sgd_loop(weights, token_idx, token_val, numeric, labels, mask, *,
     return sgd_inner_loop(
         weights, num_iterations=num_iterations, step_size=step_size, l2_reg=l2_reg,
         convergence_tol=convergence_tol, grad_and_count=_reduced(grad_and_count, reduce),
+        step_table=step_table,
     )
 
 
@@ -478,6 +490,22 @@ def decode_batch(batch, f_text: int, dtype) -> tuple:
         token_val = token_val.to(dtype)
     return (token_idx, token_val, batch.numeric.to(dtype), batch.label.to(dtype),
             batch.mask.to(dtype))
+
+
+def gram_sgd_plain(weights, token_idx, token_val, numeric, raw, labels, mask, *, plane,
+                   int8_plane, p_prev, masks, **loop_kw):
+    """The Gram route's plain pieces on one batch (the CPU, bfloat16): G
+    over the batch's occurring columns (``gram_matrix``, in ``plane``), the
+    dual loop as torch ops (``run_dual_loop``; ``loop_kw`` its iterations,
+    step size, L2, tolerance and residual), the write-back scatter. Returns
+    the new weights [F + 4]."""
+    f_text = weights.shape[0] - NUM_NUMBER_FEATURES
+    g = gram_matrix(token_idx, token_val, numeric, f_text, weights.dtype, int8_plane, plane)
+    dual = run_dual_loop(u=raw, g=g, labels=labels, mask=mask, dtype=weights.dtype,
+                         p_prev=p_prev, masks=masks, **loop_kw)
+    w_text, w_num = dual_writeback(weights[:f_text], weights[f_text:], dual["c"],
+                                   dual["alpha"], token_idx, token_val, numeric)
+    return torch.cat([w_text, w_num])
 
 
 def gram_sgd_parallel(weights, token_idx, token_val, numeric, raw, labels, mask, *,
@@ -637,13 +665,9 @@ def make_sgd_train_step(
                                               p_prev=p_prev, **loop_kw)
             return fused_gram.dual_writeback_counts(weights, c, alpha, counts, numeric,
                                                     f_text)
-        g = gram_matrix(token_idx, token_val, numeric, f_text, weights.dtype,
-                        int8_plane, plane)
-        dual = run_dual_loop(u=raw, g=g, labels=labels, mask=mask, dtype=weights.dtype,
-                             p_prev=p_prev, masks=masks, **loop_kw)
-        w_text, w_num = dual_writeback(weights[:f_text], weights[f_text:], dual["c"],
-                                       dual["alpha"], token_idx, token_val, numeric)
-        return torch.cat([w_text, w_num])
+        return gram_sgd_plain(weights, token_idx, token_val, numeric, raw, labels, mask,
+                              plane=plane, int8_plane=int8_plane, p_prev=p_prev, masks=masks,
+                              **loop_kw)
 
     def train_step(weights, batch, plane: "int | None" = None):
         token_idx, token_val, numeric, labels, mask = decode_batch(batch, f_text, dtype)
@@ -731,26 +755,43 @@ def make_sgd_tenant_step(
     round_predictions: bool = True,
     quality: bool = False,
     dtype=torch.float32,
+    use_sparse: "bool | None" = None,
+    use_gram: "bool | None" = None,
+    gram_int8: "bool | None" = None,
     group=None,
 ):
-    """The dense regime's train step batched over M tenants: the JAX
-    package's ``jax.vmap`` of the step (``twtml_tpu/parallel/tenants.py``,
-    ``mapping="vmap"``). Builds ``(weights [M, F+4], wire, valid_rows) ->
-    (new weights, [M]-leading StepOutput)``: ``wire`` a stacked device wire
-    or an unpacked group of M tenant parts, ``valid_rows`` each part's rows
-    up to its last valid one (``features/batch.tenant_valid_rows`` of the
-    HOST masks, so nothing is read back). Tenant m trains with
-    ``step_sizes[m]`` and ``l2_regs[m]``; the rest is shared.
+    """The train step batched over M tenants: the JAX package's ``jax.vmap``
+    of the step (``twtml_tpu/parallel/tenants.py``, ``mapping="vmap"``).
+    Builds ``(weights [M, F+4], wire, valid_rows[, planes]) -> (new
+    weights, [M]-leading StepOutput)``: ``wire`` a stacked device wire or
+    an unpacked group of M tenant parts, ``valid_rows`` each part's rows up
+    to its last valid one (``features/batch.tenant_valid_rows`` of the HOST
+    masks, so nothing is read back), ``planes`` each part's Gram plane
+    (``host_planes``; the Gram route reads them from the tokens when not
+    given, which syncs on a card). Tenant m trains with ``step_sizes[m]``
+    and ``l2_regs[m]``; the rest is shared.
 
-    The M·B rows decode, hash and densify at once (``flatten_tenants``),
-    then one loop trains every tenant: on the route of ``dense_route``,
-    ``fused_dense_sgd_tenants`` (the tenant grid kernel on the card, its
-    plain version on the CPU) or the batched torch loop (``dense_sgd_loop``
-    with a step table; every tenant on the same ``-b`` < 1 masks, as the
-    JAX vmap draws them under one key). Rounding, the stats and the quality
-    vector run over the leading M as batched ops. The products sum in
-    another order than the scan form's M steps, so the two agree within
-    float rounding, not bitwise, as the JAX package's vmap and scan do.
+    The M·B rows decode (and, in the dense regime, hash and densify) at
+    once (``flatten_tenants``), then one loop trains every tenant, on the
+    route of ``dense_route``. Dense regime: ``fused_dense_sgd_tenants`` (the
+    tenant grid kernel on the card, its plain version on the CPU) or the
+    batched torch loop (``dense_sgd_loop`` with a step table). Sparse regime
+    (the 2^18 routes), predictions by one gather for every tenant: the
+    ``gram`` route (a part's rows passing ``fits_gram``, as the JAX gate
+    counts one tenant's rows) on the card in float32 is B4's tenant form
+    once a plane present (the tenants grouped by their plane: a tenant in
+    the f32 plane does not widen the others), one library G product a
+    tenant with rows over its valid rows (``tenant_gram_blocks``), B7's
+    tenant form once (N·Nᵀ added in its prologue) and B8's tenant form once
+    a plane; elsewhere (the CPU, bfloat16) the plain pieces on each
+    tenant's valid rows, as ``make_sgd_train_step``'s Gram route; the
+    ``scatter`` route (and a batch over the gate) the batched scatter loop
+    (``sparse_sgd_loop`` with a step table). Every tenant shares the ``-b``
+    < 1 masks, as the JAX vmap draws them under one key. Rounding, the
+    stats and the quality vector run over the leading M as batched ops.
+    The sums run in another order than the scan form's M steps, so the two
+    agree within float rounding, not bitwise, as the JAX package's vmap and
+    scan do.
 
     ``group`` (``Collectives`` of a data axis; None: one process) makes it
     this rank's share of the M tenants' data-parallel steps, the JAX vmap
@@ -763,14 +804,17 @@ def make_sgd_tenant_step(
     under the key folded with the rank (the JAX vmap's one
     ``sampling_key(data)``); the stats and the quality vector take one
     all-reduce each. N + 1 all-reduces a step (N + 2 with the quality
-    vector), whatever M."""
+    vector), whatever M. The sparse regime over a group has no batched
+    form (ROADMAP B10 d): it raises."""
     _check_slice(dtype)
     f_text = num_text_features
-    if f_text > DENSE_TEXT_FEATURE_LIMIT:
-        raise ValueError("the batched tenant step is the dense regime's (<= "
-                         f"{DENSE_TEXT_FEATURE_LIMIT} text features)")
+    sparse = f_text > DENSE_TEXT_FEATURE_LIMIT if use_sparse is None else use_sparse
+    if sparse and group is not None:
+        raise ValueError("the sparse regime's batched tenant step runs on one process; over a "
+                         "data axis its tenants step in turn (ROADMAP B10 d)")
     residual_fn = residual_fn or least_squares_residual
-    route = dense_route(mini_batch_fraction, dtype, residual_fn)
+    route = dense_route(mini_batch_fraction, dtype, residual_fn, sparse, use_gram)
+    int8_plane = GRAM_INT8_PLANE if gram_int8 is None else gram_int8
     step_sizes = [float(v) for v in step_sizes]
     l2_regs = [float(v) for v in l2_regs]
     if not len(step_sizes) == len(l2_regs) == num_tenants:
@@ -797,27 +841,86 @@ def make_sgd_tenant_step(
         dev = tables[key][1]
         return dev[0], dev[1]
 
-    def tenant_step(weights, wire, valid_rows):
+    def gram_tenants(weights, token_idx, token_val, numeric, raw, labels, mask, masks, planes,
+                     valid_rows):
+        """Every tenant's step in the dual basis over its valid rows: the
+        hand kernels' tenant forms on the card in float32, the plain pieces
+        tenant by tenant elsewhere."""
+        m = num_tenants
+        if planes is None:
+            planes = [data_plane(token_val[t], int8_plane) for t in range(m)]
+        valid = [int(v) for v in valid_rows]
+        p_prev = torch.sum(weights * weights, dim=1)
+        if (weights.device.type == "cuda" and weights.dtype == torch.float32
+                and residual_mode(residual_fn) is not None):
+            # the tenants by plane, each dry one with the first tenant with rows
+            live = [t for t in range(m) if valid[t]]
+            lead = planes[live[0]] == PLANE_INT8 if live else planes[0] == PLANE_INT8
+            by_plane: dict = {}
+            for t in range(m):
+                by_plane.setdefault(planes[t] == PLANE_INT8 if valid[t] else lead, []).append(t)
+            gs = [None] * m
+            built = []
+            for int8, tenants in by_plane.items():
+                counts, at = fused_gram.count_build_tenants(
+                    token_idx, token_val, f_text, valid_rows=valid, int8=int8, tenants=tenants)
+                for t, g in zip(tenants, fused_gram.tenant_gram_blocks(
+                        counts, at, [valid[t] for t in tenants])):
+                    gs[t] = g
+                built.append((tenants, counts, at))
+            c, alpha, _ = fused_gram.dual_sgd_tenants(
+                gs, raw, labels, mask, numeric, valid_rows=valid, masks=masks, p_prev=p_prev,
+                step_sizes=step_sizes, l2_regs=l2_regs, **loop_kw)
+            w_new = torch.empty_like(weights)
+            for tenants, counts, at in built:
+                fused_gram.dual_writeback_tenants(weights, c, alpha, counts, numeric, f_text,
+                                                  valid_rows=valid, tenants=tenants, at=at,
+                                                  out=w_new)
+            return w_new
+        return torch.stack([
+            gram_sgd_plain(weights[t], token_idx[t, :v], token_val[t, :v], numeric[t, :v],
+                           raw[t, :v], labels[t, :v], mask[t, :v], plane=planes[t],
+                           int8_plane=int8_plane, p_prev=p_prev[t],
+                           masks=None if masks is None else masks[:, :v],
+                           step_size=step_sizes[t], l2_reg=l2_regs[t], **loop_kw)
+            if v else weights[t].clone()  # no row: c = 1, α empty, W unchanged
+            for t, v in enumerate(valid)])
+
+    def tenant_step(weights, wire, valid_rows, planes=None):
         m = num_tenants
         token_idx, token_val, numeric, labels, mask = decode_batch(
             flatten_tenants(wire), f_text, dtype)
         rows = mask.shape[0] // m
-        x_dense = torch.cat([densify_text(token_idx, token_val, f_text), numeric],
-                            dim=1).view(m, rows, -1)
         labels, mask = labels.view(m, rows), mask.view(m, rows)
-        if route == "fused_dense_sgd" and group is not None:
-            w_new, raw = fused_sgd.fused_dense_sgd_tenants_split(
-                x_dense, labels, mask, weights, valid_rows=valid_rows, allreduce=reduce,
-                step_sizes=step_sizes, l2_regs=l2_regs, **loop_kw)
-        elif route == "fused_dense_sgd":
-            w_new, raw = fused_sgd.fused_dense_sgd_tenants(
-                x_dense, labels, mask, weights, valid_rows=valid_rows,
-                step_sizes=step_sizes, l2_regs=l2_regs, **loop_kw)
+        token_idx, token_val = token_idx.view(m, rows, -1), token_val.view(m, rows, -1)
+        numeric = numeric.view(m, rows, -1)
+        masks = masks_for(rows, mask.device, shard) if sampled else None
+        if sparse:
+            raw = sparse_predict(weights[:, :f_text], weights[:, f_text:], token_idx,
+                                 token_val, numeric)
+            if route == "gram" and (use_gram or fits_gram(rows, f_text, num_iterations)):
+                w_new = gram_tenants(weights, token_idx, token_val, numeric, raw, labels, mask,
+                                     masks, planes, valid_rows)
+            else:
+                w_new = sparse_sgd_loop(weights, token_idx, token_val, numeric, labels, mask,
+                                        num_text_features=f_text, masks=masks, step_size=None,
+                                        step_table=step_table(mask.device), **loop_kw)
         else:
-            masks = masks_for(rows, mask.device, shard) if sampled else None
-            w_new, raw = dense_sgd_loop(x_dense, labels, mask, weights, masks=masks,
-                                        step_size=None, step_table=step_table(mask.device),
-                                        reduce=reduce, **loop_kw)
+            x_dense = torch.cat([densify_text(token_idx.view(m * rows, -1),
+                                              token_val.view(m * rows, -1), f_text),
+                                 numeric.view(m * rows, -1)], dim=1).view(m, rows, -1)
+            if route == "fused_dense_sgd" and group is not None:
+                w_new, raw = fused_sgd.fused_dense_sgd_tenants_split(
+                    x_dense, labels, mask, weights, valid_rows=valid_rows, allreduce=reduce,
+                    step_sizes=step_sizes, l2_regs=l2_regs, **loop_kw)
+            elif route == "fused_dense_sgd":
+                w_new, raw = fused_sgd.fused_dense_sgd_tenants(
+                    x_dense, labels, mask, weights, valid_rows=valid_rows,
+                    step_sizes=step_sizes, l2_regs=l2_regs, **loop_kw)
+            else:
+                w_new, raw = dense_sgd_loop(x_dense, labels, mask, weights, masks=masks,
+                                            step_size=None, step_table=step_table(mask.device),
+                                            reduce=reduce, **loop_kw)
         preds = raw if prediction_fn is None else prediction_fn(raw)
         if round_predictions:
             preds = torch_round_half_up(preds)
@@ -826,9 +929,8 @@ def make_sgd_tenant_step(
         if quality:
             q = quality_vector(
                 weights, w_new, residual=residual_fn(raw, labels) * mask, preds=preds,
-                labels=labels, mask=mask, numeric=numeric.view(m, rows, -1),
-                token_idx=token_idx.view(m, rows, -1), token_val=token_val.view(m, rows, -1),
-                reduce=reduce,
+                labels=labels, mask=mask, numeric=numeric, token_idx=token_idx,
+                token_val=token_val, reduce=reduce,
             )
         return w_new, StepOutput(predictions=preds, quality=q, **stats)
 

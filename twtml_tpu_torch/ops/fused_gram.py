@@ -21,6 +21,15 @@ fusions of ``twtml_tpu/ops/gram.py`` and ``twtml_tpu/models/sgd.py``
   columns' w_num·c + Nᵀα) in one fixed-order column pass over C. Twin:
   ``dual_writeback_reference``.
 
+The tenant forms (the vmap form of a tenant stack, ``jax.vmap`` of the
+step in the JAX package) take M parts of B rows and each part's valid rows:
+``count_build_tenants`` (B4's, one launch for the tenants of one Gram
+plane, every block bitwise B4's), ``tenant_gram_blocks`` (one library
+product a tenant over its valid rows), ``dual_sgd_tenants`` (B7's, M dual
+loops in one cooperative launch, ``dual_tenants_plan``) and
+``dual_writeback_tenants`` (B8's, every row bitwise B8's on the same rows);
+each plain version is M calls of the single-tenant one.
+
 The kernels are ``csrc/gram.cu`` (its header gives each design). None uses
 float atomics: reruns are bitwise equal. Routing as in ops/fused_sgd.py: a
 CPU tensor goes to the twin; a CUDA tensor launches the kernel or raises.
@@ -45,7 +54,7 @@ from typing import NamedTuple
 import torch
 
 from .fused_sgd import least_squares_residual, residual_mode
-from .gram import densify_counts, onehot_counts_int8
+from .gram import add_numeric_block, densify_counts, onehot_counts_int8
 
 # constants of csrc/gram.cu that size its launches; the build passes them
 # to nvcc, and the source static_asserts its own against them
@@ -61,13 +70,14 @@ DUAL_MAX_GRID = 160  # CTAs a launch (the decider warp reads 5 CTAs' partials a 
 DUAL_RED_FLOATS = (DUAL_WARPS * DUAL_ROWS + DUAL_WARPS + 4) & ~3
 WRITEBACK_THREADS = 256
 WRITEBACK_COLUMNS = 128  # text columns a block of B8 owns
+TENANTS_PER_LAUNCH = 32  # tenants a tenant-form launch (B7's: a lane of its decider warp each)
 NVCC_DEFINES = tuple(
     f"-DTWTML_GRAM_{name}={value}" for name, value in (
         ("COUNT_THREADS", COUNT_THREADS), ("COUNT_KEY_BYTES", COUNT_KEY_BYTES),
         ("DUAL_THREADS", DUAL_THREADS), ("DUAL_ROWS", DUAL_ROWS),
         ("DUAL_REG_COLUMNS", DUAL_REG_COLUMNS), ("DUAL_MAX_GRID", DUAL_MAX_GRID),
         ("DUAL_RED_FLOATS", DUAL_RED_FLOATS), ("WRITEBACK_THREADS", WRITEBACK_THREADS),
-        ("WRITEBACK_COLUMNS", WRITEBACK_COLUMNS),
+        ("WRITEBACK_COLUMNS", WRITEBACK_COLUMNS), ("TENANTS_PER_LAUNCH", TENANTS_PER_LAUNCH),
     )
 )
 COUNT_KINDS = {torch.int8: 0, torch.float32: 1}
@@ -169,6 +179,20 @@ class DualPlan(NamedTuple):
         return 2 * self.bp + 8 * self.grid + 3
 
 
+def _dual_layout(bp: int, rows_cap: int) -> tuple[int, ...]:
+    """csrc/gram.cu dual_layout: byte offsets of the mask, u, y, α, G·α, the
+    reduction scratch and the resident rows of G, for [bp]-float vectors of
+    the batch and [rows_cap]-float vectors of a CTA's rows."""
+    vec = _align16(4 * bp)
+    own = _align16(4 * rows_cap)
+    mask, u = vec, 2 * vec
+    y = u + own
+    a = y + own  # α [2][rows_cap] by the parity of the update that made it
+    s = a + 2 * own  # G·α [2][rows_cap]
+    red = s + 2 * own
+    return (mask, u, y, a, s, red, red + DUAL_RED_FLOATS * 4)
+
+
 def dual_plan(rows: int, *, sm_count: int, shared_limit: int) -> DualPlan:
     """The grid, rows a CTA and where G's rows live for one B7 launch.
     Shared memory holds α and the validity mask of the whole batch ([bp]
@@ -181,18 +205,11 @@ def dual_plan(rows: int, *, sm_count: int, shared_limit: int) -> DualPlan:
     bp = -(-rows // 4) * 4
     grid = max(1, min(sm_count, DUAL_MAX_GRID, -(-rows // DUAL_WARPS)))
     rows_cap = -(-rows // grid)
-    vec = _align16(4 * bp)
-    own = _align16(4 * rows_cap)
-    mask, u = vec, 2 * vec
-    y = u + own
-    a = y + own  # α [2][rows_cap] by the parity of the update that made it
-    s = a + 2 * own  # G·α [2][rows_cap]
-    red = s + 2 * own
-    g = red + DUAL_RED_FLOATS * 4
+    layout = _dual_layout(bp, rows_cap)
+    g = layout[-1]
     if g > shared_limit:
         raise ValueError(f"{rows} rows need {g} B of shared memory before any row of G; "
                          f"the limit is {shared_limit} B")
-    layout = (mask, u, y, a, s, red, g)
     if rows_cap <= DUAL_ROWS and bp <= 4 * DUAL_THREADS * DUAL_REG_COLUMNS:
         return DualPlan(rows=rows, bp=bp, grid=grid, rows_cap=rows_cap, resident=rows_cap,
                         spill_per_cta=0, in_registers=True, shared_bytes=g,
@@ -204,6 +221,146 @@ def dual_plan(rows: int, *, sm_count: int, shared_limit: int) -> DualPlan:
         shared_bytes=g + resident * 4 * bp,
         smem_layout=layout,
     )
+
+
+def tenant_padded_rows(valid: int) -> int:
+    """A tenant's block of C (and of its G) in the tenant forms on the card:
+    ``padded_rows`` of its valid rows, none for a dry tenant."""
+    return padded_rows(valid) if valid > 0 else 0
+
+
+class CountTenantsPlan(NamedTuple):
+    """B4's tenant form over some tenants of a stack (their valid rows
+    ``valid_rows``): tenant i's block of C starts at row ``at[i]`` and has
+    ``tenant_padded_rows`` rows, ``rows`` in all; ``launches`` are (first,
+    end) positions in ``tenants``, at most TENANTS_PER_LAUNCH tenants a
+    launch, a CTA a row of their blocks (a launch of dry tenants alone,
+    no rows, is left out); ``shared_bytes`` a CTA's (``count_layout``)."""
+
+    valid_rows: tuple
+    at: tuple
+    rows: int
+    launches: tuple
+    shared_bytes: int
+
+
+def count_tenants_plan(valid_rows, tenants, tokens: int, *, shared_limit: int) -> CountTenantsPlan:
+    """B4's tenant form for the tenants ``tenants`` (indices into the
+    stack's ``valid_rows``) at L = ``tokens``."""
+    tenants = tuple(int(t) for t in tenants)
+    valid = tuple(int(valid_rows[t]) for t in tenants)
+    if not tenants or min(valid) < 0:
+        raise ValueError(f"count_build_tenants takes 1 or more tenants with 0 or more rows, "
+                         f"got {valid}")
+    at, rows = [], 0
+    for v in valid:
+        at.append(rows)
+        rows += tenant_padded_rows(v)
+    ends = at[1:] + [rows]
+    launches = tuple(
+        (lo, min(len(valid), lo + TENANTS_PER_LAUNCH))
+        for lo in range(0, len(valid), TENANTS_PER_LAUNCH)
+        if ends[min(len(valid), lo + TENANTS_PER_LAUNCH) - 1] > at[lo])
+    return CountTenantsPlan(valid_rows=valid, at=tuple(at), rows=rows, launches=launches,
+                            shared_bytes=count_shared_bytes(tokens, shared_limit=shared_limit))
+
+
+class DualTenantsPlan(NamedTuple):
+    """How one launch of B7's tenant form lays M tenants' G over the card:
+    CTAs [first_cta[t], first_cta[t + 1]) run tenant t's loop, CTA k of
+    them its rows ``cta_rows(t, k)``; of a CTA's rows the first
+    ``resident[t]`` live in shared memory (``bp`` floats a row: the
+    tenant's rows rounded up to 4), the rest in the spill buffer from float
+    ``spill_at[t]`` on, a CTA's rows_cap − resident after the one before's;
+    its α at float ``abuf_at[t]`` of each half of α's double buffer. One
+    layout (``smem_layout``, B7's ``dual_layout`` at ``bp_max`` and
+    ``rows_cap_max``) for every CTA."""
+
+    valid_rows: tuple
+    first_cta: tuple
+    rows_cap: tuple
+    resident: tuple
+    spill_at: tuple
+    abuf_at: tuple
+    bp_max: int
+    rows_cap_max: int
+    shared_bytes: int
+    smem_layout: tuple
+    abuf_floats: int
+    spill_floats: int
+
+    @property
+    def grid(self) -> int:
+        return self.first_cta[-1]
+
+    def cta_rows(self, tenant: int, k: int) -> range:
+        v = self.valid_rows[tenant]
+        ctas = self.first_cta[tenant + 1] - self.first_cta[tenant]
+        return range(k * v // ctas, (k + 1) * v // ctas)
+
+    @property
+    def scratch_floats(self) -> int:
+        """α's double buffer, then each CTA's 8 floats of test partials."""
+        return 2 * self.abuf_floats + 8 * self.grid
+
+
+def dual_tenants_plan(valid_rows, *, sm_count: int, shared_limit: int) -> DualTenantsPlan:
+    """One launch of B7's tenant form for tenants of ``valid_rows`` rows
+    each: at most min(``sm_count``, DUAL_MAX_GRID) CTAs, one an SM (a
+    cooperative launch), no more for a tenant than give each warp a row;
+    every tenant with a row gets a CTA, a dry one none (all dry: tenant 0
+    gets one, which writes the results); each tenant's share in proportion
+    to its rows of G, v² (rounded down), the CTAs left one at a time to the
+    tenant whose CTAs hold the most of G each (first of equals). Shared
+    memory holds the vectors at the widest tenant's width and as many rows
+    of G as fit, up to ``shared_limit`` (232,448 B on an H100). At most
+    TENANTS_PER_LAUNCH tenants, and no more with rows than CTAs."""
+    valid = tuple(int(v) for v in valid_rows)
+    if not 1 <= len(valid) <= TENANTS_PER_LAUNCH or min(valid) < 0:
+        raise ValueError(f"a B7 tenant launch takes 1..{TENANTS_PER_LAUNCH} tenants with 0 or "
+                         f"more rows each, got {valid}")
+    most = min(sm_count, DUAL_MAX_GRID)
+    live = [t for t, v in enumerate(valid) if v]
+    if len(live) > most:
+        raise ValueError(f"{len(live)} tenants with rows need a CTA each; a launch has {most}")
+    want = [-(-v // DUAL_WARPS) for v in valid]
+    budget = min(most, sum(want))
+    area = sum(v * v for v in valid)
+    ctas = [1 if v else 0 for v in valid]
+    if area:
+        share = [min(w, max(1, budget * v * v // area)) if v else 0 for v, w in zip(valid, want)]
+        if sum(share) <= budget:
+            ctas = share
+        for _ in range(budget - sum(ctas)):
+            t = max((t for t in live if ctas[t] < want[t]),
+                    key=lambda t: (-(-valid[t] // ctas[t]) * valid[t], -t))
+            ctas[t] += 1
+    else:
+        ctas[0] = 1
+    first = [0]
+    for k in ctas:
+        first.append(first[-1] + k)
+    bp = [-(-v // 4) * 4 for v in valid]
+    rows_cap = [-(-v // k) if v else 0 for v, k in zip(valid, ctas)]
+    bp_max, rows_cap_max = max(4, max(bp)), max(1, max(rows_cap))
+    layout = _dual_layout(bp_max, rows_cap_max)
+    g = layout[-1]
+    if g > shared_limit:
+        raise ValueError(f"tenants of {max(valid)} rows need {g} B of shared memory before any "
+                         f"row of G; the limit is {shared_limit} B")
+    shared = min(shared_limit, max(g + rc * 4 * b for rc, b in zip(rows_cap, bp)))
+    resident = [min(rc, (shared - g) // (4 * b)) if b else 0 for rc, b in zip(rows_cap, bp)]
+    spill_at, abuf_at, spill, abuf = [], [], 0, 0
+    for k, rc, res, b in zip(ctas, rows_cap, resident, bp):
+        spill_at.append(spill)
+        abuf_at.append(abuf)
+        spill += k * (rc - res) * b
+        abuf += b
+    return DualTenantsPlan(
+        valid_rows=valid, first_cta=tuple(first), rows_cap=tuple(rows_cap),
+        resident=tuple(resident), spill_at=tuple(spill_at), abuf_at=tuple(abuf_at),
+        bp_max=bp_max, rows_cap_max=rows_cap_max, shared_bytes=shared, smem_layout=layout,
+        abuf_floats=max(4, abuf), spill_floats=spill)
 
 
 # ---------------------------------------------------------------- plain twins
@@ -225,6 +382,17 @@ def count_build_reference(token_idx, token_val, f_text: int, *, int8: bool,
     return torch.nn.functional.pad(c, (0, cols_out - f_text, 0, rows_out - b))
 
 
+def _counts_product(left, counts):
+    """left·Cᵀ: on the card ``torch._int_mm`` for int8 counts (s32) or an
+    f32 matmul (TF32 off); on the CPU a float64 product (exact for the
+    planes' integer counts) cast to f32."""
+    if counts.device.type == "cuda":
+        if counts.dtype == torch.int8:
+            return torch._int_mm(left, counts.t())
+        return left @ counts.t()
+    return (left.double() @ counts.double().T).float()
+
+
 def gram_from_counts(counts, rows: "tuple[int, int] | None" = None):
     """G = C·Cᵀ ([rows, rows] f32) from the count build's padded C, or with
     ``rows`` = (start, n) the row panel C[start:start + n]·Cᵀ ([n, rows]: a
@@ -233,11 +401,7 @@ def gram_from_counts(counts, rows: "tuple[int, int] | None" = None):
     for f32 counts; on the CPU a float64 product (exact for the planes'
     integer counts) cast to f32."""
     left = counts if rows is None else counts[rows[0]:rows[0] + rows[1]]
-    if counts.device.type == "cuda":
-        if counts.dtype == torch.int8:
-            return torch._int_mm(left, counts.t()).float()
-        return left @ counts.t()
-    return (left.double() @ counts.double().T).float()
+    return _counts_product(left, counts).float()
 
 
 def dual_sgd_reference(g, u, labels, mask, *, masks=None, p_prev, num_iterations: int,
@@ -277,15 +441,97 @@ def dual_writeback_reference(weights, c, alpha, counts, numeric, f_text: int):
     return torch.cat([text, num])
 
 
+def count_build_tenants_reference(token_idx, token_val, f_text: int, *, valid_rows, int8: bool,
+                                  tenants=None, cols_out: "int | None" = None):
+    """B4's tenant form's plain version: for each tenant m of ``tenants``
+    (default every part of the [M, B, L] tokens) B4's twin on its first
+    ``valid_rows[m]`` rows, at ``tenant_padded_rows`` rows and ``cols_out``
+    columns (default ``f_text``), stacked. Returns (C, each tenant's first
+    row of C)."""
+    tenants = range(token_idx.shape[0]) if tenants is None else tenants
+    cols = f_text if cols_out is None else cols_out
+    blocks, at, rows = [], [], 0
+    for m in tenants:
+        v = int(valid_rows[m])
+        at.append(rows)
+        rows += tenant_padded_rows(v)
+        if v:
+            blocks.append(count_build_reference(token_idx[m, :v], token_val[m, :v], f_text,
+                                                int8=int8, rows_out=tenant_padded_rows(v),
+                                                cols_out=cols))
+    dtype = torch.int8 if int8 else torch.float32
+    counts = (torch.cat(blocks) if blocks
+              else torch.zeros((0, cols), dtype=dtype, device=token_idx.device))
+    return counts, tuple(at)
+
+
+def dual_sgd_tenants_reference(gs, u, labels, mask, numeric, *, valid_rows, masks=None, p_prev,
+                               num_iterations: int, step_sizes, l2_regs,
+                               convergence_tol: float = 0.001,
+                               residual_fn=least_squares_residual):
+    """B7's tenant form's plain version: for each tenant m with rows, B7's
+    twin on its first v = ``valid_rows[m]`` rows, G the text G ``gs[m]``
+    plus N·Nᵀ of its rows (``add_numeric_block``), its own step size, L2
+    and p_prev, every tenant on the same [N, B] ``masks`` sliced to its
+    rows; a dry tenant c = 1, α = 0, N iterations. Returns (c [M], α [M, B]
+    (zero past each tenant's rows), iterations run [M]), all float32."""
+    m_all, b = mask.shape
+    c = torch.ones((m_all,), dtype=torch.float32, device=mask.device)
+    its = torch.full((m_all,), float(num_iterations), dtype=torch.float32, device=mask.device)
+    alpha = torch.zeros((m_all, b), dtype=torch.float32, device=mask.device)
+    for m in range(m_all):
+        v = int(valid_rows[m])
+        if not v:
+            continue
+        g = add_numeric_block(gs[m][:v, :v].float(), numeric[m, :v])
+        c[m], alpha[m, :v], its[m] = dual_sgd_reference(
+            g, u[m, :v], labels[m, :v], mask[m, :v],
+            masks=None if masks is None else masks[:, :v], p_prev=p_prev[m],
+            num_iterations=num_iterations, step_size=step_sizes[m], l2_reg=l2_regs[m],
+            convergence_tol=convergence_tol, residual_fn=residual_fn)
+    return c, alpha, its
+
+
+def dual_writeback_tenants_reference(weights, c, alpha, counts, numeric, f_text: int, *,
+                                     valid_rows, tenants, at, out=None):
+    """B8's tenant form's plain version: for each tenant m of ``tenants``
+    (its block of C from row ``at[i]``), B8's twin on its first
+    ``valid_rows[m]`` rows, into row m of ``out`` (default zeros like
+    ``weights``)."""
+    out = torch.zeros_like(weights) if out is None else out
+    for m, first in zip(tenants, at):
+        v = int(valid_rows[m])
+        out[m] = dual_writeback_reference(weights[m], c[m], alpha[m, :v],
+                                          counts[first:first + v], numeric[m, :v], f_text)
+    return out
+
+
+def tenant_gram_blocks(counts, at, valid_rows):
+    """Each tenant's text G from its block of the tenant count build's C
+    (from row ``at[i]``, ``valid_rows[i]`` rows): the padded block's C·Cᵀ,
+    [p, p] for p = ``tenant_padded_rows``, one library product a tenant
+    with rows (None for a dry one; the JAX package leaves the product to
+    XLA outside any kernel), as ``gram_from_counts`` but left s32 for int8
+    counts on the card (B7's tenant form reads it as f32, exactly).
+    Counted in ``tenant_gram_blocks.products``."""
+    out = []
+    for first, v in zip(at, valid_rows):
+        if not v:
+            out.append(None)
+            continue
+        block = counts[first:first + tenant_padded_rows(v)]
+        tenant_gram_blocks.products += 1
+        out.append(_counts_product(block, block))
+    return out
+
+
+tenant_gram_blocks.products = 0
+
+
 # ---------------------------------------------------------------- the kernels
 
 # the C entries of csrc/gram.cu: name -> argument types
 _ENTRIES = {
-    "twtml_count_build": (
-        [ctypes.c_void_p] * 3  # idx, val, out
-        + [ctypes.c_int] * 7  # rows, tokens, features, rows_out, cols, kind, shared_bytes
-        + [ctypes.c_void_p]  # stream
-    ),
     "twtml_dual_sgd": (
         [ctypes.c_void_p] + [ctypes.c_longlong]  # g, ldg
         + [ctypes.c_void_p] * 8  # u, y, mask, masks, p_prev, alpha_out, scratch, spill
@@ -298,10 +544,33 @@ _ENTRIES = {
         + [ctypes.c_void_p]  # stream
     ),
     "twtml_dual_barrier_probe": [ctypes.c_int] * 2 + [ctypes.c_void_p],  # grid, crossings
+    "twtml_count_build": (
+        [ctypes.c_void_p] * 3  # idx, val, out
+        + [ctypes.c_int] * 6  # tenants, tokens, features, cols, kind, shared_bytes
+        + [ctypes.POINTER(ctypes.c_int)] * 3  # src_row, valid, out_row
+        + [ctypes.c_void_p]  # stream
+    ),
+    "twtml_dual_sgd_tenants": (
+        [ctypes.c_void_p] * 12  # u, y, mask, numeric, masks, p_prev, alpha_out, c_out,
+        #                         iterations, abuf, partials, spill
+        + [ctypes.c_longlong]  # abuf_floats
+        + [ctypes.c_int] * 6  # tenants, batch_rows, grid, bp_max, rows_cap_max, shared_bytes
+        + [ctypes.POINTER(ctypes.c_int)] * 6  # plan_layout, first_cta, valid, slot, rows_cap,
+        #                                      resident
+        + [ctypes.POINTER(ctypes.c_longlong)] * 2  # spill_at, abuf_at
+        + [ctypes.POINTER(ctypes.c_void_p)]  # g
+        + [ctypes.POINTER(ctypes.c_longlong)]  # ldg
+        + [ctypes.POINTER(ctypes.c_int)]  # g_int32
+        + [ctypes.POINTER(ctypes.c_float)] * 2  # step_sizes, l2_regs
+        + [ctypes.c_int, ctypes.c_float, ctypes.c_int]  # iterations, tol, residual_mode
+        + [ctypes.c_void_p]  # stream
+    ),
     "twtml_dual_writeback": (
         [ctypes.c_void_p]  # counts
-        + [ctypes.c_int] * 4  # kind, rows, cols, features
+        + [ctypes.c_int] * 3  # kind, cols, features
         + [ctypes.c_void_p] * 5  # alpha, c, w_prev, numeric, w_out
+        + [ctypes.c_int]  # tenants
+        + [ctypes.POINTER(ctypes.c_int)] * 4  # slot, c_row, valid, src_row
         + [ctypes.c_void_p]  # stream
     ),
 }
@@ -365,6 +634,11 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def _ints(values, kind=ctypes.c_int):
+    values = list(values)
+    return (kind * max(len(values), 1))(*values)
+
+
 def count_build(token_idx, token_val, f_text: int, *, int8: bool,
                 rows_out: "int | None" = None, cols_out: "int | None" = None):
     """B4: [B, L] int32 indices and f32 values -> the dense counts
@@ -393,9 +667,11 @@ def count_build(token_idx, token_val, f_text: int, *, int8: bool,
         _, shared_limit = device_limits(torch.cuda.current_device())
         shared = count_shared_bytes(l, shared_limit=shared_limit)
         out = torch.empty((rows_out, cols_out), dtype=dtype, device=dev)
+        # the batch as the row table's one tenant
         _raise_on(_entry("twtml_count_build")(
-            token_idx.data_ptr(), token_val.data_ptr(), out.data_ptr(), b, l, f_text,
-            rows_out, cols_out, COUNT_KINDS[dtype], shared, _stream()), "count_build")
+            token_idx.data_ptr(), token_val.data_ptr(), out.data_ptr(), 1, l, f_text, cols_out,
+            COUNT_KINDS[dtype], shared, _ints([0]), _ints([b]), _ints([0, rows_out]),
+            _stream()), "count_build")
         _count(count_build)
     return out
 
@@ -487,16 +763,208 @@ def dual_writeback_counts(weights, c, alpha, counts, numeric, f_text: int):
                          f"{tuple(counts.shape)}")
     with torch.cuda.device(dev):
         w_out = torch.empty_like(weights)
+        # the batch as the tenant table's one tenant
         _raise_on(_entry("twtml_dual_writeback")(
-            counts.data_ptr(), COUNT_KINDS[counts.dtype], b, cols, f_text,
-            alpha.data_ptr(), c.data_ptr(), weights.data_ptr(), numeric.data_ptr(),
-            w_out.data_ptr(), _stream()), "dual_writeback_counts")
+            counts.data_ptr(), COUNT_KINDS[counts.dtype], cols, f_text, alpha.data_ptr(),
+            c.data_ptr(), weights.data_ptr(), numeric.data_ptr(), w_out.data_ptr(), 1,
+            _ints([0]), _ints([0]), _ints([b]), _ints([0]), _stream()),
+            "dual_writeback_counts")
         _count(dual_writeback_counts)
     return w_out
 
 
+def _check_tenant_rows(name, valid_rows, m, b):
+    if len(valid_rows) != m or any(not 0 <= int(v) <= b for v in valid_rows):
+        raise ValueError(f"{name}: {m} parts of {b} rows need {m} valid row counts in "
+                         f"[0, {b}], got {list(valid_rows)}")
+
+
+def count_build_tenants(token_idx, token_val, f_text: int, *, valid_rows, int8: bool,
+                        tenants=None):
+    """B4's tenant form: [M, B, L] int32 indices and f32 values (M parts of
+    B rows), each part's valid rows (``valid_rows``, host ints: its rows up
+    to its last valid one) -> (C, at): one counts buffer (int8 when
+    ``int8``, else f32) holding, for each tenant of ``tenants`` (default
+    every part) in order, its block from row ``at[i]``: its first v rows'
+    counts, bitwise B4's on those rows, then zeros to ``tenant_padded_rows``
+    (v). On the card C's columns are ``padded_columns(f_text)``: one launch
+    of B4's ``count_build_kernel`` for each TENANTS_PER_LAUNCH tenants
+    (``count_tenants_plan``; none for a launch of dry tenants alone),
+    counted in ``count_build_tenants.launches``; on the CPU the plain
+    version, at ``f_text`` columns."""
+    dev = token_idx.device
+    if token_idx.dim() != 3:
+        raise ValueError(f"token_idx must be [M, B, L], got {tuple(token_idx.shape)}")
+    m, b, l = token_idx.shape
+    _check_tenant_rows("count_build_tenants", valid_rows, m, b)
+    tenants = tuple(range(m)) if tenants is None else tuple(int(t) for t in tenants)
+    if not tenants or any(not 0 <= t < m for t in tenants):
+        raise ValueError(f"count_build_tenants: tenants {tenants} outside [0, {m})")
+    if dev.type == "cpu":
+        return count_build_tenants_reference(token_idx, token_val, f_text,
+                                             valid_rows=valid_rows, int8=int8, tenants=tenants)
+    if dev.type != "cuda":
+        raise ValueError(f"count_build_tenants takes cpu or cuda tensors, got {dev}")
+    _check("token_idx", token_idx, (m, b, l), torch.int32, dev)
+    _check("token_val", token_val, (m, b, l), torch.float32, dev)
+    if l < 1:
+        raise ValueError("count_build_tenants: rows of L >= 1 tokens")
+    cols = padded_columns(f_text)
+    dtype = torch.int8 if int8 else torch.float32
+    with torch.cuda.device(dev):
+        _, shared_limit = device_limits(torch.cuda.current_device())
+        plan = count_tenants_plan(valid_rows, tenants, l, shared_limit=shared_limit)
+        out = torch.empty((plan.rows, cols), dtype=dtype, device=dev)
+        for lo, hi in plan.launches:
+            first = plan.at[lo]
+            rel = [a - first for a in plan.at[lo:hi]] + [
+                (plan.at[hi] if hi < len(tenants) else plan.rows) - first]
+            _raise_on(_entry("twtml_count_build")(
+                token_idx.data_ptr(), token_val.data_ptr(), out[first].data_ptr(), hi - lo, l,
+                f_text, cols, COUNT_KINDS[dtype], plan.shared_bytes,
+                _ints(t * b for t in tenants[lo:hi]), _ints(plan.valid_rows[lo:hi]),
+                _ints(rel), _stream()), "count_build_tenants")
+            _count(count_build_tenants)
+    return out, plan.at
+
+
+def _check_tenant_gs(gs, valid_rows, dev):
+    for m, (g, v) in enumerate(zip(gs, valid_rows)):
+        if not v:
+            continue
+        if (g is None or g.dim() != 2 or g.dtype not in (torch.float32, torch.int32)
+                or g.device != dev or g.shape[0] < v or g.shape[1] < v or g.stride(1) != 1):
+            raise ValueError(f"tenant {m}'s G must be float32 or int32 [>= {v}, >= {v}] with "
+                             f"unit column stride on {dev}, got "
+                             f"{None if g is None else (g.dtype, tuple(g.shape), g.stride())}")
+
+
+def dual_sgd_tenants(gs, u, labels, mask, numeric, *, valid_rows, masks=None, p_prev,
+                     num_iterations: int, step_sizes, l2_regs, convergence_tol: float = 0.001,
+                     residual_fn=least_squares_residual):
+    """B7's tenant form: M tenants' dual loops at once. ``gs`` are the
+    tenants' text G (``tenant_gram_blocks``: f32 or int32, [>= v, >= v],
+    unit column stride; None for a dry tenant), to which N·Nᵀ of the
+    tenant's rows is added; u = Z·W_prev, the labels and the validity mask
+    [M, B] f32, ``numeric`` [M, B, 4] f32, the [N, B] Bernoulli masks every
+    tenant shares (None: every valid row each iteration), p_prev [M] f32;
+    tenant m reads its first ``valid_rows[m]`` rows (rows past them must be
+    masked) with ``step_sizes[m]`` and ``l2_regs[m]``, and freezes where
+    its test converges. Returns (c [M], α [M, B] (zero past each tenant's
+    rows), iterations run [M]), float32 device tensors. On the card one
+    cooperative launch of ``dual_tenants_kernel`` for each
+    TENANTS_PER_LAUNCH tenants (``dual_tenants_plan``), counted in
+    ``dual_sgd_tenants.launches``; on the CPU the plain version."""
+    mode = residual_mode(residual_fn)
+    if mode is None:
+        raise ValueError(f"dual_sgd_tenants has no residual mode for {residual_fn!r}")
+    if mask.dim() != 2:
+        raise ValueError(f"mask must be [M, B], got {tuple(mask.shape)}")
+    m, b = mask.shape
+    _check_tenant_rows("dual_sgd_tenants", valid_rows, m, b)
+    valid = [int(v) for v in valid_rows]
+    if not len(gs) == len(step_sizes) == len(l2_regs) == m:
+        raise ValueError(f"{m} tenants need {m} G, step sizes and L2s")
+    if num_iterations < 0:
+        raise ValueError("num_iterations must be >= 0")
+    kw = dict(valid_rows=valid, masks=masks, p_prev=p_prev, num_iterations=num_iterations,
+              step_sizes=step_sizes, l2_regs=l2_regs, convergence_tol=convergence_tol)
+    dev = mask.device
+    if dev.type == "cpu":
+        return dual_sgd_tenants_reference(gs, u, labels, mask, numeric,
+                                          residual_fn=residual_fn, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"dual_sgd_tenants takes cpu or cuda tensors, got {dev}")
+    for name, t in (("u", u), ("labels", labels), ("mask", mask)):
+        _check(name, t, (m, b), torch.float32, dev)
+    _check("numeric", numeric, (m, b, 4), torch.float32, dev)
+    _check("p_prev", p_prev, (m,), torch.float32, dev)
+    if masks is not None:
+        _check("masks", masks, (num_iterations, b), torch.float32, dev)
+    _check_tenant_gs(gs, valid, dev)
+    with torch.cuda.device(dev):
+        sm_count, shared_limit = device_limits(torch.cuda.current_device())
+        res = torch.empty((2, m), dtype=torch.float32, device=dev)
+        alpha = torch.empty((m, b), dtype=torch.float32, device=dev)
+        for lo in range(0, m, TENANTS_PER_LAUNCH):
+            hi = min(m, lo + TENANTS_PER_LAUNCH)
+            plan = dual_tenants_plan(valid[lo:hi], sm_count=sm_count, shared_limit=shared_limit)
+            scratch = torch.empty((plan.scratch_floats,), dtype=torch.float32, device=dev)
+            spill = torch.empty((max(plan.spill_floats, 1),), dtype=torch.float32, device=dev)
+            gl = gs[lo:hi]
+            _raise_on(_entry("twtml_dual_sgd_tenants")(
+                u.data_ptr(), labels.data_ptr(), mask.data_ptr(), numeric.data_ptr(),
+                0 if masks is None else masks.data_ptr(), p_prev.data_ptr(), alpha.data_ptr(),
+                res[0].data_ptr(), res[1].data_ptr(), scratch.data_ptr(),
+                scratch[2 * plan.abuf_floats:].data_ptr(), spill.data_ptr(), plan.abuf_floats,
+                hi - lo, b, plan.grid, plan.bp_max, plan.rows_cap_max, plan.shared_bytes,
+                _layout_arg(plan.smem_layout), _ints(plan.first_cta), _ints(plan.valid_rows),
+                _ints(range(lo, hi)), _ints(plan.rows_cap), _ints(plan.resident),
+                _ints(plan.spill_at, ctypes.c_longlong), _ints(plan.abuf_at, ctypes.c_longlong),
+                _ints((0 if g is None else g.data_ptr() for g in gl), ctypes.c_void_p),
+                _ints((0 if g is None else g.stride(0) for g in gl), ctypes.c_longlong),
+                _ints(int(g is not None and g.dtype == torch.int32) for g in gl),
+                _ints((float(v) for v in step_sizes[lo:hi]), ctypes.c_float),
+                _ints((float(v) for v in l2_regs[lo:hi]), ctypes.c_float),
+                int(num_iterations), float(convergence_tol), mode, _stream()),
+                "dual_sgd_tenants")
+            _count(dual_sgd_tenants)
+    return res[0], alpha, res[1]
+
+
+def dual_writeback_tenants(weights, c, alpha, counts, numeric, f_text: int, *, valid_rows,
+                           tenants, at, out=None):
+    """B8's tenant form: for each tenant m of ``tenants`` (its block of the
+    tenant count build's C from row ``at[i]``), row m of ``out`` =
+    c[m]·W_prev[m] + Cᵀα over its first ``valid_rows[m]`` rows (and the
+    numeric columns' w_num·c + Nᵀα), bitwise B8 on those rows.
+    ``weights`` [M, F+4], ``c`` [M], ``alpha`` [M, B], ``numeric`` [M, B,
+    4] f32; ``out`` (default zeros like ``weights``) keeps its other rows.
+    On the card one launch of B8's ``writeback_kernel`` (a block a
+    tenant and column block) for each TENANTS_PER_LAUNCH tenants, counted
+    in ``dual_writeback_tenants.launches``; on the CPU the plain version."""
+    m, b = alpha.shape
+    _check_tenant_rows("dual_writeback_tenants", valid_rows, m, b)
+    tenants, at = tuple(int(t) for t in tenants), tuple(int(a) for a in at)
+    if not tenants or len(at) != len(tenants) or any(not 0 <= t < m for t in tenants):
+        raise ValueError(f"dual_writeback_tenants: tenants {tenants} (at {at}) of {m}")
+    dev = weights.device
+    kw = dict(valid_rows=valid_rows, tenants=tenants, at=at)
+    if dev.type == "cpu":
+        return dual_writeback_tenants_reference(weights, c, alpha, counts, numeric, f_text,
+                                                out=out, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"dual_writeback_tenants takes cpu or cuda tensors, got {dev}")
+    _check("weights", weights, (m, f_text + 4), torch.float32, dev)
+    _check("c", c, (m,), torch.float32, dev)
+    _check("alpha", alpha, (m, b), torch.float32, dev)
+    _check("numeric", numeric, (m, b, 4), torch.float32, dev)
+    rows, cols = counts.shape
+    if (counts.dtype not in COUNT_KINDS or counts.device != dev or not counts.is_contiguous()
+            or cols < f_text or cols % 16
+            or any(a + int(valid_rows[t]) > rows for t, a in zip(tenants, at))):
+        raise ValueError(f"counts must be contiguous int8 or float32 with each tenant's rows "
+                         f"(columns >= {f_text}, a multiple of 16) on {dev}, got "
+                         f"{counts.dtype} {tuple(counts.shape)}")
+    with torch.cuda.device(dev):
+        if out is None:
+            out = torch.zeros_like(weights)
+        _check("out", out, (m, f_text + 4), torch.float32, dev)
+        for lo in range(0, len(tenants), TENANTS_PER_LAUNCH):
+            part = tenants[lo:lo + TENANTS_PER_LAUNCH]
+            _raise_on(_entry("twtml_dual_writeback")(
+                counts.data_ptr(), COUNT_KINDS[counts.dtype], cols, f_text, alpha.data_ptr(),
+                c.data_ptr(), weights.data_ptr(), numeric.data_ptr(), out.data_ptr(), len(part),
+                _ints(part), _ints(at[lo:lo + TENANTS_PER_LAUNCH]),
+                _ints(int(valid_rows[t]) for t in part), _ints(t * b for t in part),
+                _stream()), "dual_writeback_tenants")
+            _count(dual_writeback_tenants)
+    return out
+
+
 # the counted wrappers of this module, in the order the route calls them
-KERNELS = (count_build, dual_sgd, dual_writeback_counts)
+KERNELS = (count_build, dual_sgd, dual_writeback_counts, count_build_tenants, dual_sgd_tenants,
+           dual_writeback_tenants)
 for _fn in KERNELS:
     _fn.launches = 0
     _fn.captured = 0

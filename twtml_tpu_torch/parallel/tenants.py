@@ -17,15 +17,17 @@ work, not a round trip.
   times. Tenant m's weights, predictions and stats are bitwise a
   standalone learner's stepped on m's rows. ``mapping="vmap"`` (the JAX
   package's ``jax.vmap``, reached only through the library, as there) runs
-  the dense regime as ONE batched step (``models/sgd.make_sgd_tenant_step``):
-  the M·B rows decode at once, the float32 kernel route is one launch of
-  B1's tenant grid (``fused_dense_sgd_tenants``: each tenant's CTAs read its
-  valid rows only, which the host counts before the copy), the other dense
-  routes one batched torch loop, and rounding, stats and quality run over
-  the leading M; its sums run in another order, so it agrees with scan
-  within float rounding, as the JAX vmap does. On the 2^18 routes (gram,
-  scatter), which have no batched form here (ROADMAP B10 c), it runs the
-  tenants' steps in turn, as scan does; the construction log says which.
+  ONE batched step (``models/sgd.make_sgd_tenant_step``): the M·B rows
+  decode at once; in the dense regime the float32 kernel route is one
+  launch of B1's tenant grid (``fused_dense_sgd_tenants``: each tenant's
+  CTAs read its valid rows only, which the host counts before the copy),
+  the other dense routes one batched torch loop; on the 2^18 routes the
+  Gram route on the card is the tenant forms of B4 and B8 (once a plane
+  present) and B7 (once) around one G product a tenant over its valid
+  rows, the scatter route one batched gather/scatter loop; rounding, stats
+  and quality run over the leading M. Its sums run in another order, so it
+  agrees with scan within float rounding, as the JAX vmap does. The
+  construction log says which form runs.
 - **the wire**: the rows route on the host by a deterministic key
   (``features/batch.tenant_route_keys``) into M batches of the batch's
   padded shape (a dry tenant gets all padding), carried as the superbatch
@@ -50,7 +52,7 @@ Over a process group (``mesh``, with its ``group``'s Collectives):
   (``fused_dense_sgd_tenants_split``), the torch-loop routes reduce every
   tenant's sums in one buffer, so a tick makes N + 1 all-reduces (N + 2
   with the quality vector) whatever M; the 2^18 routes still run the
-  tenants' data-parallel steps in turn (ROADMAP B10 c);
+  tenants' data-parallel steps in turn (ROADMAP B10 d);
 - on a ``('data', 'model')`` mesh (``ModelMesh``) the TENANTS shard over
   ``model``: rank (d, m) holds and trains tenants [m·M/n, (m+1)·M/n) (n the
   model axis) on data shard d's rows, data-parallel over ``data`` (the vmap
@@ -150,8 +152,8 @@ class TenantStackModel:
     returns the device StepOutput with [M]-leading fields: [M, B]
     predictions in each tenant's row order (``route_ids`` gives the
     original order back on the host). ``mapping`` is "scan" (M steps, each
-    bitwise a standalone learner) or "vmap" (one batched step on the dense
-    routes; module docstring)."""
+    bitwise a standalone learner) or "vmap" (one batched step; module
+    docstring)."""
 
     accepts_packed = True
 
@@ -246,21 +248,22 @@ class TenantStackModel:
                 )
             self._steps.append(built[hyper])
         self.route = self._steps[0].route
-        # the vmap form's one batched step over this rank's tenants: the
-        # dense regime's routes
+        # the vmap form's one batched step over this rank's tenants: every
+        # route on one process, the dense regime's over a data axis
         self._batched = None
-        if mapping == "vmap" and not self._steps[0].sparse:
+        if mapping == "vmap" and not (self._steps[0].sparse and data_group is not None):
             self._batched = make_sgd_tenant_step(
                 num_tenants=self.num_local, step_sizes=self.step_sizes[mine],
                 l2_regs=self.l2_regs[mine], num_text_features=num_text_features,
                 num_iterations=num_iterations, mini_batch_fraction=mini_batch_fraction,
                 convergence_tol=convergence_tol, residual_fn=residual_fn,
                 prediction_fn=prediction_fn, round_predictions=round_predictions,
-                quality=quality, dtype=dtype, group=data_group)
+                quality=quality, dtype=dtype, use_sparse=use_sparse, use_gram=use_gram,
+                gram_int8=gram_int8, group=data_group)
         form = ("scan: a step a tenant" if mapping == "scan" else
                 "vmap: one batched step" if self._batched is not None else
-                f"vmap: the {self.route} route has no batched form (ROADMAP B10 c), so the "
-                "tenants' steps run in turn")
+                f"vmap: the {self.route} route has no batched form over a data axis (ROADMAP "
+                "B10 d), so the tenants' steps run in turn")
         log.info("tenant plane: %d tenants (%d on this rank), key %s, %s wire, %s step route "
                  "on %s, mapping %s", num_tenants, self.num_local, tenant_key, wire_pack,
                  self.route, self.device, form)
@@ -371,7 +374,8 @@ class TenantStackModel:
         if isinstance(dev, PackedBatch):
             dev = unpack_batch(dev.buffer, dev.layout)
         if self._batched is not None:
-            self._weights, out = self._batched(self._weights, dev, valid)
+            self._weights, out = self._batched(self._weights, dev, valid,
+                                               planes if planes else None)
             return out
         rows, outs = [], []
         for m, train_step in enumerate(self._steps):
