@@ -374,7 +374,8 @@ B4, B7 and B8 with the 2^18 vmap arm's launches); the last line is ``{"ok": true
 and 2 and then only the kernels' device times (B1's logistic mode, its
 predict kernel, B4 in both planes, the G product, B7 at B = 2048, 3072
 and 4096 and, where the tree has it, B7's tenant form at one tenant on
-B7's 2048 rows, B8), importing the port from DIR (another checkout unpacked
+B7's 2048 rows with its probe's phase split where the tree has the timing
+instantiation, B8), importing the port from DIR (another checkout unpacked
 there), so that two versions can be timed in turns in one call; its last
 line is that JSON.
 
@@ -393,9 +394,11 @@ its last line is the arm's JSON.
 
 ``python3 chip_smoke.py --tenants-sparse-only`` runs phases 1 and 2 and
 then only the 2^18 vmap arm (``tenants_sparse_arm``: the tenant forms of
-B4, B7 and B8 against their plain versions, the vmap form against scan at
-config #4 on short tweets, mixed planes and the scatter route, the
-kernels' times); its last line is the arm's JSON.
+B4, B7 and B8 against their plain versions, B7's with the grid barriers
+each launch crossed against the schedule's count, the vmap form against
+scan at config #4 on short tweets, mixed planes and the scatter route, the
+kernels' times, B7's tenant form's probe split); its last line is the
+arm's JSON.
 
 ``python3 chip_smoke.py --tenants-mesh-only`` runs phases 1 and 2 and then
 only the modelaxis phase's vmap arm on 5 x 16384 synthetic tweets, with
@@ -422,6 +425,16 @@ the host's enqueue and, where a tree has the timing instantiation, the
 phase split at 4 tenants and at one tenant of every row, DIR's port
 against this checkout's, each in a process of its own (``tsplit_ab``);
 its last line is their JSON.
+
+``python3 chip_smoke.py --dual-ab N --package-root DIR`` runs phases 1 and
+2 (on DIR's port) and then only N alternating pairs of B7's tenant form at
+config #4's 4 parts (tolerance 0.001 and 0) and at one tenant on B7's
+2048 rows, with B7 (``dual_sgd``) at B = 2048, 3072 and 4096 in the same
+processes, DIR's port against this checkout's, each in a process of its
+own, with each tree's probe split where it has the timing instantiation
+and whether B7's results at each B, in both residual modes and under
+``-b 0.5``, are bitwise equal across the trees (``dual_ab``); its last
+line is their JSON.
 
 ``python3 chip_smoke.py --split-ab N --package-root DIR`` runs phases 1 and
 2 (on DIR's port) and then only N alternating pairs of one split
@@ -959,7 +972,7 @@ def gram_kernel_phase():
                 raise AssertionError(f"dual_sgd {name}: NaN/Inf in masked rows reached "
                                      "the result")
             note += f"; NaN/Inf in {int((~keep).sum())} masked rows: bitwise equal"
-        plan = fused_gram.dual_plan(mask.shape[0], **sm_limits())
+        plan = fused_gram.dual_tenants_plan((mask.shape[0],), **sm_limits())
         where = ("G in registers" if plan.in_registers
                  else f"{plan.resident_rows} rows of G resident, {plan.spill_rows} spilled")
         phase("kernel", f"dual_sgd {name}: B={mask.shape[0]} grid {plan.grid}, {where}; "
@@ -1048,22 +1061,22 @@ def gram_kernel_phase():
         kw = dict(num_iterations=OP_ITERS, step_size=0.005, l2_reg=0.1, convergence_tol=0.001,
                   p_prev=torch.tensor(3.0, device=dev))
         c, a, its = dual_case(name, g, u, y, m, dirty=True)
-        plan = fused_gram.dual_plan(rows, **sm_limits())
+        plan = fused_gram.dual_tenants_plan((rows,), **sm_limits())
+        scratch_floats = plan.scratch_floats + 3  # then c, the iterations and the barriers
         # NaN in free blocks of the scratch's size, each kept from merging
         # with the next by a live one, so that the launch's scratch is one
-        held = [torch.full((plan.scratch_floats,), float("nan"), device=dev)
-                for _ in range(64)]
+        held = [torch.full((scratch_floats,), float("nan"), device=dev) for _ in range(64)]
         nan_ptrs = {t.data_ptr() for t in held[::2]}
         del held[::2]
         c_n, a_n, its_n = fused_gram.dual_sgd(g, u, y, m, **kw)
-        base = fused_gram.dual_sgd.last_barriers.data_ptr() - 4 * (plan.scratch_floats - 1)
+        base = fused_gram.dual_sgd.last_barriers.data_ptr() - 4 * (scratch_floats - 1)
         del held
         torch.cuda.synchronize()
         if base not in nan_ptrs:
             raise AssertionError(f"dual_sgd {name}: its scratch is not a NaN-filled block")
         if not (torch.equal(a, a_n) and torch.equal(c, c_n) and int(its) == int(its_n)):
             raise AssertionError(f"dual_sgd {name}: NaN left in its scratch reached the result")
-        phase("kernel", f"dual_sgd {name} on NaN-filled scratch: {plan.bp - rows} padding "
+        phase("kernel", f"dual_sgd {name} on NaN-filled scratch: {plan.bp_max - rows} padding "
               f"float(s) of alpha; bitwise equal to the launch on other scratch")
         cases.append(f"dual_sgd {name} on NaN-filled scratch")
 
@@ -3428,6 +3441,37 @@ def f32_build_times(smi):
             "rerun_bitwise": True}
 
 
+def b7_plan(rows):
+    """B7's launch plan at B = ``rows`` in the tree imported: its tenant
+    table's plan of one tenant, or (a tree before B7 ran over it) its own
+    ``dual_plan``. Returns (grid, shared bytes a CTA, G in registers, rows of G
+    resident, rows spilled)."""
+    from twtml_tpu_torch.ops import fused_gram
+
+    if hasattr(fused_gram, "dual_plan"):
+        plan = fused_gram.dual_plan(rows, **sm_limits())
+    else:
+        plan = fused_gram.dual_tenants_plan((rows,), **sm_limits())
+    return (plan.grid, plan.shared_bytes, plan.in_registers, plan.resident_rows,
+            plan.spill_rows)
+
+
+def gram_tweet_batch(rows):
+    """``rows`` synthetic tweets (seed 11) featurized onto the card at
+    F = 2^18: the batch, its plane and its device-hashed bigrams."""
+    from twtml_tpu_torch.features.featurizer import Featurizer
+    from twtml_tpu_torch.models.sgd import batch_to_device, host_planes
+    from twtml_tpu_torch.ops.text_hash import hash_bigrams_device
+    from twtml_tpu_torch.streaming.sources import SyntheticSource
+
+    tweets = list(SyntheticSource(total=rows, seed=11, base_ms=NOW_MS).produce())
+    host = Featurizer(now_ms=NOW_MS, num_text_features=GRAM_F).featurize_batch_units(
+        tweets, row_bucket=rows)
+    (plane,) = host_planes(host)
+    dev = batch_to_device(host, "cuda", non_blocking=False)
+    return (dev, plane) + hash_bigrams_device(dev.units, dev.length, GRAM_F)
+
+
 def gram_times(smi, errs, launches, structure=True):
     """B4, the G product, B7 and B8 at config #4's operating point (B = 2048
     synthetic tweets at F = 2^18, device-hashed, the int8 plane), and B7 at
@@ -3435,30 +3479,18 @@ def gram_times(smi, errs, launches, structure=True):
     twin, its bound, the library call where one exists; the kernels line's
     records. With ``structure`` also B7's grid barriers at each tolerance,
     one barrier crossing alone and where G lives; without it only what
-    every tree's ``dual_sgd`` and ``dual_plan`` expose (``--times-only``
-    against another checkout). Where the tree has B7's tenant form, it
-    is timed at one tenant on B7's rows beside B7."""
+    every tree's ``dual_sgd`` exposes (``--times-only`` against another
+    checkout; its plan by ``b7_plan``). Where the tree has B7's tenant form,
+    it is timed at one tenant on B7's rows beside B7, with the probe's phase
+    split where the tree has its timing instantiation."""
     import numpy as np
     import torch
 
-    from twtml_tpu_torch.features.featurizer import Featurizer
-    from twtml_tpu_torch.models.sgd import batch_to_device, host_planes
     from twtml_tpu_torch.ops import fused_gram
     from twtml_tpu_torch.ops.gram import PLANE_INT8, PLANE_NAMES
     from twtml_tpu_torch.ops.sparse import sparse_predict
-    from twtml_tpu_torch.ops.text_hash import hash_bigrams_device
-    from twtml_tpu_torch.streaming.sources import SyntheticSource
 
-    def tweet_batch(rows):
-        """``rows`` synthetic tweets featurized onto the card: the batch, its
-        plane and its device-hashed bigrams."""
-        tweets = list(SyntheticSource(total=rows, seed=11, base_ms=NOW_MS).produce())
-        host = Featurizer(now_ms=NOW_MS, num_text_features=GRAM_F).featurize_batch_units(
-            tweets, row_bucket=rows)
-        (plane,) = host_planes(host)
-        dev = batch_to_device(host, "cuda", non_blocking=False)
-        return (dev, plane) + hash_bigrams_device(dev.units, dev.length, GRAM_F)
-
+    tweet_batch = gram_tweet_batch
     dev, plane, idx, val = tweet_batch(GRAM_ROWS)
     b, l = idx.shape
     f = GRAM_F
@@ -3539,7 +3571,7 @@ def gram_times(smi, errs, launches, structure=True):
     b7 = {tol: b7_time(g, raw, y, m, tol) for tol in (0.001, 0.0)}
     b7_twin, _ = timed(lambda: fused_gram.dual_sgd_reference(
         g, raw, y, m, p_prev=p_prev, convergence_tol=0.001, **kw), 5)
-    plan = fused_gram.dual_plan(b, **sm_limits())
+    grid, shared_bytes, regs, _, _ = b7_plan(b)
     its = b7[0.001]["iterations"]
     # each iteration needs one product, G·α_new (2·B² flops: G·Δα is its
     # difference with the last one), and ~12·B elementwise (residual, α
@@ -3550,17 +3582,16 @@ def gram_times(smi, errs, launches, structure=True):
     spread = "; ".join(f"tol {tol}: {b7_line(r)}" for tol, r in b7.items())
     if structure:
         # one barrier crossing alone: the probe on B7's grid, 1000 crossings less none
-        fused_gram.dual_barrier_probe(plan.grid, 1000)
-        none_ms, _ = timed(lambda: fused_gram.dual_barrier_probe(plan.grid, 0), 25,
+        fused_gram.dual_barrier_probe(grid, 1000)
+        none_ms, _ = timed(lambda: fused_gram.dual_barrier_probe(grid, 0), 25,
                            queue_ahead=True)
-        many_ms, _ = timed(lambda: fused_gram.dual_barrier_probe(plan.grid, 1000), 25,
+        many_ms, _ = timed(lambda: fused_gram.dual_barrier_probe(grid, 1000), 25,
                            queue_ahead=True)
         barrier_us = (many_ms - none_ms) / 1000 * 1e3
-        where = ("G in registers" if plan.in_registers
-                 else f"{plan.resident_rows} rows of G resident")
+        where = "G in registers" if regs else f"{b7_plan(b)[3]} rows of G resident"
         spread += (f"; one grid barrier crossing alone {barrier_us:.3f} us (1000 crossings "
-                   f"on {plan.grid} CTAs); {where}")
-    phase("times", f"B7 dual loop at B={b}: grid {plan.grid}, {plan.shared_bytes} B shared a "
+                   f"on {grid} CTAs); {where}")
+    phase("times", f"B7 dual loop at B={b}: grid {grid}, {shared_bytes} B shared a "
           f"CTA; {spread}; twin {b7_twin:.4f} ms; bound bytes {b7_bytes} B = "
           f"{b7_bound[0]:.5f} ms, operations {b7_ops} f32 / 67e12 = {b7_bound[1]:.5f} ms")
     # B7 where G's rows do not all fit on chip: B = 3072 and 4096 tweets
@@ -3572,16 +3603,15 @@ def gram_times(smi, errs, launches, structure=True):
             fused_gram.count_build(idx_s, val_s, f, int8=plane_s == PLANE_INT8))
         g_s[:rows, :rows] += dev_s.numeric @ dev_s.numeric.T
         raw_s = sparse_predict(w[:f], w[f:], idx_s, val_s, dev_s.numeric)
-        plan_s = fused_gram.dual_plan(rows, **sm_limits())
+        grid_s, _, _, resident_s, spill_s = b7_plan(rows)
         spilled[rows] = dict(b7_time(g_s, raw_s, dev_s.label, dev_s.mask, 0.001),
-                             grid=plan_s.grid, resident_rows=plan_s.resident_rows,
-                             spill_rows=plan_s.spill_rows)
-        phase("times", f"B7 dual loop at B={rows} (G spilled): grid {plan_s.grid}, "
-              f"{plan_s.resident_rows} rows of G resident, {plan_s.spill_rows} spilled; tol "
+                             grid=grid_s, resident_rows=resident_s, spill_rows=spill_s)
+        phase("times", f"B7 dual loop at B={rows} (G spilled): grid {grid_s}, "
+              f"{resident_s} rows of G resident, {spill_s} spilled; tol "
               f"0.001: {b7_line(spilled[rows])}")
         del dev_s, idx_s, val_s, g_s, raw_s
     b7_extra = {"kernel": "B7", "iterations_run": its, "all_iterations_ms": b7[0.0]["ms"],
-                "grid": plan.grid, "shared_bytes": plan.shared_bytes,
+                "grid": grid, "shared_bytes": shared_bytes,
                 "tolerances": {str(tol): r for tol, r in b7.items()},
                 "spilled": {str(rows): r for rows, r in spilled.items()}}
     if hasattr(fused_gram, "dual_sgd_tenants"):
@@ -3596,21 +3626,24 @@ def gram_times(smi, errs, launches, structure=True):
             convergence_tol=0.001)
         c1, a1, i1 = one()
         one_ms, one_runs, one_host_us = split_queued(one, 5)
+        one_probe = dual_probe([g_text], raw[None], y[None], m[None], num[None], valid_rows=[b],
+                               p_prev=p_prev[None], num_iterations=OP_ITERS, step_sizes=[0.005],
+                               l2_regs=[0.1], convergence_tol=0.001)
         one_rec = {
             "ms": one_ms, "queued_runs_ms": one_runs, "host_enqueue_us": one_host_us,
             "iterations": int(i1[0]), "b7_ms": b7[0.001]["ms"],
             "max_abs_diff_alpha": float((a1[0] - a7).abs().max()),
-            "c_diff": float((c1[0] - c7).abs())}
+            "c_diff": float((c1[0] - c7).abs()), "probe": one_probe}
         b7_extra["tenant_form_one_tenant"] = one_rec
         phase("times", f"B7's tenant form at one tenant on the same B={b} rows, tol 0.001: "
               f"{one_ms:.4f} ms back to back (median of 5 runs of 50: {min(one_runs):.4f}-"
               f"{max(one_runs):.4f}; host enqueue {one_host_us:.1f} us a call), "
               f"{one_rec['iterations']} iterations, against B7's {one_rec['b7_ms']:.4f} ms; "
-              f"max |Δα| {one_rec['max_abs_diff_alpha']:.3g}, |Δc| {one_rec['c_diff']:.3g} | "
-              f"card: {smi}")
+              f"max |Δα| {one_rec['max_abs_diff_alpha']:.3g}, |Δc| {one_rec['c_diff']:.3g}; "
+              f"its probe split {dual_probe_text(one_probe)} | card: {smi}")
         del g_text
     if structure:
-        b7_extra.update(g_in_registers=plan.in_registers, barrier_crossing_us=barrier_us)
+        b7_extra.update(g_in_registers=regs, barrier_crossing_us=barrier_us)
     # B8
     c, alpha, _ = fused_gram.dual_sgd(g, raw, y, m, p_prev=p_prev, convergence_tol=0.001, **kw)
     b8_one, _ = timed(lambda: fused_gram.dual_writeback_counts(w, c, alpha, counts, num, f),
@@ -5421,7 +5454,7 @@ def grid_ab_times(runs=5):
     return out
 
 
-# one arm of an A/B mode (``--grid-ab``, ``--split-ab``, ``--tsplit-ab``):
+# one arm of an A/B mode (``--grid-ab``, ``--split-ab``, ``--tsplit-ab``, ``--dual-ab``):
 # the port found in argv[1], this chip_smoke (argv[2]) for its inputs and
 # timing, its function argv[3]; the result as the last line
 AB_RUN = r"""
@@ -5767,6 +5800,29 @@ def sv_inputs(rng, valid, rows, peak=0, fractional=False):
     return tuple(torch.from_numpy(a).cuda() for a in (idx, val, num, mask, u, y))
 
 
+def tenant_barriers(valid, its, mask, masks, tol):
+    """The grid barriers each launch of B7's tenant form crosses by the
+    schedule's model (``fused_gram.dual_tenants_barriers``), from the
+    iterations each tenant ran; None where a launch's one tenant has
+    iterations whose draws select none of its rows (not counted)."""
+    from twtml_tpu_torch.ops import fused_gram
+
+    out = []
+    for lo in range(0, len(valid), fused_gram.TENANTS_PER_LAUNCH):
+        part = list(valid[lo:lo + fused_gram.TENANTS_PER_LAUNCH])
+        live = [lo + t for t, v in enumerate(part) if v]
+        selects = "all"
+        if len(live) == 1:
+            rows = mask[live[0], :valid[live[0]]]
+            counts = (rows[None] if masks is None else rows * masks[:, :valid[live[0]]]).sum(1)
+            selects = ("all" if bool((counts > 0).all()) else "some" if bool(counts.any())
+                       else "none")
+        out.append(fused_gram.dual_tenants_barriers(
+            part, its[lo:lo + len(part)], num_iterations=OP_ITERS, convergence_tol=tol,
+            selects=selects))
+    return out
+
+
 def sv_check_case(name, valid, rows, opts, errs, rng):
     """One hold of the three tenant forms on ``valid``'s parts: B4's tenant
     form bitwise its plain version and each tenant's block bitwise B4 on
@@ -5817,6 +5873,7 @@ def sv_check_case(name, valid, rows, opts, errs, rng):
     args = (gs, u, labels, mask, num)
     c, alpha, its = fused_gram.dual_sgd_tenants(*args, valid_rows=valid, masks=masks,
                                                 p_prev=p_prev, **kw)
+    barriers = fused_gram.dual_sgd_tenants.last_barriers
     c2, alpha2, its2 = fused_gram.dual_sgd_tenants(*args, valid_rows=valid, masks=masks,
                                                    p_prev=p_prev, **kw)
     keep = mask > 0
@@ -5834,6 +5891,12 @@ def sv_check_case(name, valid, rows, opts, errs, rng):
     if not torch.equal(its, its_r.to(its.dtype)):
         raise AssertionError(f"dual_sgd_tenants {name}: iterations run {its.tolist()}, the "
                              f"plain version {its_r.tolist()}")
+    crossed = [int(x) for x in barriers]
+    want = tenant_barriers(valid, [int(i) for i in its.tolist()], mask, masks,
+                           kw["convergence_tol"])
+    if any(w is not None and w != x for w, x in zip(want, crossed)) or len(want) != len(crossed):
+        raise AssertionError(f"dual_sgd_tenants {name}: {crossed} grid barriers crossed by its "
+                             f"launches, the schedule's model {want}")
     early = [t for t in opts.get("near", ()) if not int(its[t]) < OP_ITERS]
     if early or any(int(its[t]) != OP_ITERS for t in range(m)
                     if valid[t] and t not in opts.get("near", ()) and opts.get("near")):
@@ -5857,9 +5920,9 @@ def sv_check_case(name, valid, rows, opts, errs, rng):
                                  f"{int(i1)}")
         e1, _ = compare(f"dual_sgd_tenants {name} against B7", alpha[0, :v], a1)
         same = torch.equal(alpha[0, :v], a1) and torch.equal(c[0], c1)
-        single_note = (f"; against B7 on the same rows (B7's CTAs and product order; G's "
-                       f"N·Nᵀ added in the prologue, the test's partials summed in CTA order): "
-                       f"{'bitwise equal' if same else f'max abs err {e1:.3e}'}")
+        single_note = (f"; against B7 on the same rows (the same kernel over a table of "
+                       f"one, G holding N·Nᵀ from the library product; here N·Nᵀ added in "
+                       f"the prologue): {'bitwise equal' if same else f'max abs err {e1:.3e}'}")
     w = (torch.randn(m, GRAM_F + 4, device=idx.device) * 1e-2).contiguous()
     tenants = tuple(range(m))
     wb = fused_gram.dual_writeback_tenants(w, c, alpha, counts, num, GRAM_F, valid_rows=valid,
@@ -5892,7 +5955,8 @@ def sv_check_case(name, valid, rows, opts, errs, rng):
     return (f"{name}: valid rows {list(valid)} of {rows}, {'int8' if int8 else 'f32'} counts "
             f"{tuple(counts.shape)}; B4's tenant form bitwise its plain version and B4 on each "
             f"tenant's rows; B7's iterations run {[int(i) for i in its.tolist()]} (the plain "
-            f"version's), max abs err alpha {ea:.3e} c {ec:.3e}{single_note}, NaN/Inf in "
+            f"version's), grid barriers {crossed} (the schedule's), max abs err alpha "
+            f"{ea:.3e} c {ec:.3e}{single_note}, NaN/Inf in "
             f"masked rows bitwise ignored; B8's within {err.max().item():.3e} of its plain "
             "version, each row bitwise B8 on the same rows; reruns bitwise")
 
@@ -6088,21 +6152,61 @@ def sv_tick_arm(kind, smi, timing=False):
     return out
 
 
-def sv_times(smi, errs, launches):
-    """The tenant forms at the short ticks' shapes (the first tick's SV_M
-    parts of GRAM_ROWS rows, ~512 valid each, the int8 plane): each kernel
-    alone, 50 calls back to back behind ``split_queued``'s sleep (the
-    median of SV_TIME_RUNS), its plain version's time, its bound and the
-    library call where one computes the same work (B4: ``torch.bincount``
-    over tenant-offset keys; B8: ``torch.bmm`` on f32 counts of the parts
-    padded alike; B7: none); beside each, the in-turn kernel's M launches
-    on the padded parts (the scan form's). Returns the kernels line's
-    records."""
+DUAL_PROBE_RUNS = 5  # probe launches a reading of B7's tenant form's phase split
+
+
+def dual_probe(gs, u, labels, mask, numeric, runs=DUAL_PROBE_RUNS, **kw):
+    """B7's tenant form's phase split (``fused_gram.dual_tenants_probe``,
+    the timing instantiation; ``runs`` launches after a warm-up): each
+    phase's median over the launches of ``dual_tenants_probe_split``, the µs
+    an iteration, the iterations stamped and the probe launch's device ms
+    (CUDA events). None where the tree has no probe."""
+    import torch
+
+    from twtml_tpu_torch.ops import fused_gram
+
+    if not hasattr(fused_gram, "dual_tenants_probe"):
+        return None
+    splits = []
+    for _ in range(runs + 1):  # the first a warm-up
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        stamps = fused_gram.dual_tenants_probe(gs, u, labels, mask, numeric, **kw)[3]
+        end.record()
+        end.synchronize()
+        splits.append((fused_gram.dual_tenants_probe_split(stamps), start.elapsed_time(end)))
+    splits = splits[1:]
+    med = statistics.median
+    phases = {k: med([s[0]["iteration_us"].get(k, 0.0) for s in splits])
+              for k in fused_gram.DUAL_PROBE_PHASES}
+    return {"iteration_us": phases, "us_an_iteration": sum(phases.values()),
+            "prologue_us": med([s[0]["prologue_us"] or 0.0 for s in splits]),
+            "iterations_stamped": splits[0][0]["iterations"],
+            "span_us": med([s[0]["span_us"] or 0.0 for s in splits]),
+            "probe_launch_ms": med([s[1] for s in splits])}
+
+
+def dual_probe_text(split):
+    if split is None:
+        return "no probe in this tree"
+    return (f"an iteration {split['us_an_iteration']:.3f} µs: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in split["iteration_us"].items())
+            + f"; prologue {split['prologue_us']:.2f} µs ({split['iterations_stamped']} "
+            f"iterations stamped, the first left out; span {split['span_us']:.1f} µs, the probe "
+            f"launch {split['probe_launch_ms']:.4f} ms with its event pair)")
+
+
+def sv_time_inputs():
+    """The tenant forms' timed inputs: the 2^18 vmap arm's first short tick
+    routed to SV_M parts of GRAM_ROWS rows (~512 valid each, the int8
+    plane) on the card, decoded, W_prev random (seed 5), u = Z·W_prev,
+    p_prev and the dual loop's keywords (50 iterations, tolerance 0.001)."""
+    import types
+
     import numpy as np
     import torch
 
     from twtml_tpu_torch.models.sgd import batch_to_device, decode_batch, flatten_tenants
-    from twtml_tpu_torch.ops import fused_gram
     from twtml_tpu_torch.ops.gram import PLANE_INT8
     from twtml_tpu_torch.ops.sparse import sparse_predict
 
@@ -6118,13 +6222,33 @@ def sv_times(smi, errs, launches):
     b = mask.shape[0] // m
     idx, val, num = idx.view(m, b, -1), val.view(m, b, -1), num.view(m, b, -1)
     y, mask = y.view(m, b), mask.view(m, b)
-    l = idx.shape[2]
     w = torch.from_numpy((np.random.default_rng(5).normal(size=(m, f + 4)) * 1e-3)
                          .astype(np.float32)).cuda()
     raw = sparse_predict(w[:, :f], w[:, f:], idx, val, num)
-    p_prev = torch.sum(w * w, dim=1)
     kw = dict(num_iterations=OP_ITERS, step_sizes=[0.005] * m, l2_regs=[0.1] * m,
               convergence_tol=0.001)
+    return types.SimpleNamespace(valid=valid, idx=idx, val=val, num=num, y=y, mask=mask, w=w,
+                                 raw=raw, p_prev=torch.sum(w * w, dim=1), kw=kw, rows=b)
+
+
+def sv_times(smi, errs, launches):
+    """The tenant forms at the short ticks' shapes (the first tick's SV_M
+    parts of GRAM_ROWS rows, ~512 valid each, the int8 plane): each kernel
+    alone, 50 calls back to back behind ``split_queued``'s sleep (the
+    median of SV_TIME_RUNS), its plain version's time, its bound and the
+    library call where one computes the same work (B4: ``torch.bincount``
+    over tenant-offset keys; B8: ``torch.bmm`` on f32 counts of the parts
+    padded alike; B7: none); beside each, the in-turn kernel's M launches
+    on the padded parts (the scan form's). Returns the kernels line's
+    records."""
+    import torch
+
+    from twtml_tpu_torch.ops import fused_gram
+
+    x = sv_time_inputs()
+    valid, idx, val, num, y, mask = x.valid, x.idx, x.val, x.num, x.y, x.mask
+    w, raw, p_prev, kw = x.w, x.raw, x.p_prev, x.kw
+    m, f, b, l = SV_M, GRAM_F, x.rows, idx.shape[2]
     tv = sum(valid)
 
     def queued(fn):
@@ -6173,6 +6297,7 @@ def sv_times(smi, errs, launches):
         gs, raw, y, mask, num, valid_rows=valid, p_prev=p_prev, **dict(kw, convergence_tol=0.0)))
     b7_plain, _ = timed(lambda: fused_gram.dual_sgd_tenants_reference(
         gs, raw, y, mask, num, valid_rows=valid, p_prev=p_prev, **kw), 3)
+    b7_probe = dual_probe(gs, raw, y, mask, num, valid_rows=valid, p_prev=p_prev, **kw)
     b7_ops = sum(i * (2 * v * v + 12 * v) for i, v in zip(its, valid))
     b7_bytes = sum(v * v * 4 + 9 * v * 4 for v in valid)
     g_pad = []
@@ -6220,7 +6345,8 @@ def sv_times(smi, errs, launches):
           f"all {rows} rows {one_product['ms']:.4f}); B7's tenant form "
           f"{b7['ms']:.4f} ms ({its} iterations; tol 0 {b7_tol0['ms']:.4f}; in turn on the "
           f"padded parts {b7_turn['ms']:.4f}), plain {b7_plain:.4f}, bound {b7_ops} f32 "
-          f"operations = {b7_ops / F32_FLOPS_PER_S * 1e3:.5f} ms; B8's tenant form "
+          f"operations = {b7_ops / F32_FLOPS_PER_S * 1e3:.5f} ms, its probe split "
+          f"{dual_probe_text(b7_probe)}; B8's tenant form "
           f"{b8['ms']:.4f} ms (in turn {b8_turn['ms']:.4f}), plain {b8_plain:.4f}, torch.bmm "
           f"on f32 counts {b8_lib:.4f}, bound {b8_bytes} B = "
           f"{b8_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms | card: {smi}")
@@ -6237,7 +6363,7 @@ def sv_times(smi, errs, launches):
                "(twtml_tpu/parallel/tenants.py:329)", b7, b7_plain,
                (b7_bytes / HBM_BYTES_PER_S * 1e3, b7_ops / F32_FLOPS_PER_S * 1e3), None, dict(
                    card, kernel="B7 tenant form", iterations_run=its, tol0_ms=b7_tol0["ms"],
-                   in_turn_ms=b7_turn["ms"])),
+                   in_turn_ms=b7_turn["ms"], probe=b7_probe)),
         record("dual_writeback_tenants", "twtml_tpu/ops/gram.py:269 (dual_writeback) under "
                "jax.vmap (twtml_tpu/parallel/tenants.py:329)", b8, b8_plain,
                (b8_bytes / HBM_BYTES_PER_S * 1e3, b8_ops / F32_FLOPS_PER_S * 1e3), b8_lib, dict(
@@ -6268,6 +6394,157 @@ def tenants_sparse_arm(smi):
     summary["wall_s"] = time.perf_counter() - t0
     phase("tenants-sparse", f"the 2^18 vmap arm wall {summary['wall_s']:.1f} s")
     return summary, records
+
+
+DUAL_AB_ROWS = (2048, 3072, 4096)  # B7's batches in ``--dual-ab``: G in registers, then spilled
+
+
+def dual_ab_times(runs=SV_TIME_RUNS):
+    """B7's tenant form at config #4's 4 parts (``sv_time_inputs``: tolerance
+    0.001 and 0) and at one tenant on B7's 2048 rows, with B7 itself
+    (``dual_sgd``) at B = 2048 (tolerance 0.001 and 0), 3072 and 4096 in the
+    same process, and B7 at no iteration (its prologue alone) at 2048 and
+    4096, on the port this process imports: device ms (50 calls back to
+    back behind ``split_queued``'s sleep, the median of ``runs``; in turns,
+    forwards then backwards), the form's probe split where the port has it
+    (B7's own launch too, where B7 is the form), and digests of B7's results (α, c and iterations) at each B in
+    both residual modes, with and without ``-b 0.5`` draws, and at tolerance
+    0, for a bitwise comparison across ports."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from twtml_tpu_torch.models.sgd import sampling_masks
+    from twtml_tpu_torch.ops import fused_gram
+    from twtml_tpu_torch.ops.fused_sgd import logistic_residual
+    from twtml_tpu_torch.ops.gram import PLANE_INT8
+    from twtml_tpu_torch.ops.sparse import sparse_predict
+
+    x = sv_time_inputs()
+    counts, at = fused_gram.count_build_tenants(x.idx, x.val, GRAM_F, valid_rows=x.valid,
+                                                int8=True)
+    gs = fused_gram.tenant_gram_blocks(counts, at, x.valid)
+    form = (gs, x.raw, x.y, x.mask, x.num)
+    w = torch.from_numpy((np.random.default_rng(5).normal(size=GRAM_F + 4) * 1e-3)
+                         .astype(np.float32)).cuda()
+    p_prev = torch.sum(w * w)
+    kw = dict(num_iterations=OP_ITERS, step_size=0.005, l2_reg=0.1)
+    batches = {}
+    for rows in DUAL_AB_ROWS:
+        dev, plane, idx, val = gram_tweet_batch(rows)
+        counts_b = fused_gram.count_build(idx, val, GRAM_F, int8=plane == PLANE_INT8)
+        g_text = fused_gram.gram_from_counts(counts_b)
+        g = g_text.clone()
+        g[:rows, :rows] += dev.numeric @ dev.numeric.T
+        raw = sparse_predict(w[:GRAM_F], w[GRAM_F:], idx, val, dev.numeric)
+        batches[rows] = (g, raw, dev.label, dev.mask, dev.numeric, g_text)
+        del counts_b
+    g2, raw2, y2, m2, num2, g_text2 = batches[2048]
+    calls = [
+        ("form_config4", lambda: fused_gram.dual_sgd_tenants(*form, valid_rows=x.valid,
+                                                             p_prev=x.p_prev, **x.kw)),
+        ("form_config4_tol0", lambda: fused_gram.dual_sgd_tenants(
+            *form, valid_rows=x.valid, p_prev=x.p_prev, **dict(x.kw, convergence_tol=0.0))),
+        ("form_one_tenant", lambda: fused_gram.dual_sgd_tenants(
+            [g_text2], raw2[None], y2[None], m2[None], num2[None], valid_rows=[2048],
+            p_prev=p_prev[None], num_iterations=OP_ITERS, step_sizes=[0.005],
+            l2_regs=[0.1], convergence_tol=0.001)),
+        ("b7_2048_tol0", lambda: fused_gram.dual_sgd(g2, raw2, y2, m2, p_prev=p_prev,
+                                                     convergence_tol=0.0, **kw)),
+    ] + [(f"b7_{rows}", (lambda r: lambda: fused_gram.dual_sgd(
+        *batches[r][:4], p_prev=p_prev, convergence_tol=0.001, **kw))(rows))
+        for rows in DUAL_AB_ROWS] + [
+        # no iteration: the prologue (G staged, the outputs written) alone
+        (f"b7_{rows}_n0", (lambda r: lambda: fused_gram.dual_sgd(
+            *batches[r][:4], p_prev=p_prev, convergence_tol=0.001,
+            **dict(kw, num_iterations=0)))(rows)) for rows in (2048, 4096)]
+    runs_ms = {name: [] for name, _ in calls}
+    for name, fn in calls:
+        fn()  # a warm-up
+    for name, fn in (*calls, *calls[::-1]):
+        runs_ms[name] += split_queued(fn, runs)[1]
+    out = {f"{k}_ms": statistics.median(v) for k, v in runs_ms.items()}
+    out["runs_ms"] = runs_ms
+    digests, iterations = {}, {}
+    for rows, (g, raw, y, m, _, _) in batches.items():
+        two = (y > y[m > 0].mean()).float()
+        masks = sampling_masks(rows, OP_ITERS, 0.5, torch.float32, "cuda")
+        for key, args, extra in (
+                ("least squares", (g, raw, y, m), {}),
+                ("logistic", (g, raw, two, m), dict(step_size=0.1,
+                                                     residual_fn=logistic_residual)),
+                ("least squares -b 0.5", (g, raw, y, m), dict(masks=masks)),
+                ("logistic -b 0.5", (g, raw, two, m), dict(masks=masks, step_size=0.1,
+                                                            residual_fn=logistic_residual)),
+                ("least squares tol 0", (g, raw, y, m), dict(convergence_tol=0.0))):
+            c, a, its = fused_gram.dual_sgd(*args, p_prev=p_prev,
+                                            **dict(dict(kw, convergence_tol=0.001), **extra))
+            torch.cuda.synchronize()
+            blob = a.cpu().numpy().tobytes() + c.cpu().numpy().tobytes() + its.cpu().numpy(
+            ).tobytes()
+            digests[f"{rows} {key}"] = hashlib.sha256(blob).hexdigest()[:16]
+            iterations[f"{rows} {key}"] = int(its)
+    out.update(digests=digests, iterations=iterations)
+    out["probe_config4"] = dual_probe(*form, valid_rows=x.valid, p_prev=x.p_prev, **x.kw)
+    out["probe_one_tenant"] = dual_probe(
+        [g_text2], raw2[None], y2[None], m2[None], num2[None], valid_rows=[2048],
+        p_prev=p_prev[None], num_iterations=OP_ITERS, step_sizes=[0.005], l2_regs=[0.1],
+        convergence_tol=0.001)
+    # B7's own launch (G read whole) at B = 2048 (in registers) and 4096 (spilled)
+    for rows in (2048, 4096):
+        g, raw, y, m = batches[rows][:4]
+        out[f"probe_b7_{rows}"] = dual_probe(
+            [g], raw[None], y[None], m[None], None, valid_rows=[rows], p_prev=p_prev[None],
+            num_iterations=OP_ITERS, step_sizes=[0.005], l2_regs=[0.1], convergence_tol=0.001)
+    return out
+
+
+def dual_ab(smi, pairs, parent_root):
+    """``--dual-ab N --package-root DIR``: ``dual_ab_times`` on the port found
+    in DIR (e.g. the parent commit unpacked there) and on this checkout's,
+    each arm in a process of its own, N pairs, the order alternating: the
+    tenant form at config #4's 4 parts and at one tenant, B7 at each B, the
+    probe's split where a tree has it, whether B7's results are bitwise
+    equal across the trees, and each tree's ptxas report of the kernels."""
+    import glob
+
+    keys = ("form_config4_ms", "form_config4_tol0_ms", "form_one_tenant_ms", "b7_2048_ms",
+            "b7_2048_tol0_ms", "b7_3072_ms", "b7_4096_ms", "b7_2048_n0_ms", "b7_4096_n0_ms")
+
+    def report(i, arm, rec):
+        phase("dual-ab", f"pair {i} {arm} (run {rec['position'] + 1} of 2): "
+              + ", ".join(f"{k[:-3]} {rec[k]:.4f}" for k in keys)
+              + " ms (50 calls back to back, median of 10 runs in turns)")
+        for key in ("probe_config4", "probe_one_tenant", "probe_b7_2048", "probe_b7_4096"):
+            phase("dual-ab", f"pair {i} {arm} {key}: {dual_probe_text(rec[key])}")
+
+    roots = {"parent": parent_root, "change": HERE}
+    runs = ab_pairs("dual-ab", "dual_ab_times", pairs, parent_root, report)
+    medians = {arm: {k: statistics.median(r[k] for r in rows) for k in keys}
+               for arm, rows in runs.items()}
+    pair_of = lambda arm: sorted(runs[arm], key=lambda r: r["pair"])  # noqa: E731
+    wins = {k: sum(c[k] < p[k] for c, p in zip(pair_of("change"), pair_of("parent")))
+            for k in keys}
+    ratios = {k: medians["change"][k] / medians["parent"][k] for k in keys}
+    bitwise = {k: all(r["digests"][k] == runs["parent"][0]["digests"][k]
+                      for arm in runs for r in runs[arm])
+               for k in runs["parent"][0]["digests"]}
+    for arm, root in roots.items():
+        for log in glob.glob(os.path.join(root, "build", "twtml_tpu_torch", "libgram-*.log")):
+            text = open(log).read()
+            phase("dual-ab", f"{arm} build ({os.path.basename(log)}):\n"
+                  + "\n".join(ptxas_blocks(text, "dual_tenants_kernel")
+                              + ptxas_blocks(text, "dual_sgd_kernel")))
+    phase("dual-ab", f"medians over {pairs} pairs, this tree against the parent's: "
+          + ", ".join(f"{k[:-3]} {medians['change'][k]:.4f} / {medians['parent'][k]:.4f} "
+                      f"({ratios[k]:.3f}x, lower in {wins[k]} of {pairs})" for k in keys)
+          + f"; B7's results bitwise equal across the trees: "
+          + ", ".join(f"{k} {'yes' if v else 'NO'}" for k, v in bitwise.items())
+          + f"; iterations {runs['change'][0]['iterations']} | card: {smi}")
+    print(json.dumps({"dual_ab": {"pairs": pairs, "runs": runs, "medians": medians,
+                                  "ratios": ratios, "change_wins": wins, "bitwise": bitwise,
+                                  "card": smi}}), flush=True)
 
 
 # ---- phase 22: champion/challenger serving -----------------------------------
@@ -9294,6 +9571,9 @@ def main() -> None:
         return
     if "--tsplit-ab" in argv:
         tsplit_ab(smi, int(argv[argv.index("--tsplit-ab") + 1]), PACKAGE_ROOT)
+        return
+    if "--dual-ab" in argv:
+        dual_ab(smi, int(argv[argv.index("--dual-ab") + 1]), PACKAGE_ROOT)
         return
     if "--elastic-ab" in argv:
         os.environ["TWTML_NOW_MS"] = str(NOW_MS)

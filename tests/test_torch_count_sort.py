@@ -285,7 +285,7 @@ def test_count_entry_takes_the_wrapper_arguments():
     assert len(params.split(",")) == len(fused_gram._ENTRIES["twtml_count_build"])
 
 
-@pytest.mark.parametrize("entry", ["twtml_dual_sgd", "twtml_dual_barrier_probe",
+@pytest.mark.parametrize("entry", ["twtml_dual_sgd_tenants", "twtml_dual_barrier_probe",
                                    "twtml_dual_writeback"])
 def test_gram_entries_take_the_wrapper_arguments(entry):
     """Every other C entry of gram.cu takes as many arguments as its ctypes

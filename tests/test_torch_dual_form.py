@@ -1,6 +1,7 @@
-"""B7's arithmetic (``csrc/gram.cu`` ``dual_sgd_kernel``) modelled in f32 on
-the CPU, against its twin (``ops/fused_gram.dual_sgd_reference``) and the
-JAX package's ``run_dual_loop``: the same iterations run, case by case.
+"""B7's arithmetic (``csrc/gram.cu`` ``dual_tenants_kernel`` at one tenant)
+modelled in f32 on the CPU, against its twin (``ops/fused_gram.
+dual_sgd_reference``) and the JAX package's ``run_dual_loop``: the same
+iterations run, case by case.
 
 The kernel takes one product an iteration, s = G·α. Its convergence test
 reads Δαᵀ·G·Δα as Σ Δα_r·(s_new_r − s_old_r) over its rows, not from a
@@ -43,8 +44,8 @@ def kernel_model(g, u, y, mask, *, masks, p_prev, num_iterations, step_size, l2_
     g = torch.where(keep[:, None] & keep[None, :], g, 0.0)
     u = torch.where(keep, u, 0.0)
     y = torch.where(keep, y, 0.0)
-    plan = fused_gram.dual_plan(b, sm_count=SM_COUNT, shared_limit=232_448)
-    ctas = [plan.cta_rows(c) for c in range(plan.grid)]
+    plan = fused_gram.dual_tenants_plan((b,), sm_count=SM_COUNT, shared_limit=232_448)
+    ctas = [plan.cta_rows(0, c) for c in range(plan.grid)]
     f32 = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
     c = f32(1.0)
     alpha = torch.zeros(b)

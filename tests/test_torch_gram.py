@@ -304,10 +304,12 @@ def test_int8_switch_default_is_the_jax_packages():
 
 @pytest.mark.parametrize("rows", [1, 16, 2048, 3072, 4096])
 def test_dual_plan_covers_every_row(rows):
-    plan = fused_gram.dual_plan(rows, sm_count=132, shared_limit=232_448)
-    assert plan.grid <= 132 and plan.bp % 4 == 0 and plan.bp >= rows
-    assert sum(len(plan.cta_rows(c)) for c in range(plan.grid)) == rows
-    assert max(len(plan.cta_rows(c)) for c in range(plan.grid)) <= plan.rows_cap
+    """B7's plan: its tenant table's plan at one tenant of B rows."""
+    plan = fused_gram.dual_tenants_plan((rows,), sm_count=132, shared_limit=232_448)
+    bp = -(-rows // 4) * 4
+    assert plan.grid <= 132 and plan.bp_max == max(4, bp) and plan.first_cta == (0, plan.grid)
+    assert sum(len(plan.cta_rows(0, c)) for c in range(plan.grid)) == rows
+    assert max(len(plan.cta_rows(0, c)) for c in range(plan.grid)) <= plan.rows_cap[0]
     assert plan.shared_bytes <= 232_448
     assert plan.resident_rows + plan.spill_rows == rows
     # B = 2048 keeps G on chip; 3072 and 4096 spill to L2
@@ -316,18 +318,19 @@ def test_dual_plan_covers_every_row(rows):
     # thread's float4 columns of each; none of it in shared memory
     assert plan.in_registers == (rows <= 2048)
     if plan.in_registers:
-        assert plan.rows_cap <= fused_gram.DUAL_ROWS and plan.resident == plan.rows_cap
-        assert 4 * fused_gram.DUAL_THREADS * fused_gram.DUAL_REG_COLUMNS >= plan.bp
+        assert plan.rows_cap[0] <= fused_gram.DUAL_ROWS and plan.resident == plan.rows_cap
+        assert 4 * fused_gram.DUAL_THREADS * fused_gram.DUAL_REG_COLUMNS >= bp
         assert plan.shared_bytes == plan.smem_layout[-1]
     offsets = (0, *plan.smem_layout)
     assert all(o % 16 == 0 for o in offsets) and list(offsets) == sorted(offsets)
-    assert plan.scratch_floats == 2 * plan.bp + 8 * plan.grid + 3
+    assert plan.scratch_floats == 2 * plan.abuf_floats + 16 * plan.grid
+    assert plan.abuf_floats == max(4, bp)
 
 
 def test_dual_plan_refuses_what_does_not_fit():
-    fused_gram.dual_plan(4096, sm_count=132, shared_limit=232_448)
+    fused_gram.dual_tenants_plan((4096,), sm_count=132, shared_limit=232_448)
     with pytest.raises(ValueError, match="shared memory"):
-        fused_gram.dual_plan(40_000, sm_count=132, shared_limit=232_448)
+        fused_gram.dual_tenants_plan((40_000,), sm_count=132, shared_limit=232_448)
 
 
 def gram_inputs(rng, b, f=64):

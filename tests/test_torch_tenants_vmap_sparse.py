@@ -304,6 +304,9 @@ PLAN_CASES = {
     "one_big_one_tiny": [3000, 2],
     "the_gate_and_a_dry": [4096, 0],
     "three_of_1365": [1365, 1365, 1366],
+    "b7_at_2048": [2048],
+    "b7_at_3072": [3072],
+    "past_the_register_width": [2052],
 }
 
 
@@ -327,19 +330,36 @@ def test_the_dual_tenants_plan_at_an_h100s_numbers(case):
                 owned[r] += 1
         assert all(n == 1 for n in owned)  # every valid row, exactly once
         bp = -(-v // 4) * 4
-        assert plan.smem_layout[-1] + plan.resident[t] * 4 * bp <= plan.shared_bytes
+        if plan.in_registers:  # every CTA's rows in registers, none in shared memory
+            assert plan.resident[t] == plan.rows_cap[t] <= fused_gram.DUAL_ROWS
+            assert bp <= 4 * fused_gram.DUAL_THREADS * fused_gram.DUAL_REG_COLUMNS
+        else:
+            assert plan.smem_layout[-1] + plan.resident[t] * 4 * bp <= plan.shared_bytes
         assert plan.spill_at[t] == spill
         spill += ctas[t] * (plan.rows_cap[t] - plan.resident[t]) * bp
     assert plan.spill_floats == spill
     assert plan.abuf_floats % 4 == 0 and plan.abuf_floats >= sum(-(-v // 4) * 4 for v in valid)
-    if case == "config_4":  # CTAs in proportion to v², every row of G resident
-        assert plan.grid == H100_SMS and plan.spill_floats == 0
-    if case == "skewed_1_3_0_12":
-        assert ctas[0] < ctas[1] < ctas[3] and plan.grid == H100_SMS
+    # G in registers exactly where each tenant's CTAs hold at most DUAL_ROWS rows of at most
+    # 4·DUAL_THREADS·DUAL_REG_COLUMNS columns; then nothing of G in shared memory
+    assert plan.in_registers == (any(valid) and all(
+        fused_gram.in_registers(plan.rows_cap[t], -(-v // 4) * 4) for t, v in enumerate(valid)
+        if v))
+    if plan.in_registers:
+        assert plan.shared_bytes == plan.smem_layout[-1] and plan.spill_floats == 0
+    assert plan.scratch_floats == 2 * plan.abuf_floats + 16 * plan.grid
+    if case == "config_4":  # CTAs in proportion to v², 16 rows a CTA: G in registers
+        assert plan.grid == H100_SMS and plan.spill_floats == 0 and plan.in_registers
+    if case == "skewed_1_3_0_12":  # tenant 0's one CTA holds its 100 rows: shared memory
+        assert ctas[0] < ctas[1] < ctas[3] and plan.grid == H100_SMS and not plan.in_registers
+    if case == "b7_at_2048":  # B7's batch: 16 rows a CTA of 2048 columns, in registers
+        assert plan.grid == H100_SMS and plan.rows_cap == (16,) and plan.in_registers
+    if case in ("b7_at_3072", "past_the_register_width"):  # 24 rows a CTA; 2052 columns
+        assert not plan.in_registers and plan.rows_cap[0] == -(-valid[0] // H100_SMS)
     if case == "one_tenant_at_the_gate":  # 4096 rows: G spills past shared memory
-        b7 = fused_gram.dual_plan(4096, sm_count=H100_SMS, shared_limit=H100_SHARED)
-        assert plan.grid == b7.grid and plan.rows_cap_max == b7.rows_cap
-        assert plan.resident == (b7.resident,) and plan.spill_floats == b7.spill_floats
+        # B7's own launch at B = 4096: 132 CTAs of 32 rows, 12 of them resident
+        # in 232,448 B, the other 20 spilled
+        assert plan.grid == 132 and plan.rows_cap_max == 32 and not plan.in_registers
+        assert plan.resident == (12,) and plan.spill_floats == 132 * 20 * 4096
 
 
 COUNT_PLAN_CASES = {
@@ -379,6 +399,13 @@ def test_the_tenant_plans_refuse_what_one_launch_cannot_take():
         fused_gram.dual_tenants_plan([8] * 8, sm_count=4, shared_limit=H100_SHARED)
     with pytest.raises(ValueError, match="shared memory"):
         fused_gram.dual_tenants_plan([40_000], **kw)
+    # the in-register instantiation's condition, as the C entry checks it: at
+    # most DUAL_ROWS rows a CTA of at most 4·DUAL_THREADS·DUAL_REG_COLUMNS columns
+    width = 4 * fused_gram.DUAL_THREADS * fused_gram.DUAL_REG_COLUMNS
+    assert fused_gram.in_registers(fused_gram.DUAL_ROWS, width)
+    assert not fused_gram.in_registers(fused_gram.DUAL_ROWS + 1, 4)
+    assert not fused_gram.in_registers(1, width + 4)
+    assert not fused_gram.dual_tenants_plan([0, 0], **kw).in_registers  # no row, no G
     with pytest.raises(ValueError, match="shared memory"):
         fused_gram.count_tenants_plan([4, 4], (0, 1), 40_000, shared_limit=H100_SHARED)
     # past 32 tenants the B4 plan splits into consecutive launches; a launch
@@ -396,11 +423,27 @@ REFUSED = {
 }
 
 
-@pytest.mark.parametrize("case", list(REFUSED))
+@pytest.mark.parametrize("case", list(REFUSED) + ["the probe on the CPU",
+                                                   "the probe past one launch"])
 def test_the_dual_tenants_wrapper_refuses_what_it_cannot_take(case):
+    """The tenant form's wrapper, and its timing probe (the card only, one
+    launch of at most TENANTS_PER_LAUNCH tenants), refuse before any work."""
     idx, val, num, mask, y, u = small_parts()
     kw = dict(valid_rows=list(VALID), p_prev=torch.ones(M), num_iterations=2,
               step_sizes=list(STEP_SIZES), l2_regs=list(L2_REGS))
+    if case == "the probe on the CPU":
+        with pytest.raises(ValueError, match="on the card"):
+            fused_gram.dual_tenants_probe([None] * M, u, y, mask, num, **kw)
+        return
+    if case == "the probe past one launch":
+        many = fused_gram.TENANTS_PER_LAUNCH + 1
+        with pytest.raises(ValueError, match="1..32 tenants in one launch"):
+            fused_gram.dual_tenants_probe(
+                [None] * many, torch.zeros(many, 4), torch.zeros(many, 4),
+                torch.zeros(many, 4), torch.zeros(many, 4, 4), valid_rows=[0] * many,
+                p_prev=torch.ones(many), num_iterations=2, step_sizes=[0.1] * many,
+                l2_regs=[0.0] * many)
+        return
     bad, match = REFUSED[case]
     with pytest.raises(ValueError, match=match):
         fused_gram.dual_sgd_tenants([None] * M, u, y, mask, num, **dict(kw, **bad))

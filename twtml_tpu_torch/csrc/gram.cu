@@ -46,52 +46,79 @@
 // no store is a scattered 4-byte one; the store stream of the other CTAs on
 // the SM covers a CTA's token pass. No atomics.
 //
-// ---- B7, dual_sgd_kernel<kLogistic, kInRegisters>
-// Each iteration is one [B, B]·[B] product (G·α) plus elementwise work on
-// [B] vectors; the convergence test reads Δαᵀ·G·Δα, αᵀ·G·α, u·Δα and u·α.
-// What bounds it: neither bytes nor operations of the arithmetic (8.4
-// MFLOP an iteration at B = 2048), but latency: a grid-wide barrier each
-// iteration, since every row's next α needs the whole batch's α. Design:
-// one persistent cooperative launch a batch, at most one CTA an SM; CTA c
-// owns rows [c·B/grid, (c+1)·B/grid) of G. Up to 16 rows a CTA and B <=
-// 2048 they live in registers across the loop (kInRegisters: 2 float4
-// columns of each row a thread, 128 floats at B = 2048 over 132 SMs);
-// otherwise in shared memory, and rows that do not fit (B = 3072, 4096) are
-// staged once into a spill buffer and read through L2; the product then
-// takes groups of up to 16 rows, all resident or all spilled, and a thread
-// issues a column's loads of a group together, so that the spilled rows'
-// L2 latencies overlap. An iteration (an update k):
-//   1. if the decision of test k − 2 is in, the CTA reads it: if that test
-//      converged, α_{k−2} (kept in shared memory by parity) and c_{k−2}
-//      are the result and the grid leaves the loop together;
+// ---- B7, dual_tenants_kernel<kLogistic, kInRegisters, kProbe>: M tenants'
+// dual loops in one launch (a single batch is the table of one tenant)
+// Each iteration of a tenant of v rows is one [v, v]·[v] product (G·α) plus
+// elementwise work on [v] vectors; the convergence test reads Δαᵀ·G·Δα,
+// αᵀ·G·α, u·Δα and u·α. What bounds it: neither bytes nor operations of the
+// arithmetic (Σ iterations·(2v² + 12v) f32: 8.4 MFLOP an iteration at B =
+// 2048), but latency: a grid-wide barrier each iteration, since every
+// row's next α needs the whole tenant's α. Design: one persistent
+// cooperative launch, at most one CTA an SM; tenant u's CTAs are a run of
+// the grid, in proportion to its v² rows of G (ops/fused_gram.py
+// dual_tenants_plan), CTA k of them owning its rows [k·v/ctas,
+// (k+1)·v/ctas). A CTA stages its rows of G once, its text G (f32, or the
+// int8 plane's s32 product read as f32, exactly) with N·Nᵀ added in a fixed
+// fma chain (a single batch's G holds N·Nᵀ already: read whole). When every
+// tenant's CTAs hold at most 16 rows of at most 2048 columns (config #4's 4
+// parts of ~515 rows, B = 2048) they live in registers across the loop
+// (kInRegisters: 2 float4 columns of each row a thread); otherwise in
+// shared memory, and rows that do not fit (B = 3072, 4096) are staged into
+// a spill buffer and read through L2, in groups of up to 16 rows all
+// resident or all spilled, a column's loads of a group issued together so
+// that the spilled rows' L2 latencies overlap. An iteration (the tenant's
+// update k):
+//   1. if decisions are in (the last iteration's), the CTA reads them: if
+//      its tenant's test k − 1 converged, α and G·α of that update (kept in
+//      shared memory by parity) and its c are the result, the update made
+//      since (if any) is dropped, and the tenant freezes; once every tenant
+//      with rows froze, the grid leaves the loop together;
 //   2. warp 0 updates α on the CTA's rows, a lane a row (r = residual(c·u
 //      + G·α, y)·sel; α <- α·(1 − ηλ) − (η·r)/max(count, 1)), and publishes
-//      them into a global double buffer;
+//      them into the tenant's half of a global double buffer;
 //   3. one grid barrier (cooperative groups' grid.sync());
-//   4. the last warp loads the CTAs' partials of test k − 1; G·α of the
-//      CTA's rows: every thread loads its columns of the new α from L2
-//      (16-byte loads) and takes them against its columns of every row, a
+//   4. the decider warp (the last) loads every CTA's partials of the
+//      pending tests (lane λ CTAs λ + 32·i, 16 bytes each, all issued at
+//      once) and, with more than one tenant with rows, each tenant's
+//      (tested, c_new, c_old, p); G·α of the CTA's rows: every thread loads
+//      its columns of the tenant's new α from L2 (16-byte loads, straight
+//      into registers when G is there) against its columns of every row, a
 //      reduce-scatter sums 16 rows across the warp, the warps in order;
-//   5. warp 0 writes the partials of test k over the CTA's rows, from the
-//      one product: Δαᵀ·G·Δα as Σ Δα·(G·α_new − G·α_old) (a CPU model
-//      holds the iterations this runs to the twin's and the JAX loop's,
-//      tests/test_torch_dual_form.py), into a double buffer by update;
-//      meanwhile the last warp sums test k − 1's partials in a fixed order,
-//      the same bits in every CTA, off the path the other warps wait on.
-// So an update crosses one barrier, which also carries the last test; the
-// last update crosses it only when a test is pending (never at tolerance
-// 0) and decides it at once, and a loop that stops at iteration i < N
-// crosses i + 1. The kernel writes the barriers it crossed beside c and
-// the iterations run. count is Σ mask·masks[i] over the whole batch, the
-// same bits in every CTA; an iteration with count 0 makes no update and is
-// not convergence. Rows with mask <= 0 are zeroed where they are staged
-// (their u and y, their rows and columns of G), so NaN/Inf there is
-// ignored; so is α's padding [B, bp) in the global buffers, once, since
-// the product loads it as whole float4s. The update and the step scalars use the JAX loop's f32
+//   5. warp 0 writes the partials of the tenant's test k over the CTA's
+//      rows, from the one product: Δαᵀ·G·Δα as Σ Δα·(G·α_new − G·α_old) (a
+//      CPU model holds the iterations this runs to the plain version's and
+//      the JAX loop's: tests/test_torch_dual_form.py for one tenant,
+//      tests/test_torch_dual_tenants_form.py for M), into a double buffer
+//      by parity; meanwhile the decider sums the pending tests: at one
+//      tenant B7's order (each lane's CTAs in i order, then warp_sum), with
+//      more every tenant at once (the partials staged in shared memory by
+//      CTA, L lanes a tenant, each its CTAs with stride L in order, then
+//      their butterfly), the same bits in every CTA, off the path the other
+//      warps wait on.
+// So an iteration crosses one barrier, which also carries the last tests,
+// and each tenant's update past its pending test is speculative. A tenant
+// that froze updates no more, but its CTAs still cross the barriers. The
+// last update crosses a barrier only when a test is pending (never at
+// tolerance 0) and decides it at once. With one tenant with rows (B7) an
+// iteration whose draws select no row is skipped whole, barrier included,
+// and a loop that stops at iteration i < N crosses i + 1; with more,
+// every iteration crosses one, and the launch ends at the top of the
+// iteration after the barrier that decided the last freeze. The kernel
+// writes the barriers it crossed. count is Σ mask·masks[i] over the
+// tenant's rows, the same bits in every CTA of it; an iteration with count
+// 0 makes no update of that tenant and is not its convergence. Rows with
+// mask <= 0 are zeroed where they are staged (their u and y, their rows
+// and columns of G), so NaN/Inf there is ignored; so is α's padding [v,
+// bp) in the global buffers, once, since the product loads it as whole
+// float4s. The update and the step scalars use the JAX loop's f32
 // operations without contraction; the product sums in another order than
-// torch's, so the twin holds B7 within tolerance. What is left is latency:
-// at B = 2048 an iteration is about one grid.sync() crossing (~1.1 µs on
-// an H100) plus L2 round trips and the CTA's own reductions.
+// torch's, so the plain version holds the kernel within tolerance. A dry
+// tenant gets no CTA: CTA 0 writes its c = 1, α = 0 and N iterations. What
+// is left is latency: an iteration is about one grid.sync() crossing (~1.1
+// µs on an H100) plus L2 round trips and the CTA's own reductions. The
+// timing instantiation (kProbe) stamps %globaltimer and clock64 at each
+// phase edge in CTA 0 and each tenant's last CTA (dual_stamp); no launch
+// the port makes for training uses it.
 //
 // ---- B8, writeback_kernel<T>
 // What bounds it: bytes, one read of C (B·F bytes in the int8 plane). Design:
@@ -104,7 +131,7 @@
 // It sums count·α where the JAX scatter adds val·α per occurrence, so the
 // twin holds it within tolerance.
 //
-// ---- The tenant forms: B4's and B8's tenant tables, dual_tenants_kernel<kLogistic>
+// ---- The tenant forms: B4's, B7's and B8's tenant tables
 // They replace the same XLA fusions under jax.vmap: the JAX package's
 // tenant stack with mapping="vmap" (twtml_tpu/parallel/tenants.py:329-330)
 // maps the step over M parts of B rows, each tenant with its own step size
@@ -119,21 +146,7 @@
 //   a Gram plane (the caller launches once a plane present), so a tenant
 //   with a tweet-length row does not widen the others to f32 counts.
 // - B7's (bound: operations, Σ iterations·(2v² + 12v) f32; in practice the
-//   barriers' latency): M dual loops behind one grid barrier. Tenant u's
-//   CTAs are a run of the grid, in proportion to its v² rows of G; each
-//   keeps B7's layout of its rows (shared memory, then a spill buffer
-//   through L2), reads its text G (the int8 plane's s32 product read as
-//   f32, exactly) and adds N·Nᵀ as it stages G, runs B7's update, product
-//   and test partials over its rows, and freezes where its test converges;
-//   the launch ends when every tenant with rows has converged or N is
-//   reached. An iteration crosses two barriers where B7 crosses one: the
-//   first publishes α, the second the test's partials, after which every
-//   CTA takes every tenant's decision (lane u of one warp sums tenant u's
-//   CTAs in CTA order: the same bits in every CTA). Simple first: B7's
-//   speculative update past a pending test is left out. An iteration whose
-//   draws select none of a tenant's rows leaves that tenant as it is and
-//   is not its convergence. A dry tenant gets no CTA: CTA 0 writes its c =
-//   1, α = 0 and N iterations.
+//   barrier's latency): B7 itself over the table (above).
 // - B8's (bound: bytes, each tenant's v rows of C read once): B8 itself,
 //   its blocks over (column block, tenant): each tenant's row of W is B8's
 //   on the same rows bit for bit (a dry tenant's is c·W_prev).
@@ -149,6 +162,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -174,6 +189,11 @@ constexpr int kWbGroups = 32;                // 4-column groups a block
 constexpr int kWbSegments = kWbThreads / kWbGroups;  // row segments a block
 constexpr int kWbCols = 4 * kWbGroups;       // 128 text columns a block
 constexpr int kGramTenants = 32;  // tenants a tenant-form launch: a lane of the decider warp each
+// the tenant form's timing probe: phase edges it stamps, the prologue's
+// (entry, G staged) then an iteration's (update, barrier 1, product,
+// partials, barrier 2, decision)
+constexpr int kDualProbePrologue = 2;
+constexpr int kDualProbeIteration = 6;
 
 // ops/fused_gram.py sizes the launches from its own copy of these
 // constants; ops/_build.py passes that copy as -D flags, so the two cannot
@@ -182,7 +202,8 @@ constexpr int kGramTenants = 32;  // tenants a tenant-form launch: a lane of the
     !defined(TWTML_GRAM_DUAL_THREADS) || !defined(TWTML_GRAM_DUAL_ROWS) || \
     !defined(TWTML_GRAM_DUAL_REG_COLUMNS) || !defined(TWTML_GRAM_DUAL_MAX_GRID) || \
     !defined(TWTML_GRAM_DUAL_RED_FLOATS) || !defined(TWTML_GRAM_WRITEBACK_THREADS) || \
-    !defined(TWTML_GRAM_WRITEBACK_COLUMNS) || !defined(TWTML_GRAM_TENANTS_PER_LAUNCH)
+    !defined(TWTML_GRAM_WRITEBACK_COLUMNS) || !defined(TWTML_GRAM_TENANTS_PER_LAUNCH) || \
+    !defined(TWTML_GRAM_DUAL_PROBE_PROLOGUE_EDGES) || !defined(TWTML_GRAM_DUAL_PROBE_ITERATION_EDGES)
 #error "build through twtml_tpu_torch/ops/_build.py, which passes the launch plan's constants"
 #endif
 static_assert(kCountThreads == TWTML_GRAM_COUNT_THREADS, "COUNT_THREADS differs");
@@ -196,6 +217,10 @@ static_assert(kWbThreads == TWTML_GRAM_WRITEBACK_THREADS, "WRITEBACK_THREADS dif
 static_assert(kWbCols == TWTML_GRAM_WRITEBACK_COLUMNS, "WRITEBACK_COLUMNS differs");
 static_assert(kGramTenants == TWTML_GRAM_TENANTS_PER_LAUNCH, "TENANTS_PER_LAUNCH differs");
 static_assert(kGramTenants <= 32, "the tenant form's decisions take a lane a tenant");
+static_assert(kDualProbePrologue == TWTML_GRAM_DUAL_PROBE_PROLOGUE_EDGES,
+              "DUAL_PROBE_PROLOGUE_EDGES differs");
+static_assert(kDualProbeIteration == TWTML_GRAM_DUAL_PROBE_ITERATION_EDGES,
+              "DUAL_PROBE_ITERATION_EDGES differs");
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
@@ -451,37 +476,20 @@ __global__ void __launch_bounds__(kCountThreads) count_build_kernel(
 
 // ------------------------------------------------------------------ B7
 
-struct DualParams {
-  const float* g;        // [>= rows, ldg] f32
-  long long ldg;
-  const float* u;        // [rows] f32: Z·W_prev
-  const float* y;        // [rows] f32
-  const float* mask;     // [rows] f32: validity
-  const float* masks;    // [iterations, rows] f32 Bernoulli draws, or null
-  const float* p_prev;   // [1] f32: ||W_prev||²
-  float* alpha_out;      // [rows] f32
-  float* abuf;           // [2][bp] f32: α, double-buffered by update
-  float* partials;       // [2][grid][4] f32: the tests' partials, double-buffered by update
-  float* c_out;          // [1]
-  float* iterations;     // [1]: the iteration that converged, else N
-  float* barriers;       // [1]: grid barriers crossed
-  float* spill;          // [grid][spill_per_cta][bp] f32
-  int rows, bp, rows_cap, resident, spill_per_cta, num_iterations;
-  float step_size, l2_reg, tol;
-};
-
 // Byte offsets of the dynamic shared memory, each 16-byte aligned: α of
 // the whole batch [bp] at 0 (staged from L2 each iteration, when G's rows
 // are not in registers), the mask [bp], then the CTA's rows: u and y
 // [rows_cap] each, α and G·α [2][rows_cap] each (by the parity of the
-// update that made them); the reduction scratch; then the resident rows
-// of G [bp] f32 each (none when G's rows live in registers). The launch
-// plan (ops/fused_gram.py dual_plan) computes the same.
+// update that made them); the reduction scratch; the decisions' staging
+// [stage] float4 (a launch of more than one tenant with rows: every CTA's
+// test partials, for the decider's sums); then the resident rows of G
+// [bp] f32 each (none when G's rows live in registers). The launch plan
+// (ops/fused_gram.py dual_tenants_plan) computes the same.
 struct DualLayout {
-  size_t own, mask, u, y, a, s, red, g;  // own: the stride of a [rows_cap] vector
+  size_t own, mask, u, y, a, s, red, stage, g;  // own: the stride of a [rows_cap] vector
 };
 
-__host__ __device__ inline DualLayout dual_layout(int bp, int rows_cap) {
+__host__ __device__ inline DualLayout dual_layout(int bp, int rows_cap, int stage) {
   DualLayout l;
   const size_t vec = align16((size_t)bp * 4);
   l.own = align16((size_t)rows_cap * 4);
@@ -491,7 +499,8 @@ __host__ __device__ inline DualLayout dual_layout(int bp, int rows_cap) {
   l.a = l.y + l.own;
   l.s = l.a + 2 * l.own;
   l.red = l.s + 2 * l.own;
-  l.g = l.red + kDualRedFloats * 4;
+  l.stage = l.red + kDualRedFloats * 4;
+  l.g = l.stage + (size_t)stage * 16;
   return l;
 }
 
@@ -588,300 +597,8 @@ __device__ __forceinline__ float dual_residual(float raw, float y) {
   }
 }
 
-// kInRegisters: the CTA's rows of G (at most kDualRows) live in registers,
-// kDualRegCols float4 columns of each a thread; else in shared memory, and
-// past `resident` in the spill buffer, read through L2.
-template <bool kLogistic, bool kInRegisters>
-__global__ void __launch_bounds__(kDualThreads, 1) dual_sgd_kernel(const DualParams p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const DualLayout lay = dual_layout(p.bp, p.rows_cap);
-  float* alpha_s = reinterpret_cast<float*>(smem);
-  float* mask_s = reinterpret_cast<float*>(smem + lay.mask);
-  float* u_s = reinterpret_cast<float*>(smem + lay.u);
-  float* y_s = reinterpret_cast<float*>(smem + lay.y);
-  float* red = reinterpret_cast<float*>(smem + lay.red);
-  const float4* g4_s = reinterpret_cast<const float4*>(smem + lay.g);
-  // α and G·α of the CTA's rows made by an update of parity q
-  const auto a_s = [&](int q) { return reinterpret_cast<float*>(smem + lay.a + q * lay.own); };
-  const auto s_s = [&](int q) { return reinterpret_cast<float*>(smem + lay.s + q * lay.own); };
-
-  cg::grid_group grid = cg::this_grid();
-  const int cta = blockIdx.x, ncta = gridDim.x;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int rows = p.rows, bp = p.bp, nvec = bp / 4;
-  const int row0 = (int)((long long)cta * rows / ncta);
-  const int my_rows = (int)((long long)(cta + 1) * rows / ncta) - row0;
-  const bool test = p.tol > 0.f;
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  // ---- prologue: the batch's mask, the CTA's u, y and rows of G, once
-  for (int k = tid; k < bp; k += kDualThreads) mask_s[k] = k < rows ? __ldg(p.mask + k) : 0.f;
-  __syncthreads();
-  for (int l = tid; l < my_rows; l += kDualThreads) {
-    const bool keep = mask_s[row0 + l] > 0.f;
-    u_s[l] = keep ? __ldg(p.u + row0 + l) : 0.f;
-    y_s[l] = keep ? __ldg(p.y + row0 + l) : 0.f;
-    a_s(0)[l] = 0.f;  // α = 0, the state before update 1
-    s_s(0)[l] = 0.f;  // G·α with α = 0
-  }
-  // The padding [rows, bp) of both α buffers, which the updates never
-  // write but G·α loads as whole float4s: zero, so that whatever the
-  // scratch held there (NaN, Inf) meets G's zero columns as 0. The first
-  // barrier orders these writes before any load.
-  if (cta == 0)
-    for (int k = rows + tid; k < bp; k += kDualThreads) p.abuf[k] = p.abuf[bp + k] = 0.f;
-  // mask_s is 0 past rows: a masked row's or column's G is 0
-  float4 greg[kInRegisters ? kDualRows : 1][kInRegisters ? kDualRegCols : 1];
-  if constexpr (kInRegisters) {
-#pragma unroll
-    for (int j = 0; j < kDualRows; ++j) {
-      const bool keep = j < my_rows && mask_s[row0 + j] > 0.f;
-      const float* src = p.g + (size_t)(row0 + j) * p.ldg;
-#pragma unroll
-      for (int q = 0; q < kDualRegCols; ++q) {
-        const int k = 4 * (tid + q * kDualThreads);
-        float e[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          e[i] = keep && k + i < bp && mask_s[k + i] > 0.f ? __ldg(src + k + i) : 0.f;
-        greg[j][q] = make_float4(e[0], e[1], e[2], e[3]);
-      }
-    }
-  } else {
-    for (int l = warp; l < my_rows; l += kDualWarps) {
-      const int r = row0 + l;
-      const bool keep = mask_s[r] > 0.f;
-      float* dst = l < p.resident
-                       ? reinterpret_cast<float*>(smem + lay.g) + (size_t)l * bp
-                       : p.spill + ((size_t)cta * p.spill_per_cta + (l - p.resident)) * bp;
-      const float* src = p.g + (size_t)r * p.ldg;
-      for (int k = lane; k < bp; k += 32) dst[k] = keep && mask_s[k] > 0.f ? __ldg(src + k) : 0.f;
-    }
-  }
-  float count_all;
-  {
-    float v = 0.f;
-    for (int k = tid; k < rows; k += kDualThreads) v += mask_s[k];
-    count_all = block_sum(v, red + kRedSum);  // also orders the staging above before the loop
-  }
-  const float pp = __ldg(p.p_prev);
-
-  // The convergence test of update k: its partials are written after G·α_k,
-  // loaded by the decider warp past the barrier of update k + 1 (the only
-  // barrier an update crosses) and summed after that update's product, off
-  // the path the other warps wait on; the CTA reads the decision at the top
-  // of the next update. If it converged, α_k and c_k are the result (α_k is
-  // kept until update k + 2 would overwrite it) and the speculative update
-  // k + 1 is dropped.
-  float4 t[kDualMaxGrid / 32];  // the decider's loads of a test's partials
-  const auto load_partials = [&](int parity) {  // the decider warp
-    const float4* part = reinterpret_cast<const float4*>(p.partials) + (size_t)parity * ncta;
-#pragma unroll
-    for (int i = 0; i < kDualMaxGrid / 32; ++i) {
-      const int k = lane + 32 * i;
-      t[i] = k < ncta ? __ldcg(part + k) : zero4;
-    }
-  };
-  const auto decide = [&](float c_new, float c_old) {  // the decider warp, after load_partials
-    // each lane's CTAs in order, then the lanes: the same bits in every CTA
-    float q[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < kDualMaxGrid / 32; ++i) {
-      q[0] += t[i].x;
-      q[1] += t[i].y;
-      q[2] += t[i].z;
-      q[3] += t[i].w;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) q[j] = warp_sum(q[j]);
-    if (lane == 0) {
-      // dual_norm_sq: Δc²·p + 2·Δc·(u·Δα) + Δαᵀ·G·Δα, and the same of the new state
-      const float dc = c_new - c_old;
-      const float d2 = dc * dc * pp + 2.f * dc * q[2] + q[0];
-      const float n2 = c_new * c_new * pp + 2.f * c_new * q[3] + q[1];
-      red[kRedFlag] = sqrtf(d2) < p.tol * fmaxf(sqrtf(n2), 1.f) ? 1.f : 0.f;
-    }
-  };
-
-  float c = 1.f, c_prev = 1.f;  // c of the latest update and of the one before
-  int cur = 0;                  // the parity of the latest state's α and G·α
-  int ran = p.num_iterations, barriers = 0, updates = 0;
-  int undecided = -1, undecided_it = 0;  // the test whose partials await the next barrier
-  int decided_it = 0;                    // the test the decider summed, its flag unread
-  float decided_c = 1.f;
-  int result = -1;  // the parity of the result's α, once the loop stopped
-  for (int it = 1; it <= p.num_iterations; ++it) {
-    const float* draw = p.masks ? p.masks + (size_t)(it - 1) * rows : nullptr;
-    float count = count_all;
-    if (draw) {
-      float v = 0.f;
-      for (int k = tid; k < rows; k += kDualThreads) v += mask_s[k] * __ldg(draw + k);
-      count = block_sum(v, red + kRedSum);
-    }
-    if (!(count > 0.f)) continue;  // no sampled row: no update, and not convergence
-    if (decided_it > 0) {  // the decider's flag, before this update overwrites its α
-      __syncthreads();
-      if (red[kRedFlag] != 0.f) {
-        ran = decided_it;
-        c = decided_c;
-        result = cur ^ 1;
-        break;
-      }
-      decided_it = 0;
-    }
-    // the JAX loop's f32 arithmetic, operation for operation
-    const float eta = __fdiv_rn(p.step_size, __fsqrt_rn((float)it));
-    const float scale = __fsub_rn(1.f, __fmul_rn(eta, p.l2_reg));
-    const float denom = fmaxf(count, 1.f);
-    const bool last = it == p.num_iterations;
-    const int nxt = cur ^ 1;
-    ++updates;
-    float* a_pub = p.abuf + (size_t)(updates & 1) * bp;
-    if (warp == 0) {  // the update of the CTA's rows, a lane a row
-      const float* a_old = a_s(cur);
-      const float* s_old = s_s(cur);
-      float* a_new = a_s(nxt);
-      for (int l = lane; l < my_rows; l += 32) {
-        const int r = row0 + l;
-        const float m = mask_s[r];
-        const float sel = draw ? m * __ldg(draw + r) : m;
-        float res = 0.f;
-        if (m > 0.f) {
-          const float raw = __fadd_rn(__fmul_rn(c, u_s[l]), s_old[l]);
-          res = __fmul_rn(dual_residual<kLogistic>(raw, y_s[l]), sel);
-        }
-        const float a =
-            __fsub_rn(__fmul_rn(a_old[l], scale), __fdiv_rn(__fmul_rn(eta, res), denom));
-        a_new[l] = a;
-        if (!last) a_pub[r] = a;
-      }
-    }
-    const float c_new = __fmul_rn(c, scale);  // c·(1 − ηλ) − η·0/denom
-    if (last && undecided < 0) {  // nothing reads G·α after the last update
-      c = c_new;
-      result = nxt;
-      break;
-    }
-    grid.sync();
-    ++barriers;
-    const bool deciding = undecided >= 0;
-    if (deciding && warp == kDecider) load_partials(undecided);
-    if (last) {  // the pending test decides between this update and the last
-      if (warp == kDecider) decide(c, c_prev);
-      __syncthreads();
-      const bool stop = red[kRedFlag] != 0.f;
-      ran = stop ? undecided_it : ran;
-      c = stop ? c : c_new;
-      result = stop ? cur : nxt;
-      break;
-    }
-    // ---- G·α_new of the CTA's rows: a thread's columns of every row (α of
-    // the batch, 16 bytes a load from L2), then the rows' sums across the
-    // CTA in a fixed order
-    float* s_new = s_s(nxt);
-    const float4* a4 = reinterpret_cast<const float4*>(a_pub);
-    if constexpr (kInRegisters) {
-      float4 av[kDualRegCols];
-#pragma unroll
-      for (int q = 0; q < kDualRegCols; ++q) {
-        const int v = tid + q * kDualThreads;
-        av[q] = v < nvec ? __ldcg(a4 + v) : zero4;
-      }
-      float acc[kDualRows];
-#pragma unroll
-      for (int j = 0; j < kDualRows; ++j) {
-        acc[j] = 0.f;
-#pragma unroll
-        for (int q = 0; q < kDualRegCols; ++q) acc[j] = dot4(greg[j][q], av[q], acc[j]);
-      }
-      finish_rows(acc, 0, my_rows, red, s_new);
-    } else {
-      for (int v = tid; v < nvec; v += kDualThreads)
-        reinterpret_cast<float4*>(alpha_s)[v] = __ldcg(a4 + v);
-      __syncthreads();
-      const float4* alpha4 = reinterpret_cast<const float4*>(alpha_s);
-      const float4* spill4 =
-          reinterpret_cast<const float4*>(p.spill) + (size_t)cta * p.spill_per_cta * nvec;
-      const int kept = min(my_rows, p.resident);
-      // groups of up to 16 rows, each all resident or all spilled
-      for (int r0 = 0; r0 < my_rows;) {
-        if (r0 > 0) __syncthreads();  // warp 0 has read red
-        const bool spilled = r0 >= kept;
-        const int n = min(kDualRows, (spilled ? my_rows : kept) - r0);
-        float acc[kDualRows];
-        if (spilled)
-          rows_partials<true>(spill4 + (size_t)(r0 - p.resident) * nvec, alpha4, nvec, n, acc);
-        else
-          rows_partials<false>(g4_s + (size_t)r0 * nvec, alpha4, nvec, n, acc);
-        finish_rows(acc, r0, n, red, s_new);
-        r0 += n;
-      }
-    }
-    // ---- the partials of this update's test over the CTA's rows in order
-    // (lane l holds rows l, l + 32, ...; finish_rows wrote its s_new): the
-    // one product gives Δαᵀ·G·Δα as Σ Δα·(G·α_new − G·α_old)
-    if (test && warp == 0) {
-      const float *a_old = a_s(cur), *s_old = s_s(cur), *a_new = a_s(nxt);
-      float qd = 0.f, qa = 0.f, ud = 0.f, ua = 0.f;
-      for (int l = lane; l < my_rows; l += 32) {
-        const float an = a_new[l], sn = s_new[l];
-        const float d = __fsub_rn(an, a_old[l]);
-        qd = fmaf(d, __fsub_rn(sn, s_old[l]), qd);
-        qa = fmaf(an, sn, qa);
-        ud = fmaf(u_s[l], d, ud);
-        ua = fmaf(u_s[l], an, ua);
-      }
-      qd = warp_sum(qd);
-      qa = warp_sum(qa);
-      ud = warp_sum(ud);
-      ua = warp_sum(ua);
-      if (lane == 0)
-        reinterpret_cast<float4*>(p.partials)[(size_t)(updates & 1) * ncta + cta] =
-            make_float4(qd, qa, ud, ua);
-    }
-    if (deciding) {  // the last test, its loads landed during the product
-      if (warp == kDecider) decide(c, c_prev);
-      decided_it = undecided_it;
-      decided_c = c;
-    }
-    undecided = test ? (updates & 1) : -1;
-    undecided_it = it;
-    cur = nxt;
-    c_prev = c;
-    c = c_new;
-  }
-  if (result < 0) {  // the loop ran out, its last iterations selecting no row
-    result = cur;
-    if (decided_it > 0) {
-      __syncthreads();
-      if (red[kRedFlag] != 0.f) {
-        ran = decided_it;
-        c = decided_c;
-        result = cur ^ 1;
-        undecided = -1;
-      }
-    }
-    if (undecided >= 0) {  // one more barrier decides the last test
-      grid.sync();
-      ++barriers;
-      if (warp == kDecider) {
-        load_partials(undecided);
-        decide(c, c_prev);
-      }
-      __syncthreads();
-      if (red[kRedFlag] != 0.f) ran = undecided_it;
-    }
-  }
-  if (warp == 0)
-    for (int l = lane; l < my_rows; l += 32) p.alpha_out[row0 + l] = a_s(result)[l];
-  if (cta == 0 && tid == 0) {
-    *p.c_out = c;
-    *p.iterations = (float)ran;
-    *p.barriers = (float)barriers;
-  }
-}
-
-// ---- B7's tenant form: M dual loops in one cooperative launch
+// ---- B7 over its tenant table: M dual loops in one cooperative launch (a
+// single batch is the table of one tenant)
 
 // A launch's tenants (in the stack's order): CTAs [first_cta[u],
 // first_cta[u + 1]) run tenant u's loop over its v = valid[u] rows, each
@@ -900,68 +617,177 @@ struct DualTenants {
   long long spill_at[kGramTenants], abuf_at[kGramTenants], ldg[kGramTenants];
   const void* g[kGramTenants];
   float step_size[kGramTenants], l2_reg[kGramTenants];
+  // the timing probe (kProbe instantiations): [1 + tenants, probe_edges]
+  // pairs of (%globaltimer, clock64), or null
+  unsigned long long* probe;
+  int probe_edges;
 };
+
+// kProbe only: after every thread of the CTA has reached it, thread 0 of a
+// stamping CTA (slot >= 0: CTA 0 is slot 0, tenant u's last CTA slot 1 + u)
+// writes the time at phase edge `edge`.
+template <bool kProbe>
+__device__ __forceinline__ void dual_stamp(const DualTenants& t, int slot, int edge) {
+  if constexpr (kProbe) {
+    __syncthreads();
+    if (threadIdx.x == 0 && slot >= 0 && edge < t.probe_edges) {
+      unsigned long long g;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g));
+      unsigned long long* at = t.probe + ((size_t)slot * t.probe_edges + edge) * 2;
+      at[0] = g;
+      at[1] = (unsigned long long)clock64();
+    }
+  }
+}
 
 struct DualTenantParams {
   const float* u;        // [M·B] f32: Z·W_prev of every tenant's rows
   const float* y;        // [M·B]
   const float* mask;     // [M·B]
-  const float* numeric;  // [M·B, 4]: N, whose N·Nᵀ the prologue adds to G
+  const float* numeric;  // [M·B, 4]: N, whose N·Nᵀ the prologue adds to G; null: G holds it
   const float* masks;    // [iterations, B] Bernoulli draws every tenant shares, or null
   const float* p_prev;   // [M]: ||W_prev||² of each tenant
   float* alpha_out;      // [M, B]: zero past each tenant's valid rows
   float* c_out;          // [M]
   float* iterations;     // [M]: the iteration that converged, else N
+  float* barriers;       // [1]: the grid barriers the launch crossed
   float* abuf;           // [2][abuf_floats]
-  float* partials;       // [grid][8]: each CTA's test partials, then (active, c_new, c, p)
+  float* partials;       // [2][grid][8]: by parity, each CTA's test partials, then
+                         // (tested, c_new, c_old, p) of its tenant's update
   float* spill;
   long long abuf_floats;
-  int bp_max, rows_cap_max, num_iterations;
+  int bp_max, rows_cap_max, stage, num_iterations;  // stage: the decisions' float4s
   float tol;
 };
 
-// G's element (r, k) of a tenant as B7 reads it: the text G's, in f32,
-// plus (N·Nᵀ)[r, k] summed as one fixed fma chain; 0 where row r or
-// column k is masked.
-__device__ __forceinline__ float tenant_g(const void* g, bool int32, long long ldg, int r, int k,
-                                          const float (&nr)[4], const float* numeric) {
-  const float text = int32 ? (float)__ldg(static_cast<const int*>(g) + r * ldg + k)
-                           : __ldg(static_cast<const float*>(g) + r * ldg + k);
-  const float* nk = numeric + 4 * (size_t)k;
-  const float nn =
-      fmaf(nr[3], __ldg(nk + 3), fmaf(nr[2], __ldg(nk + 2), fmaf(nr[1], __ldg(nk + 1),
-                                                                   nr[0] * __ldg(nk))));
-  return __fadd_rn(text, nn);
+// G's element (r, k) of a tenant as B7 reads it, from its text G's row r
+// (T: f32, or the int8 plane's s32 product, exact in f32): the text
+// element plus, with kNumeric, (N·Nᵀ)[r, k] summed as one fixed fma chain
+// (nr: N's row r); without it G holds N·Nᵀ already.
+template <typename T, bool kNumeric>
+__device__ __forceinline__ float g_element(const T* row, int k, const float (&nr)[4],
+                                           const float* numeric) {
+  const float text = (float)__ldg(row + k);
+  if constexpr (kNumeric) {
+    const float4 nk = __ldg(reinterpret_cast<const float4*>(numeric) + k);
+    const float nn = fmaf(nr[3], nk.w, fmaf(nr[2], nk.z, fmaf(nr[1], nk.y, nr[0] * nk.x)));
+    return __fadd_rn(text, nn);
+  } else {
+    return text;
+  }
 }
 
-template <bool kLogistic>
+// N's row r where the row is kept (else 0), for g_element.
+template <bool kNumeric>
+__device__ __forceinline__ void numeric_row(const float* numeric, int r, bool keep,
+                                            float (&nr)[4]) {
+  float4 n = make_float4(0.f, 0.f, 0.f, 0.f);
+  if constexpr (kNumeric)
+    if (keep) n = __ldg(reinterpret_cast<const float4*>(numeric) + r);
+  nr[0] = n.x;
+  nr[1] = n.y;
+  nr[2] = n.z;
+  nr[3] = n.w;
+}
+
+// The CTA's rows [row0, row0 + my_rows) of a tenant's G into registers
+// (kDualRegCols float4 columns of each row a thread), 0 where the row or
+// the column is masked (mask_s is 0 past the tenant's rows).
+template <typename T, bool kNumeric>
+__device__ __forceinline__ void stage_registers(float4 (&greg)[kDualRows][kDualRegCols],
+                                                const T* g, long long ldg, int row0,
+                                                int my_rows, int bp, const float* mask_s,
+                                                const float* numeric) {
+#pragma unroll
+  for (int j = 0; j < kDualRows; ++j) {
+    const int r = row0 + j;
+    const bool keep = j < my_rows && mask_s[r] > 0.f;
+    float nr[4];
+    numeric_row<kNumeric>(numeric, r, keep, nr);
+    const T* src = g + (size_t)r * ldg;
+#pragma unroll
+    for (int q = 0; q < kDualRegCols; ++q) {
+      const int c0 = 4 * (threadIdx.x + q * kDualThreads);
+      float e[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        e[i] = keep && c0 + i < bp && mask_s[c0 + i] > 0.f
+                   ? g_element<T, kNumeric>(src, c0 + i, nr, numeric)
+                   : 0.f;
+      greg[j][q] = make_float4(e[0], e[1], e[2], e[3]);
+    }
+  }
+}
+
+// The CTA's rows of a tenant's G, a warp a row: the first `resident` into
+// shared memory (g_s, bp floats a row), the rest into the CTA's part of the
+// spill buffer; 0 where the row or the column is masked.
+template <typename T, bool kNumeric>
+__device__ __forceinline__ void stage_rows(float* g_s, float* spill, const T* g, long long ldg,
+                                           int row0, int my_rows, int resident, int bp,
+                                           const float* mask_s, const float* numeric) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int l = warp; l < my_rows; l += kDualWarps) {
+    const int r = row0 + l;
+    const bool keep = mask_s[r] > 0.f;
+    float nr[4];
+    numeric_row<kNumeric>(numeric, r, keep, nr);
+    float* dst = l < resident ? g_s + (size_t)l * bp : spill + (size_t)(l - resident) * bp;
+    const T* src = g + (size_t)r * ldg;
+#pragma unroll 4
+    for (int i = lane; i < bp; i += 32)
+      dst[i] = keep && mask_s[i] > 0.f ? g_element<T, kNumeric>(src, i, nr, numeric) : 0.f;
+  }
+}
+
+// kInRegisters: every CTA's rows of G (at most kDualRows) live in
+// registers, kDualRegCols float4 columns of each a thread, as B7's; else
+// in shared memory, and past `resident` in the spill buffer, read through
+// L2. kSolo: the launch has one tenant with rows (B7's own launch is one):
+// every CTA is its, and the loop is B7's, an iteration that selects no row
+// skipped whole (no barrier); else more than one. kProbe: the timing
+// instantiation (dual_stamp), never a training launch's.
+template <bool kLogistic, bool kInRegisters, bool kSolo, bool kProbe>
 __global__ void __launch_bounds__(kDualThreads, 1)
     dual_tenants_kernel(const DualTenantParams p, const DualTenants t) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const DualLayout lay = dual_layout(p.bp_max, p.rows_cap_max);
+  const DualLayout lay = dual_layout(p.bp_max, p.rows_cap_max, p.stage);
   float* alpha_s = reinterpret_cast<float*>(smem);
   float* mask_s = reinterpret_cast<float*>(smem + lay.mask);
   float* u_s = reinterpret_cast<float*>(smem + lay.u);
   float* y_s = reinterpret_cast<float*>(smem + lay.y);
   float* red = reinterpret_cast<float*>(smem + lay.red);
+  unsigned* flag = reinterpret_cast<unsigned*>(red + kRedFlag);  // the decisions' bits
+  float4* stage_s = reinterpret_cast<float4*>(smem + lay.stage);
   const float4* g4_s = reinterpret_cast<const float4*>(smem + lay.g);
+  // α and G·α of the CTA's rows made by an update of parity q
   const auto a_s = [&](int q) { return reinterpret_cast<float*>(smem + lay.a + q * lay.own); };
   const auto s_s = [&](int q) { return reinterpret_cast<float*>(smem + lay.s + q * lay.own); };
 
   cg::grid_group grid = cg::this_grid();
-  const int cta = blockIdx.x, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int cta = blockIdx.x, ncta = gridDim.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int batch = t.batch_rows;
-  int me = 0;  // the CTA's tenant (a dry tenant owns no CTA, unless every tenant is dry)
-  while (me + 1 < t.tenants && t.first_cta[me + 1] <= cta) ++me;
+  // the tenant of CTA c (a dry tenant owns no CTA, unless every tenant is dry)
+  const auto tenant_of = [&](int c) {
+    int u = 0;
+    while (u + 1 < t.tenants && t.first_cta[u + 1] <= c) ++u;
+    return u;
+  };
+  const int me = tenant_of(cta);
   const int k = cta - t.first_cta[me], ctas = t.first_cta[me + 1] - t.first_cta[me];
   const int v = t.valid[me], bp = (v + 3) & ~3, nvec = bp / 4;
   const int row0 = (int)((long long)k * v / ctas);
   const int my_rows = (int)((long long)(k + 1) * v / ctas) - row0;
   const size_t base = (size_t)t.slot[me] * batch;
-  const float* numeric = p.numeric + 4 * base;
+  const float* numeric = p.numeric ? p.numeric + 4 * base : nullptr;
   const bool test = p.tol > 0.f;
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
   unsigned live = 0;  // tenants with rows: the loop ends when each has converged
   for (int u = 0; u < t.tenants; ++u) live |= t.valid[u] > 0 ? 1u << u : 0u;
+  constexpr bool solo = kSolo;
+  const int slot = cta == 0 ? 0 : k == ctas - 1 ? 1 + me : -1;  // the probe's
+  dual_stamp<kProbe>(t, slot, 0);
 
   // the dry tenants' results: c = 1, α = 0, N iterations (no row, no update)
   if (cta == 0)
@@ -983,27 +809,41 @@ __global__ void __launch_bounds__(kDualThreads, 1)
     const bool keep = mask_s[row0 + l] > 0.f;
     u_s[l] = keep ? __ldg(p.u + base + row0 + l) : 0.f;
     y_s[l] = keep ? __ldg(p.y + base + row0 + l) : 0.f;
-    a_s(0)[l] = 0.f;
-    s_s(0)[l] = 0.f;
+    a_s(0)[l] = 0.f;  // α = 0, the state before update 1
+    s_s(0)[l] = 0.f;  // G·α with α = 0
   }
   const long long ab = t.abuf_at[me];
-  if (k == 0 && v > 0)  // α's padding [v, bp) in both halves: G's zero columns meet it as 0
+  // α's padding [v, bp) in both halves, which the updates never write but
+  // G·α loads as whole float4s: zero, so that whatever the scratch held
+  // there meets G's zero columns as 0. The first barrier orders these
+  // writes before any load.
+  if (k == 0 && v > 0)
     for (int i = v + tid; i < bp; i += kDualThreads)
       p.abuf[ab + i] = p.abuf[p.abuf_floats + ab + i] = 0.f;
   const int resident = t.resident[me];
   float* spill = p.spill + t.spill_at[me] + (size_t)k * (t.rows_cap[me] - resident) * bp;
-  for (int l = warp; l < my_rows; l += kDualWarps) {
-    const int r = row0 + l;
-    const bool keep = mask_s[r] > 0.f;
-    float nr[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) nr[j] = keep ? __ldg(numeric + 4 * (size_t)r + j) : 0.f;
-    float* dst = l < resident ? reinterpret_cast<float*>(smem + lay.g) + (size_t)l * bp
-                              : spill + (size_t)(l - resident) * bp;
-    for (int i = lane; i < bp; i += 32)
-      dst[i] = keep && mask_s[i] > 0.f
-                   ? tenant_g(t.g[me], t.g_int32[me] != 0, t.ldg[me], r, i, nr, numeric)
-                   : 0.f;
+  const void* g_text = t.g[me];
+  const bool g_int32 = t.g_int32[me] != 0;
+  const long long ldg = t.ldg[me];
+  // mask_s is 0 past v: a masked row's or column's G is 0
+  float4 greg[kInRegisters ? kDualRows : 1][kInRegisters ? kDualRegCols : 1];
+  if (v > 0) {
+    const auto stage = [&](auto kind, auto with_numeric) {
+      using T = decltype(kind);
+      constexpr bool kNumeric = decltype(with_numeric)::value;
+      const T* g = static_cast<const T*>(g_text);
+      if constexpr (kInRegisters)
+        stage_registers<T, kNumeric>(greg, g, ldg, row0, my_rows, bp, mask_s, numeric);
+      else
+        stage_rows<T, kNumeric>(reinterpret_cast<float*>(smem + lay.g), spill, g, ldg, row0,
+                                my_rows, resident, bp, mask_s, numeric);
+    };
+    using with = std::true_type;
+    using without = std::false_type;
+    if (g_int32)
+      numeric ? stage(int(), with()) : stage(int(), without());
+    else
+      numeric ? stage(float(), with()) : stage(float(), without());
   }
   float count_all;
   {
@@ -1011,16 +851,109 @@ __global__ void __launch_bounds__(kDualThreads, 1)
     for (int i = tid; i < v; i += kDualThreads) s += mask_s[i];
     count_all = block_sum(s, red + kRedSum);  // also orders the staging before the loop
   }
+  dual_stamp<kProbe>(t, slot, 1);
   const float pp = v > 0 ? __ldg(p.p_prev + t.slot[me]) : 0.f;
   const float step = t.step_size[me], l2 = t.l2_reg[me];
 
-  float c = 1.f;
-  int cur = 0, ran = p.num_iterations;
-  unsigned frozen = 0;  // the launch's tenants that converged: frozen at that state
-  float4* part4 = reinterpret_cast<float4*>(p.partials);
-  for (int it = 1; it <= p.num_iterations && (frozen & live) != live; ++it) {
+  // Each tenant's convergence test of an update: its CTAs' partials are
+  // written after the update's G·α, into a double buffer by parity; the
+  // decider warp of EVERY CTA loads them past the next barrier (the one
+  // barrier an iteration crosses) and sums every tenant's during that
+  // iteration's product, off the path the other warps wait on; the CTA
+  // reads the decisions at the top of the iteration after. Where its
+  // tenant's test converged, the speculative update made meanwhile (if
+  // any) is dropped: α of the tested update (kept in shared memory by
+  // parity) and its c are the result. Lane λ loads CTAs λ + 32·i (B7's
+  // layout of the loads, all issued at once). With one tenant with rows
+  // the sums are B7's: each lane's CTAs in i order, then the lanes by
+  // warp_sum, and lane 0 decides from the CTA's own c. With more, the lanes
+  // stage the partials in shared memory by CTA, and L lanes take each
+  // tenant (L the largest power of two with L·tenants <= 32): lane j of
+  // tenant u's sums its CTAs first + j, first + j + L, ... in order, the L
+  // lanes' sums are added by a butterfly, and lane 0 of them decides tenant
+  // u from the (tested, c_new, c_old, p) its first CTA wrote: every tenant
+  // at once. The same bits in every CTA.
+  const float4* part4 = reinterpret_cast<const float4*>(p.partials);
+  float4 tq[kDualMaxGrid / 32];  // the decider's loads of a test's partials
+  float4 tm = zero4;             // lane u·L: tenant u's (tested, c_new, c_old, p)
+  // lanes a tenant in the decisions of more than one tenant with rows
+  const int lanes = solo ? 32 : 32 >> (32 - __clz(t.tenants - 1));
+  const int lane_tenant = lane / lanes, lane_j = lane % lanes;
+  const auto load_partials = [&](int parity) {  // the decider warp
+    const float4* part = part4 + (size_t)parity * 2 * ncta;
+#pragma unroll
+    for (int i = 0; i < kDualMaxGrid / 32; ++i) {
+      const int c = lane + 32 * i;
+      tq[i] = c < ncta ? __ldcg(part + 2 * (size_t)c) : zero4;
+    }
+    if (!solo)
+      tm = lane_j == 0 && lane_tenant < t.tenants && t.valid[lane_tenant] > 0
+               ? __ldcg(part + 2 * (size_t)t.first_cta[lane_tenant] + 1)
+               : zero4;
+  };
+  // the test of an update (c_new, c_old, p) on its summed partials q:
+  // dual_norm_sq of the step, Δc²·p + 2·Δc·(u·Δα) + Δαᵀ·G·Δα, against that
+  // of the new state
+  const auto converged = [&](float c_new, float c_old, float pq, const float (&q)[4]) {
+    const float dc = c_new - c_old;
+    const float d2 = dc * dc * pq + 2.f * dc * q[2] + q[0];
+    const float n2 = c_new * c_new * pq + 2.f * c_new * q[3] + q[1];
+    return sqrtf(d2) < p.tol * fmaxf(sqrtf(n2), 1.f);
+  };
+  // the decider warp, after load_partials; (c_new, c_old): the CTA's
+  // tenant's tested update (read with one tenant with rows only)
+  const auto decide = [&](float c_new, float c_old) {
+    float q[4] = {0.f, 0.f, 0.f, 0.f};
+    if (solo) {
+#pragma unroll
+      for (int i = 0; i < kDualMaxGrid / 32; ++i) {
+        q[0] += tq[i].x;
+        q[1] += tq[i].y;
+        q[2] += tq[i].z;
+        q[3] += tq[i].w;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) q[j] = warp_sum(q[j]);
+      if (lane == 0) *flag = converged(c_new, c_old, pp, q) ? 1u << me : 0u;
+      return;
+    }
+#pragma unroll
+    for (int i = 0; i < kDualMaxGrid / 32; ++i)
+      if (lane + 32 * i < ncta) stage_s[lane + 32 * i] = tq[i];
+    __syncwarp();
+    if (lane_tenant < t.tenants)
+      for (int c = t.first_cta[lane_tenant] + lane_j; c < t.first_cta[lane_tenant + 1];
+           c += lanes) {
+        const float4 x = stage_s[c];
+        q[0] += x.x;
+        q[1] += x.y;
+        q[2] += x.z;
+        q[3] += x.w;
+      }
+    for (int off = lanes >> 1; off > 0; off >>= 1)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) q[j] += __shfl_xor_sync(0xffffffffu, q[j], off);
+    const bool conv = tm.x != 0.f && converged(tm.y, tm.z, tm.w, q);
+    // tenant u's decision from lane u·L to lane u, then one bit a tenant
+    const bool its = __shfl_sync(0xffffffffu, conv, (lane * lanes) & 31);
+    const unsigned bits = __ballot_sync(0xffffffffu, lane < t.tenants && its);
+    if (lane == 0) *flag = bits;
+  };
+
+  float c = 1.f, c_prev = 1.f;  // c of the CTA's tenant's latest state and of the one before
+  int cur = 0;                  // the parity of its α and G·α in shared memory
+  int ran = p.num_iterations, barriers = 0, pubs = 0, writes = 0;
+  bool mine_frozen = !(live >> me & 1u);  // all dry: nothing to run
+  unsigned frozen = 0;                    // tenants whose test converged
+  int undecided = -1;    // the parity of partials awaiting the next barrier
+  int undecided_it = 0;  // the iteration of the tenant's update tested there, 0: none
+  bool decided = false;  // the decisions of the last barrier's tests await in *flag
+  int decided_it = 0;    // the tenant's iteration among them
+  float decided_c = 1.f;
+  bool decided_spec = false;  // the tenant updated after that test
+  bool finished = live == 0;
+  for (int it = 1; it <= p.num_iterations && !finished; ++it) {
     const float* draw = p.masks ? p.masks + (size_t)(it - 1) * batch : nullptr;
-    const bool mine_frozen = (frozen >> me & 1u) != 0;
     float count = count_all;
     if (draw && !mine_frozen) {
       float s = 0.f;
@@ -1028,13 +961,33 @@ __global__ void __launch_bounds__(kDualThreads, 1)
       count = block_sum(s, red + kRedSum);
     }
     // an iteration that selects no row makes no update and is not convergence
-    const bool active = !mine_frozen && count > 0.f;
+    bool active = !mine_frozen && count > 0.f;
+    if (solo && !active) continue;
+    if (decided) {  // the decisions, before this update overwrites the tested α
+      __syncthreads();
+      const unsigned conv = *flag;
+      decided = false;
+      if (!mine_frozen && (conv >> me & 1u)) {
+        ran = decided_it;
+        c = decided_c;
+        cur ^= solo || decided_spec ? 1 : 0;  // one tenant: the decision came with an update
+        mine_frozen = true;
+        active = false;
+      }
+      frozen |= conv;
+      if (solo ? mine_frozen : (frozen & live) == live) {
+        finished = true;
+        break;
+      }
+    }
     // the JAX loop's f32 arithmetic, operation for operation
     const float eta = __fdiv_rn(step, __fsqrt_rn((float)it));
     const float scale = __fsub_rn(1.f, __fmul_rn(eta, l2));
     const float denom = fmaxf(count, 1.f);
+    const bool last = it == p.num_iterations;
     const int nxt = cur ^ 1;
-    float* a_pub = p.abuf + (size_t)(it & 1) * p.abuf_floats + ab;
+    pubs += active ? 1 : 0;
+    float* a_pub = p.abuf + (size_t)(pubs & 1) * p.abuf_floats + ab;
     if (active && warp == 0) {  // the update of the CTA's rows, a lane a row
       const float *a_old = a_s(cur), *s_old = s_s(cur);
       float* a_new = a_s(nxt);
@@ -1050,101 +1003,147 @@ __global__ void __launch_bounds__(kDualThreads, 1)
         const float a =
             __fsub_rn(__fmul_rn(a_old[l], scale), __fdiv_rn(__fmul_rn(eta, res), denom));
         a_new[l] = a;
-        a_pub[r] = a;
+        if (!last) a_pub[r] = a;
       }
     }
-    const float c_new = __fmul_rn(c, scale);  // c·(1 − ηλ) − η·0/denom
-    if (it == p.num_iterations) {  // the last update: nothing reads G·α or a test after it
+    const float c_new = active ? __fmul_rn(c, scale) : c;  // c·(1 − ηλ) − η·0/denom
+    const int e0 = kDualProbePrologue + kDualProbeIteration * (it - 1);
+    dual_stamp<kProbe>(t, slot, e0);
+    if (last && undecided < 0) {  // nothing reads G·α or a test after the last update
       if (active) {
         cur = nxt;
         c = c_new;
       }
+      finished = true;
       break;
     }
     grid.sync();
+    ++barriers;
+    dual_stamp<kProbe>(t, slot, e0 + 1);
+    const bool deciding = undecided >= 0;
+    if (deciding && warp == kDecider) load_partials(undecided);
+    if (last) {  // the pending tests decide between this update and the tested one
+      if (warp == kDecider) decide(c, c_prev);
+      __syncthreads();
+      if (!mine_frozen && (*flag >> me & 1u)) {
+        ran = undecided_it;  // the tested state stays: this update is dropped
+      } else if (active) {
+        cur = nxt;
+        c = c_new;
+      }
+      finished = true;
+      break;
+    }
+    // ---- G·α_new of the CTA's rows: a thread's columns of every row (α of
+    // the tenant, 16 bytes a load from L2), then the rows' sums across the
+    // CTA in a fixed order
     float* s_new = s_s(nxt);
-    if (active) {  // G·α_new of the CTA's rows, in groups of up to 16 rows
+    if (active) {
       const float4* a4 = reinterpret_cast<const float4*>(a_pub);
-      for (int i = tid; i < nvec; i += kDualThreads)
-        reinterpret_cast<float4*>(alpha_s)[i] = __ldcg(a4 + i);
-      __syncthreads();
-      const float4* alpha4 = reinterpret_cast<const float4*>(alpha_s);
-      const float4* spill4 = reinterpret_cast<const float4*>(spill);
-      const int kept = min(my_rows, resident);
-      for (int r0 = 0; r0 < my_rows;) {
-        if (r0 > 0) __syncthreads();  // warp 0 has read red
-        const bool spilled = r0 >= kept;
-        const int n = min(kDualRows, (spilled ? my_rows : kept) - r0);
+      if constexpr (kInRegisters) {
+        float4 av[kDualRegCols];
+#pragma unroll
+        for (int q = 0; q < kDualRegCols; ++q) {
+          const int i = tid + q * kDualThreads;
+          av[q] = i < nvec ? __ldcg(a4 + i) : zero4;
+        }
         float acc[kDualRows];
-        if (spilled)
-          rows_partials<true>(spill4 + (size_t)(r0 - resident) * nvec, alpha4, nvec, n, acc);
-        else
-          rows_partials<false>(g4_s + (size_t)r0 * nvec, alpha4, nvec, n, acc);
-        finish_rows(acc, r0, n, red, s_new);
-        r0 += n;
+#pragma unroll
+        for (int j = 0; j < kDualRows; ++j) {
+          acc[j] = 0.f;
+#pragma unroll
+          for (int q = 0; q < kDualRegCols; ++q) acc[j] = dot4(greg[j][q], av[q], acc[j]);
+        }
+        finish_rows(acc, 0, my_rows, red, s_new);
+      } else {
+        for (int i = tid; i < nvec; i += kDualThreads)
+          reinterpret_cast<float4*>(alpha_s)[i] = __ldcg(a4 + i);
+        __syncthreads();
+        const float4* alpha4 = reinterpret_cast<const float4*>(alpha_s);
+        const float4* spill4 = reinterpret_cast<const float4*>(spill);
+        const int kept = min(my_rows, resident);
+        // groups of up to 16 rows, each all resident or all spilled
+        for (int r0 = 0; r0 < my_rows;) {
+          if (r0 > 0) __syncthreads();  // warp 0 has read red
+          const bool spilled = r0 >= kept;
+          const int n = min(kDualRows, (spilled ? my_rows : kept) - r0);
+          float acc[kDualRows];
+          if (spilled)
+            rows_partials<true>(spill4 + (size_t)(r0 - resident) * nvec, alpha4, nvec, n, acc);
+          else
+            rows_partials<false>(g4_s + (size_t)r0 * nvec, alpha4, nvec, n, acc);
+          finish_rows(acc, r0, n, red, s_new);
+          r0 += n;
+        }
       }
     }
-    if (test) {
-      // this update's test partials over the CTA's rows (lane l holds rows
-      // l, l + 32, ...: finish_rows wrote its s_new), and whether the
-      // tenant updated, with its c before and after
-      if (warp == 0) {
-        float qd = 0.f, qa = 0.f, ud = 0.f, ua = 0.f;
-        if (active) {
-          const float *a_old = a_s(cur), *s_old = s_s(cur), *a_new = a_s(nxt);
-          for (int l = lane; l < my_rows; l += 32) {
-            const float an = a_new[l], sn = s_new[l];
-            const float d = __fsub_rn(an, a_old[l]);
-            qd = fmaf(d, __fsub_rn(sn, s_old[l]), qd);
-            qa = fmaf(an, sn, qa);
-            ud = fmaf(u_s[l], d, ud);
-            ua = fmaf(u_s[l], an, ua);
-          }
-          qd = warp_sum(qd);
-          qa = warp_sum(qa);
-          ud = warp_sum(ud);
-          ua = warp_sum(ua);
+    dual_stamp<kProbe>(t, slot, e0 + 2);
+    // ---- the partials of this update's test over the CTA's rows in order
+    // (lane l holds rows l, l + 32, ...; finish_rows wrote its s_new): the
+    // one product gives Δαᵀ·G·Δα as Σ Δα·(G·α_new − G·α_old); a tenant that
+    // made no update writes zeros and no test
+    const int wpar = writes & 1;
+    if (test && warp == 0) {
+      float qd = 0.f, qa = 0.f, ud = 0.f, ua = 0.f;
+      if (active) {
+        const float *a_old = a_s(cur), *s_old = s_s(cur), *a_new = a_s(nxt);
+        for (int l = lane; l < my_rows; l += 32) {
+          const float an = a_new[l], sn = s_new[l];
+          const float d = __fsub_rn(an, a_old[l]);
+          qd = fmaf(d, __fsub_rn(sn, s_old[l]), qd);
+          qa = fmaf(an, sn, qa);
+          ud = fmaf(u_s[l], d, ud);
+          ua = fmaf(u_s[l], an, ua);
         }
-        if (lane == 0) {
-          part4[2 * (size_t)cta] = make_float4(qd, qa, ud, ua);
-          part4[2 * (size_t)cta + 1] = make_float4(active ? 1.f : 0.f, c_new, c, pp);
-        }
+        qd = warp_sum(qd);
+        qa = warp_sum(qa);
+        ud = warp_sum(ud);
+        ua = warp_sum(ua);
       }
-      grid.sync();
-      // every tenant's decision in every CTA, the same bits everywhere: lane
-      // u of the decider warp sums tenant u's CTAs' partials in CTA order
-      if (warp == kDecider) {
-        bool conv = false;
-        if (lane < t.tenants && t.valid[lane] > 0) {
-          const int c0 = t.first_cta[lane], c1 = t.first_cta[lane + 1];
-          const float4 meta = __ldcg(part4 + 2 * (size_t)c0 + 1);
-          if (meta.x != 0.f) {
-            float q[4] = {0.f, 0.f, 0.f, 0.f};
-            for (int cc = c0; cc < c1; ++cc) {
-              const float4 pq = __ldcg(part4 + 2 * (size_t)cc);
-              q[0] += pq.x;
-              q[1] += pq.y;
-              q[2] += pq.z;
-              q[3] += pq.w;
-            }
-            // dual_norm_sq: Δc²·p + 2·Δc·(u·Δα) + Δαᵀ·G·Δα, and of the new state
-            const float dc = meta.y - meta.z;
-            const float d2 = dc * dc * meta.w + 2.f * dc * q[2] + q[0];
-            const float n2 = meta.y * meta.y * meta.w + 2.f * meta.y * q[3] + q[1];
-            conv = sqrtf(d2) < p.tol * fmaxf(sqrtf(n2), 1.f);
-          }
-        }
-        const unsigned bits = __ballot_sync(0xffffffffu, conv);
-        if (lane == 0) reinterpret_cast<unsigned*>(red)[kRedFlag] = bits;
+      if (lane == 0) {
+        float4* out = reinterpret_cast<float4*>(p.partials) + ((size_t)wpar * ncta + cta) * 2;
+        out[0] = make_float4(qd, qa, ud, ua);
+        if (!solo) out[1] = make_float4(active ? 1.f : 0.f, c_new, c, pp);
       }
-      __syncthreads();
-      const unsigned conv = reinterpret_cast<const unsigned*>(red)[kRedFlag];
-      if (conv >> me & 1u) ran = it;
-      frozen |= conv;
     }
+    dual_stamp<kProbe>(t, slot, e0 + 3);
+    dual_stamp<kProbe>(t, slot, e0 + 4);  // no second barrier: an empty phase
+    if (deciding) {  // the last tests, their loads landed during the product
+      if (warp == kDecider) decide(c, c_prev);
+      decided = true;
+      decided_it = undecided_it;
+      decided_c = c;
+      decided_spec = active;
+    }
+    dual_stamp<kProbe>(t, slot, e0 + 5);
+    undecided = test ? wpar : -1;
+    undecided_it = active ? it : 0;
+    writes += test ? 1 : 0;
     if (active) {
       cur = nxt;
+      c_prev = c;
       c = c_new;
+    }
+  }
+  if (solo && !finished) {  // the loop ran out, its last iterations selecting no row (B7's tail)
+    if (decided) {
+      __syncthreads();
+      if (!mine_frozen && (*flag >> me & 1u)) {
+        ran = decided_it;
+        c = decided_c;
+        cur ^= decided_spec ? 1 : 0;
+        mine_frozen = true;
+      }
+    }
+    if (undecided >= 0 && !mine_frozen) {  // one more barrier decides the last test
+      grid.sync();
+      ++barriers;
+      if (warp == kDecider) {
+        load_partials(undecided);
+        decide(c, c_prev);
+      }
+      __syncthreads();
+      if (*flag >> me & 1u) ran = undecided_it;
     }
   }
   if (v > 0) {
@@ -1158,6 +1157,7 @@ __global__ void __launch_bounds__(kDualThreads, 1)
       }
     }
   }
+  if (cta == 0 && tid == 0) *p.barriers = (float)barriers;
 }
 
 // The probe that times B7's grid barrier: `crossings` grid.sync()s and
@@ -1272,6 +1272,20 @@ __global__ void __launch_bounds__(kWbThreads) writeback_kernel(
                      numeric + (size_t)t.src_row[u] * 4, w_out + w_row, blockIdx.x, gridDim.x);
 }
 
+// every instantiation of B7's tenant form for a residual mode, as
+// [in registers][one tenant with rows][probe]
+#define DUAL_TENANT_KERNELS(logistic)                                                  \
+  {                                                                                    \
+    {{reinterpret_cast<const void*>(dual_tenants_kernel<logistic, false, false, false>), \
+      reinterpret_cast<const void*>(dual_tenants_kernel<logistic, false, false, true>)}, \
+     {reinterpret_cast<const void*>(dual_tenants_kernel<logistic, false, true, false>),  \
+      reinterpret_cast<const void*>(dual_tenants_kernel<logistic, false, true, true>)}}, \
+    {{reinterpret_cast<const void*>(dual_tenants_kernel<logistic, true, false, false>),  \
+      reinterpret_cast<const void*>(dual_tenants_kernel<logistic, true, false, true>)},  \
+     {reinterpret_cast<const void*>(dual_tenants_kernel<logistic, true, true, false>),   \
+      reinterpret_cast<const void*>(dual_tenants_kernel<logistic, true, true, true>)}}   \
+  }
+
 }  // namespace
 
 // Once a device, before its first launch: the SM count and the opt-in
@@ -1287,91 +1301,19 @@ extern "C" int twtml_gram_setup(int device, int* sm_count, int* shared_optin) {
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(shared_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   const void* kernels[] = {
-      reinterpret_cast<const void*>(dual_sgd_kernel<false, false>),
-      reinterpret_cast<const void*>(dual_sgd_kernel<false, true>),
-      reinterpret_cast<const void*>(dual_sgd_kernel<true, false>),
-      reinterpret_cast<const void*>(dual_sgd_kernel<true, true>),
       reinterpret_cast<const void*>(count_build_kernel<int8_t>),
       reinterpret_cast<const void*>(count_build_kernel<float>),
-      reinterpret_cast<const void*>(dual_tenants_kernel<false>),
-      reinterpret_cast<const void*>(dual_tenants_kernel<true>),
   };
+  const void* dual[2][2][2][2] = {DUAL_TENANT_KERNELS(false), DUAL_TENANT_KERNELS(true)};
   for (const void* k : kernels)
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, *shared_optin);
+  for (int i = 0; i < 16; ++i)
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute((&dual[0][0][0][0])[i],
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, *shared_optin);
   const cudaError_t restored = cudaSetDevice(current);
   return (int)(err != cudaSuccess ? err : restored);
-}
-
-// B7: the whole dual loop for one batch, one cooperative launch on `stream`
-// (the current device's, set up by twtml_gram_setup). g [>= rows, ldg] f32;
-// u, y, mask [rows] f32; masks [iterations, rows] f32 or null; p_prev [1]
-// f32; alpha_out [rows] f32; scratch [2·bp + 8·grid + 3] f32 (α's double
-// buffer, the tests' partials; its last three floats receive c, the
-// iterations run and the grid barriers crossed); spill [grid·spill_per_cta·bp] f32. The plan's values and
-// `plan_layout` (host memory: dual_layout()'s offsets of the mask, u, y,
-// α and G·α by parity, the scratch and the resident rows) come
-// from ops/fused_gram.py dual_plan; a plan that differs is refused.
-// `in_registers` 1 keeps the CTA's rows of G in registers (at most
-// kDualRows rows, B <= 4·kDualThreads·kDualRegCols; nothing of G in shared
-// memory or spilled). `residual_mode` 0 least squares, 1 logistic. Returns the
-// launch's CUDA error (a refused cooperative launch included), 0 when it
-// was taken.
-extern "C" int twtml_dual_sgd(const void* g, long long ldg, const void* u, const void* y,
-                              const void* mask, const void* masks, const void* p_prev,
-                              void* alpha_out, void* scratch, void* spill, int rows, int bp,
-                              int grid, int rows_cap, int resident, int spill_per_cta,
-                              int in_registers, int shared_bytes, const int* plan_layout,
-                              int num_iterations, float step_size, float l2_reg, float tol,
-                              int residual_mode, void* stream) {
-  const DualLayout lay = dual_layout(bp, rows_cap);
-  const size_t offsets[] = {lay.mask, lay.u, lay.y, lay.a, lay.s, lay.red, lay.g};
-  bool ok = rows >= 1 && ldg >= rows && bp >= rows && bp % 4 == 0 && grid >= 1 &&
-            grid <= kDualMaxGrid &&
-            (long long)rows_cap * grid >= rows && resident >= 0 && resident <= rows_cap &&
-            spill_per_cta == rows_cap - resident && num_iterations >= 0 &&
-            (residual_mode == 0 || residual_mode == 1) &&
-            (in_registers == 0 || in_registers == 1) &&
-            (size_t)shared_bytes >= lay.g + (size_t)(in_registers ? 0 : resident) * bp * 4;
-  if (in_registers)
-    ok = ok && rows_cap <= kDualRows && bp <= 4 * kDualThreads * kDualRegCols &&
-         resident == rows_cap;
-  for (int i = 0; i < 7; ++i) ok = ok && (size_t)plan_layout[i] == offsets[i];
-  if (!ok) return (int)cudaErrorInvalidValue;
-  DualParams p;
-  p.g = static_cast<const float*>(g);
-  p.ldg = ldg;
-  p.u = static_cast<const float*>(u);
-  p.y = static_cast<const float*>(y);
-  p.mask = static_cast<const float*>(mask);
-  p.masks = static_cast<const float*>(masks);
-  p.p_prev = static_cast<const float*>(p_prev);
-  p.alpha_out = static_cast<float*>(alpha_out);
-  p.abuf = static_cast<float*>(scratch);
-  p.partials = p.abuf + 2 * (size_t)bp;
-  p.c_out = p.partials + 8 * (size_t)grid;
-  p.iterations = p.c_out + 1;
-  p.barriers = p.c_out + 2;
-  p.spill = static_cast<float*>(spill);
-  p.rows = rows;
-  p.bp = bp;
-  p.rows_cap = rows_cap;
-  p.resident = resident;
-  p.spill_per_cta = spill_per_cta;
-  p.num_iterations = num_iterations;
-  p.step_size = step_size;
-  p.l2_reg = l2_reg;
-  p.tol = tol;
-  void* args[] = {&p};
-  const void* kernels[2][2] = {
-      {reinterpret_cast<const void*>(dual_sgd_kernel<false, false>),
-       reinterpret_cast<const void*>(dual_sgd_kernel<false, true>)},
-      {reinterpret_cast<const void*>(dual_sgd_kernel<true, false>),
-       reinterpret_cast<const void*>(dual_sgd_kernel<true, true>)},
-  };
-  return (int)cudaLaunchCooperativeKernel(kernels[residual_mode][in_registers], dim3(grid),
-                                          dim3(kDualThreads), args, (size_t)shared_bytes,
-                                          static_cast<cudaStream_t>(stream));
 }
 
 // The barrier probe: `crossings` of B7's grid barrier on `grid` CTAs of
@@ -1427,33 +1369,48 @@ extern "C" int twtml_count_build(const void* idx, const void* val, void* out, in
 }
 
 // B7's tenant form: every tenant's dual loop in one cooperative launch on
-// `stream`. u, y, mask [M·B] f32, numeric [M·B, 4] f32, masks [iterations,
-// B] f32 or null, p_prev [M] f32 -> alpha_out [M, B], c_out and
-// iterations [M] (each tenant's row m = slot[u]); abuf [2·abuf_floats],
-// partials [8·grid] and spill f32 scratch. The plan's values and
-// `plan_layout` (dual_layout(bp_max, rows_cap_max)'s offsets, as B7's)
-// come from ops/fused_gram.py dual_tenants_plan; a plan that differs is
-// refused. g[u]: tenant u's text G, int32 where g_int32[u], else f32, row
-// stride ldg[u] (null for a dry tenant). `residual_mode` 0 least squares,
-// 1 logistic. Returns the launch's CUDA error, 0 when it was taken.
+// `stream` (B7 itself is the table of one tenant). u, y, mask [M·B] f32,
+// numeric [M·B, 4] f32 (null: each G holds N·Nᵀ already), masks
+// [iterations, B] f32 or null, p_prev [M] f32 -> alpha_out [M, B], c_out
+// and iterations [M] (each tenant's row m = slot[u]), barriers [1] (the
+// grid barriers the launch crossed); abuf [2·abuf_floats], partials
+// [16·grid] and spill f32 scratch. The plan's values and `plan_layout`
+// (dual_layout(bp_max, rows_cap_max, stage)'s offsets, stage = grid where
+// more than one tenant has rows, else 0) come from ops/fused_gram.py
+// dual_tenants_plan; a plan that differs is refused.
+// `in_registers` 1 keeps every CTA's rows of G in registers (each tenant at
+// most kDualRows rows a CTA, bp <= 4·kDualThreads·kDualRegCols; nothing of G
+// in shared memory or spilled). g[u]: tenant u's text G, int32 where
+// g_int32[u], else f32, row stride ldg[u] (null for a dry tenant).
+// `residual_mode` 0 least squares, 1 logistic. `probe` (or null): the
+// timing instantiation's stamps [1 + tenants, probe_edges] of (globaltimer,
+// clock64). Returns the launch's CUDA error, 0 when it was taken.
 extern "C" int twtml_dual_sgd_tenants(
     const void* u, const void* y, const void* mask, const void* numeric, const void* masks,
-    const void* p_prev, void* alpha_out, void* c_out, void* iterations, void* abuf,
-    void* partials, void* spill, long long abuf_floats, int tenants, int batch_rows, int grid,
-    int bp_max, int rows_cap_max, int shared_bytes, const int* plan_layout,
-    const int* first_cta, const int* valid, const int* slot, const int* rows_cap,
-    const int* resident, const long long* spill_at, const long long* abuf_at,
-    const void* const* g, const long long* ldg, const int* g_int32, const float* step_sizes,
-    const float* l2_regs, int num_iterations, float tol, int residual_mode, void* stream) {
-  const DualLayout lay = dual_layout(bp_max, rows_cap_max);
-  const size_t offsets[] = {lay.mask, lay.u, lay.y, lay.a, lay.s, lay.red, lay.g};
+    const void* p_prev, void* alpha_out, void* c_out, void* iterations, void* barriers,
+    void* abuf, void* partials, void* spill, long long abuf_floats, int tenants,
+    int batch_rows, int grid, int bp_max, int rows_cap_max, int shared_bytes, int in_registers,
+    const int* plan_layout, const int* first_cta, const int* valid, const int* slot,
+    const int* rows_cap, const int* resident, const long long* spill_at,
+    const long long* abuf_at, const void* const* g, const long long* ldg, const int* g_int32,
+    const float* step_sizes, const float* l2_regs, int num_iterations, float tol,
+    int residual_mode, void* probe, int probe_edges, void* stream) {
+  int live = 0;  // tenants with rows: more than one stage the decisions
+  for (int w = 0; w < tenants && w < kGramTenants; ++w) live += valid[w] > 0 ? 1 : 0;
+  const int stage = live > 1 ? grid : 0;
+  const DualLayout lay = dual_layout(bp_max, rows_cap_max, stage);
+  const size_t offsets[] = {lay.mask, lay.u, lay.y, lay.a, lay.s, lay.red, lay.stage, lay.g};
   bool ok = tenants >= 1 && tenants <= kGramTenants && batch_rows >= 1 && grid >= 1 &&
             grid <= kDualMaxGrid && bp_max >= 4 && bp_max % 4 == 0 && rows_cap_max >= 1 &&
             abuf_floats >= 4 && abuf_floats % 4 == 0 && num_iterations >= 0 &&
-            (residual_mode == 0 || residual_mode == 1) && first_cta[0] == 0 &&
-            first_cta[tenants] == grid && (size_t)shared_bytes >= lay.g;
-  for (int i = 0; i < 7; ++i) ok = ok && (size_t)plan_layout[i] == offsets[i];
+            (residual_mode == 0 || residual_mode == 1) &&
+            (in_registers == 0 || in_registers == 1) && first_cta[0] == 0 &&
+            first_cta[tenants] == grid && (size_t)shared_bytes >= lay.g && barriers != nullptr &&
+            (probe == nullptr || probe_edges >= 1);
+  for (int i = 0; i < 8; ++i) ok = ok && (size_t)plan_layout[i] == offsets[i];
   DualTenants t;
+  t.probe = static_cast<unsigned long long*>(probe);
+  t.probe_edges = probe ? probe_edges : 0;
   t.tenants = tenants;
   t.batch_rows = batch_rows;
   t.first_cta[0] = 0;
@@ -1466,9 +1423,12 @@ extern "C" int twtml_dual_sgd_tenants(
            resident[w] >= 0 && resident[w] <= rows_cap[w] && rows_cap[w] <= rows_cap_max &&
            spill_at[w] >= 0 && abuf_at[w] >= 0 && abuf_at[w] % 4 == 0 &&
            abuf_at[w] + bp <= abuf_floats &&
-           (size_t)shared_bytes >= lay.g + (size_t)resident[w] * bp * 4 &&
+           (size_t)shared_bytes >= lay.g + (size_t)(in_registers ? 0 : resident[w]) * bp * 4 &&
            (v == 0 || (k > 0 && (v + k - 1) / k <= rows_cap[w] && g[w] != nullptr &&
-                       ldg[w] >= v));
+                       ldg[w] >= v)) &&
+           (!in_registers || (rows_cap[w] <= kDualRows &&
+                              bp <= 4 * kDualThreads * kDualRegCols &&
+                              resident[w] == rows_cap[w]));
     t.first_cta[w + 1] = in ? first_cta[w + 1] : grid;
     t.valid[w] = v;
     t.slot[w] = in ? slot[w] : 0;
@@ -1493,17 +1453,23 @@ extern "C" int twtml_dual_sgd_tenants(
   p.alpha_out = static_cast<float*>(alpha_out);
   p.c_out = static_cast<float*>(c_out);
   p.iterations = static_cast<float*>(iterations);
+  p.barriers = static_cast<float*>(barriers);
   p.abuf = static_cast<float*>(abuf);
   p.partials = static_cast<float*>(partials);
   p.spill = static_cast<float*>(spill);
   p.abuf_floats = abuf_floats;
   p.bp_max = bp_max;
   p.rows_cap_max = rows_cap_max;
+  p.stage = stage;
   p.num_iterations = num_iterations;
   p.tol = tol;
   void* args[] = {&p, &t};
-  const void* kernel = residual_mode ? reinterpret_cast<const void*>(dual_tenants_kernel<true>)
-                                     : reinterpret_cast<const void*>(dual_tenants_kernel<false>);
+  // [residual mode][in registers][one tenant with rows][probe]
+  const void* kernels[2][2][2][2] = {
+      DUAL_TENANT_KERNELS(false),
+      DUAL_TENANT_KERNELS(true),
+  };
+  const void* kernel = kernels[residual_mode][in_registers][live == 1][probe != nullptr];
   return (int)cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kDualThreads), args,
                                           (size_t)shared_bytes, static_cast<cudaStream_t>(stream));
 }

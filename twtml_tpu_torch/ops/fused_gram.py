@@ -13,10 +13,10 @@ fusions of ``twtml_tpu/ops/gram.py`` and ``twtml_tpu/models/sgd.py``
   then an exact f32 cast) in the int8 plane, an f32 ``torch.matmul`` (TF32
   off) in the others. A library GEMM, as the JAX package leaves it to XLA.
 - B7 ``dual_sgd``: MLlib's loop on the dual state {c, α}, one persistent
-  cooperative launch a batch, one grid barrier and one pass over G an
-  iteration, G's rows in registers (or shared memory) across the loop.
-  Twin: ``dual_sgd_reference`` (models/sgd.py ``run_dual_loop`` as torch
-  ops).
+  cooperative launch a batch (B7's tenant table of one tenant), one grid
+  barrier and one pass over G an iteration, G's rows in registers (or
+  shared memory) across the loop. Twin: ``dual_sgd_reference``
+  (models/sgd.py ``run_dual_loop`` as torch ops).
 - B8 ``dual_writeback_counts``: W_new = c·W_prev + Cᵀα (and the numeric
   columns' w_num·c + Nᵀα) in one fixed-order column pass over C. Twin:
   ``dual_writeback_reference``.
@@ -26,9 +26,12 @@ step in the JAX package) take M parts of B rows and each part's valid rows:
 ``count_build_tenants`` (B4's, one launch for the tenants of one Gram
 plane, every block bitwise B4's), ``tenant_gram_blocks`` (one library
 product a tenant over its valid rows), ``dual_sgd_tenants`` (B7's, M dual
-loops in one cooperative launch, ``dual_tenants_plan``) and
-``dual_writeback_tenants`` (B8's, every row bitwise B8's on the same rows);
-each plain version is M calls of the single-tenant one.
+loops in one cooperative launch, ``dual_tenants_plan``; its timing
+instantiation ``dual_tenants_probe``, read by ``dual_tenants_probe_split``)
+and ``dual_writeback_tenants`` (B8's, every row bitwise B8's on the same
+rows); each plain version is M calls of the single-tenant one. B4, B7 and
+B8 each have one kernel and one C entry: a single batch is their tenant
+table of one tenant.
 
 The kernels are ``csrc/gram.cu`` (its header gives each design). None uses
 float atomics: reruns are bitwise equal. Routing as in ops/fused_sgd.py: a
@@ -71,6 +74,11 @@ DUAL_RED_FLOATS = (DUAL_WARPS * DUAL_ROWS + DUAL_WARPS + 4) & ~3
 WRITEBACK_THREADS = 256
 WRITEBACK_COLUMNS = 128  # text columns a block of B8 owns
 TENANTS_PER_LAUNCH = 32  # tenants a tenant-form launch (B7's: a lane of its decider warp each)
+# B7's tenant form's timing probe: the phase edges it stamps in the prologue
+# (entry, G staged), then in each iteration (the ends of DUAL_PROBE_PHASES)
+DUAL_PROBE_PROLOGUE_EDGES = 2
+DUAL_PROBE_ITERATION_EDGES = 6
+DUAL_PROBE_PHASES = ("update", "barrier 1", "product", "partials", "barrier 2", "decision")
 NVCC_DEFINES = tuple(
     f"-DTWTML_GRAM_{name}={value}" for name, value in (
         ("COUNT_THREADS", COUNT_THREADS), ("COUNT_KEY_BYTES", COUNT_KEY_BYTES),
@@ -78,6 +86,8 @@ NVCC_DEFINES = tuple(
         ("DUAL_REG_COLUMNS", DUAL_REG_COLUMNS), ("DUAL_MAX_GRID", DUAL_MAX_GRID),
         ("DUAL_RED_FLOATS", DUAL_RED_FLOATS), ("WRITEBACK_THREADS", WRITEBACK_THREADS),
         ("WRITEBACK_COLUMNS", WRITEBACK_COLUMNS), ("TENANTS_PER_LAUNCH", TENANTS_PER_LAUNCH),
+        ("DUAL_PROBE_PROLOGUE_EDGES", DUAL_PROBE_PROLOGUE_EDGES),
+        ("DUAL_PROBE_ITERATION_EDGES", DUAL_PROBE_ITERATION_EDGES),
     )
 )
 COUNT_KINDS = {torch.int8: 0, torch.float32: 1}
@@ -133,56 +143,11 @@ def count_shared_bytes(tokens: int, *, shared_limit: int) -> int:
     return shared
 
 
-class DualPlan(NamedTuple):
-    """How one B7 launch lays G over the card. CTA c owns rows
-    [c*B // grid, (c+1)*B // grid). With ``in_registers`` (at most
-    ``DUAL_ROWS`` rows a CTA, B <= 2048) they live in registers,
-    ``DUAL_REG_COLUMNS`` float4 columns of each a thread; else the first
-    ``resident`` stay in shared memory (``bp`` floats a row) and the rest
-    are staged once into the spill buffer and read through L2 each
-    iteration."""
-
-    rows: int
-    bp: int  # floats a stored row of G takes (rows rounded up to 4)
-    grid: int
-    rows_cap: int
-    resident: int  # rows of G a CTA keeps on chip (registers or shared memory)
-    spill_per_cta: int
-    in_registers: bool
-    shared_bytes: int
-    # byte offsets of the mask, u, y, α and G·α ([2][rows_cap] each, by the
-    # parity of the update), the reduction scratch and the resident rows (α
-    # of the batch at 0); the C entry refuses a plan that differs from the
-    # kernel's own dual_layout()
-    smem_layout: tuple[int, ...]
-
-    def cta_rows(self, cta: int) -> range:
-        return range(cta * self.rows // self.grid, (cta + 1) * self.rows // self.grid)
-
-    @property
-    def resident_rows(self) -> int:
-        return sum(min(len(self.cta_rows(c)), self.resident) for c in range(self.grid))
-
-    @property
-    def spill_rows(self) -> int:
-        return self.rows - self.resident_rows
-
-    @property
-    def spill_floats(self) -> int:
-        return self.grid * self.spill_per_cta * self.bp
-
-    @property
-    def scratch_floats(self) -> int:
-        """α twice (the double buffer), the convergence test's partials
-        [2, grid, 4] (double-buffered too), then c, the iterations run and
-        the grid barriers crossed."""
-        return 2 * self.bp + 8 * self.grid + 3
-
-
-def _dual_layout(bp: int, rows_cap: int) -> tuple[int, ...]:
+def _dual_layout(bp: int, rows_cap: int, stage: int = 0) -> tuple[int, ...]:
     """csrc/gram.cu dual_layout: byte offsets of the mask, u, y, α, G·α, the
-    reduction scratch and the resident rows of G, for [bp]-float vectors of
-    the batch and [rows_cap]-float vectors of a CTA's rows."""
+    reduction scratch, the decisions' staging (``stage`` float4s) and the
+    resident rows of G, for [bp]-float vectors of the batch and
+    [rows_cap]-float vectors of a CTA's rows."""
     vec = _align16(4 * bp)
     own = _align16(4 * rows_cap)
     mask, u = vec, 2 * vec
@@ -190,37 +155,8 @@ def _dual_layout(bp: int, rows_cap: int) -> tuple[int, ...]:
     a = y + own  # α [2][rows_cap] by the parity of the update that made it
     s = a + 2 * own  # G·α [2][rows_cap]
     red = s + 2 * own
-    return (mask, u, y, a, s, red, red + DUAL_RED_FLOATS * 4)
-
-
-def dual_plan(rows: int, *, sm_count: int, shared_limit: int) -> DualPlan:
-    """The grid, rows a CTA and where G's rows live for one B7 launch.
-    Shared memory holds α and the validity mask of the whole batch ([bp]
-    f32 each), six [rows_cap] vectors of the CTA's rows, a small scratch,
-    then, unless G's rows fit in registers, as many f32 rows of G as fit in
-    ``shared_limit`` (232,448 B on an H100). At most one CTA an SM, and no
-    more CTAs than give each warp a row."""
-    if rows < 1:
-        raise ValueError("the dual loop needs at least one row")
-    bp = -(-rows // 4) * 4
-    grid = max(1, min(sm_count, DUAL_MAX_GRID, -(-rows // DUAL_WARPS)))
-    rows_cap = -(-rows // grid)
-    layout = _dual_layout(bp, rows_cap)
-    g = layout[-1]
-    if g > shared_limit:
-        raise ValueError(f"{rows} rows need {g} B of shared memory before any row of G; "
-                         f"the limit is {shared_limit} B")
-    if rows_cap <= DUAL_ROWS and bp <= 4 * DUAL_THREADS * DUAL_REG_COLUMNS:
-        return DualPlan(rows=rows, bp=bp, grid=grid, rows_cap=rows_cap, resident=rows_cap,
-                        spill_per_cta=0, in_registers=True, shared_bytes=g,
-                        smem_layout=layout)
-    resident = min(rows_cap, (shared_limit - g) // (4 * bp))
-    return DualPlan(
-        rows=rows, bp=bp, grid=grid, rows_cap=rows_cap, resident=resident,
-        spill_per_cta=rows_cap - resident, in_registers=False,
-        shared_bytes=g + resident * 4 * bp,
-        smem_layout=layout,
-    )
+    staged = red + DUAL_RED_FLOATS * 4
+    return (mask, u, y, a, s, red, staged, staged + 16 * stage)
 
 
 def tenant_padded_rows(valid: int) -> int:
@@ -268,13 +204,16 @@ def count_tenants_plan(valid_rows, tenants, tokens: int, *, shared_limit: int) -
 class DualTenantsPlan(NamedTuple):
     """How one launch of B7's tenant form lays M tenants' G over the card:
     CTAs [first_cta[t], first_cta[t + 1]) run tenant t's loop, CTA k of
-    them its rows ``cta_rows(t, k)``; of a CTA's rows the first
-    ``resident[t]`` live in shared memory (``bp`` floats a row: the
-    tenant's rows rounded up to 4), the rest in the spill buffer from float
-    ``spill_at[t]`` on, a CTA's rows_cap − resident after the one before's;
-    its α at float ``abuf_at[t]`` of each half of α's double buffer. One
-    layout (``smem_layout``, B7's ``dual_layout`` at ``bp_max`` and
-    ``rows_cap_max``) for every CTA."""
+    them its rows ``cta_rows(t, k)``. With ``in_registers`` every CTA's rows
+    (at most ``DUAL_ROWS``) live in registers, ``DUAL_REG_COLUMNS`` float4
+    columns of each a thread; else the first ``resident[t]`` of a CTA's rows
+    live in shared memory (``bp`` floats a row: the tenant's rows rounded up
+    to 4), the rest in the spill buffer from float ``spill_at[t]`` on, a
+    CTA's rows_cap − resident after the one before's. Its α at float
+    ``abuf_at[t]`` of each half of α's double buffer. One layout
+    (``smem_layout``, ``dual_layout`` at ``bp_max`` and ``rows_cap_max``,
+    with a staging of ``grid`` float4s for the decisions where more than one
+    tenant has rows) for every CTA."""
 
     valid_rows: tuple
     first_cta: tuple
@@ -288,6 +227,7 @@ class DualTenantsPlan(NamedTuple):
     smem_layout: tuple
     abuf_floats: int
     spill_floats: int
+    in_registers: bool
 
     @property
     def grid(self) -> int:
@@ -299,23 +239,53 @@ class DualTenantsPlan(NamedTuple):
         return range(k * v // ctas, (k + 1) * v // ctas)
 
     @property
+    def resident_rows(self) -> int:
+        """Rows of G kept on chip (registers or shared memory), every tenant's."""
+        return sum(min(len(self.cta_rows(t, k)), self.resident[t])
+                   for t in range(len(self.valid_rows))
+                   for k in range(self.first_cta[t + 1] - self.first_cta[t]))
+
+    @property
+    def spill_rows(self) -> int:
+        return sum(self.valid_rows) - self.resident_rows
+
+    @property
     def scratch_floats(self) -> int:
-        """α's double buffer, then each CTA's 8 floats of test partials."""
-        return 2 * self.abuf_floats + 8 * self.grid
+        """α's double buffer, then each CTA's test partials and its tenant's
+        (tested, c_new, c_old, p), double-buffered by parity: [2, grid, 8]."""
+        return 2 * self.abuf_floats + 16 * self.grid
+
+
+def in_registers(rows_cap: int, bp: int) -> bool:
+    """Whether a CTA's rows of G fit in registers: at most DUAL_ROWS rows of
+    at most 4·DUAL_THREADS·DUAL_REG_COLUMNS columns (B = 2048 over an
+    H100's 132 CTAs)."""
+    return rows_cap <= DUAL_ROWS and bp <= 4 * DUAL_THREADS * DUAL_REG_COLUMNS
 
 
 def dual_tenants_plan(valid_rows, *, sm_count: int, shared_limit: int) -> DualTenantsPlan:
     """One launch of B7's tenant form for tenants of ``valid_rows`` rows
-    each: at most min(``sm_count``, DUAL_MAX_GRID) CTAs, one an SM (a
-    cooperative launch), no more for a tenant than give each warp a row;
-    every tenant with a row gets a CTA, a dry one none (all dry: tenant 0
-    gets one, which writes the results); each tenant's share in proportion
-    to its rows of G, v² (rounded down), the CTAs left one at a time to the
-    tenant whose CTAs hold the most of G each (first of equals). Shared
-    memory holds the vectors at the widest tenant's width and as many rows
-    of G as fit, up to ``shared_limit`` (232,448 B on an H100). At most
-    TENANTS_PER_LAUNCH tenants, and no more with rows than CTAs."""
-    valid = tuple(int(v) for v in valid_rows)
+    each (B7 itself: one tenant of B rows): at most min(``sm_count``,
+    DUAL_MAX_GRID) CTAs, one an SM (a cooperative launch), no more for a
+    tenant than give each warp a row; every tenant with a row gets a CTA, a
+    dry one none (all dry: tenant 0 gets one, which writes the results);
+    each tenant's share in proportion to its rows of G, v² (rounded down),
+    the CTAs left one at a time to the tenant whose CTAs hold the most of G
+    each (first of equals). G lives in registers when every tenant's CTAs
+    hold at most DUAL_ROWS rows of at most 4·DUAL_THREADS·DUAL_REG_COLUMNS
+    columns (``in_registers``; config #4's 4 parts of ~515 rows, 16 rows a
+    CTA, and B7's B = 2048); else shared memory holds the vectors at the
+    widest tenant's width and as many rows of G as fit, up to
+    ``shared_limit`` (232,448 B on an H100), the rest spilled to L2. The
+    kernel crosses one grid barrier an iteration (none after the last
+    update unless a test is pending, as B7), so every CTA of the launch must
+    be resident at once. At most TENANTS_PER_LAUNCH tenants, and no more
+    with rows than CTAs."""
+    return _dual_tenants_plan(tuple(int(v) for v in valid_rows), sm_count, shared_limit)
+
+
+@functools.lru_cache(maxsize=256)
+def _dual_tenants_plan(valid: tuple, sm_count: int, shared_limit: int) -> DualTenantsPlan:
     if not 1 <= len(valid) <= TENANTS_PER_LAUNCH or min(valid) < 0:
         raise ValueError(f"a B7 tenant launch takes 1..{TENANTS_PER_LAUNCH} tenants with 0 or "
                          f"more rows each, got {valid}")
@@ -343,13 +313,18 @@ def dual_tenants_plan(valid_rows, *, sm_count: int, shared_limit: int) -> DualTe
     bp = [-(-v // 4) * 4 for v in valid]
     rows_cap = [-(-v // k) if v else 0 for v, k in zip(valid, ctas)]
     bp_max, rows_cap_max = max(4, max(bp)), max(1, max(rows_cap))
-    layout = _dual_layout(bp_max, rows_cap_max)
+    # more than one tenant with rows: every CTA's test partials staged for the decisions
+    layout = _dual_layout(bp_max, rows_cap_max, first[-1] if len(live) > 1 else 0)
     g = layout[-1]
     if g > shared_limit:
         raise ValueError(f"tenants of {max(valid)} rows need {g} B of shared memory before any "
                          f"row of G; the limit is {shared_limit} B")
-    shared = min(shared_limit, max(g + rc * 4 * b for rc, b in zip(rows_cap, bp)))
-    resident = [min(rc, (shared - g) // (4 * b)) if b else 0 for rc, b in zip(rows_cap, bp)]
+    regs = bool(live) and all(in_registers(rows_cap[t], bp[t]) for t in live)
+    if regs:
+        shared, resident = g, list(rows_cap)
+    else:
+        shared = min(shared_limit, max(g + rc * 4 * b for rc, b in zip(rows_cap, bp)))
+        resident = [min(rc, (shared - g) // (4 * b)) if b else 0 for rc, b in zip(rows_cap, bp)]
     spill_at, abuf_at, spill, abuf = [], [], 0, 0
     for k, rc, res, b in zip(ctas, rows_cap, resident, bp):
         spill_at.append(spill)
@@ -360,7 +335,32 @@ def dual_tenants_plan(valid_rows, *, sm_count: int, shared_limit: int) -> DualTe
         valid_rows=valid, first_cta=tuple(first), rows_cap=tuple(rows_cap),
         resident=tuple(resident), spill_at=tuple(spill_at), abuf_at=tuple(abuf_at),
         bp_max=bp_max, rows_cap_max=rows_cap_max, shared_bytes=shared, smem_layout=layout,
-        abuf_floats=max(4, abuf), spill_floats=spill)
+        abuf_floats=max(4, abuf), spill_floats=spill, in_registers=regs)
+
+
+def dual_tenants_barriers(valid_rows, iterations, *, num_iterations: int,
+                          convergence_tol: float, selects: str = "all"):
+    """The grid barriers one launch of B7's tenant form crosses, from each
+    tenant's iterations run. One tenant with rows (B7): one an update, less
+    the last update's when no test is pending (tolerance 0), plus one that
+    carries the test that stopped the loop early; ``selects`` says whether
+    every iteration's draws select a row of it ("all"), some do not
+    ("some": None, not counted) or none does ("none": 0). More tenants with
+    rows: one an iteration, the last's only to decide the pending tests
+    (tolerance > 0); the launch ends at the top of the iteration after the
+    barrier that decided the last tenant's freeze. No tenant with rows: 0."""
+    live = [t for t, v in enumerate(valid_rows) if v]
+    n, test = int(num_iterations), convergence_tol > 0
+    if not live or n == 0:
+        return 0
+    if len(live) == 1:
+        if selects != "all":
+            return 0 if selects == "none" else None
+        return min(int(iterations[live[0]]) + 1, n) if test else n - 1
+    if not test:
+        return n - 1
+    stops = [int(iterations[t]) for t in live]
+    return min(max(stops) + 1, n) if max(stops) < n else n
 
 
 # ---------------------------------------------------------------- plain twins
@@ -532,17 +532,6 @@ tenant_gram_blocks.products = 0
 
 # the C entries of csrc/gram.cu: name -> argument types
 _ENTRIES = {
-    "twtml_dual_sgd": (
-        [ctypes.c_void_p] + [ctypes.c_longlong]  # g, ldg
-        + [ctypes.c_void_p] * 8  # u, y, mask, masks, p_prev, alpha_out, scratch, spill
-        + [ctypes.c_int] * 8  # rows, bp, grid, rows_cap, resident, spill_per_cta,
-        #                       in_registers, shared_bytes
-        + [ctypes.POINTER(ctypes.c_int)]  # the plan's smem_layout
-        + [ctypes.c_int]  # iterations
-        + [ctypes.c_float] * 3  # step_size, l2_reg, tol
-        + [ctypes.c_int]  # residual_mode
-        + [ctypes.c_void_p]  # stream
-    ),
     "twtml_dual_barrier_probe": [ctypes.c_int] * 2 + [ctypes.c_void_p],  # grid, crossings
     "twtml_count_build": (
         [ctypes.c_void_p] * 3  # idx, val, out
@@ -551,10 +540,11 @@ _ENTRIES = {
         + [ctypes.c_void_p]  # stream
     ),
     "twtml_dual_sgd_tenants": (
-        [ctypes.c_void_p] * 12  # u, y, mask, numeric, masks, p_prev, alpha_out, c_out,
-        #                         iterations, abuf, partials, spill
+        [ctypes.c_void_p] * 13  # u, y, mask, numeric, masks, p_prev, alpha_out, c_out,
+        #                         iterations, barriers, abuf, partials, spill
         + [ctypes.c_longlong]  # abuf_floats
-        + [ctypes.c_int] * 6  # tenants, batch_rows, grid, bp_max, rows_cap_max, shared_bytes
+        + [ctypes.c_int] * 7  # tenants, batch_rows, grid, bp_max, rows_cap_max, shared_bytes,
+        #                       in_registers
         + [ctypes.POINTER(ctypes.c_int)] * 6  # plan_layout, first_cta, valid, slot, rows_cap,
         #                                      resident
         + [ctypes.POINTER(ctypes.c_longlong)] * 2  # spill_at, abuf_at
@@ -563,6 +553,7 @@ _ENTRIES = {
         + [ctypes.POINTER(ctypes.c_int)]  # g_int32
         + [ctypes.POINTER(ctypes.c_float)] * 2  # step_sizes, l2_regs
         + [ctypes.c_int, ctypes.c_float, ctypes.c_int]  # iterations, tol, residual_mode
+        + [ctypes.c_void_p, ctypes.c_int]  # the timing probe's buffer (or null), its edges
         + [ctypes.c_void_p]  # stream
     ),
     "twtml_dual_writeback": (
@@ -680,14 +671,18 @@ def dual_sgd(g, u, labels, mask, *, masks=None, p_prev, num_iterations: int,
              step_size: float, l2_reg: float = 0.0, convergence_tol: float = 0.001,
              residual_fn=least_squares_residual):
     """B7: MLlib's loop on the dual state from G ([≥B, ≥B] f32, row stride
-    ≥ B: the first B rows and columns are read), u = Z·W_prev, labels and
-    the validity mask [B] f32, the [N, B] Bernoulli masks (None: every
-    valid row each iteration) and p_prev = ||W_prev||² (a [] f32 tensor).
-    Rows with mask <= 0 are ignored, whatever their u, y and G hold.
-    Returns (c [] f32, α [B] f32, iterations run: the iteration that
+    ≥ B: the first B rows and columns are read, N·Nᵀ included), u =
+    Z·W_prev, labels and the validity mask [B] f32, the [N, B] Bernoulli
+    masks (None: every valid row each iteration) and p_prev = ||W_prev||² (a
+    [] f32 tensor). Rows with mask <= 0 are ignored, whatever their u, y and
+    G hold. Returns (c [] f32, α [B] f32, iterations run: the iteration that
     converged, else N; a [] tensor, read it only when a sync is fine).
     ``dual_sgd.last_barriers`` is then the [] slot beside them that
-    receives the grid barriers the launch crossed, None after a CPU call."""
+    receives the grid barriers the launch crossed, None after a CPU call.
+    On the card one cooperative launch of B7's tenant form over a table of
+    one tenant (``dual_tenants_kernel``, G read whole: no numeric block),
+    counted in ``dual_sgd.launches``; its scratch's last three floats are c,
+    the iterations run and the barriers crossed."""
     mode = residual_mode(residual_fn)
     if mode is None:
         raise ValueError(f"dual_sgd has no residual mode for {residual_fn!r}")
@@ -700,6 +695,8 @@ def dual_sgd(g, u, labels, mask, *, masks=None, p_prev, num_iterations: int,
     if dev.type != "cuda":
         raise ValueError(f"dual_sgd takes cpu or cuda tensors, got {dev}")
     b = mask.shape[0]
+    if b < 1:
+        raise ValueError("the dual loop needs at least one row")
     if (g.dim() != 2 or g.dtype != torch.float32 or g.device != dev or g.shape[0] < b
             or g.shape[1] < b or g.stride(1) != 1):
         raise ValueError(f"g must be float32 [>= {b}, >= {b}] with unit column stride on "
@@ -713,24 +710,23 @@ def dual_sgd(g, u, labels, mask, *, masks=None, p_prev, num_iterations: int,
         raise ValueError("num_iterations must be >= 0")
     with torch.cuda.device(dev):
         sm_count, shared_limit = device_limits(torch.cuda.current_device())
-        plan = dual_plan(b, sm_count=sm_count, shared_limit=shared_limit)
-        alpha = torch.empty((b,), dtype=torch.float32, device=dev)
-        scratch = torch.empty((plan.scratch_floats,), dtype=torch.float32, device=dev)
-        spill = torch.empty((max(plan.spill_floats, 1),), dtype=torch.float32, device=dev)
-        _raise_on(_entry("twtml_dual_sgd")(
-            g.data_ptr(), g.stride(0), u.data_ptr(), labels.data_ptr(), mask.data_ptr(),
-            0 if masks is None else masks.data_ptr(), p_prev.data_ptr(), alpha.data_ptr(),
-            scratch.data_ptr(), spill.data_ptr(), plan.rows, plan.bp, plan.grid,
-            plan.rows_cap, plan.resident, plan.spill_per_cta, int(plan.in_registers),
-            plan.shared_bytes,
-            _layout_arg(plan.smem_layout), int(num_iterations), float(step_size),
-            float(l2_reg), float(convergence_tol), mode, _stream()), "dual_sgd")
+        plan = dual_tenants_plan((b,), sm_count=sm_count, shared_limit=shared_limit)
+        alpha = torch.empty((1, b), dtype=torch.float32, device=dev)
+        scratch = torch.empty((plan.scratch_floats + 3,), dtype=torch.float32, device=dev)
+        # the batch as the tenant table's one tenant
+        _launch_dual(plan, gs=(g,), slots=(0,), u=u, labels=labels, mask=mask, numeric=None,
+                     masks=masks, p_prev=p_prev, alpha=alpha, c_out=scratch[-3],
+                     iterations=scratch[-2], scratch=scratch, batch_rows=b,
+                     num_iterations=num_iterations, step_sizes=(step_size,),
+                     l2_regs=(l2_reg,), convergence_tol=convergence_tol, mode=mode, probe=None,
+                     what="dual_sgd")
         _count(dual_sgd)
     dual_sgd.last_barriers = scratch[-1]
-    return scratch[-3], alpha, scratch[-2]
+    return scratch[-3], alpha[0], scratch[-2]
 
 
 dual_sgd.last_barriers = None
+
 
 def dual_barrier_probe(grid: int, crossings: int) -> None:
     """``crossings`` of B7's grid barrier on ``grid`` CTAs of its block size,
@@ -839,6 +835,91 @@ def _check_tenant_gs(gs, valid_rows, dev):
                              f"{None if g is None else (g.dtype, tuple(g.shape), g.stride())}")
 
 
+def _check_dual_tenants(name, gs, mask, *, valid_rows, num_iterations, step_sizes, l2_regs,
+                        residual_fn):
+    """The tenant form's arguments, checked before any work; returns (the
+    residual mode, M, B, the valid rows as ints)."""
+    mode = residual_mode(residual_fn)
+    if mode is None:
+        raise ValueError(f"{name} has no residual mode for {residual_fn!r}")
+    if mask.dim() != 2:
+        raise ValueError(f"mask must be [M, B], got {tuple(mask.shape)}")
+    m, b = mask.shape
+    _check_tenant_rows(name, valid_rows, m, b)
+    if not len(gs) == len(step_sizes) == len(l2_regs) == m:
+        raise ValueError(f"{m} tenants need {m} G, step sizes and L2s")
+    if num_iterations < 0:
+        raise ValueError("num_iterations must be >= 0")
+    return mode, m, b, [int(v) for v in valid_rows]
+
+
+def _launch_dual(plan, *, gs, slots, u, labels, mask, numeric, masks, p_prev, alpha, c_out,
+                 iterations, scratch, batch_rows, num_iterations, step_sizes, l2_regs,
+                 convergence_tol, mode, probe, what):
+    """One cooperative launch of ``dual_tenants_kernel`` for ``plan``'s
+    tenants (their rows ``slots`` of the [M·B] inputs, their text G ``gs``;
+    ``numeric`` None: each G holds N·Nᵀ already); ``scratch`` holds α's
+    double buffer and the partials (``plan.scratch_floats``), then the grid
+    barriers crossed (its last float)."""
+    spill = torch.empty((max(plan.spill_floats, 1),), dtype=torch.float32, device=mask.device)
+    _raise_on(_entry("twtml_dual_sgd_tenants")(
+        u.data_ptr(), labels.data_ptr(), mask.data_ptr(),
+        0 if numeric is None else numeric.data_ptr(), 0 if masks is None else masks.data_ptr(),
+        p_prev.data_ptr(), alpha.data_ptr(), c_out.data_ptr(), iterations.data_ptr(),
+        scratch[-1].data_ptr(), scratch.data_ptr(), scratch[2 * plan.abuf_floats:].data_ptr(),
+        spill.data_ptr(), plan.abuf_floats, len(plan.valid_rows), batch_rows, plan.grid,
+        plan.bp_max, plan.rows_cap_max, plan.shared_bytes, int(plan.in_registers),
+        _layout_arg(plan.smem_layout), _ints(plan.first_cta), _ints(plan.valid_rows),
+        _ints(slots), _ints(plan.rows_cap), _ints(plan.resident),
+        _ints(plan.spill_at, ctypes.c_longlong), _ints(plan.abuf_at, ctypes.c_longlong),
+        _ints((0 if g is None else g.data_ptr() for g in gs), ctypes.c_void_p),
+        _ints((0 if g is None else g.stride(0) for g in gs), ctypes.c_longlong),
+        _ints(int(g is not None and g.dtype == torch.int32) for g in gs),
+        _ints((float(v) for v in step_sizes), ctypes.c_float),
+        _ints((float(v) for v in l2_regs), ctypes.c_float),
+        int(num_iterations), float(convergence_tol), mode,
+        None if probe is None else probe.data_ptr(), 0 if probe is None else probe.shape[1],
+        _stream()), what)
+
+
+def _dual_tenant_launches(gs, u, labels, mask, numeric, *, valid, masks, p_prev, num_iterations,
+                          step_sizes, l2_regs, convergence_tol, mode, probe=None):
+    """The tenant form's launches on the card, TENANTS_PER_LAUNCH tenants
+    each (the timing instantiation with ``probe``, int64 [1 + M, edges, 2],
+    one launch). Returns (c [M], α [M, B], iterations run [M], each launch's
+    grid barriers crossed: [] tensors)."""
+    m, b = mask.shape
+    dev = mask.device
+    for name, t in (("u", u), ("labels", labels), ("mask", mask)):
+        _check(name, t, (m, b), torch.float32, dev)
+    if numeric is not None:  # None (the probe only): each G holds N·Nᵀ, as B7's
+        _check("numeric", numeric, (m, b, 4), torch.float32, dev)
+    _check("p_prev", p_prev, (m,), torch.float32, dev)
+    if masks is not None:
+        _check("masks", masks, (num_iterations, b), torch.float32, dev)
+    _check_tenant_gs(gs, valid, dev)
+    with torch.cuda.device(dev):
+        sm_count, shared_limit = device_limits(torch.cuda.current_device())
+        res = torch.empty((2, m), dtype=torch.float32, device=dev)
+        alpha = torch.empty((m, b), dtype=torch.float32, device=dev)
+        barriers = []
+        for lo in range(0, m, TENANTS_PER_LAUNCH):
+            hi = min(m, lo + TENANTS_PER_LAUNCH)
+            plan = dual_tenants_plan(valid[lo:hi], sm_count=sm_count, shared_limit=shared_limit)
+            scratch = torch.empty((plan.scratch_floats + 1,), dtype=torch.float32, device=dev)
+            _launch_dual(plan, gs=gs[lo:hi], slots=range(lo, hi), u=u, labels=labels, mask=mask,
+                         numeric=numeric, masks=masks, p_prev=p_prev, alpha=alpha, c_out=res[0],
+                         iterations=res[1], scratch=scratch, batch_rows=b,
+                         num_iterations=num_iterations, step_sizes=step_sizes[lo:hi],
+                         l2_regs=l2_regs[lo:hi], convergence_tol=convergence_tol, mode=mode,
+                         probe=probe,
+                         what="dual_sgd_tenants" if probe is None else "dual_tenants_probe")
+            barriers.append(scratch[-1])
+            if probe is None:
+                _count(dual_sgd_tenants)
+    return res[0], alpha, res[1], tuple(barriers)
+
+
 def dual_sgd_tenants(gs, u, labels, mask, numeric, *, valid_rows, masks=None, p_prev,
                      num_iterations: int, step_sizes, l2_regs, convergence_tol: float = 0.001,
                      residual_fn=least_squares_residual):
@@ -854,62 +935,92 @@ def dual_sgd_tenants(gs, u, labels, mask, numeric, *, valid_rows, masks=None, p_
     rows), iterations run [M]), float32 device tensors. On the card one
     cooperative launch of ``dual_tenants_kernel`` for each
     TENANTS_PER_LAUNCH tenants (``dual_tenants_plan``), counted in
-    ``dual_sgd_tenants.launches``; on the CPU the plain version."""
-    mode = residual_mode(residual_fn)
-    if mode is None:
-        raise ValueError(f"dual_sgd_tenants has no residual mode for {residual_fn!r}")
-    if mask.dim() != 2:
-        raise ValueError(f"mask must be [M, B], got {tuple(mask.shape)}")
-    m, b = mask.shape
-    _check_tenant_rows("dual_sgd_tenants", valid_rows, m, b)
-    valid = [int(v) for v in valid_rows]
-    if not len(gs) == len(step_sizes) == len(l2_regs) == m:
-        raise ValueError(f"{m} tenants need {m} G, step sizes and L2s")
-    if num_iterations < 0:
-        raise ValueError("num_iterations must be >= 0")
-    kw = dict(valid_rows=valid, masks=masks, p_prev=p_prev, num_iterations=num_iterations,
-              step_sizes=step_sizes, l2_regs=l2_regs, convergence_tol=convergence_tol)
+    ``dual_sgd_tenants.launches``, each launch's grid barriers crossed then in
+    ``dual_sgd_tenants.last_barriers`` ([] tensors; empty after a CPU call);
+    on the CPU the plain version."""
+    mode, m, b, valid = _check_dual_tenants(
+        "dual_sgd_tenants", gs, mask, valid_rows=valid_rows, num_iterations=num_iterations,
+        step_sizes=step_sizes, l2_regs=l2_regs, residual_fn=residual_fn)
     dev = mask.device
     if dev.type == "cpu":
-        return dual_sgd_tenants_reference(gs, u, labels, mask, numeric,
-                                          residual_fn=residual_fn, **kw)
+        dual_sgd_tenants.last_barriers = ()
+        return dual_sgd_tenants_reference(
+            gs, u, labels, mask, numeric, valid_rows=valid, masks=masks, p_prev=p_prev,
+            num_iterations=num_iterations, step_sizes=step_sizes, l2_regs=l2_regs,
+            convergence_tol=convergence_tol, residual_fn=residual_fn)
     if dev.type != "cuda":
         raise ValueError(f"dual_sgd_tenants takes cpu or cuda tensors, got {dev}")
-    for name, t in (("u", u), ("labels", labels), ("mask", mask)):
-        _check(name, t, (m, b), torch.float32, dev)
-    _check("numeric", numeric, (m, b, 4), torch.float32, dev)
-    _check("p_prev", p_prev, (m,), torch.float32, dev)
-    if masks is not None:
-        _check("masks", masks, (num_iterations, b), torch.float32, dev)
-    _check_tenant_gs(gs, valid, dev)
-    with torch.cuda.device(dev):
-        sm_count, shared_limit = device_limits(torch.cuda.current_device())
-        res = torch.empty((2, m), dtype=torch.float32, device=dev)
-        alpha = torch.empty((m, b), dtype=torch.float32, device=dev)
-        for lo in range(0, m, TENANTS_PER_LAUNCH):
-            hi = min(m, lo + TENANTS_PER_LAUNCH)
-            plan = dual_tenants_plan(valid[lo:hi], sm_count=sm_count, shared_limit=shared_limit)
-            scratch = torch.empty((plan.scratch_floats,), dtype=torch.float32, device=dev)
-            spill = torch.empty((max(plan.spill_floats, 1),), dtype=torch.float32, device=dev)
-            gl = gs[lo:hi]
-            _raise_on(_entry("twtml_dual_sgd_tenants")(
-                u.data_ptr(), labels.data_ptr(), mask.data_ptr(), numeric.data_ptr(),
-                0 if masks is None else masks.data_ptr(), p_prev.data_ptr(), alpha.data_ptr(),
-                res[0].data_ptr(), res[1].data_ptr(), scratch.data_ptr(),
-                scratch[2 * plan.abuf_floats:].data_ptr(), spill.data_ptr(), plan.abuf_floats,
-                hi - lo, b, plan.grid, plan.bp_max, plan.rows_cap_max, plan.shared_bytes,
-                _layout_arg(plan.smem_layout), _ints(plan.first_cta), _ints(plan.valid_rows),
-                _ints(range(lo, hi)), _ints(plan.rows_cap), _ints(plan.resident),
-                _ints(plan.spill_at, ctypes.c_longlong), _ints(plan.abuf_at, ctypes.c_longlong),
-                _ints((0 if g is None else g.data_ptr() for g in gl), ctypes.c_void_p),
-                _ints((0 if g is None else g.stride(0) for g in gl), ctypes.c_longlong),
-                _ints(int(g is not None and g.dtype == torch.int32) for g in gl),
-                _ints((float(v) for v in step_sizes[lo:hi]), ctypes.c_float),
-                _ints((float(v) for v in l2_regs[lo:hi]), ctypes.c_float),
-                int(num_iterations), float(convergence_tol), mode, _stream()),
-                "dual_sgd_tenants")
-            _count(dual_sgd_tenants)
-    return res[0], alpha, res[1]
+    c, alpha, its, dual_sgd_tenants.last_barriers = _dual_tenant_launches(
+        gs, u, labels, mask, numeric, valid=valid, masks=masks, p_prev=p_prev,
+        num_iterations=num_iterations, step_sizes=step_sizes, l2_regs=l2_regs,
+        convergence_tol=convergence_tol, mode=mode)
+    return c, alpha, its
+
+
+dual_sgd_tenants.last_barriers = ()
+
+
+def dual_tenants_probe(gs, u, labels, mask, numeric, *, valid_rows, masks=None, p_prev,
+                       num_iterations: int, step_sizes, l2_regs, convergence_tol: float = 0.001,
+                       residual_fn=least_squares_residual):
+    """One launch of B7's tenant form's timing instantiation (at most
+    TENANTS_PER_LAUNCH tenants, on the card; ``dual_sgd_tenants``'
+    arguments): CTA 0 and each tenant's last CTA stamp (%globaltimer,
+    clock64) at the DUAL_PROBE_PROLOGUE_EDGES edges of the prologue and at
+    DUAL_PROBE_ITERATION_EDGES edges of each iteration (csrc/gram.cu
+    ``dual_stamp``; stamps never reached stay 0). ``numeric`` None reads
+    each G whole, as B7's launch does. Counts no launch. Returns (c, α,
+    iterations run, stamps int64 [1 + M, edges, 2] on the card)."""
+    if mask.dim() != 2 or not 1 <= mask.shape[0] <= TENANTS_PER_LAUNCH:
+        raise ValueError(f"the probe takes 1..{TENANTS_PER_LAUNCH} tenants in one launch")
+    if mask.device.type != "cuda":
+        raise ValueError(f"dual_tenants_probe times the kernel on the card; got {mask.device}")
+    mode, m, _, valid = _check_dual_tenants(
+        "dual_tenants_probe", gs, mask, valid_rows=valid_rows, num_iterations=num_iterations,
+        step_sizes=step_sizes, l2_regs=l2_regs, residual_fn=residual_fn)
+    edges = DUAL_PROBE_PROLOGUE_EDGES + DUAL_PROBE_ITERATION_EDGES * num_iterations
+    probe = torch.zeros((m + 1, edges, 2), dtype=torch.int64, device=mask.device)
+    c, alpha, its, _ = _dual_tenant_launches(
+        gs, u, labels, mask, numeric, valid=valid, masks=masks, p_prev=p_prev,
+        num_iterations=num_iterations, step_sizes=step_sizes, l2_regs=l2_regs,
+        convergence_tol=convergence_tol, mode=mode, probe=probe)
+    return c, alpha, its, probe
+
+
+def dual_tenants_probe_split(stamps) -> dict:
+    """The phase split of ``dual_tenants_probe``'s stamps (int64 [slots,
+    edges, 2] of %globaltimer ns and clock64): each stamping CTA's phase
+    lengths in SM cycles, turned into ns at that CTA's own rate over its
+    whole span (%globaltimer ticks coarsely), then the mean over the
+    stamping CTAs and the iterations after the first with every edge
+    stamped. Returns {"prologue_us", "iteration_us" (DUAL_PROBE_PHASES),
+    "us_an_iteration", "iterations", "span_us" (the median CTA's), "slots"}
+    (empty phases where no iteration after the first was stamped whole)."""
+    st = stamps.detach().cpu().to(torch.float64)
+    n_pro, n_it = DUAL_PROBE_PROLOGUE_EDGES, DUAL_PROBE_ITERATION_EDGES
+    pro, its, spans, n_iters, slots = [], [], [], 0, 0
+    for g, c in zip(st[..., 0], st[..., 1]):
+        stamped = torch.nonzero(g).flatten()
+        if len(stamped) == 0 or g[0] == 0 or int(stamped[-1]) < n_pro - 1:
+            continue  # a slot no CTA stamped
+        slots += 1
+        last = int(stamped[-1])
+        us_a_cycle = float(g[last] - g[0]) / max(float(c[last] - c[0]), 1.0) / 1e3
+        spans.append(float(g[last] - g[0]) / 1e3)
+        pro.append(float(c[n_pro - 1] - c[0]) * us_a_cycle)
+        done = 0  # iterations whose edges are all stamped, in a row from the first
+        while done < (st.shape[1] - n_pro) // n_it and bool(
+                (g[n_pro + n_it * done:n_pro + n_it * (done + 1)] != 0).all()):
+            done += 1
+        n_iters = max(n_iters, done)
+        if done >= 2:
+            edges = c[n_pro - 1:n_pro + n_it * done]
+            its.append(torch.diff(edges).reshape(done, n_it)[1:] * us_a_cycle)
+    phases = (dict(zip(DUAL_PROBE_PHASES, torch.cat(its).mean(0).tolist())) if its else {})
+    return {"prologue_us": sum(pro) / len(pro) if pro else None, "iteration_us": phases,
+            "us_an_iteration": sum(phases.values()) if phases else None,
+            "iterations": n_iters, "slots": slots,
+            "span_us": float(torch.tensor(spans, dtype=torch.float64).median()) if spans else None}
 
 
 def dual_writeback_tenants(weights, c, alpha, counts, numeric, f_text: int, *, valid_rows,
