@@ -63,6 +63,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
                publish times; tweets/s over batches 2-8; the device's idle
                share and the H2D copies against the kernels from a profiled
                run; the live synthetic source's own rate;
+ 7b. bench   — the port's bench entry (``twtml_tpu_torch/bench.py``
+               ``measure``, the counterpart of the root ``bench.py``'s
+               headline measurement) on cuda at 8 batches of 16384 tweets,
+               2 warm-up steps, 3 passes and no budget, with prefetch on and
+               off, then at 1 pass: B1 launched 2 + passes x 8 times in each
+               run; the final mse and weights bitwise equal across prefetch
+               on and off (a host buffer reused under a pending copy would
+               part them), the final mse across 1 and 3 passes (``reset()``
+               before each); tweets/s best and median, passes and health;
+               the device's idle share and the kernels a step from one
+               profiled pass;
   8. guards  — the runtime guards at the stream's width and depth, from a
                pre-filled source, every dispatch under the sync-debug mode
                "error": a poisoned batch (``--chaos source.nan@5``) with a
@@ -361,7 +372,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
 No app run publishes anywhere but the loopback recorder and, in the web,
 serve and abtest phases, the port's own servers on loopback ports. The line before
 the last is the kernels' JSON record (B1's least-squares mode with its
-``tenants`` launches and the ``block`` phase's figures, its logistic mode, its predict kernel with its
+``bench`` (``launches_bench``) and ``tenants`` launches and the ``block`` phase's figures, its logistic mode, its predict kernel with its
 ``abtest`` launches, B4 with its f32 build on tweet-length rows, B7,
 B8 and the split's two launches with their ``elastic`` and ``modelaxis`` launches, B4, B7 and
 B8 with their ``modelaxis`` launches, the split's iteration launch with its library calls'
@@ -378,6 +389,12 @@ B7's 2048 rows with its probe's phase split where the tree has the timing
 instantiation, B8), importing the port from DIR (another checkout unpacked
 there), so that two versions can be timed in turns in one call; its last
 line is that JSON.
+
+``python3 chip_smoke.py --bench-only`` runs phases 1 and 2 and then only
+the bench entry as a user runs it, ``python -m twtml_tpu_torch.bench`` in
+a process of its own at its defaults (524288 tweets, batches of 16384, a
+600 s budget, then its CPU child); it prints the entry's JSON line on the
+line before the last.
 
 ``python3 chip_smoke.py --elastic-ab N`` runs phases 1 and 2 and then
 only N alternating pairs of healthy group runs, lockstep and ``--elastic
@@ -1471,6 +1488,18 @@ def device_timeline(prof):
     return sorted(out)
 
 
+def busy_us(events, lo):
+    """The µs of the device's timeline from ``lo`` on that some event of
+    ``events`` (sorted by start) covers."""
+    busy, cursor = 0.0, lo
+    for start, end, _ in events:
+        start = max(start, cursor)
+        if end > start:
+            busy += end - start
+            cursor = end
+    return busy
+
+
 def timeline_report(events):
     """Idle share of the device over batches 2-8 (from batch 2's H2D copy
     to the last event), the H2D copies in that window, from which memory,
@@ -1486,12 +1515,7 @@ def timeline_report(events):
         phase("stream", "profiler: no H2D copy recorded; timeline not measured")
         return None
     lo, hi = h2d[0][0], max(e[1] for e in events)
-    busy, cursor = 0.0, lo
-    for start, end, _ in events:
-        start, end = max(start, cursor), min(end, hi)
-        if end > start:
-            busy += end - start
-            cursor = end
+    busy = busy_us(events, lo)
     copies = [e for e in events if "Memcpy" in e[2] or "memcpy" in e[2].lower()]
     compute = [e for e in events if e not in copies]
     overlap = sum(any(c[0] < k[1] and k[0] < c[1] for k in compute) for c in h2d)
@@ -1593,6 +1617,146 @@ def stream_phase():
           f"{OP_ROWS / live_s:.0f} tweets/s (its producer thread, nothing else running)")
     return {"launches": rec["launches"], "rate": rate, "timeline": timeline,
             "statuses": statuses, "publish_ms": means["publish_ms"]}
+
+
+# ---- phase 7b: the port's bench entry (twtml_tpu_torch/bench.py) -----------
+
+BENCH_BATCHES = 8
+BENCH_TWEETS = BENCH_BATCHES * OP_ROWS
+BENCH_REPEATS = 3
+BENCH_DEVICE = "cuda"
+BENCH_TIMEOUT_S = 900  # --bench-only: each child's watchdog (the 600 s budget + set-up)
+
+
+def bench_run(name, **kw):
+    """One ``bench.measure`` at the phase's operating point (no budget), B1's
+    launch counter set to 0 just before and read just after: it must have
+    risen by the warm-up's steps and a step a batch of every pass. Returns
+    (record, launches, the model it measured)."""
+    from twtml_tpu_torch import bench
+    from twtml_tpu_torch.ops import fused_sgd
+
+    kept = {}
+    real = bench.measure_pipeline
+
+    def keep(model, *args, **kwargs):
+        kept["model"] = model
+        return real(model, *args, **kwargs)
+
+    bench.measure_pipeline = keep
+    fused_sgd.fused_dense_sgd.launches = 0
+    try:
+        rec = bench.measure(n_tweets=BENCH_TWEETS, batch_size=OP_ROWS, time_budget_s=None,
+                            device=BENCH_DEVICE, **kw)
+    finally:
+        bench.measure_pipeline = real
+    launches = fused_sgd.fused_dense_sgd.launches
+    want = bench.WARMUP_BATCHES + rec["passes"] * BENCH_BATCHES
+    if launches != want or rec["tenants"] != 1:
+        raise AssertionError(f"bench {name}: B1 launched {launches} times for "
+                             f"{rec['passes']} passes of {BENCH_BATCHES} batches and "
+                             f"{bench.WARMUP_BATCHES} warm-up steps ({want})")
+    if not (math.isfinite(rec["final_mse"]) and rec["final_mse"] > 0):
+        raise AssertionError(f"bench {name}: final mse {rec['final_mse']}")
+    phase("bench", f"{name}: best {rec['tweets_per_sec']:.1f} tweets/s, median "
+          f"{rec['median_tweets_per_sec']:.1f}, {rec['passes']} passes of {BENCH_TWEETS} "
+          f"tweets (best pass {rec['seconds']:.4f} s), final mse {rec['final_mse']!r}, "
+          f"health {json.dumps(rec['health'])}; B1 launched {launches} = "
+          f"{bench.WARMUP_BATCHES} + {rec['passes']} x {BENCH_BATCHES}")
+    return rec, launches, kept["model"]
+
+
+def bench_timeline(events, batches):
+    """Over the profiled pass (from its first H2D copy, after the warm-up's
+    last B1 kernel, to the last device event): the device's idle share and
+    the kernels launched a step."""
+    kernels = [e for e in events if KERNEL in e[2]]
+    if len(kernels) < batches + 1:
+        phase("bench", f"profiler: {len(kernels)} B1 kernels recorded; timeline not measured")
+        return None
+    h2d = [e for e in events if "HtoD" in e[2] and e[0] >= kernels[-batches - 1][1]]
+    if not h2d:
+        phase("bench", "profiler: no H2D copy recorded; timeline not measured")
+        return None
+    lo, hi = h2d[0][0], max(e[1] for e in events)
+    window = [e for e in events if e[0] >= lo]
+    busy = busy_us(window, lo)
+    copies = [e for e in window if "memcpy" in e[2].lower() or "memset" in e[2].lower()]
+    launched = len(window) - len(copies)
+    out = {"idle": 1 - busy / (hi - lo), "window_ms": (hi - lo) / 1e3, "busy_ms": busy / 1e3,
+           "launches_a_step": launched / batches, "copies_a_step": len(copies) / batches}
+    phase("bench", f"profiled pass (profiler on): {out['window_ms']:.3f} ms window, "
+          f"{out['busy_ms']:.3f} ms busy, {100 * out['idle']:.1f}% idle; "
+          f"{out['launches_a_step']:.2f} kernels and {out['copies_a_step']:.2f} copies or "
+          f"sets a step over {batches} steps")
+    return out
+
+
+def bench_phase():
+    """The port's bench entry on the card (``bench.measure``) at 8 batches of
+    16384, 3 passes and no budget, with prefetch on and off, then at 1 pass,
+    then one profiled pass: B1 launched for every step of each run; the final
+    mse and weights bitwise equal across prefetch on and off (a host buffer
+    overwritten under a pending copy would part them) and the final mse
+    across 1 and 3 passes (``reset()`` before each)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    on, launches, m_on = bench_run("prefetch on", repeats=BENCH_REPEATS, prefetch=True)
+    w_on = m_on.latest_weights
+    off, _, m_off = bench_run("prefetch off", repeats=BENCH_REPEATS, prefetch=False)
+    w_off = m_off.latest_weights
+    if on["final_mse"] != off["final_mse"] or w_on.tobytes() != w_off.tobytes():
+        raise AssertionError(f"bench: prefetch on (mse {on['final_mse']!r}) and off (mse "
+                             f"{off['final_mse']!r}) differ, weights max |diff| "
+                             f"{float(abs(w_on - w_off).max())}")
+    one, _, _ = bench_run("1 pass", repeats=1, prefetch=True)
+    if one["final_mse"] != on["final_mse"]:
+        raise AssertionError(f"bench: 1 pass ends at mse {one['final_mse']!r}, "
+                             f"{BENCH_REPEATS} at {on['final_mse']!r}")
+    phase("bench", f"final mse and weights bitwise equal with prefetch on and off; the final "
+          f"mse bitwise equal after 1 and {BENCH_REPEATS} passes (reset before each)")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        bench_run("profiled", repeats=1, prefetch=True)
+        torch.cuda.synchronize()
+    timeline = bench_timeline(device_timeline(prof), BENCH_BATCHES)
+    phase("bench", f"phase wall {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "prefetch_on": on, "prefetch_off": off,
+            "timeline": timeline}
+
+
+def bench_only(smi):
+    """``--bench-only``: the entry's ``main()`` at its defaults (524288 tweets,
+    b16384, a 600 s budget, then the CPU child), as a user runs it, in a
+    process of its own; prints its JSON line and the end of its log."""
+    import tempfile
+
+    import torch
+
+    with tempfile.TemporaryDirectory(prefix="twtml-bench-") as tmp:
+        env = dict(os.environ, TWTML_RUN_ID_FILE=os.path.join(tmp, "run-id"),
+                   TWTML_BENCH_TIMEOUT=str(BENCH_TIMEOUT_S))
+        env.pop("TWTML_BENCH_CHILD", None)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "twtml_tpu_torch.bench"],
+                              cwd=PACKAGE_ROOT, env=env, capture_output=True, text=True,
+                              timeout=BENCH_TIMEOUT_S + 200)
+    wall = time.perf_counter() - t0
+    for line in proc.stderr.strip().splitlines()[-20:]:
+        phase("bench", f"entry log: {line}")
+    if proc.returncode != 0:
+        raise SystemExit(f"chip_smoke: python -m twtml_tpu_torch.bench exited "
+                         f"{proc.returncode} after {wall:.1f} s")
+    line = proc.stdout.strip().splitlines()[-1]
+    rec = json.loads(line)
+    if not (rec["metric"] == "tweets_per_sec_e2e" and rec["value"] > 0
+            and rec["device"] == torch.cuda.get_device_name(0)):
+        raise AssertionError(f"bench entry: {line}")
+    phase("bench", f"python -m twtml_tpu_torch.bench: {wall:.1f} s on {smi}")
+    print(line, flush=True)
+    return rec
 
 
 # ---- phase 8: the runtime guards at full width -----------------------------
@@ -9575,6 +9739,10 @@ def main() -> None:
     if "--dual-ab" in argv:
         dual_ab(smi, int(argv[argv.index("--dual-ab") + 1]), PACKAGE_ROOT)
         return
+    if "--bench-only" in argv:
+        bench_only(smi)
+        print_ok()
+        return
     if "--elastic-ab" in argv:
         os.environ["TWTML_NOW_MS"] = str(NOW_MS)
         RECORDER = Recorder()
@@ -9594,6 +9762,7 @@ def main() -> None:
         padded_rec = padded_phase(ragged_rec)
         replay_phase()
         stream = stream_phase()
+        bench_rec = bench_phase()
         guards = guards_phase(smi)
         sampled = sampled_phase(smi)
         dtypes = dtype_phase(smi)
@@ -9614,7 +9783,8 @@ def main() -> None:
     logistic_record = logistic_times(smi, max_errs[1], logistic.pop("launches"))
     logistic_record.update(cases=[n for n in kernel_cases if n.startswith("logistic")],
                            app=logistic)
-    record.update(launches_stream=stream["launches"], launches_clock=clock_launches,
+    record.update(launches_stream=stream["launches"], launches_bench=bench_rec["launches"],
+                  bench=bench_rec, launches_clock=clock_launches,
                   stream_tweets_per_s=stream["rate"],
                   guards_tweets_per_s=guards["rates"],
                   sampled_route=sampled, bfloat16_route=dtypes,
@@ -9654,14 +9824,19 @@ def main() -> None:
                   launches_block=block["launches"], multihost=multihost, elastic=elastic,
                   modelaxis=modelaxis)
     predict_record.update(abtest=abtest, launches_abtest=abtest["counts_ab"]["predict_launches"])
-    import torch
-
     tenant_split_record = modelaxis.pop("tenant_split_record")
     phase("done", f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [record, logistic_record, predict_record, *gram_records,
                                   *split_records, grid_record, tenant_split_record,
                                   *sv_records]}),
           flush=True)
+    print_ok()
+
+
+def print_ok() -> None:
+    """The last line: the run passed, on this card."""
+    import torch
+
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

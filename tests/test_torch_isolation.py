@@ -69,6 +69,7 @@ def test_port_files_are_found():
             "twtml_tpu_torch/telemetry/straggler.py"} <= names
     assert {"twtml_tpu_torch/parallel/elastic.py", "twtml_tpu_torch/parallel/service_host.py",
             "twtml_tpu_torch/streaming/membership.py"} <= names
+    assert {"twtml_tpu_torch/bench.py", "twtml_tpu_torch/utils/benchloop.py"} <= names
 
 
 def test_importing_the_app_leaves_jax_unloaded():
@@ -99,7 +100,8 @@ def test_importing_the_app_leaves_jax_unloaded():
     "twtml_tpu_torch.parallel.sharding", "twtml_tpu_torch.parallel.mesh",
     "twtml_tpu_torch.telemetry.straggler", "twtml_tpu_torch.telemetry.sideband",
     "twtml_tpu_torch.parallel.elastic", "twtml_tpu_torch.parallel.service_host",
-    "twtml_tpu_torch.streaming.membership",
+    "twtml_tpu_torch.streaming.membership", "twtml_tpu_torch.bench",
+    "twtml_tpu_torch.utils.benchloop",
 ])
 def test_importing_the_host_modules_leaves_jax_and_aiohttp_unloaded(module):
     code = (

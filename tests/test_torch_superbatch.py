@@ -44,6 +44,7 @@ from twtml_tpu_torch.features.featurizer import Featurizer
 from twtml_tpu_torch.models.linear import StreamingLinearRegressionWithSGD
 from twtml_tpu_torch.models.logistic import StreamingLogisticRegressionWithSGD
 from twtml_tpu_torch.streaming.sources import SyntheticSource
+from twtml_tpu_torch.telemetry import modelwatch
 
 NOW_MS = 1_785_320_000_000
 CLOSED = "http://127.0.0.1:9"
@@ -291,6 +292,10 @@ def corpus(path, total, seed=9):
 
 
 def run_port(path, extra, module=app, max_batches=0):
+    # a fresh model watch, as a new process starts with: its tracks outlive
+    # a run, and an alert held over from an earlier test in this process
+    # forces a checkpoint off the cadence a test holds
+    modelwatch.reset_for_tests()
     out = io.StringIO()
     argv = ["--backend", "cpu", "--source", "replay", "--replayFile", str(path),
             "--seconds", "0", "--batchBucket", "16", "--tokenBucket", "64", *QUIET, *extra]
