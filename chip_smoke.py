@@ -368,7 +368,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
                all-reduces a tick against 208, their ms and a rank's host
                wall a tick; the iteration launch's device ms at 4 x 2048
                valid rows against the split's on the same 8192 rows, its
-               twin's, ``torch.bmm``'s and its bound.
+               twin's, ``torch.bmm``'s and its bound; then its 2^18 arm
+               (ROADMAP B10 d), 2 ranks on a data axis at config #4 (B =
+               2048 global, 4 tenants routed by hash, model watch on): on
+               each rank every call of B4's, B7's and B8's tenant forms
+               held against its plain version on the same inputs (a short
+               tick, a tick whose tweet-length row on rank 0 puts its
+               tenant in another plane, ``-b 0.5`` with each tenant's own
+               draws), a warm-up and 5 short ticks in turns of (vmap, scan,
+               scan, vmap), each form's reruns bitwise, the vmap form
+               within 1e-3 of scan on the short, mixed, ``-b 0.5`` and
+               scatter-route ticks (HALF_UP flips counted), 2 all-gathers
+               and 3 all-reduces a tick against scan's 8 and 12 (52
+               all-reduces against 208 on the scatter route), their ms, a
+               rank's host wall, device busy ms and launches a tick
+               (profiled runs), and the three forms' device ms at rank 0's
+               share of a tick, their plain versions', the library calls'
+               and their bounds.
 No app run publishes anywhere but the loopback recorder and, in the web,
 serve and abtest phases, the port's own servers on loopback ports. The line before
 the last is the kernels' JSON record (B1's least-squares mode with its
@@ -378,7 +394,9 @@ B8 and the split's two launches with their ``elastic`` and ``modelaxis`` launche
 B8 with their ``modelaxis`` launches, the split's iteration launch with its library calls'
 times, B1's tenant grid with the vmap arm's launches, the split with a tenant
 grid with the modelaxis phase's vmap arm's launches, the tenant forms of
-B4, B7 and B8 with the 2^18 vmap arm's launches); the last line is ``{"ok": true,
+B4, B7 and B8 with the 2^18 vmap arm's launches, and again, named
+``<form>:data_axis``, with the modelaxis phase's 2^18 arm's launches and
+their times at its shapes); the last line is ``{"ok": true,
 "device": {...}}``.
 
 ``python3 chip_smoke.py --times-only [--package-root DIR]`` runs phases 1
@@ -421,6 +439,10 @@ arm's JSON.
 only the modelaxis phase's vmap arm on 5 x 16384 synthetic tweets, with
 three turns of (vmap, scan, scan, vmap) for a longer reading of the tick's
 wall; its last line is the arm's JSON.
+
+``python3 chip_smoke.py --tenants-mesh-sparse-only`` runs phases 1 and 2
+and then only the modelaxis phase's 2^18 vmap arm over a data axis
+(``tenants_mesh_sparse_arm``); its last line is the arm's JSON.
 
 ``python3 chip_smoke.py --gram-ab N --package-root DIR`` runs phases 1 and
 2 (on DIR's port) and then only N alternating pairs of the app's 2-rank
@@ -5040,6 +5062,13 @@ def trace_costs(profile_dir):
     costs = dispatch_costs(path)
     with open(path) as fh:
         events = json.load(fh)["traceEvents"]
+    b1 = sum(1 for e in events if e.get("cat") == "kernel" and KERNEL in e.get("name", ""))
+    return costs, device_busy_ms(events), b1
+
+
+def device_busy_ms(events):
+    """The device's busy ms in a Chrome trace's events: the union of its
+    kernels, copies and sets."""
     spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
     busy, cursor = 0.0, -math.inf
@@ -5048,8 +5077,7 @@ def trace_costs(profile_dir):
         if hi > lo:
             busy += hi - lo
             cursor = hi
-    b1 = sum(1 for e in events if e.get("cat") == "kernel" and KERNEL in e.get("name", ""))
-    return costs, busy / 1e3, b1
+    return busy / 1e3
 
 
 def lang_statuses(n, seed):
@@ -9033,6 +9061,31 @@ def tsplit_ab(smi, pairs, parent_root):
                                     "change_wins": wins, "card": smi}}), flush=True)
 
 
+def mesh_vmap_hold(name, recs, arrays, vmap, scan):
+    """``vmap`` against ``scan`` (run names) on the same mesh: each rank's
+    stack within VMAP_RTOL / VMAP_ATOL of scan's, the counts equal, the
+    predictions at most one HALF_UP step apart (counted). Returns (weights
+    max error, flips)."""
+    import numpy as np
+
+    w_err, flips = 0.0, 0
+    for rank in range(len(recs)):
+        av, as_ = arrays[vmap][rank], arrays[scan][rank]
+        if not (np.allclose(av["w"], as_["w"], rtol=VMAP_RTOL, atol=VMAP_ATOL)
+                and np.array_equal(av["counts"], as_["counts"])):
+            raise AssertionError(f"tenants mesh {name}: rank {rank}'s vmap stack differs "
+                                 f"from the scan form's by "
+                                 f"{float(np.max(np.abs(av['w'] - as_['w']))):.3g} (counts "
+                                 f"{av['counts'].tolist()} against {as_['counts'].tolist()})")
+        w_err = max(w_err, float(np.max(np.abs(av["w"] - as_["w"]))))
+        d = np.abs(av["preds"].astype(np.float64) - as_["preds"])
+        if d.max(initial=0.0) > 1.0:
+            raise AssertionError(f"tenants mesh {name}: rank {rank}'s predictions differ "
+                                 f"by {d.max():.3g}, more than one HALF_UP step")
+        flips += int((d > 0).sum())
+    return w_err, flips
+
+
 def tenants_mesh_arm(smi, statuses, workdir, pairs=1):
     """The vmap form over a data axis on 2 gloo ranks on the card
     (tests/torch_mesh_worker.py): the split with a tenant grid against its
@@ -9106,20 +9159,7 @@ def tenants_mesh_arm(smi, statuses, workdir, pairs=1):
             for a, b in zip(arrays[nms[0]], arrays[nm]):
                 if not all(np.array_equal(a[k], b[k]) for k in ("w", "counts", "preds")):
                     raise AssertionError(f"tenants mesh: {form} runs {nms[0]} and {nm} differ")
-    v, sc = by_form["vmap"][0], by_form["scan"][0]
-    flips, w_err = 0, 0.0
-    for rank in range(MH_RANKS):
-        av, as_ = arrays[v][rank], arrays[sc][rank]
-        if not (np.allclose(av["w"], as_["w"], rtol=VMAP_RTOL, atol=VMAP_ATOL)
-                and np.array_equal(av["counts"], as_["counts"])):
-            raise AssertionError(f"tenants mesh: rank {rank}'s vmap stack differs from the "
-                                 f"scan form's by {float(np.max(np.abs(av['w'] - as_['w']))):.3g}")
-        w_err = max(w_err, float(np.max(np.abs(av["w"] - as_["w"]))))
-        d = np.abs(av["preds"].astype(np.float64) - as_["preds"])
-        if d.max(initial=0.0) > 1.0:
-            raise AssertionError(f"tenants mesh: rank {rank}'s predictions differ by "
-                                 f"{d.max():.3g}, more than one HALF_UP step")
-        flips += int((d > 0).sum())
+    w_err, flips = mesh_vmap_hold("dense", recs, arrays, by_form["vmap"][0], by_form["scan"][0])
     ticks = TS_TICKS + 1
     want = {"vmap": OP_ITERS + 2, "scan": TS_M * (OP_ITERS + 2)}
     want_launches = {"vmap": {TS_ENTRY: ticks * (OP_ITERS + 1), "fused_dense_grad": 0},
@@ -9167,6 +9207,449 @@ def tenants_mesh_arm(smi, statuses, workdir, pairs=1):
     return out, record
 
 
+# ---- phase 26, its 2^18 vmap arm over a data axis: the tenant forms there (B10 d)
+
+TM_TICKS = 5  # timed ticks a run, after one warm-up tick
+TM_SAMPLED = 0.5  # the held -b run's fraction
+TM_LONG_AT = 5  # the mixed tick's tweet-length row: row 5, on rank 0
+TM_FORMS = ("count_build_tenants", "dual_sgd_tenants", "dual_writeback_tenants")
+TM_SINGLE = ("count_build", "dual_sgd", "dual_writeback_counts")
+# each form's hold against its plain version on each rank: (rtol, atol);
+# atol None: rtol x max(1, the plain version's largest magnitude), B8's rule
+TM_HOLDS = {"dual_sgd_tenants": (RTOL, ATOL), "dual_writeback_tenants": (WEIGHT_RTOL, None)}
+
+
+def tm_batches(workdir):
+    """The arm's global batches at config #4's width (GRAM_ROWS tweets of
+    ASCII and CJK words a tick, ``ma_statuses``), saved for the worker:
+    ``short`` (TM_TICKS + 1 ticks of short tweets: the int8 plane),
+    ``two`` (its first two) and ``mixed`` (a short tick, then one whose row
+    TM_LONG_AT, on rank 0, is tweet-length: its tenant's gathered rows in
+    the exact plane on both ranks). Returns (the paths, the short
+    batches)."""
+    short = ma_statuses(MA_SHORT_SPAN, GRAM_ROWS, TM_TICKS + 1, 23)
+    paths = {k: os.path.join(workdir, f"tm-{k}.npz") for k in ("short", "two", "mixed")}
+    batches = ma_unit_batches(paths["short"], short, GRAM_ROWS, GRAM_F, MA_UNITS)
+    ma_unit_batches(paths["two"], short[:2 * GRAM_ROWS], GRAM_ROWS, GRAM_F, MA_UNITS)
+    mixed = list(short[:2 * GRAM_ROWS])
+    mixed[GRAM_ROWS + TM_LONG_AT] = ma_statuses(MA_LONG_SPAN, 1, 1, 41)[0]
+    ma_unit_batches(paths["mixed"], mixed, GRAM_ROWS, GRAM_F, MA_LONG_UNITS)
+    return paths, batches
+
+
+def tm_trace(where, ticks):
+    """A rank's profiled ticks (the worker's ``profile``): the device's busy
+    ms a tick (the union of its kernels, copies and sets), its kernels a
+    tick, the host's launches a tick (CUDA runtime and low-level API calls) and the
+    device's five largest ms a tick by kernel or copy name."""
+    import glob
+    from collections import Counter
+
+    with open(glob.glob(os.path.join(where, "*.pt.trace.json"))[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    by_name = Counter()
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            by_name[e.get("name", "")[:60]] += e.get("dur", 0) / 1e3 / ticks
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    launches = sum(1 for e in events if e.get("cat", "").startswith("cuda_")
+                   and e.get("name", "").startswith(("cudaLaunch", "cuLaunch")))
+    return {"device_busy_ms_a_tick": device_busy_ms(events) / ticks,
+            "kernels_a_tick": kernels / ticks,
+            "host_launches_a_tick": launches / ticks,
+            "largest_ms_a_tick": dict(by_name.most_common(5))}
+
+
+def tm_forms_held(recs, run, planes_a_tick):
+    """The worker's holds of the tenant forms on each rank in ``run``
+    (``hold_forms``): B4's bitwise its plain version (its blocks at the
+    same rows), B7's and B8's within TM_HOLDS, B7's iterations run the plain
+    version's; B4 and B8 once a plane a tick (``planes_a_tick``), B7 once a
+    tick. Returns the largest error by form."""
+    errs = dict.fromkeys(TM_FORMS, 0.0)
+    for rank, r in enumerate(recs):
+        forms = r["runs"][run]["forms"]
+        got = {f: sum(1 for e in forms if e["form"] == f) for f in TM_FORMS}
+        want = {"count_build_tenants": sum(planes_a_tick),
+                "dual_sgd_tenants": len(planes_a_tick),
+                "dual_writeback_tenants": sum(planes_a_tick)}
+        if got != want:
+            raise AssertionError(f"tenants mesh sparse {run} rank {rank}: forms called {got}, "
+                                 f"want {want}")
+        for e in forms:
+            form = e["form"]
+            if form == "count_build_tenants":
+                ok = e["bitwise"] and e["at_equal"]
+            else:
+                rtol, atol = TM_HOLDS[form]
+                atol = rtol * max(1.0, e["scale"]) if atol is None else atol
+                ok = e["max_abs_err"] <= atol + rtol * e["scale"]
+                if form == "dual_sgd_tenants":
+                    ok = ok and e["iterations_equal"]
+            if not ok:
+                raise AssertionError(f"tenants mesh sparse {run} rank {rank}: {form} against its "
+                                     f"plain version: {e}")
+            errs[form] = max(errs[form], e["max_abs_err"])
+    return errs
+
+
+def tm_time_inputs(batch):
+    """Rank 0's share of the arm's first short tick as the batched step
+    builds it: both ranks' halves of ``batch`` (a global host UnitBatch)
+    routed to SV_M parts each, decoded on the card and laid out as the
+    tenant-row all-gather lays them ([M, ranks · B_local], rank-major
+    within a tenant), the row table (``TenantRowTable``), each tenant's
+    block rows (``index``), W_prev random (seed 5), u = Z·W_prev, p_prev
+    and the dual loop's keywords (50 iterations, tolerance 0.001)."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from twtml_tpu_torch.features.batch import UnitBatch
+    from twtml_tpu_torch.models.sgd import (
+        TenantRowTable, batch_to_device, decode_batch, flatten_tenants)
+    from twtml_tpu_torch.ops.sparse import sparse_predict
+    from twtml_tpu_torch.parallel.tenants import TenantStackModel
+
+    router = TenantStackModel(SV_M, mapping="vmap", num_text_features=GRAM_F, device=MA_DEVICE)
+    half = GRAM_ROWS // MH_RANKS
+    fields, valid = [], []
+    for r in range(MH_RANKS):
+        wire = router.prepare_wire_from_parts(router.split(UnitBatch(
+            *(np.asarray(a)[r * half:(r + 1) * half] for a in batch))))
+        valid.append(tuple(router.valid_rows(wire)))
+        dev = batch_to_device(wire, router.device, non_blocking=False)
+        fields.append([x.view((SV_M, half) + tuple(x.shape[1:]))
+                       for x in decode_batch(flatten_tenants(dev), GRAM_F, torch.float32)])
+    idx, val, num, y, mask = (torch.cat(xs, dim=1) for xs in zip(*fields))
+    m, f = SV_M, GRAM_F
+    w = torch.from_numpy((np.random.default_rng(5).normal(size=(m, f + 4)) * 1e-3)
+                         .astype(np.float32)).to(idx.device)
+    raw = sparse_predict(w[:, :f], w[:, f:], idx, val, num)
+    table = TenantRowTable(valid=tuple(valid), rank=0, rows=half)
+    index = table.index(idx.device)
+    t_ = torch.arange(m, device=idx.device)[:, None]
+    kw = dict(num_iterations=OP_ITERS, step_sizes=[0.005] * m, l2_regs=[0.1] * m,
+              convergence_tol=0.001)
+    return types.SimpleNamespace(
+        table=table, idx=idx, val=val, index=index, u=raw[t_, index], y=y[t_, index],
+        mask=mask[t_, index], num=num[t_, index], w=w, p_prev=torch.sum(w * w, dim=1), kw=kw)
+
+
+def tm_times(smi, batch, errs, launches):
+    """The tenant forms at the arm's shapes on rank 0's share of its first
+    short tick (``tm_time_inputs``): each alone, 50 calls back to back behind
+    ``split_queued``'s sleep (the median of SV_TIME_RUNS), its plain
+    version's time, its bound and the library call where one computes the
+    same work (B4: ``torch.bincount`` over block-offset keys; B8:
+    ``torch.bmm`` on f32 counts of this rank's rows padded alike; B7: none),
+    each against its plain version here too; this rank's G panels' products.
+    Returns the kernels line's three records."""
+    import torch
+
+    from twtml_tpu_torch.ops import fused_gram
+
+    x = tm_time_inputs(batch)
+    table, idx, val, kw = x.table, x.idx, x.val, x.kw
+    totals, mine = table.totals, table.mine()
+    m, f, l = SV_M, GRAM_F, idx.shape[2]
+
+    def queued(fn):
+        ms, all_ms, host_us = split_queued(fn, SV_TIME_RUNS)
+        return {"ms": ms, "runs_ms": all_ms, "host_enqueue_us": host_us}
+
+    def record(name, kernel, replaces, t, plain_ms, bound, library_ms, extra):
+        bytes_ms, ops_ms = bound
+        return dict({
+            "name": f"{name}:data_axis", "route": "cuda",
+            "source": "twtml_tpu_torch/csrc/gram.cu", "replaces": replaces,
+            "tpu_function": None, "kernel": kernel, "launches": launches[name],
+            "max_abs_err": errs[name], "ms": t["ms"], "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms, "valid_rows": [list(v) for v in table.valid],
+            "block_rows": list(totals), "rank_rows": [list(r) for r in mine],
+            "runs_ms": t["runs_ms"], "host_enqueue_us": t["host_enqueue_us"],
+            "card": smi}, **extra)
+
+    # B4's tenant form over the segments
+    segs = table.segments()
+    counts, at = fused_gram.count_build_tenants(idx, val, f, valid_rows=totals, int8=True,
+                                                segments=segs)
+    plain, plain_at = fused_gram.count_build_tenants_reference(
+        idx, val, f, valid_rows=totals, int8=True, cols_out=counts.shape[1], segments=segs)
+    torch.cuda.synchronize()
+    if not torch.equal(counts, plain) or plain_at != at:
+        raise AssertionError("tenants mesh sparse times: B4's segments are not bitwise its "
+                             "plain version")
+    del plain
+    rows, cols = counts.shape
+    b4 = queued(lambda: fused_gram.count_build_tenants(idx, val, f, valid_rows=totals, int8=True,
+                                                       segments=segs))
+    b4_plain, _ = timed(lambda: fused_gram.count_build_tenants_reference(
+        idx, val, f, valid_rows=totals, int8=True, cols_out=cols, segments=segs), 3)
+    tv = sum(totals)
+    b4_bytes = rows * cols + tv * l * 8
+    t_ = torch.arange(m, device=idx.device)[:, None]
+    b_idx, b_val = idx[t_, x.index], val[t_, x.index]
+    keys = torch.cat([(at[t] + torch.arange(p, device=idx.device))[:, None] * cols
+                      + b_idx[t, :p] for t, p in enumerate(totals) if p]).reshape(-1)
+    kval = torch.cat([b_val[t, :p] for t, p in enumerate(totals) if p]).reshape(-1)
+    b4_lib, _ = timed(lambda: torch.bincount(keys, weights=kval, minlength=rows * cols), 10,
+                      queue_ahead=True)
+    del keys, kval, b_idx, b_val
+    # this rank's G panels, then every tenant's G as the panels' all-gather leaves it
+    panels = queued(lambda: fused_gram.tenant_gram_blocks(counts, at, totals, rows=mine))
+    gs = [None if g is None else g[:p, :p].contiguous()
+          for g, p in zip(fused_gram.tenant_gram_blocks(counts, at, totals), totals)]
+    # B7's tenant form on the blocks
+    args = (gs, x.u, x.y, x.mask, x.num)
+    c, alpha, its = fused_gram.dual_sgd_tenants(*args, valid_rows=totals, p_prev=x.p_prev, **kw)
+    c_r, alpha_r, its_r = fused_gram.dual_sgd_tenants_reference(*args, valid_rows=totals,
+                                                                p_prev=x.p_prev, **kw)
+    if not torch.equal(its, its_r.to(its.dtype)):
+        raise AssertionError(f"tenants mesh sparse times: B7 ran {its.tolist()} iterations, its "
+                             f"plain version {its_r.tolist()}")
+    e7 = max(compare("tenants mesh sparse B7 alpha", alpha, alpha_r)[0],
+             compare("tenants mesh sparse B7 c", c, c_r)[0])
+    its = [int(i) for i in its.tolist()]
+    b7 = queued(lambda: fused_gram.dual_sgd_tenants(*args, valid_rows=totals, p_prev=x.p_prev,
+                                                    **kw))
+    b7_plain, _ = timed(lambda: fused_gram.dual_sgd_tenants_reference(
+        *args, valid_rows=totals, p_prev=x.p_prev, **kw), 3)
+    b7_ops = sum(i * (2 * p * p + 12 * p) for i, p in zip(its, totals))
+    b7_bytes = sum(p * p * 4 + 9 * p * 4 for p in totals)
+    # B8's tenant form at this rank's rows of each block, on zero weights
+    zeros = torch.zeros_like(x.w)
+    wb_kw = dict(valid_rows=[n for _, n in mine], tenants=tuple(range(m)), at=at,
+                 first_rows=[o for o, _ in mine])
+    delta = torch.empty_like(x.w)
+    fused_gram.dual_writeback_tenants(zeros, c, alpha, counts, x.num, f, out=delta, **wb_kw)
+    want = fused_gram.dual_writeback_tenants_reference(zeros, c, alpha, counts, x.num, f, **wb_kw)
+    torch.cuda.synchronize()
+    e8 = float((delta - want).abs().max())
+    if e8 > WEIGHT_RTOL * max(1.0, float(want.abs().max())) or not torch.isfinite(delta).all():
+        raise AssertionError(f"tenants mesh sparse times: B8 at rank 0's rows differs from its "
+                             f"plain version by {e8:.3e}")
+    b8 = queued(lambda: fused_gram.dual_writeback_tenants(zeros, c, alpha, counts, x.num, f,
+                                                          out=delta, **wb_kw))
+    b8_plain, _ = timed(lambda: fused_gram.dual_writeback_tenants_reference(
+        zeros, c, alpha, counts, x.num, f, **wb_kw), 3)
+    vr = sum(n for _, n in mine)
+    b8_bytes = vr * cols + vr * 4 * 5 + m * (f + 4) * 4 * 2
+    b8_ops = 2 * vr * f
+    pad = max(1, max(n for _, n in mine))
+    cf = torch.zeros((m, pad, cols), dtype=torch.float32, device=idx.device)
+    ap = torch.zeros((m, pad, 1), dtype=torch.float32, device=idx.device)
+    for t, (o, n) in enumerate(mine):
+        cf[t, :n] = counts[at[t] + o:at[t] + o + n].float()
+        ap[t, :n, 0] = alpha[t, o:o + n]
+    b8_lib, _ = timed(lambda: torch.bmm(cf.transpose(1, 2), ap), 10, queue_ahead=True)
+    del cf, ap
+    errs = dict(errs, dual_sgd_tenants=max(errs["dual_sgd_tenants"], e7),
+                dual_writeback_tenants=max(errs["dual_writeback_tenants"], e8))
+    phase("modelaxis", f"tenants mesh sparse times at rank 0's share of a short tick (valid rows "
+          f"by rank {[list(v) for v in table.valid]}, blocks {list(totals)}, int8 counts "
+          f"{tuple(counts.shape)}; 50 calls back to back behind ~20 ms of sleep, median of "
+          f"{SV_TIME_RUNS}): B4's tenant form over the segments {b4['ms']:.4f} ms, plain "
+          f"{b4_plain:.4f}, torch.bincount {b4_lib:.4f}, bound "
+          f"{b4_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms; this rank's {sum(1 for _, n in mine if n)} "
+          f"G panels {panels['ms']:.4f} ms; B7's tenant form {b7['ms']:.4f} ms ({its} "
+          f"iterations), plain {b7_plain:.4f}, bound {b7_ops / F32_FLOPS_PER_S * 1e3:.5f} ms; B8's "
+          f"tenant form at this rank's rows {b8['ms']:.4f} ms, plain {b8_plain:.4f}, torch.bmm "
+          f"{b8_lib:.4f}, bound {b8_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms | card: {smi}")
+    vmap = "under jax.vmap in shard_map (twtml_tpu/parallel/tenants.py:324-352)"
+    return [
+        record("count_build_tenants", "B4 tenant form over a data axis's gathered rows",
+               f"twtml_tpu/ops/gram.py:133 (onehot_counts_int8) {vmap}", b4, b4_plain,
+               (b4_bytes / HBM_BYTES_PER_S * 1e3, 0.0), b4_lib, dict(
+                   library_call="torch.bincount over block-offset keys",
+                   gram_panels={"call": "torch._int_mm", "ms": panels["ms"]})),
+        record("dual_sgd_tenants", "B7 tenant form, replicated on the gathered blocks",
+               f"twtml_tpu/models/sgd.py:155 (run_dual_loop) {vmap}", b7, b7_plain,
+               (b7_bytes / HBM_BYTES_PER_S * 1e3, b7_ops / F32_FLOPS_PER_S * 1e3), None,
+               dict(iterations_run=its)),
+        record("dual_writeback_tenants", "B8 tenant form at a rank's rows of each block",
+               f"twtml_tpu/models/sgd.py:363-368 (the sharded write-back) {vmap}", b8, b8_plain,
+               (b8_bytes / HBM_BYTES_PER_S * 1e3, b8_ops / F32_FLOPS_PER_S * 1e3), b8_lib,
+               dict(library_call="torch.bmm on f32 counts of this rank's rows padded alike")),
+    ]
+
+
+def tenants_mesh_sparse_arm(smi, workdir):
+    """The vmap form on the 2^18 routes over a data axis (ROADMAP B10 d) on 2
+    gloo ranks on the card (tests/torch_mesh_worker.py): BASELINE config #4
+    (2^18, L2 0.1, 50 iterations, model watch on), B = GRAM_ROWS global,
+    SV_M tenants routed by hash. Runs: the forms held against their plain
+    versions on each rank (``hold_forms``) on a short tick and the mixed
+    tick (two planes), and under ``-b 0.5`` (each tenant's own draws); the
+    timed short ticks (a warm-up and TM_TICKS) in one turn of (vmap, scan,
+    scan, vmap), each form's reruns bitwise; a profiled run of each
+    form; the mixed tick and ``-b 0.5`` against scan; the scatter route
+    against scan. Every vmap run within VMAP_RTOL / VMAP_ATOL of its scan
+    run, counts equal, HALF_UP flips counted; the collectives a tick (2
+    all-gathers and 3 all-reduces on the Gram route, N + 2 all-reduces on
+    the scatter route, against scan's M times its own) and their ms, a
+    rank's host wall, device busy ms and launches a tick; then the forms'
+    times at these shapes (``tm_times``). Returns (the summary, the kernels
+    line's three records)."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    paths, short = tm_batches(workdir)
+    model = dict(num_text_features=GRAM_F, num_iterations=OP_ITERS, step_size=0.005,
+                 l2_reg=0.1, quality=True)
+
+    def run(name, mapping, path, extra=None, **opts):
+        return dict({"mode": "tenants", "name": name, "mapping": mapping, "num_tenants": SV_M,
+                     "batches": paths[path], "wire": "unit",
+                     "model": dict(model, **(extra or {}))}, **opts)
+
+    order = ("vmap", "scan", "scan", "vmap")
+    names = [f"tm_{form}{i}" for i, form in enumerate(order)]
+    prof = os.path.join(workdir, "tm-prof")
+    sampled = {"mini_batch_fraction": TM_SAMPLED}
+    runs = [run("tm_mixed_vmap", "vmap", "mixed", hold_forms=True),
+            run("tm_mixed_scan", "scan", "mixed"),
+            run("tm_sampled_vmap", "vmap", "two", sampled, hold_forms=True),
+            run("tm_sampled_scan", "scan", "two", sampled),
+            *(run(nm, form, "short") for nm, form in zip(names, order)),
+            run("tm_vmap_prof", "vmap", "short", profile=os.path.join(prof, "vmap")),
+            run("tm_scan_prof", "scan", "short", profile=os.path.join(prof, "scan")),
+            run("tm_scatter_vmap", "vmap", "two", {"use_gram": False}),
+            run("tm_scatter_scan", "scan", "two", {"use_gram": False})]
+    recs, arrays, wall = ma_group("tenants-mesh-sparse", workdir, MH_RANKS,
+                                  {"num_data": MH_RANKS, "num_model": 1, "runs": runs})
+    out = {"card": smi, "group_wall_s": wall}
+    for spec in runs:
+        for rank, r in enumerate(recs):
+            rr = r["runs"][spec["name"]]
+            route = "scatter" if "scatter" in spec["name"] else "gram"
+            if rr["route"] != route or rr["batched"] != (spec["mapping"] == "vmap"):
+                raise AssertionError(f"tenants mesh sparse {spec['name']} rank {rank}: route "
+                                     f"{rr['route']}, batched {rr['batched']}")
+    # the forms against their plain versions on each rank, at the arm's shapes
+    errs = dict.fromkeys(TM_FORMS, 0.0)
+    if MA_DEVICE == "cuda":  # the CPU runs the plain pieces, no form
+        for name, planes in (("tm_mixed_vmap", [1, 2]), ("tm_sampled_vmap", [1, 1])):
+            for form, e in tm_forms_held(recs, name, planes).items():
+                errs[form] = max(errs[form], e)
+        for r in recs:
+            if not all(e["tenant_draws"] for e in r["runs"]["tm_sampled_vmap"]["forms"]
+                       if e["form"] == "dual_sgd_tenants"):
+                raise AssertionError("tenants mesh sparse: -b 0.5 without each tenant's draws")
+        phase("modelaxis", "tenants mesh sparse: on each rank, every call of B4's, B7's and "
+              "B8's tenant forms in the vmap runs held against its plain version on the same "
+              "inputs (a short tick, then the mixed tick's two planes; two short ticks under "
+              f"-b 0.5 with each tenant's own draws): B4 bitwise, B7 within rtol {RTOL} atol {ATOL} with the same iterations "
+              f"run, B8 within rtol {WEIGHT_RTOL}; max abs errors "
+              f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} }")
+    # each form's reruns bitwise; vmap against scan
+    by_form = {form: [nm for nm, fm in zip(names, order) if fm == form]
+               for form in ("vmap", "scan")}
+    for form, nms in by_form.items():
+        for nm in nms[1:] + [f"tm_{form}_prof"]:
+            for a, b in zip(arrays[nms[0]], arrays[nm]):
+                if not all(np.array_equal(a[k], b[k]) for k in ("w", "counts", "preds")):
+                    raise AssertionError(f"tenants mesh sparse: {form} runs {nms[0]} and {nm} "
+                                         "differ")
+    held = {}
+    for label, vmap, scan in (("short", by_form["vmap"][0], by_form["scan"][0]),
+                              ("mixed", "tm_mixed_vmap", "tm_mixed_scan"),
+                              ("sampled", "tm_sampled_vmap", "tm_sampled_scan"),
+                              ("scatter", "tm_scatter_vmap", "tm_scatter_scan")):
+        w_err, flips = mesh_vmap_hold(f"2^18 {label}", recs, arrays, vmap, scan)
+        held[label] = {"weights_max_err": w_err, "flips": flips}
+    out["held"] = held
+    # collectives and launches a tick
+    ticks, m, n = TM_TICKS + 1, SV_M, OP_ITERS
+    want_coll = {("gram", "vmap"): (2, 3), ("gram", "scan"): (2 * m, 3 * m),
+                 ("scatter", "vmap"): (0, n + 2), ("scatter", "scan"): (0, m * (n + 2))}
+    for spec in runs:
+        route = "scatter" if "scatter" in spec["name"] else "gram"
+        want = want_coll[(route, spec["mapping"])]
+        for rank, r in enumerate(recs):
+            got = [(t["row_allgathers"], t["allreduces"])
+                   for t in r["runs"][spec["name"]]["tick_collectives"]]
+            if any(g != want for g in got):
+                raise AssertionError(f"tenants mesh sparse {spec['name']} rank {rank}: "
+                                     f"(all-gathers, all-reduces) a tick {got}, want {want}")
+    vmap_runs = [s["name"] for s in runs if s["mapping"] == "vmap"
+                 and "scatter" not in s["name"]]
+    launches = {k: sum(r["runs"][nm]["launches"][k] for nm in vmap_runs for r in recs)
+                for k in TM_FORMS + TM_SINGLE + ("tenant_gram_products",)}
+    if MA_DEVICE == "cuda":
+        # a short tick: B4, B7 and B8 once each (one plane); the mixed one B4 and B8 twice
+        for nm in vmap_runs:
+            for rank, r in enumerate(recs):
+                got = r["runs"][nm]["launches"]
+                k = 2 if nm in ("tm_mixed_vmap", "tm_sampled_vmap") else ticks
+                planes = k + (1 if nm == "tm_mixed_vmap" else 0)
+                want = {"count_build_tenants": planes, "dual_sgd_tenants": k,
+                        "dual_writeback_tenants": planes, **dict.fromkeys(TM_SINGLE, 0)}
+                if {key: got[key] for key in want} != want:
+                    raise AssertionError(f"tenants mesh sparse {nm} rank {rank}: launches "
+                                         f"{got}, want {want}")
+        for nm in by_form["scan"]:
+            for r in recs:
+                got = r["runs"][nm]["launches"]
+                if any(got[k] for k in TM_FORMS) or any(got[k] != m * ticks for k in TM_SINGLE):
+                    raise AssertionError(f"tenants mesh sparse {nm}: launches {got}")
+    numbers = {}
+    for form, nms in by_form.items():
+        rr = [r["runs"][nm] for nm in nms for r in recs]
+        timed_ = [(x["step_wall_ms"][1:], x["step_device_ms"][1:],
+                   [c.get("row_allgather", 0.0) for c in x["step_collective_ms"][1:]],
+                   [c.get("allreduce", 0.0) for c in x["step_collective_ms"][1:]]) for x in rr]
+        flat = lambda i: [v for t in timed_ for v in t[i]]  # noqa: E731
+        ag, ar = want_coll[("gram", form)]
+        numbers[form] = {
+            "allgathers_a_tick": ag, "allreduces_a_tick": ar,
+            "tick_wall_ms": statistics.median(flat(0)),
+            "tick_wall_ms_by_run": [statistics.median(t[0]) for t in timed_],
+            "tick_device_ms": statistics.median(flat(1)) if flat(1) else None,
+            "allgather_ms_a_tick": statistics.median(flat(2)),
+            "allreduce_ms_a_tick": statistics.median(flat(3)),
+        }
+        numbers[form]["ms_a_collective"] = ((numbers[form]["allgather_ms_a_tick"]
+                                             + numbers[form]["allreduce_ms_a_tick"]) / (ag + ar))
+        if MA_DEVICE == "cuda":
+            numbers[form]["profiled"] = [tm_trace(os.path.join(prof, form, f"rank{r}"), TM_TICKS)
+                                         for r in range(MH_RANKS)]
+    out.update(forms=numbers, launches=launches, form_errors=errs,
+               run_wall_s={s["name"]: recs[0]["runs"][s["name"]]["wall_s"] for s in runs})
+    nv, ns = numbers["vmap"], numbers["scan"]
+    busy = {k: [round(p["device_busy_ms_a_tick"], 3) for p in v.get("profiled", [])]
+            for k, v in numbers.items()}
+    largest = {k: {n: round(ms, 3) for n, ms in v["profiled"][0]["largest_ms_a_tick"].items()}
+               for k, v in numbers.items() if v.get("profiled")}
+    phase("modelaxis", f"tenants mesh sparse: vmap over 2 ranks x {GRAM_ROWS // MH_RANKS} rows at "
+          f"2^18, {SV_M} tenants, {TM_TICKS} ticks after a warm-up, {len(order)} runs in turns: "
+          f"the stack within {held['short']['weights_max_err']:.3g} of the scan form's (rtol/atol "
+          f"{VMAP_RTOL}), counts equal, {held['short']['flips']} HALF_UP flips; mixed planes "
+          f"{held['mixed']['weights_max_err']:.3g}, -b 0.5 "
+          f"{held['sampled']['weights_max_err']:.3g}, scatter "
+          f"{held['scatter']['weights_max_err']:.3g}; collectives a tick "
+          f"{nv['allgathers_a_tick']} all-gathers + {nv['allreduces_a_tick']} all-reduces against "
+          f"scan's "
+          f"{ns['allgathers_a_tick']} + {ns['allreduces_a_tick']} ({nv['allgather_ms_a_tick']:.1f} "
+          f"+ {nv['allreduce_ms_a_tick']:.1f} ms against {ns['allgather_ms_a_tick']:.1f} + "
+          f"{ns['allreduce_ms_a_tick']:.1f} ms a tick); a rank's host wall a tick "
+          f"{nv['tick_wall_ms']:.1f} ms against scan's {ns['tick_wall_ms']:.1f} ms, device busy "
+          f"ms a tick by rank {busy} (rank 0's largest: {largest}); launches of the vmap runs "
+          f"{launches}; rank 0's wall by run (s) "
+          f"{ {k: round(v, 2) for k, v in out['run_wall_s'].items()} }, the group's "
+          f"{wall:.1f}; arm wall "
+          f"{time.perf_counter() - t0:.1f} s | card: {smi}")
+    records = []
+    if MA_DEVICE == "cuda":
+        records = tm_times(smi, short[1], errs, launches)
+        records[0]["arm"] = {"held": held, "forms": numbers}
+    out["wall_s"] = time.perf_counter() - t0
+    return out, records
+
+
 def modelaxis_phase(smi, statuses):
     """The modelaxis phase: the layouts over a model axis, every rank on the one
     card over gloo (tests/torch_mesh_worker.py at the library level, the
@@ -9181,9 +9664,11 @@ def modelaxis_phase(smi, statuses):
     ranks against one process, tenants on a 1 x 2 model axis bitwise the
     one-process stack, and ``--elastic on --tenants 4`` with the follower
     killed. (e) K-means across 2 ranks, the model and the app, against one
-    process. (f) The vmap form over a data axis (``tenants_mesh_arm``).
-    Returns the phase's numbers, the kernels' launches and the split with
-    a tenant grid's kernels line record (``tenant_split_record``)."""
+    process. (f) The vmap form over a data axis (``tenants_mesh_arm``). (g)
+    Its 2^18 routes (``tenants_mesh_sparse_arm``). Returns the phase's
+    numbers, the kernels' launches, the split with a tenant grid's kernels
+    line record (``tenant_split_record``) and the tenant forms' records
+    over a data axis (``tenants_mesh_sparse_records``)."""
     import shutil
     import tempfile
 
@@ -9353,6 +9838,9 @@ def modelaxis_phase(smi, statuses):
         # (f) the vmap form over a data axis (ROADMAP B10 b)
         out["tenants_mesh"], out["tenant_split_record"] = tenants_mesh_arm(smi, statuses,
                                                                            workdir)
+        # (g) the vmap form on the 2^18 routes over a data axis (ROADMAP B10 d)
+        out["tenants_mesh_sparse"], out["tenants_mesh_sparse_records"] = (
+            tenants_mesh_sparse_arm(smi, workdir))
 
         # the apps in a group, on the multihost phase's replay
         path = os.path.join(workdir, "tweets.jsonl")
@@ -9695,6 +10183,17 @@ def main() -> None:
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
         return
+    if "--tenants-mesh-sparse-only" in argv:
+        import shutil
+        import tempfile
+
+        workdir = tempfile.mkdtemp(prefix="twtml-tenants-mesh-sparse-")
+        try:
+            summary, tm_records = tenants_mesh_sparse_arm(smi, workdir)
+            print(json.dumps({"tenants_mesh_sparse": summary, "kernels": tm_records}), flush=True)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        return
     if "--tenants-vmap-only" in argv:
         from twtml_tpu_torch.streaming.sources import SyntheticSource
 
@@ -9825,10 +10324,11 @@ def main() -> None:
                   modelaxis=modelaxis)
     predict_record.update(abtest=abtest, launches_abtest=abtest["counts_ab"]["predict_launches"])
     tenant_split_record = modelaxis.pop("tenant_split_record")
+    tm_records = modelaxis.pop("tenants_mesh_sparse_records")
     phase("done", f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [record, logistic_record, predict_record, *gram_records,
                                   *split_records, grid_record, tenant_split_record,
-                                  *sv_records]}),
+                                  *sv_records, *tm_records]}),
           flush=True)
     print_ok()
 

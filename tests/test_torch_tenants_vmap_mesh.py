@@ -497,14 +497,20 @@ def test_the_stats_and_quality_reduce_m_tenants_in_one_call():
 
 
 def test_the_2_18_routes_run_their_tenants_in_turn_over_a_mesh(caplog):
-    """The vmap form over a mesh on the 2^18 routes (no batched form over a
-    data axis, B10 d) builds no batched step, and its construction log
-    says the tenants' steps run in turn (one process batches them)."""
+    """The vmap form over a mesh on the 2^18 routes builds its batched step
+    (B10 d: the Gram route and the scatter route, one step a tick for every
+    tenant), and its construction log says so; no tenant steps in turn. (The
+    name is the one this test had when it pinned the in-turn form; it is kept
+    so the test stays the same test.)"""
     import logging
 
-    with caplog.at_level(logging.INFO, logger="twtml_tpu_torch.parallel.tenants"):
-        model = TenantStackModel(M, mapping="vmap", device="cpu", num_text_features=2**18,
-                                 mesh=make_mesh(num_processes=1), group=Collectives())
-    assert model._batched is None and model.route == "gram"
-    assert any("mapping vmap: " in r.getMessage() and "run in turn" in r.getMessage()
-               for r in caplog.records)
+    for use_gram, route in ((None, "gram"), (False, "scatter")):
+        caplog.clear()
+        with caplog.at_level(logging.INFO, logger="twtml_tpu_torch.parallel.tenants"):
+            model = TenantStackModel(M, mapping="vmap", device="cpu", num_text_features=2**18,
+                                     use_gram=use_gram, mesh=make_mesh(num_processes=1),
+                                     group=Collectives())
+        assert model._batched is not None and model.route == route
+        assert model._batched.route == route
+        assert any("mapping vmap: one batched step" in r.getMessage() for r in caplog.records)
+        assert not any("in turn" in r.getMessage() for r in caplog.records)

@@ -174,18 +174,32 @@ def test_the_2_18_vmap_steps_as_scan_within_the_tolerance_on_the_cpu():
 
 
 def test_a_groups_2_18_vmap_runs_in_turn_and_the_step_refuses_a_group(caplog):
-    """Over a data axis the 2^18 routes have no batched form (ROADMAP B10
-    d): the plane logs so and steps the tenants in turn; the batched step
-    itself refuses a group."""
+    """Over a data axis the 2^18 routes batch too (B10 d): the plane builds
+    its batched step and logs one batched step; the batched step takes a
+    group and, over a group of one, steps as one process does (the counts
+    and rounded predictions equal, the weights within float rounding). (The
+    name is the one this test had when it pinned the in-turn form and the
+    refusal; it is kept so the test stays the same test.)"""
+    from twtml_tpu_torch.features.batch import FeatureBatch, tenant_valid_rows
+
     with caplog.at_level(logging.INFO, logger="twtml_tpu_torch.parallel.tenants"):
         model = TenantStackModel(M, mapping="vmap", device="cpu", mesh=make_mesh(
             num_processes=1), group=Collectives(), **BASE)
-    assert model._batched is None
-    assert any("B10 d" in r.getMessage() and "run in turn" in r.getMessage()
-               for r in caplog.records)
-    with pytest.raises(ValueError, match="B10 d"):
-        make_sgd_tenant_step(num_tenants=2, step_sizes=[0.1] * 2, l2_regs=[0.0] * 2,
-                             num_text_features=F, num_iterations=5, group=Collectives())
+    assert model._batched is not None and model.route == "gram"
+    assert any("one batched step" in r.getMessage() for r in caplog.records)
+    assert not any("in turn" in r.getMessage() for r in caplog.records)
+    kw = dict(num_tenants=2, step_sizes=[0.1] * 2, l2_regs=[0.0] * 2, num_text_features=F,
+              num_iterations=5)
+    grouped = make_sgd_tenant_step(group=Collectives(), **kw)
+    single = make_sgd_tenant_step(**kw)
+    assert grouped.route == single.route == "gram"
+    idx, val, num, mask, y, _ = small_parts()
+    wire = FeatureBatch(idx[:2] * 97, val[:2], num[:2], y[:2], mask[:2])
+    w = torch.zeros((2, F + 4))
+    valid = tenant_valid_rows(mask[:2].numpy())
+    (wg, og), (ws, os_) = grouped(w, wire, valid), single(w, wire, valid)
+    torch.testing.assert_close(wg, ws, rtol=1e-6, atol=1e-7)
+    assert torch.equal(og.count, os_.count) and torch.equal(og.predictions, os_.predictions)
 
 
 # ---- the tenant forms' plain versions and plans

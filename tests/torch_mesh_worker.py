@@ -12,7 +12,8 @@ num_model)`` and makes the spec's ``runs`` in order, each a dict with its
 ``<out>/<name>-rank<r>.npz`` and prints, as its last line, a JSON object
 with each run's record under ``runs``: its scalars, the host-side
 collective counts and seconds it added (``distributed.COUNTERS``,
-``SECONDS``) and the hand kernels' launches it made.
+``SECONDS``) and the hand kernels' launches it made (with the tenant forms'
+library G products, ``tenant_gram_products``).
 
 Modes (a run's keys):
 
@@ -33,11 +34,17 @@ Modes (a run's keys):
   ticks of M tenant parts of B rows), each tick's parts as routed there,
   each rank taking its data shard's rows of its own tenants' parts
   (``prepare_wire_from_parts``); ``init`` (an .npy [M, F + 4]) sets the
-  start weights. The arrays: the gathered stack (``w``, [M, F + 4]), this
-  rank's tenants' counts (``counts``), mse (``mse``), its rows' predictions
-  (``preds``) and, with the
-  quality vector, quality (``quality``); the record: each tick's device ms,
-  host wall, collective ms by kind and collectives (``tick_collectives``,
+  start weights. With ``hold_forms`` every call the step makes of B4's,
+  B7's and B8's tenant forms is held against its plain version on the
+  same inputs (the record's ``forms``: each call's form, bitwise flag, max
+  abs error and the plain version's largest magnitude); with ``profile``
+  (a directory) the ticks after the first run under ``torch.profiler``,
+  whose Chrome trace lands in ``<profile>/rank<r>``. The arrays: the
+  gathered stack (``w``, [M, F + 4]), this rank's tenants' counts
+  (``counts``), mse (``mse``), its rows' predictions (``preds``) and, with
+  the quality vector, quality (``quality``); the record: whether the stack
+  built a batched step (``batched``), each tick's device ms, host wall,
+  collective ms by kind and collectives (``tick_collectives``,
   ``distributed.COUNTERS``' deltas).
 - ``tenant_split``: the split with a tenant grid
   (``fused_sgd.fused_dense_sgd_tenants_split``) against its plain version
@@ -112,6 +119,7 @@ def _launches() -> dict:
     from twtml_tpu_torch.ops import fused_gram, fused_sgd
 
     out = {fn.__name__: fn.launches for fn in fused_gram.KERNELS}
+    out["tenant_gram_products"] = fused_gram.tenant_gram_blocks.products
     for name in ("fused_dense_sgd", "fused_dense_grad", "fused_dense_update",
                  "fused_dense_sgd_tenants", "fused_dense_sgd_tenants_split"):
         out[name] = getattr(fused_sgd, name).launches
@@ -204,7 +212,73 @@ def _tenant_parts(path: str, model, mesh) -> list:
         for k in range(data["mask"].shape[0])]
 
 
+def _held_forms(record: list):
+    """A stand-in for ``models.sgd``'s ``fused_gram`` whose tenant forms
+    each hold their result against their plain version on the same inputs,
+    appending one entry a call to ``record``; every other name is the
+    module's own (the launches count on the real wrappers)."""
+    import types
+
+    import torch
+
+    from twtml_tpu_torch.ops import fused_gram as fg
+
+    def entry(form, got, want, exact=None):
+        err = float((got.float() - want.float().to(got.device)).abs().max()) if got.numel() else 0.0
+        record.append({"form": form, "bitwise": bool(torch.equal(got, want.to(got.device))),
+                       "max_abs_err": err, "scale": float(want.float().abs().max())
+                       if want.numel() else 0.0, **(exact or {})})
+
+    def count_build_tenants(*a, **kw):
+        counts, at = fg.count_build_tenants(*a, **kw)
+        plain, plain_at = fg.count_build_tenants_reference(*a, cols_out=counts.shape[1], **kw)
+        entry("count_build_tenants", counts, plain, {"at_equal": plain_at == at,
+                                                      "rows": list(counts.shape)})
+        return counts, at
+
+    def dual_sgd_tenants(*a, **kw):
+        c, alpha, its = fg.dual_sgd_tenants(*a, **kw)
+        c_r, alpha_r, its_r = fg.dual_sgd_tenants_reference(*a, **kw)
+        entry("dual_sgd_tenants", torch.cat([c, alpha.reshape(-1)]),
+              torch.cat([c_r, alpha_r.reshape(-1)]), {
+                  "iterations": [int(i) for i in its.tolist()],
+                  "iterations_equal": bool(torch.equal(its, its_r.to(its.device))),
+                  "valid_rows": [int(v) for v in kw["valid_rows"]],
+                  "tenant_draws": kw.get("masks") is not None and kw["masks"].dim() == 3})
+        return c, alpha, its
+
+    def dual_writeback_tenants(*a, out=None, **kw):
+        got = fg.dual_writeback_tenants(*a, out=out, **kw)
+        want = fg.dual_writeback_tenants_reference(*a, **kw)
+        rows = list(kw["tenants"])
+        entry("dual_writeback_tenants", got[rows], want[rows],
+              {"first_rows": list(kw.get("first_rows") or ())})
+        return got
+
+    proxy = types.SimpleNamespace(**{k: getattr(fg, k) for k in dir(fg) if not k.startswith("__")})
+    proxy.count_build_tenants = count_build_tenants
+    proxy.dual_sgd_tenants = dual_sgd_tenants
+    proxy.dual_writeback_tenants = dual_writeback_tenants
+    return proxy
+
+
 def _tenants(spec: dict, mesh, group) -> tuple:
+    from twtml_tpu_torch.models import sgd
+    from twtml_tpu_torch.ops import fused_gram
+
+    forms: list = []
+    if spec.get("hold_forms"):
+        sgd.fused_gram = _held_forms(forms)
+    try:
+        rec, arrays = _tenant_ticks(spec, mesh, group)
+    finally:
+        sgd.fused_gram = fused_gram
+    if spec.get("hold_forms"):
+        rec["forms"] = forms
+    return rec, arrays
+
+
+def _tenant_ticks(spec: dict, mesh, group) -> tuple:
     from twtml_tpu_torch.parallel import distributed
     from twtml_tpu_torch.parallel.tenants import TenantStackModel
 
@@ -217,7 +291,13 @@ def _tenants(spec: dict, mesh, group) -> tuple:
              else _batches(spec["batches"], spec.get("wire", "host"), mesh))
     clock = _Clock(spec["device"])
     counts, mse, preds, quality, tick_collectives = [], [], [], [], []
-    for b in ticks:
+    prof = None
+    for k, b in enumerate(ticks):
+        if k == 1 and spec.get("profile"):
+            from torch.profiler import ProfilerActivity, profile
+
+            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            prof.__enter__()
         before = dict(distributed.COUNTERS)
         out = clock.run(lambda b=b: model.step(b))
         tick_collectives.append(_delta(distributed.COUNTERS, before))
@@ -226,9 +306,15 @@ def _tenants(spec: dict, mesh, group) -> tuple:
         preds.append(out.predictions.float().cpu().numpy())
         if out.quality is not None:
             quality.append(out.quality.float().cpu().numpy())
+    if prof is not None:
+        prof.__exit__(None, None, None)
+        where = os.path.join(spec["profile"], f"rank{mesh.process_index}")
+        os.makedirs(where, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(where, "ticks.pt.trace.json"))
     rec = {"route": model.route, "tenants": [model.tenant0, model.num_local],
-           "step_device_ms": clock.device_ms, "step_wall_ms": clock.wall_ms,
-           "step_collective_ms": clock.collective_ms, "tick_collectives": tick_collectives}
+           "batched": model._batched is not None, "step_device_ms": clock.device_ms,
+           "step_wall_ms": clock.wall_ms, "step_collective_ms": clock.collective_ms,
+           "tick_collectives": tick_collectives}
     arrays = {"w": model.latest_weights, "counts": np.stack(counts), "mse": np.stack(mse),
               "preds": np.stack(preds)}
     if quality:

@@ -150,6 +150,17 @@
 // - B8's (bound: bytes, each tenant's v rows of C read once): B8 itself,
 //   its blocks over (column block, tenant): each tenant's row of W is B8's
 //   on the same rows bit for bit (a dry tenant's is c·W_prev).
+// Over a data axis (the vmap inside shard_map, twtml_tpu/parallel/
+// tenants.py:324-352) every rank gathers every tenant's rows, and tenant
+// t's block holds its valid rows from every rank in rank order. B4's table
+// takes one entry a (tenant, rank) segment, which skips each rank's
+// padding, so a block is still B4's on its rows bit for bit. B7 runs
+// replicated over the blocks, each tenant with its own draws
+// (masks_tenants: a row of a block keeps its global position's draw). B8
+// runs over this rank's rows of each block on zero weights (its table's
+// c_row is the block's first row plus the rank's offset: any row of C is
+// 16-byte aligned, its columns a multiple of 16), and the ranks' sums are
+// all-reduced.
 //
 // What Hopper offers and these designs leave out: tensor cores and TMA.
 // B4 and B8 stream bytes; B7's product is matrix × vector (N = 1) on f32
@@ -645,7 +656,8 @@ struct DualTenantParams {
   const float* y;        // [M·B]
   const float* mask;     // [M·B]
   const float* numeric;  // [M·B, 4]: N, whose N·Nᵀ the prologue adds to G; null: G holds it
-  const float* masks;    // [iterations, B] Bernoulli draws every tenant shares, or null
+  const float* masks;    // Bernoulli draws, or null: [iterations, B] every tenant shares,
+                         // or each tenant's own [iterations, M, B] (masks_tenants = M)
   const float* p_prev;   // [M]: ||W_prev||² of each tenant
   float* alpha_out;      // [M, B]: zero past each tenant's valid rows
   float* c_out;          // [M]
@@ -657,6 +669,7 @@ struct DualTenantParams {
   float* spill;
   long long abuf_floats;
   int bp_max, rows_cap_max, stage, num_iterations;  // stage: the decisions' float4s
+  int masks_tenants;  // 0: one [iterations, B] draw for every tenant; M: [iterations, M, B]
   float tol;
 };
 
@@ -953,7 +966,11 @@ __global__ void __launch_bounds__(kDualThreads, 1)
   bool decided_spec = false;  // the tenant updated after that test
   bool finished = live == 0;
   for (int it = 1; it <= p.num_iterations && !finished; ++it) {
-    const float* draw = p.masks ? p.masks + (size_t)(it - 1) * batch : nullptr;
+    // the iteration's draws of the tenant's rows: shared, or its own row of them
+    const float* draw =
+        p.masks ? p.masks + ((size_t)(it - 1) * (p.masks_tenants ? p.masks_tenants : 1) +
+                             (p.masks_tenants ? t.slot[me] : 0)) * batch
+                : nullptr;
     float count = count_all;
     if (draw && !mine_frozen) {
       float s = 0.f;
@@ -1371,7 +1388,10 @@ extern "C" int twtml_count_build(const void* idx, const void* val, void* out, in
 // B7's tenant form: every tenant's dual loop in one cooperative launch on
 // `stream` (B7 itself is the table of one tenant). u, y, mask [M·B] f32,
 // numeric [M·B, 4] f32 (null: each G holds N·Nᵀ already), masks
-// [iterations, B] f32 or null, p_prev [M] f32 -> alpha_out [M, B], c_out
+// [iterations, B] f32 every tenant shares (masks_tenants 0), each tenant's
+// own [iterations, masks_tenants, B] (tenant u's at row slot[u]: the rows of
+// a data axis's gathered blocks, each tenant's at its own global
+// positions), or null, p_prev [M] f32 -> alpha_out [M, B], c_out
 // and iterations [M] (each tenant's row m = slot[u]), barriers [1] (the
 // grid barriers the launch crossed); abuf [2·abuf_floats], partials
 // [16·grid] and spill f32 scratch. The plan's values and `plan_layout`
@@ -1387,8 +1407,8 @@ extern "C" int twtml_count_build(const void* idx, const void* val, void* out, in
 // clock64). Returns the launch's CUDA error, 0 when it was taken.
 extern "C" int twtml_dual_sgd_tenants(
     const void* u, const void* y, const void* mask, const void* numeric, const void* masks,
-    const void* p_prev, void* alpha_out, void* c_out, void* iterations, void* barriers,
-    void* abuf, void* partials, void* spill, long long abuf_floats, int tenants,
+    int masks_tenants, const void* p_prev, void* alpha_out, void* c_out, void* iterations,
+    void* barriers, void* abuf, void* partials, void* spill, long long abuf_floats, int tenants,
     int batch_rows, int grid, int bp_max, int rows_cap_max, int shared_bytes, int in_registers,
     const int* plan_layout, const int* first_cta, const int* valid, const int* slot,
     const int* rows_cap, const int* resident, const long long* spill_at,
@@ -1405,6 +1425,7 @@ extern "C" int twtml_dual_sgd_tenants(
             abuf_floats >= 4 && abuf_floats % 4 == 0 && num_iterations >= 0 &&
             (residual_mode == 0 || residual_mode == 1) &&
             (in_registers == 0 || in_registers == 1) && first_cta[0] == 0 &&
+            masks_tenants >= 0 &&
             first_cta[tenants] == grid && (size_t)shared_bytes >= lay.g && barriers != nullptr &&
             (probe == nullptr || probe_edges >= 1);
   for (int i = 0; i < 8; ++i) ok = ok && (size_t)plan_layout[i] == offsets[i];
@@ -1420,6 +1441,7 @@ extern "C" int twtml_dual_sgd_tenants(
     const int v = in ? valid[w] : 0, bp = (v + 3) & ~3;
     if (in)
       ok = k >= 0 && v >= 0 && v <= batch_rows && bp <= bp_max && slot[w] >= 0 &&
+           (masks_tenants == 0 || slot[w] < masks_tenants) &&
            resident[w] >= 0 && resident[w] <= rows_cap[w] && rows_cap[w] <= rows_cap_max &&
            spill_at[w] >= 0 && abuf_at[w] >= 0 && abuf_at[w] % 4 == 0 &&
            abuf_at[w] + bp <= abuf_floats &&
@@ -1449,6 +1471,7 @@ extern "C" int twtml_dual_sgd_tenants(
   p.mask = static_cast<const float*>(mask);
   p.numeric = static_cast<const float*>(numeric);
   p.masks = static_cast<const float*>(masks);
+  p.masks_tenants = masks_tenants;
   p.p_prev = static_cast<const float*>(p_prev);
   p.alpha_out = static_cast<float*>(alpha_out);
   p.c_out = static_cast<float*>(c_out);

@@ -63,6 +63,8 @@ set-up), then captures.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -581,6 +583,180 @@ def gram_sgd_parallel(weights, token_idx, token_val, numeric, raw, labels, mask,
     return weights * c + delta
 
 
+class TenantRowTable(NamedTuple):
+    """A data axis's gathered tenant rows (``Collectives.
+    all_gather_tenant_rows``: tenant t's part holds every rank's ``rows``
+    rows in rank order) and the blocks the Gram route builds from them:
+    tenant t's block is its valid rows of each rank (``valid[r][t]``, from
+    the gather's header) in rank order, each rank's padding skipped.
+    ``rank`` is this rank."""
+
+    valid: tuple
+    rank: int
+    rows: int
+
+    @property
+    def totals(self) -> tuple:
+        """Each tenant's block rows: its valid rows over every rank."""
+        return tuple(sum(v[t] for v in self.valid) for t in range(len(self.valid[0])))
+
+    def first_row(self, r: int, t: int) -> int:
+        """Rank r's first row in tenant t's block."""
+        return sum(self.valid[q][t] for q in range(r))
+
+    def segments(self) -> tuple:
+        """Each tenant's (first gathered row, rows) runs, one a rank
+        (``count_build_tenants``' segments)."""
+        return tuple(tuple((r * self.rows, v[t]) for r, v in enumerate(self.valid))
+                     for t in range(len(self.valid[0])))
+
+    def mine(self) -> tuple:
+        """This rank's (first row, rows) in each tenant's block."""
+        return tuple((self.first_row(self.rank, t), self.valid[self.rank][t])
+                     for t in range(len(self.valid[0])))
+
+    def index(self, device) -> torch.Tensor:
+        """[M, max(1, most block rows)] int64: row k of tenant t's block as
+        its gathered row (0 past its block's rows, which nothing reads)."""
+        totals = self.totals
+        out = np.zeros((len(totals), max(1, max(totals))), np.int64)
+        for t in range(len(totals)):
+            out[t, :totals[t]] = np.concatenate(
+                [r * self.rows + np.arange(v[t]) for r, v in enumerate(self.valid)])
+        return torch.from_numpy(out).to(device)
+
+
+def gather_tenant_panels(panels, table: TenantRowTable, data, int32, device) -> list:
+    """Every tenant's text G of its block, [p, p] for its p block rows,
+    from each rank's row panel of it (``panels[t]``: this rank's [n, ≥ p]
+    rows of tenant t's G, None where it has none) in ONE all-gather: each
+    rank lays its panels' first p columns end to end as 4-byte words, at the
+    length of the longest rank's (every rank knows each one's rows), and
+    each tenant's G stacks the ranks' panels in rank order. ``int32[t]``:
+    tenant t's panel is the int8 product's s32 (else f32, carried as its
+    bits). None for a tenant with no row on any rank. On ``device``."""
+    totals = table.totals
+    m, ranks = len(totals), len(table.valid)
+    sizes = [[table.valid[r][t] * totals[t] for t in range(m)] for r in range(ranks)]
+    width = max(1, max(sum(s) for s in sizes))
+    buf = torch.zeros((1, width), dtype=torch.int32, device=device)
+    at = 0
+    for t, panel in enumerate(panels):
+        if panel is not None:
+            n, p = panel.shape[0], totals[t]
+            buf[0, at:at + n * p].view(n, p).copy_(panel[:, :p].view(torch.int32))
+        at += sizes[table.rank][t]
+    gathered = data.all_gather_rows(buf)
+    out = []
+    for t in range(m):
+        p = totals[t]
+        pieces = [gathered[r, sum(sizes[r][:t]):sum(sizes[r][:t + 1])].view(v[t], p)
+                  for r, v in enumerate(table.valid) if v[t]]
+        g = torch.cat(pieces) if pieces else None
+        out.append(g if g is None or int32[t] else g.view(torch.float32))
+    return out
+
+
+def tenants_by_plane(planes, rows) -> dict:
+    """The tenants grouped by Gram plane for the tenant forms' launches
+    (True: the int8 plane), each tenant with no row (``rows[t]`` 0) with the
+    first tenant that has rows, so a dry tenant adds no launch."""
+    live = [t for t in range(len(planes)) if rows[t]]
+    lead = planes[live[0] if live else 0] == PLANE_INT8
+    by_plane: dict = {}
+    for t, plane in enumerate(planes):
+        by_plane.setdefault(plane == PLANE_INT8 if rows[t] else lead, []).append(t)
+    return by_plane
+
+
+def gram_tenants_parallel(weights, token_idx, token_val, numeric, raw, labels, mask, *,
+                          valid_rows, planes, data, masks_for, sampled: bool, step_sizes,
+                          l2_regs, num_iterations: int, convergence_tol: float,
+                          residual_fn=least_squares_residual):
+    """The vmap form's Gram route over a data axis, this rank's share of M
+    tenants' steps at once (the JAX vmap of ``gram_sgd_parallel``'s step
+    inside ``shard_map``): ONE all-gather of every tenant's rows, each
+    rank's valid rows and host plane of each riding in its header; each
+    tenant's plane the lowest of the ranks' (each plane's gate holds for
+    every row, so the gathered rows pass the tightest: every rank picks the
+    same); each tenant's block its valid rows of every rank in rank order
+    (``TenantRowTable``); this rank's row panel of each tenant's G; ONE
+    all-gather of every tenant's panels; the M dual loops replicated, each
+    tenant's rows keeping their global positions' ``-b`` < 1 draws (the
+    unfolded key over the S·B gathered rows, as the JAX dual loop draws
+    them); this rank's rows' write-back on zero weights; ONE all-reduce of
+    the [M, F + 4] sums; W_new = c·W + that sum. On the card in float32
+    the hand kernels' tenant forms: B4's over the segments (once a plane
+    present), one library product a tenant's panel, B7's with each tenant's
+    own draws, B8's at this rank's rows of each block (once a plane); else
+    the plain pieces tenant by tenant. Inputs are this rank's [M, B_local]
+    rows; ``valid_rows`` and ``planes`` this rank's, from the host."""
+    m, rows_local = mask.shape
+    f_text = weights.shape[1] - NUM_NUMBER_FEATURES
+    dev = weights.device
+    header = np.asarray([*valid_rows, *planes], np.int64)
+    heads, (g_idx, g_val, g_num, g_raw, g_mask, g_labels) = data.all_gather_tenant_rows(
+        header, token_idx, token_val, numeric, raw, mask, labels)
+    table = TenantRowTable(valid=tuple(tuple(int(v) for v in h[:m]) for h in heads),
+                           rank=data.rank, rows=rows_local)
+    planes = [int(heads[:, m + t].min()) for t in range(m)]
+    totals, mine = table.totals, table.mine()
+    index = table.index(dev)
+    tenant = torch.arange(m, device=dev)[:, None]
+    u_b, y_b, mask_b, num_b = (x[tenant, index] for x in (g_raw, g_labels, g_mask, g_num))
+    masks = None
+    if sampled:  # [N, M, block rows]: each row's draw at its global position
+        masks = masks_for(data.world * rows_local, dev, None)[:, index]
+    p_prev = torch.sum(weights * weights, dim=1)
+    loop_kw = dict(num_iterations=num_iterations, convergence_tol=convergence_tol,
+                   residual_fn=residual_fn)
+    if (dev.type == "cuda" and weights.dtype == torch.float32
+            and residual_mode(residual_fn) is not None):
+        panels, built = [None] * m, []
+        for int8, tenants in tenants_by_plane(planes, totals).items():
+            counts, at = fused_gram.count_build_tenants(
+                g_idx, g_val, f_text, valid_rows=totals, int8=int8, tenants=tenants,
+                segments=table.segments())
+            for t, panel in zip(tenants, fused_gram.tenant_gram_blocks(
+                    counts, at, [totals[t] for t in tenants], rows=[mine[t] for t in tenants])):
+                panels[t] = panel
+            built.append((tenants, counts, at))
+        gs = gather_tenant_panels(panels, table, data,
+                                  [planes[t] == PLANE_INT8 for t in range(m)], dev)
+        c, alpha, _ = fused_gram.dual_sgd_tenants(
+            gs, u_b, y_b, mask_b, num_b, valid_rows=totals, masks=masks, p_prev=p_prev,
+            step_sizes=step_sizes, l2_regs=l2_regs, **loop_kw)
+        zeros, delta = torch.zeros_like(weights), torch.zeros_like(weights)
+        for tenants, counts, at in built:
+            fused_gram.dual_writeback_tenants(
+                zeros, c, alpha, counts, num_b, f_text, valid_rows=[v for _, v in mine],
+                tenants=tenants, at=at, first_rows=[mine[t][0] for t in tenants], out=delta)
+    else:
+        blocks = [(g_idx[t, index[t, :p]], g_val[t, index[t, :p]]) for t, p in enumerate(totals)]
+        gs = gather_tenant_panels(
+            [text_gram(i, v, f_text, row_start=o, rows=n, plane=planes[t]) if n else None
+             for t, ((i, v), (o, n)) in enumerate(zip(blocks, mine))],
+            table, data, [False] * m, dev)
+        c = torch.ones((m,), dtype=weights.dtype, device=dev)
+        delta = torch.zeros_like(weights)
+        for t, p in enumerate(totals):
+            if not p:  # no row on any rank: c = 1, no update
+                continue
+            dual = run_dual_loop(
+                u=u_b[t, :p], g=add_numeric_block(gs[t], num_b[t, :p], weights.dtype),
+                labels=y_b[t, :p], mask=mask_b[t, :p], dtype=weights.dtype, p_prev=p_prev[t],
+                masks=None if masks is None else masks[:, t, :p], step_size=step_sizes[t],
+                l2_reg=l2_regs[t], **loop_kw)
+            c[t] = dual["c"]
+            o, n = mine[t]
+            w_text, w_num = dual_writeback(
+                delta[t, :f_text], delta[t, f_text:], dual["c"], dual["alpha"][o:o + n],
+                blocks[t][0][o:o + n], blocks[t][1][o:o + n], num_b[t, o:o + n])
+            delta[t] = torch.cat([w_text, w_num])
+    data.allreduce_(delta)
+    return weights * c[:, None] + delta
+
+
 def make_sgd_train_step(
     *,
     num_text_features: int,
@@ -804,14 +980,18 @@ def make_sgd_tenant_step(
     under the key folded with the rank (the JAX vmap's one
     ``sampling_key(data)``); the stats and the quality vector take one
     all-reduce each. N + 1 all-reduces a step (N + 2 with the quality
-    vector), whatever M. The sparse regime over a group has no batched
-    form (ROADMAP B10 d): it raises."""
+    vector), whatever M. The sparse regime's scatter route is the batched
+    scatter loop with the same one all-reduce an iteration: N + 1 (N + 2)
+    a step. Its Gram route (``gram_tenants_parallel``, the ``fits_gram``
+    gate counting a part's global rows, B_local x ranks, as the JAX gate's
+    ``b_global``) makes one all-gather of every tenant's rows (each rank's
+    valid rows and planes in its header), one of every tenant's G panels,
+    one all-reduce of the write-backs, then the stats' (and the quality
+    vector's): 2 all-gathers and 2 all-reduces a step (3 with the quality
+    vector), whatever M."""
     _check_slice(dtype)
     f_text = num_text_features
     sparse = f_text > DENSE_TEXT_FEATURE_LIMIT if use_sparse is None else use_sparse
-    if sparse and group is not None:
-        raise ValueError("the sparse regime's batched tenant step runs on one process; over a "
-                         "data axis its tenants step in turn (ROADMAP B10 d)")
     residual_fn = residual_fn or least_squares_residual
     route = dense_route(mini_batch_fraction, dtype, residual_fn, sparse, use_gram)
     int8_plane = GRAM_INT8_PLANE if gram_int8 is None else gram_int8
@@ -822,6 +1002,7 @@ def make_sgd_tenant_step(
     sampled = mini_batch_fraction < 1.0
     reduce = None if group is None else group.allreduce_
     shard = None if group is None else group.rank
+    world = 1 if group is None else group.world
     _, masks_for = mask_cache(num_iterations, mini_batch_fraction, dtype)
     tables: dict = {}
     loop_kw = dict(num_iterations=num_iterations, convergence_tol=convergence_tol,
@@ -850,18 +1031,17 @@ def make_sgd_tenant_step(
         if planes is None:
             planes = [data_plane(token_val[t], int8_plane) for t in range(m)]
         valid = [int(v) for v in valid_rows]
+        if group is not None:
+            return gram_tenants_parallel(
+                weights, token_idx, token_val, numeric, raw, labels, mask, valid_rows=valid,
+                planes=planes, data=group, masks_for=masks_for, sampled=sampled,
+                step_sizes=step_sizes, l2_regs=l2_regs, **loop_kw)
         p_prev = torch.sum(weights * weights, dim=1)
         if (weights.device.type == "cuda" and weights.dtype == torch.float32
                 and residual_mode(residual_fn) is not None):
-            # the tenants by plane, each dry one with the first tenant with rows
-            live = [t for t in range(m) if valid[t]]
-            lead = planes[live[0]] == PLANE_INT8 if live else planes[0] == PLANE_INT8
-            by_plane: dict = {}
-            for t in range(m):
-                by_plane.setdefault(planes[t] == PLANE_INT8 if valid[t] else lead, []).append(t)
             gs = [None] * m
             built = []
-            for int8, tenants in by_plane.items():
+            for int8, tenants in tenants_by_plane(planes, valid).items():
                 counts, at = fused_gram.count_build_tenants(
                     token_idx, token_val, f_text, valid_rows=valid, int8=int8, tenants=tenants)
                 for t, g in zip(tenants, fused_gram.tenant_gram_blocks(
@@ -894,17 +1074,21 @@ def make_sgd_tenant_step(
         labels, mask = labels.view(m, rows), mask.view(m, rows)
         token_idx, token_val = token_idx.view(m, rows, -1), token_val.view(m, rows, -1)
         numeric = numeric.view(m, rows, -1)
+        # a rank of a data axis draws under the key folded with its data
+        # index; the Gram route over one draws over the gathered rows
         masks = masks_for(rows, mask.device, shard) if sampled else None
         if sparse:
             raw = sparse_predict(weights[:, :f_text], weights[:, f_text:], token_idx,
                                  token_val, numeric)
-            if route == "gram" and (use_gram or fits_gram(rows, f_text, num_iterations)):
+            if route == "gram" and (use_gram
+                                    or fits_gram(rows * world, f_text, num_iterations)):
                 w_new = gram_tenants(weights, token_idx, token_val, numeric, raw, labels, mask,
                                      masks, planes, valid_rows)
             else:
                 w_new = sparse_sgd_loop(weights, token_idx, token_val, numeric, labels, mask,
                                         num_text_features=f_text, masks=masks, step_size=None,
-                                        step_table=step_table(mask.device), **loop_kw)
+                                        step_table=step_table(mask.device), reduce=reduce,
+                                        **loop_kw)
         else:
             x_dense = torch.cat([densify_text(token_idx.view(m * rows, -1),
                                               token_val.view(m * rows, -1), f_text),

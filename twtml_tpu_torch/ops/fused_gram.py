@@ -31,7 +31,12 @@ instantiation ``dual_tenants_probe``, read by ``dual_tenants_probe_split``)
 and ``dual_writeback_tenants`` (B8's, every row bitwise B8's on the same
 rows); each plain version is M calls of the single-tenant one. B4, B7 and
 B8 each have one kernel and one C entry: a single batch is their tenant
-table of one tenant.
+table of one tenant. Over a data axis (``models/sgd.py``
+``gram_tenants_parallel``) the same forms take a rank's share: B4's each
+tenant's rows of every rank as segments of the gathered parts,
+``tenant_gram_blocks(rows=)`` the rank's row panels, B7's each tenant's own
+draws ([N, M, B] masks), B8's the rank's rows of each block
+(``first_rows``).
 
 The kernels are ``csrc/gram.cu`` (its header gives each design). None uses
 float atomics: reruns are bitwise equal. Routing as in ops/fused_sgd.py: a
@@ -168,37 +173,65 @@ def tenant_padded_rows(valid: int) -> int:
 class CountTenantsPlan(NamedTuple):
     """B4's tenant form over some tenants of a stack (their valid rows
     ``valid_rows``): tenant i's block of C starts at row ``at[i]`` and has
-    ``tenant_padded_rows`` rows, ``rows`` in all; ``launches`` are (first,
-    end) positions in ``tenants``, at most TENANTS_PER_LAUNCH tenants a
-    launch, a CTA a row of their blocks (a launch of dry tenants alone,
-    no rows, is left out); ``shared_bytes`` a CTA's (``count_layout``)."""
+    ``tenant_padded_rows`` rows, ``rows`` in all. The row table's
+    ``entries`` are (position in ``tenants``, first row in the tenant's
+    part, rows, first row of C), one a segment of a tenant's rows (one a
+    tenant unless the caller gives segments), each owning C's rows up to
+    the next entry's first; ``launches`` are (first, end) positions in
+    ``entries``, at most TENANTS_PER_LAUNCH a launch, a CTA a row of their
+    blocks (a launch that owns no row is left out); ``shared_bytes`` a
+    CTA's (``count_layout``)."""
 
     valid_rows: tuple
     at: tuple
     rows: int
     launches: tuple
     shared_bytes: int
+    entries: tuple
 
 
-def count_tenants_plan(valid_rows, tenants, tokens: int, *, shared_limit: int) -> CountTenantsPlan:
+def _tenant_runs(tenants, valid, segments) -> list:
+    """Each tenant's (first row, rows) runs: its first v rows, or its
+    ``segments``, checked to sum to its valid rows v."""
+    runs = [((0, v),) if segments is None else tuple((int(a), int(n)) for a, n in segments[t])
+            for t, v in zip(tenants, valid)]
+    if any(sum(n for _, n in r) != v or any(a < 0 or n < 0 for a, n in r)
+           for r, v in zip(runs, valid)):
+        raise ValueError(f"count_build_tenants: segments {runs} do not sum to the valid rows "
+                         f"{list(valid)}")
+    return runs
+
+
+def count_tenants_plan(valid_rows, tenants, tokens: int, *, shared_limit: int,
+                       segments=None) -> CountTenantsPlan:
     """B4's tenant form for the tenants ``tenants`` (indices into the
-    stack's ``valid_rows``) at L = ``tokens``."""
+    stack's ``valid_rows``) at L = ``tokens``. ``segments`` (indexed like
+    ``valid_rows``; default: each tenant's first ``valid_rows[t]`` rows)
+    gives each tenant's rows as (first row in its part, rows) runs in
+    order, which sum to its valid rows: a data axis's gathered part holds
+    every rank's rows, and a tenant's block its valid rows of each rank."""
     tenants = tuple(int(t) for t in tenants)
     valid = tuple(int(valid_rows[t]) for t in tenants)
     if not tenants or min(valid) < 0:
         raise ValueError(f"count_build_tenants takes 1 or more tenants with 0 or more rows, "
                          f"got {valid}")
-    at, rows = [], 0
-    for v in valid:
+    runs = _tenant_runs(tenants, valid, segments)
+    at, rows, entries = [], 0, []
+    for i, (v, r) in enumerate(zip(valid, runs)):
         at.append(rows)
+        first = rows
+        for a, n in r:
+            entries.append((i, a, n, first))
+            first += n
         rows += tenant_padded_rows(v)
-    ends = at[1:] + [rows]
+    ends = [e[3] for e in entries[1:]] + [rows]
     launches = tuple(
-        (lo, min(len(valid), lo + TENANTS_PER_LAUNCH))
-        for lo in range(0, len(valid), TENANTS_PER_LAUNCH)
-        if ends[min(len(valid), lo + TENANTS_PER_LAUNCH) - 1] > at[lo])
+        (lo, min(len(entries), lo + TENANTS_PER_LAUNCH))
+        for lo in range(0, len(entries), TENANTS_PER_LAUNCH)
+        if ends[min(len(entries), lo + TENANTS_PER_LAUNCH) - 1] > entries[lo][3])
     return CountTenantsPlan(valid_rows=valid, at=tuple(at), rows=rows, launches=launches,
-                            shared_bytes=count_shared_bytes(tokens, shared_limit=shared_limit))
+                            shared_bytes=count_shared_bytes(tokens, shared_limit=shared_limit),
+                            entries=tuple(entries))
 
 
 class DualTenantsPlan(NamedTuple):
@@ -441,13 +474,21 @@ def dual_writeback_reference(weights, c, alpha, counts, numeric, f_text: int):
     return torch.cat([text, num])
 
 
+def _segment_rows(t, m: int, v: int, segments):
+    """Tenant m's rows of the [M, B, ...] ``t``: its first ``v``, or its
+    ``segments[m]`` runs in order."""
+    if segments is None:
+        return t[m, :v]
+    return torch.cat([t[m, a:a + n] for a, n in segments[m]])
+
+
 def count_build_tenants_reference(token_idx, token_val, f_text: int, *, valid_rows, int8: bool,
-                                  tenants=None, cols_out: "int | None" = None):
+                                  tenants=None, cols_out: "int | None" = None, segments=None):
     """B4's tenant form's plain version: for each tenant m of ``tenants``
     (default every part of the [M, B, L] tokens) B4's twin on its first
-    ``valid_rows[m]`` rows, at ``tenant_padded_rows`` rows and ``cols_out``
-    columns (default ``f_text``), stacked. Returns (C, each tenant's first
-    row of C)."""
+    ``valid_rows[m]`` rows (or its ``segments[m]`` runs of rows, in order),
+    at ``tenant_padded_rows`` rows and ``cols_out`` columns (default
+    ``f_text``), stacked. Returns (C, each tenant's first row of C)."""
     tenants = range(token_idx.shape[0]) if tenants is None else tenants
     cols = f_text if cols_out is None else cols_out
     blocks, at, rows = [], [], 0
@@ -456,9 +497,9 @@ def count_build_tenants_reference(token_idx, token_val, f_text: int, *, valid_ro
         at.append(rows)
         rows += tenant_padded_rows(v)
         if v:
-            blocks.append(count_build_reference(token_idx[m, :v], token_val[m, :v], f_text,
-                                                int8=int8, rows_out=tenant_padded_rows(v),
-                                                cols_out=cols))
+            blocks.append(count_build_reference(
+                _segment_rows(token_idx, m, v, segments), _segment_rows(token_val, m, v, segments),
+                f_text, int8=int8, rows_out=tenant_padded_rows(v), cols_out=cols))
     dtype = torch.int8 if int8 else torch.float32
     counts = (torch.cat(blocks) if blocks
               else torch.zeros((0, cols), dtype=dtype, device=token_idx.device))
@@ -474,7 +515,8 @@ def dual_sgd_tenants_reference(gs, u, labels, mask, numeric, *, valid_rows, mask
     plus N·Nᵀ of its rows (``add_numeric_block``), its own step size, L2
     and p_prev, every tenant on the same [N, B] ``masks`` sliced to its
     rows; a dry tenant c = 1, α = 0, N iterations. Returns (c [M], α [M, B]
-    (zero past each tenant's rows), iterations run [M]), all float32."""
+    (zero past each tenant's rows), iterations run [M]), all float32.
+    ``masks`` [N, M, B] gives each tenant its own draws."""
     m_all, b = mask.shape
     c = torch.ones((m_all,), dtype=torch.float32, device=mask.device)
     its = torch.full((m_all,), float(num_iterations), dtype=torch.float32, device=mask.device)
@@ -486,42 +528,66 @@ def dual_sgd_tenants_reference(gs, u, labels, mask, numeric, *, valid_rows, mask
         g = add_numeric_block(gs[m][:v, :v].float(), numeric[m, :v])
         c[m], alpha[m, :v], its[m] = dual_sgd_reference(
             g, u[m, :v], labels[m, :v], mask[m, :v],
-            masks=None if masks is None else masks[:, :v], p_prev=p_prev[m],
+            masks=_tenant_draws(masks, m, v), p_prev=p_prev[m],
             num_iterations=num_iterations, step_size=step_sizes[m], l2_reg=l2_regs[m],
             convergence_tol=convergence_tol, residual_fn=residual_fn)
     return c, alpha, its
 
 
+def _tenant_draws(masks, m: int, v: int):
+    """Tenant m's [N, v] draws: of the [N, B] every tenant shares, or of its
+    own row of [N, M, B]."""
+    if masks is None:
+        return None
+    return (masks[:, m] if masks.dim() == 3 else masks)[:, :v]
+
+
 def dual_writeback_tenants_reference(weights, c, alpha, counts, numeric, f_text: int, *,
-                                     valid_rows, tenants, at, out=None):
+                                     valid_rows, tenants, at, out=None, first_rows=None):
     """B8's tenant form's plain version: for each tenant m of ``tenants``
-    (its block of C from row ``at[i]``), B8's twin on its first
-    ``valid_rows[m]`` rows, into row m of ``out`` (default zeros like
+    (its block of C from row ``at[i]``), B8's twin on its ``valid_rows[m]``
+    rows from row ``first_rows[i]`` of its block and of its α and numeric
+    rows (default 0), into row m of ``out`` (default zeros like
     ``weights``)."""
     out = torch.zeros_like(weights) if out is None else out
-    for m, first in zip(tenants, at):
+    first_rows = (0,) * len(tenants) if first_rows is None else first_rows
+    for m, first, r0 in zip(tenants, at, first_rows):
         v = int(valid_rows[m])
-        out[m] = dual_writeback_reference(weights[m], c[m], alpha[m, :v],
-                                          counts[first:first + v], numeric[m, :v], f_text)
+        out[m] = dual_writeback_reference(weights[m], c[m], alpha[m, r0:r0 + v],
+                                          counts[first + r0:first + r0 + v],
+                                          numeric[m, r0:r0 + v], f_text)
     return out
 
 
-def tenant_gram_blocks(counts, at, valid_rows):
+def tenant_gram_blocks(counts, at, valid_rows, rows=None):
     """Each tenant's text G from its block of the tenant count build's C
     (from row ``at[i]``, ``valid_rows[i]`` rows): the padded block's C·Cᵀ,
     [p, p] for p = ``tenant_padded_rows``, one library product a tenant
     with rows (None for a dry one; the JAX package leaves the product to
     XLA outside any kernel), as ``gram_from_counts`` but left s32 for int8
-    counts on the card (B7's tenant form reads it as f32, exactly).
+    counts on the card (B7's tenant form reads it as f32, exactly). With
+    ``rows`` = each tenant's (start, n), the row panel of its block
+    C[start:start + n]·Cᵀ, [n, p] (a data-parallel rank's share, as
+    ``gram_from_counts(rows=)``; None where n or the block is 0): on the
+    card the int8 product's left operand is a window of more than 16 rows
+    inside the block (``torch._int_mm``'s rule), its extra rows dropped.
     Counted in ``tenant_gram_blocks.products``."""
     out = []
-    for first, v in zip(at, valid_rows):
-        if not v:
+    for i, (first, v) in enumerate(zip(at, valid_rows)):
+        start, n = (0, None) if rows is None else (int(rows[i][0]), int(rows[i][1]))
+        if not v or n == 0:
             out.append(None)
             continue
         block = counts[first:first + tenant_padded_rows(v)]
         tenant_gram_blocks.products += 1
-        out.append(_counts_product(block, block))
+        if n is None:
+            out.append(_counts_product(block, block))
+            continue
+        if start < 0 or start + n > v:
+            raise ValueError(f"tenant_gram_blocks: rows {rows[i]} outside the block's {v}")
+        h = max(n, 17) if block.is_cuda and block.dtype == torch.int8 else n
+        lo = min(start, block.shape[0] - h)  # a block has 24 rows or more
+        out.append(_counts_product(block[lo:lo + h], block)[start - lo:start - lo + n])
     return out
 
 
@@ -540,8 +606,10 @@ _ENTRIES = {
         + [ctypes.c_void_p]  # stream
     ),
     "twtml_dual_sgd_tenants": (
-        [ctypes.c_void_p] * 13  # u, y, mask, numeric, masks, p_prev, alpha_out, c_out,
-        #                         iterations, barriers, abuf, partials, spill
+        [ctypes.c_void_p] * 5  # u, y, mask, numeric, masks
+        + [ctypes.c_int]  # masks_tenants
+        + [ctypes.c_void_p] * 8  # p_prev, alpha_out, c_out, iterations, barriers, abuf,
+        #                          partials, spill
         + [ctypes.c_longlong]  # abuf_floats
         + [ctypes.c_int] * 7  # tenants, batch_rows, grid, bp_max, rows_cap_max, shared_bytes,
         #                       in_registers
@@ -776,7 +844,7 @@ def _check_tenant_rows(name, valid_rows, m, b):
 
 
 def count_build_tenants(token_idx, token_val, f_text: int, *, valid_rows, int8: bool,
-                        tenants=None):
+                        tenants=None, segments=None):
     """B4's tenant form: [M, B, L] int32 indices and f32 values (M parts of
     B rows), each part's valid rows (``valid_rows``, host ints: its rows up
     to its last valid one) -> (C, at): one counts buffer (int8 when
@@ -787,7 +855,10 @@ def count_build_tenants(token_idx, token_val, f_text: int, *, valid_rows, int8: 
     of B4's ``count_build_kernel`` for each TENANTS_PER_LAUNCH tenants
     (``count_tenants_plan``; none for a launch of dry tenants alone),
     counted in ``count_build_tenants.launches``; on the CPU the plain
-    version, at ``f_text`` columns."""
+    version, at ``f_text`` columns. ``segments`` (``count_tenants_plan``'s)
+    makes a tenant's block its runs of rows in order: a data axis's
+    gathered parts, each tenant's valid rows of every rank, the ranks'
+    padding skipped."""
     dev = token_idx.device
     if token_idx.dim() != 3:
         raise ValueError(f"token_idx must be [M, B, L], got {tuple(token_idx.shape)}")
@@ -796,9 +867,13 @@ def count_build_tenants(token_idx, token_val, f_text: int, *, valid_rows, int8: 
     tenants = tuple(range(m)) if tenants is None else tuple(int(t) for t in tenants)
     if not tenants or any(not 0 <= t < m for t in tenants):
         raise ValueError(f"count_build_tenants: tenants {tenants} outside [0, {m})")
+    if segments is not None and any(a + n > b for t in tenants for a, n in segments[t]):
+        raise ValueError(f"count_build_tenants: segments past a part's {b} rows")
     if dev.type == "cpu":
+        _tenant_runs(tenants, [int(valid_rows[t]) for t in tenants], segments)
         return count_build_tenants_reference(token_idx, token_val, f_text,
-                                             valid_rows=valid_rows, int8=int8, tenants=tenants)
+                                             valid_rows=valid_rows, int8=int8, tenants=tenants,
+                                             segments=segments)
     if dev.type != "cuda":
         raise ValueError(f"count_build_tenants takes cpu or cuda tensors, got {dev}")
     _check("token_idx", token_idx, (m, b, l), torch.int32, dev)
@@ -809,17 +884,19 @@ def count_build_tenants(token_idx, token_val, f_text: int, *, valid_rows, int8: 
     dtype = torch.int8 if int8 else torch.float32
     with torch.cuda.device(dev):
         _, shared_limit = device_limits(torch.cuda.current_device())
-        plan = count_tenants_plan(valid_rows, tenants, l, shared_limit=shared_limit)
+        plan = count_tenants_plan(valid_rows, tenants, l, shared_limit=shared_limit,
+                                  segments=segments)
         out = torch.empty((plan.rows, cols), dtype=dtype, device=dev)
+        ents = plan.entries
         for lo, hi in plan.launches:
-            first = plan.at[lo]
-            rel = [a - first for a in plan.at[lo:hi]] + [
-                (plan.at[hi] if hi < len(tenants) else plan.rows) - first]
+            first = ents[lo][3]
+            rel = [e[3] - first for e in ents[lo:hi]] + [
+                (ents[hi][3] if hi < len(ents) else plan.rows) - first]
             _raise_on(_entry("twtml_count_build")(
                 token_idx.data_ptr(), token_val.data_ptr(), out[first].data_ptr(), hi - lo, l,
                 f_text, cols, COUNT_KINDS[dtype], plan.shared_bytes,
-                _ints(t * b for t in tenants[lo:hi]), _ints(plan.valid_rows[lo:hi]),
-                _ints(rel), _stream()), "count_build_tenants")
+                _ints(tenants[e[0]] * b + e[1] for e in ents[lo:hi]),
+                _ints(e[2] for e in ents[lo:hi]), _ints(rel), _stream()), "count_build_tenants")
             _count(count_build_tenants)
     return out, plan.at
 
@@ -865,7 +942,8 @@ def _launch_dual(plan, *, gs, slots, u, labels, mask, numeric, masks, p_prev, al
     _raise_on(_entry("twtml_dual_sgd_tenants")(
         u.data_ptr(), labels.data_ptr(), mask.data_ptr(),
         0 if numeric is None else numeric.data_ptr(), 0 if masks is None else masks.data_ptr(),
-        p_prev.data_ptr(), alpha.data_ptr(), c_out.data_ptr(), iterations.data_ptr(),
+        masks.shape[1] if masks is not None and masks.dim() == 3 else 0, p_prev.data_ptr(),
+        alpha.data_ptr(), c_out.data_ptr(), iterations.data_ptr(),
         scratch[-1].data_ptr(), scratch.data_ptr(), scratch[2 * plan.abuf_floats:].data_ptr(),
         spill.data_ptr(), plan.abuf_floats, len(plan.valid_rows), batch_rows, plan.grid,
         plan.bp_max, plan.rows_cap_max, plan.shared_bytes, int(plan.in_registers),
@@ -895,8 +973,9 @@ def _dual_tenant_launches(gs, u, labels, mask, numeric, *, valid, masks, p_prev,
     if numeric is not None:  # None (the probe only): each G holds N·Nᵀ, as B7's
         _check("numeric", numeric, (m, b, 4), torch.float32, dev)
     _check("p_prev", p_prev, (m,), torch.float32, dev)
-    if masks is not None:
-        _check("masks", masks, (num_iterations, b), torch.float32, dev)
+    if masks is not None:  # shared, or each tenant's own
+        _check("masks", masks, (num_iterations, b) if masks.dim() == 2 else (num_iterations, m, b),
+               torch.float32, dev)
     _check_tenant_gs(gs, valid, dev)
     with torch.cuda.device(dev):
         sm_count, shared_limit = device_limits(torch.cuda.current_device())
@@ -928,7 +1007,9 @@ def dual_sgd_tenants(gs, u, labels, mask, numeric, *, valid_rows, masks=None, p_
     unit column stride; None for a dry tenant), to which N·Nᵀ of the
     tenant's rows is added; u = Z·W_prev, the labels and the validity mask
     [M, B] f32, ``numeric`` [M, B, 4] f32, the [N, B] Bernoulli masks every
-    tenant shares (None: every valid row each iteration), p_prev [M] f32;
+    tenant shares or each tenant's own [N, M, B] (a data axis's gathered
+    blocks: each row keeps its global position's draw; None: every valid
+    row each iteration), p_prev [M] f32;
     tenant m reads its first ``valid_rows[m]`` rows (rows past them must be
     masked) with ``step_sizes[m]`` and ``l2_regs[m]``, and freezes where
     its test converges. Returns (c [M], α [M, B] (zero past each tenant's
@@ -1024,14 +1105,17 @@ def dual_tenants_probe_split(stamps) -> dict:
 
 
 def dual_writeback_tenants(weights, c, alpha, counts, numeric, f_text: int, *, valid_rows,
-                           tenants, at, out=None):
+                           tenants, at, out=None, first_rows=None):
     """B8's tenant form: for each tenant m of ``tenants`` (its block of the
     tenant count build's C from row ``at[i]``), row m of ``out`` =
     c[m]·W_prev[m] + Cᵀα over its first ``valid_rows[m]`` rows (and the
     numeric columns' w_num·c + Nᵀα), bitwise B8 on those rows.
     ``weights`` [M, F+4], ``c`` [M], ``alpha`` [M, B], ``numeric`` [M, B,
     4] f32; ``out`` (default zeros like ``weights``) keeps its other rows.
-    On the card one launch of B8's ``writeback_kernel`` (a block a
+    ``first_rows`` (default 0s) starts tenant i's rows at row
+    ``first_rows[i]`` of its block and of its α and numeric rows: a data
+    axis's rank writes back its own rows of each gathered block. On the
+    card one launch of B8's ``writeback_kernel`` (a block a
     tenant and column block) for each TENANTS_PER_LAUNCH tenants, counted
     in ``dual_writeback_tenants.launches``; on the CPU the plain version."""
     m, b = alpha.shape
@@ -1039,8 +1123,12 @@ def dual_writeback_tenants(weights, c, alpha, counts, numeric, f_text: int, *, v
     tenants, at = tuple(int(t) for t in tenants), tuple(int(a) for a in at)
     if not tenants or len(at) != len(tenants) or any(not 0 <= t < m for t in tenants):
         raise ValueError(f"dual_writeback_tenants: tenants {tenants} (at {at}) of {m}")
+    first_rows = (0,) * len(tenants) if first_rows is None else tuple(int(r) for r in first_rows)
+    if len(first_rows) != len(tenants) or any(
+            r < 0 or r + int(valid_rows[t]) > b for t, r in zip(tenants, first_rows)):
+        raise ValueError(f"dual_writeback_tenants: first rows {first_rows} of {b}")
     dev = weights.device
-    kw = dict(valid_rows=valid_rows, tenants=tenants, at=at)
+    kw = dict(valid_rows=valid_rows, tenants=tenants, at=at, first_rows=first_rows)
     if dev.type == "cpu":
         return dual_writeback_tenants_reference(weights, c, alpha, counts, numeric, f_text,
                                                 out=out, **kw)
@@ -1053,7 +1141,8 @@ def dual_writeback_tenants(weights, c, alpha, counts, numeric, f_text: int, *, v
     rows, cols = counts.shape
     if (counts.dtype not in COUNT_KINDS or counts.device != dev or not counts.is_contiguous()
             or cols < f_text or cols % 16
-            or any(a + int(valid_rows[t]) > rows for t, a in zip(tenants, at))):
+            or any(a + r + int(valid_rows[t]) > rows
+                   for t, a, r in zip(tenants, at, first_rows))):
         raise ValueError(f"counts must be contiguous int8 or float32 with each tenant's rows "
                          f"(columns >= {f_text}, a multiple of 16) on {dev}, got "
                          f"{counts.dtype} {tuple(counts.shape)}")
@@ -1063,11 +1152,12 @@ def dual_writeback_tenants(weights, c, alpha, counts, numeric, f_text: int, *, v
         _check("out", out, (m, f_text + 4), torch.float32, dev)
         for lo in range(0, len(tenants), TENANTS_PER_LAUNCH):
             part = tenants[lo:lo + TENANTS_PER_LAUNCH]
+            r0 = first_rows[lo:lo + TENANTS_PER_LAUNCH]
             _raise_on(_entry("twtml_dual_writeback")(
                 counts.data_ptr(), COUNT_KINDS[counts.dtype], cols, f_text, alpha.data_ptr(),
                 c.data_ptr(), weights.data_ptr(), numeric.data_ptr(), out.data_ptr(), len(part),
-                _ints(part), _ints(at[lo:lo + TENANTS_PER_LAUNCH]),
-                _ints(int(valid_rows[t]) for t in part), _ints(t * b for t in part),
+                _ints(part), _ints(a + r for a, r in zip(at[lo:lo + TENANTS_PER_LAUNCH], r0)),
+                _ints(int(valid_rows[t]) for t in part), _ints(t * b + r for t, r in zip(part, r0)),
                 _stream()), "dual_writeback_tenants")
             _count(dual_writeback_tenants)
     return out

@@ -377,14 +377,58 @@ class Collectives:
         buffer, and comes back as it went."""
         if self.world <= 1:
             return tuple(t.contiguous() for t in tensors)
-        cols = [t.contiguous().reshape(t.shape[0], -1).view(torch.uint8) for t in tensors]
+        cols = _byte_columns(tensors, tensors[0].shape[0])
         gathered = self.all_gather_rows(torch.cat(cols, dim=1))
-        out, start = [], 0
-        for t, c in zip(tensors, cols):
-            part = gathered[:, start:start + c.shape[1]].contiguous().view(t.dtype)
-            start += c.shape[1]
-            out.append(part.reshape((gathered.shape[0],) + tuple(t.shape[1:])))
-        return tuple(out)
+        return _from_byte_columns(gathered, tensors, cols, (gathered.shape[0],))
+
+    def all_gather_tenant_rows(self, header, *tensors: torch.Tensor) -> tuple:
+        """Every rank's rows of M tenants' fields (each of ``tensors``
+        [M, B_local, ...], any dtypes) and every rank's small int ``header``
+        (a host array, here each tenant's valid rows and Gram plane), in ONE
+        ``all_gather_rows``: the fields travel as their bytes beside each
+        other, a [M·B_local, bytes] uint8 buffer, the header's int64s as rows
+        after them. Returns (the headers, int64 [ranks, n] on the host; each
+        field as [M, ranks · B_local, ...] on its device, within each tenant
+        in rank order: the JAX package's ``all_gather(..., tiled=True)`` of
+        the vmapped step's rows). Over gloo the buffer is joined and gathered
+        on the host, so the header is read with no copy from the card."""
+        hdr = np.ascontiguousarray(header, np.int64).reshape(-1)
+        m, b = tensors[0].shape[:2]
+        if self.world <= 1:
+            return hdr[None], tuple(t.contiguous() for t in tensors)
+        cols = _byte_columns(tensors, m * b)
+        body = torch.cat(cols, dim=1)
+        width = body.shape[1]
+        raw = np.zeros((-(-hdr.nbytes // width) * width,), np.uint8)
+        raw[:hdr.nbytes] = hdr.view(np.uint8)
+        head = torch.from_numpy(raw).view(-1, width)
+        at = torch.device("cpu") if self.staged else body.device
+        out = self.all_gather_rows(torch.cat([body.to(at), head.to(at)]))
+        out = out.view(self.world, -1, width)
+        heads = out[:, m * b:].cpu()
+        rows = out[:, :m * b].reshape(self.world, m, b, width).transpose(0, 1)
+        rows = rows.reshape(m * self.world * b, width).to(body.device)
+        headers = np.ascontiguousarray(heads.reshape(self.world, -1).numpy()[:, :hdr.nbytes])
+        fields = _from_byte_columns(rows, [t[0] for t in tensors], cols, (m, self.world * b))
+        return headers.view(np.int64), fields
+
+
+def _byte_columns(tensors, rows: int) -> list:
+    """Each tensor as [rows, its bytes a row] uint8 (one of the byte
+    columns a row gather carries side by side)."""
+    return [t.contiguous().reshape(rows, -1).view(torch.uint8) for t in tensors]
+
+
+def _from_byte_columns(gathered, tensors, cols, lead: tuple) -> tuple:
+    """The gathered [rows, bytes] buffer back as each of ``tensors``' dtype,
+    each shaped ``lead`` + its trailing shape (the shape past its first
+    axis)."""
+    out, start = [], 0
+    for t, c in zip(tensors, cols):
+        part = gathered[:, start:start + c.shape[1]].contiguous().view(t.dtype)
+        start += c.shape[1]
+        out.append(part.reshape(lead + tuple(t.shape[1:])))
+    return tuple(out)
 
 
 class MeshCollectives(NamedTuple):

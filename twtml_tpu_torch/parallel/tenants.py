@@ -49,10 +49,14 @@ Over a process group (``mesh``, with its ``group``'s Collectives):
   the M tenants' data-parallel steps into one (``make_sgd_tenant_step(
   group=...)``, the JAX vmap inside ``shard_map``): on the card the dense
   float32 route is the split with a tenant grid
-  (``fused_dense_sgd_tenants_split``), the torch-loop routes reduce every
-  tenant's sums in one buffer, so a tick makes N + 1 all-reduces (N + 2
-  with the quality vector) whatever M; the 2^18 routes still run the
-  tenants' data-parallel steps in turn (ROADMAP B10 d);
+  (``fused_dense_sgd_tenants_split``), the torch-loop and scatter routes
+  reduce every tenant's sums in one buffer, so a tick makes N + 1
+  all-reduces (N + 2 with the quality vector) whatever M; the 2^18 Gram
+  route gathers every tenant's rows in one all-gather and every tenant's
+  G panels in another, runs the M dual loops replicated and all-reduces
+  the write-backs once (``models/sgd.gram_tenants_parallel``): 2
+  all-gathers and 2 all-reduces a tick (3 with the quality vector)
+  whatever M;
 - on a ``('data', 'model')`` mesh (``ModelMesh``) the TENANTS shard over
   ``model``: rank (d, m) holds and trains tenants [m·M/n, (m+1)·M/n) (n the
   model axis) on data shard d's rows, data-parallel over ``data`` (the vmap
@@ -248,10 +252,10 @@ class TenantStackModel:
                 )
             self._steps.append(built[hyper])
         self.route = self._steps[0].route
-        # the vmap form's one batched step over this rank's tenants: every
-        # route on one process, the dense regime's over a data axis
+        # the vmap form's one batched step over this rank's tenants, on
+        # every route, on one process or over a data axis
         self._batched = None
-        if mapping == "vmap" and not (self._steps[0].sparse and data_group is not None):
+        if mapping == "vmap":
             self._batched = make_sgd_tenant_step(
                 num_tenants=self.num_local, step_sizes=self.step_sizes[mine],
                 l2_regs=self.l2_regs[mine], num_text_features=num_text_features,
@@ -260,10 +264,7 @@ class TenantStackModel:
                 prediction_fn=prediction_fn, round_predictions=round_predictions,
                 quality=quality, dtype=dtype, use_sparse=use_sparse, use_gram=use_gram,
                 gram_int8=gram_int8, group=data_group)
-        form = ("scan: a step a tenant" if mapping == "scan" else
-                "vmap: one batched step" if self._batched is not None else
-                f"vmap: the {self.route} route has no batched form over a data axis (ROADMAP "
-                "B10 d), so the tenants' steps run in turn")
+        form = "scan: a step a tenant" if mapping == "scan" else "vmap: one batched step"
         log.info("tenant plane: %d tenants (%d on this rank), key %s, %s wire, %s step route "
                  "on %s, mapping %s", num_tenants, self.num_local, tenant_key, wire_pack,
                  self.route, self.device, form)
