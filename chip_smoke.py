@@ -35,8 +35,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
                (the count the kernel writes), NaN/Inf in masked rows bitwise
                ignored, within rtol 1e-4 / atol 1e-5, and two replays of a
                CUDA graph that captured it bitwise the eager launch; B8 (the
-               write-back) within rtol 2e-4 of its twin and of the
-               per-occurrence scatter; each rerun bitwise equal;
+               write-back, from the batch's tokens) in both planes and in
+               the skew cases (85 hot columns, every token in one column,
+               padding in column 0, a model axis's clamped slice, L = 511,
+               indices out of range, a NaN or Inf α) within rtol 2e-4 of
+               its plain version and of the per-occurrence scatter, its
+               text columns bitwise its order on the host, and in a CUDA
+               graph replayed twice bitwise the eager launch; each rerun
+               bitwise equal;
   4. main    — the flagship app (``apps/linear_regression.run``, its
                streaming context and fetch pipeline, ``--seconds 0
                --batchBucket 16384``) on cuda for 4 full-width synthetic
@@ -173,10 +179,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
                barriers, one barrier crossing alone on a probe kernel; and
                at B = 3072 and 4096, G spilled) and B8 at config #4's
                operating point (B = 2048, F = 2^18),
-               with ``torch.bincount`` as B4's library call; B4's f32 build
-               on tweet-length rows (L = 511): (a) on their tokens, (b)
-               with every index out of range, (c) ``torch.bincount``, the
-               counts bitwise the CPU twin's and a rerun's;
+               with ``torch.bincount`` as B4's library call and
+               ``index_add_`` as B8's; B4's f32 build on tweet-length rows
+               (L = 511): (a) on their tokens, (b) with every index out of
+               range, (c) ``torch.bincount``, the counts bitwise the CPU
+               twin's and a rerun's; B8 on the same rows (the f32 plane);
  20. serve   — the serving plane: a verified checkpoint (stamped ok) of the
                main phase's weights served by ``apps/serve.run`` on the card
                (the dashboard server on a loopback port); 2,000 requests of
@@ -473,6 +480,15 @@ processes, DIR's port against this checkout's, each in a process of its
 own, with each tree's probe split where it has the timing instantiation
 and whether B7's results at each B, in both residual modes and under
 ``-b 0.5``, are bitwise equal across the trees (``dual_ab``); its last
+line is their JSON.
+
+``python3 chip_smoke.py --wb-ab N --package-root DIR`` runs phases 1 and 2
+(on DIR's port) and then only N alternating pairs of B8 in its four
+forms: the single form on config #4's synthetic batch (the int8 plane)
+and on tweet-length rows (the f32 plane), the tenant form at the 2^18 vmap
+arm's 4 parts and at a data axis's rank 0 rows of each block, DIR's port
+against this checkout's, each in a process of its own (``wb_ab``); a tree
+whose B8 reads the count build's C gets its C built beforehand; its last
 line is their JSON.
 
 ``python3 chip_smoke.py --split-ab N --package-root DIR`` runs phases 1 and
@@ -881,6 +897,96 @@ def gram_tokens(rng, rows, peak, fractional=False, terms=40, tokens=48):
     return idx, val
 
 
+def b8_cases(rng, int8_tokens):
+    """B8's holds at B = GRAM_ROWS, F = 2^18: (name, idx, val, F, options)
+    on the card. The int8 plane's tokens (the count build's row mass 127
+    case) and the same values scaled by 0.37 (the f32 plane); the skews: 85
+    hot columns (synthetic tweets, ~1,500 occurrences each), every token in
+    one column, the padding slots (value 0) in column 0 and a model axis's
+    slice (the tokens outside clamped into columns 0 and f_local - 1, value
+    0), tweet-length rows of the exact plane (L = 511, f32 values: ~1 M
+    occurrences), indices outside [0, F) (no scatter: it takes none), and
+    a NaN or an Inf α in one row (its columns poisoned as in the scatter)."""
+    import numpy as np
+    import torch
+
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+    idx8, val8 = int8_tokens[:2]
+    b = GRAM_ROWS
+    yield "int8 plane tokens (row mass 127)", idx8, val8, GRAM_F, {}
+    yield "f32 plane (values x 0.37)", idx8, (val8 * 0.37).contiguous(), GRAM_F, {}
+    hot = rng.choice(GRAM_F, 85, replace=False)
+    synth = hot[rng.integers(0, 85, (b, 63))].astype(np.int32)
+    ones = rng.integers(1, 3, (b, 63)).astype(np.float32)
+    yield "skew: 85 hot columns, L = 63", to(synth), to(ones), GRAM_F, {}
+    yield ("skew: every token in one column", to(np.full((b, 63), GRAM_F * 3 // 7, np.int32)),
+           to(ones), GRAM_F, {})
+    idx, val = gram_tokens(rng, b, 0, tokens=63)  # 40 terms a row, 23 padding slots in column 0
+    yield "padding slots in column 0", to(idx), to(val), GRAM_F, {}
+    f_local, lo = GRAM_F // 2, GRAM_F // 4
+    rel = idx.astype(np.int64) - lo
+    sliced = val * ((rel >= 0) & (rel < f_local))
+    yield ("a model axis's slice (clamped into columns 0 and f_local - 1, value 0)",
+           to(np.clip(rel, 0, f_local - 1).astype(np.int32)), to(sliced.astype(np.float32)),
+           f_local, {})
+    yield ("exact plane, tweet-length rows (L = 511, f32 values)",
+           to(rng.integers(0, GRAM_F, (b, 511)).astype(np.int32)),
+           to(rng.normal(size=(b, 511)).astype(np.float32)), GRAM_F, {})
+    oor = idx.copy()
+    oor[:, ::7], oor[:, 1::9] = GRAM_F + 3, -2
+    yield "indices outside [0, F)", to(oor), to(val), GRAM_F, {"scatter": False}
+    yield "a NaN alpha in row 3", to(idx), to(val), GRAM_F, {"poison": {3: float("nan")}}
+    yield "an Inf alpha in row 5", to(idx), to(val), GRAM_F, {"poison": {5: float("inf")}}
+
+
+def b8_hold(name, w, c, alpha, idx, val, num, f, scatter=True):
+    """B8 (``dual_writeback_counts``) on one batch's tokens on the card: a
+    rerun bitwise equal; the text columns bitwise its order on the host
+    (``dual_writeback_in_order``; where α is finite); within WEIGHT_RTOL
+    (atol WEIGHT_RTOL·max(1, max|w|)) of its plain version and, with
+    ``scatter``, of the per-occurrence scatter write-back (``ops/gram.py``
+    ``dual_writeback``); the NaN and Inf columns the plain version's.
+    Returns (W_new, the worst abs error, a note)."""
+    import torch
+
+    from twtml_tpu_torch.ops import fused_gram
+    from twtml_tpu_torch.ops.gram import dual_writeback
+
+    got = fused_gram.dual_writeback_counts(w, c, alpha, idx, val, num, f)
+    again = fused_gram.dual_writeback_counts(w, c, alpha, idx, val, num, f)
+    order = fused_gram.dual_writeback_in_order(w, c, alpha, idx, val, num, f)
+    wants = [("plain version", fused_gram.dual_writeback_reference(w, c, alpha, idx, val, num, f))]
+    if scatter:
+        text, numw = dual_writeback(w[:f], w[f:], c, alpha, idx, val, num)
+        wants.append(("per-occurrence scatter", torch.cat([text, numw])))
+    torch.cuda.synchronize()
+    if not torch.equal(bits(got), bits(again)):
+        raise AssertionError(f"{name}: reruns are not bitwise equal")
+    finite = torch.isfinite(order[:f])
+    if not torch.equal(bits(got[:f][finite]), bits(order[:f][finite])):
+        diff = int((bits(got[:f][finite]) != bits(order[:f][finite])).sum())
+        raise AssertionError(f"{name}: {diff} text columns differ bitwise from the kernel's "
+                             "order on the host")
+    worst = 0.0
+    for what, want in wants:
+        if not (torch.equal(torch.isnan(got), torch.isnan(want))
+                and torch.equal(torch.isinf(got), torch.isinf(want))):
+            raise AssertionError(f"{name}: its non-finite columns are not the {what}'s")
+        ok = torch.isfinite(want)
+        err = (got[ok] - want[ok]).abs()
+        atol = WEIGHT_RTOL * max(1.0, want[ok].abs().max().item())
+        if (err > atol + WEIGHT_RTOL * want[ok].abs()).any():
+            raise AssertionError(f"{name}: the {what} differs by {err.max().item():.3e}")
+        worst = max(worst, err.max().item())
+    poisoned = int((~torch.isfinite(got)).sum())
+    return got, worst, (f"max abs err {worst:.3e} against its plain version"
+                        f"{' and the per-occurrence scatter' if scatter else ''} (tolerance rtol "
+                        f"{WEIGHT_RTOL}, atol {WEIGHT_RTOL}*max(1, max|w|)); text columns "
+                        "bitwise its order on the host; rerun bitwise"
+                        + (f"; {poisoned} non-finite columns, the plain version's"
+                           if poisoned else ""))
+
+
 def gram_kernel_phase():
     """B4 and the G product, B7 and B8 on the card against their plain
     twins, each rerun bitwise equal. B4 + G: bitwise at a row mass of 127
@@ -892,8 +998,9 @@ def gram_kernel_phase():
     same iterations run and the grid barriers ``expected_barriers`` counts,
     NaN/Inf in masked rows bitwise ignored; within RTOL/ATOL; a CUDA graph
     of it replayed twice, bitwise the eager launch; at B % 4 != 0 on
-    NaN-filled scratch, bitwise the launch on other scratch. B8: within
-    WEIGHT_RTOL of the scatter write-back and of its twin."""
+    NaN-filled scratch, bitwise the launch on other scratch. B8 from the
+    tokens in ``b8_cases`` (``b8_hold``), and in a CUDA graph replayed
+    twice, bitwise the eager launch."""
     import numpy as np
     import torch
 
@@ -1122,40 +1229,43 @@ def gram_kernel_phase():
     nan_scratch_case("B=2047 (G in registers)", 2047, 2000)
     nan_scratch_case("B=4095 (G spilled)", 4095, 4000)
 
-    # ---- B8: the write-back, from the int8 case's counts and f32 counts
-    from twtml_tpu_torch.ops.gram import dual_writeback
-
-    idx_t, val_t, c8 = counts_int8
-    for name, counts, vals in (("int8 counts", c8, val_t),
-                               ("f32 counts", None, val_t * 0.37)):
-        if counts is None:
-            counts = fused_gram.count_build(idx_t, vals, GRAM_F, int8=False)
-        w = to((rng.normal(size=GRAM_F + 4) * 1e-2).astype(np.float32))
-        alpha = to((rng.normal(size=GRAM_ROWS) * 1e-3).astype(np.float32))
-        num = to((rng.normal(size=(GRAM_ROWS, 4)) * 0.1).astype(np.float32))
-        c = torch.tensor(0.97, device=dev)
-        got = fused_gram.dual_writeback_counts(w, c, alpha, counts, num, GRAM_F)
-        again = fused_gram.dual_writeback_counts(w, c, alpha, counts, num, GRAM_F)
-        twin = fused_gram.dual_writeback_reference(w, c, alpha, counts, num, GRAM_F)
-        text, numw = dual_writeback(w[:GRAM_F], w[GRAM_F:], c, alpha, idx_t, vals, num)
-        scatter = torch.cat([text, numw])
-        torch.cuda.synchronize()
-        if not torch.equal(got, again):
-            raise AssertionError(f"dual_writeback_counts {name}: reruns are not bitwise equal")
-        worst = 0.0
-        for what, want in (("twin", twin), ("scatter write-back", scatter)):
-            err = (got - want).abs()
-            atol = WEIGHT_RTOL * max(1.0, want.abs().max().item())
-            if (err > atol + WEIGHT_RTOL * want.abs()).any() or not torch.isfinite(got).all():
-                raise AssertionError(f"dual_writeback_counts {name}: {what} differs by "
-                                     f"{err.max().item():.3e}")
-            worst = max(worst, err.max().item())
+    # ---- B8: the write-back from the batch's tokens, in both planes and in
+    # every skew case (b8_cases)
+    for name, idx_b, val_b, f_b, opts in b8_cases(rng, counts_int8):
+        w = to((rng.normal(size=f_b + 4) * 1e-2).astype(np.float32))
+        alpha = (rng.normal(size=idx_b.shape[0]) * 1e-3).astype(np.float32)
+        for row, value in opts.get("poison", {}).items():
+            alpha[row] = value
+        alpha = to(alpha)
+        num = to((rng.normal(size=(idx_b.shape[0], 4)) * 0.1).astype(np.float32))
+        _, worst, note = b8_hold(f"dual_writeback_counts {name}", w, torch.tensor(0.97, device=dev),
+                                 alpha, idx_b, val_b, num, f_b, scatter=opts.get("scatter", True))
         errs["dual_writeback_counts"] = max(errs["dual_writeback_counts"], worst)
-        phase("kernel", f"dual_writeback_counts {name}: B={GRAM_ROWS} F={GRAM_F}; max abs "
-              f"err {worst:.3e} against its twin and the per-occurrence scatter "
-              f"(tolerance rtol {WEIGHT_RTOL}, atol {WEIGHT_RTOL}*max(1, max|w|)); rerun "
-              "bitwise equal")
+        phase("kernel", f"dual_writeback_counts {name}: B={idx_b.shape[0]} L={idx_b.shape[1]} "
+              f"F={f_b}; {note}")
         cases.append(f"dual_writeback_counts {name}")
+    # captured in a CUDA graph (as step_many captures it) and replayed twice
+    idx_b, val_b = counts_int8[:2]
+    w = to((rng.normal(size=GRAM_F + 4) * 1e-2).astype(np.float32))
+    alpha = to((rng.normal(size=GRAM_ROWS) * 1e-3).astype(np.float32))
+    num = to((rng.normal(size=(GRAM_ROWS, 4)) * 0.1).astype(np.float32))
+    c = torch.tensor(0.97, device=dev)
+    eager = fused_gram.dual_writeback_counts(w, c, alpha, idx_b, val_b, num, GRAM_F)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fused_gram.dual_writeback_counts(w, c, alpha, idx_b, val_b, num, GRAM_F)
+    fused_gram.dual_writeback_counts.captured = 0
+    for replay in (1, 2):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(bits(captured), bits(eager)):
+            raise AssertionError(f"dual_writeback_counts in a CUDA graph: replay {replay} "
+                                 "differs from the eager launch")
+    phase("kernel", f"dual_writeback_counts CUDA graph: B={GRAM_ROWS}; 2 replays bitwise equal "
+          "to the eager launch (its scratch from the graph's pool)")
+    cases.append("dual_writeback_counts CUDA graph")
+    del graph, captured
     torch.cuda.synchronize()
     return errs, cases
 
@@ -3489,7 +3599,7 @@ def sparse_breakdown(statuses, scatter_check=True):
         gg = fused_gram.gram_from_counts(counts)
         gg[:GRAM_ROWS, :GRAM_ROWS] += num @ num.T
 
-    w_new = fused_gram.dual_writeback_counts(w, c, alpha, counts, num, f)
+    w_new = fused_gram.dual_writeback_counts(w, c, alpha, idx, val, num, f)
 
     def quality():  # the step's HALF_UP rounding, stats and quality vector
         preds = torch_round_half_up(raw)
@@ -3503,7 +3613,7 @@ def sparse_breakdown(statuses, scatter_check=True):
         "B4 count build": lambda: fused_gram.count_build(idx, val, f, int8=plane == PLANE_INT8),
         "G product (+ N·Nᵀ)": add_numeric,
         "B7 dual loop": lambda: fused_gram.dual_sgd(g, raw, y, m, p_prev=p_prev, **kw),
-        "B8 write-back": lambda: fused_gram.dual_writeback_counts(w, c, alpha, counts, num, f),
+        "B8 write-back": lambda: fused_gram.dual_writeback_counts(w, c, alpha, idx, val, num, f),
         "rounding + stats + quality": quality,
     }
     times = {}
@@ -3552,6 +3662,21 @@ def bincount_ms(idx, val, rows, cols):
     return timed(call, 10, queue_ahead=True)[0], dtype
 
 
+def long_tweet_tokens():
+    """Batch 2 of the sparse phase's ``long_statuses`` (140-280 code units,
+    the exact plane) featurized onto the card at B = 2048 x 2^18: (the
+    batch, its device-hashed idx, val)."""
+    from twtml_tpu_torch.features.featurizer import Featurizer
+    from twtml_tpu_torch.models.sgd import batch_to_device
+    from twtml_tpu_torch.ops.text_hash import hash_bigrams_device
+
+    tweets = long_statuses(LONG_SPANS, GRAM_ROWS, seed=14)[GRAM_ROWS:2 * GRAM_ROWS]
+    host = Featurizer(now_ms=NOW_MS, num_text_features=GRAM_F).featurize_batch_units(
+        tweets, row_bucket=GRAM_ROWS)
+    dev = batch_to_device(host, "cuda", non_blocking=False)
+    return (dev,) + hash_bigrams_device(dev.units, dev.length, GRAM_F)
+
+
 def f32_build_times(smi):
     """B4's f32 build on tweet-length rows: batch 2 of the sparse phase's
     ``long_statuses`` (140-280 code units, the exact plane), device-hashed at
@@ -3562,16 +3687,9 @@ def f32_build_times(smi):
     mod 1024 (crowded steps)."""
     import torch
 
-    from twtml_tpu_torch.features.featurizer import Featurizer
-    from twtml_tpu_torch.models.sgd import batch_to_device
     from twtml_tpu_torch.ops import fused_gram
-    from twtml_tpu_torch.ops.text_hash import hash_bigrams_device
 
-    tweets = long_statuses(LONG_SPANS, GRAM_ROWS, seed=14)[GRAM_ROWS:2 * GRAM_ROWS]
-    host = Featurizer(now_ms=NOW_MS, num_text_features=GRAM_F).featurize_batch_units(
-        tweets, row_bucket=GRAM_ROWS)
-    dev = batch_to_device(host, "cuda", non_blocking=False)
-    idx, val = hash_bigrams_device(dev.units, dev.length, GRAM_F)
+    dev, idx, val = long_tweet_tokens()
     b, l = idx.shape
     f = GRAM_F
     build = lambda i: fused_gram.count_build(i, val, f, int8=False)  # noqa: E731
@@ -3619,7 +3737,13 @@ def f32_build_times(smi):
           f"(bytes), the kernel at {bound_ms / a_ms:.0%} of it; counts bitwise the CPU "
           f"twin's and a rerun's (the card's twin: "
           f"{'bitwise' if card_twin_bitwise else 'NOT bitwise'})")
-    return {"ms": a_ms, "tokens": l,
+    # B8 on the same tweet-length tokens: the f32 plane's write-back
+    rng = torch.Generator(device="cuda").manual_seed(15)
+    w = torch.randn(f + 4, device="cuda", generator=rng) * 1e-2
+    alpha = torch.randn(b, device="cuda", generator=rng) * 1e-3
+    b8 = b8_times(smi, w, torch.tensor(0.97, device="cuda"), alpha, idx, val, dev.numeric, f,
+                  False, "f32 plane, tweet-length rows")
+    return {"ms": a_ms, "tokens": l, "b8": b8,
             "out_of_range_ms": b_ms, "token_pass_ms": a_ms - b_ms, "plain_ms": twin_ms,
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms,
             "library_call": "torch.bincount", "library_dtype": lib_dtype,
@@ -3832,25 +3956,8 @@ def gram_times(smi, errs, launches, structure=True):
         b7_extra.update(g_in_registers=regs, barrier_crossing_us=barrier_us)
     # B8
     c, alpha, _ = fused_gram.dual_sgd(g, raw, y, m, p_prev=p_prev, convergence_tol=0.001, **kw)
-    b8_one, _ = timed(lambda: fused_gram.dual_writeback_counts(w, c, alpha, counts, num, f),
-                      25, queue_ahead=True)
-    b8_ms, b8_runs, _ = split_queued(
-        lambda: fused_gram.dual_writeback_counts(w, c, alpha, counts, num, f), 5)
-    b8_twin, _ = timed(lambda: fused_gram.dual_writeback_reference(w, c, alpha, counts, num, f),
-                       5)
-    cf = counts[:b, :f].float()
-    wt = w[:f].clone()
-    addmv_ms, _ = timed(lambda: torch.addmv(wt, cf.t(), alpha, beta=float(c)), 10,
-                        queue_ahead=True)
-    del cf
-    b8_bytes = b * cols * counts.element_size() + b * 4 * 5 + (f + 4) * 4 * 2
-    b8_ops = 2 * b * f
-    b8_bound = (b8_bytes / HBM_BYTES_PER_S * 1e3, b8_ops / F32_FLOPS_PER_S * 1e3)
-    phase("times", f"B8 write-back at B={b} F={f}: {b8_ms:.4f} ms back to back (median of 5 "
-          f"runs of 50: {min(b8_runs):.4f}-{max(b8_runs):.4f}); one call between events "
-          f"median {b8_one:.4f} ms; twin {b8_twin:.4f} ms; bound bytes {b8_bytes} B = {b8_bound[0]:.5f} ms, operations {b8_ops} = "
-          f"{b8_bound[1]:.5f} ms; torch.addmv on f32 counts of the same batch (the int8 C "
-          f"has no single library call) {addmv_ms:.4f} ms")
+    b8 = b8_times(smi, w, c, alpha, idx, val, num, f, int8, "int8 plane")
+    b8["f32_plane"] = f32_build.pop("b8")
     return [
         record("count_build", "twtml_tpu/ops/gram.py:133 (onehot_counts_int8; :112 "
                "onehot_counts, sparse.py:29 densify_text)", b4_ms, b4_twin, b4_bound, {
@@ -3864,10 +3971,68 @@ def gram_times(smi, errs, launches, structure=True):
                                     "replaces": "twtml_tpu/ops/gram.py:210"}}),
         record("dual_sgd", "twtml_tpu/models/sgd.py:155 (run_dual_loop)", b7[0.001]["ms"],
                b7_twin, b7_bound, b7_extra),
-        record("dual_writeback_counts", "twtml_tpu/ops/gram.py:269 (dual_writeback)", b8_ms,
-               b8_twin, b8_bound, {"kernel": "B8", "addmv_f32_counts_ms": addmv_ms,
-                                   "one_call_ms": b8_one, "queued_runs_ms": b8_runs}),
+        record("dual_writeback_counts", "twtml_tpu/ops/gram.py:269 (dual_writeback)",
+               b8.pop("ms"), b8.pop("plain_ms"), b8.pop("bound"), b8),
     ]
+
+
+def b8_call(fused_gram, w, c, alpha, idx, val, num, f, int8):
+    """B8 and its plain version on one batch as calls, for the tree
+    imported: from the tokens, or (a tree whose B8 read the count build's
+    C) from C, built here once. Returns (kernel, plain, reads C)."""
+    import inspect
+
+    if "token_idx" in inspect.signature(fused_gram.dual_writeback_counts).parameters:
+        return (lambda: fused_gram.dual_writeback_counts(w, c, alpha, idx, val, num, f),
+                lambda: fused_gram.dual_writeback_reference(w, c, alpha, idx, val, num, f), False)
+    counts = fused_gram.count_build(idx, val, f, int8=int8)
+    return (lambda: fused_gram.dual_writeback_counts(w, c, alpha, counts, num, f),
+            lambda: fused_gram.dual_writeback_reference(w, c, alpha, counts, num, f), True)
+
+
+def b8_bytes(rows, tokens, f, tenants=1):
+    """The least bytes B8 moves: each token's (idx, val) read once, α and
+    the numeric rows read once, each tenant's row of W read and written
+    once (and its c)."""
+    return rows * tokens * 8 + rows * (4 + 16) + tenants * (2 * (f + 4) * 4 + 4)
+
+
+def b8_times(smi, w, c, alpha, idx, val, num, f, int8, plane):
+    """B8 at one batch's tokens on the tree imported: device ms back to
+    back (5 runs of 50 queued), one call between events, the plain
+    version, ``index_add_`` of the same contributions (the scatter alone,
+    one PyTorch call; not reproducible bitwise on the card: it adds with
+    atomics), the bound from B8's own bytes beside one read of the int8 C
+    (what B8 streamed before it took the tokens). Returns the record's
+    fields (``ms``, ``plain_ms``, ``bound``: (bytes ms, operations ms))."""
+    import torch
+
+    from twtml_tpu_torch.ops import fused_gram
+
+    kernel, plain, reads_c = b8_call(fused_gram, w, c, alpha, idx, val, num, f, int8)
+    b, l = idx.shape
+    one, _ = timed(kernel, 25, queue_ahead=True)
+    ms, runs, _ = split_queued(kernel, 5)
+    plain_ms, _ = timed(plain, 5)
+    flat, contrib, wt = idx.reshape(-1), (val * alpha[:, None]).reshape(-1), w[:f] * c
+    lib_ms, _ = timed(lambda: wt.index_add_(0, flat, contrib), 10, queue_ahead=True)
+    moved = b8_bytes(b, l, f)
+    ops = 2 * b * l + 8 * b + 2 * (f + 4)
+    bound = (moved / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS_PER_S * 1e3)
+    c_read = b * fused_gram.padded_columns(f)
+    phase("times", f"B8 write-back ({plane}) at B={b} L={l} F={f}"
+          f"{' (this tree reads C)' if reads_c else ''}: {ms:.4f} ms back to back (median of 5 "
+          f"runs of 50: {min(runs):.4f}-{max(runs):.4f}); one call between events median "
+          f"{one:.4f} ms; plain version {plain_ms:.4f} ms; torch index_add_ of the "
+          f"contributions (the scatter alone) {lib_ms:.4f} ms; bound from its own bytes "
+          f"{moved} B = {bound[0]:.5f} ms (operations {ops}: {bound[1]:.6f} ms), the kernel at "
+          f"{bound[0] / ms:.1%} of it; one read of the int8 C would be {c_read} B = "
+          f"{c_read / HBM_BYTES_PER_S * 1e3:.5f} ms | card: {smi}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound": bound, "kernel": "B8", "plane": plane,
+            "tokens": l, "library_ms": lib_ms, "library_call": "torch.Tensor.index_add_ "
+            "(the scatter alone; atomics, not bitwise reproducible)", "one_call_ms": one,
+            "queued_runs_ms": runs, "bytes": moved, "reads_c": reads_c,
+            "int8_c_read_bytes": c_read}
 
 
 def timed(fn, runs, queue_ahead=False, ahead_cycles=QUEUE_AHEAD_CYCLES):
@@ -5646,7 +5811,8 @@ def grid_ab_times(runs=5):
     return out
 
 
-# one arm of an A/B mode (``--grid-ab``, ``--split-ab``, ``--tsplit-ab``, ``--dual-ab``):
+# one arm of an A/B mode (``--grid-ab``, ``--split-ab``, ``--tsplit-ab``, ``--dual-ab``,
+# ``--wb-ab``):
 # the port found in argv[1], this chip_smoke (argv[2]) for its inputs and
 # timing, its function argv[3]; the result as the last line
 AB_RUN = r"""
@@ -5740,6 +5906,117 @@ def grid_ab(smi, pairs, parent_root):
           f"{smi}")
     print(json.dumps({"grid_ab": {"pairs": pairs, "runs": runs, "medians": medians,
                                   "change_wins": wins, "card": smi}}), flush=True)
+
+
+def ab_summary(runs, keys):
+    """An A/B mode's medians by arm over its runs and, for each key, the
+    pairs in which the change's run was lower than the parent's."""
+    medians = {arm: {k: statistics.median(r[k] for r in rows) for k in keys}
+               for arm, rows in runs.items()}
+    pair_of = lambda arm: sorted(runs[arm], key=lambda r: r["pair"])  # noqa: E731
+    wins = {k: sum(c[k] < p[k] for c, p in zip(pair_of("change"), pair_of("parent")))
+            for k in keys}
+    return medians, wins
+
+
+WB_AB_FORMS = ("single_int8", "single_f32", "tenants", "data_axis")
+
+
+def wb_ab_times(runs=5):
+    """B8 in each of its forms on the port this process imports, 50 calls
+    back to back behind ``split_queued``'s sleep (the median of ``runs``),
+    the forms in turns, twice: the single form on config #4's synthetic
+    batch (the int8 plane) and on tweet-length rows (the f32 plane), the
+    tenant form at the 2^18 vmap arm's 4 parts and at a data axis's rank 0
+    rows of each block (``tm_time_inputs``). A tree whose B8 reads the
+    count build's C gets its C, built once beforehand."""
+    import inspect
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from twtml_tpu_torch.ops import fused_gram
+
+    tokens = "token_idx" in inspect.signature(fused_gram.dual_writeback_tenants).parameters
+    rng = np.random.default_rng(27)
+    cuda = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()  # noqa: E731
+    calls = {}
+    short, _, short_idx, short_val = gram_tweet_batch(GRAM_ROWS)
+    for form, (dev, idx, val) in (("single_int8", (short, short_idx, short_val)),
+                                  ("single_f32", long_tweet_tokens())):
+        b = idx.shape[0]
+        w, alpha = cuda(rng.normal(size=GRAM_F + 4) * 1e-2), cuda(rng.normal(size=b) * 1e-3)
+        calls[form] = b8_call(fused_gram, w, torch.tensor(0.97, device="cuda"), alpha, idx, val,
+                              dev.numeric, GRAM_F, form == "single_int8")[0]
+    x = sv_time_inputs()
+    m, b = x.mask.shape
+    c = cuda(rng.uniform(0.9, 1.0, m))
+    alpha = cuda(rng.normal(size=(m, b)) * 1e-3)
+    out = torch.empty_like(x.w)
+    if tokens:
+        calls["tenants"] = lambda: fused_gram.dual_writeback_tenants(
+            x.w, c, alpha, x.idx, x.val, x.num, GRAM_F, valid_rows=x.valid, out=out)
+    else:
+        counts, at = fused_gram.count_build_tenants(x.idx, x.val, GRAM_F, valid_rows=x.valid,
+                                                    int8=True)
+        calls["tenants"] = lambda: fused_gram.dual_writeback_tenants(
+            x.w, c, alpha, counts, x.num, GRAM_F, valid_rows=x.valid, tenants=range(m), at=at,
+            out=out)
+    with tempfile.TemporaryDirectory() as tmp:
+        short = ma_statuses(MA_SHORT_SPAN, GRAM_ROWS, 2, 23)
+        t = tm_time_inputs(ma_unit_batches(os.path.join(tmp, "short.npz"), short, GRAM_ROWS,
+                                           GRAM_F, MA_UNITS)[1])
+    mine, zeros, delta = t.table.mine(), torch.zeros_like(t.w), torch.empty_like(t.w)
+    alpha_b = cuda(rng.normal(size=tuple(t.mask.shape)) * 1e-3)
+    c_b = cuda(rng.uniform(0.9, 1.0, m))
+    kw = dict(valid_rows=[n for _, n in mine], first_rows=[o for o, _ in mine])
+    if tokens:
+        calls["data_axis"] = lambda: fused_gram.dual_writeback_tenants(
+            zeros, c_b, alpha_b, t.idx, t.val, t.num, GRAM_F, out=delta,
+            token_rows=[t.table.rank * t.table.rows] * m, **kw)
+    else:
+        counts_b, at_b = fused_gram.count_build_tenants(
+            t.idx, t.val, GRAM_F, valid_rows=t.table.totals, int8=True,
+            segments=t.table.segments())
+        calls["data_axis"] = lambda: fused_gram.dual_writeback_tenants(
+            zeros, c_b, alpha_b, counts_b, t.num, GRAM_F, out=delta, tenants=range(m), at=at_b,
+            **kw)
+    runs_ms = {form: [] for form in WB_AB_FORMS}
+    for _ in range(2):  # in turns, forwards then backwards
+        for form in (*WB_AB_FORMS, *WB_AB_FORMS[::-1]):
+            runs_ms[form] += split_queued(calls[form], runs)[1]
+    out = {f"{k}_ms": statistics.median(v) for k, v in runs_ms.items()}
+    out.update(runs_ms=runs_ms, reads_c=not tokens)
+    return out
+
+
+def wb_ab(smi, pairs, parent_root):
+    """``--wb-ab N --package-root DIR``: B8's four forms (``wb_ab_times``),
+    the port found in DIR (e.g. the parent commit unpacked there) against
+    this checkout's, each arm in a process of its own, N pairs, the order
+    alternating; each tree's ptxas report of writeback_kernel."""
+    import glob
+
+    keys = tuple(f"{k}_ms" for k in WB_AB_FORMS)
+
+    def report(i, arm, rec):
+        phase("wb-ab", f"pair {i} {arm} (run {rec['position'] + 1} of 2"
+              f"{', B8 reads C' if rec['reads_c'] else ''}): "
+              + ", ".join(f"{k[:-3]} {rec[k]:.4f} ms" for k in keys))
+
+    runs = ab_pairs("wb-ab", "wb_ab_times", pairs, parent_root, report)
+    medians, wins = ab_summary(runs, keys)
+    for arm, root in {"parent": parent_root, "change": HERE}.items():
+        for log in glob.glob(os.path.join(root, "build", "twtml_tpu_torch", "libgram-*.log")):
+            phase("wb-ab", f"{arm} build ({os.path.basename(log)}), writeback_kernel:\n"
+                  + "\n".join(ptxas_blocks(open(log).read(), "writeback_kernel")))
+    phase("wb-ab", f"medians over {pairs} pairs, the change against the parent: "
+          + "; ".join(f"{k[:-3]} {medians['change'][k]:.4f} ms against "
+                      f"{medians['parent'][k]:.4f}, lower in {wins[k]} of {pairs}" for k in keys)
+          + f" | card: {smi}")
+    print(json.dumps({"wb_ab": {"pairs": pairs, "runs": runs, "medians": medians,
+                                "change_wins": wins, "card": smi}}), flush=True)
 
 
 def tick_inputs(model, parts):
@@ -6116,15 +6393,35 @@ def sv_check_case(name, valid, rows, opts, errs, rng):
                        f"one, G holding N·Nᵀ from the library product; here N·Nᵀ added in "
                        f"the prologue): {'bitwise equal' if same else f'max abs err {e1:.3e}'}")
     w = (torch.randn(m, GRAM_F + 4, device=idx.device) * 1e-2).contiguous()
-    tenants = tuple(range(m))
-    wb = fused_gram.dual_writeback_tenants(w, c, alpha, counts, num, GRAM_F, valid_rows=valid,
-                                           tenants=tenants, at=at)
-    wb2 = fused_gram.dual_writeback_tenants(w, c, alpha, counts, num, GRAM_F, valid_rows=valid,
-                                            tenants=tenants, at=at)
-    wb_r = fused_gram.dual_writeback_tenants_reference(w, c, alpha, counts, num, GRAM_F,
-                                                       valid_rows=valid, tenants=tenants, at=at)
+    err = sv_writeback_hold(name, w, c, alpha, idx, val, num, valid)
+    for key, e in zip(SV_KERNELS, (0.0, max(ea, ec), err)):
+        errs[key] = max(errs[key], e)
+    return (f"{name}: valid rows {list(valid)} of {rows}, {'int8' if int8 else 'f32'} counts "
+            f"{tuple(counts.shape)}; B4's tenant form bitwise its plain version and B4 on each "
+            f"tenant's rows; B7's iterations run {[int(i) for i in its.tolist()]} (the plain "
+            f"version's), grid barriers {crossed} (the schedule's), max abs err alpha "
+            f"{ea:.3e} c {ec:.3e}{single_note}, NaN/Inf in "
+            f"masked rows bitwise ignored; B8's within {err:.3e} of its plain "
+            "version, each row bitwise B8 on the same rows; reruns bitwise")
+
+
+def sv_writeback_hold(name, w, c, alpha, idx, val, num, valid):
+    """B8's tenant form on the card over every part of [M, B, L] tokens
+    (``dual_writeback_tenants``): a rerun bitwise; within WEIGHT_RTOL (atol
+    WEIGHT_RTOL·max(1, max|w|)) of its plain version; each tenant's row
+    bitwise B8 (``dual_writeback_counts``) on its rows and its text columns
+    bitwise the kernel's order on the host; a dry tenant's row exactly
+    c·W. Returns the max abs error."""
+    import torch
+
+    from twtml_tpu_torch.ops import fused_gram
+
+    wb = fused_gram.dual_writeback_tenants(w, c, alpha, idx, val, num, GRAM_F, valid_rows=valid)
+    wb2 = fused_gram.dual_writeback_tenants(w, c, alpha, idx, val, num, GRAM_F, valid_rows=valid)
+    wb_r = fused_gram.dual_writeback_tenants_reference(w, c, alpha, idx, val, num, GRAM_F,
+                                                       valid_rows=valid)
     torch.cuda.synchronize()
-    if not torch.equal(wb, wb2):
+    if not torch.equal(bits(wb), bits(wb2)):
         raise AssertionError(f"dual_writeback_tenants {name}: a rerun is not bitwise equal")
     err = (wb - wb_r).abs()
     atol = WEIGHT_RTOL * max(1.0, wb_r.abs().max().item())
@@ -6133,24 +6430,60 @@ def sv_check_case(name, valid, rows, opts, errs, rng):
                              f"{err.max().item():.3e}")
     for t, v in enumerate(valid):
         if v:
-            single = fused_gram.dual_writeback_counts(
-                w[t], c[t], alpha[t, :v].contiguous(),
-                counts[at[t]:at[t] + fused_gram.tenant_padded_rows(v)],
-                num[t, :v].contiguous(), GRAM_F)
-            if not torch.equal(single, wb[t]):
+            rows = [x[t, :v].contiguous() for x in (alpha, idx, val, num)]
+            single = fused_gram.dual_writeback_counts(w[t], c[t], *rows, GRAM_F)
+            order = fused_gram.dual_writeback_in_order(w[t], c[t], *rows, GRAM_F)
+            if not torch.equal(bits(single), bits(wb[t])):
                 raise AssertionError(f"dual_writeback_tenants {name}: tenant {t}'s row is not "
                                      "B8's on its rows")
-        elif not torch.equal(wb[t], w[t] * c[t]):
+            if not torch.equal(bits(wb[t, :GRAM_F]), bits(order[:GRAM_F])):
+                raise AssertionError(f"dual_writeback_tenants {name}: tenant {t}'s text "
+                                     "columns differ bitwise from the kernel's order")
+        elif not torch.equal(bits(wb[t]), bits(w[t] * c[t])):
             raise AssertionError(f"dual_writeback_tenants {name}: dry tenant {t} moved")
-    for key, e in zip(SV_KERNELS, (0.0, max(ea, ec), err.max().item())):
-        errs[key] = max(errs[key], e)
-    return (f"{name}: valid rows {list(valid)} of {rows}, {'int8' if int8 else 'f32'} counts "
-            f"{tuple(counts.shape)}; B4's tenant form bitwise its plain version and B4 on each "
-            f"tenant's rows; B7's iterations run {[int(i) for i in its.tolist()]} (the plain "
-            f"version's), grid barriers {crossed} (the schedule's), max abs err alpha "
-            f"{ea:.3e} c {ec:.3e}{single_note}, NaN/Inf in "
-            f"masked rows bitwise ignored; B8's within {err.max().item():.3e} of its plain "
-            "version, each row bitwise B8 on the same rows; reruns bitwise")
+    return err.max().item()
+
+
+# B8's tenant form's skew holds: (name, each part's valid rows, a part's
+# rows, how the tokens land)
+SV_WB_CASES = (
+    ("M=4 config #4, every tenant's tokens in 85 hot columns", (512, 530, 498, 508), 2048,
+     "hot"),
+    ("M=4 skew 1:3:0:12, every token of every tenant in one column", (100, 300, 0, 1200), 2048,
+     "one column"),
+    ("M=4 tweet-length rows (L = 511, f32 values)", (300, 0, 700, 64), 1024, "long"),
+    ("M=40, two launches, padding in column 0", tuple(30 + 5 * t for t in range(39)) + (0,),
+     256, "padding"),
+)
+
+
+def sv_writeback_inputs(rng, valid, rows, how):
+    """[M, rows, L] tokens on the card for ``SV_WB_CASES``, α, c and the
+    numeric rows; each part's rows past its valid ones padding."""
+    import numpy as np
+    import torch
+
+    m = len(valid)
+    tokens = 511 if how == "long" else 63
+    idx = np.zeros((m, rows, tokens), np.int32)
+    val = np.zeros((m, rows, tokens), np.float32)
+    hot = rng.choice(GRAM_F, 85, replace=False)
+    for t, v in enumerate(valid):
+        if how == "hot":
+            idx[t, :v] = hot[rng.integers(0, 85, (v, tokens))]
+            val[t, :v] = rng.integers(1, 3, (v, tokens))
+        elif how == "one column":
+            idx[t, :v], val[t, :v] = GRAM_F // 3, rng.integers(1, 3, (v, tokens))
+        elif how == "long":
+            idx[t, :v] = rng.integers(0, GRAM_F, (v, tokens))
+            val[t, :v] = rng.normal(size=(v, tokens))
+        else:
+            idx[t, :v], val[t, :v] = gram_tokens(rng, v, 0, tokens=tokens)
+    alpha = (rng.normal(size=(m, rows)) * 1e-3).astype(np.float32)
+    num = (rng.normal(size=(m, rows, 4)) * 0.1).astype(np.float32)
+    w = (rng.normal(size=(m, GRAM_F + 4)) * 1e-2).astype(np.float32)
+    c = rng.uniform(0.9, 1.0, m).astype(np.float32)
+    return tuple(torch.from_numpy(a).cuda() for a in (w, c, alpha, idx, val, num))
 
 
 def sv_checks():
@@ -6158,7 +6491,9 @@ def sv_checks():
     4, 16 and 40 (past TENANTS_PER_LAUNCH: consecutive launches), a dry
     tenant, a tenant at 4096 rows, the 1 : 3 : 0 : 12 skew,
     the logistic mode, ``-b 0.5`` masks, tolerance 0 and 0.001, int8 and f32
-    counts. Returns (max abs errors by kernel, the cases' names)."""
+    counts; then B8's tenant form alone over SV_WB_CASES (hot columns, one
+    column for every tenant, tweet-length rows, M = 40 with padding).
+    Returns (max abs errors by kernel, the cases' names)."""
     import numpy as np
 
     rng = np.random.default_rng(2323)
@@ -6166,7 +6501,16 @@ def sv_checks():
     for name, valid, rows, opts in SV_CASES:
         phase("tenants-sparse", "kernel hold " + sv_check_case(name, valid, rows, opts, errs,
                                                               rng))
-    return errs, [c[0] for c in SV_CASES]
+    for name, valid, rows, how in SV_WB_CASES:
+        w, c, alpha, idx, val, num = sv_writeback_inputs(rng, valid, rows, how)
+        err = sv_writeback_hold(name, w, c, alpha, idx, val, num, valid)
+        errs["dual_writeback_tenants"] = max(errs["dual_writeback_tenants"], err)
+        phase("tenants-sparse", f"kernel hold dual_writeback_tenants {name}: valid rows "
+              f"{list(valid)} of {rows}, L={idx.shape[2]}; within {err:.3e} of its plain "
+              "version, each tenant's row bitwise B8 on its rows and its text columns bitwise "
+              "the kernel's order, a dry tenant exactly c·W; rerun bitwise")
+    return errs, [c[0] for c in SV_CASES] + [f"dual_writeback_tenants {c[0]}"
+                                             for c in SV_WB_CASES]
 
 
 def sv_ticks(kind, ticks=SV_TICKS):
@@ -6221,9 +6565,10 @@ def sv_margins(model, parts):
 
 def sv_expected(model, ticks):
     """The vmap form's launches over ``ticks`` on the Gram route: a tick
-    launches B4's tenant form once a plane its tenants with rows hold, B8's
-    once a plane (a dry tenant rides with the first tenant with rows), B7's
-    once, and one G product a tenant with rows."""
+    launches B4's tenant form once a plane its tenants with rows hold (a dry
+    tenant rides with the first tenant with rows), B7's and B8's once (B8
+    reads the tokens, whatever the planes), and one G product a tenant with
+    rows."""
     from twtml_tpu_torch.ops.gram import PLANE_INT8
 
     want = dict.fromkeys(SV_KERNELS, 0)
@@ -6233,7 +6578,7 @@ def sv_expected(model, ticks):
         planes, valid = model.planes(wire), model.valid_rows(wire)
         held = {planes[t] == PLANE_INT8 for t in range(SV_M) if valid[t]}
         want["count_build_tenants"] += len(held)
-        want["dual_writeback_tenants"] += max(len(held), 1)
+        want["dual_writeback_tenants"] += 1
         want["dual_sgd_tenants"] += 1
         want["products"] += sum(1 for v in valid if v)
     return want
@@ -6254,8 +6599,8 @@ def sv_tick_arm(kind, smi, timing=False):
     library level, against the scan form on the same parts: a warm-up tick
     of all padding, then SV_TICKS ticks. Its ticks are the main path of the
     tenant forms on the Gram route: every dispatch under the sync-debug
-    mode "error", the counts from 0 (one B4 and one B8 a plane present, one
-    B7 a tick, M G products; B4, B7 and B8 themselves none), against scan's
+    mode "error", the counts from 0 (one B4 a plane present, one B7 and one
+    B8 a tick, M G products; B4, B7 and B8 themselves none), against scan's
     M of each. Each tick within VMAP_RTOL / VMAP_ATOL of scan's, HALF_UP
     flips counted (``hold_vmap_tick``); the final stacks too. With
     ``timing``, each form's device busy ms, launches and copies a tick from
@@ -6429,8 +6774,8 @@ def sv_times(smi, errs, launches):
     alone, 50 calls back to back behind ``split_queued``'s sleep (the
     median of SV_TIME_RUNS), its plain version's time, its bound and the
     library call where one computes the same work (B4: ``torch.bincount``
-    over tenant-offset keys; B8: ``torch.bmm`` on f32 counts of the parts
-    padded alike; B7: none); beside each, the in-turn kernel's M launches
+    over tenant-offset keys; B8: ``index_add_`` of the contributions over
+    tenant-offset keys; B7: none); beside each, the in-turn kernel's M launches
     on the padded parts (the scan form's). Returns the kernels line's
     records."""
     import torch
@@ -6505,28 +6850,25 @@ def sv_times(smi, errs, launches):
                                                   convergence_tol=0.001)
                               for g, r_, y_, m_, p_ in g_pad])
     del g_pad
-    # B8's tenant form
-    tenants = tuple(range(m))
+    # B8's tenant form, from the tokens
     out_w = torch.empty_like(w)
-    b8 = queued(lambda: fused_gram.dual_writeback_tenants(
-        w, c, alpha, counts, num, f, valid_rows=valid, tenants=tenants, at=at, out=out_w))
+    b8 = queued(lambda: fused_gram.dual_writeback_tenants(w, c, alpha, idx, val, num, f,
+                                                          valid_rows=valid, out=out_w))
     b8_plain, _ = timed(lambda: fused_gram.dual_writeback_tenants_reference(
-        w, c, alpha, counts, num, f, valid_rows=valid, tenants=tenants, at=at), 3)
-    b8_bytes = sum(v * cols for v in valid) + tv * 4 * 5 + m * (f + 4) * 4 * 2
-    b8_ops = 2 * tv * f
-    pad = max(fused_gram.tenant_padded_rows(v) for v in valid)
-    cf = torch.zeros((m, pad, cols), dtype=torch.float32, device=idx.device)
-    ap = torch.zeros((m, pad, 1), dtype=torch.float32, device=idx.device)
-    for t, v in enumerate(valid):
-        cf[t, :v] = counts[at[t]:at[t] + v].float()
-        ap[t, :v, 0] = alpha[t, :v]
-    b8_lib, _ = timed(lambda: torch.bmm(cf.transpose(1, 2), ap), 10, queue_ahead=True)
-    del cf, ap
-    cp_turn = [fused_gram.count_build(i, v, f, int8=True) for i, v in in_turn]
+        w, c, alpha, idx, val, num, f, valid_rows=valid), 3)
+    wb_bytes = b8_bytes(tv, l, f, tenants=m)
+    b8_ops = 2 * tv * l + 8 * tv + 2 * m * (f + 4)
+    c_read = sum(v * cols for v in valid)  # what B8 streamed before it took the tokens
+    # the scatter alone as one library call: index_add_ over tenant-offset keys
+    keys8 = torch.cat([t * f + idx[t, :v].reshape(-1).long() for t, v in enumerate(valid) if v])
+    contrib8 = torch.cat([(val[t, :v] * alpha[t, :v, None]).reshape(-1)
+                          for t, v in enumerate(valid) if v])
+    w_flat = (w[:, :f] * c[:, None]).reshape(-1)
+    b8_lib, _ = timed(lambda: w_flat.index_add_(0, keys8, contrib8), 10, queue_ahead=True)
+    del keys8, contrib8
     a_turn = [torch.zeros(b, device=idx.device) for _ in range(m)]
-    b8_turn = queued(lambda: [fused_gram.dual_writeback_counts(w[t], c[t], a_turn[t], cp_turn[t],
+    b8_turn = queued(lambda: [fused_gram.dual_writeback_counts(w[t], c[t], a_turn[t], *in_turn[t],
                                                                 num[t], f) for t in range(m)])
-    del cp_turn
     card = {"card": smi}
     phase("tenants-sparse", f"times at {m} parts of {b} rows, valid {list(valid)}, F = {f}, int8 "
           f"counts {tuple(counts.shape)} (50 calls back to back behind ~20 ms of sleep, median "
@@ -6539,9 +6881,10 @@ def sv_times(smi, errs, launches):
           f"padded parts {b7_turn['ms']:.4f}), plain {b7_plain:.4f}, bound {b7_ops} f32 "
           f"operations = {b7_ops / F32_FLOPS_PER_S * 1e3:.5f} ms, its probe split "
           f"{dual_probe_text(b7_probe)}; B8's tenant form "
-          f"{b8['ms']:.4f} ms (in turn {b8_turn['ms']:.4f}), plain {b8_plain:.4f}, torch.bmm "
-          f"on f32 counts {b8_lib:.4f}, bound {b8_bytes} B = "
-          f"{b8_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms | card: {smi}")
+          f"{b8['ms']:.4f} ms (in turn {b8_turn['ms']:.4f}), plain {b8_plain:.4f}, torch "
+          f"index_add_ of the contributions {b8_lib:.4f}, bound from its own bytes {wb_bytes} "
+          f"B = {wb_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms (one read of the int8 C: {c_read} B "
+          f"= {c_read / HBM_BYTES_PER_S * 1e3:.5f} ms) | card: {smi}")
     return [
         record("count_build_tenants", "twtml_tpu/ops/gram.py:133 (onehot_counts_int8) under "
                "jax.vmap (twtml_tpu/parallel/tenants.py:329)", b4, b4_plain,
@@ -6558,9 +6901,10 @@ def sv_times(smi, errs, launches):
                    in_turn_ms=b7_turn["ms"], probe=b7_probe)),
         record("dual_writeback_tenants", "twtml_tpu/ops/gram.py:269 (dual_writeback) under "
                "jax.vmap (twtml_tpu/parallel/tenants.py:329)", b8, b8_plain,
-               (b8_bytes / HBM_BYTES_PER_S * 1e3, b8_ops / F32_FLOPS_PER_S * 1e3), b8_lib, dict(
-                   card, kernel="B8 tenant form", library_call="torch.bmm on f32 counts of "
-                   "the parts padded alike", in_turn_ms=b8_turn["ms"])),
+               (wb_bytes / HBM_BYTES_PER_S * 1e3, b8_ops / F32_FLOPS_PER_S * 1e3), b8_lib, dict(
+                   card, kernel="B8 tenant form", library_call="torch.Tensor.index_add_ over "
+                   "tenant-offset keys (the scatter alone; atomics, not bitwise reproducible)",
+                   in_turn_ms=b8_turn["ms"], bytes=wb_bytes, int8_c_read_bytes=c_read)),
     ]
 
 
@@ -8725,7 +9069,7 @@ def ma_kernel_holds(name, batch, features, num_model=2, num_data=2):
                   for d in range(num_data)]
         g_sum += torch.cat(panels)  # the num_data x num_model ranks' panels
         g_sum1 += fused_gram.gram_from_counts(c)[:b, :b]  # a 1 x num_model rank's
-        counts.append(c)
+        counts.append((rel, val_m))
     for layout, got in ((f"{num_data} x {num_model}", g_sum), (f"1 x {num_model}", g_sum1)):
         if not torch.equal(got, g_full):
             raise AssertionError(f"modelaxis {name}: G summed over the model axis of "
@@ -8742,10 +9086,11 @@ def ma_kernel_holds(name, batch, features, num_model=2, num_data=2):
     zeros = torch.zeros((f_local + 4,), dtype=torch.float32, device=dev)
     alpha0 = a[:rows].contiguous()
     errs["dual_writeback_counts"] = 0.0
-    for m, c in enumerate(counts):
-        w = fused_gram.dual_writeback_counts(zeros, c_, alpha0, c[:rows], num[:rows], f_local)
-        w_r = fused_gram.dual_writeback_reference(zeros, c_, alpha0, c[:rows], num[:rows],
-                                                  f_local)
+    for m, (rel, val_m) in enumerate(counts):  # each slice's tokens: rank 0's rows
+        w = fused_gram.dual_writeback_counts(zeros, c_, alpha0, rel[:rows], val_m[:rows],
+                                             num[:rows], f_local)
+        w_r = fused_gram.dual_writeback_reference(zeros, c_, alpha0, rel[:rows], val_m[:rows],
+                                                  num[:rows], f_local)
         e = float((w - w_r).abs().max())
         if e > WEIGHT_RTOL * float(w_r.abs().max()):
             raise AssertionError(f"modelaxis {name}: B8 at slice {m} [{rows}, {f_local}] "
@@ -9264,7 +9609,7 @@ def tm_forms_held(recs, run, planes_a_tick):
     """The worker's holds of the tenant forms on each rank in ``run``
     (``hold_forms``): B4's bitwise its plain version (its blocks at the
     same rows), B7's and B8's within TM_HOLDS, B7's iterations run the plain
-    version's; B4 and B8 once a plane a tick (``planes_a_tick``), B7 once a
+    version's; B4 once a plane a tick (``planes_a_tick``), B7 and B8 once a
     tick. Returns the largest error by form."""
     errs = dict.fromkeys(TM_FORMS, 0.0)
     for rank, r in enumerate(recs):
@@ -9272,7 +9617,7 @@ def tm_forms_held(recs, run, planes_a_tick):
         got = {f: sum(1 for e in forms if e["form"] == f) for f in TM_FORMS}
         want = {"count_build_tenants": sum(planes_a_tick),
                 "dual_sgd_tenants": len(planes_a_tick),
-                "dual_writeback_tenants": sum(planes_a_tick)}
+                "dual_writeback_tenants": len(planes_a_tick)}
         if got != want:
             raise AssertionError(f"tenants mesh sparse {run} rank {rank}: forms called {got}, "
                                  f"want {want}")
@@ -9343,7 +9688,7 @@ def tm_times(smi, batch, errs, launches):
     ``split_queued``'s sleep (the median of SV_TIME_RUNS), its plain
     version's time, its bound and the library call where one computes the
     same work (B4: ``torch.bincount`` over block-offset keys; B8:
-    ``torch.bmm`` on f32 counts of this rank's rows padded alike; B7: none),
+    ``index_add_`` of this rank's rows' contributions; B7: none),
     each against its plain version here too; this rank's G panels' products.
     Returns the kernels line's three records."""
     import torch
@@ -9420,33 +9765,36 @@ def tm_times(smi, batch, errs, launches):
         *args, valid_rows=totals, p_prev=x.p_prev, **kw), 3)
     b7_ops = sum(i * (2 * p * p + 12 * p) for i, p in zip(its, totals))
     b7_bytes = sum(p * p * 4 + 9 * p * 4 for p in totals)
-    # B8's tenant form at this rank's rows of each block, on zero weights
+    # B8's tenant form at this rank's rows of each block, on zero weights:
+    # rank 0's rows of each gathered part of the tokens
     zeros = torch.zeros_like(x.w)
-    wb_kw = dict(valid_rows=[n for _, n in mine], tenants=tuple(range(m)), at=at,
-                 first_rows=[o for o, _ in mine])
+    wb_kw = dict(valid_rows=[n for _, n in mine], first_rows=[o for o, _ in mine],
+                 token_rows=[table.rank * table.rows] * m)
     delta = torch.empty_like(x.w)
-    fused_gram.dual_writeback_tenants(zeros, c, alpha, counts, x.num, f, out=delta, **wb_kw)
-    want = fused_gram.dual_writeback_tenants_reference(zeros, c, alpha, counts, x.num, f, **wb_kw)
+    fused_gram.dual_writeback_tenants(zeros, c, alpha, idx, val, x.num, f, out=delta, **wb_kw)
+    want = fused_gram.dual_writeback_tenants_reference(zeros, c, alpha, idx, val, x.num, f,
+                                                       **wb_kw)
     torch.cuda.synchronize()
     e8 = float((delta - want).abs().max())
     if e8 > WEIGHT_RTOL * max(1.0, float(want.abs().max())) or not torch.isfinite(delta).all():
         raise AssertionError(f"tenants mesh sparse times: B8 at rank 0's rows differs from its "
                              f"plain version by {e8:.3e}")
-    b8 = queued(lambda: fused_gram.dual_writeback_tenants(zeros, c, alpha, counts, x.num, f,
+    b8 = queued(lambda: fused_gram.dual_writeback_tenants(zeros, c, alpha, idx, val, x.num, f,
                                                           out=delta, **wb_kw))
     b8_plain, _ = timed(lambda: fused_gram.dual_writeback_tenants_reference(
-        zeros, c, alpha, counts, x.num, f, **wb_kw), 3)
+        zeros, c, alpha, idx, val, x.num, f, **wb_kw), 3)
     vr = sum(n for _, n in mine)
-    b8_bytes = vr * cols + vr * 4 * 5 + m * (f + 4) * 4 * 2
-    b8_ops = 2 * vr * f
-    pad = max(1, max(n for _, n in mine))
-    cf = torch.zeros((m, pad, cols), dtype=torch.float32, device=idx.device)
-    ap = torch.zeros((m, pad, 1), dtype=torch.float32, device=idx.device)
-    for t, (o, n) in enumerate(mine):
-        cf[t, :n] = counts[at[t] + o:at[t] + o + n].float()
-        ap[t, :n, 0] = alpha[t, o:o + n]
-    b8_lib, _ = timed(lambda: torch.bmm(cf.transpose(1, 2), ap), 10, queue_ahead=True)
-    del cf, ap
+    wb_bytes = b8_bytes(vr, l, f, tenants=m)
+    b8_ops = 2 * vr * l + 8 * vr + 2 * m * (f + 4)
+    c_read = vr * cols  # what B8 streamed before it took the tokens
+    r0 = table.rank * table.rows
+    keys8 = torch.cat([t * f + idx[t, r0:r0 + n].reshape(-1).long()
+                       for t, (_, n) in enumerate(mine) if n])
+    contrib8 = torch.cat([(val[t, r0:r0 + n] * alpha[t, o:o + n, None]).reshape(-1)
+                          for t, (o, n) in enumerate(mine) if n])
+    w_flat = torch.zeros(m * f, device=idx.device)
+    b8_lib, _ = timed(lambda: w_flat.index_add_(0, keys8, contrib8), 10, queue_ahead=True)
+    del keys8, contrib8
     errs = dict(errs, dual_sgd_tenants=max(errs["dual_sgd_tenants"], e7),
                 dual_writeback_tenants=max(errs["dual_writeback_tenants"], e8))
     phase("modelaxis", f"tenants mesh sparse times at rank 0's share of a short tick (valid rows "
@@ -9457,8 +9805,10 @@ def tm_times(smi, batch, errs, launches):
           f"{b4_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms; this rank's {sum(1 for _, n in mine if n)} "
           f"G panels {panels['ms']:.4f} ms; B7's tenant form {b7['ms']:.4f} ms ({its} "
           f"iterations), plain {b7_plain:.4f}, bound {b7_ops / F32_FLOPS_PER_S * 1e3:.5f} ms; B8's "
-          f"tenant form at this rank's rows {b8['ms']:.4f} ms, plain {b8_plain:.4f}, torch.bmm "
-          f"{b8_lib:.4f}, bound {b8_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms | card: {smi}")
+          f"tenant form at this rank's rows {b8['ms']:.4f} ms, plain {b8_plain:.4f}, torch "
+          f"index_add_ {b8_lib:.4f}, bound from its own bytes {wb_bytes} B = "
+          f"{wb_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms (one read of the int8 C: "
+          f"{c_read / HBM_BYTES_PER_S * 1e3:.5f} ms) | card: {smi}")
     vmap = "under jax.vmap in shard_map (twtml_tpu/parallel/tenants.py:324-352)"
     return [
         record("count_build_tenants", "B4 tenant form over a data axis's gathered rows",
@@ -9472,8 +9822,10 @@ def tm_times(smi, batch, errs, launches):
                dict(iterations_run=its)),
         record("dual_writeback_tenants", "B8 tenant form at a rank's rows of each block",
                f"twtml_tpu/models/sgd.py:363-368 (the sharded write-back) {vmap}", b8, b8_plain,
-               (b8_bytes / HBM_BYTES_PER_S * 1e3, b8_ops / F32_FLOPS_PER_S * 1e3), b8_lib,
-               dict(library_call="torch.bmm on f32 counts of this rank's rows padded alike")),
+               (wb_bytes / HBM_BYTES_PER_S * 1e3, b8_ops / F32_FLOPS_PER_S * 1e3), b8_lib,
+               dict(library_call="torch.Tensor.index_add_ over tenant-offset keys of this "
+                    "rank's rows (the scatter alone; atomics, not bitwise reproducible)",
+                    bytes=wb_bytes, int8_c_read_bytes=c_read)),
     ]
 
 
@@ -9580,14 +9932,14 @@ def tenants_mesh_sparse_arm(smi, workdir):
     launches = {k: sum(r["runs"][nm]["launches"][k] for nm in vmap_runs for r in recs)
                 for k in TM_FORMS + TM_SINGLE + ("tenant_gram_products",)}
     if MA_DEVICE == "cuda":
-        # a short tick: B4, B7 and B8 once each (one plane); the mixed one B4 and B8 twice
+        # a short tick: B4, B7 and B8 once each (one plane); the mixed one B4 twice
         for nm in vmap_runs:
             for rank, r in enumerate(recs):
                 got = r["runs"][nm]["launches"]
                 k = 2 if nm in ("tm_mixed_vmap", "tm_sampled_vmap") else ticks
                 planes = k + (1 if nm == "tm_mixed_vmap" else 0)
                 want = {"count_build_tenants": planes, "dual_sgd_tenants": k,
-                        "dual_writeback_tenants": planes, **dict.fromkeys(TM_SINGLE, 0)}
+                        "dual_writeback_tenants": k, **dict.fromkeys(TM_SINGLE, 0)}
                 if {key: got[key] for key in want} != want:
                     raise AssertionError(f"tenants mesh sparse {nm} rank {rank}: launches "
                                          f"{got}, want {want}")
@@ -10237,6 +10589,9 @@ def main() -> None:
         return
     if "--dual-ab" in argv:
         dual_ab(smi, int(argv[argv.index("--dual-ab") + 1]), PACKAGE_ROOT)
+        return
+    if "--wb-ab" in argv:
+        wb_ab(smi, int(argv[argv.index("--wb-ab") + 1]), PACKAGE_ROOT)
         return
     if "--bench-only" in argv:
         bench_only(smi)

@@ -276,11 +276,11 @@ def test_dual_norm_sq_and_writeback_equal_the_jax_packages(seed):
                                 jnp.asarray(b.token_val), jnp.asarray(b.numeric))
     for gp, wp in zip(got, want):
         np.testing.assert_allclose(gp.numpy(), np.asarray(wp), rtol=1e-6, atol=1e-6)
-    # B8's twin (a column pass over the counts) holds the scatter within tolerance
-    counts = fused_gram.count_build(torch.from_numpy(b.token_idx),
-                                    torch.from_numpy(b.token_val), F_TEXT, int8=True)
+    # B8's plain version (the scatter over the batch's tokens) holds the JAX scatter
     wb = fused_gram.dual_writeback_counts(torch.from_numpy(w), torch.tensor(a["c"]),
-                                          torch.from_numpy(alpha), counts,
+                                          torch.from_numpy(alpha),
+                                          torch.from_numpy(b.token_idx),
+                                          torch.from_numpy(b.token_val),
                                           torch.from_numpy(b.numeric), F_TEXT)
     np.testing.assert_allclose(wb.numpy(), np.concatenate([np.asarray(x) for x in want]),
                                rtol=1e-5, atol=1e-5)

@@ -378,10 +378,11 @@ def test_the_ranks_panels_stack_into_each_blocks_g_and_b8_sums_to_the_write_back
         mine = tables[g.rank].mine()
         gs = gather_tenant_panels(fused_gram.tenant_gram_blocks(counts, at, totals, rows=mine),
                                   tables[g.rank], g, [False] * M, "cpu")
+        # each rank's rows of each block: its rows of each gathered part
         delta = fused_gram.dual_writeback_tenants(
-            torch.zeros_like(w), c, alpha, counts, num_b, F_PLAIN,
-            valid_rows=[v for _, v in mine], tenants=range(M), at=at,
-            first_rows=[o for o, _ in mine])
+            torch.zeros_like(w), c, alpha, idx, val, num_b, F_PLAIN,
+            valid_rows=[v for _, v in mine], tenants=range(M),
+            first_rows=[o for o, _ in mine], token_rows=[g.rank * B_LOCAL] * M)
         return gs, g.allreduce_(delta)
 
     for gs, delta in _two_ranks(rank):
@@ -389,8 +390,9 @@ def test_the_ranks_panels_stack_into_each_blocks_g_and_b8_sums_to_the_write_back
             assert (gs[t] is None) == (p == 0)
             if p:
                 assert torch.equal(gs[t], full[t][:p, :p])
-        want = fused_gram.dual_writeback_tenants(w, c, alpha, counts, num_b, F_PLAIN,
-                                                 valid_rows=totals, tenants=range(M), at=at)
+        blocks = [x[torch.arange(M)[:, None], index] for x in (idx, val)]  # each tenant's block
+        want = fused_gram.dual_writeback_tenants(w, c, alpha, *blocks, num_b, F_PLAIN,
+                                                 valid_rows=totals, tenants=range(M))
         torch.testing.assert_close(w * c[:, None] + delta, want, rtol=1e-6, atol=1e-7)
 
 

@@ -287,16 +287,14 @@ def test_the_write_backs_plain_version_is_m_calls_of_b8s():
     c = torch.tensor([0.97, 1.0, 0.99, 0.95])
     alpha = torch.from_numpy((rng.normal(size=mask.shape) * 1e-3).astype(np.float32))
     tenants = (0, 2, 1)
-    counts, at = fused_gram.count_build_tenants(idx, val, SMALL_F, valid_rows=VALID,
-                                                int8=False, tenants=tenants)
     out = torch.full_like(w, 7.0)
-    got = fused_gram.dual_writeback_tenants(w, c, alpha, counts, num, SMALL_F,
-                                            valid_rows=VALID, tenants=tenants, at=at, out=out)
+    got = fused_gram.dual_writeback_tenants(w, c, alpha, idx, val, num, SMALL_F,
+                                            valid_rows=VALID, tenants=tenants, out=out)
     assert got is out and torch.equal(out[3], torch.full_like(w[3], 7.0))  # not a tenant here
-    for t, first in zip(tenants, at):
+    for t in tenants:
         v = VALID[t]
-        want = fused_gram.dual_writeback_reference(w[t], c[t], alpha[t, :v],
-                                                   counts[first:first + v], num[t, :v], SMALL_F)
+        want = fused_gram.dual_writeback_reference(w[t], c[t], alpha[t, :v], idx[t, :v],
+                                                   val[t, :v], num[t, :v], SMALL_F)
         assert torch.equal(out[t], want)
     assert torch.equal(out[1], w[1] * c[1])  # the dry tenant: c·W_prev
 
@@ -469,9 +467,10 @@ WRAPPER_REFUSALS = {
     "count build: a tenant past the stack": ("count", dict(tenants=(0, 4)), "outside"),
     "count build: valid rows past a part": ("count", dict(valid_rows=(49, 0, 0, 0)),
                                             r"in \[0, 48\]"),
-    "write-back: at for another tenant count": ("writeback", dict(at=(0,)), "tenants"),
-    "write-back: a tenant past the stack": ("writeback", dict(tenants=(5,), at=(0,)),
-                                            "tenants"),
+    "write-back: first rows for another tenant count": ("writeback", dict(first_rows=(0,)),
+                                                         "first rows"),
+    "write-back: a tenant twice": ("writeback", dict(tenants=(0, 0)), "tenants"),
+    "write-back: a tenant past the stack": ("writeback", dict(tenants=(5,)), "tenants"),
 }
 
 
@@ -484,11 +483,10 @@ def test_the_count_and_write_back_wrappers_refuse_what_they_cannot_take(case):
         with pytest.raises(ValueError, match=match):
             fused_gram.count_build_tenants(kw.pop("token_idx"), val, SMALL_F, int8=True, **kw)
         return
-    counts, at = fused_gram.count_build_tenants(idx, val, SMALL_F, valid_rows=VALID, int8=True)
-    kw = dict(dict(tenants=(0, 1, 2, 3), at=at), **bad)
+    kw = dict(dict(tenants=(0, 1, 2, 3)), **bad)
     with pytest.raises(ValueError, match=match):
         fused_gram.dual_writeback_tenants(torch.zeros((M, SMALL_F + 4)), torch.ones(M),
-                                          torch.zeros(mask.shape), counts, num, SMALL_F,
+                                          torch.zeros(mask.shape), idx, val, num, SMALL_F,
                                           valid_rows=VALID, **kw)
 
 

@@ -250,9 +250,10 @@ def _held_forms(record: list):
     def dual_writeback_tenants(*a, out=None, **kw):
         got = fg.dual_writeback_tenants(*a, out=out, **kw)
         want = fg.dual_writeback_tenants_reference(*a, **kw)
-        rows = list(kw["tenants"])
+        rows = list(kw.get("tenants") or range(a[2].shape[0]))  # default: every part of alpha
         entry("dual_writeback_tenants", got[rows], want[rows],
-              {"first_rows": list(kw.get("first_rows") or ())})
+              {"first_rows": list(kw.get("first_rows") or ()),
+               "token_rows": list(kw.get("token_rows") or ())})
         return got
 
     proxy = types.SimpleNamespace(**{k: getattr(fg, k) for k in dir(fg) if not k.startswith("__")})

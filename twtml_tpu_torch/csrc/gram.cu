@@ -12,8 +12,8 @@
 //   B7 dual loop:    MLlib's N iterations on the dual state {c, α}
 //                    (twtml_tpu/models/sgd.py run_dual_loop over
 //                    sgd_inner_loop, with gram.py dual_norm_sq);
-//   B8 write-back:   W_new = c·W_prev + Zᵀα (twtml_tpu/ops/gram.py
-//                    dual_writeback).
+//   B8 write-back:   W_new = c·W_prev + Zᵀα from the batch's tokens
+//                    (twtml_tpu/ops/gram.py dual_writeback).
 // No kernel uses float atomics: every sum has a fixed order, and reruns
 // on one card are bitwise equal.
 //
@@ -120,16 +120,58 @@
 // phase edge in CTA 0 and each tenant's last CTA (dual_stamp); no launch
 // the port makes for training uses it.
 //
-// ---- B8, writeback_kernel<T>
-// What bounds it: bytes, one read of C (B·F bytes in the int8 plane). Design:
-// a block (over column blocks x the tenants of a table: one tenant for a
-// single batch) owns 128 text columns: 32 column groups of 4 (a warp reads 128
-// contiguous bytes of a row of int8 C) by 8 row segments; each thread sums
-// count·α over its segment's rows in row order, the 8 segments are summed
-// in order in shared memory, and w = c·w_prev + Σ. The last block computes
-// the 4 numeric columns, w_num·c + Nᵀα, in a fixed-order block reduction.
-// It sums count·α where the JAX scatter adds val·α per occurrence, so the
-// twin holds it within tolerance.
+// ---- B8, writeback_kernel: W_new = c·W_prev + Zᵀα from the batch's tokens
+// What it must move: the [B, L] tokens (8 bytes an occurrence), α and the
+// numeric rows, and W read and written once (2·(F + 4)·4 bytes a tenant):
+// 3.2 MB at B = 2048, L = 63, F = 2^18, under a microsecond at 3.35 TB/s.
+// It reads no C. The work is a scatter of B·L occurrences into F columns,
+// with heavy skew (synthetic tweets put ~1,500 occurrences in each of 85
+// columns; padding and a model axis's clamped tokens pile into columns 0
+// and f − 1), and no float atomics, so each column is summed in a fixed
+// tree. One cooperative launch, two passes and one grid barrier:
+//   1. the tile pass: tile k of tenant u is its occurrences [512·k, 512·k +
+//      512) in (row, j) order. A CTA loads the tile's (idx, val) and α,
+//      forms each contribution val·α (f32, rounded) and the key slot << 9
+//      | position (the column's slot, wb_slot; 32 bits while the slots stay
+//      below 2^23, else 64; an index outside [0, features) gets the all-ones
+//      key: it counts nothing), sorts the keys
+//      in shared memory (wb_sort: a bitonic network whose strides below 64
+//      run in registers, a warp's 64 keys at a time, so 512 keys cross 10
+//      barriers, not 45) and sums each column's run of the tile pairwise:
+//      the run's positions r = 0, 2d, 4d, ... add r + d, for d = 1, 2, 4,
+//      ..., all runs at once, a barrier a step. It writes the tile's runs
+//      (slot, sum), compacted in slot order, and for each bucket (256 slots:
+//      the 32 lines of 8 columns b, b + buckets, ..., so that the clusters
+//      hashed text makes spread over the buckets) the tile's first run in
+//      it: its row of a table [tiles][buckets + 1], one coalesced store.
+//   2. the bucket pass, after the barrier: a CTA an item, an item a bucket
+//      of a tenant (its 256 columns, a thread each; 8 threads a 32-byte
+//      line of W) or a tenant's 4 numeric
+//      columns. The CTA reads the bucket's run range of each of the
+//      tenant's tiles from the table (2048 tiles at a time, 8 a thread, a
+//      block scan of their counts) and gathers those tile sums in tile
+//      order, at most 2048 at once; wb_sort by (column, gathered position)
+//      puts each column's sums together in tile order. A column's sums are
+//      added into its running pairwise sum, a binary counter of partial
+//      sums (level l holding 2^l tile sums): so the sums of n tiles form
+//      the same tree as the tile pass's pairwise steps over n (the larger
+//      power-of-two block first, the rest after), whatever the windows. The
+//      CTA adds, in parallel steps as the tile pass does, every block of
+//      2^j sums aligned to the column's running count inside the window,
+//      and the column's thread pushes the largest such blocks into the
+//      counter: O(log n) pushes, not n, the same tree as n pushes. Then w =
+//      c·w_prev + that sum, or exactly c·w_prev for a column no token hit.
+//      The numeric item computes w_num·c + Nᵀα over the tenant's rows in
+//      a fixed-order block reduction (exactly c·w_num for a dry tenant).
+// So a column's sum is a tree of depth log2 of its occurrences, whatever
+// the skew: one hot column is 512 occurrences a tile summed in nine
+// parallel steps, then its tile sums in parallel steps of the bucket
+// pass. The work is a sort: latency (the barriers, L2 round trips between
+// the passes), not bytes, sets the time. The scratch (tile sums, the
+// table) is a torch tensor: no allocation in the kernel, so CUDA graph
+// capture takes it. tests/test_torch_writeback_form.py models this order
+// in numpy (one tile sum pushed at a time) and holds it against the JAX
+// scatter; fused_gram.dual_writeback_in_order computes it on the host.
 //
 // ---- The tenant forms: B4's, B7's and B8's tenant tables
 // They replace the same XLA fusions under jax.vmap: the JAX package's
@@ -147,9 +189,11 @@
 //   with a tweet-length row does not widen the others to f32 counts.
 // - B7's (bound: operations, Σ iterations·(2v² + 12v) f32; in practice the
 //   barrier's latency): B7 itself over the table (above).
-// - B8's (bound: bytes, each tenant's v rows of C read once): B8 itself,
-//   its blocks over (column block, tenant): each tenant's row of W is B8's
-//   on the same rows bit for bit (a dry tenant's is c·W_prev).
+// - B8's (bound: bytes, each tenant's tokens, α and numeric rows, and its row
+//   of W read and written): B8 itself over the table, each tenant's tiles
+//   its own and its buckets keyed by tenant, so each tenant's row of W is
+//   B8's on the same rows bit for bit (a dry tenant's is c·W_prev). The
+//   tenants share a launch whatever their Gram planes: B8 reads no C.
 // Over a data axis (the vmap inside shard_map, twtml_tpu/parallel/
 // tenants.py:324-352) every rank gathers every tenant's rows, and tenant
 // t's block holds its valid rows from every rank in rank order. B4's table
@@ -158,14 +202,14 @@
 // replicated over the blocks, each tenant with its own draws
 // (masks_tenants: a row of a block keeps its global position's draw). B8
 // runs over this rank's rows of each block on zero weights (its table's
-// c_row is the block's first row plus the rank's offset: any row of C is
-// 16-byte aligned, its columns a multiple of 16), and the ranks' sums are
-// all-reduced.
+// token_row is the rank's first row of the tenant's gathered part, src_row
+// the rank's first row of its block), and the ranks' sums are all-reduced.
 //
 // What Hopper offers and these designs leave out: tensor cores and TMA.
-// B4 and B8 stream bytes; B7's product is matrix × vector (N = 1) on f32
-// operands, as the twin's, from a G that stays in registers: its time is
-// the barrier's and L2's latency, which neither unit shortens. The G
+// B4 streams bytes and B8 sorts small tiles in shared memory; B7's
+// product is matrix × vector (N = 1) on f32 operands, as the twin's, from
+// a G that stays in registers: its time is the barrier's and L2's
+// latency, which neither unit shortens. The G
 // product itself runs on the tensor cores (cuBLASLt's int8 GEMM behind
 // torch._int_mm).
 
@@ -196,9 +240,15 @@ constexpr int kRedSum = kDualWarps * kDualRows;
 constexpr int kRedFlag = kRedSum + kDualWarps;
 constexpr int kDualRedFloats = (kRedFlag + 4) & ~3;  // a multiple of 16 bytes
 constexpr int kWbThreads = 256;
-constexpr int kWbGroups = 32;                // 4-column groups a block
-constexpr int kWbSegments = kWbThreads / kWbGroups;  // row segments a block
-constexpr int kWbCols = 4 * kWbGroups;       // 128 text columns a block
+constexpr int kWbWarps = kWbThreads / 32;
+constexpr int kWbCols = kWbThreads;  // columns of a bucket: a thread each in the bucket pass
+constexpr int kWbTileBits = 9;
+constexpr int kWbTile = 1 << kWbTileBits;  // occurrences a tile of the tile pass
+constexpr int kWbWindowBits = 11;
+constexpr int kWbWindow = 1 << kWbWindowBits;  // tile sums the bucket pass sorts at once
+constexpr int kWbDepth = 32;  // levels of a column's pairwise sum: 2^32 − 1 tile sums
+constexpr int kWbGroupPer = 8;  // tiles a thread reads the table of at once in the bucket pass
+constexpr int kWbGroup = kWbGroupPer * kWbThreads;  // tiles the bucket pass gathers from at once
 constexpr int kGramTenants = 32;  // tenants a tenant-form launch: a lane of the decider warp each
 // the tenant form's timing probe: phase edges it stamps, the prologue's
 // (entry, G staged) then an iteration's (update, barrier 1, product,
@@ -214,7 +264,9 @@ constexpr int kDualProbeIteration = 6;
     !defined(TWTML_GRAM_DUAL_REG_COLUMNS) || !defined(TWTML_GRAM_DUAL_MAX_GRID) || \
     !defined(TWTML_GRAM_DUAL_RED_FLOATS) || !defined(TWTML_GRAM_WRITEBACK_THREADS) || \
     !defined(TWTML_GRAM_WRITEBACK_COLUMNS) || !defined(TWTML_GRAM_TENANTS_PER_LAUNCH) || \
-    !defined(TWTML_GRAM_DUAL_PROBE_PROLOGUE_EDGES) || !defined(TWTML_GRAM_DUAL_PROBE_ITERATION_EDGES)
+    !defined(TWTML_GRAM_DUAL_PROBE_PROLOGUE_EDGES) || !defined(TWTML_GRAM_DUAL_PROBE_ITERATION_EDGES) || \
+    !defined(TWTML_GRAM_WRITEBACK_TILE) || !defined(TWTML_GRAM_WRITEBACK_WINDOW) || \
+    !defined(TWTML_GRAM_WRITEBACK_GROUP)
 #error "build through twtml_tpu_torch/ops/_build.py, which passes the launch plan's constants"
 #endif
 static_assert(kCountThreads == TWTML_GRAM_COUNT_THREADS, "COUNT_THREADS differs");
@@ -226,6 +278,13 @@ static_assert(kDualMaxGrid == TWTML_GRAM_DUAL_MAX_GRID, "DUAL_MAX_GRID differs")
 static_assert(kDualRedFloats == TWTML_GRAM_DUAL_RED_FLOATS, "DUAL_RED_FLOATS differs");
 static_assert(kWbThreads == TWTML_GRAM_WRITEBACK_THREADS, "WRITEBACK_THREADS differs");
 static_assert(kWbCols == TWTML_GRAM_WRITEBACK_COLUMNS, "WRITEBACK_COLUMNS differs");
+static_assert(kWbTile == TWTML_GRAM_WRITEBACK_TILE, "WRITEBACK_TILE differs");
+static_assert(kWbWindow == TWTML_GRAM_WRITEBACK_WINDOW, "WRITEBACK_WINDOW differs");
+static_assert(kWbGroup == TWTML_GRAM_WRITEBACK_GROUP, "WRITEBACK_GROUP differs");
+static_assert(kWbTile >= 64 && kWbWindow >= 64, "wb_sort sorts 64 keys or more");
+static_assert(kWbTile <= 32767, "the tile pass keeps run heads and lengths as shorts");
+static_assert(kWbCols == 256, "a bucket is 32 lines of 8 columns (wb_slot)");
+static_assert(kWbCols < (1 << (32 - kWbWindowBits)), "a bucket pass key is column << 11 | position");
 static_assert(kGramTenants == TWTML_GRAM_TENANTS_PER_LAUNCH, "TENANTS_PER_LAUNCH differs");
 static_assert(kGramTenants <= 32, "the tenant form's decisions take a lane a tenant");
 static_assert(kDualProbePrologue == TWTML_GRAM_DUAL_PROBE_PROLOGUE_EDGES,
@@ -1188,105 +1247,424 @@ __global__ void __launch_bounds__(kDualThreads, 1) barrier_probe_kernel(int cros
 
 // ------------------------------------------------------------------ B8
 
-template <typename T>
-struct Vec4;
-template <>
-struct Vec4<int8_t> {
-  static __device__ __forceinline__ float4 load(const int8_t* p) {
-    const char4 v = __ldg(reinterpret_cast<const char4*>(p));
-    return make_float4((float)v.x, (float)v.y, (float)v.z, (float)v.w);
-  }
-};
-template <>
-struct Vec4<float> {
-  static __device__ __forceinline__ float4 load(const float* p) {
-    return __ldg(reinterpret_cast<const float4*>(p));
-  }
+// B8's tenant table (a single batch is one tenant): tenant u's valid[u]
+// rows start at row token_row[u] of the [*, tokens] tokens and at row
+// src_row[u] of the [*] α and [*, 4] numeric rows; its sums go to row
+// slot[u] of the [M, features + 4] stacks, with c[slot[u]]; its tiles are
+// [first_tile[u], first_tile[u + 1]) of the launch's.
+struct WritebackTenants {
+  int tenants;
+  int slot[kGramTenants];
+  int token_row[kGramTenants];
+  int valid[kGramTenants];
+  int src_row[kGramTenants];
+  int first_tile[kGramTenants + 1];
 };
 
-// Block `block` of `blocks` of one write-back: text columns [128·block,
-// 128·block + 128), or the 4 numeric columns in the last block.
-template <typename T>
-__device__ __forceinline__ void writeback_block(
-    const T* __restrict__ counts, int rows, int cols, int features,
-    const float* __restrict__ alpha, const float* __restrict__ c_ptr,
-    const float* __restrict__ w_prev, const float* __restrict__ numeric,
-    float* __restrict__ w_out, int block, int blocks) {
-  __shared__ float part[kWbSegments][kWbCols];
-  const float c = __ldg(c_ptr);
-  const int tid = threadIdx.x;
-  if (block == blocks - 1) {  // the 4 numeric columns: w_num·c + Nᵀα
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int b = tid; b < rows; b += kWbThreads) {
-      const float a = __ldg(alpha + b);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[j] = fmaf(__ldg(numeric + 4 * (size_t)b + j), a, acc[j]);
+struct WritebackParams {
+  const int* idx;
+  const float* val;
+  const float* alpha;
+  const float* c;
+  const float* w_prev;
+  const float* numeric;
+  float* w_out;
+  int* run_col;    // [tiles·kWbTile]: each tile's runs' column slots, compacted
+  float* run_sum;  // [tiles·kWbTile]: their sums
+  int* table;      // [tiles][buckets + 1]: a tile's first run in each bucket
+  int tokens, features, buckets, tiles;
+};
+
+// The tile pass's shared memory, and the bucket pass's, in one buffer.
+struct WbTileSmem {
+  CountKey keys[kWbTile];  // slot << kWbTileBits | position, sorted (as K: 32 or 64 bits)
+  union {
+    float contrib[kWbTile];  // val·α by position, until the sums are staged
+    int runs[kWbTile];       // then the runs' slots, compacted
+  };
+  float sums[kWbTile];      // by sorted position: the pairwise sums
+  short head[kWbTile];      // by sorted position: the run's first
+  short len[kWbTile];       // by sorted position: the run's length (0: no key)
+  int scan[kWbWarps];
+};
+struct WbBucketSmem {
+  unsigned keys[kWbWindow];   // slot in the bucket << kWbWindowBits | position
+  float vals[kWbWindow];      // the gathered tile sums by position
+  float sums[kWbWindow];      // by sorted position: the aligned block sums
+  int pre[kWbGroup + 1];      // a group's tiles: the exclusive scan of their runs
+  int first[kWbGroup];        // each tile's first run in the bucket
+  int col_first[kWbCols];     // each column's first sorted position in the window
+  int col_len[kWbCols];       // its tile sums in the window
+  unsigned col_rank[kWbCols]; // its tile sums before the window (its running count)
+  int scan[kWbWarps];
+};
+union WbSmem {
+  WbTileSmem tile;
+  WbBucketSmem bucket;
+};
+
+template <typename K>
+__device__ __forceinline__ int lower_bound_in(const K* a, int n, K key) {
+  int lo = 0;
+  while (n > 0) {
+    const int half = n >> 1;
+    if (a[lo + half] < key) {
+      lo += half + 1;
+      n -= half + 1;
+    } else {
+      n = half;
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[j] = warp_sum(acc[j]);
-    if ((tid & 31) == 0)
-      for (int j = 0; j < 4; ++j) part[j][tid >> 5] = acc[j];
-    __syncthreads();
-    if (tid < 4) {
-      float s = 0.f;
-      for (int w = 0; w < kWbThreads / 32; ++w) s += part[tid][w];
-      w_out[features + tid] = __fadd_rn(__fmul_rn(__ldg(w_prev + features + tid), c), s);
-    }
-    return;
   }
-  const int group = tid % kWbGroups, seg = tid / kWbGroups;
-  const int col0 = block * kWbCols + 4 * group;
-  const int b0 = (int)((long long)seg * rows / kWbSegments);
-  const int b1 = (int)((long long)(seg + 1) * rows / kWbSegments);
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  if (col0 < cols) {  // cols is a multiple of 16: the 4 columns are inside
-    const T* src = counts + col0;
-#pragma unroll 8
-    for (int b = b0; b < b1; ++b) {
-      const float a = __ldg(alpha + b);
-      const float4 v = Vec4<T>::load(src + (size_t)b * cols);
-      acc[0] = fmaf(v.x, a, acc[0]);
-      acc[1] = fmaf(v.y, a, acc[1]);
-      acc[2] = fmaf(v.z, a, acc[2]);
-      acc[3] = fmaf(v.w, a, acc[3]);
-    }
-  }
+  return lo;
+}
+
+// The exclusive prefix of each thread's v in thread order, the total in
+// *total; scan [kWbWarps] is its scratch. The whole CTA calls it; it ends
+// with a barrier.
+__device__ int block_scan(int v, int* scan, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
 #pragma unroll
-  for (int e = 0; e < 4; ++e) part[seg][4 * group + e] = acc[e];
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) scan[warp] = x;
   __syncthreads();
-  if (tid < kWbCols) {
-    const int f = block * kWbCols + tid;
-    if (f < features) {
-      float s = part[0][tid];
-#pragma unroll
-      for (int k = 1; k < kWbSegments; ++k) s += part[k][tid];
-      w_out[f] = __fadd_rn(__fmul_rn(__ldg(w_prev + f), c), s);
+  int before = 0, all = 0;
+  for (int w = 0; w < kWbWarps; ++w) {
+    before += w < warp ? scan[w] : 0;
+    all += scan[w];
+  }
+  __syncthreads();
+  *total = all;
+  return before + x - v;
+}
+
+// One compare-exchange step of a bitonic sort on a warp's 64 keys in
+// registers: key x at index i (a at base + lane, b at base + 32 + lane),
+// partner i ^ stride, the pair ascending where i & size is 0.
+template <typename K>
+__device__ __forceinline__ K wb_exchange(K x, K partner, int i, int stride, int size) {
+  const bool low = (i & stride) == 0, ascending = (i & size) == 0;
+  return low == ascending ? (partner < x ? partner : x) : (partner < x ? x : partner);
+}
+
+template <typename K>
+__device__ __forceinline__ void wb_steps(K& a, K& b, int i, int size, int first_stride) {
+  for (int stride = first_stride; stride > 0; stride >>= 1) {
+    if (stride == 32) {  // a and b are the pair
+      const bool ascending = (i & size) == 0;
+      const K lo = b < a ? b : a, hi = b < a ? a : b;
+      a = ascending ? lo : hi;
+      b = ascending ? hi : lo;
+    } else {
+      const K pa = __shfl_xor_sync(0xffffffffu, a, stride);
+      const K pb = __shfl_xor_sync(0xffffffffu, b, stride);
+      a = wb_exchange(a, pa, i, stride, size);
+      b = wb_exchange(b, pb, i + 32, stride, size);
     }
   }
 }
 
-// B8's tenant table (a single batch is one tenant): block (x, u) is block
-// x of tenant u's write-back, over its valid rows of its block of C (from row c_row[u]),
-// its α and numeric rows (from row src_row[u] of the [M·B] rows), its c
-// and its row `slot[u]` of the [M, features + 4] stacks.
-struct WritebackTenants {
-  int tenants;
-  int slot[kGramTenants];
-  int c_row[kGramTenants];
-  int valid[kGramTenants];
-  int src_row[kGramTenants];
+// B8's ascending bitonic sort of keys[0, width) (a power of two, at least
+// 64) by the whole CTA: every stride below 64 in registers, a warp's 64
+// keys at a time (a shuffle a step, no barrier), the wider strides in
+// shared memory, a barrier each; so a sort of 512 keys crosses 10
+// barriers, not 45. The same network as bitonic_sort. Ends with a barrier.
+template <typename K>
+__device__ void wb_sort(K* keys, int width) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int size = 64; size <= width; size <<= 1) {
+    for (int stride = size >> 1; stride >= 64; stride >>= 1) {
+      for (int i = threadIdx.x; i < width / 2; i += kWbThreads) {
+        const int lo = 2 * i - (i & (stride - 1));  // the pair (lo, lo + stride)
+        const K a = keys[lo], c = keys[lo + stride];
+        if ((a > c) == ((lo & size) == 0)) {
+          keys[lo] = c;
+          keys[lo + stride] = a;
+        }
+      }
+      __syncthreads();
+    }
+    for (int base = 64 * warp; base < width; base += 64 * kWbWarps) {
+      const int i = base + lane;
+      K a = keys[i], b = keys[i + 32];
+      if (size == 64) {  // sizes 2 to 64: every stride
+        for (int s = 2; s <= 64; s <<= 1) wb_steps(a, b, i, s, s >> 1);
+      } else {
+        wb_steps(a, b, i, size, 32);
+      }
+      keys[i] = a;
+      keys[i + 32] = b;
+    }
+    __syncthreads();
+  }
+}
+
+// A column's running pairwise sum: a binary counter of partial sums, level
+// l holding the sum of 2^l values. Adding n values one at a time gives the
+// tree of the tile pass's pairwise steps over n values: x[r] += x[r + d]
+// for r = 0, 2d, 4d, ... and d = 1, 2, 4, ..., the result x[0].
+struct PairSum {
+  float level[kWbDepth];
+  unsigned count;
+  // the pairwise sum of 2^l values that follow the count's multiple of
+  // 2^l: as pushing them one at a time
+  __device__ __forceinline__ void push(float v, int l = 0) {
+    const unsigned added = 1u << l;
+    for (unsigned n = count >> l; n & 1u; n >>= 1, ++l) v = __fadd_rn(level[l], v);
+    level[l] = v;
+    count += added;
+  }
+  __device__ __forceinline__ float total() const {  // count > 0
+    float acc = 0.f;
+    bool any = false;
+    for (int l = 0; l < kWbDepth; ++l)
+      if ((count >> l) & 1u) {
+        acc = any ? __fadd_rn(level[l], acc) : level[l];
+        any = true;
+      }
+    return acc;
+  }
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kWbThreads) writeback_kernel(
-    const T* __restrict__ counts, int cols, int features, const float* __restrict__ alpha,
-    const float* __restrict__ c, const float* __restrict__ w_prev,
-    const float* __restrict__ numeric, float* __restrict__ w_out, const WritebackTenants t) {
-  const int u = blockIdx.y;
-  const size_t w_row = (size_t)t.slot[u] * (features + 4);
-  writeback_block<T>(counts + (size_t)t.c_row[u] * cols, t.valid[u], cols, features,
-                     alpha + t.src_row[u], c + t.slot[u], w_prev + w_row,
-                     numeric + (size_t)t.src_row[u] * 4, w_out + w_row, blockIdx.x, gridDim.x);
+// A column's slot: bucket b holds the 32 lines of 8 columns b, b +
+// buckets, b + 2·buckets, ... (a line a 32-byte sector of W), slots [256·b,
+// 256·b + 256). Hashed text clusters (ASCII bigrams fill a few runs of
+// columns), so neighbouring lines go to different buckets: a cluster's
+// columns spread over the bucket pass's CTAs. The slot order only groups
+// the columns; each column's sum is the same whatever its bucket.
+__device__ __forceinline__ int wb_slot(int f, int buckets) {
+  const int line = f >> 3;
+  return (line % buckets) * kWbCols + (line / buckets) * 8 + (f & 7);
+}
+
+__device__ __forceinline__ int wb_column(int slot, int buckets) {
+  const int local = slot & (kWbCols - 1);
+  return ((local >> 3) * buckets + slot / kWbCols) * 8 + (local & 7);
+}
+
+// The tile pass on launch tile `tile`: its column runs' pairwise sums, and
+// its row of the bucket table. K: the sort key, 32 bits where idx << 10 |
+// position fits below the all-ones key, else 64.
+template <typename K>
+__device__ void wb_tile(const WritebackParams& p, const WritebackTenants& t, int tile,
+                        WbTileSmem& s) {
+  constexpr K kNone = ~K(0);
+  K* keys = reinterpret_cast<K*>(s.keys);
+  int u = 0;
+  while (u + 1 < t.tenants && t.first_tile[u + 1] <= tile) ++u;
+  const long long o0 = (long long)(tile - t.first_tile[u]) * kWbTile;
+  const int n = (int)min((long long)kWbTile, (long long)t.valid[u] * p.tokens - o0);
+  int width = 64;  // wb_sort's least
+  while (width < n) width <<= 1;
+  const int tid = threadIdx.x;
+  const float* alpha = p.alpha + t.src_row[u];
+  for (int i = tid; i < width; i += kWbThreads) {
+    K key = kNone;
+    if (i < n) {
+      const long long o = o0 + i;
+      const int r = (int)(o / p.tokens), j = (int)(o - (long long)r * p.tokens);
+      const size_t at = (size_t)(t.token_row[u] + r) * p.tokens + j;
+      const int f = __ldg(p.idx + at);
+      s.contrib[i] = __fmul_rn(__ldg(p.val + at), __ldg(alpha + r));
+      if (f >= 0 && f < p.features) key = ((K)wb_slot(f, p.buckets) << kWbTileBits) | (K)i;
+    }
+    keys[i] = key;
+  }
+  __syncthreads();
+  wb_sort(keys, width);
+  for (int i = tid; i < width; i += kWbThreads) {
+    const K key = keys[i];
+    int h = i, len = 0;
+    if (key != kNone) {
+      const K first = key >> kWbTileBits << kWbTileBits;
+      h = lower_bound_in(keys, width, first);
+      len = lower_bound_in(keys, width, (K)(first + (K)kWbTile)) - h;
+      s.sums[i] = s.contrib[(int)(key & (K)(kWbTile - 1))];
+    }
+    s.head[i] = (short)h;
+    s.len[i] = (short)len;
+  }
+  __syncthreads();
+  // each run's pairwise sum, every run at once: step d adds r + d into r
+  // for the run's positions r = 0, 2d, 4d, ...
+  for (int d = 1; d < width; d <<= 1) {
+    for (int i = tid; i < width; i += kWbThreads) {
+      const int r = i - s.head[i];
+      if ((r & (2 * d - 1)) == 0 && r + d < s.len[i]) s.sums[i] = __fadd_rn(s.sums[i], s.sums[i + d]);
+    }
+    __syncthreads();
+  }
+  // the runs, compacted in column order: thread tid's sorted positions
+  // [e0, e1) in order
+  const int per = (width + kWbThreads - 1) / kWbThreads;
+  const int e0 = min(tid * per, width), e1 = min(e0 + per, width);
+  int heads = 0;
+  for (int i = e0; i < e1; ++i) heads += s.len[i] > 0 && s.head[i] == i;
+  int runs;
+  int k = block_scan(heads, s.scan, &runs);
+  const size_t base = (size_t)tile * kWbTile;
+  for (int i = e0; i < e1; ++i)
+    if (s.len[i] > 0 && s.head[i] == i) {
+      const int f = (int)(keys[i] >> kWbTileBits);  // the column's slot
+      s.runs[k] = f;
+      p.run_col[base + k] = f;
+      p.run_sum[base + k] = s.sums[i];
+      ++k;
+    }
+  __syncthreads();
+  int* row = p.table + (size_t)tile * (p.buckets + 1);
+  for (int b = tid; b <= p.buckets; b += kWbThreads) row[b] = lower_bound_in(s.runs, runs, b * kWbCols);
+}
+
+// The bucket pass on bucket b of tenant u: its 256 columns, a thread each.
+// The tenant's tiles are read kWbGroup at a time (the table's counts, a
+// block scan) and their tile sums in the bucket gathered in tile order,
+// kWbWindow at a time, sorted by (column, gathered position). Column c's
+// sums in a window are its tile sums of running ranks [k0, k0 + m): the
+// window's steps add, in parallel, every aligned block of 2^j of them that
+// lies inside (rank r ≡ 0 mod 2d adds r + d where r + 2d <= k0 + m), and
+// the column's thread pushes the largest aligned blocks that cover [k0, k0
+// + m), in order, into its running sum: the same tree as pushing each.
+__device__ void wb_bucket(const WritebackParams& p, const WritebackTenants& t, int u, int b,
+                          WbBucketSmem& s) {
+  const int tid = threadIdx.x;
+  PairSum sum;
+  sum.count = 0;
+  const int t1 = t.first_tile[u + 1];
+  for (int g0 = t.first_tile[u]; g0 < t1; g0 += kWbGroup) {
+    // this thread's kWbGroupPer tiles of the group: their counts at once
+    int lo[kWbGroupPer], cnt[kWbGroupPer], mine = 0;
+#pragma unroll
+    for (int k = 0; k < kWbGroupPer; ++k) {
+      const int gt = g0 + tid * kWbGroupPer + k;
+      lo[k] = cnt[k] = 0;
+      if (gt < t1) {
+        const int* row = p.table + (size_t)gt * (p.buckets + 1) + b;
+        lo[k] = __ldcg(row);
+        cnt[k] = __ldcg(row + 1) - lo[k];
+      }
+      mine += cnt[k];
+    }
+    int total;
+    int before = block_scan(mine, s.scan, &total);
+#pragma unroll
+    for (int k = 0; k < kWbGroupPer; ++k) {
+      s.pre[tid * kWbGroupPer + k] = before;
+      s.first[tid * kWbGroupPer + k] = lo[k];
+      before += cnt[k];
+    }
+    if (tid == 0) s.pre[kWbGroup] = total;
+    __syncthreads();
+    for (int w0 = 0; w0 < total; w0 += kWbWindow) {
+      const int n = min(kWbWindow, total - w0);
+      int width = 64;  // wb_sort's least
+      while (width < n) width <<= 1;
+      for (int i = tid; i < width; i += kWbThreads) {
+        unsigned key = ~0u;
+        if (i < n) {
+          const int g = w0 + i;
+          const int k = lower_bound_in(s.pre, kWbGroup + 1, g + 1) - 1;  // the tile of entry g
+          const size_t at = (size_t)(g0 + k) * kWbTile + s.first[k] + (g - s.pre[k]);
+          s.vals[i] = __ldcg(p.run_sum + at);
+          key = (unsigned)(__ldcg(p.run_col + at) - b * kWbCols) << kWbWindowBits | (unsigned)i;
+        }
+        s.keys[i] = key;
+      }
+      __syncthreads();
+      wb_sort(s.keys, width);
+      const unsigned own = (unsigned)tid << kWbWindowBits;
+      const int a = lower_bound_in(s.keys, width, own);
+      const int m = lower_bound_in(s.keys, width, own + (unsigned)kWbWindow) - a;
+      s.col_first[tid] = a;
+      s.col_len[tid] = m;
+      s.col_rank[tid] = sum.count;
+      for (int i = tid; i < width; i += kWbThreads) {
+        const unsigned key = s.keys[i];
+        if (key != ~0u) s.sums[i] = s.vals[key & (unsigned)(kWbWindow - 1)];
+      }
+      __syncthreads();
+      for (int d = 1; d < width; d <<= 1) {
+        for (int i = tid; i < width; i += kWbThreads) {
+          const unsigned key = s.keys[i];
+          if (key == ~0u) continue;
+          const int c = (int)(key >> kWbWindowBits), q = i - s.col_first[c];
+          const unsigned r = s.col_rank[c] + (unsigned)q;  // the running rank
+          if ((r & (unsigned)(2 * d - 1)) == 0 && q + 2 * d <= s.col_len[c])
+            s.sums[i] = __fadd_rn(s.sums[i], s.sums[i + d]);
+        }
+        __syncthreads();
+      }
+      // the largest aligned blocks covering this column's ranks, in order
+      for (int q = 0; q < m;) {
+        const unsigned r = sum.count;
+        int l = 0;
+        while (l < 31 && ((r >> l) & 1u) == 0 && q + (2 << l) <= m) ++l;
+        sum.push(s.sums[a + q], l);
+        q += 1 << l;
+      }
+      __syncthreads();
+    }
+  }
+  const int col = wb_column(b * kWbCols + tid, p.buckets);
+  if (col < p.features) {
+    const size_t at = (size_t)t.slot[u] * (p.features + 4) + col;
+    const float cw = __fmul_rn(__ldg(p.w_prev + at), __ldg(p.c + t.slot[u]));
+    p.w_out[at] = sum.count ? __fadd_rn(cw, sum.total()) : cw;
+  }
+}
+
+// Tenant u's 4 numeric columns: w_num·c + Nᵀα over its rows, each thread's
+// rows in order, then the warp's butterfly, then the warps in order;
+// exactly c·w_num for a dry tenant. red [4·kWbWarps] is its scratch.
+__device__ void wb_numeric(const WritebackParams& p, const WritebackTenants& t, int u,
+                           float* red) {
+  const int tid = threadIdx.x, rows = t.valid[u];
+  const float* alpha = p.alpha + t.src_row[u];
+  const float* num = p.numeric + (size_t)t.src_row[u] * 4;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int r = tid; r < rows; r += kWbThreads) {
+    const float a = __ldg(alpha + r);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[j] = fmaf(__ldg(num + 4 * (size_t)r + j), a, acc[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) acc[j] = warp_sum(acc[j]);
+  if ((tid & 31) == 0)
+    for (int j = 0; j < 4; ++j) red[j * kWbWarps + (tid >> 5)] = acc[j];
+  __syncthreads();
+  if (tid < 4) {
+    const size_t at = (size_t)t.slot[u] * (p.features + 4) + p.features + tid;
+    const float cw = __fmul_rn(__ldg(p.w_prev + at), __ldg(p.c + t.slot[u]));
+    float s = 0.f;
+    for (int w = 0; w < kWbWarps; ++w) s += red[tid * kWbWarps + w];
+    p.w_out[at] = rows ? __fadd_rn(cw, s) : cw;
+  }
+}
+
+// B8: the tile pass over the launch's tiles, one grid barrier, the bucket
+// pass over its items (each tenant's buckets, then its numeric columns).
+// A cooperative launch: every CTA resident at once.
+template <typename K>
+__global__ void __launch_bounds__(kWbThreads) writeback_kernel(const WritebackParams p,
+                                                               const WritebackTenants t) {
+  __shared__ __align__(16) WbSmem smem;
+  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+    wb_tile<K>(p, t, tile, smem.tile);
+    __syncthreads();
+  }
+  cg::this_grid().sync();
+  const int per = p.buckets + 1;
+  for (int item = blockIdx.x; item < t.tenants * per; item += gridDim.x) {
+    const int u = item / per, b = item - u * per;
+    if (b < p.buckets)
+      wb_bucket(p, t, u, b, smem.bucket);
+    else
+      wb_numeric(p, t, u, smem.bucket.vals);
+    __syncthreads();
+  }
 }
 
 // every instantiation of B7's tenant form for a residual mode, as
@@ -1497,44 +1875,77 @@ extern "C" int twtml_dual_sgd_tenants(
                                           (size_t)shared_bytes, static_cast<cudaStream_t>(stream));
 }
 
+// B8's cooperative launch's CTAs an SM at most, on the current device (the
+// occupancy of writeback_kernel at its block size). Returns a CUDA error.
+extern "C" int twtml_writeback_blocks_per_sm(int* blocks) {
+  int wide = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, reinterpret_cast<const void*>(writeback_kernel<unsigned>), kWbThreads, 0);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &wide, reinterpret_cast<const void*>(writeback_kernel<CountKey>), kWbThreads, 0);
+  *blocks = wide < *blocks ? wide : *blocks;
+  return (int)err;
+}
+
 // B8: for each tenant u of `tenants` (a single batch of B rows is one
-// tenant: slot, c_row and src_row 0, valid B), w_out[slot[u]] =
-// c[slot[u]]·w_prev[slot[u]] + Cᵀα over its valid[u] rows of counts (from
-// row c_row[u]; kind 0: int8, 1: f32; cols a multiple of 16) and α and
-// numeric (from row src_row[u] of the [M·B] rows), as B8 on those rows.
-// w_prev, w_out [M, features + 4], c [M] f32. Returns the launch's CUDA
-// error.
-extern "C" int twtml_dual_writeback(const void* counts, int kind, int cols, int features,
+// tenant: slot, token_row and src_row 0, valid B), w_out[slot[u]] =
+// c[slot[u]]·w_prev[slot[u]] + Σ val·α over the occurrences of its valid[u]
+// token rows (idx int32 and val f32 [*, tokens], from row token_row[u]; an
+// index outside [0, features) counts nothing) with α of its rows (from row
+// src_row[u] of α [*] f32), and w_num·c + Nᵀα over its numeric rows ([*, 4]
+// f32, from row src_row[u]). w_prev, w_out [M, features + 4] (not the same
+// memory), c [M] f32. scratch: `scratch_ints` 4-byte words, at least
+// writeback_scratch_ints' (ops/fused_gram.py). One cooperative launch of
+// `grid` CTAs on `stream`. Returns the launch's CUDA error.
+extern "C" int twtml_dual_writeback(const void* idx, const void* val, int tokens, int features,
                                     const void* alpha, const void* c, const void* w_prev,
-                                    const void* numeric, void* w_out, int tenants,
-                                    const int* slot, const int* c_row, const int* valid,
+                                    const void* numeric, void* w_out, void* scratch,
+                                    long long scratch_ints, int grid, int tenants,
+                                    const int* slot, const int* token_row, const int* valid,
                                     const int* src_row, void* stream) {
-  if (tenants < 1 || tenants > kGramTenants || cols < features || cols % 16 != 0 ||
-      features < 1 || (kind != 0 && kind != 1))
+  if (tenants < 1 || tenants > kGramTenants || tokens < 1 || features < 1 || grid < 1 ||
+      features > INT_MAX - kWbCols - 4 || w_prev == w_out)
     return (int)cudaErrorInvalidValue;
   WritebackTenants t;
   t.tenants = tenants;
+  t.first_tile[0] = 0;
+  long long tiles = 0;
   for (int u = 0; u < kGramTenants; ++u) {
     const bool in = u < tenants;
-    if (in && (slot[u] < 0 || c_row[u] < 0 || valid[u] < 0 || src_row[u] < 0))
+    if (in && (slot[u] < 0 || token_row[u] < 0 || valid[u] < 0 || src_row[u] < 0))
       return (int)cudaErrorInvalidValue;
     t.slot[u] = in ? slot[u] : 0;
-    t.c_row[u] = in ? c_row[u] : 0;
+    t.token_row[u] = in ? token_row[u] : 0;
     t.valid[u] = in ? valid[u] : 0;
     t.src_row[u] = in ? src_row[u] : 0;
+    if (in) tiles += ((long long)valid[u] * tokens + kWbTile - 1) / kWbTile;
+    if (tiles > INT_MAX / kWbTile) return (int)cudaErrorInvalidValue;
+    t.first_tile[u + 1] = (int)tiles;
   }
-  const dim3 blocks((features + kWbCols - 1) / kWbCols + 1, tenants);  // + the numeric block
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* a = static_cast<const float*>(alpha);
-  const float* cp = static_cast<const float*>(c);
-  const float* wp = static_cast<const float*>(w_prev);
-  const float* num = static_cast<const float*>(numeric);
-  float* wo = static_cast<float*>(w_out);
-  if (kind == 0)
-    writeback_kernel<int8_t><<<blocks, kWbThreads, 0, s>>>(
-        static_cast<const int8_t*>(counts), cols, features, a, cp, wp, num, wo, t);
-  else
-    writeback_kernel<float><<<blocks, kWbThreads, 0, s>>>(
-        static_cast<const float*>(counts), cols, features, a, cp, wp, num, wo, t);
-  return (int)cudaGetLastError();
+  WritebackParams p;
+  p.tokens = tokens;
+  p.features = features;
+  p.buckets = (features + kWbCols - 1) / kWbCols;
+  p.tiles = (int)tiles;
+  const long long runs = tiles * kWbTile;
+  if (scratch_ints < 2 * runs + (p.buckets + 1LL) * tiles || scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
+  p.idx = static_cast<const int*>(idx);
+  p.val = static_cast<const float*>(val);
+  p.alpha = static_cast<const float*>(alpha);
+  p.c = static_cast<const float*>(c);
+  p.w_prev = static_cast<const float*>(w_prev);
+  p.numeric = static_cast<const float*>(numeric);
+  p.w_out = static_cast<float*>(w_out);
+  p.run_col = static_cast<int*>(scratch);
+  p.run_sum = reinterpret_cast<float*>(p.run_col + runs);
+  p.table = p.run_col + 2 * runs;
+  void* args[] = {&p, &t};
+  // 32-bit sort keys where slot << kWbTileBits | position stays below ~0u
+  const void* kernel = (long long)p.buckets * kWbCols <= (long long)(UINT_MAX >> kWbTileBits)
+                           ? reinterpret_cast<const void*>(writeback_kernel<unsigned>)
+                           : reinterpret_cast<const void*>(writeback_kernel<CountKey>);
+  return (int)cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kWbThreads), args, 0,
+                                          static_cast<cudaStream_t>(stream));
 }

@@ -43,7 +43,7 @@ run the ``scatter`` route, the per-iteration gather/scatter loop as torch
 ops (``sparse_sgd_loop``). On ``cuda`` in float32 the Gram route is the
 hand kernels of ``ops/fused_gram.py``: B4 builds the counts C, C·Cᵀ
 (``torch._int_mm`` in the int8 plane) plus N·Nᵀ gives G, B7 runs the dual
-loop in one launch, B8 writes W back; elsewhere (the CPU, bfloat16) it is
+loop in one launch, B8 writes W back from the batch's tokens; elsewhere (the CPU, bfloat16) it is
 the plain ``gram_matrix`` / ``run_dual_loop`` / ``dual_writeback``. The
 plane of G (int8, bf16 or exact) is chosen by the batch's data, as the JAX
 package's ``lax.switch`` chooses it, but from host metadata beside the
@@ -521,8 +521,8 @@ def gram_sgd_parallel(weights, token_idx, token_val, numeric, raw, labels, mask,
     card in float32), summed over ``model`` when the features are split
     over a model axis, an all-gather of the panels over ``data``, the
     numeric block, the dual loop replicated (B7 on the card), then this
-    rank's rows' write-back (B8 on zero weights: Cᵀα_local + Nᵀα_local)
-    summed over ``data``, and W_new = c·W + that sum.
+    rank's rows' write-back (B8 on zero weights, from the rank's token
+    rows: Zᵀα_local + Nᵀα_local) summed over ``data``, and W_new = c·W + that sum.
 
     ``weights`` are this rank's [f_local + 4]: the whole text (the data
     axis alone, ``model`` None) or the slice [lo, lo + f_local) of a
@@ -573,7 +573,8 @@ def gram_sgd_parallel(weights, token_idx, token_val, numeric, raw, labels, mask,
     zeros = torch.zeros_like(weights)
     if kernels:
         delta = fused_gram.dual_writeback_counts(
-            zeros, c, alpha_local, counts[row0:row0 + rows_local], numeric, f_local)
+            zeros, c, alpha_local, g_idx[row0:row0 + rows_local], g_val[row0:row0 + rows_local],
+            numeric, f_local)
     else:
         w_text, w_num = dual_writeback(zeros[:f_local], zeros[f_local:], c, alpha_local,
                                        g_idx[row0:row0 + rows_local],
@@ -688,7 +689,7 @@ def gram_tenants_parallel(weights, token_idx, token_val, numeric, raw, labels, m
     the [M, F + 4] sums; W_new = c·W + that sum. On the card in float32
     the hand kernels' tenant forms: B4's over the segments (once a plane
     present), one library product a tenant's panel, B7's with each tenant's
-    own draws, B8's at this rank's rows of each block (once a plane); else
+    own draws, B8's at this rank's rows of each block (once a tick); else
     the plain pieces tenant by tenant. Inputs are this rank's [M, B_local]
     rows; ``valid_rows`` and ``planes`` this rank's, from the host."""
     m, rows_local = mask.shape
@@ -712,7 +713,7 @@ def gram_tenants_parallel(weights, token_idx, token_val, numeric, raw, labels, m
                    residual_fn=residual_fn)
     if (dev.type == "cuda" and weights.dtype == torch.float32
             and residual_mode(residual_fn) is not None):
-        panels, built = [None] * m, []
+        panels = [None] * m
         for int8, tenants in tenants_by_plane(planes, totals).items():
             counts, at = fused_gram.count_build_tenants(
                 g_idx, g_val, f_text, valid_rows=totals, int8=int8, tenants=tenants,
@@ -720,17 +721,16 @@ def gram_tenants_parallel(weights, token_idx, token_val, numeric, raw, labels, m
             for t, panel in zip(tenants, fused_gram.tenant_gram_blocks(
                     counts, at, [totals[t] for t in tenants], rows=[mine[t] for t in tenants])):
                 panels[t] = panel
-            built.append((tenants, counts, at))
         gs = gather_tenant_panels(panels, table, data,
                                   [planes[t] == PLANE_INT8 for t in range(m)], dev)
         c, alpha, _ = fused_gram.dual_sgd_tenants(
             gs, u_b, y_b, mask_b, num_b, valid_rows=totals, masks=masks, p_prev=p_prev,
             step_sizes=step_sizes, l2_regs=l2_regs, **loop_kw)
-        zeros, delta = torch.zeros_like(weights), torch.zeros_like(weights)
-        for tenants, counts, at in built:
-            fused_gram.dual_writeback_tenants(
-                zeros, c, alpha, counts, num_b, f_text, valid_rows=[v for _, v in mine],
-                tenants=tenants, at=at, first_rows=[mine[t][0] for t in tenants], out=delta)
+        # this rank's rows of each block: its rows of each gathered part
+        delta = fused_gram.dual_writeback_tenants(
+            torch.zeros_like(weights), c, alpha, g_idx, g_val, num_b, f_text,
+            valid_rows=[v for _, v in mine], first_rows=[o for o, _ in mine],
+            token_rows=[data.rank * rows_local] * m)
     else:
         blocks = [(g_idx[t, index[t, :p]], g_val[t, index[t, :p]]) for t, p in enumerate(totals)]
         gs = gather_tenant_panels(
@@ -839,8 +839,8 @@ def make_sgd_train_step(
             # H100; the 2^18 gate admits at most 4,096)
             c, alpha, _ = fused_gram.dual_sgd(g, raw, labels, mask, masks=masks,
                                               p_prev=p_prev, **loop_kw)
-            return fused_gram.dual_writeback_counts(weights, c, alpha, counts, numeric,
-                                                    f_text)
+            return fused_gram.dual_writeback_counts(weights, c, alpha, token_idx, token_val,
+                                                    numeric, f_text)
         return gram_sgd_plain(weights, token_idx, token_val, numeric, raw, labels, mask,
                               plane=plane, int8_plane=int8_plane, p_prev=p_prev, masks=masks,
                               **loop_kw)
@@ -959,7 +959,7 @@ def make_sgd_tenant_step(
     the f32 plane does not widen the others), one library G product a
     tenant with rows over its valid rows (``tenant_gram_blocks``), B7's
     tenant form once (N·Nᵀ added in its prologue) and B8's tenant form once
-    a plane; elsewhere (the CPU, bfloat16) the plain pieces on each
+    (it reads the tokens, whatever the planes); elsewhere (the CPU, bfloat16) the plain pieces on each
     tenant's valid rows, as ``make_sgd_train_step``'s Gram route; the
     ``scatter`` route (and a batch over the gate) the batched scatter loop
     (``sparse_sgd_loop`` with a step table). Every tenant shares the ``-b``
@@ -1040,23 +1040,18 @@ def make_sgd_tenant_step(
         if (weights.device.type == "cuda" and weights.dtype == torch.float32
                 and residual_mode(residual_fn) is not None):
             gs = [None] * m
-            built = []
             for int8, tenants in tenants_by_plane(planes, valid).items():
                 counts, at = fused_gram.count_build_tenants(
                     token_idx, token_val, f_text, valid_rows=valid, int8=int8, tenants=tenants)
                 for t, g in zip(tenants, fused_gram.tenant_gram_blocks(
                         counts, at, [valid[t] for t in tenants])):
                     gs[t] = g
-                built.append((tenants, counts, at))
             c, alpha, _ = fused_gram.dual_sgd_tenants(
                 gs, raw, labels, mask, numeric, valid_rows=valid, masks=masks, p_prev=p_prev,
                 step_sizes=step_sizes, l2_regs=l2_regs, **loop_kw)
-            w_new = torch.empty_like(weights)
-            for tenants, counts, at in built:
-                fused_gram.dual_writeback_tenants(weights, c, alpha, counts, numeric, f_text,
-                                                  valid_rows=valid, tenants=tenants, at=at,
-                                                  out=w_new)
-            return w_new
+            return fused_gram.dual_writeback_tenants(weights, c, alpha, token_idx, token_val,
+                                                     numeric, f_text, valid_rows=valid,
+                                                     out=torch.empty_like(weights))
         return torch.stack([
             gram_sgd_plain(weights[t], token_idx[t, :v], token_val[t, :v], numeric[t, :v],
                            raw[t, :v], labels[t, :v], mask[t, :v], plane=planes[t],

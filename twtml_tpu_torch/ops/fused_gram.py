@@ -17,9 +17,16 @@ fusions of ``twtml_tpu/ops/gram.py`` and ``twtml_tpu/models/sgd.py``
   barrier and one pass over G an iteration, G's rows in registers (or
   shared memory) across the loop. Twin: ``dual_sgd_reference``
   (models/sgd.py ``run_dual_loop`` as torch ops).
-- B8 ``dual_writeback_counts``: W_new = c·W_prev + Cᵀα (and the numeric
-  columns' w_num·c + Nᵀα) in one fixed-order column pass over C. Twin:
-  ``dual_writeback_reference``.
+- B8 ``dual_writeback_counts``: W_new = c·W_prev + Zᵀα from the batch's
+  [B, L] tokens, α and numeric rows (it reads no C): one cooperative launch
+  that sorts tiles of WRITEBACK_TILE occurrences by column in shared memory
+  and sums each column's run pairwise, then, after one grid barrier, each
+  bucket of 256 columns (32 lines of 8, interleaved over the buckets)
+  gathers its tile sums in tile order and adds them in the same pairwise
+  tree (``writeback_plan`` sizes its scratch). Plain
+  version: ``dual_writeback_reference``, the scatter write-back of
+  ``ops/gram.py``; the kernel's own order on the host:
+  ``dual_writeback_in_order``.
 
 The tenant forms (the vmap form of a tenant stack, ``jax.vmap`` of the
 step in the JAX package) take M parts of B rows and each part's valid rows:
@@ -29,14 +36,15 @@ product a tenant over its valid rows), ``dual_sgd_tenants`` (B7's, M dual
 loops in one cooperative launch, ``dual_tenants_plan``; its timing
 instantiation ``dual_tenants_probe``, read by ``dual_tenants_probe_split``)
 and ``dual_writeback_tenants`` (B8's, every row bitwise B8's on the same
-rows); each plain version is M calls of the single-tenant one. B4, B7 and
+rows, every tenant in one launch whatever its plane); each plain version is
+M calls of the single-tenant one. B4, B7 and
 B8 each have one kernel and one C entry: a single batch is their tenant
 table of one tenant. Over a data axis (``models/sgd.py``
 ``gram_tenants_parallel``) the same forms take a rank's share: B4's each
 tenant's rows of every rank as segments of the gathered parts,
 ``tenant_gram_blocks(rows=)`` the rank's row panels, B7's each tenant's own
 draws ([N, M, B] masks), B8's the rank's rows of each block
-(``first_rows``).
+(``first_rows``) and of each gathered part of the tokens (``token_rows``).
 
 The kernels are ``csrc/gram.cu`` (its header gives each design). None uses
 float atomics: reruns are bitwise equal. Routing as in ops/fused_sgd.py: a
@@ -77,7 +85,11 @@ DUAL_MAX_GRID = 160  # CTAs a launch (the decider warp reads 5 CTAs' partials a 
 # [warps], the converged flag; a multiple of 16 bytes
 DUAL_RED_FLOATS = (DUAL_WARPS * DUAL_ROWS + DUAL_WARPS + 4) & ~3
 WRITEBACK_THREADS = 256
-WRITEBACK_COLUMNS = 128  # text columns a block of B8 owns
+WRITEBACK_COLUMNS = 256  # columns of a B8 bucket: a thread each in its bucket pass
+WRITEBACK_TILE = 512  # occurrences a tile of B8's tile pass sorts
+WRITEBACK_WINDOW = 2048  # tile sums B8's bucket pass sorts at once
+WRITEBACK_GROUP = 2048  # tiles B8's bucket pass reads the table of at once
+WRITEBACK_CTAS_PER_SM = 4  # B8's grid: at most this many CTAs an SM
 TENANTS_PER_LAUNCH = 32  # tenants a tenant-form launch (B7's: a lane of its decider warp each)
 # B7's tenant form's timing probe: the phase edges it stamps in the prologue
 # (entry, G staged), then in each iteration (the ends of DUAL_PROBE_PHASES)
@@ -90,7 +102,9 @@ NVCC_DEFINES = tuple(
         ("DUAL_THREADS", DUAL_THREADS), ("DUAL_ROWS", DUAL_ROWS),
         ("DUAL_REG_COLUMNS", DUAL_REG_COLUMNS), ("DUAL_MAX_GRID", DUAL_MAX_GRID),
         ("DUAL_RED_FLOATS", DUAL_RED_FLOATS), ("WRITEBACK_THREADS", WRITEBACK_THREADS),
-        ("WRITEBACK_COLUMNS", WRITEBACK_COLUMNS), ("TENANTS_PER_LAUNCH", TENANTS_PER_LAUNCH),
+        ("WRITEBACK_COLUMNS", WRITEBACK_COLUMNS), ("WRITEBACK_TILE", WRITEBACK_TILE),
+        ("WRITEBACK_WINDOW", WRITEBACK_WINDOW), ("WRITEBACK_GROUP", WRITEBACK_GROUP),
+        ("TENANTS_PER_LAUNCH", TENANTS_PER_LAUNCH),
         ("DUAL_PROBE_PROLOGUE_EDGES", DUAL_PROBE_PROLOGUE_EDGES),
         ("DUAL_PROBE_ITERATION_EDGES", DUAL_PROBE_ITERATION_EDGES),
     )
@@ -396,6 +410,48 @@ def dual_tenants_barriers(valid_rows, iterations, *, num_iterations: int,
     return min(max(stops) + 1, n) if max(stops) < n else n
 
 
+class WritebackPlan(NamedTuple):
+    """One launch of B8 over some tenants' rows (a single batch: one
+    tenant), at L tokens a row and F columns: tenant i's occurrences
+    (its v rows' L tokens in (row, j) order) are its tiles [first_tile[i],
+    first_tile[i + 1]) of the launch's, WRITEBACK_TILE occurrences each (a
+    tenant's last one shorter); ``buckets`` = ceil(F / WRITEBACK_COLUMNS)
+    (bucket b: the 32 lines of 8 columns b, b + buckets, ...). The scratch
+    holds every tile's runs (a column's slot and a sum, WRITEBACK_TILE of
+    each) and the bucket table [tiles, buckets + 1]: ``scratch_ints``
+    4-byte words. The bucket pass's items are each
+    tenant's buckets and its numeric columns."""
+
+    first_tile: tuple
+    buckets: int
+    scratch_ints: int
+
+    @property
+    def tiles(self) -> int:
+        return self.first_tile[-1]
+
+    @property
+    def items(self) -> int:
+        return (len(self.first_tile) - 1) * (self.buckets + 1)
+
+    def grid(self, sm_count: int, ctas_per_sm: int) -> int:
+        """The cooperative launch's CTAs: one a tile or item, at most
+        ``ctas_per_sm`` an SM (every CTA resident at once)."""
+        return max(1, min(sm_count * ctas_per_sm, max(self.tiles, self.items)))
+
+
+def writeback_plan(valid_rows, tokens: int, f_text: int) -> WritebackPlan:
+    """B8's launch over tenants of ``valid_rows`` rows each (csrc/gram.cu
+    twtml_dual_writeback computes the same tiles and checks the scratch)."""
+    first = [0]
+    for v in valid_rows:
+        first.append(first[-1] + -(-int(v) * tokens // WRITEBACK_TILE))
+    buckets = -(-f_text // WRITEBACK_COLUMNS)
+    tiles = first[-1]
+    return WritebackPlan(first_tile=tuple(first), buckets=buckets,
+                         scratch_ints=2 * tiles * WRITEBACK_TILE + (buckets + 1) * tiles)
+
+
 # ---------------------------------------------------------------- plain twins
 
 
@@ -464,14 +520,66 @@ def dual_sgd_reference(g, u, labels, mask, *, masks=None, p_prev, num_iterations
     return dual["c"], dual["alpha"], iterations
 
 
-def dual_writeback_reference(weights, c, alpha, counts, numeric, f_text: int):
-    """B8's twin: W_new = c·W_prev + Cᵀα over the text columns, w_num·c + Nᵀα
-    over the 4 numeric ones, from the count build's (padded) C."""
-    b = alpha.shape[0]
-    cf = counts[:b, :f_text].float()
-    text = weights[:f_text] * c + cf.T @ alpha
+def dual_writeback_reference(weights, c, alpha, token_idx, token_val, numeric, f_text: int):
+    """B8's plain version: the scatter write-back of ``ops/gram.py``
+    ``dual_writeback`` (W_new = c·W_prev + Zᵀα, each occurrence's val·α
+    added on its own, and w_num·c + Nᵀα) over the [B, L] tokens whose index
+    lies in [0, f_text): the others count nothing, as in the kernel."""
+    keep = (token_idx >= 0) & (token_idx < f_text)
+    contrib = (token_val.float() * alpha[:, None])[keep]
+    text = (weights[:f_text] * c).index_add_(0, token_idx[keep].long(), contrib)
     num = weights[f_text:] * c + numeric.float().T @ alpha
     return torch.cat([text, num])
+
+
+def _runs_pairwise(keys, vals):
+    """Each run of equal ``keys`` (sorted) summed pairwise over its ``vals``
+    (f32, in order), as B8's tile pass sums a column's run: position r of a
+    run adds r + d for r = 0, 2d, 4d, ... and d = 1, 2, 4, ... Returns (the
+    runs' keys, their sums)."""
+    n = keys.numel()
+    if n == 0:
+        return keys, vals
+    starts = torch.nonzero(torch.cat([torch.ones(1, dtype=torch.bool),
+                                      keys[1:] != keys[:-1]])).flatten()
+    lengths = torch.diff(torch.cat([starts, torch.tensor([n])]))
+    r = torch.arange(n) - torch.repeat_interleave(starts, lengths)
+    length = torch.repeat_interleave(lengths, lengths)
+    sums = vals.clone()
+    d = 1
+    while d < int(lengths.max()):
+        i = torch.nonzero(((r & (2 * d - 1)) == 0) & (r + d < length)).flatten()
+        sums[i] = sums[i] + sums[i + d]
+        d *= 2
+    return keys[starts], sums[starts]
+
+
+def dual_writeback_in_order(weights, c, alpha, token_idx, token_val, numeric, f_text: int):
+    """B8's result with its text columns summed in the kernel's own order,
+    on the host: each column's contributions val·α (f32) summed pairwise
+    within each WRITEBACK_TILE occurrences of the [B, L] tokens in (row, j)
+    order, those tile sums pairwise in tile order (the bucket pass's running
+    sum forms the same tree), then c·W_prev + that sum (exactly c·W_prev
+    where no token lands; an index outside [0, f_text) counts nothing). The
+    numeric columns are w_num·c + Nᵀα in torch's order, not the kernel's.
+    chip_smoke.py holds the kernel's text columns bitwise against it;
+    tests/test_torch_writeback_form.py holds it against a step-by-step
+    numpy model of the kernel. Returns a tensor on ``weights``' device."""
+    w, c, a, idx, val, num = (t.detach().cpu() for t in
+                              (weights, c, alpha, token_idx, token_val, numeric))
+    f = idx.reshape(-1).long()
+    contrib = (val.float() * a[:, None]).reshape(-1)
+    keep = (f >= 0) & (f < f_text)
+    tile = torch.arange(f.numel()) // WRITEBACK_TILE
+    key = (tile * f_text + f)[keep]  # positions ascending: a stable sort keeps them so
+    order = torch.sort(key, stable=True).indices
+    tile_keys, tile_sums = _runs_pairwise(key[order], contrib[keep][order])
+    cols = tile_keys % f_text  # in (tile, column) order: a stable sort by column keeps tile order
+    order = torch.sort(cols, stable=True).indices
+    col_keys, col_sums = _runs_pairwise(cols[order], tile_sums[order])
+    text = w[:f_text] * c
+    text[col_keys] = text[col_keys] + col_sums
+    return torch.cat([text, w[f_text:] * c + num.float().T @ a]).to(weights.device)
 
 
 def _segment_rows(t, m: int, v: int, segments):
@@ -542,19 +650,23 @@ def _tenant_draws(masks, m: int, v: int):
     return (masks[:, m] if masks.dim() == 3 else masks)[:, :v]
 
 
-def dual_writeback_tenants_reference(weights, c, alpha, counts, numeric, f_text: int, *,
-                                     valid_rows, tenants, at, out=None, first_rows=None):
+def dual_writeback_tenants_reference(weights, c, alpha, token_idx, token_val, numeric,
+                                     f_text: int, *, valid_rows, tenants=None, out=None,
+                                     first_rows=None, token_rows=None):
     """B8's tenant form's plain version: for each tenant m of ``tenants``
-    (its block of C from row ``at[i]``), B8's twin on its ``valid_rows[m]``
-    rows from row ``first_rows[i]`` of its block and of its α and numeric
-    rows (default 0), into row m of ``out`` (default zeros like
+    (default every part), B8's plain version on its ``valid_rows[m]`` rows:
+    α and numeric rows from row ``first_rows[i]`` of its part (default 0),
+    tokens from row ``token_rows[i]`` of its part of the [M, B', L] tokens
+    (default ``first_rows[i]``), into row m of ``out`` (default zeros like
     ``weights``)."""
+    tenants = range(alpha.shape[0]) if tenants is None else tenants
     out = torch.zeros_like(weights) if out is None else out
     first_rows = (0,) * len(tenants) if first_rows is None else first_rows
-    for m, first, r0 in zip(tenants, at, first_rows):
+    token_rows = first_rows if token_rows is None else token_rows
+    for m, r0, k0 in zip(tenants, first_rows, token_rows):
         v = int(valid_rows[m])
         out[m] = dual_writeback_reference(weights[m], c[m], alpha[m, r0:r0 + v],
-                                          counts[first + r0:first + r0 + v],
+                                          token_idx[m, k0:k0 + v], token_val[m, k0:k0 + v],
                                           numeric[m, r0:r0 + v], f_text)
     return out
 
@@ -625,13 +737,15 @@ _ENTRIES = {
         + [ctypes.c_void_p]  # stream
     ),
     "twtml_dual_writeback": (
-        [ctypes.c_void_p]  # counts
-        + [ctypes.c_int] * 3  # kind, cols, features
-        + [ctypes.c_void_p] * 5  # alpha, c, w_prev, numeric, w_out
-        + [ctypes.c_int]  # tenants
-        + [ctypes.POINTER(ctypes.c_int)] * 4  # slot, c_row, valid, src_row
+        [ctypes.c_void_p] * 2  # idx, val
+        + [ctypes.c_int] * 2  # tokens, features
+        + [ctypes.c_void_p] * 6  # alpha, c, w_prev, numeric, w_out, scratch
+        + [ctypes.c_longlong]  # scratch_ints
+        + [ctypes.c_int] * 2  # grid, tenants
+        + [ctypes.POINTER(ctypes.c_int)] * 4  # slot, token_row, valid, src_row
         + [ctypes.c_void_p]  # stream
     ),
+    "twtml_writeback_blocks_per_sm": [ctypes.POINTER(ctypes.c_int)],
 }
 
 
@@ -804,35 +918,76 @@ def dual_barrier_probe(grid: int, crossings: int) -> None:
               "dual_barrier_probe")
 
 
-def dual_writeback_counts(weights, c, alpha, counts, numeric, f_text: int):
-    """B8: W_new [F+4] = c·W_prev + Cᵀα over the text columns (C the count
-    build's [≥B, cols] int8 or f32 counts; rows past B are not read) and
-    w_num·c + Nᵀα over the numeric ones, each column summed over the rows
-    in a fixed order. ``c`` is a [] f32 tensor, ``alpha`` [B]."""
+@functools.cache
+def writeback_ctas_per_sm(index: int) -> int:
+    """B8's CTAs an SM on CUDA device ``index``: its occupancy at its block
+    size, at most WRITEBACK_CTAS_PER_SM."""
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        _raise_on(_entry("twtml_writeback_blocks_per_sm")(ctypes.byref(blocks)),
+                  "B8's occupancy")
+    return max(1, min(blocks.value, WRITEBACK_CTAS_PER_SM))
+
+
+def _check_writeback(weights, c, alpha, token_idx, token_val, numeric, f_text, lead):
+    """B8's arguments on the card: ``lead`` is () for a single batch, (M,)
+    for a tenant stack."""
+    dev = weights.device
+    l = token_idx.shape[-1]
+    b = alpha.shape[-1]
+    _check("weights", weights, (*lead, f_text + 4), torch.float32, dev)
+    _check("c", c, lead, torch.float32, dev)
+    _check("alpha", alpha, (*lead, b), torch.float32, dev)
+    _check("numeric", numeric, (*lead, b, 4), torch.float32, dev)
+    _check("token_idx", token_idx, (*lead, token_idx.shape[-2], l), torch.int32, dev)
+    _check("token_val", token_val, tuple(token_idx.shape), torch.float32, dev)
+    if l < 1:
+        raise ValueError("dual_writeback: rows of L >= 1 tokens")
+
+
+def _launch_writeback(weights, c, alpha, token_idx, token_val, numeric, w_out, f_text, *,
+                      slots, token_rows, valid, src_rows, what):
+    """One cooperative launch of ``writeback_kernel`` over the tenants
+    ``slots`` (at most TENANTS_PER_LAUNCH; rows as twtml_dual_writeback
+    takes them) on the current device and stream."""
+    if w_out.data_ptr() == weights.data_ptr():
+        raise ValueError(f"{what}: the output must not be the weights it reads")
+    l = token_idx.shape[-1]
+    sm_count, _ = device_limits(torch.cuda.current_device())
+    plan = writeback_plan(valid, l, f_text)
+    scratch = torch.empty((max(plan.scratch_ints, 1),), dtype=torch.int32, device=w_out.device)
+    _raise_on(_entry("twtml_dual_writeback")(
+        token_idx.data_ptr(), token_val.data_ptr(), l, f_text, alpha.data_ptr(), c.data_ptr(),
+        weights.data_ptr(), numeric.data_ptr(), w_out.data_ptr(), scratch.data_ptr(),
+        scratch.numel(), plan.grid(sm_count, writeback_ctas_per_sm(torch.cuda.current_device())),
+        len(slots), _ints(slots), _ints(token_rows), _ints(valid), _ints(src_rows), _stream()),
+        what)
+
+
+def dual_writeback_counts(weights, c, alpha, token_idx, token_val, numeric, f_text: int):
+    """B8: W_new [F+4] = c·W_prev + Zᵀα from the batch's tokens (``token_idx``
+    int32 and ``token_val`` f32 [B, L], as B4 takes them; an index outside
+    [0, f_text) counts nothing) and w_num·c + Nᵀα over the numeric ones,
+    each column summed in a fixed tree. ``c`` is a [] f32 tensor, ``alpha``
+    [B], ``numeric`` [B, 4]. On the card one cooperative launch of
+    ``writeback_kernel`` (the batch as its tenant table's one tenant),
+    counted in ``dual_writeback_counts.launches``; on the CPU the plain
+    version. (The name is the route's counter's: B8 read the count build's
+    C before it read the tokens.)"""
     dev = weights.device
     if dev.type == "cpu":
-        return dual_writeback_reference(weights, c, alpha, counts, numeric, f_text)
+        return dual_writeback_reference(weights, c, alpha, token_idx, token_val, numeric, f_text)
     if dev.type != "cuda":
         raise ValueError(f"dual_writeback_counts takes cpu or cuda tensors, got {dev}")
-    b = alpha.shape[0]
-    rows, cols = counts.shape
-    _check("weights", weights, (f_text + numeric.shape[1],), torch.float32, dev)
-    _check("alpha", alpha, (b,), torch.float32, dev)
-    _check("c", c, (), torch.float32, dev)
-    _check("numeric", numeric, (b, 4), torch.float32, dev)
-    if (counts.dtype not in COUNT_KINDS or counts.device != dev or not counts.is_contiguous()
-            or rows < b or cols < f_text or cols % 16):
-        raise ValueError(f"counts must be contiguous int8 or float32 [>= {b}, >= {f_text}] "
-                         f"(columns a multiple of 16) on {dev}, got {counts.dtype} "
-                         f"{tuple(counts.shape)}")
+    if token_idx.dim() != 2 or token_idx.shape[0] != alpha.shape[0]:
+        raise ValueError(f"token_idx must be [B, L] for alpha [{alpha.shape[0]}], got "
+                         f"{tuple(token_idx.shape)}")
+    _check_writeback(weights, c, alpha, token_idx, token_val, numeric, f_text, ())
     with torch.cuda.device(dev):
         w_out = torch.empty_like(weights)
-        # the batch as the tenant table's one tenant
-        _raise_on(_entry("twtml_dual_writeback")(
-            counts.data_ptr(), COUNT_KINDS[counts.dtype], cols, f_text, alpha.data_ptr(),
-            c.data_ptr(), weights.data_ptr(), numeric.data_ptr(), w_out.data_ptr(), 1,
-            _ints([0]), _ints([0]), _ints([b]), _ints([0]), _stream()),
-            "dual_writeback_counts")
+        _launch_writeback(weights, c, alpha, token_idx, token_val, numeric, w_out, f_text,
+                          slots=(0,), token_rows=(0,), valid=(alpha.shape[0],), src_rows=(0,),
+                          what="dual_writeback_counts")
         _count(dual_writeback_counts)
     return w_out
 
@@ -1104,61 +1259,60 @@ def dual_tenants_probe_split(stamps) -> dict:
             "span_us": float(torch.tensor(spans, dtype=torch.float64).median()) if spans else None}
 
 
-def dual_writeback_tenants(weights, c, alpha, counts, numeric, f_text: int, *, valid_rows,
-                           tenants, at, out=None, first_rows=None):
-    """B8's tenant form: for each tenant m of ``tenants`` (its block of the
-    tenant count build's C from row ``at[i]``), row m of ``out`` =
-    c[m]·W_prev[m] + Cᵀα over its first ``valid_rows[m]`` rows (and the
-    numeric columns' w_num·c + Nᵀα), bitwise B8 on those rows.
-    ``weights`` [M, F+4], ``c`` [M], ``alpha`` [M, B], ``numeric`` [M, B,
-    4] f32; ``out`` (default zeros like ``weights``) keeps its other rows.
-    ``first_rows`` (default 0s) starts tenant i's rows at row
-    ``first_rows[i]`` of its block and of its α and numeric rows: a data
-    axis's rank writes back its own rows of each gathered block. On the
-    card one launch of B8's ``writeback_kernel`` (a block a
-    tenant and column block) for each TENANTS_PER_LAUNCH tenants, counted
-    in ``dual_writeback_tenants.launches``; on the CPU the plain version."""
+def dual_writeback_tenants(weights, c, alpha, token_idx, token_val, numeric, f_text: int, *,
+                           valid_rows, tenants=None, out=None, first_rows=None,
+                           token_rows=None):
+    """B8's tenant form: for each tenant m of ``tenants`` (default every
+    part), row m of ``out`` = c[m]·W_prev[m] + Zᵀα over its
+    ``valid_rows[m]`` rows (and the numeric columns' w_num·c + Nᵀα),
+    bitwise B8 on those rows. ``weights`` [M, F+4], ``c`` [M], ``alpha``
+    [M, B], ``numeric`` [M, B, 4] f32, the tokens [M, B', L] (int32
+    indices, f32 values, as B4's tenant form takes them); ``out`` (default
+    zeros like ``weights``, never ``weights`` itself) keeps its other rows.
+    ``first_rows`` (default 0s) starts tenant i's α and numeric rows at row
+    ``first_rows[i]`` of its part, ``token_rows`` (default ``first_rows``)
+    its token rows: a data axis's rank writes back its own rows of each
+    block, from its rows of each gathered part. On the card one cooperative
+    launch of ``writeback_kernel`` for each TENANTS_PER_LAUNCH tenants,
+    whatever their Gram planes, counted in
+    ``dual_writeback_tenants.launches``; on the CPU the plain version."""
     m, b = alpha.shape
     _check_tenant_rows("dual_writeback_tenants", valid_rows, m, b)
-    tenants, at = tuple(int(t) for t in tenants), tuple(int(a) for a in at)
-    if not tenants or len(at) != len(tenants) or any(not 0 <= t < m for t in tenants):
-        raise ValueError(f"dual_writeback_tenants: tenants {tenants} (at {at}) of {m}")
+    if token_idx.dim() != 3 or token_idx.shape[0] != m:
+        raise ValueError(f"dual_writeback_tenants: token_idx must be [{m}, B', L], got "
+                         f"{tuple(token_idx.shape)}")
+    bt = token_idx.shape[1]
+    tenants = tuple(range(m)) if tenants is None else tuple(int(t) for t in tenants)
+    if (not tenants or len(set(tenants)) != len(tenants)
+            or any(not 0 <= t < m for t in tenants)):
+        raise ValueError(f"dual_writeback_tenants: tenants {tenants} of {m}")
     first_rows = (0,) * len(tenants) if first_rows is None else tuple(int(r) for r in first_rows)
-    if len(first_rows) != len(tenants) or any(
-            r < 0 or r + int(valid_rows[t]) > b for t, r in zip(tenants, first_rows)):
-        raise ValueError(f"dual_writeback_tenants: first rows {first_rows} of {b}")
+    token_rows = first_rows if token_rows is None else tuple(int(r) for r in token_rows)
+    for name, rows, cap in (("first rows", first_rows, b), ("token rows", token_rows, bt)):
+        if len(rows) != len(tenants) or any(
+                r < 0 or r + int(valid_rows[t]) > cap for t, r in zip(tenants, rows)):
+            raise ValueError(f"dual_writeback_tenants: {name} {rows} of {cap}")
     dev = weights.device
-    kw = dict(valid_rows=valid_rows, tenants=tenants, at=at, first_rows=first_rows)
+    kw = dict(valid_rows=valid_rows, tenants=tenants, first_rows=first_rows,
+              token_rows=token_rows)
     if dev.type == "cpu":
-        return dual_writeback_tenants_reference(weights, c, alpha, counts, numeric, f_text,
-                                                out=out, **kw)
+        return dual_writeback_tenants_reference(weights, c, alpha, token_idx, token_val, numeric,
+                                                f_text, out=out, **kw)
     if dev.type != "cuda":
         raise ValueError(f"dual_writeback_tenants takes cpu or cuda tensors, got {dev}")
-    _check("weights", weights, (m, f_text + 4), torch.float32, dev)
-    _check("c", c, (m,), torch.float32, dev)
-    _check("alpha", alpha, (m, b), torch.float32, dev)
-    _check("numeric", numeric, (m, b, 4), torch.float32, dev)
-    rows, cols = counts.shape
-    if (counts.dtype not in COUNT_KINDS or counts.device != dev or not counts.is_contiguous()
-            or cols < f_text or cols % 16
-            or any(a + r + int(valid_rows[t]) > rows
-                   for t, a, r in zip(tenants, at, first_rows))):
-        raise ValueError(f"counts must be contiguous int8 or float32 with each tenant's rows "
-                         f"(columns >= {f_text}, a multiple of 16) on {dev}, got "
-                         f"{counts.dtype} {tuple(counts.shape)}")
+    _check_writeback(weights, c, alpha, token_idx, token_val, numeric, f_text, (m,))
     with torch.cuda.device(dev):
         if out is None:
             out = torch.zeros_like(weights)
         _check("out", out, (m, f_text + 4), torch.float32, dev)
         for lo in range(0, len(tenants), TENANTS_PER_LAUNCH):
             part = tenants[lo:lo + TENANTS_PER_LAUNCH]
-            r0 = first_rows[lo:lo + TENANTS_PER_LAUNCH]
-            _raise_on(_entry("twtml_dual_writeback")(
-                counts.data_ptr(), COUNT_KINDS[counts.dtype], cols, f_text, alpha.data_ptr(),
-                c.data_ptr(), weights.data_ptr(), numeric.data_ptr(), out.data_ptr(), len(part),
-                _ints(part), _ints(a + r for a, r in zip(at[lo:lo + TENANTS_PER_LAUNCH], r0)),
-                _ints(int(valid_rows[t]) for t in part), _ints(t * b + r for t, r in zip(part, r0)),
-                _stream()), "dual_writeback_tenants")
+            _launch_writeback(
+                weights, c, alpha, token_idx, token_val, numeric, out, f_text, slots=part,
+                token_rows=[t * bt + r for t, r in zip(part, token_rows[lo:])],
+                valid=[int(valid_rows[t]) for t in part],
+                src_rows=[t * b + r for t, r in zip(part, first_rows[lo:])],
+                what="dual_writeback_tenants")
             _count(dual_writeback_tenants)
     return out
 
